@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+
+  1. device  — require CUDA; print the card's name and power limit; TF32 off.
+  2. build   — compile the hand-written kernels from src/repro_torch/csrc
+               (one nvcc per source, in parallel) and print what ptxas
+               reports per kernel (registers, spills).
+  3. kernels — each kernel against its plain PyTorch version on the card
+               at the serving path's shapes for internvl3-14b at 448^2
+               (flash_refresh_paged at fresh prefill, selective refresh
+               and decode), with the stated tolerance; kernel, plain and library
+               (gather + scaled_dot_product_attention, where one exists)
+               times from CUDA events; the least time the card could take
+               (bytes over 3.35 TB/s, operations over the peak rate of
+               their type).
+  4. serve   — internvl3-14b at full width and depth with random weights
+               made on the card from a seed: 2 streams x 24 frames at
+               448^2 (one fresh and two incremental windows each) through
+               the lockstep Scheduler.  Every kernel must have launched
+               during this run, and no plain version may have run on a
+               CUDA tensor.
+  5. composite — one fresh and one incremental window group at full width
+               and 4 layers, through the kernels and then through
+               kernel_mode("plain"); the yes/no logits must agree.
+
+The line before the last is the JSON kernel table; the last line is
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
+ARCH = "internvl3-14b"
+HW = 448
+SEED = 0
+# attention kernels vs plain: max over (.., head) rows of max |k - p| /
+# max |p|.  The kernel rounds its unnormalised probabilities to bf16 and
+# the plain version its normalised ones, and both round the output: two
+# bf16 steps (2^-7 relative each) of the row's largest value.
+ROW_TOL = 2.0 ** -6
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float, rate: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of ``fn`` on the card from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attn_errors(torch, out_k, out_p):
+    """(max |k - p|, max over (.., head) rows of max |k - p| / max |p|)."""
+    d = (out_k.float() - out_p.float()).abs()
+    scale = out_p.float().abs().amax(-1, keepdim=True)
+    rel = d / scale.clamp_min(torch.finfo(torch.float32).tiny)
+    return float(d.max()), float(rel.max())
+
+
+def codec_cfg():
+    from repro_torch.configs import CodecCfg
+    return CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
+
+
+# ----------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ----------------------------------------------------------------------
+def check_mv_sad(torch, videos):
+    from repro_torch.codec.encoder import motion_compensate
+    from repro_torch.kernels.mv_sad import mv_sad_cuda, mv_sad_plain
+    block, radius = 16, 4
+    cur = torch.as_tensor(videos[0][0][1], device="cuda")
+    prev = torch.round(torch.as_tensor(videos[0][0][0], device="cuda") / 2.0) * 2.0
+    mv_k, sad_k = mv_sad_cuda(cur, prev, block, radius)
+    mv_p, sad_p = mv_sad_plain(cur, prev, block, radius)
+    torch.cuda.synchronize()
+    hb, wb = sad_p.shape
+
+    def sad_at(mv):
+        pred = motion_compensate(prev, mv, block)
+        return (cur - pred).abs().reshape(hb, block, wb, block).sum(dim=(1, 3))
+
+    # rule: MVs equal, except a near tie where the kernel's candidate has
+    # the plain version's minimal SAD within the f32 summation tolerance
+    tol = 1e-4 * torch.clamp(sad_p, min=1.0)
+    flipped = (mv_k != mv_p).any(dim=-1)
+    near_tie = (sad_at(mv_k) - sad_p).abs() <= tol
+    mv_ok = bool((~flipped | near_tie).all())
+    err = float((sad_k - sad_p).abs().max())
+    ok = mv_ok and bool(((sad_k - sad_p).abs() <= tol).all())
+    ms = cuda_ms(torch, lambda: mv_sad_cuda(cur, prev, block, radius), 50)
+    plain = cuda_ms(torch, lambda: mv_sad_plain(cur, prev, block, radius), 10)
+    H, W = cur.shape
+    n_bytes = 2 * H * W * 4 + hb * wb * (2 * 4 + 4)
+    b_ms, b_by = bound_ms(n_bytes, 3 * H * W * (2 * radius + 1) ** 2, F32_FLOPS)
+    log(f"mv_sad: {H}x{W} f32, {hb}x{wb} blocks, radius {radius}: "
+        f"max |dSAD| {err:.3g} (tol 1e-4 x SAD), MVs flipped {int(flipped.sum())} "
+        f"(all near ties: {mv_ok}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return ok, dict(name="mv_sad", route="cuda", source="src/repro_torch/csrc/mv_sad.cu",
+                    replaces="src/repro/kernels/mv_sad.py:50", max_abs_err=err,
+                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_rope_shift(torch, cfg, layout, n_streams):
+    from repro_torch.kernels.rope_shift import rope_shift_cuda, rope_shift_plain
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n = cfg.repeats * n_streams
+    ov, sh = layout.overlap_tokens, layout.shift_tokens
+    k = torch.randn((n, ov, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    delta = torch.full((n, ov), -sh, dtype=torch.int32, device="cuda")
+    out_k = rope_shift_cuda(k, delta, cfg.rope_theta)
+    out_p = rope_shift_plain(k, delta, cfg.rope_theta)
+    # elementwise: one bf16 step of the value (2^-7 relative) plus 1e-3
+    # for the f32 angle (|delta * freq| ~ 640 rad: one f32 ulp of the
+    # angle moves the result by ~1e-4 |k|)
+    d = (out_k.float() - out_p.float()).abs()
+    err = float(d.max())
+    excess = float((d - 2.0 ** -7 * out_p.float().abs()).max())
+    ms = cuda_ms(torch, lambda: rope_shift_cuda(k, delta, cfg.rope_theta), 20)
+    plain = cuda_ms(torch, lambda: rope_shift_plain(k, delta, cfg.rope_theta), 5)
+    n_bytes = 2 * k.numel() * 2 + delta.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 3 * k.numel(), F32_FLOPS)
+    log(f"rope_shift: k {tuple(k.shape)} bf16, delta {-sh}: max abs err {err:.3g}; "
+        f"max (|k-p| - 2^-7 |p|) {excess:.3g} (limit 1e-3); kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return excess <= 1e-3, dict(name="rope_shift", route="cuda",
+                            source="src/repro_torch/csrc/rope_shift.cu",
+                            replaces="src/repro/kernels/rope_shift.py:40",
+                            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+
+
+REFRESH_CASES = ("fresh prefill", "selective refresh", "decode")
+
+
+def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str):
+    """Query rows, slab, page table, validity and map shaped as on the
+    serving path: fresh prefill ([0, total_len)), the selective refresh
+    set, or the first decode step (one query at total_len, keys up to
+    it, causal only as in the reference's decode)."""
+    import numpy as np
+    from repro_torch.core import refresh_block_map
+    from repro_torch.kernels.flash_refresh import build_block_map
+    rng = np.random.default_rng(3)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n_pages = cache_slots // 128
+    P = n_pages * n_streams
+    pt = torch.as_tensor(rng.permutation(P).reshape(n_streams, n_pages),
+                         dtype=torch.int32, device="cuda")
+    valid = np.zeros((n_streams, cache_slots), bool)
+    for f in range(layout.window):
+        sl = layout.frame_token_slice(f)
+        valid[:, sl] = True if layout.frame_is_i(f) else rng.random((n_streams, sl.stop - sl.start)) < 0.6
+    valid[:, layout.vis_len: layout.total_len] = True
+    if case == "fresh prefill":
+        bm = build_block_map(np.arange(layout.total_len), cache_slots)
+    elif case == "selective refresh":
+        bm = refresh_block_map(layout, kv_len=cache_slots)
+        valid[:, layout.overlap_tokens: layout.vis_len] = True
+    else:
+        bm = build_block_map([layout.total_len], cache_slots)
+        valid = np.broadcast_to(np.arange(cache_slots) <= layout.total_len,
+                                (n_streams, cache_slots)).copy()
+    kv_valid = torch.as_tensor(valid, device="cuda")
+    Sq = bm.n_q
+    q = torch.randn((n_streams, Sq, cfg.n_heads, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    q_pos = torch.as_tensor(bm.q_pos[:Sq], dtype=torch.long, device="cuda")[None].expand(n_streams, Sq)
+    return q, k, v, q_pos, kv_valid, pt, bm
+
+
+def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams):
+    """All three serving shapes are held to ROW_TOL; the kernels line
+    reports the selective refresh's times and the largest error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_refresh import flash_refresh_paged_cuda, flash_refresh_paged_plain
+    from repro_torch.kernels.ref import paged_gather_ref
+    ok, row, worst = True, None, 0.0
+    for case in REFRESH_CASES:
+        q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
+            torch, cfg, layout, cache_slots, n_streams, case)
+        B, Sq, H, D = q.shape
+        out_k = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
+        out_p = flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt)
+        err, rel = attn_errors(torch, out_k, out_p)
+        worst = max(worst, err)
+        kpos = torch.arange(cache_slots, device="cuda")
+        mask = (kpos[None, None, :] <= q_pos[:, :, None]) & kv_valid[:, None, :]
+        dead = ~mask.any(-1)
+        dead_zero = bool((out_k[dead] == 0).all()) if bool(dead.any()) else True
+        ok_here = rel <= ROW_TOL and dead_zero
+        ms = cuda_ms(torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm), 10)
+        plain = cuda_ms(torch, lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), 3)
+        g = H // k.shape[1]
+
+        def library():
+            kg = paged_gather_ref(k, pt, 128).repeat_interleave(g, dim=2).transpose(1, 2)
+            vg = paged_gather_ref(v, pt, 128).repeat_interleave(g, dim=2).transpose(1, 2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kg, vg,
+                                                  attn_mask=mask[:, None])
+
+        lib = cuda_ms(torch, library, 5)
+        live_pairs = float(mask.sum())
+        keys_needed = float(mask.any(1).sum())
+        n_bytes = (2 * q.numel() * 2 + keys_needed * k.shape[1] * D * 2 * 2
+                   + kv_valid.numel() + pt.numel() * 4)
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * live_pairs, BF16_TENSOR_FLOPS)
+        log(f"flash_refresh_paged ({case}): q {tuple(q.shape)} bf16, slab "
+            f"{tuple(k.shape)}, {bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
+            f"max abs err {err:.3g}, max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), "
+            f"masked rows exact zero: {dead_zero}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"gather+SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        ok = ok and ok_here
+        if case == "selective refresh":
+            row = dict(name="flash_refresh_paged", route="cuda",
+                       source="src/repro_torch/csrc/attention.cu",
+                       replaces="src/repro/kernels/flash_refresh.py:458",
+                       ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib)
+    row["max_abs_err"] = worst
+    return ok, row
+
+
+def check_flash_packed(torch, pipe, streams):
+    import torch.nn.functional as F
+    from repro_torch.core import motion_mask, pack_plan, select_tokens
+    from repro_torch.kernels.flash_packed import flash_packed_cuda, flash_packed_plain
+    lay, v = pipe.layout, pipe.v
+    metas, frames = [], []
+    for cs in streams:
+        wf, wm, _ = pipe.frontend.window(cs, 0)
+        frames.append(wf)
+        metas.append(wm)
+    p_idx = [f for f in range(lay.window) if not lay.frame_is_i(f)]
+    dyn, sco = zip(*(motion_mask(m, pipe.ecfg.codec, v.patches_per_side) for m in metas))
+    dsel = torch.stack(dyn)[:, p_idx].flatten(0, 1)
+    ssel = torch.stack(sco)[:, p_idx].flatten(0, 1)
+    plan = pack_plan(select_tokens(dsel, ssel, v, lay.k_tokens), v)
+    R, L = plan.seg_id.shape
+    H, D = v.n_heads, v.d_model // v.n_heads
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, vv = (torch.randn((R, L, H, D), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(3))
+    seg = torch.as_tensor(plan.seg_id, device="cuda")
+    bm = plan.block_map
+    out_k = flash_packed_cuda(q, k, vv, seg, bm)
+    out_p = flash_packed_plain(q, k, vv, seg)
+    err, rel = attn_errors(torch, out_k, out_p)
+    pad_zero = bool((out_k[seg < 0] == 0).all())
+    ms = cuda_ms(torch, lambda: flash_packed_cuda(q, k, vv, seg, bm), 20)
+    plain = cuda_ms(torch, lambda: flash_packed_plain(q, k, vv, seg), 5)
+    mask = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask[:, None]), 10)
+    live = float((seg >= 0).sum())
+    n_bytes = live * H * D * 2 * 3 + q.numel() * 2 + seg.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
+    log(f"flash_packed: {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, D {D}, "
+        f"{bm.visited} visited tiles, fill {plan.fill:.3f}: max abs err {err:.3g}, "
+        f"max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), padding exact zero: "
+        f"{pad_zero}; kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return rel <= ROW_TOL and pad_zero, dict(
+        name="flash_packed", route="cuda", source="src/repro_torch/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+# ----------------------------------------------------------------------
+# phases 4 and 5
+# ----------------------------------------------------------------------
+def serve(torch, pipe, videos):
+    """Drive the serving path once; returns per-stream window stats."""
+    import numpy as np
+    from repro_torch.serving import Scheduler, SchedulerCfg, StreamRequest
+    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=len(videos)))
+    t0 = time.perf_counter()
+    sids = [sched.submit(StreamRequest(i, np.asarray(f), tag=lab))
+            for i, (f, lab) in enumerate(videos)]
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sched, [sched.session(s).results for s in sids], wall
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import anomaly_dataset
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.launch.serve import build_pipeline
+    from repro_torch.models.init import init_lm_params, init_vit_params
+    from repro_torch.serving import EngineCfg, ServingPipeline
+
+    # -- 1. device ------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # -- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for src, text in cuda.build_log().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas[{src}]: {line.strip()}")
+
+    # -- 3. kernels vs plain versions -----------------------------------
+    cfg = get_config(ARCH)
+    videos = anomaly_dataset(2, 24, HW, HW, seed=SEED)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(ARCH, "codecflow", codec_cfg(), seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"weights: {ARCH} ({cfg.n_layers} layers, d {cfg.d_model}) made on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    streams = [pipe.frontend.open(f) for f, _ in videos]
+    results = [
+        check_mv_sad(torch, videos),
+        check_rope_shift(torch, cfg, pipe.layout, len(videos)),
+        check_flash_refresh_paged(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
+        check_flash_packed(torch, pipe, streams),
+    ]
+    del streams
+    rows = [r for _, r in results]
+    if not all(ok for ok, _ in results):
+        log("FAIL: a kernel disagrees with its plain version")
+        return 1
+
+    # -- 4. serve -------------------------------------------------------
+    ops.reset_launch_counts()
+    ops.reset_dispatch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sched, per_stream, wall = serve(torch, pipe, videos)
+    launches = ops.launch_counts()
+    plain_on_cuda = ops.plain_calls_on_cuda()
+    n_win = sum(len(r) for r in per_stream)
+    for i, res in enumerate(per_stream):
+        log(f"stream {i}: answers {[r.stats.answer for r in res]}, yes/no logits "
+            f"{[tuple(round(x, 4) for x in r.stats.logits_yes_no) for r in res]}")
+    occ = {k: round(v, 4) for k, v in sched.stage_busy.items()}
+    log(f"serve: {n_win} windows in {wall:.3f} s ({n_win / wall:.4f} windows/s incl. "
+        f"codec ingest); stage busy s {occ}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"launches during serve: {launches}; plain on CUDA: {plain_on_cuda}")
+    logits = np.array([r.stats.logits_yes_no for res in per_stream for r in res])
+    ok = (n_win == 6 and bool(np.isfinite(logits).all())
+          and all(launches.get(k, 0) > 0 for k in ops.KERNELS)
+          and not any(plain_on_cuda.values()))
+    if not ok:
+        log("FAIL: serve phase")
+        return 1
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    del sched, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. composite: kernels vs plain versions at 4 layers -------------
+    short = [(f[:20], lab) for f, lab in videos]   # one fresh + one incremental window
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    ecfg = EngineCfg(mode="codecflow", codec=codec_cfg())
+    params = init_lm_params(cfg4, SEED, "cuda")
+    vparams = init_vit_params(cfg4.vit, cfg4.d_model, SEED + 1, "cuda")
+    pipe = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg, device="cuda")
+    _, res_k, _ = serve(torch, pipe, short)
+    pipe_p = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg,
+                             device="cuda")       # same weights, own KV pool
+    with ops.kernel_mode("plain"):
+        _, res_p, _ = serve(torch, pipe_p, short)
+    lk = np.array([r.stats.logits_yes_no for res in res_k for r in res])
+    lp = np.array([r.stats.logits_yes_no for res in res_p for r in res])
+    tol = 5e-2 * max(1.0, float(np.abs(lp).max()))
+    diff = float(np.abs(lk - lp).max())
+    margin = np.abs(lp[:, 0] - lp[:, 1])
+    ans_k = lk[:, 0] > lk[:, 1]
+    ans_p = lp[:, 0] > lp[:, 1]
+    ans_ok = bool(((ans_k == ans_p) | (margin <= 2 * tol)).all())
+    log(f"composite (4 layers, full width): max |d yes/no logit| {diff:.4g} (tol {tol:.3g}); "
+        f"answers agree where the margin exceeds 2 x tol: {ans_ok}")
+    if not (diff <= tol and ans_ok and lk.shape == (4, 2)):
+        log("FAIL: composite check")
+        return 1
+
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,303 @@
+// Block-sparse online-softmax attention over 128-row tiles, shared by two
+// kernels of the serving path:
+//
+//   * cs_attn_refresh_paged_bf16 replaces the TPU kernel
+//     repro/kernels/flash_refresh.py:flash_refresh_paged_pallas (its bf16
+//     body _refresh_paged_kernel).  GQA attention of gathered queries over
+//     one batchless KV slab: visit list tile_ids[iq, it] -> page table
+//     pt[b, tile] -> physical 128-row page.  Mask: kv_valid (logical, per
+//     stream) AND causal (+ sliding window) on the query positions q_pos
+//     (-1 marks padding rows).
+//   * cs_attn_packed_bf16 replaces repro/kernels/flash_packed.py:
+//     flash_packed_pallas.  Bidirectional block-diagonal attention over
+//     packed ViT rows: per-row visit lists, mask seg_q == seg_k && seg_q >= 0.
+//
+// Both share one templated body; the problem struct supplies the visit
+// list, the key-row address and the mask.  A thread block owns 64 query
+// rows (half of a 128-row map tile, following that tile's visit list) for
+// one (batch row, head); its four warps own 16 rows each.  For every
+// visited tile it streams the 128 keys through shared memory in two
+// 64-key steps: S = Q K^T on the tensor cores (WMMA bf16 -> f32), an f32
+// online softmax with the masked multiply p = mask ? exp(s - m) : 0 (so
+// recycled pages and fully masked rows contribute exact zeros), then
+// O += P V on the tensor cores with P rounded to bf16.  The query is
+// scaled in f32 and rounded to bf16 before QK^T, as the plain version
+// does.  Rows that no key reaches end with l = 0 and write
+// acc / max(l, 1e-30) = 0.
+//
+// Bound on an H100: at the serving shapes each (q tile, kv tile) pair does
+// 4 * 128 * 128 * D flops on 2 * 128 * D * 2 bytes of K/V, far above the
+// card's flops-per-byte ratio, so the bound is the tensor cores.  This
+// first version keeps the accumulator in shared memory and uses the WMMA
+// (mma.sync) path, not wgmma/TMA; it is a correct baseline that a later
+// version makes fast.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int TILE = 128;     // map tile = KV page
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // keys per inner step
+constexpr int NTHREADS = 128; // 4 warps x 16 rows
+constexpr float NEG_INF = -1e30f;
+
+struct RefreshPaged {
+  const int* qpos;         // (Sq,) logical query positions, -1 = padding
+  const uint8_t* kv_valid; // (B, n_pages * TILE) logical validity
+  const int* pt;           // (B, n_pages) physical page per logical tile
+  const int* tile_ids;     // (n_q_tiles, t_max) logical tiles to visit
+  const int* tile_count;   // (n_q_tiles,)
+  int n_pages, t_max, causal, window;
+
+  __device__ int count(int, int iq) const { return tile_count[iq]; }
+  __device__ int tile(int, int iq, int it) const { return tile_ids[iq * t_max + it]; }
+  __device__ long long key_row(int b, int j, int c) const {
+    return (long long)pt[b * n_pages + j] * TILE + c;
+  }
+  __device__ int q_info(int, int row) const { return qpos[row]; }
+  __device__ bool q_live(int qp) const { return !causal || qp >= 0; }
+  __device__ int k_info(int b, int j, int c) const {
+    return kv_valid[(long long)b * n_pages * TILE + j * TILE + c];
+  }
+  __device__ bool mask(int qp, int valid, int kp) const {
+    bool m = valid != 0;
+    if (causal) m = m && kp <= qp;
+    if (window >= 0) m = m && kp > qp - window;
+    return m;
+  }
+};
+
+struct Packed {
+  const int* seg;          // (R, L) segment id per slot, -1 = padding
+  const int* tile_ids;     // (R, L / TILE, t_max)
+  const int* tile_count;   // (R, L / TILE)
+  int L, n_q_tiles, t_max;
+
+  __device__ int count(int r, int iq) const { return tile_count[r * n_q_tiles + iq]; }
+  __device__ int tile(int r, int iq, int it) const {
+    return tile_ids[(r * n_q_tiles + iq) * t_max + it];
+  }
+  __device__ long long key_row(int r, int j, int c) const {
+    return (long long)r * L + j * TILE + c;
+  }
+  __device__ int q_info(int r, int row) const { return seg[r * L + row]; }
+  __device__ bool q_live(int s) const { return s >= 0; }
+  __device__ int k_info(int r, int j, int c) const { return seg[r * L + j * TILE + c]; }
+  __device__ bool mask(int sq, int sk, int) const { return sq >= 0 && sq == sk; }
+};
+
+template <int D>
+struct Smem {
+  static constexpr int LDH = D + 8;   // bf16 Q/K/V rows
+  static constexpr int LDS = BK + 4;  // f32 scores
+  static constexpr int LDP = BK + 8;  // bf16 probabilities
+  static constexpr int LDO = D + 4;   // f32 accumulator
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + sizeof(bf16) * BQ * LDH;
+  static constexpr size_t v = k + sizeof(bf16) * BK * LDH;
+  static constexpr size_t s = v + sizeof(bf16) * BK * LDH;
+  static constexpr size_t p = s + sizeof(float) * BQ * LDS;
+  static constexpr size_t o = p + sizeof(bf16) * BQ * LDP;
+  static constexpr size_t m = o + sizeof(float) * BQ * LDO;
+  static constexpr size_t l = m + sizeof(float) * BQ;
+  static constexpr size_t qi = l + sizeof(float) * BQ;
+  static constexpr size_t ki = qi + sizeof(int) * BQ;
+  static constexpr size_t bytes = ki + sizeof(int) * BK;
+};
+
+template <int D, class P>
+__global__ void __launch_bounds__(NTHREADS)
+attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int H,
+            int Hkv, float scale, P prob) {
+  using L = Smem<D>;
+  constexpr int LDH = L::LDH, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  float* Ss = reinterpret_cast<float*>(smem + L::s);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
+  float* Os = reinterpret_cast<float*>(smem + L::o);
+  float* m_s = reinterpret_cast<float*>(smem + L::m);
+  float* l_s = reinterpret_cast<float*>(smem + L::l);
+  int* qinfo = reinterpret_cast<int*>(smem + L::qi);
+  int* kinfo = reinterpret_cast<int*>(smem + L::ki);
+
+  const int iq = blockIdx.x >> 1;
+  const int q0 = iq * TILE + (blockIdx.x & 1) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long q_stride = (long long)H * D;   // between query rows
+  const bf16* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
+  bf16* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
+
+  // rows that no key can reach (padding) are exact zeros: skip the loop
+  const int live = tid < BQ ? prob.q_live(prob.q_info(b, q0 + tid)) : 0;
+  if (!__syncthreads_or(live)) {
+    for (int i = tid; i < BQ * D; i += NTHREADS)
+      ob[(i / D) * q_stride + i % D] = __float2bfloat16_rn(0.f);
+    return;
+  }
+
+  // Q: scaled in f32, rounded to bf16 (the plain version's numerics)
+  for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
+    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    #pragma unroll
+    for (int t = 0; t < 8; ++t)
+      Qs[r * LDH + c8 + t] = __float2bfloat16_rn(__bfloat162float(e[t]) * scale);
+  }
+  for (int i = tid; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
+  if (tid < BQ) {
+    qinfo[tid] = prob.q_info(b, q0 + tid);
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_visit = prob.count(b, iq);
+  for (int it = 0; it < n_visit; ++it) {
+    const int j = prob.tile(b, iq, it);
+    for (int c0 = 0; c0 < TILE; c0 += BK) {
+      for (int i = tid; i < BK * D / 8; i += NTHREADS) {
+        const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+        const long long off = (prob.key_row(b, j, c0 + r) * Hkv + kvh) * D + c8;
+        *reinterpret_cast<uint4*>(Ks + r * LDH + c8) = *reinterpret_cast<const uint4*>(k + off);
+        *reinterpret_cast<uint4*>(Vs + r * LDH + c8) = *reinterpret_cast<const uint4*>(v + off);
+      }
+      if (tid < BK) kinfo[tid] = prob.k_info(b, j, c0 + tid);
+      __syncthreads();
+
+      // S[16 rows of this warp, BK] = Q K^T
+      #pragma unroll
+      for (int n = 0; n < BK / 16; ++n) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.f);
+        #pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+          wmma::load_matrix_sync(fa, Qs + warp * 16 * LDH + kk * 16, LDH);
+          wmma::load_matrix_sync(fb, Ks + n * 16 * LDH + kk * 16, LDH);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync(Ss + warp * 16 * LDS + n * 16, acc, LDS, wmma::mem_row_major);
+      }
+      __syncwarp();
+
+      // online softmax over this warp's rows; two key columns per lane
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = warp * 16 + rr;
+        const int qi = qinfo[r];
+        const int kp = j * TILE + c0 + lane;
+        const bool m0 = prob.mask(qi, kinfo[lane], kp);
+        const bool m1 = prob.mask(qi, kinfo[lane + 32], kp + 32);
+        const float x0 = m0 ? Ss[r * LDS + lane] : NEG_INF;
+        const float x1 = m1 ? Ss[r * LDS + lane + 32] : NEG_INF;
+        float mx = fmaxf(x0, x1);
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_old = m_s[r];
+        const float m_new = fmaxf(m_old, mx);
+        const float p0 = m0 ? expf(x0 - m_new) : 0.f;
+        const float p1 = m1 ? expf(x1 - m_new) : 0.f;
+        float sum = p0 + p1;
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float corr = expf(m_old - m_new);
+        Ps[r * LDP + lane] = __float2bfloat16_rn(p0);
+        Ps[r * LDP + lane + 32] = __float2bfloat16_rn(p1);
+        for (int d = lane; d < D; d += 32) Os[r * LDO + d] *= corr;
+        __syncwarp();
+        if (lane == 0) {
+          m_s[r] = m_new;
+          l_s[r] = l_s[r] * corr + sum;
+        }
+      }
+      __syncwarp();
+
+      // O[16 rows of this warp, D] += P V
+      #pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::load_matrix_sync(acc, Os + warp * 16 * LDO + n * 16, LDO, wmma::mem_row_major);
+        #pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fa, Ps + warp * 16 * LDP + kk * 16, LDP);
+          wmma::load_matrix_sync(fb, Vs + kk * 16 * LDH + n * 16, LDH);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync(Os + warp * 16 * LDO + n * 16, acc, LDO, wmma::mem_row_major);
+      }
+      __syncthreads();   // Ks/Vs are overwritten by the next step
+    }
+  }
+
+  // out = acc / max(l, 1e-30): rows no key reached give exact zeros
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr;
+    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
+    for (int d = lane; d < D; d += 32)
+      ob[r * q_stride + d] = __float2bfloat16_rn(Os[r * LDO + d] * inv);
+  }
+}
+
+template <int D, class P>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int H, int Hkv, float scale, const P& prob,
+           cudaStream_t stream) {
+  const size_t smem = Smem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_kernel<D, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq / TILE) * 2, H, B);
+  attn_kernel<D, P><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, H, Hkv, scale, prob);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_d(int D, const void* q, const void* k, const void* v, void* out,
+             int B, int Sq, int H, int Hkv, float scale, const P& prob,
+             cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 64: return launch<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 128: return launch<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, out: (B, Sq, H, D) bf16, Sq % 128 == 0; k, v: (P_phys, Hkv, D) bf16
+// slab; q_pos: (Sq,) i32; kv_valid: (B, n_pages * 128) u8; pt: (B, n_pages)
+// i32; tile_ids: (Sq / 128, t_max) i32; tile_count: (Sq / 128,) i32.
+// window < 0 means no sliding window.
+CS_EXPORT int cs_attn_refresh_paged_bf16(
+    const void* q, const void* k, const void* v, void* out, const int* q_pos,
+    const uint8_t* kv_valid, const int* pt, const int* tile_ids,
+    const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,
+    int t_max, int causal, int window, float scale, cudaStream_t stream) {
+  RefreshPaged prob{q_pos, kv_valid, pt, tile_ids, tile_count, n_pages, t_max, causal, window};
+  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+}
+
+// q, out: (R, L, H, D) bf16, L % 128 == 0; k, v: (R, L, Hkv, D) bf16;
+// seg: (R, L) i32; tile_ids: (R, L / 128, t_max) i32; tile_count: (R, L / 128) i32.
+CS_EXPORT int cs_attn_packed_bf16(const void* q, const void* k, const void* v,
+                                  void* out, const int* seg, const int* tile_ids,
+                                  const int* tile_count, int R, int L, int H,
+                                  int Hkv, int D, int t_max, float scale,
+                                  cudaStream_t stream) {
+  Packed prob{seg, tile_ids, tile_count, L, L / TILE, t_max};
+  return launch_d(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);
+}

@@ -1,0 +1,4 @@
+from .pipeline import anomaly_dataset
+from .video import VideoSpec, generate_video, motion_level_spec
+
+__all__ = ["VideoSpec", "anomaly_dataset", "generate_video", "motion_level_spec"]

@@ -1,0 +1,186 @@
+"""Block-diagonal attention over packed ViT rows: visit lists and kernel.
+
+Replaces the TPU kernel ``repro/kernels/flash_packed.py:
+flash_packed_pallas``; the CUDA source is ``csrc/attention.cu``
+(``cs_attn_packed_bf16``, the same templated body as the paged refresh
+kernel with a segment mask).  Slots attend iff they carry the same
+non-negative segment id (one frame's kept patches); padding slots
+(-1) are exact zeros.  Visit lists are per packed row and change with
+every packing, so they are device inputs, not compile-time constants.
+
+Bound on an H100: tensor-core operations on the visited block-diagonal
+tiles (at D = 64 each tile pair does 4*128*128*64 flops on 32 KB of
+K/V).  The design visits only tiles that share a live segment and runs
+both products on the tensor cores around an f32 online softmax.
+
+``PackBlockMap``, ``build_pack_map`` and ``dense_pack_map`` are host
+numpy, equal array for array to the JAX package's.  The plain PyTorch
+version is ``flash_packed_plain`` (the q-chunked ``ref.flash_packed_ref``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from . import cuda
+from .ref import flash_packed_ref
+
+NAME = "flash_packed"
+TILE = 128
+
+
+class DevicePackMap(NamedTuple):
+    tile_ids: torch.Tensor
+    tile_count: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackBlockMap:
+    """Per-(row, q-tile) kv-tile visit list for the packed kernel.
+
+    Attributes:
+      tq, tk: tile sizes the map was built for.
+      tile_ids: (rows, n_q_tiles, t_max) int32 kv-tile ids per (row, q
+        tile), right-padded by repeating the last live id (id 0 when a
+        row is empty).
+      tile_count: (rows, n_q_tiles) int32 live entries per visit list.
+    """
+
+    tq: int
+    tk: int
+    tile_ids: np.ndarray
+    tile_count: np.ndarray
+    _device: Dict[str, DevicePackMap] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def n_rows(self) -> int:
+        return self.tile_ids.shape[0]
+
+    @property
+    def n_q_tiles(self) -> int:
+        return self.tile_ids.shape[1]
+
+    @property
+    def t_max(self) -> int:
+        return self.tile_ids.shape[2]
+
+    @property
+    def visited(self) -> int:
+        return int(self.tile_count.sum())
+
+    @property
+    def density(self) -> float:
+        """Visited fraction of the dense (row, q-tile, kv-tile) grid."""
+        total = self.tile_count.size * max(
+            1, -(-self.tile_ids.shape[1] * self.tq // self.tk)
+        )
+        return self.visited / max(total, 1)
+
+    def on(self, device: torch.device) -> DevicePackMap:
+        key = str(device)
+        hit = self._device.get(key)
+        if hit is None:
+            hit = DevicePackMap(*(
+                torch.as_tensor(a, dtype=torch.int32).to(device)
+                for a in (self.tile_ids, self.tile_count)
+            ))
+            self._device[key] = hit
+        return hit
+
+
+def build_pack_map(seg_id, *, tq: int = 128, tk: int = 128,
+                   t_max: int | None = None) -> PackBlockMap:
+    """Visit list from a packed segment-id layout (rows, L_pack), -1 =
+    padding: a kv tile is visited iff it shares a live segment id with
+    the q tile.  ``t_max`` defaults to the next power of two above the
+    max live count, clamped to the kv tile count."""
+    seg = np.asarray(seg_id, np.int32)
+    rows, L = seg.shape
+    assert L % tq == 0 and L % tk == 0, (L, tq, tk)
+    nq, nk = L // tq, L // tk
+    active = np.zeros((rows, nq, nk), bool)
+    qt = seg.reshape(rows, nq, tq)
+    kt = seg.reshape(rows, nk, tk)
+    for r in range(rows):
+        ksets = [set(kt[r, j][kt[r, j] >= 0].tolist()) for j in range(nk)]
+        for i in range(nq):
+            live = set(qt[r, i][qt[r, i] >= 0].tolist())
+            if not live:
+                continue
+            for j in range(nk):
+                if live & ksets[j]:
+                    active[r, i, j] = True
+
+    counts = active.sum(axis=2).astype(np.int32)
+    need = max(1, int(counts.max(initial=0)))
+    if t_max is None:
+        t_max = 1 << (need - 1).bit_length()
+    t_max = min(max(t_max, need), nk) if nk else 1
+    tile_ids = np.zeros((rows, nq, t_max), np.int32)
+    for r in range(rows):
+        for i in range(nq):
+            ids = np.nonzero(active[r, i])[0].astype(np.int32)
+            if ids.size:
+                tile_ids[r, i, : ids.size] = ids[:t_max]
+                tile_ids[r, i, ids.size:] = ids[-1]
+    return PackBlockMap(tq=tq, tk=tk, tile_ids=tile_ids, tile_count=counts)
+
+
+def dense_pack_map(seg_id, *, tq: int = 128, tk: int = 128) -> PackBlockMap:
+    """Every kv tile visited for every (row, q tile)."""
+    seg = np.asarray(seg_id, np.int32)
+    rows, L = seg.shape
+    nq, nk = L // tq, L // tk
+    ids = np.broadcast_to(
+        np.arange(nk, dtype=np.int32), (rows, nq, nk)
+    ).copy()
+    return PackBlockMap(
+        tq=tq, tk=tk, tile_ids=ids,
+        tile_count=np.full((rows, nq), nk, np.int32),
+    )
+
+
+# ======================================================================
+# plain version and kernel
+# ======================================================================
+def flash_packed_plain(q, k, v, seg_id, *, q_chunk: int = 1024):
+    """q-chunked ``ref.flash_packed_ref`` (rows are independent)."""
+    L = q.shape[1]
+    outs = [
+        flash_packed_ref(q[:, i:i + q_chunk], k, v, seg_id,
+                         q_seg=seg_id[:, i:i + q_chunk])
+        for i in range(0, L, q_chunk)
+    ]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def flash_packed_cuda(q, k, v, seg_id, block_map: PackBlockMap):
+    """Launch the kernel: q (R, L, H, D), k, v (R, L, Hkv, D) bf16,
+    seg_id (R, L) int, with the layout's ``PackBlockMap``."""
+    R, L, H, D = q.shape
+    Hkv = k.shape[2]
+    bm = block_map
+    cuda.require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
+                 and v.dtype == torch.bfloat16, NAME, "q/k/v must be bf16")
+    cuda.require(D in (32, 64, 128), NAME, f"head dim {D}")
+    cuda.require(bm.tq == TILE and bm.tk == TILE and L % TILE == 0, NAME,
+                 "tiles must be 128 and L a multiple of 128")
+    cuda.require(tuple(bm.tile_count.shape) == (R, L // TILE), NAME,
+                 "map built for another geometry")
+    dm = bm.on(q.device)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cuda.require_aligned(NAME, q, k, v)
+    seg = seg_id.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    rc = cuda.library().cs_attn_packed_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        seg.data_ptr(), dm.tile_ids.data_ptr(), dm.tile_count.data_ptr(),
+        R, L, H, Hkv, D, bm.t_max, float(D ** -0.5), cuda.stream_handle(q),
+    )
+    cuda.check(rc, NAME)
+    cuda.record_launch(NAME)
+    return out

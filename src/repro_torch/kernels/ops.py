@@ -1,0 +1,220 @@
+"""Dispatch for the four kernels of the serving path.
+
+Every op checks its preconditions (a violation raises
+:class:`KernelContractError`: neither path could give a meaningful
+answer), then routes by where its operands live:
+
+  * a CPU tensor runs the plain PyTorch version;
+  * a CUDA tensor launches the hand-written kernel, or raises when the
+    kernel does not take the operands.  There is no silent fallback.
+
+``kernel_mode("plain")`` forces the plain version on the card too; only
+tests and ``chip_smoke.py`` use it, to hold the kernels against it.
+
+``dispatch_counts()`` records where each call went: ``kernel``,
+``backend:ok`` (CPU tensor, plain version) or ``mode:plain`` (plain
+version forced on the card).  ``launch_counts()`` counts the kernel
+launches themselves.
+"""
+from __future__ import annotations
+
+from collections import Counter, defaultdict
+from contextlib import contextmanager
+from typing import Dict, Optional
+
+import torch
+
+from . import cuda
+from .flash_packed import PackBlockMap, flash_packed_cuda, flash_packed_plain
+from .flash_refresh import (
+    RefreshBlockMap, flash_refresh_paged_cuda, flash_refresh_paged_plain,
+)
+from .mv_sad import mv_sad_cuda, mv_sad_plain
+from .rope_shift import rope_shift_cuda, rope_shift_plain
+
+KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed")
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+_MODE = "auto"   # auto | plain
+_COUNTS: "defaultdict[str, Counter]" = defaultdict(Counter)
+
+launch_counts = cuda.launch_counts
+reset_launch_counts = cuda.reset_launch_counts
+
+
+class KernelContractError(ValueError):
+    """A kernel-op precondition was violated (both paths would be wrong)."""
+
+
+def set_kernel_mode(mode: str) -> None:
+    global _MODE
+    if mode not in ("auto", "plain"):
+        raise ValueError(f"kernel mode {mode!r}")
+    _MODE = mode
+
+
+@contextmanager
+def kernel_mode(mode: str):
+    prev = _MODE
+    set_kernel_mode(mode)
+    try:
+        yield
+    finally:
+        set_kernel_mode(prev)
+
+
+def dispatch_counts() -> Dict[str, Dict[str, int]]:
+    """Snapshot of per-op dispatch decisions."""
+    return {op: dict(c) for op, c in _COUNTS.items()}
+
+
+def reset_dispatch_counts() -> None:
+    _COUNTS.clear()
+
+
+def plain_calls_on_cuda() -> Dict[str, int]:
+    """Plain-version calls on CUDA tensors per op (``kernel_mode("plain")``)."""
+    return {op: c.get("mode:plain", 0) for op, c in _COUNTS.items()}
+
+
+def _use_kernel(op: str, t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        _COUNTS[op]["backend:ok"] += 1
+        return False
+    if t.device.type != "cuda":
+        raise KernelContractError(f"{op}: no kernel for device {t.device}")
+    if _MODE == "plain":
+        _COUNTS[op]["mode:plain"] += 1
+        return False
+    _COUNTS[op]["kernel"] += 1
+    return True
+
+
+def _require(cond: bool, op: str, code: str, what: str) -> None:
+    if not cond:
+        raise KernelContractError(f"{op}: precondition '{code}' violated ({what})")
+
+
+def _attn_dtypes(op: str, q, k, v) -> None:
+    _require(q.dtype in _FLOATS and k.dtype in _FLOATS and k.dtype == v.dtype,
+             op, "dtype", "q/k/v are f32/bf16/f16 with k == v")
+
+
+# the last (q_pos tensor, its version, map) found equal; holding the
+# tensor keeps its storage from being reused by another
+_MATCHED: list = [None]
+
+
+def _positions_match_map(op: str, q_pos: torch.Tensor, bm: RefreshBlockMap) -> None:
+    """The kernel masks by the map's query positions, the plain version
+    by ``q_pos``: they must be equal on every device.  On the card the
+    comparison syncs, so it runs once per positions tensor and map (the
+    layers of one pass share both)."""
+    hit = _MATCHED[0]
+    if hit is not None and hit[0] is q_pos and hit[1] == q_pos._version and hit[2] is bm:
+        return
+    want = bm.on(q_pos.device).q_pos[: bm.n_q]
+    _require(q_pos.shape[1] == bm.n_q and bool((q_pos == want).all()), op,
+             "positions-match", "q_pos equals the block map's query positions")
+    _MATCHED[0] = (q_pos, q_pos._version, bm)
+
+
+# ----------------------------------------------------------------------
+def mv_sad(cur, prev, block: int = 16, radius: int = 4):
+    """Block-matching motion search (see ``ref.mv_sad_ref``)."""
+    op = "mv_sad"
+    _require(cur.dim() == 2 and prev.dim() == 2, op, "rank",
+             "cur and prev are 2-D (H, W) luma planes")
+    _require(cur.shape == prev.shape, op, "shape-match",
+             "cur and prev have identical shapes")
+    _require(cur.shape[0] % block == 0 and cur.shape[1] % block == 0, op,
+             "block-divisibility", "H and W are multiples of the block edge")
+    _require(not cur.is_complex() and not prev.is_complex()
+             and cur.dtype != torch.bool, op, "dtype", "frames are real numeric")
+    _require(radius >= 1, op, "radius", "search radius >= 1")
+    if _use_kernel(op, cur):
+        return mv_sad_cuda(cur, prev, block, radius)
+    return mv_sad_plain(cur, prev, block, radius)
+
+
+def rope_shift(k, delta, theta: float = 10_000.0):
+    """Rotate cached keys by per-token position deltas (Eq. 5)."""
+    op = "rope_shift"
+    _require(k.dim() == 4 and delta.dim() == 2, op, "rank",
+             "k is (B, S, n_kv, d_h) and delta is (B, S)")
+    _require(tuple(delta.shape) == tuple(k.shape[:2]), op, "delta-shape",
+             "delta matches k's (B, S) prefix")
+    _require(not delta.is_floating_point() and delta.dtype != torch.bool, op,
+             "delta-dtype", "delta is an integer position shift")
+    _require(k.dtype in _FLOATS, op, "k-dtype", "k is f32/bf16/f16")
+    _require(k.shape[3] % 2 == 0, op, "even-head", "head dim is even")
+    if _use_kernel(op, k):
+        return rope_shift_cuda(k, delta, theta)
+    return rope_shift_plain(k, delta, theta)
+
+
+def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
+                        page: int = 128, causal: bool = True,
+                        window: Optional[int] = None,
+                        block_map: Optional[RefreshBlockMap] = None,
+                        q_chunk: int = 1024):
+    """Paged refresh attention: q (B, Sq, H, D) against the shared slab
+    k, v (P_phys, Hkv, D) through page_table (B, n_pages); q_pos (B, Sq)
+    logical positions; kv_valid (B, n_pages * page) bool (mandatory:
+    recycled pages hold stale KV).  On the card the kernel needs the
+    ``block_map``; a map given on any device must be built for exactly
+    these query positions."""
+    op = "flash_refresh_paged"
+    _require(q.dim() == 4 and k.dim() == 3 and v.dim() == 3
+             and q_pos.dim() == 2 and page_table.dim() == 2, op, "rank",
+             "q rank-4, slab k/v rank-3, q_pos rank-2, page_table rank-2")
+    _require(k.shape == v.shape, op, "kv-shape", "k and v slabs match")
+    _require(tuple(q_pos.shape) == tuple(q.shape[:2]), op, "q-pos-shape",
+             "q_pos is (B, Sq)")
+    _require(page_table.shape[0] == q.shape[0], op, "pt-batch",
+             "page_table leads with q's batch dim")
+    _require(q.shape[3] == k.shape[2], op, "head-dim", "q and slab share d_head")
+    _require(q.shape[2] % k.shape[1] == 0, op, "gqa",
+             "query heads divide evenly over kv heads")
+    _attn_dtypes(op, q, k, v)
+    _require(not q_pos.is_floating_point(), op, "q-pos-dtype", "integer positions")
+    _require(not page_table.is_floating_point(), op, "pt-dtype", "integer page ids")
+    _require(page >= 1 and k.shape[0] % page == 0, op, "slab-align",
+             "slab rows divide by the page size")
+    _require(tuple(kv_valid.shape) == (q.shape[0], page_table.shape[1] * page)
+             and kv_valid.dtype == torch.bool, op, "kv-valid",
+             "kv_valid is a (B, n_pages * page) bool mask")
+    if block_map is not None:
+        _positions_match_map(op, q_pos, block_map)
+    if _use_kernel(op, q):
+        if block_map is None:
+            raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
+        return flash_refresh_paged_cuda(
+            q, k, v, kv_valid, page_table, block_map, page=page,
+            causal=causal, window=window)
+    return flash_refresh_paged_plain(
+        q, k, v, q_pos, kv_valid, page_table, page=page, causal=causal,
+        window=window, q_chunk=q_chunk)
+
+
+def flash_packed(q, k, v, seg_id, block_map: Optional[PackBlockMap] = None,
+                 *, q_chunk: int = 1024):
+    """Block-diagonal attention over packed ViT rows: q (R, L, H, D);
+    k, v (R, L, Hkv, D); seg_id (R, L) int with -1 padding.  On the card
+    the kernel needs the packing's ``block_map``."""
+    op = "flash_packed"
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4
+             and seg_id.dim() == 2, op, "rank", "q/k/v rank-4, seg_id rank-2")
+    _require(k.shape == v.shape, op, "kv-shape", "k and v match")
+    _require(tuple(seg_id.shape) == tuple(q.shape[:2]), op, "seg-shape",
+             "seg_id is (R, L)")
+    _require(q.shape[0] == k.shape[0], op, "rows", "q and k share rows")
+    _require(q.shape[2] % k.shape[2] == 0, op, "gqa",
+             "query heads divide evenly over kv heads")
+    _attn_dtypes(op, q, k, v)
+    _require(not seg_id.is_floating_point(), op, "seg-dtype", "integer segments")
+    if _use_kernel(op, q):
+        if block_map is None:
+            raise KernelContractError(f"{op}: the kernel needs a PackBlockMap")
+        return flash_packed_cuda(q, k, v, seg_id, block_map)
+    return flash_packed_plain(q, k, v, seg_id, q_chunk=q_chunk)

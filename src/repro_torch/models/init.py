@@ -1,0 +1,207 @@
+"""Parameter initialisation and the weight bridge from the JAX package.
+
+The parameter trees keep the JAX package's structure and layouts:
+nested dicts of tensors, weights (in, out), each pattern position's
+layers stacked on a leading axis, RMSNorm scales f32 and every other
+leaf in the config's dtype.
+
+* ``init_lm_params`` / ``init_vit_params`` draw random weights on the
+  target device tensor by tensor (one layer slice at a time) from an
+  explicit ``torch.Generator``: truncated-normal fan-in, like the JAX
+  package's ``ParamBuilder.dense``.  No f32 copy of the model is ever
+  built.  The numbers differ from JAX's (different generators).
+* ``from_numpy_tree`` takes the JAX package's trees as numpy arrays.
+* ``load_npz_params`` reads the ``training/checkpoint.py`` npz layout
+  (flat ``params/...`` keys, bf16 saved as f32 and cast back
+  losslessly).
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelCfg, ViTCfg
+
+F32 = torch.float32
+
+
+def param_dtype(cfg: ModelCfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else F32
+
+
+class _Init:
+    """Fills parameter tensors on one device from one generator."""
+
+    def __init__(self, seed: int, device, dtype: torch.dtype):
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def _fill(self, out: torch.Tensor, scale: float) -> None:
+        tmp = torch.empty(out.shape, dtype=F32, device=self.device)
+        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=self.gen)
+        out.copy_(tmp.mul_(scale))
+
+    def dense(self, shape, scale: float | None = None, layers: int = 0) -> torch.Tensor:
+        """Truncated-normal fan-in init; ``layers > 0`` stacks that many
+        independent draws on a leading axis, filled one layer at a time."""
+        shape = tuple(shape)
+        if scale is None:
+            scale = (shape[-2] if len(shape) >= 2 else shape[-1]) ** -0.5
+        if not layers:
+            out = torch.empty(shape, dtype=self.dtype, device=self.device)
+            self._fill(out, scale)
+            return out
+        out = torch.empty((layers,) + shape, dtype=self.dtype, device=self.device)
+        for i in range(layers):
+            self._fill(out[i], scale)
+        return out
+
+    def ones(self, shape, layers: int = 0) -> torch.Tensor:
+        lead = (layers,) if layers else ()
+        return torch.ones(lead + tuple(shape), dtype=F32, device=self.device)
+
+    def zeros(self, shape, layers: int = 0) -> torch.Tensor:
+        lead = (layers,) if layers else ()
+        return torch.zeros(lead + tuple(shape), dtype=self.dtype, device=self.device)
+
+
+def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """Random LM parameters (attention + dense FFN stacks)."""
+    ini = _Init(seed, device, param_dtype(cfg))
+    d, dh, R = cfg.d_model, cfg.d_head, cfg.repeats
+    tree: Dict[str, Any] = {
+        "embed": ini.dense((cfg.vocab, d), scale=0.02),
+        "final_norm": {"scale": ini.ones((d,))},
+    }
+    if not cfg.tied_embeddings:
+        tree["lm_head"] = ini.dense((d, cfg.vocab))
+    blocks = []
+    for pos in range(cfg.period):
+        mixer, ffn = cfg.block_kind(pos)
+        if mixer != "attn" or ffn != "dense":
+            raise NotImplementedError(f"{cfg.name}: only attention + dense FFN")
+        mixer_p = {
+            "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
+            "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
+            "wv": ini.dense((d, cfg.n_kv * dh), layers=R),
+            "wo": ini.dense((cfg.n_heads * dh, d), layers=R),
+        }
+        if cfg.qkv_bias:
+            mixer_p["bq"] = ini.zeros((cfg.n_heads * dh,), layers=R)
+            mixer_p["bk"] = ini.zeros((cfg.n_kv * dh,), layers=R)
+            mixer_p["bv"] = ini.zeros((cfg.n_kv * dh,), layers=R)
+        blocks.append({
+            "ln1": {"scale": ini.ones((d,), layers=R)},
+            "ln2": {"scale": ini.ones((d,), layers=R)},
+            "mixer": mixer_p,
+            "ffn": {
+                "wg": ini.dense((d, cfg.d_ff), layers=R),
+                "wu": ini.dense((d, cfg.d_ff), layers=R),
+                "wd": ini.dense((cfg.d_ff, d), layers=R),
+            },
+        })
+    tree["blocks"] = tuple(blocks)
+    return tree
+
+
+def init_vit_params(v: ViTCfg, d_lm: int, seed: int = 1, device="cuda",
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """Random ViT + projector parameters."""
+    ini = _Init(seed, device, dtype)
+    d, L = v.d_model, v.n_layers
+    return {
+        "patch_embed": ini.dense((v.patch * v.patch, d)),
+        "pos_embed": ini.dense((v.n_patches, d), scale=0.02),
+        "blocks": {
+            "ln1": {"scale": ini.ones((d,), layers=L)},
+            "wq": ini.dense((d, d), layers=L),
+            "wk": ini.dense((d, d), layers=L),
+            "wv": ini.dense((d, d), layers=L),
+            "wo": ini.dense((d, d), layers=L),
+            "ln2": {"scale": ini.ones((d,), layers=L)},
+            "ffn": {
+                "wg": ini.dense((d, v.d_ff), layers=L),
+                "wu": ini.dense((d, v.d_ff), layers=L),
+                "wd": ini.dense((v.d_ff, d), layers=L),
+            },
+        },
+        "final_norm": {"scale": ini.ones((d,))},
+        "projector": ini.dense((v.group * v.group * d, d_lm)),
+    }
+
+
+# ======================================================================
+# weight bridge
+# ======================================================================
+def to_tensor(arr, device="cpu") -> torch.Tensor:
+    """numpy array (ml_dtypes bf16 included) -> tensor of the same dtype.
+
+    ``torch.from_numpy`` rejects ml_dtypes bf16, so it goes through f32,
+    which holds every bf16 value exactly.
+    """
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)     # a writable copy
+
+
+def from_numpy_tree(tree, device="cpu"):
+    """The JAX package's parameter tree (``tfm.init_params`` LM tree or
+    ``vitm.init_vit`` ViT tree, leaves as numpy arrays) -> the port's."""
+    if isinstance(tree, dict):
+        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(from_numpy_tree(v, device) for v in tree)
+    return to_tensor(tree, device)
+
+
+_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def _insert(tree: Dict[str, Any], path: str, value) -> None:
+    parts = []
+    for seg in path.split("/"):
+        m = _KEY.fullmatch(seg)
+        if m is None:
+            raise ValueError(f"unexpected checkpoint key segment {seg!r}")
+        parts.append(m.group(1) if m.group(1) is not None else int(m.group(2)))
+    node = tree
+    for here, nxt in zip(parts, parts[1:] + [None]):
+        fresh = value if nxt is None else ([] if isinstance(nxt, int) else {})
+        if isinstance(node, list):
+            node.extend([None] * (here + 1 - len(node)))
+            if node[here] is None:
+                node[here] = fresh
+            node = node[here]
+        else:
+            node = node.setdefault(here, fresh)
+
+
+def _freeze(tree):
+    if isinstance(tree, dict):
+        return {k: _freeze(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return tuple(_freeze(v) for v in tree)
+    return tree
+
+
+def load_npz_params(path: str, cfg: ModelCfg, device="cpu") -> Dict[str, Any]:
+    """LM parameters from a ``training/checkpoint.py`` npz: keys like
+    ``params/['blocks']/[0]/['mixer']/['wq']``; norm scales stay f32,
+    every other leaf is cast back to the config's dtype."""
+    dtype = param_dtype(cfg)
+    tree: Dict[str, Any] = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            if not key.startswith("params/"):
+                continue
+            rel = key[len("params/"):]
+            t = torch.from_numpy(data[key]).to(device)
+            leaf_dtype = F32 if rel.endswith("['scale']") else dtype
+            _insert(tree, rel, t.to(leaf_dtype))
+    return _freeze(tree)

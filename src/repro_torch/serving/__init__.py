@@ -1,0 +1,24 @@
+from .api import (
+    AttentionPrefill, CodecFrontend, CodecStream, GreedyDecoder, MODES,
+    NO, QUERY_IDS, ServingPipeline, StreamRequest, StreamSession,
+    VisualEncoder, WindowResult, WindowStats, YES, resolve_device,
+)
+from .config import EngineCfg, KVCfg, PruneCfg, RefreshCfg, SchedulerCfg
+from .events import (
+    SchedulerError, SchedulerEvent, StreamAdmitted, StreamDone,
+    StreamThrottled, WindowDone,
+)
+from .metrics import agreement, precision_recall_f1, video_prediction
+from .scheduler import Scheduler
+from . import flops
+
+__all__ = [
+    "EngineCfg", "KVCfg", "PruneCfg", "RefreshCfg", "SchedulerCfg",
+    "ServingPipeline", "Scheduler", "StreamRequest", "StreamSession",
+    "WindowResult", "WindowStats", "MODES", "QUERY_IDS", "YES", "NO",
+    "SchedulerEvent", "StreamAdmitted", "StreamThrottled", "WindowDone",
+    "StreamDone", "SchedulerError",
+    "CodecFrontend", "CodecStream", "VisualEncoder", "AttentionPrefill",
+    "GreedyDecoder", "resolve_device",
+    "precision_recall_f1", "video_prediction", "agreement", "flops",
+]

@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is ``gpu``-marked and skips without a CUDA device (the
+decision is made in a fixture, never at import).  The file imports no
+JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: the repository's ``tests/conftest.py`` imports JAX.)
+``python3 chip_smoke.py`` makes the same comparisons at serving shapes.
+
+Tolerances: f32 SADs 1e-5 relative with the near-tie rule for MVs.
+rope_shift in bf16: elementwise, one bf16 step of the value (2^-7
+relative) plus 1e-3 for the f32 angle.  Attention: per (.., head) row,
+max |k - p| / max |p| within two bf16 steps (2^-6) of the row's largest
+value, since the kernel rounds its unnormalised probabilities and the
+plain version its normalised ones.  Fully masked rows and padding slots
+exactly zero.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_packed import (  # noqa: E402
+    build_pack_map, flash_packed_cuda, flash_packed_plain,
+)
+from repro_torch.kernels.flash_refresh import (  # noqa: E402
+    build_block_map, flash_refresh_paged_cuda, flash_refresh_paged_plain,
+)
+from repro_torch.kernels.mv_sad import mv_sad_cuda  # noqa: E402
+from repro_torch.kernels.rope_shift import rope_shift_cuda  # noqa: E402
+
+ROW_TOL = 2.0 ** -6
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _row_rel_err(out_k, out_p):
+    """Max over (.., head) rows of max |k - p| / max |p|."""
+    d = (out_k.float() - out_p.float()).abs()
+    scale = out_p.float().abs().amax(-1, keepdim=True)
+    return (d / scale.clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+
+
+def _frames(h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    cur = np.roll(prev, (2, -3), axis=(0, 1)) + rng.normal(0, 2, (h, w)).astype(np.float32)
+    return torch.from_numpy(cur.astype(np.float32)), torch.from_numpy(prev)
+
+
+def _sad_at(cur, prev, mv, block):
+    H, W = cur.shape
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    dy = mv[..., 0].repeat_interleave(block, 0).repeat_interleave(block, 1)
+    dx = mv[..., 1].repeat_interleave(block, 0).repeat_interleave(block, 1)
+    pred = prev.double()[(yy + dy).clamp(0, H - 1), (xx + dx).clamp(0, W - 1)]
+    hb, wb = H // block, W // block
+    return (cur.double() - pred).abs().reshape(hb, block, wb, block).sum(dim=(1, 3))
+
+
+@pytest.mark.parametrize("hw,block,radius", [(448, 16, 4), (112, 16, 4), (64, 8, 2)])
+def test_mv_sad_kernel_matches_plain(dev, hw, block, radius):
+    cur, prev = _frames(hw, hw)
+    mv_k, sad_k = mv_sad_cuda(cur.to(dev), prev.to(dev), block, radius)
+    mv_p, sad_p = ref.mv_sad_ref(cur, prev, block, radius)
+    mv_k, sad_k = mv_k.cpu(), sad_k.cpu()
+    torch.testing.assert_close(sad_k, sad_p, rtol=1e-5, atol=1e-3)
+    flipped = (mv_k != mv_p).any(-1)
+    # near-tie rule: a flipped MV must have the same SAD within 1e-5
+    tie = (_sad_at(cur, prev, mv_k, block) - _sad_at(cur, prev, mv_p, block)).abs()
+    assert bool((~flipped | (tie <= 1e-5 * sad_p.double().clamp(min=1))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_shift_kernel_matches_plain(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    k = torch.randn(4, 300, 8, 128, device=dev, generator=g).to(dtype)
+    delta = torch.randint(-700, 700, (4, 300), device=dev, dtype=torch.int32, generator=g)
+    out_k = rope_shift_cuda(k, delta)
+    out_p = ref.rope_shift_ref(k, delta)
+    assert out_k.dtype == dtype
+    d = (out_k.float() - out_p.float()).abs()
+    if dtype == torch.bfloat16:
+        d = d - 2.0 ** -7 * out_p.float().abs()
+        assert d.max().item() <= 1e-3
+    else:
+        assert d.max().item() <= 1e-4
+
+
+SCATTER_PATTERNS = {
+    "anchors_tail": np.concatenate([np.arange(0, 24), np.arange(160, 256)]),
+    "single_token": np.asarray([255]),
+    "fresh": np.arange(0, 200),
+    "decode": np.asarray([201]),
+}
+
+
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
+                                            (32, 4, 1, 48)])
+def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, window):
+    q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
+    rng = np.random.default_rng(11)
+    total = 6
+    k = torch.from_numpy(rng.normal(size=(total * 128, hkv, d)).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(rng.normal(size=(total * 128, hkv, d)).astype(np.float32)).bfloat16()
+    pt = torch.from_numpy(rng.permutation(total)[:4].reshape(2, 2).astype(np.int32))
+    kvv = torch.from_numpy(rng.random((2, 256)) > 0.3)
+    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), h, d)).astype(np.float32)).bfloat16()
+    qp = torch.from_numpy(np.broadcast_to(q_pos[None], (2, len(q_pos))).copy())
+    bm = build_block_map(q_pos, 256, window=window)
+    before = ops.launch_counts().get("flash_refresh_paged", 0)
+    out_k = flash_refresh_paged_cuda(q.to(dev), k.to(dev), v.to(dev), kvv.to(dev),
+                                     pt.to(dev), bm, window=window).cpu()
+    assert ops.launch_counts()["flash_refresh_paged"] == before + 1
+    out_p = flash_refresh_paged_plain(q, k, v, qp, kvv, pt, window=window)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    dead = (out_p == 0).all(-1).all(-1)          # rows no key reaches
+    assert bool((out_k[dead] == 0).all())
+
+
+def _seg_layout(rows, L):
+    seg = np.full((len(rows), L), -1, np.int32)
+    for r, row in enumerate(rows):
+        off = 0
+        for s, n in row:
+            seg[r, off: off + n] = s
+            off += n
+    return seg
+
+
+PACK_LAYOUTS = {
+    "single": [[(0, 100)]],
+    "multi": [[(0, 60), (1, 100), (2, 40)], [(3, 256)]],
+    "ragged_pad": [[(0, 12), (1, 4)], [(2, 140)], []],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_packed_kernel_matches_plain(dev, layout, d):
+    seg = torch.from_numpy(_seg_layout(PACK_LAYOUTS[layout], 256))
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(seg.shape[0], 256, 16, d, generator=g).bfloat16() for _ in range(3))
+    out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev), seg.to(dev),
+                              build_pack_map(seg.numpy())).cpu()
+    out_p = flash_packed_plain(q, k, v, seg)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    assert bool((out_k[seg < 0] == 0).all())
+
+
+def test_ops_route_cuda_tensors_to_kernels(dev):
+    """auto mode launches the kernel on CUDA tensors; plain mode runs the
+    plain version there and is counted as such."""
+    ops.reset_dispatch_counts()
+    cur, prev = _frames(64, 64)
+    before = ops.launch_counts().get("mv_sad", 0)
+    ops.mv_sad(cur.to(dev), prev.to(dev))
+    assert ops.launch_counts()["mv_sad"] == before + 1
+    with ops.kernel_mode("plain"):
+        ops.mv_sad(cur.to(dev), prev.to(dev))
+    assert ops.launch_counts()["mv_sad"] == before + 1
+    assert ops.dispatch_counts()["mv_sad"] == {"kernel": 1, "mode:plain": 1}
+    assert ops.plain_calls_on_cuda()["mv_sad"] == 1
+    with pytest.raises(ops.KernelContractError):
+        ops.flash_packed(*(torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
+                           for _ in range(3)), torch.zeros(1, 128, dtype=torch.int32, device=dev))
+
+
+def test_refresh_map_for_other_positions_raises_on_card(dev):
+    """The kernel masks by the map's positions: a map built for other
+    positions of the same length is refused, not silently used."""
+    q = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16)
+    slab = torch.zeros(128, 2, 32, device=dev, dtype=torch.bfloat16)
+    args = (slab, slab, torch.tensor([[3, 4, 5, 7]], device=dev),
+            torch.ones(1, 128, dtype=torch.bool, device=dev),
+            torch.zeros(1, 1, dtype=torch.int32, device=dev))
+    before = ops.launch_counts().get("flash_refresh_paged", 0)
+    with pytest.raises(ops.KernelContractError, match="positions-match"):
+        ops.flash_refresh_paged(q, *args, block_map=build_block_map([3, 4, 5, 6], 128))
+    assert ops.launch_counts().get("flash_refresh_paged", 0) == before
+    ops.flash_refresh_paged(q, *args, block_map=build_block_map([3, 4, 5, 7], 128))
+    assert ops.launch_counts()["flash_refresh_paged"] == before + 1

@@ -1,0 +1,344 @@
+"""The port's kernel modules against the JAX package's.
+
+* Plain PyTorch versions vs the Pallas kernels run in interpret mode (and
+  vs the ``repro.kernels.ref`` oracles), on the same numpy inputs.
+* Host-side visit-list maps: equal array for array.
+* ``ops`` dispatch on CPU tensors, its counters and preconditions.
+
+The CUDA kernels against their plain versions on the card are in
+``test_torch_gpu.py`` (which imports no JAX).
+
+Tolerances: f32 outputs 1e-5 (sums in another order); bf16 outputs 3e-2
+(one bf16 rounding step of O(1) values, as ``tests/test_kernels.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_packed import (  # noqa: E402
+    build_pack_map as j_build_pack_map, dense_pack_map as j_dense_pack_map,
+    flash_packed_pallas,
+)
+from repro.kernels.flash_refresh import (  # noqa: E402
+    build_block_map as j_build_block_map, dense_block_map as j_dense_block_map,
+)
+from repro.kernels.mv_sad import mv_sad_pallas  # noqa: E402
+from repro.kernels.rope_shift import rope_shift_pallas  # noqa: E402
+from repro_torch.kernels import cuda, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_packed import (  # noqa: E402
+    build_pack_map, dense_pack_map, flash_packed_plain,
+)
+from repro_torch.kernels.flash_refresh import (  # noqa: E402
+    build_block_map, dense_block_map, flash_refresh_paged_plain,
+)
+
+BF16_TOL = 3e-2
+F32_TOL = 1e-5
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def as_dtype(x: np.ndarray, dtype: str):
+    """The same values for both frameworks: bf16 inputs are rounded once
+    (through torch) and handed over as exactly representable f32."""
+    if dtype == "float32":
+        return jnp.asarray(x), t(x)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xf = xt.float().numpy()
+    return jnp.asarray(xf).astype(jnp.bfloat16), xt
+
+
+def f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+# ----------------------------------------------------------------------
+# mv_sad
+# ----------------------------------------------------------------------
+def _frames(h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    cur = np.roll(prev, (2, -3), axis=(0, 1)) + rng.normal(0, 2, (h, w)).astype(np.float32)
+    return cur.astype(np.float32), prev
+
+
+def assert_mv_match(mv_a, sad_a, mv_b, cur, prev, block, rtol=1e-5):
+    """MVs equal, except a near tie: where they differ, both candidates'
+    SADs (recomputed exactly in f64) agree within rtol.  SADs are f32
+    sums of block^2 terms whose order differs between the frameworks."""
+    diff = np.any(mv_a != mv_b, axis=-1)
+    for by, bx in zip(*np.nonzero(diff)):
+        sads = []
+        for mv in (mv_a[by, bx], mv_b[by, bx]):
+            ys = np.clip(np.arange(by * block, (by + 1) * block) + mv[0], 0, cur.shape[0] - 1)
+            xs = np.clip(np.arange(bx * block, (bx + 1) * block) + mv[1], 0, cur.shape[1] - 1)
+            blk = cur[by * block:(by + 1) * block, bx * block:(bx + 1) * block]
+            sads.append(np.abs(blk.astype(np.float64) - prev[np.ix_(ys, xs)]).sum())
+        assert abs(sads[0] - sads[1]) <= rtol * max(sads[0], 1.0), (by, bx, sads)
+
+
+@pytest.mark.parametrize("h,w,block,radius", [(64, 64, 16, 4), (112, 112, 16, 4),
+                                              (64, 128, 8, 2)])
+def test_mv_sad_plain_matches_pallas(h, w, block, radius):
+    cur, prev = _frames(h, w)
+    mv_j, sad_j = mv_sad_pallas(jnp.asarray(cur), jnp.asarray(prev), block=block,
+                                radius=radius, interpret=True)
+    mv_o, sad_o = jref.mv_sad_ref(jnp.asarray(cur), jnp.asarray(prev), block, radius)
+    mv_t, sad_t = ref.mv_sad_ref(t(cur), t(prev), block, radius)
+    assert mv_t.dtype == torch.int32 and mv_t.shape == (h // block, w // block, 2)
+    for mv_r, sad_r in ((mv_j, sad_j), (mv_o, sad_o)):
+        assert_mv_match(np.asarray(mv_r), np.asarray(sad_r), mv_t.numpy(), cur, prev, block)
+        np.testing.assert_allclose(sad_t.numpy(), np.asarray(sad_r), rtol=1e-5)
+
+
+def test_mv_sad_plain_keeps_first_minimum():
+    """Ties go to the first candidate in dy-major order (strict '<')."""
+    flat = np.full((32, 32), 7.0, np.float32)
+    mv, sad = ref.mv_sad_ref(t(flat), t(flat), 16, 2)
+    assert (mv.numpy() == -2).all() and (sad.numpy() == 0).all()
+
+
+# ----------------------------------------------------------------------
+# rope_shift
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_shift_plain_matches_pallas(dtype):
+    rng = np.random.default_rng(1)
+    k = rng.normal(size=(2, 128, 2, 64)).astype(np.float32)
+    delta = rng.integers(-700, 700, size=(2, 128)).astype(np.int32)
+    kj, kt = as_dtype(k, dtype)
+    out_j = rope_shift_pallas(kj, jnp.asarray(delta), seq_tile=64, interpret=True)
+    out_o = jref.rope_shift_ref(kj, jnp.asarray(delta))
+    out_t = ref.rope_shift_ref(kt, t(delta))
+    assert out_t.dtype == kt.dtype
+    tol = BF16_TOL if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(f32(out_t), f32(out_j), atol=tol)
+    np.testing.assert_allclose(f32(out_t), f32(out_o), atol=tol)
+
+
+def test_apply_rope_matches_jax():
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 40, 4, 32)).astype(np.float32)
+    pos = np.tile(np.arange(40, dtype=np.int32), (2, 1)) * 37
+    np.testing.assert_allclose(
+        ref.apply_rope_ref(t(x), t(pos)).numpy(),
+        np.asarray(jref.apply_rope_ref(jnp.asarray(x), jnp.asarray(pos))), atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# flash_refresh_paged
+# ----------------------------------------------------------------------
+SCATTER_PATTERNS = {
+    "anchors_only": np.arange(0, 32, dtype=np.int32),
+    "anchors_tail": np.concatenate([np.arange(0, 24, dtype=np.int32),
+                                    np.arange(160, 256, dtype=np.int32)]),
+    "single_token": np.asarray([255], np.int32),
+    "fresh": np.arange(0, 200, dtype=np.int32),
+}
+
+
+def _paged_case(n_streams=2, pages_per=2, h=4, hkv=2, d=32, seed=11, dtype="float32"):
+    """Slab with two spare pages no stream owns, shuffled page tables and
+    ragged validity — the masks, not the allocator, must hide stale rows."""
+    rng = np.random.default_rng(seed)
+    total = n_streams * pages_per + 2
+    slab_k = rng.normal(size=(total * 128, hkv, d)).astype(np.float32)
+    slab_v = rng.normal(size=(total * 128, hkv, d)).astype(np.float32)
+    pt = rng.permutation(total)[: n_streams * pages_per].reshape(n_streams, pages_per)
+    kvv = rng.random((n_streams, pages_per * 128)) > 0.3
+    return (*as_dtype(slab_k, dtype), *as_dtype(slab_v, dtype), pt.astype(np.int32), kvv)
+
+
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_refresh_paged_plain_matches_pallas(pattern, dtype):
+    q_pos = SCATTER_PATTERNS[pattern]
+    kj, kt, vj, vt, pt, kvv = _paged_case(dtype=dtype)
+    rng = np.random.default_rng(5)
+    qj, qt = as_dtype(rng.normal(size=(2, len(q_pos), 4, 32)).astype(np.float32), dtype)
+    qp = np.broadcast_to(q_pos[None], (2, len(q_pos)))
+    bm = j_build_block_map(q_pos, 256, tq=128, tk=128, causal=True)
+    with jops.kernel_mode("interpret"):
+        o_j = jops.flash_refresh_paged(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv),
+                                       jnp.asarray(pt), block_map=bm)
+    o_o = jref.flash_refresh_paged_ref(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv),
+                                       jnp.asarray(pt))
+    o_t = flash_refresh_paged_plain(qt, kt, vt, t(qp), t(kvv), t(pt), q_chunk=64)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
+    np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
+
+
+def test_flash_refresh_paged_fully_masked_rows_are_zero():
+    kj, kt, vj, vt, pt, kvv = _paged_case()
+    kvv[:, :] = False
+    kvv[0, 5] = True
+    q = torch.randn(2, 3, 4, 32)
+    qp = torch.tensor([[3, 10, 20], [3, 10, 20]])
+    out = flash_refresh_paged_plain(q, kt, vt, qp, t(kvv), t(pt))
+    assert (out[1] == 0).all() and (out[0, 0] == 0).all()
+    assert (out[0, 1:] != 0).any()
+
+
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("window", [None, 48])
+def test_block_maps_equal_jax(pattern, window):
+    q_pos = SCATTER_PATTERNS[pattern]
+    for build_t, build_j in ((build_block_map, j_build_block_map),
+                             (dense_block_map, j_dense_block_map)):
+        a = build_t(q_pos, 300, tq=64, tk=128, window=window)
+        b = build_j(q_pos, 300, tq=64, tk=128, window=window)
+        for f in ("tq", "tk", "n_q", "kv_len", "causal", "window", "n_q_tiles", "t_max"):
+            assert getattr(a, f) == getattr(b, f), f
+        for f in ("q_pos", "tile_ids", "tile_count"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert a.density == b.density
+
+
+# ----------------------------------------------------------------------
+# flash_packed
+# ----------------------------------------------------------------------
+def _seg_layout(rows, L):
+    seg = np.full((len(rows), L), -1, np.int32)
+    for r, row in enumerate(rows):
+        off = 0
+        for s, n in row:
+            seg[r, off: off + n] = s
+            off += n
+    return seg
+
+
+PACK_LAYOUTS = {
+    "single": [[(0, 100)]],
+    "multi": [[(0, 60), (1, 100), (2, 40)], [(3, 256)]],
+    "ragged_pad": [[(0, 12), (1, 4)], [(2, 140)], []],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_packed_plain_matches_pallas(layout, dtype):
+    seg = _seg_layout(PACK_LAYOUTS[layout], 256)
+    R = seg.shape[0]
+    rng = np.random.default_rng(sorted(PACK_LAYOUTS).index(layout))
+    (qj, qt), (kj, kt), (vj, vt) = (
+        as_dtype(rng.normal(size=(R, 256, 4, 32)).astype(np.float32), dtype)
+        for _ in range(3))
+    bm = j_build_pack_map(seg)
+    o_j = flash_packed_pallas(qj, kj, vj, jnp.asarray(seg), jnp.asarray(bm.tile_ids),
+                              jnp.asarray(bm.tile_count), interpret=True)
+    o_o = jref.flash_packed_ref(qj, kj, vj, jnp.asarray(seg))
+    o_t = flash_packed_plain(qt, kt, vt, t(seg), q_chunk=128)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
+    np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
+    assert (f32(o_t)[seg < 0] == 0).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_maps_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    rows = [[(s, int(rng.integers(1, 90))) for s in range(3 * r, 3 * r + 3)]
+            for r in range(3)] + [[]]
+    seg = _seg_layout(rows, 384)
+    for build_t, build_j in ((build_pack_map, j_build_pack_map),
+                             (dense_pack_map, j_dense_pack_map)):
+        a, b = build_t(seg), build_j(seg)
+        assert (a.tq, a.tk, a.t_max, a.visited) == (b.tq, b.tk, b.t_max, b.visited)
+        np.testing.assert_array_equal(a.tile_ids, b.tile_ids)
+        np.testing.assert_array_equal(a.tile_count, b.tile_count)
+        assert a.density == b.density
+
+
+# ----------------------------------------------------------------------
+# ops: dispatch, counters, preconditions
+# ----------------------------------------------------------------------
+def test_ops_cpu_runs_plain_and_counts():
+    ops.reset_dispatch_counts()
+    before = ops.launch_counts()
+    cur, prev = _frames(32, 32)
+    mv, _ = ops.mv_sad(t(cur), t(prev), 16, 2)
+    mv_r, _ = ref.mv_sad_ref(t(cur), t(prev), 16, 2)
+    assert torch.equal(mv, mv_r)
+    k = torch.randn(1, 8, 2, 16)
+    with ops.kernel_mode("plain"):
+        ops.rope_shift(k, torch.zeros(1, 8, dtype=torch.int32))
+    counts = ops.dispatch_counts()
+    assert counts["mv_sad"] == {"backend:ok": 1}
+    assert counts["rope_shift"] == {"backend:ok": 1}
+    assert ops.plain_calls_on_cuda() == {"mv_sad": 0, "rope_shift": 0}
+    assert ops.launch_counts() == before
+    with pytest.raises(ValueError):
+        ops.set_kernel_mode("interpret")
+
+
+BAD_CALLS = {
+    "mv_sad-rank": lambda: ops.mv_sad(torch.zeros(1, 32, 32), torch.zeros(1, 32, 32)),
+    "mv_sad-block": lambda: ops.mv_sad(torch.zeros(30, 32), torch.zeros(30, 32)),
+    "mv_sad-radius": lambda: ops.mv_sad(torch.zeros(32, 32), torch.zeros(32, 32), 16, 0),
+    "rope-delta-shape": lambda: ops.rope_shift(torch.zeros(1, 8, 2, 16),
+                                               torch.zeros(1, 7, dtype=torch.int32)),
+    "rope-delta-dtype": lambda: ops.rope_shift(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8)),
+    "rope-odd-head": lambda: ops.rope_shift(torch.zeros(1, 8, 2, 15),
+                                            torch.zeros(1, 8, dtype=torch.int32)),
+    "refresh-gqa": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 3, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 128, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32)),
+    "refresh-kv-valid": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 100, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32)),
+    "refresh-slab-align": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(100, 2, 16), torch.zeros(100, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 128, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32)),
+    "refresh-positions-map": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.tensor([[3, 4, 5, 7]]), torch.ones(1, 128, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32), block_map=build_block_map([3, 4, 5, 6], 128)),
+    "packed-seg-shape": lambda: ops.flash_packed(
+        torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16),
+        torch.zeros(1, 64, dtype=torch.int32)),
+    "packed-dtype": lambda: ops.flash_packed(
+        torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16, dtype=torch.float64),
+        torch.zeros(1, 128, 4, 16, dtype=torch.float64), torch.zeros(1, 128, dtype=torch.int32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_CALLS))
+def test_ops_preconditions_raise(case):
+    with pytest.raises(ops.KernelContractError):
+        BAD_CALLS[case]()
+
+
+def test_refresh_positions_checked_against_map():
+    """A map must be built for the caller's positions; the check is
+    repeated when the positions tensor changes in place."""
+    bm = build_block_map([3, 4, 5, 6], 128)
+    q = torch.randn(1, 4, 4, 16)
+    slab = torch.randn(128, 2, 16)
+    qp = torch.tensor([[3, 4, 5, 6]])
+    args = (slab, slab, qp, torch.ones(1, 128, dtype=torch.bool),
+            torch.zeros(1, 1, dtype=torch.int32))
+    out = ops.flash_refresh_paged(q, *args, block_map=bm)
+    torch.testing.assert_close(out, flash_refresh_paged_plain(q, *args))
+    ops.flash_refresh_paged(q, *args, block_map=bm)
+    qp[0, 3] = 7
+    with pytest.raises(ops.KernelContractError, match="positions-match"):
+        ops.flash_refresh_paged(q, *args, block_map=bm)
+
+
+def test_cuda_library_is_not_built_at_import():
+    assert cuda._LIB is None or torch.cuda.is_available()
+    assert cuda.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert {p.name for p in cuda.CSRC.glob("*.cu")} == set(cuda.SOURCES)
