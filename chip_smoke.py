@@ -12,23 +12,43 @@ Phases (any failure exits non-zero):
   3. kernels — each kernel against its plain PyTorch version on the card
                at the serving path's shapes for internvl3-14b at 448^2
                (flash_refresh_paged at fresh prefill, selective refresh
-               and decode), with the stated tolerance; kernel, plain and library
-               (gather + scaled_dot_product_attention, where one exists)
-               times from CUDA events; the least time the card could take
-               (bytes over 3.35 TB/s, operations over the peak rate of
-               their type).
+               and decode; flash_refresh on per-stream caches at the
+               pruned and unpruned fresh prefill, selective refresh and
+               decode; flash_refresh_paged with int8 cold pages at the
+               selective refresh with 15 of 21 pages per stream cold, and
+               all hot, where it must equal the bf16 kernel bitwise),
+               with the stated tolerance; kernel, plain and library
+               (scaled_dot_product_attention, after a gather where the KV
+               is paged) times from CUDA events; the least time the card
+               could take (bytes over 3.35 TB/s, operations over the peak
+               rate of their type).
   4. serve   — internvl3-14b at full width and depth with random weights
                made on the card from a seed: 2 streams x 24 frames at
                448^2 (one fresh and two incremental windows each) through
-               the lockstep Scheduler.  Every kernel must have launched
+               the lockstep Scheduler, mode codecflow on the paged bf16
+               slab.  Every kernel of that path must have launched
                during this run, and no plain version may have run on a
-               CUDA tensor.
+               CUDA tensor.  Then, with the same weights, the same
+               serve once per further path: codecflow on per-stream
+               caches, codecflow with int8 cold pages, and the baselines
+               fullcomp, prune_only, refresh_only, vlcache and cacheblend;
+               each must launch its path's kernels with no plain call on a
+               CUDA tensor.  The int8 run must demote pages, and its
+               window-0 logits must equal bitwise those of the bf16 paged
+               run served one stream at a time (the int8 run admits its
+               streams one after the other, so each window 0 is a batch
+               of one there).
   5. composite — one fresh and one incremental window group at full width
                and 4 layers, through the kernels and then through
-               kernel_mode("plain"); the yes/no logits must agree.
+               kernel_mode("plain"), for codecflow and for each further
+               path; the yes/no logits must agree.
 
-The line before the last is the JSON kernel table; the last line is
-{"ok": true, "device": {...}}.
+The two lines before the last are the JSON kernel table and the card's
+name and power limit as nvidia-smi gives them; the last line is
+{"ok": true, "device": {...}}.  In the table a kernel's ``launches`` is
+the count from the run of the path named in ``launches_path`` (the
+first path that launches it); ``launches_by_path`` has the count of
+every path's own run.
 """
 from __future__ import annotations
 
@@ -203,6 +223,48 @@ def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str):
     return q, k, v, q_pos, kv_valid, pt, bm
 
 
+def check_attention(torch, kernel, plain, library, q, q_pos, kv_valid, n_kv,
+                    key_bytes, extra_bytes):
+    """Hold one refresh-attention kernel against its plain version on
+    the same inputs: the row-relative error within ROW_TOL and rows with
+    no visible key exactly 0.  Times the kernel, the plain version and
+    ``library(mask)``.  The bound: q read and the output written once,
+    ``key_bytes(needed)`` bytes per (kv head, d_head) element summed over
+    the key rows some query needs (``needed`` (B, slots) bool) for K and
+    V, plus ``extra_bytes`` of masks and tables; 4 D H flops per live
+    (query, key) pair.  Returns (ok, readings)."""
+    out_k, out_p = kernel(), plain()
+    err, rel = attn_errors(torch, out_k, out_p)
+    kpos = torch.arange(kv_valid.shape[1], device="cuda")
+    mask = (kpos[None, None, :] <= q_pos[:, :, None]) & kv_valid[:, None, :]
+    dead_zero = bool((out_k[~mask.any(-1)] == 0).all())
+    B, Sq, H, D = q.shape
+    n_bytes = (2 * q.numel() * 2 + key_bytes(mask.any(1)) * n_kv * D * 2 + extra_bytes)
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
+    r = dict(max_abs_err=err, rel=rel, dead_zero=dead_zero,
+             ms=cuda_ms(torch, kernel, 10), plain_ms=cuda_ms(torch, plain, 3),
+             library_ms=cuda_ms(torch, lambda: library(mask), 5),
+             bound_ms=b_ms, bound_by=b_by)
+    return rel <= ROW_TOL and dead_zero, r
+
+
+def attention_reading(r, library: str) -> str:
+    return (f"max abs err {r['max_abs_err']:.3g}, max row-relative err {r['rel']:.3g} "
+            f"(limit {ROW_TOL:.3g}), masked rows exact zero: {r['dead_zero']}; kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {library} "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def kernel_row(name, replaces, r):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict(name=name, route="cuda", source="src/repro_torch/csrc/attention.cu",
+                replaces=replaces, **{k: r[k] for k in keys})
+
+
+def bf16_keys(needed):
+    return 2 * float(needed.sum())
+
+
 def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams):
     """All three serving shapes are held to ROW_TOL; the kernels line
     reports the selective refresh's times and the largest error."""
@@ -213,46 +275,119 @@ def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams):
     for case in REFRESH_CASES:
         q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
             torch, cfg, layout, cache_slots, n_streams, case)
-        B, Sq, H, D = q.shape
-        out_k = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
-        out_p = flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt)
-        err, rel = attn_errors(torch, out_k, out_p)
-        worst = max(worst, err)
-        kpos = torch.arange(cache_slots, device="cuda")
-        mask = (kpos[None, None, :] <= q_pos[:, :, None]) & kv_valid[:, None, :]
-        dead = ~mask.any(-1)
-        dead_zero = bool((out_k[dead] == 0).all()) if bool(dead.any()) else True
-        ok_here = rel <= ROW_TOL and dead_zero
-        ms = cuda_ms(torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm), 10)
-        plain = cuda_ms(torch, lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), 3)
-        g = H // k.shape[1]
+        g = q.shape[2] // k.shape[1]
 
-        def library():
+        def library(mask):
             kg = paged_gather_ref(k, pt, 128).repeat_interleave(g, dim=2).transpose(1, 2)
             vg = paged_gather_ref(v, pt, 128).repeat_interleave(g, dim=2).transpose(1, 2)
             return F.scaled_dot_product_attention(q.transpose(1, 2), kg, vg,
                                                   attn_mask=mask[:, None])
 
-        lib = cuda_ms(torch, library, 5)
-        live_pairs = float(mask.sum())
-        keys_needed = float(mask.any(1).sum())
-        n_bytes = (2 * q.numel() * 2 + keys_needed * k.shape[1] * D * 2 * 2
-                   + kv_valid.numel() + pt.numel() * 4)
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * live_pairs, BF16_TENSOR_FLOPS)
+        ok_here, r = check_attention(
+            torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm),
+            lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), library,
+            q, q_pos, kv_valid, k.shape[1], bf16_keys, kv_valid.numel() + pt.numel() * 4)
+        worst = max(worst, r["max_abs_err"])
         log(f"flash_refresh_paged ({case}): q {tuple(q.shape)} bf16, slab "
             f"{tuple(k.shape)}, {bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
-            f"max abs err {err:.3g}, max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), "
-            f"masked rows exact zero: {dead_zero}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"gather+SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            + attention_reading(r, "gather+SDPA"))
         ok = ok and ok_here
         if case == "selective refresh":
-            row = dict(name="flash_refresh_paged", route="cuda",
-                       source="src/repro_torch/csrc/attention.cu",
-                       replaces="src/repro/kernels/flash_refresh.py:458",
-                       ms=ms, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib)
+            row = kernel_row("flash_refresh_paged", "src/repro/kernels/flash_refresh.py:458", r)
     row["max_abs_err"] = worst
     return ok, row
+
+
+def check_flash_refresh(torch, cfg, cases, n_streams):
+    """The per-stream kernel on the logical view of the same inputs as
+    the paged checks: (label, layout, cache slots, refresh case) per row
+    of ``cases``.  The kernels line reports the selective refresh's
+    times and the largest error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_refresh import flash_refresh_cuda, flash_refresh_plain
+    from repro_torch.kernels.ref import paged_gather_ref
+    ok, row, worst = True, None, 0.0
+    for label, layout, slots, case in cases:
+        q, ks, vs, q_pos, kv_valid, pt, bm = _refresh_inputs(
+            torch, cfg, layout, slots, n_streams, case)
+        k, v = paged_gather_ref(ks, pt, 128), paged_gather_ref(vs, pt, 128)
+        del ks, vs
+        ok_here, r = check_attention(
+            torch, lambda: flash_refresh_cuda(q, k, v, kv_valid, bm),
+            lambda: flash_refresh_plain(q, k, v, q_pos, kv_valid),
+            lambda mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None], enable_gqa=True),
+            q, q_pos, kv_valid, k.shape[2], bf16_keys, kv_valid.numel())
+        worst = max(worst, r["max_abs_err"])
+        log(f"flash_refresh ({label}): q {tuple(q.shape)} bf16, caches {tuple(k.shape)}, "
+            f"{bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
+            + attention_reading(r, "SDPA"))
+        ok = ok and ok_here
+        if case == "selective refresh":
+            row = kernel_row("flash_refresh", "src/repro/kernels/flash_refresh.py:236", r)
+    row["max_abs_err"] = worst
+    return ok, row
+
+
+def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
+    """The two-precision kernel at the selective refresh: each stream's
+    overlap pages [0, D) (15 of 21) quantised into an int8 cold slab with
+    per-(page, kv head) scales, as demotion leaves them.  Held to the
+    plain version (dequant-gather + the same attention); with every
+    entry hot it must equal the bf16 kernel bitwise."""
+    import torch.nn.functional as F
+    from repro_torch.core import demotable_pages
+    from repro_torch.kernels.flash_refresh import (
+        flash_refresh_paged_cuda, flash_refresh_paged_plain,
+    )
+    from repro_torch.kernels.ref import paged_gather
+    from repro_torch.models.layers import page_quant_scale, quantize_kv
+    q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
+        torch, cfg, layout, cache_slots, n_streams, "selective refresh")
+    n_hot, n_kv, dh = k.shape[0] // 128, k.shape[1], k.shape[2]
+    D = len(demotable_pages(layout))
+    src = pt[:, :D].reshape(-1).long()
+    rows = (src[:, None] * 128 + torch.arange(128, device="cuda")).reshape(-1)
+
+    def quant(slab):
+        pages = slab[rows].reshape(-1, 128, n_kv, dh)
+        sc = page_quant_scale(pages, (1, 3))                       # (n_cold, n_kv)
+        return quantize_kv(pages, sc[:, None, :]).reshape(-1, n_kv, dh), sc
+
+    (k8, ks), (v8, vs) = quant(k), quant(v)
+    cold = (k8, v8, ks, vs)
+    pt8 = pt.clone()
+    pt8[:, :D] = n_hot + torch.arange(n_streams * D, dtype=torch.int32,
+                                      device="cuda").reshape(n_streams, D)
+    is_cold = (pt8 >= n_hot).repeat_interleave(128, dim=1)
+
+    def library(mask):
+        kg, vg = paged_gather(k, v, pt8, 128, cold)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=True)
+
+    def key_bytes(needed):    # int8 rows at 1 B, bf16 rows at 2 B
+        cold_keys = float((needed & is_cold).sum())
+        return 2 * (float(needed.sum()) - cold_keys) + cold_keys
+
+    ok, r = check_attention(
+        torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold),
+        lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt8, cold=cold),
+        library, q, q_pos, kv_valid, n_kv, key_bytes,
+        kv_valid.numel() + pt8.numel() * 4 + 2 * ks.numel() * 4)
+    out_bf16 = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
+    all_hot = torch.equal(flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm, cold=cold),
+                          out_bf16)
+    _, quant_rel = attn_errors(
+        torch, flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold), out_bf16)
+    log(f"flash_refresh_paged_int8 (selective refresh): q {tuple(q.shape)} bf16, hot slab "
+        f"{tuple(k.shape)}, cold slab {tuple(k8.shape)} int8, {D} of {pt.shape[1]} pages "
+        f"per stream cold, all-hot bitwise equal to bf16 kernel: {all_hot}, row-relative "
+        f"change from quantisation {quant_rel:.3g}: " + attention_reading(r, "dequant-gather+SDPA"))
+    return ok and all_hot, kernel_row("flash_refresh_paged_int8",
+                                      "src/repro/kernels/flash_refresh.py:380", r)
 
 
 def check_flash_packed(torch, pipe, streams):
@@ -303,18 +438,136 @@ def check_flash_packed(torch, pipe, streams):
 # ----------------------------------------------------------------------
 # phases 4 and 5
 # ----------------------------------------------------------------------
-def serve(torch, pipe, videos):
-    """Drive the serving path once; returns per-stream window stats."""
+def serve(torch, pipe, videos, on_event=None):
+    """Drive the serving path once; returns per-stream window stats.
+    ``on_event`` sees every scheduler event as it occurs."""
     import numpy as np
     from repro_torch.serving import Scheduler, SchedulerCfg, StreamRequest
     sched = Scheduler(pipe, SchedulerCfg(max_concurrent=len(videos)))
     t0 = time.perf_counter()
     sids = [sched.submit(StreamRequest(i, np.asarray(f), tag=lab))
             for i, (f, lab) in enumerate(videos)]
-    sched.run()
+    for ev in sched.events():
+        if on_event is not None:
+            on_event(ev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return sched, [sched.session(s).results for s in sids], wall
+
+
+# (label, mode, KVCfg overrides) of the paths served after codecflow on
+# the paged bf16 slab; "codecflow, bf16, one stream at a time" is the
+# reference of the int8 run's window 0
+PATHS = (
+    ("codecflow, per-stream KV", "codecflow", dict(paged_kv=False)),
+    ("codecflow, bf16, one stream at a time", "codecflow", dict(pool_streams=1)),
+    ("codecflow, int8 cold pages", "codecflow", dict(stale_page_dtype="int8")),
+    ("fullcomp", "fullcomp", {}),
+    ("prune_only", "prune_only", {}),
+    ("refresh_only", "refresh_only", {}),
+    ("vlcache", "vlcache", {}),
+    ("cacheblend", "cacheblend", {}),
+)
+
+
+# the path whose own run gives a kernel's "launches" in the kernels line:
+# its first path to launch it (the slice-1 kernels: "codecflow", paged bf16)
+MAIN = "codecflow"
+LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
+               "flash_refresh_paged_int8": "codecflow, int8 cold pages"}
+
+
+def path_ecfg(mode: str, kv: dict):
+    from repro_torch.serving import EngineCfg, KVCfg
+    return EngineCfg(mode=mode, codec=codec_cfg(), kv=KVCfg(**kv))
+
+
+def serve_paths(torch, cfg, params, vparams, videos):
+    """Phase 4, further paths: each served once with the counts set to 0
+    just before and read just after.  Returns (ok, launches per path)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingPipeline, WindowDone
+    by_path: dict = {}
+    window0: dict = {}
+    ok = True
+    for label, mode, kv in PATHS:
+        pipe = ServingPipeline(cfg, cfg.vit, params, vparams, path_ecfg(mode, kv),
+                               device="cuda")
+        seen = {}
+
+        def on_event(ev, pipe=pipe, seen=seen):
+            pool = pipe.backend.pool
+            if isinstance(ev, WindowDone) and ev.window == 1 and pool is not None:
+                seen.setdefault("cold_after_w1", sum(
+                    1 for p in pool._in_use if p >= pool.n_pages))
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ops.reset_dispatch_counts()
+        sched, per_stream, wall = serve(torch, pipe, videos, on_event)
+        launches = ops.launch_counts()
+        plain_on_cuda = ops.plain_calls_on_cuda()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_win = sum(len(r) for r in per_stream)
+        logits = np.array([r.stats.logits_yes_no for res in per_stream for r in res])
+        want = pipe.kernels
+        busy = {k: round(v, 4) for k, v in sched.stage_busy.items()}
+        kv_bytes = per_stream[0][-1].stats.kv_bytes_per_stream
+        log(f"serve [{label}]: {n_win} windows in {wall:.3f} s ({n_win / wall:.4f} "
+            f"windows/s incl. codec ingest); stage busy s {busy}; peak memory {peak:.2f} "
+            f"GiB; kv bytes per stream {kv_bytes}; t_map {pipe.backend.t_map:.4f} s; "
+            f"launches {launches}; plain on CUDA {plain_on_cuda}")
+        for i, res in enumerate(per_stream):
+            log(f"  stream {i}: answers {[r.stats.answer for r in res]}, yes/no logits "
+                f"{[tuple(round(x, 4) for x in r.stats.logits_yes_no) for r in res]}")
+        here = (n_win == 6 and bool(np.isfinite(logits).all())
+                and all(launches.get(k, 0) > 0 for k in want)
+                and not any(plain_on_cuda.values()))
+        window0[label] = [res[0].stats.logits_yes_no for res in per_stream]
+        if kv.get("stale_page_dtype") == "int8":
+            cold = seen.get("cold_after_w1", 0)
+            ref = window0["codecflow, bf16, one stream at a time"]
+            same = window0[label] == ref
+            log(f"  int8: cold pages in use after window 1: {cold}; window-0 yes/no logits "
+                f"bitwise equal to the bf16 run one stream at a time: {same}")
+            here = here and cold > 0 and same
+        if not here:
+            log(f"FAIL: serve [{label}] (kernels wanted {sorted(want)})")
+        ok = ok and here
+        by_path[label] = launches
+        del sched, pipe, per_stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, by_path
+
+
+def composite(torch, cfg4, params, vparams, videos, mode, kv):
+    """One fresh and one incremental window group at 4 layers through the
+    kernels and through their plain versions.  Returns (max |d yes/no
+    logit|, its tolerance, answers agree where the margin exceeds twice
+    it, all checks passed)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingPipeline
+    ecfg = path_ecfg(mode, kv)
+    pipe = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg, device="cuda")
+    _, res_k, _ = serve(torch, pipe, videos)
+    del pipe
+    pipe_p = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg,
+                             device="cuda")       # same weights, own KV
+    with ops.kernel_mode("plain"):
+        _, res_p, _ = serve(torch, pipe_p, videos)
+    del pipe_p
+    lk = np.array([r.stats.logits_yes_no for res in res_k for r in res])
+    lp = np.array([r.stats.logits_yes_no for res in res_p for r in res])
+    tol = 5e-2 * max(1.0, float(np.abs(lp).max()))
+    diff = float(np.abs(lk - lp).max())
+    margin = np.abs(lp[:, 0] - lp[:, 1])
+    ans_ok = bool((((lk[:, 0] > lk[:, 1]) == (lp[:, 0] > lp[:, 1])) | (margin <= 2 * tol)).all())
+    return diff, tol, ans_ok, diff <= tol and ans_ok and lk.shape == (4, 2)
 
 
 def main() -> int:
@@ -328,7 +581,7 @@ def main() -> int:
     from repro_torch.kernels import cuda, ops
     from repro_torch.launch.serve import build_pipeline
     from repro_torch.models.init import init_lm_params, init_vit_params
-    from repro_torch.serving import EngineCfg, ServingPipeline
+    from repro_torch.serving import ServingPipeline
 
     # -- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -358,13 +611,25 @@ def main() -> int:
     log(f"weights: {ARCH} ({cfg.n_layers} layers, d {cfg.d_model}) made on the card "
         f"in {time.perf_counter() - t0:.1f} s")
     streams = [pipe.frontend.open(f) for f, _ in videos]
+    unpruned = ServingPipeline(cfg, cfg.vit, pipe.params, pipe.vparams,
+                               path_ecfg("fullcomp", {}), device="cuda")
+    stream_cases = (
+        ("fresh prefill", pipe.layout, pipe.cache_slots, "fresh prefill"),
+        ("fresh prefill, unpruned", unpruned.layout, unpruned.cache_slots, "fresh prefill"),
+        ("selective refresh", pipe.layout, pipe.cache_slots, "selective refresh"),
+        ("decode", pipe.layout, pipe.cache_slots, "decode"),
+    )
     results = [
         check_mv_sad(torch, videos),
         check_rope_shift(torch, cfg, pipe.layout, len(videos)),
         check_flash_refresh_paged(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
         check_flash_packed(torch, pipe, streams),
+        check_flash_refresh(torch, cfg, stream_cases, len(videos)),
+        check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
     ]
-    del streams
+    del streams, unpruned
+    gc.collect()
+    torch.cuda.empty_cache()
     rows = [r for _, r in results]
     if not all(ok for ok, _ in results):
         log("FAIL: a kernel disagrees with its plain version")
@@ -388,42 +653,46 @@ def main() -> int:
     log(f"launches during serve: {launches}; plain on CUDA: {plain_on_cuda}")
     logits = np.array([r.stats.logits_yes_no for res in per_stream for r in res])
     ok = (n_win == 6 and bool(np.isfinite(logits).all())
-          and all(launches.get(k, 0) > 0 for k in ops.KERNELS)
+          and all(launches.get(k, 0) > 0 for k in pipe.kernels)
           and not any(plain_on_cuda.values()))
     if not ok:
         log("FAIL: serve phase")
         return 1
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    params, vparams = pipe.params, pipe.vparams
     del sched, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4, further paths: same weights, each path served once -------------
+    t0 = time.perf_counter()
+    ok, by_path = serve_paths(torch, cfg, params, vparams, videos)
+    log(f"further paths: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        return 1
+    by_path = {MAIN: launches, **by_path}
+    for row in rows:
+        name = row["name"]
+        row["launches_path"] = LAUNCH_PATH.get(name, MAIN)
+        row["launches"] = by_path[row["launches_path"]][name]
+        row["launches_by_path"] = {lab: n[name] for lab, n in by_path.items() if name in n}
+    del params, vparams
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 5. composite: kernels vs plain versions at 4 layers -------------
     short = [(f[:20], lab) for f, lab in videos]   # one fresh + one incremental window
     cfg4 = dataclasses.replace(cfg, n_layers=4)
-    ecfg = EngineCfg(mode="codecflow", codec=codec_cfg())
     params = init_lm_params(cfg4, SEED, "cuda")
     vparams = init_vit_params(cfg4.vit, cfg4.d_model, SEED + 1, "cuda")
-    pipe = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg, device="cuda")
-    _, res_k, _ = serve(torch, pipe, short)
-    pipe_p = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg,
-                             device="cuda")       # same weights, own KV pool
-    with ops.kernel_mode("plain"):
-        _, res_p, _ = serve(torch, pipe_p, short)
-    lk = np.array([r.stats.logits_yes_no for res in res_k for r in res])
-    lp = np.array([r.stats.logits_yes_no for res in res_p for r in res])
-    tol = 5e-2 * max(1.0, float(np.abs(lp).max()))
-    diff = float(np.abs(lk - lp).max())
-    margin = np.abs(lp[:, 0] - lp[:, 1])
-    ans_k = lk[:, 0] > lk[:, 1]
-    ans_p = lp[:, 0] > lp[:, 1]
-    ans_ok = bool(((ans_k == ans_p) | (margin <= 2 * tol)).all())
-    log(f"composite (4 layers, full width): max |d yes/no logit| {diff:.4g} (tol {tol:.3g}); "
-        f"answers agree where the margin exceeds 2 x tol: {ans_ok}")
-    if not (diff <= tol and ans_ok and lk.shape == (4, 2)):
-        log("FAIL: composite check")
-        return 1
+    composites = [("codecflow", "codecflow", {})] + [
+        p for p in PATHS if "pool_streams" not in p[2]]
+    for label, mode, kv in composites:
+        diff, tol, ans_ok, ok = composite(torch, cfg4, params, vparams, short, mode, kv)
+        log(f"composite [{label}] (4 layers, full width): max |d yes/no logit| {diff:.4g} "
+            f"(tol {tol:.3g}); answers agree where the margin exceeds 2 x tol: {ans_ok}")
+        if not ok:
+            log(f"FAIL: composite check [{label}]")
+            return 1
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -4,7 +4,9 @@
 ``stride % gop == 0`` makes every window start on an I-frame, so frame
 types, token offsets, anchor positions and the shift amount are all
 constants of the layout.  The refresh set is the I-frame anchors of the
-overlap plus the new-stride and query tokens (§3.4.1).
+overlap plus the new-stride and query tokens (§3.4.1).  The reuse of
+per-stream caches (Eq. 5) lives here too; its paged twin is in
+``kv_pool``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import functools
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..kernels import ops
 from ..kernels.flash_refresh import RefreshBlockMap, build_block_map
 
 
@@ -111,3 +115,44 @@ def refresh_block_map(layout: WindowLayout, *, tq: int = 128, tk: int = 128,
     assert kv_len >= layout.total_len, (kv_len, layout.total_len)
     return build_block_map(layout.refresh_token_idx, kv_len, tq=tq, tk=tk,
                            causal=True, window=window)
+
+
+# ======================================================================
+# KVC reuser (position-consistent reuse, Eq. 5) on per-stream caches
+# ======================================================================
+def shift_cache(cache, layout: WindowLayout, rope_theta: float):
+    """Move overlap KV to the new window's coordinates, in place.
+
+    ``cache.k``/``cache.v`` are (..., S, n_kv, d_head).  Old positions
+    [shift, vis_len) move to [0, overlap), keys rotated by R(-shift)
+    (Eq. 5), values copied.  The two ranges overlap, so both are read
+    into copies before either is written.  Slots >= overlap keep stale
+    content: the refresh pass overwrites them or the validity mask hides
+    them."""
+    sh, ov, vl = layout.shift_tokens, layout.overlap_tokens, layout.vis_len
+    k_over = cache.k[..., sh:vl, :, :]
+    lead = k_over.shape[:-3]
+    flat = k_over.reshape((-1,) + k_over.shape[-3:])
+    delta = torch.full(flat.shape[:2], -sh, dtype=torch.int32, device=flat.device)
+    k_corr = ops.rope_shift(flat, delta, rope_theta).reshape(lead + flat.shape[1:])
+    v_over = cache.v[..., sh:vl, :, :].clone()
+    cache.k[..., :ov, :, :] = k_corr.to(cache.k.dtype)
+    cache.v[..., :ov, :, :] = v_over
+    return cache
+
+
+def reuse_caches(cfg, caches, layout: WindowLayout):
+    """``shift_cache`` on every attention position of the stack, in place
+    (the (R, B) leading dims are rotated as one batch of R * B rows, the
+    operand shape of the JAX package's call)."""
+    for blk in caches.blocks:
+        shift_cache(blk, layout, cfg.rope_theta)
+    return caches
+
+
+def shift_valid(valid: torch.Tensor, layout: WindowLayout) -> torch.Tensor:
+    """The per-token validity mask shifted with the window (a new tensor)."""
+    sh, ov = layout.shift_tokens, layout.overlap_tokens
+    out = torch.zeros_like(valid)
+    out[:, :ov] = valid[:, sh:layout.vis_len]
+    return out

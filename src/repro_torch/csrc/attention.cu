@@ -1,19 +1,29 @@
-// Block-sparse online-softmax attention over 128-row tiles, shared by two
-// kernels of the serving path:
+// Block-sparse online-softmax attention over 128-row tiles, shared by the
+// attention kernels of the serving path:
 //
-//   * cs_attn_refresh_paged_bf16 replaces the TPU kernel
-//     repro/kernels/flash_refresh.py:flash_refresh_paged_pallas (its bf16
-//     body _refresh_paged_kernel).  GQA attention of gathered queries over
-//     one batchless KV slab: visit list tile_ids[iq, it] -> page table
-//     pt[b, tile] -> physical 128-row page.  Mask: kv_valid (logical, per
-//     stream) AND causal (+ sliding window) on the query positions q_pos
-//     (-1 marks padding rows).
+//   * cs_attn_refresh_bf16 replaces the TPU kernel
+//     repro/kernels/flash_refresh.py:flash_refresh_pallas (_refresh_kernel).
+//     GQA attention of gathered queries over per-stream caches
+//     (B, Sk, Hkv, D): visit list tile_ids[iq, it] -> 128-row tile of
+//     stream b's cache.  Mask: kv_valid (per stream) AND causal (+ sliding
+//     window) on the query positions q_pos (-1 marks padding rows).
+//   * cs_attn_refresh_paged_bf16 replaces flash_refresh_paged_pallas (its
+//     bf16 body _refresh_paged_kernel): the same attention over one
+//     batchless KV slab, visit list -> page table pt[b, tile] -> physical
+//     128-row page.
+//   * cs_attn_refresh_paged_int8 replaces the int8 body of the same
+//     function (_refresh_paged_quant_kernel): page-table entries >= n_hot
+//     address cold page entry - n_hot of an int8 slab with one f32 scale
+//     per (cold page, kv head).  The tile load dequantises int8 x scale in
+//     f32 and rounds to bf16 into shared memory, the value the plain
+//     version's gather produces; the products after it are the bf16
+//     kernel's, so an all-hot page table gives bitwise the bf16 result.
 //   * cs_attn_packed_bf16 replaces repro/kernels/flash_packed.py:
 //     flash_packed_pallas.  Bidirectional block-diagonal attention over
 //     packed ViT rows: per-row visit lists, mask seg_q == seg_k && seg_q >= 0.
 //
-// Both share one templated body; the problem struct supplies the visit
-// list, the key-row address and the mask.  A thread block owns 64 query
+// All share one templated body; the problem struct supplies the visit
+// list, the K/V tile load and the mask.  A thread block owns 64 query
 // rows (half of a 128-row map tile, following that tile's visit list) for
 // one (batch row, head); its four warps own 16 rows each.  For every
 // visited tile it streams the 128 keys through shared memory in two
@@ -26,11 +36,11 @@
 // acc / max(l, 1e-30) = 0.
 //
 // Bound on an H100: at the serving shapes each (q tile, kv tile) pair does
-// 4 * 128 * 128 * D flops on 2 * 128 * D * 2 bytes of K/V, far above the
-// card's flops-per-byte ratio, so the bound is the tensor cores.  This
-// first version keeps the accumulator in shared memory and uses the WMMA
-// (mma.sync) path, not wgmma/TMA; it is a correct baseline that a later
-// version makes fast.
+// 4 * 128 * 128 * D flops on 2 * 128 * D * 2 bytes of K/V (half of that
+// for an int8 page), far above the card's flops-per-byte ratio, so the
+// bound is the tensor cores.  This first version keeps the accumulator in
+// shared memory and uses the WMMA (mma.sync) path, not wgmma/TMA; it is a
+// correct baseline that a later version makes fast.
 #include <mma.h>
 
 #include "common.cuh"
@@ -45,51 +55,6 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per inner step
 constexpr int NTHREADS = 128; // 4 warps x 16 rows
 constexpr float NEG_INF = -1e30f;
-
-struct RefreshPaged {
-  const int* qpos;         // (Sq,) logical query positions, -1 = padding
-  const uint8_t* kv_valid; // (B, n_pages * TILE) logical validity
-  const int* pt;           // (B, n_pages) physical page per logical tile
-  const int* tile_ids;     // (n_q_tiles, t_max) logical tiles to visit
-  const int* tile_count;   // (n_q_tiles,)
-  int n_pages, t_max, causal, window;
-
-  __device__ int count(int, int iq) const { return tile_count[iq]; }
-  __device__ int tile(int, int iq, int it) const { return tile_ids[iq * t_max + it]; }
-  __device__ long long key_row(int b, int j, int c) const {
-    return (long long)pt[b * n_pages + j] * TILE + c;
-  }
-  __device__ int q_info(int, int row) const { return qpos[row]; }
-  __device__ bool q_live(int qp) const { return !causal || qp >= 0; }
-  __device__ int k_info(int b, int j, int c) const {
-    return kv_valid[(long long)b * n_pages * TILE + j * TILE + c];
-  }
-  __device__ bool mask(int qp, int valid, int kp) const {
-    bool m = valid != 0;
-    if (causal) m = m && kp <= qp;
-    if (window >= 0) m = m && kp > qp - window;
-    return m;
-  }
-};
-
-struct Packed {
-  const int* seg;          // (R, L) segment id per slot, -1 = padding
-  const int* tile_ids;     // (R, L / TILE, t_max)
-  const int* tile_count;   // (R, L / TILE)
-  int L, n_q_tiles, t_max;
-
-  __device__ int count(int r, int iq) const { return tile_count[r * n_q_tiles + iq]; }
-  __device__ int tile(int r, int iq, int it) const {
-    return tile_ids[(r * n_q_tiles + iq) * t_max + it];
-  }
-  __device__ long long key_row(int r, int j, int c) const {
-    return (long long)r * L + j * TILE + c;
-  }
-  __device__ int q_info(int r, int row) const { return seg[r * L + row]; }
-  __device__ bool q_live(int s) const { return s >= 0; }
-  __device__ int k_info(int r, int j, int c) const { return seg[r * L + j * TILE + c]; }
-  __device__ bool mask(int sq, int sk, int) const { return sq >= 0 && sq == sk; }
-};
 
 template <int D>
 struct Smem {
@@ -108,6 +73,118 @@ struct Smem {
   static constexpr size_t qi = l + sizeof(float) * BQ;
   static constexpr size_t ki = qi + sizeof(int) * BQ;
   static constexpr size_t bytes = ki + sizeof(int) * BK;
+};
+
+// mask and visit list of the refresh kernels, in logical coordinates
+struct RefreshMask {
+  const int* qpos;         // (Sq,) logical query positions, -1 = padding
+  const uint8_t* kv_valid; // (B, n_tiles * TILE) logical validity
+  const int* tile_ids;     // (n_q_tiles, t_max) logical tiles to visit
+  const int* tile_count;   // (n_q_tiles,)
+  int n_tiles, t_max, causal, window;
+
+  __device__ int count(int, int iq) const { return tile_count[iq]; }
+  __device__ int tile(int, int iq, int it) const { return tile_ids[iq * t_max + it]; }
+  __device__ int q_info(int, int row) const { return qpos[row]; }
+  __device__ bool q_live(int qp) const { return !causal || qp >= 0; }
+  __device__ int k_info(int b, int j, int c) const {
+    return kv_valid[(long long)b * n_tiles * TILE + j * TILE + c];
+  }
+  __device__ bool mask(int qp, int valid, int kp) const {
+    bool m = valid != 0;
+    if (causal) m = m && kp <= qp;
+    if (window >= 0) m = m && kp > qp - window;
+    return m;
+  }
+};
+
+// K/V rows [row0, row0 + BK) of kv head kvh -> shared memory (16-byte loads)
+template <int D>
+__device__ void load_rows(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v,
+                          long long row0, int Hkv, int kvh, int tid) {
+  constexpr int LDH = Smem<D>::LDH;
+  for (int i = tid; i < BK * D / 8; i += NTHREADS) {
+    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+    const long long off = ((row0 + r) * Hkv + kvh) * D + c8;
+    *reinterpret_cast<uint4*>(Ks + r * LDH + c8) = *reinterpret_cast<const uint4*>(k + off);
+    *reinterpret_cast<uint4*>(Vs + r * LDH + c8) = *reinterpret_cast<const uint4*>(v + off);
+  }
+}
+
+// per-stream caches: tile j of stream b is rows b * Sk + j * TILE
+struct Refresh : RefreshMask {
+  template <int D>
+  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
+                          int j, int c0, int Hkv, int kvh, int tid) const {
+    load_rows<D>(Ks, Vs, k, v, ((long long)b * n_tiles + j) * TILE + c0, Hkv, kvh, tid);
+  }
+};
+
+// batchless slab: tile j of stream b is physical page pt[b, j]
+struct RefreshPaged : RefreshMask {
+  const int* pt;           // (B, n_tiles) physical page per logical tile
+
+  template <int D>
+  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
+                          int j, int c0, int Hkv, int kvh, int tid) const {
+    load_rows<D>(Ks, Vs, k, v, (long long)pt[b * n_tiles + j] * TILE + c0, Hkv, kvh, tid);
+  }
+};
+
+// two-precision slab: entries >= n_hot are int8 cold pages
+struct RefreshPagedQuant : RefreshPaged {
+  const int8_t* k8;        // (n_cold * TILE, Hkv, D)
+  const int8_t* v8;
+  const float* k_scale;    // (n_cold, Hkv)
+  const float* v_scale;
+  int n_hot;
+
+  template <int D>
+  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
+                          int j, int c0, int Hkv, int kvh, int tid) const {
+    const int entry = pt[b * n_tiles + j];   // uniform over the block
+    if (entry < n_hot) {
+      load_rows<D>(Ks, Vs, k, v, (long long)entry * TILE + c0, Hkv, kvh, tid);
+      return;
+    }
+    constexpr int LDH = Smem<D>::LDH;
+    const int cp = entry - n_hot;
+    const float ks = k_scale[cp * Hkv + kvh], vs = v_scale[cp * Hkv + kvh];
+    for (int i = tid; i < BK * D / 8; i += NTHREADS) {
+      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      const long long off = (((long long)cp * TILE + c0 + r) * Hkv + kvh) * D + c8;
+      const uint2 rk = *reinterpret_cast<const uint2*>(k8 + off);
+      const uint2 rv = *reinterpret_cast<const uint2*>(v8 + off);
+      const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
+      const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
+      #pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        Ks[r * LDH + c8 + t] = __float2bfloat16_rn((float)ek[t] * ks);
+        Vs[r * LDH + c8 + t] = __float2bfloat16_rn((float)ev[t] * vs);
+      }
+    }
+  }
+};
+
+struct Packed {
+  const int* seg;          // (R, L) segment id per slot, -1 = padding
+  const int* tile_ids;     // (R, L / TILE, t_max)
+  const int* tile_count;   // (R, L / TILE)
+  int L, n_q_tiles, t_max;
+
+  __device__ int count(int r, int iq) const { return tile_count[r * n_q_tiles + iq]; }
+  __device__ int tile(int r, int iq, int it) const {
+    return tile_ids[(r * n_q_tiles + iq) * t_max + it];
+  }
+  template <int D>
+  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int r,
+                          int j, int c0, int Hkv, int kvh, int tid) const {
+    load_rows<D>(Ks, Vs, k, v, (long long)r * L + j * TILE + c0, Hkv, kvh, tid);
+  }
+  __device__ int q_info(int r, int row) const { return seg[r * L + row]; }
+  __device__ bool q_live(int s) const { return s >= 0; }
+  __device__ int k_info(int r, int j, int c) const { return seg[r * L + j * TILE + c]; }
+  __device__ bool mask(int sq, int sk, int) const { return sq >= 0 && sq == sk; }
 };
 
 template <int D, class P>
@@ -167,12 +244,7 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < n_visit; ++it) {
     const int j = prob.tile(b, iq, it);
     for (int c0 = 0; c0 < TILE; c0 += BK) {
-      for (int i = tid; i < BK * D / 8; i += NTHREADS) {
-        const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-        const long long off = (prob.key_row(b, j, c0 + r) * Hkv + kvh) * D + c8;
-        *reinterpret_cast<uint4*>(Ks + r * LDH + c8) = *reinterpret_cast<const uint4*>(k + off);
-        *reinterpret_cast<uint4*>(Vs + r * LDH + c8) = *reinterpret_cast<const uint4*>(v + off);
-      }
+      prob.template load_kv<D>(Ks, Vs, k, v, b, j, c0, Hkv, kvh, tid);
       if (tid < BK) kinfo[tid] = prob.k_info(b, j, c0 + tid);
       __syncthreads();
 
@@ -278,6 +350,19 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
+// q, out: (B, Sq, H, D) bf16, Sq % 128 == 0; k, v: (B, n_tiles * 128, Hkv,
+// D) bf16 per-stream caches; q_pos: (Sq,) i32; kv_valid: (B, n_tiles * 128)
+// u8; tile_ids: (Sq / 128, t_max) i32; tile_count: (Sq / 128,) i32.
+// window < 0 means no sliding window.
+CS_EXPORT int cs_attn_refresh_bf16(
+    const void* q, const void* k, const void* v, void* out, const int* q_pos,
+    const uint8_t* kv_valid, const int* tile_ids, const int* tile_count, int B,
+    int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal,
+    int window, float scale, cudaStream_t stream) {
+  Refresh prob{{q_pos, kv_valid, tile_ids, tile_count, n_tiles, t_max, causal, window}};
+  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+}
+
 // q, out: (B, Sq, H, D) bf16, Sq % 128 == 0; k, v: (P_phys, Hkv, D) bf16
 // slab; q_pos: (Sq,) i32; kv_valid: (B, n_pages * 128) u8; pt: (B, n_pages)
 // i32; tile_ids: (Sq / 128, t_max) i32; tile_count: (Sq / 128,) i32.
@@ -287,7 +372,23 @@ CS_EXPORT int cs_attn_refresh_paged_bf16(
     const uint8_t* kv_valid, const int* pt, const int* tile_ids,
     const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,
     int t_max, int causal, int window, float scale, cudaStream_t stream) {
-  RefreshPaged prob{q_pos, kv_valid, pt, tile_ids, tile_count, n_pages, t_max, causal, window};
+  RefreshPaged prob{{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt};
+  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+}
+
+// As cs_attn_refresh_paged_bf16, with k, v the hot slab (n_hot * 128, Hkv,
+// D) bf16 and the cold group k8, v8: (n_cold * 128, Hkv, D) i8; k_scale,
+// v_scale: (n_cold, Hkv) f32.  pt entries >= n_hot are cold pages.
+CS_EXPORT int cs_attn_refresh_paged_int8(
+    const void* q, const void* k, const void* v, void* out, const int* q_pos,
+    const uint8_t* kv_valid, const int* pt, const int* tile_ids,
+    const int* tile_count, const int8_t* k8, const int8_t* v8,
+    const float* k_scale, const float* v_scale, int n_hot, int B, int Sq, int H,
+    int Hkv, int D, int n_pages, int t_max, int causal, int window, float scale,
+    cudaStream_t stream) {
+  RefreshPagedQuant prob{
+      {{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt},
+      k8, v8, k_scale, v_scale, n_hot};
   return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 

@@ -40,9 +40,17 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "cs_mv_sad_f32": (_p, _p, _i, _i, _i, _i, _p, _p, _p),
     "cs_rope_shift": (_p, _p, _p, _ll, _i, _i, _f, _i, _p),
+    "cs_attn_refresh_bf16": (
+        _p, _p, _p, _p, _p, _p, _p, _p,
+        _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ),
     "cs_attn_refresh_paged_bf16": (
         _p, _p, _p, _p, _p, _p, _p, _p, _p,
         _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ),
+    "cs_attn_refresh_paged_int8": (
+        _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+        _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ),
     "cs_attn_packed_bf16": (
         _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p,

@@ -1,27 +1,39 @@
-"""Paged block-sparse refresh attention: visit-list maps and the kernel.
+"""Block-sparse refresh attention: visit-list maps and the kernels.
 
-Replaces the TPU kernel ``repro/kernels/flash_refresh.py:
-flash_refresh_paged_pallas`` (its bf16 body ``_refresh_paged_kernel``);
-the CUDA source is ``csrc/attention.cu`` (``cs_attn_refresh_paged_bf16``).
-GQA attention of gathered query rows over one batchless KV slab: the
-visit list ``tile_ids[iq, it]`` names a logical 128-slot tile, the
-stream's page table maps it to a physical slab page.  The mask is
-causal (+ sliding window) on the map's query positions (-1 = padding)
-AND the per-stream logical ``kv_valid``; fully masked rows are exact
-zeros.  On the card the same kernel also carries decode, with a map
-built for the one decode position.
+Three kernels of ``csrc/attention.cu`` share one body:
+
+  * ``cs_attn_refresh_bf16`` replaces the TPU kernel
+    ``repro/kernels/flash_refresh.py:flash_refresh_pallas``: GQA attention
+    of gathered query rows over per-stream caches (B, Sk, Hkv, D);
+  * ``cs_attn_refresh_paged_bf16`` replaces ``flash_refresh_paged_pallas``
+    (its bf16 body ``_refresh_paged_kernel``): the same over one
+    batchless KV slab, the stream's page table mapping each logical
+    128-slot tile to a physical slab page;
+  * ``cs_attn_refresh_paged_int8`` replaces that function's int8 body
+    (``_refresh_paged_quant_kernel``): page-table entries ``>= n_hot``
+    name int8 cold pages, dequantised ``int8 x scale[page, kv head]`` and
+    rounded to bf16 as they are loaded, so an all-hot table gives
+    bitwise the bf16 kernel's result.
+
+The visit list ``tile_ids[iq, it]`` names the logical tiles a query tile
+can reach.  The mask is causal (+ sliding window) on the map's query
+positions (-1 = padding) AND the per-stream logical ``kv_valid``; fully
+masked rows are exact zeros.  On the card the same kernels also carry
+decode and the contiguous fresh prefill, with maps built for those
+positions.
 
 Bound on an H100: tensor-core operations (each visited 128x128 tile
-pair does 4*128*128*D flops on 64 KB of K/V at D = 128).  The design:
-thread blocks over (q tile half, head, stream) follow their tile's
-visit list, stream K/V pages through shared memory, and run both
-products on the tensor cores (WMMA bf16 -> f32) around an f32 online
-softmax with the masked multiply.
+pair does 4*128*128*D flops on 64 KB of bf16 K/V at D = 128, 32 KB when
+the page is int8).  The design: thread blocks over (q tile half, head,
+stream) follow their tile's visit list, stream K/V tiles through shared
+memory, and run both products on the tensor cores (WMMA bf16 -> f32)
+around an f32 online softmax with the masked multiply.
 
 ``RefreshBlockMap``, ``build_block_map`` and ``dense_block_map`` are
 host numpy, equal array for array to the JAX package's.  The plain
-PyTorch version is ``flash_refresh_paged_plain`` (gather + the q-chunked
-``ref.flash_refresh_ref``).
+PyTorch versions are ``flash_refresh_plain`` (the q-chunked
+``ref.flash_refresh_ref``) and ``flash_refresh_paged_plain`` (gather,
+through the int8 group where given, then the same).
 """
 from __future__ import annotations
 
@@ -33,9 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda
-from .ref import flash_refresh_ref, paged_gather_ref
+from .ref import flash_refresh_ref, paged_gather
 
 NAME = "flash_refresh_paged"
+NAME_INT8 = "flash_refresh_paged_int8"
+NAME_STREAM = "flash_refresh"
 TILE = 128
 
 
@@ -177,65 +191,136 @@ def dense_block_map(q_pos, kv_len: int, *, tq: int = 128, tk: int = 128,
 
 
 # ======================================================================
-# plain version and kernel
+# plain versions and kernels
 # ======================================================================
-def flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, page_table, *,
-                              page: int = 128, causal: bool = True,
-                              window: int | None = None, q_chunk: int = 1024):
-    """Gather the logical K/V view once, then the q-chunked oracle (peak
-    activation ~ q_chunk x S instead of Sq x S; rows are independent)."""
-    kg = paged_gather_ref(k, page_table, page)
-    vg = paged_gather_ref(v, page_table, page)
+def flash_refresh_plain(q, k, v, q_pos, kv_valid=None, *, causal: bool = True,
+                        window: int | None = None, q_chunk: int = 1024):
+    """q-chunked oracle over per-stream caches k, v (B, Sk, Hkv, D) (peak
+    activation ~ q_chunk x Sk instead of Sq x Sk; rows are independent)."""
     Sq = q.shape[1]
     outs = [
-        flash_refresh_ref(q[:, i:i + q_chunk], kg, vg, q_pos[:, i:i + q_chunk],
+        flash_refresh_ref(q[:, i:i + q_chunk], k, v, q_pos[:, i:i + q_chunk],
                           kv_valid, causal=causal, window=window)
         for i in range(0, Sq, q_chunk)
     ]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, page_table, *,
+                              page: int = 128, causal: bool = True,
+                              window: int | None = None, q_chunk: int = 1024,
+                              cold=None):
+    """Gather the logical K/V view once (through the int8 ``cold`` group
+    where given), then the q-chunked oracle."""
+    kg, vg = paged_gather(k, v, page_table, page, cold)
+    return flash_refresh_plain(q, kg, vg, q_pos, kv_valid, causal=causal,
+                               window=window, q_chunk=q_chunk)
+
+
+def _check_map(name: str, q, D: int, Dk: int, bm: RefreshBlockMap, causal, window,
+               kv_len: int) -> None:
+    cuda.require(D == Dk and D in (32, 64, 128), name, f"head dim {D}")
+    cuda.require(bm.tq == TILE and bm.tk == TILE, name, "map tiles must be 128")
+    cuda.require(bm.n_q == q.shape[1], name, f"map built for {bm.n_q} queries, got {q.shape[1]}")
+    cuda.require(bm.causal == causal and bm.window == window, name,
+                 "map built for another mask")
+    cuda.require(bm.kv_len == kv_len, name, "map built for another length")
+
+
+def _padded_query(q, dm: DeviceBlockMap):
+    pad = dm.q_pos.shape[0] - q.shape[1]
+    return F.pad(q, (0, 0, 0, 0, 0, pad)) if pad else q.contiguous()
+
+
+def _bf16(name: str, *ts) -> None:
+    cuda.require(all(t.dtype == torch.bfloat16 for t in ts), name, "q/k/v must be bf16")
+
+
+def flash_refresh_cuda(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
+                       causal: bool = True, window: int | None = None):
+    """Launch the per-stream kernel: q (B, Sq, H, D) bf16; k, v (B, Sk,
+    Hkv, D) bf16 caches, Sk a multiple of 128; kv_valid (B, Sk) bool.
+    The query rows are masked by the MAP's positions (``ops.flash_refresh``
+    checks that they equal the caller's)."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, Dk = k.shape
+    bm = block_map
+    _bf16(NAME_STREAM, q, k, v)
+    _check_map(NAME_STREAM, q, D, Dk, bm, causal, window, Sk)
+    cuda.require(Sk % TILE == 0 and k.shape[0] == B, NAME_STREAM,
+                 "caches must be (B, 128 * n, Hkv, D)")
+    cuda.require(tuple(kv_valid.shape) == (B, Sk) and kv_valid.dtype == torch.bool,
+                 NAME_STREAM, "kv_valid shape/dtype")
+    dm = bm.on(q.device)
+    qq = _padded_query(q, dm)
+    k, v = k.contiguous(), v.contiguous()
+    cuda.require_aligned(NAME_STREAM, qq, k, v)
+    kvv = kv_valid.contiguous()
+    out = torch.empty_like(qq)
+    rc = cuda.library().cs_attn_refresh_bf16(
+        qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dm.q_pos.data_ptr(), kvv.data_ptr(), dm.tile_ids.data_ptr(),
+        dm.tile_count.data_ptr(), B, qq.shape[1], H, Hkv, D, Sk // TILE,
+        bm.t_max, int(causal), -1 if window is None else int(window),
+        float(D ** -0.5), cuda.stream_handle(q),
+    )
+    cuda.check(rc, NAME_STREAM)
+    cuda.record_launch(NAME_STREAM)
+    return out[:, :Sq]
+
+
 def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
                              block_map: RefreshBlockMap, *, page: int = 128,
-                             causal: bool = True, window: int | None = None):
-    """Launch the kernel.  The query rows are masked by the MAP's
+                             causal: bool = True, window: int | None = None,
+                             cold=None):
+    """Launch the paged kernel, the int8 one when ``cold = (k8, v8,
+    k_scale, v_scale)`` is given.  The query rows are masked by the MAP's
     positions (``ops.flash_refresh_paged`` checks that they equal the
     caller's).
 
-    q (B, Sq, H, D) bf16; k, v (P_phys, Hkv, D) bf16 slab; kv_valid
-    (B, n_pages * page) bool; page_table (B, n_pages) int.
+    q (B, Sq, H, D) bf16; k, v (P_phys, Hkv, D) bf16 (hot) slab; kv_valid
+    (B, n_pages * page) bool; page_table (B, n_pages) int; k8, v8
+    (n_cold * page, Hkv, D) int8; k_scale, v_scale (n_cold, Hkv) f32.
     """
+    name = NAME if cold is None else NAME_INT8
     B, Sq, H, D = q.shape
     P_phys, Hkv, Dk = k.shape
     bm = block_map
-    cuda.require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
-                 and v.dtype == torch.bfloat16, NAME, "q/k/v must be bf16")
-    cuda.require(D == Dk and D in (32, 64, 128), NAME, f"head dim {D}")
-    cuda.require(page == TILE and bm.tq == TILE and bm.tk == TILE, NAME,
-                 "page and map tiles must be 128")
-    cuda.require(bm.n_q == Sq, NAME, f"map built for {bm.n_q} queries, got {Sq}")
-    cuda.require(bm.causal == causal and bm.window == window, NAME,
-                 "map built for another mask")
+    _bf16(name, q, k, v)
+    cuda.require(page == TILE, name, "pages must be 128 rows")
     n_pages = page_table.shape[1]
-    cuda.require(bm.kv_len == n_pages * page, NAME, "map built for another length")
+    _check_map(name, q, D, Dk, bm, causal, window, n_pages * page)
     cuda.require(tuple(kv_valid.shape) == (B, n_pages * page)
-                 and kv_valid.dtype == torch.bool, NAME, "kv_valid shape/dtype")
+                 and kv_valid.dtype == torch.bool, name, "kv_valid shape/dtype")
     dm = bm.on(q.device)
-    pad = dm.q_pos.shape[0] - Sq
-    qq = F.pad(q, (0, 0, 0, 0, 0, pad)) if pad else q.contiguous()
+    qq = _padded_query(q, dm)
     k, v = k.contiguous(), v.contiguous()
-    cuda.require_aligned(NAME, qq, k, v)
+    cuda.require_aligned(name, qq, k, v)
     kvv = kv_valid.contiguous()
     pt = page_table.to(torch.int32).contiguous()
     out = torch.empty_like(qq)
-    rc = cuda.library().cs_attn_refresh_paged_bf16(
-        qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dm.q_pos.data_ptr(), kvv.data_ptr(), pt.data_ptr(),
-        dm.tile_ids.data_ptr(), dm.tile_count.data_ptr(),
-        B, qq.shape[1], H, Hkv, D, n_pages, bm.t_max, int(causal),
-        -1 if window is None else int(window), float(D ** -0.5),
-        cuda.stream_handle(q),
-    )
-    cuda.check(rc, NAME)
-    cuda.record_launch(NAME)
+    common = (qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              dm.q_pos.data_ptr(), kvv.data_ptr(), pt.data_ptr(),
+              dm.tile_ids.data_ptr(), dm.tile_count.data_ptr())
+    shape = (B, qq.shape[1], H, Hkv, D, n_pages, bm.t_max, int(causal),
+             -1 if window is None else int(window), float(D ** -0.5),
+             cuda.stream_handle(q))
+    if cold is None:
+        rc = cuda.library().cs_attn_refresh_paged_bf16(*common, *shape)
+    else:
+        k8, v8, k_scale, v_scale = (t.contiguous() for t in cold)
+        cuda.require(k8.dtype == torch.int8 and v8.dtype == torch.int8
+                     and k8.shape == v8.shape and tuple(k8.shape[1:]) == (Hkv, D),
+                     name, "cold slab must be int8 (n_cold * 128, Hkv, D)")
+        n_cold = k8.shape[0] // page
+        cuda.require(k8.shape[0] % page == 0 and tuple(k_scale.shape) == (n_cold, Hkv)
+                     and k_scale.shape == v_scale.shape and k_scale.dtype == torch.float32
+                     and v_scale.dtype == torch.float32, name,
+                     "scales must be f32 (n_cold, Hkv)")
+        cuda.require_aligned(name, k8, v8)
+        rc = cuda.library().cs_attn_refresh_paged_int8(
+            *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), P_phys // page, *shape)
+    cuda.check(rc, name)
+    cuda.record_launch(name)
     return out[:, :Sq]

@@ -1,4 +1,4 @@
-"""Dispatch for the four kernels of the serving path.
+"""Dispatch for the kernels of the serving path.
 
 Every op checks its preconditions (a violation raises
 :class:`KernelContractError`: neither path could give a meaningful
@@ -11,10 +11,11 @@ answer), then routes by where its operands live:
 ``kernel_mode("plain")`` forces the plain version on the card too; only
 tests and ``chip_smoke.py`` use it, to hold the kernels against it.
 
-``dispatch_counts()`` records where each call went: ``kernel``,
-``backend:ok`` (CPU tensor, plain version) or ``mode:plain`` (plain
-version forced on the card).  ``launch_counts()`` counts the kernel
-launches themselves.
+``dispatch_counts()`` records where each call went, per kernel name:
+``kernel``, ``backend:ok`` (CPU tensor, plain version) or ``mode:plain``
+(plain version forced on the card).  ``launch_counts()`` counts the
+kernel launches themselves.  ``flash_refresh_paged`` with an int8
+``cold`` group is counted as ``flash_refresh_paged_int8``.
 """
 from __future__ import annotations
 
@@ -27,12 +28,14 @@ import torch
 from . import cuda
 from .flash_packed import PackBlockMap, flash_packed_cuda, flash_packed_plain
 from .flash_refresh import (
-    RefreshBlockMap, flash_refresh_paged_cuda, flash_refresh_paged_plain,
+    RefreshBlockMap, flash_refresh_cuda, flash_refresh_paged_cuda,
+    flash_refresh_paged_plain, flash_refresh_plain,
 )
 from .mv_sad import mv_sad_cuda, mv_sad_plain
 from .rope_shift import rope_shift_cuda, rope_shift_plain
 
-KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed")
+KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed",
+           "flash_refresh", "flash_refresh_paged_int8")
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _MODE = "auto"   # auto | plain
@@ -119,6 +122,23 @@ def _positions_match_map(op: str, q_pos: torch.Tensor, bm: RefreshBlockMap) -> N
     _MATCHED[0] = (q_pos, q_pos._version, bm)
 
 
+# the last (page table, its version, page count) found in range
+_IN_RANGE: list = [None]
+
+
+def _page_ids_in_range(op: str, page_table: torch.Tensor, n_pages: int) -> None:
+    """Every entry addresses a hot or a cold page: the plain gather would
+    clamp or fail, the kernel read past the slab.  On the card the check
+    syncs, so it runs once per table (the layers of one pass share it)."""
+    hit = _IN_RANGE[0]
+    if (hit is not None and hit[0] is page_table and hit[1] == page_table._version
+            and hit[2] == n_pages):
+        return
+    _require(bool(((page_table >= 0) & (page_table < n_pages)).all()), op, "page-range",
+             f"page ids lie in [0, {n_pages}): hot pages, then cold ones")
+    _IN_RANGE[0] = (page_table, page_table._version, n_pages)
+
+
 # ----------------------------------------------------------------------
 def mv_sad(cur, prev, block: int = 16, radius: int = 4):
     """Block-matching motion search (see ``ref.mv_sad_ref``)."""
@@ -153,18 +173,56 @@ def rope_shift(k, delta, theta: float = 10_000.0):
     return rope_shift_plain(k, delta, theta)
 
 
+def flash_refresh(q, k, v, q_pos, kv_valid=None, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  block_map: Optional[RefreshBlockMap] = None,
+                  q_chunk: int = 1024):
+    """Refresh attention over per-stream caches: q (B, Sq, H, D) against
+    k, v (B, Sk, Hkv, D) whose key positions are ``arange(Sk)``; q_pos
+    (B, Sq) positions; kv_valid (B, Sk) bool or None (all valid).  On the
+    card the kernel needs the ``block_map``; a map given on any device
+    must be built for exactly these query positions."""
+    op = "flash_refresh"
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4 and q_pos.dim() == 2,
+             op, "rank", "q/k/v rank-4, q_pos rank-2")
+    _require(k.shape == v.shape, op, "kv-shape", "k and v caches match")
+    _require(tuple(q_pos.shape) == tuple(q.shape[:2]), op, "q-pos-shape",
+             "q_pos is (B, Sq)")
+    _require(k.shape[0] == q.shape[0], op, "batch", "caches lead with q's batch dim")
+    _require(q.shape[3] == k.shape[3], op, "head-dim", "q and caches share d_head")
+    _require(q.shape[2] % k.shape[2] == 0, op, "gqa",
+             "query heads divide evenly over kv heads")
+    _attn_dtypes(op, q, k, v)
+    _require(not q_pos.is_floating_point(), op, "q-pos-dtype", "integer positions")
+    _require(kv_valid is None or (tuple(kv_valid.shape) == tuple(k.shape[:2])
+                                  and kv_valid.dtype == torch.bool),
+             op, "kv-valid", "kv_valid is a (B, Sk) bool mask")
+    if block_map is not None:
+        _positions_match_map(op, q_pos, block_map)
+    if _use_kernel(op, q):
+        if block_map is None:
+            raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
+        if kv_valid is None:
+            kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+        return flash_refresh_cuda(q, k, v, kv_valid, block_map, causal=causal,
+                                  window=window)
+    return flash_refresh_plain(q, k, v, q_pos, kv_valid, causal=causal,
+                               window=window, q_chunk=q_chunk)
+
+
 def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
                         page: int = 128, causal: bool = True,
                         window: Optional[int] = None,
                         block_map: Optional[RefreshBlockMap] = None,
-                        q_chunk: int = 1024):
+                        q_chunk: int = 1024, cold=None):
     """Paged refresh attention: q (B, Sq, H, D) against the shared slab
     k, v (P_phys, Hkv, D) through page_table (B, n_pages); q_pos (B, Sq)
     logical positions; kv_valid (B, n_pages * page) bool (mandatory:
-    recycled pages hold stale KV).  On the card the kernel needs the
-    ``block_map``; a map given on any device must be built for exactly
-    these query positions."""
-    op = "flash_refresh_paged"
+    recycled pages hold stale KV).  ``cold = (k8, v8, k_scale, v_scale)``
+    is the int8 cold slab: entries ``>= P_phys // page`` address its
+    pages.  On the card the kernel needs the ``block_map``; a map given
+    on any device must be built for exactly these query positions."""
+    op = "flash_refresh_paged" if cold is None else "flash_refresh_paged_int8"
     _require(q.dim() == 4 and k.dim() == 3 and v.dim() == 3
              and q_pos.dim() == 2 and page_table.dim() == 2, op, "rank",
              "q rank-4, slab k/v rank-3, q_pos rank-2, page_table rank-2")
@@ -184,6 +242,19 @@ def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
     _require(tuple(kv_valid.shape) == (q.shape[0], page_table.shape[1] * page)
              and kv_valid.dtype == torch.bool, op, "kv-valid",
              "kv_valid is a (B, n_pages * page) bool mask")
+    if cold is not None:
+        k8, v8, k_scale, v_scale = cold
+        _require(k8.shape == v8.shape and k8.dim() == 3
+                 and tuple(k8.shape[1:]) == tuple(k.shape[1:])
+                 and k8.shape[0] % page == 0, op, "cold-shape",
+                 "cold slabs are (n_cold * page, Hkv, D) like the hot slab")
+        _require(k8.dtype == torch.int8 and v8.dtype == torch.int8, op,
+                 "cold-dtype", "cold slabs are int8")
+        _require(tuple(k_scale.shape) == (k8.shape[0] // page, k.shape[1])
+                 and k_scale.shape == v_scale.shape, op, "cold-scale",
+                 "scales are (n_cold, Hkv)")
+    n_cold = 0 if cold is None else cold[0].shape[0] // page
+    _page_ids_in_range(op, page_table, k.shape[0] // page + n_cold)
     if block_map is not None:
         _positions_match_map(op, q_pos, block_map)
     if _use_kernel(op, q):
@@ -191,10 +262,10 @@ def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
             raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
         return flash_refresh_paged_cuda(
             q, k, v, kv_valid, page_table, block_map, page=page,
-            causal=causal, window=window)
+            causal=causal, window=window, cold=cold)
     return flash_refresh_paged_plain(
         q, k, v, q_pos, kv_valid, page_table, page=page, causal=causal,
-        window=window, q_chunk=q_chunk)
+        window=window, q_chunk=q_chunk, cold=cold)
 
 
 def flash_packed(q, k, v, seg_id, block_map: Optional[PackBlockMap] = None,

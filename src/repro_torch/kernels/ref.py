@@ -117,13 +117,47 @@ def paged_gather_ref(slab: torch.Tensor, page_table: torch.Tensor, page: int):
     return slab[rows.reshape(B, n_pages * page)]
 
 
+def paged_gather_quant_ref(hot: torch.Tensor, cold: torch.Tensor,
+                           scale: torch.Tensor, page_table: torch.Tensor,
+                           page: int):
+    """Logical view of a two-precision slab: hot (n_hot * page, Hkv, D)
+    float rows, cold (n_cold * page, Hkv, D) int8 rows, scale (n_cold,
+    Hkv) f32.  Entries ``< n_hot`` index the hot slab, entries ``>=
+    n_hot`` cold page ``entry - n_hot``, dequantised as ``int8 * scale``
+    in f32 and rounded to the hot dtype (the kernel's tile values)."""
+    B, n_pages = page_table.shape
+    n_hot = hot.shape[0] // page
+    n_cold = cold.shape[0] // page
+    entries = page_table.long()
+    is_cold = entries >= n_hot
+    hot_pg = entries.clamp(max=n_hot - 1)
+    cold_pg = (entries - n_hot).clamp(0, max(n_cold - 1, 0))
+    off = torch.arange(page, device=page_table.device)
+    hot_rows = (hot_pg[:, :, None] * page + off).reshape(B, n_pages * page)
+    cold_rows = (cold_pg[:, :, None] * page + off).reshape(B, n_pages * page)
+    sc = scale.to(F32)[cold_pg].repeat_interleave(page, dim=1)   # (B, S, Hkv)
+    deq = (cold[cold_rows].to(F32) * sc[..., None]).to(hot.dtype)
+    mask = is_cold.repeat_interleave(page, dim=1)
+    return torch.where(mask[:, :, None, None], deq, hot[hot_rows])
+
+
+def paged_gather(k, v, page_table, page: int, cold=None):
+    """Logical K/V of a plain slab, or of a two-precision one when
+    ``cold = (k8, v8, k_scale, v_scale)``."""
+    if cold is None:
+        return paged_gather_ref(k, page_table, page), paged_gather_ref(v, page_table, page)
+    k8, v8, k_scale, v_scale = cold
+    return (paged_gather_quant_ref(k, k8, k_scale, page_table, page),
+            paged_gather_quant_ref(v, v8, v_scale, page_table, page))
+
+
 def flash_refresh_paged_ref(q, k, v, q_pos, kv_valid, page_table, *,
                             page: int = 128, causal: bool = True,
                             window: int | None = None,
-                            scale: float | None = None):
-    """Paged refresh oracle: gather the logical view, then ``flash_refresh_ref``."""
-    kg = paged_gather_ref(k, page_table, page)
-    vg = paged_gather_ref(v, page_table, page)
+                            scale: float | None = None, cold=None):
+    """Paged refresh oracle: gather the logical view (through the int8
+    ``cold`` group where given), then ``flash_refresh_ref``."""
+    kg, vg = paged_gather(k, v, page_table, page, cold)
     return flash_refresh_ref(q, kg, vg, q_pos, kv_valid, causal=causal,
                              window=window, scale=scale)
 

@@ -4,12 +4,21 @@ streams, on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl3-14b \
         --hw 448 --mode codecflow --lockstep --streams 2 --videos 2 --frames 24
 
-Same flags and JSON report as ``repro.launch.serve``.  This slice runs
-the lockstep scheduler (``--lockstep`` is accepted and implied; the
-stage-pipelined engine is not ported), mode ``codecflow`` on the paged
-bf16 KV slab.  Weights are random (tensor by tensor on the device, from
-``--seed``) unless ``--ckpt`` names an npz written by the JAX package's
+Same flags and JSON report as ``repro.launch.serve``.  ``--mode`` is
+``codecflow`` or one of the paper's baselines (``fullcomp``,
+``prune_only``, ``refresh_only``, ``cacheblend``, ``vlcache``); the
+reuse modes keep their KV in the paged slab, whose stale overlap pages
+``--stale-dtype int8`` demotes to int8 cold pages (streams then admit
+staggered).  The port runs the lockstep scheduler (``--lockstep`` is
+accepted and implied; the stage-pipelined engine is not ported).
+Weights are random (tensor by tensor on the device, from ``--seed``)
+unless ``--ckpt`` names an npz written by the JAX package's
 ``training/checkpoint.py`` (LM weights; the ViT stays random).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode cacheblend --streams 2 --videos 2 --frames 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --streams 2 --videos 2 --frames 24 --keep-ratio 1.0 --stale-dtype int8
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ from ..configs import CodecCfg, ViTCfg, get_config
 from ..data.pipeline import anomaly_dataset
 from ..models.init import init_lm_params, init_vit_params, load_npz_params
 from ..serving import (
-    EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
+    MODES, EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
     StreamRequest, StreamThrottled, WindowDone, precision_recall_f1,
     resolve_device, video_prediction,
 )
@@ -56,7 +65,7 @@ def build_pipeline(arch: str, mode: str, codec: CodecCfg,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internvl3-14b-smoke")
-    ap.add_argument("--mode", default="codecflow")
+    ap.add_argument("--mode", default="codecflow", choices=MODES)
     ap.add_argument("--videos", type=int, default=4)
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--hw", type=int, default=112)
@@ -74,9 +83,9 @@ def main(argv=None) -> None:
     ap.add_argument("--ingest-workers", type=int, default=2,
                     help="host threads of the stage-pipelined engine (not "
                          "ported; unused by the lockstep engine)")
-    ap.add_argument("--stale-dtype", default="bf16", choices=("bf16",),
-                    help="storage dtype of stale KV pages (int8 cold pages "
-                         "are not ported)")
+    ap.add_argument("--stale-dtype", default="bf16", choices=("bf16", "int8"),
+                    help="storage dtype for stale (non-refreshed) KV pages; "
+                         "int8 demotes them to the cold slab")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -1,5 +1,6 @@
 """Layers of the serving path: RMSNorm, RoPE, GQA attention over the
-paged KV slab, dense attention (ViT I-frames), SwiGLU MLP.
+paged KV slab (bf16, or two-precision with int8 cold pages) or over
+per-stream caches, dense attention (ViT I-frames), SwiGLU MLP.
 
 Functions take parameter dicts of tensors in the JAX package's layout:
 weights are (in, out) and applied as ``x @ w``; attention tensors are
@@ -29,10 +30,55 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 class KVCache(NamedTuple):
     """KV storage of one attention position: a batchless paged slab
-    (R, P_phys, n_kv, d_head), or one layer's (P_phys, n_kv, d_head)."""
+    (R, P_phys, n_kv, d_head), per-stream caches (R, B, S, n_kv, d_head),
+    or one layer of either."""
 
     k: torch.Tensor
     v: torch.Tensor
+
+
+class QuantKVCache(NamedTuple):
+    """Two-precision paged slab of one attention position (or one layer).
+
+    Hot pages stay in the float dtype; cold (demoted) pages hold int8
+    with one f32 scale per (page, kv head), ``value = int8 * scale``.
+    Page ids share one space: an entry ``< n_hot`` rows into ``k``/``v``,
+    an entry ``>= n_hot`` into ``k8``/``v8`` at ``entry - n_hot``.
+
+      k, v:             ([R,] n_hot * page, n_kv, d_head) float
+      k8, v8:           ([R,] n_cold * page, n_kv, d_head) int8
+      k_scale, v_scale: ([R,] n_cold, n_kv) f32
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k8: torch.Tensor
+    v8: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
+INT8_QMAX = 127.0
+
+
+def page_quant_scale(vals: torch.Tensor, dims) -> torch.Tensor:
+    """Symmetric int8 scale from the abs-max over ``dims``; all-zero
+    pages get scale 1.0, so they round-trip to exact zeros."""
+    amax = torch.amax(vals.to(F32).abs(), dim=dims)
+    return torch.where(amax > 0, amax / INT8_QMAX, torch.ones_like(amax))
+
+
+def quantize_kv(vals: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """vals (..., n_kv, d_head) float; scale (..., n_kv) f32 -> int8,
+    round half to even, saturating at +-127."""
+    q = torch.round(vals.to(F32) / scale[..., None])
+    return q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+
+
+def dequantize_kv(vals: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 (..., n_kv, d_head) * f32 scale (..., n_kv), rounded through
+    the hot dtype (the value the kernel's tile load produces)."""
+    return (vals.to(F32) * scale[..., None]).to(dtype)
 
 
 def _qkv(p, cfg: ModelCfg, x: torch.Tensor, positions: torch.Tensor):
@@ -89,13 +135,39 @@ def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _paged_write(cache, k, v, page_table, idx, page_size: int):
+    """Write this chunk's K/V at logical slots ``idx`` (T,) of every
+    stream, in place, through the page tables.  On a two-precision slab
+    each token goes to its page's precision: hot rows as they are, cold
+    rows quantised with the page's current scale (no row outside either
+    slab is touched)."""
+    entries = page_table.long()[:, idx // page_size]            # (B, T)
+    slot = idx % page_size
+    if not isinstance(cache, QuantKVCache):
+        phys = entries * page_size + slot
+        cache.k[phys] = k.to(cache.k.dtype)
+        cache.v[phys] = v.to(cache.v.dtype)
+        return
+    n_hot = cache.k.shape[0] // page_size
+    is_cold = entries >= n_hot
+    hb, ht = torch.nonzero(~is_cold, as_tuple=True)
+    cb, ct = torch.nonzero(is_cold, as_tuple=True)
+    phys = entries[hb, ht] * page_size + slot[ht]
+    cache.k[phys] = k[hb, ht].to(cache.k.dtype)
+    cache.v[phys] = v[hb, ht].to(cache.v.dtype)
+    cold_pg = entries[cb, ct] - n_hot
+    rows = cold_pg * page_size + slot[ct]
+    cache.k8[rows] = quantize_kv(k[cb, ct], cache.k_scale[cold_pg])
+    cache.v8[rows] = quantize_kv(v[cb, ct], cache.v_scale[cold_pg])
+
+
 def attention_block(
     p,
     cfg: ModelCfg,
     x: torch.Tensor,
     positions: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
-    cache: Optional[KVCache] = None,
+    cache=None,
     cache_offset: Optional[int] = None,
     cache_len: Optional[int] = None,
     scatter_idx: Optional[torch.Tensor] = None,
@@ -106,44 +178,62 @@ def attention_block(
     block_map=None,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 128,
-) -> Tuple[torch.Tensor, KVCache]:
-    """Attention over the paged KV slab (the JAX package's paged branch).
+) -> Tuple[torch.Tensor, object]:
+    """Attention over a KV cache (the JAX package's cached branches).
 
-    ``cache`` is one layer's batchless slab (P_phys, n_kv, dh); this
-    chunk's K/V are written in place at logical slots mapped through
-    ``page_table`` (B, n_pages), then the chunk attends the stream's
-    logical view of ``cache_len == n_pages * page_size`` slots through
-    ``ops.flash_refresh_paged``.  Two write modes:
+    This chunk's K/V are written in place, then the chunk attends the
+    cache.  Two write modes:
 
       * scatter (``scatter_idx`` (T,) positions): fresh prefill and
         selective refresh; ``kv_valid`` (B, S) is the full validity;
-      * contiguous (``cache_offset``): decode; keys ``<= cache_offset +
-        T - 1`` are visible (causal only, as in the JAX package).
+      * contiguous (``cache_offset``): decode and the per-stream fresh
+        prefill; keys ``<= cache_offset + T - 1`` are visible, and
+        ``valid`` (B, T) masks this chunk's own slots.
+
+    Paged (``page_table`` (B, n_pages)): ``cache`` is one layer's
+    batchless slab, a ``KVCache`` or a two-precision ``QuantKVCache``
+    whose cold group rides to ``ops.flash_refresh_paged``;
+    ``cache_len`` must equal ``n_pages * page_size``.  Per-stream
+    (no page table): ``cache`` holds (B, S_max, n_kv, dh) caches and the
+    chunk attends their first ``cache_len`` slots (all by default)
+    through ``ops.flash_refresh``.
 
     ``block_map`` is the visit list for the query positions; on the card
-    the kernel needs it in both modes (decode passes a map built for its
-    position).
+    the kernels need it in every mode (decode and the contiguous fresh
+    prefill pass maps built for their positions).
     """
-    if cache is None or page_table is None:
-        raise NotImplementedError("only the paged attention path is ported")
+    if cache is None:
+        raise NotImplementedError("only the cached attention paths are ported")
     B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.sliding_window
-    S = cache_len
-    if S is None or S != page_table.shape[1] * page_size:
-        raise ValueError(f"cache_len {S} != n_pages * page ({page_table.shape}, {page_size})")
     dev = x.device
+    if page_table is not None:
+        S = cache_len
+        if S is None or S != page_table.shape[1] * page_size:
+            raise ValueError(
+                f"cache_len {S} != n_pages * page ({page_table.shape}, {page_size})")
+    else:
+        S = cache_len if cache_len is not None else cache.k.shape[1]
     if scatter_idx is not None:
         idx = scatter_idx.long()
     else:
         idx = cache_offset + torch.arange(T, device=dev)
-    entries = page_table.long()[:, idx // page_size]            # (B, T)
-    phys = entries * page_size + idx % page_size
-    cache.k[phys] = k.to(cache.k.dtype)
-    cache.v[phys] = v.to(cache.v.dtype)
+    if page_table is not None:
+        _paged_write(cache, k, v, page_table, idx, page_size)
+    elif scatter_idx is not None:
+        cache.k[:, idx] = k.to(cache.k.dtype)
+        cache.v[:, idx] = v.to(cache.v.dtype)
+    else:
+        cache.k[:, cache_offset:cache_offset + T] = k.to(cache.k.dtype)
+        cache.v[:, cache_offset:cache_offset + T] = v.to(cache.v.dtype)
     if scatter_idx is not None:
-        kval = (kv_valid[:, :S] if kv_valid is not None
-                else torch.ones((B, S), dtype=torch.bool, device=dev))
+        if kv_valid is not None:
+            kval = kv_valid[:, :S]
+        elif page_table is not None:
+            kval = torch.ones((B, S), dtype=torch.bool, device=dev)
+        else:
+            kval = None
     else:
         kval = (torch.arange(S, device=dev) <= cache_offset + T - 1).expand(B, S)
         if kv_valid is not None:
@@ -153,10 +243,19 @@ def attention_block(
             ones[:, cache_offset:cache_offset + T] = valid
             kval = kval & ones
         kval = kval.contiguous()
-    out = ops.flash_refresh_paged(
-        q, cache.k, cache.v, positions, kval, page_table, page=page_size,
-        causal=causal, window=window, block_map=block_map, q_chunk=q_chunk,
-    )
+    if page_table is not None:
+        cold = (cache.k8, cache.v8, cache.k_scale, cache.v_scale) \
+            if isinstance(cache, QuantKVCache) else None
+        out = ops.flash_refresh_paged(
+            q, cache.k, cache.v, positions, kval, page_table, page=page_size,
+            causal=causal, window=window, block_map=block_map, q_chunk=q_chunk,
+            cold=cold,
+        )
+    else:
+        out = ops.flash_refresh(
+            q, cache.k[:, :S], cache.v[:, :S], positions, kval, causal=causal,
+            window=window, block_map=block_map, q_chunk=q_chunk,
+        )
     out = out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
     return out, cache
 

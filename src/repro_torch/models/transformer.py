@@ -3,7 +3,8 @@
 Parameters are the JAX package's tree with each pattern position's
 layers stacked on a leading ``repeats`` axis; ``run_stack`` walks the
 layers in a Python loop where the JAX package used ``lax.scan``, and
-attention reads and writes the shared paged KV slab in place.
+attention reads and writes its KV cache in place: the shared paged slab
+(bf16 or two-precision) or per-stream caches.
 """
 from __future__ import annotations
 
@@ -23,6 +24,25 @@ class Caches(NamedTuple):
 
     blocks: Tuple[Any, ...]
     cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def init_caches(cfg: ModelCfg, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cpu") -> Caches:
+    """Zeroed per-stream caches (R, batch, max_len, n_kv, d_head) for
+    every attention position of the pattern."""
+    blocks = []
+    for pos in range(cfg.period):
+        if cfg.block_kind(pos)[0] != "attn":
+            raise NotImplementedError(f"{cfg.name}: only attention stacks are ported")
+        shape = (cfg.repeats, batch, max_len, cfg.n_kv, cfg.d_head)
+        blocks.append(KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                              torch.zeros(shape, dtype=dtype, device=device)))
+    return Caches(tuple(blocks), None)
+
+
+def caches_max_len(cfg: ModelCfg, caches: Caches) -> int:
+    """Slots of the per-stream caches."""
+    return caches.blocks[0].k.shape[2]
 
 
 def layer_params(tree, i: int):
@@ -56,14 +76,14 @@ def run_stack(cfg: ModelCfg, params, h: torch.Tensor, positions: torch.Tensor,
               cache_len: Optional[int] = None, *, q_chunk: int = 1024,
               scatter_idx=None, kv_valid=None, block_map=None,
               page_table=None, page_size: int = 128):
-    """Run every layer over ``h``; the paged slab in ``caches`` is written
-    in place.  Returns (h, caches)."""
+    """Run every layer over ``h``; the caches (paged slab or per-stream)
+    are written in place.  Returns (h, caches)."""
     for i in range(cfg.repeats):
         for pos in range(cfg.period):
             blk = caches.blocks[pos]
             h = _apply_block(
                 cfg, pos, layer_params(params["blocks"][pos], i), h, positions,
-                valid, KVCache(blk.k[i], blk.v[i]), cache_offset, cache_len,
+                valid, type(blk)(*(leaf[i] for leaf in blk)), cache_offset, cache_len,
                 q_chunk=q_chunk, scatter_idx=scatter_idx, kv_valid=kv_valid,
                 block_map=block_map, page_table=page_table, page_size=page_size,
             )
@@ -81,16 +101,45 @@ def lm_logits(cfg: ModelCfg, params, h: torch.Tensor) -> torch.Tensor:
     return (h @ head).to(F32)
 
 
+def prefill(cfg: ModelCfg, params, tokens: torch.Tensor, caches: Caches,
+            positions=None, valid=None, inputs_embeds=None, cache_offset: int = 0,
+            *, q_chunk: int = 1024, block_map=None):
+    """Contiguous prefill of ``tokens`` (or ``inputs_embeds``) into the
+    per-stream caches at ``cache_offset``.  ``block_map`` is the visit
+    list of positions ``cache_offset + arange(S)`` (the kernel needs it
+    on the card).  Returns (last-position logits (B, V), caches, h)."""
+    h = embed_tokens(cfg, params, tokens)
+    if inputs_embeds is not None:
+        h = inputs_embeds.to(h.dtype)
+    B, S, _ = h.shape
+    if positions is None:
+        positions = (torch.arange(S, dtype=torch.int32, device=h.device)
+                     + cache_offset)[None].expand(B, S)
+    h, caches = run_stack(
+        cfg, params, h, positions, valid, caches, cache_offset=cache_offset,
+        cache_len=caches_max_len(cfg, caches), q_chunk=q_chunk, block_map=block_map,
+    )
+    hn = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return lm_logits(cfg, params, hn[:, -1]), caches, h
+
+
 def decode_step(cfg: ModelCfg, params, token: torch.Tensor, caches: Caches,
-                cur_len: int, page_table: torch.Tensor, cache_len: int,
-                page_size: int = 128, block_map=None):
-    """One paged decode step.  token (B, 1); ``cur_len`` is the new
-    token's position and write slot.  ``block_map`` is the visit list of
-    that one position (the kernel needs it on the card).  Returns
-    (logits (B, V), caches)."""
+                cur_len: int, page_table: Optional[torch.Tensor] = None,
+                cache_len: Optional[int] = None, page_size: int = 128,
+                block_map=None):
+    """One decode step.  token (B, 1); ``cur_len`` is the new token's
+    position and write slot.  With ``page_table``, ``caches`` is the
+    shared slab and ``cache_len`` is mandatory; otherwise they are
+    per-stream caches of ``caches_max_len`` slots.  ``block_map`` is the
+    visit list of that one position (the kernel needs it on the card).
+    Returns (logits (B, V), caches)."""
     h = embed_tokens(cfg, params, token)
     B = h.shape[0]
     positions = torch.full((B, 1), cur_len, dtype=torch.int32, device=h.device)
+    if cache_len is None:
+        if page_table is not None:
+            raise ValueError("paged decode needs an explicit cache_len")
+        cache_len = caches_max_len(cfg, caches)
     h, caches = run_stack(
         cfg, params, h, positions, None, caches, cache_offset=cur_len,
         cache_len=cache_len, page_table=page_table, page_size=page_size,

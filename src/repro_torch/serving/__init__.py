@@ -1,6 +1,6 @@
 from .api import (
-    AttentionPrefill, CodecFrontend, CodecStream, GreedyDecoder, MODES,
-    NO, QUERY_IDS, ServingPipeline, StreamRequest, StreamSession,
+    AttentionPrefill, CodecFrontend, CodecStream, GreedyDecoder, MODES, PRUNE_MODES,
+    REUSE_MODES, NO, QUERY_IDS, ServingPipeline, StreamRequest, StreamSession,
     VisualEncoder, WindowResult, WindowStats, YES, resolve_device,
 )
 from .config import EngineCfg, KVCfg, PruneCfg, RefreshCfg, SchedulerCfg
@@ -15,7 +15,7 @@ from . import flops
 __all__ = [
     "EngineCfg", "KVCfg", "PruneCfg", "RefreshCfg", "SchedulerCfg",
     "ServingPipeline", "Scheduler", "StreamRequest", "StreamSession",
-    "WindowResult", "WindowStats", "MODES", "QUERY_IDS", "YES", "NO",
+    "WindowResult", "WindowStats", "MODES", "PRUNE_MODES", "REUSE_MODES", "QUERY_IDS", "YES", "NO",
     "SchedulerEvent", "StreamAdmitted", "StreamThrottled", "WindowDone",
     "StreamDone", "SchedulerError",
     "CodecFrontend", "CodecStream", "VisualEncoder", "AttentionPrefill",

@@ -1,17 +1,25 @@
 """Composable serving stages + per-stream session state (paper Fig. 8).
 
   CodecFrontend     encode/ingest + single-pass decode + window slicing
-  VisualEncoder     full (I-frame) / packed pruned (P-frame) ViT encode,
-                    batched over streams x frames
-  AttentionPrefill  paged fresh prefill, and KVC reuse (Eq. 5) +
-                    selective refresh for incremental windows
-  GreedyDecoder     yes/no answer + greedy continuation on the paged slab
+  VisualEncoder     full (I-frame, or every frame without pruning) /
+                    packed pruned (P-frame) ViT encode, batched over
+                    streams x frames
+  AttentionPrefill  fresh prefill, and KVC reuse (Eq. 5) + selective
+                    refresh for incremental windows, on the paged slab
+                    (bf16 or with int8 cold pages) or per-stream caches
+  GreedyDecoder     yes/no answer + greedy continuation
 
 ``ServingPipeline`` composes the stages and serves a batch of
-same-phase windows (one per stream).  This slice of the port serves the
-JAX package's main path: mode ``codecflow`` with the packed ViT and the
-paged bf16 KV slab, attention-family models.  Everything runs on the
-pipeline's device: ``"cuda"`` unless the caller asks for ``"cpu"``.
+same-phase windows (one per stream).  Modes (paper §5): ``codecflow``
+and the baselines ``fullcomp`` | ``prune_only`` | ``refresh_only`` |
+``cacheblend`` | ``vlcache``, with the packed ViT, on attention-family
+models.  Everything runs on the pipeline's device: ``"cuda"`` unless the
+caller asks for ``"cpu"``.
+
+The JAX package runs its oracle where a pass has no static visit list
+(the per-stream fresh prefill, every decode, ``vlcache`` and
+``cacheblend``); here every pass builds a map for its positions (host
+integers), so the kernels run on all of them with the reference's masks.
 """
 from __future__ import annotations
 
@@ -27,10 +35,11 @@ from ..codec.metadata import CodecMetadata
 from ..configs.base import CodecCfg, ModelCfg, ViTCfg
 from ..core import (
     WindowLayout, capacity_groups, motion_mask, pack_plan, refresh_block_map,
-    select_tokens,
+    reuse_caches, select_tokens, shift_valid,
 )
 from ..core import kv_pool
 from ..kernels.flash_refresh import RefreshBlockMap, build_block_map
+from ..kernels.ref import apply_rope_ref, paged_gather_quant_ref, paged_gather_ref
 from ..models import layers
 from ..models import transformer as tfm
 from ..models import vit as vitm
@@ -41,7 +50,10 @@ from .config import EngineCfg
 YES, NO = 2, 3
 QUERY_IDS = (5, 6, 7, 8, 9, 10, 11, 12)   # "describe ... abuse? yes/no"
 
-MODES = ("codecflow",)                    # the modes this slice serves
+MODES = ("codecflow", "fullcomp", "prune_only", "refresh_only",
+         "cacheblend", "vlcache")
+PRUNE_MODES = ("codecflow", "prune_only", "cacheblend", "vlcache")
+REUSE_MODES = ("codecflow", "refresh_only", "cacheblend", "vlcache")
 
 
 def resolve_device(device) -> torch.device:
@@ -70,7 +82,8 @@ class WindowStats:
     t_prefill: float
     t_decode: float
     t_overhead: float
-    # steady-state KV bytes this stream occupies in the paged slab
+    # steady-state KV bytes this stream occupies (paged slab share, with
+    # int8 cold pages where demoted, or the per-stream allocation)
     kv_bytes_per_stream: int = 0
 
 
@@ -160,22 +173,24 @@ class CodecFrontend:
 # ======================================================================
 class VisualEncoder:
     """Full/pruned ViT encode of window frames, batched across streams:
-    all I-frames of all streams in one full-capacity call, all P-frames
-    packed into shared variable-capacity buffers in one call."""
+    all fully encoded frames of all streams (the I-frames, or every frame
+    when ``prune`` is off) in one call, all pruned P-frames packed into
+    shared variable-capacity buffers in one call."""
 
     PACK_TILE = 128
 
     def __init__(self, v: ViTCfg, vparams, codec: CodecCfg,
-                 layout: WindowLayout):
+                 layout: WindowLayout, prune: bool = True):
         self.v = v
         self.vparams = vparams
         self.codec = codec
         self.layout = layout
+        self.prune = prune
 
     def _split_range(self, frame_range: range) -> Tuple[List[int], List[int]]:
         lay = self.layout
-        i_idx = [f for f in frame_range if lay.frame_is_i(f)]
-        p_idx = [f for f in frame_range if not lay.frame_is_i(f)]
+        i_idx = [f for f in frame_range if lay.frame_is_i(f) or not self.prune]
+        p_idx = [f for f in frame_range if f not in i_idx]
         return i_idx, p_idx
 
     def _encode_packed(self, pframes: torch.Tensor, dec) -> Tuple[torch.Tensor, int]:
@@ -248,7 +263,7 @@ class VisualEncoder:
 
 
 # ======================================================================
-# Stage 3: prefill (attention family, paged slab)
+# Stage 3: prefill (attention family)
 # ======================================================================
 class PrefillResult(NamedTuple):
     """Output of the prefill stage for one batch of windows."""
@@ -262,26 +277,32 @@ class PrefillResult(NamedTuple):
     tokens_valid: np.ndarray     # (S,)
     n_refreshed: int
     flops: float                 # prefill FLOPs per stream
-    page_table: Any = None       # (S, pages/stream) slab pages
+    t_select: float              # refresh-set selection time (host wall)
+    page_table: Any = None       # (S, pages/stream) slab pages, paged mode
 
 
 class AttentionPrefill:
-    """Paged fresh prefill + KVC reuse / selective refresh (Eq. 5).
+    """Fresh prefill + KVC reuse / selective refresh (Eq. 5).
 
-    Per-stream KV lives in one shared bf16 slab (``core.kv_pool``),
-    updated in place; the per-stream state carries page ids.  Fresh
-    windows and the refresh pass run scatter-mode attention with
-    per-layout visit lists.
+    Reuse modes keep per-stream KV in one shared slab (``core.kv_pool``)
+    unless ``KVCfg(paged_kv=False)``; the per-stream state then carries
+    page ids.  With ``stale_page_dtype="int8"`` overlap pages a stream
+    carried for ``demote_after`` windows are demoted to an int8 cold
+    slab.  Without reuse (``fullcomp``, ``prune_only``) and with
+    ``paged_kv=False`` each group owns per-stream caches that the state
+    carries.  Caches are written in place.
+
+    Every attention pass runs with a visit list for its query positions:
+    per layout for fresh windows and static refresh sets, per stream and
+    window for ``cacheblend``'s online set (host time in ``t_map``).
     """
 
     KV_TILE = 128
 
     def __init__(self, cfg: ModelCfg, params, layout: WindowLayout,
                  ecfg: EngineCfg, device):
-        if ecfg.mode != "codecflow" or not ecfg.kv.paged_kv \
-                or ecfg.kv.stale_page_dtype != "bf16":
-            raise NotImplementedError(
-                "the port serves mode 'codecflow' on the paged bf16 slab")
+        if ecfg.kv.stale_page_dtype not in ("bf16", "int8"):
+            raise ValueError(f"stale_page_dtype {ecfg.kv.stale_page_dtype!r}")
         self.cfg = cfg
         self.params = params
         self.layout = layout
@@ -290,76 +311,125 @@ class AttentionPrefill:
         need = layout.total_len + ecfg.max_new_tokens
         self.cache_slots = -(-need // self.KV_TILE) * self.KV_TILE
         self.pages_per_stream = self.cache_slots // self.KV_TILE
+        self.paged = bool(ecfg.kv.paged_kv and ecfg.mode in REUSE_MODES)
+        self.quant = self.paged and ecfg.kv.stale_page_dtype == "int8"
+        self.cold_per_stream = (len(kv_pool.demotable_pages(layout, self.KV_TILE))
+                                if self.quant else 0)
+        self.demote_after = max(1, ecfg.kv.demote_after)
         self.pool: Optional[kv_pool.KVPool] = None
         self._pool_hint = ecfg.kv.pool_streams or 1
-        # both visit lists are per-layout constants: the refresh set's
-        # positions for incremental windows, [0, total_len) for fresh ones
-        self.block_map: RefreshBlockMap = refresh_block_map(
-            layout, window=cfg.sliding_window, kv_len=self.cache_slots)
+        window = cfg.sliding_window
+        # per-layout visit lists: [0, total_len) for fresh windows, the
+        # refresh set for incremental ones where it is layout-static
         self.fresh_map: RefreshBlockMap = build_block_map(
             np.arange(layout.total_len, dtype=np.int32), self.cache_slots,
-            causal=True, window=cfg.sliding_window)
-        self._ridx = torch.as_tensor(layout.refresh_token_idx).long().to(device)
+            causal=True, window=window)
         self._fresh_idx = torch.arange(layout.total_len, device=device)
+        self._static_ridx = self._static_refresh_set()
+        self._static_ridx_dev = (None if self._static_ridx is None else
+                                 torch.as_tensor(self._static_ridx).long().to(device))
+        self.block_map: Optional[RefreshBlockMap] = None
+        if self._static_ridx is not None:
+            self.block_map = (
+                refresh_block_map(layout, window=window, kv_len=self.cache_slots)
+                if ecfg.mode in ("codecflow", "refresh_only") else
+                build_block_map(self._static_ridx, self.cache_slots, window=window))
+        self.t_map = 0.0         # host seconds building per-window maps
+
+    def _static_refresh_set(self) -> Optional[np.ndarray]:
+        mode, lay = self.ecfg.mode, self.layout
+        if mode in ("codecflow", "refresh_only"):
+            return lay.refresh_token_idx
+        if mode == "vlcache":
+            tail = np.arange(lay.overlap_tokens, lay.total_len, dtype=np.int32)
+            budget = len(lay.anchor_token_idx)
+            r = max(1, int(self.ecfg.refresh.vlcache_ratio * lay.overlap_tokens))
+            sel = np.linspace(0, lay.overlap_tokens - 1, min(r, budget) or 1).astype(np.int32)
+            return np.unique(np.concatenate([sel, tail]))
+        return None
 
     # -- paged pool lifecycle ------------------------------------------
     def ensure_pool(self, n_streams: int) -> None:
         """Size the slab for ``n_streams`` concurrent streams (growing is
-        only legal while no pages are in use)."""
+        only legal while no pages are in use).  With int8 cold pages a
+        steady stream holds P - D hot and D cold pages and admission is
+        all hot, so hot = N (P - D) + D and cold = N D: streams admit
+        staggered, each after the previous one demoted."""
+        if not self.paged:
+            return
         if self.ecfg.kv.pool_streams is not None:
             want = self.ecfg.kv.pool_streams
         else:
             self._pool_hint = max(self._pool_hint, n_streams)
             want = self._pool_hint
-        need = want * self.pages_per_stream
-        if self.pool is None or self.pool.n_pages < need:
+        D = self.cold_per_stream
+        need = want * (self.pages_per_stream - D) + D
+        need_cold = want * D
+        if self.pool is None or self.pool.n_pages < need or self.pool.n_cold < need_cold:
             if self.pool is not None and self.pool.used_pages:
                 raise RuntimeError("cannot grow a pool with pages in use; pin pool_streams")
             self.pool = None     # free the old slab before the new one
             self.pool = kv_pool.KVPool(self.cfg, need, page=self.KV_TILE,
-                                       device=self.device)
+                                       device=self.device, cold_pages=need_cold)
 
     def can_admit(self, n_streams: int) -> bool:
-        if self.pool is None:
+        if not self.paged or self.pool is None:
             return True
-        return self.pool.can_admit(n_streams * self.pages_per_stream)
+        return self.pool.can_admit_streams(n_streams, self.pages_per_stream,
+                                           self.cold_per_stream)
 
     def release(self, state: Optional[Dict[str, Any]]) -> None:
-        """Return a finished stream's pages to the free list (no copy)."""
+        """Return a finished stream's pages to the free lists (no copy)."""
         if state is None:
             return
         pages = state.pop("pages", None)
         if pages is not None and self.pool is not None:
+            if self.quant and not (np.asarray(pages) >= self.pool.n_pages).any():
+                # evicted before its first demotion: drop its reservation
+                self.pool.unreserve_cold(self.cold_per_stream)
             self.pool.evict(pages)
 
     def kv_bytes_per_stream(self) -> int:
-        if self.pool is None:
-            return 0
-        return self.pool.bytes_per_stream(self.pages_per_stream)
+        """Steady-state KV bytes one admitted stream occupies: its share of
+        the slab (hot tail + int8 overlap, scales included, when
+        quantised) or the full per-stream bf16 allocation."""
+        if self.paged:
+            if self.pool is None:
+                return 0
+            D = self.cold_per_stream
+            return self.pool.bytes_per_stream(self.pages_per_stream - D, D)
+        cfg = self.cfg
+        return cfg.repeats * cfg.period * 2 * self.cache_slots * cfg.n_kv * cfg.d_head * 2
 
     def _page_table(self, pages: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(pages, dtype=torch.int32).to(self.device)
 
-    def _result(self, logits, vis, vval, kv_valid, valid, n_refreshed, flops,
-                pages, page_table) -> PrefillResult:
+    def _result(self, logits, vis, vval, caches, kv_valid, valid, n_refreshed,
+                flops, t_select, pages=None, page_table=None, age=None) -> PrefillResult:
         lay = self.layout
-        state = {"vis": vis, "vval": vval, "kv_valid": kv_valid, "pages": pages}
+        if pages is not None:
+            state = {"vis": vis, "vval": vval, "kv_valid": kv_valid, "pages": pages}
+            if age is not None:
+                state["age"] = age      # windows the overlap pages survived
+        else:
+            state = {"vis": vis, "vval": vval, "caches": caches, "kv_valid": kv_valid}
         return PrefillResult(
-            logits=logits, decode_caches=self.pool.slab,
+            logits=logits, decode_caches=caches,
             decode_start=lay.total_len,
             flops_len=lambda i: lay.total_len + i + 1,
             state=state, tokens_vis=lay.vis_len,
             tokens_valid=valid.sum(dim=1).cpu().numpy(),
-            n_refreshed=n_refreshed, flops=flops, page_table=page_table,
+            n_refreshed=n_refreshed, flops=flops, t_select=t_select,
+            page_table=page_table,
         )
 
-    def _run(self, h, idx, kv_valid, page_table, block_map):
-        """Scatter-mode pass over the slab: write K/V of positions ``idx``
-        and attend; returns last-position logits."""
+    def _run(self, h, idx, kv_valid, caches, page_table, block_map):
+        """Scatter-mode pass: write K/V of positions ``idx`` and attend;
+        returns last-position logits."""
         S = h.shape[0]
         positions = idx[None].expand(S, idx.shape[0])
         h, _ = tfm.run_stack(
-            self.cfg, self.params, h, positions, None, self.pool.slab,
+            self.cfg, self.params, h, positions, None, caches,
             cache_offset=None, cache_len=self.cache_slots, scatter_idx=idx,
             kv_valid=kv_valid, q_chunk=self.ecfg.q_chunk, block_map=block_map,
             page_table=page_table, page_size=self.KV_TILE,
@@ -375,16 +445,28 @@ class AttentionPrefill:
         embeds = torch.cat([vis, qe], 1)
         valid = torch.cat(
             [vval, torch.ones((S, lay.query_len), dtype=torch.bool, device=vis.device)], 1)
-        self.ensure_pool(S)
-        pages = self.pool.admit_streams(S, self.pages_per_stream)
-        pt = self._page_table(pages)
         kv_valid = torch.zeros((S, alloc), dtype=torch.bool, device=vis.device)
         kv_valid[:, : lay.total_len] = valid
         h = embeds.to(self.params["embed"].dtype)
-        logits = self._run(h, self._fresh_idx, kv_valid, pt, self.fresh_map)
         flops = flopcount.prefill_flops(self.cfg, lay.total_len, lay.total_len)
-        return self._result(logits, vis, vval, kv_valid, valid, lay.total_len,
-                            flops, pages, pt)
+        if not self.paged:
+            caches = tfm.init_caches(self.cfg, S, alloc, device=self.device)
+            logits, caches, _ = tfm.prefill(
+                self.cfg, self.params, torch.zeros((S, lay.total_len), dtype=torch.long,
+                                                   device=vis.device),
+                caches, valid=valid, inputs_embeds=h, q_chunk=self.ecfg.q_chunk,
+                block_map=self.fresh_map)
+            return self._result(logits, vis, vval, caches, kv_valid, valid,
+                                lay.total_len, flops, 0.0)
+        self.ensure_pool(S)
+        pages = self.pool.admit_streams(S, self.pages_per_stream, self.cold_per_stream)
+        pt = self._page_table(pages)
+        logits = self._run(h, self._fresh_idx, kv_valid, self.pool.slab, pt,
+                           self.fresh_map)
+        age = np.zeros((S,), np.int32) if self.quant else None
+        return self._result(logits, vis, vval, self.pool.slab, kv_valid, valid,
+                            lay.total_len, flops, 0.0, pages=pages, page_table=pt,
+                            age=age)
 
     # -- incremental window (reuse + selective refresh) ----------------
     def step(self, vis_new: torch.Tensor, vval_new: torch.Tensor,
@@ -399,28 +481,110 @@ class AttentionPrefill:
         embeds = torch.cat([vis, qe], 1)
         valid = torch.cat(
             [vval, torch.ones((S, lay.query_len), dtype=torch.bool, device=dev)], 1)
-        pages = state["pages"]
-        pt = self._page_table(pages)
-        kv_pool.reuse_pool_caches(self.cfg, self.pool.slab, pt, lay, self.KV_TILE)
+        pages = pt = age = None
+        if self.paged:
+            pages = state["pages"]
+            pt = self._page_table(pages)
+            caches = kv_pool.reuse_pool_caches(self.cfg, self.pool.slab, pt, lay,
+                                               self.KV_TILE)
+            if self.quant:
+                # reuse first (it rewrote the overlap), then demote the
+                # streams now eligible; the refresh below reads and writes
+                # through the updated mixed-precision page table
+                age = state["age"] + 1
+                pages, pt = self._demote(caches, pages, age)
+        else:
+            caches = reuse_caches(self.cfg, state["caches"], lay)
         # validity after this refresh: the shifted overlap, then the
         # refresh set's own validity (queries at invalid slots are masked)
-        kv_full = torch.zeros((S, alloc), dtype=torch.bool, device=dev)
-        kv_full[:, : lay.overlap_tokens] = state["kv_valid"][:, lay.shift_tokens: lay.vis_len]
-        ridx = self._ridx                  # codecflow: the layout's refresh set
+        kv_full = shift_valid(state["kv_valid"], lay)
+        t0 = time.perf_counter()
+        ridx_np = self.refresh_indices(embeds, caches, page_table=pt)
+        t_select = time.perf_counter() - t0
+        bm, ridx = self.block_map, self._static_ridx_dev
+        if bm is None:
+            t0 = time.perf_counter()
+            bm = build_block_map(ridx_np, alloc, window=self.cfg.sliding_window)
+            self.t_map += time.perf_counter() - t0
+            ridx = torch.as_tensor(ridx_np).long().to(dev)
         kv_full[:, ridx] = valid[:, ridx]
         h = embeds[:, ridx].to(self.params["embed"].dtype)
-        logits = self._run(h, ridx, kv_full, pt, self.block_map)
-        flops = flopcount.prefill_flops(self.cfg, len(ridx), lay.total_len)
-        return self._result(logits, vis, vval, kv_full, valid, len(ridx),
-                            flops, pages, pt)
+        logits = self._run(h, ridx, kv_full, caches, pt, bm)
+        flops = flopcount.prefill_flops(self.cfg, len(ridx_np), lay.total_len)
+        return self._result(logits, vis, vval, caches, kv_full, valid, len(ridx_np),
+                            flops, t_select, pages=pages, page_table=pt, age=age)
+
+    def _demote(self, caches, pages: np.ndarray, age: np.ndarray):
+        """Codec-guided demotion: quantise eligible streams' overlap pages
+        into the int8 cold slab and swap the cold ids into their page
+        tables.  A stream is eligible once its overlap pages survived
+        ``demote_after`` reuse windows and it has not demoted yet; the
+        demotable set is the layout-static prefix pages [0, D)."""
+        D = self.cold_per_stream
+        if D:
+            demoted = (pages[:, :D] >= self.pool.n_pages).any(axis=1)
+            rows = np.nonzero((age >= self.demote_after) & ~demoted)[0]
+            if rows.size:
+                src = pages[rows][:, :D]
+                dst = self.pool.demote(src).reshape(src.shape)
+                kv_pool.demote_pool_caches(caches, self._page_table(src),
+                                           self._page_table(dst), self.KV_TILE)
+                pages = pages.copy()
+                pages[rows[:, None], np.arange(D)[None, :]] = dst
+        return pages, self._page_table(pages)
 
     def absorb_decode(self, state) -> None:
-        """Decode wrote the shared slab in place; its slots become valid
-        for the next window's shift."""
+        """Decode wrote the caches in place; its slots become valid for the
+        next window's shift."""
         lay, nd = self.layout, self.ecfg.max_new_tokens
         kv = state["kv_valid"].clone()
         kv[:, lay.total_len: lay.total_len + nd] = True
         state["kv_valid"] = kv
+
+    # -- refresh policy (the *when/where* of C2) -----------------------
+    @property
+    def batchable_step(self) -> bool:
+        """cacheblend ranks per stream online: its refresh sets differ
+        across streams, so its incremental windows are served alone."""
+        return self.ecfg.mode != "cacheblend"
+
+    def refresh_indices(self, embeds, reused_caches, page_table=None) -> np.ndarray:
+        """The refresh set (host int32): layout-static, or for
+        ``cacheblend`` the top-``budget`` overlap tokens by
+        ``cacheblend_deviation``, with the new stride and query."""
+        if self._static_ridx is not None:
+            return self._static_ridx
+        lay = self.layout
+        tail = np.arange(lay.overlap_tokens, lay.total_len, dtype=np.int32)
+        budget = len(lay.anchor_token_idx)
+        dev = self.cacheblend_deviation(embeds, reused_caches, page_table)
+        top = torch.argsort(-dev, stable=True)[:budget].cpu().numpy().astype(np.int32)
+        return np.unique(np.concatenate([top, tail]))
+
+    def cacheblend_deviation(self, embeds, reused_caches, page_table=None) -> torch.Tensor:
+        """cacheblend's online probe (overlap_tokens,) f32: per overlap
+        token, the norm of the difference between the reused layer-0 keys
+        and keys recomputed from the current embeddings."""
+        lay, cfg = self.layout, self.cfg
+        if embeds.shape[0] != 1:
+            raise ValueError("cacheblend refresh is per stream")
+        ov = lay.overlap_tokens
+        p0 = tfm.layer_params(self.params["blocks"][0], 0)
+        hn = layers.rmsnorm(p0["ln1"], embeds[:, :ov], cfg.norm_eps)
+        kq = (hn @ p0["mixer"]["wk"]).reshape(1, ov, cfg.n_kv, cfg.d_head)
+        pos = torch.arange(ov, device=embeds.device)[None]
+        k_new = apply_rope_ref(kq, pos, cfg.rope_theta)
+        b0 = reused_caches.blocks[0]
+        blk0 = b0.k[0]
+        if page_table is not None:
+            # the stream's logical view; demoted pages dequantise through
+            # the storage dtype, exactly what the kernel reads
+            blk0 = (paged_gather_quant_ref(blk0, b0.k8[0], b0.k_scale[0], page_table,
+                                           self.KV_TILE)
+                    if isinstance(b0, layers.QuantKVCache)
+                    else paged_gather_ref(blk0, page_table, self.KV_TILE))
+        k_reused = blk0[:, :ov]
+        return torch.linalg.norm((k_new - k_reused.to(k_new.dtype)).float(), dim=(-1, -2))[0]
 
 
 # ======================================================================
@@ -435,12 +599,12 @@ class DecodePending(NamedTuple):
 
 
 class GreedyDecoder:
-    """Yes/no answer extraction + greedy continuation on the paged slab.
+    """Yes/no answer extraction + greedy continuation on the paged slab
+    or the per-stream caches.
 
-    The JAX package's paged decode has no visit list and so runs its
-    oracle; here every decode step runs the paged attention kernel with
-    a map built for its one position (causal mask only, as in the JAX
-    package)."""
+    The JAX package's decode has no visit list and so runs its oracle;
+    here every decode step runs the attention kernel with a map built for
+    its one position (causal mask only, as in the JAX package)."""
 
     def __init__(self, cfg: ModelCfg, params, ecfg: EngineCfg):
         self.cfg = cfg
@@ -456,7 +620,9 @@ class GreedyDecoder:
         return self._maps[key]
 
     def start(self, logits: torch.Tensor, caches, start_pos: int, flops_len,
-              page_table: torch.Tensor, cache_len: int) -> DecodePending:
+              page_table: Optional[torch.Tensor], cache_len: int) -> DecodePending:
+        """``page_table`` None: ``caches`` are per-stream caches of
+        ``cache_len`` slots; otherwise the shared slab."""
         yes_no = logits[:, [YES, NO]]
         answers = yes_no[:, 0] > yes_no[:, 1]
         tok = torch.where(answers, YES, NO)[:, None]
@@ -504,10 +670,10 @@ class ServingPipeline:
                  params_vit, ecfg: EngineCfg, device="cuda"):
         if cfg.vit is not None and cfg.vit != vit_cfg:
             raise ValueError("vit_cfg does not match the model's ViT")
-        if ecfg.mode not in MODES or not ecfg.prune.packed_vit:
-            raise NotImplementedError(
-                f"mode {ecfg.mode!r} (packed_vit={ecfg.prune.packed_vit}) "
-                "is not ported; this slice serves 'codecflow' with the packed ViT")
+        if ecfg.mode not in MODES:
+            raise ValueError(f"mode {ecfg.mode!r} is not one of {MODES}")
+        if not ecfg.prune.packed_vit:
+            raise NotImplementedError("the padded ViT (packed_vit=False) is not ported")
         if cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError("recurrent families are not ported")
         self.device = resolve_device(device)
@@ -517,22 +683,36 @@ class ServingPipeline:
         self.vparams = params_vit
         self.ecfg = ecfg
         c = ecfg.codec
-        kg = capacity_groups(vit_cfg, c.keep_ratio)
+        self.prune = ecfg.mode in PRUNE_MODES
+        self.reuse = ecfg.mode in REUSE_MODES
+        kg = capacity_groups(vit_cfg, c.keep_ratio) if self.prune else vit_cfg.n_groups
         self.layout = WindowLayout(
             window=c.window_frames, stride=c.stride_frames, gop=c.gop,
             g_tokens=vit_cfg.n_groups, k_tokens=kg, query_len=len(QUERY_IDS),
         )
         self.frontend = CodecFrontend(c, self.device)
-        self.encoder = VisualEncoder(vit_cfg, params_vit, c, self.layout)
+        self.encoder = VisualEncoder(vit_cfg, params_vit, c, self.layout, self.prune)
         self.backend = AttentionPrefill(cfg, params_lm, self.layout, ecfg, self.device)
         self.decoder = GreedyDecoder(cfg, params_lm, ecfg)
         self.cache_slots = self.backend.cache_slots
+        self.paged = self.backend.paged
+
+    @property
+    def kernels(self) -> frozenset:
+        """The kernels (``ops.KERNELS`` names) serving launches: motion
+        search always, the packed ViT when pruning, RoPE shift when
+        reusing, and the attention kernel of the KV layout."""
+        attn = ("flash_refresh" if not self.paged else
+                "flash_refresh_paged_int8" if self.backend.quant else "flash_refresh_paged")
+        return frozenset({"mv_sad", attn}
+                         | ({"flash_packed"} if self.prune else set())
+                         | ({"rope_shift"} if self.reuse else set()))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- paged pool lifecycle ------------------------------------------
+    # -- paged pool lifecycle (no-ops for per-stream caches) -----------
     def ensure_capacity(self, n_streams: int) -> None:
         self.backend.ensure_pool(n_streams)
 
@@ -540,7 +720,8 @@ class ServingPipeline:
         return self.backend.can_admit(n_streams)
 
     def release_state(self, state: Optional[Dict[str, Any]]) -> None:
-        self.backend.release(state)
+        if self.paged:
+            self.backend.release(state)
 
     def kv_bytes_per_stream(self) -> int:
         return self.backend.kv_bytes_per_stream()
@@ -553,7 +734,11 @@ class ServingPipeline:
 
     def batch_key(self, state: Optional[Dict[str, Any]]) -> tuple:
         """Windows sharing a key may be fused into one batched call."""
-        return ("fresh",) if state is None else ("inc",)
+        if state is None or not self.reuse:
+            return ("fresh",)
+        if not self.backend.batchable_step:
+            return ("inc", id(state))     # never batched (cacheblend)
+        return ("inc",)
 
     def encode_windows(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],
                        fresh: bool) -> EncodedWindows:
@@ -577,7 +762,7 @@ class ServingPipeline:
         else:
             pr = self.backend.step(enc.vis, enc.vval, enc.qe, state)
         self._sync()
-        t_prefill = time.perf_counter() - t0
+        t_prefill = time.perf_counter() - t0 - pr.t_select
         return PrefilledWindows(pr, t_prefill)
 
     def decode_windows(self, pf: PrefilledWindows) -> DecodedWindows:
@@ -618,7 +803,7 @@ class ServingPipeline:
                 flops_decode=pend.flops_decode,
                 t_codec=0.0, t_vit=enc.t_vit / S,
                 t_prefill=pf.t_prefill / S,
-                t_decode=t_decode / S, t_overhead=0.0,
+                t_decode=t_decode / S, t_overhead=pr.t_select / S,
                 kv_bytes_per_stream=kv_bytes,
             )
             for i in range(S)
@@ -628,7 +813,7 @@ class ServingPipeline:
                     state: Optional[Dict[str, Any]]
                     ) -> Tuple[List[WindowStats], Dict[str, Any]]:
         """Serve one window of S same-layout, same-phase streams."""
-        fresh = state is None
+        fresh = state is None or not self.reuse
         enc = self.encode_windows(frames, metas, fresh)
         pf = self.prefill_windows(enc, state)
         dec = self.decode_windows(pf)

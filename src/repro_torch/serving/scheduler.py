@@ -4,8 +4,10 @@
 ``max_concurrent`` sessions are admitted (hold KV state) at a time, and
 admission the paged KV pool cannot back is refused (``StreamThrottled``).
 Each ``step`` serves the largest ready group of same-phase windows (all
-fresh, or all incremental) through the synchronous ``serve_batch``,
-fully synced before the next step.  The JAX package's stage-pipelined
+fresh, or all incremental; ``cacheblend``'s incremental windows alone)
+through the synchronous ``serve_batch``, fully synced before the next
+step.  Under int8 cold pages the pool admits streams staggered: the next
+one when the previous one has demoted.  The JAX package's stage-pipelined
 engine (ingest threads, overlapped stages) is not ported yet.
 
 Drive the scheduler with ``events()`` / ``step()`` (typed
@@ -21,6 +23,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.transformer import Caches
 from .api import ServingPipeline, StreamRequest, StreamSession, WindowResult
 from .config import SchedulerCfg
 from .events import (
@@ -34,12 +37,18 @@ STAGES = ("ingest", "encode", "prefill", "decode", "finalize")
 def _concat_states(states: List[Dict[str, Any]],
                    sids: Sequence[int] = ()) -> Dict[str, Any]:
     """Stack per-session (batch=1) states into one batched state: page
-    rows and host arrays with numpy, tensors along the batch axis;
-    python scalars must agree across the group."""
+    rows and host arrays with numpy, per-stream ``caches`` along their
+    batch axis 1 (a copy: the dense staging cost the paged slab avoids),
+    other tensors along axis 0; python scalars must agree across the
+    group."""
     out: Dict[str, Any] = {}
     for key in states[0]:
         vals = [s[key] for s in states]
-        if isinstance(vals[0], np.ndarray):
+        if key == "caches":
+            out[key] = Caches(tuple(
+                type(blks[0])(*(torch.cat(leaves, dim=1) for leaves in zip(*blks)))
+                for blks in zip(*(c.blocks for c in vals))), None)
+        elif isinstance(vals[0], np.ndarray):
             out[key] = np.concatenate(vals, axis=0)
         elif isinstance(vals[0], (int, float)):
             if not all(v == vals[0] for v in vals):
@@ -57,7 +66,12 @@ def _split_state(state: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     outs: List[Dict[str, Any]] = [dict() for _ in range(n)]
     for key, val in state.items():
         for i in range(n):
-            outs[i][key] = val if isinstance(val, (int, float)) else val[i: i + 1]
+            if key == "caches":
+                outs[i][key] = Caches(tuple(
+                    type(blk)(*(leaf[:, i: i + 1] for leaf in blk))
+                    for blk in val.blocks), None)
+            else:
+                outs[i][key] = val if isinstance(val, (int, float)) else val[i: i + 1]
     return outs
 
 
@@ -66,8 +80,11 @@ def _staged_bytes(state: Optional[Dict[str, Any]]) -> int:
     if not state:
         return 0
     total = 0
-    for val in state.values():
-        if isinstance(val, torch.Tensor):
+    for key, val in state.items():
+        if key == "caches":
+            total += sum(leaf.numel() * leaf.element_size()
+                         for blk in val.blocks for leaf in blk)
+        elif isinstance(val, torch.Tensor):
             total += val.numel() * val.element_size()
         elif hasattr(val, "nbytes"):
             total += int(val.nbytes)
@@ -256,7 +273,13 @@ class Scheduler:
         stats, new_state = self.pipeline.serve_batch(frames, metas, state)
 
         t0 = time.perf_counter()
-        per_states = [new_state] if len(group) == 1 else _split_state(new_state, len(group))
+        if not self.pipeline.reuse:
+            # modes without reuse never read state: keep no dead caches
+            per_states = [None] * len(group)
+        elif len(group) == 1:
+            per_states = [new_state]
+        else:
+            per_states = _split_state(new_state, len(group))
         t_stage += time.perf_counter() - t0
 
         results = []
@@ -294,6 +317,8 @@ class Scheduler:
 
     # -- fleet metrics -------------------------------------------------
     def kv_memory(self) -> Dict[str, int]:
+        """Slab bytes of the paged pool (0 for per-stream caches) and the
+        steady-state KV bytes of one stream."""
         pool = self.pipeline.backend.pool
         return {
             "slab_bytes": int(pool.slab_bytes) if pool is not None else 0,

@@ -27,7 +27,8 @@ from repro_torch.kernels.flash_packed import (  # noqa: E402
     build_pack_map, flash_packed_cuda, flash_packed_plain,
 )
 from repro_torch.kernels.flash_refresh import (  # noqa: E402
-    build_block_map, flash_refresh_paged_cuda, flash_refresh_paged_plain,
+    build_block_map, flash_refresh_cuda, flash_refresh_paged_cuda,
+    flash_refresh_paged_plain, flash_refresh_plain,
 )
 from repro_torch.kernels.mv_sad import mv_sad_cuda  # noqa: E402
 from repro_torch.kernels.rope_shift import rope_shift_cuda  # noqa: E402
@@ -130,6 +131,93 @@ def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, windo
     assert bool((out_k[dead] == 0).all())
 
 
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
+                                            (32, 4, 1, 48)])
+def test_flash_refresh_kernel_matches_plain(dev, pattern, d, h, hkv, window):
+    """Per-stream caches (B, Sk, Hkv, D), no page table."""
+    q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
+    rng = np.random.default_rng(12)
+    k, v = (torch.from_numpy(rng.normal(size=(2, 256, hkv, d)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    kvv = torch.from_numpy(rng.random((2, 256)) > 0.3)
+    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), h, d)).astype(np.float32)).bfloat16()
+    qp = torch.from_numpy(np.broadcast_to(q_pos[None], (2, len(q_pos))).copy())
+    bm = build_block_map(q_pos, 256, window=window)
+    before = ops.launch_counts().get("flash_refresh", 0)
+    out_k = flash_refresh_cuda(q.to(dev), k.to(dev), v.to(dev), kvv.to(dev), bm,
+                               window=window).cpu()
+    assert ops.launch_counts()["flash_refresh"] == before + 1
+    out_p = flash_refresh_plain(q, k, v, qp, kvv, window=window)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    dead = (out_p == 0).all(-1).all(-1)
+    assert bool((out_k[dead] == 0).all())
+
+
+def _quant_slab(rng, n_hot, n_cold, hkv, d):
+    """Hot bf16 pages and int8 cold pages with per-(page, head) scales
+    that dequantise to about unit values, as demotion leaves them."""
+    hk, hv = (torch.from_numpy(rng.normal(size=(n_hot * 128, hkv, d)).astype(np.float32))
+              .bfloat16() for _ in range(2))
+    k8, v8 = (torch.from_numpy(rng.integers(-127, 128, size=(n_cold * 128, hkv, d))
+                               .astype(np.int8)) for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.01, 0.03, size=(n_cold, hkv)).astype(np.float32))
+              for _ in range(2))
+    return hk, hv, (k8, v8, ks, vs)
+
+
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (32, 4, 1)])
+def test_flash_refresh_paged_int8_kernel_matches_plain(dev, pattern, d, h, hkv):
+    """A page table that mixes hot and cold entries (ids >= n_hot)."""
+    q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
+    rng = np.random.default_rng(13)
+    hk, hv, cold = _quant_slab(rng, 4, 3, hkv, d)
+    pt = torch.tensor([[4, 1], [3, 6]], dtype=torch.int32)
+    kvv = torch.from_numpy(rng.random((2, 256)) > 0.3)
+    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), h, d)).astype(np.float32)).bfloat16()
+    qp = torch.from_numpy(np.broadcast_to(q_pos[None], (2, len(q_pos))).copy())
+    bm = build_block_map(q_pos, 256)
+    before = ops.launch_counts().get("flash_refresh_paged_int8", 0)
+    out_k = flash_refresh_paged_cuda(q.to(dev), hk.to(dev), hv.to(dev), kvv.to(dev),
+                                     pt.to(dev), bm, cold=tuple(c.to(dev) for c in cold)).cpu()
+    assert ops.launch_counts()["flash_refresh_paged_int8"] == before + 1
+    out_p = flash_refresh_paged_plain(q, hk, hv, qp, kvv, pt, cold=cold)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    dead = (out_p == 0).all(-1).all(-1)
+    assert bool((out_k[dead] == 0).all())
+
+
+def test_flash_refresh_paged_int8_all_hot_is_bitwise_bf16(dev):
+    """Every entry hot: the int8 kernel loads the same bf16 tiles as the
+    bf16 kernel, so the results are bitwise equal."""
+    rng = np.random.default_rng(14)
+    hk, hv, cold = _quant_slab(rng, 4, 3, 2, 128)
+    hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
+    pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
+    kvv = torch.from_numpy(rng.random((2, 256)) > 0.3).to(dev)
+    q_pos = SCATTER_PATTERNS["fresh"]
+    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), 8, 128)).astype(np.float32)).bfloat16()
+    bm = build_block_map(q_pos, 256)
+    out8 = flash_refresh_paged_cuda(q.to(dev), hk, hv, kvv, pt, bm, cold=cold)
+    out16 = flash_refresh_paged_cuda(q.to(dev), hk, hv, kvv, pt, bm)
+    assert torch.equal(out8, out16)
+
+
+def test_stream_map_for_other_positions_raises_on_card(dev):
+    q = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16)
+    cache = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
+    qp = torch.tensor([[3, 4, 5, 7]], device=dev)
+    before = ops.launch_counts().get("flash_refresh", 0)
+    with pytest.raises(ops.KernelContractError, match="positions-match"):
+        ops.flash_refresh(q, cache, cache, qp, block_map=build_block_map([3, 4, 5, 6], 128))
+    with pytest.raises(ops.KernelContractError, match="RefreshBlockMap"):
+        ops.flash_refresh(q, cache, cache, qp)
+    assert ops.launch_counts().get("flash_refresh", 0) == before
+    ops.flash_refresh(q, cache, cache, qp, block_map=build_block_map([3, 4, 5, 7], 128))
+    assert ops.launch_counts()["flash_refresh"] == before + 1
+
+
 def _seg_layout(rows, L):
     seg = np.full((len(rows), L), -1, np.int32)
     for r, row in enumerate(rows):
@@ -192,3 +280,25 @@ def test_refresh_map_for_other_positions_raises_on_card(dev):
     assert ops.launch_counts().get("flash_refresh_paged", 0) == before
     ops.flash_refresh_paged(q, *args, block_map=build_block_map([3, 4, 5, 7], 128))
     assert ops.launch_counts()["flash_refresh_paged"] == before + 1
+
+
+def test_page_ids_out_of_range_raise_on_card(dev):
+    """An entry past the hot and cold slabs is refused before the kernel
+    could read outside them."""
+    rng = np.random.default_rng(15)
+    hk, hv, cold = _quant_slab(rng, 2, 1, 2, 32)
+    hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
+    q = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16)
+    qp = torch.tensor([[3, 4, 5, 6]], device=dev)
+    kvv = torch.ones(1, 256, dtype=torch.bool, device=dev)
+    bm = build_block_map([3, 4, 5, 6], 256)
+    before = ops.launch_counts().get("flash_refresh_paged_int8", 0)
+    with pytest.raises(ops.KernelContractError, match="page-range"):
+        ops.flash_refresh_paged(q, hk, hv, qp, kvv,
+                                torch.tensor([[2, 3]], dtype=torch.int32, device=dev),
+                                block_map=bm, cold=cold)
+    assert ops.launch_counts().get("flash_refresh_paged_int8", 0) == before
+    ops.flash_refresh_paged(q, hk, hv, qp, kvv,
+                            torch.tensor([[2, 1]], dtype=torch.int32, device=dev),
+                            block_map=bm, cold=cold)
+    assert ops.launch_counts()["flash_refresh_paged_int8"] == before + 1

@@ -189,6 +189,106 @@ def test_flash_refresh_paged_fully_masked_rows_are_zero():
     assert (out[0, 1:] != 0).any()
 
 
+# ----------------------------------------------------------------------
+# flash_refresh (per-stream caches)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_refresh_plain_matches_pallas(pattern, dtype):
+    """Per-stream caches (B, Sk, Hkv, D): the op's plain version (through
+    a map, as the serving path calls it) against the Pallas kernel in
+    interpret mode and the JAX oracle."""
+    q_pos = SCATTER_PATTERNS[pattern]
+    rng = np.random.default_rng(7)
+    (kj, kt), (vj, vt) = (as_dtype(rng.normal(size=(2, 256, 2, 32)).astype(np.float32), dtype)
+                          for _ in range(2))
+    qj, qt = as_dtype(rng.normal(size=(2, len(q_pos), 4, 32)).astype(np.float32), dtype)
+    kvv = rng.random((2, 256)) > 0.3
+    qp = np.broadcast_to(q_pos[None], (2, len(q_pos))).copy()
+    bm_j = j_build_block_map(q_pos, 256, tq=128, tk=128, causal=True)
+    with jops.kernel_mode("interpret"):
+        o_j = jops.flash_refresh(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv), block_map=bm_j)
+    o_o = jref.flash_refresh_ref(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv))
+    o_t = ops.flash_refresh(qt, kt, vt, t(qp), t(kvv), block_map=build_block_map(q_pos, 256),
+                            q_chunk=64)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
+    np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
+    assert o_t.dtype == qt.dtype
+
+
+# ----------------------------------------------------------------------
+# flash_refresh_paged with int8 cold pages
+# ----------------------------------------------------------------------
+def _quant_case(seed=21, hkv=2, d=32):
+    """Two-precision slab: 5 hot and 3 cold pages; stream 0 reads two
+    cold pages and one hot, stream 1 one cold and two hot (unified ids:
+    entry >= 5 is cold page entry - 5).  Cold content is int8 with
+    per-(page, head) scales, one cold page all zero (scale 1.0)."""
+    rng = np.random.default_rng(seed)
+    n_hot, n_cold = 5, 3
+    hk = rng.normal(size=(n_hot * 128, hkv, d)).astype(np.float32)
+    hv = rng.normal(size=(n_hot * 128, hkv, d)).astype(np.float32)
+    k8 = rng.integers(-127, 128, size=(n_cold * 128, hkv, d)).astype(np.int8)
+    v8 = rng.integers(-127, 128, size=(n_cold * 128, hkv, d)).astype(np.int8)
+    k8[256:] = 0
+    ks = rng.uniform(0.005, 0.02, size=(n_cold, hkv)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, size=(n_cold, hkv)).astype(np.float32)
+    ks[2] = 1.0
+    pt = np.asarray([[5, 6, 2], [7, 0, 4]], np.int32)
+    kvv = rng.random((2, 3 * 128)) > 0.3
+    return hk, hv, (k8, v8, ks, vs), pt, kvv
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_gather_quant_equals_jax(dtype):
+    hk, _, (k8, _, ks, _), pt, _ = _quant_case()
+    hj, ht = as_dtype(hk, dtype)
+    g_j = jref.paged_gather_quant_ref(hj, jnp.asarray(k8), jnp.asarray(ks), jnp.asarray(pt), 128)
+    g_t = ref.paged_gather_quant_ref(ht, t(k8), t(ks), t(pt), 128)
+    assert g_t.dtype == ht.dtype
+    np.testing.assert_array_equal(f32(g_t), f32(g_j))
+    assert (f32(g_t)[1, :128] == 0).all()          # the all-zero cold page
+
+
+@pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_refresh_paged_int8_plain_matches_pallas(pattern, dtype):
+    q_pos = SCATTER_PATTERNS[pattern]
+    hk, hv, (k8, v8, ks, vs), pt, kvv = _quant_case()
+    (kj, kt), (vj, vt) = as_dtype(hk, dtype), as_dtype(hv, dtype)
+    cold_j = tuple(jnp.asarray(a) for a in (k8, v8, ks, vs))
+    cold_t = tuple(t(a) for a in (k8, v8, ks, vs))
+    rng = np.random.default_rng(8)
+    qj, qt = as_dtype(rng.normal(size=(2, len(q_pos), 4, 32)).astype(np.float32), dtype)
+    qp = np.broadcast_to(q_pos[None], (2, len(q_pos))).copy()
+    bm_j = j_build_block_map(q_pos, 384, tq=128, tk=128, causal=True)
+    args_j = (jnp.asarray(qp), jnp.asarray(kvv), jnp.asarray(pt))
+    with jops.kernel_mode("interpret"):
+        o_j = jops.flash_refresh_paged(qj, kj, vj, *args_j, block_map=bm_j, cold=cold_j)
+    o_o = jref.flash_refresh_paged_ref(qj, kj, vj, *args_j, cold=cold_j)
+    ops.reset_dispatch_counts()
+    o_t = ops.flash_refresh_paged(qt, kt, vt, t(qp), t(kvv), t(pt),
+                                  block_map=build_block_map(q_pos, 384), q_chunk=64,
+                                  cold=cold_t)
+    assert ops.dispatch_counts() == {"flash_refresh_paged_int8": {"backend:ok": 1}}
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
+    np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
+
+
+def test_flash_refresh_paged_int8_all_hot_equals_bf16():
+    """With every page-table entry hot the cold group is never read: the
+    int8 path gives exactly the bf16 path's result."""
+    hk, hv, cold, _, kvv = _quant_case()
+    pt = t(np.asarray([[0, 3, 1], [2, 4, 0]], np.int32))
+    k, v = (torch.from_numpy(a).bfloat16() for a in (hk, hv))
+    q = torch.randn(2, 200, 4, 32, generator=torch.Generator().manual_seed(0)).bfloat16()
+    qp = torch.arange(200)[None].expand(2, 200)
+    out8 = flash_refresh_paged_plain(q, k, v, qp, t(kvv), pt, cold=tuple(t(a) for a in cold))
+    assert torch.equal(out8, flash_refresh_paged_plain(q, k, v, qp, t(kvv), pt))
+
+
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
 @pytest.mark.parametrize("window", [None, 48])
 def test_block_maps_equal_jax(pattern, window):
@@ -306,6 +406,37 @@ BAD_CALLS = {
         torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
         torch.tensor([[3, 4, 5, 7]]), torch.ones(1, 128, dtype=torch.bool),
         torch.zeros(1, 1, dtype=torch.int32), block_map=build_block_map([3, 4, 5, 6], 128)),
+    "stream-positions-map": lambda: ops.flash_refresh(
+        torch.zeros(1, 4, 4, 16), torch.zeros(1, 128, 2, 16), torch.zeros(1, 128, 2, 16),
+        torch.tensor([[3, 4, 5, 7]]), block_map=build_block_map([3, 4, 5, 6], 128)),
+    "stream-kv-valid": lambda: ops.flash_refresh(
+        torch.zeros(1, 4, 4, 16), torch.zeros(1, 128, 2, 16), torch.zeros(1, 128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 100, dtype=torch.bool)),
+    "stream-batch": lambda: ops.flash_refresh(
+        torch.zeros(2, 4, 4, 16), torch.zeros(1, 128, 2, 16), torch.zeros(1, 128, 2, 16),
+        torch.zeros(2, 4, dtype=torch.int32)),
+    "cold-dtype": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 128, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32),
+        cold=(torch.zeros(128, 2, 16), torch.zeros(128, 2, 16), torch.ones(1, 2),
+              torch.ones(1, 2))),
+    "cold-scale": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 128, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32),
+        cold=(torch.zeros(128, 2, 16, dtype=torch.int8), torch.zeros(128, 2, 16, dtype=torch.int8),
+              torch.ones(2, 2), torch.ones(2, 2))),
+    "refresh-page-range": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 128, dtype=torch.bool),
+        torch.ones(1, 1, dtype=torch.int32)),
+    "cold-page-range": lambda: ops.flash_refresh_paged(
+        torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
+        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 256, dtype=torch.bool),
+        torch.tensor([[1, 2]], dtype=torch.int32),
+        cold=(torch.zeros(128, 2, 16, dtype=torch.int8), torch.zeros(128, 2, 16, dtype=torch.int8),
+              torch.ones(1, 2), torch.ones(1, 2))),
     "packed-seg-shape": lambda: ops.flash_packed(
         torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16),
         torch.zeros(1, 64, dtype=torch.int32)),
