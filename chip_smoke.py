@@ -16,12 +16,19 @@ Phases (any failure exits non-zero):
                pruned and unpruned fresh prefill, selective refresh and
                decode; flash_refresh_paged with int8 cold pages at the
                selective refresh with 15 of 21 pages per stream cold, and
-               all hot, where it must equal the bf16 kernel bitwise),
-               with the stated tolerance; kernel, plain and library
+               all hot, where it must equal the bf16 kernel bitwise), of
+               mamba2-2.7b for ssd_scan (the fresh window, incremental
+               window and query of 2 streams, a long and a ragged
+               prefill, and groups G > 1 at a small width), and at
+               internvl3-14b attention widths for flash_prefill (causal,
+               a chunk at an offset, a sliding window, a ragged length)
+               and flash_prefill_paged (a shuffled slab, bf16 and with 15
+               of 21 pages per stream int8, and all hot, bitwise equal to
+               bf16), with the stated tolerance; kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
-               is paged) times from CUDA events; the least time the card
-               could take (bytes over 3.35 TB/s, operations over the peak
-               rate of their type).
+               is paged; none for ssd_scan) times from CUDA events; the
+               least time the card could take (bytes over 3.35 TB/s,
+               operations over the peak rate of their type).
   4. serve   — internvl3-14b at full width and depth with random weights
                made on the card from a seed: 2 streams x 24 frames at
                448^2 (one fresh and two incremental windows each) through
@@ -37,18 +44,28 @@ Phases (any failure exits non-zero):
                window-0 logits must equal bitwise those of the bf16 paged
                run served one stream at a time (the int8 run admits its
                streams one after the other, so each window 0 is a batch
-               of one there).
+               of one there).  Then the SSM family: mamba2-2.7b at full
+               width and depth (64 SSD layers, random bf16 weights from
+               the seed) with the launcher's 112^2 ViT, 2 streams x 40
+               frames (one fresh and six incremental windows each where
+               the mode reuses), in codecflow and fullcomp; each must
+               launch ssd_scan and its path's other kernels, with no
+               plain call on a CUDA tensor.
   5. composite — one fresh and one incremental window group at full width
                and 4 layers, through the kernels and then through
                kernel_mode("plain"), for codecflow and for each further
-               path; the yes/no logits must agree.
+               path of internvl3-14b, and for both paths of mamba2-2.7b;
+               the yes/no logits must agree.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit as nvidia-smi gives them; the last line is
 {"ok": true, "device": {...}}.  In the table a kernel's ``launches`` is
-the count from the run of the path named in ``launches_path`` (the
-first path that launches it); ``launches_by_path`` has the count of
-every path's own run.
+the count from the run of the path named in ``launches_path``: the
+first path that launches it, and for flash_prefill and
+flash_prefill_paged, which no serving path calls, this slice's main
+path (mamba2-2.7b, codecflow), where they count 0.  ``launches_by_path``
+has the count of every path's own run, and of the kernel phase (the
+checks and their timing loops; counts set to 0 just before it).
 """
 from __future__ import annotations
 
@@ -68,12 +85,20 @@ BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
 ARCH = "internvl3-14b"
 HW = 448
+SSM_ARCH = "mamba2-2.7b"
+SSM_HW = 112                     # the launcher's default ViT for mamba2-2.7b
+SSM_FRAMES = 40
+SSM_PATHS = ("codecflow", "fullcomp")
 SEED = 0
 # attention kernels vs plain: max over (.., head) rows of max |k - p| /
-# max |p|.  The kernel rounds its unnormalised probabilities to bf16 and
-# the plain version its normalised ones, and both round the output: two
-# bf16 steps (2^-7 relative each) of the row's largest value.
+# max |p|.  The refresh and packed kernels round their unnormalised
+# probabilities to bf16 and the plain version its normalised ones, and
+# both round the output: two bf16 steps (2^-7 relative each) of the row's
+# largest value.  The prefill kernels keep the oracle's f32 numerics (P as
+# two bf16 halves, about 16 bits), so only the output's rounding differs:
+# one bf16 step.
 ROW_TOL = 2.0 ** -6
+PREFILL_ROW_TOL = 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -223,36 +248,46 @@ def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str):
     return q, k, v, q_pos, kv_valid, pt, bm
 
 
-def check_attention(torch, kernel, plain, library, q, q_pos, kv_valid, n_kv,
-                    key_bytes, extra_bytes):
-    """Hold one refresh-attention kernel against its plain version on
-    the same inputs: the row-relative error within ROW_TOL and rows with
-    no visible key exactly 0.  Times the kernel, the plain version and
-    ``library(mask)``.  The bound: q read and the output written once,
-    ``key_bytes(needed)`` bytes per (kv head, d_head) element summed over
-    the key rows some query needs (``needed`` (B, slots) bool) for K and
-    V, plus ``extra_bytes`` of masks and tables; 4 D H flops per live
-    (query, key) pair.  Returns (ok, readings)."""
+def refresh_mask(torch, q_pos, kv_valid):
+    """(B, Sq, slots): causal on the query positions AND kv_valid."""
+    kpos = torch.arange(kv_valid.shape[1], device="cuda")
+    return (kpos[None, None, :] <= q_pos[:, :, None]) & kv_valid[:, None, :]
+
+
+def check_attention(torch, kernel, plain, library, q, n_kv, mask, key_bytes,
+                    extra_bytes, dead_rows_zero=True, tol=ROW_TOL):
+    """Hold one attention kernel against its plain version on the same
+    inputs: the row-relative error within ``tol`` and, where
+    ``dead_rows_zero`` (the refresh kernels), rows with no visible key
+    exactly 0.  ``mask`` (B or 1, Sq, slots) bool is the attention mask.
+    Times the kernel, the plain version and ``library(mask)``.  The
+    bound: q read and the output written once, ``key_bytes(needed)``
+    bytes per (kv head, d_head) element summed over the key rows some
+    query needs (``needed`` (B, slots) bool) for K and V, plus
+    ``extra_bytes`` of masks and tables; 4 D H flops per live (query,
+    key) pair.  Returns (ok, readings)."""
     out_k, out_p = kernel(), plain()
     err, rel = attn_errors(torch, out_k, out_p)
-    kpos = torch.arange(kv_valid.shape[1], device="cuda")
-    mask = (kpos[None, None, :] <= q_pos[:, :, None]) & kv_valid[:, None, :]
-    dead_zero = bool((out_k[~mask.any(-1)] == 0).all())
     B, Sq, H, D = q.shape
-    n_bytes = (2 * q.numel() * 2 + key_bytes(mask.any(1)) * n_kv * D * 2 + extra_bytes)
-    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
-    r = dict(max_abs_err=err, rel=rel, dead_zero=dead_zero,
-             ms=cuda_ms(torch, kernel, 10), plain_ms=cuda_ms(torch, plain, 3),
+    r = dict(max_abs_err=err, rel=rel, tol=tol)
+    if dead_rows_zero:
+        r["dead_zero"] = bool((out_k[~mask.expand(B, -1, -1).any(-1)] == 0).all())
+    live = float(mask.sum()) * (B // mask.shape[0])
+    n_bytes = (2 * q.numel() * 2 + key_bytes(mask.any(1).expand(B, -1)) * n_kv * D * 2
+               + extra_bytes)
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * live, BF16_TENSOR_FLOPS)
+    r.update(ms=cuda_ms(torch, kernel, 10), plain_ms=cuda_ms(torch, plain, 3),
              library_ms=cuda_ms(torch, lambda: library(mask), 5),
              bound_ms=b_ms, bound_by=b_by)
-    return rel <= ROW_TOL and dead_zero, r
+    return rel <= tol and r.get("dead_zero", True), r
 
 
 def attention_reading(r, library: str) -> str:
+    dead = f", masked rows exact zero: {r['dead_zero']}" if "dead_zero" in r else ""
     return (f"max abs err {r['max_abs_err']:.3g}, max row-relative err {r['rel']:.3g} "
-            f"(limit {ROW_TOL:.3g}), masked rows exact zero: {r['dead_zero']}; kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {library} "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"(limit {r['tol']:.3g}){dead}; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def kernel_row(name, replaces, r):
@@ -286,7 +321,8 @@ def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams):
         ok_here, r = check_attention(
             torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm),
             lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), library,
-            q, q_pos, kv_valid, k.shape[1], bf16_keys, kv_valid.numel() + pt.numel() * 4)
+            q, k.shape[1], refresh_mask(torch, q_pos, kv_valid), bf16_keys,
+            kv_valid.numel() + pt.numel() * 4)
         worst = max(worst, r["max_abs_err"])
         log(f"flash_refresh_paged ({case}): q {tuple(q.shape)} bf16, slab "
             f"{tuple(k.shape)}, {bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
@@ -318,7 +354,7 @@ def check_flash_refresh(torch, cfg, cases, n_streams):
             lambda mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask[:, None], enable_gqa=True),
-            q, q_pos, kv_valid, k.shape[2], bf16_keys, kv_valid.numel())
+            q, k.shape[2], refresh_mask(torch, q_pos, kv_valid), bf16_keys, kv_valid.numel())
         worst = max(worst, r["max_abs_err"])
         log(f"flash_refresh ({label}): q {tuple(q.shape)} bf16, caches {tuple(k.shape)}, "
             f"{bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
@@ -328,6 +364,28 @@ def check_flash_refresh(torch, cfg, cases, n_streams):
             row = kernel_row("flash_refresh", "src/repro/kernels/flash_refresh.py:236", r)
     row["max_abs_err"] = worst
     return ok, row
+
+
+def cold_pages(torch, k, v, pt, D):
+    """Each stream's pages [0, D) quantised into an int8 cold slab with
+    per-(page, kv head) scales, as demotion leaves them.  Returns (cold
+    group, the page table naming them, (B, slots) cold mask)."""
+    from repro_torch.models.layers import page_quant_scale, quantize_kv
+    n_hot, n_kv, dh = k.shape[0] // 128, k.shape[1], k.shape[2]
+    n_streams = pt.shape[0]
+    src = pt[:, :D].reshape(-1).long()
+    rows = (src[:, None] * 128 + torch.arange(128, device="cuda")).reshape(-1)
+
+    def quant(slab):
+        pages = slab[rows].reshape(-1, 128, n_kv, dh)
+        sc = page_quant_scale(pages, (1, 3))                       # (n_cold, n_kv)
+        return quantize_kv(pages, sc[:, None, :]).reshape(-1, n_kv, dh), sc
+
+    (k8, ks), (v8, vs) = quant(k), quant(v)
+    pt8 = pt.clone()
+    pt8[:, :D] = n_hot + torch.arange(n_streams * D, dtype=torch.int32,
+                                      device="cuda").reshape(n_streams, D)
+    return (k8, v8, ks, vs), pt8, (pt8 >= n_hot).repeat_interleave(128, dim=1)
 
 
 def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
@@ -342,25 +400,12 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
         flash_refresh_paged_cuda, flash_refresh_paged_plain,
     )
     from repro_torch.kernels.ref import paged_gather
-    from repro_torch.models.layers import page_quant_scale, quantize_kv
     q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
         torch, cfg, layout, cache_slots, n_streams, "selective refresh")
-    n_hot, n_kv, dh = k.shape[0] // 128, k.shape[1], k.shape[2]
+    n_kv = k.shape[1]
     D = len(demotable_pages(layout))
-    src = pt[:, :D].reshape(-1).long()
-    rows = (src[:, None] * 128 + torch.arange(128, device="cuda")).reshape(-1)
-
-    def quant(slab):
-        pages = slab[rows].reshape(-1, 128, n_kv, dh)
-        sc = page_quant_scale(pages, (1, 3))                       # (n_cold, n_kv)
-        return quantize_kv(pages, sc[:, None, :]).reshape(-1, n_kv, dh), sc
-
-    (k8, ks), (v8, vs) = quant(k), quant(v)
-    cold = (k8, v8, ks, vs)
-    pt8 = pt.clone()
-    pt8[:, :D] = n_hot + torch.arange(n_streams * D, dtype=torch.int32,
-                                      device="cuda").reshape(n_streams, D)
-    is_cold = (pt8 >= n_hot).repeat_interleave(128, dim=1)
+    cold, pt8, is_cold = cold_pages(torch, k, v, pt, D)
+    k8, ks = cold[0], cold[2]
 
     def library(mask):
         kg, vg = paged_gather(k, v, pt8, 128, cold)
@@ -375,7 +420,7 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
     ok, r = check_attention(
         torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold),
         lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt8, cold=cold),
-        library, q, q_pos, kv_valid, n_kv, key_bytes,
+        library, q, n_kv, refresh_mask(torch, q_pos, kv_valid), key_bytes,
         kv_valid.numel() + pt8.numel() * 4 + 2 * ks.numel() * 4)
     out_bf16 = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
     all_hot = torch.equal(flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm, cold=cold),
@@ -435,6 +480,171 @@ def check_flash_packed(torch, pipe, streams):
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
 
+def check_ssd_scan(torch):
+    """ssd_scan at the serving shapes of mamba2-2.7b (B 2, H 80, P 64,
+    N 128, G 1: a fresh window L 160, an incremental one L 40 and the
+    query L 8, each from a non-zero state), a long prefill (L 4096, 16
+    chunks of 256), a ragged one (L 1000) and groups G 4 at a small
+    width.  y (bf16) row-relative within one bf16 step: both round f32
+    values that differ by the summation order.  The f32 state within
+    1e-4 of each (b, head) state's largest value: sums of up to 256
+    terms and the cumulative log-decay in another order (a block scan
+    against a sequential cumsum), the latter entering through exp.  The
+    kernels line reports the fresh window's times (its longest launch on
+    the path) and the largest error."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain, ssd_scan_work
+    cases = (("fresh window", 2, 160, 80, 64, 1, 128, 256, True),
+             ("incremental window", 2, 40, 80, 64, 1, 128, 256, True),
+             ("query", 2, 8, 80, 64, 1, 128, 256, True),
+             ("long prefill", 1, 4096, 80, 64, 1, 128, 256, False),
+             ("ragged prefill", 1, 1000, 80, 64, 1, 128, 256, True),
+             ("groups", 2, 300, 16, 32, 4, 64, 64, True))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ok, row, worst = True, None, 0.0
+    for label, B, L, H, P, G, N, chunk, with_init in cases:
+        x = torch.randn((B, L, H, P), generator=g, device="cuda").bfloat16()
+        la = -(torch.rand((B, L, H), generator=g, device="cuda") * 0.999 + 1e-3)
+        b, c = ((torch.randn((B, L, G, N), generator=g, device="cuda") * 0.3).bfloat16()
+                for _ in range(2))
+        init = (torch.randn((B, H, P, N), generator=g, device="cuda")
+                if with_init else None)
+        y_k, s_k = ssd_scan_cuda(x, la, b, c, init, chunk)
+        y_p, s_p = ssd_scan_plain(x, la, b, c, init, chunk)
+        y_err, y_rel = attn_errors(torch, y_k, y_p)
+        s_d = (s_k - s_p).abs()
+        s_rel = float((s_d.amax((-1, -2)) / s_p.abs().amax((-1, -2)).clamp_min(
+            torch.finfo(torch.float32).tiny)).max())
+        err = max(y_err, float(s_d.max()))
+        worst = max(worst, err)
+        ms = cuda_ms(torch, lambda: ssd_scan_cuda(x, la, b, c, init, chunk), 10)
+        plain = cuda_ms(torch, lambda: ssd_scan_plain(x, la, b, c, init, chunk), 3)
+        flops, n_bytes = ssd_scan_work(L, H, P, G, N, chunk, B)
+        b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
+        here = y_rel <= 2.0 ** -7 and s_rel <= 1e-4
+        log(f"ssd_scan ({label}): x {tuple(x.shape)} bf16, b/c {tuple(b.shape)} bf16, "
+            f"chunk {chunk}, init {'yes' if with_init else 'zeros'}: y max abs err "
+            f"{y_err:.3g}, row-relative {y_rel:.3g} (limit {2.0 ** -7:.3g}); state max abs "
+            f"err {float(s_d.max()):.3g}, relative {s_rel:.3g} (limit 1e-4); kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{flops / 1e9:.4g} GFLOP f32, {n_bytes / 1e6:.4g} MB)")
+        ok = ok and here
+        if label == "fresh window":
+            row = dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+                       replaces="src/repro/kernels/ssd_scan.py:74", max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row["max_abs_err"] = worst
+    return ok, row
+
+
+def positional_mask(torch, Sq, Sk, q_offset, window, causal=True):
+    qpos = torch.arange(Sq, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask[None]
+
+
+def check_flash_prefill(torch, cfg, total_len, n_streams):
+    """flash_prefill at internvl3-14b attention widths (H 40, Hkv 8,
+    D 128, bf16, 2 streams): causal from position 0, a 512-row chunk at
+    offset 2048 against 2560 keys, a 512-key sliding window, and the
+    ragged length of a fresh window (total_len rows and keys).  Library:
+    scaled_dot_product_attention with enable_gqa and the same mask.  The
+    kernels line reports the causal case's times and the largest error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda, flash_prefill_plain
+    g = torch.Generator(device="cuda").manual_seed(6)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
+    cases = (("causal", 2048, 2048, None, 0), ("chunk at an offset", 512, 2560, None, 2048),
+             ("sliding window", 2048, 2048, 512, 0),
+             ("ragged", total_len, total_len, None, 0))
+    ok, row, worst = True, None, 0.0
+    for label, Sq, Sk, window, off in cases:
+        q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((n_streams, Sk, Hkv, D), generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        ok_here, r = check_attention(
+            torch, lambda: flash_prefill_cuda(q, k, v, window=window, q_offset=off),
+            lambda: flash_prefill_plain(q, k, v, window=window, q_offset=off),
+            lambda mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None], enable_gqa=True),
+            q, Hkv, positional_mask(torch, Sq, Sk, off, window), bf16_keys, 0,
+            dead_rows_zero=False, tol=PREFILL_ROW_TOL)
+        worst = max(worst, r["max_abs_err"])
+        log(f"flash_prefill ({label}): q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, "
+            f"q_offset {off}, window {window}: " + attention_reading(r, "SDPA"))
+        ok = ok and ok_here
+        if label == "causal":
+            row = kernel_row("flash_prefill", "src/repro/kernels/flash_prefill.py:79", r)
+    row["max_abs_err"] = worst
+    return ok, row
+
+
+def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams):
+    """flash_prefill_paged at the fresh prefill of internvl3-14b
+    (total_len queries from position 0 over cache_slots logical keys) on
+    a shuffled slab, bf16 and with each stream's pages [0, D) (15 of 21)
+    int8 cold; the int8 kernel with every entry hot must equal the bf16
+    kernel bitwise.  Library: gather (+ dequant) + SDPA.  Returns
+    ((ok, bf16 row), (ok, int8 row))."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core import demotable_pages
+    from repro_torch.kernels.flash_prefill import (
+        flash_prefill_paged_cuda, flash_prefill_paged_plain,
+    )
+    from repro_torch.kernels.ref import paged_gather
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
+    n_pages = cache_slots // 128
+    P = n_pages * n_streams
+    pt = torch.as_tensor(rng.permutation(P).reshape(n_streams, n_pages), dtype=torch.int32,
+                         device="cuda")
+    Sq = layout.total_len
+    q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((P * 128, Hkv, D), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    mask = positional_mask(torch, Sq, cache_slots, 0, None)
+    cold, pt8, is_cold = cold_pages(torch, k, v, pt, len(demotable_pages(layout)))
+    rows = []
+    for label, table, grp in (("bf16", pt, None), ("int8", pt8, cold)):
+        def library(mask, table=table, grp=grp):
+            kg, vg = paged_gather(k, v, table, 128, grp)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+                attn_mask=mask[:, None], enable_gqa=True)
+
+        def key_bytes(needed, grp=grp):     # int8 rows at 1 B, bf16 rows at 2 B
+            cold_keys = float((needed & is_cold).sum()) if grp is not None else 0.0
+            return 2 * (float(needed.sum()) - cold_keys) + cold_keys
+
+        extra = pt.numel() * 4 + (0 if grp is None else 2 * cold[2].numel() * 4)
+        ok, r = check_attention(
+            torch, lambda table=table, grp=grp: flash_prefill_paged_cuda(q, k, v, table,
+                                                                         cold=grp),
+            lambda table=table, grp=grp: flash_prefill_paged_plain(q, k, v, table, cold=grp),
+            library, q, Hkv, mask, key_bytes, extra, dead_rows_zero=False,
+            tol=PREFILL_ROW_TOL)
+        note = ""
+        if grp is not None:
+            all_hot = torch.equal(flash_prefill_paged_cuda(q, k, v, pt, cold=grp),
+                                  flash_prefill_paged_cuda(q, k, v, pt))
+            note = (f", {len(demotable_pages(layout))} of {n_pages} pages per stream cold, "
+                    f"all-hot bitwise equal to bf16 kernel: {all_hot}")
+            ok = ok and all_hot
+        log(f"flash_prefill_paged ({label}): q {tuple(q.shape)} bf16, slab {tuple(k.shape)}, "
+            f"{n_pages} shuffled pages per stream{note}: "
+            + attention_reading(r, "gather+SDPA" if grp is None else "dequant-gather+SDPA"))
+        name = "flash_prefill_paged" if grp is None else "flash_prefill_paged_int8"
+        rows.append((ok, kernel_row(name, "src/repro/kernels/flash_prefill.py:258", r)))
+    return rows
+
+
 # ----------------------------------------------------------------------
 # phases 4 and 5
 # ----------------------------------------------------------------------
@@ -471,10 +681,18 @@ PATHS = (
 
 
 # the path whose own run gives a kernel's "launches" in the kernels line:
-# its first path to launch it (the slice-1 kernels: "codecflow", paged bf16)
+# its first path to launch it (the slice-1 kernels: "codecflow", paged
+# bf16); the prefill kernels, which no serving path calls, read the SSM
+# main path's own count (0)
 MAIN = "codecflow"
+SSM_MAIN = f"{SSM_ARCH}, codecflow"
+KERNEL_PHASE = "kernel phase"
 LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
-               "flash_refresh_paged_int8": "codecflow, int8 cold pages"}
+               "flash_refresh_paged_int8": "codecflow, int8 cold pages",
+               "ssd_scan": SSM_MAIN,
+               "flash_prefill": SSM_MAIN,
+               "flash_prefill_paged": SSM_MAIN,
+               "flash_prefill_paged_int8": SSM_MAIN}
 
 
 def path_ecfg(mode: str, kv: dict):
@@ -544,7 +762,7 @@ def serve_paths(torch, cfg, params, vparams, videos):
     return ok, by_path
 
 
-def composite(torch, cfg4, params, vparams, videos, mode, kv):
+def composite(torch, cfg4, vit, params, vparams, videos, mode, kv):
     """One fresh and one incremental window group at 4 layers through the
     kernels and through their plain versions.  Returns (max |d yes/no
     logit|, its tolerance, answers agree where the margin exceeds twice
@@ -553,10 +771,10 @@ def composite(torch, cfg4, params, vparams, videos, mode, kv):
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingPipeline
     ecfg = path_ecfg(mode, kv)
-    pipe = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg, device="cuda")
+    pipe = ServingPipeline(cfg4, vit, params, vparams, ecfg, device="cuda")
     _, res_k, _ = serve(torch, pipe, videos)
     del pipe
-    pipe_p = ServingPipeline(cfg4, cfg4.vit, params, vparams, ecfg,
+    pipe_p = ServingPipeline(cfg4, vit, params, vparams, ecfg,
                              device="cuda")       # same weights, own KV
     with ops.kernel_mode("plain"):
         _, res_p, _ = serve(torch, pipe_p, videos)
@@ -570,6 +788,67 @@ def composite(torch, cfg4, params, vparams, videos, mode, kv):
     return diff, tol, ans_ok, diff <= tol and ans_ok and lk.shape == (4, 2)
 
 
+def serve_ssm(torch):
+    """Phase 4, the SSM family: mamba2-2.7b at full width and depth,
+    random bf16 weights made on the card from the seed, the launcher's
+    112^2 ViT; 2 streams x 40 frames through the lockstep Scheduler once
+    per path of SSM_PATHS, with the counts set to 0 just before each run
+    and read just after.  Returns (ok, launches per path label)."""
+    import numpy as np
+    from repro_torch.data.pipeline import anomaly_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_pipeline
+    videos = anomaly_dataset(2, SSM_FRAMES, SSM_HW, SSM_HW, seed=SEED)
+    ok, by_path, pipe = True, {}, None
+    for mode in SSM_PATHS:
+        t0 = time.perf_counter()
+        if pipe is None:
+            pipe = build_pipeline(SSM_ARCH, mode, codec_cfg(), seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            cfg = pipe.cfg
+            log(f"weights: {SSM_ARCH} ({cfg.n_layers} SSD layers, d {cfg.d_model}, "
+                f"{cfg.ssm.n_heads(cfg.d_model)} heads of {cfg.ssm.head_dim}, d_state "
+                f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}) made on the card in "
+                f"{time.perf_counter() - t0:.1f} s")
+        else:
+            from repro_torch.serving import ServingPipeline
+            pipe = ServingPipeline(pipe.cfg, pipe.v, pipe.params, pipe.vparams,
+                                   path_ecfg(mode, {}), device="cuda")
+        label = f"{SSM_ARCH}, {mode}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ops.reset_dispatch_counts()
+        sched, per_stream, wall = serve(torch, pipe, videos)
+        launches = ops.launch_counts()
+        plain_on_cuda = ops.plain_calls_on_cuda()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_win = sum(len(r) for r in per_stream)
+        logits = np.array([r.stats.logits_yes_no for res in per_stream for r in res])
+        busy = {k: round(v, 4) for k, v in sched.stage_busy.items()}
+        log(f"serve [{label}]: {n_win} windows in {wall:.3f} s ({n_win / wall:.4f} "
+            f"windows/s incl. codec ingest); stage busy s {busy}; peak memory {peak:.2f} "
+            f"GiB; launches {launches}; plain on CUDA {plain_on_cuda}")
+        for i, res in enumerate(per_stream):
+            log(f"  stream {i}: answers {[r.stats.answer for r in res]}, yes/no logits "
+                f"{[tuple(round(x, 4) for x in r.stats.logits_yes_no) for r in res]}")
+        want = pipe.kernels
+        n_expect = 2 * ((SSM_FRAMES - 16) // 4 + 1)
+        here = (n_win == n_expect and bool(np.isfinite(logits).all())
+                and "ssd_scan" in want and all(launches.get(k, 0) > 0 for k in want)
+                and not any(plain_on_cuda.values()))
+        if not here:
+            log(f"FAIL: serve [{label}] (kernels wanted {sorted(want)})")
+        ok = ok and here
+        by_path[label] = launches
+        del sched, per_stream
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -579,7 +858,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.kernels import cuda, ops
-    from repro_torch.launch.serve import build_pipeline
+    from repro_torch.launch.serve import build_pipeline, default_vit
     from repro_torch.models.init import init_lm_params, init_vit_params
     from repro_torch.serving import ServingPipeline
 
@@ -603,6 +882,7 @@ def main() -> int:
                 log(f"  ptxas[{src}]: {line.strip()}")
 
     # -- 3. kernels vs plain versions -----------------------------------
+    ops.reset_launch_counts()
     cfg = get_config(ARCH)
     videos = anomaly_dataset(2, 24, HW, HW, seed=SEED)
     t0 = time.perf_counter()
@@ -626,7 +906,11 @@ def main() -> int:
         check_flash_packed(torch, pipe, streams),
         check_flash_refresh(torch, cfg, stream_cases, len(videos)),
         check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
+        check_ssd_scan(torch),
+        check_flash_prefill(torch, cfg, pipe.layout.total_len, len(videos)),
+        *check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
     ]
+    phase_launches = ops.launch_counts()
     del streams, unpruned
     gc.collect()
     torch.cuda.empty_cache()
@@ -669,15 +953,22 @@ def main() -> int:
     log(f"further paths: {time.perf_counter() - t0:.1f} s")
     if not ok:
         return 1
-    by_path = {MAIN: launches, **by_path}
-    for row in rows:
-        name = row["name"]
-        row["launches_path"] = LAUNCH_PATH.get(name, MAIN)
-        row["launches"] = by_path[row["launches_path"]][name]
-        row["launches_by_path"] = {lab: n[name] for lab, n in by_path.items() if name in n}
     del params, vparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 4, the SSM family: mamba2-2.7b at full size --------------------
+    t0 = time.perf_counter()
+    ok, ssm_by_path = serve_ssm(torch)
+    log(f"SSM paths: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        return 1
+    by_path = {KERNEL_PHASE: phase_launches, MAIN: launches, **by_path, **ssm_by_path}
+    for row in rows:
+        name = row["name"]
+        row["launches_path"] = LAUNCH_PATH.get(name, MAIN)
+        row["launches"] = by_path[row["launches_path"]].get(name, 0)
+        row["launches_by_path"] = {lab: n[name] for lab, n in by_path.items() if name in n}
 
     # -- 5. composite: kernels vs plain versions at 4 layers -------------
     short = [(f[:20], lab) for f, lab in videos]   # one fresh + one incremental window
@@ -687,11 +978,29 @@ def main() -> int:
     composites = [("codecflow", "codecflow", {})] + [
         p for p in PATHS if "pool_streams" not in p[2]]
     for label, mode, kv in composites:
-        diff, tol, ans_ok, ok = composite(torch, cfg4, params, vparams, short, mode, kv)
+        diff, tol, ans_ok, ok = composite(torch, cfg4, cfg4.vit, params, vparams, short,
+                                          mode, kv)
         log(f"composite [{label}] (4 layers, full width): max |d yes/no logit| {diff:.4g} "
             f"(tol {tol:.3g}); answers agree where the margin exceeds 2 x tol: {ans_ok}")
         if not ok:
             log(f"FAIL: composite check [{label}]")
+            return 1
+    del params, vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg4 = dataclasses.replace(get_config(SSM_ARCH), n_layers=4)
+    svit = default_vit(scfg4)
+    params = init_lm_params(scfg4, SEED, "cuda")
+    vparams = init_vit_params(svit, scfg4.d_model, SEED + 1, "cuda")
+    ssm_short = [(f[:20], lab) for f, lab in anomaly_dataset(2, 20, SSM_HW, SSM_HW, seed=SEED)]
+    for mode in SSM_PATHS:
+        diff, tol, ans_ok, ok = composite(torch, scfg4, svit, params, vparams, ssm_short,
+                                          mode, {})
+        log(f"composite [{SSM_ARCH}, {mode}] (4 layers, full width): max |d yes/no logit| "
+            f"{diff:.4g} (tol {tol:.3g}); answers agree where the margin exceeds 2 x tol: "
+            f"{ans_ok}")
+        if not ok:
+            log(f"FAIL: composite check [{SSM_ARCH}, {mode}]")
             return 1
 
     print(json.dumps({"kernels": rows}))

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu")
+SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "ssd_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +54,20 @@ _SIGNATURES = {
     ),
     "cs_attn_packed_bf16": (
         _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p,
+    ),
+    "cs_attn_prefill_bf16": (
+        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ),
+    "cs_attn_prefill_paged_bf16": (
+        _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ),
+    "cs_attn_prefill_paged_int8": (
+        _p, _p, _p, _p, _p, _p, _p, _p, _p, _i,
+        _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+    ),
+    "cs_ssd_scan": (
+        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
+        _ll, _ll, _ll, _ll, _ll, _ll, _p,
     ),
 }
 

@@ -14,8 +14,9 @@ tests and ``chip_smoke.py`` use it, to hold the kernels against it.
 ``dispatch_counts()`` records where each call went, per kernel name:
 ``kernel``, ``backend:ok`` (CPU tensor, plain version) or ``mode:plain``
 (plain version forced on the card).  ``launch_counts()`` counts the
-kernel launches themselves.  ``flash_refresh_paged`` with an int8
-``cold`` group is counted as ``flash_refresh_paged_int8``.
+kernel launches themselves.  ``flash_refresh_paged`` and
+``flash_prefill_paged`` with an int8 ``cold`` group are counted as
+``flash_refresh_paged_int8`` and ``flash_prefill_paged_int8``.
 """
 from __future__ import annotations
 
@@ -27,15 +28,21 @@ import torch
 
 from . import cuda
 from .flash_packed import PackBlockMap, flash_packed_cuda, flash_packed_plain
+from .flash_prefill import (
+    flash_prefill_cuda, flash_prefill_paged_cuda, flash_prefill_paged_plain,
+    flash_prefill_plain,
+)
 from .flash_refresh import (
     RefreshBlockMap, flash_refresh_cuda, flash_refresh_paged_cuda,
     flash_refresh_paged_plain, flash_refresh_plain,
 )
 from .mv_sad import mv_sad_cuda, mv_sad_plain
 from .rope_shift import rope_shift_cuda, rope_shift_plain
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
 KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed",
-           "flash_refresh", "flash_refresh_paged_int8")
+           "flash_refresh", "flash_refresh_paged_int8", "ssd_scan",
+           "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8")
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _MODE = "auto"   # auto | plain
@@ -137,6 +144,22 @@ def _page_ids_in_range(op: str, page_table: torch.Tensor, n_pages: int) -> None:
     _require(bool(((page_table >= 0) & (page_table < n_pages)).all()), op, "page-range",
              f"page ids lie in [0, {n_pages}): hot pages, then cold ones")
     _IN_RANGE[0] = (page_table, page_table._version, n_pages)
+
+
+def _cold_group(op: str, k, page: int, cold) -> None:
+    """An int8 cold group ``(k8, v8, k_scale, v_scale)`` beside the slab k."""
+    if cold is None:
+        return
+    k8, v8, k_scale, v_scale = cold
+    _require(k8.shape == v8.shape and k8.dim() == 3
+             and tuple(k8.shape[1:]) == tuple(k.shape[1:])
+             and k8.shape[0] % page == 0, op, "cold-shape",
+             "cold slabs are (n_cold * page, Hkv, D) like the hot slab")
+    _require(k8.dtype == torch.int8 and v8.dtype == torch.int8, op,
+             "cold-dtype", "cold slabs are int8")
+    _require(tuple(k_scale.shape) == (k8.shape[0] // page, k.shape[1])
+             and k_scale.shape == v_scale.shape, op, "cold-scale",
+             "scales are (n_cold, Hkv)")
 
 
 # ----------------------------------------------------------------------
@@ -242,17 +265,7 @@ def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
     _require(tuple(kv_valid.shape) == (q.shape[0], page_table.shape[1] * page)
              and kv_valid.dtype == torch.bool, op, "kv-valid",
              "kv_valid is a (B, n_pages * page) bool mask")
-    if cold is not None:
-        k8, v8, k_scale, v_scale = cold
-        _require(k8.shape == v8.shape and k8.dim() == 3
-                 and tuple(k8.shape[1:]) == tuple(k.shape[1:])
-                 and k8.shape[0] % page == 0, op, "cold-shape",
-                 "cold slabs are (n_cold * page, Hkv, D) like the hot slab")
-        _require(k8.dtype == torch.int8 and v8.dtype == torch.int8, op,
-                 "cold-dtype", "cold slabs are int8")
-        _require(tuple(k_scale.shape) == (k8.shape[0] // page, k.shape[1])
-                 and k_scale.shape == v_scale.shape, op, "cold-scale",
-                 "scales are (n_cold, Hkv)")
+    _cold_group(op, k, page, cold)
     n_cold = 0 if cold is None else cold[0].shape[0] // page
     _page_ids_in_range(op, page_table, k.shape[0] // page + n_cold)
     if block_map is not None:
@@ -289,3 +302,89 @@ def flash_packed(q, k, v, seg_id, block_map: Optional[PackBlockMap] = None,
             raise KernelContractError(f"{op}: the kernel needs a PackBlockMap")
         return flash_packed_cuda(q, k, v, seg_id, block_map)
     return flash_packed_plain(q, k, v, seg_id, q_chunk=q_chunk)
+
+
+def flash_prefill(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0, q_chunk: int = 1024):
+    """Dense GQA attention: q (B, Sq, H, D) at positions ``q_offset +
+    arange(Sq)`` against k, v (B, Sk, Hkv, D) at ``arange(Sk)``, causal
+    and/or a sliding window.  Any Sq and Sk: the kernel masks the ragged
+    edges (the JAX package sends such geometries to its oracle)."""
+    op = "flash_prefill"
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, op, "rank",
+             "q/k/v are rank-4 (B, S, H, D)")
+    _require(k.shape == v.shape, op, "kv-shape", "k and v have identical shapes")
+    _require(q.shape[0] == k.shape[0], op, "batch", "q and k share the batch dim")
+    _require(q.shape[3] == k.shape[3], op, "head-dim", "q and k share the head dim")
+    _require(q.shape[2] % k.shape[2] == 0, op, "gqa",
+             "query heads divide evenly over kv heads")
+    _attn_dtypes(op, q, k, v)
+    _require(window is None or window >= 1, op, "window",
+             "sliding window is None or >= 1")
+    if _use_kernel(op, q):
+        return flash_prefill_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return flash_prefill_plain(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, q_chunk=q_chunk)
+
+
+def flash_prefill_paged(q, k, v, page_table, *, page: int = 128, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0, cold=None,
+                        q_chunk: int = 1024):
+    """Paged ``flash_prefill``: q (B, Sq, H, D) against the shared slab
+    k, v (P_phys, Hkv, D) through page_table (B, n_pages); the logical
+    keys are ``arange(n_pages * page)``.  Causal only: the mask is what
+    hides stale rows of recycled pages.  ``cold = (k8, v8, k_scale,
+    v_scale)`` is the int8 cold group (entries ``>= P_phys // page``)."""
+    op = "flash_prefill_paged" if cold is None else "flash_prefill_paged_int8"
+    _require(q.dim() == 4 and k.dim() == 3 and v.dim() == 3 and page_table.dim() == 2,
+             op, "rank", "q rank-4, slab k/v rank-3, page_table rank-2")
+    _require(k.shape == v.shape, op, "kv-shape", "k and v slabs match")
+    _require(page_table.shape[0] == q.shape[0], op, "pt-batch",
+             "page_table leads with q's batch dim")
+    _require(q.shape[3] == k.shape[2], op, "head-dim", "q and the slab share d_head")
+    _require(q.shape[2] % k.shape[1] == 0, op, "gqa",
+             "query heads divide evenly over kv heads")
+    _attn_dtypes(op, q, k, v)
+    _require(not page_table.is_floating_point() and page_table.dtype != torch.bool,
+             op, "pt-dtype", "integer page ids")
+    _require(page >= 1 and k.shape[0] % page == 0, op, "slab-align",
+             "slab rows divide by the page size")
+    _require(causal, op, "causal", "causal masking is mandatory: it hides stale "
+             "rows of recycled pages")
+    _require(window is None or window >= 1, op, "window",
+             "sliding window is None or >= 1")
+    _cold_group(op, k, page, cold)
+    n_cold = 0 if cold is None else cold[0].shape[0] // page
+    _page_ids_in_range(op, page_table, k.shape[0] // page + n_cold)
+    if _use_kernel(op, q):
+        return flash_prefill_paged_cuda(q, k, v, page_table, page=page, window=window,
+                                        q_offset=q_offset, cold=cold)
+    return flash_prefill_paged_plain(q, k, v, page_table, page=page, causal=causal,
+                                     window=window, q_offset=q_offset, cold=cold,
+                                     q_chunk=q_chunk)
+
+
+def ssd_scan(x, log_a, b, c, init_state=None, chunk: int = 128):
+    """Mamba-2 chunked SSD: x (B, L, H, P); log_a (B, L, H); b, c (B, L,
+    G, N) per group; init_state (B, H, P, N) or None.  Any L: the time
+    axis runs in chunks of ``min(chunk, L)`` when L is not a multiple of
+    ``chunk``, the last one ragged (identity steps in the plain
+    version).  Returns y (B, L, H, P) and the final state (B, H, P, N)
+    f32."""
+    op = "ssd_scan"
+    _require(x.dim() == 4 and log_a.dim() == 3 and b.dim() == 4 and c.dim() == 4,
+             op, "rank", "x rank-4, log_a rank-3, b/c rank-4")
+    _require(b.shape == c.shape, op, "bc-shape", "b and c have identical shapes")
+    _require(tuple(log_a.shape) == tuple(x.shape[:3]), op, "log-a-shape",
+             "log_a matches x's (B, L, H) prefix")
+    _require(tuple(b.shape[:2]) == tuple(x.shape[:2]), op, "batch-len",
+             "b shares x's (B, L) prefix")
+    _require(x.shape[2] % b.shape[2] == 0, op, "gqa",
+             "state heads divide evenly over B/C groups")
+    _require(x.dtype in _FLOATS and log_a.dtype in _FLOATS and b.dtype in _FLOATS
+             and b.dtype == c.dtype, op, "dtype",
+             "x/log_a/b/c are f32/bf16/f16 with b == c")
+    _require(chunk >= 1, op, "chunk", "chunk size >= 1")
+    if _use_kernel(op, x):
+        return ssd_scan_cuda(x, log_a, b, c, init_state, chunk)
+    return ssd_scan_plain(x, log_a, b, c, init_state, chunk)

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels.
 
 Each function computes exactly what its CUDA kernel computes and what
 the JAX package's oracle of the same name computes, with the same
-numerics: attention rounds the scaled query to the K/V storage dtype
-and the probabilities to the V dtype, accumulates in f32, and returns
-exact zeros for fully masked query rows.  They run for CPU tensors,
-and on the card only where a caller asks for them (tests,
+numerics: refresh and packed attention round the scaled query to the
+K/V storage dtype and the probabilities to the V dtype, accumulate in
+f32, and return exact zeros for fully masked query rows; prefill
+attention keeps f32 throughout and, like its oracle, gives a row with
+no visible key the mean of V; the SSD scans run in f32.  They run for
+CPU tensors, and on the card only where a caller asks for them (tests,
 ``chip_smoke.py``, ``ops.kernel_mode("plain")``).
 """
 from __future__ import annotations
@@ -176,3 +178,140 @@ def flash_packed_ref(q, k, v, seg_id, *, scale: float | None = None,
         q_seg = seg_id
     mask = (q_seg[:, :, None] == seg_id[:, None, :]) & (q_seg[:, :, None] >= 0)
     return _masked_attention(q, k, v, mask, scale)
+
+
+# ----------------------------------------------------------------------
+# flash_prefill: causal (optionally windowed) GQA attention
+# ----------------------------------------------------------------------
+def flash_prefill_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                      q_offset: int = 0, scale: float | None = None):
+    """Multi-head attention with GQA broadcast, f32 throughout.
+
+    q (B, Sq, H, D); k, v (B, Sk, Hkv, D).  Query i sits at position
+    ``i + q_offset`` and key j at ``j``: causal keeps keys ``<=`` the
+    query's position, ``window`` keys ``>`` position - window.  Masked
+    logits are the finite -1e30, so a row with no visible key softmaxes
+    uniformly: it returns the mean of V over all Sk keys.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = (q.to(F32) * scale).reshape(B, Sq, Hkv, g, D).permute(0, 2, 3, 1, 4)
+    kf = k.to(F32).transpose(1, 2)                       # (B, Hkv, Sk, D)
+    vf = v.to(F32).transpose(1, 2)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# ssd_scan: Mamba-2 state-space duality
+# ----------------------------------------------------------------------
+def ssd_scan_ref(x, log_a, b, c, init_state=None):
+    """Exact sequential SSD recurrence (the oracle of the chunked scans).
+
+    h_t = exp(log_a_t) h_{t-1} + x_t b_t^T,  y_t = h_t c_t.
+
+    x (B, L, H, P); log_a (B, L, H); b, c (B, L, H, N) per head;
+    init_state (B, H, P, N) or None.  Returns y (B, L, H, P) in x's
+    dtype and the final state (B, H, P, N) f32.
+    """
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    xf, af, bf, cf = (t.to(F32) for t in (x, log_a, b, c))
+    h = (torch.zeros((B, H, P, N), dtype=F32, device=x.device) if init_state is None
+         else init_state.to(F32))
+    ys = []
+    for t in range(L):
+        h = torch.exp(af[:, t])[:, :, None, None] * h + xf[:, t, :, :, None] * bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_chunked_scan_ref(x, log_a, b, c, chunk: int, init_state=None):
+    """Chunked SSD with the state carried chunk to chunk, per-head B/C.
+
+    x (B, L, H, P); log_a (B, L, H); b, c (B, L, H, N); L a multiple of
+    ``chunk``.  Within a chunk: y_t = sum_{s<=t} exp(cum_t - cum_s)
+    (c_t . b_s) x_s + exp(cum_t) c_t . S_prev; then S = exp(cum_end)
+    S_prev + sum_s exp(cum_end - cum_s) x_s b_s^T.
+    """
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    assert L % chunk == 0, (L, chunk)
+    nc, Q = L // chunk, chunk
+    xf = x.to(F32).reshape(B, nc, Q, H, P)
+    af = log_a.to(F32).reshape(B, nc, Q, H)
+    bf = b.to(F32).reshape(B, nc, Q, H, N)
+    cf = c.to(F32).reshape(B, nc, Q, H, N)
+    state = (torch.zeros((B, H, P, N), dtype=F32, device=x.device) if init_state is None
+             else init_state.to(F32))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    ys = []
+    for i in range(nc):
+        xc, ac, bc, cc = xf[:, i], af[:, i], bf[:, i], cf[:, i]
+        cum = torch.cumsum(ac, dim=1)                                  # (B, Q, H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]                  # (B, t, s, H)
+        decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        cb = torch.einsum("bthn,bshn->btsh", cc, bc)
+        y = torch.einsum("btsh,btsh,bshp->bthp", cb, decay, xc)
+        y = y + torch.einsum("bth,bthn,bhpn->bthp", torch.exp(cum), cc, state)
+        decay_end = torch.exp(cum[:, -1:, :] - cum)
+        upd = torch.einsum("bsh,bshn,bshp->bhpn", decay_end, bc, xc)
+        state = torch.exp(cum[:, -1, :])[:, :, None, None] * state + upd
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B, L, H, P).to(x.dtype)
+    return y, state
+
+
+def ssd_chunked_scan_grouped_ref(x, log_a, b, c, chunk: int, init_state=None):
+    """``ssd_chunked_scan_ref`` with B/C kept per group: b, c (B, L, G,
+    N), G | H, head h reading group h // (H / G); no H/G-fold copy."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    Hg = H // G
+    assert L % chunk == 0, (L, chunk)
+    nc, Q = L // chunk, chunk
+    xf = x.to(F32).reshape(B, nc, Q, G, Hg, P)
+    af = log_a.to(F32).reshape(B, nc, Q, G, Hg)
+    bf = b.to(F32).reshape(B, nc, Q, G, N)
+    cf = c.to(F32).reshape(B, nc, Q, G, N)
+    state = (torch.zeros((B, H, P, N), dtype=F32, device=x.device) if init_state is None
+             else init_state.to(F32)).reshape(B, G, Hg, P, N)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    ys = []
+    for i in range(nc):
+        xc, ac, bc, cc = xf[:, i], af[:, i], bf[:, i], cf[:, i]
+        cum = torch.cumsum(ac, dim=1)                                  # (B, Q, G, Hg)
+        seg = cum[:, :, None] - cum[:, None]                           # (B, t, s, G, Hg)
+        decay = torch.where(tri[None, :, :, None, None], torch.exp(seg), 0.0)
+        cb = torch.einsum("btgn,bsgn->btsg", cc, bc)
+        y = torch.einsum("btsg,btsgh,bsghp->btghp", cb, decay, xc)
+        y = y + torch.einsum("btgh,btgn,bghpn->btghp", torch.exp(cum), cc, state)
+        decay_end = torch.exp(cum[:, -1:] - cum)
+        upd = torch.einsum("bsgh,bsgn,bsghp->bghpn", decay_end, bc, xc)
+        state = torch.exp(cum[:, -1])[..., None, None] * state + upd
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B, L, H, P).to(x.dtype)
+    return y, state.reshape(B, H, P, N)
+
+
+def ssd_decode_ref(state, x, log_a, b, c):
+    """One SSD step: state (B, H, P, N); x (B, H, P); log_a (B, H);
+    b, c (B, H, N).  Returns y (B, H, P) in x's dtype and the new f32
+    state."""
+    new = (torch.exp(log_a.to(F32))[:, :, None, None] * state.to(F32)
+           + x.to(F32)[..., None] * b.to(F32)[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", new, c.to(F32))
+    return y.to(x.dtype), new

@@ -19,6 +19,15 @@ unless ``--ckpt`` names an npz written by the JAX package's
         --mode cacheblend --streams 2 --videos 2 --frames 24
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --streams 2 --videos 2 --frames 24 --keep-ratio 1.0 --stale-dtype int8
+
+The SSM family (``--arch mamba2-2.7b`` or ``mamba2-2.7b-smoke``) serves
+every mode through the recurrent prefill, with the default ViT below
+(112^2 frames, so ``--hw 112``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --streams 2 --videos 2 --frames 40
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-2.7b-smoke --streams 2 --videos 2 --frames 24
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 
 The parameter trees keep the JAX package's structure and layouts:
 nested dicts of tensors, weights (in, out), each pattern position's
-layers stacked on a leading axis, RMSNorm scales f32 and every other
-leaf in the config's dtype.
+layers stacked on a leading axis, RMSNorm scales and mamba's ``A_log``,
+``D``, ``dt_bias`` and gated-norm ``norm`` f32, every other leaf in the
+config's dtype.
 
 * ``init_lm_params`` / ``init_vit_params`` draw random weights on the
   target device tensor by tensor (one layer slice at a time) from an
@@ -13,7 +14,7 @@ leaf in the config's dtype.
 * ``from_numpy_tree`` takes the JAX package's trees as numpy arrays.
 * ``load_npz_params`` reads the ``training/checkpoint.py`` npz layout
   (flat ``params/...`` keys, bf16 saved as f32 and cast back
-  losslessly).
+  losslessly; the f32 leaves stay f32).
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 from ..configs.base import ModelCfg, ViTCfg
 
 F32 = torch.float32
+# checkpoint leaves kept in f32 whatever the config's dtype
+F32_LEAVES = ("['scale']", "['A_log']", "['D']", "['dt_bias']", "['norm']")
 
 
 def param_dtype(cfg: ModelCfg) -> torch.dtype:
@@ -69,9 +72,35 @@ class _Init:
         lead = (layers,) if layers else ()
         return torch.zeros(lead + tuple(shape), dtype=self.dtype, device=self.device)
 
+    def f32_rows(self, row: torch.Tensor, layers: int = 0) -> torch.Tensor:
+        """An f32 vector on the device, repeated per layer."""
+        t = row.to(dtype=F32, device=self.device)
+        return t.expand((layers,) + t.shape).clone() if layers else t
+
+
+def _mamba_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
+    """One mamba position, made like the JAX package's ``init_mamba``:
+    A = -[1 .. 16], dt_bias the inverse softplus of [1e-3 .. 1e-1]."""
+    s, d = cfg.ssm, cfg.d_model
+    di, nh = s.d_inner(d), s.n_heads(d)
+    gn = s.n_groups * s.d_state
+    a = torch.linspace(1.0, 16.0, nh, dtype=F32)
+    dt = torch.linspace(1e-3, 1e-1, nh, dtype=F32)
+    return {
+        "in_proj": ini.dense((d, 2 * di + 2 * gn + nh), layers=R),
+        "conv_w": ini.dense((s.d_conv, di + 2 * gn), scale=0.5, layers=R),
+        "conv_b": ini.zeros((di + 2 * gn,), layers=R),
+        "A_log": ini.f32_rows(torch.log(a), layers=R),
+        "D": ini.ones((nh,), layers=R),
+        "dt_bias": ini.f32_rows(torch.log(torch.expm1(dt)), layers=R),
+        "norm": ini.ones((di,), layers=R),
+        "out_proj": ini.dense((di, d), layers=R),
+    }
+
 
 def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """Random LM parameters (attention + dense FFN stacks)."""
+    """Random LM parameters (attention + dense FFN stacks, mixer-only
+    mamba stacks)."""
     ini = _Init(seed, device, param_dtype(cfg))
     d, dh, R = cfg.d_model, cfg.d_head, cfg.repeats
     tree: Dict[str, Any] = {
@@ -83,8 +112,13 @@ def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any
     blocks = []
     for pos in range(cfg.period):
         mixer, ffn = cfg.block_kind(pos)
+        if (mixer, ffn) == ("mamba", "none"):
+            blocks.append({"ln1": {"scale": ini.ones((d,), layers=R)},
+                           "mixer": _mamba_params(ini, cfg, R)})
+            continue
         if mixer != "attn" or ffn != "dense":
-            raise NotImplementedError(f"{cfg.name}: only attention + dense FFN")
+            raise NotImplementedError(
+                f"{cfg.name}: only attention + dense FFN and mixer-only mamba")
         mixer_p = {
             "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
             "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
@@ -192,7 +226,8 @@ def _freeze(tree):
 
 def load_npz_params(path: str, cfg: ModelCfg, device="cpu") -> Dict[str, Any]:
     """LM parameters from a ``training/checkpoint.py`` npz: keys like
-    ``params/['blocks']/[0]/['mixer']/['wq']``; norm scales stay f32,
+    ``params/['blocks']/[0]/['mixer']/['wq']``; norm scales and mamba's
+    ``A_log``, ``D``, ``dt_bias`` and ``norm`` (``F32_LEAVES``) stay f32,
     every other leaf is cast back to the config's dtype."""
     dtype = param_dtype(cfg)
     tree: Dict[str, Any] = {}
@@ -202,6 +237,6 @@ def load_npz_params(path: str, cfg: ModelCfg, device="cpu") -> Dict[str, Any]:
                 continue
             rel = key[len("params/"):]
             t = torch.from_numpy(data[key]).to(device)
-            leaf_dtype = F32 if rel.endswith("['scale']") else dtype
+            leaf_dtype = F32 if rel.endswith(F32_LEAVES) else dtype
             _insert(tree, rel, t.to(leaf_dtype))
     return _freeze(tree)

@@ -1,10 +1,12 @@
 """Layers of the serving path: RMSNorm, RoPE, GQA attention over the
 paged KV slab (bf16, or two-precision with int8 cold pages) or over
-per-stream caches, dense attention (ViT I-frames), SwiGLU MLP.
+per-stream caches, dense attention (ViT I-frames), SwiGLU MLP, and the
+Mamba-2 (SSD) mixer with its one-token decode step.
 
 Functions take parameter dicts of tensors in the JAX package's layout:
 weights are (in, out) and applied as ``x @ w``; attention tensors are
-(B, S, H, D).  Attention reads go through ``kernels/ops.py``.
+(B, S, H, D).  Attention reads and the SSD scan go through
+``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelCfg
 from ..kernels import ops
-from ..kernels.ref import apply_rope_ref
+from ..kernels.ref import apply_rope_ref, ssd_decode_ref
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -263,3 +265,111 @@ def attention_block(
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x Wg) * x Wu) Wd."""
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ======================================================================
+# Mamba-2 (SSD) mixer
+# ======================================================================
+class SSMCache(NamedTuple):
+    """Recurrent state of one mamba position (or one layer of it): the
+    causal conv's last d_conv - 1 inputs and the SSD state."""
+
+    conv: torch.Tensor   # ([R,] B, d_conv - 1, conv_dim), storage dtype
+    ssm: torch.Tensor    # ([R,] B, H, P, N) f32
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor]):
+    """Depthwise causal conv by shifted adds in f32, SiLU, cast to x's
+    dtype.  x (B, T, C); w (K, C); tail (B, K - 1, C) or None (zeros).
+    Returns (out, the new tail)."""
+    K = w.shape[0]
+    if tail is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    T = x.shape[1]
+    acc = torch.zeros(x.shape, dtype=F32, device=x.device) + b.to(F32)
+    for i in range(K):
+        acc = acc + xp[:, i:i + T].to(F32) * w[i].to(F32)
+    new_tail = xp[:, -(K - 1):] if K > 1 else None
+    return F.silu(acc).to(x.dtype), new_tail
+
+
+def _gated_norm(p, cfg: ModelCfg, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Gated RMSNorm in f32: y * silu(z), normalised, times p["norm"]."""
+    y = y * F.silu(z.to(F32))
+    var = torch.mean(y * y, dim=-1, keepdim=True)
+    return y * torch.rsqrt(var + cfg.norm_eps) * p["norm"].to(F32)
+
+
+def mamba_block(p, cfg: ModelCfg, x: torch.Tensor,
+                cache: Optional[SSMCache] = None) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """Mamba-2 mixer over a chunk.  x (B, T, d).  With ``cache`` (one
+    layer's conv tail and state) the chunk continues from it and the
+    cache is updated in place; returns (out (B, T, d), cache)."""
+    s = cfg.ssm
+    B, T, d = x.shape
+    di, nh, P = s.d_inner(d), s.n_heads(d), s.head_dim
+    gn = s.n_groups * s.d_state
+
+    zxbcdt = x @ p["in_proj"]
+    z, xin, bc, dt = torch.split(zxbcdt, [di, di, 2 * gn, nh], dim=-1)
+    conv_in = torch.cat([xin, bc], dim=-1)
+    conv_out, new_tail = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
+                                      cache.conv if cache is not None else None)
+    xin, b, c = torch.split(conv_out, [di, gn, gn], dim=-1)
+
+    dt = F.softplus(dt.to(F32) + p["dt_bias"].to(F32))                # (B, T, nh)
+    A = -torch.exp(p["A_log"].to(F32))
+    log_a = dt * A[None, None, :]
+    xh = (xin.to(F32) * dt.repeat_interleave(P, dim=-1)).reshape(B, T, nh, P)
+    bg = b.reshape(B, T, s.n_groups, s.d_state)
+    cg = c.reshape(B, T, s.n_groups, s.d_state)
+
+    y, final_state = ops.ssd_scan(
+        xh.to(x.dtype), log_a, bg.to(x.dtype), cg.to(x.dtype),
+        cache.ssm if cache is not None else None, chunk=s.chunk)
+    y = (y.reshape(B, T, di).to(F32)
+         + xin.to(F32) * p["D"].to(F32).repeat_interleave(P)[None, None, :])
+    out = _gated_norm(p, cfg, y, z).to(x.dtype) @ p["out_proj"]
+    if cache is not None:
+        cache.conv.copy_(new_tail)
+        cache.ssm.copy_(final_state)
+    return out, cache
+
+
+def mamba_decode(p, cfg: ModelCfg, x: torch.Tensor,
+                 cache: SSMCache) -> Tuple[torch.Tensor, SSMCache]:
+    """One-token recurrent step (plain PyTorch, as in the JAX package).
+    x (B, 1, d); the cache is updated in place.  The conv output and the
+    SSD operands round through the storage dtype exactly as
+    ``mamba_block`` rounds them, so decode follows the prefill's
+    numerics."""
+    s = cfg.ssm
+    B, _, d = x.shape
+    di, nh, P = s.d_inner(d), s.n_heads(d), s.head_dim
+    gn = s.n_groups * s.d_state
+
+    zxbcdt = x[:, 0] @ p["in_proj"]
+    z, xin, bc, dt = torch.split(zxbcdt, [di, di, 2 * gn, nh], dim=-1)
+    conv_in = torch.cat([xin, bc], dim=-1)[:, None]                   # (B, 1, C)
+    window = torch.cat([cache.conv.to(conv_in.dtype), conv_in], dim=1)  # (B, K, C)
+    acc = p["conv_b"].to(F32) + torch.einsum("bkc,kc->bc", window.to(F32),
+                                             p["conv_w"].to(F32))
+    conv_out = F.silu(acc).to(x.dtype).to(F32)
+    xin, b, c = torch.split(conv_out, [di, gn, gn], dim=-1)
+
+    dt = F.softplus(dt.to(F32) + p["dt_bias"].to(F32))                # (B, nh)
+    A = -torch.exp(p["A_log"].to(F32))
+    log_a = dt * A[None, :]
+    xh = (xin * dt.repeat_interleave(P, dim=-1)).reshape(B, nh, P).to(x.dtype)
+    rep = nh // s.n_groups
+    bg = b.reshape(B, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
+    cg = c.reshape(B, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
+    y, new_state = ssd_decode_ref(cache.ssm, xh, log_a, bg.to(x.dtype), cg.to(x.dtype))
+    y = y.to(F32).reshape(B, di) + xin * p["D"].to(F32).repeat_interleave(P)[None]
+    out = (_gated_norm(p, cfg, y, z).to(x.dtype) @ p["out_proj"])[:, None]
+    cache.conv.copy_(window[:, 1:])
+    cache.ssm.copy_(new_state)
+    return out, cache

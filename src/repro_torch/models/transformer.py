@@ -1,10 +1,11 @@
-"""Decoder-only transformer of the serving path (attention + dense FFN).
+"""Decoder-only stacks of the serving path: attention + dense FFN
+blocks, and Mamba-2 mixer-only blocks (the SSM family).
 
 Parameters are the JAX package's tree with each pattern position's
 layers stacked on a leading ``repeats`` axis; ``run_stack`` walks the
-layers in a Python loop where the JAX package used ``lax.scan``, and
-attention reads and writes its KV cache in place: the shared paged slab
-(bf16 or two-precision) or per-stream caches.
+layers in a Python loop where the JAX package used ``lax.scan``.  Caches
+are written in place: attention its KV (the shared paged slab, bf16 or
+two-precision, or per-stream caches), mamba its conv tail and SSD state.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from ..configs.base import ModelCfg
 from . import layers
-from .layers import KVCache
+from .layers import KVCache, SSMCache
 
 F32 = torch.float32
 
@@ -28,21 +29,37 @@ class Caches(NamedTuple):
 
 def init_caches(cfg: ModelCfg, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cpu") -> Caches:
-    """Zeroed per-stream caches (R, batch, max_len, n_kv, d_head) for
-    every attention position of the pattern."""
+    """Zeroed caches for every pattern position: attention KV (R, batch,
+    max_len, n_kv, d_head); mamba conv tails (R, batch, d_conv - 1,
+    conv_dim) in ``dtype`` and SSD states (R, batch, H, P, N) f32."""
+    R = cfg.repeats
     blocks = []
     for pos in range(cfg.period):
-        if cfg.block_kind(pos)[0] != "attn":
-            raise NotImplementedError(f"{cfg.name}: only attention stacks are ported")
-        shape = (cfg.repeats, batch, max_len, cfg.n_kv, cfg.d_head)
-        blocks.append(KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                              torch.zeros(shape, dtype=dtype, device=device)))
+        if cfg.block_kind(pos)[0] == "attn":
+            shape = (R, batch, max_len, cfg.n_kv, cfg.d_head)
+            blocks.append(KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                                  torch.zeros(shape, dtype=dtype, device=device)))
+        else:
+            s = cfg.ssm
+            conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+            blocks.append(SSMCache(
+                torch.zeros((R, batch, s.d_conv - 1, conv_dim), dtype=dtype, device=device),
+                torch.zeros((R, batch, s.n_heads(cfg.d_model), s.head_dim, s.d_state),
+                            dtype=F32, device=device)))
     return Caches(tuple(blocks), None)
 
 
-def caches_max_len(cfg: ModelCfg, caches: Caches) -> int:
-    """Slots of the per-stream caches."""
-    return caches.blocks[0].k.shape[2]
+def has_attention(cfg: ModelCfg) -> bool:
+    return any(cfg.block_kind(pos)[0] == "attn" for pos in range(cfg.period))
+
+
+def caches_max_len(cfg: ModelCfg, caches: Caches) -> Optional[int]:
+    """Slots of the per-stream attention caches; None for a stack
+    without attention."""
+    for pos in range(cfg.period):
+        if cfg.block_kind(pos)[0] == "attn":
+            return caches.blocks[pos].k.shape[2]
+    return None
 
 
 def layer_params(tree, i: int):
@@ -53,39 +70,48 @@ def layer_params(tree, i: int):
 
 
 def _apply_block(cfg: ModelCfg, pos: int, p, h, positions, valid, cache,
-                 cache_offset, cache_len, *, q_chunk, scatter_idx, kv_valid,
+                 cache_offset, cache_len, *, decode, q_chunk, scatter_idx, kv_valid,
                  block_map, page_table, page_size):
     mixer, ffn = cfg.block_kind(pos)
-    if mixer != "attn" or ffn != "dense" or cfg.enc_dec:
+    if ffn not in ("dense", "none") or cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: only attention + dense FFN stacks are ported")
+            f"{cfg.name}: only dense-FFN and mixer-only stacks are ported")
     hn = layers.rmsnorm(p["ln1"], h, cfg.norm_eps)
-    out, cache = layers.attention_block(
-        p["mixer"], cfg, hn, positions, valid, cache=cache,
-        cache_offset=cache_offset, cache_len=cache_len,
-        scatter_idx=scatter_idx, kv_valid=kv_valid, q_chunk=q_chunk,
-        block_map=block_map, page_table=page_table, page_size=page_size,
-    )
+    if mixer == "attn":
+        out, cache = layers.attention_block(
+            p["mixer"], cfg, hn, positions, valid, cache=cache,
+            cache_offset=cache_offset, cache_len=cache_len,
+            scatter_idx=scatter_idx, kv_valid=kv_valid, q_chunk=q_chunk,
+            block_map=block_map, page_table=page_table, page_size=page_size,
+        )
+    elif decode:
+        out, cache = layers.mamba_decode(p["mixer"], cfg, hn, cache)
+    else:
+        out, cache = layers.mamba_block(p["mixer"], cfg, hn, cache)
     h = h + out
+    if ffn == "none":
+        return h
     hn = layers.rmsnorm(p["ln2"], h, cfg.norm_eps)
     return h + layers.mlp_block(p["ffn"], hn)
 
 
 def run_stack(cfg: ModelCfg, params, h: torch.Tensor, positions: torch.Tensor,
               valid=None, caches: Optional[Caches] = None, cache_offset=None,
-              cache_len: Optional[int] = None, *, q_chunk: int = 1024,
-              scatter_idx=None, kv_valid=None, block_map=None,
+              cache_len: Optional[int] = None, *, decode: bool = False,
+              q_chunk: int = 1024, scatter_idx=None, kv_valid=None, block_map=None,
               page_table=None, page_size: int = 128):
-    """Run every layer over ``h``; the caches (paged slab or per-stream)
-    are written in place.  Returns (h, caches)."""
+    """Run every layer over ``h``; the caches (paged slab, per-stream KV,
+    or mamba state) are written in place.  ``decode`` runs the mamba
+    positions' one-token step.  Returns (h, caches)."""
     for i in range(cfg.repeats):
         for pos in range(cfg.period):
             blk = caches.blocks[pos]
             h = _apply_block(
                 cfg, pos, layer_params(params["blocks"][pos], i), h, positions,
                 valid, type(blk)(*(leaf[i] for leaf in blk)), cache_offset, cache_len,
-                q_chunk=q_chunk, scatter_idx=scatter_idx, kv_valid=kv_valid,
-                block_map=block_map, page_table=page_table, page_size=page_size,
+                decode=decode, q_chunk=q_chunk, scatter_idx=scatter_idx,
+                kv_valid=kv_valid, block_map=block_map, page_table=page_table,
+                page_size=page_size,
             )
     return h, caches
 
@@ -105,9 +131,10 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor, caches: Caches,
             positions=None, valid=None, inputs_embeds=None, cache_offset: int = 0,
             *, q_chunk: int = 1024, block_map=None):
     """Contiguous prefill of ``tokens`` (or ``inputs_embeds``) into the
-    per-stream caches at ``cache_offset``.  ``block_map`` is the visit
-    list of positions ``cache_offset + arange(S)`` (the kernel needs it
-    on the card).  Returns (last-position logits (B, V), caches, h)."""
+    per-stream caches at ``cache_offset`` (mamba positions continue from
+    their state).  ``block_map`` is the visit list of positions
+    ``cache_offset + arange(S)`` (the attention kernel needs it on the
+    card).  Returns (last-position logits (B, V), caches, h)."""
     h = embed_tokens(cfg, params, tokens)
     if inputs_embeds is not None:
         h = inputs_embeds.to(h.dtype)
@@ -131,8 +158,9 @@ def decode_step(cfg: ModelCfg, params, token: torch.Tensor, caches: Caches,
     position and write slot.  With ``page_table``, ``caches`` is the
     shared slab and ``cache_len`` is mandatory; otherwise they are
     per-stream caches of ``caches_max_len`` slots.  ``block_map`` is the
-    visit list of that one position (the kernel needs it on the card).
-    Returns (logits (B, V), caches)."""
+    visit list of that one position (the kernel needs it on the card);
+    a stack without attention needs neither.  Returns (logits (B, V),
+    caches)."""
     h = embed_tokens(cfg, params, token)
     B = h.shape[0]
     positions = torch.full((B, 1), cur_len, dtype=torch.int32, device=h.device)
@@ -142,8 +170,8 @@ def decode_step(cfg: ModelCfg, params, token: torch.Tensor, caches: Caches,
         cache_len = caches_max_len(cfg, caches)
     h, caches = run_stack(
         cfg, params, h, positions, None, caches, cache_offset=cur_len,
-        cache_len=cache_len, page_table=page_table, page_size=page_size,
-        block_map=block_map,
+        cache_len=cache_len, decode=True, page_table=page_table,
+        page_size=page_size, block_map=block_map,
     )
     hn = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return lm_logits(cfg, params, hn[:, -1]), caches

@@ -7,14 +7,17 @@
   AttentionPrefill  fresh prefill, and KVC reuse (Eq. 5) + selective
                     refresh for incremental windows, on the paged slab
                     (bf16 or with int8 cold pages) or per-stream caches
+  RecurrentPrefill  the SSM family: the stream's recurrent state is its
+                    context; each window appends only its new frames
   GreedyDecoder     yes/no answer + greedy continuation
 
 ``ServingPipeline`` composes the stages and serves a batch of
 same-phase windows (one per stream).  Modes (paper §5): ``codecflow``
 and the baselines ``fullcomp`` | ``prune_only`` | ``refresh_only`` |
 ``cacheblend`` | ``vlcache``, with the packed ViT, on attention-family
-models.  Everything runs on the pipeline's device: ``"cuda"`` unless the
-caller asks for ``"cpu"``.
+and SSM-family models (every mode of the SSM family prefills through
+``RecurrentPrefill``).  Everything runs on the pipeline's device:
+``"cuda"`` unless the caller asks for ``"cpu"``.
 
 The JAX package runs its oracle where a pass has no static visit list
 (the per-stream fresh prefill, every decode, ``vlcache`` and
@@ -587,6 +590,83 @@ class AttentionPrefill:
         return torch.linalg.norm((k_new - k_reused.to(k_new.dtype)).float(), dim=(-1, -2))[0]
 
 
+class RecurrentPrefill:
+    """SSM boundary-state streaming.
+
+    The stream's state is its recurrent cache (conv tails and SSD state
+    of every layer): each window appends only the new frames' tokens to
+    it, then the query and the decode run on a copy, so they do not
+    enter the boundary state.  The JAX package forks the cache for free
+    (its arrays are immutable); here the caches are written in place,
+    so the query pass gets its own copy of the boundary state.
+    """
+
+    paged = False
+    pool = None
+
+    def __init__(self, cfg: ModelCfg, params, layout: WindowLayout,
+                 ecfg: EngineCfg, device):
+        self.cfg = cfg
+        self.params = params
+        self.layout = layout
+        self.ecfg = ecfg
+        self.device = device
+        self.cache_slots = layout.total_len + ecfg.max_new_tokens
+
+    # -- lifecycle: no pool, every stream admits --------------------------
+    def ensure_pool(self, n_streams: int) -> None:
+        """No shared pool: each stream carries its own state."""
+
+    def can_admit(self, n_streams: int) -> bool:
+        return True
+
+    def release(self, state: Optional[Dict[str, Any]]) -> None:
+        """Nothing to return: the state is dropped with the session."""
+
+    def kv_bytes_per_stream(self) -> int:
+        return 0
+
+    def fresh(self, vis, vval, qe) -> PrefillResult:
+        return self._append(vis, vval, qe, None)
+
+    def step(self, vis, vval, qe, state) -> PrefillResult:
+        return self._append(vis, vval, qe, state)
+
+    def absorb_decode(self, state) -> None:
+        """No-op: query and decode ran on a copy of the boundary state."""
+
+    def _append(self, vis, vval, qe, state) -> PrefillResult:
+        """Extend the boundary state with the new visual tokens, then run
+        the query on a copy of it."""
+        lay, cfg, dev = self.layout, self.cfg, self.device
+        S, n_new = vis.shape[0], vis.shape[1]
+        if state is None:
+            caches = tfm.init_caches(cfg, S, 0, device=dev)   # no attention KV
+            offset = 0
+        else:
+            caches, offset = state["caches"], state["offset"]
+        qc = self.ecfg.q_chunk
+        tfm.prefill(cfg, self.params, torch.zeros((S, n_new), dtype=torch.long, device=dev),
+                    caches, valid=vval, inputs_embeds=vis, cache_offset=offset, q_chunk=qc)
+        offset_vis = offset + n_new
+        q_caches = tfm.Caches(tuple(type(blk)(*(leaf.clone() for leaf in blk))
+                                    for blk in caches.blocks), None)
+        q_logits, q_caches, _ = tfm.prefill(
+            cfg, self.params, torch.zeros((S, lay.query_len), dtype=torch.long, device=dev),
+            q_caches, valid=torch.ones((S, lay.query_len), dtype=torch.bool, device=dev),
+            inputs_embeds=qe, cache_offset=offset_vis, q_chunk=qc)
+        flops = flopcount.prefill_flops(cfg, n_new + lay.query_len,
+                                        offset_vis + lay.query_len)
+        return PrefillResult(
+            logits=q_logits, decode_caches=q_caches,
+            decode_start=offset_vis + lay.query_len,
+            flops_len=lambda i: offset_vis + lay.query_len + i,
+            state={"caches": caches, "offset": offset_vis},
+            tokens_vis=n_new, tokens_valid=vval.sum(dim=1).cpu().numpy(),
+            n_refreshed=n_new + lay.query_len, flops=flops, t_select=0.0,
+        )
+
+
 # ======================================================================
 # Stage 4: decoder
 # ======================================================================
@@ -599,20 +679,24 @@ class DecodePending(NamedTuple):
 
 
 class GreedyDecoder:
-    """Yes/no answer extraction + greedy continuation on the paged slab
-    or the per-stream caches.
+    """Yes/no answer extraction + greedy continuation on the paged slab,
+    the per-stream caches or the recurrent state.
 
     The JAX package's decode has no visit list and so runs its oracle;
-    here every decode step runs the attention kernel with a map built for
-    its one position (causal mask only, as in the JAX package)."""
+    here every decode step of a stack with attention runs the attention
+    kernel with a map built for its one position (causal mask only, as
+    in the JAX package).  An attention-free stack needs no map."""
 
     def __init__(self, cfg: ModelCfg, params, ecfg: EngineCfg):
         self.cfg = cfg
         self.params = params
         self.max_new_tokens = ecfg.max_new_tokens
+        self.has_attention = tfm.has_attention(cfg)
         self._maps: Dict[Tuple[int, int], RefreshBlockMap] = {}
 
-    def decode_map(self, pos: int, cache_len: int) -> RefreshBlockMap:
+    def decode_map(self, pos: int, cache_len: int) -> Optional[RefreshBlockMap]:
+        if not self.has_attention:
+            return None
         key = (pos, cache_len)
         if key not in self._maps:
             self._maps[key] = build_block_map(
@@ -674,8 +758,9 @@ class ServingPipeline:
             raise ValueError(f"mode {ecfg.mode!r} is not one of {MODES}")
         if not ecfg.prune.packed_vit:
             raise NotImplementedError("the padded ViT (packed_vit=False) is not ported")
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError("recurrent families are not ported")
+        if cfg.family == "hybrid":
+            raise NotImplementedError("the hybrid family (attention + mamba + MoE) "
+                                      "is not ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.v = vit_cfg
@@ -692,7 +777,9 @@ class ServingPipeline:
         )
         self.frontend = CodecFrontend(c, self.device)
         self.encoder = VisualEncoder(vit_cfg, params_vit, c, self.layout, self.prune)
-        self.backend = AttentionPrefill(cfg, params_lm, self.layout, ecfg, self.device)
+        self.is_streaming_family = cfg.family == "ssm"
+        backend = RecurrentPrefill if self.is_streaming_family else AttentionPrefill
+        self.backend = backend(cfg, params_lm, self.layout, ecfg, self.device)
         self.decoder = GreedyDecoder(cfg, params_lm, ecfg)
         self.cache_slots = self.backend.cache_slots
         self.paged = self.backend.paged
@@ -700,19 +787,22 @@ class ServingPipeline:
     @property
     def kernels(self) -> frozenset:
         """The kernels (``ops.KERNELS`` names) serving launches: motion
-        search always, the packed ViT when pruning, RoPE shift when
-        reusing, and the attention kernel of the KV layout."""
+        search always, the packed ViT when pruning, and either the SSD
+        scan (SSM family) or RoPE shift when reusing and the attention
+        kernel of the KV layout."""
+        prune = {"flash_packed"} if self.prune else set()
+        if self.is_streaming_family:
+            return frozenset({"mv_sad", "ssd_scan"} | prune)
         attn = ("flash_refresh" if not self.paged else
                 "flash_refresh_paged_int8" if self.backend.quant else "flash_refresh_paged")
-        return frozenset({"mv_sad", attn}
-                         | ({"flash_packed"} if self.prune else set())
+        return frozenset({"mv_sad", attn} | prune
                          | ({"rope_shift"} if self.reuse else set()))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- paged pool lifecycle (no-ops for per-stream caches) -----------
+    # -- paged pool lifecycle (no-ops for per-stream caches and states) --
     def ensure_capacity(self, n_streams: int) -> None:
         self.backend.ensure_pool(n_streams)
 
@@ -733,9 +823,12 @@ class ServingPipeline:
         return qe.expand((S,) + qe.shape[1:])
 
     def batch_key(self, state: Optional[Dict[str, Any]]) -> tuple:
-        """Windows sharing a key may be fused into one batched call."""
+        """Windows sharing a key may be fused into one batched call
+        (recurrent states only at the same offset)."""
         if state is None or not self.reuse:
             return ("fresh",)
+        if self.is_streaming_family:
+            return ("inc", state["offset"])
         if not self.backend.batchable_step:
             return ("inc", id(state))     # never batched (cacheblend)
         return ("inc",)

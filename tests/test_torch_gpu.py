@@ -15,7 +15,13 @@ relative) plus 1e-3 for the f32 angle.  Attention: per (.., head) row,
 max |k - p| / max |p| within two bf16 steps (2^-6) of the row's largest
 value, since the kernel rounds its unnormalised probabilities and the
 plain version its normalised ones.  Fully masked rows and padding slots
-exactly zero.
+exactly zero (refresh, packed); rows with no visible key the mean of V
+(prefill, as its plain version).  ssd_scan: y (bf16) within one bf16
+step (2^-7) of each (b, t, head) row's largest value, since both round
+f32 values that differ by the summation order; the f32 state within
+1e-4 of each (b, head) state's largest value (sums of up to 256 terms
+and the cumulative log-decay taken in another order, the latter entering
+through exp).
 """
 import numpy as np
 import pytest
@@ -26,14 +32,24 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_packed import (  # noqa: E402
     build_pack_map, flash_packed_cuda, flash_packed_plain,
 )
+from repro_torch.kernels.cuda import KernelError  # noqa: E402
+from repro_torch.kernels.flash_prefill import (  # noqa: E402
+    flash_prefill_cuda, flash_prefill_paged_cuda, flash_prefill_paged_plain,
+    flash_prefill_plain,
+)
 from repro_torch.kernels.flash_refresh import (  # noqa: E402
     build_block_map, flash_refresh_cuda, flash_refresh_paged_cuda,
     flash_refresh_paged_plain, flash_refresh_plain,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.mv_sad import mv_sad_cuda  # noqa: E402
 from repro_torch.kernels.rope_shift import rope_shift_cuda  # noqa: E402
 
+# row-relative limits: two bf16 steps where the kernel rounds its
+# probabilities to bf16 (refresh, packed); one where it keeps the
+# oracle's f32 numerics and only the output's rounding differs (prefill)
 ROW_TOL = 2.0 ** -6
+PREFILL_ROW_TOL = 2.0 ** -7
 pytestmark = pytest.mark.gpu
 
 
@@ -302,3 +318,188 @@ def test_page_ids_out_of_range_raise_on_card(dev):
                             torch.tensor([[2, 1]], dtype=torch.int32, device=dev),
                             block_map=bm, cold=cold)
     assert ops.launch_counts()["flash_refresh_paged_int8"] == before + 1
+
+
+# ----------------------------------------------------------------------
+# prefill attention
+# ----------------------------------------------------------------------
+# (Sq, Sk, H, Hkv, D, causal, window, q_offset): causal from 0, a chunk at
+# an offset, a window, bidirectional, rows with no visible key (a
+# negative offset; a window past Sk), ragged Sq and Sk
+PREFILL = {
+    "causal": (256, 256, 8, 2, 128, True, None, 0),
+    "chunk-offset": (128, 384, 4, 1, 64, True, None, 256),
+    "window": (384, 384, 4, 2, 32, True, 100, 0),
+    "bidirectional": (128, 256, 4, 4, 64, False, None, 0),
+    "dead-prefix": (256, 256, 4, 2, 128, True, None, -70),
+    "window-past-sk": (200, 128, 4, 2, 32, False, 16, 100),
+    "ragged": (200, 300, 8, 2, 128, True, 150, 50),
+}
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL))
+def test_flash_prefill_kernel_matches_plain(dev, case):
+    Sq, Sk, H, Hkv, D, causal, window, off = PREFILL[case]
+    rng = np.random.default_rng(16)
+    q, k, v = _bf16(rng, 2, Sq, H, D), _bf16(rng, 2, Sk, Hkv, D), _bf16(rng, 2, Sk, Hkv, D)
+    before = ops.launch_counts().get("flash_prefill", 0)
+    out_k = flash_prefill_cuda(q.to(dev), k.to(dev), v.to(dev), causal=causal,
+                               window=window, q_offset=off).cpu()
+    assert ops.launch_counts()["flash_prefill"] == before + 1
+    out_p = flash_prefill_plain(q, k, v, causal=causal, window=window, q_offset=off)
+    assert _row_rel_err(out_k, out_p) <= PREFILL_ROW_TOL
+
+
+def test_flash_prefill_rows_without_keys_are_the_mean_of_v(dev):
+    rng = np.random.default_rng(17)
+    q, k, v = _bf16(rng, 1, 64, 4, 64), _bf16(rng, 1, 130, 2, 64), _bf16(rng, 1, 130, 2, 64)
+    out = flash_prefill_cuda(q.to(dev), k.to(dev), v.to(dev), q_offset=-20).cpu()
+    mean = v.float().mean(1, keepdim=True).repeat_interleave(2, dim=2)
+    assert _row_rel_err(out[:, :20], mean.expand(1, 20, 4, 64)) <= PREFILL_ROW_TOL
+    assert (_row_rel_err(out[:, 20:], flash_prefill_plain(q, k, v, q_offset=-20)[:, 20:])
+            <= PREFILL_ROW_TOL)
+
+
+# (Sq, n_pages, H, Hkv, D, window, q_offset, cold)
+PREFILL_PAGED = {
+    "fresh": (384, 3, 8, 2, 128, None, 0, False),
+    "offset-window": (128, 4, 4, 1, 64, 200, 300, False),
+    "ragged": (100, 2, 4, 2, 32, None, 150, False),
+    "int8": (384, 3, 8, 2, 128, None, 0, True),
+    "int8-offset": (128, 4, 4, 2, 64, None, 384, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_PAGED))
+def test_flash_prefill_paged_kernel_matches_plain(dev, case):
+    Sq, n_pages, H, Hkv, D, window, off, quant = PREFILL_PAGED[case]
+    rng = np.random.default_rng(18)
+    n_hot = 2 * n_pages + 1
+    q = _bf16(rng, 2, Sq, H, D)
+    hk, hv, cold = _quant_slab(rng, n_hot, 3, Hkv, D)
+    pt = torch.from_numpy(rng.permutation(n_hot)[: 2 * n_pages].reshape(2, n_pages)
+                          .astype(np.int32))
+    name = "flash_prefill_paged"
+    if quant:
+        pt[0, 0], pt[1, 1], pt[1, 0] = n_hot, n_hot + 1, n_hot + 2
+        name = "flash_prefill_paged_int8"
+    else:
+        cold = None
+    before = ops.launch_counts().get(name, 0)
+    out_k = flash_prefill_paged_cuda(
+        q.to(dev), hk.to(dev), hv.to(dev), pt.to(dev), window=window, q_offset=off,
+        cold=None if cold is None else tuple(c.to(dev) for c in cold)).cpu()
+    assert ops.launch_counts()[name] == before + 1
+    out_p = flash_prefill_paged_plain(q, hk, hv, pt, window=window, q_offset=off, cold=cold)
+    assert _row_rel_err(out_k, out_p) <= PREFILL_ROW_TOL
+
+
+def test_flash_prefill_paged_int8_all_hot_is_bitwise_bf16(dev):
+    rng = np.random.default_rng(19)
+    hk, hv, cold = _quant_slab(rng, 4, 3, 2, 128)
+    hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
+    pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
+    q = _bf16(rng, 2, 256, 8, 128).to(dev)
+    out8 = flash_prefill_paged_cuda(q, hk, hv, pt, cold=cold)
+    out16 = flash_prefill_paged_cuda(q, hk, hv, pt)
+    assert torch.equal(out8, out16)
+
+
+def test_prefill_operands_the_kernel_does_not_take_raise(dev):
+    q = torch.zeros(1, 128, 4, 48, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 128, 2, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(KernelError, match="head dim"):
+        ops.flash_prefill(q, kv, kv)
+    q32 = torch.zeros(1, 128, 4, 32, device=dev)
+    kv32 = torch.zeros(1, 128, 2, 32, device=dev)
+    with pytest.raises(KernelError, match="bf16"):
+        ops.flash_prefill(q32, kv32, kv32)
+    qt = torch.zeros(1, 4, 128, 32, device=dev, dtype=torch.bfloat16).transpose(1, 2)
+    kvb = kv32.bfloat16()
+    with pytest.raises(KernelError, match="contiguous"):
+        ops.flash_prefill(qt, kvb, kvb)
+
+
+# ----------------------------------------------------------------------
+# ssd_scan
+# ----------------------------------------------------------------------
+def _ssd_operands(rng, B, L, H, P, G, N, with_init=True):
+    x = _bf16(rng, B, L, H, P)
+    la = torch.from_numpy(-rng.uniform(1e-3, 1.0, size=(B, L, H)).astype(np.float32))
+    b = (_bf16(rng, B, L, G, N).float() * 0.3).bfloat16()
+    c = (_bf16(rng, B, L, G, N).float() * 0.3).bfloat16()
+    init = (torch.from_numpy(rng.normal(size=(B, H, P, N)).astype(np.float32))
+            if with_init else None)
+    return x, la, b, c, init
+
+
+def _state_rel_err(st_k, st_p):
+    d = (st_k - st_p).abs().amax(dim=(-1, -2))
+    return (d / st_p.abs().amax(dim=(-1, -2)).clamp_min(1e-30)).max().item()
+
+
+# (B, L, H, P, G, N, chunk, init): the serving shapes of mamba2-2.7b (a
+# fresh window, an incremental one, the query), a long prefill over whole
+# chunks and a ragged one, groups G > 1 at a small width
+SSD = {
+    "fresh-160": (2, 160, 80, 64, 1, 128, 256, True),
+    "step-40": (2, 40, 80, 64, 1, 128, 256, True),
+    "query-8": (2, 8, 80, 64, 1, 128, 256, True),
+    "long-1024": (1, 1024, 16, 64, 1, 128, 256, False),
+    "ragged-1000": (1, 1000, 16, 64, 1, 128, 256, True),
+    "groups-2": (2, 100, 8, 32, 2, 16, 16, True),
+    "groups-4": (1, 77, 8, 32, 4, 64, 32, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSD))
+def test_ssd_scan_kernel_matches_plain(dev, case):
+    B, L, H, P, G, N, chunk, with_init = SSD[case]
+    rng = np.random.default_rng(20)
+    x, la, b, c, init = _ssd_operands(rng, B, L, H, P, G, N, with_init)
+    before = ops.launch_counts().get("ssd_scan", 0)
+    y_k, st_k = ssd_scan_cuda(x.to(dev), la.to(dev), b.to(dev), c.to(dev),
+                              None if init is None else init.to(dev), chunk)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    y_p, st_p = ssd_scan_plain(x, la, b, c, init, chunk)
+    assert y_k.dtype == torch.bfloat16 and st_k.dtype == torch.float32
+    assert _row_rel_err(y_k.cpu(), y_p) <= 2.0 ** -7
+    assert _state_rel_err(st_k.cpu(), st_p) <= 1e-4
+
+
+def test_ssd_scan_reads_strided_b_c_in_place(dev):
+    """b and c as the mixer hands them over: slices of one conv output
+    (time stride = the conv width), not copies."""
+    rng = np.random.default_rng(21)
+    x, la, b, c, init = _ssd_operands(rng, 2, 40, 8, 32, 1, 16)
+    conv = torch.cat([x.reshape(2, 40, -1), b.reshape(2, 40, -1), c.reshape(2, 40, -1)], -1)
+    conv = conv.to(dev)
+    bs = conv[..., 256:272].reshape(2, 40, 1, 16)
+    cs = conv[..., 272:288].reshape(2, 40, 1, 16)
+    assert bs.stride(1) == 288 and not bs.is_contiguous()
+    y_k, st_k = ssd_scan_cuda(x.to(dev), la.to(dev), bs, cs, init.to(dev), 16)
+    y_p, st_p = ssd_scan_plain(x, la, b, c, init, 16)
+    assert _row_rel_err(y_k.cpu(), y_p) <= 2.0 ** -7
+    assert _state_rel_err(st_k.cpu(), st_p) <= 1e-4
+
+
+def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
+    rng = np.random.default_rng(22)
+    x, la, b, c, init = (t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 16))
+    before = ops.launch_counts().get("ssd_scan", 0)
+    with pytest.raises(KernelError, match="bf16"):
+        ops.ssd_scan(x.float(), la, b, c, init, 16)
+    with pytest.raises(KernelError, match="contiguous"):
+        ops.ssd_scan(x, la, b, c, init.transpose(2, 3).contiguous().transpose(2, 3), 16)
+    with pytest.raises(KernelError, match="packed"):
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), la, b, c, init, 16)
+    long = [t.to(dev) for t in _ssd_operands(rng, 1, 1024, 4, 32, 1, 16, with_init=False)[:4]]
+    with pytest.raises(KernelError, match="chunk"):
+        ops.ssd_scan(*long, chunk=512)
+    assert ops.launch_counts().get("ssd_scan", 0) == before
+    ops.ssd_scan(x, la, b, c, init, 16)
+    assert ops.launch_counts()["ssd_scan"] == before + 1

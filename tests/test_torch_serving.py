@@ -144,19 +144,18 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    """The padded ViT and the recurrent families are not ported (every
-    mode, both KV layouts and int8 cold pages are: test_torch_modes.py,
-    test_torch_variants.py)."""
+    """The padded ViT and the hybrid family are not ported (every mode,
+    both KV layouts and int8 cold pages are: test_torch_modes.py,
+    test_torch_variants.py; the SSM family: test_torch_recurrent.py)."""
     cfg = get_config(ARCH)
     from repro_torch.serving import PruneCfg
     codec = TCodecCfg(**CODEC)
     with pytest.raises(NotImplementedError):
         ServingPipeline(cfg, cfg.vit, {}, {},
                         EngineCfg(prune=PruneCfg(packed_vit=False), codec=codec), device="cpu")
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            ServingPipeline(dataclasses.replace(cfg, family=family), cfg.vit, {}, {},
-                            EngineCfg(codec=codec), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServingPipeline(dataclasses.replace(cfg, family="hybrid"), cfg.vit, {}, {},
+                        EngineCfg(codec=codec), device="cpu")
 
 
 def test_scheduler_refuses_pipelined_engine():
