@@ -28,7 +28,10 @@ Phases (any failure exits non-zero):
                (scaled_dot_product_attention, after a gather where the KV
                is paged; none for ssd_scan) times from CUDA events; the
                least time the card could take (bytes over 3.35 TB/s,
-               operations over the peak rate of their type).
+               operations over the peak rate of their type).  Then the
+               LM head: lm_logits at internvl3-14b's head width, untied
+               and tied, against the f32 product of its bf16 operands
+               (it must keep the f32 result, not a bf16 one).
   4. serve   — internvl3-14b at full width and depth with random weights
                made on the card from a seed: 2 streams x 24 frames at
                448^2 (one fresh and two incremental windows each) through
@@ -99,6 +102,11 @@ SEED = 0
 # one bf16 step.
 ROW_TOL = 2.0 ** -6
 PREFILL_ROW_TOL = 2.0 ** -7
+# lm_logits vs the f32 product of its bf16 operands: max over rows of
+# max |k - p| / max |p|.  Both sum d_model products in f32, in other
+# orders (a few 1e-6 relative); the product rounded to bf16 misses by up
+# to 2^-8, and the check requires it to miss this limit on the data.
+HEAD_TOL = 2.0 ** -14
 
 
 def log(msg: str) -> None:
@@ -478,6 +486,32 @@ def check_flash_packed(torch, pipe, streams):
         name="flash_packed", route="cuda", source="src/repro_torch/csrc/attention.cu",
         replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+def check_lm_head(torch, cfg, params):
+    """The LM head keeps its f32 result on the card (one bf16 GEMM with
+    an f32 output): ``lm_logits`` of 8 random rows, through ``cfg``'s
+    untied head and tied to its embedding, against the f32 product of
+    the same bf16 operands, within HEAD_TOL of each row's largest logit,
+    where the bf16-rounded product must miss that limit."""
+    from repro_torch.models.transformer import lm_logits
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    h = torch.randn(8, cfg.d_model, generator=g, device="cuda").bfloat16()
+    ok = True
+    for tied in (False, True):
+        head = params["embed"].T if tied else params["lm_head"]
+        out = lm_logits(dataclasses.replace(cfg, tied_embeddings=tied), params, h)
+        ref = torch.cat([h.float() @ head[:, i:i + 16384].float()
+                         for i in range(0, head.shape[1], 16384)], dim=-1)
+        scale = ref.abs().amax(-1, keepdim=True)
+        rel = ((out.float() - ref).abs() / scale).max().item()
+        rel_bf16 = ((ref.bfloat16().float() - ref).abs() / scale).max().item()
+        f32 = out.dtype == torch.float32
+        log(f"lm_logits ({'tied' if tied else 'untied'} head {tuple(head.shape)}): "
+            f"f32 output {f32}, max row-relative err {rel:.3g} (limit {HEAD_TOL:.3g}); "
+            f"the bf16-rounded product {rel_bf16:.3g}")
+        ok = ok and f32 and rel <= HEAD_TOL < rel_bf16
+    return ok
 
 
 def check_ssd_scan(torch):
@@ -917,6 +951,9 @@ def main() -> int:
     rows = [r for _, r in results]
     if not all(ok for ok, _ in results):
         log("FAIL: a kernel disagrees with its plain version")
+        return 1
+    if not check_lm_head(torch, cfg, pipe.params):
+        log("FAIL: lm_logits does not keep the head product's f32 result")
         return 1
 
     # -- 4. serve -------------------------------------------------------

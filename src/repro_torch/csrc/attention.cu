@@ -1,5 +1,4 @@
-// Block-sparse online-softmax attention over 128-row tiles, shared by the
-// attention kernels:
+// Block-sparse online-softmax attention over 128-row tiles:
 //
 //   * cs_attn_refresh_bf16 replaces the TPU kernel
 //     repro/kernels/flash_refresh.py:flash_refresh_pallas (_refresh_kernel).
@@ -14,10 +13,10 @@
 //   * cs_attn_refresh_paged_int8 replaces the int8 body of the same
 //     function (_refresh_paged_quant_kernel): page-table entries >= n_hot
 //     address cold page entry - n_hot of an int8 slab with one f32 scale
-//     per (cold page, kv head).  The tile load dequantises int8 x scale in
-//     f32 and rounds to bf16 into shared memory, the value the plain
-//     version's gather produces; the products after it are the bf16
-//     kernel's, so an all-hot page table gives bitwise the bf16 result.
+//     per (cold page, kv head).  A cold tile is dequantised int8 x scale
+//     in f32 and rounded to bf16, the value the plain version's gather
+//     produces; the products after it are the bf16 kernel's, so an
+//     all-hot page table gives bitwise the bf16 result.
 //   * cs_attn_packed_bf16 replaces repro/kernels/flash_packed.py:
 //     flash_packed_pallas.  Bidirectional block-diagonal attention over
 //     packed ViT rows: per-row visit lists, mask seg_q == seg_k && seg_q >= 0.
@@ -30,38 +29,71 @@
 //   * cs_attn_prefill_paged_bf16 / _int8 replace flash_prefill_paged_pallas
 //     (_flash_paged_kernel, _flash_paged_quant_kernel): the same over the
 //     batchless slab through the page table, causal, with the int8 body's
-//     cold-tile load shared with cs_attn_refresh_paged_int8.
+//     cold-tile load ColdPages.
 //
-// All share one templated body; the problem struct supplies the visit
-// list, the K/V tile load and the mask.  A thread block owns 64 query
-// rows (half of a 128-row map tile, following that tile's visit list) for
-// one (batch row, head); its four warps own 16 rows each.  For every
-// visited tile it streams the 128 keys through shared memory in two
-// 64-key steps: S = Q K^T on the tensor cores (WMMA bf16 -> f32), an f32
-// online softmax with the masked multiply p = mask ? exp(s - m) : 0 (so
-// recycled pages and fully masked rows contribute exact zeros), then
-// O += P V on the tensor cores.  The refresh and packed kernels follow
-// the refresh oracle: the query is scaled in f32 and rounded to bf16
-// before QK^T, and P is rounded to bf16.  The prefill oracle and its
-// Pallas body keep f32 throughout, and so do the prefill kernels (their
-// problem struct sets EXACT): the query enters QK^T unscaled (bf16 x bf16
-// products are exact in f32) and the scale multiplies the f32 scores, and
-// P V is the sum of two products, hi V + lo V with hi = bf16(p) and
-// lo = bf16(p - hi), so P keeps about 16 bits (V is bf16 already).  In the
-// refresh and packed kernels rows that no key reaches end
-// with l = 0 and write acc / max(l, 1e-30) = 0.  The prefill oracle masks
-// with the finite -1e30 instead, so a row with no visible key (a negative
-// q_offset, a window past Sk) softmaxes uniformly to the mean of V: its
-// tile visits every key and its scores are replaced by one constant
-// (the problem struct's uniform()).
+// A problem struct supplies the visit list (count, tile), the K/V tile
+// load, the query and key information and the mask; two templated bodies
+// run them.  The refresh structs serve the refresh body (fetch_kv /
+// finish_kv: asynchronous tile loads; k_info_row, key_range, k_live: the
+// mask as a positional key range per row and a live bit per key), the
+// others the older body (load_kv, k_info, mask, uniform).
 //
 // Bound on an H100: at the serving shapes each (q tile, kv tile) pair does
 // 4 * 128 * 128 * D flops on 2 * 128 * D * 2 bytes of K/V (half of that
 // for an int8 page), far above the card's flops-per-byte ratio, so the
-// bound is the tensor cores.  This first version keeps the accumulator in
-// shared memory and uses the WMMA (mma.sync) path, not wgmma/TMA; it is a
-// correct baseline that a later version makes fast.
+// bound is the tensor cores; decode (one query row per stream) is bound
+// by the bytes of the keys it reads.
+//
+// The refresh body (refresh_kernel; the three refresh entry points): a
+// thread block owns a whole 128-row map tile for one (batch row, head),
+// so every visited K/V tile is read once per query tile; its eight warps
+// own 16 query rows each.  K/V (and the tile's kv_valid bytes) reach
+// shared memory by 16-byte cp.async copies into a ring of STAGES slots of
+// 64 keys, started STAGES - 1 steps ahead of the products.  An int8 cold
+// tile is copied the same way into a staging slot and dequantised into
+// the ring slot after it lands.  Both products are mma.sync m16n8k16 bf16
+// -> f32 fed by ldmatrix, and S, P and O stay in registers: the query
+// fragments are loaded once, the S accumulator becomes P's A operand with
+// no trip through shared memory, and the online softmax reduces row max
+// and sum over the four lanes of a quad and rescales O once per step (a
+// wgmma version of the same products, waiting on each, measured slower
+// at every shape, PERF.md).  The
+// softmax's integer and float work was the step's bottleneck (a per-
+// element mask took a dozen instructions), so a row's mask is built once
+// per step as a 64-bit word (its positional key range AND a ballot of
+// the keys' live bits), masked scores become -inf, and exp is one FFMA
+// and ex2.  Query rows from Sq on (a ragged end) are neither read nor
+// written, and a warp whose rows are all padding skips the products.
+// Steps are 64 keys: at D 128 the 64 f32 accumulators of O, 32 registers
+// of query fragments and 32 f32 scores per thread (216 registers in all)
+// leave no room for 128-key steps.
+//
+// The older body (attn_kernel; packed and prefill) keeps the accumulator
+// in shared memory and uses WMMA: a block owns 64 query rows (half of a
+// 128-row map tile, following that tile's visit list); for every visited
+// tile it streams the 128 keys through shared memory in two 64-key steps.
+//
+// Numerics.  Both products accumulate in f32; the softmax is an f32
+// online softmax with the masked multiply p = mask ? exp(s - m) : 0, so
+// recycled pages and fully masked rows contribute exact zeros (the
+// refresh body's -inf scores give exp(-inf) = 0, and a row with no
+// visible key yet subtracts 0 from them, not -inf).  The
+// refresh and packed kernels follow the refresh oracle: the query is
+// scaled in f32 and rounded to bf16 before QK^T, and P is rounded to
+// bf16; rows that no key reaches end with l = 0 and write
+// acc / max(l, 1e-30) = 0.  The prefill oracle and its Pallas body keep
+// f32 throughout, and so do the prefill kernels (their problem struct
+// sets EXACT): the query enters QK^T unscaled (bf16 x bf16 products are
+// exact in f32) and the scale multiplies the f32 scores, and P V is the
+// sum of two products, hi V + lo V with hi = bf16(p) and lo = bf16(p -
+// hi), so P keeps about 16 bits (V is bf16 already).  The prefill oracle
+// masks with the finite -1e30 instead, so a row with no visible key (a
+// negative q_offset, a window past Sk) softmaxes uniformly to the mean
+// of V: its tile visits every key and its scores are replaced by one
+// constant (the problem struct's uniform()).
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -95,9 +127,19 @@ struct Smem {
   static constexpr size_t bytes = ki + sizeof(int) * BK;
 };
 
+// one ring slot of the refresh body: 64 keys of K and V (bf16, in the
+// body's layout), and (int8 problems) the staging bytes of a cold tile
+struct Slot {
+  bf16* K;
+  bf16* V;
+  int8_t* K8;
+  int8_t* V8;
+};
+
 // mask and visit list of the refresh kernels, in logical coordinates
 struct RefreshMask {
-  static constexpr bool EXACT = false;   // bf16 scaled query and P
+  using KInfo = uint8_t;   // per key: its kv_valid byte
+  static constexpr bool COLD = false;   // no int8 staging slots
   const int* qpos;         // (Sq,) logical query positions, -1 = padding
   const uint8_t* kv_valid; // (B, n_tiles * TILE) logical validity
   const int* tile_ids;     // (n_q_tiles, t_max) logical tiles to visit
@@ -108,16 +150,20 @@ struct RefreshMask {
   __device__ int tile(int, int iq, int it) const { return tile_ids[iq * t_max + it]; }
   __device__ int q_info(int, int row) const { return qpos[row]; }
   __device__ bool q_live(int qp) const { return !causal || qp >= 0; }
-  __device__ bool uniform(int) const { return false; }
-  __device__ int k_info(int b, int j, int c) const {
-    return kv_valid[(long long)b * n_tiles * TILE + j * TILE + c];
+  // the k_info of logical tile j's 128 keys, 16-byte aligned
+  __device__ const KInfo* k_info_row(int b, int j) const {
+    return kv_valid + ((long long)b * n_tiles + j) * TILE;
   }
-  __device__ bool mask(int qp, int valid, int kp) const {
-    bool m = valid != 0;
-    if (causal) m = m && kp <= qp;
-    if (window >= 0) m = m && kp > qp - window;
-    return m;
+  // the mask: the keys kp0 + [lo, hi] that row qp sees by position
+  // (causal, sliding window), and of those the ones whose k_info is live
+  __device__ int2 key_range(int qp, int kp0) const {
+    return make_int2(window >= 0 ? qp - window + 1 - kp0 : -(1 << 30),
+                     causal ? qp - kp0 : (1 << 30));
   }
+  __device__ bool k_live(KInfo valid) const { return valid != 0; }
+  // after a slot's copies landed: a bf16 tile needs no further work
+  template <int D>
+  __device__ bool finish_kv(const Slot&, int, int, int, int, int) const { return false; }
 };
 
 // K/V rows [row0, row0 + BK) of kv head kvh -> shared memory (16-byte
@@ -141,7 +187,7 @@ __device__ void load_rows(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v,
 
 // an int8 cold group beside a bf16 slab: page ids >= n_hot address cold
 // page id - n_hot, dequantised int8 x scale[page, kv head] in f32 and
-// rounded to bf16 as it is loaded (the plain version's gathered value)
+// rounded to bf16 (the plain version's gathered value)
 struct ColdPages {
   const int8_t* k8;        // (n_cold * TILE, Hkv, D)
   const int8_t* v8;
@@ -149,7 +195,8 @@ struct ColdPages {
   const float* v_scale;
   int n_hot;
 
-  // rows [c0, c0 + BK) of page `entry` (uniform over the block)
+  // rows [c0, c0 + BK) of page `entry` (uniform over the block), loaded
+  // synchronously (the WMMA body)
   template <int D>
   __device__ void load(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int entry,
                        int c0, int Hkv, int kvh, int tid) const {
@@ -176,12 +223,50 @@ struct ColdPages {
   }
 };
 
+// ---- asynchronous tile loads of the refresh body ----------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr int MMA_THREADS = 256;   // 8 warps x 16 query rows
+constexpr int MMA_BK = 64;         // keys per step (one ring slot)
+
+// Where row r, columns [c8, c8 + 8) of a ring slot's K or V live (in
+// elements): ldmatrix reads rows padded by 16 bytes, so that eight rows
+// fall on distinct banks.
+template <int D>
+struct PaddedRows {
+  static constexpr int LDH = D + 8;
+  static constexpr int ELEMS = MMA_BK * LDH;
+  __device__ static int at(int r, int c8) { return r * LDH + c8; }
+};
+
+// K/V rows [row0, row0 + MMA_BK) of kv head kvh -> a slot, by cp.async
+template <int D>
+__device__ void async_rows(const Slot& st, const bf16* k, const bf16* v, long long row0,
+                           int Hkv, int kvh, int tid) {
+  for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+    const long long off = ((row0 + r) * Hkv + kvh) * D + c8;
+    cp_async16(st.K + PaddedRows<D>::at(r, c8), k + off);
+    cp_async16(st.V + PaddedRows<D>::at(r, c8), v + off);
+  }
+}
+
 // per-stream caches: tile j of stream b is rows b * Sk + j * TILE
 struct Refresh : RefreshMask {
   template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    load_rows<D>(Ks, Vs, k, v, ((long long)b * n_tiles + j) * TILE + c0, Hkv, kvh, tid);
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    async_rows<D>(st, k, v, ((long long)b * n_tiles + j) * TILE + c0, Hkv, kvh, tid);
   }
 };
 
@@ -190,20 +275,59 @@ struct RefreshPaged : RefreshMask {
   const int* pt;           // (B, n_tiles) physical page per logical tile
 
   template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    load_rows<D>(Ks, Vs, k, v, (long long)pt[b * n_tiles + j] * TILE + c0, Hkv, kvh, tid);
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    async_rows<D>(st, k, v, (long long)pt[b * n_tiles + j] * TILE + c0, Hkv, kvh, tid);
   }
 };
 
-// two-precision slab: entries >= n_hot are int8 cold pages
+// two-precision slab: entries >= n_hot are int8 cold pages.  A hot tile
+// takes the bf16 path; a cold tile's int8 bytes are copied into the
+// slot's staging area and dequantised into its bf16 rows once they landed
 struct RefreshPagedQuant : RefreshPaged {
+  static constexpr bool COLD = true;
   ColdPages cold;
 
   template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    cold.load<D>(Ks, Vs, k, v, pt[b * n_tiles + j], c0, Hkv, kvh, tid);
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    const int entry = pt[b * n_tiles + j];
+    if (entry < cold.n_hot) {
+      async_rows<D>(st, k, v, (long long)entry * TILE + c0, Hkv, kvh, tid);
+      return;
+    }
+    const long long row0 = (long long)(entry - cold.n_hot) * TILE + c0;
+    for (int i = tid; i < MMA_BK * D / 16; i += MMA_THREADS) {
+      const int r = i / (D / 16), c16 = (i % (D / 16)) * 16;
+      const long long off = ((row0 + r) * Hkv + kvh) * D + c16;
+      cp_async16(st.K8 + r * D + c16, cold.k8 + off);
+      cp_async16(st.V8 + r * D + c16, cold.v8 + off);
+    }
+  }
+  // after the slot's copies landed (block-uniform): dequantise a cold
+  // tile into the slot's bf16 rows; true if the caller must synchronise
+  template <int D>
+  __device__ bool finish_kv(const Slot& st, int b, int j, int Hkv, int kvh, int tid) const {
+    const int entry = pt[b * n_tiles + j];
+    if (entry < cold.n_hot) return false;
+    const int cp = entry - cold.n_hot;
+    const float ks = cold.k_scale[cp * Hkv + kvh], vs = cold.v_scale[cp * Hkv + kvh];
+    for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      const uint2 rk = *reinterpret_cast<const uint2*>(st.K8 + r * D + c8);
+      const uint2 rv = *reinterpret_cast<const uint2*>(st.V8 + r * D + c8);
+      const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
+      const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
+      __align__(16) bf16 ok[8], ov[8];
+      #pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        ok[t] = __float2bfloat16_rn((float)ek[t] * ks);
+        ov[t] = __float2bfloat16_rn((float)ev[t] * vs);
+      }
+      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ok);
+      *reinterpret_cast<uint4*>(st.V + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ov);
+    }
+    return true;
   }
 };
 
@@ -483,32 +607,325 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// ---- the refresh body: S, P and O in registers --------------------------
+// mma.sync m16n8k16, each warp its 16 rows, K and V through ldmatrix; a
+// warp's S and O accumulators are m16n8 tiles, and S becomes P's A
+// fragment in place.
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+constexpr float LOG2E = 1.4426950408889634f;
+// bits [max(lo, 0), min(hi, 63)] of a 64-bit mask (2 << 63 wraps to 0)
+__device__ __forceinline__ uint64_t span_bits(int2 r) {
+  const int lo = max(r.x, 0), hi = min(r.y, 63);
+  return lo > hi ? 0 : ((2ull << hi) - 1) & (~0ull << lo);
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D, class P>
+struct MmaSmem {
+  static constexpr int LDQ = D + 8;      // padded query rows (ldmatrix)
+  static constexpr int STAGES = 3;
+  static constexpr size_t slot_kv = sizeof(bf16) * PaddedRows<D>::ELEMS;
+  static constexpr size_t slot_ki = sizeof(typename P::KInfo) * MMA_BK;
+  static constexpr size_t slot_i8 = P::COLD ? MMA_BK * D : 0;
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + sizeof(bf16) * TILE * LDQ;
+  static constexpr size_t v = k + STAGES * slot_kv;
+  static constexpr size_t ki = v + STAGES * slot_kv;
+  static constexpr size_t k8 = ki + ((STAGES * slot_ki + 15) / 16) * 16;
+  static constexpr size_t v8 = k8 + STAGES * slot_i8;
+  static constexpr size_t bytes = v8 + STAGES * slot_i8;
+};
+
+template <int D, class P>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int H,
+               int Hkv, float scale, P prob) {
+  using L = MmaSmem<D, P>;
+  using KInfo = typename P::KInfo;
+  constexpr int LDQ = L::LDQ, STAGES = L::STAGES;
+  constexpr int SPT = TILE / MMA_BK;     // steps per visited tile
+  constexpr int NT = MMA_BK / 8;         // n8 tiles of S per step
+  constexpr int DT = D / 8;              // n8 tiles of O
+  constexpr int KC = D / 16;             // k16 chunks of Q K^T
+  constexpr int KI_COPIES = MMA_BK * sizeof(KInfo) / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  KInfo* Ki = reinterpret_cast<KInfo*>(smem + L::ki);
+  auto slot = [&](int i) {
+    return Slot{reinterpret_cast<bf16*>(smem + L::k + i * L::slot_kv),
+                reinterpret_cast<bf16*>(smem + L::v + i * L::slot_kv),
+                reinterpret_cast<int8_t*>(smem + L::k8 + i * L::slot_i8),
+                reinterpret_cast<int8_t*>(smem + L::v8 + i * L::slot_i8)};
+  };
+
+  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = iq * TILE;
+  const int kvh = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const long long q_stride = (long long)H * D;   // between query rows
+  const bf16* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
+  bf16* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
+
+  // rows that no key can reach (padding) are exact zeros: a tile with no
+  // live row skips the loop; rows from Sq on are neither read nor written
+  const int n_rows = min(TILE, Sq - q0);
+  const int live = tid < n_rows ? prob.q_live(prob.q_info(b, q0 + tid)) : 0;
+  if (!__syncthreads_or(live)) {
+    for (int i = tid; i < n_rows * D / 8; i += MMA_THREADS)
+      *reinterpret_cast<uint4*>(ob + (i / (D / 8)) * q_stride + (i % (D / 8)) * 8) =
+          make_uint4(0, 0, 0, 0);
+    return;
+  }
+
+  // the ring: step s = visited tile s / SPT, keys (s % SPT) * MMA_BK.., in
+  // slot s % STAGES; one commit group per step (empty past the end)
+  const int n_steps = prob.count(b, iq) * SPT;
+  auto fetch = [&](int s) {
+    if (s < n_steps) {
+      const int j = prob.tile(b, iq, s / SPT), c0 = (s % SPT) * MMA_BK;
+      prob.template fetch_kv<D>(slot(s % STAGES), k, v, b, j, c0, Hkv, kvh, tid);
+      if (tid < KI_COPIES)
+        cp_async16(Ki + (s % STAGES) * MMA_BK + tid * (16 / sizeof(KInfo)),
+                   prob.k_info_row(b, j) + c0 + tid * (16 / sizeof(KInfo)));
+    }
+    cp_async_commit();
+  };
+  #pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+
+  // this thread's two rows (g and g + 8 of the warp's 16); a warp whose
+  // rows are all padding skips the products
+  const int r0 = warp * 16 + g, r1 = r0 + 8;
+  const int qp0 = r0 < n_rows ? prob.q_info(b, q0 + r0) : -1;
+  const int qp1 = r1 < n_rows ? prob.q_info(b, q0 + r1) : -1;
+  const bool ok0 = r0 < n_rows && prob.q_live(qp0);
+  const bool ok1 = r1 < n_rows && prob.q_live(qp1);
+  const bool compute = __any_sync(0xffffffffu, ok0 || ok1);
+
+  // Q, scaled in f32 and rounded to bf16 (the refresh oracle's numerics),
+  // while the first tiles are in flight; then each warp's fragments
+  for (int i = tid; i < TILE * D / 8; i += MMA_THREADS) {
+    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (r < n_rows) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    __align__(16) bf16 sc[8];
+    #pragma unroll
+    for (int t = 0; t < 8; ++t) sc[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * scale);
+    *reinterpret_cast<uint4*>(Qs + r * LDQ + c8) = *reinterpret_cast<const uint4*>(sc);
+  }
+  __syncthreads();
+  uint32_t qf[KC][4];
+  #pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    ldsm_x4(qf[kc], Qs + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+
+  float o[DT * 4];
+  #pragma unroll
+  for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // l: this thread's columns
+
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();             // step s landed; step s - 1's slot is free
+    fetch(s + STAGES - 1);
+    const int j = prob.tile(b, iq, s / SPT), c0 = (s % SPT) * MMA_BK;
+    const Slot st = slot(s % STAGES);
+    if (prob.template finish_kv<D>(st, b, j, Hkv, kvh, tid)) __syncthreads();
+    if (!compute) continue;
+
+    // S = Q K^T (16 rows x MMA_BK keys per warp)
+    float sc[NT * 4];
+    #pragma unroll
+    for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
+    #pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      #pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, st.K + PaddedRows<D>::at(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                             kc * 16 + ((lane >> 3) & 1) * 8));
+        mma16816(sc + 8 * np, qf[kc], kb[0], kb[1]);
+        mma16816(sc + 8 * np + 4, qf[kc], kb[2], kb[3]);
+      }
+    }
+
+    // mask: a row sees the columns of its positional range whose key is
+    // live; one 64-bit mask per row and step (bit c: column kp0 + c),
+    // masked scores are -inf, so the masked multiply p = mask ? exp(s -
+    // m) : 0 gives exact zeros
+    const KInfo* kin = Ki + (s % STAGES) * MMA_BK;
+    const uint64_t live_keys =
+        ((uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane + 32])) << 32 |
+         __ballot_sync(0xffffffffu, prob.k_live(kin[lane]))) >> (2 * t4);
+    const int kp0 = j * TILE + c0 + 2 * t4;     // this thread's column 0
+    const uint64_t vis0 = ok0 ? live_keys & span_bits(prob.key_range(qp0, kp0)) : 0;
+    const uint64_t vis1 = ok1 ? live_keys & span_bits(prob.key_range(qp1, kp0)) : 0;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    #pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float* x = sc + 4 * n;
+      #pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x[e] = (vis0 >> (8 * n + e)) & 1 ? x[e] : -INFINITY;
+        x[e + 2] = (vis1 >> (8 * n + e)) & 1 ? x[e + 2] : -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(x[0], x[1]));
+      mx1 = fmaxf(mx1, fmaxf(x[2], x[3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // exp(x - m) = 2^(x log2e - m log2e); a row with nothing visible yet
+    // keeps m = -inf and subtracts 0 (its p are exp(-inf) = 0); an
+    // unchanged max gives corr = 2^0 = 1 exactly (both products rounded)
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = mn0 == -INFINITY ? 0.f : __fmul_rn(mn0, LOG2E);
+    const float ms1 = mn1 == -INFINITY ? 0.f : __fmul_rn(mn1, LOG2E);
+    const float corr0 = ex2(__fmul_rn(m0, LOG2E) - ms0);
+    const float corr1 = ex2(__fmul_rn(m1, LOG2E) - ms1);
+    #pragma unroll
+    for (int dn = 0; dn < DT; ++dn) {
+      o[4 * dn] *= corr0;
+      o[4 * dn + 1] *= corr0;
+      o[4 * dn + 2] *= corr1;
+      o[4 * dn + 3] *= corr1;
+    }
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+    #pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float* x = sc + 4 * n;
+      x[0] = ex2(fmaf(x[0], LOG2E, -ms0));
+      x[1] = ex2(fmaf(x[1], LOG2E, -ms0));
+      x[2] = ex2(fmaf(x[2], LOG2E, -ms1));
+      x[3] = ex2(fmaf(x[3], LOG2E, -ms1));
+      sum0 += x[0] + x[1];
+      sum1 += x[2] + x[3];
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+
+    // O += P V: the S accumulator of n8 tiles 2kk, 2kk + 1 is P's A
+    // fragment for keys 16kk.., rounded to bf16
+    uint32_t pa[MMA_BK / 16][4];
+    #pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    #pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      #pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, st.V + PaddedRows<D>::at(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                               dp * 16 + (lane >> 4) * 8));
+        mma16816(o + 8 * dp, pa[kk], vb[0], vb[1]);
+        mma16816(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // out = acc / max(l, 1e-30): rows no key reached give exact zeros
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  #pragma unroll
+  for (int dn = 0; dn < DT; ++dn) {
+    const int c = dn * 8 + 2 * t4;
+    if (r0 < n_rows)
+      *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
+          pack_bf16(o[4 * dn] * inv0, o[4 * dn + 1] * inv0);
+    if (r1 < n_rows)
+      *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
+          pack_bf16(o[4 * dn + 2] * inv1, o[4 * dn + 3] * inv1);
+  }
+}
+
+template <int D, class P>
+int launch_refresh(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                   int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
+  const size_t smem = MmaSmem<D, P>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      refresh_kernel<D, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + TILE - 1) / TILE, H, B);
+  refresh_kernel<D, P><<<grid, MMA_THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, H, Hkv, scale, prob);
+  return (int)cudaGetLastError();
+}
+
+template <class P>
+int launch_refresh_d(int D, const void* q, const void* k, const void* v, void* out, int B,
+                     int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_refresh<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 64: return launch_refresh<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 128: return launch_refresh<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q, out: (B, Sq, H, D) bf16, Sq % 128 == 0; k, v: (B, n_tiles * 128, Hkv,
-// D) bf16 per-stream caches; q_pos: (Sq,) i32; kv_valid: (B, n_tiles * 128)
-// u8; tile_ids: (Sq / 128, t_max) i32; tile_count: (Sq / 128,) i32.
-// window < 0 means no sliding window.
+// q, out: (B, Sq, H, D) bf16, any Sq; k, v: (B, n_tiles * 128, Hkv, D)
+// bf16 per-stream caches; q_pos: (n_q_tiles * 128,) i32 (the map's, padded
+// with -1); kv_valid: (B, n_tiles * 128) u8; tile_ids: (n_q_tiles, t_max)
+// i32; tile_count: (n_q_tiles,) i32, n_q_tiles = ceil(Sq / 128).  Every
+// pointer 16-byte aligned.  window < 0 means no sliding window.
 CS_EXPORT int cs_attn_refresh_bf16(
     const void* q, const void* k, const void* v, void* out, const int* q_pos,
     const uint8_t* kv_valid, const int* tile_ids, const int* tile_count, int B,
     int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal,
     int window, float scale, cudaStream_t stream) {
   Refresh prob{{q_pos, kv_valid, tile_ids, tile_count, n_tiles, t_max, causal, window}};
-  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_refresh_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
-// q, out: (B, Sq, H, D) bf16, Sq % 128 == 0; k, v: (P_phys, Hkv, D) bf16
-// slab; q_pos: (Sq,) i32; kv_valid: (B, n_pages * 128) u8; pt: (B, n_pages)
-// i32; tile_ids: (Sq / 128, t_max) i32; tile_count: (Sq / 128,) i32.
-// window < 0 means no sliding window.
+// As cs_attn_refresh_bf16 over k, v: (P_phys, Hkv, D) bf16 slab through
+// pt: (B, n_pages) i32; kv_valid: (B, n_pages * 128) u8.
 CS_EXPORT int cs_attn_refresh_paged_bf16(
     const void* q, const void* k, const void* v, void* out, const int* q_pos,
     const uint8_t* kv_valid, const int* pt, const int* tile_ids,
     const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,
     int t_max, int causal, int window, float scale, cudaStream_t stream) {
   RefreshPaged prob{{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt};
-  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_refresh_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // As cs_attn_refresh_paged_bf16, with k, v the hot slab (n_hot * 128, Hkv,
@@ -524,7 +941,7 @@ CS_EXPORT int cs_attn_refresh_paged_int8(
   RefreshPagedQuant prob{
       {{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt},
       {k8, v8, k_scale, v_scale, n_hot}};
-  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_refresh_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // q, out: (R, L, H, D) bf16, L % 128 == 0; k, v: (R, L, Hkv, D) bf16;

@@ -1,6 +1,6 @@
 """Block-sparse refresh attention: visit-list maps and the kernels.
 
-Three kernels of ``csrc/attention.cu`` share one body:
+Three kernels of ``csrc/attention.cu`` share its refresh body:
 
   * ``cs_attn_refresh_bf16`` replaces the TPU kernel
     ``repro/kernels/flash_refresh.py:flash_refresh_pallas``: GQA attention
@@ -12,8 +12,8 @@ Three kernels of ``csrc/attention.cu`` share one body:
   * ``cs_attn_refresh_paged_int8`` replaces that function's int8 body
     (``_refresh_paged_quant_kernel``): page-table entries ``>= n_hot``
     name int8 cold pages, dequantised ``int8 x scale[page, kv head]`` and
-    rounded to bf16 as they are loaded, so an all-hot table gives
-    bitwise the bf16 kernel's result.
+    rounded to bf16 in shared memory, so an all-hot table gives bitwise
+    the bf16 kernel's result.
 
 The visit list ``tile_ids[iq, it]`` names the logical tiles a query tile
 can reach.  The mask is causal (+ sliding window) on the map's query
@@ -24,10 +24,20 @@ positions.
 
 Bound on an H100: tensor-core operations (each visited 128x128 tile
 pair does 4*128*128*D flops on 64 KB of bf16 K/V at D = 128, 32 KB when
-the page is int8).  The design: thread blocks over (q tile half, head,
-stream) follow their tile's visit list, stream K/V tiles through shared
-memory, and run both products on the tensor cores (WMMA bf16 -> f32)
-around an f32 online softmax with the masked multiply.
+the page is int8); decode reads every visited key for one query row and
+is bound by those bytes.  The design: one thread block of eight warps
+per (128-row query tile, head, stream) follows the tile's visit list, so
+each visited K/V tile is read once per query tile; 16-byte ``cp.async``
+copies fill a ring of three 64-key slots ahead of the products (an int8
+tile lands in a staging slot and is dequantised into the ring); both
+products are ``mma.sync`` m16n8k16 bf16 -> f32 with S, P and O in
+registers around an f32 online softmax with the masked multiply.  Query
+rows past Sq are neither read nor written, so the query is not padded.
+
+Operands the kernels take (the wrappers raise on anything else): bf16
+q/k/v with head dim 32, 64 or 128; 128-row map tiles and pages; q, k,
+v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
+is copied once where it is not).
 
 ``RefreshBlockMap``, ``build_block_map`` and ``dense_block_map`` are
 host numpy, equal array for array to the JAX package's.  The plain
@@ -42,7 +52,6 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from . import cuda
 from .ref import flash_refresh_ref, paged_gather
@@ -227,9 +236,10 @@ def _check_map(name: str, q, D: int, Dk: int, bm: RefreshBlockMap, causal, windo
     cuda.require(bm.kv_len == kv_len, name, "map built for another length")
 
 
-def _padded_query(q, dm: DeviceBlockMap):
-    pad = dm.q_pos.shape[0] - q.shape[1]
-    return F.pad(q, (0, 0, 0, 0, 0, pad)) if pad else q.contiguous()
+def _valid_bytes(kv_valid: torch.Tensor) -> torch.Tensor:
+    """kv_valid as the kernels read it: contiguous, 16-byte aligned."""
+    kvv = kv_valid.contiguous()
+    return kvv if kvv.data_ptr() % 16 == 0 else kvv.clone()
 
 
 def _bf16(name: str, *ts) -> None:
@@ -252,21 +262,20 @@ def flash_refresh_cuda(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
     cuda.require(tuple(kv_valid.shape) == (B, Sk) and kv_valid.dtype == torch.bool,
                  NAME_STREAM, "kv_valid shape/dtype")
     dm = bm.on(q.device)
-    qq = _padded_query(q, dm)
-    k, v = k.contiguous(), v.contiguous()
-    cuda.require_aligned(NAME_STREAM, qq, k, v)
-    kvv = kv_valid.contiguous()
-    out = torch.empty_like(qq)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cuda.require_aligned(NAME_STREAM, q, k, v)
+    kvv = _valid_bytes(kv_valid)
+    out = torch.empty_like(q)
     rc = cuda.library().cs_attn_refresh_bf16(
-        qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dm.q_pos.data_ptr(), kvv.data_ptr(), dm.tile_ids.data_ptr(),
-        dm.tile_count.data_ptr(), B, qq.shape[1], H, Hkv, D, Sk // TILE,
+        dm.tile_count.data_ptr(), B, Sq, H, Hkv, D, Sk // TILE,
         bm.t_max, int(causal), -1 if window is None else int(window),
         float(D ** -0.5), cuda.stream_handle(q),
     )
     cuda.check(rc, NAME_STREAM)
     cuda.record_launch(NAME_STREAM)
-    return out[:, :Sq]
+    return out
 
 
 def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
@@ -293,16 +302,15 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
     cuda.require(tuple(kv_valid.shape) == (B, n_pages * page)
                  and kv_valid.dtype == torch.bool, name, "kv_valid shape/dtype")
     dm = bm.on(q.device)
-    qq = _padded_query(q, dm)
-    k, v = k.contiguous(), v.contiguous()
-    cuda.require_aligned(name, qq, k, v)
-    kvv = kv_valid.contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cuda.require_aligned(name, q, k, v)
+    kvv = _valid_bytes(kv_valid)
     pt = page_table.to(torch.int32).contiguous()
-    out = torch.empty_like(qq)
-    common = (qq.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    out = torch.empty_like(q)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               dm.q_pos.data_ptr(), kvv.data_ptr(), pt.data_ptr(),
               dm.tile_ids.data_ptr(), dm.tile_count.data_ptr())
-    shape = (B, qq.shape[1], H, Hkv, D, n_pages, bm.t_max, int(causal),
+    shape = (B, Sq, H, Hkv, D, n_pages, bm.t_max, int(causal),
              -1 if window is None else int(window), float(D ** -0.5),
              cuda.stream_handle(q))
     if cold is None:
@@ -323,4 +331,4 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
             v_scale.data_ptr(), P_phys // page, *shape)
     cuda.check(rc, name)
     cuda.record_launch(name)
-    return out[:, :Sq]
+    return out

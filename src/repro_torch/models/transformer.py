@@ -120,11 +120,25 @@ def embed_tokens(cfg: ModelCfg, params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens]
 
 
+HEAD_CHUNK = 16384   # vocab columns per f32 product on the CPU
+
+
 def lm_logits(cfg: ModelCfg, params, h: torch.Tensor) -> torch.Tensor:
     """f32 logits; tied to the embedding for ``tied_embeddings`` configs
-    (the ``-smoke`` variants), ``lm_head`` otherwise."""
+    (the ``-smoke`` variants), ``lm_head`` otherwise.
+
+    The head product keeps its f32 result, as the jitted JAX package
+    does (XLA does not round it to bf16).  On the card it is one bf16
+    GEMM with an f32 output.  On the CPU, which has no such GEMM, bf16
+    products are exact in f32, so the f32 product of the bf16 operands
+    is the same value; the head is widened a chunk of columns at a time,
+    never whole."""
     head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
-    return (h @ head).to(F32)
+    if h.device.type == "cuda":
+        return torch.mm(h, head, out_dtype=F32)
+    hf = h.to(F32)
+    return torch.cat([hf @ head[:, i:i + HEAD_CHUNK].to(F32)
+                      for i in range(0, head.shape[1], HEAD_CHUNK)], dim=-1)
 
 
 def prefill(cfg: ModelCfg, params, tokens: torch.Tensor, caches: Caches,

@@ -220,6 +220,60 @@ def test_flash_refresh_paged_int8_all_hot_is_bitwise_bf16(dev):
     assert torch.equal(out8, out16)
 
 
+# Visit lists of 8-10 tiles (16-20 steps of 64 keys, wrapping the
+# kernels' ring of three slots several times): q positions, kv length,
+# sliding window.  Query counts that are not multiples of 128 reach the
+# kernel unpadded.
+LONG_CASES = {
+    "fresh": (np.arange(1100), 1280, None),
+    "fresh-window": (np.arange(1100), 1280, 1000),
+    "scatter": (np.concatenate([np.arange(0, 40), np.arange(700, 1250)]), 1280, None),
+    "decode": (np.asarray([1250]), 1280, None),
+    "scatter-window": (np.concatenate([np.arange(0, 40), np.arange(700, 1250)]), 1280, 900),
+}
+
+
+@pytest.mark.parametrize("kind", ["stream", "paged", "paged-int8"])
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_refresh_kernels_over_long_visit_lists(dev, case, kind):
+    """GQA at internvl3-14b's ratio (10 : 2 heads) and head dim; the
+    paged kinds read a shuffled slab, the int8 one with every other page
+    of each stream cold."""
+    q_pos, kv_len, window = LONG_CASES[case]
+    q_pos = q_pos.astype(np.int32)
+    rng = np.random.default_rng(15)
+    B, h, hkv, d = 2, 10, 2, 128
+    n_pages = kv_len // 128
+    q = torch.from_numpy(rng.normal(size=(B, len(q_pos), h, d)).astype(np.float32)).bfloat16()
+    qp = torch.from_numpy(np.broadcast_to(q_pos[None], (B, len(q_pos))).copy())
+    kvv = torch.from_numpy(rng.random((B, kv_len)) > 0.2)
+    bm = build_block_map(q_pos, kv_len, window=window)
+    assert bm.t_max >= 8
+    if kind == "stream":
+        k, v = (torch.from_numpy(rng.normal(size=(B, kv_len, hkv, d)).astype(np.float32))
+                .bfloat16() for _ in range(2))
+        out_k = flash_refresh_cuda(q.to(dev), k.to(dev), v.to(dev), kvv.to(dev), bm,
+                                   window=window).cpu()
+        out_p = flash_refresh_plain(q, k, v, qp, kvv, window=window)
+    else:
+        n_hot = B * n_pages + 3
+        hk, hv, cold = _quant_slab(rng, n_hot, B * n_pages // 2, hkv, d)
+        pt = rng.permutation(n_hot)[: B * n_pages].reshape(B, n_pages)
+        if kind == "paged-int8":
+            pt[:, ::2] = n_hot + rng.permutation(B * n_pages // 2).reshape(B, -1)
+        else:
+            cold = None
+        pt = torch.from_numpy(pt.astype(np.int32))
+        out_k = flash_refresh_paged_cuda(
+            q.to(dev), hk.to(dev), hv.to(dev), kvv.to(dev), pt.to(dev), bm, window=window,
+            cold=None if cold is None else tuple(c.to(dev) for c in cold)).cpu()
+        out_p = flash_refresh_paged_plain(q, hk, hv, qp, kvv, pt, window=window, cold=cold)
+    assert out_k.shape == out_p.shape
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    dead = (out_p == 0).all(-1).all(-1)
+    assert bool((out_k[dead] == 0).all())
+
+
 def test_stream_map_for_other_positions_raises_on_card(dev):
     q = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16)
     cache = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
@@ -503,3 +557,30 @@ def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
     assert ops.launch_counts().get("ssd_scan", 0) == before
     ops.ssd_scan(x, la, b, c, init, 16)
     assert ops.launch_counts()["ssd_scan"] == before + 1
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_lm_logits_keep_the_f32_head_product(dev, tied):
+    """On the card the head is one bf16 GEMM with an f32 output, at
+    internvl3-14b's width (d 5120, vocab 151674): within 2^-14 of each
+    row's largest logit of the f32 product of the same bf16 operands (a
+    summation order apart), while that product rounded to bf16 misses
+    the limit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import lm_logits
+
+    cfg = dataclasses.replace(get_config("internvl3-14b"), tied_embeddings=tied)
+    g = torch.Generator(device=dev).manual_seed(23)
+    shape = (cfg.vocab, cfg.d_model) if tied else (cfg.d_model, cfg.vocab)
+    w = (torch.randn(shape, generator=g, device=dev) * 0.02).bfloat16()
+    h = torch.randn(4, cfg.d_model, generator=g, device=dev).bfloat16()
+    out = lm_logits(cfg, {"embed" if tied else "lm_head": w}, h)
+    head = w.T if tied else w
+    ref = torch.cat([h.float() @ head[:, i:i + 16384].float()
+                     for i in range(0, cfg.vocab, 16384)], dim=-1)
+    scale = ref.abs().amax(-1, keepdim=True)
+    assert out.dtype == torch.float32 and out.shape == (4, cfg.vocab)
+    assert ((out - ref).abs() / scale).max().item() <= 2.0 ** -14
+    assert ((ref.bfloat16().float() - ref).abs() / scale).max().item() > 2.0 ** -14

@@ -473,3 +473,16 @@ def test_cuda_library_is_not_built_at_import():
     assert cuda._LIB is None or torch.cuda.is_available()
     assert cuda.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     assert {p.name for p in cuda.CSRC.glob("*.cu")} == set(cuda.SOURCES)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 16])
+def test_refresh_kv_valid_is_handed_over_aligned(offset):
+    """The refresh kernels copy kv_valid in 16-byte pieces: a view that
+    starts off a 16-byte boundary is copied once, values unchanged."""
+    from repro_torch.kernels.flash_refresh import _valid_bytes
+    base = torch.from_numpy(np.random.default_rng(offset).random(2 * 256 + 16) > 0.5)
+    view = base[offset: offset + 2 * 256].view(2, 256)
+    out = _valid_bytes(view)
+    assert out.data_ptr() % 16 == 0 and out.is_contiguous()
+    assert torch.equal(out, view)
+    assert (out.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)

@@ -76,6 +76,33 @@ def test_rmsnorm_matches_jax(dtype):
     close(out_t, out_j, 1e-5 if dtype == "float32" else 1e-2)
 
 
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_logits_keep_the_f32_head_product(tied):
+    """The head product's f32 result, as the jitted JAX ``lm_logits``
+    gives it.  Operands are multiples of 1/8 below 2 in magnitude, so
+    every partial sum is exact in f32 and any summation order gives the
+    same value: the f32 product, bitwise.  Rounded to bf16 it differs,
+    so the check tells the two apart.  The vocab spans several of the
+    CPU path's column chunks."""
+    rng = np.random.default_rng(21)
+    d, vocab = 64, 2 * transformer.HEAD_CHUNK + 300
+    cfg = ModelCfg(**{**LM, "vocab": vocab, "tied_embeddings": tied})
+    tcfg = TModelCfg(**{**LM, "vocab": vocab, "tied_embeddings": tied})
+    h = (rng.integers(-15, 16, (3, d)) / 8).astype(np.float32)
+    w = (rng.integers(-15, 16, (vocab, d) if tied else (d, vocab)) / 8).astype(np.float32)
+    name = "embed" if tied else "lm_head"
+    jp = {name: jnp.asarray(w, jnp.bfloat16)}
+    tp = {name: torch.from_numpy(w).bfloat16()}
+    exact = h.astype(np.float64) @ (w.T if tied else w).astype(np.float64)
+    out_j = jax.jit(lambda p, x: jtfm.lm_logits(cfg, p, x))(jp, jnp.asarray(h, jnp.bfloat16))
+    out_t = transformer.lm_logits(tcfg, tp, torch.from_numpy(h).bfloat16())
+    assert out_t.dtype == torch.float32 and out_j.dtype == jnp.float32
+    np.testing.assert_array_equal(np.asarray(out_j), exact.astype(np.float32))
+    np.testing.assert_array_equal(out_t.numpy(), exact.astype(np.float32))
+    rounded = torch.from_numpy(exact.astype(np.float32)).bfloat16().float().numpy()
+    assert np.abs(rounded - exact).max() > 0
+
+
 def _slab_case(cfg, n_streams=2, pages_per=2, seed=3):
     rng = np.random.default_rng(seed)
     total = n_streams * pages_per + 1

@@ -9,9 +9,10 @@ lockstep schedulers, in each of the six modes (every mode prefills
 through ``RecurrentPrefill``; pruning and reuse follow the mode).
 
 Equal: event order, token accounting and the FLOP ledger.  Within
-tolerance: yes/no logits 2e-2 (bf16 matmuls round at other points in
-the two frameworks, as for the attention family); the boundary state
-carried into the next window, conv tails and SSD states, each to a
+tolerance: yes/no logits 5e-3, twice the largest gap measured (2.6e-3,
+``torch_logit_gap.py``; bf16 matmuls round at other points in the two
+frameworks, as for the attention family); the boundary state carried
+into the next window, conv tails and SSD states, each to a
 share of the reference's largest magnitude: 2e-2 where the mode prunes
 (f32 sums over bf16 operands that rounded at those points, carried
 across windows; the SSD states read 1.64e-2 there, and the conv tails
@@ -56,7 +57,7 @@ from torch_mode_parity import STATS, videos  # noqa: E402
 
 ARCH = "mamba2-2.7b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
-LOGIT_TOL = 2e-2
+LOGIT_TOL = 5e-3
 STATE_TOL = {True: 2e-2, False: 3e-2}      # by whether the mode prunes
 
 

@@ -7,10 +7,11 @@ the JAX trees) and the same videos.
 
 Equal: per-window frame accounting (tokens_vis / tokens_valid /
 tokens_refreshed), ViT patches and packed slots, the FLOP ledger, the
-event order.  Yes/no logits: within LOGIT_TOL (the model runs in bf16;
-the port rounds the matmul outputs where XLA may keep f32, observed
-max |diff| ~3e-3 at this size).  Answers: equal wherever the JAX margin
-exceeds twice LOGIT_TOL.
+event order.  Yes/no logits: within LOGIT_TOL = 8e-3, twice the largest
+gap measured at this size (4.05e-3, ``torch_logit_gap.py``): both keep the LM head's f32 result,
+and the rest of the model runs in bf16, whose matmul outputs round at
+other points in the two frameworks.  Answers: equal wherever the JAX
+margin exceeds twice LOGIT_TOL.
 """
 import dataclasses
 import json
@@ -41,7 +42,7 @@ from repro_torch.serving import (  # noqa: E402
 
 ARCH = "internvl3-14b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
-LOGIT_TOL = 2e-2
+LOGIT_TOL = 8e-3
 
 
 def np_tree(tree):

@@ -33,7 +33,11 @@ from repro_torch.serving import (
 
 ARCH = "internvl3-14b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
-LOGIT_TOL = 2e-2
+# largest yes/no logit gap over the parity configurations (measured by
+# ``torch_logit_gap.py``):
+# 1.16e-2 (cacheblend, whose refresh set breaks ties on the last bits of
+# the layer-0 keys; 8.3e-3 for the others); 1.5x that
+LOGIT_TOL = 1.75e-2
 STATS = ("tokens_vis", "tokens_valid", "tokens_refreshed", "vit_patches",
          "vit_slots", "flops_vit", "flops_prefill", "flops_decode",
          "kv_bytes_per_stream")
