@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit; TF32 off.
   2. build   — compile the hand-written kernels from src/repro_torch/csrc
                (one nvcc per source, in parallel) and print what ptxas
-               reports per kernel (registers, spills).
+               reports per kernel (registers, spills); an attention
+               kernel that spills fails.
   3. kernels — each kernel against its plain PyTorch version on the card
                at the serving path's shapes for internvl3-14b at 448^2
                (flash_refresh_paged at fresh prefill, selective refresh
@@ -21,8 +22,10 @@ Phases (any failure exits non-zero):
                window and query of 2 streams, a long and a ragged
                prefill, and groups G > 1 at a small width), and at
                internvl3-14b attention widths for flash_prefill (causal,
-               a chunk at an offset, a sliding window, a ragged length)
-               and flash_prefill_paged (a shuffled slab, bf16 and with 15
+               a chunk at an offset, a sliding window, a ragged length,
+               rows with no visible key, which must be the mean of V;
+               SDPA's is_causal timed beside the masked call where it is
+               the same function) and flash_prefill_paged (a shuffled slab, bf16 and with 15
                of 21 pages per stream int8, and all hot, bitwise equal to
                bf16), with the stated tolerance; kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
@@ -75,6 +78,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +121,35 @@ def bound_ms(n_bytes: float, n_ops: float, rate: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
+
+
+def kernel_label(mangled: str) -> str:
+    """body<D, problem struct> of an attention kernel's mangled name
+    ("+cold": the struct with int8 cold pages); other names unchanged."""
+    body = next((b for b in ("mma_kernel", "attn_kernel") if b in mangled), None)
+    d = re.search(r"ILi(\d+)E", mangled)
+    struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
+    if body is None or d is None or struct is None:
+        return mangled
+    cold = "+cold" if "WithColdPages" in mangled else ""
+    return f"{body}<{d.group(1)}, {struct}{cold}>"
+
+
+def ptxas_kernels(text: str):
+    """[(kernel, registers, spill bytes)] from nvcc's -Xptxas -v output."""
+    found, name, spill = [], None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name is not None:
+            found.append((kernel_label(name), int(m.group(1)), spill))
+            name = None
+    return found
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -585,8 +618,11 @@ def check_flash_prefill(torch, cfg, total_len, n_streams):
     """flash_prefill at internvl3-14b attention widths (H 40, Hkv 8,
     D 128, bf16, 2 streams): causal from position 0, a 512-row chunk at
     offset 2048 against 2560 keys, a 512-key sliding window, and the
-    ragged length of a fresh window (total_len rows and keys).  Library:
-    scaled_dot_product_attention with enable_gqa and the same mask.  The
+    ragged length of a fresh window (total_len rows and keys), and a
+    chunk at a negative offset whose first rows see no key (they must be
+    the mean of V).  Library: scaled_dot_product_attention with enable_gqa
+    and the same mask; where is_causal is the same function (q_offset 0,
+    Sq == Sk, no window) its is_causal call is timed beside it.  The
     kernels line reports the causal case's times and the largest error."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda, flash_prefill_plain
@@ -594,26 +630,41 @@ def check_flash_prefill(torch, cfg, total_len, n_streams):
     H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
     cases = (("causal", 2048, 2048, None, 0), ("chunk at an offset", 512, 2560, None, 2048),
              ("sliding window", 2048, 2048, 512, 0),
-             ("ragged", total_len, total_len, None, 0))
+             ("ragged", total_len, total_len, None, 0),
+             ("rows with no visible key", 512, 1024, None, -200))
     ok, row, worst = True, None, 0.0
     for label, Sq, Sk, window, off in cases:
         q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").bfloat16()
         k, v = (torch.randn((n_streams, Sk, Hkv, D), generator=g, device="cuda").bfloat16()
                 for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ok_here, r = check_attention(
             torch, lambda: flash_prefill_cuda(q, k, v, window=window, q_offset=off),
             lambda: flash_prefill_plain(q, k, v, window=window, q_offset=off),
-            lambda mask: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask[:, None], enable_gqa=True),
+            lambda mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
+                                                        enable_gqa=True),
             q, Hkv, positional_mask(torch, Sq, Sk, off, window), bf16_keys, 0,
             dead_rows_zero=False, tol=PREFILL_ROW_TOL)
+        note = ""
+        if off == 0 and Sq == Sk and window is None:
+            r["sdpa_causal_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+            note = f", SDPA is_causal {r['sdpa_causal_ms']:.4f} ms"
+        if off < 0:
+            n_dead = -off
+            mean_v = v.float().mean(1, keepdim=True).repeat_interleave(H // Hkv, dim=2)
+            _, dead_rel = attn_errors(torch, flash_prefill_cuda(q, k, v, q_offset=off)[:, :n_dead],
+                                      mean_v.expand(-1, n_dead, -1, -1))
+            note = (f", rows without keys vs the mean of V: row-relative err "
+                    f"{dead_rel:.3g} (limit {PREFILL_ROW_TOL:.3g})")
+            ok_here = ok_here and dead_rel <= PREFILL_ROW_TOL
         worst = max(worst, r["max_abs_err"])
         log(f"flash_prefill ({label}): q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, "
-            f"q_offset {off}, window {window}: " + attention_reading(r, "SDPA"))
+            f"q_offset {off}, window {window}: " + attention_reading(r, "SDPA") + note)
         ok = ok and ok_here
         if label == "causal":
             row = kernel_row("flash_prefill", "src/repro/kernels/flash_prefill.py:79", r)
+            row["sdpa_causal_ms"] = r["sdpa_causal_ms"]
     row["max_abs_err"] = worst
     return ok, row
 
@@ -910,10 +961,15 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda.library()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    spilled = []
     for src, text in cuda.build_log().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas[{src}]: {line.strip()}")
+        for label, regs, spill in ptxas_kernels(text):
+            log(f"  ptxas[{src}]: {label}: {regs} registers, {spill} bytes spilled")
+            if spill and src == "attention.cu":
+                spilled.append(label)
+    if spilled:
+        log(f"FAIL: attention kernels spill registers: {spilled}")
+        return 1
 
     # -- 3. kernels vs plain versions -----------------------------------
     ops.reset_launch_counts()

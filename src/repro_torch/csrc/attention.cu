@@ -1,4 +1,4 @@
-// Block-sparse online-softmax attention over 128-row tiles:
+// Block-sparse and dense online-softmax attention over 128-row tiles:
 //
 //   * cs_attn_refresh_bf16 replaces the TPU kernel
 //     repro/kernels/flash_refresh.py:flash_refresh_pallas (_refresh_kernel).
@@ -17,9 +17,6 @@
 //     in f32 and rounded to bf16, the value the plain version's gather
 //     produces; the products after it are the bf16 kernel's, so an
 //     all-hot page table gives bitwise the bf16 result.
-//   * cs_attn_packed_bf16 replaces repro/kernels/flash_packed.py:
-//     flash_packed_pallas.  Bidirectional block-diagonal attention over
-//     packed ViT rows: per-row visit lists, mask seg_q == seg_k && seg_q >= 0.
 //   * cs_attn_prefill_bf16 replaces repro/kernels/flash_prefill.py:
 //     flash_prefill_pallas (_flash_kernel): dense causal / sliding-window
 //     GQA attention, query row i at position i + q_offset, key j at j.
@@ -28,15 +25,21 @@
 //     128 (the ragged edges are masked and never read or written).
 //   * cs_attn_prefill_paged_bf16 / _int8 replace flash_prefill_paged_pallas
 //     (_flash_paged_kernel, _flash_paged_quant_kernel): the same over the
-//     batchless slab through the page table, causal, with the int8 body's
-//     cold-tile load ColdPages.
+//     batchless slab through the page table, causal; the int8 one shares
+//     the refresh int8 kernel's cold-tile path (ColdPages).
+//   * cs_attn_packed_bf16 replaces repro/kernels/flash_packed.py:
+//     flash_packed_pallas.  Bidirectional block-diagonal attention over
+//     packed ViT rows: per-row visit lists, mask seg_q == seg_k && seg_q >= 0.
 //
-// A problem struct supplies the visit list (count, tile), the K/V tile
-// load, the query and key information and the mask; two templated bodies
-// run them.  The refresh structs serve the refresh body (fetch_kv /
-// finish_kv: asynchronous tile loads; k_info_row, key_range, k_live: the
-// mask as a positional key range per row and a live bit per key), the
-// others the older body (load_kv, k_info, mask, uniform).
+// A problem struct supplies the visit list, the K/V tile load, the query
+// and key information and the mask; two templated bodies run them.  The
+// register body (mma_kernel) runs the refresh structs (Refresh,
+// RefreshPaged, RefreshPagedQuant) and the prefill structs (Prefill,
+// PrefillPaged, PrefillPagedQuant): visits / tile (the tiles in order),
+// fetch_kv / finish_kv (asynchronous tile loads), key_range (the
+// positional mask as a key range per row), k_info_row / k_live (a live
+// bit per key).  The older WMMA body (attn_kernel) runs Packed alone
+// (count, tile, load_kv, k_info, mask).
 //
 // Bound on an H100: at the serving shapes each (q tile, kv tile) pair does
 // 4 * 128 * 128 * D flops on 2 * 128 * D * 2 bytes of K/V (half of that
@@ -44,56 +47,59 @@
 // bound is the tensor cores; decode (one query row per stream) is bound
 // by the bytes of the keys it reads.
 //
-// The refresh body (refresh_kernel; the three refresh entry points): a
-// thread block owns a whole 128-row map tile for one (batch row, head),
-// so every visited K/V tile is read once per query tile; its eight warps
-// own 16 query rows each.  K/V (and the tile's kv_valid bytes) reach
-// shared memory by 16-byte cp.async copies into a ring of STAGES slots of
-// 64 keys, started STAGES - 1 steps ahead of the products.  An int8 cold
-// tile is copied the same way into a staging slot and dequantised into
-// the ring slot after it lands.  Both products are mma.sync m16n8k16 bf16
-// -> f32 fed by ldmatrix, and S, P and O stay in registers: the query
-// fragments are loaded once, the S accumulator becomes P's A operand with
-// no trip through shared memory, and the online softmax reduces row max
-// and sum over the four lanes of a quad and rescales O once per step (a
-// wgmma version of the same products, waiting on each, measured slower
-// at every shape, PERF.md).  The
-// softmax's integer and float work was the step's bottleneck (a per-
-// element mask took a dozen instructions), so a row's mask is built once
-// per step as a 64-bit word (its positional key range AND a ballot of
-// the keys' live bits), masked scores become -inf, and exp is one FFMA
-// and ex2.  Query rows from Sq on (a ragged end) are neither read nor
-// written, and a warp whose rows are all padding skips the products.
-// Steps are 64 keys: at D 128 the 64 f32 accumulators of O, 32 registers
-// of query fragments and 32 f32 scores per thread (216 registers in all)
-// leave no room for 128-key steps.
+// The register body: a thread block owns a whole 128-row query tile for
+// one (batch row, head), so every visited K/V tile is read once per query
+// tile; its eight warps own 16 query rows each.  K/V (and the tile's
+// kv_valid bytes) reach shared memory by 16-byte cp.async copies into a
+// ring of STAGES slots of 64 keys, started STAGES - 1 steps ahead of the
+// products.  An int8 cold tile is copied the same way into a staging slot
+// and dequantised into the ring slot after it lands.  The products are
+// mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix, and S, P and O stay in
+// registers: the query fragments are loaded once, the S accumulator
+// becomes P's A operand with no trip through shared memory, and the online
+// softmax reduces row max and sum over the four lanes of a quad and
+// rescales O once per step (a wgmma version of the same products, waiting
+// on each, measured slower at every shape, PERF.md).  The softmax's
+// integer and float work was the step's bottleneck (a per-element mask
+// took a dozen instructions), so a row's mask is built once per step as a
+// 64-bit word (its positional key range AND a ballot of the keys' live
+// bits), masked scores become -inf, and exp is one FFMA and ex2.  Query
+// rows from Sq on (a ragged end) are neither read nor written, and a warp
+// whose rows are all padding skips the products.  Steps are 64 keys: at D
+// 128 the 64 f32 accumulators of O, 32 registers of query fragments and
+// 32 f32 scores per thread (216 registers in all) leave no room for
+// 128-key steps.  The prefill structs change it through compile-time hooks
+// whose refresh values keep the refresh kernels' code: no per-key bits
+// (KEY_BITS false: the positional range is the whole mask, and the
+// kv_valid copies and ballots compile away), key rows from Sk on
+// zero-filled by the copy with nothing read for them (a masked score gives
+// p = 0, but 0 x NaN would reach O), the prefill oracle's numerics (EXACT,
+// below), and query tiles launched longest first (q_tile: a causal tile
+// visits iq + 1 key tiles, so the short ones fill the tail).
 //
-// The older body (attn_kernel; packed and prefill) keeps the accumulator
-// in shared memory and uses WMMA: a block owns 64 query rows (half of a
-// 128-row map tile, following that tile's visit list); for every visited
-// tile it streams the 128 keys through shared memory in two 64-key steps.
+// The older body (attn_kernel; Packed) keeps the accumulator in shared
+// memory and uses WMMA: a block owns 64 query rows (half of a 128-row map
+// tile, following that tile's visit list); for every visited tile it
+// streams the 128 keys through shared memory in two 64-key steps.
 //
 // Numerics.  Both products accumulate in f32; the softmax is an f32
 // online softmax with the masked multiply p = mask ? exp(s - m) : 0, so
-// recycled pages and fully masked rows contribute exact zeros (the
-// refresh body's -inf scores give exp(-inf) = 0, and a row with no
-// visible key yet subtracts 0 from them, not -inf).  The
-// refresh and packed kernels follow the refresh oracle: the query is
-// scaled in f32 and rounded to bf16 before QK^T, and P is rounded to
-// bf16; rows that no key reaches end with l = 0 and write
-// acc / max(l, 1e-30) = 0.  The prefill oracle and its Pallas body keep
-// f32 throughout, and so do the prefill kernels (their problem struct
-// sets EXACT): the query enters QK^T unscaled (bf16 x bf16 products are
-// exact in f32) and the scale multiplies the f32 scores, and P V is the
-// sum of two products, hi V + lo V with hi = bf16(p) and lo = bf16(p -
-// hi), so P keeps about 16 bits (V is bf16 already).  The prefill oracle
-// masks with the finite -1e30 instead, so a row with no visible key (a
-// negative q_offset, a window past Sk) softmaxes uniformly to the mean
-// of V: its tile visits every key and its scores are replaced by one
-// constant (the problem struct's uniform()).
+// recycled pages and fully masked rows contribute exact zeros (-inf
+// scores give exp(-inf) = 0, and a row with no visible key yet subtracts
+// 0 from them, not -inf).  The refresh and packed kernels follow the
+// refresh oracle: the query is scaled in f32 and rounded to bf16 before
+// QK^T, and P is rounded to bf16; rows that no key reaches end with l = 0
+// and write acc / max(l, 1e-30) = 0.  The prefill oracle and its Pallas
+// body keep f32 throughout, and so do the prefill kernels (EXACT): the
+// query enters QK^T unscaled (bf16 x bf16 products are exact in f32), the
+// scale multiplies the f32 scores (folded into the exponent's factor),
+// and P V is the sum of two products, hi V + lo V with hi = bf16(p) and
+// lo = bf16(p - hi), so P keeps about 16 bits (V is bf16 already).  The
+// prefill oracle masks with the finite -1e30 instead, so a row with no
+// visible key (a negative q_offset, a window past Sk) softmaxes uniformly
+// to the mean of V: its key range is every key below Sk and its scores
+// are replaced by one constant.
 #include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -103,9 +109,9 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int TILE = 128;     // map tile = KV page
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per inner step
-constexpr int NTHREADS = 128; // 4 warps x 16 rows
+constexpr int BQ = 64;        // query rows per block (WMMA body)
+constexpr int BK = 64;        // keys per inner step (WMMA body)
+constexpr int NTHREADS = 128; // 4 warps x 16 rows (WMMA body)
 constexpr float NEG_INF = -1e30f;
 
 template <int D>
@@ -127,212 +133,20 @@ struct Smem {
   static constexpr size_t bytes = ki + sizeof(int) * BK;
 };
 
-// one ring slot of the refresh body: 64 keys of K and V (bf16, in the
-// body's layout), and (int8 problems) the staging bytes of a cold tile
-struct Slot {
-  bf16* K;
-  bf16* V;
-  int8_t* K8;
-  int8_t* V8;
-};
-
-// mask and visit list of the refresh kernels, in logical coordinates
-struct RefreshMask {
-  using KInfo = uint8_t;   // per key: its kv_valid byte
-  static constexpr bool COLD = false;   // no int8 staging slots
-  const int* qpos;         // (Sq,) logical query positions, -1 = padding
-  const uint8_t* kv_valid; // (B, n_tiles * TILE) logical validity
-  const int* tile_ids;     // (n_q_tiles, t_max) logical tiles to visit
-  const int* tile_count;   // (n_q_tiles,)
-  int n_tiles, t_max, causal, window;
-
-  __device__ int count(int, int iq) const { return tile_count[iq]; }
-  __device__ int tile(int, int iq, int it) const { return tile_ids[iq * t_max + it]; }
-  __device__ int q_info(int, int row) const { return qpos[row]; }
-  __device__ bool q_live(int qp) const { return !causal || qp >= 0; }
-  // the k_info of logical tile j's 128 keys, 16-byte aligned
-  __device__ const KInfo* k_info_row(int b, int j) const {
-    return kv_valid + ((long long)b * n_tiles + j) * TILE;
-  }
-  // the mask: the keys kp0 + [lo, hi] that row qp sees by position
-  // (causal, sliding window), and of those the ones whose k_info is live
-  __device__ int2 key_range(int qp, int kp0) const {
-    return make_int2(window >= 0 ? qp - window + 1 - kp0 : -(1 << 30),
-                     causal ? qp - kp0 : (1 << 30));
-  }
-  __device__ bool k_live(KInfo valid) const { return valid != 0; }
-  // after a slot's copies landed: a bf16 tile needs no further work
-  template <int D>
-  __device__ bool finish_kv(const Slot&, int, int, int, int, int) const { return false; }
-};
-
-// K/V rows [row0, row0 + BK) of kv head kvh -> shared memory (16-byte
-// loads); rows from n_valid on (past a ragged end) are zeros, never read
+// K/V rows [row0, row0 + BK) of kv head kvh -> shared memory (16-byte loads)
 template <int D>
 __device__ void load_rows(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v,
-                          long long row0, int Hkv, int kvh, int tid, int n_valid = BK) {
+                          long long row0, int Hkv, int kvh, int tid) {
   constexpr int LDH = Smem<D>::LDH;
   for (int i = tid; i < BK * D / 8; i += NTHREADS) {
     const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    uint4 rk = make_uint4(0, 0, 0, 0), rv = rk;
-    if (r < n_valid) {
-      const long long off = ((row0 + r) * Hkv + kvh) * D + c8;
-      rk = *reinterpret_cast<const uint4*>(k + off);
-      rv = *reinterpret_cast<const uint4*>(v + off);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * LDH + c8) = rk;
-    *reinterpret_cast<uint4*>(Vs + r * LDH + c8) = rv;
-  }
-}
-
-// an int8 cold group beside a bf16 slab: page ids >= n_hot address cold
-// page id - n_hot, dequantised int8 x scale[page, kv head] in f32 and
-// rounded to bf16 (the plain version's gathered value)
-struct ColdPages {
-  const int8_t* k8;        // (n_cold * TILE, Hkv, D)
-  const int8_t* v8;
-  const float* k_scale;    // (n_cold, Hkv)
-  const float* v_scale;
-  int n_hot;
-
-  // rows [c0, c0 + BK) of page `entry` (uniform over the block), loaded
-  // synchronously (the WMMA body)
-  template <int D>
-  __device__ void load(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int entry,
-                       int c0, int Hkv, int kvh, int tid) const {
-    if (entry < n_hot) {
-      load_rows<D>(Ks, Vs, k, v, (long long)entry * TILE + c0, Hkv, kvh, tid);
-      return;
-    }
-    constexpr int LDH = Smem<D>::LDH;
-    const int cp = entry - n_hot;
-    const float ks = k_scale[cp * Hkv + kvh], vs = v_scale[cp * Hkv + kvh];
-    for (int i = tid; i < BK * D / 8; i += NTHREADS) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      const long long off = (((long long)cp * TILE + c0 + r) * Hkv + kvh) * D + c8;
-      const uint2 rk = *reinterpret_cast<const uint2*>(k8 + off);
-      const uint2 rv = *reinterpret_cast<const uint2*>(v8 + off);
-      const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
-      const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
-      #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        Ks[r * LDH + c8 + t] = __float2bfloat16_rn((float)ek[t] * ks);
-        Vs[r * LDH + c8 + t] = __float2bfloat16_rn((float)ev[t] * vs);
-      }
-    }
-  }
-};
-
-// ---- asynchronous tile loads of the refresh body ----------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int MMA_THREADS = 256;   // 8 warps x 16 query rows
-constexpr int MMA_BK = 64;         // keys per step (one ring slot)
-
-// Where row r, columns [c8, c8 + 8) of a ring slot's K or V live (in
-// elements): ldmatrix reads rows padded by 16 bytes, so that eight rows
-// fall on distinct banks.
-template <int D>
-struct PaddedRows {
-  static constexpr int LDH = D + 8;
-  static constexpr int ELEMS = MMA_BK * LDH;
-  __device__ static int at(int r, int c8) { return r * LDH + c8; }
-};
-
-// K/V rows [row0, row0 + MMA_BK) of kv head kvh -> a slot, by cp.async
-template <int D>
-__device__ void async_rows(const Slot& st, const bf16* k, const bf16* v, long long row0,
-                           int Hkv, int kvh, int tid) {
-  for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
     const long long off = ((row0 + r) * Hkv + kvh) * D + c8;
-    cp_async16(st.K + PaddedRows<D>::at(r, c8), k + off);
-    cp_async16(st.V + PaddedRows<D>::at(r, c8), v + off);
+    *reinterpret_cast<uint4*>(Ks + r * LDH + c8) = *reinterpret_cast<const uint4*>(k + off);
+    *reinterpret_cast<uint4*>(Vs + r * LDH + c8) = *reinterpret_cast<const uint4*>(v + off);
   }
 }
-
-// per-stream caches: tile j of stream b is rows b * Sk + j * TILE
-struct Refresh : RefreshMask {
-  template <int D>
-  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
-                           int c0, int Hkv, int kvh, int tid) const {
-    async_rows<D>(st, k, v, ((long long)b * n_tiles + j) * TILE + c0, Hkv, kvh, tid);
-  }
-};
-
-// batchless slab: tile j of stream b is physical page pt[b, j]
-struct RefreshPaged : RefreshMask {
-  const int* pt;           // (B, n_tiles) physical page per logical tile
-
-  template <int D>
-  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
-                           int c0, int Hkv, int kvh, int tid) const {
-    async_rows<D>(st, k, v, (long long)pt[b * n_tiles + j] * TILE + c0, Hkv, kvh, tid);
-  }
-};
-
-// two-precision slab: entries >= n_hot are int8 cold pages.  A hot tile
-// takes the bf16 path; a cold tile's int8 bytes are copied into the
-// slot's staging area and dequantised into its bf16 rows once they landed
-struct RefreshPagedQuant : RefreshPaged {
-  static constexpr bool COLD = true;
-  ColdPages cold;
-
-  template <int D>
-  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
-                           int c0, int Hkv, int kvh, int tid) const {
-    const int entry = pt[b * n_tiles + j];
-    if (entry < cold.n_hot) {
-      async_rows<D>(st, k, v, (long long)entry * TILE + c0, Hkv, kvh, tid);
-      return;
-    }
-    const long long row0 = (long long)(entry - cold.n_hot) * TILE + c0;
-    for (int i = tid; i < MMA_BK * D / 16; i += MMA_THREADS) {
-      const int r = i / (D / 16), c16 = (i % (D / 16)) * 16;
-      const long long off = ((row0 + r) * Hkv + kvh) * D + c16;
-      cp_async16(st.K8 + r * D + c16, cold.k8 + off);
-      cp_async16(st.V8 + r * D + c16, cold.v8 + off);
-    }
-  }
-  // after the slot's copies landed (block-uniform): dequantise a cold
-  // tile into the slot's bf16 rows; true if the caller must synchronise
-  template <int D>
-  __device__ bool finish_kv(const Slot& st, int b, int j, int Hkv, int kvh, int tid) const {
-    const int entry = pt[b * n_tiles + j];
-    if (entry < cold.n_hot) return false;
-    const int cp = entry - cold.n_hot;
-    const float ks = cold.k_scale[cp * Hkv + kvh], vs = cold.v_scale[cp * Hkv + kvh];
-    for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      const uint2 rk = *reinterpret_cast<const uint2*>(st.K8 + r * D + c8);
-      const uint2 rv = *reinterpret_cast<const uint2*>(st.V8 + r * D + c8);
-      const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
-      const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
-      __align__(16) bf16 ok[8], ov[8];
-      #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        ok[t] = __float2bfloat16_rn((float)ek[t] * ks);
-        ov[t] = __float2bfloat16_rn((float)ev[t] * vs);
-      }
-      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ok);
-      *reinterpret_cast<uint4*>(st.V + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ov);
-    }
-    return true;
-  }
-};
 
 struct Packed {
-  static constexpr bool EXACT = false;
   const int* seg;          // (R, L) segment id per slot, -1 = padding
   const int* tile_ids;     // (R, L / TILE, t_max)
   const int* tile_count;   // (R, L / TILE)
@@ -349,79 +163,8 @@ struct Packed {
   }
   __device__ int q_info(int r, int row) const { return seg[r * L + row]; }
   __device__ bool q_live(int s) const { return s >= 0; }
-  __device__ bool uniform(int) const { return false; }
   __device__ int k_info(int r, int j, int c) const { return seg[r * L + j * TILE + c]; }
   __device__ bool mask(int sq, int sk, int) const { return sq >= 0 && sq == sk; }
-};
-
-// positional mask of the prefill kernels: query row i at i + q_offset,
-// key j at j; rows past Sq carry PAD.  The tiles a 128-row query tile
-// visits come from the band of its first and last row (the keys a row
-// can see, [k_lo, k_hi], move monotonically with its position, and rows
-// with none form a prefix (q position < 0 under causality) and a suffix
-// (a window past Sk), so the tile's end rows tell whether it has any).
-constexpr int PAD = -(1 << 30);
-
-struct PrefillMask {
-  static constexpr bool EXACT = true;    // f32 scores, P as bf16 hi + lo
-  int Sq, Sk, q_offset, causal, window, n_k_tiles;
-
-  __device__ int q_info(int, int row) const { return row < Sq ? row + q_offset : PAD; }
-  __device__ bool q_live(int qp) const { return qp != PAD; }
-  __device__ int k_lo(int qp) const { return window >= 0 ? max(0, qp - window + 1) : 0; }
-  __device__ int k_hi(int qp) const { return causal ? min(qp, Sk - 1) : Sk - 1; }
-  __device__ bool dead(int qp) const { return k_lo(qp) > k_hi(qp); }
-  // a row with no visible key: every key, one score (the oracle's uniform softmax)
-  __device__ bool uniform(int qp) const { return qp != PAD && dead(qp); }
-  __device__ int2 band(int iq) const {
-    const int p0 = iq * TILE + q_offset;
-    const int p1 = min(iq * TILE + TILE, Sq) - 1 + q_offset;
-    if (dead(p0) || dead(p1)) return make_int2(0, n_k_tiles);
-    return make_int2(k_lo(p0) / TILE, k_hi(p1) / TILE + 1);
-  }
-  __device__ int count(int, int iq) const { const int2 r = band(iq); return r.y - r.x; }
-  __device__ int tile(int, int iq, int it) const { return band(iq).x + it; }
-  __device__ int k_info(int, int j, int c) const { return j * TILE + c < Sk; }
-  __device__ bool mask(int qp, int valid, int kp) const {
-    if (!valid || qp == PAD) return false;
-    if (dead(qp)) return true;
-    bool m = true;
-    if (causal) m = m && kp <= qp;
-    if (window >= 0) m = m && kp > qp - window;
-    return m;
-  }
-};
-
-// per-stream K/V (B, Sk, Hkv, D), any Sk
-struct Prefill : PrefillMask {
-  template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    load_rows<D>(Ks, Vs, k, v, (long long)b * Sk + j * TILE + c0, Hkv, kvh, tid,
-                 Sk - (j * TILE + c0));
-  }
-};
-
-// batchless slab through the page table; Sk = n_pages * TILE
-struct PrefillPaged : PrefillMask {
-  const int* pt;           // (B, n_k_tiles) physical page per logical tile
-
-  template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    load_rows<D>(Ks, Vs, k, v, (long long)pt[b * n_k_tiles + j] * TILE + c0, Hkv, kvh, tid);
-  }
-};
-
-// two-precision slab: entries >= n_hot are int8 cold pages
-struct PrefillPagedQuant : PrefillPaged {
-  ColdPages cold;
-
-  template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int b,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    cold.load<D>(Ks, Vs, k, v, pt[b * n_k_tiles + j], c0, Hkv, kvh, tid);
-  }
 };
 
 template <int D, class P>
@@ -442,11 +185,6 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* l_s = reinterpret_cast<float*>(smem + L::l);
   int* qinfo = reinterpret_cast<int*>(smem + L::qi);
   int* kinfo = reinterpret_cast<int*>(smem + L::ki);
-  // P::EXACT: lo = bf16(p - hi) goes to this warp's rows of Ss (bf16 rows
-  // of 2 * LDS), which the softmax has read by the time it writes them
-  bf16* Plo = reinterpret_cast<bf16*>(smem + L::s);
-  constexpr int LDL = 2 * LDS;
-  const float qscale = P::EXACT ? 1.f : scale, sscale = P::EXACT ? scale : 1.f;
 
   const int iq = blockIdx.x >> 1;
   const int q0 = iq * TILE + (blockIdx.x & 1) * BQ;
@@ -457,26 +195,22 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
   bf16* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
 
-  // rows that no key can reach (padding) are exact zeros: skip the loop;
-  // rows from Sq on (a ragged end) are neither read nor written
-  const int n_rows = min(BQ, Sq - q0);
+  // rows that no key can reach (padding) are exact zeros: skip the loop
   const int live = tid < BQ ? prob.q_live(prob.q_info(b, q0 + tid)) : 0;
   if (!__syncthreads_or(live)) {
-    for (int i = tid; i < n_rows * D; i += NTHREADS)
+    for (int i = tid; i < BQ * D; i += NTHREADS)
       ob[(i / D) * q_stride + i % D] = __float2bfloat16_rn(0.f);
     return;
   }
 
-  // Q: scaled in f32 and rounded to bf16 (the refresh oracle's numerics),
-  // or copied as it is where the scale goes to the f32 scores (EXACT)
+  // Q, scaled in f32 and rounded to bf16 (the refresh oracle's numerics)
   for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
     const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    const uint4 raw = r < n_rows ? *reinterpret_cast<const uint4*>(qb + r * q_stride + c8)
-                                 : make_uint4(0, 0, 0, 0);
+    const uint4 raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
     const bf16* e = reinterpret_cast<const bf16*>(&raw);
     #pragma unroll
     for (int t = 0; t < 8; ++t)
-      Qs[r * LDH + c8 + t] = __float2bfloat16_rn(__bfloat162float(e[t]) * qscale);
+      Qs[r * LDH + c8 + t] = __float2bfloat16_rn(__bfloat162float(e[t]) * scale);
   }
   for (int i = tid; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
   if (tid < BQ) {
@@ -518,9 +252,8 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int kp = j * TILE + c0 + lane;
         const bool m0 = prob.mask(qi, kinfo[lane], kp);
         const bool m1 = prob.mask(qi, kinfo[lane + 32], kp + 32);
-        const bool flat = prob.uniform(qi);
-        const float x0 = m0 ? (flat ? 0.f : Ss[r * LDS + lane] * sscale) : NEG_INF;
-        const float x1 = m1 ? (flat ? 0.f : Ss[r * LDS + lane + 32] * sscale) : NEG_INF;
+        const float x0 = m0 ? Ss[r * LDS + lane] : NEG_INF;
+        const float x1 = m1 ? Ss[r * LDS + lane + 32] : NEG_INF;
         float mx = fmaxf(x0, x1);
         for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         const float m_old = m_s[r];
@@ -530,15 +263,8 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float sum = p0 + p1;
         for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
         const float corr = expf(m_old - m_new);
-        // every lane's x0, x1 entered the reductions above, so the row of Ss
-        // is read and its first half may take lo
-        const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
-        Ps[r * LDP + lane] = h0;
-        Ps[r * LDP + lane + 32] = h1;
-        if constexpr (P::EXACT) {
-          Plo[r * LDL + lane] = __float2bfloat16_rn(p0 - __bfloat162float(h0));
-          Plo[r * LDL + lane + 32] = __float2bfloat16_rn(p1 - __bfloat162float(h1));
-        }
+        Ps[r * LDP + lane] = __float2bfloat16_rn(p0);
+        Ps[r * LDP + lane + 32] = __float2bfloat16_rn(p1);
         for (int d = lane; d < D; d += 32) Os[r * LDO + d] *= corr;
         __syncwarp();
         if (lane == 0) {
@@ -560,10 +286,6 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           wmma::load_matrix_sync(fa, Ps + warp * 16 * LDP + kk * 16, LDP);
           wmma::load_matrix_sync(fb, Vs + kk * 16 * LDH + n * 16, LDH);
           wmma::mma_sync(acc, fa, fb, acc);
-          if constexpr (P::EXACT) {
-            wmma::load_matrix_sync(fa, Plo + warp * 16 * LDL + kk * 16, LDL);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
         }
         wmma::store_matrix_sync(Os + warp * 16 * LDO + n * 16, acc, LDO, wmma::mem_row_major);
       }
@@ -574,7 +296,6 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // out = acc / max(l, 1e-30): rows no key reached give exact zeros
   for (int rr = 0; rr < 16; ++rr) {
     const int r = warp * 16 + rr;
-    if (r >= n_rows) break;
     const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
     for (int d = lane; d < D; d += 32)
       ob[r * q_stride + d] = __float2bfloat16_rn(Os[r * LDO + d] * inv);
@@ -582,9 +303,9 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, class P>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int H, int Hkv, float scale, const P& prob,
-           cudaStream_t stream) {
+int launch_wmma(const void* q, const void* k, const void* v, void* out, int B,
+                int Sq, int H, int Hkv, float scale, const P& prob,
+                cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       attn_kernel<D, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -596,18 +317,271 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 template <class P>
-int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int H, int Hkv, float scale, const P& prob,
-             cudaStream_t stream) {
+int launch_wmma_d(int D, const void* q, const void* k, const void* v, void* out,
+                  int B, int Sq, int H, int Hkv, float scale, const P& prob,
+                  cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    case 64: return launch<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    case 128: return launch<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 32: return launch_wmma<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 64: return launch_wmma<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 128: return launch_wmma<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// ---- the refresh body: S, P and O in registers --------------------------
+// ---- the register body: asynchronous tile loads -------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+// the same, reading src_bytes (0 or 16) of src and zero-filling the rest
+__device__ __forceinline__ void cp_async16_fill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr int MMA_THREADS = 256;   // 8 warps x 16 query rows
+constexpr int MMA_BK = 64;         // keys per step (one ring slot)
+
+// one ring slot: 64 keys of K and V (bf16, in the body's layout), and
+// (int8 problems) the staging bytes of a cold tile
+struct Slot {
+  bf16* K;
+  bf16* V;
+  int8_t* K8;
+  int8_t* V8;
+};
+
+// Where row r, columns [c8, c8 + 8) of a ring slot's K or V live (in
+// elements): ldmatrix reads rows padded by 16 bytes, so that eight rows
+// fall on distinct banks.
+template <int D>
+struct PaddedRows {
+  static constexpr int LDH = D + 8;
+  static constexpr int ELEMS = MMA_BK * LDH;
+  __device__ static int at(int r, int c8) { return r * LDH + c8; }
+};
+
+// K/V rows [row0, row0 + MMA_BK) of kv head kvh -> a slot, by cp.async
+template <int D>
+__device__ void async_rows(const Slot& st, const bf16* k, const bf16* v, long long row0,
+                           int Hkv, int kvh, int tid) {
+  for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+    const long long off = ((row0 + r) * Hkv + kvh) * D + c8;
+    cp_async16(st.K + PaddedRows<D>::at(r, c8), k + off);
+    cp_async16(st.V + PaddedRows<D>::at(r, c8), v + off);
+  }
+}
+
+// an int8 cold group beside a bf16 slab: page ids >= n_hot address cold
+// page id - n_hot, dequantised int8 x scale[page, kv head] in f32 and
+// rounded to bf16 (the plain version's gathered value).  A cold tile's
+// bytes are copied into the slot's staging area (fetch) and widened into
+// its bf16 rows once they landed (finish).
+struct ColdPages {
+  const int8_t* k8;        // (n_cold * TILE, Hkv, D)
+  const int8_t* v8;
+  const float* k_scale;    // (n_cold, Hkv)
+  const float* v_scale;
+  int n_hot;
+
+  // rows [c0, c0 + MMA_BK) of cold entry `entry` -> the slot's staging bytes
+  template <int D>
+  __device__ void fetch(const Slot& st, int entry, int c0, int Hkv, int kvh, int tid) const {
+    const long long row0 = (long long)(entry - n_hot) * TILE + c0;
+    for (int i = tid; i < MMA_BK * D / 16; i += MMA_THREADS) {
+      const int r = i / (D / 16), c16 = (i % (D / 16)) * 16;
+      const long long off = ((row0 + r) * Hkv + kvh) * D + c16;
+      cp_async16(st.K8 + r * D + c16, k8 + off);
+      cp_async16(st.V8 + r * D + c16, v8 + off);
+    }
+  }
+  // after the slot's copies landed (block-uniform): dequantise a cold
+  // tile into the slot's bf16 rows; true if the caller must synchronise
+  template <int D>
+  __device__ bool finish(const Slot& st, int entry, int Hkv, int kvh, int tid) const {
+    if (entry < n_hot) return false;
+    const int cp = entry - n_hot;
+    const float ks = k_scale[cp * Hkv + kvh], vs = v_scale[cp * Hkv + kvh];
+    for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      const uint2 rk = *reinterpret_cast<const uint2*>(st.K8 + r * D + c8);
+      const uint2 rv = *reinterpret_cast<const uint2*>(st.V8 + r * D + c8);
+      const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
+      const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
+      __align__(16) bf16 ok[8], ov[8];
+      #pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        ok[t] = __float2bfloat16_rn((float)ek[t] * ks);
+        ov[t] = __float2bfloat16_rn((float)ev[t] * vs);
+      }
+      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ok);
+      *reinterpret_cast<uint4*>(st.V + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ov);
+    }
+    return true;
+  }
+};
+
+// a query tile's visit list, computed once per block: n key tiles, the
+// it-th of which is the problem struct's tile(visits, it): entry first +
+// it of a host list (refresh maps) or tile first + it of a band (prefill).
+// (An index, not a pointer: a pointer held over the loop took 10 more
+// registers at D 128.)
+struct Visits {
+  int first, n;
+};
+
+// mask and visit list of the refresh kernels, in logical coordinates
+struct RefreshMask {
+  static constexpr bool COLD = false;      // no int8 staging slots
+  static constexpr bool KEY_BITS = true;   // kv_valid: a live bit per key
+  static constexpr bool EXACT = false;     // the refresh oracle's numerics
+  const int* qpos;         // (Sq,) logical query positions, -1 = padding
+  const uint8_t* kv_valid; // (B, n_tiles * TILE) logical validity
+  const int* tile_ids;     // (n_q_tiles, t_max) logical tiles to visit
+  const int* tile_count;   // (n_q_tiles,)
+  int n_tiles, t_max, causal, window;
+
+  __device__ int q_tile(int bx) const { return bx; }
+  __device__ Visits visits(int, int iq) const { return {iq * t_max, tile_count[iq]}; }
+  __device__ int tile(const Visits& vs, int it) const { return tile_ids[vs.first + it]; }
+  __device__ int q_info(int, int row) const { return qpos[row]; }
+  __device__ bool q_live(int qp) const { return !causal || qp >= 0; }
+  // the kv_valid bytes of logical tile j's 128 keys, 16-byte aligned
+  __device__ const uint8_t* k_info_row(int b, int j) const {
+    return kv_valid + ((long long)b * n_tiles + j) * TILE;
+  }
+  // the mask: the keys kp0 + [lo, hi] that row qp sees by position
+  // (causal, sliding window), and of those the ones whose kv_valid is live
+  __device__ int2 key_range(int qp, int kp0) const {
+    return make_int2(window >= 0 ? qp - window + 1 - kp0 : -(1 << 30),
+                     causal ? qp - kp0 : (1 << 30));
+  }
+  __device__ bool k_live(uint8_t valid) const { return valid != 0; }
+  // after a slot's copies landed: a bf16 tile needs no further work
+  template <int D>
+  __device__ bool finish_kv(const Slot&, int, int, int, int, int) const { return false; }
+};
+
+// per-stream caches: tile j of stream b is rows b * Sk + j * TILE
+struct Refresh : RefreshMask {
+  template <int D>
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    async_rows<D>(st, k, v, ((long long)b * n_tiles + j) * TILE + c0, Hkv, kvh, tid);
+  }
+};
+
+// batchless slab: tile j of stream b is physical page pt[b, j]
+struct RefreshPaged : RefreshMask {
+  const int* pt;           // (B, n_tiles) physical page per logical tile
+
+  __device__ int page(int b, int j) const { return pt[b * n_tiles + j]; }
+  template <int D>
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    async_rows<D>(st, k, v, (long long)page(b, j) * TILE + c0, Hkv, kvh, tid);
+  }
+};
+
+// positional mask of the prefill kernels: query row i at i + q_offset,
+// key j at j.  Row qp sees the keys [k_lo, k_hi]; both move monotonically
+// with qp, and rows that see none form a prefix (a position < 0 under
+// causality) and a suffix (a window past Sk), so a query tile's first
+// and last rows give the band of key tiles it visits.
+struct PrefillMask {
+  static constexpr bool COLD = false;
+  static constexpr bool KEY_BITS = false;  // the positional range is the whole mask
+  static constexpr bool EXACT = true;      // the prefill oracle's numerics
+  int Sq, Sk, q_offset, causal, window, n_k_tiles;
+
+  // longest first: causal query tile iq visits iq + 1 key tiles
+  __device__ int q_tile(int bx) const { return gridDim.x - 1 - bx; }
+  __device__ int q_info(int, int row) const { return row + q_offset; }
+  __device__ bool q_live(int) const { return true; }
+  __device__ int k_lo(int qp) const { return window >= 0 ? max(0, qp - window + 1) : 0; }
+  __device__ int k_hi(int qp) const { return causal ? min(qp, Sk - 1) : Sk - 1; }
+  __device__ bool dead(int qp) const { return k_lo(qp) > k_hi(qp); }
+  __device__ int tile(const Visits& vs, int it) const { return vs.first + it; }
+  __device__ Visits visits(int, int iq) const {
+    const int p0 = iq * TILE + q_offset;
+    const int p1 = min(iq * TILE + TILE, Sq) - 1 + q_offset;
+    if (dead(p0) || dead(p1)) return {0, n_k_tiles};
+    const int first = k_lo(p0) / TILE;
+    return {first, k_hi(p1) / TILE + 1 - first};
+  }
+  // the keys kp0 + [lo, hi] that row qp sees; a row with none sees every
+  // key below Sk (with one score: the oracle's uniform softmax)
+  __device__ int2 key_range(int qp, int kp0) const {
+    const int lo = k_lo(qp), hi = k_hi(qp);
+    return lo > hi ? make_int2(-kp0, Sk - 1 - kp0) : make_int2(lo - kp0, hi - kp0);
+  }
+  template <int D>
+  __device__ bool finish_kv(const Slot&, int, int, int, int, int) const { return false; }
+};
+
+// per-stream K/V (B, Sk, Hkv, D), any Sk: key rows from Sk on (a ragged
+// end) are zero-filled by the copy, which reads nothing for them
+struct Prefill : PrefillMask {
+  template <int D>
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    const int key0 = j * TILE + c0;
+    for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      const bool in = key0 + r < Sk;
+      const long long off = (((long long)b * Sk + (in ? key0 + r : 0)) * Hkv + kvh) * D + c8;
+      cp_async16_fill(st.K + PaddedRows<D>::at(r, c8), k + off, in ? 16 : 0);
+      cp_async16_fill(st.V + PaddedRows<D>::at(r, c8), v + off, in ? 16 : 0);
+    }
+  }
+};
+
+// batchless slab through the page table; Sk = n_pages * TILE
+struct PrefillPaged : PrefillMask {
+  const int* pt;           // (B, n_k_tiles) physical page per logical tile
+
+  __device__ int page(int b, int j) const { return pt[b * n_k_tiles + j]; }
+  template <int D>
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    async_rows<D>(st, k, v, (long long)page(b, j) * TILE + c0, Hkv, kvh, tid);
+  }
+};
+
+// two-precision slab: entries >= n_hot are int8 cold pages.  A hot tile
+// takes the bf16 path; a cold tile goes through ColdPages' staging copy
+// and dequantisation.
+template <class Paged>
+struct WithColdPages : Paged {
+  static constexpr bool COLD = true;
+  ColdPages cold;
+
+  template <int D>
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    const int entry = this->page(b, j);
+    if (entry < cold.n_hot)
+      async_rows<D>(st, k, v, (long long)entry * TILE + c0, Hkv, kvh, tid);
+    else
+      cold.fetch<D>(st, entry, c0, Hkv, kvh, tid);
+  }
+  template <int D>
+  __device__ bool finish_kv(const Slot& st, int b, int j, int Hkv, int kvh, int tid) const {
+    return cold.finish<D>(st, this->page(b, j), Hkv, kvh, tid);
+  }
+};
+using RefreshPagedQuant = WithColdPages<RefreshPaged>;
+using PrefillPagedQuant = WithColdPages<PrefillPaged>;
+
+// ---- the register body: S, P and O in registers -------------------------
 // mma.sync m16n8k16, each warp its 16 rows, K and V through ldmatrix; a
 // warp's S and O accumulators are m16n8 tiles, and S becomes P's A
 // fragment in place.
@@ -650,7 +624,7 @@ struct MmaSmem {
   static constexpr int LDQ = D + 8;      // padded query rows (ldmatrix)
   static constexpr int STAGES = 3;
   static constexpr size_t slot_kv = sizeof(bf16) * PaddedRows<D>::ELEMS;
-  static constexpr size_t slot_ki = sizeof(typename P::KInfo) * MMA_BK;
+  static constexpr size_t slot_ki = P::KEY_BITS ? MMA_BK : 0;   // kv_valid bytes
   static constexpr size_t slot_i8 = P::COLD ? MMA_BK * D : 0;
   static constexpr size_t q = 0;
   static constexpr size_t k = q + sizeof(bf16) * TILE * LDQ;
@@ -663,28 +637,31 @@ struct MmaSmem {
 
 template <int D, class P>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
-refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int H,
-               int Hkv, float scale, P prob) {
+mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int H,
+           int Hkv, float scale, P prob) {
   using L = MmaSmem<D, P>;
-  using KInfo = typename P::KInfo;
   constexpr int LDQ = L::LDQ, STAGES = L::STAGES;
   constexpr int SPT = TILE / MMA_BK;     // steps per visited tile
   constexpr int NT = MMA_BK / 8;         // n8 tiles of S per step
   constexpr int DT = D / 8;              // n8 tiles of O
   constexpr int KC = D / 16;             // k16 chunks of Q K^T
-  constexpr int KI_COPIES = MMA_BK * sizeof(KInfo) / 16;
+  constexpr int KI_COPIES = MMA_BK / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  KInfo* Ki = reinterpret_cast<KInfo*>(smem + L::ki);
+  uint8_t* Ki = reinterpret_cast<uint8_t*>(smem + L::ki);
   auto slot = [&](int i) {
     return Slot{reinterpret_cast<bf16*>(smem + L::k + i * L::slot_kv),
                 reinterpret_cast<bf16*>(smem + L::v + i * L::slot_kv),
                 reinterpret_cast<int8_t*>(smem + L::k8 + i * L::slot_i8),
                 reinterpret_cast<int8_t*>(smem + L::v8 + i * L::slot_i8)};
   };
+  // the query's factor before QK^T, and the scores' factor in exp(x - m) =
+  // 2^(x c - m c): the refresh oracle scales the query, EXACT the scores
+  const float qscale = P::EXACT ? 1.f : scale;
+  const float c2 = P::EXACT ? scale * LOG2E : LOG2E;
 
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int iq = prob.q_tile(blockIdx.x), h = blockIdx.y, b = blockIdx.z;
   const int q0 = iq * TILE;
   const int kvh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -706,14 +683,16 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // the ring: step s = visited tile s / SPT, keys (s % SPT) * MMA_BK.., in
   // slot s % STAGES; one commit group per step (empty past the end)
-  const int n_steps = prob.count(b, iq) * SPT;
+  const auto tiles = prob.visits(b, iq);
+  const int n_steps = tiles.n * SPT;
   auto fetch = [&](int s) {
     if (s < n_steps) {
-      const int j = prob.tile(b, iq, s / SPT), c0 = (s % SPT) * MMA_BK;
+      const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * MMA_BK;
       prob.template fetch_kv<D>(slot(s % STAGES), k, v, b, j, c0, Hkv, kvh, tid);
-      if (tid < KI_COPIES)
-        cp_async16(Ki + (s % STAGES) * MMA_BK + tid * (16 / sizeof(KInfo)),
-                   prob.k_info_row(b, j) + c0 + tid * (16 / sizeof(KInfo)));
+      if constexpr (P::KEY_BITS) {
+        if (tid < KI_COPIES)
+          cp_async16(Ki + (s % STAGES) * MMA_BK + tid * 16, prob.k_info_row(b, j) + c0 + tid * 16);
+      }
     }
     cp_async_commit();
   };
@@ -728,9 +707,16 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool ok0 = r0 < n_rows && prob.q_live(qp0);
   const bool ok1 = r1 < n_rows && prob.q_live(qp1);
   const bool compute = __any_sync(0xffffffffu, ok0 || ok1);
+  // EXACT: rows with no visible key (their scores become one constant)
+  bool dead0 = false, dead1 = false, any_dead = false;
+  if constexpr (P::EXACT) {
+    dead0 = ok0 && prob.dead(qp0);
+    dead1 = ok1 && prob.dead(qp1);
+    any_dead = __any_sync(0xffffffffu, dead0 || dead1);
+  }
 
-  // Q, scaled in f32 and rounded to bf16 (the refresh oracle's numerics),
-  // while the first tiles are in flight; then each warp's fragments
+  // Q, times qscale in f32 and rounded to bf16, while the first tiles are
+  // in flight; then each warp's fragments
   for (int i = tid; i < TILE * D / 8; i += MMA_THREADS) {
     const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
@@ -738,7 +724,7 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* e = reinterpret_cast<const bf16*>(&raw);
     __align__(16) bf16 sc[8];
     #pragma unroll
-    for (int t = 0; t < 8; ++t) sc[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * scale);
+    for (int t = 0; t < 8; ++t) sc[t] = __float2bfloat16_rn(__bfloat162float(e[t]) * qscale);
     *reinterpret_cast<uint4*>(Qs + r * LDQ + c8) = *reinterpret_cast<const uint4*>(sc);
   }
   __syncthreads();
@@ -756,7 +742,7 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<STAGES - 2>();
     __syncthreads();             // step s landed; step s - 1's slot is free
     fetch(s + STAGES - 1);
-    const int j = prob.tile(b, iq, s / SPT), c0 = (s % SPT) * MMA_BK;
+    const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * MMA_BK;
     const Slot st = slot(s % STAGES);
     if (prob.template finish_kv<D>(st, b, j, Hkv, kvh, tid)) __syncthreads();
     if (!compute) continue;
@@ -776,15 +762,23 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma16816(sc + 8 * np + 4, qf[kc], kb[2], kb[3]);
       }
     }
+    if constexpr (P::EXACT) {
+      if (any_dead) {
+        #pragma unroll
+        for (int i = 0; i < NT * 4; ++i) sc[i] = ((i & 2) ? dead1 : dead0) ? 0.f : sc[i];
+      }
+    }
 
     // mask: a row sees the columns of its positional range whose key is
     // live; one 64-bit mask per row and step (bit c: column kp0 + c),
     // masked scores are -inf, so the masked multiply p = mask ? exp(s -
     // m) : 0 gives exact zeros
-    const KInfo* kin = Ki + (s % STAGES) * MMA_BK;
-    const uint64_t live_keys =
-        ((uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane + 32])) << 32 |
-         __ballot_sync(0xffffffffu, prob.k_live(kin[lane]))) >> (2 * t4);
+    uint64_t live_keys = ~0ull;
+    if constexpr (P::KEY_BITS) {
+      const uint8_t* kin = Ki + (s % STAGES) * MMA_BK;
+      live_keys = ((uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane + 32])) << 32 |
+                   __ballot_sync(0xffffffffu, prob.k_live(kin[lane]))) >> (2 * t4);
+    }
     const int kp0 = j * TILE + c0 + 2 * t4;     // this thread's column 0
     const uint64_t vis0 = ok0 ? live_keys & span_bits(prob.key_range(qp0, kp0)) : 0;
     const uint64_t vis1 = ok1 ? live_keys & span_bits(prob.key_range(qp1, kp0)) : 0;
@@ -804,14 +798,14 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // exp(x - m) = 2^(x log2e - m log2e); a row with nothing visible yet
-    // keeps m = -inf and subtracts 0 (its p are exp(-inf) = 0); an
-    // unchanged max gives corr = 2^0 = 1 exactly (both products rounded)
+    // exp(x - m) = 2^(x c2 - m c2); a row with nothing visible yet keeps
+    // m = -inf and subtracts 0 (its p are exp(-inf) = 0); an unchanged
+    // max gives corr = 2^0 = 1 exactly (both products rounded)
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float ms0 = mn0 == -INFINITY ? 0.f : __fmul_rn(mn0, LOG2E);
-    const float ms1 = mn1 == -INFINITY ? 0.f : __fmul_rn(mn1, LOG2E);
-    const float corr0 = ex2(__fmul_rn(m0, LOG2E) - ms0);
-    const float corr1 = ex2(__fmul_rn(m1, LOG2E) - ms1);
+    const float ms0 = mn0 == -INFINITY ? 0.f : __fmul_rn(mn0, c2);
+    const float ms1 = mn1 == -INFINITY ? 0.f : __fmul_rn(mn1, c2);
+    const float corr0 = ex2(__fmul_rn(m0, c2) - ms0);
+    const float corr1 = ex2(__fmul_rn(m1, c2) - ms1);
     #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
       o[4 * dn] *= corr0;
@@ -825,10 +819,10 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     #pragma unroll
     for (int n = 0; n < NT; ++n) {
       float* x = sc + 4 * n;
-      x[0] = ex2(fmaf(x[0], LOG2E, -ms0));
-      x[1] = ex2(fmaf(x[1], LOG2E, -ms0));
-      x[2] = ex2(fmaf(x[2], LOG2E, -ms1));
-      x[3] = ex2(fmaf(x[3], LOG2E, -ms1));
+      x[0] = ex2(fmaf(x[0], c2, -ms0));
+      x[1] = ex2(fmaf(x[1], c2, -ms0));
+      x[2] = ex2(fmaf(x[2], c2, -ms1));
+      x[3] = ex2(fmaf(x[3], c2, -ms1));
       sum0 += x[0] + x[1];
       sum1 += x[2] + x[3];
     }
@@ -847,6 +841,15 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     #pragma unroll
     for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      // EXACT: P's second bf16 half for the same keys, lo = bf16(p - hi)
+      // (a bf16 widens to f32 by a 16-bit shift)
+      [[maybe_unused]] uint32_t pl[4];
+      if constexpr (P::EXACT) {
+        #pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pl[i] = pack_bf16(sc[8 * kk + 2 * i] - __uint_as_float(pa[kk][i] << 16),
+                            sc[8 * kk + 2 * i + 1] - __uint_as_float(pa[kk][i] & 0xffff0000u));
+      }
       #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vb[4];
@@ -854,6 +857,10 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                dp * 16 + (lane >> 4) * 8));
         mma16816(o + 8 * dp, pa[kk], vb[0], vb[1]);
         mma16816(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
+        if constexpr (P::EXACT) {
+          mma16816(o + 8 * dp, pl, vb[0], vb[1]);
+          mma16816(o + 8 * dp + 4, pl, vb[2], vb[3]);
+        }
       }
     }
   }
@@ -878,25 +885,25 @@ refresh_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, class P>
-int launch_refresh(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+               int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
   const size_t smem = MmaSmem<D, P>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      refresh_kernel<D, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mma_kernel<D, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  refresh_kernel<D, P><<<grid, MMA_THREADS, smem, stream>>>(
+  mma_kernel<D, P><<<grid, MMA_THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, H, Hkv, scale, prob);
   return (int)cudaGetLastError();
 }
 
 template <class P>
-int launch_refresh_d(int D, const void* q, const void* k, const void* v, void* out, int B,
-                     int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
+int launch_mma_d(int D, const void* q, const void* k, const void* v, void* out, int B,
+                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch_refresh<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    case 64: return launch_refresh<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    case 128: return launch_refresh<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 32: return launch_mma<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 64: return launch_mma<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+    case 128: return launch_mma<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -914,7 +921,7 @@ CS_EXPORT int cs_attn_refresh_bf16(
     int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal,
     int window, float scale, cudaStream_t stream) {
   Refresh prob{{q_pos, kv_valid, tile_ids, tile_count, n_tiles, t_max, causal, window}};
-  return launch_refresh_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // As cs_attn_refresh_bf16 over k, v: (P_phys, Hkv, D) bf16 slab through
@@ -925,7 +932,7 @@ CS_EXPORT int cs_attn_refresh_paged_bf16(
     const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,
     int t_max, int causal, int window, float scale, cudaStream_t stream) {
   RefreshPaged prob{{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt};
-  return launch_refresh_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // As cs_attn_refresh_paged_bf16, with k, v the hot slab (n_hot * 128, Hkv,
@@ -941,7 +948,7 @@ CS_EXPORT int cs_attn_refresh_paged_int8(
   RefreshPagedQuant prob{
       {{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt},
       {k8, v8, k_scale, v_scale, n_hot}};
-  return launch_refresh_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // q, out: (R, L, H, D) bf16, L % 128 == 0; k, v: (R, L, Hkv, D) bf16;
@@ -952,7 +959,7 @@ CS_EXPORT int cs_attn_packed_bf16(const void* q, const void* k, const void* v,
                                   int Hkv, int D, int t_max, float scale,
                                   cudaStream_t stream) {
   Packed prob{seg, tile_ids, tile_count, L, L / TILE, t_max};
-  return launch_d(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);
+  return launch_wmma_d(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);
 }
 
 // q, out: (B, Sq, H, D) bf16; k, v: (B, Sk, Hkv, D) bf16 (any Sq, Sk).
@@ -962,7 +969,7 @@ CS_EXPORT int cs_attn_prefill_bf16(const void* q, const void* k, const void* v,
                                    int D, int q_offset, int causal, int window,
                                    float scale, cudaStream_t stream) {
   Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};
-  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // q, out: (B, Sq, H, D) bf16 (any Sq); k, v: (P_phys, Hkv, D) bf16 slab;
@@ -972,7 +979,7 @@ CS_EXPORT int cs_attn_prefill_paged_bf16(const void* q, const void* k, const voi
                                          int Hkv, int D, int n_pages, int q_offset,
                                          int window, float scale, cudaStream_t stream) {
   PrefillPaged prob{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt};
-  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
 // As cs_attn_prefill_paged_bf16, with k, v the hot slab (n_hot * 128, Hkv,
@@ -985,5 +992,5 @@ CS_EXPORT int cs_attn_prefill_paged_int8(
     int window, float scale, cudaStream_t stream) {
   PrefillPagedQuant prob{{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt},
                          {k8, v8, k_scale, v_scale, n_hot}};
-  return launch_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
+  return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }

@@ -2,7 +2,8 @@
 the kernels.
 
 Three kernels of ``csrc/attention.cu`` (problem structs ``Prefill``,
-``PrefillPaged``, ``PrefillPagedQuant`` on the shared attention body):
+``PrefillPaged``, ``PrefillPagedQuant`` on the register body
+``mma_kernel`` that the refresh kernels use):
 
   * ``cs_attn_prefill_bf16`` replaces the TPU kernel
     ``repro/kernels/flash_prefill.py:flash_prefill_pallas``

@@ -379,7 +379,11 @@ def test_page_ids_out_of_range_raise_on_card(dev):
 # ----------------------------------------------------------------------
 # (Sq, Sk, H, Hkv, D, causal, window, q_offset): causal from 0, a chunk at
 # an offset, a window, bidirectional, rows with no visible key (a
-# negative offset; a window past Sk), ragged Sq and Sk
+# negative offset; a window past Sk), ragged Sq and Sk; keys ending part
+# way through a 64-key step; five causal query tiles at internvl3-14b's
+# GQA ratio 5 : 1; a window whose lower edge falls inside a step; tiles
+# that mix rows with and without visible keys across warps (a prefix, and
+# a suffix past Sk)
 PREFILL = {
     "causal": (256, 256, 8, 2, 128, True, None, 0),
     "chunk-offset": (128, 384, 4, 1, 64, True, None, 256),
@@ -388,6 +392,11 @@ PREFILL = {
     "dead-prefix": (256, 256, 4, 2, 128, True, None, -70),
     "window-past-sk": (200, 128, 4, 2, 32, False, 16, 100),
     "ragged": (200, 300, 8, 2, 128, True, 150, 50),
+    "sk-200-mid-step": (200, 200, 8, 2, 128, True, None, 0),
+    "sk-330-mid-step": (256, 330, 4, 2, 64, False, None, 0),
+    "gqa-5to1-five-tiles": (640, 640, 10, 2, 128, True, None, 0),
+    "window-edge-mid-step": (512, 600, 8, 2, 128, True, 160, 88),
+    "dead-suffix-mixed": (256, 300, 4, 2, 128, False, 64, 200),
 }
 
 
@@ -418,19 +427,23 @@ def test_flash_prefill_rows_without_keys_are_the_mean_of_v(dev):
             <= PREFILL_ROW_TOL)
 
 
-# (Sq, n_pages, H, Hkv, D, window, q_offset, cold)
+# (Sq, n_pages, H, Hkv, D, window, q_offset, cold (stream, page) entries;
+# none: the bf16 kernel)
+INT8_COLD = ((0, 0), (1, 1), (1, 0))
 PREFILL_PAGED = {
-    "fresh": (384, 3, 8, 2, 128, None, 0, False),
-    "offset-window": (128, 4, 4, 1, 64, 200, 300, False),
-    "ragged": (100, 2, 4, 2, 32, None, 150, False),
-    "int8": (384, 3, 8, 2, 128, None, 0, True),
-    "int8-offset": (128, 4, 4, 2, 64, None, 384, True),
+    "fresh": (384, 3, 8, 2, 128, None, 0, ()),
+    "offset-window": (128, 4, 4, 1, 64, 200, 300, ()),
+    "ragged": (100, 2, 4, 2, 32, None, 150, ()),
+    "int8": (384, 3, 8, 2, 128, None, 0, INT8_COLD),
+    "int8-offset": (128, 4, 4, 2, 64, None, 384, INT8_COLD),
+    # the last query tile's diagonal page cold in both streams
+    "int8-cold-diagonal": (384, 3, 10, 2, 128, None, 0, ((0, 2), (1, 2), (0, 1))),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PREFILL_PAGED))
 def test_flash_prefill_paged_kernel_matches_plain(dev, case):
-    Sq, n_pages, H, Hkv, D, window, off, quant = PREFILL_PAGED[case]
+    Sq, n_pages, H, Hkv, D, window, off, cold_at = PREFILL_PAGED[case]
     rng = np.random.default_rng(18)
     n_hot = 2 * n_pages + 1
     q = _bf16(rng, 2, Sq, H, D)
@@ -438,8 +451,9 @@ def test_flash_prefill_paged_kernel_matches_plain(dev, case):
     pt = torch.from_numpy(rng.permutation(n_hot)[: 2 * n_pages].reshape(2, n_pages)
                           .astype(np.int32))
     name = "flash_prefill_paged"
-    if quant:
-        pt[0, 0], pt[1, 1], pt[1, 0] = n_hot, n_hot + 1, n_hot + 2
+    if cold_at:
+        for i, (b, j) in enumerate(cold_at):
+            pt[b, j] = n_hot + i
         name = "flash_prefill_paged_int8"
     else:
         cold = None
@@ -450,6 +464,25 @@ def test_flash_prefill_paged_kernel_matches_plain(dev, case):
     assert ops.launch_counts()[name] == before + 1
     out_p = flash_prefill_paged_plain(q, hk, hv, pt, window=window, q_offset=off, cold=cold)
     assert _row_rel_err(out_k, out_p) <= PREFILL_ROW_TOL
+
+
+def test_flash_prefill_reads_no_key_row_past_sk(dev):
+    """k and v are views of buffers whose rows from Sk on are NaN: the
+    kernel must neither read them nor let them reach the output."""
+    rng = np.random.default_rng(20)
+    Sk = 200
+    big_k, big_v = _bf16(rng, 1, Sk + 72, 2, 128), _bf16(rng, 1, Sk + 72, 2, 128)
+    big_k[:, Sk:], big_v[:, Sk:] = float("nan"), float("nan")
+    q = _bf16(rng, 1, Sk, 8, 128)
+    k, v = big_k[:, :Sk], big_v[:, :Sk]
+    assert k.is_contiguous() and v.is_contiguous()
+    big_k, big_v = big_k.to(dev), big_v.to(dev)
+    for causal in (True, False):
+        out_k = flash_prefill_cuda(q.to(dev), big_k[:, :Sk], big_v[:, :Sk],
+                                   causal=causal).cpu()
+        assert torch.isfinite(out_k.float()).all()
+        out_p = flash_prefill_plain(q, k, v, causal=causal)
+        assert _row_rel_err(out_k, out_p) <= PREFILL_ROW_TOL
 
 
 def test_flash_prefill_paged_int8_all_hot_is_bitwise_bf16(dev):

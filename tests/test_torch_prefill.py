@@ -97,6 +97,25 @@ def test_rows_without_keys_are_the_mean_of_v():
     torch.testing.assert_close(out, v.mean(1, keepdim=True).expand(1, 16, 2, 32))
 
 
+@pytest.mark.parametrize("S,H,Hkv", [(96, 4, 2), (130, 10, 2)])
+def test_sdpa_is_causal_equals_the_masked_yardstick(S, H, Hkv):
+    """``chip_smoke.py`` times SDPA's ``is_causal`` call beside the masked
+    one where they compute the same function (q_offset 0, Sq == Sk, no
+    window): both equal the prefill oracles (f32, 1e-5 of the output
+    scale: sums in another order)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import flash_prefill_ref
+    (q, k, v), (qj, kj, vj) = operands([(2, S, H, 32), (2, S, Hkv, 32), (2, S, Hkv, 32)],
+                                       "float32", seed=S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    masked = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    causal = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    close(causal.transpose(1, 2), masked.transpose(1, 2), 1e-5)
+    close(causal.transpose(1, 2), flash_prefill_ref(q, k, v), 1e-5)
+    close(causal.transpose(1, 2), jref.flash_prefill_ref(qj, kj, vj), 1e-5)
+
+
 def _quant_group(rng, n_cold, hkv, d):
     k8, v8 = (rng.integers(-127, 128, size=(n_cold * 128, hkv, d)).astype(np.int8)
               for _ in range(2))
