@@ -2,6 +2,15 @@
 """Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only ssd_scan,mv_sad [--src DIR]
+
+With no arguments it runs every phase below.  ``--only`` runs phases 1-3
+for the named kernels' checks alone (names as in the kernels line) and
+prints their rows and the card's line, with no serve phase and no
+contract line; ``--src`` drives the ``repro_torch`` of another checkout's
+``src`` directory (built there), so an earlier commit unpacked with
+``git archive`` can be timed in the same call: parent, change, change,
+parent.
 
 Phases (any failure exits non-zero):
 
@@ -29,9 +38,15 @@ Phases (any failure exits non-zero):
                of 21 pages per stream int8, and all hot, bitwise equal to
                bf16), with the stated tolerance; kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
-               is paged; none for ssd_scan) times from CUDA events; the
-               least time the card could take (bytes over 3.35 TB/s,
-               operations over the peak rate of their type).  Then the
+               is paged; none for ssd_scan) times from CUDA events around
+               calls made one by one (``ms``: the wrapper's host time
+               counts where it is longer than the launch); for ssd_scan
+               and mv_sad also ``device_ms``, the device time per launch
+               from a replayed CUDA graph over inputs cycled past the L2
+               cache; the least time the card could take (bytes
+               over 3.35 TB/s, operations over the peak rate of their
+               type: bf16 tensor cores for ssd_scan, with the f32 CUDA
+               cores' figure printed beside it).  Then the
                LM head: lm_logits at internvl3-14b's head width, untied
                and tied, against the f32 product of its bf16 operands
                (it must keep the f32 result, not a bf16 one).
@@ -75,6 +90,7 @@ checks and their timing loops; counts set to 0 just before it).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -85,7 +101,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12
@@ -128,12 +143,14 @@ ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
 
 def kernel_label(mangled: str) -> str:
     """body<D, problem struct> of an attention kernel's mangled name
-    ("+cold": the struct with int8 cold pages); other names unchanged."""
+    ("+cold": the struct with int8 cold pages), name<n> of another kernel
+    templated on one integer; other names unchanged."""
     body = next((b for b in ("mma_kernel", "attn_kernel") if b in mangled), None)
     d = re.search(r"ILi(\d+)E", mangled)
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
     if body is None or d is None or struct is None:
-        return mangled
+        m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
     cold = "+cold" if "WithColdPages" in mangled else ""
     return f"{body}<{d.group(1)}, {struct}{cold}>"
 
@@ -165,6 +182,41 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+L2_BYTES = 50 * 2 ** 20          # H100 L2 cache
+
+
+def device_ms(torch, fn, args, in_bytes: float, replays: int = 5) -> float:
+    """Device time per launch of ``fn(*args)``: launches over enough
+    copies of ``args`` that their ``in_bytes`` each pass twice the L2
+    cache (so each launch reads its inputs from device memory, as the
+    serving path does), captured in one CUDA graph and replayed, timed
+    with CUDA events.  No host time between launches enters, where
+    ``cuda_ms``, which times the calls one by one on the same inputs,
+    also counts the wrapper's host time when that is longer."""
+    n = max(8, int(-(-2 * L2_BYTES // max(in_bytes, 1))))
+    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                       for _ in range(n - 1)]
+    for cp in copies[:2]:
+        fn(*cp)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for cp in copies:
+            fn(*cp)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * n)
+    del graph, copies
+    return ms
 
 
 def attn_errors(torch, out_k, out_p):
@@ -206,18 +258,21 @@ def check_mv_sad(torch, videos):
     mv_ok = bool((~flipped | near_tie).all())
     err = float((sad_k - sad_p).abs().max())
     ok = mv_ok and bool(((sad_k - sad_p).abs() <= tol).all())
-    ms = cuda_ms(torch, lambda: mv_sad_cuda(cur, prev, block, radius), 50)
-    plain = cuda_ms(torch, lambda: mv_sad_plain(cur, prev, block, radius), 10)
     H, W = cur.shape
+    ms = cuda_ms(torch, lambda: mv_sad_cuda(cur, prev, block, radius), 50)
+    dev_ms = device_ms(torch, lambda a, b: mv_sad_cuda(a, b, block, radius), (cur, prev),
+                       2 * H * W * 4)
+    plain = cuda_ms(torch, lambda: mv_sad_plain(cur, prev, block, radius), 10)
     n_bytes = 2 * H * W * 4 + hb * wb * (2 * 4 + 4)
     b_ms, b_by = bound_ms(n_bytes, 3 * H * W * (2 * radius + 1) ** 2, F32_FLOPS)
     log(f"mv_sad: {H}x{W} f32, {hb}x{wb} blocks, radius {radius}: "
         f"max |dSAD| {err:.3g} (tol 1e-4 x SAD), MVs flipped {int(flipped.sum())} "
-        f"(all near ties: {mv_ok}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"(all near ties: {mv_ok}); kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
+        f"device), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return ok, dict(name="mv_sad", route="cuda", source="src/repro_torch/csrc/mv_sad.cu",
                     replaces="src/repro/kernels/mv_sad.py:50", max_abs_err=err,
-                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None)
 
 
 def check_rope_shift(torch, cfg, layout, n_streams):
@@ -556,7 +611,9 @@ def check_ssd_scan(torch):
     values that differ by the summation order.  The f32 state within
     1e-4 of each (b, head) state's largest value: sums of up to 256
     terms and the cumulative log-decay in another order (a block scan
-    against a sequential cumsum), the latter entering through exp.  The
+    against a sequential cumsum), the latter entering through exp; the
+    kernel's f32 factors enter the tensor-core products as bf16 hi + lo
+    (about 16 bits, 2^-17 relative per product).  The
     kernels line reports the fresh window's times (its longest launch on
     the path) and the largest error."""
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain, ssd_scan_work
@@ -583,22 +640,34 @@ def check_ssd_scan(torch):
             torch.finfo(torch.float32).tiny)).max())
         err = max(y_err, float(s_d.max()))
         worst = max(worst, err)
-        ms = cuda_ms(torch, lambda: ssd_scan_cuda(x, la, b, c, init, chunk), 10)
-        plain = cuda_ms(torch, lambda: ssd_scan_plain(x, la, b, c, init, chunk), 3)
         flops, n_bytes = ssd_scan_work(L, H, P, G, N, chunk, B)
-        b_ms, b_by = bound_ms(n_bytes, flops, F32_FLOPS)
+        in_bytes = sum(t.numel() * t.element_size() for t in (x, la, b, c, init)
+                       if t is not None)
+        ms = cuda_ms(torch, lambda: ssd_scan_cuda(x, la, b, c, init, chunk), 10)
+        dev_ms = device_ms(torch, lambda *a: ssd_scan_cuda(*a, chunk), (x, la, b, c, init),
+                           in_bytes)
+        plain = cuda_ms(torch, lambda: ssd_scan_plain(x, la, b, c, init, chunk), 3)
+        # the products run on the tensor cores: the bound is the larger of
+        # the bytes and the flops at the bf16 rate; the f32 CUDA-core
+        # figure of the first port is printed beside it
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
+        f32_ms = flops / F32_FLOPS * 1e3
         here = y_rel <= 2.0 ** -7 and s_rel <= 1e-4
         log(f"ssd_scan ({label}): x {tuple(x.shape)} bf16, b/c {tuple(b.shape)} bf16, "
             f"chunk {chunk}, init {'yes' if with_init else 'zeros'}: y max abs err "
             f"{y_err:.3g}, row-relative {y_rel:.3g} (limit {2.0 ** -7:.3g}); state max abs "
             f"err {float(s_d.max()):.3g}, relative {s_rel:.3g} (limit 1e-4); kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"{flops / 1e9:.4g} GFLOP f32, {n_bytes / 1e6:.4g} MB)")
+            f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}): bytes "
+            f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({n_bytes / 1e6:.4g} MB), bf16 "
+            f"tensor {flops / BF16_TENSOR_FLOPS * 1e3:.4f} ms ({flops / 1e9:.4g} GFLOP); "
+            f"f32 CUDA cores {f32_ms:.4f} ms")
         ok = ok and here
         if label == "fresh window":
             row = dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
                        replaces="src/repro/kernels/ssd_scan.py:74", max_abs_err=err, ms=ms,
-                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
     row["max_abs_err"] = worst
     return ok, row
 
@@ -934,7 +1003,15 @@ def serve_ssm(torch):
     return ok, by_path
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernel names: their checks alone (phases 1-3)")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose repro_torch is driven")
+    args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -989,17 +1066,25 @@ def main() -> int:
         ("selective refresh", pipe.layout, pipe.cache_slots, "selective refresh"),
         ("decode", pipe.layout, pipe.cache_slots, "decode"),
     )
-    results = [
-        check_mv_sad(torch, videos),
-        check_rope_shift(torch, cfg, pipe.layout, len(videos)),
-        check_flash_refresh_paged(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
-        check_flash_packed(torch, pipe, streams),
-        check_flash_refresh(torch, cfg, stream_cases, len(videos)),
-        check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
-        check_ssd_scan(torch),
-        check_flash_prefill(torch, cfg, pipe.layout.total_len, len(videos)),
-        *check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, len(videos)),
-    ]
+    n = len(videos)
+    checks = {   # kernel name -> its check; flash_prefill_paged's covers the int8 row too
+        "mv_sad": lambda: [check_mv_sad(torch, videos)],
+        "rope_shift": lambda: [check_rope_shift(torch, cfg, pipe.layout, n)],
+        "flash_refresh_paged": lambda: [
+            check_flash_refresh_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)],
+        "flash_packed": lambda: [check_flash_packed(torch, pipe, streams)],
+        "flash_refresh": lambda: [check_flash_refresh(torch, cfg, stream_cases, n)],
+        "flash_refresh_paged_int8": lambda: [
+            check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n)],
+        "ssd_scan": lambda: [check_ssd_scan(torch)],
+        "flash_prefill": lambda: [check_flash_prefill(torch, cfg, pipe.layout.total_len, n)],
+        "flash_prefill_paged": lambda: check_flash_prefill_paged(
+            torch, cfg, pipe.layout, pipe.cache_slots, n),
+    }
+    if only - set(checks):
+        log(f"FAIL: --only names no check: {sorted(only - set(checks))}")
+        return 1
+    results = [r for name, run in checks.items() if not only or name in only for r in run()]
     phase_launches = ops.launch_counts()
     del streams, unpruned
     gc.collect()
@@ -1008,6 +1093,10 @@ def main() -> int:
     if not all(ok for ok, _ in results):
         log("FAIL: a kernel disagrees with its plain version")
         return 1
+    if only:
+        print(json.dumps({"kernels": rows}))
+        print(smi)
+        return 0
     if not check_lm_head(torch, cfg, pipe.params):
         log("FAIL: lm_logits does not keep the head product's f32 result")
         return 1

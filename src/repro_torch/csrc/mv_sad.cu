@@ -1,79 +1,127 @@
 // mv_sad: full-search block matching for the codec ingest stage.
 //
 // Replaces the TPU kernel repro/kernels/mv_sad.py:mv_sad_pallas.  One
-// thread block per macroblock, one thread per pixel of it.  The block
-// stages its (block + 2r)^2 reference band in shared memory with clamped
-// indices (the edge padding of the reference, without a padded copy),
-// then walks the (2r+1)^2 candidates in dy-major order: each warp sums
-// its pixels' |cur - ref| with shuffles and parks the partial sum; one
-// thread adds the partials and keeps the best candidate under a strict
-// '<', so the first minimum wins as in the plain version.
+// thread block per macroblock and one thread per candidate MV.  The block
+// stages the macroblock and its (block + 2r)^2 reference band in shared
+// memory once, the band with clamped indices (the edge padding of the
+// reference, without a padded copy).  Each thread sums its candidate's
+// block^2 values |cur - ref| in registers (four running sums, one per
+// column mod 4).  The first minimum in dy-major order under a strict '<'
+// is then a reduction on (SAD, index) pairs, the smaller index winning a
+// tie: a shuffle reduction in each warp and one short step across the
+// warps, so no thread walks the candidates alone.
+//
+// Bank conflicts: the lanes of a warp hold consecutive candidates idx =
+// dy * n_cand + dx and read the band at dy * ldr + dx from a common
+// pixel.  The row stride ldr is padded to n_cand (mod 32), so those words
+// are idx apart mod 32 and no two lanes share a bank; the macroblock's
+// pixels are broadcast float4 reads.
 //
 // Bound on an H100: bytes.  Each frame pair is read once (2 x H x W x 4
-// bytes) and 81 candidates cost 3 flops a pixel, about 243 flops per
-// 8 bytes: far below the card's ratio, and a 448^2 frame is only 784
-// blocks, so the launch itself dominates.  The design keeps every
-// reread in shared memory and makes one pass over device memory.
+// bytes) and 81 candidates cost 3 flops a pixel, about 30 flops per
+// byte, far below the card's ratio; a 448^2 frame moves 1.6 MB in 784
+// blocks, so launch latency is the practical floor.
 #include "common.cuh"
 
-__global__ void mv_sad_kernel(const float* __restrict__ cur,
-                              const float* __restrict__ prev, int H, int W,
-                              int block, int radius, int* __restrict__ mv,
-                              float* __restrict__ sad) {
-  extern __shared__ float smem[];
-  const int band = block + 2 * radius;
-  const int n_cand = 2 * radius + 1;
+namespace {
+
+// BLOCK: the macroblock edge (16, the codec's), or 0 for the runtime argument
+template <int BLOCK>
+__global__ void mv_sad_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
+                              int H, int W, int block_arg, int radius, int ldr,
+                              int* __restrict__ mv, float* __restrict__ sad) {
+  extern __shared__ __align__(16) float smem[];
+  const int block = BLOCK ? BLOCK : block_arg;
+  const int band = block + 2 * radius, n_cand = 2 * radius + 1;
   const int n_warps = blockDim.x >> 5;
-  float* ref = smem;                    // band * band
-  float* part = smem + band * band;     // n_cand^2 * n_warps
-  const int bx = blockIdx.x, by = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int ty = tid / block, tx = tid % block;
+  float* cs = smem;                                        // block x block
+  float* ref = cs + block * block;                         // band rows of ldr
+  float* red_sad = ref + band * ldr;                       // per warp
+  int* red_idx = reinterpret_cast<int*>(red_sad + n_warps);
+  const int bx = blockIdx.x, by = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int y0 = by * block - radius, x0 = bx * block - radius;
+  for (int i = tid; i < block * block; i += blockDim.x)
+    cs[i] = cur[(size_t)(by * block + i / block) * W + bx * block + i % block];
   for (int i = tid; i < band * band; i += blockDim.x) {
     const int yy = min(max(y0 + i / band, 0), H - 1);
     const int xx = min(max(x0 + i % band, 0), W - 1);
-    ref[i] = prev[(size_t)yy * W + xx];
-  }
-  const float c = cur[(size_t)(by * block + ty) * W + bx * block + tx];
-  __syncthreads();
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int idx = 0; idx < n_cand * n_cand; ++idx) {
-    const int dy = idx / n_cand, dx = idx % n_cand;
-    float d = fabsf(c - ref[(ty + dy) * band + tx + dx]);
-    for (int o = 16; o > 0; o >>= 1) d += __shfl_down_sync(0xffffffffu, d, o);
-    if (lane == 0) part[idx * n_warps + warp] = d;
+    ref[(i / band) * ldr + i % band] = prev[(size_t)yy * W + xx];
   }
   __syncthreads();
-  if (tid == 0) {
-    float best = __int_as_float(0x7f800000);  // +inf
-    int best_idx = 0;
-    for (int idx = 0; idx < n_cand * n_cand; ++idx) {
-      float s = 0.f;
-      for (int w = 0; w < n_warps; ++w) s += part[idx * n_warps + w];
-      if (s < best) {
-        best = s;
-        best_idx = idx;
+
+  // this thread's candidate (dy, dx) = divmod(tid, n_cand); threads past
+  // the last one carry +inf
+  float best = __int_as_float(0x7f800000);
+  int bi = tid;
+  if (tid < n_cand * n_cand) {
+    const float* rr = ref + (tid / n_cand) * ldr + tid % n_cand;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    #pragma unroll 2
+    for (int r = 0; r < block; ++r) {
+      #pragma unroll
+      for (int c = 0; c < block; c += 4) {
+        const float4 cv = *reinterpret_cast<const float4*>(cs + r * block + c);
+        const float* rf = rr + r * ldr + c;
+        acc[0] += fabsf(cv.x - rf[0]);
+        acc[1] += fabsf(cv.y - rf[1]);
+        acc[2] += fabsf(cv.z - rf[2]);
+        acc[3] += fabsf(cv.w - rf[3]);
       }
     }
-    const int o = by * (W / block) + bx;
-    mv[2 * o] = best_idx / n_cand - radius;
-    mv[2 * o + 1] = best_idx % n_cand - radius;
-    sad[o] = best;
+    best = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+
+  // argmin over (SAD, index), the smaller index winning a tie
+  auto reduce = [&](float& s, int& i) {
+    #pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+      const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+      if (s2 < s || (s2 == s && i2 < i)) {
+        s = s2;
+        i = i2;
+      }
+    }
+  };
+  reduce(best, bi);
+  if (lane == 0) {
+    red_sad[warp] = best;
+    red_idx[warp] = bi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < n_warps ? red_sad[lane] : __int_as_float(0x7f800000);
+    bi = lane < n_warps ? red_idx[lane] : 0x7fffffff;
+    reduce(best, bi);
+    if (lane == 0) {
+      const int o = by * (W / block) + bx;
+      mv[2 * o] = bi / n_cand - radius;
+      mv[2 * o + 1] = bi % n_cand - radius;
+      sad[o] = best;
+    }
   }
 }
 
-// cur, prev: (H, W) f32; mv: (H/block, W/block, 2) i32; sad: (H/block, W/block) f32.
-// block * block threads per macroblock: block * block must be a multiple of
-// 32 and at most 1024 (the Python wrapper checks).
+}  // namespace
+
+// cur, prev: (H, W) f32; mv: (H/block, W/block, 2) i32; sad: (H/block,
+// W/block) f32.  block a multiple of 4; (2 radius + 1)^2 <= 1024 threads,
+// rounded up to whole warps.  kernels/mv_sad.py:launch_geometry gives the
+// same threads and shared bytes (and checks them).
 CS_EXPORT int cs_mv_sad_f32(const float* cur, const float* prev, int H, int W,
                             int block, int radius, int* mv, float* sad,
                             cudaStream_t stream) {
-  const int threads = block * block;
   const int band = block + 2 * radius;
   const int n_cand = 2 * radius + 1;
-  const size_t smem = sizeof(float) * (band * band + n_cand * n_cand * (threads / 32));
+  const int ldr = band + ((n_cand - band) % 32 + 32) % 32;
+  const int threads = (n_cand * n_cand + 31) / 32 * 32;
+  if (block % 4 != 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (block * block + band * ldr + 2 * (threads / 32));
   dim3 grid(W / block, H / block);
-  mv_sad_kernel<<<grid, threads, smem, stream>>>(cur, prev, H, W, block, radius, mv, sad);
+  if (block == 16)
+    mv_sad_kernel<16><<<grid, threads, smem, stream>>>(cur, prev, H, W, block, radius, ldr, mv, sad);
+  else
+    mv_sad_kernel<0><<<grid, threads, smem, stream>>>(cur, prev, H, W, block, radius, ldr, mv, sad);
   return (int)cudaGetLastError();
 }

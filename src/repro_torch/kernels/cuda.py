@@ -154,7 +154,9 @@ def library() -> ctypes.CDLL:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card as a raw handle (no Stream object
+    is made: every launch of every layer calls this)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(rc: int, name: str) -> None:

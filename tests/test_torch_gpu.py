@@ -86,7 +86,8 @@ def _sad_at(cur, prev, mv, block):
     return (cur.double() - pred).abs().reshape(hb, block, wb, block).sum(dim=(1, 3))
 
 
-@pytest.mark.parametrize("hw,block,radius", [(448, 16, 4), (112, 16, 4), (64, 8, 2)])
+@pytest.mark.parametrize("hw,block,radius", [(448, 16, 4), (112, 16, 4), (64, 8, 2),
+                                             (224, 16, 7)])
 def test_mv_sad_kernel_matches_plain(dev, hw, block, radius):
     cur, prev = _frames(hw, hw)
     mv_k, sad_k = mv_sad_cuda(cur.to(dev), prev.to(dev), block, radius)
@@ -97,6 +98,23 @@ def test_mv_sad_kernel_matches_plain(dev, hw, block, radius):
     # near-tie rule: a flipped MV must have the same SAD within 1e-5
     tie = (_sad_at(cur, prev, mv_k, block) - _sad_at(cur, prev, mv_p, block)).abs()
     assert bool((~flipped | (tie <= 1e-5 * sad_p.double().clamp(min=1))).all())
+
+
+def test_mv_sad_exact_ties_keep_the_first_minimum(dev):
+    """Frames that repeat every 4 pixels, integer-valued: every SAD is
+    exact in any summation order, and candidates 4 apart tie exactly
+    inside the frame.  The kernel must return the plain version's first
+    minimum in dy-major order (strict '<') at every macroblock."""
+    rng = np.random.default_rng(7)
+    prev = np.tile(rng.integers(0, 256, (4, 4)), (28, 28)).astype(np.float32)
+    cur = np.tile(rng.integers(0, 256, (4, 4)), (28, 28)).astype(np.float32)
+    cur, prev = torch.from_numpy(cur), torch.from_numpy(prev)
+    mv_k, sad_k = mv_sad_cuda(cur.to(dev), prev.to(dev), 16, 4)
+    mv_p, sad_p = ref.mv_sad_ref(cur, prev, 16, 4)
+    assert torch.equal(sad_k.cpu(), sad_p)
+    assert torch.equal(mv_k.cpu(), mv_p)
+    # inside the frame the winner is the first of its class of ties
+    assert bool((mv_p[1:-1, 1:-1] < 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -531,7 +549,11 @@ def _state_rel_err(st_k, st_p):
 
 # (B, L, H, P, G, N, chunk, init): the serving shapes of mamba2-2.7b (a
 # fresh window, an incremental one, the query), a long prefill over whole
-# chunks and a ragged one, groups G > 1 at a small width
+# chunks and a ragged one, groups G > 1 at a small width; P below, equal
+# to and past the kernel's 32-row slice (16, 24, 32, 48: the last slice
+# ragged at 24 and 48); every state width N (16, 64, 128) at short and
+# long chunks; L 1, and L 17 (one chunk of 17 rows over two 16-row
+# tiles, or chunks of 16 with a ragged last chunk of one step)
 SSD = {
     "fresh-160": (2, 160, 80, 64, 1, 128, 256, True),
     "step-40": (2, 40, 80, 64, 1, 128, 256, True),
@@ -540,6 +562,16 @@ SSD = {
     "ragged-1000": (1, 1000, 16, 64, 1, 128, 256, True),
     "groups-2": (2, 100, 8, 32, 2, 16, 16, True),
     "groups-4": (1, 77, 8, 32, 4, 64, 32, False),
+    "p16": (2, 60, 8, 16, 1, 64, 32, True),
+    "p32-n128": (2, 60, 8, 32, 1, 128, 64, True),
+    "p48-ragged-slice": (1, 200, 4, 48, 1, 128, 256, True),
+    "p24-ragged-slice": (2, 50, 4, 24, 1, 64, 64, True),
+    "n16-long-chunk": (1, 300, 8, 64, 1, 16, 256, True),
+    "n64-long-chunk": (1, 200, 8, 64, 1, 64, 128, False),
+    "len-1": (2, 1, 8, 64, 1, 128, 256, True),
+    "len-17": (2, 17, 8, 64, 1, 128, 256, True),
+    "len-17-chunk-16": (2, 17, 8, 32, 1, 16, 16, False),
+    "groups-4-h8-init": (2, 70, 8, 64, 4, 128, 32, True),
 }
 
 
@@ -554,6 +586,21 @@ def test_ssd_scan_kernel_matches_plain(dev, case):
     assert ops.launch_counts()["ssd_scan"] == before + 1
     y_p, st_p = ssd_scan_plain(x, la, b, c, init, chunk)
     assert y_k.dtype == torch.bfloat16 and st_k.dtype == torch.float32
+    assert _row_rel_err(y_k.cpu(), y_p) <= 2.0 ** -7
+    assert _state_rel_err(st_k.cpu(), st_p) <= 1e-4
+
+
+def test_ssd_scan_masked_decay_does_not_overflow_to_nan(dev):
+    """log_a down to -100 a step: cum falls by thousands over the chunk,
+    so exp(cum_t - cum_s) overflows f32 wherever s > t.  The kernel forms
+    it only where s <= t, so y and the state stay finite and agree with
+    the plain version."""
+    rng = np.random.default_rng(24)
+    x, la, b, c, init = _ssd_operands(rng, 2, 40, 8, 64, 1, 128)
+    la = la * 100.0
+    y_k, st_k = ssd_scan_cuda(x.to(dev), la.to(dev), b.to(dev), c.to(dev), init.to(dev), 256)
+    y_p, st_p = ssd_scan_plain(x, la, b, c, init, 256)
+    assert bool(torch.isfinite(y_k).all()) and bool(torch.isfinite(st_k).all())
     assert _row_rel_err(y_k.cpu(), y_p) <= 2.0 ** -7
     assert _state_rel_err(st_k.cpu(), st_p) <= 1e-4
 
@@ -587,6 +634,16 @@ def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
     long = [t.to(dev) for t in _ssd_operands(rng, 1, 1024, 4, 32, 1, 16, with_init=False)[:4]]
     with pytest.raises(KernelError, match="chunk"):
         ops.ssd_scan(*long, chunk=512)
+    wide = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 32)]
+    with pytest.raises(KernelError, match="state width"):
+        ops.ssd_scan(*wide, chunk=16)
+    narrow = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 12, 1, 16)]
+    with pytest.raises(KernelError, match="multiple of 8"):
+        ops.ssd_scan(*narrow, chunk=16)
+    conv = torch.zeros(1, 16, 33, device=dev, dtype=torch.bfloat16)   # b, c 2 bytes in
+    bc = [conv[..., i:i + 16].reshape(1, 16, 1, 16) for i in (1, 17)]
+    with pytest.raises(KernelError, match="aligned"):
+        ops.ssd_scan(x, la, *bc, init, 16)
     assert ops.launch_counts().get("ssd_scan", 0) == before
     ops.ssd_scan(x, la, b, c, init, 16)
     assert ops.launch_counts()["ssd_scan"] == before + 1

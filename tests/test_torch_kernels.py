@@ -30,6 +30,8 @@ from repro.kernels.flash_refresh import (  # noqa: E402
 from repro.kernels.mv_sad import mv_sad_pallas  # noqa: E402
 from repro.kernels.rope_shift import rope_shift_pallas  # noqa: E402
 from repro_torch.kernels import cuda, ops, ref  # noqa: E402
+from repro_torch.kernels.mv_sad import SMEM_LIMIT as MV_SAD_SMEM_LIMIT  # noqa: E402
+from repro_torch.kernels.mv_sad import launch_geometry as mv_sad_launch_geometry  # noqa: E402
 from repro_torch.kernels.flash_packed import (  # noqa: E402
     build_pack_map, dense_pack_map, flash_packed_plain,
 )
@@ -105,6 +107,23 @@ def test_mv_sad_plain_keeps_first_minimum():
     flat = np.full((32, 32), 7.0, np.float32)
     mv, sad = ref.mv_sad_ref(t(flat), t(flat), 16, 2)
     assert (mv.numpy() == -2).all() and (sad.numpy() == 0).all()
+
+
+@pytest.mark.parametrize("block", [8, 16])
+@pytest.mark.parametrize("radius", [2, 3, 4, 5, 6, 7])
+def test_mv_sad_launch_geometry(block, radius):
+    """One thread per candidate in whole warps, within 1024 threads and
+    the 48 KB of shared memory a block gets without opting in; the band's
+    row stride is padded to n_cand (mod 32), so the 32 consecutive
+    candidates of a warp read 32 distinct banks."""
+    threads, ldr, smem = mv_sad_launch_geometry(block, radius)
+    n_cand, band = 2 * radius + 1, block + 2 * radius
+    assert n_cand ** 2 <= threads < n_cand ** 2 + 32 and threads % 32 == 0 and threads <= 1024
+    assert smem <= MV_SAD_SMEM_LIMIT
+    assert band <= ldr < band + 32 and ldr % 32 == n_cand % 32
+    banks = {(dy * ldr + dx) % 32 for dy in range(n_cand) for dx in range(n_cand)
+             if dy * n_cand + dx < 32}
+    assert len(banks) == min(32, n_cand ** 2)
 
 
 # ----------------------------------------------------------------------

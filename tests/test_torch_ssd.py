@@ -33,8 +33,11 @@ from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.registry import all_configs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.ssd_scan import scan_chunk, ssd_scan_work  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    SMEM_LIMIT, STATE_WIDTHS, launch_geometry, scan_chunk, ssd_scan_work,
+)
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.init import from_numpy_tree  # noqa: E402
 
@@ -171,6 +174,32 @@ def test_scan_chunk_and_work():
     flops, n_bytes = ssd_scan_work(160, 80, 64, 1, 128, 256, B=2)
     assert flops == 2 * 80 * (160 * 161 * (128 + 64) + 4.0 * 160 * 64 * 128)
     assert n_bytes == 2 * 160 * (80 * 64 * 4 + 80 * 4 + 2 * 128 * 2) + 2 * 2 * 80 * 64 * 128 * 4
+
+
+SSM_ARCHS = sorted(n for n, c in all_configs().items() if c.ssm is not None)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS + [f"{n}-smoke" for n in SSM_ARCHS])
+def test_ssd_launch_geometry_fits_every_ssm_config(arch):
+    """The kernel's shared memory stays within the 227 KB a block may use
+    on an H100 at every chunk q 1..256 of each SSM configuration's head
+    width P and state width N, and the kernel is built for that N."""
+    cfg = get_config(arch)
+    s = cfg.ssm
+    P, N, H = s.head_dim, s.d_state, s.n_heads(cfg.d_model)
+    assert N in STATE_WIDTHS and P % 8 == 0
+    worst = max(launch_geometry(2, H, P, N, q)[2] for q in range(1, 257))
+    assert worst <= SMEM_LIMIT, (arch, worst)
+    grid, threads, smem = launch_geometry(2, H, P, N, s.chunk)
+    assert grid == (-(-P // 32), H, 2) and threads == 256 and smem <= worst
+
+
+def test_ssd_launch_geometry_at_mamba2_serving_shapes():
+    """mamba2-2.7b (P 64, N 128, H 80, 2 streams): 320 blocks of two P
+    slices; 106 KB at chunk 256, so two blocks fit one SM's 228 KB."""
+    assert launch_geometry(2, 80, 64, 128, 256) == ((2, 80, 2), 256, 108_576)
+    assert launch_geometry(2, 80, 64, 128, 8)[2] == 36_192
+    assert 2 * (launch_geometry(2, 80, 64, 128, 256)[2] + 1024) <= 228 * 1024
 
 
 # ----------------------------------------------------------------------
