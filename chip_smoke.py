@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only ssd_scan,mv_sad [--src DIR]
+    python3 chip_smoke.py --only flash_packed,rope_shift [--src DIR]
 
 With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
@@ -36,14 +36,18 @@ Phases (any failure exits non-zero):
                SDPA's is_causal timed beside the masked call where it is
                the same function) and flash_prefill_paged (a shuffled slab, bf16 and with 15
                of 21 pages per stream int8, and all hot, bitwise equal to
-               bf16), with the stated tolerance; kernel, plain and library
+               bf16), and flash_packed at three packings of window 0's
+               24 P-frames (the serve path's, busy: every frame keeps its
+               whole budget, mixed: seeded random budgets), with the
+               stated tolerance; kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
                is paged; none for ssd_scan) times from CUDA events around
                calls made one by one (``ms``: the wrapper's host time
-               counts where it is longer than the launch); for ssd_scan
-               and mv_sad also ``device_ms``, the device time per launch
-               from a replayed CUDA graph over inputs cycled past the L2
-               cache; the least time the card could take (bytes
+               counts where it is longer than the launch); for ssd_scan,
+               mv_sad, flash_packed and rope_shift also ``device_ms``, the
+               device time per launch from a replayed CUDA graph over
+               inputs cycled past the L2 cache; the least time the card
+               could take (bytes
                over 3.35 TB/s, operations over the peak rate of their
                type: bf16 tensor cores for ssd_scan, with the f32 CUDA
                cores' figure printed beside it).  Then the
@@ -142,17 +146,16 @@ ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
 
 
 def kernel_label(mangled: str) -> str:
-    """body<D, problem struct> of an attention kernel's mangled name
+    """mma_kernel<D, problem struct> of an attention kernel's mangled name
     ("+cold": the struct with int8 cold pages), name<n> of another kernel
     templated on one integer; other names unchanged."""
-    body = next((b for b in ("mma_kernel", "attn_kernel") if b in mangled), None)
     d = re.search(r"ILi(\d+)E", mangled)
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
-    if body is None or d is None or struct is None:
+    if "mma_kernel" not in mangled or d is None or struct is None:
         m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", mangled)
         return f"{m.group(1)}<{m.group(2)}>" if m else mangled
     cold = "+cold" if "WithColdPages" in mangled else ""
-    return f"{body}<{d.group(1)}, {struct}{cold}>"
+    return f"mma_kernel<{d.group(1)}, {struct}{cold}>"
 
 
 def ptxas_kernels(text: str):
@@ -187,15 +190,17 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 L2_BYTES = 50 * 2 ** 20          # H100 L2 cache
 
 
-def device_ms(torch, fn, args, in_bytes: float, replays: int = 5) -> float:
+def device_ms(torch, fn, args, in_bytes: float, replays: int = 5,
+              min_copies: int = 8) -> float:
     """Device time per launch of ``fn(*args)``: launches over enough
-    copies of ``args`` that their ``in_bytes`` each pass twice the L2
-    cache (so each launch reads its inputs from device memory, as the
-    serving path does), captured in one CUDA graph and replayed, timed
-    with CUDA events.  No host time between launches enters, where
-    ``cuda_ms``, which times the calls one by one on the same inputs,
-    also counts the wrapper's host time when that is longer."""
-    n = max(8, int(-(-2 * L2_BYTES // max(in_bytes, 1))))
+    copies of ``args`` (at least ``min_copies``) that their ``in_bytes``
+    each pass twice the L2 cache (so each launch reads its inputs from
+    device memory, as the serving path does), captured in one CUDA graph
+    and replayed, timed with CUDA events.  No host time between launches
+    enters, where ``cuda_ms``, which times the calls one by one on the
+    same inputs, also counts the wrapper's host time when that is
+    longer."""
+    n = max(min_copies, int(-(-2 * L2_BYTES // max(in_bytes, 1))))
     copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
                        for _ in range(n - 1)]
     for cp in copies[:2]:
@@ -291,17 +296,20 @@ def check_rope_shift(torch, cfg, layout, n_streams):
     err = float(d.max())
     excess = float((d - 2.0 ** -7 * out_p.float().abs()).max())
     ms = cuda_ms(torch, lambda: rope_shift_cuda(k, delta, cfg.rope_theta), 20)
+    # k alone is 377 MB, past the L2 many times over: two graph copies
+    dev_ms = device_ms(torch, lambda a, b: rope_shift_cuda(a, b, cfg.rope_theta), (k, delta),
+                       k.numel() * 2, min_copies=2)
     plain = cuda_ms(torch, lambda: rope_shift_plain(k, delta, cfg.rope_theta), 5)
     n_bytes = 2 * k.numel() * 2 + delta.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 3 * k.numel(), F32_FLOPS)
     log(f"rope_shift: k {tuple(k.shape)} bf16, delta {-sh}: max abs err {err:.3g}; "
-        f"max (|k-p| - 2^-7 |p|) {excess:.3g} (limit 1e-3); kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"max (|k-p| - 2^-7 |p|) {excess:.3g} (limit 1e-3); kernel {ms:.4f} ms per call "
+        f"({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return excess <= 1e-3, dict(name="rope_shift", route="cuda",
                             source="src/repro_torch/csrc/rope_shift.cu",
                             replaces="src/repro/kernels/rope_shift.py:40",
-                            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None)
+                            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 REFRESH_CASES = ("fresh prefill", "selective refresh", "decode")
@@ -531,49 +539,90 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
                                       "src/repro/kernels/flash_refresh.py:380", r)
 
 
-def check_flash_packed(torch, pipe, streams):
-    import torch.nn.functional as F
+def packings(torch, pipe, streams):
+    """(label, PackPlan) of the three packings flash_packed is held at,
+    all of the 24 P-frames of window 0 of both streams: the serve path's
+    own (its motion masks), busy (every frame keeps its whole budget of
+    capacity groups: select_tokens on all-dynamic masks) and mixed (each
+    frame keeps a count of groups drawn from a seeded generator in [1,
+    budget], so segments share rows and cross 128-slot tiles)."""
+    import numpy as np
     from repro_torch.core import motion_mask, pack_plan, select_tokens
-    from repro_torch.kernels.flash_packed import flash_packed_cuda, flash_packed_plain
     lay, v = pipe.layout, pipe.v
-    metas, frames = [], []
-    for cs in streams:
-        wf, wm, _ = pipe.frontend.window(cs, 0)
-        frames.append(wf)
-        metas.append(wm)
+    metas = [pipe.frontend.window(cs, 0)[1] for cs in streams]
     p_idx = [f for f in range(lay.window) if not lay.frame_is_i(f)]
     dyn, sco = zip(*(motion_mask(m, pipe.ecfg.codec, v.patches_per_side) for m in metas))
     dsel = torch.stack(dyn)[:, p_idx].flatten(0, 1)
     ssel = torch.stack(sco)[:, p_idx].flatten(0, 1)
-    plan = pack_plan(select_tokens(dsel, ssel, v, lay.k_tokens), v)
-    R, L = plan.seg_id.shape
+    T, gs, g = dsel.shape[0], v.groups_per_side, v.group
+    rng = np.random.default_rng(8)
+    gdyn = np.zeros((T, v.n_groups), bool)
+    for f, n in enumerate(rng.integers(1, lay.k_tokens + 1, T)):
+        gdyn[f, rng.choice(v.n_groups, n, replace=False)] = True
+    mixed = torch.as_tensor(np.repeat(np.repeat(gdyn.reshape(T, gs, gs), g, 1), g, 2),
+                            device=dsel.device)
+    return [(label, pack_plan(select_tokens(d, ssel, v, lay.k_tokens), v))
+            for label, d in (("serve", dsel), ("busy", torch.ones_like(dsel)),
+                             ("mixed", mixed))]
+
+
+def check_flash_packed(torch, pipe, streams):
+    """The kernel through ops.flash_packed, as the ViT calls it, at the
+    three packings of ``packings``: each against the plain version
+    (ROW_TOL, padding exact zero) and masked SDPA, timed per call and on
+    the device.  The kernels line reports the serve packing's times, the
+    largest error, and every packing's readings under ``packings``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_packed import flash_packed_plain
+    v = pipe.v
     H, D = v.n_heads, v.d_model // v.n_heads
     g = torch.Generator(device="cuda").manual_seed(4)
-    q, k, vv = (torch.randn((R, L, H, D), generator=g, device="cuda").to(torch.bfloat16)
-                for _ in range(3))
-    seg = torch.as_tensor(plan.seg_id, device="cuda")
-    bm = plan.block_map
-    out_k = flash_packed_cuda(q, k, vv, seg, bm)
-    out_p = flash_packed_plain(q, k, vv, seg)
-    err, rel = attn_errors(torch, out_k, out_p)
-    pad_zero = bool((out_k[seg < 0] == 0).all())
-    ms = cuda_ms(torch, lambda: flash_packed_cuda(q, k, vv, seg, bm), 20)
-    plain = cuda_ms(torch, lambda: flash_packed_plain(q, k, vv, seg), 5)
-    mask = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask[:, None]), 10)
-    live = float((seg >= 0).sum())
-    n_bytes = live * H * D * 2 * 3 + q.numel() * 2 + seg.numel() * 4
-    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
-    log(f"flash_packed: {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, D {D}, "
-        f"{bm.visited} visited tiles, fill {plan.fill:.3f}: max abs err {err:.3g}, "
-        f"max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), padding exact zero: "
-        f"{pad_zero}; kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    return rel <= ROW_TOL and pad_zero, dict(
-        name="flash_packed", route="cuda", source="src/repro_torch/csrc/attention.cu",
-        replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    ok, row, worst, readings = True, None, 0.0, {}
+    for label, plan in packings(torch, pipe, streams):
+        R, L = plan.seg_id.shape
+        q, k, vv = (torch.randn((R, L, H, D), generator=g, device="cuda").to(torch.bfloat16)
+                    for _ in range(3))
+        seg = torch.as_tensor(plan.seg_id, device="cuda")
+        bm = plan.block_map
+
+        def kernel(q_=q, k_=k, v_=vv, seg=seg, bm=bm):
+            return ops.flash_packed(q_, k_, v_, seg, bm)
+
+        out_k = kernel()
+        out_p = flash_packed_plain(q, k, vv, seg)
+        err, rel = attn_errors(torch, out_k, out_p)
+        pad_zero = bool((out_k[seg < 0] == 0).all())
+        ms = cuda_ms(torch, kernel, 20)
+        dev_ms = device_ms(torch, kernel, (q, k, vv), 3 * q.numel() * 2)
+        plain = cuda_ms(torch, lambda: flash_packed_plain(q, k, vv, seg), 5)
+        mask = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), vv.transpose(1, 2),
+            attn_mask=mask[:, None]), 10)
+        live = float((seg >= 0).sum())
+        n_bytes = live * H * D * 2 * 3 + q.numel() * 2 + seg.numel() * 4
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
+        log(f"flash_packed ({label}): {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, "
+            f"D {D}, {bm.visited} visited tiles, fill {plan.fill:.3f}: max abs err {err:.3g}, "
+            f"max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), padding exact zero: "
+            f"{pad_zero}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+            f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        ok = ok and rel <= ROW_TOL and pad_zero
+        worst = max(worst, err)
+        readings[label] = dict(shape=[R, L], visited=bm.visited, max_abs_err=err, rel=rel,
+                               ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by)
+        if label == "serve":
+            row = dict(name="flash_packed", route="cuda",
+                       source="src/repro_torch/csrc/attention.cu",
+                       replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err,
+                       ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib)
+        del q, k, vv, out_k, out_p, mask
+    row["max_abs_err"] = worst
+    row["packings"] = readings
+    return ok, row
 
 
 def check_lm_head(torch, cfg, params):

@@ -28,18 +28,19 @@
 //     batchless slab through the page table, causal; the int8 one shares
 //     the refresh int8 kernel's cold-tile path (ColdPages).
 //   * cs_attn_packed_bf16 replaces repro/kernels/flash_packed.py:
-//     flash_packed_pallas.  Bidirectional block-diagonal attention over
-//     packed ViT rows: per-row visit lists, mask seg_q == seg_k && seg_q >= 0.
+//     flash_packed_pallas.  Bidirectional GQA attention over packed ViT
+//     rows (R, L, H, D) with per-(row, q tile) visit lists; slot i sees
+//     slot j iff both carry the same segment id >= 0.  Every segment is
+//     one contiguous run of its row (pack_plan lays each frame's kept
+//     patches out so; the wrapper refuses other layouts), so a slot's
+//     mask is the key range [first, last] of its run, which the host
+//     hands over per slot as first | last << 16 (-1: padding).
 //
-// A problem struct supplies the visit list, the K/V tile load, the query
-// and key information and the mask; two templated bodies run them.  The
-// register body (mma_kernel) runs the refresh structs (Refresh,
-// RefreshPaged, RefreshPagedQuant) and the prefill structs (Prefill,
-// PrefillPaged, PrefillPagedQuant): visits / tile (the tiles in order),
-// fetch_kv / finish_kv (asynchronous tile loads), key_range (the
-// positional mask as a key range per row), k_info_row / k_live (a live
-// bit per key).  The older WMMA body (attn_kernel) runs Packed alone
-// (count, tile, load_kv, k_info, mask).
+// One templated body (mma_kernel) runs them all.  A problem struct
+// supplies visits / tile (the key tiles in order), fetch_kv / finish_kv
+// (asynchronous tile loads), q_info / q_live (a query row's mask datum and
+// whether any key can reach it), key_range (the row's mask as a key range)
+// and, under KEY_BITS, k_info_row / k_live (a live bit per key).
 //
 // Bound on an H100: at the serving shapes each (q tile, kv tile) pair does
 // 4 * 128 * 128 * D flops on 2 * 128 * D * 2 bytes of K/V (half of that
@@ -47,8 +48,8 @@
 // bound is the tensor cores; decode (one query row per stream) is bound
 // by the bytes of the keys it reads.
 //
-// The register body: a thread block owns a whole 128-row query tile for
-// one (batch row, head), so every visited K/V tile is read once per query
+// The body: a thread block owns a whole 128-row query tile for one
+// (batch row, head), so every visited K/V tile is read once per query
 // tile; its eight warps own 16 query rows each.  K/V (and the tile's
 // kv_valid bytes) reach shared memory by 16-byte cp.async copies into a
 // ring of STAGES slots of 64 keys, started STAGES - 1 steps ahead of the
@@ -62,25 +63,20 @@
 // on each, measured slower at every shape, PERF.md).  The softmax's
 // integer and float work was the step's bottleneck (a per-element mask
 // took a dozen instructions), so a row's mask is built once per step as a
-// 64-bit word (its positional key range AND a ballot of the keys' live
-// bits), masked scores become -inf, and exp is one FFMA and ex2.  Query
-// rows from Sq on (a ragged end) are neither read nor written, and a warp
-// whose rows are all padding skips the products.  Steps are 64 keys: at D
-// 128 the 64 f32 accumulators of O, 32 registers of query fragments and
-// 32 f32 scores per thread (216 registers in all) leave no room for
-// 128-key steps.  The prefill structs change it through compile-time hooks
-// whose refresh values keep the refresh kernels' code: no per-key bits
-// (KEY_BITS false: the positional range is the whole mask, and the
-// kv_valid copies and ballots compile away), key rows from Sk on
-// zero-filled by the copy with nothing read for them (a masked score gives
-// p = 0, but 0 x NaN would reach O), the prefill oracle's numerics (EXACT,
-// below), and query tiles launched longest first (q_tile: a causal tile
-// visits iq + 1 key tiles, so the short ones fill the tail).
-//
-// The older body (attn_kernel; Packed) keeps the accumulator in shared
-// memory and uses WMMA: a block owns 64 query rows (half of a 128-row map
-// tile, following that tile's visit list); for every visited tile it
-// streams the 128 keys through shared memory in two 64-key steps.
+// 64-bit word (its key range AND, under KEY_BITS, a ballot of the keys'
+// live bits), masked scores become -inf, and exp is one FFMA and ex2.
+// Query rows from Sq on (a ragged end) are neither read nor written, and a
+// warp whose rows are all padding skips the products.  Steps are 64 keys:
+// at D 128 the 64 f32 accumulators of O, 32 registers of query fragments
+// and 32 f32 scores per thread (216 registers in all) leave no room for
+// 128-key steps.  Compile-time hooks whose refresh values keep the refresh
+// kernels' code: no per-key bits (KEY_BITS false, prefill and packed: the
+// key range is the whole mask, and the kv_valid copies and ballots compile
+// away), key rows from Sk on zero-filled by the copy with nothing read for
+// them (a masked score gives p = 0, but 0 x NaN would reach O), the
+// prefill oracle's numerics (EXACT, below), and query tiles launched
+// longest first (q_tile: a causal tile visits iq + 1 key tiles, so the
+// short ones fill the tail).
 //
 // Numerics.  Both products accumulate in f32; the softmax is an f32
 // online softmax with the masked multiply p = mask ? exp(s - m) : 0, so
@@ -88,247 +84,28 @@
 // scores give exp(-inf) = 0, and a row with no visible key yet subtracts
 // 0 from them, not -inf).  The refresh and packed kernels follow the
 // refresh oracle: the query is scaled in f32 and rounded to bf16 before
-// QK^T, and P is rounded to bf16; rows that no key reaches end with l = 0
-// and write acc / max(l, 1e-30) = 0.  The prefill oracle and its Pallas
-// body keep f32 throughout, and so do the prefill kernels (EXACT): the
-// query enters QK^T unscaled (bf16 x bf16 products are exact in f32), the
-// scale multiplies the f32 scores (folded into the exponent's factor),
-// and P V is the sum of two products, hi V + lo V with hi = bf16(p) and
-// lo = bf16(p - hi), so P keeps about 16 bits (V is bf16 already).  The
-// prefill oracle masks with the finite -1e30 instead, so a row with no
-// visible key (a negative q_offset, a window past Sk) softmaxes uniformly
-// to the mean of V: its key range is every key below Sk and its scores
-// are replaced by one constant.
-#include <mma.h>
+// QK^T, and P is rounded to bf16; rows that no key reaches (padding) end
+// with l = 0 and write acc / max(l, 1e-30) = 0.  The prefill oracle and
+// its Pallas body keep f32 throughout, and so do the prefill kernels
+// (EXACT): the query enters QK^T unscaled (bf16 x bf16 products are exact
+// in f32), the scale multiplies the f32 scores (folded into the
+// exponent's factor), and P V is the sum of two products, hi V + lo V
+// with hi = bf16(p) and lo = bf16(p - hi), so P keeps about 16 bits (V is
+// bf16 already).  The prefill oracle masks with the finite -1e30 instead,
+// so a row with no visible key (a negative q_offset, a window past Sk)
+// softmaxes uniformly to the mean of V: its key range is every key below
+// Sk and its scores are replaced by one constant.
+#include <math.h>   // INFINITY
 
 #include "common.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TILE = 128;     // map tile = KV page
-constexpr int BQ = 64;        // query rows per block (WMMA body)
-constexpr int BK = 64;        // keys per inner step (WMMA body)
-constexpr int NTHREADS = 128; // 4 warps x 16 rows (WMMA body)
-constexpr float NEG_INF = -1e30f;
+constexpr int TILE = 128;     // map tile = KV page = query tile
 
-template <int D>
-struct Smem {
-  static constexpr int LDH = D + 8;   // bf16 Q/K/V rows
-  static constexpr int LDS = BK + 4;  // f32 scores
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // f32 accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * BQ * LDH;
-  static constexpr size_t v = k + sizeof(bf16) * BK * LDH;
-  static constexpr size_t s = v + sizeof(bf16) * BK * LDH;
-  static constexpr size_t p = s + sizeof(float) * BQ * LDS;
-  static constexpr size_t o = p + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t m = o + sizeof(float) * BQ * LDO;
-  static constexpr size_t l = m + sizeof(float) * BQ;
-  static constexpr size_t qi = l + sizeof(float) * BQ;
-  static constexpr size_t ki = qi + sizeof(int) * BQ;
-  static constexpr size_t bytes = ki + sizeof(int) * BK;
-};
-
-// K/V rows [row0, row0 + BK) of kv head kvh -> shared memory (16-byte loads)
-template <int D>
-__device__ void load_rows(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v,
-                          long long row0, int Hkv, int kvh, int tid) {
-  constexpr int LDH = Smem<D>::LDH;
-  for (int i = tid; i < BK * D / 8; i += NTHREADS) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    const long long off = ((row0 + r) * Hkv + kvh) * D + c8;
-    *reinterpret_cast<uint4*>(Ks + r * LDH + c8) = *reinterpret_cast<const uint4*>(k + off);
-    *reinterpret_cast<uint4*>(Vs + r * LDH + c8) = *reinterpret_cast<const uint4*>(v + off);
-  }
-}
-
-struct Packed {
-  const int* seg;          // (R, L) segment id per slot, -1 = padding
-  const int* tile_ids;     // (R, L / TILE, t_max)
-  const int* tile_count;   // (R, L / TILE)
-  int L, n_q_tiles, t_max;
-
-  __device__ int count(int r, int iq) const { return tile_count[r * n_q_tiles + iq]; }
-  __device__ int tile(int r, int iq, int it) const {
-    return tile_ids[(r * n_q_tiles + iq) * t_max + it];
-  }
-  template <int D>
-  __device__ void load_kv(bf16* Ks, bf16* Vs, const bf16* k, const bf16* v, int r,
-                          int j, int c0, int Hkv, int kvh, int tid) const {
-    load_rows<D>(Ks, Vs, k, v, (long long)r * L + j * TILE + c0, Hkv, kvh, tid);
-  }
-  __device__ int q_info(int r, int row) const { return seg[r * L + row]; }
-  __device__ bool q_live(int s) const { return s >= 0; }
-  __device__ int k_info(int r, int j, int c) const { return seg[r * L + j * TILE + c]; }
-  __device__ bool mask(int sq, int sk, int) const { return sq >= 0 && sq == sk; }
-};
-
-template <int D, class P>
-__global__ void __launch_bounds__(NTHREADS)
-attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int H,
-            int Hkv, float scale, P prob) {
-  using L = Smem<D>;
-  constexpr int LDH = L::LDH, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Os = reinterpret_cast<float*>(smem + L::o);
-  float* m_s = reinterpret_cast<float*>(smem + L::m);
-  float* l_s = reinterpret_cast<float*>(smem + L::l);
-  int* qinfo = reinterpret_cast<int*>(smem + L::qi);
-  int* kinfo = reinterpret_cast<int*>(smem + L::ki);
-
-  const int iq = blockIdx.x >> 1;
-  const int q0 = iq * TILE + (blockIdx.x & 1) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long q_stride = (long long)H * D;   // between query rows
-  const bf16* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
-  bf16* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * D;
-
-  // rows that no key can reach (padding) are exact zeros: skip the loop
-  const int live = tid < BQ ? prob.q_live(prob.q_info(b, q0 + tid)) : 0;
-  if (!__syncthreads_or(live)) {
-    for (int i = tid; i < BQ * D; i += NTHREADS)
-      ob[(i / D) * q_stride + i % D] = __float2bfloat16_rn(0.f);
-    return;
-  }
-
-  // Q, scaled in f32 and rounded to bf16 (the refresh oracle's numerics)
-  for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-    #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      Qs[r * LDH + c8 + t] = __float2bfloat16_rn(__bfloat162float(e[t]) * scale);
-  }
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
-  if (tid < BQ) {
-    qinfo[tid] = prob.q_info(b, q0 + tid);
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  const int n_visit = prob.count(b, iq);
-  for (int it = 0; it < n_visit; ++it) {
-    const int j = prob.tile(b, iq, it);
-    for (int c0 = 0; c0 < TILE; c0 += BK) {
-      prob.template load_kv<D>(Ks, Vs, k, v, b, j, c0, Hkv, kvh, tid);
-      if (tid < BK) kinfo[tid] = prob.k_info(b, j, c0 + tid);
-      __syncthreads();
-
-      // S[16 rows of this warp, BK] = Q K^T
-      #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, Qs + warp * 16 * LDH + kk * 16, LDH);
-          wmma::load_matrix_sync(fb, Ks + n * 16 * LDH + kk * 16, LDH);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(Ss + warp * 16 * LDS + n * 16, acc, LDS, wmma::mem_row_major);
-      }
-      __syncwarp();
-
-      // online softmax over this warp's rows; two key columns per lane
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
-        const int qi = qinfo[r];
-        const int kp = j * TILE + c0 + lane;
-        const bool m0 = prob.mask(qi, kinfo[lane], kp);
-        const bool m1 = prob.mask(qi, kinfo[lane + 32], kp + 32);
-        const float x0 = m0 ? Ss[r * LDS + lane] : NEG_INF;
-        const float x1 = m1 ? Ss[r * LDS + lane + 32] : NEG_INF;
-        float mx = fmaxf(x0, x1);
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_old = m_s[r];
-        const float m_new = fmaxf(m_old, mx);
-        const float p0 = m0 ? expf(x0 - m_new) : 0.f;
-        const float p1 = m1 ? expf(x1 - m_new) : 0.f;
-        float sum = p0 + p1;
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        const float corr = expf(m_old - m_new);
-        Ps[r * LDP + lane] = __float2bfloat16_rn(p0);
-        Ps[r * LDP + lane + 32] = __float2bfloat16_rn(p1);
-        for (int d = lane; d < D; d += 32) Os[r * LDO + d] *= corr;
-        __syncwarp();
-        if (lane == 0) {
-          m_s[r] = m_new;
-          l_s[r] = l_s[r] * corr + sum;
-        }
-      }
-      __syncwarp();
-
-      // O[16 rows of this warp, D] += P V
-      #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, Os + warp * 16 * LDO + n * 16, LDO, wmma::mem_row_major);
-        #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, Ps + warp * 16 * LDP + kk * 16, LDP);
-          wmma::load_matrix_sync(fb, Vs + kk * 16 * LDH + n * 16, LDH);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(Os + warp * 16 * LDO + n * 16, acc, LDO, wmma::mem_row_major);
-      }
-      __syncthreads();   // Ks/Vs are overwritten by the next step
-    }
-  }
-
-  // out = acc / max(l, 1e-30): rows no key reached give exact zeros
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-    for (int d = lane; d < D; d += 32)
-      ob[r * q_stride + d] = __float2bfloat16_rn(Os[r * LDO + d] * inv);
-  }
-}
-
-template <int D, class P>
-int launch_wmma(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int H, int Hkv, float scale, const P& prob,
-                cudaStream_t stream) {
-  const size_t smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<D, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(((Sq + TILE - 1) / TILE) * 2, H, B);
-  attn_kernel<D, P><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, H, Hkv, scale, prob);
-  return (int)cudaGetLastError();
-}
-
-template <class P>
-int launch_wmma_d(int D, const void* q, const void* k, const void* v, void* out,
-                  int B, int Sq, int H, int Hkv, float scale, const P& prob,
-                  cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch_wmma<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    case 64: return launch_wmma<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    case 128: return launch_wmma<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// ---- the register body: asynchronous tile loads -------------------------
+// ---- asynchronous tile loads ---------------------------------------------
 constexpr int MMA_THREADS = 256;   // 8 warps x 16 query rows
 constexpr int MMA_BK = 64;         // keys per step (one ring slot)
 
@@ -564,7 +341,38 @@ struct WithColdPages : Paged {
 using RefreshPagedQuant = WithColdPages<RefreshPaged>;
 using PrefillPagedQuant = WithColdPages<PrefillPaged>;
 
-// ---- the register body: S, P and O in registers -------------------------
+// packed ViT rows: q, k, v (R, L, ., D), per-(row, q tile) visit lists;
+// a slot's mask is the key range of its segment's run in the row
+struct Packed {
+  static constexpr bool COLD = false;
+  static constexpr bool KEY_BITS = false;  // the run's key range is the whole mask
+  static constexpr bool EXACT = false;     // the refresh oracle's numerics
+  const int* span;         // (R, L) first | last << 16 of the slot's run, -1 = padding
+  const int* tile_ids;     // (R, n_q_tiles, t_max) key tiles to visit
+  const int* tile_count;   // (R, n_q_tiles)
+  int L, n_q_tiles, t_max;
+
+  __device__ int q_tile(int bx) const { return bx; }
+  __device__ Visits visits(int b, int iq) const {
+    const int e = b * n_q_tiles + iq;
+    return {e * t_max, tile_count[e]};
+  }
+  __device__ int tile(const Visits& vs, int it) const { return tile_ids[vs.first + it]; }
+  __device__ int q_info(int b, int row) const { return span[b * L + row]; }
+  __device__ bool q_live(int sp) const { return sp >= 0; }
+  __device__ int2 key_range(int sp, int kp0) const {
+    return make_int2((sp & 0xffff) - kp0, (sp >> 16) - kp0);
+  }
+  template <int D>
+  __device__ void fetch_kv(const Slot& st, const bf16* k, const bf16* v, int b, int j,
+                           int c0, int Hkv, int kvh, int tid) const {
+    async_rows<D>(st, k, v, (long long)b * L + j * TILE + c0, Hkv, kvh, tid);
+  }
+  template <int D>
+  __device__ bool finish_kv(const Slot&, int, int, int, int, int) const { return false; }
+};
+
+// ---- the body: S, P and O in registers -----------------------------------
 // mma.sync m16n8k16, each warp its 16 rows, K and V through ldmatrix; a
 // warp's S and O accumulators are m16n8 tiles, and S becomes P's A
 // fragment in place.
@@ -907,15 +715,17 @@ CS_EXPORT int cs_attn_refresh_paged_int8(
   return launch_mma_d(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
 }
 
-// q, out: (R, L, H, D) bf16, L % 128 == 0; k, v: (R, L, Hkv, D) bf16;
-// seg: (R, L) i32; tile_ids: (R, L / 128, t_max) i32; tile_count: (R, L / 128) i32.
+// q, out: (R, L, H, D) bf16, L % 128 == 0 and L <= 32768; k, v: (R, L,
+// Hkv, D) bf16; span: (R, L) i32, per slot the first and last slot of its
+// segment's run, first | last << 16, -1 for padding; tile_ids: (R, L /
+// 128, t_max) i32; tile_count: (R, L / 128) i32.  q, k, v 16-byte aligned.
 CS_EXPORT int cs_attn_packed_bf16(const void* q, const void* k, const void* v,
-                                  void* out, const int* seg, const int* tile_ids,
+                                  void* out, const int* span, const int* tile_ids,
                                   const int* tile_count, int R, int L, int H,
                                   int Hkv, int D, int t_max, float scale,
                                   cudaStream_t stream) {
-  Packed prob{seg, tile_ids, tile_count, L, L / TILE, t_max};
-  return launch_wmma_d(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);
+  Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};
+  return launch_mma_d(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);
 }
 
 // q, out: (B, Sq, H, D) bf16; k, v: (B, Sk, Hkv, D) bf16 (any Sq, Sk).

@@ -81,6 +81,11 @@ class KernelError(RuntimeError):
     operands it does not take."""
 
 
+class KernelContractError(ValueError):
+    """A kernel-op precondition was violated (``ops`` checks them; a
+    wrapper raises it for a precondition only its kernel has)."""
+
+
 def nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"

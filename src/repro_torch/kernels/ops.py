@@ -6,7 +6,9 @@ answer), then routes by where its operands live:
 
   * a CPU tensor runs the plain PyTorch version;
   * a CUDA tensor launches the hand-written kernel, or raises when the
-    kernel does not take the operands.  There is no silent fallback.
+    kernel does not take the operands (``KernelContractError`` for a
+    precondition of the kernel alone: ``flash_packed``'s single runs).
+    There is no silent fallback.
 
 ``kernel_mode("plain")`` forces the plain version on the card too; only
 tests and ``chip_smoke.py`` use it, to hold the kernels against it.
@@ -27,6 +29,7 @@ from typing import Dict, Optional
 import torch
 
 from . import cuda
+from .cuda import KernelContractError
 from .flash_packed import PackBlockMap, flash_packed_cuda, flash_packed_plain
 from .flash_prefill import (
     flash_prefill_cuda, flash_prefill_paged_cuda, flash_prefill_paged_plain,
@@ -50,10 +53,6 @@ _COUNTS: "defaultdict[str, Counter]" = defaultdict(Counter)
 
 launch_counts = cuda.launch_counts
 reset_launch_counts = cuda.reset_launch_counts
-
-
-class KernelContractError(ValueError):
-    """A kernel-op precondition was violated (both paths would be wrong)."""
 
 
 def set_kernel_mode(mode: str) -> None:
@@ -127,6 +126,24 @@ def _positions_match_map(op: str, q_pos: torch.Tensor, bm: RefreshBlockMap) -> N
     _require(q_pos.shape[1] == bm.n_q and bool((q_pos == want).all()), op,
              "positions-match", "q_pos equals the block map's query positions")
     _MATCHED[0] = (q_pos, q_pos._version, bm)
+
+
+# the last (seg_id tensor, its version, map) found equal
+_SEG_MATCHED: list = [None]
+
+
+def _segments_match_map(op: str, seg_id: torch.Tensor, bm: PackBlockMap) -> None:
+    """The kernel masks by the map's layout, the plain version by
+    ``seg_id``: they must be equal on every device.  On the card the
+    comparison syncs, so it runs once per layout tensor and map (the ViT
+    layers of one packing share both)."""
+    hit = _SEG_MATCHED[0]
+    if hit is not None and hit[0] is seg_id and hit[1] == seg_id._version and hit[2] is bm:
+        return
+    want = bm.on(seg_id.device).seg_id
+    _require(seg_id.shape == want.shape and bool((seg_id == want).all()), op,
+             "segments-match", "seg_id equals the block map's layout")
+    _SEG_MATCHED[0] = (seg_id, seg_id._version, bm)
 
 
 # the last (page table, its version, page count) found in range
@@ -285,7 +302,9 @@ def flash_packed(q, k, v, seg_id, block_map: Optional[PackBlockMap] = None,
                  *, q_chunk: int = 1024):
     """Block-diagonal attention over packed ViT rows: q (R, L, H, D);
     k, v (R, L, Hkv, D); seg_id (R, L) int with -1 padding.  On the card
-    the kernel needs the packing's ``block_map``."""
+    the kernel needs the packing's ``block_map``, whose segments must be
+    single runs; a map given on any device must be built from exactly
+    this layout."""
     op = "flash_packed"
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4
              and seg_id.dim() == 2, op, "rank", "q/k/v rank-4, seg_id rank-2")
@@ -297,10 +316,12 @@ def flash_packed(q, k, v, seg_id, block_map: Optional[PackBlockMap] = None,
              "query heads divide evenly over kv heads")
     _attn_dtypes(op, q, k, v)
     _require(not seg_id.is_floating_point(), op, "seg-dtype", "integer segments")
+    if block_map is not None:
+        _segments_match_map(op, seg_id, block_map)
     if _use_kernel(op, q):
         if block_map is None:
             raise KernelContractError(f"{op}: the kernel needs a PackBlockMap")
-        return flash_packed_cuda(q, k, v, seg_id, block_map)
+        return flash_packed_cuda(q, k, v, block_map)
     return flash_packed_plain(q, k, v, seg_id, q_chunk=q_chunk)
 
 

@@ -133,6 +133,38 @@ def test_rope_shift_kernel_matches_plain(dev, dtype):
         assert d.max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("d_h", [64, 128])
+@pytest.mark.parametrize("n_kv", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_shift_kernel_at_head_widths(dev, d_h, n_kv, dtype):
+    """Token counts that fill no whole block, per-token deltas including
+    0 and +-2000 (angles past 2000 rad), every head of a token rotated by
+    the token's angles."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    k = torch.randn(3, 133, n_kv, d_h, device=dev, generator=g).to(dtype)
+    delta = torch.randint(-2000, 2001, (3, 133), device=dev, dtype=torch.int32, generator=g)
+    delta[0, :3] = torch.tensor([0, 2000, -2000], device=dev)
+    out_k = rope_shift_cuda(k, delta)
+    out_p = ref.rope_shift_ref(k, delta)
+    d = (out_k.float() - out_p.float()).abs()
+    if dtype == torch.bfloat16:
+        d = d - 2.0 ** -7 * out_p.float().abs()
+        assert d.max().item() <= 1e-3
+    else:
+        assert d.max().item() <= 1e-4
+    assert torch.equal(out_k[0, 0], k[0, 0])       # delta 0: no rotation
+
+
+def test_rope_shift_operands_the_kernel_does_not_take_raise(dev):
+    delta = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(KernelError, match="head dim"):
+        rope_shift_cuda(torch.zeros(1, 4, 2, 24, device=dev, dtype=torch.bfloat16), delta)
+    with pytest.raises(KernelError, match="head dim"):
+        rope_shift_cuda(torch.zeros(1, 4, 2, 12, device=dev), delta)
+    with pytest.raises(KernelError, match="aligned"):
+        rope_shift_cuda(torch.zeros(4 * 2 * 64 + 2, device=dev)[2:].view(1, 4, 2, 64), delta)
+
+
 SCATTER_PATTERNS = {
     "anchors_tail": np.concatenate([np.arange(0, 24), np.arange(160, 256)]),
     "single_token": np.asarray([255]),
@@ -316,24 +348,80 @@ def _seg_layout(rows, L):
     return seg
 
 
+def _first_fit(lengths, L):
+    """pack_plan's layout of segments of the given lengths: first fit in
+    order, each segment one run."""
+    rows, used = [], []
+    for s, n in enumerate(lengths):
+        r = next((i for i, u in enumerate(used) if u + n <= L), len(used))
+        if r == len(used):
+            rows.append([])
+            used.append(0)
+        rows[r].append((s, n))
+        used[r] += n
+    return rows
+
+
+# (rows of (segment, length), row length).  busy: every frame keeps its
+# whole 512-slot budget; mixed: kept-group counts in [1, 128] (4 slots a
+# group), so segments share rows and cross 128-slot tiles
 PACK_LAYOUTS = {
-    "single": [[(0, 100)]],
-    "multi": [[(0, 60), (1, 100), (2, 40)], [(3, 256)]],
-    "ragged_pad": [[(0, 12), (1, 4)], [(2, 140)], []],
+    "single": ([[(0, 100)]], 256),
+    "multi": ([[(0, 60), (1, 100), (2, 40)], [(3, 256)]], 256),
+    "ragged_pad": ([[(0, 12), (1, 4)], [(2, 140)], []], 256),
+    "one_slot": ([[(0, 1), (1, 127), (2, 1), (3, 1), (4, 126)]], 256),
+    "busy": ([[(s, 512)] for s in range(6)], 512),
+    "mixed": (_first_fit(4 * np.random.default_rng(17).integers(1, 129, 16), 512), 512),
 }
+
+
+def _packed_inputs(layout, h, hkv, d, seed=1):
+    rows, L = PACK_LAYOUTS[layout]
+    seg = torch.from_numpy(_seg_layout(rows, L))
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(seg.shape[0], L, h, d, generator=g).bfloat16()
+    k, v = (torch.randn(seg.shape[0], L, hkv, d, generator=g).bfloat16() for _ in range(2))
+    return q, k, v, seg
 
 
 @pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_packed_kernel_matches_plain(dev, layout, d):
-    seg = torch.from_numpy(_seg_layout(PACK_LAYOUTS[layout], 256))
-    g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(seg.shape[0], 256, 16, d, generator=g).bfloat16() for _ in range(3))
-    out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev), seg.to(dev),
+    q, k, v, seg = _packed_inputs(layout, 16, 16, d)
+    bm = build_pack_map(seg.numpy())
+    assert bm.single_run
+    out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev), bm).cpu()
+    out_p = flash_packed_plain(q, k, v, seg)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    assert bool((out_k[seg < 0] == 0).all())
+
+
+@pytest.mark.parametrize("layout", ["mixed", "multi"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_packed_gqa_matches_plain(dev, layout, d):
+    """16 query heads over 4 kv heads."""
+    q, k, v, seg = _packed_inputs(layout, 16, 4, d, seed=2)
+    out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev),
                               build_pack_map(seg.numpy())).cpu()
     out_p = flash_packed_plain(q, k, v, seg)
     assert _row_rel_err(out_k, out_p) <= ROW_TOL
     assert bool((out_k[seg < 0] == 0).all())
+
+
+def test_flash_packed_split_segment_raises_on_card(dev):
+    """A segment in two runs of a row is refused by the kernel (its mask
+    is one key range per slot), never handed to the plain version."""
+    seg = torch.from_numpy(_seg_layout([[(0, 50), (1, 30), (0, 20)]], 128)).to(dev)
+    bm = build_pack_map(seg.cpu().numpy())
+    q = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
+    before = ops.launch_counts().get("flash_packed", 0)
+    ops.reset_dispatch_counts()
+    with pytest.raises(ops.KernelContractError, match="single-run"):
+        flash_packed_cuda(q, q, q, bm)
+    with pytest.raises(ops.KernelContractError, match="single-run"):
+        ops.flash_packed(q, q, q, seg, bm)
+    assert ops.launch_counts().get("flash_packed", 0) == before
+    assert ops.plain_calls_on_cuda().get("flash_packed", 0) == 0
 
 
 def test_ops_route_cuda_tensors_to_kernels(dev):

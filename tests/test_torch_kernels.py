@@ -378,6 +378,74 @@ def test_pack_maps_equal_jax(seed):
         assert a.density == b.density
 
 
+def _scan_spans(seg):
+    """first | last << 16 of each live slot's segment in its row, by a
+    scan of the whole row (-1 for padding)."""
+    span = np.full(seg.shape, -1, np.int64)
+    for r, i in zip(*np.nonzero(seg >= 0)):
+        js = np.flatnonzero(seg[r] == seg[r, i])
+        span[r, i] = js[0] | js[-1] << 16
+    return span
+
+
+def _pack_plan_layout(seed):
+    """seg_id of ``pack_plan`` on seeded random decisions: 12 frames, each
+    keeping between 1 and all capacity groups, so segments share rows and
+    cross 128-slot tiles."""
+    from repro_torch.configs.base import ViTCfg
+    from repro_torch.core.pruning import capacity_groups, pack_plan, select_tokens
+    v = ViTCfg(patch=14, image=224)                 # 16 x 16 patches, 64 groups
+    rng = np.random.default_rng(seed)
+    kg = capacity_groups(v, 0.5)
+    gdyn = np.zeros((12, v.n_groups), bool)
+    for f, n in enumerate(rng.integers(1, kg + 1, 12)):
+        gdyn[f, rng.choice(v.n_groups, n, replace=False)] = True
+    gs, g = v.groups_per_side, v.group
+    dyn = np.repeat(np.repeat(gdyn.reshape(12, gs, gs), g, 1), g, 2)
+    score = rng.random(dyn.shape).astype(np.float32)
+    return pack_plan(select_tokens(t(dyn), t(score), v, kg), v).seg_id
+
+
+PACK_PLAN_SEEDS = (0, 1, 2)
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS) + [
+    f"pack_plan-{s}" for s in PACK_PLAN_SEEDS] + ["empty-row"])
+def test_pack_map_spans_equal_a_scan(layout):
+    """The kernel's per-slot key range is its segment's [first, last] slot
+    of the row, and every layout pack_plan makes is single-run; the visit
+    lists stay the JAX package's."""
+    if layout.startswith("pack_plan"):
+        seg = _pack_plan_layout(int(layout.split("-")[1]))
+        assert seg.shape[1] % 128 == 0 and (np.diff(seg, axis=1) != 0).any()
+    elif layout == "empty-row":
+        seg = np.full((2, 256), -1, np.int32)
+    else:
+        seg = _seg_layout(PACK_LAYOUTS[layout], 256)
+    bm, bj = build_pack_map(seg), j_build_pack_map(seg)
+    assert bm.single_run
+    np.testing.assert_array_equal(bm.span, _scan_spans(seg))
+    np.testing.assert_array_equal(bm.seg_id, seg)
+    np.testing.assert_array_equal(bm.tile_ids, bj.tile_ids)
+    np.testing.assert_array_equal(bm.tile_count, bj.tile_count)
+
+
+def test_pack_map_flags_split_segments_and_plain_still_answers():
+    """A segment in two runs of one row is not single-run (the kernel
+    refuses it on the card); the plain version answers it as the JAX
+    oracle does."""
+    seg = _seg_layout([[(0, 50), (1, 30), (0, 20)], [(2, 256)]], 256)
+    assert not build_pack_map(seg).single_run
+    assert not dense_pack_map(seg).single_run
+    assert dense_pack_map(_seg_layout([[(0, 50), (1, 30)]], 256)).single_run
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=(2, 256, 4, 32)).astype(np.float32) for _ in range(3))
+    o_t = ops.flash_packed(t(q), t(k), t(v), t(seg), build_pack_map(seg))
+    o_j = jref.flash_packed_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(seg))
+    np.testing.assert_allclose(f32(o_t), f32(o_j), atol=F32_TOL)
+
+
 # ----------------------------------------------------------------------
 # ops: dispatch, counters, preconditions
 # ----------------------------------------------------------------------
@@ -459,6 +527,10 @@ BAD_CALLS = {
     "packed-seg-shape": lambda: ops.flash_packed(
         torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16),
         torch.zeros(1, 64, dtype=torch.int32)),
+    "packed-segments-map": lambda: ops.flash_packed(
+        torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16),
+        torch.zeros(1, 128, dtype=torch.int32),
+        block_map=build_pack_map(np.ones((1, 128), np.int32))),
     "packed-dtype": lambda: ops.flash_packed(
         torch.zeros(1, 128, 4, 16), torch.zeros(1, 128, 4, 16, dtype=torch.float64),
         torch.zeros(1, 128, 4, 16, dtype=torch.float64), torch.zeros(1, 128, dtype=torch.int32)),
@@ -486,6 +558,20 @@ def test_refresh_positions_checked_against_map():
     qp[0, 3] = 7
     with pytest.raises(ops.KernelContractError, match="positions-match"):
         ops.flash_refresh_paged(q, *args, block_map=bm)
+
+
+def test_packed_segments_checked_against_map():
+    """A pack map must be built from the caller's layout; the check is
+    repeated when the layout tensor changes in place."""
+    seg = torch.from_numpy(_seg_layout([[(0, 60), (1, 68)]], 128))
+    bm = build_pack_map(seg.numpy())
+    q = torch.randn(1, 128, 4, 16)
+    out = ops.flash_packed(q, q, q, seg, bm)
+    torch.testing.assert_close(out, flash_packed_plain(q, q, q, seg))
+    ops.flash_packed(q, q, q, seg, bm)
+    seg[0, 127] = -1
+    with pytest.raises(ops.KernelContractError, match="segments-match"):
+        ops.flash_packed(q, q, q, seg, bm)
 
 
 def test_cuda_library_is_not_built_at_import():
