@@ -57,7 +57,8 @@ Phases (any failure exits non-zero):
   4. serve   — internvl3-14b at full width and depth with random weights
                made on the card from a seed: 2 streams x 24 frames at
                448^2 (one fresh and two incremental windows each) through
-               the lockstep Scheduler, mode codecflow on the paged bf16
+               the lockstep Scheduler (as every run of this phase and of
+               phase 6), mode codecflow on the paged bf16
                slab.  Every kernel of that path must have launched
                during this run, and no plain version may have run on a
                CUDA tensor.  Then, with the same weights, the same
@@ -76,7 +77,29 @@ Phases (any failure exits non-zero):
                the mode reuses), in codecflow and fullcomp; each must
                launch ssd_scan and its path's other kernels, with no
                plain call on a CUDA tensor.
-  5. composite — one fresh and one incremental window group at full width
+  5. engines — the lockstep and the stage-pipelined (async) scheduler
+               side by side, each run wrapped in EventProtocolValidator, in
+               the order lockstep, async, async, lockstep: (a) internvl3-14b
+               codecflow on the paged bf16 slab, four streams of 40, 24, 24
+               and 40 frames at 448^2 with max_concurrent 3 (the fourth is
+               admitted while two streams are mid-stream); (b) the same
+               model on phase 4's fleet; (c) mamba2-2.7b codecflow on phase
+               4's fleet; then (d) codecflow with int8 cold pages, async
+               once.  Every run must launch its path's kernels with no
+               plain call on a CUDA tensor, and both engines must deliver
+               the same events per stream.  In (b) and (c) the groups are
+               the same in both engines and the yes/no logits must be
+               bitwise equal; in (a), and in (d) against phase 4's lockstep
+               int8 run, within the composite phase's tolerance, answers
+               equal where the margin exceeds twice it; (d) must demote
+               pages.  Each run prints wall time and windows/s, stage busy
+               seconds, the stage-span share (the event-timed stage spans
+               over the wall: on one stream they do not overlap, so it
+               bounds the card's busy share from above), synchronising
+               calls per window (those torch.cuda.set_sync_debug_mode
+               reports, by main and ingest threads and call site, and the
+               finalize waits) and peak memory.
+  6. composite — one fresh and one incremental window group at full width
                and 4 layers, through the kernels and then through
                kernel_mode("plain"), for codecflow and for each further
                path of internvl3-14b, and for both paths of mamba2-2.7b;
@@ -101,7 +124,9 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -852,11 +877,12 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams):
 # phases 4 and 5
 # ----------------------------------------------------------------------
 def serve(torch, pipe, videos, on_event=None):
-    """Drive the serving path once; returns per-stream window stats.
-    ``on_event`` sees every scheduler event as it occurs."""
+    """Drive the serving path once through the lockstep engine; returns
+    per-stream window stats.  ``on_event`` sees every scheduler event as
+    it occurs."""
     import numpy as np
     from repro_torch.serving import Scheduler, SchedulerCfg, StreamRequest
-    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=len(videos)))
+    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=len(videos), pipelined=False))
     t0 = time.perf_counter()
     sids = [sched.submit(StreamRequest(i, np.asarray(f), tag=lab))
             for i, (f, lab) in enumerate(videos)]
@@ -905,12 +931,14 @@ def path_ecfg(mode: str, kv: dict):
 
 def serve_paths(torch, cfg, params, vparams, videos):
     """Phase 4, further paths: each served once with the counts set to 0
-    just before and read just after.  Returns (ok, launches per path)."""
+    just before and read just after.  Returns (ok, launches per path,
+    per-stream yes/no logits per path)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingPipeline, WindowDone
     by_path: dict = {}
     window0: dict = {}
+    served: dict = {}
     ok = True
     for label, mode, kv in PATHS:
         pipe = ServingPipeline(cfg, cfg.vit, params, vparams, path_ecfg(mode, kv),
@@ -948,6 +976,7 @@ def serve_paths(torch, cfg, params, vparams, videos):
                 and all(launches.get(k, 0) > 0 for k in want)
                 and not any(plain_on_cuda.values()))
         window0[label] = [res[0].stats.logits_yes_no for res in per_stream]
+        served[label] = [[r.stats.logits_yes_no for r in res] for res in per_stream]
         if kv.get("stale_page_dtype") == "int8":
             cold = seen.get("cold_after_w1", 0)
             ref = window0["codecflow, bf16, one stream at a time"]
@@ -962,7 +991,7 @@ def serve_paths(torch, cfg, params, vparams, videos):
         del sched, pipe, per_stream
     gc.collect()
     torch.cuda.empty_cache()
-    return ok, by_path
+    return ok, by_path, served
 
 
 def composite(torch, cfg4, vit, params, vparams, videos, mode, kv):
@@ -984,11 +1013,19 @@ def composite(torch, cfg4, vit, params, vparams, videos, mode, kv):
     del pipe_p
     lk = np.array([r.stats.logits_yes_no for res in res_k for r in res])
     lp = np.array([r.stats.logits_yes_no for res in res_p for r in res])
+    diff, tol, ans_ok = logit_agreement(lk, lp)
+    return diff, tol, ans_ok, diff <= tol and ans_ok and lk.shape == (4, 2)
+
+
+def logit_agreement(lk, lp):
+    """(max |d yes/no logit|, the tolerance 5e-2 x max(1, max |lp|), and
+    whether the answers agree wherever ``lp``'s margin exceeds twice it)."""
+    import numpy as np
     tol = 5e-2 * max(1.0, float(np.abs(lp).max()))
     diff = float(np.abs(lk - lp).max())
     margin = np.abs(lp[:, 0] - lp[:, 1])
     ans_ok = bool((((lk[:, 0] > lk[:, 1]) == (lp[:, 0] > lp[:, 1])) | (margin <= 2 * tol)).all())
-    return diff, tol, ans_ok, diff <= tol and ans_ok and lk.shape == (4, 2)
+    return diff, tol, ans_ok
 
 
 def serve_ssm(torch):
@@ -996,13 +1033,14 @@ def serve_ssm(torch):
     random bf16 weights made on the card from the seed, the launcher's
     112^2 ViT; 2 streams x 40 frames through the lockstep Scheduler once
     per path of SSM_PATHS, with the counts set to 0 just before each run
-    and read just after.  Returns (ok, launches per path label)."""
+    and read just after.  Returns (ok, launches per path label, the
+    codecflow pipeline: its weights serve phase 5)."""
     import numpy as np
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_pipeline
     videos = anomaly_dataset(2, SSM_FRAMES, SSM_HW, SSM_HW, seed=SEED)
-    ok, by_path, pipe = True, {}, None
+    ok, by_path, pipe, keep = True, {}, None, None
     for mode in SSM_PATHS:
         t0 = time.perf_counter()
         if pipe is None:
@@ -1045,8 +1083,233 @@ def serve_ssm(torch):
             log(f"FAIL: serve [{label}] (kernels wanted {sorted(want)})")
         ok = ok and here
         by_path[label] = launches
+        keep = keep or pipe
         del sched, per_stream
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, by_path, keep
+
+# ----------------------------------------------------------------------
+# phase 5: the lockstep and the stage-pipelined engine side by side
+# ----------------------------------------------------------------------
+ENGINE_ORDER = (False, True, True, False)        # lockstep, async, async, lockstep
+ENGINE_NAME = {False: "lockstep", True: "async"}
+STAGGERED = (40, 24, 24, 40)                     # frames per stream of fleet (a)
+
+
+class SyncWatch:
+    """While active: the synchronising CUDA calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, by thread (the
+    ``codec-ingest`` workers or the main thread) and Python call site, and
+    the finalize waits (``HostCopy.result``, one per served group)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.sites: Counter = Counter()
+        self.waits = 0
+
+    def __enter__(self):
+        import warnings
+        from repro_torch.kernels import transfer
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return shown(message, category, filename, lineno, file, line)
+            thread = threading.current_thread().name
+            kind = "ingest" if thread.startswith("codec-ingest") else "main"
+            self.sites[(kind, f"{Path(filename).name}:{lineno}")] += 1
+        warnings.showwarning = show
+        self._result = transfer.HostCopy.result
+
+        def result(copy, watch=self):
+            watch.waits += 1
+            return watch._result(copy)
+        transfer.HostCopy.result = result
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import transfer
+        self.torch.cuda.set_sync_debug_mode(0)
+        transfer.HostCopy.result = self._result
+        self._catch.__exit__(*exc)
+
+    def count(self, kind: str) -> int:
+        return sum(n for (k, _), n in self.sites.items() if k == kind)
+
+
+def sync_probe(torch) -> None:
+    """Print which calls the sync debug mode reports on this build."""
+    x = torch.ones(4, device="cuda")
+
+    def event_sync():
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+    calls = (("tensor.cpu()", lambda: x.cpu()),
+             ("torch.cuda.synchronize()", torch.cuda.synchronize),
+             ("Event.synchronize()", event_sync),
+             ("pageable upload", lambda: torch.ones(4).to("cuda")),
+             ("pinned non_blocking upload",
+              lambda: torch.ones(4).pin_memory().to("cuda", non_blocking=True)),
+             ("index by a Python list", lambda: x[[0, 1]]),
+             ("torch.nonzero", lambda: torch.nonzero(x)))
+    flagged = {}
+    for name, fn in calls:
+        with SyncWatch(torch) as watch:
+            fn()
+        flagged[name] = watch.count("main")
+    torch.cuda.synchronize()
+    log(f"engines: sync debug mode reports (calls per probe): {flagged}")
+
+
+def engine_run(torch, pipe, videos, pipelined: bool, max_concurrent: int, on_event=None):
+    """Serve ``videos`` once through one engine, every event checked by
+    the protocol validator, the counts set to 0 just before and read just
+    after.  Returns the run's record."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        EventProtocolValidator, Scheduler, SchedulerCfg, StreamRequest,
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=max_concurrent, pipelined=pipelined))
+    validator = EventProtocolValidator()
+    events = []
+    ops.reset_launch_counts()
+    ops.reset_dispatch_counts()
+    with SyncWatch(torch) as watch:
+        t0 = time.perf_counter()
+        sids = [sched.submit(StreamRequest(i, np.asarray(f), tag=lab))
+                for i, (f, lab) in enumerate(videos)]
+        at_submit = watch.count("main")
+        for ev in validator.wrap(sched.events()):
+            events.append((type(ev).__name__, ev.sid, getattr(ev, "window", None)))
+            if on_event is not None:
+                on_event(ev)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    validator.assert_complete()
+    res = [sched.session(s).results for s in sids]
+    n = sum(len(r) for r in res)
+    spans = sum(r.stats.t_vit + r.stats.t_prefill + r.stats.t_decode for rr in res for r in rr)
+    return dict(
+        engine=ENGINE_NAME[pipelined], n=n, wall=wall,
+        busy={k: round(v, 4) for k, v in sched.stage_busy.items()},
+        share=spans / wall, submit=at_submit / len(videos),
+        main=(watch.count("main") - at_submit) / n, ingest=watch.count("ingest") / n,
+        waits=watch.waits / n, sites=watch.sites,
+        peak=torch.cuda.max_memory_allocated() / 2**30,
+        launches=ops.launch_counts(), plain=ops.plain_calls_on_cuda(),
+        per_stream=sorted(events, key=lambda e: e[1]),
+        logits=[[r.stats.logits_yes_no for r in rr] for rr in res],
+        answers=[[r.stats.answer for r in rr] for rr in res],
+    )
+
+
+def within(run, ref, label: str) -> bool:
+    """Logits within the composite phase's tolerance of ``ref``'s and the
+    answers equal where ``ref``'s margin exceeds twice it."""
+    import numpy as np
+    diff, tol, ans = logit_agreement(np.array([x for rr in run for x in rr]),
+                                     np.array([x for rr in ref for x in rr]))
+    log(f"  {label}: max |d yes/no logit| {diff:.4g} (tol {tol:.3g}), bitwise "
+        f"{diff == 0.0}; answers agree where the margin exceeds 2 x tol: {ans}")
+    return diff <= tol and ans
+
+
+def serve_engines(torch, cfg, params, vparams, videos, ssm_pipe, int8_ref):
+    """Phase 5: each case served in the order lockstep, async, async,
+    lockstep ((d): async once).  Returns (ok, launches per run)."""
+    import numpy as np
+    from repro_torch.data.pipeline import anomaly_dataset
+    from repro_torch.serving import ServingPipeline, WindowDone
+    sync_probe(torch)
+    big = anomaly_dataset(len(STAGGERED), max(STAGGERED), HW, HW, seed=SEED)
+    fleet_a = [(f[:n], lab) for (f, lab), n in zip(big, STAGGERED)]
+    ssm_videos = anomaly_dataset(2, SSM_FRAMES, SSM_HW, SSM_HW, seed=SEED)
+
+    def lm(kv=None):
+        return ServingPipeline(cfg, cfg.vit, params, vparams, path_ecfg("codecflow", kv or {}),
+                               device="cuda")
+
+    def ssm():
+        return ServingPipeline(ssm_pipe.cfg, ssm_pipe.v, ssm_pipe.params, ssm_pipe.vparams,
+                               path_ecfg("codecflow", {}), device="cuda")
+    n_win = [(n - 16) // 4 + 1 for n in STAGGERED]
+    cases = (  # key, label, pipeline, fleet, max_concurrent, windows, engines
+        ("(a)", f"{ARCH} codecflow paged, streams of {STAGGERED} frames, max_concurrent 3",
+         lm, fleet_a, 3, sum(n_win), ENGINE_ORDER),
+        ("(b)", f"{ARCH} codecflow paged, phase 4's fleet", lm, videos, len(videos), 6,
+         ENGINE_ORDER),
+        ("(c)", f"{SSM_ARCH} codecflow, phase 4's fleet", ssm, ssm_videos, 2,
+         2 * ((SSM_FRAMES - 16) // 4 + 1), ENGINE_ORDER),
+        ("(d)", f"{ARCH} codecflow, int8 cold pages",
+         lambda: lm(dict(stale_page_dtype="int8")), videos, len(videos), 6, (True,)),
+    )
+    ok, by_path = True, {}
+    for key, label, make, fleet, conc, want_n, order in cases:
+        runs = []
+        for i, pipelined in enumerate(order):
+            pipe = make()
+            seen = {}
+
+            def on_event(ev, pipe=pipe, seen=seen):
+                pool = pipe.backend.pool
+                if isinstance(ev, WindowDone) and ev.window == 1 and pool is not None:
+                    seen.setdefault("cold", sum(1 for p in pool._in_use if p >= pool.n_pages))
+            r = engine_run(torch, pipe, fleet, pipelined, conc, on_event)
+            top = ", ".join(f"{k} {site} x{n}" for (k, site), n in r["sites"].most_common(8))
+            log(f"engines {key} [{label}] {r['engine']} run {i + 1}: {r['n']} windows in "
+                f"{r['wall']:.3f} s ({r['n'] / r['wall']:.4f} windows/s incl. codec ingest); "
+                f"stage busy s {r['busy']}; stage-span share {r['share']:.4f}; syncs per "
+                f"window: main {r['main']:.2f}, ingest threads {r['ingest']:.2f}, finalize "
+                f"waits {r['waits']:.2f} (and {r['submit']:.2f} per stream at submit); "
+                f"peak memory {r['peak']:.2f} GiB; launches "
+                f"{r['launches']}; plain on CUDA {r['plain']}")
+            log(f"  sync sites: {top or 'none'}")
+            here = (r["n"] == want_n and bool(np.isfinite(np.array(
+                [x for rr in r["logits"] for x in rr])).all())
+                and all(r["launches"].get(k, 0) > 0 for k in pipe.kernels)
+                and not any(r["plain"].values()))
+            if key == "(d)":
+                log(f"  int8: cold pages in use after window 1: {seen.get('cold', 0)}")
+                here = here and seen.get("cold", 0) > 0
+            if not here:
+                log(f"FAIL: engines {key} {r['engine']} run {i + 1} (kernels wanted "
+                    f"{sorted(pipe.kernels)})")
+            ok = ok and here
+            by_path[f"engines {key} {r['engine']} run {i + 1}"] = r["launches"]
+            runs.append(r)
+            del pipe
+        same_events = all(r["per_stream"] == runs[0]["per_stream"] for r in runs)
+        if not same_events:
+            log(f"FAIL: engines {key}: the engines delivered other events per stream")
+        ok = ok and same_events
+        if key in ("(b)", "(c)"):
+            bitwise = all(r["logits"] == runs[0]["logits"] for r in runs)
+            log(f"  {key}: yes/no logits of every run bitwise equal: {bitwise}")
+            ok = ok and bitwise
+        elif key == "(a)":
+            for r in runs[1:]:
+                ok = within(r["logits"], runs[0]["logits"],
+                            f"{key} {r['engine']} vs lockstep run 1") and ok
+        else:
+            ok = within(runs[0]["logits"], int8_ref,
+                        f"{key} async vs phase 4's lockstep int8 run") and ok
+        for engine in ("lockstep", "async"):
+            mine = [r for r in runs if r["engine"] == engine]
+            if mine:
+                wps = [r["n"] / r["wall"] for r in mine]
+                log(f"  {key} {engine}: windows/s {[round(w, 4) for w in wps]}, stage-span "
+                    f"share {[round(r['share'], 4) for r in mine]}")
     gc.collect()
     torch.cuda.empty_cache()
     return ok, by_path
@@ -1180,28 +1443,38 @@ def main(argv=None) -> int:
 
     # -- 4, further paths: same weights, each path served once -------------
     t0 = time.perf_counter()
-    ok, by_path = serve_paths(torch, cfg, params, vparams, videos)
+    ok, by_path, served = serve_paths(torch, cfg, params, vparams, videos)
     log(f"further paths: {time.perf_counter() - t0:.1f} s")
     if not ok:
         return 1
-    del params, vparams
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # -- 4, the SSM family: mamba2-2.7b at full size --------------------
     t0 = time.perf_counter()
-    ok, ssm_by_path = serve_ssm(torch)
+    ok, ssm_by_path, ssm_pipe = serve_ssm(torch)
     log(f"SSM paths: {time.perf_counter() - t0:.1f} s")
     if not ok:
         return 1
-    by_path = {KERNEL_PHASE: phase_launches, MAIN: launches, **by_path, **ssm_by_path}
+
+    # -- 5. engines: lockstep and async side by side ---------------------
+    t0 = time.perf_counter()
+    ok, engine_by_path = serve_engines(torch, cfg, params, vparams, videos, ssm_pipe,
+                                       served["codecflow, int8 cold pages"])
+    log(f"engines: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        log("FAIL: engines phase")
+        return 1
+    del params, vparams, ssm_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path = {KERNEL_PHASE: phase_launches, MAIN: launches, **by_path, **ssm_by_path,
+               **engine_by_path}
     for row in rows:
         name = row["name"]
         row["launches_path"] = LAUNCH_PATH.get(name, MAIN)
         row["launches"] = by_path[row["launches_path"]].get(name, 0)
         row["launches_by_path"] = {lab: n[name] for lab, n in by_path.items() if name in n}
 
-    # -- 5. composite: kernels vs plain versions at 4 layers -------------
+    # -- 6. composite: kernels vs plain versions at 4 layers -------------
     short = [(f[:20], lab) for f, lab in videos]   # one fresh + one incremental window
     cfg4 = dataclasses.replace(cfg, n_layers=4)
     params = init_lm_params(cfg4, SEED, "cuda")

@@ -30,6 +30,7 @@ import torch
 
 from ..configs.base import ModelCfg
 from ..kernels import ops
+from ..kernels.transfer import host_of, nonzero
 from ..models.layers import (
     KVCache, QuantKVCache, dequantize_kv, page_quant_scale, quantize_kv,
 )
@@ -286,11 +287,16 @@ def reuse_pool_caches(cfg: ModelCfg, caches: Caches, page_table: torch.Tensor,
     src_cold_pg = (src_entries - n_hot).clamp(0, n_cold - 1)
     phys_src_cold = src_cold_pg * page + src % page
     dst_entries = pt[:, dst // page]
-    hb, ht = torch.nonzero(dst_entries < n_hot, as_tuple=True)
+    n_full = ov // page
+    pt_h = host_of(page_table)
+    if pt_h is None:
+        hb, ht = torch.nonzero(dst_entries < n_hot, as_tuple=True)
+        cb, cj = torch.nonzero(pt[:, :n_full] >= n_hot, as_tuple=True)
+    else:        # from the table's host twin: no sync for the counts
+        hb, ht = nonzero(pt_h[:, np.arange(ov) // page] < n_hot, dev)
+        cb, cj = nonzero(pt_h[:, :n_full] >= n_hot, dev)
     phys_dst_hot = dst_entries[hb, ht] * page + ht % page
     # cold destinations: pages fully inside the overlap (the demotable set)
-    n_full = ov // page
-    cb, cj = torch.nonzero(pt[:, :n_full] >= n_hot, as_tuple=True)
     cold_pg = pt[cb, cj] - n_hot                              # (N,)
     off = torch.arange(page, device=dev)
     cold_rows = (cold_pg[:, None] * page + off).reshape(-1)

@@ -39,10 +39,14 @@ def motion_mask(meta: CodecMetadata, cfg: CodecCfg, vit_patches: int
     m_patch = block_to_patch(m, vit_patches)
     is_i = meta.frame_types == I_FRAME
     own = m_patch >= cfg.mv_threshold                            # Eq. 4
-    active = torch.zeros_like(own[0])
-    acc = []
-    for t, i_frame in enumerate(is_i.tolist()):
-        active = torch.zeros_like(active) if i_frame else active | own[t]
-        acc.append(active)
-    dynamic = torch.where(is_i[:, None, None], True, torch.stack(acc))
+    # GOP accumulation without reading the frame types on the host: a
+    # P-frame's mask is the OR of ``own`` since the last I-frame, i.e. a
+    # positive count of dynamic P-frames between that I-frame and it
+    T = is_i.shape[0]
+    hits = torch.cumsum((own & ~is_i[:, None, None]).to(torch.int32), dim=0)
+    t = torch.arange(T, device=is_i.device)
+    last_i = torch.cummax(torch.where(is_i, t, -1), dim=0).values   # -1: none yet
+    before = torch.where((last_i >= 0)[:, None, None],
+                         hits[last_i.clamp(min=0)], torch.zeros_like(hits))
+    dynamic = torch.where(is_i[:, None, None], True, hits > before)
     return dynamic, m_patch

@@ -34,6 +34,21 @@ class PruneDecision(NamedTuple):
     group_dynamic: torch.Tensor
 
 
+class HostDecision(NamedTuple):
+    """The part of a ``PruneDecision`` that ``pack_plan`` reads, on the
+    host: group_valid (T, Kg) bool and patch_idx (T, Kg*g^2) int64."""
+
+    group_valid: np.ndarray
+    patch_idx: np.ndarray
+
+
+def to_host(dec: PruneDecision) -> HostDecision:
+    """Fetch a decision's two packing fields in one device-to-host copy."""
+    both = torch.cat([dec.group_valid.long(), dec.patch_idx.long()], dim=1).cpu().numpy()
+    kg = dec.group_valid.shape[1]
+    return HostDecision(both[:, :kg].astype(bool), both[:, kg:])
+
+
 def group_mask(dynamic: torch.Tensor, score: torch.Tensor, v: ViTCfg):
     """Patch-level (T, pp, pp) -> group-level (T, n_groups) mask + score."""
     T = dynamic.shape[0]
@@ -137,17 +152,19 @@ def _round_up(n: int, q: int) -> int:
     return -(-max(n, 1) // q) * q
 
 
-def pack_plan(dec: PruneDecision, v: ViTCfg, *,
+def pack_plan(dec, v: ViTCfg, *,
               buckets: Sequence[int] = PACK_LEN_BUCKETS, tile: int = 128,
               row_quantum: int = PACK_ROW_QUANTUM,
               group_quantum: int = PACK_GROUP_QUANTUM) -> PackPlan:
-    """Build the cross-frame packing layout from a batched decision.
-
-    Fetches the decision to the host once, then packs first-fit in frame
-    order, each kept group as a contiguous ``g**2``-patch run.
+    """Build the cross-frame packing layout from a batched decision (a
+    ``PruneDecision``, fetched to the host once, or a ``HostDecision``),
+    packing first-fit in frame order, each kept group as a contiguous
+    ``g**2``-patch run.
     """
-    gv = dec.group_valid.cpu().numpy().astype(bool)
-    pi = dec.patch_idx.cpu().numpy().astype(np.int64)
+    if not isinstance(dec, HostDecision):
+        dec = to_host(dec)
+    gv = dec.group_valid.astype(bool)
+    pi = dec.patch_idx.astype(np.int64)
     B, Kg = gv.shape
     g2 = v.group ** 2
     P = v.n_patches

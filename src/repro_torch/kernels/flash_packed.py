@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from . import cuda
+from .transfer import upload
 from .cuda import KernelContractError
 from .ref import flash_packed_ref
 
@@ -108,7 +109,7 @@ class PackBlockMap:
         hit = self._device.get(key)
         if hit is None:
             hit = DevicePackMap(*(
-                torch.as_tensor(a, dtype=torch.int32).to(device)
+                upload(a, device, torch.int32)
                 for a in (self.seg_id, self.span, self.tile_ids, self.tile_count)
             ))
             self._device[key] = hit

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from . import cuda
+from .transfer import upload
 from .ref import flash_refresh_ref, paged_gather
 
 NAME = "flash_refresh_paged"
@@ -125,7 +126,7 @@ class RefreshBlockMap:
         hit = self._device.get(key)
         if hit is None:
             hit = DeviceBlockMap(*(
-                torch.as_tensor(a, dtype=torch.int32).to(device)
+                upload(a, device, torch.int32)
                 for a in (self.q_pos, self.tile_ids, self.tile_count)
             ))
             self._device[key] = hit

@@ -26,6 +26,7 @@ from collections import Counter, defaultdict
 from contextlib import contextmanager
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from . import cuda
@@ -42,6 +43,7 @@ from .flash_refresh import (
 from .mv_sad import mv_sad_cuda, mv_sad_plain
 from .rope_shift import rope_shift_cuda, rope_shift_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .transfer import host_of
 
 KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed",
            "flash_refresh", "flash_refresh_paged_int8", "ssd_scan",
@@ -116,15 +118,18 @@ _MATCHED: list = [None]
 
 def _positions_match_map(op: str, q_pos: torch.Tensor, bm: RefreshBlockMap) -> None:
     """The kernel masks by the map's query positions, the plain version
-    by ``q_pos``: they must be equal on every device.  On the card the
+    by ``q_pos``: they must be equal on every device.  The comparison
+    runs on ``q_pos``'s host twin where it has one; on the card a device
     comparison syncs, so it runs once per positions tensor and map (the
     layers of one pass share both)."""
     hit = _MATCHED[0]
     if hit is not None and hit[0] is q_pos and hit[1] == q_pos._version and hit[2] is bm:
         return
-    want = bm.on(q_pos.device).q_pos[: bm.n_q]
-    _require(q_pos.shape[1] == bm.n_q and bool((q_pos == want).all()), op,
-             "positions-match", "q_pos equals the block map's query positions")
+    host = host_of(q_pos)
+    same = q_pos.shape[1] == bm.n_q and (
+        bool((host == bm.q_pos[: bm.n_q]).all()) if host is not None
+        else bool((q_pos == bm.on(q_pos.device).q_pos[: bm.n_q]).all()))
+    _require(same, op, "positions-match", "q_pos equals the block map's query positions")
     _MATCHED[0] = (q_pos, q_pos._version, bm)
 
 
@@ -134,15 +139,18 @@ _SEG_MATCHED: list = [None]
 
 def _segments_match_map(op: str, seg_id: torch.Tensor, bm: PackBlockMap) -> None:
     """The kernel masks by the map's layout, the plain version by
-    ``seg_id``: they must be equal on every device.  On the card the
+    ``seg_id``: they must be equal on every device.  The comparison runs
+    on ``seg_id``'s host twin where it has one; on the card a device
     comparison syncs, so it runs once per layout tensor and map (the ViT
     layers of one packing share both)."""
     hit = _SEG_MATCHED[0]
     if hit is not None and hit[0] is seg_id and hit[1] == seg_id._version and hit[2] is bm:
         return
-    want = bm.on(seg_id.device).seg_id
-    _require(seg_id.shape == want.shape and bool((seg_id == want).all()), op,
-             "segments-match", "seg_id equals the block map's layout")
+    host = host_of(seg_id)
+    same = tuple(seg_id.shape) == bm.seg_id.shape and (
+        np.array_equal(host, bm.seg_id) if host is not None
+        else bool((seg_id == bm.on(seg_id.device).seg_id).all()))
+    _require(same, op, "segments-match", "seg_id equals the block map's layout")
     _SEG_MATCHED[0] = (seg_id, seg_id._version, bm)
 
 
@@ -152,13 +160,16 @@ _IN_RANGE: list = [None]
 
 def _page_ids_in_range(op: str, page_table: torch.Tensor, n_pages: int) -> None:
     """Every entry addresses a hot or a cold page: the plain gather would
-    clamp or fail, the kernel read past the slab.  On the card the check
-    syncs, so it runs once per table (the layers of one pass share it)."""
+    clamp or fail, the kernel read past the slab.  The check runs on the
+    table's host twin where it has one; on the card a device check syncs,
+    so it runs once per table (the layers of one pass share it)."""
     hit = _IN_RANGE[0]
     if (hit is not None and hit[0] is page_table and hit[1] == page_table._version
             and hit[2] == n_pages):
         return
-    _require(bool(((page_table >= 0) & (page_table < n_pages)).all()), op, "page-range",
+    host = host_of(page_table)
+    table = page_table if host is None else host
+    _require(bool(((table >= 0) & (table < n_pages)).all()), op, "page-range",
              f"page ids lie in [0, {n_pages}): hot pages, then cold ones")
     _IN_RANGE[0] = (page_table, page_table._version, n_pages)
 

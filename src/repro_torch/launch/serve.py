@@ -2,15 +2,17 @@
 streams, on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl3-14b \
-        --hw 448 --mode codecflow --lockstep --streams 2 --videos 2 --frames 24
+        --hw 448 --mode codecflow --streams 2 --videos 2 --frames 24
 
 Same flags and JSON report as ``repro.launch.serve``.  ``--mode`` is
 ``codecflow`` or one of the paper's baselines (``fullcomp``,
 ``prune_only``, ``refresh_only``, ``cacheblend``, ``vlcache``); the
 reuse modes keep their KV in the paged slab, whose stale overlap pages
 ``--stale-dtype int8`` demotes to int8 cold pages (streams then admit
-staggered).  The port runs the lockstep scheduler (``--lockstep`` is
-accepted and implied; the stage-pipelined engine is not ported).
+staggered).  The scheduler runs the stage-pipelined engine, with
+``--ingest-workers`` host threads slicing windows and making their prune
+decisions; ``--lockstep`` runs one fused group per step, synced before
+the next.
 Weights are random (tensor by tensor on the device, from ``--seed``)
 unless ``--ckpt`` names an npz written by the JAX package's
 ``training/checkpoint.py`` (LM weights; the ViT stays random).
@@ -41,7 +43,7 @@ from ..configs import CodecCfg, ViTCfg, get_config
 from ..data.pipeline import anomaly_dataset
 from ..models.init import init_lm_params, init_vit_params, load_npz_params
 from ..serving import (
-    MODES, EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
+    MODES, Engine, EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
     StreamRequest, StreamThrottled, WindowDone, precision_recall_f1,
     resolve_device, video_prediction,
 )
@@ -71,6 +73,13 @@ def build_pipeline(arch: str, mode: str, codec: CodecCfg,
         device=dev)
 
 
+def build_engine(arch: str, mode: str, codec: CodecCfg, ckpt: str | None = None,
+                 seed: int = 0, device="cuda") -> Engine:
+    """The single-stream entry point (a batch-1 view of the stages)."""
+    return Engine.from_pipeline(build_pipeline(arch, mode, codec, ckpt, seed,
+                                               device=device))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internvl3-14b-smoke")
@@ -87,11 +96,11 @@ def main(argv=None) -> None:
                     help="concurrent sessions admitted by the scheduler; "
                          ">1 batches same-phase windows across streams")
     ap.add_argument("--lockstep", action="store_true",
-                    help="one fused group per step, fully synced (the only "
-                         "engine of this port; implied)")
+                    help="disable the stage-pipelined async engine (one "
+                         "fused group per step, fully synced)")
     ap.add_argument("--ingest-workers", type=int, default=2,
-                    help="host threads of the stage-pipelined engine (not "
-                         "ported; unused by the lockstep engine)")
+                    help="host threads slicing codec windows and making their "
+                         "prune decisions while the card runs earlier groups")
     ap.add_argument("--stale-dtype", default="bf16", choices=("bf16", "int8"),
                     help="storage dtype for stale (non-refreshed) KV pages; "
                          "int8 demotes them to the cold slab")
@@ -108,7 +117,11 @@ def main(argv=None) -> None:
                               device=args.device)
     videos = list(anomaly_dataset(args.videos, args.frames, args.hw, args.hw))
 
-    sched = Scheduler(pipeline, SchedulerCfg(max_concurrent=max(1, args.streams)))
+    sched = Scheduler(pipeline, SchedulerCfg(
+        max_concurrent=max(1, args.streams),
+        pipelined=not args.lockstep,
+        ingest_workers=args.ingest_workers,
+    ))
     t0 = time.time()
     sids = [
         sched.submit(StreamRequest(i, np.asarray(frames), tag=label))
@@ -142,7 +155,7 @@ def main(argv=None) -> None:
     ttft = sched.ttft_quantiles()
     out = {
         "arch": args.arch, "mode": args.mode, "streams": args.streams,
-        "scheduler": "lockstep",
+        "scheduler": "lockstep" if args.lockstep else "pipelined",
         "precision": p, "recall": r, "f1": f1,
         "window_latency_p50_s": lat.get("p50", 0.0),
         "window_latency_p99_s": lat.get("p99", 0.0),

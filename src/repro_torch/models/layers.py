@@ -12,12 +12,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelCfg
 from ..kernels import ops
 from ..kernels.ref import apply_rope_ref, ssd_decode_ref
+from ..kernels.transfer import host_of, nonzero, with_host
 
 NEG_INF = -1e30
 F32 = torch.float32
@@ -137,6 +139,23 @@ def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _precision_split(page_table, idx, entries, n_hot: int, page_size: int):
+    """(stream, token) indices of a two-precision write's hot and of its
+    cold rows.  Found on the host twins of the page table and ``idx``
+    where both have one, once per table and index list (the layers of one
+    pass share them); else by ``torch.nonzero``, which syncs."""
+    pt_h, idx_h = host_of(page_table), host_of(idx)
+    if pt_h is None or idx_h is None:
+        is_cold = entries >= n_hot
+        return torch.nonzero(~is_cold, as_tuple=True), torch.nonzero(is_cold, as_tuple=True)
+    memo = page_table.__dict__.setdefault("_cs_split", {})
+    key = (idx_h.tobytes(), n_hot)
+    if key not in memo:
+        cold = pt_h[:, idx_h // page_size] >= n_hot
+        memo[key] = (nonzero(~cold, idx.device), nonzero(cold, idx.device))
+    return memo[key]
+
+
 def _paged_write(cache, k, v, page_table, idx, page_size: int):
     """Write this chunk's K/V at logical slots ``idx`` (T,) of every
     stream, in place, through the page tables.  On a two-precision slab
@@ -151,9 +170,7 @@ def _paged_write(cache, k, v, page_table, idx, page_size: int):
         cache.v[phys] = v.to(cache.v.dtype)
         return
     n_hot = cache.k.shape[0] // page_size
-    is_cold = entries >= n_hot
-    hb, ht = torch.nonzero(~is_cold, as_tuple=True)
-    cb, ct = torch.nonzero(is_cold, as_tuple=True)
+    (hb, ht), (cb, ct) = _precision_split(page_table, idx, entries, n_hot, page_size)
     phys = entries[hb, ht] * page_size + slot[ht]
     cache.k[phys] = k[hb, ht].to(cache.k.dtype)
     cache.v[phys] = v[hb, ht].to(cache.v.dtype)
@@ -220,7 +237,8 @@ def attention_block(
     if scatter_idx is not None:
         idx = scatter_idx.long()
     else:
-        idx = cache_offset + torch.arange(T, device=dev)
+        idx = with_host(cache_offset + torch.arange(T, device=dev),
+                        cache_offset + np.arange(T))
     if page_table is not None:
         _paged_write(cache, k, v, page_table, idx, page_size)
     elif scatter_idx is not None:

@@ -11,9 +11,11 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelCfg
+from ..kernels.transfer import with_host
 from . import layers
 from .layers import KVCache, SSMCache
 
@@ -154,8 +156,10 @@ def prefill(cfg: ModelCfg, params, tokens: torch.Tensor, caches: Caches,
         h = inputs_embeds.to(h.dtype)
     B, S, _ = h.shape
     if positions is None:
-        positions = (torch.arange(S, dtype=torch.int32, device=h.device)
-                     + cache_offset)[None].expand(B, S)
+        positions = with_host(
+            (torch.arange(S, dtype=torch.int32, device=h.device) + cache_offset)[None]
+            .expand(B, S),
+            np.broadcast_to(np.arange(S, dtype=np.int32) + cache_offset, (B, S)))
     h, caches = run_stack(
         cfg, params, h, positions, valid, caches, cache_offset=cache_offset,
         cache_len=caches_max_len(cfg, caches), q_chunk=q_chunk, block_map=block_map,
@@ -177,7 +181,8 @@ def decode_step(cfg: ModelCfg, params, token: torch.Tensor, caches: Caches,
     caches)."""
     h = embed_tokens(cfg, params, token)
     B = h.shape[0]
-    positions = torch.full((B, 1), cur_len, dtype=torch.int32, device=h.device)
+    positions = with_host(torch.full((B, 1), cur_len, dtype=torch.int32, device=h.device),
+                          np.full((B, 1), cur_len, np.int32))
     if cache_len is None:
         if page_table is not None:
             raise ValueError("paged decode needs an explicit cache_len")

@@ -27,6 +27,7 @@ integers), so the kernels run on all of them with the reference's masks.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -41,8 +42,10 @@ from ..core import (
     reuse_caches, select_tokens, shift_valid,
 )
 from ..core import kv_pool
+from ..core.pruning import HostDecision, to_host
 from ..kernels.flash_refresh import RefreshBlockMap, build_block_map
 from ..kernels.ref import apply_rope_ref, paged_gather_quant_ref, paged_gather_ref
+from ..kernels.transfer import HostCopy, host_of, upload, with_host
 from ..models import layers
 from ..models import transformer as tfm
 from ..models import vit as vitm
@@ -163,12 +166,20 @@ class CodecFrontend:
         self._sync()
         return CodecStream(dec, time.perf_counter() - t0, dec.n_windows())
 
-    def window(self, cs: CodecStream, k: int
-               ) -> Tuple[torch.Tensor, CodecMetadata, float]:
-        """k-th window on the device: (frames (W, H, Wd), metadata,
-        amortized t_codec)."""
+    def window_host(self, cs: CodecStream, k: int
+                    ) -> Tuple[torch.Tensor, CodecMetadata, float]:
+        """k-th window for an ingest worker thread (the async scheduler's
+        stage-1 surface): (frames (W, H, Wd), metadata, amortized
+        t_codec).  The decode buffer already lives on the stream's device,
+        so this is a view of it and of the metadata: no copy, no device
+        work, safe beside the main thread's dispatches."""
         wframes, wmeta = cs.decoder.window(k)
         return wframes, wmeta, cs.t_ingest / max(cs.n_windows, 1)
+
+    def window(self, cs: CodecStream, k: int
+               ) -> Tuple[torch.Tensor, CodecMetadata, float]:
+        """k-th window: (frames (W, H, Wd), metadata, amortized t_codec)."""
+        return self.window_host(cs, k)
 
 
 # ======================================================================
@@ -189,6 +200,7 @@ class VisualEncoder:
         self.codec = codec
         self.layout = layout
         self.prune = prune
+        self._index: Dict[tuple, torch.Tensor] = {}
 
     def _split_range(self, frame_range: range) -> Tuple[List[int], List[int]]:
         lay = self.layout
@@ -196,26 +208,54 @@ class VisualEncoder:
         p_idx = [f for f in frame_range if f not in i_idx]
         return i_idx, p_idx
 
-    def _encode_packed(self, pframes: torch.Tensor, dec) -> Tuple[torch.Tensor, int]:
+    def _frames(self, frames: torch.Tensor, idx: List[int]) -> torch.Tensor:
+        """frames[:, idx] through an index uploaded once per frame list (a
+        Python list as an index would be copied to the card with a sync)."""
+        key = (tuple(idx), str(frames.device))
+        sel = self._index.get(key)
+        if sel is None:
+            sel = self._index[key] = upload(np.asarray(idx), frames.device, torch.long)
+        return frames.index_select(1, sel)
+
+    def decide(self, metas: Sequence[CodecMetadata], frame_range: range
+               ) -> Optional[List[HostDecision]]:
+        """Each stream's prune decision for its P-frames in ``frame_range``
+        on the host (None when the range has none): motion masks and group
+        ranking on the device for every frame of the window, one fetch,
+        then the P-frames' rows picked on the host.  Rows are independent,
+        so the decision of one window alone equals its rows of a batch."""
+        _, p_idx = self._split_range(frame_range)
+        if not p_idx:
+            return None
+        v = self.v
+        dyn, sco = zip(*(motion_mask(m, self.codec, v.patches_per_side) for m in metas))
+        dyn, sco = torch.stack(dyn), torch.stack(sco)          # (S, W, pp, pp)
+        S, W = dyn.shape[:2]
+        flat = to_host(select_tokens(dyn.reshape((S * W,) + dyn.shape[2:]),
+                                     sco.reshape((S * W,) + sco.shape[2:]),
+                                     v, self.layout.k_tokens))
+        gv = flat.group_valid.reshape(S, W, -1)[:, p_idx]
+        pi = flat.patch_idx.reshape(S, W, -1)[:, p_idx]
+        return [HostDecision(gv[i], pi[i]) for i in range(S)]
+
+    def _encode_packed(self, pframes: torch.Tensor, dec: HostDecision
+                       ) -> Tuple[torch.Tensor, int]:
         """Packed pruned encode of a flat (B, H, W) P-frame batch.
         Returns ((B, k_tokens, d_lm) tokens, packed slot count)."""
         v, kg = self.v, self.layout.k_tokens
         plan = pack_plan(dec, v, tile=self.PACK_TILE)
         dev = pframes.device
-
-        def t(a):
-            return torch.as_tensor(a).to(dev)
-
         toks = vitm.encode_packed_tokens(
-            self.vparams, v, pframes, t(plan.patch_src), t(plan.seg_id),
-            t(plan.group_src), t(plan.group_dst), plan.block_map,
-            n_out=plan.n_frames * kg,
+            self.vparams, v, pframes, upload(plan.patch_src, dev),
+            upload(plan.seg_id, dev), upload(plan.group_src, dev),
+            upload(plan.group_dst, dev), plan.block_map, n_out=plan.n_frames * kg,
         )
         return toks.reshape(plan.n_frames, kg, -1), plan.n_slots
 
     def encode(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],
-               frame_range: range):
-        """Encode frames [range) of every stream's window.
+               frame_range: range, decisions: Optional[Sequence[HostDecision]] = None):
+        """Encode frames [range) of every stream's window; ``decisions``
+        are the streams' ``decide`` results where already made.
 
         Returns (embeds (S, n_tok, d), valid (S, n_tok), patches (S,),
         slots (S,)).
@@ -230,7 +270,7 @@ class VisualEncoder:
         slots = np.zeros((S,), np.int64)
 
         if i_idx:
-            sel = frames[:, i_idx]                           # (S, Ni, H, Wd)
+            sel = self._frames(frames, i_idx)                # (S, Ni, H, Wd)
             batch = sel.reshape((S * len(i_idx),) + sel.shape[2:])
             toks = vitm.encode_full(self.vparams, v, batch)
             toks = toks.reshape((S, len(i_idx)) + toks.shape[1:])
@@ -242,19 +282,17 @@ class VisualEncoder:
             slots += len(i_idx) * v.n_patches
 
         if p_idx:
-            dyn, sco = zip(*(motion_mask(m, self.codec, v.patches_per_side)
-                             for m in metas))
-            dyn, sco = torch.stack(dyn), torch.stack(sco)    # (S, W, pp, pp)
+            if decisions is None:
+                decisions = self.decide(metas, frame_range)
             Np = len(p_idx)
-            dsel = dyn[:, p_idx].reshape((S * Np,) + dyn.shape[2:])
-            ssel = sco[:, p_idx].reshape((S * Np,) + sco.shape[2:])
-            dec = select_tokens(dsel, ssel, v, lay.k_tokens)
-            pframes = frames[:, p_idx].reshape((S * Np,) + frames.shape[2:])
-            toks, n_slots = self._encode_packed(pframes, dec)
+            gv = np.concatenate([d.group_valid for d in decisions])   # (S * Np, Kg)
+            pi = np.concatenate([d.patch_idx for d in decisions])
+            pframes = self._frames(frames, p_idx).reshape((S * Np,) + frames.shape[2:])
+            toks, n_slots = self._encode_packed(pframes, HostDecision(gv, pi))
             slots += -(-n_slots // S)    # shared buffer: attribute evenly
             toks = toks.reshape((S, Np) + toks.shape[1:])
-            gval = dec.group_valid.reshape(S, Np, -1)
-            patches += dec.patch_valid.reshape(S, -1).sum(dim=1).cpu().numpy()
+            gval = upload(gv.reshape(S, Np, -1), dev)
+            patches += gv.reshape(S, -1).sum(axis=1) * v.group ** 2
             for j, f in enumerate(p_idx):
                 n_tok = lay.frame_tokens[f]
                 toks_by_frame[f] = toks[:, j, :n_tok]
@@ -277,7 +315,7 @@ class PrefillResult(NamedTuple):
     flops_len: Any               # i -> attended context len of step i
     state: Dict[str, Any]        # batched per-stream state for window k+1
     tokens_vis: int
-    tokens_valid: np.ndarray     # (S,)
+    tokens_valid: torch.Tensor   # (S,) on the device until finalize
     n_refreshed: int
     flops: float                 # prefill FLOPs per stream
     t_select: float              # refresh-set selection time (host wall)
@@ -327,10 +365,10 @@ class AttentionPrefill:
         self.fresh_map: RefreshBlockMap = build_block_map(
             np.arange(layout.total_len, dtype=np.int32), self.cache_slots,
             causal=True, window=window)
-        self._fresh_idx = torch.arange(layout.total_len, device=device)
+        self._fresh_idx = upload(np.arange(layout.total_len), device, torch.long)
         self._static_ridx = self._static_refresh_set()
         self._static_ridx_dev = (None if self._static_ridx is None else
-                                 torch.as_tensor(self._static_ridx).long().to(device))
+                                 upload(self._static_ridx, device, torch.long))
         self.block_map: Optional[RefreshBlockMap] = None
         if self._static_ridx is not None:
             self.block_map = (
@@ -405,7 +443,7 @@ class AttentionPrefill:
         return cfg.repeats * cfg.period * 2 * self.cache_slots * cfg.n_kv * cfg.d_head * 2
 
     def _page_table(self, pages: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(pages, dtype=torch.int32).to(self.device)
+        return upload(pages, self.device, torch.int32)
 
     def _result(self, logits, vis, vval, caches, kv_valid, valid, n_refreshed,
                 flops, t_select, pages=None, page_table=None, age=None) -> PrefillResult:
@@ -421,7 +459,7 @@ class AttentionPrefill:
             decode_start=lay.total_len,
             flops_len=lambda i: lay.total_len + i + 1,
             state=state, tokens_vis=lay.vis_len,
-            tokens_valid=valid.sum(dim=1).cpu().numpy(),
+            tokens_valid=valid.sum(dim=1),
             n_refreshed=n_refreshed, flops=flops, t_select=t_select,
             page_table=page_table,
         )
@@ -430,7 +468,8 @@ class AttentionPrefill:
         """Scatter-mode pass: write K/V of positions ``idx`` and attend;
         returns last-position logits."""
         S = h.shape[0]
-        positions = idx[None].expand(S, idx.shape[0])
+        positions = with_host(idx[None].expand(S, idx.shape[0]),
+                              np.broadcast_to(host_of(idx)[None], (S, idx.shape[0])))
         h, _ = tfm.run_stack(
             self.cfg, self.params, h, positions, None, caches,
             cache_offset=None, cache_len=self.cache_slots, scatter_idx=idx,
@@ -509,7 +548,7 @@ class AttentionPrefill:
             t0 = time.perf_counter()
             bm = build_block_map(ridx_np, alloc, window=self.cfg.sliding_window)
             self.t_map += time.perf_counter() - t0
-            ridx = torch.as_tensor(ridx_np).long().to(dev)
+            ridx = upload(ridx_np, dev, torch.long)
         kv_full[:, ridx] = valid[:, ridx]
         h = embeds[:, ridx].to(self.params["embed"].dtype)
         logits = self._run(h, ridx, kv_full, caches, pt, bm)
@@ -662,7 +701,7 @@ class RecurrentPrefill:
             decode_start=offset_vis + lay.query_len,
             flops_len=lambda i: offset_vis + lay.query_len + i,
             state={"caches": caches, "offset": offset_vis},
-            tokens_vis=n_new, tokens_valid=vval.sum(dim=1).cpu().numpy(),
+            tokens_vis=n_new, tokens_valid=vval.sum(dim=1),
             n_refreshed=n_new + lay.query_len, flops=flops, t_select=0.0,
         )
 
@@ -707,7 +746,7 @@ class GreedyDecoder:
               page_table: Optional[torch.Tensor], cache_len: int) -> DecodePending:
         """``page_table`` None: ``caches`` are per-stream caches of
         ``cache_len`` slots; otherwise the shared slab."""
-        yes_no = logits[:, [YES, NO]]
+        yes_no = torch.stack((logits[:, YES], logits[:, NO]), dim=1)
         answers = yes_no[:, 0] > yes_no[:, 1]
         tok = torch.where(answers, YES, NO)[:, None]
         f_decode = 0.0
@@ -725,6 +764,39 @@ class GreedyDecoder:
 # ======================================================================
 # Pipeline: stage composition
 # ======================================================================
+class StageTimer:
+    """Times one stage's dispatch: host wall always and, on the card, a
+    pair of timing events on the compute stream around its work.
+    ``seconds`` is the events' device span on the card (read it only
+    after the window's sync) and the host wall on the CPU, where every
+    call returns when its work is done."""
+
+    def __init__(self, device: torch.device):
+        self._t0 = time.perf_counter()
+        self.host = 0.0
+        self._events = None
+        if device.type == "cuda":
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+
+    def stop(self) -> "StageTimer":
+        self.host = time.perf_counter() - self._t0
+        if self._events is not None:
+            self._events[1].record()
+        return self
+
+    @property
+    def on_device(self) -> bool:
+        return self._events is not None
+
+    @property
+    def seconds(self) -> float:
+        if self._events is None:
+            return self.host
+        return self._events[0].elapsed_time(self._events[1]) / 1e3
+
+
 class EncodedWindows(NamedTuple):
     vis: torch.Tensor            # (S, T, D) visual embeds
     vval: torch.Tensor           # (S, T) validity mask
@@ -732,23 +804,37 @@ class EncodedWindows(NamedTuple):
     patches: np.ndarray          # (S,) kept patch counts (host)
     slots: np.ndarray            # (S,) packed-slot counts (host)
     fresh: bool
-    t_vit: float
+    t_vit: Optional[StageTimer]  # None for a group re-staged from rows
 
 
 class PrefilledWindows(NamedTuple):
     pr: PrefillResult
-    t_prefill: float
+    t_prefill: StageTimer
 
 
 class DecodedWindows(NamedTuple):
     pend: DecodePending
-    t_decode: float
+    t_decode: StageTimer
+    # (S, 4) f64 on its way to the host: yes logit, no logit, answer,
+    # tokens_valid; the one device-to-host copy of the window
+    host: HostCopy
 
 
 class ServingPipeline:
     """Composes the four stages; serves a batch of same-phase windows
-    (one per stream).  Stage times are host wall times around work that
-    ends in a device sync."""
+    (one per stream).
+
+    The stage surfaces ``encode_windows``, ``prefill_windows`` and
+    ``decode_windows`` only dispatch: on the card they return once their
+    work is queued on the compute stream, and ``finalize_stats`` (or the
+    scheduler's finalize) is the one place that waits for a window.  All
+    device work of the serving state (prefill, reuse, int8 demotion,
+    decode) runs on that one stream, in dispatch order: the paged slab,
+    the per-stream caches and the recurrent states are written in place,
+    and stream order is what keeps a window's reads behind the previous
+    window's writes.  Only ``decide`` runs on a side stream, and it
+    touches no serving state.  Stage times are device spans from timing
+    events on the card and host wall times on the CPU."""
 
     def __init__(self, cfg: ModelCfg, vit_cfg: ViTCfg, params_lm,
                  params_vit, ecfg: EngineCfg, device="cuda"):
@@ -783,6 +869,8 @@ class ServingPipeline:
         self.decoder = GreedyDecoder(cfg, params_lm, ecfg)
         self.cache_slots = self.backend.cache_slots
         self.paged = self.backend.paged
+        self._query_ids = upload(np.asarray(QUERY_IDS)[None], self.device, torch.long)
+        self._side = threading.local()      # per-thread side stream of ``decide``
 
     @property
     def kernels(self) -> frozenset:
@@ -797,10 +885,6 @@ class ServingPipeline:
                 "flash_refresh_paged_int8" if self.backend.quant else "flash_refresh_paged")
         return frozenset({"mv_sad", attn} | prune
                          | ({"rope_shift"} if self.reuse else set()))
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # -- paged pool lifecycle (no-ops for per-stream caches and states) --
     def ensure_capacity(self, n_streams: int) -> None:
@@ -818,8 +902,7 @@ class ServingPipeline:
 
     # ------------------------------------------------------------------
     def _query_embeds(self, S: int) -> torch.Tensor:
-        ids = torch.as_tensor(QUERY_IDS, dtype=torch.long, device=self.device)[None]
-        qe = tfm.embed_tokens(self.cfg, self.params, ids)
+        qe = tfm.embed_tokens(self.cfg, self.params, self._query_ids)
         return qe.expand((S,) + qe.shape[1:])
 
     def batch_key(self, state: Optional[Dict[str, Any]]) -> tuple:
@@ -833,79 +916,121 @@ class ServingPipeline:
             return ("inc", id(state))     # never batched (cacheblend)
         return ("inc",)
 
-    def encode_windows(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],
-                       fresh: bool) -> EncodedWindows:
-        """Stage 2: ViT-encode one fused group (full window if fresh,
-        last stride otherwise)."""
+    def _frame_range(self, fresh: bool) -> range:
         lay = self.layout
-        t0 = time.perf_counter()
-        rng = range(lay.window) if fresh else range(lay.window - lay.stride, lay.window)
-        vis, vval, patches, slots = self.encoder.encode(frames, metas, rng)
+        return range(lay.window) if fresh else range(lay.window - lay.stride, lay.window)
+
+    def decide(self, metas: Sequence[CodecMetadata], fresh: bool
+               ) -> Optional[List[HostDecision]]:
+        """The prune decisions the encode of these windows needs, on the
+        host (``VisualEncoder.decide``), so an ingest worker can make them
+        before the encode is dispatched.  On the card they run on a side
+        stream of the calling thread: its one device-to-host copy waits
+        for that stream alone, not for the prefill and decode queued on
+        the compute stream.  The codec metadata they read was synced at
+        ``open``."""
+        rng = self._frame_range(fresh)
+        if self.device.type != "cuda":
+            return self.encoder.decide(metas, rng)
+        side = getattr(self._side, "stream", None)
+        if side is None:
+            side = self._side.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(side):
+            return self.encoder.decide(metas, rng)
+
+    def encode_windows(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],
+                       fresh: bool, decisions: Optional[Sequence[HostDecision]] = None
+                       ) -> EncodedWindows:
+        """Stage 2: ViT-encode one fused group (full window if fresh,
+        last stride otherwise), from the streams' ``decide`` results where
+        given.  Needs no per-stream state, so the async scheduler may run
+        it ahead of the previous window's prefill and decode."""
+        timer = StageTimer(self.device)
+        vis, vval, patches, slots = self.encoder.encode(
+            frames, metas, self._frame_range(fresh), decisions)
         qe = self._query_embeds(frames.shape[0])
-        self._sync()
-        t_vit = time.perf_counter() - t0
-        return EncodedWindows(vis, vval, qe, patches, slots, fresh, t_vit)
+        return EncodedWindows(vis, vval, qe, patches, slots, fresh, timer.stop())
 
     def prefill_windows(self, enc: EncodedWindows,
                         state: Optional[Dict[str, Any]]) -> PrefilledWindows:
         """Stage 3: build/extend LLM context for one fused group."""
-        t0 = time.perf_counter()
+        timer = StageTimer(self.device)
         if enc.fresh:
             pr = self.backend.fresh(enc.vis, enc.vval, enc.qe)
         else:
             pr = self.backend.step(enc.vis, enc.vval, enc.qe, state)
-        self._sync()
-        t_prefill = time.perf_counter() - t0 - pr.t_select
-        return PrefilledWindows(pr, t_prefill)
+        return PrefilledWindows(pr, timer.stop())
 
     def decode_windows(self, pf: PrefilledWindows) -> DecodedWindows:
         """Stage 4: greedy continuation; folds the decode slots into the
-        stream state."""
+        stream state and queues the window's answers for the host."""
         pr = pf.pr
-        t0 = time.perf_counter()
+        timer = StageTimer(self.device)
         pend = self.decoder.start(
             pr.logits, pr.decode_caches, pr.decode_start, pr.flops_len,
             page_table=pr.page_table, cache_len=self.cache_slots,
         )
         self.backend.absorb_decode(pr.state)
-        self._sync()
-        t_decode = time.perf_counter() - t0
-        return DecodedWindows(pend, t_decode)
+        timer.stop()
+        out = torch.cat([pend.yes_no.double(), pend.answers.double()[:, None],
+                         pr.tokens_valid.double()[:, None]], dim=1)
+        return DecodedWindows(pend, timer, HostCopy(out))
+
+    # -- stage 5 ---------------------------------------------------------
+    @staticmethod
+    def prefill_seconds(pf: PrefilledWindows) -> float:
+        """The group's prefill time without its host refresh-set selection
+        (``t_select``, reported as overhead; the card waits meanwhile)."""
+        return max(pf.t_prefill.seconds - pf.pr.t_select, 0.0)
+
+    @staticmethod
+    def decode_seconds(dec: DecodedWindows, t_sync: float) -> float:
+        """The group's decode time: the device span on the card; on the
+        CPU the host wall with the fetch, the tail of the decode."""
+        return dec.t_decode.seconds + (0.0 if dec.t_decode.on_device else t_sync)
+
+    def window_stats(self, pf: PrefilledWindows, dec: DecodedWindows,
+                     host: np.ndarray, i: int, patches: int, slots: int,
+                     t_vit: float, t_prefill: float, t_decode: float,
+                     t_overhead: float) -> WindowStats:
+        """Stream ``i``'s stats from its group's fetched rows ``host``."""
+        pr = pf.pr
+        return WindowStats(
+            answer=int(host[i, 2]),
+            logits_yes_no=(float(host[i, 0]), float(host[i, 1])),
+            tokens_vis=pr.tokens_vis,
+            tokens_valid=int(host[i, 3]),
+            tokens_refreshed=pr.n_refreshed,
+            vit_patches=int(patches),
+            vit_slots=int(slots),
+            flops_vit=flopcount.vit_flops(self.v, int(patches)),
+            flops_prefill=pr.flops,
+            flops_decode=dec.pend.flops_decode,
+            t_codec=0.0, t_vit=t_vit, t_prefill=t_prefill,
+            t_decode=t_decode, t_overhead=t_overhead,
+            kv_bytes_per_stream=self.kv_bytes_per_stream(),
+        )
 
     def finalize_stats(self, enc: EncodedWindows, pf: PrefilledWindows,
                        dec: DecodedWindows) -> List[WindowStats]:
-        """Stage 5: fetch the answers and assemble per-stream stats."""
-        pr, pend = pf.pr, dec.pend
-        S = pend.answers.shape[0]
+        """Stage 5, the one sync: wait for the group's answers and
+        assemble per-stream stats."""
+        S = len(enc.patches)
         t0 = time.perf_counter()
-        yes_no = pend.yes_no.cpu().numpy().astype(np.float64)
-        answers = pend.answers.cpu().numpy().astype(np.int64)
-        t_decode = dec.t_decode + (time.perf_counter() - t0)
-        kv_bytes = self.kv_bytes_per_stream()
-        return [
-            WindowStats(
-                answer=int(answers[i]),
-                logits_yes_no=(float(yes_no[i, 0]), float(yes_no[i, 1])),
-                tokens_vis=pr.tokens_vis,
-                tokens_valid=int(pr.tokens_valid[i]),
-                tokens_refreshed=pr.n_refreshed,
-                vit_patches=int(enc.patches[i]),
-                vit_slots=int(enc.slots[i]),
-                flops_vit=flopcount.vit_flops(self.v, int(enc.patches[i])),
-                flops_prefill=pr.flops,
-                flops_decode=pend.flops_decode,
-                t_codec=0.0, t_vit=enc.t_vit / S,
-                t_prefill=pf.t_prefill / S,
-                t_decode=t_decode / S, t_overhead=pr.t_select / S,
-                kv_bytes_per_stream=kv_bytes,
-            )
-            for i in range(S)
-        ]
+        host = dec.host.result()
+        t_sync = time.perf_counter() - t0
+        t_prefill = self.prefill_seconds(pf) / S
+        t_decode = self.decode_seconds(dec, t_sync) / S
+        return [self.window_stats(pf, dec, host, i, enc.patches[i], enc.slots[i],
+                                  enc.t_vit.seconds / S, t_prefill, t_decode,
+                                  pf.pr.t_select / S)
+                for i in range(S)]
 
     def serve_batch(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],
                     state: Optional[Dict[str, Any]]
                     ) -> Tuple[List[WindowStats], Dict[str, Any]]:
-        """Serve one window of S same-layout, same-phase streams."""
+        """Serve one window of S same-layout, same-phase streams: the
+        synchronous composition of the stage surfaces."""
         fresh = state is None or not self.reuse
         enc = self.encode_windows(frames, metas, fresh)
         pf = self.prefill_windows(enc, state)

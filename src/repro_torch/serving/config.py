@@ -74,16 +74,19 @@ class KVCfg:
 class SchedulerCfg:
     """Multi-stream scheduler: admission, batching, stage pipelining.
 
-    The port runs the lockstep engine (one fused group per step, synced
-    before the next).  The JAX package's stage-pipelined engine
-    (``pipelined=True``, its default) is not ported yet, so the port
-    defaults to ``pipelined=False`` and its ``Scheduler`` refuses True;
-    ``ingest_workers`` and ``lookahead`` are kept for that engine.
+    ``pipelined=True`` (default, as in the JAX package) runs the
+    stage-pipelined engine: codec windows sliced and their prune
+    decisions made on ``ingest_workers`` host threads, per-stage groups
+    formed from whatever is ready, every device stage dispatched on one
+    CUDA stream and each group synced one tick after its dispatch.
+    ``pipelined=False`` runs the lockstep engine: one fused group per
+    step through ``serve_batch``, synced before the next.  Both give the
+    same answers for the same groups.
     """
 
     max_concurrent: int = 8          # admitted sessions holding KV state
     max_batch: Optional[int] = None  # fused-group cap (None = max_concurrent)
-    pipelined: bool = False
+    pipelined: bool = True
     # host threads slicing codec windows while the accelerator runs
     # earlier groups' encode/prefill (0 = slice inline on the main thread)
     ingest_workers: int = 2

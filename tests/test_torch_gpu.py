@@ -762,3 +762,90 @@ def test_lm_logits_keep_the_f32_head_product(dev, tied):
     assert out.dtype == torch.float32 and out.shape == (4, cfg.vocab)
     assert ((out - ref).abs() / scale).max().item() <= 2.0 ** -14
     assert ((ref.bfloat16().float() - ref).abs() / scale).max().item() > 2.0 ** -14
+
+
+# ----------------------------------------------------------------------
+# the stage-pipelined scheduler on the card
+# ----------------------------------------------------------------------
+ASYNC_CASES = {
+    "codecflow-paged": ("internvl3-14b-smoke", 0.5, {}),
+    "codecflow-int8": ("internvl3-14b-smoke", 1.0, {"stale_page_dtype": "int8"}),
+    "mamba2-codecflow": ("mamba2-2.7b-smoke", 0.5, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ASYNC_CASES))
+def test_async_engine_launches_kernels_and_equals_lockstep(dev, case):
+    """The pipelined engine on a smoke pipeline launches every kernel of
+    its path with no plain call on a CUDA tensor, and gives bitwise the
+    lockstep engine's logits (three streams admitted at once: both
+    engines fuse the same groups)."""
+    from repro_torch.configs import CodecCfg
+    from repro_torch.data.pipeline import anomaly_dataset
+    from repro_torch.launch.serve import build_pipeline
+    from repro_torch.serving import (
+        EngineCfg, EventProtocolValidator, KVCfg, Scheduler, SchedulerCfg,
+        ServingPipeline, StreamRequest,
+    )
+
+    arch, keep, kv = ASYNC_CASES[case]
+    codec = CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=keep)
+    base = build_pipeline(arch, "codecflow", codec, device=dev)
+    videos = anomaly_dataset(3, 24, 112, 112)
+    runs = {}
+    for pipelined in (False, True):
+        pipe = ServingPipeline(base.cfg, base.v, base.params, base.vparams,
+                               EngineCfg(mode="codecflow", codec=codec, kv=KVCfg(**kv)),
+                               device=dev)
+        sched = Scheduler(pipe, SchedulerCfg(max_concurrent=3, pipelined=pipelined))
+        ops.reset_launch_counts()
+        ops.reset_dispatch_counts()
+        for i, (f, _) in enumerate(videos):
+            sched.submit(StreamRequest(i, np.asarray(f)))
+        validator = EventProtocolValidator()
+        events = [(type(e).__name__, e.sid, getattr(e, "window", None))
+                  for e in validator.wrap(sched.events())]
+        validator.assert_complete()
+        launches = ops.launch_counts()
+        assert all(launches.get(k, 0) > 0 for k in pipe.kernels), (launches, pipe.kernels)
+        assert not any(ops.plain_calls_on_cuda().values())
+        runs[pipelined] = (
+            sorted(events, key=lambda e: e[1]),
+            [r.stats.logits_yes_no for s in range(3) for r in sched.session(s).results])
+    assert runs[True][0] == runs[False][0]
+    assert len(runs[True][1]) == 9 and runs[True][1] == runs[False][1]
+    assert np.isfinite(np.asarray(runs[True][1])).all()
+
+
+def test_checks_on_host_twins_raise_on_card(dev):
+    """Uploaded operands are checked on their host arrays, with no sync:
+    'positions-match', 'page-range' and 'segments-match' still refuse
+    before any launch."""
+    from repro_torch.kernels import transfer
+
+    q = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16)
+    slab = torch.zeros(256, 2, 32, device=dev, dtype=torch.bfloat16)
+    kvv = torch.ones(1, 256, dtype=torch.bool, device=dev)
+    bm = build_block_map([3, 4, 5, 6], 256)
+    pt = transfer.upload([[1, 0]], dev, torch.int32)
+    qp = transfer.upload([[3, 4, 5, 6]], dev, torch.long)
+    before = ops.launch_counts().get("flash_refresh_paged", 0)
+    with pytest.raises(ops.KernelContractError, match="positions-match"):
+        ops.flash_refresh_paged(q, slab, slab, transfer.upload([[3, 4, 5, 7]], dev, torch.long),
+                                kvv, pt, block_map=bm)
+    with pytest.raises(ops.KernelContractError, match="page-range"):
+        ops.flash_refresh_paged(q, slab, slab, qp, kvv,
+                                transfer.upload([[1, 2]], dev, torch.int32), block_map=bm)
+    assert ops.launch_counts().get("flash_refresh_paged", 0) == before
+    ops.flash_refresh_paged(q, slab, slab, qp, kvv, pt, block_map=bm)
+    assert ops.launch_counts()["flash_refresh_paged"] == before + 1
+    seg = _seg_layout([[(0, 60), (1, 40)]], 128)
+    other = seg.copy()
+    other[0, 99] = -1
+    qk = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
+    before = ops.launch_counts().get("flash_packed", 0)
+    with pytest.raises(ops.KernelContractError, match="segments-match"):
+        ops.flash_packed(qk, qk, qk, transfer.upload(other, dev), build_pack_map(seg))
+    assert ops.launch_counts().get("flash_packed", 0) == before
+    ops.flash_packed(qk, qk, qk, transfer.upload(seg, dev), build_pack_map(seg))
+    assert ops.launch_counts()["flash_packed"] == before + 1

@@ -104,7 +104,8 @@ def serve(mode: str):
     tpipe = ServingPipeline(tcfg, default_vit(tcfg), tparams, tvparams,
                             EngineCfg(mode=mode, codec=TCodecCfg(**CODEC)), device="cpu")
     ops.reset_dispatch_counts()
-    t = _drive(tpipe, Scheduler(tpipe, SchedulerCfg(max_concurrent=2)), StreamRequest)
+    t = _drive(tpipe, Scheduler(tpipe, SchedulerCfg(max_concurrent=2, pipelined=False)),
+               StreamRequest)
     return j, t, ops.dispatch_counts(), tpipe
 
 

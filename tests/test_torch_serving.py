@@ -1,6 +1,7 @@
 """The slice end to end: the port's lockstep ``Scheduler`` against the JAX
-package's, on internvl3-14b-smoke with the same weights (bridged from
-the JAX trees) and the same videos.
+package's (the async engines: ``test_torch_async.py``), on
+internvl3-14b-smoke with the same weights (bridged from the JAX trees)
+and the same videos.
 
 2 streams x 24 frames at 112^2 with the serve defaults (gop 4, window
 16, stride 4, keep 0.5): one fresh and two incremental windows each.
@@ -66,7 +67,7 @@ def served():
                            from_numpy_tree(np_tree(jp.vparams)),
                            EngineCfg(mode="codecflow", codec=TCodecCfg(**CODEC)),
                            device="cpu")
-    ts = Scheduler(pipe, SchedulerCfg(max_concurrent=2))
+    ts = Scheduler(pipe, SchedulerCfg(max_concurrent=2, pipelined=False))
     ops.reset_dispatch_counts()
     for i, (f, lab) in enumerate(videos):
         ts.submit(StreamRequest(i, np.asarray(f), tag=lab))
@@ -159,15 +160,18 @@ def test_unported_options_raise():
                         EngineCfg(codec=codec), device="cpu")
 
 
-def test_scheduler_refuses_pipelined_engine():
-    pipe = tserve.build_pipeline(ARCH, "codecflow", TCodecCfg(**CODEC), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Scheduler(pipe, SchedulerCfg(pipelined=True))
-
-
 def test_launch_serve_main_on_cpu(capsys):
     tserve.main(["--device", "cpu", "--videos", "1", "--frames", "20"])
     out = capsys.readouterr().out
     report = json.loads(out[out.index("{"):])
-    assert report["windows_total"] == 2 and report["scheduler"] == "lockstep"
+    assert report["windows_total"] == 2 and report["scheduler"] == "pipelined"
     assert report["arch"] == ARCH and report["GFLOP_per_window"] > 0
+
+
+def test_launch_serve_main_lockstep_on_cpu(capsys):
+    tserve.main(["--device", "cpu", "--videos", "2", "--streams", "2", "--frames", "20",
+                 "--lockstep", "--ingest-workers", "0"])
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert report["windows_total"] == 4 and report["scheduler"] == "lockstep"
+    assert 0 < sum(report["stage_occupancy"].values()) <= 1.0 + 1e-6

@@ -120,7 +120,7 @@ def serve(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5):
     # modes without reuse never page their KV: the JAX runs are the same
     j = _serve_jax(mode, paged and mode in REUSE_MODES, stale, keep_ratio)
     pipe = port_pipeline(mode, paged, stale, keep_ratio)
-    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=2))
+    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=2, pipelined=False))
     ops.reset_dispatch_counts()
     devs = [] if mode == "cacheblend" else None
     t = _drive(pipe, sched, StreamRequest, devs)
