@@ -39,7 +39,13 @@ Phases (any failure exits non-zero):
                bf16), and flash_packed at three packings of window 0's
                24 P-frames (the serve path's, busy: every frame keeps its
                whole budget, mixed: seeded random budgets), with the
-               stated tolerance; kernel, plain and library
+               stated tolerance; flash_refresh_paged also at olmoe-1b-7b's
+               heads (H 16 = Hkv 16, D 128) on its codecflow layout,
+               flash_refresh at jamba-v0.1-52b's (H 32, Hkv 8, D 128) on
+               its recurrent passes over max_hist slots (window 0's and
+               the last window's append, query and decode, fullcomp's
+               append), ssd_scan at jamba's serving shapes (H 128, P 64,
+               N 16); kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
                is paged; none for ssd_scan) times from CUDA events around
                calls made one by one (``ms``: the wrapper's host time
@@ -104,6 +110,29 @@ Phases (any failure exits non-zero):
                kernel_mode("plain"), for codecflow and for each further
                path of internvl3-14b, and for both paths of mamba2-2.7b;
                the yes/no logits must agree.
+  7. families — the MoE and hybrid families, with the launcher's 112^2
+               ViT and random bf16 weights made on the card from the seed,
+               each model's weights freed before the next: (a)
+               olmoe-1b-7b at full width and depth (16 layers, d 2048, 64
+               experts top-8), codecflow on the paged bf16 slab, 2 streams
+               x 24 frames; (b) jamba-v0.1-52b at full width with 16 of its
+               32 layers (d 4096, 32/8 heads, 16 experts top-2, SSD
+               d_state 16), codecflow and fullcomp through the recurrent
+               backend, 2 streams x 40 frames.  Each case is served
+               lockstep, async, async, lockstep as in phase 5, with the
+               same checks and printout (and the state bytes per stream
+               of the hybrid's attention caches and SSD states); the
+               yes/no logits of all four runs must be bitwise equal.
+               Before each case one MoE layer is called at the largest
+               serving shape and at a decode step's: it must report no
+               sync and repeat bitwise; its dispatch buffer, measured
+               peak and time beside its bytes bound are printed.
+               Then each path's composite check, as in phase 6, through
+               the first layers of the same weights (olmoe 4, jamba 8:
+               one period of its pattern), the plain run taking the
+               kernel run's expert choices (a bf16 step can move a near
+               tie; the tokens that would have chosen otherwise are
+               counted and printed).
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -127,6 +156,7 @@ import sys
 import threading
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -140,6 +170,13 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_HW = 112                     # the launcher's default ViT for mamba2-2.7b
 SSM_FRAMES = 40
 SSM_PATHS = ("codecflow", "fullcomp")
+MOE_ARCH = "olmoe-1b-7b"         # full width and depth, the launcher's 112^2 ViT
+MOE_FRAMES = 24
+HYBRID_ARCH = "jamba-v0.1-52b"   # full width, HYBRID_LAYERS of its 32 layers
+HYBRID_LAYERS = 16               # 2 of 4 periods: ~48 GiB of bf16 weights
+HYBRID_FRAMES = 40
+HYBRID_PATHS = ("codecflow", "fullcomp")
+FAMILY_HW = 112
 SEED = 0
 # attention kernels vs plain: max over (.., head) rows of max |k - p| /
 # max |p|.  The refresh and packed kernels round their unnormalised
@@ -429,14 +466,20 @@ def bf16_keys(needed):
     return 2 * float(needed.sum())
 
 
-def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams):
-    """All three serving shapes are held to ROW_TOL; the kernels line
-    reports the selective refresh's times and the largest error."""
+def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams, families=()):
+    """All three serving shapes are held to ROW_TOL, at ``cfg``'s heads and
+    at each of ``families`` ((label, cfg, layout, cache slots) of another
+    model's paged path); the kernels line reports ``cfg``'s selective
+    refresh's times, the largest error, and every family case's readings
+    under ``families``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_refresh import flash_refresh_paged_cuda, flash_refresh_paged_plain
     from repro_torch.kernels.ref import paged_gather_ref
-    ok, row, worst = True, None, 0.0
-    for case in REFRESH_CASES:
+    ok, row, worst, readings = True, None, 0.0, {}
+    cases = [(None, cfg, layout, cache_slots, case) for case in REFRESH_CASES] + [
+        (label, fcfg, flay, fslots, case) for label, fcfg, flay, fslots in families
+        for case in REFRESH_CASES]
+    for label, cfg, layout, cache_slots, case in cases:
         q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
             torch, cfg, layout, cache_slots, n_streams, case)
         g = q.shape[2] // k.shape[1]
@@ -453,25 +496,72 @@ def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams):
             q, k.shape[1], refresh_mask(torch, q_pos, kv_valid), bf16_keys,
             kv_valid.numel() + pt.numel() * 4)
         worst = max(worst, r["max_abs_err"])
-        log(f"flash_refresh_paged ({case}): q {tuple(q.shape)} bf16, slab "
+        name = case if label is None else f"{label}, {case}"
+        log(f"flash_refresh_paged ({name}): q {tuple(q.shape)} bf16, slab "
             f"{tuple(k.shape)}, {bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
             + attention_reading(r, "gather+SDPA"))
         ok = ok and ok_here
-        if case == "selective refresh":
+        if label is not None:
+            readings[name] = dict(q=list(q.shape), slab=list(k.shape), **r)
+        elif case == "selective refresh":
             row = kernel_row("flash_refresh_paged", "src/repro/kernels/flash_refresh.py:458", r)
     row["max_abs_err"] = worst
+    if readings:
+        row["families"] = readings
     return ok, row
 
 
-def check_flash_refresh(torch, cfg, cases, n_streams):
+def _stream_inputs(torch, cfg, slots, n_streams, offset, T):
+    """Query rows, per-stream caches, validity and map of a contiguous
+    pass of the recurrent backend's attention layers: T positions from
+    ``offset`` over ``slots``; keys up to the pass's last position are
+    visible, the chunk's own invalid slots masked (a fifth of them, where
+    it holds visual tokens: more than 8), earlier ones kept as the
+    reference keeps them."""
+    import numpy as np
+    from repro_torch.kernels.flash_refresh import build_block_map
+    rng = np.random.default_rng(6)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    valid = np.broadcast_to(np.arange(slots) < offset + T, (n_streams, slots)).copy()
+    if T > 8:
+        valid[:, offset:offset + T] &= rng.random((n_streams, T)) < 0.8
+    bm = build_block_map(np.arange(offset, offset + T), slots)
+    q = torch.randn((n_streams, T, cfg.n_heads, cfg.d_head), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((n_streams, slots, cfg.n_kv, cfg.d_head), generator=g,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    q_pos = torch.arange(offset, offset + T, device="cuda")[None].expand(n_streams, T)
+    return q, k, v, q_pos, torch.as_tensor(valid, device="cuda"), bm
+
+
+def check_flash_refresh(torch, cfg, cases, n_streams, families=()):
     """The per-stream kernel on the logical view of the same inputs as
     the paged checks: (label, layout, cache slots, refresh case) per row
-    of ``cases``.  The kernels line reports the selective refresh's
-    times and the largest error."""
+    of ``cases``; then each of ``families`` ((label, cfg, cache slots,
+    offset, T): a contiguous pass of the recurrent backend's attention
+    layers, ``_stream_inputs``).  The kernels line reports the selective
+    refresh's times, the largest error, and every family case's readings
+    under ``families``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_refresh import flash_refresh_cuda, flash_refresh_plain
     from repro_torch.kernels.ref import paged_gather_ref
-    ok, row, worst = True, None, 0.0
+    ok, row, worst, readings = True, None, 0.0, {}
+    for label, fcfg, slots, offset, T in families:
+        q, k, v, q_pos, kv_valid, bm = _stream_inputs(torch, fcfg, slots, n_streams, offset, T)
+        ok_here, r = check_attention(
+            torch, lambda: flash_refresh_cuda(q, k, v, kv_valid, bm),
+            lambda: flash_refresh_plain(q, k, v, q_pos, kv_valid),
+            lambda mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None], enable_gqa=True),
+            q, k.shape[2], refresh_mask(torch, q_pos, kv_valid), bf16_keys, kv_valid.numel())
+        worst = max(worst, r["max_abs_err"])
+        log(f"flash_refresh ({label}): q {tuple(q.shape)} bf16 at positions "
+            f"[{offset}, {offset + T}), caches {tuple(k.shape)}, {bm.visited} visited tiles "
+            f"of {bm.n_q_tiles}x{bm.n_kv_tiles}: " + attention_reading(r, "SDPA"))
+        ok = ok and ok_here
+        readings[label] = dict(q=list(q.shape), caches=list(k.shape), **r)
+        del q, k, v
     for label, layout, slots, case in cases:
         q, ks, vs, q_pos, kv_valid, pt, bm = _refresh_inputs(
             torch, cfg, layout, slots, n_streams, case)
@@ -492,6 +582,8 @@ def check_flash_refresh(torch, cfg, cases, n_streams):
         if case == "selective refresh":
             row = kernel_row("flash_refresh", "src/repro/kernels/flash_refresh.py:236", r)
     row["max_abs_err"] = worst
+    if readings:
+        row["families"] = readings
     return ok, row
 
 
@@ -680,8 +772,9 @@ def check_ssd_scan(torch):
     """ssd_scan at the serving shapes of mamba2-2.7b (B 2, H 80, P 64,
     N 128, G 1: a fresh window L 160, an incremental one L 40 and the
     query L 8, each from a non-zero state), a long prefill (L 4096, 16
-    chunks of 256), a ragged one (L 1000) and groups G 4 at a small
-    width.  y (bf16) row-relative within one bf16 step: both round f32
+    chunks of 256), a ragged one (L 1000), groups G 4 at a small width,
+    and jamba-v0.1-52b's three serving shapes (H 128, P 64, N 16).  y
+    (bf16) row-relative within one bf16 step: both round f32
     values that differ by the summation order.  The f32 state within
     1e-4 of each (b, head) state's largest value: sums of up to 256
     terms and the cumulative log-decay in another order (a block scan
@@ -696,7 +789,10 @@ def check_ssd_scan(torch):
              ("query", 2, 8, 80, 64, 1, 128, 256, True),
              ("long prefill", 1, 4096, 80, 64, 1, 128, 256, False),
              ("ragged prefill", 1, 1000, 80, 64, 1, 128, 256, True),
-             ("groups", 2, 300, 16, 32, 4, 64, 64, True))
+             ("groups", 2, 300, 16, 32, 4, 64, 64, True),
+             (f"{HYBRID_ARCH} fresh window", 2, 160, 128, 64, 1, 16, 256, True),
+             (f"{HYBRID_ARCH} incremental window", 2, 40, 128, 64, 1, 16, 256, True),
+             (f"{HYBRID_ARCH} query", 2, 8, 128, 64, 1, 16, 256, True))
     g = torch.Generator(device="cuda").manual_seed(5)
     ok, row, worst = True, None, 0.0
     for label, B, L, H, P, G, N, chunk, with_init in cases:
@@ -744,6 +840,42 @@ def check_ssd_scan(torch):
                        library_ms=None)
     row["max_abs_err"] = worst
     return ok, row
+
+
+def family_kernel_cases():
+    """The attention kernels' cases at the families phase's serving shapes
+    (pipelines built without weights, for their layouts): the paged
+    kernel at olmoe-1b-7b's heads (H 16 = Hkv 16, D 128, GQA group 1) on
+    its codecflow layout, and the per-stream kernel at jamba-v0.1-52b's
+    (H 32, Hkv 8, D 128) over its attention caches' max_hist slots: the
+    codecflow passes of window 0 and of the last window of a 40-frame
+    stream (append, query, the first decode step) and fullcomp's fresh
+    append."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import default_vit
+    from repro_torch.serving import ServingPipeline
+
+    def layout_of(arch, mode):
+        c = get_config(arch)
+        return c, ServingPipeline(c, default_vit(c), {}, {}, path_ecfg(mode, {}),
+                                  device="cuda")
+    mcfg, mp = layout_of(MOE_ARCH, "codecflow")
+    paged = [(MOE_ARCH, mcfg, mp.layout, mp.cache_slots)]
+    hcfg, hp = layout_of(HYBRID_ARCH, "codecflow")
+    _, hf = layout_of(HYBRID_ARCH, "fullcomp")
+    lay, slots = hp.layout, hp.cache_slots
+    n_new = sum(lay.frame_tokens[f] for f in range(lay.window - lay.stride, lay.window))
+    last = (HYBRID_FRAMES - lay.window) // lay.stride          # the last window's index
+    off = lay.vis_len + (last - 1) * n_new                     # its append's offset
+    q_off = off + n_new
+    stream = [
+        (f"{HYBRID_ARCH} append, window 0", hcfg, slots, 0, lay.vis_len),
+        (f"{HYBRID_ARCH} append, window {last}", hcfg, slots, off, n_new),
+        (f"{HYBRID_ARCH} query, window {last}", hcfg, slots, q_off, lay.query_len),
+        (f"{HYBRID_ARCH} decode, window {last}", hcfg, slots, q_off + lay.query_len, 1),
+        (f"{HYBRID_ARCH} fullcomp append", hcfg, hf.cache_slots, 0, hf.layout.vis_len),
+    ]
+    return paged, stream
 
 
 def positional_mask(torch, Sq, Sk, q_offset, window, causal=True):
@@ -994,23 +1126,72 @@ def serve_paths(torch, cfg, params, vparams, videos):
     return ok, by_path, served
 
 
+@contextmanager
+def expert_choices(log: list, force=None):
+    """While active, each routing of ``moe_block`` appends its (gates, own
+    choices) to ``log``; with ``force`` (another run's log), call i takes
+    that run's choices of call i instead of its own."""
+    from repro_torch.models import layers
+    orig = layers.top_k_lower_first
+    calls = iter(force) if force is not None else None
+
+    def recorded(gates, k):
+        vals, idx = orig(gates, k)
+        log.append((gates, idx))
+        if calls is not None:
+            idx = next(calls)[1]
+            vals = gates.gather(1, idx)
+        return vals, idx
+    layers.top_k_lower_first = recorded
+    try:
+        yield log
+    finally:
+        layers.top_k_lower_first = orig
+
+
+def choice_flips(torch, ref: list, own: list):
+    """(tokens whose expert set differs, the largest gate margin of the
+    reference's choice among them) over calls paired one for one."""
+    n, worst = 0, 0.0
+    for (g_ref, e_ref), (_, e_own) in zip(ref, own, strict=True):
+        diff = (e_ref.sort(1).values != e_own.sort(1).values).any(1)
+        if bool(diff.any()):
+            k = e_ref.shape[1]
+            top = g_ref[diff].sort(1, descending=True).values
+            worst = max(worst, float((top[:, k - 1] - top[:, k]).max()))
+            n += int(diff.sum())
+    return n, worst
+
+
 def composite(torch, cfg4, vit, params, vparams, videos, mode, kv):
     """One fresh and one incremental window group at 4 layers through the
-    kernels and through their plain versions.  Returns (max |d yes/no
-    logit|, its tolerance, answers agree where the margin exceeds twice
-    it, all checks passed)."""
+    kernels and through their plain versions.  With MoE layers the plain
+    run takes the kernel run's expert choices (a bf16 step between the
+    two can move a near tie, after which the runs diverge by more than
+    the kernels' rounding), and prints how many tokens would have chosen
+    otherwise, with the largest gate margin among them.  Returns (max |d
+    yes/no logit|, its tolerance, answers agree where the margin exceeds
+    twice it, all checks passed)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingPipeline
     ecfg = path_ecfg(mode, kv)
+    moe = cfg4.moe is not None
+    chosen, plain_own = [], []
     pipe = ServingPipeline(cfg4, vit, params, vparams, ecfg, device="cuda")
-    _, res_k, _ = serve(torch, pipe, videos)
+    with expert_choices(chosen):
+        _, res_k, _ = serve(torch, pipe, videos)
     del pipe
     pipe_p = ServingPipeline(cfg4, vit, params, vparams, ecfg,
                              device="cuda")       # same weights, own KV
-    with ops.kernel_mode("plain"):
+    with ops.kernel_mode("plain"), expert_choices(plain_own, force=chosen if moe else None):
         _, res_p, _ = serve(torch, pipe_p, videos)
     del pipe_p
+    if moe:
+        n, margin = choice_flips(torch, chosen, plain_own)
+        log(f"  composite [{cfg4.name}, {mode}]: the plain run took the kernel run's "
+            f"expert choices; {n} tokens would have chosen otherwise (largest gate margin "
+            f"{margin:.3g})")
     lk = np.array([r.stats.logits_yes_no for res in res_k for r in res])
     lp = np.array([r.stats.logits_yes_no for res in res_p for r in res])
     diff, tol, ans_ok = logit_agreement(lk, lp)
@@ -1211,6 +1392,7 @@ def engine_run(torch, pipe, videos, pipelined: bool, max_concurrent: int, on_eve
         per_stream=sorted(events, key=lambda e: e[1]),
         logits=[[r.stats.logits_yes_no for r in rr] for rr in res],
         answers=[[r.stats.answer for r in rr] for rr in res],
+        kv_bytes=res[0][-1].stats.kv_bytes_per_stream if res[0] else 0,
     )
 
 
@@ -1225,12 +1407,67 @@ def within(run, ref, label: str) -> bool:
     return diff <= tol and ans
 
 
+def engine_case(torch, phase, key, label, make, fleet, conc, want_n, order, by_path):
+    """One case of the engines or families phase: ``fleet`` served through
+    a fresh ``make()`` pipeline once per engine of ``order`` (each run's
+    counts set to 0 just before it and read just after, stored in
+    ``by_path``).  Every run must serve ``want_n`` windows with finite
+    logits, launch each kernel of its path with no plain call on a CUDA
+    tensor (where the pipeline has a pool, after demoting pages by window
+    1 if it is int8), and deliver the same events per stream.  Returns
+    (ok, the runs)."""
+    import numpy as np
+    from repro_torch.serving import WindowDone
+    ok, runs = True, []
+    for i, pipelined in enumerate(order):
+        pipe = make()
+        seen = {}
+
+        def on_event(ev, pipe=pipe, seen=seen):
+            pool = pipe.backend.pool
+            if isinstance(ev, WindowDone) and ev.window == 1 and pool is not None:
+                seen.setdefault("cold", sum(1 for p in pool._in_use if p >= pool.n_pages))
+        r = engine_run(torch, pipe, fleet, pipelined, conc, on_event)
+        top = ", ".join(f"{k} {site} x{n}" for (k, site), n in r["sites"].most_common(8))
+        log(f"{phase} {key} [{label}] {r['engine']} run {i + 1}: {r['n']} windows in "
+            f"{r['wall']:.3f} s ({r['n'] / r['wall']:.4f} windows/s incl. codec ingest); "
+            f"stage busy s {r['busy']}; stage-span share {r['share']:.4f}; syncs per "
+            f"window: main {r['main']:.2f}, ingest threads {r['ingest']:.2f}, finalize "
+            f"waits {r['waits']:.2f} (and {r['submit']:.2f} per stream at submit); "
+            f"peak memory {r['peak']:.2f} GiB; kv bytes per stream {r['kv_bytes']}; "
+            f"launches {r['launches']}; plain on CUDA {r['plain']}")
+        log(f"  sync sites: {top or 'none'}")
+        here = (r["n"] == want_n and bool(np.isfinite(np.array(
+            [x for rr in r["logits"] for x in rr])).all())
+            and all(r["launches"].get(k, 0) > 0 for k in pipe.kernels)
+            and not any(r["plain"].values()))
+        if getattr(pipe.backend, "quant", False):
+            log(f"  int8: cold pages in use after window 1: {seen.get('cold', 0)}")
+            here = here and seen.get("cold", 0) > 0
+        if not here:
+            log(f"FAIL: {phase} {key} {r['engine']} run {i + 1} (kernels wanted "
+                f"{sorted(pipe.kernels)})")
+        ok = ok and here
+        by_path[f"{phase} {key} {r['engine']} run {i + 1}"] = r["launches"]
+        runs.append(r)
+        del pipe
+    same_events = all(r["per_stream"] == runs[0]["per_stream"] for r in runs)
+    if not same_events:
+        log(f"FAIL: {phase} {key}: the engines delivered other events per stream")
+    for engine in ("lockstep", "async"):
+        mine = [r for r in runs if r["engine"] == engine]
+        if mine:
+            wps = [r["n"] / r["wall"] for r in mine]
+            log(f"  {key} {engine}: windows/s {[round(w, 4) for w in wps]}, stage-span "
+                f"share {[round(r['share'], 4) for r in mine]}")
+    return ok and same_events, runs
+
+
 def serve_engines(torch, cfg, params, vparams, videos, ssm_pipe, int8_ref):
     """Phase 5: each case served in the order lockstep, async, async,
     lockstep ((d): async once).  Returns (ok, launches per run)."""
-    import numpy as np
     from repro_torch.data.pipeline import anomaly_dataset
-    from repro_torch.serving import ServingPipeline, WindowDone
+    from repro_torch.serving import ServingPipeline
     sync_probe(torch)
     big = anomaly_dataset(len(STAGGERED), max(STAGGERED), HW, HW, seed=SEED)
     fleet_a = [(f[:n], lab) for (f, lab), n in zip(big, STAGGERED)]
@@ -1256,43 +1493,9 @@ def serve_engines(torch, cfg, params, vparams, videos, ssm_pipe, int8_ref):
     )
     ok, by_path = True, {}
     for key, label, make, fleet, conc, want_n, order in cases:
-        runs = []
-        for i, pipelined in enumerate(order):
-            pipe = make()
-            seen = {}
-
-            def on_event(ev, pipe=pipe, seen=seen):
-                pool = pipe.backend.pool
-                if isinstance(ev, WindowDone) and ev.window == 1 and pool is not None:
-                    seen.setdefault("cold", sum(1 for p in pool._in_use if p >= pool.n_pages))
-            r = engine_run(torch, pipe, fleet, pipelined, conc, on_event)
-            top = ", ".join(f"{k} {site} x{n}" for (k, site), n in r["sites"].most_common(8))
-            log(f"engines {key} [{label}] {r['engine']} run {i + 1}: {r['n']} windows in "
-                f"{r['wall']:.3f} s ({r['n'] / r['wall']:.4f} windows/s incl. codec ingest); "
-                f"stage busy s {r['busy']}; stage-span share {r['share']:.4f}; syncs per "
-                f"window: main {r['main']:.2f}, ingest threads {r['ingest']:.2f}, finalize "
-                f"waits {r['waits']:.2f} (and {r['submit']:.2f} per stream at submit); "
-                f"peak memory {r['peak']:.2f} GiB; launches "
-                f"{r['launches']}; plain on CUDA {r['plain']}")
-            log(f"  sync sites: {top or 'none'}")
-            here = (r["n"] == want_n and bool(np.isfinite(np.array(
-                [x for rr in r["logits"] for x in rr])).all())
-                and all(r["launches"].get(k, 0) > 0 for k in pipe.kernels)
-                and not any(r["plain"].values()))
-            if key == "(d)":
-                log(f"  int8: cold pages in use after window 1: {seen.get('cold', 0)}")
-                here = here and seen.get("cold", 0) > 0
-            if not here:
-                log(f"FAIL: engines {key} {r['engine']} run {i + 1} (kernels wanted "
-                    f"{sorted(pipe.kernels)})")
-            ok = ok and here
-            by_path[f"engines {key} {r['engine']} run {i + 1}"] = r["launches"]
-            runs.append(r)
-            del pipe
-        same_events = all(r["per_stream"] == runs[0]["per_stream"] for r in runs)
-        if not same_events:
-            log(f"FAIL: engines {key}: the engines delivered other events per stream")
-        ok = ok and same_events
+        here, runs = engine_case(torch, "engines", key, label, make, fleet, conc, want_n,
+                                 order, by_path)
+        ok = ok and here
         if key in ("(b)", "(c)"):
             bitwise = all(r["logits"] == runs[0]["logits"] for r in runs)
             log(f"  {key}: yes/no logits of every run bitwise equal: {bitwise}")
@@ -1304,15 +1507,170 @@ def serve_engines(torch, cfg, params, vparams, videos, ssm_pipe, int8_ref):
         else:
             ok = within(runs[0]["logits"], int8_ref,
                         f"{key} async vs phase 4's lockstep int8 run") and ok
-        for engine in ("lockstep", "async"):
-            mine = [r for r in runs if r["engine"] == engine]
-            if mine:
-                wps = [r["n"] / r["wall"] for r in mine]
-                log(f"  {key} {engine}: windows/s {[round(w, 4) for w in wps]}, stage-span "
-                    f"share {[round(r['share'], 4) for r in mine]}")
     gc.collect()
     torch.cuda.empty_cache()
     return ok, by_path
+
+
+# ----------------------------------------------------------------------
+# phase 7: the MoE and hybrid families
+# ----------------------------------------------------------------------
+def moe_probe(torch, cfg, params, n_rows: int) -> bool:
+    """One MoE layer of ``cfg`` (its first, with the run's weights) on
+    random rows at the largest serving call's shape (``n_rows``) and at
+    a decode step's (2 rows: cap 1), after a warm-up call.  Prints for
+    each the capacity, the dispatch buffer's and the expert activations'
+    bytes, the measured peak of the call above what was allocated before
+    it, its time beside its bound (every expert's weights read once, as
+    each has at least one slot; the products over every slot), and the
+    syncs the debug mode reports; it must report none and give the same
+    output bitwise when called again."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import layer_params
+    m = cfg.moe
+    p = layer_params(params["blocks"][cfg.ffn_pattern.index("moe")], 0)["ffn"]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    w_bytes = sum(p[k].numel() * p[k].element_size() for k in ("router", "wg", "wu", "wd"))
+    with SyncWatch(torch):
+        pass     # a process's first watch reports the mode switch itself as a sync
+    ok = True
+    for n in (n_rows, 2):
+        x = torch.randn((2, n // 2, cfg.d_model), generator=g, device="cuda").bfloat16()
+        layers.moe_block(p, m, x)        # warm-up: first-call library set-up may sync
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with SyncWatch(torch) as watch:
+            out, _ = layers.moe_block(p, m, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        again, _ = layers.moe_block(p, m, x)
+        bitwise = torch.equal(out, again)
+        cap = int(m.capacity_factor * n * m.top_k / m.n_experts) + 1
+        ms = cuda_ms(torch, lambda: layers.moe_block(p, m, x), 5)
+        # every slot of every expert goes through the three products
+        flops = 2.0 * 3 * m.n_experts * cap * cfg.d_model * m.d_ff_expert
+        b_ms, b_by = bound_ms(w_bytes + 2 * x.numel() * 2, flops, BF16_TENSOR_FLOPS)
+        sites = ", ".join(f"{site} x{k}" for (_, site), k in watch.sites.items())
+        log(f"moe_block ({cfg.name}, n {n}, E {m.n_experts}, top-{m.top_k}, cap {cap}): "
+            f"dispatch buffer E*cap*d {m.n_experts * cap * cfg.d_model * 2 / 2**20:.1f} MiB, "
+            f"E*cap*d_ff_expert {m.n_experts * cap * m.d_ff_expert * 2 / 2**20:.1f} MiB bf16; "
+            f"measured peak above the inputs {peak / 2**20:.1f} MiB; {ms:.4f} ms per call, "
+            f"bound {b_ms:.4f} ms ({b_by}; {w_bytes / 2**20:.0f} MiB of weights); syncs "
+            f"reported {watch.count('main')} ({sites or 'none'}); bitwise equal when called "
+            f"again: {bitwise}")
+        ok = ok and bitwise and watch.count("main") == 0
+    return ok
+
+
+def state_bytes(cfg, slots: int) -> int:
+    """Bytes of one stream's recurrent state: attention K/V over ``slots``
+    (bf16) plus every mamba layer's conv tail (bf16) and SSD state (f32)."""
+    n = 0
+    for pos in range(cfg.period):
+        if cfg.block_kind(pos)[0] == "attn":
+            n += 2 * slots * cfg.n_kv * cfg.d_head * 2
+        else:
+            s = cfg.ssm
+            conv = (s.d_conv - 1) * (s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state) * 2
+            n += conv + s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+    return n * cfg.repeats
+
+
+def serve_families(torch):
+    """Phase 7: (a) olmoe-1b-7b at full size, codecflow on the paged bf16
+    slab; (b) jamba-v0.1-52b at full width with HYBRID_LAYERS layers,
+    codecflow and fullcomp through the recurrent backend; both with the
+    launcher's 112^2 ViT and random bf16 weights made on the card from
+    the seed, each case served lockstep, async, async, lockstep, the
+    yes/no logits of every run bitwise equal.  Each model's weights are
+    freed before the next.  Returns (ok, launches per run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import anomaly_dataset
+    from repro_torch.launch.serve import default_vit
+    from repro_torch.models.init import init_lm_params, init_vit_params
+    from repro_torch.serving import ServingPipeline
+    ok, by_path = True, {}
+    models = (
+        (MOE_ARCH, get_config(MOE_ARCH), ("codecflow",), MOE_FRAMES, "full width and depth"),
+        (HYBRID_ARCH, dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS),
+         HYBRID_PATHS, HYBRID_FRAMES,
+         f"full width, {HYBRID_LAYERS} of {get_config(HYBRID_ARCH).n_layers} layers"),
+    )
+    for key, (arch, cfg, modes, frames, depth) in zip(("(a)", "(b)"), models):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        v = default_vit(cfg)
+        params = init_lm_params(cfg, SEED, "cuda")
+        vparams = init_vit_params(v, cfg.d_model, SEED + 1, "cuda")
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"weights: {arch} ({depth}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv} heads, {cfg.moe.n_experts} experts top-"
+            f"{cfg.moe.top_k}) {n_bytes / 2**30:.2f} GiB made on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        videos = anomaly_dataset(2, frames, FAMILY_HW, FAMILY_HW, seed=SEED)
+        want_n = 2 * ((frames - 16) // 4 + 1)
+        makers = {mode: (lambda mode=mode: ServingPipeline(
+            cfg, v, params, vparams, path_ecfg(mode, {}), device="cuda")) for mode in modes}
+        largest = 0          # rows of the largest call: a fresh append or paged prefill
+        for mode, make in makers.items():
+            probe = make()
+            lay = probe.layout
+            largest = max(largest, len(videos) * (
+                lay.vis_len if probe.is_streaming_family else lay.total_len))
+            if probe.is_streaming_family:
+                log(f"  {arch} {mode}: attention caches of {probe.backend.cache_slots} slots "
+                    f"(max_hist {probe.backend.max_hist}); state bytes per stream "
+                    f"{state_bytes(cfg, probe.backend.cache_slots)}")
+            del probe
+        ok = moe_probe(torch, cfg, params, largest) and ok
+        for mode, make in makers.items():
+            label = f"{arch} {mode}" + (", paged bf16" if mode == "codecflow" and
+                                        cfg.family == "moe" else "")
+            here, runs = engine_case(torch, "families", f"{key} {mode}", label, make,
+                                     videos, 2, want_n, ENGINE_ORDER, by_path)
+            bitwise = all(r["logits"] == runs[0]["logits"] for r in runs)
+            log(f"  {key} {mode}: yes/no logits of every run bitwise equal: {bitwise}")
+            for i, res in enumerate(runs[0]["logits"]):
+                log(f"  stream {i}: answers {runs[0]['answers'][i]}, yes/no logits "
+                    f"{[tuple(round(x, 4) for x in lg) for lg in res]}")
+            ok = ok and here and bitwise
+        # kernels against their plain versions through the first layers
+        # of the same weights (views), as phase 6 does at 4 layers
+        cut_cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, max(4, cfg.period)))
+        r = cut_cfg.repeats
+        cut = dict(params, blocks=tuple(_map_leaves(lambda t: t[:r], blk)
+                                        for blk in params["blocks"]))
+        short = [(f[:20], lab) for f, lab in videos]    # one fresh + one incremental window
+        for mode in modes:
+            diff, tol, ans_ok, here = composite(torch, cut_cfg, v, cut, vparams, short, mode,
+                                                {})
+            log(f"composite [{arch}, {mode}] ({cut_cfg.n_layers} layers, full width): max "
+                f"|d yes/no logit| {diff:.4g} (tol {tol:.3g}); answers agree where the "
+                f"margin exceeds 2 x tol: {ans_ok}")
+            if not here:
+                log(f"FAIL: composite check [{arch}, {mode}]")
+            ok = ok and here
+        del params, vparams, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, by_path
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 def main(argv=None) -> int:
@@ -1379,13 +1737,15 @@ def main(argv=None) -> int:
         ("decode", pipe.layout, pipe.cache_slots, "decode"),
     )
     n = len(videos)
+    paged_families, stream_families = family_kernel_cases()
     checks = {   # kernel name -> its check; flash_prefill_paged's covers the int8 row too
         "mv_sad": lambda: [check_mv_sad(torch, videos)],
         "rope_shift": lambda: [check_rope_shift(torch, cfg, pipe.layout, n)],
-        "flash_refresh_paged": lambda: [
-            check_flash_refresh_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)],
+        "flash_refresh_paged": lambda: [check_flash_refresh_paged(
+            torch, cfg, pipe.layout, pipe.cache_slots, n, paged_families)],
         "flash_packed": lambda: [check_flash_packed(torch, pipe, streams)],
-        "flash_refresh": lambda: [check_flash_refresh(torch, cfg, stream_cases, n)],
+        "flash_refresh": lambda: [check_flash_refresh(torch, cfg, stream_cases, n,
+                                                      stream_families)],
         "flash_refresh_paged_int8": lambda: [
             check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n)],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
@@ -1506,6 +1866,18 @@ def main(argv=None) -> int:
         if not ok:
             log(f"FAIL: composite check [{SSM_ARCH}, {mode}]")
             return 1
+    del params, vparams
+
+    # -- 7. families: MoE and hybrid at full width ------------------------
+    t0 = time.perf_counter()
+    ok, family_by_path = serve_families(torch)
+    log(f"families: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        log("FAIL: families phase")
+        return 1
+    for row in rows:
+        row["launches_by_path"].update(
+            {lab: n[row["name"]] for lab, n in family_by_path.items() if row["name"] in n})
 
     print(json.dumps({"kernels": rows}))
     print(smi)

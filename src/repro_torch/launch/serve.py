@@ -22,14 +22,23 @@ unless ``--ckpt`` names an npz written by the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --streams 2 --videos 2 --frames 24 --keep-ratio 1.0 --stale-dtype int8
 
-The SSM family (``--arch mamba2-2.7b`` or ``mamba2-2.7b-smoke``) serves
-every mode through the recurrent prefill, with the default ViT below
-(112^2 frames, so ``--hw 112``):
+``--arch`` takes every config of ``configs/registry.py`` but whisper
+(not ported), and its ``-smoke`` variant.  The MoE family (olmoe-1b-7b,
+moonshot-v1-16b-a3b, arctic-480b) serves like the dense one; the SSM
+family (mamba2-2.7b) and the hybrid one (jamba-v0.1-52b: attention,
+Mamba-2 and MoE in one stack) serve every mode through the recurrent
+prefill.  Models without a ViT of their own take the default one below
+(112^2 frames, so ``--hw 112``, the default):
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --streams 2 --videos 2 --frames 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --streams 2 --videos 2 --frames 40
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --arch mamba2-2.7b-smoke --streams 2 --videos 2 --frames 24
+        --arch jamba-v0.1-52b-smoke --streams 2 --videos 2 --frames 24
+
+jamba-v0.1-52b itself (103 GB of bf16 weights) does not fit one 80 GB
+card; ``chip_smoke.py`` serves it at full width with 16 of its 32 layers.
 """
 from __future__ import annotations
 

@@ -98,11 +98,54 @@ def _mamba_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
     }
 
 
+def _attention_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
+    d, dh = cfg.d_model, cfg.d_head
+    p = {
+        "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
+        "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
+        "wv": ini.dense((d, cfg.n_kv * dh), layers=R),
+        "wo": ini.dense((cfg.n_heads * dh, d), layers=R),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ini.zeros((cfg.n_heads * dh,), layers=R)
+        p["bk"] = ini.zeros((cfg.n_kv * dh,), layers=R)
+        p["bv"] = ini.zeros((cfg.n_kv * dh,), layers=R)
+    return p
+
+
+def _mlp_params(ini: _Init, d: int, d_ff: int, R: int) -> Dict[str, Any]:
+    return {
+        "wg": ini.dense((d, d_ff), layers=R),
+        "wu": ini.dense((d, d_ff), layers=R),
+        "wd": ini.dense((d_ff, d), layers=R),
+    }
+
+
+def _moe_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
+    """One MoE position, made like the JAX package's ``init_moe``: the
+    router (d, E) at scale 0.02, experts (E, d, f) / (E, f, d) at fan-in
+    scale, and arctic's dense residual MLP."""
+    m, d = cfg.moe, cfg.d_model
+    p = {
+        "router": ini.dense((d, m.n_experts), scale=0.02, layers=R),
+        "wg": ini.dense((m.n_experts, d, m.d_ff_expert), layers=R),
+        "wu": ini.dense((m.n_experts, d, m.d_ff_expert), layers=R),
+        "wd": ini.dense((m.n_experts, m.d_ff_expert, d), layers=R),
+    }
+    if m.dense_residual:
+        p["residual"] = _mlp_params(ini, d, cfg.d_ff, R)
+    return p
+
+
 def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
-    """Random LM parameters (attention + dense FFN stacks, mixer-only
-    mamba stacks)."""
+    """Random LM parameters for every block kind of the configs: an
+    attention or mamba mixer, then a dense, MoE or no FFN.  Keys follow
+    the JAX package's ``_init_block``: ``ln2`` unless the FFN is
+    ``"none"``."""
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is not ported")
     ini = _Init(seed, device, param_dtype(cfg))
-    d, dh, R = cfg.d_model, cfg.d_head, cfg.repeats
+    d, R = cfg.d_model, cfg.repeats
     tree: Dict[str, Any] = {
         "embed": ini.dense((cfg.vocab, d), scale=0.02),
         "final_norm": {"scale": ini.ones((d,))},
@@ -112,33 +155,14 @@ def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any
     blocks = []
     for pos in range(cfg.period):
         mixer, ffn = cfg.block_kind(pos)
-        if (mixer, ffn) == ("mamba", "none"):
-            blocks.append({"ln1": {"scale": ini.ones((d,), layers=R)},
-                           "mixer": _mamba_params(ini, cfg, R)})
-            continue
-        if mixer != "attn" or ffn != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: only attention + dense FFN and mixer-only mamba")
-        mixer_p = {
-            "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
-            "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
-            "wv": ini.dense((d, cfg.n_kv * dh), layers=R),
-            "wo": ini.dense((cfg.n_heads * dh, d), layers=R),
-        }
-        if cfg.qkv_bias:
-            mixer_p["bq"] = ini.zeros((cfg.n_heads * dh,), layers=R)
-            mixer_p["bk"] = ini.zeros((cfg.n_kv * dh,), layers=R)
-            mixer_p["bv"] = ini.zeros((cfg.n_kv * dh,), layers=R)
-        blocks.append({
-            "ln1": {"scale": ini.ones((d,), layers=R)},
-            "ln2": {"scale": ini.ones((d,), layers=R)},
-            "mixer": mixer_p,
-            "ffn": {
-                "wg": ini.dense((d, cfg.d_ff), layers=R),
-                "wu": ini.dense((d, cfg.d_ff), layers=R),
-                "wd": ini.dense((cfg.d_ff, d), layers=R),
-            },
-        })
+        blk: Dict[str, Any] = {"ln1": {"scale": ini.ones((d,), layers=R)}}
+        blk["mixer"] = (_attention_params(ini, cfg, R) if mixer == "attn"
+                        else _mamba_params(ini, cfg, R))
+        if ffn != "none":
+            blk["ln2"] = {"scale": ini.ones((d,), layers=R)}
+            blk["ffn"] = (_moe_params(ini, cfg, R) if ffn == "moe"
+                          else _mlp_params(ini, d, cfg.d_ff, R))
+        blocks.append(blk)
     tree["blocks"] = tuple(blocks)
     return tree
 

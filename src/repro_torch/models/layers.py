@@ -1,7 +1,8 @@
 """Layers of the serving path: RMSNorm, RoPE, GQA attention over the
 paged KV slab (bf16, or two-precision with int8 cold pages) or over
-per-stream caches, dense attention (ViT I-frames), SwiGLU MLP, and the
-Mamba-2 (SSD) mixer with its one-token decode step.
+per-stream caches, dense attention (ViT I-frames), SwiGLU MLP, the
+token-choice MoE, and the Mamba-2 (SSD) mixer with its one-token decode
+step.
 
 Functions take parameter dicts of tensors in the JAX package's layout:
 weights are (in, out) and applied as ``x @ w``; attention tensors are
@@ -283,6 +284,118 @@ def attention_block(
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x Wg) * x Wu) Wd."""
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ======================================================================
+# Mixture of Experts (token-choice top-k, static capacity)
+# ======================================================================
+def f32_matmul(x: torch.Tensor, w: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+    """x @ w keeping the f32 result of the bf16 product, as the jitted JAX
+    package does (XLA does not round ``(x @ w).astype(F32)`` to bf16).  On
+    the card one GEMM with an f32 output.  On the CPU, which has no such
+    GEMM, bf16 products are exact in f32, so the f32 product of the bf16
+    operands is the same value; ``chunk`` columns of w are widened at a
+    time where w is large."""
+    if x.device.type == "cuda":
+        return torch.mm(x, w, out_dtype=F32)
+    xf, n = x.to(F32), w.shape[1]
+    step = chunk or n
+    return torch.cat([xf @ w[:, i:i + step].to(F32) for i in range(0, n, step)], dim=-1)
+
+
+def top_k_lower_first(gates: torch.Tensor, k: int):
+    """(values, indices) of each row's k largest gates, a tie going to the
+    lower expert id as in ``jax.lax.top_k`` (a stable descending sort)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+class MoERoute(NamedTuple):
+    """Routing of n rows over E experts (assignments in sorted order)."""
+
+    gates: torch.Tensor    # (n, E) f32 router softmax
+    topw: torch.Tensor     # (n, k) f32 renormalised gate of each choice
+    tope: torch.Tensor     # (n, k) expert ids, highest gate first
+    order: torch.Tensor    # (n * k,) flat (token * k + j) ids sorted by expert, stable
+    slot: torch.Tensor     # (n * k,) buffer row of each sorted assignment
+    keep: torch.Tensor     # (n * k,) bool: within its expert's capacity
+    cap: int
+    aux: torch.Tensor      # () f32 Switch load-balance loss
+
+
+def moe_route(p, cfg, x2: torch.Tensor) -> MoERoute:
+    """The JAX package's ``moe_block`` routing over x2 (n, d): softmax of
+    the router product's f32 result (a rounded product would move the
+    choices), top-k renormalised with a 1e-9 floor, the Switch aux loss, and
+    static capacity ``cap = int(capacity_factor * n * k / E) + 1`` taken
+    in token order (a stable sort on the expert id)."""
+    n = x2.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    dev = x2.device
+    gates = torch.softmax(f32_matmul(x2, p["router"]), dim=-1)
+    topw, tope = top_k_lower_first(gates, k)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = tope.reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    aux = E * torch.sum(counts.to(F32) / (n * k) * gates.mean(0))
+    cap = int(cfg.capacity_factor * n * k / E) + 1
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    pos = torch.arange(n * k, device=dev) - (torch.cumsum(counts, 0) - counts)[se]
+    keep = pos < cap
+    slot = se * cap + torch.where(keep, pos, cap - 1)
+    return MoERoute(gates, topw, tope, order, slot, keep, cap, aux)
+
+
+def combine_sorted(y: torch.Tensor, order: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """Each token's sum of its k rows of y (n * k, d), given in sorted
+    assignment order (``order[i]`` is the flat token * k + j id of row i):
+    in y's dtype, from zero, in ascending row order, which is the order in
+    which the reference's scatter-add ``zeros.at[token].add(y)`` meets
+    them.  A fixed order of plain adds: the same result on every run."""
+    where_sorted = torch.empty_like(order)
+    where_sorted[order] = torch.arange(n * k, device=y.device)
+    ys = y[torch.sort(where_sorted.view(n, k), dim=1).values]      # (n, k, d)
+    out = torch.zeros((n, y.shape[1]), dtype=y.dtype, device=y.device)
+    for j in range(k):
+        out = out + ys[:, j]
+    return out
+
+
+def moe_block(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with static capacity, the JAX package's
+    ``moe_block``: x (B, T, d) -> (out (B, T, d), Switch aux loss f32).
+
+    Every one of the n = B * T rows is routed (``moe_route``), padded
+    rows included; assignments past an expert's capacity are dropped and
+    add zero.  A token's k expert outputs are summed in bf16 in ascending
+    expert order, the order of the reference's scatter-add over the
+    sorted assignments, so the sum is the same on every run (no
+    atomics).  No host sync: drops are written to a scratch row of the
+    dispatch buffer.  The expert products are plain batched GEMMs, as
+    the reference's einsums are.
+    """
+    B, T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n = B * T
+    dev = x.device
+    x2 = x.reshape(n, d)
+    r = moe_route(p, cfg, x2)
+    cap = r.cap
+    st = torch.div(r.order, k, rounding_mode="floor")             # token of each
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
+    buf[torch.where(r.keep, r.slot, E * cap)] = x2[st]
+    buf = buf[:E * cap].view(E, cap, d)
+    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
+    out_e = torch.bmm(h, p["wd"]).view(E * cap, d)
+    sw = r.topw.reshape(-1).to(x.dtype)[r.order]
+    y = out_e[r.slot] * torch.where(r.keep, sw, 0)[:, None]       # sorted order
+
+    out = combine_sorted(y, r.order, n, k)
+    if "residual" in p:
+        out = out + mlp_block(p["residual"], x2)
+    return out.reshape(B, T, d), r.aux
 
 
 # ======================================================================

@@ -1,5 +1,7 @@
-"""Decoder-only stacks of the serving path: attention + dense FFN
-blocks, and Mamba-2 mixer-only blocks (the SSM family).
+"""Decoder-only stacks of the serving path: an attention or Mamba-2
+mixer per block, then a dense SwiGLU, a token-choice MoE or no FFN
+(dense and MoE transformers, the SSM family's mixer-only blocks, and
+the hybrid family's interleave of both mixers).
 
 Parameters are the JAX package's tree with each pattern position's
 layers stacked on a leading ``repeats`` axis; ``run_stack`` walks the
@@ -75,9 +77,8 @@ def _apply_block(cfg: ModelCfg, pos: int, p, h, positions, valid, cache,
                  cache_offset, cache_len, *, decode, q_chunk, scatter_idx, kv_valid,
                  block_map, page_table, page_size):
     mixer, ffn = cfg.block_kind(pos)
-    if ffn not in ("dense", "none") or cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense-FFN and mixer-only stacks are ported")
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is not ported")
     hn = layers.rmsnorm(p["ln1"], h, cfg.norm_eps)
     if mixer == "attn":
         out, cache = layers.attention_block(
@@ -94,6 +95,9 @@ def _apply_block(cfg: ModelCfg, pos: int, p, h, positions, valid, cache,
     if ffn == "none":
         return h
     hn = layers.rmsnorm(p["ln2"], h, cfg.norm_eps)
+    if ffn == "moe":
+        out, _ = layers.moe_block(p["ffn"], cfg.moe, hn)   # serving drops aux
+        return h + out
     return h + layers.mlp_block(p["ffn"], hn)
 
 
@@ -104,7 +108,10 @@ def run_stack(cfg: ModelCfg, params, h: torch.Tensor, positions: torch.Tensor,
               page_table=None, page_size: int = 128):
     """Run every layer over ``h``; the caches (paged slab, per-stream KV,
     or mamba state) are written in place.  ``decode`` runs the mamba
-    positions' one-token step.  Returns (h, caches)."""
+    positions' one-token step.  Returns (h, caches): the MoE layers'
+    Switch aux loss, which the JAX package sums as a third output, is
+    dropped, since serving never reads it (training, which would, is not
+    ported)."""
     for i in range(cfg.repeats):
         for pos in range(cfg.period):
             blk = caches.blocks[pos]
@@ -127,20 +134,11 @@ HEAD_CHUNK = 16384   # vocab columns per f32 product on the CPU
 
 def lm_logits(cfg: ModelCfg, params, h: torch.Tensor) -> torch.Tensor:
     """f32 logits; tied to the embedding for ``tied_embeddings`` configs
-    (the ``-smoke`` variants), ``lm_head`` otherwise.
-
-    The head product keeps its f32 result, as the jitted JAX package
-    does (XLA does not round it to bf16).  On the card it is one bf16
-    GEMM with an f32 output.  On the CPU, which has no such GEMM, bf16
-    products are exact in f32, so the f32 product of the bf16 operands
-    is the same value; the head is widened a chunk of columns at a time,
-    never whole."""
+    (the ``-smoke`` variants), ``lm_head`` otherwise.  The head product
+    keeps its f32 result (``layers.f32_matmul``), widened on the CPU a
+    chunk of vocab columns at a time, never whole."""
     head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
-    if h.device.type == "cuda":
-        return torch.mm(h, head, out_dtype=F32)
-    hf = h.to(F32)
-    return torch.cat([hf @ head[:, i:i + HEAD_CHUNK].to(F32)
-                      for i in range(0, head.shape[1], HEAD_CHUNK)], dim=-1)
+    return layers.f32_matmul(h, head, HEAD_CHUNK)
 
 
 def prefill(cfg: ModelCfg, params, tokens: torch.Tensor, caches: Caches,

@@ -7,17 +7,20 @@
   AttentionPrefill  fresh prefill, and KVC reuse (Eq. 5) + selective
                     refresh for incremental windows, on the paged slab
                     (bf16 or with int8 cold pages) or per-stream caches
-  RecurrentPrefill  the SSM family: the stream's recurrent state is its
-                    context; each window appends only its new frames
+  RecurrentPrefill  the SSM and hybrid families: the stream's recurrent
+                    state (with a hybrid stack's per-stream attention
+                    KV) is its context; each window appends only its
+                    new frames
   GreedyDecoder     yes/no answer + greedy continuation
 
 ``ServingPipeline`` composes the stages and serves a batch of
 same-phase windows (one per stream).  Modes (paper §5): ``codecflow``
 and the baselines ``fullcomp`` | ``prune_only`` | ``refresh_only`` |
-``cacheblend`` | ``vlcache``, with the packed ViT, on attention-family
-and SSM-family models (every mode of the SSM family prefills through
-``RecurrentPrefill``).  Everything runs on the pipeline's device:
-``"cuda"`` unless the caller asks for ``"cpu"``.
+``cacheblend`` | ``vlcache``, with the packed ViT, on dense, MoE and
+VLM attention models and on SSM and hybrid models (every mode of those
+two families prefills through ``RecurrentPrefill``).  Everything runs
+on the pipeline's device: ``"cuda"`` unless the caller asks for
+``"cpu"``.
 
 The JAX package runs its oracle where a pass has no static visit list
 (the per-stream fresh prefill, every decode, ``vlcache`` and
@@ -630,14 +633,24 @@ class AttentionPrefill:
 
 
 class RecurrentPrefill:
-    """SSM boundary-state streaming.
+    """SSM and hybrid boundary-state streaming.
 
     The stream's state is its recurrent cache (conv tails and SSD state
-    of every layer): each window appends only the new frames' tokens to
-    it, then the query and the decode run on a copy, so they do not
-    enter the boundary state.  The JAX package forks the cache for free
-    (its arrays are immutable); here the caches are written in place,
-    so the query pass gets its own copy of the boundary state.
+    of every mamba layer, and in a hybrid stack the attention layers'
+    per-stream KV): each window appends only the new frames' tokens to
+    it, then the query and the decode run past it, so they do not enter
+    the boundary state.  The JAX package forks the cache for free (its
+    arrays are immutable); here the caches are written in place, so the
+    query pass gets its own copy of the mamba states.  The attention KV
+    needs none: the query and decode write the slots past the offset,
+    which no pass reads before the next window's append overwrites them
+    (a contiguous pass sees keys up to its own last position only).
+
+    The attention caches hold the JAX package's ``default_max_hist()``
+    slots, rounded up to the kernel's 128-row tiles (the slots past
+    ``max_hist`` are never written, and the causal mask hides them).
+    Where the JAX package would write past ``max_hist`` (its contiguous
+    write then clamps silently), this raises ``ValueError``.
     """
 
     paged = False
@@ -650,7 +663,12 @@ class RecurrentPrefill:
         self.layout = layout
         self.ecfg = ecfg
         self.device = device
-        self.cache_slots = layout.total_len + ecfg.max_new_tokens
+        self.has_attention = tfm.has_attention(cfg)
+        self.max_hist = 4 * layout.vis_len + layout.query_len + ecfg.max_new_tokens
+        tile = AttentionPrefill.KV_TILE
+        self.cache_slots = (-(-self.max_hist // tile) * tile if self.has_attention
+                            else layout.total_len + ecfg.max_new_tokens)
+        self._maps: Dict[Tuple[int, int], RefreshBlockMap] = {}
 
     # -- lifecycle: no pool, every stream admits --------------------------
     def ensure_pool(self, n_streams: int) -> None:
@@ -663,6 +681,8 @@ class RecurrentPrefill:
         """Nothing to return: the state is dropped with the session."""
 
     def kv_bytes_per_stream(self) -> int:
+        """0, as in the JAX package, whose recurrent backend reports no KV
+        bytes (a hybrid stream's attention KV is part of its state)."""
         return 0
 
     def fresh(self, vis, vval, qe) -> PrefillResult:
@@ -672,28 +692,49 @@ class RecurrentPrefill:
         return self._append(vis, vval, qe, state)
 
     def absorb_decode(self, state) -> None:
-        """No-op: query and decode ran on a copy of the boundary state."""
+        """No-op: query and decode ran past the boundary state."""
+
+    def block_map(self, offset: int, n: int) -> Optional[RefreshBlockMap]:
+        """Visit list of the contiguous pass at positions ``offset + arange(n)``
+        over the attention caches (None for a stack without attention)."""
+        if not self.has_attention:
+            return None
+        key = (offset, n)
+        if key not in self._maps:
+            self._maps[key] = build_block_map(
+                np.arange(offset, offset + n, dtype=np.int32), self.cache_slots,
+                causal=True, window=self.cfg.sliding_window)
+        return self._maps[key]
 
     def _append(self, vis, vval, qe, state) -> PrefillResult:
         """Extend the boundary state with the new visual tokens, then run
-        the query on a copy of it."""
+        the query past it."""
         lay, cfg, dev = self.layout, self.cfg, self.device
         S, n_new = vis.shape[0], vis.shape[1]
         if state is None:
-            caches = tfm.init_caches(cfg, S, 0, device=dev)   # no attention KV
+            caches = tfm.init_caches(cfg, S, self.cache_slots if self.has_attention else 0,
+                                     device=dev)
             offset = 0
         else:
             caches, offset = state["caches"], state["offset"]
+        offset_vis = offset + n_new
+        end = offset_vis + lay.query_len + self.ecfg.max_new_tokens
+        if self.has_attention and end > self.max_hist:
+            raise ValueError(
+                f"{cfg.name}: the window would fill slots up to {end}, past the "
+                f"attention caches' max_hist {self.max_hist}")
         qc = self.ecfg.q_chunk
         tfm.prefill(cfg, self.params, torch.zeros((S, n_new), dtype=torch.long, device=dev),
-                    caches, valid=vval, inputs_embeds=vis, cache_offset=offset, q_chunk=qc)
-        offset_vis = offset + n_new
-        q_caches = tfm.Caches(tuple(type(blk)(*(leaf.clone() for leaf in blk))
-                                    for blk in caches.blocks), None)
+                    caches, valid=vval, inputs_embeds=vis, cache_offset=offset, q_chunk=qc,
+                    block_map=self.block_map(offset, n_new))
+        q_caches = tfm.Caches(tuple(
+            blk if isinstance(blk, layers.KVCache) else type(blk)(*(leaf.clone() for leaf in blk))
+            for blk in caches.blocks), None)
         q_logits, q_caches, _ = tfm.prefill(
             cfg, self.params, torch.zeros((S, lay.query_len), dtype=torch.long, device=dev),
             q_caches, valid=torch.ones((S, lay.query_len), dtype=torch.bool, device=dev),
-            inputs_embeds=qe, cache_offset=offset_vis, q_chunk=qc)
+            inputs_embeds=qe, cache_offset=offset_vis, q_chunk=qc,
+            block_map=self.block_map(offset_vis, lay.query_len))
         flops = flopcount.prefill_flops(cfg, n_new + lay.query_len,
                                         offset_vis + lay.query_len)
         return PrefillResult(
@@ -844,9 +885,6 @@ class ServingPipeline:
             raise ValueError(f"mode {ecfg.mode!r} is not one of {MODES}")
         if not ecfg.prune.packed_vit:
             raise NotImplementedError("the padded ViT (packed_vit=False) is not ported")
-        if cfg.family == "hybrid":
-            raise NotImplementedError("the hybrid family (attention + mamba + MoE) "
-                                      "is not ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.v = vit_cfg
@@ -863,7 +901,7 @@ class ServingPipeline:
         )
         self.frontend = CodecFrontend(c, self.device)
         self.encoder = VisualEncoder(vit_cfg, params_vit, c, self.layout, self.prune)
-        self.is_streaming_family = cfg.family == "ssm"
+        self.is_streaming_family = cfg.family in ("ssm", "hybrid")
         backend = RecurrentPrefill if self.is_streaming_family else AttentionPrefill
         self.backend = backend(cfg, params_lm, self.layout, ecfg, self.device)
         self.decoder = GreedyDecoder(cfg, params_lm, ecfg)
@@ -876,11 +914,13 @@ class ServingPipeline:
     def kernels(self) -> frozenset:
         """The kernels (``ops.KERNELS`` names) serving launches: motion
         search always, the packed ViT when pruning, and either the SSD
-        scan (SSM family) or RoPE shift when reusing and the attention
+        scan (SSM and hybrid families, the latter with the per-stream
+        attention kernel) or RoPE shift when reusing and the attention
         kernel of the KV layout."""
         prune = {"flash_packed"} if self.prune else set()
         if self.is_streaming_family:
-            return frozenset({"mv_sad", "ssd_scan"} | prune)
+            attn = {"flash_refresh"} if self.backend.has_attention else set()
+            return frozenset({"mv_sad", "ssd_scan"} | attn | prune)
         attn = ("flash_refresh" if not self.paged else
                 "flash_refresh_paged_int8" if self.backend.quant else "flash_refresh_paged")
         return frozenset({"mv_sad", attn} | prune

@@ -6,8 +6,9 @@
   window's yes/no logits and answer, the token and ViT accounting, the
   FLOP ledger and each stream's event sequence; across codecflow and
   cacheblend on the paged slab and on per-stream caches, codecflow with
-  int8 cold pages (keep 1.0, streams admitted staggered) and
-  mamba2-2.7b-smoke codecflow.
+  int8 cold pages (keep 1.0, streams admitted staggered),
+  mamba2-2.7b-smoke codecflow and olmoe-1b-7b-smoke codecflow (the MoE
+  family on the paged slab; the hybrid family: ``test_torch_hybrid.py``).
 * the port's async engine against the JAX package's async engine on a
   staggered fleet: four streams of 32, 20, 20 and 24 frames (5, 2, 2 and
   3 windows) with ``max_concurrent=3``, so the fourth is admitted while
@@ -128,6 +129,7 @@ CASES = {
     "cacheblend-stream": (ARCH, "cacheblend", 0.5, dict(paged_kv=False)),
     "codecflow-int8": (ARCH, "codecflow", 1.0, dict(stale_page_dtype="int8")),
     "mamba2-codecflow": (SSM_ARCH, "codecflow", 0.5, {}),
+    "olmoe-codecflow-paged": ("olmoe-1b-7b-smoke", "codecflow", 0.5, {}),
 }
 
 

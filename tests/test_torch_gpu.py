@@ -175,7 +175,8 @@ SCATTER_PATTERNS = {
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
-                                            (32, 4, 1, 48)])
+                                            (32, 4, 1, 48),
+                                            (128, 16, 16, None)])   # olmoe-1b-7b's heads
 def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
     rng = np.random.default_rng(11)
@@ -199,7 +200,8 @@ def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, windo
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
-                                            (32, 4, 1, 48)])
+                                            (32, 4, 1, 48),
+                                            (128, 32, 8, None)])    # jamba-v0.1-52b's heads
 def test_flash_refresh_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     """Per-stream caches (B, Sk, Hkv, D), no page table."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -771,6 +773,8 @@ ASYNC_CASES = {
     "codecflow-paged": ("internvl3-14b-smoke", 0.5, {}),
     "codecflow-int8": ("internvl3-14b-smoke", 1.0, {"stale_page_dtype": "int8"}),
     "mamba2-codecflow": ("mamba2-2.7b-smoke", 0.5, {}),
+    "olmoe-codecflow-paged": ("olmoe-1b-7b-smoke", 0.5, {}),
+    "jamba-codecflow": ("jamba-v0.1-52b-smoke", 0.5, {}),
 }
 
 
@@ -849,3 +853,53 @@ def test_checks_on_host_twins_raise_on_card(dev):
     assert ops.launch_counts().get("flash_packed", 0) == before
     ops.flash_packed(qk, qk, qk, transfer.upload(seg, dev), build_pack_map(seg))
     assert ops.launch_counts()["flash_packed"] == before + 1
+
+
+# ----------------------------------------------------------------------
+# the MoE block on the card
+# ----------------------------------------------------------------------
+MOE_CASES = {    # (E, top-k, d, d_ff_expert, factor, B, T)
+    "olmoe-routing-prefill": (64, 8, 256, 128, 1.25, 2, 168),
+    "olmoe-routing-decode": (64, 8, 256, 128, 1.25, 2, 1),
+    "jamba-routing-factor-0.01": (16, 2, 256, 128, 0.01, 2, 160),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_block_on_card_repeats_bitwise_and_matches_cpu(dev, case):
+    """``moe_block`` on the card twice over one input: bitwise equal (the
+    combine is a fixed order of adds, no atomics), with no sync reported
+    by the debug mode; against the same call on the CPU: equal expert
+    choices and kept slots (gates within 1e-5: the two f32 router
+    products sum in other orders) and the output within 2^-5 of its
+    largest magnitude (bf16 GEMMs that accumulate in other orders)."""
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models import layers
+
+    E, k, d, f, factor, B, T = MOE_CASES[case]
+    cfg = MoECfg(n_experts=E, top_k=k, d_ff_expert=f, capacity_factor=factor)
+    g = torch.Generator().manual_seed(3)
+    p = {"router": torch.randn(d, E, generator=g) * 0.02,
+         "wg": torch.randn(E, d, f, generator=g) * d ** -0.5,
+         "wu": torch.randn(E, d, f, generator=g) * d ** -0.5,
+         "wd": torch.randn(E, f, d, generator=g) * f ** -0.5}
+    p = {n: t.bfloat16() for n, t in p.items()}
+    x = torch.randn(B, T, d, generator=g).bfloat16()
+    pc = {n: t.to(dev) for n, t in p.items()}
+    xc = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out1, aux1 = layers.moe_block(pc, cfg, xc)
+        out2, aux2 = layers.moe_block(pc, cfg, xc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out1, out2) and torch.equal(aux1, aux2)
+    r_c = layers.moe_route(pc, cfg, xc.reshape(B * T, d))
+    r_h = layers.moe_route(p, cfg, x.reshape(B * T, d))
+    assert (r_c.gates.cpu() - r_h.gates).abs().max().item() <= 1e-5
+    assert torch.equal(r_c.tope.cpu(), r_h.tope) and torch.equal(r_c.keep.cpu(), r_h.keep)
+    out_h, aux_h = layers.moe_block(p, cfg, x)
+    scale = out_h.float().abs().max().item()
+    assert (out1.cpu().float() - out_h.float()).abs().max().item() <= 2.0 ** -5 * scale
+    assert abs(aux1.item() - aux_h.item()) <= 1e-5

@@ -162,13 +162,6 @@ def test_ssm_dispatches_its_kernels_plainly_on_cpu(mode):
     assert pipe.kv_bytes_per_stream() == 0 and pipe.can_admit(64)
 
 
-def test_hybrid_family_still_raises():
-    cfg = get_config("jamba-v0.1-52b-smoke")
-    with pytest.raises(NotImplementedError):
-        ServingPipeline(cfg, default_vit(cfg), {}, {},
-                        EngineCfg(codec=TCodecCfg(**CODEC)), device="cpu")
-
-
 def test_npz_round_trip_keeps_mamba_f32_leaves(tmp_path):
     """A checkpoint written by the JAX package's ``training/checkpoint.py``
     loads leaf for leaf: A_log, D, dt_bias, the gated norm and the norm

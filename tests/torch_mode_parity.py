@@ -3,9 +3,12 @@ the port's, on the same weights and videos, and record what the parity
 tests compare: events, window stats, refresh sets, demotions, kernel
 dispatch.
 
-internvl3-14b-smoke, 2 streams x 24 frames at 112^2, gop 4, window 16,
-stride 4: one fresh and two incremental windows per stream.  Weights are
-the JAX package's random init (seed 0), bridged to the port as numpy.
+internvl3-14b-smoke unless ``arch`` names another config (a model
+without a ViT takes the launchers' default 112^2 ViT), 2 streams x 24
+frames at 112^2, gop 4, window 16, stride 4: one fresh and two
+incremental windows per stream.  Weights are the JAX package's random
+init (seed 0), bridged to the port as numpy; QKV biases, zero at init,
+are drawn from a seeded normal (scale 0.5) so that they count.
 """
 import functools
 
@@ -25,6 +28,7 @@ from repro_torch.configs import CodecCfg as TCodecCfg
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import anomaly_dataset
 from repro_torch.kernels import ops
+from repro_torch.launch.serve import default_vit
 from repro_torch.models.init import from_numpy_tree
 from repro_torch.serving import (
     REUSE_MODES, EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
@@ -43,12 +47,27 @@ STATS = ("tokens_vis", "tokens_valid", "tokens_refreshed", "vit_patches",
          "kv_bytes_per_stream")
 
 
+def _random_biases(params, seed: int = 0):
+    """The LM tree with every QKV bias drawn from a seeded normal."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for blk in params["blocks"]:
+        mixer = dict(blk["mixer"])
+        for name in ("bq", "bk", "bv"):
+            b = mixer[name]
+            mixer[name] = jax.numpy.asarray(
+                rng.normal(scale=0.5, size=b.shape).astype(np.float32)).astype(b.dtype)
+        blocks.append(dict(blk, mixer=mixer))
+    return dict(params, blocks=tuple(blocks))
+
+
 @functools.lru_cache(maxsize=None)
-def weights():
-    jp = jserve.build_pipeline(ARCH, "codecflow", CodecCfg(**CODEC))
+def weights(arch: str = ARCH):
+    jp = jserve.build_pipeline(arch, "codecflow", CodecCfg(**CODEC))
+    params = _random_biases(jp.params) if jp.cfg.qkv_bias else jp.params
     to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
-    return (jp.cfg, jp.v, jp.params, jp.vparams,
-            from_numpy_tree(to_np(jp.params)), from_numpy_tree(to_np(jp.vparams)))
+    return (jp.cfg, jp.v, params, jp.vparams,
+            from_numpy_tree(to_np(params)), from_numpy_tree(to_np(jp.vparams)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,10 +90,11 @@ def _drive(pipe, sched, request_cls, deviations=None):
     refresh sets, demotions).  ``deviations`` collects cacheblend's
     probe values where given."""
     refresh, demoted = [], []
-    _record(pipe.backend, "refresh_indices", refresh)
+    if hasattr(pipe.backend, "refresh_indices"):      # not the recurrent backend
+        _record(pipe.backend, "refresh_indices", refresh)
     if deviations is not None:
         _record(pipe.backend, "cacheblend_deviation", deviations)
-    if pipe.backend.pool is not None:
+    if getattr(pipe.backend, "pool", None) is not None:
         _record(pipe.backend.pool, "demote", demoted)
     for i, (frames, label) in enumerate(videos()):
         sched.submit(request_cls(i, np.asarray(frames), tag=label))
@@ -84,42 +104,45 @@ def _drive(pipe, sched, request_cls, deviations=None):
     return events, results, refresh, demoted
 
 
-def jax_pipeline(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5):
+def jax_pipeline(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5,
+                 arch: str = ARCH):
     """The JAX package's pipeline of one configuration (modes without
     reuse never page their KV there)."""
-    cfg, v, params, vparams, _, _ = weights()
+    cfg, v, params, vparams, _, _ = weights(arch)
     codec = CodecCfg(**dict(CODEC, keep_ratio=keep_ratio))
     return JServingPipeline(cfg, v, params, vparams, JEngineCfg(
         mode=mode, codec=codec,
         kv=JKVCfg(paged_kv=paged and mode in REUSE_MODES, stale_page_dtype=stale)))
 
 
-def port_pipeline(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5):
+def port_pipeline(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5,
+                  arch: str = ARCH):
     """The port's pipeline of one configuration, on the CPU, with the
     same weights."""
-    _, _, _, _, params, vparams = weights()
-    cfg = get_config(ARCH)
+    _, _, _, _, params, vparams = weights(arch)
+    cfg = get_config(arch)
     codec = TCodecCfg(**dict(CODEC, keep_ratio=keep_ratio))
-    return ServingPipeline(cfg, cfg.vit, params, vparams, EngineCfg(
+    return ServingPipeline(cfg, default_vit(cfg), params, vparams, EngineCfg(
         mode=mode, codec=codec, kv=KVCfg(paged_kv=paged, stale_page_dtype=stale)),
         device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
-def _serve_jax(mode, paged, stale, keep_ratio):
-    pipe = jax_pipeline(mode, paged, stale, keep_ratio)
+def _serve_jax(mode, paged, stale, keep_ratio, arch):
+    pipe = jax_pipeline(mode, paged, stale, keep_ratio, arch)
     sched = JScheduler(pipe, JSchedulerCfg(max_concurrent=2, pipelined=False))
     return _drive(pipe, sched, JStreamRequest)
 
 
 @functools.lru_cache(maxsize=None)
-def serve(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5):
+def serve(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5,
+          arch: str = ARCH):
     """(jax, port) runs of one configuration; each is (events, results,
     refresh sets, demotions), the port's also its dispatch counts, its
     pipeline and cacheblend's deviations."""
     # modes without reuse never page their KV: the JAX runs are the same
-    j = _serve_jax(mode, paged and mode in REUSE_MODES, stale, keep_ratio)
-    pipe = port_pipeline(mode, paged, stale, keep_ratio)
+    j = _serve_jax(mode, paged and mode in REUSE_MODES, stale, keep_ratio, arch)
+    pipe = port_pipeline(mode, paged, stale, keep_ratio, arch)
     sched = Scheduler(pipe, SchedulerCfg(max_concurrent=2, pipelined=False))
     ops.reset_dispatch_counts()
     devs = [] if mode == "cacheblend" else None
@@ -127,9 +150,10 @@ def serve(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5):
     return j, t + (ops.dispatch_counts(), pipe, devs)
 
 
-def assert_parity(j, t, exact_refresh: bool = True):
+def assert_parity(j, t, exact_refresh: bool = True, tol: float = LOGIT_TOL):
     """Event order, stats, refresh sets and demotions equal; logits within
-    LOGIT_TOL; answers equal where the JAX margin exceeds 2 x LOGIT_TOL.
+    ``tol`` (LOGIT_TOL unless given); answers equal where the JAX margin
+    exceeds 2 x ``tol``.
     With ``exact_refresh`` off the refresh sets are held to their size
     and their part past the overlap (the new stride and query)."""
     assert t[0] == j[0]
@@ -153,8 +177,8 @@ def assert_parity(j, t, exact_refresh: bool = True):
             lj = np.asarray(a.stats.logits_yes_no)
             lt = np.asarray(b.stats.logits_yes_no)
             assert np.isfinite(lt).all()
-            assert np.abs(lj - lt).max() <= LOGIT_TOL, (sid, a.window, lj, lt)
-            if abs(lj[0] - lj[1]) > 2 * LOGIT_TOL:
+            assert np.abs(lj - lt).max() <= tol, (sid, a.window, lj, lt)
+            if abs(lj[0] - lj[1]) > 2 * tol:
                 assert a.stats.answer == b.stats.answer
 
 
