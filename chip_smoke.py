@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash_packed,rope_shift [--src DIR]
@@ -133,6 +134,43 @@ Phases (any failure exits non-zero):
                kernel run's expert choices (a bf16 step can move a near
                tie; the tokens that would have chosen otherwise are
                counted and printed).
+  8. train — (a) one train step of whisper-large-v3-smoke (with remat)
+               and of olmoe-1b-7b-smoke (the CPU run's expert choices
+               forced on the card) on the card and on the CPU, from the
+               same weights and batch: loss within 1e-3 and grad_norm
+               1e-2 relative, every gradient leaf within 2^-5 of its
+               largest |g| (the CPU tests' limits); (b) whisper-large-v3
+               at full size (2.02 B parameters, random bf16 weights from
+               the seed) trained 4 steps through launch.train.train
+               (remat, batch 2, decoder seq 448, 1500 stub encoder
+               features): loss and grad_norm finite at every step, every
+               leaf moved, no plain call on a CUDA tensor; printing peak
+               memory, the time of steps 2-4, tokens/s and the model
+               FLOPs (8 x parameters met x positions) over the bf16 peak;
+               one more step under torch.profiler (the largest kernels
+               and the device time by kernel group); then with the
+               trained weights the encoder, the cross K/V, a 32-token
+               prefill and 2 decode steps over 128-slot per-stream caches,
+               which must launch flash_refresh in every layer with no
+               plain call, and whose logits must agree with
+               kernel_mode("plain")'s within the composite tolerance;
+               (c) the bigram task (tests/test_training.py's recipe):
+               the loss must fall by more than 0.3 in 120 steps; (d) the
+               anomaly task: train_tiny_vlm on benchmarks/common.py's
+               recipe with internvl3-14b-smoke's LM and ViT (head dims 64
+               and 32, which the kernels take), the NLL falling; its
+               checkpoint saved, reloaded and bitwise equal; fullcomp and
+               codecflow (paged bf16, lockstep) served on 6 held-out
+               videos x 28 frames (seed 100) with the trained weights
+               handed over as trainable leaves: each must launch its
+               kernels with no plain call on a CUDA tensor and no output
+               that requires grad, and its yes/no logits over the 24
+               windows must agree with the same windows served under
+               kernel_mode("plain") within the composite tolerance
+               (flash_packed at ViT D 32, the refresh kernels and
+               rope_shift at the LM's H 4 / D 64); precision, recall and
+               F1 printed per mode, with codecflow's F1 drop (not gated).  Phase 3 also
+               holds flash_refresh at whisper's prefill and decode shapes.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -177,7 +215,15 @@ HYBRID_LAYERS = 16               # 2 of 4 periods: ~48 GiB of bf16 weights
 HYBRID_FRAMES = 40
 HYBRID_PATHS = ("codecflow", "fullcomp")
 FAMILY_HW = 112
+WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
+WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
+WHISPER_PREFILL, WHISPER_DECODE, WHISPER_SLOTS = 32, 2, 128
+ANOMALY_ARCH = "internvl3-14b-smoke"   # LM D 64, ViT D 32: head widths the kernels take
 SEED = 0
+# card step vs CPU step, and the CPU tests' step limits
+# (tests/torch_train_parity.py): loss 1e-3 and grad_norm 1e-2 relative,
+# every gradient leaf within 2^-5 of its largest |g|
+STEP_LOSS_TOL, STEP_GNORM_TOL, STEP_GRAD_TOL = 1e-3, 1e-2, 2.0 ** -5
 # attention kernels vs plain: max over (.., head) rows of max |k - p| /
 # max |p|.  The refresh and packed kernels round their unnormalised
 # probabilities to bf16 and the plain version its normalised ones, and
@@ -850,7 +896,9 @@ def family_kernel_cases():
     (H 32, Hkv 8, D 128) over its attention caches' max_hist slots: the
     codecflow passes of window 0 and of the last window of a 40-frame
     stream (append, query, the first decode step) and fullcomp's fresh
-    append."""
+    append; and the per-stream kernel at whisper-large-v3's decoder
+    self-attention (H 20 = Hkv 20, D 64) over phase 8's 128 slots: its
+    32-token prefill and first decode step."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import default_vit
     from repro_torch.serving import ServingPipeline
@@ -874,6 +922,11 @@ def family_kernel_cases():
         (f"{HYBRID_ARCH} query, window {last}", hcfg, slots, q_off, lay.query_len),
         (f"{HYBRID_ARCH} decode, window {last}", hcfg, slots, q_off + lay.query_len, 1),
         (f"{HYBRID_ARCH} fullcomp append", hcfg, hf.cache_slots, 0, hf.layout.vis_len),
+    ]
+    wcfg = get_config(WHISPER_ARCH)
+    stream += [
+        (f"{WHISPER_ARCH} prefill", wcfg, WHISPER_SLOTS, 0, WHISPER_PREFILL),
+        (f"{WHISPER_ARCH} decode", wcfg, WHISPER_SLOTS, WHISPER_PREFILL, 1),
     ]
     return paged, stream
 
@@ -1137,9 +1190,9 @@ def expert_choices(log: list, force=None):
 
     def recorded(gates, k):
         vals, idx = orig(gates, k)
-        log.append((gates, idx))
+        log.append((gates.detach(), idx))
         if calls is not None:
-            idx = next(calls)[1]
+            idx = next(calls)[1].to(gates.device)
             vals = gates.gather(1, idx)
         return vals, idx
     layers.top_k_lower_first = recorded
@@ -1526,9 +1579,9 @@ def moe_probe(torch, cfg, params, n_rows: int) -> bool:
     syncs the debug mode reports; it must report none and give the same
     output bitwise when called again."""
     from repro_torch.models import layers
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import unstack
     m = cfg.moe
-    p = layer_params(params["blocks"][cfg.ffn_pattern.index("moe")], 0)["ffn"]
+    p = unstack(params["blocks"][cfg.ffn_pattern.index("moe")])[0]["ffn"]
     g = torch.Generator(device="cuda").manual_seed(9)
     w_bytes = sum(p[k].numel() * p[k].element_size() for k in ("router", "wg", "wu", "wd"))
     with SyncWatch(torch):
@@ -1588,7 +1641,7 @@ def serve_families(torch):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.launch.serve import default_vit
-    from repro_torch.models.init import init_lm_params, init_vit_params
+    from repro_torch.models.init import init_lm_params, init_vit_params, map_tree, tree_leaves
     from repro_torch.serving import ServingPipeline
     ok, by_path = True, {}
     models = (
@@ -1605,7 +1658,7 @@ def serve_families(torch):
         params = init_lm_params(cfg, SEED, "cuda")
         vparams = init_vit_params(v, cfg.d_model, SEED + 1, "cuda")
         torch.cuda.synchronize()
-        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         log(f"weights: {arch} ({depth}: {cfg.n_layers} layers, d {cfg.d_model}, "
             f"{cfg.n_heads}/{cfg.n_kv} heads, {cfg.moe.n_experts} experts top-"
             f"{cfg.moe.top_k}) {n_bytes / 2**30:.2f} GiB made on the card in "
@@ -1641,7 +1694,7 @@ def serve_families(torch):
         # of the same weights (views), as phase 6 does at 4 layers
         cut_cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, max(4, cfg.period)))
         r = cut_cfg.repeats
-        cut = dict(params, blocks=tuple(_map_leaves(lambda t: t[:r], blk)
+        cut = dict(params, blocks=tuple(map_tree(lambda t: t[:r], blk)
                                         for blk in params["blocks"]))
         short = [(f[:20], lab) for f, lab in videos]    # one fresh + one incremental window
         for mode in modes:
@@ -1659,18 +1712,437 @@ def serve_families(torch):
     return ok, by_path
 
 
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    return fn(tree)
+# ----------------------------------------------------------------------
+# phase 8: training
+# ----------------------------------------------------------------------
+@contextmanager
+def wrapped(mod, name: str, wrap):
+    """While active, ``mod.name`` is ``wrap(mod.name)``."""
+    orig = getattr(mod, name)
+    setattr(mod, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+def step_readings(torch, cfg, params, batch, remat, log, force=None):
+    """One train step of a copy of ``params`` (on the batch's device):
+    (loss, grad_norm, every gradient leaf as CPU f32), the expert
+    choices appended to ``log`` (and taken from ``force``)."""
+    from repro_torch.models.init import map_tree, trainable, tree_leaves
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+    p = trainable(map_tree(lambda t: t.clone(), params))
+    ocfg = topt.OptCfg(lr=1e-3, warmup=1, total_steps=10)
+    with expert_choices(log, force=force):
+        loss, _ = tts.loss_fn(cfg, p, batch, q_chunk=16, remat=remat)
+        grads = tts.tree_grads(loss, p)
+    _, _, m = topt.apply_updates(p, grads, topt.init_opt_state(p, ocfg), ocfg)
+    return (float(loss.detach()), float(m["grad_norm"]),
+            [g.float().cpu() for g in tree_leaves(grads)])
+
+
+def card_step_vs_cpu(torch):
+    """One train step of whisper-large-v3-smoke (with remat) and of
+    olmoe-1b-7b-smoke (the CPU run's expert choices forced on the card)
+    on the card and on the CPU, from the same weights and batch: loss,
+    grad_norm and every gradient leaf within the CPU tests' limits."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.init import init_lm_params, map_tree
+    ok = True
+    for arch, remat in (("whisper-large-v3-smoke", True), ("olmoe-1b-7b-smoke", False)):
+        cfg = get_config(arch)
+        params = init_lm_params(cfg, SEED, "cpu")
+        batches = [next(lm_batches(cfg, 2, 32, seed=SEED, device=d)) for d in ("cpu", "cuda")]
+        ref, own = [], []
+        lc, gc_, grads_c = step_readings(torch, cfg, params, batches[0], remat, ref)
+        lk, gk, grads_k = step_readings(torch, cfg, map_tree(lambda t: t.to("cuda"), params),
+                                        batches[1], remat, own,
+                                        force=ref if cfg.moe is not None else None)
+        gap = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                  for a, b in zip(grads_c, grads_k))
+        flips = ""
+        if cfg.moe is not None:
+            n, margin = choice_flips(torch, ref, [(g.cpu(), e.cpu()) for g, e in own])
+            flips = (f"; the card took the CPU's expert choices, {n} tokens would have "
+                     f"chosen otherwise (largest gate margin {margin:.3g})")
+        here = (abs(lk - lc) <= STEP_LOSS_TOL * abs(lc)
+                and abs(gk - gc_) <= STEP_GNORM_TOL * gc_ and gap <= STEP_GRAD_TOL)
+        log(f"  card step vs CPU step [{arch}{', remat' if remat else ''}]: loss {lk:.6f} vs "
+            f"{lc:.6f}, grad_norm {gk:.5f} vs {gc_:.5f}, largest gradient gap "
+            f"{gap:.4g} of its leaf's max (limits {STEP_LOSS_TOL:g}, {STEP_GNORM_TOL:g}, "
+            f"2^-5){flips}: {'ok' if here else 'FAIL'}")
+        ok = ok and here
+    return ok
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """8 x parameters x tokens of one train step with per-layer
+    recomputation (forward twice, backward twice the forward), each
+    position through the weights it meets: an encoder position through
+    enc_embed, the encoder layers and every decoder layer's cross K/V
+    projections, a decoder position through the decoder layers (self
+    and cross q/o included) and the head.  Attention's score and value
+    products are not counted."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    qo, kv = 2 * d * cfg.n_heads * cfg.d_head, 2 * d * cfg.n_kv * cfg.d_head
+    enc_pos = d * d + cfg.enc_layers * (qo + kv + 3 * d * f) + L * kv
+    dec_pos = L * (qo + kv + qo + 3 * d * f) + d * cfg.vocab
+    return 8.0 * batch * (cfg.enc_seq * enc_pos + seq * dec_pos)
+
+
+def train_whisper(torch):
+    """whisper-large-v3 at full size trained WHISPER_STEPS steps through
+    ``launch.train.train`` (remat, batch 2, decoder seq 448, 1500 stub
+    encoder features), then decoded with the trained weights.  Returns
+    (ok, the decode's launches)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.init import detached, init_lm_params, tree_leaves
+    cfg = get_config(WHISPER_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, finite, mark = [], [], [time.perf_counter()]
+
+    def timed(make):
+        """``make_train_step`` whose steps record their time (from the
+        last step's end, the batch included) and whether the loss and
+        grad_norm are finite."""
+        def make_timed(*a, **k):
+            step = make(*a, **k)
+
+            def run(*args):
+                out = step(*args)
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                times.append(now - mark[0])
+                mark[0] = now
+                m = out[2]
+                finite.append(bool(torch.isfinite(m["loss"]))
+                              and bool(torch.isfinite(m["grad_norm"])))
+                return out
+            return run
+        return make_timed
+
+    ops.reset_dispatch_counts()
+    with wrapped(tlaunch, "make_train_step", timed):
+        mark[0] = time.perf_counter()
+        trained, losses = tlaunch.train(WHISPER_ARCH, WHISPER_STEPS, WHISPER_BATCH,
+                                        WHISPER_SEQ, seed=SEED, device="cuda", log_every=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain = ops.plain_calls_on_cuda()
+    leaves = tree_leaves(trained)
+    n_params = sum(t.numel() for t in leaves)
+    t0 = time.perf_counter()
+    fresh = tree_leaves(init_lm_params(cfg, SEED, "cuda"))     # the seed's weights again
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    moved = all(not torch.equal(a, b) for a, b in zip(fresh, leaves))
+    del fresh
+    log(f"weights: {WHISPER_ARCH} ({cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}): {n_params / 1e9:.3f} B "
+        f"parameters, {sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f} GiB, "
+        f"made on the card from the seed in {t_init:.1f} s")
+    t_step = sum(times[1:]) / len(times[1:])
+    flops = model_flops(cfg, WHISPER_BATCH, WHISPER_SEQ)
+    dec_tok, enc_pos = WHISPER_BATCH * WHISPER_SEQ, WHISPER_BATCH * cfg.enc_seq
+    log(f"train [{WHISPER_ARCH}, full size, remat]: losses {[round(x, 4) for x in losses]}; "
+        f"step s {[round(x, 4) for x in times]} (step 1 includes the first calls' set-up); "
+        f"steps 2-{WHISPER_STEPS} {t_step:.4f} s each: {dec_tok / t_step:.1f} decoder tokens/s, "
+        f"{(dec_tok + enc_pos) / t_step:.1f} positions/s with the {enc_pos} encoder positions; "
+        f"model FLOPs per step {flops / 1e12:.2f} T (8 x parameters met x positions, "
+        f"attention scores not counted): {flops / t_step / BF16_TENSOR_FLOPS:.4f} of the bf16 "
+        f"peak; peak memory {peak:.2f} GiB (parameters, gradients and f32 moments "
+        f"{n_params * (2 + 2 + 8) / 2**30:.2f} GiB); finite every step: {all(finite)}; "
+        f"every leaf moved: {moved}; plain on CUDA: {plain}")
+    ok = all(finite) and len(finite) == WHISPER_STEPS and moved and not any(plain.values())
+    profile_step(torch, cfg, trained)
+    serve_params = detached(trained)
+    del trained, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels.flash_refresh import build_block_map
+    from repro_torch.models import transformer as tfm
+    rng = np.random.default_rng(SEED + 2)
+    B = WHISPER_BATCH
+    feats = torch.from_numpy(rng.normal(0, 0.5, (B, cfg.enc_seq, cfg.d_model))
+                             .astype(np.float32)).to("cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, WHISPER_PREFILL))).to("cuda")
+    maps = [build_block_map(np.arange(WHISPER_PREFILL), WHISPER_SLOTS)] + [
+        build_block_map([WHISPER_PREFILL + i], WHISPER_SLOTS) for i in range(WHISPER_DECODE)]
+
+    def decode(toks=None):
+        out, chosen = [], []
+        with torch.no_grad():
+            enc = tfm.run_encoder(cfg, serve_params, feats)
+            caches = tfm.Caches(tfm.init_caches(cfg, B, WHISPER_SLOTS, device="cuda").blocks,
+                                tfm.build_cross_kv(cfg, serve_params, enc))
+            logits, caches, _ = tfm.prefill(cfg, serve_params, tokens, caches,
+                                            block_map=maps[0])
+            out.append(logits)
+            for i in range(WHISPER_DECODE):
+                tok = toks[i] if toks is not None else torch.argmax(logits, -1)[:, None]
+                chosen.append(tok)
+                logits, caches = tfm.decode_step(cfg, serve_params, tok, caches,
+                                                 WHISPER_PREFILL + i, block_map=maps[1 + i])
+                out.append(logits)
+        return torch.stack(out).cpu().numpy(), chosen
+
+    ops.reset_launch_counts()
+    ops.reset_dispatch_counts()
+    t0 = time.perf_counter()
+    lk, toks = decode()
+    t_dec = time.perf_counter() - t0
+    launches, plain = ops.launch_counts(), ops.plain_calls_on_cuda()
+    with ops.kernel_mode("plain"):
+        lp, _ = decode(toks)
+    tol = 5e-2 * max(1.0, float(np.abs(lp).max()))
+    diff = float(np.abs(lk - lp).max())
+    want = cfg.n_layers * (1 + WHISPER_DECODE)
+    here = (bool(np.isfinite(lk).all()) and launches.get("flash_refresh", 0) == want
+            and not any(plain.values()) and diff <= tol)
+    log(f"decode [{WHISPER_ARCH}, trained weights]: encoder over {B} x {cfg.enc_seq}, cross "
+        f"K/V, a {WHISPER_PREFILL}-token prefill and {WHISPER_DECODE} decode steps over "
+        f"{WHISPER_SLOTS}-slot caches in {t_dec:.3f} s; launches {launches} (want "
+        f"flash_refresh {want}); plain on CUDA: {plain}; composite vs kernel_mode('plain'): "
+        f"max |d logit| {diff:.4g} (tol {tol:.3g}) over {lk.size} logits: "
+        f"{'ok' if here else 'FAIL'}")
+    del serve_params, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok and here, launches
+
+
+def profile_step(torch, cfg, params, top: int = 12) -> None:
+    """One more train step of ``params`` (a trainable tree; fresh moments,
+    the next batch of the seed) under ``torch.profiler``: the kernels'
+    device time by name, the largest ``top`` of them, and their sum over
+    the step's wall time (the profiler's host overhead lengthens the
+    wall, so the busy share it gives is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.training.optimizer import OptCfg, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    ocfg = OptCfg(lr=3e-4, warmup=1, total_steps=WHISPER_STEPS)
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    batch = next(lm_batches(cfg, WHISPER_BATCH, WHISPER_SEQ, seed=SEED + 1, device="cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    if not busy:
+        log("  profile: the profiler saw no device time")
+        return
+    log(f"  profile [{WHISPER_ARCH}, one step under torch.profiler]: wall {wall * 1e3:.1f} ms, "
+        f"kernels {busy:.1f} ms on the device ({busy / (wall * 1e3):.3f} of the wall), "
+        f"{sum(n for _, n, _ in kernels)} launches of {len(kernels)} kernels; the largest:")
+    for ms, n, name in kernels[:top]:
+        log(f"    {ms:9.2f} ms {ms / busy:6.3f}  x{n:<6d} {name[:110]}")
+    groups = Counter()
+    for ms, _, name in kernels:
+        groups[kernel_group(name)] += ms
+    log("  by group: " + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.3f})"
+                                   for g, ms in groups.most_common()))
+    del opt
+
+
+def kernel_group(name: str) -> str:
+    """A profiled kernel's group, by its name: f32 GEMMs on the CUDA
+    cores (cuBLAS ``f32f32`` / ``sgemm``), other GEMMs, copies and casts,
+    softmax, reductions, the rest elementwise."""
+    low = name.lower()
+    if "gemm" in low and ("f32f32_f32f32" in low or "sgemm" in low):
+        return "f32 GEMM"
+    if "gemm" in low or "nvjet" in low or "cutlass" in low:
+        return "other GEMM"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copies and casts"
+    if "softmax" in low:
+        return "softmax"
+    if "reduce" in low:
+        return "reductions"
+    return "other elementwise"
+
+
+def bigram_on_card(torch):
+    """The JAX package's bigram recipe (tests/test_training.py) on the
+    card: the mean of the last 10 of 120 losses below that of the first
+    10 minus 0.3."""
+    from repro_torch.configs.base import ModelCfg
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.init import init_lm_params, trainable
+    from repro_torch.training.optimizer import OptCfg, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    cfg = ModelCfg(name="b", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+                   d_ff=128, vocab=64, tied_embeddings=True)
+    ocfg = OptCfg(lr=3e-3, warmup=10, total_steps=120)
+    params = trainable(init_lm_params(cfg, 3, "cuda"))
+    opt = init_opt_state(params, ocfg)
+    step = make_train_step(cfg, ocfg)
+    it = lm_batches(cfg, 8, 32, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(120):
+        params, opt, m = step(params, opt, next(it))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu().tolist()
+    t = time.perf_counter() - t0
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    ok = last < first - 0.3
+    log(f"bigram on the card: 120 steps in {t:.2f} s; mean loss of the first 10 {first:.4f}, "
+        f"of the last 10 {last:.4f} (must fall by more than 0.3): {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+@contextmanager
+def output_watch(torch, seen: list):
+    """While active, the LM head's and the ViT's outputs append whether
+    they require grad to ``seen``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import vit as vitm
+    names = ((tfm, "lm_logits"), (vitm, "encode_full"), (vitm, "encode_packed_tokens"))
+    origs = [getattr(mod, name) for mod, name in names]
+
+    def watched(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen.append(bool(out.requires_grad))
+            return out
+        return call
+    for (mod, name), fn in zip(names, origs):
+        setattr(mod, name, watched(fn))
+    try:
+        yield seen
+    finally:
+        for (mod, name), fn in zip(names, origs):
+            setattr(mod, name, fn)
+
+
+def anomaly_on_card(torch):
+    """The anomaly task trained on the card (``train_tiny_vlm`` on
+    benchmarks/common.py's recipe with internvl3-14b-smoke's LM and ViT),
+    its checkpoint round-tripped, then fullcomp and codecflow (paged
+    bf16, lockstep) served on 6 held-out videos with the trained
+    weights handed over as trainable leaves, each path's yes/no logits
+    held against the same windows through the kernels' plain versions
+    (the composite rule).  Returns (ok, launches per path)."""
+    import numpy as np
+    from repro_torch.configs import CodecCfg, get_config
+    from repro_torch.data.pipeline import anomaly_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.init import (
+        init_lm_params, init_vit_params, trainable, tree_leaves,
+    )
+    from repro_torch.serving import (
+        EngineCfg, KVCfg, ServingPipeline, precision_recall_f1, video_prediction,
+    )
+    from repro_torch.training import anomaly_task, checkpoint
+    codec = CodecCfg(gop=4, block=16, search_radius=4, window_frames=16, stride_frames=4,
+                     keep_ratio=0.5, mv_threshold=0.25)
+    cfg = get_config(ANOMALY_ARCH)
+    v = cfg.vit
+    hist = []
+
+    def recorded(loss_fn):
+        def run(*a):
+            nll, acc = loss_fn(*a)
+            hist.append((nll.detach(), acc))
+            return nll, acc
+        return run
+    t0 = time.perf_counter()
+    with wrapped(anomaly_task, "loss_fn", recorded):
+        lm, vit = anomaly_task.train_tiny_vlm(cfg, v, codec, n_videos=36, n_frames=28,
+                                              steps=250, batch=16, device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    nll = torch.stack([n for n, _ in hist]).cpu()
+    acc = torch.stack([a for _, a in hist]).cpu()
+    first, last = float(nll[:20].mean()), float(nll[-20:].mean())
+    ok = last < first
+    log(f"anomaly task [{ANOMALY_ARCH}, LM d {cfg.d_model} / {cfg.n_heads} heads, ViT d "
+        f"{v.d_model} / {v.n_heads} heads, {v.image}^2]: {len(hist)} steps x 16 windows in "
+        f"{t_train:.2f} s (data included); mean NLL of the first 20 steps {first:.4f}, of "
+        f"the last 20 {last:.4f} (must fall): {'ok' if ok else 'FAIL'}; mean accuracy of "
+        f"the last 20 {float(acc[-20:].mean()):.3f}")
+    path = ROOT / "build" / "anomaly_vlm.npz"
+    trained = {"lm": lm, "vit": vit}
+    checkpoint.save(str(path), trained, None, 250)
+    back, step = checkpoint.load(str(path), {"lm": init_lm_params(cfg, SEED + 7, "cuda"),
+                                             "vit": init_vit_params(v, cfg.d_model, SEED + 8,
+                                                                    "cuda")})
+    path.unlink()
+    bitwise = step == 250 and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                                  zip(tree_leaves(trained), tree_leaves(back)))
+    log(f"  checkpoint round trip: bitwise equal: {bitwise}")
+    ok = ok and bitwise
+    videos = anomaly_dataset(6, 28, v.image, v.image, seed=100)
+    truths = [lab for _, lab in videos]
+    by_path, f1s = {}, {}
+    for mode in ("fullcomp", "codecflow"):
+        ecfg = EngineCfg(mode=mode, codec=codec, kv=KVCfg())
+        pipe = ServingPipeline(cfg, v, trainable(lm), trainable(vit), ecfg, device="cuda")
+        ops.reset_launch_counts()
+        ops.reset_dispatch_counts()
+        seen = []
+        with output_watch(torch, seen):
+            _, per_stream, wall = serve(torch, pipe, videos)
+        launches, plain = ops.launch_counts(), ops.plain_calls_on_cuda()
+        want = pipe.kernels
+        del pipe
+        # the same windows through the kernels' plain versions (own KV)
+        pipe_p = ServingPipeline(cfg, v, lm, vit, ecfg, device="cuda")
+        with ops.kernel_mode("plain"):
+            _, plain_stream, _ = serve(torch, pipe_p, videos)
+        del pipe_p
+        lk = np.array([r.stats.logits_yes_no for res in per_stream for r in res])
+        lp = np.array([r.stats.logits_yes_no for res in plain_stream for r in res])
+        diff, tol, ans_ok = logit_agreement(lk, lp)
+        preds = [video_prediction([r.stats.answer for r in res]) for res in per_stream]
+        p, r, f1 = precision_recall_f1(preds, truths)
+        f1s[mode] = f1
+        n_win = sum(len(res) for res in per_stream)
+        here = (n_win == 24 and lk.shape == lp.shape and bool(np.isfinite(lk).all())
+                and all(launches.get(k, 0) > 0 for k in want)
+                and not any(plain.values()) and bool(seen) and not any(seen)
+                and diff <= tol and ans_ok)
+        log(f"  serve [{ANOMALY_ARCH} trained, {mode}]: {n_win} windows in {wall:.3f} s; "
+            f"launches {launches}; plain on CUDA: {plain}; outputs requiring grad "
+            f"{sum(seen)} of {len(seen)}; composite vs kernel_mode('plain') over the "
+            f"{lk.shape[0]} windows: max |d yes/no logit| {diff:.4g} (tol {tol:.3g}), answers "
+            f"agree where the margin exceeds twice it: {ans_ok}; video predictions {preds} vs "
+            f"truth {truths}: precision {p:.3f}, recall {r:.3f}, F1 {f1:.3f}: "
+            f"{'ok' if here else 'FAIL'}")
+        by_path[f"anomaly {mode}"] = launches
+        ok = ok and here
+    log(f"  F1 drop of codecflow against fullcomp: {f1s['fullcomp'] - f1s['codecflow']:+.3f} "
+        f"(printed, not gated)")
+    return ok, by_path
+
+
+def train_phase(torch):
+    """Phase 8: returns (ok, launches per path)."""
+    t0 = time.perf_counter()
+    ok = card_step_vs_cpu(torch)
+    here, dec = train_whisper(torch)
+    ok = ok and here
+    ok = bigram_on_card(torch) and ok
+    here, by_path = anomaly_on_card(torch)
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path}
 
 
 def main(argv=None) -> int:
@@ -1878,6 +2350,15 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches_by_path"].update(
             {lab: n[row["name"]] for lab, n in family_by_path.items() if row["name"] in n})
+
+    # -- 8. training: whisper-large-v3 at full size, the anomaly task ------
+    ok, train_by_path = train_phase(torch)
+    if not ok:
+        log("FAIL: train phase")
+        return 1
+    for row in rows:
+        row["launches_by_path"].update(
+            {lab: n[row["name"]] for lab, n in train_by_path.items() if row["name"] in n})
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,11 +1,60 @@
-"""Serving workload data: labelled synthetic CCTV videos (host numpy)."""
+"""Workload data: labelled synthetic CCTV videos (host numpy) for
+serving and the anomaly task, and the synthetic token / multimodal batch
+stream of the training launcher."""
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
+import torch
 
+from ..configs.base import ModelCfg
+from ..training.train_step import Batch
 from .video import generate_video, motion_level_spec
+
+
+def lm_batches(cfg: ModelCfg, batch: int, seq: int, seed: int = 0, vlm_tokens: int = 0,
+               device="cuda") -> Iterator[Batch]:
+    """Synthetic next-token LM stream with a planted bigram structure
+    (so loss decreases measurably within a few hundred steps): the JAX
+    package's ``lm_batches``, the same numpy random stream call for
+    call, so both packages yield the same batches from a seed.  Tensors
+    land on ``device``; ``vlm_tokens`` adds ``inputs_embeds`` over the
+    first positions (``embed_mask``), an encoder-decoder config
+    ``enc_feats`` (B, enc_seq, d)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab
+    # fixed random successor table: token t is followed by succ[t] 60% of
+    # the time; uniform otherwise.
+    succ = rng.integers(0, V, size=V)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    while True:
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, V, size=batch)
+        for t in range(seq):
+            follow = rng.random(batch) < 0.6
+            toks[:, t + 1] = np.where(
+                follow, succ[toks[:, t]], rng.integers(0, V, size=batch)
+            )
+        extra = {}
+        if vlm_tokens:
+            emb = rng.normal(0, 0.5, size=(batch, seq, cfg.d_model)).astype(np.float32)
+            mask = np.zeros((batch, seq), bool)
+            mask[:, :vlm_tokens] = True
+            extra = dict(inputs_embeds=put(emb), embed_mask=put(mask))
+        if cfg.enc_dec:
+            extra["enc_feats"] = put(
+                rng.normal(0, 0.5, size=(batch, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        yield Batch(
+            tokens=put(np.ascontiguousarray(toks[:, :-1])),
+            targets=put(np.ascontiguousarray(toks[:, 1:])),
+            loss_mask=torch.ones((batch, seq), dtype=torch.float32, device=dev),
+            **extra,
+        )
 
 
 def anomaly_dataset(

@@ -8,7 +8,10 @@ answer), then routes by where its operands live:
   * a CUDA tensor launches the hand-written kernel, or raises when the
     kernel does not take the operands (``KernelContractError`` for a
     precondition of the kernel alone: ``flash_packed``'s single runs).
-    There is no silent fallback.
+    There is no silent fallback.  No kernel has a backward, so under
+    grad mode a CUDA operand that requires grad raises
+    ``KernelContractError`` rather than being detached (the plain
+    versions, on the CPU or under ``kernel_mode("plain")``, differentiate).
 
 ``kernel_mode("plain")`` forces the plain version on the card too; only
 tests and ``chip_smoke.py`` use it, to hold the kernels against it.
@@ -88,7 +91,11 @@ def plain_calls_on_cuda() -> Dict[str, int]:
     return {op: c.get("mode:plain", 0) for op, c in _COUNTS.items()}
 
 
-def _use_kernel(op: str, t: torch.Tensor) -> bool:
+def _use_kernel(op: str, t: torch.Tensor, *operands) -> bool:
+    """Whether ``op`` launches its kernel: ``t`` decides the device; the
+    kernel path raises when grad mode is on and ``t`` or any tensor of
+    ``operands`` requires grad (the kernel's output would carry no
+    gradient)."""
     if t.device.type == "cpu":
         _COUNTS[op]["backend:ok"] += 1
         return False
@@ -97,6 +104,11 @@ def _use_kernel(op: str, t: torch.Tensor) -> bool:
     if _MODE == "plain":
         _COUNTS[op]["mode:plain"] += 1
         return False
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(o) and o.requires_grad for o in (t,) + operands):
+        raise KernelContractError(
+            f"{op}: an operand requires grad and the op has no backward kernel; "
+            f"call it under torch.no_grad() or on detached tensors")
     _COUNTS[op]["kernel"] += 1
     return True
 
@@ -203,7 +215,7 @@ def mv_sad(cur, prev, block: int = 16, radius: int = 4):
     _require(not cur.is_complex() and not prev.is_complex()
              and cur.dtype != torch.bool, op, "dtype", "frames are real numeric")
     _require(radius >= 1, op, "radius", "search radius >= 1")
-    if _use_kernel(op, cur):
+    if _use_kernel(op, cur, prev):
         return mv_sad_cuda(cur, prev, block, radius)
     return mv_sad_plain(cur, prev, block, radius)
 
@@ -250,7 +262,7 @@ def flash_refresh(q, k, v, q_pos, kv_valid=None, *, causal: bool = True,
              op, "kv-valid", "kv_valid is a (B, Sk) bool mask")
     if block_map is not None:
         _positions_match_map(op, q_pos, block_map)
-    if _use_kernel(op, q):
+    if _use_kernel(op, q, k, v):
         if block_map is None:
             raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
         if kv_valid is None:
@@ -298,7 +310,7 @@ def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
     _page_ids_in_range(op, page_table, k.shape[0] // page + n_cold)
     if block_map is not None:
         _positions_match_map(op, q_pos, block_map)
-    if _use_kernel(op, q):
+    if _use_kernel(op, q, k, v, *(cold or ())):
         if block_map is None:
             raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
         return flash_refresh_paged_cuda(
@@ -329,7 +341,7 @@ def flash_packed(q, k, v, seg_id, block_map: Optional[PackBlockMap] = None,
     _require(not seg_id.is_floating_point(), op, "seg-dtype", "integer segments")
     if block_map is not None:
         _segments_match_map(op, seg_id, block_map)
-    if _use_kernel(op, q):
+    if _use_kernel(op, q, k, v):
         if block_map is None:
             raise KernelContractError(f"{op}: the kernel needs a PackBlockMap")
         return flash_packed_cuda(q, k, v, block_map)
@@ -353,7 +365,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     _attn_dtypes(op, q, k, v)
     _require(window is None or window >= 1, op, "window",
              "sliding window is None or >= 1")
-    if _use_kernel(op, q):
+    if _use_kernel(op, q, k, v):
         return flash_prefill_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_prefill_plain(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, q_chunk=q_chunk)
@@ -388,7 +400,7 @@ def flash_prefill_paged(q, k, v, page_table, *, page: int = 128, causal: bool = 
     _cold_group(op, k, page, cold)
     n_cold = 0 if cold is None else cold[0].shape[0] // page
     _page_ids_in_range(op, page_table, k.shape[0] // page + n_cold)
-    if _use_kernel(op, q):
+    if _use_kernel(op, q, k, v, *(cold or ())):
         return flash_prefill_paged_cuda(q, k, v, page_table, page=page, window=window,
                                         q_offset=q_offset, cold=cold)
     return flash_prefill_paged_plain(q, k, v, page_table, page=page, causal=causal,
@@ -417,6 +429,6 @@ def ssd_scan(x, log_a, b, c, init_state=None, chunk: int = 128):
              and b.dtype == c.dtype, op, "dtype",
              "x/log_a/b/c are f32/bf16/f16 with b == c")
     _require(chunk >= 1, op, "chunk", "chunk size >= 1")
-    if _use_kernel(op, x):
+    if _use_kernel(op, x, log_a, b, c, init_state):
         return ssd_scan_cuda(x, log_a, b, c, init_state, chunk)
     return ssd_scan_plain(x, log_a, b, c, init_state, chunk)

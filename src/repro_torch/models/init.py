@@ -11,10 +11,14 @@ config's dtype.
   explicit ``torch.Generator``: truncated-normal fan-in, like the JAX
   package's ``ParamBuilder.dense``.  No f32 copy of the model is ever
   built.  The numbers differ from JAX's (different generators).
-* ``from_numpy_tree`` takes the JAX package's trees as numpy arrays.
+* ``from_numpy_tree`` takes the JAX package's trees as numpy arrays
+  (parameters, and an optimizer state ``(step, mu, nu)``).
 * ``load_npz_params`` reads the ``training/checkpoint.py`` npz layout
   (flat ``params/...`` keys, bf16 saved as f32 and cast back
   losslessly; the f32 leaves stay f32).
+* ``trainable`` makes a tree's floating leaves leaf tensors that require
+  grad; ``detached`` gives the same values with no autograd history
+  (what serving takes).
 """
 from __future__ import annotations
 
@@ -137,13 +141,24 @@ def _moe_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
     return p
 
 
+def _cross_attention_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
+    d, dh = cfg.d_model, cfg.d_head
+    return {
+        "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
+        "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
+        "wv": ini.dense((d, cfg.n_kv * dh), layers=R),
+        "wo": ini.dense((cfg.n_heads * dh, d), layers=R),
+    }
+
+
 def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random LM parameters for every block kind of the configs: an
     attention or mamba mixer, then a dense, MoE or no FFN.  Keys follow
     the JAX package's ``_init_block``: ``ln2`` unless the FFN is
-    ``"none"``."""
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder stack is not ported")
+    ``"none"``; an encoder-decoder config (whisper) adds each block's
+    ``lnx`` and ``xattn`` (cross-attention), and ``encoder`` (its
+    ``enc_layers`` stacked: ln1, attention mixer, ln2, dense FFN),
+    ``enc_norm`` and ``enc_embed`` (d, d), as ``init_params`` does."""
     ini = _Init(seed, device, param_dtype(cfg))
     d, R = cfg.d_model, cfg.repeats
     tree: Dict[str, Any] = {
@@ -162,8 +177,21 @@ def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any
             blk["ln2"] = {"scale": ini.ones((d,), layers=R)}
             blk["ffn"] = (_moe_params(ini, cfg, R) if ffn == "moe"
                           else _mlp_params(ini, d, cfg.d_ff, R))
+        if cfg.enc_dec:
+            blk["lnx"] = {"scale": ini.ones((d,), layers=R)}
+            blk["xattn"] = _cross_attention_params(ini, cfg, R)
         blocks.append(blk)
     tree["blocks"] = tuple(blocks)
+    if cfg.enc_dec:
+        L = cfg.enc_layers
+        tree["encoder"] = {
+            "ln1": {"scale": ini.ones((d,), layers=L)},
+            "mixer": _attention_params(ini, cfg, L),
+            "ln2": {"scale": ini.ones((d,), layers=L)},
+            "ffn": _mlp_params(ini, d, cfg.d_ff, L),
+        }
+        tree["enc_norm"] = {"scale": ini.ones((d,))}
+        tree["enc_embed"] = ini.dense((d, d))
     return tree
 
 
@@ -210,14 +238,75 @@ def to_tensor(arr, device="cpu") -> torch.Tensor:
 
 def from_numpy_tree(tree, device="cpu"):
     """The JAX package's parameter tree (``tfm.init_params`` LM tree or
-    ``vitm.init_vit`` ViT tree, leaves as numpy arrays) -> the port's."""
+    ``vitm.init_vit`` ViT tree, leaves as numpy arrays) -> the port's.
+    A named tuple with the fields ``(step, mu, nu)`` (the JAX package's
+    ``OptState``) becomes the port's ``training.optimizer.OptState``."""
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == ("step", "mu", "nu"):
+        from ..training.optimizer import OptState
+        return OptState(*(from_numpy_tree(v, device) for v in tree))
     if isinstance(tree, (tuple, list)):
         return tuple(from_numpy_tree(v, device) for v in tree)
     return to_tensor(tree, device)
 
 
+def map_tree(fn, tree):
+    """``fn`` over every tensor leaf of nested dicts, tuples and lists
+    (named tuples keep their type)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tree(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def map_paths(fn, tree, prefix: str = ""):
+    """``fn(key, leaf)`` over every leaf in the JAX package's flattening
+    order (dict keys sorted, sequence items and named-tuple fields in
+    order); returns the tree of results.  A leaf's key is its path as
+    ``jax.tree_util.tree_flatten_with_path`` prints it, after ``prefix``:
+    ``['key']`` per dict level, ``[i]`` per sequence index, ``.field``
+    per named-tuple field, joined by ``/``
+    (``['blocks']/[0]/['mixer']/['wq']``, ``.mu/['embed']``).  The
+    checkpoint layout's keys; ``load_npz_params`` parses them back."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(t[k], path + [f"['{k}']"]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v, path + [f".{n}"]) for n, v in zip(t._fields, t)))
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v, path + [f"[{i}]"]) for i, v in enumerate(t))
+        return fn(prefix + "/".join(path), t)
+    return walk(tree, [])
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """(key, leaf) pairs of ``map_paths``, in its order."""
+    out = []
+    map_paths(lambda k, t: out.append((k, t)), tree, prefix)
+    return out
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in the JAX package's flattening order."""
+    return [t for _, t in leaf_paths(tree)]
+
+
+def trainable(tree):
+    """The same values as leaf tensors, the floating ones requiring grad
+    (they share storage with ``tree``'s)."""
+    return map_tree(lambda t: t.detach().requires_grad_(t.is_floating_point()), tree)
+
+
+def detached(tree):
+    """The same values with no autograd history and no ``requires_grad``."""
+    return map_tree(lambda t: t.detach() if torch.is_tensor(t) else t, tree)
+
+
+# one segment of a ``map_paths`` key below a dict or a sequence
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 

@@ -1,6 +1,7 @@
-"""Layers of the serving path: RMSNorm, RoPE, GQA attention over the
-paged KV slab (bf16, or two-precision with int8 cold pages) or over
-per-stream caches, dense attention (ViT I-frames), SwiGLU MLP, the
+"""Layers of the serving and training paths: RMSNorm, RoPE, GQA
+attention over the paged KV slab (bf16, or two-precision with int8 cold
+pages), over per-stream caches or uncached (training, the whisper
+encoder, ViT I-frames), whisper's cross-attention, SwiGLU MLP, the
 token-choice MoE, and the Mamba-2 (SSD) mixer with its one-token decode
 step.
 
@@ -199,10 +200,13 @@ def attention_block(
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 128,
 ) -> Tuple[torch.Tensor, object]:
-    """Attention over a KV cache (the JAX package's cached branches).
+    """The JAX package's ``attention_block``.
 
-    This chunk's K/V are written in place, then the chunk attends the
-    cache.  Two write modes:
+    Without a cache: self-attention over ``x`` by the dense ``mha``
+    (training, the whisper encoder with ``causal=False``), masked by
+    ``causal``, the config's sliding window and ``valid`` (B, T); returns
+    (out, None).  With a cache this chunk's K/V are written in place,
+    then the chunk attends the cache.  Two write modes:
 
       * scatter (``scatter_idx`` (T,) positions): fresh prefill and
         selective refresh; ``kv_valid`` (B, S) is the full validity;
@@ -222,11 +226,13 @@ def attention_block(
     the kernels need it in every mode (decode and the contiguous fresh
     prefill pass maps built for their positions).
     """
-    if cache is None:
-        raise NotImplementedError("only the cached attention paths are ported")
     B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.sliding_window
+    if cache is None:
+        out = mha(q, k, v, positions, positions, valid, causal=causal, window=window,
+                  q_chunk=q_chunk)
+        return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"], None
     dev = x.device
     if page_table is not None:
         S = cache_len
@@ -281,6 +287,27 @@ def attention_block(
     return out, cache
 
 
+def cross_attention_block(p, cfg: ModelCfg, x: torch.Tensor, enc_kv) -> torch.Tensor:
+    """Whisper's decoder cross-attention: x (B, T, d) against the
+    precomputed encoder (k, v) (B, S_enc, K, dh); no RoPE, no mask."""
+    B, T, _ = x.shape
+    dh = cfg.d_head
+    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, dh)
+    k, v = enc_kv
+    qpos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = mha(q, k, v, qpos, kpos, causal=False)
+    return out.reshape(B, T, cfg.n_heads * dh) @ p["wo"]
+
+
+def cross_attention_kv(p, cfg: ModelCfg, enc_out: torch.Tensor):
+    """The encoder output's cross K/V of one decoder layer: (B, S, K, dh) each."""
+    B, S, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv, cfg.d_head)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv, cfg.d_head)
+    return k, v
+
+
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x Wg) * x Wu) Wd."""
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
@@ -289,15 +316,34 @@ def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
 # ======================================================================
 # Mixture of Experts (token-choice top-k, static capacity)
 # ======================================================================
-def f32_matmul(x: torch.Tensor, w: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
-    """x @ w keeping the f32 result of the bf16 product, as the jitted JAX
-    package does (XLA does not round ``(x @ w).astype(F32)`` to bf16).  On
-    the card one GEMM with an f32 output.  On the CPU, which has no such
-    GEMM, bf16 products are exact in f32, so the f32 product of the bf16
-    operands is the same value; ``chunk`` columns of w are widened at a
-    time where w is large."""
-    if x.device.type == "cuda":
+class _F32Product(torch.autograd.Function):
+    """x @ w (2-D) with the f32 result of one GEMM on the card; the
+    backward's two products take the f32 gradient against the other
+    operand widened to f32, as the CPU path's autograd does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
         return torch.mm(x, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = (g @ w.to(F32).T).to(x.dtype) if ctx.needs_input_grad[0] else None
+        gw = (x.to(F32).T @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def f32_matmul(x: torch.Tensor, w: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+    """x (..., d) @ w (d, n) keeping the f32 result of the bf16 product,
+    as the jitted JAX package does (XLA does not round ``(x @ w).astype(F32)``
+    to bf16).  On the card one GEMM with an f32 output (``_F32Product``,
+    differentiable).  On the CPU, which has no such GEMM, bf16 products
+    are exact in f32, so the f32 product of the bf16 operands is the same
+    value; ``chunk`` columns of w are widened at a time where w is large."""
+    if x.device.type == "cuda":
+        lead = x.shape[:-1]
+        return _F32Product.apply(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
     xf, n = x.to(F32), w.shape[1]
     step = chunk or n
     return torch.cat([xf @ w[:, i:i + step].to(F32) for i in range(0, n, step)], dim=-1)

@@ -16,7 +16,7 @@ from ..configs.base import ViTCfg
 from ..kernels import ops
 from ..kernels.flash_packed import PackBlockMap
 from . import layers
-from .transformer import layer_params
+from .transformer import unstack
 
 
 def patchify(frames: torch.Tensor, v: ViTCfg) -> torch.Tensor:
@@ -47,8 +47,8 @@ def _encoder(params, v: ViTCfg, h: torch.Tensor, eps: float) -> torch.Tensor:
     def attend(q, k, vv):
         return layers.mha(q, k, vv, pos, pos, None, causal=False)
 
-    for i in range(v.n_layers):
-        h = _vit_block(layer_params(params["blocks"], i), v, h, eps, attend)
+    for lp in unstack(params["blocks"]):
+        h = _vit_block(lp, v, h, eps, attend)
     return layers.rmsnorm(params["final_norm"], h, eps)
 
 
@@ -77,8 +77,8 @@ def _encoder_packed(params, v: ViTCfg, h: torch.Tensor, seg_id: torch.Tensor,
     def attend(q, k, vv):
         return ops.flash_packed(q, k, vv, seg_id, block_map)
 
-    for i in range(v.n_layers):
-        h = _vit_block(layer_params(params["blocks"], i), v, h, eps, attend)
+    for lp in unstack(params["blocks"]):
+        h = _vit_block(lp, v, h, eps, attend)
     return layers.rmsnorm(params["final_norm"], h, eps)
 
 

@@ -51,6 +51,7 @@ from ..kernels.ref import apply_rope_ref, paged_gather_quant_ref, paged_gather_r
 from ..kernels.transfer import HostCopy, host_of, upload, with_host
 from ..models import layers
 from ..models import transformer as tfm
+from ..models.init import detached
 from ..models import vit as vitm
 from . import flops as flopcount
 from .config import EngineCfg
@@ -473,7 +474,7 @@ class AttentionPrefill:
         S = h.shape[0]
         positions = with_host(idx[None].expand(S, idx.shape[0]),
                               np.broadcast_to(host_of(idx)[None], (S, idx.shape[0])))
-        h, _ = tfm.run_stack(
+        h, _, _ = tfm.run_stack(
             self.cfg, self.params, h, positions, None, caches,
             cache_offset=None, cache_len=self.cache_slots, scatter_idx=idx,
             kv_valid=kv_valid, q_chunk=self.ecfg.q_chunk, block_map=block_map,
@@ -614,7 +615,7 @@ class AttentionPrefill:
         if embeds.shape[0] != 1:
             raise ValueError("cacheblend refresh is per stream")
         ov = lay.overlap_tokens
-        p0 = tfm.layer_params(self.params["blocks"][0], 0)
+        p0 = tfm.unstack(self.params["blocks"][0])[0]
         hn = layers.rmsnorm(p0["ln1"], embeds[:, :ov], cfg.norm_eps)
         kq = (hn @ p0["mixer"]["wk"]).reshape(1, ov, cfg.n_kv, cfg.d_head)
         pos = torch.arange(ov, device=embeds.device)[None]
@@ -875,7 +876,10 @@ class ServingPipeline:
     and stream order is what keeps a window's reads behind the previous
     window's writes.  Only ``decide`` runs on a side stream, and it
     touches no serving state.  Stage times are device spans from timing
-    events on the card and host wall times on the CPU."""
+    events on the card and host wall times on the CPU.  The parameter
+    trees are taken detached (``models.init.detached``): weights fresh
+    from training, leaves that require grad, serve without recording an
+    autograd graph, and reach the kernels, which have no backward."""
 
     def __init__(self, cfg: ModelCfg, vit_cfg: ViTCfg, params_lm,
                  params_vit, ecfg: EngineCfg, device="cuda"):
@@ -886,6 +890,7 @@ class ServingPipeline:
         if not ecfg.prune.packed_vit:
             raise NotImplementedError("the padded ViT (packed_vit=False) is not ported")
         self.device = resolve_device(device)
+        params_lm, params_vit = detached(params_lm), detached(params_vit)
         self.cfg = cfg
         self.v = vit_cfg
         self.params = params_lm

@@ -903,3 +903,113 @@ def test_moe_block_on_card_repeats_bitwise_and_matches_cpu(dev, case):
     scale = out_h.float().abs().max().item()
     assert (out1.cpu().float() - out_h.float()).abs().max().item() <= 2.0 ** -5 * scale
     assert abs(aux1.item() - aux_h.item()) <= 1e-5
+
+
+# ----------------------------------------------------------------------
+# no kernel has a backward: operands that require grad are refused
+# ----------------------------------------------------------------------
+def _grad_case(name, dev):
+    """(op call, its tensor operands) at shapes the kernel takes."""
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape, **kw):
+        return torch.randn(shape, generator=g, **{**bf, **kw})
+
+    if name == "mv_sad":
+        cur, prev = (t.to(dev) for t in _frames(64, 64))
+        return (lambda: ops.mv_sad(cur, prev)), (cur, prev)
+    if name == "rope_shift":
+        k = rnd(1, 8, 2, 64)
+        return (lambda: ops.rope_shift(k, torch.full((1, 8), 3, dtype=torch.int32,
+                                                     device=dev))), (k,)
+    if name == "flash_refresh":
+        q, k, v = rnd(1, 8, 4, 64), rnd(1, 128, 2, 64), rnd(1, 128, 2, 64)
+        pos = torch.arange(120, 128, device=dev)[None]
+        bm = build_block_map(np.arange(120, 128), 128)
+        return (lambda: ops.flash_refresh(q, k, v, pos, block_map=bm)), (q, k, v)
+    if name in ("flash_refresh_paged", "flash_refresh_paged_int8"):
+        q, k, v = rnd(1, 4, 4, 32), rnd(128, 2, 32), rnd(128, 2, 32)
+        cold = None
+        pt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+        if name.endswith("int8"):
+            cold = (torch.zeros(128, 2, 32, dtype=torch.int8, device=dev),) * 2 + (
+                torch.ones(1, 2, device=dev),) * 2
+            pt = torch.ones(1, 1, dtype=torch.int32, device=dev)
+        pos = torch.tensor([[3, 4, 5, 7]], device=dev)
+        valid = torch.ones(1, 128, dtype=torch.bool, device=dev)
+        bm = build_block_map([3, 4, 5, 7], 128)
+        return (lambda: ops.flash_refresh_paged(q, k, v, pos, valid, pt, block_map=bm,
+                                                cold=cold)), (q, k, v)
+    if name == "flash_packed":
+        q, k, v = rnd(1, 128, 2, 32), rnd(1, 128, 2, 32), rnd(1, 128, 2, 32)
+        seg = np.array([[0] * 40 + [1] * 60 + [-1] * 28], np.int32)
+        bm = build_pack_map(seg)
+        st = torch.from_numpy(seg).to(dev)
+        return (lambda: ops.flash_packed(q, k, v, st, bm)), (q, k, v)
+    if name == "flash_prefill":
+        q, k, v = rnd(1, 16, 4, 64), rnd(1, 16, 2, 64), rnd(1, 16, 2, 64)
+        return (lambda: ops.flash_prefill(q, k, v)), (q, k, v)
+    if name == "flash_prefill_paged":
+        q, k, v = rnd(1, 16, 4, 64), rnd(256, 2, 64), rnd(256, 2, 64)
+        pt = torch.tensor([[1, 0]], dtype=torch.int32, device=dev)
+        return (lambda: ops.flash_prefill_paged(q, k, v, pt)), (q, k, v)
+    if name == "ssd_scan":
+        x, b, c = rnd(1, 32, 2, 64), rnd(1, 32, 1, 16), rnd(1, 32, 1, 16)
+        la = -torch.rand((1, 32, 2), generator=g, device=dev)
+        return (lambda: ops.ssd_scan(x, la, b, c, None, 16)), (x, la, b, c)
+    raise KeyError(name)
+
+
+GRAD_OPS = ("mv_sad", "rope_shift", "flash_refresh", "flash_refresh_paged",
+            "flash_refresh_paged_int8", "flash_packed", "flash_prefill",
+            "flash_prefill_paged", "ssd_scan")
+
+
+@pytest.mark.parametrize("which", ["first", "last"])
+@pytest.mark.parametrize("name", GRAD_OPS)
+def test_kernel_ops_refuse_operands_that_require_grad(dev, name, which):
+    """Under grad mode an operand that requires grad raises before any
+    launch (the kernel's output would carry no gradient); under no_grad
+    the same call launches; the plain version on the card differentiates."""
+    call, operands = _grad_case(name, dev)
+    t = operands[0] if which == "first" else operands[-1]
+    t.requires_grad_(True)
+    before = ops.launch_counts().get(name, 0)
+    with pytest.raises(ops.KernelContractError, match="no backward kernel"):
+        call()
+    assert ops.launch_counts().get(name, 0) == before
+    with torch.no_grad():
+        call()
+    assert ops.launch_counts()[name] == before + 1
+    if name != "mv_sad":          # motion vectors are integers
+        with ops.kernel_mode("plain"):
+            out = call()
+        out = out[0] if isinstance(out, tuple) else out
+        (grad,) = torch.autograd.grad(out.float().square().sum(), (t,))
+        assert bool(torch.isfinite(grad).all())
+
+
+def test_f32_head_product_differentiates_on_card(dev):
+    """``layers.f32_matmul``'s card path (one GEMM with an f32 output and
+    a backward of two f32 products) against the CPU path's autograd on
+    the same bf16 operands: the forward within 2^-14 of each row's
+    largest logit (a summation order apart), the gradients within one
+    bf16 step of their largest element."""
+    from repro_torch.models.layers import f32_matmul
+    g = torch.Generator().manual_seed(37)
+    x = torch.randn(6, 256, generator=g).bfloat16()
+    w = (torch.randn(256, 1000, generator=g) * 0.05).bfloat16()
+    up = torch.randn(6, 1000, generator=g)
+    outs = []
+    for d in ("cpu", dev):
+        xd, wd = x.to(d).requires_grad_(True), w.to(d).requires_grad_(True)
+        y = f32_matmul(xd, wd)
+        assert y.dtype == torch.float32
+        gx, gw = torch.autograd.grad((y * up.to(d)).sum(), (xd, wd))
+        outs.append([t.float().cpu() for t in (y, gx, gw)])
+    (yc, gxc, gwc), (yk, gxk, gwk) = outs
+    scale = yc.abs().amax(-1, keepdim=True)
+    assert ((yk - yc).abs() / scale).max().item() <= 2.0 ** -14
+    for a, b in ((gxc, gxk), (gwc, gwk)):
+        assert (a - b).abs().max().item() <= 2.0 ** -7 * a.abs().max().item()

@@ -34,7 +34,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import anomaly_dataset  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.models.init import from_numpy_tree, init_lm_params  # noqa: E402
+from repro_torch.models.init import from_numpy_tree  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineCfg, Scheduler, SchedulerCfg, ServingPipeline, StreamAdmitted, StreamDone,
     StreamRequest, WindowDone,
@@ -145,18 +145,17 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    """The padded ViT and the encoder-decoder family are not ported (every
-    mode, both KV layouts and int8 cold pages are: test_torch_modes.py,
-    test_torch_variants.py; the SSM family: test_torch_recurrent.py; MoE
-    and hybrid: test_torch_moe.py, test_torch_hybrid.py)."""
+    """The padded ViT is not ported (every mode, both KV layouts and int8
+    cold pages are: test_torch_modes.py, test_torch_variants.py; the SSM
+    family: test_torch_recurrent.py; MoE and hybrid: test_torch_moe.py,
+    test_torch_hybrid.py; the encoder-decoder family and training:
+    test_torch_whisper.py, test_torch_train.py)."""
     cfg = get_config(ARCH)
     from repro_torch.serving import PruneCfg
     codec = TCodecCfg(**CODEC)
     with pytest.raises(NotImplementedError):
         ServingPipeline(cfg, cfg.vit, {}, {},
                         EngineCfg(prune=PruneCfg(packed_vit=False), codec=codec), device="cpu")
-    with pytest.raises(NotImplementedError):
-        init_lm_params(get_config("whisper-large-v3-smoke"), device="cpu")
 
 
 def test_launch_serve_main_on_cpu(capsys):

@@ -61,7 +61,7 @@ def port_choices(log: list, force=None):
 
     def recorded(gates, k):
         vals, idx = orig(gates, k)
-        log.append((gates.cpu().numpy(), idx.cpu().numpy()))
+        log.append((gates.detach().cpu().numpy(), idx.cpu().numpy()))
         if calls is not None:
             idx = torch.from_numpy(np.array(next(calls)[1])).to(gates.device).long()
             vals = gates.gather(1, idx)
