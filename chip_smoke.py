@@ -4,11 +4,13 @@ and check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash_packed,rope_shift [--src DIR]
+    python3 chip_smoke.py --only whisper [--src DIR]
 
 With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
-contract line; ``--src`` drives the ``repro_torch`` of another checkout's
+contract line (``--only mha`` and ``--only whisper``: phase 3's mha
+probe and phase 8(b) alone); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
 ``git archive`` can be timed in the same call: parent, change, change,
 parent.
@@ -60,7 +62,19 @@ Phases (any failure exits non-zero):
                cores' figure printed beside it).  Then the
                LM head: lm_logits at internvl3-14b's head width, untied
                and tied, against the f32 product of its bf16 operands
-               (it must keep the f32 result, not a bf16 one).
+               (it must keep the f32 result, not a bf16 one).  Head dim
+               24: every attention kernel and rope_shift (bf16, its 8-byte
+               path, and f32) also at benchmarks/common.py's VLM (LM H 4
+               over Hkv 2, ViT H 4) on its 112^2 layout and at a larger
+               D-24 width (H 32 over Hkv 8 on internvl3-14b's layout; the
+               ViT at H 16 on its packings), each row's further cases
+               under ``cases``; the refresh kernels and rope_shift also at
+               internvl3-14b-smoke's LM (H 4, D 64) and flash_packed at
+               its ViT (D 32).  Then the dense mha (a library GEMM, no
+               row): at whisper-large-v3's cross-attention and
+               internvl3-14b's encode_full against the f32-widened
+               formula within HEAD_TOL, with no f32 copy of K, V or P and
+               a peak below the widened formula's.
   4. serve   — internvl3-14b at full width and depth with random weights
                made on the card from a seed: 2 streams x 24 frames at
                448^2 (one fresh and two incremental windows each) through
@@ -77,7 +91,14 @@ Phases (any failure exits non-zero):
                window-0 logits must equal bitwise those of the bf16 paged
                run served one stream at a time (the int8 run admits its
                streams one after the other, so each window 0 is a batch
-               of one there).  Then the SSM family: mamba2-2.7b at full
+               of one there).  The padded ViT
+               (PruneCfg(packed_vit=False)) in prune_only and codecflow
+               must launch no flash_packed, its window-0 logits must
+               agree with the packed path's within the composite
+               tolerance, and window 0's FLOP ledger must give
+               vit_padded_flops / vit_packed_flops >= 1.5 (the
+               reference's gate); encode seconds and ViT slots are
+               printed beside the packed path's.  Then the SSM family: mamba2-2.7b at full
                width and depth (64 SSD layers, random bf16 weights from
                the seed) with the launcher's 112^2 ViT, 2 streams x 40
                frames (one fresh and six incremental windows each where
@@ -157,8 +178,8 @@ Phases (any failure exits non-zero):
                (c) the bigram task (tests/test_training.py's recipe):
                the loss must fall by more than 0.3 in 120 steps; (d) the
                anomaly task: train_tiny_vlm on benchmarks/common.py's
-               recipe with internvl3-14b-smoke's LM and ViT (head dims 64
-               and 32, which the kernels take), the NLL falling; its
+               recipe and model (LM d 96, 4 heads over 2; ViT d 96, 4
+               heads: head dim 24 in both), the NLL falling; its
                checkpoint saved, reloaded and bitwise equal; fullcomp and
                codecflow (paged bf16, lockstep) served on 6 held-out
                videos x 28 frames (seed 100) with the trained weights
@@ -167,10 +188,11 @@ Phases (any failure exits non-zero):
                that requires grad, and its yes/no logits over the 24
                windows must agree with the same windows served under
                kernel_mode("plain") within the composite tolerance
-               (flash_packed at ViT D 32, the refresh kernels and
-               rope_shift at the LM's H 4 / D 64); precision, recall and
-               F1 printed per mode, with codecflow's F1 drop (not gated).  Phase 3 also
-               holds flash_refresh at whisper's prefill and decode shapes.
+               (flash_packed at ViT D 24, the refresh kernels and
+               rope_shift at the LM's H 4 / Hkv 2 / D 24); precision,
+               recall and F1 printed per mode, with codecflow's F1 drop
+               (not gated).  Phase 3 also holds flash_refresh at
+               whisper's prefill and decode shapes.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -218,7 +240,15 @@ FAMILY_HW = 112
 WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
 WHISPER_PREFILL, WHISPER_DECODE, WHISPER_SLOTS = 32, 2, 128
-ANOMALY_ARCH = "internvl3-14b-smoke"   # LM D 64, ViT D 32: head widths the kernels take
+# benchmarks/common.py's VLM (copied, not imported): head dim 24 in the LM
+# (d 96, 4 heads over 2 kv heads) and in the ViT (d 96, 4 heads)
+BENCH_LM = dict(name="bench-vlm", family="vlm", n_layers=4, d_model=96, n_heads=4, n_kv=2,
+                d_ff=192, vocab=64, tied_embeddings=True)
+BENCH_VIT = dict(n_layers=2, d_model=96, n_heads=4, d_ff=192, patch=14, image=112, group=2)
+BENCH_CODEC = dict(gop=4, block=16, search_radius=4, window_frames=16, stride_frames=4,
+                   keep_ratio=0.5, mv_threshold=0.25)
+SMOKE_ARCH = "internvl3-14b-smoke"     # LM D 64 at 4 heads, ViT D 32
+WIDE_D24 = dict(n_heads=32, n_kv=8, d_head=24)   # a larger D-24 case on internvl3-14b's layout
 SEED = 0
 # card step vs CPU step, and the CPU tests' step limits
 # (tests/torch_train_parity.py): loss 1e-3 and grad_norm 1e-2 relative,
@@ -388,31 +418,38 @@ def check_mv_sad(torch, videos):
                     library_ms=None)
 
 
-def check_rope_shift(torch, cfg, layout, n_streams):
+def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
+    """The overlap's keys of every layer and stream rotated by the
+    window's shift, at ``cfg``'s kv heads and head dim, in bf16 (at D 24
+    the kernel's 8-byte path) or ``dtype``."""
     from repro_torch.kernels.rope_shift import rope_shift_cuda, rope_shift_plain
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(1)
     n = cfg.repeats * n_streams
     ov, sh = layout.overlap_tokens, layout.shift_tokens
-    k = torch.randn((n, ov, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((n, ov, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(dtype)
     delta = torch.full((n, ov), -sh, dtype=torch.int32, device="cuda")
     out_k = rope_shift_cuda(k, delta, cfg.rope_theta)
     out_p = rope_shift_plain(k, delta, cfg.rope_theta)
-    # elementwise: one bf16 step of the value (2^-7 relative) plus 1e-3
-    # for the f32 angle (|delta * freq| ~ 640 rad: one f32 ulp of the
-    # angle moves the result by ~1e-4 |k|)
+    # elementwise: one bf16 step of the value (2^-7 relative; none in f32)
+    # plus 1e-3 for the f32 angle (|delta * freq| ~ 640 rad: one f32 ulp
+    # of the angle moves the result by ~1e-4 |k|)
     d = (out_k.float() - out_p.float()).abs()
     err = float(d.max())
-    excess = float((d - 2.0 ** -7 * out_p.float().abs()).max())
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    excess = float((d - step * out_p.float().abs()).max())
     ms = cuda_ms(torch, lambda: rope_shift_cuda(k, delta, cfg.rope_theta), 20)
-    # k alone is 377 MB, past the L2 many times over: two graph copies
+    # internvl3-14b's k alone is 377 MB, past the L2 many times over
     dev_ms = device_ms(torch, lambda a, b: rope_shift_cuda(a, b, cfg.rope_theta), (k, delta),
-                       k.numel() * 2, min_copies=2)
+                       k.numel() * k.element_size(), min_copies=2)
     plain = cuda_ms(torch, lambda: rope_shift_plain(k, delta, cfg.rope_theta), 5)
-    n_bytes = 2 * k.numel() * 2 + delta.numel() * 4
+    n_bytes = 2 * k.numel() * k.element_size() + delta.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 3 * k.numel(), F32_FLOPS)
-    log(f"rope_shift: k {tuple(k.shape)} bf16, delta {-sh}: max abs err {err:.3g}; "
-        f"max (|k-p| - 2^-7 |p|) {excess:.3g} (limit 1e-3); kernel {ms:.4f} ms per call "
-        f"({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    name = "rope_shift" if label is None else f"rope_shift ({label})"
+    log(f"{name}: k {tuple(k.shape)} {str(dtype)[6:]}, delta {-sh}: max abs err {err:.3g}; "
+        f"max (|k-p| - {'2^-7 |p|' if step else '0'}) {excess:.3g} (limit 1e-3); kernel "
+        f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     return excess <= 1e-3, dict(name="rope_shift", route="cuda",
                             source="src/repro_torch/csrc/rope_shift.cu",
                             replaces="src/repro/kernels/rope_shift.py:40",
@@ -508,6 +545,18 @@ def kernel_row(name, replaces, r):
                 replaces=replaces, **{k: r[k] for k in keys})
 
 
+def with_cases(main, extra: dict):
+    """A check's (ok, row) with further cases of the same kernel: each
+    case's readings under the row's ``cases``, and ok only if every case
+    passed.  The row's other figures stay the main case's."""
+    ok, row = main
+    for label, (ok_case, r) in extra.items():
+        row.setdefault("cases", {})[label] = {
+            k: v for k, v in r.items() if k not in ("name", "route", "source", "replaces")}
+        ok = ok and ok_case
+    return ok, row
+
+
 def bf16_keys(needed):
     return 2 * float(needed.sum())
 
@@ -580,10 +629,10 @@ def _stream_inputs(torch, cfg, slots, n_streams, offset, T):
     return q, k, v, q_pos, torch.as_tensor(valid, device="cuda"), bm
 
 
-def check_flash_refresh(torch, cfg, cases, n_streams, families=()):
+def check_flash_refresh(torch, cases, n_streams, families=()):
     """The per-stream kernel on the logical view of the same inputs as
-    the paged checks: (label, layout, cache slots, refresh case) per row
-    of ``cases``; then each of ``families`` ((label, cfg, cache slots,
+    the paged checks: (label, cfg, layout, cache slots, refresh case) per
+    row of ``cases``; then each of ``families`` ((label, cfg, cache slots,
     offset, T): a contiguous pass of the recurrent backend's attention
     layers, ``_stream_inputs``).  The kernels line reports the selective
     refresh's times, the largest error, and every family case's readings
@@ -608,7 +657,7 @@ def check_flash_refresh(torch, cfg, cases, n_streams, families=()):
         ok = ok and ok_here
         readings[label] = dict(q=list(q.shape), caches=list(k.shape), **r)
         del q, k, v
-    for label, layout, slots, case in cases:
+    for label, cfg, layout, slots, case in cases:
         q, ks, vs, q_pos, kv_valid, pt, bm = _refresh_inputs(
             torch, cfg, layout, slots, n_streams, case)
         k, v = paged_gather_ref(ks, pt, 128), paged_gather_ref(vs, pt, 128)
@@ -625,8 +674,10 @@ def check_flash_refresh(torch, cfg, cases, n_streams, families=()):
             f"{bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
             + attention_reading(r, "SDPA"))
         ok = ok and ok_here
-        if case == "selective refresh":
+        if label == "selective refresh":
             row = kernel_row("flash_refresh", "src/repro/kernels/flash_refresh.py:236", r)
+        else:
+            readings[label] = dict(q=list(q.shape), caches=list(k.shape), **r)
     row["max_abs_err"] = worst
     if readings:
         row["families"] = readings
@@ -655,12 +706,14 @@ def cold_pages(torch, k, v, pt, D):
     return (k8, v8, ks, vs), pt8, (pt8 >= n_hot).repeat_interleave(128, dim=1)
 
 
-def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
+def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams, n_cold=None,
+                                   label=None):
     """The two-precision kernel at the selective refresh: each stream's
-    overlap pages [0, D) (15 of 21) quantised into an int8 cold slab with
-    per-(page, kv head) scales, as demotion leaves them.  Held to the
-    plain version (dequant-gather + the same attention); with every
-    entry hot it must equal the bf16 kernel bitwise."""
+    overlap pages [0, D) (15 of 21 at internvl3-14b; ``n_cold`` where
+    given) quantised into an int8 cold slab with per-(page, kv head)
+    scales, as demotion leaves them.  Held to the plain version
+    (dequant-gather + the same attention); with every entry hot it must
+    equal the bf16 kernel bitwise."""
     import torch.nn.functional as F
     from repro_torch.core import demotable_pages
     from repro_torch.kernels.flash_refresh import (
@@ -670,7 +723,7 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
     q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
         torch, cfg, layout, cache_slots, n_streams, "selective refresh")
     n_kv = k.shape[1]
-    D = len(demotable_pages(layout))
+    D = len(demotable_pages(layout)) if n_cold is None else n_cold
     cold, pt8, is_cold = cold_pages(torch, k, v, pt, D)
     k8, ks = cold[0], cold[2]
 
@@ -694,7 +747,8 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams):
                           out_bf16)
     _, quant_rel = attn_errors(
         torch, flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold), out_bf16)
-    log(f"flash_refresh_paged_int8 (selective refresh): q {tuple(q.shape)} bf16, hot slab "
+    log(f"flash_refresh_paged_int8 ({label or 'selective refresh'}): q {tuple(q.shape)} bf16, "
+        f"hot slab "
         f"{tuple(k.shape)}, cold slab {tuple(k8.shape)} int8, {D} of {pt.shape[1]} pages "
         f"per stream cold, all-hot bitwise equal to bf16 kernel: {all_hot}, row-relative "
         f"change from quantisation {quant_rel:.3g}: " + attention_reading(r, "dequant-gather+SDPA"))
@@ -729,20 +783,22 @@ def packings(torch, pipe, streams):
                              ("mixed", mixed))]
 
 
-def check_flash_packed(torch, pipe, streams):
+def check_flash_packed(torch, pipe, streams, heads=None, label=None):
     """The kernel through ops.flash_packed, as the ViT calls it, at the
     three packings of ``packings``: each against the plain version
     (ROW_TOL, padding exact zero) and masked SDPA, timed per call and on
-    the device.  The kernels line reports the serve packing's times, the
-    largest error, and every packing's readings under ``packings``."""
+    the device, at the pipeline ViT's heads or ``heads`` (H, D).  The
+    kernels line reports the serve packing's times, the largest error,
+    and every packing's readings under ``packings``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_packed import flash_packed_plain
     v = pipe.v
-    H, D = v.n_heads, v.d_model // v.n_heads
+    H, D = heads or (v.n_heads, v.d_model // v.n_heads)
+    name = "flash_packed" if label is None else f"flash_packed [{label}]"
     g = torch.Generator(device="cuda").manual_seed(4)
     ok, row, worst, readings = True, None, 0.0, {}
-    for label, plan in packings(torch, pipe, streams):
+    for label_p, plan in packings(torch, pipe, streams):
         R, L = plan.seg_id.shape
         q, k, vv = (torch.randn((R, L, H, D), generator=g, device="cuda").to(torch.bfloat16)
                     for _ in range(3))
@@ -766,17 +822,17 @@ def check_flash_packed(torch, pipe, streams):
         live = float((seg >= 0).sum())
         n_bytes = live * H * D * 2 * 3 + q.numel() * 2 + seg.numel() * 4
         b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
-        log(f"flash_packed ({label}): {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, "
+        log(f"{name} ({label_p}): {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, "
             f"D {D}, {bm.visited} visited tiles, fill {plan.fill:.3f}: max abs err {err:.3g}, "
             f"max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), padding exact zero: "
             f"{pad_zero}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
             f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         ok = ok and rel <= ROW_TOL and pad_zero
         worst = max(worst, err)
-        readings[label] = dict(shape=[R, L], visited=bm.visited, max_abs_err=err, rel=rel,
-                               ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by)
-        if label == "serve":
+        readings[label_p] = dict(shape=[R, L], visited=bm.visited, max_abs_err=err, rel=rel,
+                                 ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                                 bound_ms=b_ms, bound_by=b_by)
+        if label_p == "serve":
             row = dict(name="flash_packed", route="cuda",
                        source="src/repro_torch/csrc/attention.cu",
                        replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err,
@@ -786,6 +842,116 @@ def check_flash_packed(torch, pipe, streams):
     row["max_abs_err"] = worst
     row["packings"] = readings
     return ok, row
+
+
+def widened_mha(torch, q, k, v, causal: bool = False, q_chunk: int = 1024):
+    """The dense mha's formula with K, V and P widened to f32 (the port's
+    CPU path, and its card path before the bf16 products), unmasked but
+    for ``causal``, on the card; the output is not rounded."""
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    outs = []
+    for i in range(0, Sq, q_chunk):
+        qc = q[:, i:i + q_chunk]
+        Tq = qc.shape[1]
+        qq = (qc.float() * dh ** -0.5).to(k.dtype).reshape(B, Tq, K, H // K, dh)
+        logits = torch.einsum("btkgd,bskd->bkgts", qq.float(), kf)
+        if causal:
+            m = (torch.arange(Sk, device="cuda")[None, :]
+                 <= torch.arange(i, i + Tq, device="cuda")[:, None])
+            logits = logits.masked_fill(~m, -1e30)
+        p = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgts,bskd->btkgd", p.float(), vf).reshape(B, Tq, H, dh))
+    return torch.cat(outs, 1)
+
+
+def widenings(torch):
+    """A dispatch mode that records the element count of every bf16 ->
+    f32 conversion (``_to_copy``, or ``copy_`` into an f32 tensor) made
+    while it is active."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+
+    class Widenings(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numels = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            src = args[0] if func is aten._to_copy.default else (
+                args[1] if func is aten.copy_.default else None)
+            dst = out if func is aten._to_copy.default else args[0]
+            if (src is not None and torch.is_tensor(src) and src.dtype == torch.bfloat16
+                    and dst.dtype == torch.float32):
+                self.numels.append(src.numel())
+            return out
+    return Widenings()
+
+
+def mha_probe(torch) -> bool:
+    """The dense ``layers.mha`` on the card (bf16 tensor-core products
+    with f32 outputs) at whisper-large-v3's cross-attention (B 2, 448
+    queries over 1500 keys, H 20, D 64) and at internvl3-14b's
+    encode_full (24 frames x 1024 patches, H 16, D 64), unmasked as
+    both callers run it.  Three checks: (1) against the f32-widened
+    formula on the same operands within HEAD_TOL of each row's largest
+    value; operands lie on a grid of 2^-3, so every score is exact in
+    f32 whatever the summation order and both round P alike (a last-bit
+    difference can flip a bf16 rounding of P, which moves a row by up
+    to 2^-8 p |v|); the query is f32, so the output is not rounded;
+    (2) no f32 copy of K, V or P: no bf16 -> f32 conversion of their
+    size runs inside the mha (the widened formula makes three); (3) its
+    peak above its inputs below the widened formula's.  Each peak is
+    printed beside the f32 copy of K and V and one query chunk's f32
+    scores, and both times."""
+    from repro_torch.models.layers import mha
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = (("whisper-large-v3 cross-attention", 2, 448, 1500, 20, 20, 64),
+             ("internvl3-14b encode_full", 24, 1024, 1024, 16, 16, 64))
+    ok = True
+    for label, B, Sq, Sk, H, K, D in cases:
+        def grid(*shape):
+            return torch.randint(-8, 9, shape, generator=g, device="cuda").float() / 8
+        q = grid(B, Sq, H, D)
+        k, v = grid(B, Sk, K, D).bfloat16(), grid(B, Sk, K, D).bfloat16()
+        qpos = torch.zeros((B, Sq), dtype=torch.int32, device="cuda")
+        kpos = torch.zeros((B, Sk), dtype=torch.int32, device="cuda")
+        p_numel = B * H * min(Sq, 1024) * Sk
+        runs = {}
+        for name, fn in (("mha", lambda: mha(q, k, v, qpos, kpos, None, causal=False)),
+                         ("widened", lambda: widened_mha(torch, q, k, v))):
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad(), widenings(torch) as w:
+                out = fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            big = [n for n in w.numels if n in (k.numel(), v.numel(), p_numel)]
+            runs[name] = (out, peak, big, cuda_ms(torch, fn, 3))
+            del out
+        (out, peak, big, ms), (want, peak_w, big_w, ms_w) = runs["mha"], runs["widened"]
+        scale = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(((out - want).abs() / scale).max())
+        kv32 = 2 * k.numel() * 4
+        scores = p_numel * 4
+        here = (out.dtype == torch.float32 and rel <= HEAD_TOL and not big
+                and len(big_w) >= 3 and peak < peak_w)
+        log(f"mha ({label}): q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16: max row-relative "
+            f"err vs the widened formula {rel:.3g} (limit {HEAD_TOL:.3g}); bf16 -> f32 "
+            f"conversions of K/V/P size {len(big)} (the widened formula's {len(big_w)}); peak "
+            f"above inputs {peak / 2**20:.1f} MiB vs the widened formula's "
+            f"{peak_w / 2**20:.1f} MiB (an f32 copy of K and V {kv32 / 2**20:.1f} MiB, one "
+            f"chunk's f32 scores {scores / 2**20:.1f} MiB); {ms:.4f} ms vs {ms_w:.4f} ms "
+            f"widened: {'ok' if here else 'FAIL'}")
+        ok = ok and here
+        del q, k, v, out, want, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
 
 
 def check_lm_head(torch, cfg, params):
@@ -942,7 +1108,7 @@ def positional_mask(torch, Sq, Sk, q_offset, window, causal=True):
     return mask[None]
 
 
-def check_flash_prefill(torch, cfg, total_len, n_streams):
+def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None):
     """flash_prefill at internvl3-14b attention widths (H 40, Hkv 8,
     D 128, bf16, 2 streams): causal from position 0, a 512-row chunk at
     offset 2048 against 2560 keys, a 512-key sliding window, and the
@@ -951,7 +1117,8 @@ def check_flash_prefill(torch, cfg, total_len, n_streams):
     the mean of V).  Library: scaled_dot_product_attention with enable_gqa
     and the same mask; where is_causal is the same function (q_offset 0,
     Sq == Sk, no window) its is_causal call is timed beside it.  The
-    kernels line reports the causal case's times and the largest error."""
+    kernels line reports the causal case's times and the largest error.
+    ``only``: the labels of the cases to run; ``label`` names ``cfg``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda, flash_prefill_plain
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -961,7 +1128,10 @@ def check_flash_prefill(torch, cfg, total_len, n_streams):
              ("ragged", total_len, total_len, None, 0),
              ("rows with no visible key", 512, 1024, None, -200))
     ok, row, worst = True, None, 0.0
-    for label, Sq, Sk, window, off in cases:
+    name = "flash_prefill" if label is None else f"flash_prefill [{label}]"
+    for case, Sq, Sk, window, off in cases:
+        if only is not None and case not in only:
+            continue
         q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").bfloat16()
         k, v = (torch.randn((n_streams, Sk, Hkv, D), generator=g, device="cuda").bfloat16()
                 for _ in range(2))
@@ -987,23 +1157,24 @@ def check_flash_prefill(torch, cfg, total_len, n_streams):
                     f"{dead_rel:.3g} (limit {PREFILL_ROW_TOL:.3g})")
             ok_here = ok_here and dead_rel <= PREFILL_ROW_TOL
         worst = max(worst, r["max_abs_err"])
-        log(f"flash_prefill ({label}): q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, "
+        log(f"{name} ({case}): q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, "
             f"q_offset {off}, window {window}: " + attention_reading(r, "SDPA") + note)
         ok = ok and ok_here
-        if label == "causal":
+        if case == "causal":
             row = kernel_row("flash_prefill", "src/repro/kernels/flash_prefill.py:79", r)
             row["sdpa_causal_ms"] = r["sdpa_causal_ms"]
     row["max_abs_err"] = worst
     return ok, row
 
 
-def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams):
+def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold=None,
+                              label=None):
     """flash_prefill_paged at the fresh prefill of internvl3-14b
     (total_len queries from position 0 over cache_slots logical keys) on
     a shuffled slab, bf16 and with each stream's pages [0, D) (15 of 21)
-    int8 cold; the int8 kernel with every entry hot must equal the bf16
-    kernel bitwise.  Library: gather (+ dequant) + SDPA.  Returns
-    ((ok, bf16 row), (ok, int8 row))."""
+    int8 cold (``n_cold`` where given); the int8 kernel with every entry
+    hot must equal the bf16 kernel bitwise.  Library: gather (+ dequant)
+    + SDPA.  Returns ((ok, bf16 row), (ok, int8 row))."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.core import demotable_pages
@@ -1023,9 +1194,11 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams):
     k, v = (torch.randn((P * 128, Hkv, D), generator=g, device="cuda").bfloat16()
             for _ in range(2))
     mask = positional_mask(torch, Sq, cache_slots, 0, None)
-    cold, pt8, is_cold = cold_pages(torch, k, v, pt, len(demotable_pages(layout)))
+    n_cold = len(demotable_pages(layout)) if n_cold is None else n_cold
+    cold, pt8, is_cold = cold_pages(torch, k, v, pt, n_cold)
     rows = []
-    for label, table, grp in (("bf16", pt, None), ("int8", pt8, cold)):
+    name = "flash_prefill_paged" if label is None else f"flash_prefill_paged [{label}]"
+    for case, table, grp in (("bf16", pt, None), ("int8", pt8, cold)):
         def library(mask, table=table, grp=grp):
             kg, vg = paged_gather(k, v, table, 128, grp)
             return F.scaled_dot_product_attention(
@@ -1047,14 +1220,14 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams):
         if grp is not None:
             all_hot = torch.equal(flash_prefill_paged_cuda(q, k, v, pt, cold=grp),
                                   flash_prefill_paged_cuda(q, k, v, pt))
-            note = (f", {len(demotable_pages(layout))} of {n_pages} pages per stream cold, "
+            note = (f", {n_cold} of {n_pages} pages per stream cold, "
                     f"all-hot bitwise equal to bf16 kernel: {all_hot}")
             ok = ok and all_hot
-        log(f"flash_prefill_paged ({label}): q {tuple(q.shape)} bf16, slab {tuple(k.shape)}, "
+        log(f"{name} ({case}): q {tuple(q.shape)} bf16, slab {tuple(k.shape)}, "
             f"{n_pages} shuffled pages per stream{note}: "
             + attention_reading(r, "gather+SDPA" if grp is None else "dequant-gather+SDPA"))
-        name = "flash_prefill_paged" if grp is None else "flash_prefill_paged_int8"
-        rows.append((ok, kernel_row(name, "src/repro/kernels/flash_prefill.py:258", r)))
+        row_name = "flash_prefill_paged" if grp is None else "flash_prefill_paged_int8"
+        rows.append((ok, kernel_row(row_name, "src/repro/kernels/flash_prefill.py:258", r)))
     return rows
 
 
@@ -1079,9 +1252,10 @@ def serve(torch, pipe, videos, on_event=None):
     return sched, [sched.session(s).results for s in sids], wall
 
 
-# (label, mode, KVCfg overrides) of the paths served after codecflow on
-# the paged bf16 slab; "codecflow, bf16, one stream at a time" is the
-# reference of the int8 run's window 0
+# (label, mode, KVCfg overrides and packed_vit) of the paths served after
+# codecflow on the paged bf16 slab; "codecflow, bf16, one stream at a
+# time" is the reference of the int8 run's window 0, and each padded-ViT
+# path's window 0 is held to its packed twin's (PADDED)
 PATHS = (
     ("codecflow, per-stream KV", "codecflow", dict(paged_kv=False)),
     ("codecflow, bf16, one stream at a time", "codecflow", dict(pool_streams=1)),
@@ -1091,7 +1265,10 @@ PATHS = (
     ("refresh_only", "refresh_only", {}),
     ("vlcache", "vlcache", {}),
     ("cacheblend", "cacheblend", {}),
+    ("prune_only, padded ViT", "prune_only", dict(packed_vit=False)),
+    ("codecflow, padded ViT", "codecflow", dict(packed_vit=False)),
 )
+PADDED = {"prune_only, padded ViT": "prune_only", "codecflow, padded ViT": "codecflow"}
 
 
 # the path whose own run gives a kernel's "launches" in the kernels line:
@@ -1109,20 +1286,43 @@ LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
                "flash_prefill_paged_int8": SSM_MAIN}
 
 
-def path_ecfg(mode: str, kv: dict):
-    from repro_torch.serving import EngineCfg, KVCfg
-    return EngineCfg(mode=mode, codec=codec_cfg(), kv=KVCfg(**kv))
+def path_ecfg(mode: str, opts: dict):
+    """The engine config of a path: ``opts`` are KVCfg fields and
+    ``packed_vit``."""
+    from repro_torch.serving import EngineCfg, KVCfg, PruneCfg
+    kv = {k: v for k, v in opts.items() if k != "packed_vit"}
+    return EngineCfg(mode=mode, codec=codec_cfg(), kv=KVCfg(**kv),
+                     prune=PruneCfg(packed_vit=opts.get("packed_vit", True)))
 
 
-def serve_paths(torch, cfg, params, vparams, videos):
+def vit_flop_ratio(torch, pipe, videos):
+    """The reference's gate of the packed ViT (benchmarks/bench_kernels.py
+    :278-281) on window 0's 24 P-frames of ``pipe``'s fleet at keep 0.5:
+    vit_padded_flops / vit_packed_flops of the serve packing.  Returns
+    (ratio, padded FLOPs, packed FLOPs)."""
+    from repro_torch.serving.flops import vit_packed_flops, vit_padded_flops
+    streams = [pipe.frontend.open(f) for f, _ in videos]
+    plan = dict(packings(torch, pipe, streams))["serve"]
+    v, bm = pipe.v, plan.block_map
+    pad = vit_padded_flops(v, plan.n_frames, pipe.layout.k_tokens * v.group ** 2)
+    pack = vit_packed_flops(v, plan.n_slots, bm.visited, bm.tq, bm.tk, plan.k_pack)
+    return pad / pack, pad, pack
+
+
+def serve_paths(torch, cfg, params, vparams, videos, main_run):
     """Phase 4, further paths: each served once with the counts set to 0
-    just before and read just after.  Returns (ok, launches per path,
-    per-stream yes/no logits per path)."""
+    just before and read just after.  A padded-ViT path must launch no
+    flash_packed, its window 0 must agree with its packed twin's (the
+    main run, ``main_run``'s (per-stream yes/no logits, encode s, ViT
+    slots), for codecflow) within the composite tolerance, and the
+    packed path's FLOP ledger must beat it by the reference's gate.
+    Returns (ok, launches per path, per-stream yes/no logits per path)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingPipeline, WindowDone
     by_path: dict = {}
-    window0: dict = {}
+    window0: dict = {MAIN: [res[0] for res in main_run[0]]}
+    encode = {MAIN: main_run[1:]}
     served: dict = {}
     ok = True
     for label, mode, kv in PATHS:
@@ -1162,6 +1362,22 @@ def serve_paths(torch, cfg, params, vparams, videos):
                 and not any(plain_on_cuda.values()))
         window0[label] = [res[0].stats.logits_yes_no for res in per_stream]
         served[label] = [[r.stats.logits_yes_no for r in res] for res in per_stream]
+        slots = sum(r.stats.vit_slots for res in per_stream for r in res)
+        encode[label] = (sched.stage_busy["encode"], slots)
+        if label in PADDED:
+            twin = PADDED[label]
+            ratio, pad, pack = vit_flop_ratio(torch, pipe, videos)
+            diff, tol, ans_ok = logit_agreement(np.array(window0[label]),
+                                                np.array(window0[twin]))
+            no_packed = launches.get("flash_packed", 0) == 0
+            log(f"  padded ViT: encode {encode[label][0]:.4f} s, {slots} ViT slots vs the "
+                f"packed path's ({twin}) {encode[twin][0]:.4f} s, {encode[twin][1]} slots; "
+                f"window 0's 24 P-frames: vit_padded_flops {pad / 1e12:.3f} T / "
+                f"vit_packed_flops {pack / 1e12:.3f} T = {ratio:.3f} (gate >= 1.5); window-0 "
+                f"yes/no logits vs the packed path's: max |d| {diff:.4g} (tol {tol:.3g}), "
+                f"answers agree where the margin exceeds twice it: {ans_ok}; flash_packed "
+                f"launched: {not no_packed}")
+            here = here and ratio >= 1.5 and diff <= tol and ans_ok and no_packed
         if kv.get("stale_page_dtype") == "int8":
             cold = seen.get("cold_after_w1", 0)
             ref = window0["codecflow, bf16, one stream at a time"]
@@ -2034,14 +2250,14 @@ def output_watch(torch, seen: list):
 
 def anomaly_on_card(torch):
     """The anomaly task trained on the card (``train_tiny_vlm`` on
-    benchmarks/common.py's recipe with internvl3-14b-smoke's LM and ViT),
+    benchmarks/common.py's recipe and model: LM and ViT at head dim 24),
     its checkpoint round-tripped, then fullcomp and codecflow (paged
     bf16, lockstep) served on 6 held-out videos with the trained
     weights handed over as trainable leaves, each path's yes/no logits
     held against the same windows through the kernels' plain versions
     (the composite rule).  Returns (ok, launches per path)."""
     import numpy as np
-    from repro_torch.configs import CodecCfg, get_config
+    from repro_torch.configs import CodecCfg, ModelCfg, ViTCfg
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.kernels import ops
     from repro_torch.models.init import (
@@ -2051,10 +2267,8 @@ def anomaly_on_card(torch):
         EngineCfg, KVCfg, ServingPipeline, precision_recall_f1, video_prediction,
     )
     from repro_torch.training import anomaly_task, checkpoint
-    codec = CodecCfg(gop=4, block=16, search_radius=4, window_frames=16, stride_frames=4,
-                     keep_ratio=0.5, mv_threshold=0.25)
-    cfg = get_config(ANOMALY_ARCH)
-    v = cfg.vit
+    codec = CodecCfg(**BENCH_CODEC)
+    cfg, v = ModelCfg(**BENCH_LM), ViTCfg(**BENCH_VIT)
     hist = []
 
     def recorded(loss_fn):
@@ -2073,8 +2287,8 @@ def anomaly_on_card(torch):
     acc = torch.stack([a for _, a in hist]).cpu()
     first, last = float(nll[:20].mean()), float(nll[-20:].mean())
     ok = last < first
-    log(f"anomaly task [{ANOMALY_ARCH}, LM d {cfg.d_model} / {cfg.n_heads} heads, ViT d "
-        f"{v.d_model} / {v.n_heads} heads, {v.image}^2]: {len(hist)} steps x 16 windows in "
+    log(f"anomaly task [{cfg.name}, LM d {cfg.d_model} / {cfg.n_heads} heads (D "
+        f"{cfg.d_head}), ViT d {v.d_model} / {v.n_heads} heads, {v.image}^2]: {len(hist)} steps x 16 windows in "
         f"{t_train:.2f} s (data included); mean NLL of the first 20 steps {first:.4f}, of "
         f"the last 20 {last:.4f} (must fall): {'ok' if ok else 'FAIL'}; mean accuracy of "
         f"the last 20 {float(acc[-20:].mean()):.3f}")
@@ -2119,7 +2333,7 @@ def anomaly_on_card(torch):
                 and all(launches.get(k, 0) > 0 for k in want)
                 and not any(plain.values()) and bool(seen) and not any(seen)
                 and diff <= tol and ans_ok)
-        log(f"  serve [{ANOMALY_ARCH} trained, {mode}]: {n_win} windows in {wall:.3f} s; "
+        log(f"  serve [{cfg.name} trained, {mode}]: {n_win} windows in {wall:.3f} s; "
             f"launches {launches}; plain on CUDA: {plain}; outputs requiring grad "
             f"{sum(seen)} of {len(seen)}; composite vs kernel_mode('plain') over the "
             f"{lk.shape[0]} windows: max |d yes/no logit| {diff:.4g} (tol {tol:.3g}), answers "
@@ -2148,7 +2362,9 @@ def train_phase(torch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     ap.add_argument("--only", default="",
-                    help="comma-separated kernel names: their checks alone (phases 1-3)")
+                    help="comma-separated kernel names: their checks alone (phases 1-3); "
+                         "or 'mha' (phase 3's mha probe) and 'whisper' (phase 8(b)), "
+                         "each alone after phases 1-2")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is driven")
     args = ap.parse_args(argv)
@@ -2159,7 +2375,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ModelCfg, ViTCfg, get_config
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.kernels import cuda, ops
     from repro_torch.launch.serve import build_pipeline, default_vit
@@ -2189,6 +2405,11 @@ def main(argv=None) -> int:
     if spilled:
         log(f"FAIL: attention kernels spill registers: {spilled}")
         return 1
+    probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0]}
+    if only and only <= set(probes):
+        ok = all([probes[name]() for name in sorted(only)])
+        print(smi)
+        return 0 if ok else 1
 
     # -- 3. kernels vs plain versions -----------------------------------
     ops.reset_launch_counts()
@@ -2202,35 +2423,79 @@ def main(argv=None) -> int:
     streams = [pipe.frontend.open(f) for f, _ in videos]
     unpruned = ServingPipeline(cfg, cfg.vit, pipe.params, pipe.vparams,
                                path_ecfg("fullcomp", {}), device="cuda")
+    # head dim 24: benchmarks/common.py's VLM on its own layout (112^2),
+    # and a larger case (H 32, Hkv 8) on internvl3-14b's; the smoke
+    # model's widths (LM D 64 at 4 heads, ViT D 32), which phase 8(d)
+    # held until it took the benchmark VLM
+    bcfg, bvit = ModelCfg(**BENCH_LM), ViTCfg(**BENCH_VIT)
+    bench = ServingPipeline(bcfg, bvit, {}, {}, path_ecfg("codecflow", {}), device="cuda")
+    bench_streams = [bench.frontend.open(f) for f, _ in
+                     anomaly_dataset(2, 24, bvit.image, bvit.image, seed=SEED)]
+    blay, bslots = bench.layout, bench.cache_slots
+    wide = dataclasses.replace(cfg, name="d24-wide", **WIDE_D24)
+    smoke = get_config(SMOKE_ARCH)
+    B24, W24 = "bench VLM, D 24", "D 24, H 32 / Hkv 8"
     stream_cases = (
-        ("fresh prefill", pipe.layout, pipe.cache_slots, "fresh prefill"),
-        ("fresh prefill, unpruned", unpruned.layout, unpruned.cache_slots, "fresh prefill"),
-        ("selective refresh", pipe.layout, pipe.cache_slots, "selective refresh"),
-        ("decode", pipe.layout, pipe.cache_slots, "decode"),
-    )
+        ("fresh prefill", cfg, pipe.layout, pipe.cache_slots, "fresh prefill"),
+        ("fresh prefill, unpruned", cfg, unpruned.layout, unpruned.cache_slots,
+         "fresh prefill"),
+        ("selective refresh", cfg, pipe.layout, pipe.cache_slots, "selective refresh"),
+        ("decode", cfg, pipe.layout, pipe.cache_slots, "decode"),
+    ) + tuple((f"{B24}, {case}", bcfg, blay, bslots, case) for case in REFRESH_CASES) + (
+        (f"{W24}, fresh prefill", wide, pipe.layout, pipe.cache_slots, "fresh prefill"),)
     n = len(videos)
     paged_families, stream_families = family_kernel_cases()
+    paged_families += [(B24, bcfg, blay, bslots), (W24, wide, pipe.layout, pipe.cache_slots),
+                       (f"{SMOKE_ARCH}, D 64", smoke, blay, bslots)]
+
+    def prefill_paged():
+        main = check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)
+        extra = {B24: check_flash_prefill_paged(torch, bcfg, blay, bslots, n, n_cold=1,
+                                                label=B24),
+                 W24: check_flash_prefill_paged(torch, wide, pipe.layout, pipe.cache_slots, n,
+                                                label=W24)}
+        return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
+                for i, m in enumerate(main)]
+
     checks = {   # kernel name -> its check; flash_prefill_paged's covers the int8 row too
         "mv_sad": lambda: [check_mv_sad(torch, videos)],
-        "rope_shift": lambda: [check_rope_shift(torch, cfg, pipe.layout, n)],
+        "rope_shift": lambda: [with_cases(check_rope_shift(torch, cfg, pipe.layout, n), {
+            f"{B24}, bf16": check_rope_shift(torch, bcfg, blay, n, label=f"{B24}, bf16"),
+            f"{B24}, f32": check_rope_shift(torch, bcfg, blay, n, torch.float32,
+                                            label=f"{B24}, f32"),
+            W24: check_rope_shift(torch, wide, pipe.layout, n, label=W24),
+            f"{SMOKE_ARCH}, D 64": check_rope_shift(torch, smoke, blay, n,
+                                                    label=f"{SMOKE_ARCH}, D 64")})],
         "flash_refresh_paged": lambda: [check_flash_refresh_paged(
             torch, cfg, pipe.layout, pipe.cache_slots, n, paged_families)],
-        "flash_packed": lambda: [check_flash_packed(torch, pipe, streams)],
-        "flash_refresh": lambda: [check_flash_refresh(torch, cfg, stream_cases, n,
-                                                      stream_families)],
-        "flash_refresh_paged_int8": lambda: [
-            check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n)],
+        "flash_packed": lambda: [with_cases(check_flash_packed(torch, pipe, streams), {
+            B24: check_flash_packed(torch, bench, bench_streams, label=B24),
+            "D 24, H 16 on internvl3-14b's packings": check_flash_packed(
+                torch, pipe, streams, heads=(16, 24), label="D 24, H 16"),
+            f"{SMOKE_ARCH} ViT, D 32": check_flash_packed(
+                torch, bench, bench_streams, heads=(4, 32), label=f"{SMOKE_ARCH} ViT, D 32")})],
+        "flash_refresh": lambda: [check_flash_refresh(torch, stream_cases, n, stream_families)],
+        "flash_refresh_paged_int8": lambda: [with_cases(
+            check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n), {
+                B24: check_flash_refresh_paged_int8(torch, bcfg, blay, bslots, n, n_cold=1,
+                                                    label=B24),
+                W24: check_flash_refresh_paged_int8(torch, wide, pipe.layout, pipe.cache_slots,
+                                                    n, label=W24)})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
-        "flash_prefill": lambda: [check_flash_prefill(torch, cfg, pipe.layout.total_len, n)],
-        "flash_prefill_paged": lambda: check_flash_prefill_paged(
-            torch, cfg, pipe.layout, pipe.cache_slots, n),
+        "flash_prefill": lambda: [with_cases(
+            check_flash_prefill(torch, cfg, pipe.layout.total_len, n), {
+                lab: check_flash_prefill(torch, c, total, n, only=("causal", "ragged"),
+                                         label=lab)
+                for lab, c, total in ((B24, bcfg, blay.total_len),
+                                      (W24, wide, pipe.layout.total_len))})],
+        "flash_prefill_paged": prefill_paged,
     }
     if only - set(checks):
         log(f"FAIL: --only names no check: {sorted(only - set(checks))}")
         return 1
     results = [r for name, run in checks.items() if not only or name in only for r in run()]
     phase_launches = ops.launch_counts()
-    del streams, unpruned
+    del streams, unpruned, bench, bench_streams
     gc.collect()
     torch.cuda.empty_cache()
     rows = [r for _, r in results]
@@ -2243,6 +2508,9 @@ def main(argv=None) -> int:
         return 0
     if not check_lm_head(torch, cfg, pipe.params):
         log("FAIL: lm_logits does not keep the head product's f32 result")
+        return 1
+    if not mha_probe(torch):
+        log("FAIL: the dense mha")
         return 1
 
     # -- 4. serve -------------------------------------------------------
@@ -2269,13 +2537,16 @@ def main(argv=None) -> int:
         log("FAIL: serve phase")
         return 1
     params, vparams = pipe.params, pipe.vparams
+    main_run = ([[r.stats.logits_yes_no for r in res] for res in per_stream],
+                sched.stage_busy["encode"],
+                sum(r.stats.vit_slots for res in per_stream for r in res))
     del sched, pipe
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 4, further paths: same weights, each path served once -------------
     t0 = time.perf_counter()
-    ok, by_path, served = serve_paths(torch, cfg, params, vparams, videos)
+    ok, by_path, served = serve_paths(torch, cfg, params, vparams, videos, main_run)
     log(f"further paths: {time.perf_counter() - t0:.1f} s")
     if not ok:
         return 1

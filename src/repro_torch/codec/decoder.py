@@ -2,7 +2,8 @@
 
 ``StreamDecoder`` decodes the bitstream once, buffers the reconstructed
 frames on the stream's device and serves every overlapping window from
-that buffer (the paper's decode-once design).
+that buffer (the paper's decode-once design); ``NaiveDecoder`` is the
+baseline that re-decodes the covering prefix per window.
 """
 from __future__ import annotations
 
@@ -64,3 +65,28 @@ class StreamDecoder:
             return 0
         w, s = self.cfg.window_frames, self.cfg.stride_frames
         return max(0, (self._frames.shape[0] - w) // s + 1)
+
+
+class NaiveDecoder:
+    """Baseline: re-decodes the covering prefix for every window (the
+    redundant design the paper's single-pass front end replaces).
+    ``decode_count`` counts decodes per frame."""
+
+    def __init__(self, cfg: CodecCfg):
+        self.cfg = cfg
+        self._bs: Optional[Bitstream] = None
+        self._meta: Optional[CodecMetadata] = None
+        self.decode_count: Optional[np.ndarray] = None
+
+    def ingest(self, bitstream: Bitstream, meta: CodecMetadata) -> None:
+        self._bs = bitstream
+        self._meta = meta
+        self.decode_count = np.zeros(bitstream.frame_types.shape[0], np.int32)
+
+    def window(self, k: int) -> Tuple[torch.Tensor, CodecMetadata]:
+        w, s = self.cfg.window_frames, self.cfg.stride_frames
+        lo, hi = k * s, k * s + w
+        # inter frames decode from the stream head: the whole prefix again
+        frames = decode_stream(self._bs, self.cfg.block)[:hi]
+        self.decode_count[:hi] += 1
+        return frames[lo:hi], self._meta.window(lo, w)

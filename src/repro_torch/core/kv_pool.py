@@ -203,6 +203,26 @@ class KVPool:
         return per
 
 
+def gather_pages(leaf: torch.Tensor, page_table: torch.Tensor,
+                 page: int = PAGE_SIZE) -> torch.Tensor:
+    """Materialise the logical per-stream view of one slab leaf: leaf
+    (..., P_phys, n_kv, d_head) with the physical axis at -3, page_table
+    (B, n_pages) -> (..., B, n_pages * page, n_kv, d_head).  A debug and
+    oracle helper: the kernels index the slab in place."""
+    B, n_pages = page_table.shape
+    rows = page_table.long()[..., None] * page + torch.arange(page, device=page_table.device)
+    ax = leaf.ndim - 3
+    out = leaf.index_select(ax, rows.reshape(-1))
+    return out.reshape(*leaf.shape[:ax], B, n_pages * page, *leaf.shape[ax + 1:])
+
+
+def pool_pages_needed(cache_slots: int, page: int = PAGE_SIZE) -> int:
+    """Pages per stream for an ``AttentionPrefill`` slot allocation."""
+    if cache_slots % page:
+        raise ValueError(f"cache_slots {cache_slots} is not a multiple of the page {page}")
+    return cache_slots // page
+
+
 def demotable_pages(layout: WindowLayout, page: int = PAGE_SIZE) -> np.ndarray:
     """Page indices (within a stream's row) eligible for int8 demotion:
     the pages fully inside the overlap ``[0, overlap_tokens)``.  Every

@@ -6,7 +6,9 @@ types, token offsets, anchor positions and the shift amount are all
 constants of the layout.  The refresh set is the I-frame anchors of the
 overlap plus the new-stride and query tokens (§3.4.1).  The reuse of
 per-stream caches (Eq. 5) lives here too; its paged twin is in
-``kv_pool``.
+``kv_pool``.  ``selective_refresh`` and ``full_prefill`` are the
+reference's per-stream refresh pass and its exact baseline as functions
+(the serving stages compose the same calls in ``serving/api.py``).
 """
 from __future__ import annotations
 
@@ -17,8 +19,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..configs.base import ModelCfg
 from ..kernels import ops
 from ..kernels.flash_refresh import RefreshBlockMap, build_block_map
+from ..kernels.transfer import upload, with_host
+from ..models import layers
+from ..models import transformer as tfm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +162,63 @@ def shift_valid(valid: torch.Tensor, layout: WindowLayout) -> torch.Tensor:
     out = torch.zeros_like(valid)
     out[:, :ov] = valid[:, sh:layout.vis_len]
     return out
+
+
+# ======================================================================
+# KVC refresher (critical-token refresh) and the full recompute
+# ======================================================================
+def selective_refresh(cfg: ModelCfg, params, caches: tfm.Caches,
+                      refresh_embeds: torch.Tensor, refresh_valid: torch.Tensor,
+                      kv_valid: torch.Tensor, layout: WindowLayout, *,
+                      q_chunk: int = 1024, block_map: Optional[RefreshBlockMap] = None):
+    """Recompute the refresh set against the reused per-stream caches.
+
+    caches: ``reuse_caches``' output (overlap KV already corrected), of
+    extent S >= total_len slots (a multiple of 128 on the card), written
+    in place; refresh_embeds (B, n_refresh, d): the anchors' cached
+    visual embeddings (the ViT is not re-run, §3.4.1), the new stride's
+    visual tokens and the query's; refresh_valid (B, n_refresh) bool;
+    kv_valid (B, total_len) bool, the validity after this refresh (slots
+    from total_len on are invalid).  ``block_map`` is the pass's visit
+    list over the S slots (``refresh_block_map`` by default); on the card
+    ``ops.flash_refresh`` runs its kernel through it.
+
+    Returns (last-token logits (B, V) f32, caches, refresh hiddens).
+    """
+    S = tfm.caches_max_len(cfg, caches)
+    if block_map is None:
+        block_map = refresh_block_map(layout, window=cfg.sliding_window, kv_len=S)
+    B, dev = refresh_embeds.shape[0], refresh_embeds.device
+    ridx = layout.refresh_token_idx
+    idx = upload(ridx, dev, torch.long)
+    positions = with_host(idx[None].expand(B, len(ridx)),
+                          np.broadcast_to(ridx[None], (B, len(ridx))))
+    # queries at invalid refresh slots produce garbage; mask their keys
+    kv_full = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    kv_full[:, :kv_valid.shape[1]] = kv_valid
+    kv_full[:, idx] = refresh_valid
+    h = refresh_embeds.to(params["embed"].dtype)
+    h, caches, _ = tfm.run_stack(
+        cfg, params, h, positions, None, caches, cache_offset=None, cache_len=S,
+        scatter_idx=idx, kv_valid=kv_full, q_chunk=q_chunk, block_map=block_map)
+    hn = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return tfm.lm_logits(cfg, params, hn[:, -1]), caches, h
+
+
+def full_prefill(cfg: ModelCfg, params, embeds: torch.Tensor, valid: torch.Tensor,
+                 layout: WindowLayout, caches: Optional[tfm.Caches] = None, *,
+                 q_chunk: int = 1024):
+    """Recompute the whole window from scratch (Full-Comp, the first
+    window) into per-stream caches: by default zeroed ones of total_len
+    slots rounded up to whole 128-row tiles, on embeds' device.
+
+    Returns (last-position logits (B, V) f32, caches, hiddens)."""
+    B, T = embeds.shape[0], layout.total_len
+    if caches is None:     # the kernels take per-stream caches of whole 128-row tiles
+        caches = tfm.init_caches(cfg, B, -(-T // 128) * 128, embeds.dtype,
+                                 device=embeds.device)
+    bm = build_block_map(np.arange(T, dtype=np.int32), tfm.caches_max_len(cfg, caches),
+                         causal=True, window=cfg.sliding_window)
+    return tfm.prefill(
+        cfg, params, torch.zeros((B, T), dtype=torch.long, device=embeds.device), caches,
+        valid=valid, inputs_embeds=embeds, q_chunk=q_chunk, block_map=bm)

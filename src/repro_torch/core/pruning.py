@@ -86,6 +86,34 @@ def select_tokens(dynamic: torch.Tensor, score: torch.Tensor, v: ViTCfg,
     return PruneDecision(idx, valid, patch, pvalid, gd)
 
 
+def full_decision(v: ViTCfg, t: int, device="cuda") -> PruneDecision:
+    """The no-pruning decision (I-frames / Full-Comp baseline) of t
+    frames, on ``device``."""
+    G, gs, g = v.n_groups, v.groups_per_side, v.group
+    idx = torch.arange(G, device=device)[None].expand(t, G)
+    gy, gx = idx // gs, idx % gs
+    py = gy[..., None, None] * g + torch.arange(g, device=device)[:, None]
+    px = gx[..., None, None] * g + torch.arange(g, device=device)[None, :]
+    patch = (py * v.patches_per_side + px).reshape(t, -1)
+    ones = torch.ones((t, G), dtype=torch.bool, device=device)
+    return PruneDecision(idx, ones, patch, torch.ones_like(patch, dtype=torch.bool), ones)
+
+
+def pruning_stats(dec: PruneDecision) -> dict:
+    """Token-reduction accounting (paper Fig. 13/14), from one
+    device-to-host copy of the decision's two group fields."""
+    gv, gd = dec.group_valid, dec.group_dynamic
+    both = torch.cat([gv.reshape(-1), gd.reshape(-1)]).cpu().numpy()
+    kept = int(both[:gv.numel()].sum())
+    total = gd.shape[0] * gd.shape[1]
+    return {
+        "kept_tokens": kept,
+        "total_tokens": int(total),
+        "pruned_frac": float(1.0 - kept / total),
+        "dynamic_frac": float(both[gv.numel():].mean()),
+    }
+
+
 # ======================================================================
 # Cross-frame patch packing (packed variable-capacity ViT encode)
 # ======================================================================

@@ -66,7 +66,10 @@
 // 64-bit word (its key range AND, under KEY_BITS, a ballot of the keys'
 // live bits), masked scores become -inf, and exp is one FFMA and ex2.
 // Query rows from Sq on (a ragged end) are neither read nor written, and a
-// warp whose rows are all padding skips the products.  Steps are 64 keys:
+// warp whose rows are all padding skips the products.  Head dims 24, 32,
+// 64 and 128: at D 24 Q K^T runs two k16 steps over rows zero-padded to
+// 32 columns in shared memory, P V three n8 tiles (the third through an
+// x2 ldmatrix), and an int8 cold row (24 bytes) arrives in 8-byte copies.  Steps are 64 keys:
 // at D 128 the 64 f32 accumulators of O, 32 registers of query fragments
 // and 32 f32 scores per thread (216 registers in all) leave no room for
 // 128-key steps.  Compile-time hooks whose refresh values keep the refresh
@@ -119,11 +122,16 @@ struct Slot {
 };
 
 // Where row r, columns [c8, c8 + 8) of a ring slot's K or V live (in
-// elements): ldmatrix reads rows padded by 16 bytes, so that eight rows
-// fall on distinct banks.
+// elements).  A row holds DK columns, D rounded up to Q K^T's k16 step (D
+// 24: 32; K's columns from D on are zeros, written once per block), and is
+// padded by 16 bytes: ldmatrix reads eight 16-byte rows at once, and a
+// pitch of an odd number of 16-byte units (5 at D 24 and 32, 9, 17) puts
+// them on distinct banks.
 template <int D>
 struct PaddedRows {
-  static constexpr int LDH = D + 8;
+  static constexpr int DK = (D + 15) / 16 * 16;
+  static_assert(DK == D || DK == D + 8, "D is a multiple of 8");
+  static constexpr int LDH = DK + 8;
   static constexpr int ELEMS = MMA_BK * LDH;
   __device__ static int at(int r, int c8) { return r * LDH + c8; }
 };
@@ -152,15 +160,23 @@ struct ColdPages {
   const float* v_scale;
   int n_hot;
 
-  // rows [c0, c0 + MMA_BK) of cold entry `entry` -> the slot's staging bytes
+  // rows [c0, c0 + MMA_BK) of cold entry `entry` -> the slot's staging
+  // bytes, in 16-byte copies (8-byte ones where a row is not a multiple of
+  // 16 bytes: D 24)
   template <int D>
   __device__ void fetch(const Slot& st, int entry, int c0, int Hkv, int kvh, int tid) const {
+    constexpr int CH = D % 16 == 0 ? 16 : 8;
     const long long row0 = (long long)(entry - n_hot) * TILE + c0;
-    for (int i = tid; i < MMA_BK * D / 16; i += MMA_THREADS) {
-      const int r = i / (D / 16), c16 = (i % (D / 16)) * 16;
-      const long long off = ((row0 + r) * Hkv + kvh) * D + c16;
-      cp_async16(st.K8 + r * D + c16, k8 + off);
-      cp_async16(st.V8 + r * D + c16, v8 + off);
+    for (int i = tid; i < MMA_BK * D / CH; i += MMA_THREADS) {
+      const int r = i / (D / CH), c = (i % (D / CH)) * CH;
+      const long long off = ((row0 + r) * Hkv + kvh) * D + c;
+      if constexpr (CH == 16) {
+        cp_async16(st.K8 + r * D + c, k8 + off);
+        cp_async16(st.V8 + r * D + c, v8 + off);
+      } else {
+        cp_async8(st.K8 + r * D + c, k8 + off);
+        cp_async8(st.V8 + r * D + c, v8 + off);
+      }
     }
   }
   // after the slot's copies landed (block-uniform): dequantise a cold
@@ -385,7 +401,7 @@ __device__ __forceinline__ uint64_t span_bits(int2 r) {
 
 template <int D, class P>
 struct MmaSmem {
-  static constexpr int LDQ = D + 8;      // padded query rows (ldmatrix)
+  static constexpr int LDQ = PaddedRows<D>::LDH;   // padded query rows (ldmatrix)
   static constexpr int STAGES = 3;
   static constexpr size_t slot_kv = sizeof(bf16) * PaddedRows<D>::ELEMS;
   static constexpr size_t slot_ki = P::KEY_BITS ? MMA_BK : 0;   // kv_valid bytes
@@ -408,8 +424,9 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LDQ = L::LDQ, STAGES = L::STAGES;
   constexpr int SPT = TILE / MMA_BK;     // steps per visited tile
   constexpr int NT = MMA_BK / 8;         // n8 tiles of S per step
-  constexpr int DT = D / 8;              // n8 tiles of O
-  constexpr int KC = D / 16;             // k16 chunks of Q K^T
+  constexpr int DK = PaddedRows<D>::DK;  // Q K^T's depth: D, or D 24 zero-padded to 32
+  constexpr int DT = D / 8;              // n8 tiles of O (odd at D 24)
+  constexpr int KC = DK / 16;            // k16 chunks of Q K^T
   constexpr int KI_COPIES = MMA_BK / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
@@ -460,6 +477,14 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     cp_async_commit();
   };
+  // K's columns [D, DK), which Q K^T's last k16 step reads against Q's
+  // zeros, are zeros too: the copies never write them (garbage there could
+  // be a NaN, and 0 x NaN would reach a score)
+  if constexpr (DK > D) {
+    for (int i = tid; i < STAGES * MMA_BK; i += MMA_THREADS)
+      *reinterpret_cast<uint4*>(slot(i / MMA_BK).K + PaddedRows<D>::at(i % MMA_BK, D)) =
+          make_uint4(0, 0, 0, 0);
+  }
   #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) fetch(s);
 
@@ -480,11 +505,11 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // Q, times qscale in f32 and rounded to bf16, while the first tiles are
-  // in flight; then each warp's fragments
-  for (int i = tid; i < TILE * D / 8; i += MMA_THREADS) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+  // in flight (columns [D, DK) zeros); then each warp's fragments
+  for (int i = tid; i < TILE * DK / 8; i += MMA_THREADS) {
+    const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r < n_rows) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
+    if (r < n_rows && c8 < D) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
     const bf16* e = reinterpret_cast<const bf16*>(&raw);
     __align__(16) bf16 sc[8];
     #pragma unroll
@@ -626,6 +651,13 @@ mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma16816(o + 8 * dp + 4, pl, vb[2], vb[3]);
         }
       }
+      if constexpr (DT % 2 == 1) {   // D 24: the last n8 tile of O alone
+        uint32_t vb[2];
+        ldsm_x2_t(vb, st.V + PaddedRows<D>::at(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                               (DT - 1) * 8));
+        mma16816(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
+        if constexpr (P::EXACT) mma16816(o + 4 * (DT - 1), pl, vb[0], vb[1]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -665,6 +697,7 @@ template <class P>
 int launch_mma_d(int D, const void* q, const void* k, const void* v, void* out, int B,
                  int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream) {
   switch (D) {
+    case 24: return launch_mma<24>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
     case 32: return launch_mma<32>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
     case 64: return launch_mma<64>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);
     case 128: return launch_mma<128>(q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);

@@ -31,6 +31,10 @@ __device__ __forceinline__ void cp_async16_fill(void* dst, const void* src, int 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
+// an 8-byte copy (int8 rows of 24 bytes: D 24)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -44,6 +48,10 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
 }
 // c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
 __device__ __forceinline__ void mma16816(float* c, const uint32_t (&a)[4], uint32_t b0,

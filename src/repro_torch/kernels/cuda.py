@@ -71,6 +71,9 @@ _SIGNATURES = {
     ),
 }
 
+# head dims of the attention kernels (csrc/attention.cu's launch switch)
+HEAD_DIMS = (24, 32, 64, 128)
+
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOG: Dict[str, str] = {}
 _LAUNCHES: Counter = Counter()

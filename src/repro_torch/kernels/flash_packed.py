@@ -209,7 +209,7 @@ def flash_packed_cuda(q, k, v, block_map: PackBlockMap):
     bm = block_map
     cuda.require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
                  and v.dtype == torch.bfloat16, NAME, "q/k/v must be bf16")
-    cuda.require(D in (32, 64, 128), NAME, f"head dim {D}")
+    cuda.require(D in cuda.HEAD_DIMS, NAME, f"head dim {D}")
     cuda.require(bm.tq == TILE and bm.tk == TILE and L % TILE == 0, NAME,
                  "tiles must be 128 and L a multiple of 128")
     cuda.require(tuple(bm.seg_id.shape) == (R, L), NAME, "map built for another geometry")

@@ -71,7 +71,7 @@ def flash_prefill_paged_plain(q, k, v, page_table, *, page: int = 128,
 def _check(name: str, q, k, v) -> None:
     cuda.require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
                  and v.dtype == torch.bfloat16, name, "q/k/v must be bf16")
-    cuda.require(q.shape[3] == k.shape[-1] and q.shape[3] in (32, 64, 128), name,
+    cuda.require(q.shape[3] == k.shape[-1] and q.shape[3] in cuda.HEAD_DIMS, name,
                  f"head dim {q.shape[3]}")
     cuda.require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(), name,
                  "q/k/v must be contiguous")

@@ -35,7 +35,7 @@ registers around an f32 online softmax with the masked multiply.  Query
 rows past Sq are neither read nor written, so the query is not padded.
 
 Operands the kernels take (the wrappers raise on anything else): bf16
-q/k/v with head dim 32, 64 or 128; 128-row map tiles and pages; q, k,
+q/k/v with head dim 24, 32, 64 or 128; 128-row map tiles and pages; q, k,
 v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
 is copied once where it is not).
 
@@ -229,7 +229,7 @@ def flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, page_table, *,
 
 def _check_map(name: str, q, D: int, Dk: int, bm: RefreshBlockMap, causal, window,
                kv_len: int) -> None:
-    cuda.require(D == Dk and D in (32, 64, 128), name, f"head dim {D}")
+    cuda.require(D == Dk and D in cuda.HEAD_DIMS, name, f"head dim {D}")
     cuda.require(bm.tq == TILE and bm.tk == TILE, name, "map tiles must be 128")
     cuda.require(bm.n_q == q.shape[1], name, f"map built for {bm.n_q} queries, got {q.shape[1]}")
     cuda.require(bm.causal == causal and bm.window == window, name,

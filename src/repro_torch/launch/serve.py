@@ -22,6 +22,12 @@ unless ``--ckpt`` names an npz written by the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --streams 2 --videos 2 --frames 24 --keep-ratio 1.0 --stale-dtype int8
 
+``--padded-vit`` encodes P-frames on the padded path
+(``PruneCfg(packed_vit=False)``), the packed path's A/B baseline:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode prune_only --padded-vit --streams 2 --videos 2 --frames 24
+
 ``--arch`` takes every config of ``configs/registry.py`` but whisper
 (not ported), and its ``-smoke`` variant.  The MoE family (olmoe-1b-7b,
 moonshot-v1-16b-a3b, arctic-480b) serves like the dense one; the SSM
@@ -52,7 +58,7 @@ from ..configs import CodecCfg, ViTCfg, get_config
 from ..data.pipeline import anomaly_dataset
 from ..models.init import init_lm_params, init_vit_params, load_npz_params
 from ..serving import (
-    MODES, Engine, EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
+    MODES, Engine, EngineCfg, KVCfg, PruneCfg, Scheduler, SchedulerCfg, ServingPipeline,
     StreamRequest, StreamThrottled, WindowDone, precision_recall_f1,
     resolve_device, video_prediction,
 )
@@ -67,7 +73,8 @@ def default_vit(cfg) -> ViTCfg:
 
 def build_pipeline(arch: str, mode: str, codec: CodecCfg,
                    ckpt: str | None = None, seed: int = 0,
-                   stale_dtype: str = "bf16", device="cuda") -> ServingPipeline:
+                   stale_dtype: str = "bf16", device="cuda",
+                   packed_vit: bool = True) -> ServingPipeline:
     """The serving pipeline of ``arch`` with random weights made on
     ``device`` from ``seed`` (LM) and ``seed + 1`` (ViT)."""
     dev = resolve_device(device)
@@ -78,7 +85,8 @@ def build_pipeline(arch: str, mode: str, codec: CodecCfg,
     vparams = init_vit_params(v, cfg.d_model, seed + 1, dev)
     return ServingPipeline(
         cfg, v, params, vparams,
-        EngineCfg(mode=mode, codec=codec, kv=KVCfg(stale_page_dtype=stale_dtype)),
+        EngineCfg(mode=mode, codec=codec, kv=KVCfg(stale_page_dtype=stale_dtype),
+                  prune=PruneCfg(packed_vit=packed_vit)),
         device=dev)
 
 
@@ -113,6 +121,9 @@ def main(argv=None) -> None:
     ap.add_argument("--stale-dtype", default="bf16", choices=("bf16", "int8"),
                     help="storage dtype for stale (non-refreshed) KV pages; "
                          "int8 demotes them to the cold slab")
+    ap.add_argument("--padded-vit", action="store_true",
+                    help="encode P-frames at their static capacity (the packed "
+                         "ViT's A/B baseline) instead of packed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -123,7 +134,7 @@ def main(argv=None) -> None:
     )
     pipeline = build_pipeline(args.arch, args.mode, codec, args.ckpt,
                               seed=args.seed, stale_dtype=args.stale_dtype,
-                              device=args.device)
+                              device=args.device, packed_vit=not args.padded_vit)
     videos = list(anomaly_dataset(args.videos, args.frames, args.hw, args.hw))
 
     sched = Scheduler(pipeline, SchedulerCfg(

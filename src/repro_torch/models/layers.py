@@ -106,6 +106,33 @@ def _qkv(p, cfg: ModelCfg, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+class _F32BatchProduct(torch.autograd.Function):
+    """a @ b over a batch of bf16 matrices with the f32 result of one
+    tensor-core GEMM (``bmm`` with ``out_dtype``), the dense ``mha``'s
+    products on the card.  The backward's two products are such GEMMs
+    too, on the incoming gradient rounded to the operands' dtype (exact
+    for P V, whose output is rounded to bf16 after the product; the
+    scores' gradient loses bits below bf16's), so neither direction
+    makes an f32 copy of an operand."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = _bmm_f32(g, b.transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = _bmm_f32(a.transpose(1, 2), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(a, b) if a.dtype == F32 else torch.bmm(a, b, out_dtype=F32)
+
+
 def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
         window: Optional[int] = None, q_chunk: int = 1024) -> torch.Tensor:
     """Dense masked GQA attention, chunked over queries (plain PyTorch;
@@ -113,17 +140,32 @@ def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
 
     q (B, Sq, H, dh); k, v (B, Sk, K, dh); qpos (B, Sq); kpos (B, Sk);
     kvalid (B, Sk) bool or None.
+
+    Both products keep bf16 operands and an f32 result, as the reference
+    does: on the card as batched tensor-core GEMMs (``_F32BatchProduct``)
+    over one bf16 copy of K and V in (B * K, Sk, dh) order; on the CPU,
+    which has no such GEMM, as f32 einsums of the widened operands (bf16
+    products are exact in f32, so both give the same value).
     """
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     g = H // K
     scale = dh ** -0.5
-    kf, vf = k.to(F32), v.to(F32)
+    gemm = q.device.type == "cuda"
+    if gemm:
+        kt = k.transpose(1, 2).reshape(B * K, Sk, dh).transpose(1, 2)
+        vt = v.transpose(1, 2).reshape(B * K, Sk, dh)
+    else:
+        kf, vf = k.to(F32), v.to(F32)
 
     def block(qc, qpc):
         Tq = qc.shape[1]
         qq = (qc.to(F32) * scale).to(k.dtype).reshape(B, Tq, K, g, dh)
-        logits = torch.einsum("btkgd,bskd->bkgts", qq.to(F32), kf)
+        if gemm:
+            a = qq.permute(0, 2, 3, 1, 4).reshape(B * K, g * Tq, dh)
+            logits = _F32BatchProduct.apply(a, kt).view(B, K, g, Tq, Sk)
+        else:
+            logits = torch.einsum("btkgd,bskd->bkgts", qq.to(F32), kf)
         m = torch.ones((B, Tq, Sk), dtype=torch.bool, device=q.device)
         if causal:
             m &= kpos[:, None, :] <= qpc[:, :, None]
@@ -132,7 +174,13 @@ def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
         if kvalid is not None:
             m &= kvalid[:, None, :]
         logits = logits.masked_fill(~m[:, None, None], NEG_INF)
-        p = torch.softmax(logits, dim=-1).to(v.dtype)
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        p = p.to(v.dtype)
+        if gemm:
+            out = _F32BatchProduct.apply(p.view(B * K, g * Tq, Sk), vt)
+            out = out.view(B, K, g, Tq, dh).permute(0, 3, 1, 2, 4).to(q.dtype)
+            return out.reshape(B, Tq, H, dh)
         out = torch.einsum("bkgts,bskd->btkgd", p.to(F32), vf)
         return out.reshape(B, Tq, H, dh).to(q.dtype)
 

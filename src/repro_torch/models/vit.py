@@ -1,8 +1,11 @@
-"""ViT encoder + pixel-unshuffle projector: full (I-frame) and packed
-pruned (P-frame) paths.
+"""ViT encoder + pixel-unshuffle projector: full (I-frame), padded
+pruned and packed pruned (P-frame) paths.
 
 ``encode_full`` runs every patch through dense attention (plain
 PyTorch, as the JAX package runs it outside Pallas).
+``encode_pruned_tokens`` (the padded A/B baseline of the packed path)
+encodes each frame's static-capacity selection, padding lanes masked
+out of the keys, through the same dense attention.
 ``encode_packed_tokens`` runs only the kept patch groups of many frames,
 laid out by ``core.pruning.pack_plan`` in shared ``(rows, L_pack)``
 buffers, with block-diagonal attention per frame (``ops.flash_packed``),
@@ -39,13 +42,14 @@ def _vit_block(lp, v: ViTCfg, h: torch.Tensor, eps: float, attend) -> torch.Tens
     return h + layers.mlp_block(lp["ffn"], hn)
 
 
-def _encoder(params, v: ViTCfg, h: torch.Tensor, eps: float) -> torch.Tensor:
-    """Dense bidirectional encoder over (B, T, d) (no RoPE in the ViT)."""
+def _encoder(params, v: ViTCfg, h: torch.Tensor, valid, eps: float) -> torch.Tensor:
+    """Dense bidirectional encoder over (B, T, d) (no RoPE in the ViT);
+    ``valid`` (B, T) bool or None masks padding lanes out of the keys."""
     B, T, _ = h.shape
     pos = torch.zeros((B, T), dtype=torch.int32, device=h.device)
 
     def attend(q, k, vv):
-        return layers.mha(q, k, vv, pos, pos, None, causal=False)
+        return layers.mha(q, k, vv, pos, pos, valid, causal=False)
 
     for lp in unstack(params["blocks"]):
         h = _vit_block(lp, v, h, eps, attend)
@@ -66,8 +70,31 @@ def encode_full(params, v: ViTCfg, frames: torch.Tensor, eps: float = 1e-5) -> t
     """Unpruned path: (B, H, W) -> (B, n_groups, d_lm) visual tokens."""
     x = patchify(frames, v).to(params["patch_embed"].dtype)
     h = x @ params["patch_embed"] + params["pos_embed"][None]
-    h = _encoder(params, v, h, eps)
+    h = _encoder(params, v, h, None, eps)
     return project(params, v, h)
+
+
+def encode_pruned(params, v: ViTCfg, frames: torch.Tensor, sel_idx: torch.Tensor,
+                  sel_valid: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Pruned path at static capacity (paper §3.3.2): frames (B, H, W),
+    sel_idx (B, K_sel) patch indices (group-complete; padding lanes repeat
+    index 0), sel_valid (B, K_sel) bool -> (B, n_patches, d_vit) encoded
+    patches on the full grid, zeros at pruned positions."""
+    B = frames.shape[0]
+    x = patchify(frames, v).to(params["patch_embed"].dtype)
+    emb = x @ params["patch_embed"] + params["pos_embed"][None]     # (B, P, d)
+    idx = sel_idx.long()[..., None].expand(-1, -1, emb.shape[-1])
+    h = _encoder(params, v, torch.gather(emb, 1, idx), sel_valid, eps)
+    h = torch.where(sel_valid[..., None], h, torch.zeros((), dtype=h.dtype, device=h.device))
+    full = torch.zeros((B, v.n_patches, v.d_model), dtype=h.dtype, device=h.device)
+    # padding lanes all land on index 0 and add zero
+    return full.scatter_add(1, idx, h)
+
+
+def encode_pruned_tokens(params, v: ViTCfg, frames: torch.Tensor, sel_idx: torch.Tensor,
+                         sel_valid: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Pruned ViT -> projected visual tokens (B, n_groups, d_lm)."""
+    return project(params, v, encode_pruned(params, v, frames, sel_idx, sel_valid, eps))
 
 
 def _encoder_packed(params, v: ViTCfg, h: torch.Tensor, seg_id: torch.Tensor,

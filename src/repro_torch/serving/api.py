@@ -193,17 +193,20 @@ class VisualEncoder:
     """Full/pruned ViT encode of window frames, batched across streams:
     all fully encoded frames of all streams (the I-frames, or every frame
     when ``prune`` is off) in one call, all pruned P-frames packed into
-    shared variable-capacity buffers in one call."""
+    shared variable-capacity buffers in one call.  ``packed=False`` keeps
+    the padded path instead (each P-frame at its static capacity, the
+    packed path's A/B baseline)."""
 
     PACK_TILE = 128
 
     def __init__(self, v: ViTCfg, vparams, codec: CodecCfg,
-                 layout: WindowLayout, prune: bool = True):
+                 layout: WindowLayout, prune: bool = True, packed: bool = True):
         self.v = v
         self.vparams = vparams
         self.codec = codec
         self.layout = layout
         self.prune = prune
+        self.packed = packed and prune
         self._index: Dict[tuple, torch.Tensor] = {}
 
     def _split_range(self, frame_range: range) -> Tuple[List[int], List[int]]:
@@ -256,6 +259,23 @@ class VisualEncoder:
         )
         return toks.reshape(plan.n_frames, kg, -1), plan.n_slots
 
+    def _encode_padded(self, pframes: torch.Tensor, dec: HostDecision) -> torch.Tensor:
+        """Padded pruned encode of a flat (B, H, W) P-frame batch: every
+        frame runs its k_tokens selected groups' lanes, invalid ones
+        masked out of the keys.  Returns (B, k_tokens, d_lm) tokens, the
+        selected groups' in rank order (an invalid group's are zeros)."""
+        v, dev = self.v, pframes.device
+        g2 = v.group ** 2
+        pvalid = np.repeat(dec.group_valid, g2, axis=1)
+        full = vitm.encode_pruned_tokens(self.vparams, v, pframes,
+                                         upload(dec.patch_idx, dev, torch.long),
+                                         upload(pvalid, dev))          # (B, G, d)
+        first = dec.patch_idx[:, ::g2]             # each group's top-left patch
+        pp = v.patches_per_side
+        gidx = (first // pp // v.group) * v.groups_per_side + (first % pp) // v.group
+        gidx = upload(gidx, dev, torch.long)[..., None].expand(-1, -1, full.shape[-1])
+        return torch.gather(full, 1, gidx)
+
     def encode(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],
                frame_range: range, decisions: Optional[Sequence[HostDecision]] = None):
         """Encode frames [range) of every stream's window; ``decisions``
@@ -292,8 +312,12 @@ class VisualEncoder:
             gv = np.concatenate([d.group_valid for d in decisions])   # (S * Np, Kg)
             pi = np.concatenate([d.patch_idx for d in decisions])
             pframes = self._frames(frames, p_idx).reshape((S * Np,) + frames.shape[2:])
-            toks, n_slots = self._encode_packed(pframes, HostDecision(gv, pi))
-            slots += -(-n_slots // S)    # shared buffer: attribute evenly
+            if self.packed:
+                toks, n_slots = self._encode_packed(pframes, HostDecision(gv, pi))
+                slots += -(-n_slots // S)    # shared buffer: attribute evenly
+            else:
+                toks = self._encode_padded(pframes, HostDecision(gv, pi))
+                slots += Np * pi.shape[1]    # the padded capacity
             toks = toks.reshape((S, Np) + toks.shape[1:])
             gval = upload(gv.reshape(S, Np, -1), dev)
             patches += gv.reshape(S, -1).sum(axis=1) * v.group ** 2
@@ -802,6 +826,22 @@ class GreedyDecoder:
             f_decode += flopcount.decode_flops(self.cfg, flops_len(i))
         return DecodePending(answers, yes_no, f_decode)
 
+    def decode(self, logits: torch.Tensor, caches, start_pos: int, flops_len,
+               page_table: Optional[torch.Tensor] = None,
+               cache_len: Optional[int] = None):
+        """Synchronous twin of ``start``: the same dispatch, then the
+        answers fetched in one device-to-host copy.  ``cache_len``
+        defaults to the per-stream caches' extent; the paged slab needs
+        it.  Returns (answers (S,) int64, yes_no (S, 2) f64, caches (the
+        same, written in place), flops_decode)."""
+        if cache_len is None:
+            if page_table is not None:
+                raise ValueError("paged decode needs cache_len")
+            cache_len = tfm.caches_max_len(self.cfg, caches)
+        pend = self.start(logits, caches, start_pos, flops_len, page_table, cache_len)
+        host = torch.cat([pend.yes_no.double(), pend.answers.double()[:, None]], 1).cpu().numpy()
+        return host[:, 2].astype(np.int64), host[:, :2], caches, pend.flops_decode
+
 
 # ======================================================================
 # Pipeline: stage composition
@@ -887,8 +927,6 @@ class ServingPipeline:
             raise ValueError("vit_cfg does not match the model's ViT")
         if ecfg.mode not in MODES:
             raise ValueError(f"mode {ecfg.mode!r} is not one of {MODES}")
-        if not ecfg.prune.packed_vit:
-            raise NotImplementedError("the padded ViT (packed_vit=False) is not ported")
         self.device = resolve_device(device)
         params_lm, params_vit = detached(params_lm), detached(params_vit)
         self.cfg = cfg
@@ -905,7 +943,8 @@ class ServingPipeline:
             g_tokens=vit_cfg.n_groups, k_tokens=kg, query_len=len(QUERY_IDS),
         )
         self.frontend = CodecFrontend(c, self.device)
-        self.encoder = VisualEncoder(vit_cfg, params_vit, c, self.layout, self.prune)
+        self.encoder = VisualEncoder(vit_cfg, params_vit, c, self.layout, self.prune,
+                                     packed=ecfg.prune.packed_vit)
         self.is_streaming_family = cfg.family in ("ssm", "hybrid")
         backend = RecurrentPrefill if self.is_streaming_family else AttentionPrefill
         self.backend = backend(cfg, params_lm, self.layout, ecfg, self.device)
@@ -918,11 +957,11 @@ class ServingPipeline:
     @property
     def kernels(self) -> frozenset:
         """The kernels (``ops.KERNELS`` names) serving launches: motion
-        search always, the packed ViT when pruning, and either the SSD
+        search always, the packed ViT when pruning on it, and either the SSD
         scan (SSM and hybrid families, the latter with the per-stream
         attention kernel) or RoPE shift when reusing and the attention
         kernel of the KV layout."""
-        prune = {"flash_packed"} if self.prune else set()
+        prune = {"flash_packed"} if self.encoder.packed else set()
         if self.is_streaming_family:
             attn = {"flash_refresh"} if self.backend.has_attention else set()
             return frozenset({"mv_sad", "ssd_scan"} | attn | prune)

@@ -133,7 +133,7 @@ def test_rope_shift_kernel_matches_plain(dev, dtype):
         assert d.max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("d_h", [64, 128])
+@pytest.mark.parametrize("d_h", [24, 64, 128])
 @pytest.mark.parametrize("n_kv", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_shift_kernel_at_head_widths(dev, d_h, n_kv, dtype):
@@ -158,7 +158,7 @@ def test_rope_shift_kernel_at_head_widths(dev, d_h, n_kv, dtype):
 def test_rope_shift_operands_the_kernel_does_not_take_raise(dev):
     delta = torch.zeros(1, 4, dtype=torch.int32, device=dev)
     with pytest.raises(KernelError, match="head dim"):
-        rope_shift_cuda(torch.zeros(1, 4, 2, 24, device=dev, dtype=torch.bfloat16), delta)
+        rope_shift_cuda(torch.zeros(1, 4, 2, 20, device=dev, dtype=torch.bfloat16), delta)
     with pytest.raises(KernelError, match="head dim"):
         rope_shift_cuda(torch.zeros(1, 4, 2, 12, device=dev), delta)
     with pytest.raises(KernelError, match="aligned"):
@@ -176,7 +176,8 @@ SCATTER_PATTERNS = {
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
                                             (32, 4, 1, 48),
-                                            (128, 16, 16, None)])   # olmoe-1b-7b's heads
+                                            (128, 16, 16, None),    # olmoe-1b-7b's heads
+                                            (24, 4, 2, None)])      # the JAX benchmarks' VLM
 def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
     rng = np.random.default_rng(11)
@@ -201,7 +202,8 @@ def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, windo
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
                                             (32, 4, 1, 48),
-                                            (128, 32, 8, None)])    # jamba-v0.1-52b's heads
+                                            (128, 32, 8, None),     # jamba-v0.1-52b's heads
+                                            (24, 4, 2, 48)])        # the JAX benchmarks' VLM
 def test_flash_refresh_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     """Per-stream caches (B, Sk, Hkv, D), no page table."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -235,7 +237,7 @@ def _quant_slab(rng, n_hot, n_cold, hkv, d):
 
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
-@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (32, 4, 1)])
+@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (32, 4, 1), (24, 4, 2)])
 def test_flash_refresh_paged_int8_kernel_matches_plain(dev, pattern, d, h, hkv):
     """A page table that mixes hot and cold entries (ids >= n_hot)."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -387,7 +389,7 @@ def _packed_inputs(layout, h, hkv, d, seed=1):
 
 
 @pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [24, 32, 64, 128])
 def test_flash_packed_kernel_matches_plain(dev, layout, d):
     q, k, v, seg = _packed_inputs(layout, 16, 16, d)
     bm = build_pack_map(seg.numpy())
@@ -505,6 +507,9 @@ PREFILL = {
     "gqa-5to1-five-tiles": (640, 640, 10, 2, 128, True, None, 0),
     "window-edge-mid-step": (512, 600, 8, 2, 128, True, 160, 88),
     "dead-suffix-mixed": (256, 300, 4, 2, 128, False, 64, 200),
+    # head dim 24 (the JAX benchmarks' VLM): causal, and ragged with a window
+    "d24-causal": (384, 384, 4, 2, 24, True, None, 0),
+    "d24-ragged": (200, 300, 4, 2, 24, True, 150, 50),
 }
 
 
@@ -546,6 +551,8 @@ PREFILL_PAGED = {
     "int8-offset": (128, 4, 4, 2, 64, None, 384, INT8_COLD),
     # the last query tile's diagonal page cold in both streams
     "int8-cold-diagonal": (384, 3, 10, 2, 128, None, 0, ((0, 2), (1, 2), (0, 1))),
+    "d24": (384, 3, 4, 2, 24, None, 0, ()),
+    "d24-int8": (384, 3, 4, 2, 24, None, 0, INT8_COLD),
 }
 
 
@@ -1013,3 +1020,59 @@ def test_f32_head_product_differentiates_on_card(dev):
     assert ((yk - yc).abs() / scale).max().item() <= 2.0 ** -14
     for a, b in ((gxc, gxk), (gwc, gwk)):
         assert (a - b).abs().max().item() <= 2.0 ** -7 * a.abs().max().item()
+
+
+def _widened_mha(q, k, v, qpos, kpos, kvalid, window):
+    """The dense mha's formula with K, V and P widened to f32 (its CPU
+    path), on whatever device the operands are."""
+    B, Sq, H, dh = q.shape
+    K = k.shape[2]
+    qq = (q.float() * dh ** -0.5).bfloat16().reshape(B, Sq, K, H // K, dh)
+    logits = torch.einsum("btkgd,bskd->bkgts", qq.float(), k.float())
+    m = ((kpos[:, None, :] <= qpos[:, :, None]) & (kpos[:, None, :] > qpos[:, :, None] - window)
+         & kvalid[:, None, :])
+    p = torch.softmax(logits.masked_fill(~m[:, None, None], -1e30), dim=-1).bfloat16()
+    return torch.einsum("bkgts,bskd->btkgd", p.float(), v.float()).reshape(B, Sq, H, dh)
+
+
+@pytest.mark.parametrize("shape", [(2, 160, 300, 4, 2, 24), (3, 70, 70, 8, 8, 64)])
+def test_dense_mha_takes_bf16_products_on_card(dev, shape):
+    """``layers.mha``'s card path (bf16 batched GEMMs with f32 outputs,
+    ``_F32BatchProduct``) against the widened formula on the card.  The
+    forward, with an f32 query so that the output is not rounded, within
+    2^-14 of each row's largest value.  Operands lie on a grid of 2^-3 so
+    that every logit is exact in f32 whatever the summation order: both
+    softmaxes then see equal scores and round P alike (a last-bit
+    difference in a score can flip P's bf16 rounding, a step of the
+    formula both versions share, which moves a row by up to 2^-8 p |v|).
+    The gradients, on normal operands, against CPU autograd within the
+    training parity tests' gradient limit, 2^-5 of each operand's largest
+    gradient (``STEP_LIMITS["grad"]`` of ``tests/torch_train_parity.py``;
+    the card rounds the scores' gradient to bf16)."""
+    from repro_torch.models.layers import mha
+    B, Sq, Sk, H, K, dh = shape
+    g = torch.Generator().manual_seed(41)
+    qpos = torch.arange(Sq)[None].repeat(B, 1) + Sk - Sq
+    kpos = torch.arange(Sk)[None].repeat(B, 1)
+    kvalid = torch.rand(B, Sk, generator=g) > 0.1
+    grid = [torch.randint(-8, 9, (B, n, h, dh), generator=g).float() / 8
+            for n, h in ((Sq, H), (Sk, K), (Sk, K))]
+    q, k, v = (t.to(dev) for t in grid)
+    args = (qpos.to(dev), kpos.to(dev), kvalid.to(dev))
+    out = mha(q, k.bfloat16(), v.bfloat16(), *args, window=200, q_chunk=64)
+    assert out.dtype == torch.float32
+    want = _widened_mha(q, k, v, *args, 200)
+    scale = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    assert ((out - want).abs() / scale).max().item() <= 2.0 ** -14
+
+    q, k, v = (torch.randn(B, n, h, dh, generator=g).bfloat16()
+               for n, h in ((Sq, H), (Sk, K), (Sk, K)))
+    up = torch.randn(B, Sq, H, dh, generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        ts = [t.to(d).requires_grad_(True) for t in (q, k, v)]
+        o = mha(*ts, qpos.to(d), kpos.to(d), kvalid.to(d), window=200, q_chunk=64)
+        grads.append([t.float().cpu() for t in
+                      torch.autograd.grad((o.float() * up.to(d)).sum(), ts)])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 2.0 ** -5 * a.abs().max().item()

@@ -145,17 +145,22 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    """The padded ViT is not ported (every mode, both KV layouts and int8
-    cold pages are: test_torch_modes.py, test_torch_variants.py; the SSM
-    family: test_torch_recurrent.py; MoE and hybrid: test_torch_moe.py,
+    """Once the one option left unported, the padded ViT
+    (``PruneCfg(packed_vit=False)``) now serves like the JAX package's
+    padded pipeline: prune_only and codecflow, every event, stat (the ViT
+    slots count the padded capacity) and refresh set equal, logits within
+    ``torch_mode_parity.LOGIT_TOL``, and no ``flash_packed`` dispatch.
+    (Every mode, both KV layouts and int8 cold pages:
+    test_torch_modes.py, test_torch_variants.py; the SSM family:
+    test_torch_recurrent.py; MoE and hybrid: test_torch_moe.py,
     test_torch_hybrid.py; the encoder-decoder family and training:
-    test_torch_whisper.py, test_torch_train.py)."""
-    cfg = get_config(ARCH)
-    from repro_torch.serving import PruneCfg
-    codec = TCodecCfg(**CODEC)
-    with pytest.raises(NotImplementedError):
-        ServingPipeline(cfg, cfg.vit, {}, {},
-                        EngineCfg(prune=PruneCfg(packed_vit=False), codec=codec), device="cpu")
+    test_torch_whisper.py, test_torch_train.py.)"""
+    from torch_mode_parity import assert_parity, assert_plain_dispatch, serve
+    for mode in ("prune_only", "codecflow"):
+        j, t = serve(mode, paged=True, packed_vit=False)
+        assert_parity(j, t)
+        assert_plain_dispatch(t)
+        assert "flash_packed" not in t[4]
 
 
 def test_launch_serve_main_on_cpu(capsys):

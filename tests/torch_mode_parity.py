@@ -20,6 +20,7 @@ from repro.configs import CodecCfg
 from repro.launch import serve as jserve
 from repro.serving import EngineCfg as JEngineCfg
 from repro.serving import KVCfg as JKVCfg
+from repro.serving import PruneCfg as JPruneCfg
 from repro.serving import Scheduler as JScheduler
 from repro.serving import SchedulerCfg as JSchedulerCfg
 from repro.serving import ServingPipeline as JServingPipeline
@@ -31,7 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.serve import default_vit
 from repro_torch.models.init import from_numpy_tree
 from repro_torch.serving import (
-    REUSE_MODES, EngineCfg, KVCfg, Scheduler, SchedulerCfg, ServingPipeline,
+    REUSE_MODES, EngineCfg, KVCfg, PruneCfg, Scheduler, SchedulerCfg, ServingPipeline,
     StreamRequest,
 )
 
@@ -105,44 +106,46 @@ def _drive(pipe, sched, request_cls, deviations=None):
 
 
 def jax_pipeline(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5,
-                 arch: str = ARCH):
+                 arch: str = ARCH, packed_vit: bool = True):
     """The JAX package's pipeline of one configuration (modes without
     reuse never page their KV there)."""
     cfg, v, params, vparams, _, _ = weights(arch)
     codec = CodecCfg(**dict(CODEC, keep_ratio=keep_ratio))
     return JServingPipeline(cfg, v, params, vparams, JEngineCfg(
-        mode=mode, codec=codec,
+        mode=mode, codec=codec, prune=JPruneCfg(packed_vit=packed_vit),
         kv=JKVCfg(paged_kv=paged and mode in REUSE_MODES, stale_page_dtype=stale)))
 
 
 def port_pipeline(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5,
-                  arch: str = ARCH):
+                  arch: str = ARCH, packed_vit: bool = True):
     """The port's pipeline of one configuration, on the CPU, with the
     same weights."""
     _, _, _, _, params, vparams = weights(arch)
     cfg = get_config(arch)
     codec = TCodecCfg(**dict(CODEC, keep_ratio=keep_ratio))
     return ServingPipeline(cfg, default_vit(cfg), params, vparams, EngineCfg(
-        mode=mode, codec=codec, kv=KVCfg(paged_kv=paged, stale_page_dtype=stale)),
-        device="cpu")
+        mode=mode, codec=codec, prune=PruneCfg(packed_vit=packed_vit),
+        kv=KVCfg(paged_kv=paged, stale_page_dtype=stale)), device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
-def _serve_jax(mode, paged, stale, keep_ratio, arch):
-    pipe = jax_pipeline(mode, paged, stale, keep_ratio, arch)
+def _serve_jax(mode, paged, stale, keep_ratio, arch, packed_vit):
+    pipe = jax_pipeline(mode, paged, stale, keep_ratio, arch, packed_vit)
     sched = JScheduler(pipe, JSchedulerCfg(max_concurrent=2, pipelined=False))
     return _drive(pipe, sched, JStreamRequest)
 
 
 @functools.lru_cache(maxsize=None)
 def serve(mode: str, paged: bool, stale: str = "bf16", keep_ratio: float = 0.5,
-          arch: str = ARCH):
+          arch: str = ARCH, packed_vit: bool = True):
     """(jax, port) runs of one configuration; each is (events, results,
     refresh sets, demotions), the port's also its dispatch counts, its
-    pipeline and cacheblend's deviations."""
+    pipeline and cacheblend's deviations.  ``packed_vit=False`` serves
+    both on the padded ViT."""
     # modes without reuse never page their KV: the JAX runs are the same
-    j = _serve_jax(mode, paged and mode in REUSE_MODES, stale, keep_ratio, arch)
-    pipe = port_pipeline(mode, paged, stale, keep_ratio, arch)
+    j = _serve_jax(mode, paged and mode in REUSE_MODES, stale, keep_ratio, arch,
+                   packed_vit)
+    pipe = port_pipeline(mode, paged, stale, keep_ratio, arch, packed_vit)
     sched = Scheduler(pipe, SchedulerCfg(max_concurrent=2, pipelined=False))
     ops.reset_dispatch_counts()
     devs = [] if mode == "cacheblend" else None
