@@ -5,12 +5,15 @@ and check them.
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash_packed,rope_shift [--src DIR]
     python3 chip_smoke.py --only whisper [--src DIR]
+    python3 chip_smoke.py --only families [--src DIR]
+    python3 chip_smoke.py --only mesh
 
 With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
-contract line (``--only mha`` and ``--only whisper``: phase 3's mha
-probe and phase 8(b) alone); ``--src`` drives the ``repro_torch`` of another checkout's
+contract line (``--only mha``, ``--only families``, ``--only whisper``
+and ``--only mesh``: phase 3's mha probe, phase 7 alone, phase 8(b)
+alone, phase 8(b) then 9); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
 ``git archive`` can be timed in the same call: parent, change, change,
 parent.
@@ -193,6 +196,27 @@ Phases (any failure exits non-zero):
                recall and F1 printed per mode, with codecflow's F1 drop
                (not gated).  Phase 3 also holds flash_refresh at
                whisper's prefill and decode shapes.
+  9. mesh    — (a) one train step of whisper-large-v3-smoke and
+               olmoe-1b-7b-smoke under a 1x1 DeviceMesh over a
+               world-size-1 NCCL group (parameters placed by the sharding
+               rules as DTensors) against the same step without a mesh,
+               from the same weights and batch: loss, grad_norm and every
+               parameter bitwise equal, or else within (a)'s limits of
+               phase 8 (the phase prints which held); the same for phase
+               8(b)'s whisper-large-v3 at full size over 3 steps, each
+               step timed on the mesh and without it (DTensor's host
+               cost at full size), beside phase 8(b)'s step; then
+               launch.train.train(mesh_kind="host") for 2 steps; (b)
+               analysis.roofline.count_step over one step of phase 8(b)'s
+               whisper-large-v3 (full size, batch 2, seq 448): compute and
+               memory terms, dominant, useful ratio, and the larger term
+               over phase 8(b)'s measured step (the roofline share), which
+               must lie in (0, 1.05]; (c) python -m repro_torch.launch.dryrun
+               in a subprocess for deepseek-7b train_4k and jamba-v0.1-52b
+               prefill_32k on the single (16 x 16) mesh: each report ok
+               with finite, positive terms, printing the peak GiB per
+               device, the terms, the dominant one, the kernel ops' work
+               and the seconds.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -210,6 +234,8 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -221,9 +247,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
+# the H100's rates, read from repro_torch.analysis.roofline in main()
+HBM_BYTES_PER_S = BF16_TENSOR_FLOPS = F32_FLOPS = None
 ARCH = "internvl3-14b"
 HW = 448
 SSM_ARCH = "mamba2-2.7b"
@@ -268,6 +293,10 @@ PREFILL_ROW_TOL = 2.0 ** -7
 # orders (a few 1e-6 relative); the product rounded to bf16 misses by up
 # to 2^-8, and the check requires it to miss this limit on the data.
 HEAD_TOL = 2.0 ** -14
+
+
+# readings one phase leaves for a later one (phase 8(b)'s step time)
+READINGS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -2065,6 +2094,7 @@ def train_whisper(torch):
         f"parameters, {sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f} GiB, "
         f"made on the card from the seed in {t_init:.1f} s")
     t_step = sum(times[1:]) / len(times[1:])
+    READINGS["whisper_step_s"] = t_step
     flops = model_flops(cfg, WHISPER_BATCH, WHISPER_SEQ)
     dec_tok, enc_pos = WHISPER_BATCH * WHISPER_SEQ, WHISPER_BATCH * cfg.enc_seq
     log(f"train [{WHISPER_ARCH}, full size, remat]: losses {[round(x, 4) for x in losses]}; "
@@ -2359,21 +2389,287 @@ def train_phase(torch):
     return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path}
 
 
+# ----------------------------------------------------------------------
+# phase 9: meshes, the roofline, the dry run
+# ----------------------------------------------------------------------
+MESH_ARCHS = ("whisper-large-v3-smoke", "olmoe-1b-7b-smoke")
+MESH_WHISPER_STEPS = 3
+DRYRUNS = (("deepseek-7b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"))
+DRYRUN_TIMEOUT = 420
+
+
+def timed_steps(torch, times: list):
+    """A wrapper of ``make_train_step``: each step it makes appends its
+    seconds, to the card's end of the step, to ``times``."""
+    def wrap(make):
+        def made(*a, **k):
+            step = make(*a, **k)
+
+            def run(*args):
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                return out
+            return run
+        return made
+    return wrap
+
+
+def mesh_vs_meshless(torch, ref_ms, mesh_ms, ref, on_mesh):
+    """(bitwise equal, within phase 8(a)'s limits, the largest parameter
+    gap over its leaf's max) of a mesh run's per-step losses and grad
+    norms and final parameters against the meshless run's."""
+    from repro_torch.models.init import tree_leaves
+    lr_, lm = ([float(m["loss"]) for m in ms] for ms in (ref_ms, mesh_ms))
+    gr, gm = ([float(m["grad_norm"]) for m in ms] for ms in (ref_ms, mesh_ms))
+    bitwise, gap = lr_ == lm and gr == gm, 0.0
+    for a, b in zip(tree_leaves(ref), tree_leaves(on_mesh)):
+        a, b = a.detach(), b.full_tensor().detach()
+        bitwise = bitwise and torch.equal(a, b)
+        gap = max(gap, float((a.float() - b.float()).abs().max())
+                  / max(float(a.float().abs().max()), 1e-30))
+    within = (all(abs(y - x) <= STEP_LOSS_TOL * abs(x) for x, y in zip(lr_, lm))
+              and all(abs(y - x) <= STEP_GNORM_TOL * x for x, y in zip(gr, gm))
+              and gap <= STEP_GRAD_TOL)
+    return bitwise, within, gap
+
+
+def held_text(bitwise: bool, within: bool) -> str:
+    return "bitwise equal" if bitwise else (
+        "within phase 8(a)'s limits (not bitwise)" if within else "FAIL")
+
+
+def whisper_on_host_mesh(torch, mesh, smi: str) -> bool:
+    """9(a) at full size: phase 8(b)'s whisper-large-v3 (batch 2, decoder
+    seq 448, remat) trained MESH_WHISPER_STEPS steps from the seed's
+    weights on the same batches, first without a mesh, then on the 1x1
+    mesh (every op a DTensor op); each step timed to the card's end."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.init import init_lm_params, trainable
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(WHISPER_ARCH)
+    ocfg = topt.OptCfg(warmup=1, total_steps=WHISPER_STEPS)      # as launch.train's
+    it = lm_batches(cfg, WHISPER_BATCH, WHISPER_SEQ, seed=SEED, device="cuda")
+    batches = [next(it) for _ in range(MESH_WHISPER_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_t, mesh_t, ref_ms = [], [], []
+    ref = trainable(init_lm_params(cfg, SEED, "cuda"))
+    opt = topt.init_opt_state(ref, ocfg)
+    step = timed_steps(torch, ref_t)(make_train_step)(cfg, ocfg)
+    for b in batches:
+        ref, opt, m = step(ref, opt, b)
+        ref_ms.append(m)
+    del opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with wrapped(tlaunch, "make_train_step", timed_steps(torch, mesh_t)):
+        on_mesh, opt, mesh_ms = tlaunch.train_on_mesh(
+            cfg, mesh, ocfg, init_lm_params(cfg, SEED, "cuda"), iter(batches),
+            MESH_WHISPER_STEPS, log_every=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del opt
+    bitwise, within, gap = mesh_vs_meshless(torch, ref_ms, mesh_ms, ref, on_mesh)
+    finite = all(math.isfinite(float(m["loss"])) for m in mesh_ms)
+    t_ref, t_mesh = (sum(t[1:]) / len(t[1:]) for t in (ref_t, mesh_t))
+    log(f"  host mesh [{WHISPER_ARCH}, full size, batch {WHISPER_BATCH}, seq {WHISPER_SEQ}, "
+        f"remat; {smi}]: losses {[round(float(m['loss']), 6) for m in mesh_ms]} on the 1x1 "
+        f"mesh vs {[round(float(m['loss']), 6) for m in ref_ms]} without; grad_norm "
+        f"{[round(float(m['grad_norm']), 6) for m in mesh_ms]} vs "
+        f"{[round(float(m['grad_norm']), 6) for m in ref_ms]}; largest parameter gap "
+        f"{gap:.3g} of its leaf's max; step s on the mesh {[round(x, 4) for x in mesh_t]}, "
+        f"without {[round(x, 4) for x in ref_t]} (step 1 includes the first calls' "
+        f"set-up); steps 2-{MESH_WHISPER_STEPS}: {t_mesh:.4f} s on the mesh, {t_ref:.4f} s "
+        f"without ({t_mesh / t_ref:.4f}x), phase 8(b)'s {READINGS.get('whisper_step_s')} s; "
+        f"peak memory on the mesh {peak:.2f} GiB: {held_text(bitwise, within)}")
+    del ref, on_mesh, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (bitwise or within) and finite
+
+
+def host_mesh_steps(torch, smi: str):
+    """9(a): each arch's step on a 1x1 DeviceMesh vs without a mesh, then
+    whisper-large-v3 at full size (``whisper_on_host_mesh``) and the
+    entry point."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.init import init_lm_params, map_tree, trainable, tree_leaves
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train_step import make_train_step
+    mesh = make_host_mesh("cuda")
+    ok = True
+    for arch in MESH_ARCHS:
+        cfg = get_config(arch)
+        params = init_lm_params(cfg, SEED, "cuda")
+        batch = next(lm_batches(cfg, 2, 32, seed=SEED, device="cuda"))
+        ocfg = topt.OptCfg(lr=1e-3, warmup=1, total_steps=10)
+        ref = trainable(map_tree(lambda t: t.clone(), params))
+        ref, _, m_ref = make_train_step(cfg, ocfg, q_chunk=16)(
+            ref, topt.init_opt_state(ref, ocfg), batch)
+        t0 = time.perf_counter()
+        on_mesh, _, [got] = tlaunch.train_on_mesh(
+            cfg, mesh, ocfg, map_tree(lambda t: t.clone(), params), iter([batch]), 1,
+            q_chunk=16, log_every=10**9)
+        torch.cuda.synchronize()
+        t_mesh = time.perf_counter() - t0
+        bitwise, within, gap = mesh_vs_meshless(torch, [m_ref], [got], ref, on_mesh)
+        log(f"  host mesh [{arch}] (1x1 DeviceMesh, world-size-1 NCCL, DTensor "
+            f"parameters by the rules): loss {float(got['loss']):.6f} vs "
+            f"{float(m_ref['loss']):.6f} without a mesh, grad_norm "
+            f"{float(got['grad_norm']):.6f} vs {float(m_ref['grad_norm']):.6f}, largest "
+            f"parameter gap {gap:.3g} of its leaf's max over {len(tree_leaves(ref))} leaves; "
+            f"{t_mesh:.2f} s with DTensor's first calls: {held_text(bitwise, within)}")
+        ok = ok and (bitwise or within)
+        del params, ref, on_mesh
+    ok = whisper_on_host_mesh(torch, mesh, smi) and ok
+    _, losses = tlaunch.train(MESH_ARCHS[1], 2, 2, 32, mesh_kind="host", seed=SEED,
+                              device="cuda", log_every=1)
+    here = len(losses) == 2 and all(math.isfinite(x) for x in losses)
+    log(f"  launch.train.train({MESH_ARCHS[1]!r}, mesh_kind='host'): losses "
+        f"{[round(x, 4) for x in losses]}: {'ok' if here else 'FAIL'}")
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok and here
+
+
+def whisper_roofline(torch, smi: str):
+    """9(b): count one step of phase 8(b)'s whisper-large-v3 and hold its
+    larger roofline term against phase 8(b)'s measured step time."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.init import init_lm_params, trainable
+    from repro_torch.training.optimizer import OptCfg, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(WHISPER_ARCH)
+    params = trainable(init_lm_params(cfg, SEED, "cuda"))
+    ocfg = OptCfg(warmup=1, total_steps=WHISPER_STEPS)
+    opt = init_opt_state(params, ocfg)
+    batch = next(lm_batches(cfg, WHISPER_BATCH, WHISPER_SEQ, seed=SEED, device="cuda"))
+    step = make_train_step(cfg, ocfg)
+    t0 = time.perf_counter()
+    d = roofline.count_step(step, params, opt, batch)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    rep = roofline.Report(arch=WHISPER_ARCH, shape=f"train b{WHISPER_BATCH} s{WHISPER_SEQ}",
+                          mesh="one card", chips=1, ok=True)
+    rep.flops_per_device = d["flops"]
+    rep.bytes_per_device = d["bytes_accessed"]
+    rep.coll_bytes_per_device = d["coll_operand_bytes"]
+    rep.model_flops = model_flops(cfg, WHISPER_BATCH, WHISPER_SEQ)
+    t_step = READINGS.get("whisper_step_s")
+    bound = max(rep.t_compute, rep.t_memory, rep.t_collective)
+    share = bound / t_step if t_step else float("nan")
+    mfu = rep.model_flops / t_step / BF16_TENSOR_FLOPS if t_step else float("nan")
+    ok = t_step is not None and 0 < share <= 1.05
+    log(f"  roofline [{WHISPER_ARCH}, full size, one step, {smi}]: counted "
+        f"{d['flops'] / 1e12:.3f} T FLOPs (matrix products and attention), "
+        f"{d['bytes_accessed'] / 1e9:.2f} GB accessed (every op's inputs and outputs once, "
+        f"unfused), collectives {d['coll_operand_bytes']:.0f} B; t_compute "
+        f"{rep.t_compute:.5f} s, t_memory {rep.t_memory:.5f} s, dominant {rep.dominant}, "
+        f"useful ratio {rep.useful_ratio:.4f}; model FLOPs {rep.model_flops / 1e12:.2f} T "
+        f"over the bf16 peak in the measured step: {mfu:.4f}; roofline share "
+        f"(larger term over phase 8(b)'s step of {t_step} s): {share:.4f} (must lie in "
+        f"(0, 1.05]); counted run {t_count:.1f} s, peak live "
+        f"{d['peak_bytes'] / 2**30:.2f} GiB: {'ok' if ok else 'FAIL'}")
+    del params, opt, batch, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def dry_runs(smi: str):
+    """9(c): the dry run of each of DRYRUNS in a subprocess."""
+    ok = True
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape in DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--mesh", "single", "--outdir",
+               str(ROOT / "experiments" / "dryrun_torch")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              timeout=DRYRUN_TIMEOUT, cwd=str(ROOT))
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        r = json.loads(lines[-1]) if lines else {}
+        terms = [r.get(k, float("nan")) for k in ("t_compute_s", "t_memory_s", "t_collective_s")]
+        here = (proc.returncode == 0 and r.get("ok") is True
+                and all(math.isfinite(t) and t > 0 for t in terms))
+        log(f"  dry run [{arch} {shape}, single mesh 16x16, fake 256-rank group, meta "
+            f"device; numbers per H100 of {smi}]: ok {r.get('ok')}, peak "
+            f"{r.get('peak_GiB_per_device', float('nan')):.2f} GiB per device, t_compute "
+            f"{terms[0]:.4g} s, t_memory {terms[1]:.4g} s, t_collective {terms[2]:.4g} s, "
+            f"dominant {r.get('dominant')}, useful ratio {r.get('useful_ratio')}, kernel ops "
+            f"{r.get('kernels', {})}, counted in {r.get('compile_s')} s, {secs:.1f} s in all: "
+            f"{'ok' if here else 'FAIL'}")
+        if not here:
+            log(proc.stdout[-3000:] + proc.stderr[-6000:])
+        ok = ok and here
+    return ok
+
+
+def mesh_phase(torch, smi: str) -> bool:
+    """Phase 9: each part runs, and is reported, whatever the others did;
+    the phase passes only if all three pass."""
+    import traceback
+    t0 = time.perf_counter()
+    ok = True
+    for part in (lambda: host_mesh_steps(torch, smi), lambda: whisper_roofline(torch, smi),
+                 lambda: dry_runs(smi)):
+        try:
+            here = part()
+        except Exception:  # noqa: BLE001 - reported, and the phase fails
+            traceback.print_exc()
+            here = False
+        ok = ok and here
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return ok
+
+
+def h100_rates():
+    """(HBM bytes/s, bf16 tensor FLOP/s, f32 FLOP/s) from this checkout's
+    ``analysis/roofline.py``, the port's one copy of them, whichever
+    ``--src`` is driven (an earlier checkout may have none): the module
+    is imported from here and forgotten again."""
+    here = str(ROOT / "src")
+    sys.path.insert(0, here)
+    try:
+        from repro_torch.analysis import roofline
+        return roofline.HBM_BW, roofline.PEAK_FLOPS, roofline.F32_FLOPS
+    finally:
+        sys.path.remove(here)
+        for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     ap.add_argument("--only", default="",
                     help="comma-separated kernel names: their checks alone (phases 1-3); "
-                         "or 'mha' (phase 3's mha probe) and 'whisper' (phase 8(b)), "
-                         "each alone after phases 1-2")
+                         "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
+                         "(phase 8(b)) and 'mesh' (phase 8(b), then phase 9), each alone "
+                         "after phases 1-2")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is driven")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
-    sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    global HBM_BYTES_PER_S, BF16_TENSOR_FLOPS, F32_FLOPS
+    HBM_BYTES_PER_S, BF16_TENSOR_FLOPS, F32_FLOPS = h100_rates()
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import numpy as np
     from repro_torch.configs import ModelCfg, ViTCfg, get_config
     from repro_torch.data.pipeline import anomaly_dataset
@@ -2405,7 +2701,9 @@ def main(argv=None) -> int:
     if spilled:
         log(f"FAIL: attention kernels spill registers: {spilled}")
         return 1
-    probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0]}
+    probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0],
+              "mesh": lambda: train_whisper(torch)[0] and mesh_phase(torch, smi),
+              "families": lambda: serve_families(torch)[0]}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
         print(smi)
@@ -2630,6 +2928,11 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches_by_path"].update(
             {lab: n[row["name"]] for lab, n in train_by_path.items() if row["name"] in n})
+
+    # -- 9. mesh: the host mesh, the roofline of a step, the dry run -------
+    if not mesh_phase(torch, smi):
+        log("FAIL: mesh phase")
+        return 1
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -333,3 +333,37 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
     cuda.check(rc, name)
     cuda.record_launch(name)
     return out
+
+
+def flash_refresh_work(q, k, q_pos=None, kv_valid=None, *, causal: bool = True,
+                       window: int | None = None):
+    """(flops, bytes) the refresh attention needs over per-stream caches:
+    4 D H flops per live (query, key) pair; q, the output and the K/V
+    rows some query sees read or written once, kv_valid once.  Live pairs
+    come from ``q_pos`` and ``kv_valid`` where they hold data; on the
+    meta device (the dry run) the queries are taken as the last Sq
+    positions of the Sk keys and every key as valid, which is what a
+    fresh prefill and a decode step at the end of the caches see."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if q.device.type == "meta" or q_pos is None:
+        p = np.arange(Sk - Sq, Sk, dtype=np.int64)
+        hi = p if causal else np.full_like(p, Sk - 1)
+        lo = np.maximum(p - window + 1, 0) if window is not None else np.zeros_like(p)
+        live = float(B * np.clip(hi - lo + 1, 0, None).sum())
+        rows = float(B * (hi.max() - lo.min() + 1))
+    else:
+        qp = q_pos.long()
+        kpos = torch.arange(Sk, device=qp.device)
+        mask = (kv_valid[:, None, :] if kv_valid is not None
+                else torch.ones((B, 1, Sk), dtype=torch.bool, device=qp.device))
+        if causal:
+            mask = mask & (kpos[None, None, :] <= qp[:, :, None])
+        if window is not None:
+            mask = mask & (kpos[None, None, :] > qp[:, :, None] - window)
+        mask = mask.expand(B, Sq, Sk)
+        live = float(mask.sum())
+        rows = float(mask.any(1).sum())
+    n_bytes = (2 * q.numel() * q.element_size() + 2 * rows * Hkv * D * k.element_size()
+               + B * Sk)
+    return 4.0 * D * H * live, float(n_bytes)

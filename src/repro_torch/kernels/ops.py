@@ -13,12 +13,21 @@ answer), then routes by where its operands live:
     ``KernelContractError`` rather than being detached (the plain
     versions, on the CPU or under ``kernel_mode("plain")``, differentiate).
 
+  * a meta tensor (the dry run) gives outputs of the right shapes and
+    dtypes and computes nothing.
+
 ``kernel_mode("plain")`` forces the plain version on the card too; only
 tests and ``chip_smoke.py`` use it, to hold the kernels against it.
 
+``count_work(counter)`` reports each call of ``flash_refresh`` and
+``ssd_scan`` to ``counter.kernel(op, formula)`` (``formula()`` gives the
+op's (flops, bytes)), and runs the call inside the context manager that
+returns, so that a counter of aten ops (``analysis.roofline.count_step``)
+does not also count the plain version's step-by-step arithmetic.
+
 ``dispatch_counts()`` records where each call went, per kernel name:
-``kernel``, ``backend:ok`` (CPU tensor, plain version) or ``mode:plain``
-(plain version forced on the card).  ``launch_counts()`` counts the
+``kernel``, ``backend:ok`` (CPU tensor, plain version), ``mode:plain``
+(plain version forced on the card) or ``meta`` (shapes only).  ``launch_counts()`` counts the
 kernel launches themselves.  ``flash_refresh_paged`` and
 ``flash_prefill_paged`` with an int8 ``cold`` group are counted as
 ``flash_refresh_paged_int8`` and ``flash_prefill_paged_int8``.
@@ -26,7 +35,7 @@ kernel launches themselves.  ``flash_refresh_paged`` and
 from __future__ import annotations
 
 from collections import Counter, defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Optional
 
 import numpy as np
@@ -41,11 +50,11 @@ from .flash_prefill import (
 )
 from .flash_refresh import (
     RefreshBlockMap, flash_refresh_cuda, flash_refresh_paged_cuda,
-    flash_refresh_paged_plain, flash_refresh_plain,
+    flash_refresh_paged_plain, flash_refresh_plain, flash_refresh_work,
 )
 from .mv_sad import mv_sad_cuda, mv_sad_plain
 from .rope_shift import rope_shift_cuda, rope_shift_plain
-from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain, ssd_scan_work
 from .transfer import host_of
 
 KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed",
@@ -55,6 +64,7 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _MODE = "auto"   # auto | plain
 _COUNTS: "defaultdict[str, Counter]" = defaultdict(Counter)
+_WORK: list = []   # active work counters, innermost last
 
 launch_counts = cuda.launch_counts
 reset_launch_counts = cuda.reset_launch_counts
@@ -89,6 +99,32 @@ def reset_dispatch_counts() -> None:
 def plain_calls_on_cuda() -> Dict[str, int]:
     """Plain-version calls on CUDA tensors per op (``kernel_mode("plain")``)."""
     return {op: c.get("mode:plain", 0) for op, c in _COUNTS.items()}
+
+
+@contextmanager
+def count_work(counter):
+    """While active, kernel ops report their work to ``counter``."""
+    _WORK.append(counter)
+    try:
+        yield counter
+    finally:
+        _WORK.remove(counter)
+
+
+def _work(op: str, formula):
+    """The call's work (``formula`` -> (flops, bytes)) reported to the
+    innermost counter; the call runs inside the context manager returned
+    (nothing to do without a counter)."""
+    return _WORK[-1].kernel(op, formula) if _WORK else nullcontext()
+
+
+def _on_meta(op: str, t: torch.Tensor) -> bool:
+    """Whether ``t`` is a meta tensor (shapes only: no kernel, no plain
+    version)."""
+    if t.device.type != "meta":
+        return False
+    _COUNTS[op]["meta"] += 1
+    return True
 
 
 def _use_kernel(op: str, t: torch.Tensor, *operands) -> bool:
@@ -260,17 +296,21 @@ def flash_refresh(q, k, v, q_pos, kv_valid=None, *, causal: bool = True,
     _require(kv_valid is None or (tuple(kv_valid.shape) == tuple(k.shape[:2])
                                   and kv_valid.dtype == torch.bool),
              op, "kv-valid", "kv_valid is a (B, Sk) bool mask")
-    if block_map is not None:
+    if q.device.type != "meta" and block_map is not None:
         _positions_match_map(op, q_pos, block_map)
-    if _use_kernel(op, q, k, v):
-        if block_map is None:
-            raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
-        if kv_valid is None:
-            kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
-        return flash_refresh_cuda(q, k, v, kv_valid, block_map, causal=causal,
-                                  window=window)
-    return flash_refresh_plain(q, k, v, q_pos, kv_valid, causal=causal,
-                               window=window, q_chunk=q_chunk)
+    with _work(op, lambda: flash_refresh_work(q, k, q_pos, kv_valid, causal=causal,
+                                              window=window)):
+        if _on_meta(op, q):
+            return torch.empty_like(q)
+        if _use_kernel(op, q, k, v):
+            if block_map is None:
+                raise KernelContractError(f"{op}: the kernel needs a RefreshBlockMap")
+            if kv_valid is None:
+                kv_valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+            return flash_refresh_cuda(q, k, v, kv_valid, block_map, causal=causal,
+                                      window=window)
+        return flash_refresh_plain(q, k, v, q_pos, kv_valid, causal=causal,
+                                   window=window, q_chunk=q_chunk)
 
 
 def flash_refresh_paged(q, k, v, q_pos, kv_valid, page_table, *,
@@ -429,6 +469,12 @@ def ssd_scan(x, log_a, b, c, init_state=None, chunk: int = 128):
              and b.dtype == c.dtype, op, "dtype",
              "x/log_a/b/c are f32/bf16/f16 with b == c")
     _require(chunk >= 1, op, "chunk", "chunk size >= 1")
-    if _use_kernel(op, x, log_a, b, c, init_state):
-        return ssd_scan_cuda(x, log_a, b, c, init_state, chunk)
-    return ssd_scan_plain(x, log_a, b, c, init_state, chunk)
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    with _work(op, lambda: ssd_scan_work(L, H, P, G, N, chunk, B)):
+        if _on_meta(op, x):
+            return (torch.empty_like(x),
+                    torch.empty((B, H, P, N), dtype=torch.float32, device=x.device))
+        if _use_kernel(op, x, log_a, b, c, init_state):
+            return ssd_scan_cuda(x, log_a, b, c, init_state, chunk)
+        return ssd_scan_plain(x, log_a, b, c, init_state, chunk)

@@ -40,7 +40,11 @@ def param_dtype(cfg: ModelCfg) -> torch.dtype:
 
 
 class _Init:
-    """Fills parameter tensors on one device from one generator."""
+    """Fills parameter tensors on one device from one generator.  Every
+    leaf is made with its logical axes (one per dim of the unstacked
+    leaf, the JAX package's ``ParamBuilder`` annotations), which this
+    builder ignores; ``_Specs`` and ``_Meta`` build the same tree from
+    them."""
 
     def __init__(self, seed: int, device, dtype: torch.dtype):
         self.device = torch.device(device)
@@ -53,7 +57,7 @@ class _Init:
         torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=self.gen)
         out.copy_(tmp.mul_(scale))
 
-    def dense(self, shape, scale: float | None = None, layers: int = 0) -> torch.Tensor:
+    def dense(self, shape, logical, scale: float | None = None, layers: int = 0) -> torch.Tensor:
         """Truncated-normal fan-in init; ``layers > 0`` stacks that many
         independent draws on a leading axis, filled one layer at a time."""
         shape = tuple(shape)
@@ -68,18 +72,62 @@ class _Init:
             self._fill(out[i], scale)
         return out
 
-    def ones(self, shape, layers: int = 0) -> torch.Tensor:
+    def ones(self, shape, logical, layers: int = 0) -> torch.Tensor:
         lead = (layers,) if layers else ()
         return torch.ones(lead + tuple(shape), dtype=F32, device=self.device)
 
-    def zeros(self, shape, layers: int = 0) -> torch.Tensor:
+    def zeros(self, shape, logical, layers: int = 0) -> torch.Tensor:
         lead = (layers,) if layers else ()
         return torch.zeros(lead + tuple(shape), dtype=self.dtype, device=self.device)
 
-    def f32_rows(self, row: torch.Tensor, layers: int = 0) -> torch.Tensor:
+    def f32_rows(self, row: torch.Tensor, logical, layers: int = 0) -> torch.Tensor:
         """An f32 vector on the device, repeated per layer."""
         t = row.to(dtype=F32, device=self.device)
         return t.expand((layers,) + t.shape).clone() if layers else t
+
+
+class _Specs:
+    """Builds the logical-axes tree: each leaf its axes, a stacked leaf
+    led by None (the layer axis)."""
+
+    @staticmethod
+    def _axes(logical, layers: int):
+        return ((None,) if layers else ()) + tuple(logical)
+
+    def dense(self, shape, logical, scale=None, layers: int = 0):
+        return self._axes(logical, layers)
+
+    def ones(self, shape, logical, layers: int = 0):
+        return self._axes(logical, layers)
+
+    zeros = ones
+
+    def f32_rows(self, row, logical, layers: int = 0):
+        return self._axes(logical, layers)
+
+
+class _Meta:
+    """Builds the tree of meta tensors (shapes and dtypes, no storage):
+    the dry run's parameters."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+
+    def _empty(self, shape, layers: int, dtype):
+        lead = (layers,) if layers else ()
+        return torch.empty(lead + tuple(shape), dtype=dtype, device="meta")
+
+    def dense(self, shape, logical, scale=None, layers: int = 0):
+        return self._empty(shape, layers, self.dtype)
+
+    def ones(self, shape, logical, layers: int = 0):
+        return self._empty(shape, layers, F32)
+
+    def zeros(self, shape, logical, layers: int = 0):
+        return self._empty(shape, layers, self.dtype)
+
+    def f32_rows(self, row, logical, layers: int = 0):
+        return self._empty(row.shape, layers, F32)
 
 
 def _mamba_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
@@ -91,37 +139,38 @@ def _mamba_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
     a = torch.linspace(1.0, 16.0, nh, dtype=F32)
     dt = torch.linspace(1e-3, 1e-1, nh, dtype=F32)
     return {
-        "in_proj": ini.dense((d, 2 * di + 2 * gn + nh), layers=R),
-        "conv_w": ini.dense((s.d_conv, di + 2 * gn), scale=0.5, layers=R),
-        "conv_b": ini.zeros((di + 2 * gn,), layers=R),
-        "A_log": ini.f32_rows(torch.log(a), layers=R),
-        "D": ini.ones((nh,), layers=R),
-        "dt_bias": ini.f32_rows(torch.log(torch.expm1(dt)), layers=R),
-        "norm": ini.ones((di,), layers=R),
-        "out_proj": ini.dense((di, d), layers=R),
+        "in_proj": ini.dense((d, 2 * di + 2 * gn + nh), ("embed", "ssm_inner"), layers=R),
+        "conv_w": ini.dense((s.d_conv, di + 2 * gn), (None, "ssm_inner"), scale=0.5,
+                           layers=R),
+        "conv_b": ini.zeros((di + 2 * gn,), ("ssm_inner",), layers=R),
+        "A_log": ini.f32_rows(torch.log(a), (None,), layers=R),
+        "D": ini.ones((nh,), (None,), layers=R),
+        "dt_bias": ini.f32_rows(torch.log(torch.expm1(dt)), (None,), layers=R),
+        "norm": ini.ones((di,), (None,), layers=R),
+        "out_proj": ini.dense((di, d), ("ssm_inner", "embed"), layers=R),
     }
 
 
 def _attention_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
     d, dh = cfg.d_model, cfg.d_head
     p = {
-        "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
-        "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
-        "wv": ini.dense((d, cfg.n_kv * dh), layers=R),
-        "wo": ini.dense((cfg.n_heads * dh, d), layers=R),
+        "wq": ini.dense((d, cfg.n_heads * dh), ("embed", "heads"), layers=R),
+        "wk": ini.dense((d, cfg.n_kv * dh), ("embed", "kv"), layers=R),
+        "wv": ini.dense((d, cfg.n_kv * dh), ("embed", "kv"), layers=R),
+        "wo": ini.dense((cfg.n_heads * dh, d), ("heads", "embed"), layers=R),
     }
     if cfg.qkv_bias:
-        p["bq"] = ini.zeros((cfg.n_heads * dh,), layers=R)
-        p["bk"] = ini.zeros((cfg.n_kv * dh,), layers=R)
-        p["bv"] = ini.zeros((cfg.n_kv * dh,), layers=R)
+        p["bq"] = ini.zeros((cfg.n_heads * dh,), ("heads",), layers=R)
+        p["bk"] = ini.zeros((cfg.n_kv * dh,), ("kv",), layers=R)
+        p["bv"] = ini.zeros((cfg.n_kv * dh,), ("kv",), layers=R)
     return p
 
 
 def _mlp_params(ini: _Init, d: int, d_ff: int, R: int) -> Dict[str, Any]:
     return {
-        "wg": ini.dense((d, d_ff), layers=R),
-        "wu": ini.dense((d, d_ff), layers=R),
-        "wd": ini.dense((d_ff, d), layers=R),
+        "wg": ini.dense((d, d_ff), ("embed", "ffn"), layers=R),
+        "wu": ini.dense((d, d_ff), ("embed", "ffn"), layers=R),
+        "wd": ini.dense((d_ff, d), ("ffn", "embed"), layers=R),
     }
 
 
@@ -131,10 +180,10 @@ def _moe_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
     scale, and arctic's dense residual MLP."""
     m, d = cfg.moe, cfg.d_model
     p = {
-        "router": ini.dense((d, m.n_experts), scale=0.02, layers=R),
-        "wg": ini.dense((m.n_experts, d, m.d_ff_expert), layers=R),
-        "wu": ini.dense((m.n_experts, d, m.d_ff_expert), layers=R),
-        "wd": ini.dense((m.n_experts, m.d_ff_expert, d), layers=R),
+        "router": ini.dense((d, m.n_experts), ("embed", None), scale=0.02, layers=R),
+        "wg": ini.dense((m.n_experts, d, m.d_ff_expert), ("experts", "embed", None), layers=R),
+        "wu": ini.dense((m.n_experts, d, m.d_ff_expert), ("experts", "embed", None), layers=R),
+        "wd": ini.dense((m.n_experts, m.d_ff_expert, d), ("experts", None, "embed"), layers=R),
     }
     if m.dense_residual:
         p["residual"] = _mlp_params(ini, d, cfg.d_ff, R)
@@ -144,10 +193,10 @@ def _moe_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
 def _cross_attention_params(ini: _Init, cfg: ModelCfg, R: int) -> Dict[str, Any]:
     d, dh = cfg.d_model, cfg.d_head
     return {
-        "wq": ini.dense((d, cfg.n_heads * dh), layers=R),
-        "wk": ini.dense((d, cfg.n_kv * dh), layers=R),
-        "wv": ini.dense((d, cfg.n_kv * dh), layers=R),
-        "wo": ini.dense((cfg.n_heads * dh, d), layers=R),
+        "wq": ini.dense((d, cfg.n_heads * dh), ("embed", "heads"), layers=R),
+        "wk": ini.dense((d, cfg.n_kv * dh), ("embed", "kv"), layers=R),
+        "wv": ini.dense((d, cfg.n_kv * dh), ("embed", "kv"), layers=R),
+        "wo": ini.dense((cfg.n_heads * dh, d), ("heads", "embed"), layers=R),
     }
 
 
@@ -159,39 +208,57 @@ def init_lm_params(cfg: ModelCfg, seed: int = 0, device="cuda") -> Dict[str, Any
     ``lnx`` and ``xattn`` (cross-attention), and ``encoder`` (its
     ``enc_layers`` stacked: ln1, attention mixer, ln2, dense FFN),
     ``enc_norm`` and ``enc_embed`` (d, d), as ``init_params`` does."""
-    ini = _Init(seed, device, param_dtype(cfg))
+    return _lm_tree(_Init(seed, device, param_dtype(cfg)), cfg)
+
+
+def logical_specs(cfg: ModelCfg) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``init_lm_params``' tree (same
+    keys and leaf paths): ``"embed"``, ``"heads"``, ``"kv"``, ``"ffn"``,
+    ``"vocab"``, ``"experts"``, ``"ssm_inner"`` or None per dim, a
+    stacked leaf led by None; the JAX package's ``init_params`` specs.
+    ``sharding.rules.param_shardings`` maps them onto a mesh."""
+    return _lm_tree(_Specs(), cfg)
+
+
+def meta_lm_params(cfg: ModelCfg) -> Dict[str, Any]:
+    """``init_lm_params``' tree as meta tensors (shapes and dtypes only):
+    the dry run describes a 480 B-parameter model without allocating it."""
+    return _lm_tree(_Meta(param_dtype(cfg)), cfg)
+
+
+def _lm_tree(ini, cfg: ModelCfg) -> Dict[str, Any]:
     d, R = cfg.d_model, cfg.repeats
     tree: Dict[str, Any] = {
-        "embed": ini.dense((cfg.vocab, d), scale=0.02),
-        "final_norm": {"scale": ini.ones((d,))},
+        "embed": ini.dense((cfg.vocab, d), ("vocab", "embed"), scale=0.02),
+        "final_norm": {"scale": ini.ones((d,), (None,))},
     }
     if not cfg.tied_embeddings:
-        tree["lm_head"] = ini.dense((d, cfg.vocab))
+        tree["lm_head"] = ini.dense((d, cfg.vocab), ("embed", "vocab"))
     blocks = []
     for pos in range(cfg.period):
         mixer, ffn = cfg.block_kind(pos)
-        blk: Dict[str, Any] = {"ln1": {"scale": ini.ones((d,), layers=R)}}
+        blk: Dict[str, Any] = {"ln1": {"scale": ini.ones((d,), (None,), layers=R)}}
         blk["mixer"] = (_attention_params(ini, cfg, R) if mixer == "attn"
                         else _mamba_params(ini, cfg, R))
         if ffn != "none":
-            blk["ln2"] = {"scale": ini.ones((d,), layers=R)}
+            blk["ln2"] = {"scale": ini.ones((d,), (None,), layers=R)}
             blk["ffn"] = (_moe_params(ini, cfg, R) if ffn == "moe"
                           else _mlp_params(ini, d, cfg.d_ff, R))
         if cfg.enc_dec:
-            blk["lnx"] = {"scale": ini.ones((d,), layers=R)}
+            blk["lnx"] = {"scale": ini.ones((d,), (None,), layers=R)}
             blk["xattn"] = _cross_attention_params(ini, cfg, R)
         blocks.append(blk)
     tree["blocks"] = tuple(blocks)
     if cfg.enc_dec:
         L = cfg.enc_layers
         tree["encoder"] = {
-            "ln1": {"scale": ini.ones((d,), layers=L)},
+            "ln1": {"scale": ini.ones((d,), (None,), layers=L)},
             "mixer": _attention_params(ini, cfg, L),
-            "ln2": {"scale": ini.ones((d,), layers=L)},
+            "ln2": {"scale": ini.ones((d,), (None,), layers=L)},
             "ffn": _mlp_params(ini, d, cfg.d_ff, L),
         }
-        tree["enc_norm"] = {"scale": ini.ones((d,))}
-        tree["enc_embed"] = ini.dense((d, d))
+        tree["enc_norm"] = {"scale": ini.ones((d,), (None,))}
+        tree["enc_embed"] = ini.dense((d, d), (None, "embed"))
     return tree
 
 
@@ -201,23 +268,23 @@ def init_vit_params(v: ViTCfg, d_lm: int, seed: int = 1, device="cuda",
     ini = _Init(seed, device, dtype)
     d, L = v.d_model, v.n_layers
     return {
-        "patch_embed": ini.dense((v.patch * v.patch, d)),
-        "pos_embed": ini.dense((v.n_patches, d), scale=0.02),
+        "patch_embed": ini.dense((v.patch * v.patch, d), (None, "embed")),
+        "pos_embed": ini.dense((v.n_patches, d), (None, "embed"), scale=0.02),
         "blocks": {
-            "ln1": {"scale": ini.ones((d,), layers=L)},
-            "wq": ini.dense((d, d), layers=L),
-            "wk": ini.dense((d, d), layers=L),
-            "wv": ini.dense((d, d), layers=L),
-            "wo": ini.dense((d, d), layers=L),
-            "ln2": {"scale": ini.ones((d,), layers=L)},
+            "ln1": {"scale": ini.ones((d,), (None,), layers=L)},
+            "wq": ini.dense((d, d), ("embed", "heads"), layers=L),
+            "wk": ini.dense((d, d), ("embed", "heads"), layers=L),
+            "wv": ini.dense((d, d), ("embed", "heads"), layers=L),
+            "wo": ini.dense((d, d), ("heads", "embed"), layers=L),
+            "ln2": {"scale": ini.ones((d,), (None,), layers=L)},
             "ffn": {
-                "wg": ini.dense((d, v.d_ff), layers=L),
-                "wu": ini.dense((d, v.d_ff), layers=L),
-                "wd": ini.dense((v.d_ff, d), layers=L),
+                "wg": ini.dense((d, v.d_ff), ("embed", "ffn"), layers=L),
+                "wu": ini.dense((d, v.d_ff), ("embed", "ffn"), layers=L),
+                "wd": ini.dense((v.d_ff, d), ("ffn", "embed"), layers=L),
             },
         },
-        "final_norm": {"scale": ini.ones((d,))},
-        "projector": ini.dense((v.group * v.group * d, d_lm)),
+        "final_norm": {"scale": ini.ones((d,), (None,))},
+        "projector": ini.dense((v.group * v.group * d, d_lm), (None, "embed")),
     }
 
 

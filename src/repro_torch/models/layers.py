@@ -9,6 +9,13 @@ Functions take parameter dicts of tensors in the JAX package's layout:
 weights are (in, out) and applied as ``x @ w``; attention tensors are
 (B, S, H, D).  Attention reads and the SSD scan go through
 ``kernels/ops.py``.
+
+Under a mesh (``sharding.ctx``), parameters and activations are
+DTensors: ``shctx.constrain`` marks the JAX package's tensor-parallel
+cut points, and the ops DTensor has no strategy for (the MoE routing,
+dispatch and combine, the f32-output products) or that cannot see a
+DTensor (the kernel ops) run on local shards through ``shctx.local``.
+Without a mesh both are no-ops.
 """
 from __future__ import annotations
 
@@ -22,9 +29,43 @@ from ..configs.base import ModelCfg
 from ..kernels import ops
 from ..kernels.ref import apply_rope_ref, ssd_decode_ref
 from ..kernels.transfer import host_of, nonzero, with_host
+from ..sharding import ctx as shctx
 
 NEG_INF = -1e30
 F32 = torch.float32
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """emb (V, d) rows at ``tokens``.  Under a mesh, on local shards: each
+    rank reads the tokens inside its slice of V (where 'vocab' splits it)
+    and zero elsewhere, a partial sum with one non-zero term per token;
+    the rows whole along d; tokens split as they are over the batch."""
+    mesh = shctx.mesh_of(emb)
+    if mesh is None:
+        return emb[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pe, pt, po, vocab = [], [], [], []
+    for ax, pw, ptok in zip(mesh.mesh_dim_names, emb.placements,
+                            shctx.replicated(tokens, mesh).placements):
+        if pw == Shard(0):
+            vocab.append(ax)
+            pe.append(Shard(0)); pt.append(Replicate()); po.append(Partial())
+        elif ptok == Shard(0):
+            pe.append(Replicate()); pt.append(Shard(0)); po.append(Shard(0))
+        else:
+            pe.append(Replicate()); pt.append(Replicate()); po.append(Replicate())
+
+    def local(e, t):
+        i, n = shctx.coordinate(mesh, tuple(vocab))
+        if n == 1:
+            return e[t]
+        V_l = e.shape[0]
+        t = t - i * V_l
+        inside = (t >= 0) & (t < V_l)
+        return torch.where(inside[..., None], e[t.clamp(0, V_l - 1)],
+                           torch.zeros((), dtype=e.dtype, device=e.device))
+
+    return shctx.local(local, (tuple(po),), (tuple(pe), tuple(pt)), mesh)(emb, tokens)
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -98,9 +139,9 @@ def _qkv(p, cfg: ModelCfg, x: torch.Tensor, positions: torch.Tensor):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, T, cfg.n_heads, dh)
-    k = k.reshape(B, T, cfg.n_kv, dh)
-    v = v.reshape(B, T, cfg.n_kv, dh)
+    q = shctx.constrain(shctx.split_last(q, cfg.n_heads, dh), "batch", None, "model", None)
+    k = shctx.constrain(shctx.split_last(k, cfg.n_kv, dh), "batch", None, "model", None)
+    v = shctx.constrain(shctx.split_last(v, cfg.n_kv, dh), "batch", None, "model", None)
     q = apply_rope_ref(q, positions, cfg.rope_theta)
     k = apply_rope_ref(k, positions, cfg.rope_theta)
     return q, k, v
@@ -130,7 +171,84 @@ class _F32BatchProduct(torch.autograd.Function):
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if shctx.is_dtensor(a):
+        return _local_product(_bmm_f32, a, b, batched=True)
     return torch.bmm(a, b) if a.dtype == F32 else torch.bmm(a, b, out_dtype=F32)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if shctx.is_dtensor(x):
+        return _local_product(_mm_f32, x, w, batched=False)
+    return torch.mm(x, w, out_dtype=F32)
+
+
+def _local_product(fn, a, b, *, batched: bool):
+    """``fn(a, b)`` on local shards (DTensor has no strategy for a
+    product with an f32 output): per mesh dim, a batched product keeps a
+    shard of the batch dim on both operands and the output; a 2-D one
+    keeps a's row shard, else b's column shard; every other dim whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    pa, pb, po = [], [], []
+    for da, db in zip(a.placements, b.placements):
+        if batched and (da == Shard(0) or db == Shard(0)):
+            pa.append(Shard(0)); pb.append(Shard(0)); po.append(Shard(0))
+        elif not batched and da == Shard(0):
+            pa.append(Shard(0)); pb.append(Replicate()); po.append(Shard(0))
+        elif not batched and db == Shard(1):
+            pa.append(Replicate()); pb.append(Shard(1)); po.append(Shard(1))
+        else:
+            pa.append(Replicate()); pb.append(Replicate()); po.append(Replicate())
+    return shctx.local(fn, (tuple(po),), (tuple(pa), tuple(pb)), a.device_mesh)(a, b)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's path: a CUDA tensor, or a meta one
+    (the dry run describes the card's program)."""
+    return t.device.type in ("cuda", "meta")
+
+
+def heads_local(fn, q, k, v, *rows):
+    """``fn(q, k, v, *rows)`` for attention q (B, Sq, H, D) over k, v (B,
+    Sk, K, D) and per-row tensors ``rows`` ((B, ...) or None).  Under a
+    mesh it runs on local shards: split over batch where q's batch is,
+    over heads where q's heads are (k and v by their own heads where K
+    divides that axis, else whole, each rank then taking the kv heads its
+    query heads read); the output is laid out as q.  Attention is
+    independent per (row, head), so no collective runs inside.  ``fn``
+    may flatten (H, D) into one dim: the output keeps q's split dims.
+    Without a mesh, ``fn`` itself."""
+    mesh = shctx.mesh_of(q, k, v)
+    if mesh is None:
+        return fn(q, k, v, *rows)
+    from torch.distributed.tensor import Replicate, Shard
+    H, K = q.shape[2], k.shape[2]
+    pq, pk, pr, head_axis = [], [], [], None
+    for ax, pl in zip(mesh.mesh_dim_names, q.placements):
+        n = mesh.size(mesh.mesh_dim_names.index(ax))
+        if pl == Shard(0):
+            pq.append(Shard(0)); pk.append(Shard(0)); pr.append(Shard(0))
+        elif pl == Shard(2) and head_axis is None:
+            head_axis = ax
+            pq.append(Shard(2)); pr.append(Replicate())
+            pk.append(Shard(2) if K % n == 0 else Replicate())
+        else:
+            pq.append(Replicate()); pk.append(Replicate()); pr.append(Replicate())
+    kv_whole = head_axis is not None and pk[mesh.mesh_dim_names.index(head_axis)] == Replicate()
+
+    def local(q, k, v, *rows):
+        if kv_whole:
+            j, _ = shctx.coordinate(mesh, head_axis)
+            g, H_l = H // K, q.shape[2]
+            kv0, kv1 = j * H_l // g, (j * H_l + H_l - 1) // g + 1
+            if H_l % (kv1 - kv0) or (j * H_l) % min(g, H_l):
+                raise ValueError(f"{H_l} query heads per rank do not cover whole kv "
+                                 f"groups of {g} (H {H}, K {K})")
+            k, v = k[:, :, kv0:kv1], v[:, :, kv0:kv1]
+        return fn(q, k, v, *rows)
+
+    row_pl = tuple(None if r is None else tuple(pr) for r in rows)
+    return shctx.local(local, (tuple(pq),), (tuple(pq), tuple(pk), tuple(pk)) + row_pl,
+                       mesh)(q, k, v, *rows)
 
 
 def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
@@ -145,13 +263,14 @@ def mha(q, k, v, qpos, kpos, kvalid=None, *, causal: bool = True,
     does: on the card as batched tensor-core GEMMs (``_F32BatchProduct``)
     over one bf16 copy of K and V in (B * K, Sk, dh) order; on the CPU,
     which has no such GEMM, as f32 einsums of the widened operands (bf16
-    products are exact in f32, so both give the same value).
+    products are exact in f32, so both give the same value).  On the meta
+    device (the dry run) as on the card.
     """
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     g = H // K
     scale = dh ** -0.5
-    gemm = q.device.type == "cuda"
+    gemm = on_card(q)
     if gemm:
         kt = k.transpose(1, 2).reshape(B * K, Sk, dh).transpose(1, 2)
         vt = v.transpose(1, 2).reshape(B * K, Sk, dh)
@@ -278,9 +397,14 @@ def attention_block(
     q, k, v = _qkv(p, cfg, x, positions)
     window = cfg.sliding_window
     if cache is None:
-        out = mha(q, k, v, positions, positions, valid, causal=causal, window=window,
-                  q_chunk=q_chunk)
-        return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"], None
+        out = heads_local(lambda q, k, v, pos, val: mha(
+            q, k, v, pos, pos, val, causal=causal, window=window, q_chunk=q_chunk).flatten(2),
+            q, k, v, positions, valid)
+        return out @ p["wo"], None
+    if shctx.mesh_of(cache.k) is not None:
+        return _attend_sharded_cache(p, cfg, q, k, v, positions, valid, cache,
+                                     cache_offset, cache_len, page_table, scatter_idx,
+                                     kv_valid, causal=causal, q_chunk=q_chunk)
     dev = x.device
     if page_table is not None:
         S = cache_len
@@ -335,30 +459,81 @@ def attention_block(
     return out, cache
 
 
+def _write_local(dst, src, offset: int) -> None:
+    """dst[:, offset:offset + T] = src for DTensors dst (B, S, ...) and src
+    (B, T, ...), written into dst's local shard: src is laid out as dst
+    (whole along the sequence), and where dst's sequence is split each
+    rank writes the part that falls in its range."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in dst.placements]
+    part = src.redistribute(mesh, pl).to_local()
+    lo, S_l = 0, dst.shape[1]
+    for ax, p in zip(mesh.mesh_dim_names, dst.placements):
+        if p == Shard(1):
+            i, n = shctx.coordinate(mesh, ax)
+            S_l = dst.shape[1] // n
+            lo = i * S_l
+    a, b = max(offset, lo), min(offset + part.shape[1], lo + S_l)
+    if a < b:
+        dst.to_local()[:, a - lo:b - lo] = part[:, a - offset:b - offset].to(dst.dtype)
+
+
+def _attend_sharded_cache(p, cfg, q, k, v, positions, valid, cache, cache_offset,
+                          cache_len, page_table, scatter_idx, kv_valid, *, causal, q_chunk):
+    """The cached attention on a mesh (the dry run's prefill and decode):
+    this chunk's K/V written contiguously at ``cache_offset`` into each
+    rank's shard of the per-stream caches, then ``ops.flash_refresh`` on
+    local shards (``heads_local``), the caches gathered whole along what
+    the query heads need."""
+    if page_table is not None or scatter_idx is not None:
+        raise ValueError("on a mesh the caches are per-stream and written contiguously "
+                         "(prefill, decode)")
+    B, T = q.shape[:2]
+    S = cache_len if cache_len is not None else cache.k.shape[1]
+    _write_local(cache.k, k, cache_offset)
+    _write_local(cache.v, v, cache_offset)
+    kval = (torch.arange(S, device=q.device) <= cache_offset + T - 1).expand(B, S)
+    if kv_valid is not None:
+        kval = kval & kv_valid[:, :S]
+    if valid is not None:
+        ones = torch.ones((B, S), dtype=torch.bool, device=q.device)
+        ones[:, cache_offset:cache_offset + T] = valid
+        kval = kval & ones
+    out = heads_local(lambda q, k, v, pos, kv: ops.flash_refresh(
+        q, k, v, pos, kv, causal=causal, window=cfg.sliding_window,
+        q_chunk=q_chunk).flatten(2),
+        q, cache.k[:, :S], cache.v[:, :S], positions, kval.contiguous())
+    return out @ p["wo"], cache
+
+
 def cross_attention_block(p, cfg: ModelCfg, x: torch.Tensor, enc_kv) -> torch.Tensor:
     """Whisper's decoder cross-attention: x (B, T, d) against the
     precomputed encoder (k, v) (B, S_enc, K, dh); no RoPE, no mask."""
     B, T, _ = x.shape
     dh = cfg.d_head
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, dh)
+    q = shctx.split_last(x @ p["wq"], cfg.n_heads, dh)
     k, v = enc_kv
     qpos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
     kpos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
-    out = mha(q, k, v, qpos, kpos, causal=False)
-    return out.reshape(B, T, cfg.n_heads * dh) @ p["wo"]
+    out = heads_local(lambda q, k, v, qp, kp: mha(q, k, v, qp, kp, causal=False).flatten(2),
+                      q, k, v, qpos, kpos)
+    return out @ p["wo"]
 
 
 def cross_attention_kv(p, cfg: ModelCfg, enc_out: torch.Tensor):
     """The encoder output's cross K/V of one decoder layer: (B, S, K, dh) each."""
     B, S, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv, cfg.d_head)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv, cfg.d_head)
+    k = shctx.split_last(enc_out @ p["wk"], cfg.n_kv, cfg.d_head)
+    v = shctx.split_last(enc_out @ p["wv"], cfg.n_kv, cfg.d_head)
     return k, v
 
 
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x Wg) * x Wu) Wd."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    hidden = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    hidden = shctx.constrain(hidden, *(("batch",) + (None,) * (hidden.ndim - 2) + ("model",)))
+    return hidden @ p["wd"]
 
 
 # ======================================================================
@@ -372,7 +547,7 @@ class _F32Product(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=F32)
+        return _mm_f32(x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -389,7 +564,7 @@ def f32_matmul(x: torch.Tensor, w: torch.Tensor, chunk: Optional[int] = None) ->
     differentiable).  On the CPU, which has no such GEMM, bf16 products
     are exact in f32, so the f32 product of the bf16 operands is the same
     value; ``chunk`` columns of w are widened at a time where w is large."""
-    if x.device.type == "cuda":
+    if on_card(x):
         lead = x.shape[:-1]
         return _F32Product.apply(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
     xf, n = x.to(F32), w.shape[1]
@@ -422,24 +597,52 @@ def moe_route(p, cfg, x2: torch.Tensor) -> MoERoute:
     the router product's f32 result (a rounded product would move the
     choices), top-k renormalised with a 1e-9 floor, the Switch aux loss, and
     static capacity ``cap = int(capacity_factor * n * k / E) + 1`` taken
-    in token order (a stable sort on the expert id)."""
+    in token order (a stable sort on the expert id).  Under a mesh the
+    gates are gathered and every rank routes all n rows (the sort is
+    global); the route's tensors are replicated."""
     n = x2.shape[0]
     E, k = cfg.n_experts, cfg.top_k
-    dev = x2.device
     gates = torch.softmax(f32_matmul(x2, p["router"]), dim=-1)
+    cap = int(cfg.capacity_factor * n * k / E) + 1
+    mesh = shctx.mesh_of(gates)
+    rep = shctx.whole(mesh)
+    route = shctx.local(lambda g: _route(cfg, cap, g), (rep,) * 6, (rep,), mesh)(gates)
+    return MoERoute(gates, *route[:5], cap, route[5])
+
+
+def _route(cfg, cap: int, gates: torch.Tensor):
+    """(topw, tope, order, slot, keep, aux) of the gates (n, E)."""
+    n = gates.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    dev = gates.device
     topw, tope = top_k_lower_first(gates, k)
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
     flat_e = tope.reshape(-1)
     counts = torch.zeros((E,), dtype=torch.long, device=dev).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     aux = E * torch.sum(counts.to(F32) / (n * k) * gates.mean(0))
-    cap = int(cfg.capacity_factor * n * k / E) + 1
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     pos = torch.arange(n * k, device=dev) - (torch.cumsum(counts, 0) - counts)[se]
     keep = pos < cap
     slot = se * cap + torch.where(keep, pos, cap - 1)
-    return MoERoute(gates, topw, tope, order, slot, keep, cap, aux)
+    return topw, tope, order, slot, keep, aux
+
+
+def _sorted_rows(order: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """(n, k): the sorted-order row of each token's k assignments,
+    ascending (the order the reference's scatter-add meets them)."""
+    where_sorted = torch.empty_like(order)
+    where_sorted[order] = torch.arange(n * k, device=order.device)
+    return torch.sort(where_sorted.view(n, k), dim=1).values
+
+
+def _sum_choices(ys: torch.Tensor) -> torch.Tensor:
+    """(n, k, d) -> (n, d): from zero, in ascending k, in ys' dtype."""
+    out = torch.zeros((ys.shape[0], ys.shape[2]), dtype=ys.dtype, device=ys.device)
+    for j in range(ys.shape[1]):
+        out = out + ys[:, j]
+    return out
 
 
 def combine_sorted(y: torch.Tensor, order: torch.Tensor, n: int, k: int) -> torch.Tensor:
@@ -448,13 +651,50 @@ def combine_sorted(y: torch.Tensor, order: torch.Tensor, n: int, k: int) -> torc
     in y's dtype, from zero, in ascending row order, which is the order in
     which the reference's scatter-add ``zeros.at[token].add(y)`` meets
     them.  A fixed order of plain adds: the same result on every run."""
-    where_sorted = torch.empty_like(order)
-    where_sorted[order] = torch.arange(n * k, device=y.device)
-    ys = y[torch.sort(where_sorted.view(n, k), dim=1).values]      # (n, k, d)
-    out = torch.zeros((n, y.shape[1]), dtype=y.dtype, device=y.device)
-    for j in range(k):
-        out = out + ys[:, j]
-    return out
+    return _sum_choices(y[_sorted_rows(order, n, k)])
+
+
+class _Block(NamedTuple):
+    """A rank's share of the MoE on a mesh: token rows [t0, t0 + n_l) of
+    n and experts [e0, e0 + E_l) of E."""
+
+    t0: int
+    n_l: int
+    n: int
+    e0: int
+    E_l: int
+    E: int
+
+
+def _dispatch(cap: int, k: int, blk: _Block, x2, order, slot, keep):
+    """The (E_l, cap, d) buffer of this rank's experts holding its own
+    token rows x2 (n_l, d) at their slots (zeros elsewhere); dropped
+    assignments, and others' rows, go to a scratch row."""
+    d = x2.shape[1]
+    st = torch.div(order, k, rounding_mode="floor")             # token of each
+    se = torch.div(slot, cap, rounding_mode="floor")
+    mine = (keep & (st >= blk.t0) & (st < blk.t0 + blk.n_l)
+            & (se >= blk.e0) & (se < blk.e0 + blk.E_l))
+    st = (st - blk.t0).clamp(0, blk.n_l - 1)
+    rows = blk.E_l * cap
+    buf = torch.zeros((rows + 1, d), dtype=x2.dtype, device=x2.device)
+    buf[torch.where(mine, slot - blk.e0 * cap, rows)] = x2[st]
+    return buf[:rows].view(blk.E_l, cap, d)
+
+
+def _combine(cap: int, k: int, blk: _Block, out_e, topw, order, slot, keep):
+    """This rank's tokens' sums (n_l, d) of their k expert outputs that
+    come from its experts, in ``combine_sorted``'s order; ``out_e``
+    (E_l, cap, d) holds every slot of those experts."""
+    d = out_e.shape[2]
+    sw = topw.reshape(-1).to(out_e.dtype)[order]
+    se = torch.div(slot, cap, rounding_mode="floor")
+    ours = (se >= blk.e0) & (se < blk.e0 + blk.E_l)
+    slot = torch.where(ours, slot - blk.e0 * cap, 0)
+    w = torch.where(keep & ours, sw, 0)
+    rows = _sorted_rows(order, blk.n, k)[blk.t0:blk.t0 + blk.n_l]   # (n_l, k)
+    ys = out_e.reshape(blk.E_l * cap, d)[slot[rows]] * w[rows][..., None]
+    return _sum_choices(ys)
 
 
 def moe_block(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -468,28 +708,96 @@ def moe_block(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     sorted assignments, so the sum is the same on every run (no
     atomics).  No host sync: drops are written to a scratch row of the
     dispatch buffer.  The expert products are plain batched GEMMs, as
-    the reference's einsums are.
+    the reference's einsums are.  A DTensor ``x`` takes
+    ``_moe_block_on_mesh``.
     """
+    if shctx.is_dtensor(x):
+        return _moe_block_on_mesh(p, cfg, x)
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
-    dev = x.device
     x2 = x.reshape(n, d)
     r = moe_route(p, cfg, x2)
     cap = r.cap
     st = torch.div(r.order, k, rounding_mode="floor")             # token of each
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[torch.where(r.keep, r.slot, E * cap)] = x2[st]
     buf = buf[:E * cap].view(E, cap, d)
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
     out_e = torch.bmm(h, p["wd"]).view(E * cap, d)
     sw = r.topw.reshape(-1).to(x.dtype)[r.order]
     y = out_e[r.slot] * torch.where(r.keep, sw, 0)[:, None]       # sorted order
-
     out = combine_sorted(y, r.order, n, k)
     if "residual" in p:
         out = out + mlp_block(p["residual"], x2)
     return out.reshape(B, T, d), r.aux
+
+
+def _moe_block_on_mesh(p, cfg, x):
+    """``moe_block`` expert-parallel, at the reference's cut points: each
+    rank routes every row, writes its own token rows into the buffer of
+    its experts (a partial sum over the batch axes: the constraint to
+    (experts on 'model', slots on the batch axes) reduce-scatters it),
+    the experts run on that layout, and each rank sums its tokens'
+    outputs from its experts (a partial sum over 'model', reduced by the
+    last constraint).  The same values as ``moe_block``'s on a 1x1 mesh."""
+    B, T, d = x.shape
+    n = B * T
+    x2 = shctx.constrain(x.reshape(n, d), "batch", None)
+    r = moe_route(p, cfg, x2)
+    share = _MoEShare(shctx.mesh_of(x2), n, cfg.n_experts)
+    buf = shctx.constrain(share.dispatch(r.cap, cfg.top_k, x2, r), "model", "batch", None)
+    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
+    h = shctx.constrain(h, "model", "batch", None)
+    out = share.combine(r.cap, cfg.top_k, torch.bmm(h, p["wd"]), r)
+    out = shctx.constrain(out, "batch", None)
+    if "residual" in p:
+        out = out + mlp_block(p["residual"], x2)
+    return out.reshape(B, T, d), r.aux
+
+
+class _MoEShare:
+    """The MoE's layout on a mesh: token rows split over the batch axes
+    (where they divide), experts over 'model' (where they divide)."""
+
+    def __init__(self, mesh, n: int, E: int):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        self.mesh, self.n, self.E = mesh, n, E
+        self.rows = shctx.resolve((n,), ("batch",), mesh)[0]
+        self.experts = shctx.resolve((E,), ("model",), mesh)[0]
+        row_axes = shctx.axes_of(self.rows)
+        rows, self.buf, self.exp, self.out = [], [], [], []
+        for ax in mesh.mesh_dim_names:
+            by_rows, by_exp = ax in row_axes, ax == self.experts
+            rows.append(Shard(0) if by_rows else Replicate())
+            # the buffer: each rank's rows summed over the batch axes
+            self.buf.append(Partial() if by_rows else Shard(0) if by_exp else Replicate())
+            self.exp.append(Shard(0) if by_exp else Replicate())
+            # the combine: each rank's experts' share summed over 'model'
+            self.out.append(Shard(0) if by_rows else Partial() if by_exp else Replicate())
+        self.x = tuple(rows)
+        self.rep = shctx.whole(mesh)
+
+    def block(self) -> _Block:
+        ti, tn = shctx.coordinate(self.mesh, self.rows)
+        ei, en = shctx.coordinate(self.mesh, self.experts)
+        n_l, E_l = self.n // tn, self.E // en
+        return _Block(ti * n_l, n_l, self.n, ei * E_l, E_l, self.E)
+
+    def dispatch(self, cap: int, k: int, x2, r: MoERoute):
+        """``_dispatch`` of each rank's own rows into its experts' block."""
+        fn = lambda xl, order, slot, keep: _dispatch(cap, k, self.block(), xl, order, slot, keep)
+        return shctx.local(fn, (tuple(self.buf),), (self.x, self.rep, self.rep, self.rep),
+                           self.mesh)(x2, r.order, r.slot, r.keep)
+
+    def combine(self, cap: int, k: int, out_e, r: MoERoute):
+        """``_combine`` of each rank's rows from its experts' outputs,
+        gathered whole over the batch axes."""
+        fn = lambda oe, topw, order, slot, keep: _combine(cap, k, self.block(), oe, topw,
+                                                          order, slot, keep)
+        return shctx.local(fn, (tuple(self.out),),
+                           (tuple(self.exp), self.rep, self.rep, self.rep, self.rep),
+                           self.mesh)(out_e, r.topw, r.order, r.slot, r.keep)
 
 
 # ======================================================================
@@ -528,6 +836,47 @@ def _gated_norm(p, cfg: ModelCfg, y: torch.Tensor, z: torch.Tensor) -> torch.Ten
     return y * torch.rsqrt(var + cfg.norm_eps) * p["norm"].to(F32)
 
 
+def scan_local(fn, x, log_a, b, c, init=None):
+    """``fn(x, log_a, b, c, init)`` -> (y, state) for the SSD scan: x (B,
+    L, H, P), log_a (B, L, H), b/c (B, L, G, N), init (B, H, P, N) or
+    None.  Under a mesh it runs on local shards: batch over the batch
+    axes where x's is split, heads over 'model' where they divide it
+    (b/c by groups where G divides too, else whole, each rank taking
+    its heads' groups); y and the state come out laid out the same way.
+    Without a mesh, ``fn`` itself."""
+    mesh = shctx.mesh_of(x, log_a, b, c, init)
+    if mesh is None:
+        return fn(x, log_a, b, c, init)
+    from torch.distributed.tensor import Replicate, Shard
+    H, G = x.shape[2], b.shape[2]
+    batch = shctx.axes_of(shctx.resolve(x.shape, ("batch",), mesh)[0])
+    heads = shctx.resolve((H,), ("model",), mesh)[0]
+    px, pa, pb, ps = [], [], [], []
+    for ax in mesh.mesh_dim_names:
+        n = mesh.size(mesh.mesh_dim_names.index(ax))
+        if ax in batch:
+            px.append(Shard(0)); pa.append(Shard(0)); pb.append(Shard(0)); ps.append(Shard(0))
+        elif ax == heads:
+            px.append(Shard(2)); pa.append(Shard(2)); ps.append(Shard(1))
+            pb.append(Shard(2) if G % n == 0 else Replicate())
+        else:
+            for lst in (px, pa, pb, ps):
+                lst.append(Replicate())
+    groups_whole = heads is not None and G % mesh.size(mesh.mesh_dim_names.index(heads))
+
+    def local(x, log_a, b, c, init):
+        if groups_whole:
+            j, _ = shctx.coordinate(mesh, heads)
+            H_l, per = x.shape[2], H // G
+            g0, g1 = j * H_l // per, (j * H_l + H_l - 1) // per + 1
+            b, c = b[:, :, g0:g1], c[:, :, g0:g1]
+        return fn(x, log_a, b, c, init)
+
+    px, pa, pb, ps = tuple(px), tuple(pa), tuple(pb), tuple(ps)
+    return shctx.local(local, (px, ps), (px, pa, pb, pb, None if init is None else ps),
+                       mesh)(x, log_a, b, c, init)
+
+
 def mamba_block(p, cfg: ModelCfg, x: torch.Tensor,
                 cache: Optional[SSMCache] = None) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """Mamba-2 mixer over a chunk.  x (B, T, d).  With ``cache`` (one
@@ -538,7 +887,7 @@ def mamba_block(p, cfg: ModelCfg, x: torch.Tensor,
     di, nh, P = s.d_inner(d), s.n_heads(d), s.head_dim
     gn = s.n_groups * s.d_state
 
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = shctx.constrain(x @ p["in_proj"], "batch", None, "model")
     z, xin, bc, dt = torch.split(zxbcdt, [di, di, 2 * gn, nh], dim=-1)
     conv_in = torch.cat([xin, bc], dim=-1)
     conv_out, new_tail = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
@@ -548,13 +897,14 @@ def mamba_block(p, cfg: ModelCfg, x: torch.Tensor,
     dt = F.softplus(dt.to(F32) + p["dt_bias"].to(F32))                # (B, T, nh)
     A = -torch.exp(p["A_log"].to(F32))
     log_a = dt * A[None, None, :]
-    xh = (xin.to(F32) * dt.repeat_interleave(P, dim=-1)).reshape(B, T, nh, P)
-    bg = b.reshape(B, T, s.n_groups, s.d_state)
-    cg = c.reshape(B, T, s.n_groups, s.d_state)
+    xh = shctx.split_last(xin.to(F32) * dt.repeat_interleave(P, dim=-1), nh, P)
+    bg = shctx.split_last(b, s.n_groups, s.d_state)
+    cg = shctx.split_last(c, s.n_groups, s.d_state)
 
-    y, final_state = ops.ssd_scan(
+    y, final_state = scan_local(
+        lambda *a: ops.ssd_scan(*a, chunk=s.chunk),
         xh.to(x.dtype), log_a, bg.to(x.dtype), cg.to(x.dtype),
-        cache.ssm if cache is not None else None, chunk=s.chunk)
+        cache.ssm if cache is not None else None)
     y = (y.reshape(B, T, di).to(F32)
          + xin.to(F32) * p["D"].to(F32).repeat_interleave(P)[None, None, :])
     out = _gated_norm(p, cfg, y, z).to(x.dtype) @ p["out_proj"]

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelCfg
 from ..kernels.transfer import with_host
+from ..sharding import ctx as shctx
 from . import layers
 from .layers import KVCache, SSMCache
 
@@ -139,6 +140,10 @@ def run_stack(cfg: ModelCfg, params, h: torch.Tensor, positions: torch.Tensor,
     aux = torch.zeros((), dtype=F32, device=h.device)
 
     def body(i, h):
+        if shctx.seq_sharding() and h.shape[1] > 1:
+            # sequence-parallel layer boundary: the residual stream split
+            # over (batch, seq), cutting what remat saves by the TP degree
+            h = shctx.constrain(h, "batch", "model", None)
         auxes = []
         for pos in range(cfg.period):
             blk = caches.blocks[pos] if caches is not None else None
@@ -165,7 +170,7 @@ def run_stack(cfg: ModelCfg, params, h: torch.Tensor, positions: torch.Tensor,
 
 
 def embed_tokens(cfg: ModelCfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    return layers.embed_lookup(params["embed"], tokens)
 
 
 def embed_inputs(cfg: ModelCfg, params, tokens: torch.Tensor, inputs_embeds=None,

@@ -45,12 +45,13 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params, cfg: OptCfg) -> OptState:
-    """Zero moments shaped like ``params`` in the state dtype; step 0 on
-    the device of the first leaf."""
+    """Zero moments shaped like ``params`` in the state dtype (a DTensor
+    leaf's moments are DTensors of its placements); step 0 on the device
+    of the first leaf."""
     dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else F32
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
 
     dev = tree_leaves(params)[0].device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev),

@@ -19,6 +19,8 @@ from ..configs.base import ModelCfg
 from ..models import layers
 from ..models import transformer as tfm
 from ..models.init import map_tree, tree_leaves
+from ..sharding import ctx as shctx
+from ..sharding.ctx import is_dtensor
 from .optimizer import OptCfg, OptState, apply_updates
 
 F32 = torch.float32
@@ -51,11 +53,43 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tenso
     return ce.sum() / denom + zloss
 
 
+def gold_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """logits (..., V) at ``targets`` (...).  A DTensor split over V (the
+    head's 'vocab' axis) is read on local shards: each rank takes the
+    targets inside its slice of V and zero elsewhere, a partial sum over
+    that axis that holds one non-zero term per row (the vocab-parallel
+    cross-entropy; DTensor's own gather on a split dim masks only 2-D
+    results)."""
+    if not shctx.is_dtensor(logits):
+        return logits.gather(-1, targets.long()[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    pl, pt, po, vocab = [], [], [], []
+    for ax, p in zip(mesh.mesh_dim_names, logits.placements):
+        if p == Shard(last) or p == Shard(-1):
+            vocab.append(ax)
+            pl.append(Shard(last)); pt.append(Replicate()); po.append(Partial())
+        elif isinstance(p, Shard) and p.dim < last:
+            pl.append(p); pt.append(p); po.append(p)
+        else:
+            pl.append(Replicate()); pt.append(Replicate()); po.append(Replicate())
+
+    def local(lg, t):
+        i, n = shctx.coordinate(mesh, tuple(vocab))
+        V_l = lg.shape[-1]
+        t = t.long() - i * V_l
+        inside = (t >= 0) & (t < V_l)
+        g = lg.gather(-1, t.clamp(0, V_l - 1)[..., None])[..., 0]
+        return torch.where(inside, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+    return shctx.local(local, (tuple(po),), (tuple(pl), tuple(pt)), mesh)(logits, targets)
+
+
 def _ce_chunk(hc, head, tc, mc):
     """(CE sum, z sum) of one chunk: its f32 logits (B, c, V) live only here."""
     logits = layers.f32_matmul(hc, head, tfm.HEAD_CHUNK)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, tc.long()[..., None])[..., 0]
+    gold = gold_logits(logits, tc)
     return torch.sum((logz - gold) * mc), torch.sum((logz * mc) ** 2)
 
 
@@ -118,7 +152,9 @@ def make_train_step(cfg: ModelCfg, opt_cfg: OptCfg, *, q_chunk: int = 1024,
 
     ``microbatch > 1`` accumulates gradients (in ``acc_dtype``) over that
     many sequential micro-steps, each taking consecutive rows of the
-    batch; loss, CE and aux are their means."""
+    batch (a DTensor batch, split over the mesh's batch axes: every
+    microbatch-th row, so each micro-step stays split; the means are the
+    same sums in another order); loss, CE and aux are their means."""
 
     def grad_of(params, batch):
         loss, (ce, aux) = loss_fn(cfg, params, batch, q_chunk=q_chunk, remat=remat)
@@ -132,10 +168,14 @@ def make_train_step(cfg: ModelCfg, opt_cfg: OptCfg, *, q_chunk: int = 1024,
                 if x is None:
                     return None
                 n = x.shape[0] // microbatch
+                if is_dtensor(x):
+                    # every microbatch-th row: the rows stay split over the
+                    # batch axes (a slice of the split dim would gather it)
+                    return x.reshape((n, microbatch) + tuple(x.shape[1:]))[:, j]
                 return x[j * n:(j + 1) * n]
 
-            grads = map_tree(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
-                             params)
+            grads = map_tree(lambda p: torch.zeros_like(
+                p, dtype=acc_dtype, memory_format=torch.contiguous_format), params)
             loss = ce = aux = torch.zeros((), dtype=F32, device=batch.tokens.device)
             for j in range(microbatch):
                 mb = Batch(*(part(f, j) for f in batch))

@@ -364,7 +364,8 @@ def test_launch_train_main_on_cpu(tmp_path, capsys):
         assert int(data["__step__"]) == 3
         assert "params/['blocks']/[0]/['mixer']/['wq']" in data.files
         assert "opt/.mu/['embed']" in data.files and "opt/.step" in data.files
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # the production mesh needs its 256 ranks; this process has none
+    with pytest.raises(ValueError, match="256"):
         tlaunch.train("deepseek-7b-smoke", 1, 2, 8, mesh_kind="single", device="cpu")
 
 
