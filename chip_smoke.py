@@ -7,13 +7,15 @@ and check them.
     python3 chip_smoke.py --only whisper [--src DIR]
     python3 chip_smoke.py --only families [--src DIR]
     python3 chip_smoke.py --only mesh
+    python3 chip_smoke.py --only hosttime [--src DIR]
 
 With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
-contract line (``--only mha``, ``--only families``, ``--only whisper``
-and ``--only mesh``: phase 3's mha probe, phase 7 alone, phase 8(b)
-alone, phase 8(b) then 9); ``--src`` drives the ``repro_torch`` of another checkout's
+contract line (``--only mha``, ``--only families``, ``--only whisper``,
+``--only mesh`` and ``--only hosttime``: phase 3's mha probe, phase 7
+alone, phase 8(b) alone, phase 8(b) then 9, and phase 3(c)'s host time
+per call alone); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
 ``git archive`` can be timed in the same call: parent, change, change,
 parent.
@@ -78,6 +80,22 @@ Phases (any failure exits non-zero):
                internvl3-14b's encode_full against the f32-widened
                formula within HEAD_TOL, with no f32 copy of K, V or P and
                a peak below the widened formula's.
+     (c) contracts — every eligibility rule of kernels/contracts.py
+               provoked once on the card (kernels.audit.refusal_cases):
+               the call must raise KernelIneligibleError naming the rule,
+               with no launch; the same call on CPU tensors must record the
+               same code in ops.card_verdicts() and equal the plain
+               version.  Every op once at the full serving widths
+               (kernels.audit.serving_cases: internvl3-14b's LM and ViT,
+               448^2 frames, mamba2-2.7b's SSD): the registry takes it on
+               meta tensors and it launches on the card.  Then the host
+               time per call of ops.mv_sad, ops.ssd_scan and
+               ops.flash_refresh_paged and of their CUDA wrappers at
+               serving shapes (``--only hosttime`` prints these alone, for
+               a parent/change A/B).  card_verdicts() is set to 0 before
+               phase 4; after phase 7 it must hold only "ok", and every
+               window served in phases 4, 5 and 7 must report
+               kernel_fallbacks 0.
   4. serve   — internvl3-14b at full width and depth with random weights
                made on the card from a seed: 2 streams x 24 frames at
                448^2 (one fresh and two incremental windows each) through
@@ -217,6 +235,10 @@ Phases (any failure exits non-zero):
                with finite, positive terms, printing the peak GiB per
                device, the terms, the dominant one, the kernel ops' work
                and the seconds.
+ 10. examples — examples/torch_quickstart.py, torch_streaming_analytics.py
+               (2 streams x 16 frames) and torch_train_anomaly_vlm.py (20
+               steps, 4 videos), each a subprocess on the card: exit 0 and
+               the lines of their JAX twins.
 
 The two lines before the last are the JSON kernel table and the card's
 name and power limit as nvidia-smi gives them; the last line is
@@ -1278,7 +1300,9 @@ def serve(torch, pipe, videos, on_event=None):
             on_event(ev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return sched, [sched.session(s).results for s in sids], wall
+    results = [sched.session(s).results for s in sids]
+    tally_fallbacks(results)
+    return sched, results, wall
 
 
 # (label, mode, KVCfg overrides and packed_vit) of the paths served after
@@ -1677,6 +1701,7 @@ def engine_run(torch, pipe, videos, pipelined: bool, max_concurrent: int, on_eve
     torch.cuda.synchronize()
     validator.assert_complete()
     res = [sched.session(s).results for s in sids]
+    tally_fallbacks(res)
     n = sum(len(r) for r in res)
     spans = sum(r.stats.t_vit + r.stats.t_prefill + r.stats.t_decode for rr in res for r in rr)
     return dict(
@@ -2636,6 +2661,200 @@ def mesh_phase(torch, smi: str) -> bool:
     return ok
 
 
+# ----------------------------------------------------------------------
+# phase 3(c): the kernel-contract registry on the card
+# ----------------------------------------------------------------------
+# windows served in phases 4, 5 and 7, and those reporting kernel calls
+# the card refused (there must be none: a refused call raises)
+SERVED = Counter()
+
+
+def tally_fallbacks(results) -> None:
+    """Count the windows of ``results`` (per-stream lists of
+    WindowResult) and those with ``kernel_fallbacks`` above 0."""
+    for rr in results:
+        for r in rr:
+            SERVED["windows"] += 1
+            SERVED["with fallbacks"] += r.stats.kernel_fallbacks > 0
+
+
+def same_outputs(torch, out, want) -> bool:
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(want, tuple) else (want,)
+    return len(outs) == len(wants) and all(torch.equal(a, b) for a, b in zip(outs, wants))
+
+
+def contracts_phase(torch) -> bool:
+    """Every eligibility rule provoked on the card and on CPU tensors,
+    every op at its full serving widths, then the ops' host time."""
+    from repro_torch.kernels import audit, contracts, ops
+    t0 = time.perf_counter()
+    on_card, on_cpu = audit.refusal_cases("cuda"), audit.refusal_cases("cpu")
+    bad = []
+    for key in sorted(on_card):
+        (contract, code), (op, call, _) = key, on_card[key]
+        before = ops.launch_counts().get(op, 0)
+        try:
+            call()
+            got = "launched"
+        except contracts.KernelIneligibleError as e:
+            got = "raised" if f"eligibility '{code}' failed" in str(e) else f"raised: {e}"
+        torch.cuda.synchronize()
+        launched = ops.launch_counts().get(op, 0) - before
+        op_c, call_c, plain_c = on_cpu[key]
+        ops.reset_card_verdicts()
+        out = call_c()
+        verdicts = ops.card_verdicts()
+        if not (got == "raised" and launched == 0 and verdicts == {op_c: {code: 1}}
+                and same_outputs(torch, out, plain_c())):
+            bad.append(f"{contract} '{code}': card {got}, {launched} launches; CPU verdicts "
+                       f"{verdicts}")
+    log(f"contracts: {len(on_card)} eligibility rules of {len(contracts.CONTRACTS)} ops "
+        f"provoked on the card, each refused naming its rule with no launch, and on CPU "
+        f"tensors, each recorded in card_verdicts() with the plain version's output: "
+        f"{len(on_card) - len(bad)} of {len(on_card)} held; rules no ops call reaches first: "
+        f"{sorted(audit.SHADOWED)}")
+    for b in bad:
+        log(f"FAIL: contracts: {b}")
+    ops.reset_card_verdicts()
+    for call in audit.serving_cases("meta").values():
+        call()
+    meta = ops.card_verdicts()
+    cases = audit.serving_cases("cuda")
+    launched = {}
+    for op, call in cases.items():
+        before = ops.launch_counts().get(op, 0)
+        call()
+        launched[op] = ops.launch_counts().get(op, 0) - before
+    torch.cuda.synchronize()
+    del cases
+    full_ok = (meta == {op: {"ok": 1} for op in launched}
+               and all(n == 1 for n in launched.values()))
+    log(f"contracts: full serving widths (internvl3-14b LM H 40 / Hkv 8 D 128, ViT H 16 D 64, "
+        f"448^2 frames, mamba2-2.7b SSD H 80 P 64 N 128): verdicts on meta tensors {meta}; "
+        f"launches on the card {launched}")
+    if not full_ok:
+        log("FAIL: contracts: an op at serving widths was refused or did not launch")
+    log(f"contracts: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return not bad and full_ok and host_times(torch)
+
+
+def host_times(torch, calls: int = 200, reps: int = 9) -> bool:
+    """Host time per call of ops.mv_sad, ops.ssd_scan and
+    ops.flash_refresh_paged and of their CUDA wrappers at internvl3-14b's
+    and mamba2-2.7b's serving shapes: ``reps`` runs of ``calls`` calls
+    with no sync between them (the card runs behind); the median and the
+    least run (the host is shared, so the least is the least disturbed).
+    Uses only what every checkout since the wrappers were split from ops
+    has, so ``--src`` can time a parent in the same call."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import WindowLayout, capacity_groups, refresh_block_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_refresh import build_block_map, flash_refresh_paged_cuda
+    from repro_torch.kernels.mv_sad import mv_sad_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cur = torch.rand((HW, HW), generator=g, device="cuda") * 255
+    prev = torch.roll(cur, (2, 3), (0, 1))
+    x = torch.randn((2, 8, 80, 64), generator=g, device="cuda").bfloat16()
+    la = -torch.rand((2, 8, 80), generator=g, device="cuda")
+    b = torch.randn((2, 8, 1, 128), generator=g, device="cuda").bfloat16()
+    init = torch.randn((2, 80, 64, 128), generator=g, device="cuda")
+    v = get_config(ARCH).vit
+    lay = WindowLayout(window=16, stride=4, gop=4, g_tokens=v.n_groups,
+                       k_tokens=capacity_groups(v, 0.5), query_len=16)
+    slots = -(-(lay.total_len + 16) // 128) * 128
+    pps = slots // 128
+    slab = torch.randn((2 * slots, 8, 128), generator=g, device="cuda").bfloat16()
+    pt = torch.arange(2 * pps, dtype=torch.int32, device="cuda").reshape(2, pps)
+    kvv = torch.ones((2, slots), dtype=torch.bool, device="cuda")
+    cases = {}
+    for label, bm in (("decode", build_block_map([lay.total_len], slots)),
+                      ("selective refresh", refresh_block_map(lay, kv_len=slots))):
+        qp = torch.as_tensor(np.broadcast_to(bm.q_pos[:bm.n_q], (2, bm.n_q)).copy(),
+                             device="cuda")
+        q = torch.randn((2, bm.n_q, 40, 128), generator=g, device="cuda").bfloat16()
+        cases[f"flash_refresh_paged ({label}, q {tuple(q.shape)})"] = (
+            lambda q=q, qp=qp, bm=bm: ops.flash_refresh_paged(q, slab, slab, qp, kvv, pt,
+                                                              block_map=bm),
+            lambda q=q, bm=bm: flash_refresh_paged_cuda(q, slab, slab, kvv, pt, bm))
+    cases = {
+        f"mv_sad ({HW}^2)": (lambda: ops.mv_sad(cur, prev, 16, 4),
+                             lambda: mv_sad_cuda(cur, prev, 16, 4)),
+        "ssd_scan (query, x (2, 8, 80, 64), N 128)": (
+            lambda: ops.ssd_scan(x, la, b, b, init, 256),
+            lambda: ssd_scan_cuda(x, la, b, b, init, 256)),
+        **cases,
+    }
+    with torch.no_grad():
+        for name, fns in cases.items():
+            got = []
+            for fn in fns:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                wall = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    wall.append((time.perf_counter() - t0) / calls * 1e6)
+                    torch.cuda.synchronize()
+                got.append((float(np.median(wall)), min(wall)))
+            (ow, ol), (ww, wl) = got
+            READINGS.setdefault("hosttime", {})[name] = dict(ops=ow, wrapper=ww)
+            log(f"hosttime: {name}: ops {ow:.2f} us per call (least {ol:.2f}), wrapper "
+                f"{ww:.2f} us (least {wl:.2f}); median of {reps} runs of {calls} calls")
+    return True
+
+
+# ----------------------------------------------------------------------
+# phase 10: the examples on the card
+# ----------------------------------------------------------------------
+EXAMPLES = (
+    ("torch_quickstart.py", (), (
+        r"^stream: \(16, 112, 112\), anomaly frames: 8$",
+        r"^motion vectors: \(16, 7, 7, 2\), mean \|v\| on P-frames: \d+\.\d\d px$",
+        r"^pruning: \{'kept_tokens': \d+, 'total_tokens': 256, ",
+        r"^window: answer=(Yes|No) tokens=\d+/\d+ refreshed=\d+ GFLOP=\d+\.\d{3}$")),
+    ("torch_streaming_analytics.py", ("--streams", "2", "--frames", "16"), (
+        r"^  cam-[01]: done after 3 windows$",
+        r"^mode=codecflow arch=internvl3-14b-smoke$",
+        r"^streams=2 windows=6 wall=\d+\.\ds \(\d+\.\d\d windows/s aggregate\)$",
+        r"^window latency p50=\d+\.\d{3}s p99=\d+\.\d{3}s  ttft p50=\d+\.\d{3}s$",
+        r"^decisions=\[[01], [01]\] truths=\[[01], [01]\]  P=\d\.\d\d R=\d\.\d\d F1=\d\.\d\d$",
+        r"^total GFLOP=\d+\.\d\d$")),
+    ("torch_train_anomaly_vlm.py", ("--steps", "20", "--videos", "4"), (
+        r"^training tiny VLM \(0\.\dM params\) for 20 steps on synthetic anomaly streams\.\.\.$",
+        r"^  anomaly-train step   19 nll \d+\.\d{4} acc \d\.\d\d$",
+        r"^eval fullcomp   F1=\d\.\d\d$",
+        r"^eval codecflow  F1=\d\.\d\d$")),
+)
+
+
+def examples_phase(src: Path) -> bool:
+    """Each example in a subprocess on the card (its default device):
+    exit 0 and every line its JAX twin prints."""
+    ok = True
+    for name, flags, patterns in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / name), *flags],
+                              env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+                              text=True, timeout=600, cwd=ROOT)
+        lines = proc.stdout.splitlines()
+        missing = [p for p in patterns if not any(re.search(p, ln) for ln in lines)]
+        here = proc.returncode == 0 and not missing
+        log(f"examples: {name} {' '.join(flags)}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; last lines {lines[-2:]}")
+        if not here:
+            log(f"FAIL: examples: {name}: missing {missing}; stderr {proc.stderr[-2000:]}")
+        ok = ok and here
+    return ok
+
+
 def h100_rates():
     """(HBM bytes/s, bf16 tensor FLOP/s, f32 FLOP/s) from this checkout's
     ``analysis/roofline.py``, the port's one copy of them, whichever
@@ -2702,6 +2921,7 @@ def main(argv=None) -> int:
         log(f"FAIL: attention kernels spill registers: {spilled}")
         return 1
     probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0],
+              "hosttime": lambda: host_times(torch),
               "mesh": lambda: train_whisper(torch)[0] and mesh_phase(torch, smi),
               "families": lambda: serve_families(torch)[0]}
     if only and only <= set(probes):
@@ -2810,10 +3030,15 @@ def main(argv=None) -> int:
     if not mha_probe(torch):
         log("FAIL: the dense mha")
         return 1
+    if not contracts_phase(torch):
+        log("FAIL: contracts phase")
+        return 1
 
     # -- 4. serve -------------------------------------------------------
     ops.reset_launch_counts()
     ops.reset_dispatch_counts()
+    ops.reset_card_verdicts()
+    SERVED.clear()
     torch.cuda.reset_peak_memory_stats()
     sched, per_stream, wall = serve(torch, pipe, videos)
     launches = ops.launch_counts()
@@ -2919,6 +3144,13 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches_by_path"].update(
             {lab: n[row["name"]] for lab, n in family_by_path.items() if row["name"] in n})
+    verdicts = ops.card_verdicts()
+    log(f"contracts: card_verdicts() over phases 4-7 {verdicts}; windows served in phases 4, "
+        f"5 and 7: {SERVED['windows']}, with kernel_fallbacks > 0: {SERVED['with fallbacks']}")
+    if (any(set(c) != {"ok"} for c in verdicts.values()) or SERVED["with fallbacks"]
+            or not SERVED["windows"]):
+        log("FAIL: a serving call the card refuses")
+        return 1
 
     # -- 8. training: whisper-large-v3 at full size, the anomaly task ------
     ok, train_by_path = train_phase(torch)
@@ -2932,6 +3164,11 @@ def main(argv=None) -> int:
     # -- 9. mesh: the host mesh, the roofline of a step, the dry run -------
     if not mesh_phase(torch, smi):
         log("FAIL: mesh phase")
+        return 1
+
+    # -- 10. the examples on the card -------------------------------------
+    if not examples_phase(Path(args.src).resolve()):
+        log("FAIL: examples phase")
         return 1
 
     print(json.dumps({"kernels": rows}))

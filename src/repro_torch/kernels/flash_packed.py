@@ -15,8 +15,9 @@ a dozen instructions a score).  That is exact when every segment is one
 contiguous run of its row, which ``core.pruning.pack_plan`` guarantees
 (a frame's kept patches never split); ``build_pack_map`` records each
 slot's run and whether the layout has that property, and
-``flash_packed_cuda`` refuses a layout that does not (precondition
-``single-run``).  The plain version takes any layout.
+``flash_packed_cuda`` refuses a layout that does not (eligibility rule
+``single-run`` of ``contracts.FLASH_PACKED``).  The plain version takes
+any layout.
 
 Bound on an H100: tensor-core operations on the visited block-diagonal
 tiles (at D = 64 each tile pair does 4*128*128*64 flops on 32 KB of
@@ -37,13 +38,11 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from . import cuda
+from . import contracts, cuda
 from .transfer import upload
-from .cuda import KernelContractError
 from .ref import flash_packed_ref
 
 NAME = "flash_packed"
-TILE = 128
 
 
 class DevicePackMap(NamedTuple):
@@ -202,21 +201,18 @@ def flash_packed_plain(q, k, v, seg_id, *, q_chunk: int = 1024):
 def flash_packed_cuda(q, k, v, block_map: PackBlockMap):
     """Launch the kernel: q (R, L, H, D), k, v (R, L, Hkv, D) bf16 over
     the layout ``block_map`` was built from (the kernel masks by its
-    runs).  A layout whose segments are not single runs raises
-    ``KernelContractError``."""
+    runs).  Operands the kernel does not take raise, a layout whose
+    segments are not single runs as eligibility ``single-run``."""
+    seg = block_map.on(q.device).seg_id      # the map's own layout stands in for seg_id
+    contracts.require(contracts.flash_packed_verdict(q, k, v, seg, block_map), NAME)
+    return flash_packed_launch(q, k, v, block_map)
+
+
+def flash_packed_launch(q, k, v, block_map: PackBlockMap):
+    """The launch alone, for operands the registry took (``ops``)."""
     R, L, H, D = q.shape
     Hkv = k.shape[2]
     bm = block_map
-    cuda.require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
-                 and v.dtype == torch.bfloat16, NAME, "q/k/v must be bf16")
-    cuda.require(D in cuda.HEAD_DIMS, NAME, f"head dim {D}")
-    cuda.require(bm.tq == TILE and bm.tk == TILE and L % TILE == 0, NAME,
-                 "tiles must be 128 and L a multiple of 128")
-    cuda.require(tuple(bm.seg_id.shape) == (R, L), NAME, "map built for another geometry")
-    if not bm.single_run:
-        raise KernelContractError(
-            f"{NAME}: precondition 'single-run' violated (the kernel masks by "
-            "key range: every segment must be one contiguous run of its row)")
     dm = bm.on(q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require_aligned(NAME, q, k, v)

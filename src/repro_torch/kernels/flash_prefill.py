@@ -37,13 +37,12 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda
+from . import contracts, cuda
 from .ref import flash_prefill_ref, paged_gather
 
 NAME = "flash_prefill"
 NAME_PAGED = "flash_prefill_paged"
 NAME_INT8 = "flash_prefill_paged_int8"
-TILE = 128
 
 
 def flash_prefill_plain(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -68,23 +67,20 @@ def flash_prefill_paged_plain(q, k, v, page_table, *, page: int = 128,
                                q_offset=q_offset, q_chunk=q_chunk)
 
 
-def _check(name: str, q, k, v) -> None:
-    cuda.require(q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16
-                 and v.dtype == torch.bfloat16, name, "q/k/v must be bf16")
-    cuda.require(q.shape[3] == k.shape[-1] and q.shape[3] in cuda.HEAD_DIMS, name,
-                 f"head dim {q.shape[3]}")
-    cuda.require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(), name,
-                 "q/k/v must be contiguous")
-    cuda.require_aligned(name, q, k, v)
-
-
 def flash_prefill_cuda(q, k, v, *, causal: bool = True, window: int | None = None,
                        q_offset: int = 0):
     """Launch the dense kernel: q (B, Sq, H, D) bf16; k, v (B, Sk, Hkv, D)
-    bf16; any Sq and Sk."""
+    bf16, contiguous; any Sq and Sk.  Operands the kernel does not take
+    (``contracts.FLASH_PREFILL``) raise."""
+    contracts.require(contracts.flash_prefill_verdict(
+        q, k, v, causal=causal, window=window, q_offset=q_offset), NAME)
+    return flash_prefill_launch(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def flash_prefill_launch(q, k, v, *, causal: bool, window: int | None, q_offset: int):
+    """The launch alone, for operands the registry took (``ops``)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    _check(NAME, q, k, v)
     out = torch.empty_like(q)
     rc = cuda.library().cs_attn_prefill_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, D,
@@ -101,12 +97,21 @@ def flash_prefill_paged_cuda(q, k, v, page_table, *, page: int = 128,
     """Launch the paged kernel (causal), the int8 one when ``cold = (k8,
     v8, k_scale, v_scale)`` is given.  q (B, Sq, H, D) bf16, any Sq; k, v
     (P_phys, Hkv, D) bf16 (hot) slab; page_table (B, n_pages) int; k8, v8
-    (n_cold * page, Hkv, D) int8; k_scale, v_scale (n_cold, Hkv) f32."""
+    (n_cold * page, Hkv, D) int8; k_scale, v_scale (n_cold, Hkv) f32; all
+    contiguous.  Operands the kernel does not take raise."""
+    contracts.require(contracts.flash_prefill_paged_verdict(
+        q, k, v, page_table, page=page, causal=True, window=window, q_offset=q_offset,
+        cold=cold), NAME_PAGED if cold is None else NAME_INT8)
+    return flash_prefill_paged_launch(q, k, v, page_table, page=page, window=window,
+                                      q_offset=q_offset, cold=cold)
+
+
+def flash_prefill_paged_launch(q, k, v, page_table, *, page: int, window: int | None,
+                               q_offset: int, cold):
+    """The launch alone, for operands the registry took (``ops``)."""
     name = NAME_PAGED if cold is None else NAME_INT8
     B, Sq, H, D = q.shape
     P_phys, Hkv, _ = k.shape
-    _check(name, q, k, v)
-    cuda.require(page == TILE, name, "pages must be 128 rows")
     n_pages = page_table.shape[1]
     pt = page_table.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -118,17 +123,6 @@ def flash_prefill_paged_cuda(q, k, v, page_table, *, page: int = 128,
         rc = cuda.library().cs_attn_prefill_paged_bf16(*common, *shape)
     else:
         k8, v8, k_scale, v_scale = cold
-        cuda.require(k8.dtype == torch.int8 and v8.dtype == torch.int8
-                     and k8.shape == v8.shape and tuple(k8.shape[1:]) == (Hkv, D),
-                     name, "cold slab must be int8 (n_cold * 128, Hkv, D)")
-        n_cold = k8.shape[0] // page
-        cuda.require(k8.shape[0] % page == 0 and tuple(k_scale.shape) == (n_cold, Hkv)
-                     and k_scale.shape == v_scale.shape and k_scale.dtype == torch.float32
-                     and v_scale.dtype == torch.float32, name,
-                     "scales must be f32 (n_cold, Hkv)")
-        cuda.require(all(t.is_contiguous() for t in cold), name,
-                     "cold slabs and scales must be contiguous")
-        cuda.require_aligned(name, k8, v8)
         rc = cuda.library().cs_attn_prefill_paged_int8(
             *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), P_phys // page, *shape)

@@ -34,7 +34,8 @@ products are ``mma.sync`` m16n8k16 bf16 -> f32 with S, P and O in
 registers around an f32 online softmax with the masked multiply.  Query
 rows past Sq are neither read nor written, so the query is not padded.
 
-Operands the kernels take (the wrappers raise on anything else): bf16
+Operands the kernels take (``contracts.FLASH_REFRESH`` and
+``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16
 q/k/v with head dim 24, 32, 64 or 128; 128-row map tiles and pages; q, k,
 v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
 is copied once where it is not).
@@ -53,7 +54,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from . import cuda
+from . import contracts, cuda
 from .transfer import upload
 from .ref import flash_refresh_ref, paged_gather
 
@@ -227,24 +228,10 @@ def flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, page_table, *,
                                window=window, q_chunk=q_chunk)
 
 
-def _check_map(name: str, q, D: int, Dk: int, bm: RefreshBlockMap, causal, window,
-               kv_len: int) -> None:
-    cuda.require(D == Dk and D in cuda.HEAD_DIMS, name, f"head dim {D}")
-    cuda.require(bm.tq == TILE and bm.tk == TILE, name, "map tiles must be 128")
-    cuda.require(bm.n_q == q.shape[1], name, f"map built for {bm.n_q} queries, got {q.shape[1]}")
-    cuda.require(bm.causal == causal and bm.window == window, name,
-                 "map built for another mask")
-    cuda.require(bm.kv_len == kv_len, name, "map built for another length")
-
-
 def _valid_bytes(kv_valid: torch.Tensor) -> torch.Tensor:
     """kv_valid as the kernels read it: contiguous, 16-byte aligned."""
     kvv = kv_valid.contiguous()
     return kvv if kvv.data_ptr() % 16 == 0 else kvv.clone()
-
-
-def _bf16(name: str, *ts) -> None:
-    cuda.require(all(t.dtype == torch.bfloat16 for t in ts), name, "q/k/v must be bf16")
 
 
 def flash_refresh_cuda(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
@@ -252,16 +239,20 @@ def flash_refresh_cuda(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
     """Launch the per-stream kernel: q (B, Sq, H, D) bf16; k, v (B, Sk,
     Hkv, D) bf16 caches, Sk a multiple of 128; kv_valid (B, Sk) bool.
     The query rows are masked by the MAP's positions (``ops.flash_refresh``
-    checks that they equal the caller's)."""
+    checks that they equal the caller's).  Operands the kernel does not
+    take raise."""
+    contracts.require(contracts.flash_refresh_verdict(
+        q, k, v, None, kv_valid, causal=causal, window=window, block_map=block_map),
+        NAME_STREAM)
+    return flash_refresh_launch(q, k, v, kv_valid, block_map, causal=causal, window=window)
+
+
+def flash_refresh_launch(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
+                         causal: bool, window: int | None):
+    """The launch alone, for operands the registry took (``ops``)."""
     B, Sq, H, D = q.shape
-    _, Sk, Hkv, Dk = k.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     bm = block_map
-    _bf16(NAME_STREAM, q, k, v)
-    _check_map(NAME_STREAM, q, D, Dk, bm, causal, window, Sk)
-    cuda.require(Sk % TILE == 0 and k.shape[0] == B, NAME_STREAM,
-                 "caches must be (B, 128 * n, Hkv, D)")
-    cuda.require(tuple(kv_valid.shape) == (B, Sk) and kv_valid.dtype == torch.bool,
-                 NAME_STREAM, "kv_valid shape/dtype")
     dm = bm.on(q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require_aligned(NAME_STREAM, q, k, v)
@@ -286,22 +277,28 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
     """Launch the paged kernel, the int8 one when ``cold = (k8, v8,
     k_scale, v_scale)`` is given.  The query rows are masked by the MAP's
     positions (``ops.flash_refresh_paged`` checks that they equal the
-    caller's).
+    caller's, and that the page ids lie in the slabs).
 
     q (B, Sq, H, D) bf16; k, v (P_phys, Hkv, D) bf16 (hot) slab; kv_valid
     (B, n_pages * page) bool; page_table (B, n_pages) int; k8, v8
     (n_cold * page, Hkv, D) int8; k_scale, v_scale (n_cold, Hkv) f32.
+    Operands the kernel does not take raise.
     """
+    contracts.require(contracts.flash_refresh_paged_verdict(
+        q, k, v, None, kv_valid, page_table, page=page, causal=causal, window=window,
+        block_map=block_map, cold=cold), NAME if cold is None else NAME_INT8)
+    return flash_refresh_paged_launch(q, k, v, kv_valid, page_table, block_map, page=page,
+                                      causal=causal, window=window, cold=cold)
+
+
+def flash_refresh_paged_launch(q, k, v, kv_valid, page_table, block_map: RefreshBlockMap,
+                               *, page: int, causal: bool, window: int | None, cold):
+    """The launch alone, for operands the registry took (``ops``)."""
     name = NAME if cold is None else NAME_INT8
     B, Sq, H, D = q.shape
-    P_phys, Hkv, Dk = k.shape
-    bm = block_map
-    _bf16(name, q, k, v)
-    cuda.require(page == TILE, name, "pages must be 128 rows")
+    P_phys, Hkv = k.shape[0], k.shape[1]
     n_pages = page_table.shape[1]
-    _check_map(name, q, D, Dk, bm, causal, window, n_pages * page)
-    cuda.require(tuple(kv_valid.shape) == (B, n_pages * page)
-                 and kv_valid.dtype == torch.bool, name, "kv_valid shape/dtype")
+    bm = block_map
     dm = bm.on(q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require_aligned(name, q, k, v)
@@ -318,14 +315,6 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
         rc = cuda.library().cs_attn_refresh_paged_bf16(*common, *shape)
     else:
         k8, v8, k_scale, v_scale = (t.contiguous() for t in cold)
-        cuda.require(k8.dtype == torch.int8 and v8.dtype == torch.int8
-                     and k8.shape == v8.shape and tuple(k8.shape[1:]) == (Hkv, D),
-                     name, "cold slab must be int8 (n_cold * 128, Hkv, D)")
-        n_cold = k8.shape[0] // page
-        cuda.require(k8.shape[0] % page == 0 and tuple(k_scale.shape) == (n_cold, Hkv)
-                     and k_scale.shape == v_scale.shape and k_scale.dtype == torch.float32
-                     and v_scale.dtype == torch.float32, name,
-                     "scales must be f32 (n_cold, Hkv)")
         cuda.require_aligned(name, k8, v8)
         rc = cuda.library().cs_attn_refresh_paged_int8(
             *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),

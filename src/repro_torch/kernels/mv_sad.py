@@ -21,12 +21,12 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda
+from . import contracts, cuda
 from .ref import mv_sad_ref as mv_sad_plain
 
 NAME = "mv_sad"
 
-__all__ = ["NAME", "launch_geometry", "mv_sad_cuda", "mv_sad_plain"]
+__all__ = ["NAME", "launch_geometry", "mv_sad_cuda", "mv_sad_launch", "mv_sad_plain"]
 
 SMEM_LIMIT = 48 * 1024   # shared bytes a block gets without opting in
 
@@ -44,12 +44,15 @@ def launch_geometry(block: int, radius: int):
 
 def mv_sad_cuda(cur: torch.Tensor, prev: torch.Tensor, block: int = 16,
                 radius: int = 4):
-    """Launch the kernel: cur, prev (H, W) on the card -> (mv, sad)."""
+    """Launch the kernel: cur, prev (H, W) on the card -> (mv, sad).
+    Operands the kernel does not take (``contracts.MV_SAD``) raise."""
+    contracts.require(contracts.mv_sad_verdict(cur, prev, block, radius), NAME)
+    return mv_sad_launch(cur, prev, block, radius)
+
+
+def mv_sad_launch(cur: torch.Tensor, prev: torch.Tensor, block: int, radius: int):
+    """The launch alone, for operands the registry took (``ops``)."""
     H, W = cur.shape
-    threads, _, smem = launch_geometry(block, radius)
-    cuda.require(block % 4 == 0, NAME, f"block {block} must be a multiple of 4")
-    cuda.require(threads <= 1024, NAME, f"radius {radius}: more than 1024 candidates")
-    cuda.require(smem <= SMEM_LIMIT, NAME, f"radius {radius} needs {smem} B of shared memory")
     cur = cur.to(torch.float32).contiguous()
     prev = prev.to(torch.float32).contiguous()
     mv = torch.empty((H // block, W // block, 2), dtype=torch.int32, device=cur.device)

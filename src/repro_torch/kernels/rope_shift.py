@@ -9,10 +9,10 @@ builds the chunk's angles ``delta * theta^(-i/half)`` once in f32 with the accur
 the serving path, where fast intrinsics are useless) and applies them to
 every kv head of the token with one load and one store per half,
 rounding to the key dtype.  It takes f32 or bf16 keys whose head dim is a
-multiple of 8 (four rotation pairs per half) on a 16-byte boundary, and
-raises otherwise; the configs' ``d_head`` are 64 and 128, the JAX
-benchmarks' VLM's 24.  Unlike the TPU kernel there is no sequence-tile eligibility
-rule: any ``S`` runs.
+multiple of 8 (four rotation pairs per half) on a 16-byte boundary
+(``contracts.ROPE_SHIFT``), and raises otherwise; the configs' ``d_head``
+are 64 and 128, the JAX benchmarks' VLM's 24.  Unlike the TPU kernel
+there is no sequence-tile eligibility rule: any ``S`` runs.
 
 Bound on an H100: bytes (one read and one write of the key block).
 
@@ -22,21 +22,26 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda
+from . import contracts, cuda
 from .ref import rope_shift_ref as rope_shift_plain
 
 NAME = "rope_shift"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-__all__ = ["NAME", "rope_shift_cuda", "rope_shift_plain"]
+__all__ = ["NAME", "rope_shift_cuda", "rope_shift_launch", "rope_shift_plain"]
 
 
 def rope_shift_cuda(k: torch.Tensor, delta: torch.Tensor,
                     theta: float = 10_000.0) -> torch.Tensor:
-    """Launch the kernel: k (B, S, n_kv, d_h) f32/bf16, delta (B, S) int."""
-    cuda.require(k.dtype in _DTYPES, NAME, f"dtype {k.dtype} not supported")
+    """Launch the kernel: k (B, S, n_kv, d_h) f32/bf16, delta (B, S) int.
+    Operands the kernel does not take raise."""
+    contracts.require(contracts.rope_shift_verdict(k, delta), NAME)
+    return rope_shift_launch(k, delta, theta)
+
+
+def rope_shift_launch(k: torch.Tensor, delta: torch.Tensor, theta: float) -> torch.Tensor:
+    """The launch alone, for operands the registry took (``ops``)."""
     B, S, n_kv, d_h = k.shape
-    cuda.require(d_h % 8 == 0, NAME, f"head dim {d_h} not a multiple of 8")
     k = k.contiguous()
     cuda.require_aligned(NAME, k)
     delta = delta.to(torch.int32).contiguous()

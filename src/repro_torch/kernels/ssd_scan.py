@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda
+from . import contracts, cuda
 from .ref import ssd_chunked_scan_grouped_ref
 
 NAME = "ssd_scan"
@@ -76,32 +76,18 @@ def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
     made); P a multiple of 8, N one of ``STATE_WIDTHS``; log_a (B, L, H)
     f32 with packed heads; init_state (B, H, P, N) f32 must be contiguous
     (a view such as one layer of stacked caches is, and is read in
-    place).  Operands the kernel does not take raise ``cuda.KernelError``."""
+    place).  Operands the kernel does not take (``contracts.SSD_SCAN``)
+    raise ``KernelIneligibleError``, a ``cuda.KernelError``."""
+    contracts.require(contracts.ssd_scan_verdict(x, log_a, b, c, init_state, chunk), NAME)
+    return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
+
+
+def ssd_scan_launch(x, log_a, b, c, init, chunk: int):
+    """The launch alone, for operands the registry took (``ops``)."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     q = scan_chunk(L, chunk)
-    # strides read once and constant messages: the checks run on every
-    # call of every layer
     xs, bs, las = x.stride(), b.stride(), log_a.stride()
-    cuda.require(x.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
-                 and c.dtype == torch.bfloat16, NAME, "x, b and c must be bf16")
-    cuda.require(log_a.dtype == torch.float32, NAME, "log_a must be f32")
-    cuda.require(q <= Q_MAX, NAME, "chunk > 256")
-    cuda.require(N in STATE_WIDTHS, NAME, "state width N must be 16, 64 or 128")
-    cuda.require(P % 8 == 0, NAME, "head width P must be a multiple of 8")
-    cuda.require_aligned(NAME, x, b, c)
-    cuda.require((xs[0] | xs[1] | bs[0] | bs[1]) % 8 == 0, NAME,
-                 "x, b and c batch and time strides must be multiples of 8 (16-byte aligned rows)")
-    cuda.require(xs[3] == 1 and xs[2] == P, NAME, "x must have packed (H, P) per step")
-    cuda.require(bs[3] == 1 and bs[2] == N, NAME, "b must have packed (G, N) per step")
-    cuda.require(c.stride() == bs, NAME, "b and c must share strides")
-    cuda.require(las[2] == 1, NAME, "log_a must have packed heads per step")
-    init = init_state
-    if init is not None:
-        cuda.require(init.dtype == torch.float32 and init.shape == (B, H, P, N),
-                     NAME, "init_state must be f32 (B, H, P, N)")
-        cuda.require(init.is_contiguous(), NAME, "init_state must be contiguous")
-        cuda.require_aligned(NAME, init)
     y = torch.empty((B, L, H, P), dtype=torch.bfloat16, device=x.device)
     st = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     rc = cuda.library().cs_ssd_scan(

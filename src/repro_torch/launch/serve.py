@@ -184,6 +184,7 @@ def main(argv=None) -> None:
         "stage_occupancy": {k: round(v, 4)
                             for k, v in sched.stage_occupancy().items()},
         "streams_throttled": n_throttled,
+        "kernel_fallbacks": sched.kernel_fallbacks,
         "GFLOP_per_window": agg["flops"] / max(agg["windows"], 1) / 1e9,
         "latency_per_window_s": (agg["t_vit"] + agg["t_prefill"]
                                  + agg["t_decode"] + agg["t_overhead"])

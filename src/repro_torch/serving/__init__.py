@@ -11,7 +11,9 @@ from .events import (
     EventProtocolError, EventProtocolValidator, SchedulerError, SchedulerEvent,
     StreamAdmitted, StreamDone, StreamThrottled, WindowDone,
 )
-from .metrics import agreement, precision_recall_f1, video_prediction
+from .metrics import (
+    FALLBACK_OPS, agreement, kernel_fallback_delta, precision_recall_f1, video_prediction,
+)
 from .scheduler import Scheduler
 from . import flops
 
@@ -27,4 +29,5 @@ __all__ = [
     "EncodedWindows", "PrefilledWindows", "DecodedWindows", "StageTimer",
     "resolve_device",
     "precision_recall_f1", "video_prediction", "agreement", "flops",
+    "FALLBACK_OPS", "kernel_fallback_delta",
 ]

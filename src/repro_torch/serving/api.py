@@ -46,6 +46,7 @@ from ..core import (
 )
 from ..core import kv_pool
 from ..core.pruning import HostDecision, to_host
+from ..kernels import ops as kernel_ops
 from ..kernels.flash_refresh import RefreshBlockMap, build_block_map
 from ..kernels.ref import apply_rope_ref, paged_gather_quant_ref, paged_gather_ref
 from ..kernels.transfer import HostCopy, host_of, upload, with_host
@@ -54,6 +55,7 @@ from ..models import transformer as tfm
 from ..models.init import detached
 from ..models import vit as vitm
 from . import flops as flopcount
+from . import metrics
 from .config import EngineCfg
 
 # token conventions for the anomaly-detection workload
@@ -92,6 +94,11 @@ class WindowStats:
     t_prefill: float
     t_decode: float
     t_overhead: float
+    # kernel calls of this window's batched stage calls that the card
+    # refuses (``metrics.kernel_fallback_delta``: 0 on the card, where
+    # such a call raises; on the CPU the calls the card would refuse);
+    # every row of one batched call shares the value
+    kernel_fallbacks: int = 0
     # steady-state KV bytes this stream occupies (paged slab share, with
     # int8 cold pages where demoted, or the per-stream allocation)
     kv_bytes_per_stream: int = 0
@@ -887,11 +894,13 @@ class EncodedWindows(NamedTuple):
     slots: np.ndarray            # (S,) packed-slot counts (host)
     fresh: bool
     t_vit: Optional[StageTimer]  # None for a group re-staged from rows
+    fallbacks: int = 0           # refused kernel calls of the encode call
 
 
 class PrefilledWindows(NamedTuple):
     pr: PrefillResult
     t_prefill: StageTimer
+    fallbacks: int
 
 
 class DecodedWindows(NamedTuple):
@@ -900,6 +909,7 @@ class DecodedWindows(NamedTuple):
     # (S, 4) f64 on its way to the host: yes logit, no logit, answer,
     # tokens_valid; the one device-to-host copy of the window
     host: HostCopy
+    fallbacks: int
 
 
 class ServingPipeline:
@@ -919,7 +929,14 @@ class ServingPipeline:
     events on the card and host wall times on the CPU.  The parameter
     trees are taken detached (``models.init.detached``): weights fresh
     from training, leaves that require grad, serve without recording an
-    autograd graph, and reach the kernels, which have no backward."""
+    autograd graph, and reach the kernels, which have no backward.
+
+    Each stage surface counts the kernel calls the card refuses (``fallbacks``,
+    ``metrics.kernel_fallback_delta`` of ``kernels.ops.card_verdicts()``
+    around the call).  The counters are global; the stage surfaces run
+    on the scheduler's one stage thread, while ``mv_sad`` (``open``) and
+    ``decide`` run on the caller's and the ingest threads, so the delta
+    is over ``metrics.FALLBACK_OPS``, the ops of the stage thread only."""
 
     def __init__(self, cfg: ModelCfg, vit_cfg: ViTCfg, params_lm,
                  params_vit, ecfg: EngineCfg, device="cuda"):
@@ -1029,26 +1046,31 @@ class ServingPipeline:
         last stride otherwise), from the streams' ``decide`` results where
         given.  Needs no per-stream state, so the async scheduler may run
         it ahead of the previous window's prefill and decode."""
+        before = kernel_ops.card_verdicts()
         timer = StageTimer(self.device)
         vis, vval, patches, slots = self.encoder.encode(
             frames, metas, self._frame_range(fresh), decisions)
         qe = self._query_embeds(frames.shape[0])
-        return EncodedWindows(vis, vval, qe, patches, slots, fresh, timer.stop())
+        fb = metrics.kernel_fallback_delta(before, kernel_ops.card_verdicts())
+        return EncodedWindows(vis, vval, qe, patches, slots, fresh, timer.stop(), fb)
 
     def prefill_windows(self, enc: EncodedWindows,
                         state: Optional[Dict[str, Any]]) -> PrefilledWindows:
         """Stage 3: build/extend LLM context for one fused group."""
+        before = kernel_ops.card_verdicts()
         timer = StageTimer(self.device)
         if enc.fresh:
             pr = self.backend.fresh(enc.vis, enc.vval, enc.qe)
         else:
             pr = self.backend.step(enc.vis, enc.vval, enc.qe, state)
-        return PrefilledWindows(pr, timer.stop())
+        fb = metrics.kernel_fallback_delta(before, kernel_ops.card_verdicts())
+        return PrefilledWindows(pr, timer.stop(), fb)
 
     def decode_windows(self, pf: PrefilledWindows) -> DecodedWindows:
         """Stage 4: greedy continuation; folds the decode slots into the
         stream state and queues the window's answers for the host."""
         pr = pf.pr
+        before = kernel_ops.card_verdicts()
         timer = StageTimer(self.device)
         pend = self.decoder.start(
             pr.logits, pr.decode_caches, pr.decode_start, pr.flops_len,
@@ -1058,7 +1080,8 @@ class ServingPipeline:
         timer.stop()
         out = torch.cat([pend.yes_no.double(), pend.answers.double()[:, None],
                          pr.tokens_valid.double()[:, None]], dim=1)
-        return DecodedWindows(pend, timer, HostCopy(out))
+        fb = metrics.kernel_fallback_delta(before, kernel_ops.card_verdicts())
+        return DecodedWindows(pend, timer, HostCopy(out), fb)
 
     # -- stage 5 ---------------------------------------------------------
     @staticmethod
@@ -1076,8 +1099,9 @@ class ServingPipeline:
     def window_stats(self, pf: PrefilledWindows, dec: DecodedWindows,
                      host: np.ndarray, i: int, patches: int, slots: int,
                      t_vit: float, t_prefill: float, t_decode: float,
-                     t_overhead: float) -> WindowStats:
-        """Stream ``i``'s stats from its group's fetched rows ``host``."""
+                     t_overhead: float, enc_fallbacks: int) -> WindowStats:
+        """Stream ``i``'s stats from its group's fetched rows ``host``;
+        ``enc_fallbacks``: its encode call's refused kernel calls."""
         pr = pf.pr
         return WindowStats(
             answer=int(host[i, 2]),
@@ -1092,6 +1116,7 @@ class ServingPipeline:
             flops_decode=dec.pend.flops_decode,
             t_codec=0.0, t_vit=t_vit, t_prefill=t_prefill,
             t_decode=t_decode, t_overhead=t_overhead,
+            kernel_fallbacks=enc_fallbacks + pf.fallbacks + dec.fallbacks,
             kv_bytes_per_stream=self.kv_bytes_per_stream(),
         )
 
@@ -1107,7 +1132,7 @@ class ServingPipeline:
         t_decode = self.decode_seconds(dec, t_sync) / S
         return [self.window_stats(pf, dec, host, i, enc.patches[i], enc.slots[i],
                                   enc.t_vit.seconds / S, t_prefill, t_decode,
-                                  pf.pr.t_select / S)
+                                  pf.pr.t_select / S, enc.fallbacks)
                 for i in range(S)]
 
     def serve_batch(self, frames: torch.Tensor, metas: Sequence[CodecMetadata],

@@ -6,7 +6,34 @@ videos.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
+
+# The kernel ops the stage thread calls (encode, prefill, decode), whose
+# verdicts a window's ``kernel_fallbacks`` counts.  The JAX package
+# counts its silent oracle fallbacks of flash_refresh, flash_refresh_paged
+# and flash_packed; the port has no fallback (a refused call raises on
+# the card), so it counts every call the card would refuse, of every op
+# on that thread.  ``mv_sad`` runs at ``open`` and in the ingest threads,
+# whose calls would land in another window's delta.
+FALLBACK_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
+                "flash_packed", "rope_shift", "ssd_scan")
+
+
+def kernel_fallback_delta(
+    before: Dict[str, Dict[str, int]],
+    after: Dict[str, Dict[str, int]],
+    ops: Sequence[str] = FALLBACK_OPS,
+) -> int:
+    """Calls the card refuses between two ``kernels.ops.card_verdicts()``
+    snapshots: every verdict but ``ok``.  Always 0 on the card, where
+    such a call raises; on the CPU, the calls the card would refuse."""
+    total = 0
+    for op in ops:
+        b, a = before.get(op, {}), after.get(op, {})
+        for key, n in a.items():
+            if key != "ok":
+                total += n - b.get(key, 0)
+    return total
 
 
 def video_prediction(window_answers: Sequence[int], consecutive: int = 2) -> int:

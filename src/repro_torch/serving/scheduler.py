@@ -234,6 +234,10 @@ class Scheduler:
         self.t_serve = 0.0               # wall time inside step()/poll()
         self.vit_patches = 0
         self.vit_slots = 0
+        # kernel calls the card refuses, over every batched stage call
+        # (rows of one call share the count: added once per call); 0 on
+        # the card, where such a call raises
+        self.kernel_fallbacks = 0
         # busy seconds per stage: device spans of encode, prefill and
         # decode on the card (host wall on the CPU), host wall of ingest
         # (summed over worker threads), staging and the finalize wait
@@ -481,6 +485,7 @@ class Scheduler:
             if sess.done:
                 events.append(StreamDone(sess.sid, sess.request.stream_id,
                                          n_windows=sess.next_window))
+        self.kernel_fallbacks += stats[0].kernel_fallbacks
         self.windows_served += len(results)
         return results
 
@@ -564,6 +569,7 @@ class Scheduler:
         frames, metas, t_codecs, decs, t_enqs = (list(x) for x in zip(*taken))
         enc = self.pipeline.encode_windows(
             torch.stack(frames, 0), metas, fresh, None if decs[0] is None else decs)
+        self.kernel_fallbacks += enc.fallbacks
         for i, prog in enumerate(progs):
             w = prog.next_encode
             prog.enc_rows[w] = _EncRow(window=w, enc=enc, idx=i, fresh=fresh,
@@ -620,6 +626,7 @@ class Scheduler:
 
         pf = self.pipeline.prefill_windows(enc_g, state)
         dec = self.pipeline.decode_windows(pf)
+        self.kernel_fallbacks += pf.fallbacks + dec.fallbacks
 
         t0 = time.perf_counter()
         if not self.pipeline.reuse:
@@ -667,7 +674,7 @@ class Scheduler:
             t_vit = row.enc.t_vit.seconds / len(row.enc.patches)
             st = pipe.window_stats(
                 g.pf, g.dec, host, i, patches, slots, t_vit, t_prefill / S, t_decode / S,
-                g.pf.pr.t_select / S + g.t_stage * g.shares[i])
+                g.pf.pr.t_select / S + g.t_stage * g.shares[i], row.enc.fallbacks)
             st.t_codec = row.t_codec
             self._bump_stage("encode", t_vit)
             res = WindowResult(sess.request.stream_id, sess.sid, row.window, st)

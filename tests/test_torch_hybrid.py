@@ -63,7 +63,7 @@ from repro_torch.serving import (  # noqa: E402
     Engine, EngineCfg, EventProtocolValidator, Scheduler, SchedulerCfg, ServingPipeline,
     StreamRequest,
 )
-from torch_mode_parity import STATS  # noqa: E402
+from torch_mode_parity import STATS, assert_no_refusals  # noqa: E402
 import torch_moe_routes as routes  # noqa: E402
 
 ARCH = "jamba-v0.1-52b-smoke"
@@ -271,6 +271,11 @@ def test_hybrid_dispatches_its_kernels_plainly_on_cpu(mode):
     for op, c in counts.items():
         assert set(c) == {"backend:ok"}, (op, c)
     assert pipe.kv_bytes_per_stream() == 0 and pipe.can_admit(64)
+
+
+@pytest.mark.parametrize("mode", PATHS)
+def test_hybrid_windows_report_no_kernel_fallbacks(mode):
+    assert_no_refusals(served(mode)[1][1])
 
 
 def test_attention_caches_hold_max_hist_slots():

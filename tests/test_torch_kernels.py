@@ -504,8 +504,8 @@ BAD_CALLS = {
         torch.zeros(2, 4, dtype=torch.int32)),
     "cold-dtype": lambda: ops.flash_refresh_paged(
         torch.zeros(1, 4, 4, 16), torch.zeros(128, 2, 16), torch.zeros(128, 2, 16),
-        torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 128, dtype=torch.bool),
-        torch.zeros(1, 1, dtype=torch.int32),
+        torch.arange(4, dtype=torch.int32)[None], torch.ones(1, 128, dtype=torch.bool),
+        torch.zeros(1, 1, dtype=torch.int32), block_map=build_block_map(np.arange(4), 128),
         cold=(torch.zeros(128, 2, 16), torch.zeros(128, 2, 16), torch.ones(1, 2),
               torch.ones(1, 2))),
     "cold-scale": lambda: ops.flash_refresh_paged(
@@ -537,8 +537,20 @@ BAD_CALLS = {
 }
 
 
+# cases the registry refuses by an eligibility rule, as the JAX package's
+# does: the card raises KernelIneligibleError, the CPU runs the plain
+# version and records the code in ``card_verdicts``
+REFUSED_ON_CARD = {"cold-dtype": ("flash_refresh_paged_int8", "cold-dtype")}
+
+
 @pytest.mark.parametrize("case", sorted(BAD_CALLS))
 def test_ops_preconditions_raise(case):
+    if case in REFUSED_ON_CARD:
+        op, code = REFUSED_ON_CARD[case]
+        ops.reset_card_verdicts()
+        BAD_CALLS[case]()
+        assert ops.card_verdicts() == {op: {code: 1}}
+        return
     with pytest.raises(ops.KernelContractError):
         BAD_CALLS[case]()
 

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.serving import flops  # noqa: E402
 from torch_mode_parity import (  # noqa: E402
-    assert_parity, assert_plain_dispatch, serve,
+    assert_no_refusals, assert_parity, assert_plain_dispatch, serve,
 )
 
 CONFIGS = {
@@ -33,6 +33,12 @@ def test_mode_serves_like_jax(name):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_mode_dispatches_its_kernels_plainly_on_cpu(name):
     assert_plain_dispatch(serve(*CONFIGS[name])[1])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_mode_windows_report_no_kernel_fallbacks(name):
+    """bf16 serving: the card takes every kernel call of every window."""
+    assert_no_refusals(serve(*CONFIGS[name])[1][1])
 
 
 @pytest.mark.parametrize("mode", ["fullcomp", "refresh_only"])

@@ -241,6 +241,11 @@ def test_olmoe_dispatches_its_kernels_plainly_on_cpu(mode):
 # ----------------------------------------------------------------------
 # weights
 # ----------------------------------------------------------------------
+@pytest.mark.parametrize("mode", MODES)
+def test_olmoe_windows_report_no_kernel_fallbacks(mode):
+    parity.assert_no_refusals(served(mode)[1][1])
+
+
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b-smoke", "arctic-480b-smoke"])
 def test_moe_weight_bridge_and_npz_round_trip(arch, tmp_path):
     """The JAX package's MoE tree bridges leaf for leaf and a checkpoint

@@ -218,10 +218,18 @@ CODES = {"prefill-rank": "rank", "prefill-kv-shape": "kv-shape", "prefill-batch"
          "paged-rank": "rank", "paged-pt-batch": "pt-batch", "paged-head-dim": "head-dim",
          "paged-pt-dtype": "pt-dtype", "paged-slab-align": "slab-align",
          "paged-causal": "causal", "paged-window": "window", "paged-page-range": "page-range",
-         "paged-cold-dtype": "cold-dtype", "paged-cold-scale": "cold-scale"}
+         "paged-cold-dtype": "cold-dtype", "paged-cold-scale": "scale-shape"}
+# an eligibility rule, as in the JAX package's registry: the card raises
+# KernelIneligibleError, the CPU runs the plain version and records it
+REFUSED_ON_CARD = {"paged-cold-dtype": "flash_prefill_paged_int8"}
 
 
 @pytest.mark.parametrize("case", sorted(BAD_CALLS))
 def test_prefill_preconditions_raise(case):
+    if case in REFUSED_ON_CARD:
+        ops.reset_card_verdicts()
+        BAD_CALLS[case]()
+        assert ops.card_verdicts() == {REFUSED_ON_CARD[case]: {CODES[case]: 1}}
+        return
     with pytest.raises(ops.KernelContractError, match=f"'{CODES[case]}'"):
         BAD_CALLS[case]()

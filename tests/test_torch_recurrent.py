@@ -53,7 +53,7 @@ from repro_torch.models.init import (  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     MODES, EngineCfg, Scheduler, SchedulerCfg, ServingPipeline, StreamRequest,
 )
-from torch_mode_parity import STATS, videos  # noqa: E402
+from torch_mode_parity import STATS, assert_no_refusals, videos  # noqa: E402
 
 ARCH = "mamba2-2.7b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
@@ -160,6 +160,13 @@ def test_ssm_dispatches_its_kernels_plainly_on_cpu(mode):
     for op, c in counts.items():
         assert set(c) == {"backend:ok"}, (op, c)
     assert pipe.kv_bytes_per_stream() == 0 and pipe.can_admit(64)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ssm_windows_report_no_kernel_fallbacks(mode):
+    """ssd_scan at mamba2-smoke's bf16 serving shapes: the card takes
+    every call of every window."""
+    assert_no_refusals(serve(mode)[1][1])
 
 
 def test_npz_round_trip_keeps_mamba_f32_leaves(tmp_path):

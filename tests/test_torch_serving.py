@@ -134,6 +134,44 @@ def test_cpu_run_dispatches_plain_versions_only(served):
         assert set(c) == {"backend:ok"}, (op, c)
 
 
+def test_windows_report_no_kernel_fallbacks(served):
+    """The main path in bf16: the card takes every kernel call."""
+    assert [b.stats.kernel_fallbacks for _, b in _pairs(served)] == [0] * 6
+    assert served[3].kernel_fallbacks == 0
+
+
+def test_a_serve_the_card_refuses_counts_its_fallbacks():
+    """Head dim 16 (the JAX quickstart's widths), which no attention
+    kernel is built for: on the CPU every window counts the calls the
+    card would refuse, by rule, and the plain versions serve it."""
+    from repro_torch.configs import ModelCfg, ViTCfg
+    from repro_torch.models.init import init_lm_params, init_vit_params
+
+    cfg = ModelCfg(name="d16", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+                   d_ff=128, vocab=64, tied_embeddings=True)
+    vit = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
+    pipe = ServingPipeline(cfg, vit, init_lm_params(cfg, 0, "cpu"),
+                           init_vit_params(vit, cfg.d_model, 1, "cpu"),
+                           EngineCfg(mode="codecflow", codec=TCodecCfg(
+                               gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4)),
+                           device="cpu")
+    sched = Scheduler(pipe, SchedulerCfg(max_concurrent=1))
+    ops.reset_card_verdicts()
+    ops.reset_dispatch_counts()
+    frames, label = anomaly_dataset(1, 12, 112, 112)[0]
+    sched.submit(StreamRequest(0, np.asarray(frames), tag=label))
+    results = sched.run()[0]
+    fb = [r.stats.kernel_fallbacks for r in results]
+    assert len(fb) == 2 and all(n > 0 for n in fb)
+    assert sched.kernel_fallbacks == sum(fb)
+    verdicts = ops.card_verdicts()
+    for op in ("flash_packed", "flash_refresh_paged"):
+        assert set(verdicts[op]) == {"kernel-head-dim"}, verdicts
+    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # D 16: 8 | 16
+    assert all(set(c) == {"backend:ok"} for c in ops.dispatch_counts().values())
+    assert all(np.isfinite(r.stats.logits_yes_no).all() for r in results)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")

@@ -41,7 +41,8 @@ from repro_torch.core.kvc import WindowLayout  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from torch_mode_parity import (  # noqa: E402
-    ARCH, assert_parity, assert_plain_dispatch, jax_pipeline, port_pipeline, serve,
+    ARCH, assert_no_refusals, assert_parity, assert_plain_dispatch, jax_pipeline,
+    port_pipeline, serve,
 )
 
 def bf16_pair(x: np.ndarray):
@@ -230,6 +231,13 @@ def test_variant_serves_like_jax(name):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_variant_dispatches_its_kernels_plainly_on_cpu(name):
     assert_plain_dispatch(serve(*CONFIGS[name])[1])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_variant_windows_report_no_kernel_fallbacks(name):
+    """bf16 slabs, per-stream caches and int8 cold pages: the card takes
+    every kernel call of every window."""
+    assert_no_refusals(serve(*CONFIGS[name])[1][1])
 
 
 def test_int8_run_demotes_and_staggers_admission():

@@ -185,6 +185,13 @@ def assert_parity(j, t, exact_refresh: bool = True, tol: float = LOGIT_TOL):
                 assert a.stats.answer == b.stats.answer
 
 
+def assert_no_refusals(results):
+    """Every window of a run (per-sid results) reports 0 kernel calls
+    the card would refuse."""
+    fb = [r.stats.kernel_fallbacks for res in results.values() for r in res]
+    assert fb and fb == [0] * len(fb), fb
+
+
 def assert_plain_dispatch(t):
     """On the CPU every op of the port's run ran its plain version, and
     exactly the kernels its pipeline names were dispatched."""
