@@ -7,15 +7,19 @@ and check them.
     python3 chip_smoke.py --only whisper [--src DIR]
     python3 chip_smoke.py --only families [--src DIR]
     python3 chip_smoke.py --only mesh
+    python3 chip_smoke.py --only mamba
+    python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
 With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
-``--only mesh`` and ``--only hosttime``: phase 3's mha probe, phase 7
-alone, phase 8(b) alone, phase 8(b) then 9, and phase 3(c)'s host time
-per call alone); ``--src`` drives the ``repro_torch`` of another checkout's
+``--only mamba``, ``--only mesh``, ``--only hosttime`` and ``--only
+deep-step``: phase 3's mha probe, phase 7 alone, phase 8(b) alone,
+phase 8(e) with its roofline, phases 8(b) and 8(e) then 9, phase 3(c)'s
+host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
+over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
 ``git archive`` can be timed in the same call: parent, change, change,
 parent.
@@ -53,7 +57,15 @@ Phases (any failure exits non-zero):
                its recurrent passes over max_hist slots (window 0's and
                the last window's append, query and decode, fullcomp's
                append), ssd_scan at jamba's serving shapes (H 128, P 64,
-               N 16); kernel, plain and library
+               N 16); ssd_scan's backward kernel (no TPU counterpart)
+               against ssd_scan_bwd_plain on the chunk states the forward
+               kernel writes under grad, at mamba2-2.7b's training shape
+               (B 2, L 2048, H 80, P 64, N 128), a ragged L 1000 without
+               init or final-state cotangent, G 4 at a small width and
+               jamba's widths: dx, db, dc within one bf16 step and dlog_a,
+               d_init within 1e-3 of their slice's largest value, bitwise
+               repeat, its bound at the bf16 tensor rate (the f32
+               CUDA-core figure beside); kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
                is paged; none for ssd_scan) times from CUDA events around
                calls made one by one (``ms``: the wrapper's host time
@@ -176,12 +188,19 @@ Phases (any failure exits non-zero):
                kernel run's expert choices (a bf16 step can move a near
                tie; the tokens that would have chosen otherwise are
                counted and printed).
-  8. train — (a) one train step of whisper-large-v3-smoke (with remat)
-               and of olmoe-1b-7b-smoke (the CPU run's expert choices
-               forced on the card) on the card and on the CPU, from the
-               same weights and batch: loss within 1e-3 and grad_norm
-               1e-2 relative, every gradient leaf within 2^-5 of its
-               largest |g| (the CPU tests' limits); (b) whisper-large-v3
+  8. train — (a) one train step of whisper-large-v3-smoke (with remat),
+               of olmoe-1b-7b-smoke (the CPU run's expert choices
+               forced on the card), of mamba2-2.7b-smoke (with remat:
+               both scan kernels) and of jamba-v0.1-52b-smoke (forced
+               choices) on the card and on the CPU, from the same weights
+               and batch: loss within 1e-3 and grad_norm 1e-2 relative,
+               every gradient leaf within 2^-5 of its largest |g| (the
+               CPU tests' limits), the card's kernel_mode("plain") step
+               read beside; jamba's 16 bf16 layers, where rounding alone
+               moves a leaf by more than that, are held to the plain
+               step's gap plus 2^-5, and its f32 step (plain versions,
+               card against CPU) within 1e-3 (see STEP_ARCHS);
+               (b) whisper-large-v3
                at full size (2.02 B parameters, random bf16 weights from
                the seed) trained 4 steps through launch.train.train
                (remat, batch 2, decoder seq 448, 1500 stub encoder
@@ -213,7 +232,17 @@ Phases (any failure exits non-zero):
                rope_shift at the LM's H 4 / Hkv 2 / D 24); precision,
                recall and F1 printed per mode, with codecflow's F1 drop
                (not gated).  Phase 3 also holds flash_refresh at
-               whisper's prefill and decode shapes.
+               whisper's prefill and decode shapes; (e) mamba2-2.7b at
+               full size (64 layers, random bf16 weights from the seed)
+               trained 4 steps through launch.train.train (remat, batch
+               2, seq 2048): loss and grad_norm finite at every step,
+               every leaf moved, no plain call on a CUDA tensor, 128
+               forward and 64 backward scan launches a step (forward and
+               remat's recompute, one backward per layer); printing peak
+               memory, the time of steps 2-4, tokens/s and the model-FLOPs
+               share (8 x parameters x positions over the bf16 peak); one
+               more step under torch.profiler, with the backward kernel's
+               share of the device time.
   9. mesh    — (a) one train step of whisper-large-v3-smoke and
                olmoe-1b-7b-smoke under a 1x1 DeviceMesh over a
                world-size-1 NCCL group (parameters placed by the sharding
@@ -224,14 +253,20 @@ Phases (any failure exits non-zero):
                8(b)'s whisper-large-v3 at full size over 3 steps, each
                step timed on the mesh and without it (DTensor's host
                cost at full size), beside phase 8(b)'s step; then
-               launch.train.train(mesh_kind="host") for 2 steps; (b)
+               launch.train.train(mesh_kind="host") for 2 steps (olmoe,
+               mamba2 and jamba smoke); mamba2-2.7b-smoke's 1x1-mesh step
+               as the others'; (b)
                analysis.roofline.count_step over one step of phase 8(b)'s
                whisper-large-v3 (full size, batch 2, seq 448): compute and
                memory terms, dominant, useful ratio, and the larger term
                over phase 8(b)'s measured step (the roofline share), which
-               must lie in (0, 1.05]; (c) python -m repro_torch.launch.dryrun
+               must lie in (0, 1.05]; the same over one step of phase
+               8(e)'s mamba2-2.7b, whose count must hold ssd_scan_bwd once
+               per layer; (c) python -m repro_torch.launch.dryrun
                in a subprocess for deepseek-7b train_4k and jamba-v0.1-52b
-               prefill_32k on the single (16 x 16) mesh: each report ok
+               prefill_32k and train_4k on the single (16 x 16) mesh (the
+               training program's count holds ssd_scan_bwd once per mamba
+               layer per microbatch, ssd_scan twice): each report ok
                with finite, positive terms, printing the peak GiB per
                device, the terms, the dominant one, the kernel ops' work
                and the seconds.
@@ -246,7 +281,8 @@ name and power limit as nvidia-smi gives them; the last line is
 the count from the run of the path named in ``launches_path``: the
 first path that launches it, and for flash_prefill and
 flash_prefill_paged, which no serving path calls, this slice's main
-path (mamba2-2.7b, codecflow), where they count 0.  ``launches_by_path``
+path (mamba2-2.7b, codecflow), where they count 0; for ssd_scan_bwd,
+which only training launches, phase 8(e)'s run.  ``launches_by_path``
 has the count of every path's own run, and of the kernel phase (the
 checks and their timing loops; counts set to 0 just before it).
 """
@@ -277,6 +313,7 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_HW = 112                     # the launcher's default ViT for mamba2-2.7b
 SSM_FRAMES = 40
 SSM_PATHS = ("codecflow", "fullcomp")
+TRAIN_PATH = f"{SSM_ARCH} training"      # phase 8(e): the scan's backward kernel's launches
 MOE_ARCH = "olmoe-1b-7b"         # full width and depth, the launcher's 112^2 ViT
 MOE_FRAMES = 24
 HYBRID_ARCH = "jamba-v0.1-52b"   # full width, HYBRID_LAYERS of its 32 layers
@@ -1105,6 +1142,100 @@ def check_ssd_scan(torch):
     return ok, row
 
 
+# ssd_scan's backward vs its plain version: dx, db and dc (bf16) within one
+# bf16 step of their (batch row, head or group) slice's largest value;
+# dlog_a and d_init (f32) within 1e-3 of theirs (the plain version sums
+# the same f32 products in other orders, and dlog_a is a difference of
+# two such sums)
+BWD_TOL, BWD_F32_TOL = 2.0 ** -7, 1e-3
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 4
+
+
+def slice_rel(torch, k, p, dims) -> float:
+    """max over slices of max |k - p| / the slice's max |p|."""
+    d = (k.float() - p.float()).abs().amax(dims)
+    return float((d / p.float().abs().amax(dims).clamp_min(
+        torch.finfo(torch.float32).tiny)).max())
+
+
+def check_ssd_scan_bwd(torch):
+    """ssd_scan's backward kernel (no TPU counterpart) against
+    ssd_scan_bwd_plain on the chunk states the forward kernel writes under
+    grad: mamba2-2.7b's training shape (B 2, L 2048, H 80, P 64, N 128,
+    chunk 256) with init and a final-state cotangent, a ragged L 1000
+    without either, groups G 4 at a small width, and jamba-v0.1-52b's
+    widths (H 128, P 64, N 16) at L 2048.  Each reading beside its limit
+    (BWD_TOL, BWD_F32_TOL), a bitwise repeat, the chunk states within the
+    forward's 1e-4; times per call (CUDA events), on the device (replayed
+    graph), the plain version's, and the bound from ssd_scan_bwd_work at
+    the bf16 tensor rate (its five q^2 products multiply bf16 operands),
+    with the f32 CUDA-core figure of the kernel's own arithmetic beside
+    it.  The row keeps the training shape's times."""
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_fwd_plain,
+        ssd_scan_launch,
+    )
+    cases = (("mamba2-2.7b training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256, True, True),
+             ("ragged", 1, 1000, 80, 64, 1, 128, 256, False, False),
+             ("groups", 2, 300, 16, 32, 4, 64, 64, True, True),
+             (f"{HYBRID_ARCH} widths", 2, SSM_TRAIN_SEQ, 128, 64, 1, 16, 256, False, True))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    ok, row, worst = True, None, 0.0
+    for label, B, L, H, P, G, N, chunk, with_init, with_dfin in cases:
+        x = torch.randn((B, L, H, P), generator=g, device="cuda").bfloat16()
+        la = -(torch.rand((B, L, H), generator=g, device="cuda") * 0.999 + 1e-3)
+        b, c = ((torch.randn((B, L, G, N), generator=g, device="cuda") * 0.3).bfloat16()
+                for _ in range(2))
+        init = torch.randn((B, H, P, N), generator=g, device="cuda") if with_init else None
+        dy = torch.randn((B, L, H, P), generator=g, device="cuda").bfloat16()
+        dfin = torch.randn((B, H, P, N), generator=g, device="cuda") if with_dfin else None
+        _, _, states = ssd_scan_launch(x, la, b, c, init, chunk, states=True)
+        st_rel = slice_rel(torch, states, ssd_scan_fwd_plain(x, la, b, c, init, chunk)[2],
+                           (-1, -2))
+        got = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+        again = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+        want = ssd_scan_bwd_plain(x, la, b, c, states, dy, dfin, chunk)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+        readings = {n: (slice_rel(torch, k, w, dims), tol) for n, k, w, dims, tol in zip(
+            ("dx", "dlog_a", "db", "dc", "d_init"), got, want,
+            ((1, 3), (1,), (1, 3), (1, 3), (-1, -2)),
+            (BWD_TOL, BWD_F32_TOL, BWD_TOL, BWD_TOL, BWD_F32_TOL))}
+        err = max(float((k.float() - w.float()).abs().max()) for k, w in zip(got, want))
+        worst = max(worst, err)
+        flops, n_bytes = ssd_scan_bwd_work(L, H, P, G, N, chunk, B)
+        args = (x, la, b, c, states, dy, dfin)
+        in_bytes = sum(t.numel() * t.element_size() for t in args if t is not None)
+        ms = cuda_ms(torch, lambda: ssd_scan_bwd_cuda(*args, chunk), 5)
+        dev_ms = device_ms(torch, lambda *a: ssd_scan_bwd_cuda(*a, chunk), args, in_bytes,
+                           replays=2, min_copies=2)
+        plain = cuda_ms(torch, lambda: ssd_scan_bwd_plain(*args, chunk), 2, warmup=1)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
+        here = (bitwise and st_rel <= 1e-4
+                and all(v <= tol for v, tol in readings.values()))
+        log(f"ssd_scan_bwd ({label}): x {tuple(x.shape)} bf16, b/c {tuple(b.shape)} bf16, "
+            f"chunk {chunk}, init {'yes' if with_init else 'none'}, final-state cotangent "
+            f"{'yes' if with_dfin else 'none'}: " + ", ".join(
+                f"{n} {v:.3g} (limit {tol:.3g})" for n, (v, tol) in readings.items())
+            + f"; chunk states {st_rel:.3g} (limit 1e-4); bitwise repeat {bitwise}; kernel "
+            f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}): bf16 tensor {flops / BF16_TENSOR_FLOPS * 1e3:.4f} "
+            f"ms ({flops / 1e9:.4g} GFLOP), bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"({n_bytes / 1e6:.4g} MB); on the f32 CUDA cores it runs on, "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms: {'ok' if here else 'FAIL'}")
+        ok = ok and here
+        if row is None:
+            row = dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+                       replaces="none (the reference trains through its plain scan)",
+                       max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
+        del x, b, c, init, dy, dfin, states, got, again, want, args
+    row["max_abs_err"] = worst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, row
+
+
 def family_kernel_cases():
     """The attention kernels' cases at the families phase's serving shapes
     (pipelines built without weights, for their layouts): the paged
@@ -1334,6 +1465,7 @@ KERNEL_PHASE = "kernel phase"
 LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
                "flash_refresh_paged_int8": "codecflow, int8 cold pages",
                "ssd_scan": SSM_MAIN,
+               "ssd_scan_bwd": TRAIN_PATH,
                "flash_prefill": SSM_MAIN,
                "flash_prefill_paged": SSM_MAIN,
                "flash_prefill_paged_int8": SSM_MAIN}
@@ -2013,37 +2145,147 @@ def step_readings(torch, cfg, params, batch, remat, log, force=None):
             [g.float().cpu() for g in tree_leaves(grads)])
 
 
-def card_step_vs_cpu(torch):
-    """One train step of whisper-large-v3-smoke (with remat) and of
-    olmoe-1b-7b-smoke (the CPU run's expert choices forced on the card)
-    on the card and on the CPU, from the same weights and batch: loss,
-    grad_norm and every gradient leaf within the CPU tests' limits."""
-    from repro_torch.configs import get_config
+# (arch, remat, floor): remat recomputes a layer's routing, so the MoE
+# archs, whose card run takes the CPU run's expert choices call for call,
+# step without it.  jamba-v0.1-52b-smoke (16 bf16 layers: two periods of
+# its pattern, where the others have 2) is held to the card's own
+# kernel_mode("plain") step as its floor: at that depth bf16 rounding
+# alone moves a leaf's gradient by more than 2^-5 of its largest |g| (the
+# CPU's bf16 step reads about 0.1 from its f32 step), so the kernels'
+# gap from the CPU step may exceed the plain versions' by STEP_GRAD_TOL
+# at most; the same step in f32, the card's plain versions against the
+# CPU's, must agree within F32_STEP_GRAD_TOL, which shows that floor to be
+# rounding and not a difference of the two plain paths
+STEP_ARCHS = (("whisper-large-v3-smoke", True, False),
+              ("olmoe-1b-7b-smoke", False, False),
+              ("mamba2-2.7b-smoke", True, False),
+              ("jamba-v0.1-52b-smoke", False, True))
+F32_STEP_GRAD_TOL = 1e-3
+# the seeds of ``--only deep-step``: phase 8(a)'s jamba-v0.1-52b-smoke
+# readings (bf16 and f32) over several weights and batches
+DEEP_STEP_SEEDS = (0, 1, 2, 3)
+
+
+def leaf_gap(ga, gb, names):
+    """(the largest |a - b| over a leaf's largest |a|, that leaf's name)."""
+    return max((float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30), n)
+               for a, b, n in zip(ga, gb, names))
+
+
+def card_steps(torch, cfg, seed: int, remat: bool, kernels: bool = True, force=None,
+               f32: bool = False):
+    """One train step of ``cfg`` on the CPU and on the card from the same
+    weights and batch (made from ``seed``; with ``f32``, the same weights
+    cast to f32 and the step run in f32): the card's with the kernels
+    (when ``kernels``) and under kernel_mode("plain"), each taking the
+    CPU run's expert choices (every run takes ``force``'s where given).
+    Returns a namespace: ``cpu``, ``kern`` (None without ``kernels``) and
+    ``plain``, each (loss, grad_norm, grads); ``flips``, the count and
+    margin of the kernels' own choices that differ (None without MoE);
+    ``names``, the leaves'; ``choices``, the CPU run's own."""
+    import dataclasses
+    from types import SimpleNamespace
     from repro_torch.data.pipeline import lm_batches
-    from repro_torch.models.init import init_lm_params, map_tree
-    ok = True
-    for arch, remat in (("whisper-large-v3-smoke", True), ("olmoe-1b-7b-smoke", False)):
-        cfg = get_config(arch)
-        params = init_lm_params(cfg, SEED, "cpu")
-        batches = [next(lm_batches(cfg, 2, 32, seed=SEED, device=d)) for d in ("cpu", "cuda")]
-        ref, own = [], []
-        lc, gc_, grads_c = step_readings(torch, cfg, params, batches[0], remat, ref)
-        lk, gk, grads_k = step_readings(torch, cfg, map_tree(lambda t: t.to("cuda"), params),
-                                        batches[1], remat, own,
-                                        force=ref if cfg.moe is not None else None)
-        gap = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
-                  for a, b in zip(grads_c, grads_k))
-        flips = ""
+    from repro_torch.kernels import ops
+    from repro_torch.models.init import init_lm_params, leaf_paths, map_tree
+    params = init_lm_params(cfg, seed, "cpu")
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = map_tree(lambda t: t.float() if t.is_floating_point() else t, params)
+    batches = [next(lm_batches(cfg, 2, 32, seed=seed, device=d)) for d in ("cpu", "cuda")]
+    r = SimpleNamespace(names=[k for k, _ in leaf_paths(params)], choices=[], kern=None,
+                        flips=None)
+    r.cpu = step_readings(torch, cfg, params, batches[0], remat, r.choices, force=force)
+    on_card = map_tree(lambda t: t.to("cuda"), params)
+    if cfg.moe is not None and force is None:
+        force = r.choices
+    if kernels:
+        own = []
+        r.kern = step_readings(torch, cfg, on_card, batches[1], remat, own, force=force)
         if cfg.moe is not None:
-            n, margin = choice_flips(torch, ref, [(g.cpu(), e.cpu()) for g, e in own])
-            flips = (f"; the card took the CPU's expert choices, {n} tokens would have "
-                     f"chosen otherwise (largest gate margin {margin:.3g})")
+            r.flips = choice_flips(torch, force, [(g.cpu(), e.cpu()) for g, e in own])
+    with ops.kernel_mode("plain"):
+        r.plain = step_readings(torch, cfg, on_card, batches[1], remat, [], force=force)
+    return r
+
+
+def f32_floor(torch, cfg, seed: int, remat: bool, force=None):
+    """The step of ``cfg`` in f32 from its bf16 weights, the card's plain
+    versions against the CPU's (the kernels take bf16 alone), taking
+    ``force``'s expert choices where given: the largest leaf gap, its
+    leaf, and the CPU's f32 gradients."""
+    r = card_steps(torch, cfg, seed, remat, kernels=False, force=force, f32=True)
+    return (*leaf_gap(r.cpu[2], r.plain[2], r.names), r.cpu[2])
+
+
+def card_step_vs_cpu(torch):
+    """One train step of whisper-large-v3-smoke (with remat), of
+    olmoe-1b-7b-smoke (the CPU run's expert choices forced on the card),
+    of mamba2-2.7b-smoke (with remat: both scan kernels on the card) and
+    of jamba-v0.1-52b-smoke (forced choices) on the card and on the CPU,
+    from the same weights and batch: loss, grad_norm and every gradient
+    leaf within the CPU tests' limits.  The card's step under
+    kernel_mode("plain") is read beside, as the rounding floor of the
+    comparison; jamba's leaves are held to that floor plus STEP_GRAD_TOL,
+    and its f32 step (plain versions, card against CPU) within
+    F32_STEP_GRAD_TOL (see STEP_ARCHS)."""
+    from repro_torch.configs import get_config
+    ok = True
+    for arch, remat, floored in STEP_ARCHS:
+        cfg = get_config(arch)
+        r = card_steps(torch, cfg, SEED, remat)
+        (lc, gc_, grads_c), (lk, gk, grads_k) = r.cpu, r.kern
+        (gap, leaf), (floor, floor_leaf) = (leaf_gap(grads_c, grads_k, r.names),
+                                            leaf_gap(grads_c, r.plain[2], r.names))
+        grad_tol = floor + STEP_GRAD_TOL if floored else STEP_GRAD_TOL
+        extra = ""
         here = (abs(lk - lc) <= STEP_LOSS_TOL * abs(lc)
-                and abs(gk - gc_) <= STEP_GNORM_TOL * gc_ and gap <= STEP_GRAD_TOL)
+                and abs(gk - gc_) <= STEP_GNORM_TOL * gc_ and gap <= grad_tol)
+        if floored:
+            f32_gap, f32_leaf, _ = f32_floor(torch, cfg, SEED, remat, force=r.choices)
+            here = here and f32_gap <= F32_STEP_GRAD_TOL
+            extra = (f"; in f32 the card's plain versions read {f32_gap:.4g} from the CPU's "
+                     f"at {f32_leaf} (limit {F32_STEP_GRAD_TOL:g})")
+        if r.flips is not None:
+            extra += (f"; the card took the CPU's expert choices, {r.flips[0]} tokens would "
+                      f"have chosen otherwise (largest gate margin {r.flips[1]:.3g})")
         log(f"  card step vs CPU step [{arch}{', remat' if remat else ''}]: loss {lk:.6f} vs "
             f"{lc:.6f}, grad_norm {gk:.5f} vs {gc_:.5f}, largest gradient gap "
-            f"{gap:.4g} of its leaf's max (limits {STEP_LOSS_TOL:g}, {STEP_GNORM_TOL:g}, "
-            f"2^-5){flips}: {'ok' if here else 'FAIL'}")
+            f"{gap:.4g} of its leaf's max at {leaf} (limits {STEP_LOSS_TOL:g}, "
+            f"{STEP_GNORM_TOL:g}, {grad_tol:.4g}{' = the floor + 2^-5' if floored else ''}; "
+            f"the card's plain versions read {floor:.4g} at {floor_leaf}){extra}: "
+            f"{'ok' if here else 'FAIL'}")
+        ok = ok and here
+    return ok
+
+
+def deep_step_study(torch) -> bool:
+    """jamba-v0.1-52b-smoke's step over DEEP_STEP_SEEDS (weights and
+    batch from each): in bf16, the kernels' and the plain versions' gaps
+    from the CPU step and from each other; in f32, the card's plain
+    versions against the CPU's; and the CPU's bf16 step against its f32
+    step, what rounding alone moves (every run takes the CPU bf16 run's
+    expert choices).  Each reading with its leaf; it fails where phase
+    8(a)'s limits fail."""
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-v0.1-52b-smoke")
+    ok = True
+    for seed in DEEP_STEP_SEEDS:
+        r = card_steps(torch, cfg, seed, False)
+        (lc, gc_, grads_c), (lk, gk, grads_k), (lp, gp, grads_p) = r.cpu, r.kern, r.plain
+        (gap, leaf), (floor, floor_leaf), (kp, kp_leaf) = (
+            leaf_gap(grads_c, grads_k, r.names), leaf_gap(grads_c, grads_p, r.names),
+            leaf_gap(grads_p, grads_k, r.names))
+        f32_gap, f32_leaf, grads_32 = f32_floor(torch, cfg, seed, False, force=r.choices)
+        rounding, r_leaf = leaf_gap(grads_32, grads_c, r.names)
+        here = (abs(lk - lc) <= STEP_LOSS_TOL * abs(lc) and abs(gk - gc_) <= STEP_GNORM_TOL * gc_
+                and gap <= floor + STEP_GRAD_TOL and f32_gap <= F32_STEP_GRAD_TOL)
+        log(f"  deep step [jamba-v0.1-52b-smoke, seed {seed}]: loss kernels {lk:.6f}, plain "
+            f"{lp:.6f}, CPU {lc:.6f}; grad_norm {gk:.5f}, {gp:.5f}, {gc_:.5f}; bf16 gaps: "
+            f"kernels vs CPU {gap:.4g} at {leaf}, plain vs CPU {floor:.4g} at {floor_leaf}, "
+            f"kernels vs plain {kp:.4g} at {kp_leaf}; f32, plain vs CPU {f32_gap:.4g} at "
+            f"{f32_leaf}; CPU bf16 vs CPU f32 {rounding:.4g} at {r_leaf}; {r.flips[0]} tokens "
+            f"would have chosen otherwise: {'ok' if here else 'FAIL'}")
         ok = ok and here
     return ok
 
@@ -2190,12 +2432,14 @@ def train_whisper(torch):
     return ok and here, launches
 
 
-def profile_step(torch, cfg, params, top: int = 12) -> None:
+def profile_step(torch, cfg, params, batch_size: int = WHISPER_BATCH,
+                 seq: int = WHISPER_SEQ, top: int = 12) -> dict:
     """One more train step of ``params`` (a trainable tree; fresh moments,
     the next batch of the seed) under ``torch.profiler``: the kernels'
     device time by name, the largest ``top`` of them, and their sum over
     the step's wall time (the profiler's host overhead lengthens the
-    wall, so the busy share it gives is a lower bound)."""
+    wall, so the busy share it gives is a lower bound).  Returns the
+    device ms by kernel group (empty if the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import lm_batches
     from repro_torch.training.optimizer import OptCfg, init_opt_state
@@ -2203,7 +2447,7 @@ def profile_step(torch, cfg, params, top: int = 12) -> None:
     ocfg = OptCfg(lr=3e-4, warmup=1, total_steps=WHISPER_STEPS)
     opt = init_opt_state(params, ocfg)
     step = make_train_step(cfg, ocfg)
-    batch = next(lm_batches(cfg, WHISPER_BATCH, WHISPER_SEQ, seed=SEED + 1, device="cuda"))
+    batch = next(lm_batches(cfg, batch_size, seq, seed=SEED + 1, device="cuda"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2217,8 +2461,8 @@ def profile_step(torch, cfg, params, top: int = 12) -> None:
     busy = sum(ms for ms, _, _ in kernels)
     if not busy:
         log("  profile: the profiler saw no device time")
-        return
-    log(f"  profile [{WHISPER_ARCH}, one step under torch.profiler]: wall {wall * 1e3:.1f} ms, "
+        return {}
+    log(f"  profile [{cfg.name}, one step under torch.profiler]: wall {wall * 1e3:.1f} ms, "
         f"kernels {busy:.1f} ms on the device ({busy / (wall * 1e3):.3f} of the wall), "
         f"{sum(n for _, n, _ in kernels)} launches of {len(kernels)} kernels; the largest:")
     for ms, n, name in kernels[:top]:
@@ -2229,13 +2473,19 @@ def profile_step(torch, cfg, params, top: int = 12) -> None:
     log("  by group: " + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.3f})"
                                    for g, ms in groups.most_common()))
     del opt
+    return dict(groups)
 
 
 def kernel_group(name: str) -> str:
-    """A profiled kernel's group, by its name: f32 GEMMs on the CUDA
-    cores (cuBLAS ``f32f32`` / ``sgemm``), other GEMMs, copies and casts,
-    softmax, reductions, the rest elementwise."""
+    """A profiled kernel's group, by its name: the scan's forward and
+    backward kernels (the latter with its partials' reduction), f32 GEMMs
+    on the CUDA cores (cuBLAS ``f32f32`` / ``sgemm``), other GEMMs, copies
+    and casts, softmax, reductions, the rest elementwise."""
     low = name.lower()
+    if "ssd_scan_bwd_kernel" in low or "sum_mid_kernel" in low:
+        return "ssd_scan backward"
+    if "ssd_scan_kernel" in low:
+        return "ssd_scan forward"
     if "gemm" in low and ("f32f32_f32f32" in low or "sgemm" in low):
         return "f32 GEMM"
     if "gemm" in low or "nvjet" in low or "cutlass" in low:
@@ -2247,6 +2497,69 @@ def kernel_group(name: str) -> str:
     if "reduce" in low:
         return "reductions"
     return "other elementwise"
+
+
+def train_mamba(torch):
+    """8(e): mamba2-2.7b at full size (64 mamba layers, random bf16
+    weights from the seed) trained SSM_TRAIN_STEPS steps through
+    ``launch.train.train`` (remat, batch 2, seq 2048): loss and grad_norm
+    finite at every step, every leaf moved, no plain call on a CUDA
+    tensor, and per step 2 forward launches per layer (the forward and
+    remat's recompute) and 1 backward launch; then one profiled step.
+    Returns (ok, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.init import init_lm_params, tree_leaves
+    cfg = get_config(SSM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, finite = [], []
+    ops.reset_dispatch_counts()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with wrapped(tlaunch, "make_train_step", timed_steps(torch, times, finite)):
+        trained, losses = tlaunch.train(SSM_ARCH, SSM_TRAIN_STEPS, SSM_TRAIN_BATCH,
+                                        SSM_TRAIN_SEQ, seed=SEED, device="cuda", log_every=1)
+    t_all = time.perf_counter() - t0
+    launches, plain = ops.launch_counts(), ops.plain_calls_on_cuda()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = tree_leaves(trained)
+    n_params = sum(t.numel() for t in leaves)
+    fresh = tree_leaves(init_lm_params(cfg, SEED, "cuda"))     # the seed's weights again
+    moved = all(not torch.equal(a, b) for a, b in zip(fresh, leaves))
+    del fresh
+    n_mamba = sum(k == "mamba" for k in cfg.block_pattern) * cfg.repeats
+    want = {"ssd_scan": 2 * n_mamba * SSM_TRAIN_STEPS, "ssd_scan_bwd": n_mamba * SSM_TRAIN_STEPS}
+    t_step = sum(times[1:]) / len(times[1:])
+    READINGS["mamba_step_s"] = t_step
+    tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    flops = 8.0 * n_params * tokens
+    log(f"train [{SSM_ARCH}, full size: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters, remat, batch {SSM_TRAIN_BATCH}, seq "
+        f"{SSM_TRAIN_SEQ}]: losses {[round(x, 4) for x in losses]}; step s "
+        f"{[round(x, 4) for x in times]} (step 1 includes the first calls' set-up; "
+        f"{t_all:.1f} s with the weights' set-up); steps 2-{SSM_TRAIN_STEPS} {t_step:.4f} s "
+        f"each: {tokens / t_step:.1f} tokens/s; model FLOPs per step {flops / 1e12:.2f} T "
+        f"(8 x parameters x positions): {flops / t_step / BF16_TENSOR_FLOPS:.4f} of the bf16 "
+        f"peak; peak memory {peak:.2f} GiB (parameters, gradients and f32 moments "
+        f"{n_params * (2 + 2 + 8) / 2**30:.2f} GiB); finite every step: {all(finite)}; "
+        f"every leaf moved: {moved}; launches {launches} (want {want}); plain on CUDA: {plain}")
+    ok = (all(finite) and len(finite) == SSM_TRAIN_STEPS and moved
+          and not any(plain.values())
+          and all(launches.get(k, 0) == n for k, n in want.items()))
+    groups = profile_step(torch, cfg, trained, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    busy = sum(groups.values())
+    if busy:
+        bwd = groups.get("ssd_scan backward", 0.0)
+        log(f"  the backward kernel (with its reduction): {bwd:.1f} ms of {busy:.1f} ms of "
+            f"kernels in the profiled step ({bwd / busy:.4f}); the forward kernel "
+            f"{groups.get('ssd_scan forward', 0.0):.1f} ms")
+    del trained, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, launches
 
 
 def bigram_on_card(torch):
@@ -2410,22 +2723,28 @@ def train_phase(torch):
     ok = ok and here
     ok = bigram_on_card(torch) and ok
     here, by_path = anomaly_on_card(torch)
+    ok = ok and here
+    here, ssm = train_mamba(torch)
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
-    return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path}
+    return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path, TRAIN_PATH: ssm}
 
 
 # ----------------------------------------------------------------------
 # phase 9: meshes, the roofline, the dry run
 # ----------------------------------------------------------------------
-MESH_ARCHS = ("whisper-large-v3-smoke", "olmoe-1b-7b-smoke")
+MESH_ARCHS = ("whisper-large-v3-smoke", "olmoe-1b-7b-smoke", "mamba2-2.7b-smoke")
+# launch.train.train(mesh_kind="host") on the card: the MoE, SSM and hybrid families
+HOST_TRAIN_ARCHS = ("olmoe-1b-7b-smoke", "mamba2-2.7b-smoke", "jamba-v0.1-52b-smoke")
 MESH_WHISPER_STEPS = 3
-DRYRUNS = (("deepseek-7b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"))
+DRYRUNS = (("deepseek-7b", "train_4k"), ("jamba-v0.1-52b", "prefill_32k"),
+           ("jamba-v0.1-52b", "train_4k"))
 DRYRUN_TIMEOUT = 420
 
 
-def timed_steps(torch, times: list):
+def timed_steps(torch, times: list, finite: list = None):
     """A wrapper of ``make_train_step``: each step it makes appends its
-    seconds, to the card's end of the step, to ``times``."""
+    seconds, to the card's end of the step, to ``times`` (and whether
+    its loss and grad_norm are finite to ``finite``)."""
     def wrap(make):
         def made(*a, **k):
             step = make(*a, **k)
@@ -2435,6 +2754,10 @@ def timed_steps(torch, times: list):
                 out = step(*args)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+                if finite is not None:
+                    m = out[2]
+                    finite.append(bool(torch.isfinite(m["loss"]))
+                                  and bool(torch.isfinite(m["grad_norm"])))
                 return out
             return run
         return made
@@ -2555,11 +2878,14 @@ def host_mesh_steps(torch, smi: str):
         ok = ok and (bitwise or within)
         del params, ref, on_mesh
     ok = whisper_on_host_mesh(torch, mesh, smi) and ok
-    _, losses = tlaunch.train(MESH_ARCHS[1], 2, 2, 32, mesh_kind="host", seed=SEED,
-                              device="cuda", log_every=1)
-    here = len(losses) == 2 and all(math.isfinite(x) for x in losses)
-    log(f"  launch.train.train({MESH_ARCHS[1]!r}, mesh_kind='host'): losses "
-        f"{[round(x, 4) for x in losses]}: {'ok' if here else 'FAIL'}")
+    here = True
+    for arch in HOST_TRAIN_ARCHS:
+        _, losses = tlaunch.train(arch, 2, 2, 32, mesh_kind="host", seed=SEED,
+                                  device="cuda", log_every=1)
+        good = len(losses) == 2 and all(math.isfinite(x) for x in losses)
+        log(f"  launch.train.train({arch!r}, mesh_kind='host'): losses "
+            f"{[round(x, 4) for x in losses]}: {'ok' if good else 'FAIL'}")
+        here = here and good
     import torch.distributed as dist
     dist.destroy_process_group()
     gc.collect()
@@ -2613,6 +2939,71 @@ def whisper_roofline(torch, smi: str):
     return ok
 
 
+def mamba_roofline(torch, smi: str):
+    """9(b) for the SSM family: count one step of phase 8(e)'s
+    mamba2-2.7b (full size, batch 2, seq 2048, remat; the scan's forward
+    and backward by their work formulas) and hold its larger roofline
+    term against phase 8(e)'s measured step time."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.init import init_lm_params, trainable, tree_leaves
+    from repro_torch.training.optimizer import OptCfg, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(SSM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = trainable(init_lm_params(cfg, SEED, "cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    ocfg = OptCfg(warmup=1, total_steps=SSM_TRAIN_STEPS)
+    opt = init_opt_state(params, ocfg)
+    batch = next(lm_batches(cfg, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, seed=SEED, device="cuda"))
+    t0 = time.perf_counter()
+    d = roofline.count_step(make_train_step(cfg, ocfg), params, opt, batch)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    rep = roofline.Report(arch=SSM_ARCH, shape=f"train b{SSM_TRAIN_BATCH} s{SSM_TRAIN_SEQ}",
+                          mesh="one card", chips=1, ok=True)
+    rep.flops_per_device = d["flops"]
+    rep.bytes_per_device = d["bytes_accessed"]
+    rep.coll_bytes_per_device = d["coll_operand_bytes"]
+    rep.model_flops = 8.0 * n_params * SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    t_step = READINGS.get("mamba_step_s")
+    bound = max(rep.t_compute, rep.t_memory, rep.t_collective)
+    share = bound / t_step if t_step else float("nan")
+    n_mamba = sum(k == "mamba" for k in cfg.block_pattern) * cfg.repeats
+    kern = d["kernels"]
+    ok = (t_step is not None and 0 < share <= 1.05
+          and kern.get("ssd_scan_bwd", {}).get("calls") == n_mamba)
+    log(f"  roofline [{SSM_ARCH}, full size, one step, {smi}]: counted "
+        f"{d['flops'] / 1e12:.3f} T FLOPs (matrix products and the kernel ops' formulas), "
+        f"{d['bytes_accessed'] / 1e9:.2f} GB accessed (unfused); kernel ops {kern}; "
+        f"t_compute {rep.t_compute:.5f} s, t_memory {rep.t_memory:.5f} s, dominant "
+        f"{rep.dominant}, useful ratio {rep.useful_ratio:.4f}; roofline share (larger term over "
+        f"phase 8(e)'s step of {t_step} s): {share:.4f} (must lie in (0, 1.05]); counted run "
+        f"{t_count:.1f} s, peak live {d['peak_bytes'] / 2**30:.2f} GiB: {'ok' if ok else 'FAIL'}")
+    del params, opt, batch, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def dry_run_kernels_ok(arch: str, shape: str, kernels: dict) -> bool:
+    """A training program's count holds the scan's backward once per
+    mamba layer per microbatch: its forward twice as often (remat's
+    recompute), and a whole number of microbatches over the mamba layers."""
+    from repro_torch.configs import get_config
+    if not shape.startswith("train") or get_config(arch).ssm is None:
+        return True
+    cfg = get_config(arch)
+    n_mamba = sum(k == "mamba" for k in cfg.block_pattern) * cfg.repeats
+    bwd = kernels.get("ssd_scan_bwd", {}).get("calls", 0)
+    fwd = kernels.get("ssd_scan", {}).get("calls", 0)
+    log(f"    {arch} {shape}: ssd_scan_bwd {bwd} calls, ssd_scan {fwd}, over {n_mamba} mamba "
+        f"layers: {bwd / n_mamba:g} microbatches")
+    return bwd > 0 and bwd % n_mamba == 0 and fwd == 2 * bwd
+
+
 def dry_runs(smi: str):
     """9(c): the dry run of each of DRYRUNS in a subprocess."""
     ok = True
@@ -2629,7 +3020,8 @@ def dry_runs(smi: str):
         r = json.loads(lines[-1]) if lines else {}
         terms = [r.get(k, float("nan")) for k in ("t_compute_s", "t_memory_s", "t_collective_s")]
         here = (proc.returncode == 0 and r.get("ok") is True
-                and all(math.isfinite(t) and t > 0 for t in terms))
+                and all(math.isfinite(t) and t > 0 for t in terms)
+                and dry_run_kernels_ok(arch, shape, r.get("kernels", {})))
         log(f"  dry run [{arch} {shape}, single mesh 16x16, fake 256-rank group, meta "
             f"device; numbers per H100 of {smi}]: ok {r.get('ok')}, peak "
             f"{r.get('peak_GiB_per_device', float('nan')):.2f} GiB per device, t_compute "
@@ -2650,7 +3042,7 @@ def mesh_phase(torch, smi: str) -> bool:
     t0 = time.perf_counter()
     ok = True
     for part in (lambda: host_mesh_steps(torch, smi), lambda: whisper_roofline(torch, smi),
-                 lambda: dry_runs(smi)):
+                 lambda: mamba_roofline(torch, smi), lambda: dry_runs(smi)):
         try:
             here = part()
         except Exception:  # noqa: BLE001 - reported, and the phase fails
@@ -2731,7 +3123,8 @@ def contracts_phase(torch) -> bool:
     full_ok = (meta == {op: {"ok": 1} for op in launched}
                and all(n == 1 for n in launched.values()))
     log(f"contracts: full serving widths (internvl3-14b LM H 40 / Hkv 8 D 128, ViT H 16 D 64, "
-        f"448^2 frames, mamba2-2.7b SSD H 80 P 64 N 128): verdicts on meta tensors {meta}; "
+        f"448^2 frames, mamba2-2.7b SSD H 80 P 64 N 128, its backward at L 2048): verdicts on "
+        f"meta tensors {meta}; "
         f"launches on the card {launched}")
     if not full_ok:
         log("FAIL: contracts: an op at serving widths was refused or did not launch")
@@ -2876,11 +3269,14 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated kernel names: their checks alone (phases 1-3); "
                          "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
-                         "(phase 8(b)) and 'mesh' (phase 8(b), then phase 9), each alone "
-                         "after phases 1-2")
+                         "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'mesh' "
+                         "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
+                         "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
+                         "each alone after phases 1-2")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is driven")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     only = set(filter(None, args.only.split(",")))
     import torch
     if not torch.cuda.is_available():
@@ -2922,7 +3318,10 @@ def main(argv=None) -> int:
         return 1
     probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0],
               "hosttime": lambda: host_times(torch),
-              "mesh": lambda: train_whisper(torch)[0] and mesh_phase(torch, smi),
+              "mesh": lambda: (train_whisper(torch)[0] and train_mamba(torch)[0]
+                               and mesh_phase(torch, smi)),
+              "mamba": lambda: train_mamba(torch)[0] and mamba_roofline(torch, smi),
+              "deep-step": lambda: deep_step_study(torch),
               "families": lambda: serve_families(torch)[0]}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
@@ -3000,6 +3399,7 @@ def main(argv=None) -> int:
                 W24: check_flash_refresh_paged_int8(torch, wide, pipe.layout, pipe.cache_slots,
                                                     n, label=W24)})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
+        "ssd_scan_bwd": lambda: [check_ssd_scan_bwd(torch)],
         "flash_prefill": lambda: [with_cases(
             check_flash_prefill(torch, cfg, pipe.layout.total_len, n), {
                 lab: check_flash_prefill(torch, c, total, n, only=("causal", "ragged"),
@@ -3097,7 +3497,7 @@ def main(argv=None) -> int:
     for row in rows:
         name = row["name"]
         row["launches_path"] = LAUNCH_PATH.get(name, MAIN)
-        row["launches"] = by_path[row["launches_path"]].get(name, 0)
+        row["launches"] = by_path.get(row["launches_path"], {}).get(name, 0)
         row["launches_by_path"] = {lab: n[name] for lab, n in by_path.items() if name in n}
 
     # -- 6. composite: kernels vs plain versions at 4 layers -------------
@@ -3160,6 +3560,8 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches_by_path"].update(
             {lab: n[row["name"]] for lab, n in train_by_path.items() if row["name"] in n})
+        if row["launches_path"] in train_by_path:
+            row["launches"] = train_by_path[row["launches_path"]].get(row["name"], 0)
 
     # -- 9. mesh: the host mesh, the roofline of a step, the dry run -------
     if not mesh_phase(torch, smi):
@@ -3171,6 +3573,7 @@ def main(argv=None) -> int:
         log("FAIL: examples phase")
         return 1
 
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -47,6 +47,7 @@ from ..core.pruning import (
 from . import contracts, ops
 from .flash_packed import build_pack_map
 from .flash_refresh import build_block_map
+from .ssd_scan import chunk_count
 
 BF16, F32, I32 = torch.bfloat16, torch.float32, torch.int32
 KV_TILE = 128          # AttentionPrefill's cache rounding
@@ -539,7 +540,8 @@ def refusal_cases(device) -> dict:
     """One call per eligibility rule of every contract (but ``SHADOWED``)
     that fails that rule first, on ``device``: {(contract, code): (op,
     call, plain)}, ``op`` the name ``ops`` counts it by, ``plain()`` the
-    plain version on the same operands.  Values come from seeded
+    plain version on the same operands.  The ``ssd_scan`` calls run under
+    grad with x requiring grad, as training calls it.  Values come from seeded
     generators; views the rules look at (misaligned, strided,
     transposed) are made on ``device`` itself."""
     from .flash_packed import PackBlockMap, flash_packed_plain
@@ -613,8 +615,12 @@ def refusal_cases(device) -> dict:
                             good.seg_id, good.span, good.single_run)
 
     def ssd(x, la, b, c, init=None, chunk=16):
-        return "ssd_scan", (lambda: ops.ssd_scan(x, la, b, c, init, chunk)), (
-            lambda: ssd_scan_plain(x, la, b, c, init, chunk))
+        """Under grad, x requiring grad: the backward's verdict is the
+        forward's, so each rule refuses the call that would run both."""
+        def call():
+            with torch.enable_grad():
+                return ops.ssd_scan(x.detach().requires_grad_(), la, b, c, init, chunk)
+        return "ssd_scan", call, (lambda: ssd_scan_plain(x, la, b, c, init, chunk))
 
     def ssd_ok(L=16, H=4, P=32, N=16):
         return (rand(1, L, H, P, dtype=BF16), -rand(1, L, H).abs(),
@@ -726,6 +732,7 @@ def refusal_cases(device) -> dict:
 
 
 SERVING_ARCH, SERVING_SSM_ARCH = "internvl3-14b", "mamba2-2.7b"
+TRAIN_SEQ = 2048       # mamba2-2.7b's training shape: batch 2 x seq 2048
 
 
 def serving_cases(device, streams: int = 2) -> dict:
@@ -733,9 +740,10 @@ def serving_cases(device, streams: int = 2) -> dict:
     internvl3-14b (LM H 40 / Hkv 8, D 128 on its codecflow layout at
     448^2, cache slots rounded to 128, the paged slab and, for the int8
     ops, its first page per stream cold; ViT H 16, D 64 on a packing of
-    12 P-frames), 448^2 frames for mv_sad, and mamba2-2.7b's fresh window
-    for ssd_scan (H 80, P 64, N 128, L 160).  {op: call}; zeros, with
-    valid page tables and positions (the deferred checks run on the card)."""
+    12 P-frames), 448^2 frames for mv_sad, mamba2-2.7b's fresh window
+    for ssd_scan (H 80, P 64, N 128, L 160) and its training shape for
+    ssd_scan_bwd (L 2048, chunk 256).  {op: call}; zeros, with valid page
+    tables and positions (the deferred checks run on the card)."""
     dev = torch.device(device)
     cfg, ssm = get_config(SERVING_ARCH), get_config(SERVING_SSM_ARCH)
     v = cfg.vit
@@ -777,6 +785,9 @@ def serving_cases(device, streams: int = 2) -> dict:
     Hs, P, N = s.n_heads(ssm.d_model), s.head_dim, s.d_state
     x, la = z(B, 160, Hs, P), -torch.ones(B, 160, Hs, device=dev)
     bc, init = z(B, 160, s.n_groups, N), z(B, Hs, P, N, dtype=F32)
+    xt, lat = z(B, TRAIN_SEQ, Hs, P), -torch.ones(B, TRAIN_SEQ, Hs, device=dev)
+    bct = z(B, TRAIN_SEQ, s.n_groups, N)
+    states = z(B, Hs, chunk_count(TRAIN_SEQ, s.chunk), P, N, dtype=F32)
     return {
         "mv_sad": lambda: ops.mv_sad(cur, cur, codec.block, codec.search_radius),
         "rope_shift": lambda: ops.rope_shift(k_ov, delta),
@@ -791,6 +802,7 @@ def serving_cases(device, streams: int = 2) -> dict:
         "flash_prefill_paged_int8": lambda: ops.flash_prefill_paged(qf, hot, hot, pt8,
                                                                     cold=cold),
         "ssd_scan": lambda: ops.ssd_scan(x, la, bc, bc, init, s.chunk),
+        "ssd_scan_bwd": lambda: ops.ssd_scan_bwd(xt, lat, bct, bct, states, xt, init, s.chunk),
     }
 
 

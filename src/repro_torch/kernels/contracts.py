@@ -789,6 +789,9 @@ CONTRACTS: Dict[str, KernelContract] = {
 
 # How the port's eligibility rules differ from the reference's:
 # (op, code, "+" added by the port | "-" the reference's, dropped, why).
+# ``ssd_scan_bwd`` has no contract of its own: its verdict is SSD_SCAN's
+# rules on the forward's operands, and its two lines say what the port
+# adds there.
 DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("mv_sad", "block-4", "+", "the kernel loads macroblock rows as float4"),
     ("mv_sad", "candidates", "+", "one thread per candidate, at most 1024 a block"),
@@ -834,6 +837,11 @@ DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("ssd_scan", "row-strides", "+", "rows are read through batch and time strides"),
     ("ssd_scan", "packed", "+", "heads, groups and features packed within a step"),
     ("ssd_scan", "init-state", "+", "the f32 state is read and written whole, in place"),
+    ("ssd_scan_bwd", "requires-grad", "+", "ssd_scan takes operands that require grad on the "
+     "card (SsdScanFn over the forward and backward kernels); the reference's kernel has no "
+     "backward, and jax.grad differentiates its plain scan instead"),
+    ("ssd_scan_bwd", "no-reference", "+", "the backward kernel has no counterpart in the "
+     "reference; it takes what the forward kernel takes (SSD_SCAN's rules)"),
 )
 
 

@@ -66,8 +66,12 @@ _SIGNATURES = {
         _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ),
     "cs_ssd_scan": (
-        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
+        _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
         _ll, _ll, _ll, _ll, _ll, _ll, _p,
+    ),
+    "cs_ssd_scan_bwd": (
+        _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+        _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _p,
     ),
 }
 

@@ -11,19 +11,26 @@ rule that fails), then the call is routed by where its operands live:
   * a CUDA tensor launches the hand-written kernel, or raises
     :class:`KernelIneligibleError` (a ``KernelContractError`` and a
     ``cuda.KernelError``) naming the rule when the verdict is not ``ok``.
-    There is no silent fallback.  No kernel has a backward, so under
-    grad mode a CUDA operand that requires grad raises
-    ``KernelContractError`` rather than being detached (the plain
+    There is no silent fallback.  ``ssd_scan`` has a backward kernel:
+    under grad mode, with any operand requiring grad, it runs as
+    ``ssd_scan.SsdScanFn`` over the forward kernel (which then also
+    writes each chunk's entering state) and ``ssd_scan_bwd``, whose
+    verdict is the forward's rules on the same operands.  The other ops
+    have none, so under grad mode a CUDA operand that requires grad
+    raises ``KernelContractError`` rather than being detached (the plain
     versions, on the CPU or under ``kernel_mode("plain")``, differentiate);
   * a meta tensor (the dry run) gives outputs of the right shapes and
-    dtypes and computes nothing.
+    dtypes and computes nothing; ``ssd_scan`` under grad keeps autograd
+    there too (``SsdScanFn`` over shapes), so a counted step sees its
+    backward as ``ssd_scan_bwd``.
 
 ``kernel_mode("plain")`` forces the plain version on the card too; only
 tests and ``chip_smoke.py`` use it, to hold the kernels against it.
 
-``count_work(counter)`` reports each call of ``flash_refresh`` and
-``ssd_scan`` to ``counter.kernel(op, formula)`` (``formula()`` gives the
-op's (flops, bytes)), and runs the call inside the context manager that
+``count_work(counter)`` reports each call of ``flash_refresh``,
+``ssd_scan`` and ``ssd_scan_bwd`` to ``counter.kernel(op, formula)``
+(``formula()`` gives the op's (flops, bytes)), and runs the call inside
+the context manager that
 returns, so that a counter of aten ops (``analysis.roofline.count_step``)
 does not also count the plain version's step-by-step arithmetic.
 
@@ -59,7 +66,10 @@ from .flash_refresh import (
 )
 from .mv_sad import mv_sad_launch, mv_sad_plain
 from .rope_shift import rope_shift_launch, rope_shift_plain
-from .ssd_scan import ssd_scan_launch, ssd_scan_plain, ssd_scan_work
+from .ssd_scan import (
+    SsdScanFn, chunk_count, ssd_scan_bwd_launch, ssd_scan_bwd_plain, ssd_scan_bwd_work,
+    ssd_scan_launch, ssd_scan_plain, ssd_scan_work,
+)
 from .transfer import host_of
 
 __all__ = [
@@ -67,11 +77,11 @@ __all__ = [
     "count_work", "dispatch_counts", "flash_packed", "flash_prefill", "flash_prefill_paged",
     "flash_refresh", "flash_refresh_paged", "kernel_mode", "launch_counts", "mv_sad",
     "plain_calls_on_cuda", "reset_card_verdicts", "reset_dispatch_counts",
-    "reset_launch_counts", "rope_shift", "set_kernel_mode", "ssd_scan",
+    "reset_launch_counts", "rope_shift", "set_kernel_mode", "ssd_scan", "ssd_scan_bwd",
 ]
 
 KERNELS = ("mv_sad", "rope_shift", "flash_refresh_paged", "flash_packed",
-           "flash_refresh", "flash_refresh_paged_int8", "ssd_scan",
+           "flash_refresh", "flash_refresh_paged_int8", "ssd_scan", "ssd_scan_bwd",
            "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8")
 
 _MODE = "auto"   # auto | plain
@@ -151,11 +161,10 @@ def _on_meta(op: str, dec, t: torch.Tensor) -> bool:
     return True
 
 
-def _use_kernel(op: str, name: str, dec, t: torch.Tensor, *operands) -> bool:
-    """Whether ``op`` launches its kernel: ``t`` decides the device.  On
-    the card a call the contract ``name`` refuses raises, and so does one
-    under grad mode where ``t`` or any tensor of ``operands`` requires
-    grad (the kernel's output would carry no gradient)."""
+def _on_card(op: str, name: str, dec, t: torch.Tensor) -> bool:
+    """Whether ``op`` takes its kernel: ``t`` decides the device.  CPU
+    tensors and ``kernel_mode("plain")`` take the plain version; on the
+    card a call the contract ``name`` refuses raises."""
     if t.device.type == "cpu":
         _COUNTS[op]["backend:ok"] += 1
         return False
@@ -165,6 +174,16 @@ def _use_kernel(op: str, name: str, dec, t: torch.Tensor, *operands) -> bool:
         _COUNTS[op]["mode:plain"] += 1
         return False
     contracts.require(dec, name, op)
+    return True
+
+
+def _use_kernel(op: str, name: str, dec, t: torch.Tensor, *operands) -> bool:
+    """Whether ``op`` launches its kernel (``_on_card``).  On the card a
+    call under grad mode where ``t`` or any tensor of ``operands``
+    requires grad raises too (the kernel's output would carry no
+    gradient)."""
+    if not _on_card(op, name, dec, t):
+        return False
     if torch.is_grad_enabled() and any(
             torch.is_tensor(o) and o.requires_grad for o in (t,) + operands):
         raise KernelContractError(
@@ -396,15 +415,66 @@ def ssd_scan(x, log_a, b, c, init_state=None, chunk: int = 128):
     axis runs in chunks of ``min(chunk, L)`` when L is not a multiple of
     ``chunk``, the last one ragged (identity steps in the plain
     version).  Returns y (B, L, H, P) and the final state (B, H, P, N)
-    f32."""
+    f32.  Under grad mode, with an operand that requires grad, the card
+    and meta tensors go through ``SsdScanFn`` (its backward is
+    ``ssd_scan_bwd``); CPU tensors differentiate the plain version."""
     op = "ssd_scan"
     dec = contracts.ssd_scan_verdict(x, log_a, b, c, init_state, chunk)
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, log_a, b, c, init_state))
     with _work(op, lambda: ssd_scan_work(L, H, P, G, N, chunk, B)):
         if _on_meta(op, dec, x):
+            if grad:
+                return SsdScanFn.apply(_ssd_scan_meta, ssd_scan_bwd, chunk, x, log_a, b, c,
+                                       init_state)
             return (torch.empty_like(x),
                     torch.empty((B, H, P, N), dtype=torch.float32, device=x.device))
-        if _use_kernel(op, op, dec, x, log_a, b, c, init_state):
+        if _on_card(op, op, dec, x):        # no grad refusal: the op has a backward
+            _COUNTS[op]["kernel"] += 1
+            if grad:
+                return SsdScanFn.apply(_ssd_scan_states, ssd_scan_bwd, chunk, x, log_a, b, c,
+                                       init_state)
             return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
         return ssd_scan_plain(x, log_a, b, c, init_state, chunk)
+
+
+def _ssd_scan_states(x, log_a, b, c, init, chunk: int):
+    """The forward kernel writing each chunk's entering state."""
+    return ssd_scan_launch(x, log_a, b, c, init, chunk, states=True)
+
+
+def _ssd_scan_meta(x, log_a, b, c, init, chunk: int):
+    """(y, final state, chunk states) as shapes."""
+    B, L, H, P = x.shape
+    N = b.shape[3]
+    return (torch.empty_like(x),
+            torch.empty((B, H, P, N), dtype=torch.float32, device=x.device),
+            torch.empty((B, H, chunk_count(L, chunk), P, N), dtype=torch.float32,
+                        device=x.device))
+
+
+def ssd_scan_bwd(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
+                 need_init: bool = True):
+    """The gradients of ``ssd_scan`` (``ssd_scan.ssd_scan_bwd_plain``):
+    ``states`` (B, H, nc, P, N) f32, the state entering each chunk;
+    ``dy`` and ``d_final`` the cotangents of y and of the final state
+    (None: zeros).  Returns (dx, dlog_a, db, dc, d_init or None).  Its
+    verdict is ``contracts.SSD_SCAN``'s on the forward's operands: the
+    card launches the backward kernel or raises naming the rule."""
+    op = "ssd_scan_bwd"
+    dec = contracts.ssd_scan_verdict(x, log_a, b, c, None, chunk)
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    with _work(op, lambda: ssd_scan_bwd_work(L, H, P, G, N, chunk, B)):
+        if _on_meta(op, dec, x):
+            return (torch.empty_like(x), torch.empty(log_a.shape, dtype=torch.float32,
+                                                     device=x.device),
+                    torch.empty(b.shape, dtype=b.dtype, device=x.device),
+                    torch.empty(c.shape, dtype=c.dtype, device=x.device),
+                    torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+                    if need_init else None)
+        if _use_kernel(op, "ssd_scan", dec, x):
+            return ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk, need_init)
+        return ssd_scan_bwd_plain(x, log_a, b, c, states, dy, d_final, chunk, need_init)

@@ -275,9 +275,12 @@ def ssd_chunked_scan_ref(x, log_a, b, c, chunk: int, init_state=None):
     return y, state
 
 
-def ssd_chunked_scan_grouped_ref(x, log_a, b, c, chunk: int, init_state=None):
+def ssd_chunked_scan_grouped_ref(x, log_a, b, c, chunk: int, init_state=None,
+                                 states: bool = False):
     """``ssd_chunked_scan_ref`` with B/C kept per group: b, c (B, L, G,
-    N), G | H, head h reading group h // (H / G); no H/G-fold copy."""
+    N), G | H, head h reading group h // (H / G); no H/G-fold copy.
+    With ``states`` it also returns the state entering each chunk,
+    (B, H, nc, P, N) f32."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     Hg = H // G
@@ -290,8 +293,9 @@ def ssd_chunked_scan_grouped_ref(x, log_a, b, c, chunk: int, init_state=None):
     state = (torch.zeros((B, H, P, N), dtype=F32, device=x.device) if init_state is None
              else init_state.to(F32)).reshape(B, G, Hg, P, N)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    ys = []
+    ys, entering = [], []
     for i in range(nc):
+        entering.append(state)
         xc, ac, bc, cc = xf[:, i], af[:, i], bf[:, i], cf[:, i]
         cum = torch.cumsum(ac, dim=1)                                  # (B, Q, G, Hg)
         seg = cum[:, :, None] - cum[:, None]                           # (B, t, s, G, Hg)
@@ -304,6 +308,8 @@ def ssd_chunked_scan_grouped_ref(x, log_a, b, c, chunk: int, init_state=None):
         state = torch.exp(cum[:, -1])[..., None, None] * state + upd
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(B, L, H, P).to(x.dtype)
+    if states:
+        return y, state.reshape(B, H, P, N), torch.stack(entering, 3).reshape(B, H, nc, P, N)
     return y, state.reshape(B, H, P, N)
 
 

@@ -18,6 +18,15 @@ cores (``mma.sync`` bf16 -> f32; the f32 operands M = (C B^T) o decay,
 the state and w o B enter as bf16 hi + lo, about 16 bits), so the f32
 state's read and write and the x/b/c/y rows take longer than the
 function's flops at 989 TFLOP/s; ``ssd_scan_work`` counts both.
+
+The backward, ``cs_ssd_scan_bwd`` (same source), has no TPU
+counterpart: the reference trains through its plain scan, which
+``jax.grad`` differentiates.  Under grad the forward kernel also writes
+the state entering each chunk (``states``, (B, H, nc, P, N) f32), and
+the backward walks the chunks from the last to the first, carrying the
+state's gradient.  ``SsdScanFn`` is the ``autograd.Function`` over a
+(forward, backward) pair: the kernels on the card, the plain versions
+(``ssd_scan_fwd_plain``, ``ssd_scan_bwd_plain``) in the tests.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from . import contracts, cuda
 from .ref import ssd_chunked_scan_grouped_ref
 
 NAME = "ssd_scan"
+BWD_NAME = "ssd_scan_bwd"
 Q_MAX = 256           # the kernel's largest chunk (one scan step per thread)
 SLICE = 32            # state rows p per thread block
 THREADS = 256
@@ -38,6 +48,11 @@ def scan_chunk(L: int, chunk: int) -> int:
     """The chunk the scan runs with: ``chunk``, or ``min(chunk, L)``
     when L is not a multiple of it."""
     return min(chunk, L) if L % chunk else chunk
+
+
+def chunk_count(L: int, chunk: int) -> int:
+    """The number of chunks the scan runs, the last one maybe ragged."""
+    return -(-L // scan_chunk(L, chunk))
 
 
 def launch_geometry(B: int, H: int, P: int, N: int, q: int):
@@ -53,10 +68,11 @@ def launch_geometry(B: int, H: int, P: int, N: int, q: int):
     return (-(-P // SLICE), H, B), THREADS, smem
 
 
-def ssd_scan_plain(x, log_a, b, c, init_state=None, chunk: int = 128):
+def ssd_scan_plain(x, log_a, b, c, init_state=None, chunk: int = 128, states: bool = False):
     """x (B, L, H, P); log_a (B, L, H); b, c (B, L, G, N) per group;
     init_state (B, H, P, N) or None.  Returns y (B, L, H, P) in x's
-    dtype and the final state (B, H, P, N) f32."""
+    dtype and the final state (B, H, P, N) f32; with ``states`` also the
+    state entering each chunk, (B, H, nc, P, N) f32."""
     L = x.shape[1]
     q = scan_chunk(L, chunk)
     pad = (-L) % q
@@ -65,8 +81,8 @@ def ssd_scan_plain(x, log_a, b, c, init_state=None, chunk: int = 128):
         log_a = torch.nn.functional.pad(log_a, (0, 0, 0, pad))
         b = torch.nn.functional.pad(b, (0, 0, 0, 0, 0, pad))
         c = torch.nn.functional.pad(c, (0, 0, 0, 0, 0, pad))
-    y, st = ssd_chunked_scan_grouped_ref(x, log_a, b, c, q, init_state)
-    return y[:, :L], st
+    y, *rest = ssd_chunked_scan_grouped_ref(x, log_a, b, c, q, init_state, states)
+    return (y[:, :L], *rest)
 
 
 def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
@@ -82,23 +98,28 @@ def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
     return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
 
 
-def ssd_scan_launch(x, log_a, b, c, init, chunk: int):
-    """The launch alone, for operands the registry took (``ops``)."""
+def ssd_scan_launch(x, log_a, b, c, init, chunk: int, states: bool = False):
+    """The launch alone, for operands the registry took (``ops``).  With
+    ``states`` the kernel also writes the state entering each chunk and
+    the call returns (y, final state, states)."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     q = scan_chunk(L, chunk)
     xs, bs, las = x.stride(), b.stride(), log_a.stride()
     y = torch.empty((B, L, H, P), dtype=torch.bfloat16, device=x.device)
     st = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    cst = (torch.empty((B, H, chunk_count(L, chunk), P, N), dtype=torch.float32,
+                       device=x.device) if states else None)
     rc = cuda.library().cs_ssd_scan(
         x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(),
         0 if init is None else init.data_ptr(), y.data_ptr(), st.data_ptr(),
+        0 if cst is None else cst.data_ptr(),
         B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1],
         cuda.stream_handle(x),
     )
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
-    return y, st
+    return (y, st, cst) if states else (y, st)
 
 
 def ssd_scan_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1):
@@ -114,3 +135,174 @@ def ssd_scan_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1
     flops *= B * H
     n_bytes = B * L * (H * P * 2 * 2 + H * 4 + 2 * G * N * 2) + 2 * B * H * P * N * 4
     return flops, n_bytes
+
+
+def ssd_scan_bwd_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1):
+    """(flops, bytes) the backward needs: for each (b, h) and chunk of q
+    steps, 2 flops per (t, s <= t) pair and feature of C B^T, dY X^T,
+    M^T dY, (D o R)^T C and (D o R) B, and 16qPN for the four products
+    with the state and its gradient (B dS^T, X dS, dY S_in, (e o dY)^T C);
+    x, log_a, b, c, dY, the chunk states and the final state's gradient
+    read once, dX, dlog_a, dB, dC and the initial state's gradient
+    written once."""
+    q = scan_chunk(L, chunk)
+    flops = 0.0
+    for t0 in range(0, L, q):
+        n = min(q, L - t0)
+        flops += n * (n + 1) * (3 * N + 2 * P) + 8.0 * n * P * N
+    flops *= B * H
+    row = 3 * H * P * 2 + 2 * H * 4 + 4 * G * N * 2      # x, dY, dX; log_a, dlog_a; b, c, dB, dC
+    n_bytes = B * L * row + (chunk_count(L, chunk) + 2) * B * H * P * N * 4
+    return flops, n_bytes
+
+
+def _padded(t, pad: int):
+    """``t`` (B, L, ...) f32, with ``pad`` zero steps after L."""
+    t = t.float()
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+
+
+def ssd_scan_fwd_plain(x, log_a, b, c, init_state=None, chunk: int = 128):
+    """``ssd_scan_plain``'s (y, final state) and the state entering each
+    chunk, (B, H, nc, P, N) f32: the forward of the plain pair."""
+    return ssd_scan_plain(x, log_a, b, c, init_state, chunk, states=True)
+
+
+def ssd_scan_bwd_plain(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
+                       need_init: bool = True):
+    """The scan's gradients, chunk by chunk from the last, in f32 from the
+    state entering each chunk (``states`` (B, H, nc, P, N)): with cum the
+    cumulative log-decay, D[t,s] = exp(cum_t - cum_s) for s <= t, M = D o
+    (C B^T), R = dY X^T, K = M o R, w_s = exp(cum_q - cum_s), e_t =
+    exp(cum_t) and dS the gradient of the state leaving the chunk:
+
+        dX     = M^T dY + w o (B dS^T)
+        dB     = (D o R)^T C + w o (X dS)        (summed over the group)
+        dC     = (D o R) B + e o (dY S_in)        (summed over the group)
+        dS_in  = exp(cum_q) dS + (e o dY)^T C
+        dcum_t = sum_s K[t,s] - sum_s K[s,t] + e_t (dY_t . S_in C_t)
+                 - w_t (dS . X_t^T B_t),
+        dcum_q += exp(cum_q) <dS, S_in> + sum_s w_s (dS . X_s^T B_s)
+
+    and dlog_a the reverse cumulative sum of dcum within the chunk.  The
+    padding is ``ssd_scan_plain``'s (identity steps).  ``dy`` (B, L, H,
+    P) and ``d_final`` (B, H, P, N) or None (zeros) are the cotangents of
+    y and of the final state.  Returns (dx in x's dtype, dlog_a f32, db
+    and dc in b's and c's dtypes, d_init f32 or None)."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
+    pad = nc * q - L
+    X = _padded(x, pad).reshape(B, nc, q, H, P)
+    A = _padded(log_a, pad).reshape(B, nc, q, H)
+    Bm = _padded(b, pad).reshape(B, nc, q, G, N).repeat_interleave(H // G, dim=3)
+    Cm = _padded(c, pad).reshape(B, nc, q, G, N).repeat_interleave(H // G, dim=3)
+    dY = _padded(dy, pad).reshape(B, nc, q, H, P)
+    dS = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+          if d_final is None else d_final.float())
+    after = ~torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    dX, dA, dB, dC = (torch.empty(t.shape, dtype=torch.float32, device=x.device)
+                      for t in (X, A, Bm, Cm))
+    for k in reversed(range(nc)):
+        xk, bk, ck, gk = X[:, k], Bm[:, k], Cm[:, k], dY[:, k]
+        s_in = states[:, :, k].float()
+        cum = torch.cumsum(A[:, k], dim=1)                         # (B, q, H)
+        cq = cum[:, -1]                                            # (B, H)
+        seg = (cum[:, :, None] - cum[:, None]).masked_fill(after[None, :, :, None], -torch.inf)
+        D = torch.exp(seg)                                         # (B, t, s, H)
+        M = D * torch.einsum("bthn,bshn->btsh", ck, bk)
+        R = torch.einsum("bthp,bshp->btsh", gk, xk)
+        DR = D * R
+        K = M * R
+        w = torch.exp(cq[:, None] - cum)
+        e = torch.exp(cum)
+        zb = torch.einsum("bshp,bhpn->bshn", xk, dS)
+        zc = torch.einsum("bthp,bhpn->bthn", gk, s_in)
+        dX[:, k] = (torch.einsum("btsh,bthp->bshp", M, gk)
+                    + w[..., None] * torch.einsum("bshn,bhpn->bshp", bk, dS))
+        dB[:, k] = torch.einsum("btsh,bthn->bshn", DR, ck) + w[..., None] * zb
+        dC[:, k] = torch.einsum("btsh,bshn->bthn", DR, bk) + e[..., None] * zc
+        wterm = w * (bk * zb).sum(-1)
+        dcum = K.sum(2) - K.sum(1) + e * (ck * zc).sum(-1) - wterm
+        dcum[:, -1] += torch.exp(cq) * (dS * s_in).sum((-1, -2)) + wterm.sum(1)
+        dA[:, k] = dcum.flip(1).cumsum(1).flip(1)
+        dS = (torch.exp(cq)[..., None, None] * dS
+              + torch.einsum("bth,bthp,bthn->bhpn", e, gk, ck))
+    Lp = nc * q
+    dx = dX.reshape(B, Lp, H, P)[:, :L].to(x.dtype)
+    dla = dA.reshape(B, Lp, H)[:, :L]
+    db = dB.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(b.dtype)
+    dc = dC.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(c.dtype)
+    return dx, dla, db, dc, (dS if need_init else None)
+
+
+def ssd_scan_bwd_cuda(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
+                      need_init: bool = True):
+    """Launch the backward kernel on operands the forward kernel takes
+    (``contracts.SSD_SCAN``'s rules; ``KernelIneligibleError`` otherwise):
+    ``states`` as the forward writes them under grad, ``dy`` and
+    ``d_final`` the cotangents of y and of the final state (None: zeros)."""
+    contracts.require(contracts.ssd_scan_verdict(x, log_a, b, c, None, chunk), NAME, BWD_NAME)
+    return ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk, need_init)
+
+
+def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
+                        need_init: bool = True):
+    """The backward's launch alone, for operands the registry took
+    (``ops``).  dX, dB and dC come out in bf16, dlog_a and d_init in f32;
+    the sums over the heads of a group and over the P slices go through
+    f32 partials in a scratch buffer, reduced in a fixed order."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    q, nps = scan_chunk(L, chunk), -(-P // SLICE)
+    dev = x.device
+    xs, bs, las = x.stride(), b.stride(), log_a.stride()
+    dy = dy.to(torch.bfloat16).contiguous()
+    states = states.float().contiguous()
+    d_final = None if d_final is None else d_final.float().contiguous()
+    dx = torch.empty((B, L, H, P), dtype=torch.bfloat16, device=dev)
+    dla = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    db, dc = (torch.empty((B, L, G, N), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    d_init = torch.empty((B, H, P, N), dtype=torch.float32, device=dev) if need_init else None
+    part = torch.empty((2, B, L, H, nps, N), dtype=torch.float32, device=dev)
+    lpart = torch.empty((B, L, H, nps), dtype=torch.float32, device=dev)
+    rc = cuda.library().cs_ssd_scan_bwd(
+        x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), states.data_ptr(),
+        dy.data_ptr(), 0 if d_final is None else d_final.data_ptr(),
+        dx.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        0 if d_init is None else d_init.data_ptr(), part.data_ptr(), lpart.data_ptr(),
+        B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1],
+        cuda.stream_handle(x),
+    )
+    cuda.check(rc, BWD_NAME)
+    cuda.record_launch(BWD_NAME)
+    return dx, dla, db, dc, d_init
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The scan under autograd over a (forward, backward) pair:
+    ``forward(x, log_a, b, c, init, chunk)`` -> (y, final state, chunk
+    states), ``backward(x, log_a, b, c, states, dy, d_final, chunk,
+    need_init)`` -> (dx, dlog_a, db, dc, d_init).  ``ops.ssd_scan`` gives
+    it the kernels on the card and shapes only on meta tensors; the tests
+    give it the plain pair.  A None ``init`` has no gradient, and a None
+    cotangent (y or the final state unused) is zeros."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, chunk, x, log_a, b, c, init):
+        y, st, states = fwd(x, log_a, b, c, init, chunk)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, log_a, b, c, states)
+        ctx.bwd, ctx.chunk = bwd, chunk
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        need = ctx.needs_input_grad[3:]
+        if not any(need):
+            return (None,) * 8
+        x, log_a, b, c, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ctx.bwd(x, log_a, b, c, states, dy, d_final, ctx.chunk, need[4])
+        return (None, None, None) + tuple(g if n else None for g, n in zip(grads, need))

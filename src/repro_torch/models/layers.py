@@ -818,7 +818,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Returns (out, the new tail)."""
     K = w.shape[0]
     if tail is None:
-        xp = F.pad(x, (0, 0, K - 1, 0))
+        # K - 1 zero steps in x's own layout, by cat: under a mesh x is a
+        # DTensor, and DTensor 2.11 fails to place F.pad's output on the
+        # (16, 16) mesh (the training dry run of the hybrid family)
+        tail = torch.zeros_like(x[:, :1])
+        xp = torch.cat([tail] * (K - 1) + [x], dim=1)
     else:
         xp = torch.cat([tail.to(x.dtype), x], dim=1)
     T = x.shape[1]

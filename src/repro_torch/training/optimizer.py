@@ -72,12 +72,34 @@ def schedule(cfg: OptCfg, step) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
+# a leaf above this many elements is taken in slices along its first
+# dimension (the stacked layers), so that its f32 temporaries are one
+# slice's: mamba2-2.7b's 64 stacked in_proj hold 1.73 G elements, 6.5 GB
+# in f32 for each temporary of the update.  The update is elementwise, so
+# slices give the same values; a slice's sum of squares is summed in
+# slice order
+SLICE_ELEMS = 1 << 28
+
+
+def _slices(*ts):
+    """``ts`` (tensors of one shape) whole, or in matching slices along
+    the first dimension of at most about ``SLICE_ELEMS`` elements."""
+    t = ts[0]
+    if t.numel() <= SLICE_ELEMS or t.dim() == 0:
+        yield ts
+        return
+    per = max(1, SLICE_ELEMS // max(t[0].numel(), 1))
+    for i in range(0, t.shape[0], per):
+        yield tuple(u[i:i + per] for u in ts)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in the JAX package's leaf order) of
     each leaf's f32 sum of squares."""
     total = 0
     for leaf in tree_leaves(tree):
-        total = total + torch.sum(leaf.to(F32) ** 2)
+        for (part,) in _slices(leaf):
+            total = total + torch.sum(part.to(F32) ** 2)
     return torch.sqrt(total)
 
 
@@ -98,16 +120,17 @@ def apply_updates(params, grads, state: OptState, cfg: OptCfg) -> Tuple[Any, Opt
     bc1 = float(1 - _f32(b1) ** _f32(float(step)))
     bc2 = float(1 - _f32(b2) ** _f32(float(step)))
     lr_f = float(lr)            # an f32 value, exact as a Python float
-    for p, g, m, v in zip(tree_leaves(params), flat_g, tree_leaves(state.mu),
-                          tree_leaves(state.nu)):
-        g = g.to(F32) * scale
-        m_new = b1 * m.to(F32) + (1 - b1) * g
-        v_new = b2 * v.to(F32) + (1 - b2) * g * g
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
-        p.copy_(p.to(F32) - lr_f * delta)
-        m.copy_(m_new)
-        v.copy_(v_new)
+    for leaf in zip(tree_leaves(params), flat_g, tree_leaves(state.mu),
+                    tree_leaves(state.nu)):
+        for p, g, m, v in _slices(*leaf):
+            g = g.to(F32) * scale
+            m_new = b1 * m.to(F32) + (1 - b1) * g
+            v_new = b2 * v.to(F32) + (1 - b2) * g * g
+            mhat = m_new / bc1
+            vhat = v_new / bc2
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
+            p.copy_(p.to(F32) - lr_f * delta)
+            m.copy_(m_new)
+            v.copy_(v_new)
     new_step = torch.full((), step, dtype=torch.int32, device=state.step.device)
     return params, OptState(new_step, state.mu, state.nu), {"lr": lr, "grad_norm": gnorm}

@@ -21,7 +21,12 @@ step (2^-7) of each (b, t, head) row's largest value, since both round
 f32 values that differ by the summation order; the f32 state within
 1e-4 of each (b, head) state's largest value (sums of up to 256 terms
 and the cumulative log-decay taken in another order, the latter entering
-through exp).
+through exp).  ssd_scan's backward: dx, db and dc (bf16) within one
+bf16 step (2^-7) of their (batch row, head or group) slice's largest
+value, dlog_a and d_init (f32) within 1e-3 of theirs (the plain version
+sums the same f32 products in other orders; dlog_a is a difference of
+two such sums), bitwise equal over two calls; the chunk states the
+forward kernel writes under grad within 1e-4, as its final state.
 """
 import numpy as np
 import pytest
@@ -41,7 +46,10 @@ from repro_torch.kernels.flash_refresh import (  # noqa: E402
     build_block_map, flash_refresh_cuda, flash_refresh_paged_cuda,
     flash_refresh_paged_plain, flash_refresh_plain,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_cuda, ssd_scan_fwd_plain, ssd_scan_launch,
+    ssd_scan_plain,
+)
 from repro_torch.kernels.mv_sad import mv_sad_cuda  # noqa: E402
 from repro_torch.kernels.rope_shift import rope_shift_cuda  # noqa: E402
 
@@ -687,6 +695,97 @@ def test_ssd_scan_kernel_matches_plain(dev, case):
     assert _state_rel_err(st_k.cpu(), st_p) <= 1e-4
 
 
+def _slice_rel(k, p, dims):
+    d = (k.float() - p.float()).abs().amax(dims)
+    return (d / p.float().abs().amax(dims).clamp_min(1e-30)).max().item()
+
+
+# (B, L, H, P, G, N, chunk, init, final-state cotangent): mamba2-2.7b-smoke's
+# training widths, jamba-v0.1-52b's (H 128, P 64, N 16), a ragged L with
+# groups, N 128 at a long chunk with P past one slice
+SSD_BWD = {
+    "mamba2-smoke": (2, 32, 16, 32, 1, 16, 16, False, False),
+    "jamba-widths": (2, 512, 128, 64, 1, 16, 256, True, True),
+    "groups-ragged": (2, 100, 8, 32, 4, 64, 32, True, True),
+    "n128-p48": (1, 300, 4, 48, 1, 128, 256, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_BWD))
+def test_ssd_scan_bwd_kernel_matches_plain_and_repeats(dev, case):
+    B, L, H, P, G, N, chunk, with_init, with_dfin = SSD_BWD[case]
+    rng = np.random.default_rng(21)
+    x, la, b, c, init = (None if t is None else t.to(dev)
+                         for t in _ssd_operands(rng, B, L, H, P, G, N, with_init))
+    dy = _bf16(rng, B, L, H, P).to(dev)
+    dfin = (torch.from_numpy(rng.normal(size=(B, H, P, N)).astype(np.float32)).to(dev)
+            if with_dfin else None)
+    _, _, states = ssd_scan_launch(x, la, b, c, init, chunk, states=True)
+    _, _, states_p = ssd_scan_fwd_plain(x, la, b, c, init, chunk)
+    assert _slice_rel(states, states_p, (-1, -2)) <= 1e-4
+    before = ops.launch_counts().get("ssd_scan_bwd", 0)
+    got = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+    again = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+    assert ops.launch_counts()["ssd_scan_bwd"] == before + 2
+    want = ssd_scan_bwd_plain(x, la, b, c, states, dy, dfin, chunk)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32]
+    for k, p, dims, tol in zip(got, want, ((1, 3), (1,), (1, 3), (1, 3), (-1, -2)),
+                               (2.0 ** -7, 1e-3, 2.0 ** -7, 2.0 ** -7, 1e-3)):
+        assert _slice_rel(k, p, dims) <= tol
+
+
+def test_ssd_scan_under_grad_launches_both_kernels(dev):
+    """An operand that requires grad goes through the forward kernel and
+    the backward kernel (no plain call on the card); a call the contract
+    refuses raises naming the rule, before any launch."""
+    rng = np.random.default_rng(22)
+    x, la, b, c, _ = (t.to(dev) for t in _ssd_operands(rng, 1, 40, 4, 32, 1, 16))
+    x.requires_grad_(True)
+    before = ops.launch_counts()
+    ops.reset_dispatch_counts()
+    y, st = ops.ssd_scan(x, la, b, c, None, 16)
+    (gx,) = torch.autograd.grad(y.float().square().sum() + st.sum(), (x,))
+    after = ops.launch_counts()
+    assert after["ssd_scan"] == before.get("ssd_scan", 0) + 1
+    assert after["ssd_scan_bwd"] == before.get("ssd_scan_bwd", 0) + 1
+    assert not any(ops.plain_calls_on_cuda().values())
+    with ops.kernel_mode("plain"):
+        yp, sp = ops.ssd_scan(x, la, b, c, None, 16)
+        (gp,) = torch.autograd.grad(yp.float().square().sum() + sp.sum(), (x,))
+    assert _slice_rel(gx, gp, (1, 3)) <= 2.0 ** -6    # y rounds to bf16 on both sides
+    with pytest.raises(ops.KernelIneligibleError, match="eligibility 'bf16' failed"):
+        ops.ssd_scan(x.detach().float().requires_grad_(), la, b, c, None, 16)
+    assert ops.launch_counts() == after
+
+
+def test_mamba_smoke_train_step_on_card_matches_cpu(dev):
+    """One train step of mamba2-2.7b-smoke (remat) on the card, through
+    both scan kernels, against the CPU's plain step from the same weights
+    and batch: the CPU tests' step limits (loss 1e-3 and grad_norm 1e-2
+    relative, each gradient leaf within 2^-5 of its largest |g|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models.init import init_lm_params, map_tree, trainable, tree_leaves
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+    cfg = get_config("mamba2-2.7b-smoke")
+    params = init_lm_params(cfg, 0, "cpu")
+    out = []
+    for d in ("cpu", dev):
+        p = trainable(map_tree(lambda t: t.clone().to(d), params))
+        batch = next(lm_batches(cfg, 2, 32, seed=0, device=d))
+        loss, _ = tts.loss_fn(cfg, p, batch, q_chunk=16, remat=True)
+        grads = tts.tree_grads(loss, p)
+        out.append((float(loss.detach()), float(topt.global_norm(grads)),
+                    [g.float().cpu() for g in tree_leaves(grads)]))
+    (lc, nc, gc), (lk, nk, gk) = out
+    assert abs(lk - lc) <= 1e-3 * abs(lc) and abs(nk - nc) <= 1e-2 * nc
+    for a, b in zip(gc, gk):
+        assert (a - b).abs().max().item() <= 2.0 ** -5 * max(a.abs().max().item(), 1e-30)
+
+
 def test_ssd_scan_masked_decay_does_not_overflow_to_nan(dev):
     """log_a down to -100 a step: cum falls by thousands over the chunk,
     so exp(cum_t - cum_s) overflows f32 wherever s > t.  The kernel forms
@@ -961,16 +1060,13 @@ def _grad_case(name, dev):
         q, k, v = rnd(1, 16, 4, 64), rnd(256, 2, 64), rnd(256, 2, 64)
         pt = torch.tensor([[1, 0]], dtype=torch.int32, device=dev)
         return (lambda: ops.flash_prefill_paged(q, k, v, pt)), (q, k, v)
-    if name == "ssd_scan":
-        x, b, c = rnd(1, 32, 2, 64), rnd(1, 32, 1, 16), rnd(1, 32, 1, 16)
-        la = -torch.rand((1, 32, 2), generator=g, device=dev)
-        return (lambda: ops.ssd_scan(x, la, b, c, None, 16)), (x, la, b, c)
     raise KeyError(name)
 
 
+# ssd_scan has a backward kernel: its grad tests are below
 GRAD_OPS = ("mv_sad", "rope_shift", "flash_refresh", "flash_refresh_paged",
             "flash_refresh_paged_int8", "flash_packed", "flash_prefill",
-            "flash_prefill_paged", "ssd_scan")
+            "flash_prefill_paged")
 
 
 @pytest.mark.parametrize("which", ["first", "last"])

@@ -188,6 +188,33 @@ def test_apply_updates_matches_jax(state_dtype):
                 assert np.abs(mt - mj).max() <= 1e-6 * np.abs(mj).max(), k
 
 
+def test_apply_updates_in_slices_equals_the_whole_leaf(monkeypatch):
+    """A leaf above ``SLICE_ELEMS`` is updated slice by slice along its
+    first dimension (bounded f32 temporaries): the parameters and moments
+    come out bitwise equal to the whole leaf's update, the grad_norm
+    within f32 summation order."""
+    rng = np.random.default_rng(3)
+    p0 = {"w": rng.normal(0, 0.5, (6, 16, 8)).astype(np.float32),
+          "b": rng.normal(0, 0.5, (8,)).astype(np.float32)}
+    g = {k: torch.from_numpy(rng.normal(0, 0.1, v.shape).astype(np.float32))
+         for k, v in p0.items()}
+    cfg = topt.OptCfg(lr=1e-2, warmup=1, total_steps=5)
+    out = []
+    for limit in (topt.SLICE_ELEMS, 256):
+        monkeypatch.setattr(topt, "SLICE_ELEMS", limit)
+        params = {k: torch.from_numpy(v).bfloat16() for k, v in p0.items()}
+        st = topt.init_opt_state(params, cfg)
+        for _ in range(2):
+            params, st, m = topt.apply_updates(params, g, st, cfg)
+        out.append((params, st, float(m["grad_norm"])))
+    (pa, sa, na), (pb, sb, nb) = out
+    assert len(list(topt._slices(pb["w"]))) == 3          # two layers a slice
+    for k in p0:
+        assert torch.equal(pa[k], pb[k]), k
+        assert torch.equal(sa.mu[k], sb.mu[k]) and torch.equal(sa.nu[k], sb.nu[k]), k
+    assert nb == pytest.approx(na, rel=1e-6)
+
+
 def test_schedule_matches_jax():
     cfg = dict(lr=1.0, warmup=10, total_steps=100, min_lr_frac=0.1)
     for s in (0, 1, 5, 10, 11, 50, 99, 100, 150):
