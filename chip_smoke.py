@@ -30,7 +30,7 @@ Phases (any failure exits non-zero):
   2. build   — compile the hand-written kernels from src/repro_torch/csrc
                (one nvcc per source, in parallel) and print what ptxas
                reports per kernel (registers, spills); an attention
-               kernel that spills fails.
+               kernel or one of the scan's backward that spills fails.
   3. kernels — each kernel against its plain PyTorch version on the card
                at the serving path's shapes for internvl3-14b at 448^2
                (flash_refresh_paged at fresh prefill, selective refresh
@@ -65,7 +65,8 @@ Phases (any failure exits non-zero):
                jamba's widths: dx, db, dc within one bf16 step and dlog_a,
                d_init within 1e-3 of their slice's largest value, bitwise
                repeat, its bound at the bf16 tensor rate (the f32
-               CUDA-core figure beside); kernel, plain and library
+               CUDA-core figure beside), and its three kernels' blocks
+               per SM at each N; kernel, plain and library
                (scaled_dot_product_attention, after a gather where the KV
                is paged; none for ssd_scan) times from CUDA events around
                calls made one by one (``ms``: the wrapper's host time
@@ -379,7 +380,10 @@ def kernel_label(mangled: str) -> str:
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
     if "mma_kernel" not in mangled or d is None or struct is None:
         m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", mangled)
-        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+        if m:
+            return f"{m.group(1)}<{m.group(2)}>"
+        m = re.search(r"\d([a-z_]+_kernel)E", mangled)
+        return m.group(1) if m else mangled
     cold = "+cold" if "WithColdPages" in mangled else ""
     return f"mma_kernel<{d.group(1)}, {struct}{cold}>"
 
@@ -1151,6 +1155,26 @@ BWD_TOL, BWD_F32_TOL = 2.0 ** -7, 1e-3
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 4
 
 
+def kernel_ms(torch, fn, calls: int = 3) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by its
+    short name, from torch.profiler over ``calls`` calls after a warm
+    one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel(<\d+>)?)", e.key)
+            out[m.group(1) if m else e.key[:40]] += (
+                getattr(e, "self_device_time_total", 0) / 1e3 / calls)
+    return dict(out)
+
+
 def slice_rel(torch, k, p, dims) -> float:
     """max over slices of max |k - p| / the slice's max |p|."""
     d = (k.float() - p.float()).abs().amax(dims)
@@ -1169,12 +1193,16 @@ def check_ssd_scan_bwd(torch):
     forward's 1e-4; times per call (CUDA events), on the device (replayed
     graph), the plain version's, and the bound from ssd_scan_bwd_work at
     the bf16 tensor rate (its five q^2 products multiply bf16 operands),
-    with the f32 CUDA-core figure of the kernel's own arithmetic beside
-    it.  The row keeps the training shape's times."""
+    with the f32 CUDA-core figure of the same flops beside it (the first
+    version's arithmetic); blocks per SM of its three kernels at each N
+    (the runtime's occupancy calculator).  The row keeps the training
+    shape's times."""
     from repro_torch.kernels.ssd_scan import (
-        ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_fwd_plain,
-        ssd_scan_launch,
+        STATE_WIDTHS, bwd_occupancy, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_work,
+        ssd_scan_fwd_plain, ssd_scan_launch,
     )
+    for n in STATE_WIDTHS:
+        log(f"ssd_scan_bwd kernels, N {n}, chunk 256: blocks per SM {bwd_occupancy(n, 256)}")
     cases = (("mamba2-2.7b training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256, True, True),
              ("ragged", 1, 1000, 80, 64, 1, 128, 256, False, False),
              ("groups", 2, 300, 16, 32, 4, 64, 64, True, True),
@@ -1211,6 +1239,10 @@ def check_ssd_scan_bwd(torch):
                            replays=2, min_copies=2)
         plain = cuda_ms(torch, lambda: ssd_scan_bwd_plain(*args, chunk), 2, warmup=1)
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
+        if row is None:
+            stages = kernel_ms(torch, lambda: ssd_scan_bwd_cuda(*args, chunk))
+            log(f"ssd_scan_bwd ({label}): device ms per call by kernel (torch.profiler): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
         here = (bitwise and st_rel <= 1e-4
                 and all(v <= tol for v, tol in readings.values()))
         log(f"ssd_scan_bwd ({label}): x {tuple(x.shape)} bf16, b/c {tuple(b.shape)} bf16, "
@@ -1221,7 +1253,7 @@ def check_ssd_scan_bwd(torch):
             f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}): bf16 tensor {flops / BF16_TENSOR_FLOPS * 1e3:.4f} "
             f"ms ({flops / 1e9:.4g} GFLOP), bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-            f"({n_bytes / 1e6:.4g} MB); on the f32 CUDA cores it runs on, "
+            f"({n_bytes / 1e6:.4g} MB); the same flops on the f32 CUDA cores "
             f"{flops / F32_FLOPS * 1e3:.4f} ms: {'ok' if here else 'FAIL'}")
         ok = ok and here
         if row is None:
@@ -2476,13 +2508,19 @@ def profile_step(torch, cfg, params, batch_size: int = WHISPER_BATCH,
     return dict(groups)
 
 
+# the scan's backward: (a) each chunk's (e o dY)^T C, (b) the sequential
+# dS pass, (c) the chunk-local rest, and the partials' fixed-order sums
+SSD_BWD_KERNELS = ("ssd_scan_bwd_chunk_kernel", "ssd_scan_bwd_state_kernel",
+                   "ssd_scan_bwd_kernel", "sum_mid_kernel")
+
+
 def kernel_group(name: str) -> str:
     """A profiled kernel's group, by its name: the scan's forward and
-    backward kernels (the latter with its partials' reduction), f32 GEMMs
+    backward kernels (the latter's three and its partials' sums), f32 GEMMs
     on the CUDA cores (cuBLAS ``f32f32`` / ``sgemm``), other GEMMs, copies
     and casts, softmax, reductions, the rest elementwise."""
     low = name.lower()
-    if "ssd_scan_bwd_kernel" in low or "sum_mid_kernel" in low:
+    if any(k in low for k in SSD_BWD_KERNELS):
         return "ssd_scan backward"
     if "ssd_scan_kernel" in low:
         return "ssd_scan forward"
@@ -3311,10 +3349,10 @@ def main(argv=None) -> int:
     for src, text in cuda.build_log().items():
         for label, regs, spill in ptxas_kernels(text):
             log(f"  ptxas[{src}]: {label}: {regs} registers, {spill} bytes spilled")
-            if spill and src == "attention.cu":
+            if spill and (src == "attention.cu" or label.startswith("ssd_scan_bwd")):
                 spilled.append(label)
     if spilled:
-        log(f"FAIL: attention kernels spill registers: {spilled}")
+        log(f"FAIL: attention or scan-backward kernels spill registers: {spilled}")
         return 1
     probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0],
               "hosttime": lambda: host_times(torch),

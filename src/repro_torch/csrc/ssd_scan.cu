@@ -436,7 +436,7 @@ int launch(const void* x, const float* log_a, const void* b, const void* c, cons
 // The backward.  No TPU kernel to replace: the reference trains through
 // its plain scan, which jax.grad differentiates.  Per (b, h) and chunk
 // of q steps, with D[t,s] = exp(cum_t - cum_s) for s <= t (else 0),
-// M = D o (C B^T), R = dY X^T, K = M o R, w_s = exp(cum_q - cum_s),
+// G = C B^T, M = D o G, R = dY X^T, K = M o R, w_s = exp(cum_q - cum_s),
 // e_t = exp(cum_t), S_in the state entering the chunk (the forward
 // writes it under grad) and dS the gradient of the state leaving it:
 //
@@ -450,435 +450,740 @@ int launch(const void* x, const float* log_a, const void* b, const void* c, cons
 //   dlog_a = the reverse cumulative sum of dcum within the chunk
 //
 // Bound on an H100: operations.  About q^2 (3N + 2P) + 8qPN flops per
-// (b, h) and chunk against the bytes of x, dY, b, c and one state per
-// chunk; this first version runs them on the CUDA cores in f32 (every
-// bf16 operand widened as it is read), so the f32 rate bounds it.  The
-// design:
+// (b, h) and chunk (ssd_scan_bwd_work), all of them products of bf16
+// operands or of f32 factors that enter as bf16 hi + lo, against the
+// bytes of x, dY, b, c and one state per chunk.  This replaces a first
+// version that ran every product as f32 FMAs on the CUDA cores, one
+// block of 8 warps per SM walking all chunks of a (P slice, head) in
+// order, with f32 partials per P slice (13 ms at mamba2-2.7b's training
+// shape, 200x its bound).  Only dS is carried from chunk to chunk;
+// everything quadratic in q is chunk-local.  So three launches (the
+// upstream Mamba-2 Triton backward's split), then the fixed-order sums:
 //
-// * The forward's grid (P / PT, H, B): a block owns rows [p0, p0 + PT)
-//   of its head's state and walks the chunks from the last to the first,
-//   carrying its PT x N slice of dS in shared memory.  dX is its own;
-//   dB, dC and dlog_a sum over P (and dB, dC over the heads of a group),
-//   so the block writes f32 partials per (step, head, P slice) and a
-//   second kernel sums them in a fixed order: no atomics, so two calls
-//   on the same inputs are bitwise equal.
-// * Two passes over 32 x 32 tiles of the chunk's causal (t, s) plane.
-//   A thread owns one row of the tile (8 threads a row) and four of its
-//   columns, and forms C_t . B_s and dY_t . X_s for them from shared
-//   memory.  Pass 1 walks rows t: dC[t] += (D o R)[t, :] B, and the
-//   row sums of K.  Pass 2 walks columns s: dX[s] += M[:, s]^T dY,
-//   dB[s] += (D o R)[:, s]^T C, and the column sums of K.  The tile's
-//   factors go through shared memory, the row sums through a fixed
-//   shuffle tree.
-// * exp(cum_t - cum_s) only where s <= t, by a select (as the forward);
-//   e_t and w_s only for steps before q.  Rows from q on are zero-filled,
-//   so they add nothing.
-// * Shared memory: B and C rows (rows x N bf16), the x and dY slices
-//   (rows x PT bf16), S_in and dS (PT x N f32), cum, exp(cum), dcum and
-//   the w terms (rows f32), two tiles (at q 256, N 128: 208 KB, one
-//   block per SM).  Odd word pitches keep each access conflict-free.
-constexpr int BT = 32;   // edge of the backward's (t, s) tiles
+// (a) ssd_scan_bwd_chunk_kernel, grid (chunks x P slabs, H, B): each
+//     chunk's (e o dY)^T C (P x N f32) into the dS scratch, and cum_q.
+//     mma.sync with e o dY as hi + lo (ldmatrix.trans of dY, scaled and
+//     split in registers) and C bf16.  107.5 KB at q 256, N 128: two
+//     blocks per SM.
+// (b) ssd_scan_bwd_state_kernel, grid (P N / 1024, H, B): the one
+//     sequential pass, f32 and elementwise.  From the last chunk, each
+//     slot's (e o dY)^T C is replaced by the dS leaving that chunk, and
+//     dS = exp(cum_q) dS + (e o dY)^T C; d_init is what is left.  The
+//     scratch is (B, H, nc, P, N) f32, the size of the chunk states
+//     (42 MB at the training shape), read and written once.
+// (c) ssd_scan_bwd_kernel, grid (chunks x P slabs, H / hb, B): the rest,
+//     with a whole P slab of up to PB = 64 columns (all of P at every
+//     model's width) in one block, so R is whole and dlog_a is finished
+//     in the block.  A block takes hb = 2 heads of one group when the
+//     group's head count is even (B 2, L 2048, H 80: 640 blocks), else
+//     one.  Pass 1, a warp per 16-row tile t: G, R, D o R, the row sums
+//     of K, dC += (D o R) B over s <= t and the state terms; pass 2, a
+//     warp per 16-row tile s: G^T, R^T, dX += M^T dY and dB += (D o R)^T
+//     C over t >= s, the column sums of K and the state terms.  A warp
+//     walks its tile's heads in turn, summing dC or dB over them in one
+//     accumulator.  Tiles are dealt longest first in a snake over the
+//     warps.
+//
+// Every product is mma.sync m16n8k16 bf16 -> f32.  G and R take bf16
+// operands as they are (exact products, f32 sums).  The f32 factors
+// enter as hi = bf16(v), lo = bf16(v - hi) (about 16 bits, as in the
+// forward): M and D o R from their accumulators, the states S_in and dS
+// (split once as they are staged in shared memory), and e o dY, w o X
+// where an accumulator already holds other heads' sums (three products:
+// hi hi, lo hi, hi lo).  K and its row and column sums stay f32 on the
+// accumulator fragments, and the dot products of the dcum terms are
+// taken on accumulators of C_t S_in^T and B_s dS^T against the dY_t
+// and X_s fragments: dlog_a cancels, and no bf16 rounding enters it.
+// exp(cum_t - cum_s) is formed only where s <= t, by a select.
+//
+// dB and dC sum over a group's heads (80 at mamba2-2.7b) without
+// atomics: a block sums its hb heads in registers and writes f32
+// partials per (step, head block, P slab), and sum_mid_kernel adds them
+// in a fixed order, so two calls on the same inputs are bitwise equal.
+// Partials at the training shape: 2 x 2 x 2048 x 40 x 128 x 4 bytes =
+// 168 MB (the first version's: 671 MB).  Shared memory of (c), q 256,
+// N 128: B or C rows 69.6 KB, x or dY rows of both heads 73.7 KB, the
+// states' halves of both heads 69.6 KB, cum, dcum and the w terms 6 KB:
+// 219 KB, one block of 8 warps per SM (the occupancy calculator: (c) 1,
+// (a) 2 / 3 / 4 at N 128 / 64 / 16, (b) 8).  Registers decide that as
+// well: a warp holds its tile's 16 x N f32 accumulator (64 registers at
+// N 128) and its rows' C or B fragments (32) and dY or x fragments,
+// which two blocks per SM (128 registers a thread) could not hold.
+// ptxas gives (c) 255 / 246 / 156 registers at N 128 / 64 / 16 and no
+// spill, with every shared operand addressed by a 32-bit shared address
+// plus per-lane offsets computed once (generic pointers spilled 16-36
+// bytes at N 128).
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int PB = 64;          // P columns of a slab, one block's share of P
+constexpr int HB_MAX = 2;       // heads per block of (c)
 
+// heads per block of (c): a pair of one group's heads where the group's
+// head count is even (kernels/ssd_scan.py:bwd_launch_geometry mirrors it)
+int bwd_heads(int H, int G) { return (H / G) % 2 == 0 ? HB_MAX : 1; }
+
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// an A fragment of bf16 pairs as bf16 hi and lo halves, each value
+// scaled first: a[i]'s low and high halves by s(2i) and s(2i + 1) (rows
+// g and g + 8 by one factor each, or k columns 2t4, 2t4 + 1, 2t4 + 8,
+// 2t4 + 9)
+__device__ __forceinline__ void scale_split(const uint32_t (&a)[4], float s0, float s1,
+                                            float s2, float s3, float s4, float s5, float s6,
+                                            float s7, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_bf16(bf_lo(a[0]) * s0, bf_hi(a[0]) * s1, hi[0], lo[0]);
+  split_bf16(bf_lo(a[1]) * s2, bf_hi(a[1]) * s3, hi[1], lo[1]);
+  split_bf16(bf_lo(a[2]) * s4, bf_hi(a[2]) * s5, hi[2], lo[2]);
+  split_bf16(bf_lo(a[3]) * s6, bf_hi(a[3]) * s7, hi[3], lo[3]);
+}
+
+// sum over this thread's accumulator elements of acc (16 x 8 tiles, as
+// many as a's k16 chunks times two) times a's values at the same (row,
+// column): a's A fragment layout is two n8 tiles of the accumulator's.
+// Rows g (ra) and g + 8 (rb).
+template <int K16>
+__device__ __forceinline__ void frag_dot(const float (&acc)[2 * K16][4], const uint32_t (&a)[K16][4],
+                                         int live, float& ra, float& rb) {
+  #pragma unroll
+  for (int k = 0; k < K16; ++k) {
+    if (k * 16 >= live) break;
+    ra += acc[2 * k][0] * bf_lo(a[k][0]) + acc[2 * k][1] * bf_hi(a[k][0]) +
+          acc[2 * k + 1][0] * bf_lo(a[k][2]) + acc[2 * k + 1][1] * bf_hi(a[k][2]);
+    rb += acc[2 * k][2] * bf_lo(a[k][1]) + acc[2 * k][3] * bf_hi(a[k][1]) +
+          acc[2 * k + 1][2] * bf_lo(a[k][3]) + acc[2 * k + 1][3] * bf_hi(a[k][3]);
+  }
+}
+
+// ldmatrix x4 (and .trans) at a 32-bit shared address
+__device__ __forceinline__ void lds4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void lds4t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// A fragments of rows ra and rb (zero where a row is not live) of a
+// bf16 matrix in device memory, row pitch ld elements, K16 k16 chunks of
+// which the columns from `live` on are zero
+template <int K16>
+__device__ __forceinline__ void load_frags(uint32_t (&f)[K16][4], const bf16* base, long long ld,
+                                           int ra, int rb, bool a_in, bool b_in, int live,
+                                           int t4) {
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(base + (a_in ? ra : 0) * ld) + t4;
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(base + (b_in ? rb : 0) * ld) + t4;
+  #pragma unroll
+  for (int k = 0; k < K16; ++k) {
+    const bool c0 = k * 16 + 2 * t4 < live, c8 = k * 16 + 8 + 2 * t4 < live;
+    f[k][0] = a_in && c0 ? __ldg(pa + k * 8) : 0u;
+    f[k][1] = b_in && c0 ? __ldg(pb + k * 8) : 0u;
+    f[k][2] = a_in && c8 ? __ldg(pa + k * 8 + 4) : 0u;
+    f[k][3] = b_in && c8 ? __ldg(pb + k * 8 + 4) : 0u;
+  }
+}
+
+// inclusive block scan of log_a over the chunk (one step per thread, 0
+// from q on, so rows past the ragged edge carry cum_q); part: NW floats
+__device__ __forceinline__ float chunk_scan(const float* ab, long long sal, int q, float* part,
+                                            int tid, int lane, int warp) {
+  float v = tid < q ? ab[(long long)tid * sal] : 0.f;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) part[warp] = v;
+  __syncthreads();
+  float pre = 0.f;
+  for (int w = 0; w < warp; ++w) pre += part[w];
+  return v + pre;
+}
+
+// (a)'s shared memory, rows = q rounded up to 16: C rows (rows x N
+// bf16) | the dY slab (rows x PB bf16) | e (rows f32) | scan partials
 template <int N>
-struct BwdSmem {
-  static constexpr int LDN = N + 2;    // bf16 pitch of B and C rows
-  static constexpr int LDP = PT + 2;   // bf16 pitch of the x and dY rows
-  static constexpr int LDS = N + 1;    // f32 pitch of S_in and dS rows
-  static constexpr int LDT = BT + 1;   // f32 pitch of a tile
-  size_t b, c, x, dy, s, ds, cum, ecum, dcum, wt, tm, tr, part, bytes;
-  __host__ __device__ BwdSmem(int rows) {
-    b = 0;
-    c = b + sizeof(bf16) * rows * LDN;
-    x = c + sizeof(bf16) * rows * LDN;
-    dy = x + sizeof(bf16) * rows * LDP;
-    s = dy + sizeof(bf16) * rows * LDP;
-    ds = s + sizeof(float) * PT * LDS;
-    cum = ds + sizeof(float) * PT * LDS;
-    ecum = cum + sizeof(float) * rows;
-    dcum = ecum + sizeof(float) * rows;
-    wt = dcum + sizeof(float) * rows;
-    tm = wt + sizeof(float) * rows;
-    tr = tm + sizeof(float) * BT * LDT;
-    part = tr + sizeof(float) * BT * LDT;
+struct ChunkSmem {
+  static constexpr int LDN = N + 8;
+  static constexpr int LDP = PB + 8;
+  size_t c, y, e, part, bytes;
+  __host__ __device__ ChunkSmem(int rows) {
+    c = 0;
+    y = c + sizeof(bf16) * rows * LDN;
+    e = y + sizeof(bf16) * rows * LDP;
+    part = e + sizeof(float) * rows;
     bytes = part + sizeof(float) * NW;
   }
 };
 
-__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// (a): E = (e o dY)^T C over one chunk for one P slab of one head, P x N
+// f32 into dsc (B, H, nc, P, N), and cum_q into cq (B, H, nc).  A warp
+// owns one 16-row p tile and half of the n16 column blocks.
+template <int N>
+__global__ void __launch_bounds__(NT, 2)
+ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__ cm,
+                          const bf16* __restrict__ dy, float* __restrict__ dsc,
+                          float* __restrict__ cq, int L, int H, int P, int G, int Q, int nps,
+                          long long sab, long long sal, long long sbb, long long sbl) {
+  using Sm = ChunkSmem<N>;
+  constexpr int LDN = Sm::LDN, LDP = Sm::LDP;
+  constexpr int NB16 = N / 16, NPW = (NB16 + 1) / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k = blockIdx.x / nps, slab = blockIdx.x % nps, p0 = slab * PB;
+  const int pc = min(PB, P - p0);
+  const int h = blockIdx.y, bb = blockIdx.z, grp = h / (H / G);
+  const int nc = (L + Q - 1) / Q, t0 = k * Q, q = min(Q, L - t0), rows = (q + 15) & ~15;
+  const Sm sm(rows);
+  bf16* Cs = reinterpret_cast<bf16*>(smem + sm.c);
+  bf16* Ys = reinterpret_cast<bf16*>(smem + sm.y);
+  float* ev = reinterpret_cast<float*>(smem + sm.e);
+  float* part = reinterpret_cast<float*>(smem + sm.part);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * N;
+  const long long ystep = (long long)H * P;
+  const bf16* yb = dy + ((long long)bb * L + t0) * ystep + (long long)h * P + p0;
+
+  for (int i = tid; i < rows * (N / 8); i += NT) {
+    const int r = i / (N / 8), c8 = (i % (N / 8)) * 8;
+    const bool in = r < q;
+    cp_async16_fill(Cs + r * LDN + c8, cg + (long long)(in ? r : 0) * sbl + c8, in ? 16 : 0);
+  }
+  for (int i = tid; i < rows * (PB / 8); i += NT) {
+    const int r = i / (PB / 8), c8 = (i % (PB / 8)) * 8;
+    const bool in = r < q && c8 < pc;
+    cp_async16_fill(Ys + r * LDP + c8, yb + (in ? r * ystep + c8 : 0), in ? 16 : 0);
+  }
+  cp_async_commit();
+  const float cum = chunk_scan(la + bb * sab + (long long)t0 * sal + h, sal, q, part, tid, lane,
+                               warp);
+  if (tid < rows) ev[tid] = tid < q ? expf(cum) : 0.f;
+  if (tid == q - 1 && slab == 0) cq[((long long)bb * H + h) * nc + k] = cum;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int pt = warp & 3, nb0 = (warp >> 2) * NPW;
+  if (pt * 16 >= pc) return;
+  float acc[2 * NPW][4] = {};
+  for (int s0 = 0; s0 < rows; s0 += 16) {
+    uint32_t a[4], ah[4], al[4];   // (e o dY)^T: rows p, k = t
+    ldsm_x4_t(a, Ys + (s0 + (lane & 7) + (lane >> 4) * 8) * LDP + pt * 16 + ((lane >> 3) & 1) * 8);
+    const int kt = s0 + 2 * t4;
+    const float e0 = ev[kt], e1 = ev[kt + 1], e8 = ev[kt + 8], e9 = ev[kt + 9];
+    scale_split(a, e0, e1, e0, e1, e8, e9, e8, e9, ah, al);
+    #pragma unroll
+    for (int j = 0; j < NPW; ++j) {
+      if (nb0 + j >= NB16) break;
+      uint32_t v[4];   // C: rows k = t, n16 block nb0 + j
+      ldsm_x4_t(v, Cs + (s0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDN + (nb0 + j) * 16 +
+                       (lane >> 4) * 8);
+      mma16816(acc[2 * j], ah, v[0], v[1]);
+      mma16816(acc[2 * j], al, v[0], v[1]);
+      mma16816(acc[2 * j + 1], ah, v[2], v[3]);
+      mma16816(acc[2 * j + 1], al, v[2], v[3]);
+    }
+  }
+  float* dst = dsc + ((((long long)bb * H + h) * nc + k) * P + p0 + pt * 16 + g) * N;
+  #pragma unroll
+  for (int j = 0; j < 2 * NPW; ++j) {
+    if (nb0 + j / 2 >= NB16) break;
+    const int c = (nb0 + j / 2) * 16 + (j & 1) * 8 + 2 * t4;
+    if (pt * 16 + g < pc)
+      *reinterpret_cast<float2*>(dst + c) = make_float2(acc[j][0], acc[j][1]);
+    if (pt * 16 + g + 8 < pc)
+      *reinterpret_cast<float2*>(dst + 8 * N + c) = make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
+// (b): dsc holds each chunk's (e o dY)^T C; from the last chunk, its
+// slot takes the dS leaving the chunk, and dS = exp(cum_q) dS + that
+// product.  Four f32 elements of one (b, h)'s P x N per thread.
+__global__ void __launch_bounds__(NT)
+ssd_scan_bwd_state_kernel(float* __restrict__ dsc, const float* __restrict__ cq,
+                          const float* __restrict__ dfin, float* __restrict__ dinit, int H,
+                          int nc, int PN) {
+  const int i = (blockIdx.x * NT + threadIdx.x) * 4;
+  if (i >= PN) return;
+  const long long bh = (long long)blockIdx.z * H + blockIdx.y;
+  float4 cur = dfin != nullptr ? __ldg(reinterpret_cast<const float4*>(dfin + bh * PN + i))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = nc - 1; k >= 0; --k) {
+    float4* slot = reinterpret_cast<float4*>(dsc + (bh * nc + k) * PN + i);
+    const float4 e = *slot;
+    *slot = cur;
+    const float d = expf(cq[bh * nc + k]);
+    cur = make_float4(fmaf(d, cur.x, e.x), fmaf(d, cur.y, e.y), fmaf(d, cur.z, e.z),
+                      fmaf(d, cur.w, e.w));
+  }
+  if (dinit != nullptr) *reinterpret_cast<float4*>(dinit + bh * PN + i) = cur;
+}
+
+// (c)'s shared memory, rows = q rounded up to 16: B rows in pass 1, C
+// rows in pass 2 (rows x N bf16) | x rows, then dY rows, of each head
+// (HB_MAX x rows x PB bf16) | S_in's, then dS's, hi and lo halves of
+// each head (HB_MAX x 2 x PB x N bf16) | cum, dcum and the w terms of
+// each head (rows f32 each) | scan and reduction partials.  Row pitches
+// padded by 16 bytes, as in the forward.  kernels/ssd_scan.py:
+// bwd_launch_geometry mirrors this layout.
+template <int N>
+struct BwdSmem {
+  static constexpr int LDN = N + 8;
+  static constexpr int LDP = PB + 8;
+  size_t bc, xy, st, cum, dcum, wt, red, bytes;
+  __host__ __device__ BwdSmem(int rows) {
+    bc = 0;
+    xy = bc + sizeof(bf16) * rows * LDN;
+    st = xy + sizeof(bf16) * HB_MAX * rows * LDP;
+    cum = st + sizeof(bf16) * HB_MAX * 2 * PB * LDN;
+    dcum = cum + sizeof(float) * HB_MAX * rows;
+    wt = dcum + sizeof(float) * HB_MAX * rows;
+    red = wt + sizeof(float) * HB_MAX * rows;
+    bytes = red + sizeof(float) * 2 * HB_MAX * NW;
+  }
+};
+
+// stage a (B, H, nc, P, N) f32 state slab of hb heads as bf16 hi / lo
+// halves (rows from pc on zero); with `other`, also each head's
+// <state, other> over the slab, warp partials into red[hh * NW + warp]
+template <int N>
+__device__ __forceinline__ void stage_states(bf16* st, const float* src, const float* other,
+                                             float* red, int hb, int pc, int tid, int lane,
+                                             int warp, long long head_stride) {
+  constexpr int LDN = N + 8;
+  for (int hh = 0; hh < hb; ++hh) {
+    bf16* hi = st + hh * 2 * PB * LDN;
+    bf16* lo = hi + PB * LDN;
+    const float* s = src + hh * head_stride;
+    const float* o = other != nullptr ? other + hh * head_stride : nullptr;
+    float ip = 0.f;
+    for (int i = tid; i < PB * N / 4; i += NT) {
+      const int r = i / (N / 4), c4 = (i % (N / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+      if (r < pc) {
+        v = __ldg(reinterpret_cast<const float4*>(s + (long long)r * N + c4));
+        if (other != nullptr) w = __ldg(reinterpret_cast<const float4*>(o + (long long)r * N + c4));
+      }
+      ip += v.x * w.x + v.y * w.y + v.z * w.z + v.w * w.w;
+      uint32_t h0, l0, h1, l1;
+      split_bf16(v.x, v.y, h0, l0);
+      split_bf16(v.z, v.w, h1, l1);
+      *reinterpret_cast<uint2*>(hi + r * LDN + c4) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(lo + r * LDN + c4) = make_uint2(l0, l1);
+    }
+    if (other != nullptr) {
+      for (int o2 = 16; o2 > 0; o2 >>= 1) ip += __shfl_xor_sync(FULL, ip, o2);
+      if (lane == 0) red[hh * NW + warp] = ip;
+    }
+  }
+}
+
+// (c): see the note above.  Block (chunk k x P slab, head block, b).
 template <int N>
 __global__ void __launch_bounds__(NT, 1)
 ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                     const bf16* __restrict__ bm, const bf16* __restrict__ cm,
                     const float* __restrict__ cst, const bf16* __restrict__ dy,
-                    const float* __restrict__ dfin, bf16* __restrict__ dx,
-                    float* __restrict__ dinit, float* __restrict__ dbp,
-                    float* __restrict__ dcp, float* __restrict__ dlap, int L, int H, int P,
-                    int G, int Q, long long sxb, long long sxl, long long sab, long long sal,
-                    long long sbb, long long sbl) {
+                    const float* __restrict__ dsc, bf16* __restrict__ dx,
+                    float* __restrict__ dbp, float* __restrict__ dcp, float* __restrict__ dl,
+                    int L, int H, int P, int G, int Q, int nps, int hb, long long sxb,
+                    long long sxl, long long sab, long long sal, long long sbb, long long sbl) {
   using Sm = BwdSmem<N>;
-  constexpr int LDN = Sm::LDN, LDP = Sm::LDP, LDS = Sm::LDS, LDT = Sm::LDT;
-  constexpr int NN = N / 16;    // column pairs of N a thread owns: 2 jj + 16 m
-  constexpr int NP = PT / 16;   // column pairs of P a thread owns
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Sm sm((Q + BT - 1) / BT * BT);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + sm.b);
-  bf16* Cs = reinterpret_cast<bf16*>(smem + sm.c);
-  bf16* Xs = reinterpret_cast<bf16*>(smem + sm.x);
-  bf16* Ys = reinterpret_cast<bf16*>(smem + sm.dy);
-  float* Ss = reinterpret_cast<float*>(smem + sm.s);
-  float* dSs = reinterpret_cast<float*>(smem + sm.ds);
+  constexpr int LDN = Sm::LDN, LDP = Sm::LDP;
+  constexpr int KC = N / 16;    // k16 chunks over N
+  constexpr int PK = PB / 16;   // k16 chunks over a P slab
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int k = blockIdx.x / nps, slab = blockIdx.x % nps, p0 = slab * PB;
+  const int pc = min(PB, P - p0);   // live columns of the slab
+  const int h0 = blockIdx.y * hb, bb = blockIdx.z, grp = h0 / (H / G);
+  const int nc = (L + Q - 1) / Q, t0 = k * Q, q = min(Q, L - t0), rows = (q + 15) & ~15;
+  const int n_rt = rows / 16;
+  const Sm sm(rows);
+  bf16* BC = reinterpret_cast<bf16*>(smem + sm.bc);
+  bf16* XY = reinterpret_cast<bf16*>(smem + sm.xy);
+  bf16* ST = reinterpret_cast<bf16*>(smem + sm.st);
   float* cum = reinterpret_cast<float*>(smem + sm.cum);
-  float* ecum = reinterpret_cast<float*>(smem + sm.ecum);
   float* dcum = reinterpret_cast<float*>(smem + sm.dcum);
   float* wt = reinterpret_cast<float*>(smem + sm.wt);
-  float* TM = reinterpret_cast<float*>(smem + sm.tm);
-  float* TR = reinterpret_cast<float*>(smem + sm.tr);
-  float* part = reinterpret_cast<float*>(smem + sm.part);
-
-  const int ps = blockIdx.x, p0 = ps * PT, h = blockIdx.y, bb = blockIdx.z;
-  const int nps = gridDim.x;
-  const int prow = min(PT, P - p0);
-  const int grp = h / (H / G);
+  float* red = reinterpret_cast<float*>(smem + sm.red);   // HB_MAX x NW scan, HB_MAX x NW <dS, S_in>
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rr = tid >> 3, jj = tid & 7;   // a tile row, and the thread's columns in it
-  const bf16* xb = x + bb * sxb + (long long)h * P + p0;
-  const float* ab = la + bb * sab + h;
-  const bf16* bg = bm + bb * sbb + (long long)grp * N;
-  const bf16* cg = cm + bb * sbb + (long long)grp * N;
+  const int g = lane >> 2, t4 = lane & 3;
+  // shared addresses, and this lane's ldmatrix row in bytes within a
+  // 16-row tile of pitch LDN or LDP: B operands read as (n, k) rows (n)
+  // and as (k, n) rows through .trans (t)
+  const uint32_t bc_a = smem_addr(BC), xy_a = smem_addr(XY), st_a = smem_addr(ST);
+  const uint32_t oNn = 2 * (((lane & 7) + ((lane >> 4) << 3)) * LDN + ((lane >> 3) & 1) * 8);
+  const uint32_t oNt = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDN + (lane >> 4) * 8);
+  const uint32_t oPn = 2 * (((lane & 7) + ((lane >> 4) << 3)) * LDP + ((lane >> 3) & 1) * 8);
+  const uint32_t oPt = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDP + (lane >> 4) * 8);
+  const bf16* bg = bm + bb * sbb + (long long)t0 * sbl + (long long)grp * N;
+  const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * N;
   const long long ystep = (long long)H * P;
-  const bf16* yb = dy + (long long)bb * L * ystep + (long long)h * P + p0;
-  bf16* dxb = dx + (long long)bb * L * ystep + (long long)h * P + p0;
-  const long long soff = (((long long)bb * H + h) * P + p0) * N;
-  const int nc = (L + Q - 1) / Q;
+  const bf16* xb = x + bb * sxb + (long long)t0 * sxl + (long long)h0 * P + p0;
+  const bf16* yb = dy + ((long long)bb * L + t0) * ystep + (long long)h0 * P + p0;
+  bf16* dxb = dx + ((long long)bb * L + t0) * ystep + (long long)h0 * P + p0;
+  const long long soff = ((((long long)bb * H + h0) * nc + k) * P + p0) * N;
+  const long long shead = (long long)nc * P * N;   // one head further in the states
+  // a block's partial rows: (step, head block, P slab) of N f32
+  const long long prow = (long long)(H / hb) * nps;
+  const long long poff = (long long)blockIdx.y * nps + slab;
 
-  // dS of the last chunk: the final state's cotangent, or zeros
-  for (int i = tid; i < PT * N; i += NT) {
-    const int r = i / N, cc = i % N;
-    dSs[r * LDS + cc] = dfin != nullptr && r < prow ? __ldg(dfin + soff + (long long)r * N + cc)
-                                                    : 0.f;
+  // pass 1's operands: B rows, x rows of each head, S_in's halves (and
+  // <dS, S_in> of each head), and each head's cum
+  for (int i = tid; i < rows * (N / 8); i += NT) {
+    const int r = i / (N / 8), c8 = (i % (N / 8)) * 8;
+    const bool in = r < q;
+    cp_async16_fill(BC + r * LDN + c8, bg + (long long)(in ? r : 0) * sbl + c8, in ? 16 : 0);
   }
+  for (int i = tid; i < hb * rows * (PB / 8); i += NT) {
+    const int hh = i / (rows * (PB / 8)), r = (i / (PB / 8)) % rows, c8 = (i % (PB / 8)) * 8;
+    const bool in = r < q && c8 < pc;
+    cp_async16_fill(XY + (hh * rows + r) * LDP + c8,
+                    xb + (in ? (long long)r * sxl + hh * P + c8 : 0), in ? 16 : 0);
+  }
+  cp_async_commit();
+  stage_states<N>(ST, cst + soff, dsc + soff, red + HB_MAX * NW, hb, pc, tid, lane, warp, shead);
+  for (int hh = 0; hh < hb; ++hh) {
+    const float v = chunk_scan(la + bb * sab + (long long)t0 * sal + h0 + hh, sal, q, red + hh * NW,
+                               tid, lane, warp);
+    if (tid < rows) cum[hh * rows + tid] = v;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  for (int k = nc - 1; k >= 0; --k) {
-    const int t0 = k * Q, q = min(Q, L - t0), rows = (q + BT - 1) / BT * BT;
-    const int n_tiles = rows / BT;
-    // this chunk's rows (zeros from q on, and x / dY columns from P on)
-    for (int i = tid; i < rows * (N / 2); i += NT) {
-      const int r = i / (N / 2), c2 = (i % (N / 2)) * 2;
-      uint32_t vb = 0u, vc = 0u;
-      if (r < q) {
-        const long long off = (long long)(t0 + r) * sbl + c2;
-        vb = __ldg(reinterpret_cast<const unsigned int*>(bg + off));
-        vc = __ldg(reinterpret_cast<const unsigned int*>(cg + off));
+  // pass 1: a warp per 16-row tile t, over key tiles s <= t
+  #pragma unroll 1
+  for (int it = 0; it * NW < n_rt; ++it) {
+    const int idx = it * NW + ((it & 1) ? NW - 1 - warp : warp);
+    if (idx >= n_rt) continue;
+    const int r0 = (n_rt - 1 - idx) * 16;
+    const int ta = r0 + g, tb = ta + 8;
+    uint32_t cf[KC][4];
+    load_frags<KC>(cf, cg, sbl, ta, tb, ta < q, tb < q, N, t4);
+    float acc[N / 8][4] = {};   // dC of rows ta, tb over the block's heads
+    #pragma unroll 1
+    for (int hh = 0; hh < hb; ++hh) {
+      const uint32_t sh = st_a + 2 * hh * 2 * PB * LDN, sl = sh + 2 * PB * LDN;
+      const float* cu = cum + hh * rows;
+      uint32_t yf[PK][4];
+      load_frags<PK>(yf, yb + hh * P, ystep, ta, tb, ta < q, tb < q, pc, t4);
+      // state terms: e_t dY_t . (S_in C_t) from C_t S_in^T, and
+      // dC += (e o dY_t) S_in
+      float ys[2 * PK][4] = {};
+      #pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        #pragma unroll
+        for (int pp = 0; pp < PK; ++pp) {
+          if (pp * 16 >= pc) break;
+          const uint32_t off = oNn + 2 * (pp * 16 * LDN + kc * 16);
+          uint32_t v[4];
+          lds4(v, sh + off);
+          mma16816(ys[2 * pp], cf[kc], v[0], v[1]);
+          mma16816(ys[2 * pp + 1], cf[kc], v[2], v[3]);
+          lds4(v, sl + off);
+          mma16816(ys[2 * pp], cf[kc], v[0], v[1]);
+          mma16816(ys[2 * pp + 1], cf[kc], v[2], v[3]);
+        }
       }
-      *reinterpret_cast<uint32_t*>(Bs + r * LDN + c2) = vb;
-      *reinterpret_cast<uint32_t*>(Cs + r * LDN + c2) = vc;
-    }
-    for (int i = tid; i < rows * (PT / 2); i += NT) {
-      const int r = i / (PT / 2), c2 = (i % (PT / 2)) * 2;
-      uint32_t vx = 0u, vy = 0u;
-      if (r < q && c2 < prow) {
-        vx = __ldg(reinterpret_cast<const unsigned int*>(xb + (long long)(t0 + r) * sxl + c2));
-        vy = __ldg(reinterpret_cast<const unsigned int*>(yb + (long long)(t0 + r) * ystep + c2));
+      float ra = 0.f, rb = 0.f;   // row sums of K and the e_t dot, rows ta and tb
+      frag_dot<PK>(ys, yf, pc, ra, rb);
+      const float ca = cu[ta], cb = cu[tb];
+      const float ea = ta < q ? expf(ca) : 0.f, eb = tb < q ? expf(cb) : 0.f;
+      ra *= ea;
+      rb *= eb;
+      #pragma unroll
+      for (int pk = 0; pk < PK; ++pk) {
+        if (pk * 16 >= pc) break;
+        uint32_t ah[4], al[4];
+        scale_split(yf[pk], ea, ea, eb, eb, ea, ea, eb, eb, ah, al);
+        #pragma unroll
+        for (int nb = 0; nb < N / 16; ++nb) {
+          const uint32_t off = oNt + 2 * (pk * 16 * LDN + nb * 16);
+          uint32_t vh[4], vl[4];
+          lds4t(vh, sh + off);
+          lds4t(vl, sl + off);
+          mma16816(acc[2 * nb], ah, vh[0], vh[1]);
+          mma16816(acc[2 * nb], al, vh[0], vh[1]);
+          mma16816(acc[2 * nb], ah, vl[0], vl[1]);
+          mma16816(acc[2 * nb + 1], ah, vh[2], vh[3]);
+          mma16816(acc[2 * nb + 1], al, vh[2], vh[3]);
+          mma16816(acc[2 * nb + 1], ah, vl[2], vl[3]);
+        }
       }
-      *reinterpret_cast<uint32_t*>(Xs + r * LDP + c2) = vx;
-      *reinterpret_cast<uint32_t*>(Ys + r * LDP + c2) = vy;
+      #pragma unroll 1
+      for (int s0 = 0; s0 <= r0; s0 += 16) {
+        const uint32_t brow = bc_a + 2 * s0 * LDN, xrow = xy_a + 2 * (hh * rows + s0) * LDP;
+        float gs[8] = {}, rs[8] = {};   // G = C_t B_s^T, R = dY_t X_s^T
+        #pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t v[4];
+          lds4(v, brow + oNn + 32 * kc);
+          mma16816(gs, cf[kc], v[0], v[1]);
+          mma16816(gs + 4, cf[kc], v[2], v[3]);
+        }
+        #pragma unroll
+        for (int pk = 0; pk < PK; ++pk) {
+          if (pk * 16 >= pc) break;
+          uint32_t v[4];
+          lds4(v, xrow + oPn + 32 * pk);
+          mma16816(rs, yf[pk], v[0], v[1]);
+          mma16816(rs + 4, yf[pk], v[2], v[3]);
+        }
+        #pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int s = s0 + 8 * j + 2 * t4;
+          const float2 cs = *reinterpret_cast<const float2*>(cu + s);
+          float* r = rs + 4 * j;
+          const float* m = gs + 4 * j;
+          r[0] = s <= ta ? r[0] * ex2((ca - cs.x) * LOG2E) : 0.f;
+          r[1] = s + 1 <= ta ? r[1] * ex2((ca - cs.y) * LOG2E) : 0.f;
+          r[2] = s <= tb ? r[2] * ex2((cb - cs.x) * LOG2E) : 0.f;
+          r[3] = s + 1 <= tb ? r[3] * ex2((cb - cs.y) * LOG2E) : 0.f;
+          ra += r[0] * m[0] + r[1] * m[1];
+          rb += r[2] * m[2] + r[3] * m[3];
+        }
+        uint32_t dh[4], dlo[4];   // D o R as an A fragment (k = s)
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) split_bf16(rs[2 * i], rs[2 * i + 1], dh[i], dlo[i]);
+        // dC += (D o R) B_s, B rows as (k = s, n) through ldmatrix.trans
+        #pragma unroll
+        for (int nb = 0; nb < N / 16; ++nb) {
+          uint32_t v[4];
+          lds4t(v, brow + oNt + 32 * nb);
+          mma16816(acc[2 * nb], dh, v[0], v[1]);
+          mma16816(acc[2 * nb], dlo, v[0], v[1]);
+          mma16816(acc[2 * nb + 1], dh, v[2], v[3]);
+          mma16816(acc[2 * nb + 1], dlo, v[2], v[3]);
+        }
+      }
+      ra = quad_sum(ra);
+      rb = quad_sum(rb);
+      if (t4 == 0) {
+        dcum[hh * rows + ta] = ra;
+        dcum[hh * rows + tb] = rb;
+      }
     }
-    const float* s_in = cst + ((((long long)bb * H + h) * nc + k) * P + p0) * N;
-    for (int i = tid; i < PT * N; i += NT) {
-      const int r = i / N, cc = i % N;
-      Ss[r * LDS + cc] = r < prow ? __ldg(s_in + (long long)r * N + cc) : 0.f;
+    float* pa = dcp + ((long long)bb * L * prow + (long long)(t0 + ta) * prow + poff) * N;
+    float* pb = pa + 8 * prow * N;
+    #pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if (ta < q) *reinterpret_cast<float2*>(pa + c) = make_float2(acc[j][0], acc[j][1]);
+      if (tb < q) *reinterpret_cast<float2*>(pb + c) = make_float2(acc[j][2], acc[j][3]);
     }
-    // inclusive block scan of log_a (one step per thread; rows from q on
-    // carry cum_q)
-    float v = tid < q ? ab[(long long)(t0 + tid) * sal] : 0.f;
+  }
+  __syncthreads();   // every warp is done with B, x and S_in
+
+  // pass 2's operands: C rows, dY rows of each head, dS's halves
+  for (int i = tid; i < rows * (N / 8); i += NT) {
+    const int r = i / (N / 8), c8 = (i % (N / 8)) * 8;
+    const bool in = r < q;
+    cp_async16_fill(BC + r * LDN + c8, cg + (long long)(in ? r : 0) * sbl + c8, in ? 16 : 0);
+  }
+  for (int i = tid; i < hb * rows * (PB / 8); i += NT) {
+    const int hh = i / (rows * (PB / 8)), r = (i / (PB / 8)) % rows, c8 = (i % (PB / 8)) * 8;
+    const bool in = r < q && c8 < pc;
+    cp_async16_fill(XY + (hh * rows + r) * LDP + c8,
+                    yb + (in ? (long long)r * ystep + hh * P + c8 : 0), in ? 16 : 0);
+  }
+  cp_async_commit();
+  stage_states<N>(ST, dsc + soff, nullptr, nullptr, hb, pc, tid, lane, warp, shead);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // pass 2: a warp per 16-row tile s, over query tiles t >= s
+  #pragma unroll 1
+  for (int it = 0; it * NW < n_rt; ++it) {
+    const int idx = it * NW + ((it & 1) ? NW - 1 - warp : warp);
+    if (idx >= n_rt) continue;
+    const int r0 = idx * 16;
+    const int sa = r0 + g, sb = sa + 8;
+    uint32_t bf[KC][4];
+    load_frags<KC>(bf, bg, sbl, sa, sb, sa < q, sb < q, N, t4);
+    float acc[N / 8][4] = {};   // dB of rows sa, sb over the block's heads
+    #pragma unroll 1
+    for (int hh = 0; hh < hb; ++hh) {
+      const uint32_t sh = st_a + 2 * hh * 2 * PB * LDN, sl = sh + 2 * PB * LDN;
+      const float* cu = cum + hh * rows;
+      uint32_t xf[PK][4];
+      load_frags<PK>(xf, xb + hh * P, sxl, sa, sb, sa < q, sb < q, pc, t4);
+      // dX starts as w o (B_s dS^T); its rows' dot with X_s is the w term
+      float ax[2 * PK][4] = {};
+      #pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        #pragma unroll
+        for (int pp = 0; pp < PK; ++pp) {
+          if (pp * 16 >= pc) break;
+          const uint32_t off = oNn + 2 * (pp * 16 * LDN + kc * 16);
+          uint32_t v[4];
+          lds4(v, sh + off);
+          mma16816(ax[2 * pp], bf[kc], v[0], v[1]);
+          mma16816(ax[2 * pp + 1], bf[kc], v[2], v[3]);
+          lds4(v, sl + off);
+          mma16816(ax[2 * pp], bf[kc], v[0], v[1]);
+          mma16816(ax[2 * pp + 1], bf[kc], v[2], v[3]);
+        }
+      }
+      float wa = 0.f, wb = 0.f;
+      frag_dot<PK>(ax, xf, pc, wa, wb);
+      const float cs_a = cu[sa], cs_b = cu[sb], c_end = cu[q - 1];
+      const float w_a = sa < q ? expf(c_end - cs_a) : 0.f;
+      const float w_b = sb < q ? expf(c_end - cs_b) : 0.f;
+      wa *= w_a;
+      wb *= w_b;
+      #pragma unroll
+      for (int j = 0; j < 2 * PK; ++j) {
+        ax[j][0] *= w_a;
+        ax[j][1] *= w_a;
+        ax[j][2] *= w_b;
+        ax[j][3] *= w_b;
+      }
+      // dB += (w o X_s) dS, dS rows as (k = p, n) through ldmatrix.trans
+      #pragma unroll
+      for (int pk = 0; pk < PK; ++pk) {
+        if (pk * 16 >= pc) break;
+        uint32_t ah[4], al[4];
+        scale_split(xf[pk], w_a, w_a, w_b, w_b, w_a, w_a, w_b, w_b, ah, al);
+        #pragma unroll
+        for (int nb = 0; nb < N / 16; ++nb) {
+          const uint32_t off = oNt + 2 * (pk * 16 * LDN + nb * 16);
+          uint32_t vh[4], vl[4];
+          lds4t(vh, sh + off);
+          lds4t(vl, sl + off);
+          mma16816(acc[2 * nb], ah, vh[0], vh[1]);
+          mma16816(acc[2 * nb], al, vh[0], vh[1]);
+          mma16816(acc[2 * nb], ah, vl[0], vl[1]);
+          mma16816(acc[2 * nb + 1], ah, vh[2], vh[3]);
+          mma16816(acc[2 * nb + 1], al, vh[2], vh[3]);
+          mma16816(acc[2 * nb + 1], ah, vl[2], vl[3]);
+        }
+      }
+      float ka = 0.f, kb = 0.f;   // column sums of K, rows sa and sb
+      #pragma unroll 1
+      for (int u0 = r0; u0 < rows; u0 += 16) {
+        const uint32_t crow = bc_a + 2 * u0 * LDN, yrow = xy_a + 2 * (hh * rows + u0) * LDP;
+        float gs[8] = {}, rs[8] = {};   // G^T = B_s C_u^T, R^T = X_s dY_u^T
+        #pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t v[4];
+          lds4(v, crow + oNn + 32 * kc);
+          mma16816(gs, bf[kc], v[0], v[1]);
+          mma16816(gs + 4, bf[kc], v[2], v[3]);
+        }
+        #pragma unroll
+        for (int pk = 0; pk < PK; ++pk) {
+          if (pk * 16 >= pc) break;
+          uint32_t v[4];
+          lds4(v, yrow + oPn + 32 * pk);
+          mma16816(rs, xf[pk], v[0], v[1]);
+          mma16816(rs + 4, xf[pk], v[2], v[3]);
+        }
+        #pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int t = u0 + 8 * j + 2 * t4;
+          const float2 ct = *reinterpret_cast<const float2*>(cu + t);
+          float* m = gs + 4 * j;
+          float* r = rs + 4 * j;
+          const float d0 = sa <= t ? ex2((ct.x - cs_a) * LOG2E) : 0.f;
+          const float d1 = sa <= t + 1 ? ex2((ct.y - cs_a) * LOG2E) : 0.f;
+          const float d2 = sb <= t ? ex2((ct.x - cs_b) * LOG2E) : 0.f;
+          const float d3 = sb <= t + 1 ? ex2((ct.y - cs_b) * LOG2E) : 0.f;
+          m[0] *= d0;
+          m[1] *= d1;
+          m[2] *= d2;
+          m[3] *= d3;
+          ka += m[0] * r[0] + m[1] * r[1];
+          kb += m[2] * r[2] + m[3] * r[3];
+          r[0] *= d0;
+          r[1] *= d1;
+          r[2] *= d2;
+          r[3] *= d3;
+        }
+        uint32_t mh[4], ml[4], dh[4], dlo[4];   // M^T and (D o R)^T as A fragments (k = t)
+        #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_bf16(gs[2 * i], gs[2 * i + 1], mh[i], ml[i]);
+          split_bf16(rs[2 * i], rs[2 * i + 1], dh[i], dlo[i]);
+        }
+        // dX += M^T dY_u and dB += (D o R)^T C_u, (k = t) rows through
+        // ldmatrix.trans
+        #pragma unroll
+        for (int pp = 0; pp < PK; ++pp) {
+          if (pp * 16 >= pc) break;
+          uint32_t v[4];
+          lds4t(v, yrow + oPt + 32 * pp);
+          mma16816(ax[2 * pp], mh, v[0], v[1]);
+          mma16816(ax[2 * pp], ml, v[0], v[1]);
+          mma16816(ax[2 * pp + 1], mh, v[2], v[3]);
+          mma16816(ax[2 * pp + 1], ml, v[2], v[3]);
+        }
+        #pragma unroll
+        for (int nb = 0; nb < N / 16; ++nb) {
+          uint32_t v[4];
+          lds4t(v, crow + oNt + 32 * nb);
+          mma16816(acc[2 * nb], dh, v[0], v[1]);
+          mma16816(acc[2 * nb], dlo, v[0], v[1]);
+          mma16816(acc[2 * nb + 1], dh, v[2], v[3]);
+          mma16816(acc[2 * nb + 1], dlo, v[2], v[3]);
+        }
+      }
+      bf16* xo = dxb + hh * P;
+      #pragma unroll
+      for (int j = 0; j < 2 * PK; ++j) {
+        const int c = j * 8 + 2 * t4;
+        if (c >= pc) break;
+        if (sa < q)
+          *reinterpret_cast<uint32_t*>(xo + (long long)sa * ystep + c) = pack_bf16(ax[j][0], ax[j][1]);
+        if (sb < q)
+          *reinterpret_cast<uint32_t*>(xo + (long long)sb * ystep + c) = pack_bf16(ax[j][2], ax[j][3]);
+      }
+      ka = quad_sum(ka);
+      kb = quad_sum(kb);
+      wa = quad_sum(wa);
+      wb = quad_sum(wb);
+      if (t4 == 0) {
+        dcum[hh * rows + sa] -= ka + wa;
+        dcum[hh * rows + sb] -= kb + wb;
+        wt[hh * rows + sa] = wa;
+        wt[hh * rows + sb] = wb;
+      }
+    }
+    float* pa = dbp + ((long long)bb * L * prow + (long long)(t0 + sa) * prow + poff) * N;
+    float* pb = pa + 8 * prow * N;
+    #pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if (sa < q) *reinterpret_cast<float2*>(pa + c) = make_float2(acc[j][0], acc[j][1]);
+      if (sb < q) *reinterpret_cast<float2*>(pb + c) = make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+  __syncthreads();   // dcum and the w terms complete
+
+  // dcum_q += exp(cum_q) <dS, S_in> + sum_s w_s (dS . X_s^T B_s), each
+  // sum in a fixed order; then dlog_a, the reverse inclusive scan of
+  // dcum within the chunk
+  if (tid < hb) {
+    float ip = 0.f, sw = 0.f;
+    for (int w = 0; w < NW; ++w) ip += red[HB_MAX * NW + tid * NW + w];
+    for (int s = 0; s < q; ++s) sw += wt[tid * rows + s];
+    dcum[tid * rows + q - 1] += expf(cum[tid * rows + q - 1]) * ip + sw;
+  }
+  __syncthreads();
+  for (int hh = 0; hh < hb; ++hh) {
+    float r = tid < q ? dcum[hh * rows + tid] : 0.f;
     for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(FULL, v, o);
-      if (lane >= o) v += u;
+      const float u = __shfl_down_sync(FULL, r, o);
+      if (lane + o < 32) r += u;
     }
-    if (lane == 31) part[warp] = v;
+    if (lane == 0) red[warp] = r;
     __syncthreads();
-    float pre = 0.f;
-    for (int w = 0; w < warp; ++w) pre += part[w];
-    if (tid < rows) {
-      cum[tid] = v + pre;
-      ecum[tid] = tid < q ? expf(v + pre) : 0.f;
-    }
-    __syncthreads();
-    const float cum_end = cum[q - 1];
-
-    // pass 1: rows t of the tile, columns s <= t
-    for (int it = 0; it < n_tiles; ++it) {
-      const int t = it * BT + rr;
-      const float cum_t = cum[t];
-      float acc[2 * NN];
-      #pragma unroll
-      for (int i = 0; i < 2 * NN; ++i) acc[i] = 0.f;
-      float rowk = 0.f;
-      for (int is = 0; is <= it; ++is) {
-        const int si0 = is * BT;
-        float gk[4] = {0.f, 0.f, 0.f, 0.f}, rk[4] = {0.f, 0.f, 0.f, 0.f};
-        #pragma unroll 4
-        for (int n = 0; n < N; n += 2) {
-          const float2 cv = ld_bf2(Cs + t * LDN + n);
-          #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float2 bv = ld_bf2(Bs + (si0 + jj + 8 * kk) * LDN + n);
-            gk[kk] = fmaf(cv.x, bv.x, fmaf(cv.y, bv.y, gk[kk]));
-          }
-        }
-        #pragma unroll 4
-        for (int pp = 0; pp < PT; pp += 2) {
-          const float2 yv = ld_bf2(Ys + t * LDP + pp);
-          #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float2 xv = ld_bf2(Xs + (si0 + jj + 8 * kk) * LDP + pp);
-            rk[kk] = fmaf(yv.x, xv.x, fmaf(yv.y, xv.y, rk[kk]));
-          }
-        }
-        #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int sl = jj + 8 * kk, s = si0 + sl;
-          const float d = s <= t ? expf(cum_t - cum[s]) : 0.f;
-          const float dr = d * rk[kk];
-          TR[rr * LDT + sl] = dr;
-          rowk = fmaf(dr, gk[kk], rowk);
-        }
-        __syncthreads();
-        for (int sl = 0; sl < BT; ++sl) {
-          const float dr = TR[rr * LDT + sl];
-          const bf16* brow = Bs + (si0 + sl) * LDN + 2 * jj;
-          #pragma unroll
-          for (int m = 0; m < NN; ++m) {
-            const float2 bv = ld_bf2(brow + 16 * m);
-            acc[2 * m] = fmaf(dr, bv.x, acc[2 * m]);
-            acc[2 * m + 1] = fmaf(dr, bv.y, acc[2 * m + 1]);
-          }
-        }
-        __syncthreads();   // TR is read
-      }
-      // dC[t] += e_t dY_t S_in; dcum_t = row sum of K + e_t C_t . (dY_t S_in)
-      float z[2 * NN];
-      #pragma unroll
-      for (int i = 0; i < 2 * NN; ++i) z[i] = 0.f;
-      for (int pp = 0; pp < PT; ++pp) {
-        const float yv = __bfloat162float(Ys[t * LDP + pp]);
-        const float* srow = Ss + pp * LDS + 2 * jj;
-        #pragma unroll
-        for (int m = 0; m < NN; ++m) {
-          z[2 * m] = fmaf(yv, srow[16 * m], z[2 * m]);
-          z[2 * m + 1] = fmaf(yv, srow[16 * m + 1], z[2 * m + 1]);
-        }
-      }
-      const float e_t = ecum[t];
-      float cz = 0.f;
-      #pragma unroll
-      for (int m = 0; m < NN; ++m) {
-        const float2 cv = ld_bf2(Cs + t * LDN + 2 * jj + 16 * m);
-        cz = fmaf(cv.x, z[2 * m], fmaf(cv.y, z[2 * m + 1], cz));
-        acc[2 * m] = fmaf(e_t, z[2 * m], acc[2 * m]);
-        acc[2 * m + 1] = fmaf(e_t, z[2 * m + 1], acc[2 * m + 1]);
-      }
-      float tot = fmaf(e_t, cz, rowk);
-      tot += __shfl_xor_sync(FULL, tot, 1);
-      tot += __shfl_xor_sync(FULL, tot, 2);
-      tot += __shfl_xor_sync(FULL, tot, 4);
-      if (jj == 0) dcum[t] = tot;
-      if (t < q) {
-        float* dst = dcp + ((((long long)bb * L + t0 + t) * H + h) * nps + ps) * N + 2 * jj;
-        #pragma unroll
-        for (int m = 0; m < NN; ++m)
-          *reinterpret_cast<float2*>(dst + 16 * m) = make_float2(acc[2 * m], acc[2 * m + 1]);
-      }
-    }
-    __syncthreads();
-
-    // pass 2: rows s of the tile, columns t >= s
-    for (int is = 0; is < n_tiles; ++is) {
-      const int s = is * BT + rr;
-      const float cum_s = cum[s];
-      float ax[2 * NP], acc[2 * NN];
-      #pragma unroll
-      for (int i = 0; i < 2 * NP; ++i) ax[i] = 0.f;
-      #pragma unroll
-      for (int i = 0; i < 2 * NN; ++i) acc[i] = 0.f;
-      float colk = 0.f;
-      for (int it = is; it < n_tiles; ++it) {
-        const int ti0 = it * BT;
-        float gk[4] = {0.f, 0.f, 0.f, 0.f}, rk[4] = {0.f, 0.f, 0.f, 0.f};
-        #pragma unroll 4
-        for (int n = 0; n < N; n += 2) {
-          const float2 bv = ld_bf2(Bs + s * LDN + n);
-          #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float2 cv = ld_bf2(Cs + (ti0 + jj + 8 * kk) * LDN + n);
-            gk[kk] = fmaf(cv.x, bv.x, fmaf(cv.y, bv.y, gk[kk]));
-          }
-        }
-        #pragma unroll 4
-        for (int pp = 0; pp < PT; pp += 2) {
-          const float2 xv = ld_bf2(Xs + s * LDP + pp);
-          #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float2 yv = ld_bf2(Ys + (ti0 + jj + 8 * kk) * LDP + pp);
-            rk[kk] = fmaf(yv.x, xv.x, fmaf(yv.y, xv.y, rk[kk]));
-          }
-        }
-        #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int tl = jj + 8 * kk, t = ti0 + tl;
-          const float d = s <= t ? expf(cum[t] - cum_s) : 0.f;
-          const float mv = d * gk[kk];
-          TM[rr * LDT + tl] = mv;
-          TR[rr * LDT + tl] = d * rk[kk];
-          colk = fmaf(mv, rk[kk], colk);
-        }
-        __syncthreads();
-        for (int tl = 0; tl < BT; ++tl) {
-          const float mv = TM[rr * LDT + tl], dr = TR[rr * LDT + tl];
-          const bf16* yrow = Ys + (ti0 + tl) * LDP + 2 * jj;
-          const bf16* crow = Cs + (ti0 + tl) * LDN + 2 * jj;
-          #pragma unroll
-          for (int m = 0; m < NP; ++m) {
-            const float2 yv = ld_bf2(yrow + 16 * m);
-            ax[2 * m] = fmaf(mv, yv.x, ax[2 * m]);
-            ax[2 * m + 1] = fmaf(mv, yv.y, ax[2 * m + 1]);
-          }
-          #pragma unroll
-          for (int m = 0; m < NN; ++m) {
-            const float2 cv = ld_bf2(crow + 16 * m);
-            acc[2 * m] = fmaf(dr, cv.x, acc[2 * m]);
-            acc[2 * m + 1] = fmaf(dr, cv.y, acc[2 * m + 1]);
-          }
-        }
-        __syncthreads();   // TM and TR are read
-      }
-      // dB[s] += w_s X_s dS; dX[s] += w_s B_s dS^T; dcum_s -= the column
-      // sum of K and w_s B_s . (X_s dS)
-      const float w_s = s < q ? expf(cum_end - cum_s) : 0.f;
-      float z[2 * NN];
-      #pragma unroll
-      for (int i = 0; i < 2 * NN; ++i) z[i] = 0.f;
-      for (int pp = 0; pp < PT; ++pp) {
-        const float xv = __bfloat162float(Xs[s * LDP + pp]);
-        const float* drow = dSs + pp * LDS + 2 * jj;
-        #pragma unroll
-        for (int m = 0; m < NN; ++m) {
-          z[2 * m] = fmaf(xv, drow[16 * m], z[2 * m]);
-          z[2 * m + 1] = fmaf(xv, drow[16 * m + 1], z[2 * m + 1]);
-        }
-      }
-      float bz = 0.f;
-      #pragma unroll
-      for (int m = 0; m < NN; ++m) {
-        const float2 bv = ld_bf2(Bs + s * LDN + 2 * jj + 16 * m);
-        bz = fmaf(bv.x, z[2 * m], fmaf(bv.y, z[2 * m + 1], bz));
-        acc[2 * m] = fmaf(w_s, z[2 * m], acc[2 * m]);
-        acc[2 * m + 1] = fmaf(w_s, z[2 * m + 1], acc[2 * m + 1]);
-      }
-      float u[2 * NP];
-      #pragma unroll
-      for (int i = 0; i < 2 * NP; ++i) u[i] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float bv = __bfloat162float(Bs[s * LDN + n]);
-        #pragma unroll
-        for (int m = 0; m < NP; ++m) {
-          u[2 * m] = fmaf(bv, dSs[(2 * jj + 16 * m) * LDS + n], u[2 * m]);
-          u[2 * m + 1] = fmaf(bv, dSs[(2 * jj + 16 * m + 1) * LDS + n], u[2 * m + 1]);
-        }
-      }
-      float wb = w_s * bz;
-      wb += __shfl_xor_sync(FULL, wb, 1);
-      wb += __shfl_xor_sync(FULL, wb, 2);
-      wb += __shfl_xor_sync(FULL, wb, 4);
-      colk += __shfl_xor_sync(FULL, colk, 1);
-      colk += __shfl_xor_sync(FULL, colk, 2);
-      colk += __shfl_xor_sync(FULL, colk, 4);
-      if (jj == 0) {
-        dcum[s] -= colk + wb;
-        wt[s] = wb;
-      }
-      if (s < q) {
-        bf16* xo = dxb + (long long)(t0 + s) * ystep + 2 * jj;
-        #pragma unroll
-        for (int m = 0; m < NP; ++m) {
-          if (2 * jj + 16 * m < prow)
-            *reinterpret_cast<uint32_t*>(xo + 16 * m) =
-                pack_bf16(fmaf(w_s, u[2 * m], ax[2 * m]), fmaf(w_s, u[2 * m + 1], ax[2 * m + 1]));
-        }
-        float* dst = dbp + ((((long long)bb * L + t0 + s) * H + h) * nps + ps) * N + 2 * jj;
-        #pragma unroll
-        for (int m = 0; m < NN; ++m)
-          *reinterpret_cast<float2*>(dst + 16 * m) = make_float2(acc[2 * m], acc[2 * m + 1]);
-      }
-    }
-    __syncthreads();   // dcum, wt complete; every read of dS is done
-
-    // dS_in = exp(cum_q) dS + (e o dY)^T C, and <dS, S_in>
-    {
-      const int pr = rr;
-      float a[2 * NN];
-      #pragma unroll
-      for (int i = 0; i < 2 * NN; ++i) a[i] = 0.f;
-      for (int t = 0; t < q; ++t) {
-        const float ey = ecum[t] * __bfloat162float(Ys[t * LDP + pr]);
-        const bf16* crow = Cs + t * LDN + 2 * jj;
-        #pragma unroll
-        for (int m = 0; m < NN; ++m) {
-          const float2 cv = ld_bf2(crow + 16 * m);
-          a[2 * m] = fmaf(ey, cv.x, a[2 * m]);
-          a[2 * m + 1] = fmaf(ey, cv.y, a[2 * m + 1]);
-        }
-      }
-      const float dec = expf(cum_end);
-      float inner = 0.f;
-      #pragma unroll
-      for (int m = 0; m < NN; ++m) {
-        #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float* e = dSs + pr * LDS + 2 * jj + 16 * m + i;
-          inner = fmaf(*e, Ss[pr * LDS + 2 * jj + 16 * m + i], inner);
-          *e = fmaf(dec, *e, a[2 * m + i]);   // this thread's element alone
-        }
-      }
-      #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) inner += __shfl_xor_sync(FULL, inner, o);
-      if (lane == 0) part[warp] = inner;
-      __syncthreads();
-      if (tid == 0) {
-        float sum = 0.f;
-        for (int w = 0; w < NW; ++w) sum += part[w];
-        float sw = 0.f;
-        for (int s = 0; s < q; ++s) sw += wt[s];
-        dcum[q - 1] += dec * sum + sw;
-      }
-      __syncthreads();
-    }
-
-    // dlog_a: the reverse inclusive scan of dcum within the chunk
-    {
-      float r = tid < q ? dcum[tid] : 0.f;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_down_sync(FULL, r, o);
-        if (lane + o < 32) r += u;
-      }
-      if (lane == 0) part[warp] = r;
-      __syncthreads();
-      float post = 0.f;
-      for (int w = NW - 1; w > warp; --w) post += part[w];
-      if (tid < q) dlap[(((long long)bb * L + t0 + tid) * H + h) * nps + ps] = r + post;
-      __syncthreads();   // part, and every row of this chunk, are free again
-    }
-  }
-
-  if (dinit != nullptr) {
-    for (int i = tid; i < prow * N; i += NT) {
-      const int r = i / N, cc = i % N;
-      dinit[soff + (long long)r * N + cc] = dSs[r * LDS + cc];
-    }
+    float post = 0.f;
+    for (int w = NW - 1; w > warp; --w) post += red[w];
+    if (tid < q) dl[(((long long)bb * L + t0 + tid) * H + h0 + hh) * nps + slab] = r + post;
+    __syncthreads();   // red is free again
   }
 }
 
@@ -904,38 +1209,83 @@ int sum_mid(const float* part, bf16* out_bf, float* out_f, long long I, int K, i
   return (int)cudaGetLastError();
 }
 
+// a kernel's opt-in to `bytes` of dynamic shared memory, once per device
+// (the attribute belongs to the function, not to the launch)
+template <typename F>
+int opt_in(F* kernel, std::atomic<unsigned long long>& opted, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!((opted.load(std::memory_order_relaxed) >> dev) & 1)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted.fetch_or(1ull << dev, std::memory_order_relaxed);
+  }
+  return 0;
+}
+
+// (a) and (c) opt in to their largest chunk's shared bytes
+template <int N>
+int bwd_opt_in() {
+  static std::atomic<unsigned long long> opted_a{0}, opted_c{0};
+  const int rc = opt_in(ssd_scan_bwd_chunk_kernel<N>, opted_a, ChunkSmem<N>(NT).bytes);
+  return rc != 0 ? rc : opt_in(ssd_scan_bwd_kernel<N>, opted_c, BwdSmem<N>(NT).bytes);
+}
+
+// blocks per SM of (a), (b) and (c) at chunk Q, from the runtime's
+// occupancy calculator
+template <int N>
+int bwd_occupancy(int Q, int* blocks) {
+  int rc = bwd_opt_in<N>();
+  if (rc != 0) return rc;
+  const int rows = (Q + 15) & ~15;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, ssd_scan_bwd_chunk_kernel<N>, NT, ChunkSmem<N>(rows).bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1, ssd_scan_bwd_state_kernel, NT, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, ssd_scan_bwd_kernel<N>, NT,
+                                                        BwdSmem<N>(rows).bytes);
+  return (int)err;
+}
+
 template <int N>
 int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
                const float* states, const void* dy, const float* dfin, void* dx, float* dla,
                void* db, void* dc, float* dinit, float* part, float* lpart, int B, int L, int H,
                int P, int G, int Q, long long sxb, long long sxl, long long sab, long long sal,
                long long sbb, long long sbl, cudaStream_t stream) {
-  static std::atomic<unsigned long long> opted{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!((opted.load(std::memory_order_relaxed) >> dev) & 1)) {
-    err = cudaFuncSetAttribute(ssd_scan_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)BwdSmem<N>(NT).bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted.fetch_or(1ull << dev, std::memory_order_relaxed);
-  }
-  const int nps = (P + PT - 1) / PT;
-  const size_t smem = BwdSmem<N>((Q + BT - 1) / BT * BT).bytes;
-  const long long n_part = (long long)B * L * H * nps * N;
-  dim3 grid(nps, H, B);
-  ssd_scan_bwd_kernel<N><<<grid, NT, smem, stream>>>(
-      (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, states, (const bf16*)dy, dfin,
-      (bf16*)dx, dinit, part, part + n_part, lpart, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl);
-  int rc = (int)cudaGetLastError();
+  int rc = bwd_opt_in<N>();
   if (rc != 0) return rc;
-  // dB and dC: the heads of each group and the P slices, in that order
-  const long long rows = (long long)B * L * G;
-  const int per = (H / G) * nps;
-  if ((rc = sum_mid(part, (bf16*)db, nullptr, rows, per, N, stream)) != 0) return rc;
-  if ((rc = sum_mid(part + n_part, (bf16*)dc, nullptr, rows, per, N, stream)) != 0) return rc;
-  return sum_mid(lpart, nullptr, dla, (long long)B * L * H, nps, 1, stream);
+  const int nc = (L + Q - 1) / Q, nps = (P + PB - 1) / PB, rows = (Q + 15) & ~15;
+  const int hb = bwd_heads(H, G);
+  // scratch (kernels/ssd_scan.py:bwd_launch_geometry): the dS slots
+  // (B, H, nc, P, N), cum_q (B, H, nc; padded to 4), and the dB and dC
+  // partials (B, L, H / hb, nps, N) each
+  const long long PN = (long long)P * N;
+  float* dsc = part;
+  float* cq = dsc + (long long)B * H * nc * PN;
+  float* dbp = cq + ((long long)B * H * nc + 3) / 4 * 4;
+  const long long n_part = (long long)B * L * (H / hb) * nps * N;
+  float* dcp = dbp + n_part;
+  float* dl = nps == 1 ? dla : lpart;
+  ssd_scan_bwd_chunk_kernel<N><<<dim3(nc * nps, H, B), NT, ChunkSmem<N>(rows).bytes, stream>>>(
+      log_a, (const bf16*)c, (const bf16*)dy, dsc, cq, L, H, P, G, Q, nps, sab, sal, sbb, sbl);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  ssd_scan_bwd_state_kernel<<<dim3((unsigned)((PN / 4 + NT - 1) / NT), H, B), NT, 0, stream>>>(
+      dsc, cq, dfin, dinit, H, nc, (int)PN);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  ssd_scan_bwd_kernel<N><<<dim3(nc * nps, H / hb, B), NT, BwdSmem<N>(rows).bytes, stream>>>(
+      (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, states, (const bf16*)dy, dsc,
+      (bf16*)dx, dbp, dcp, dl, L, H, P, G, Q, nps, hb, sxb, sxl, sab, sal, sbb, sbl);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  // dB and dC: the head blocks of each group and the P slabs, in that order
+  const long long n_rows = (long long)B * L * G;
+  const int per = (H / G / hb) * nps;
+  if ((rc = sum_mid(dbp, (bf16*)db, nullptr, n_rows, per, N, stream)) != 0) return rc;
+  if ((rc = sum_mid(dcp, (bf16*)dc, nullptr, n_rows, per, N, stream)) != 0) return rc;
+  return nps == 1 ? 0 : sum_mid(lpart, nullptr, dla, (long long)B * L * H, nps, 1, stream);
 }
 
 }  // namespace
@@ -968,8 +1318,10 @@ CS_EXPORT int cs_ssd_scan(const void* x, const float* log_a, const void* b,
 // states: (B, H, nc, P, N) f32 as cs_ssd_scan writes them; dy: (B, L, H,
 // P) bf16 contiguous; dfin: (B, H, P, N) f32 or null (zeros).  Writes
 // dx (B, L, H, P) bf16, dla (B, L, H) f32, db and dc (B, L, G, N) bf16
-// and, unless null, dinit (B, H, P, N) f32.  part: 2 B L H nps N f32 and
-// lpart: B L H nps f32 scratch, nps = ceil(P / 32).
+// and, unless null, dinit (B, H, P, N) f32.  part: f32 scratch of B H nc
+// P N + B H nc (rounded up to 4) + 2 B L (H / hb) nps N elements, hb the
+// heads per block (2 where H / G is even, else 1), nps = ceil(P / 64);
+// lpart: B L H nps f32 scratch when nps > 1, else unused (may be null).
 CS_EXPORT int cs_ssd_scan_bwd(const void* x, const float* log_a, const void* b,
                               const void* c, const float* states, const void* dy,
                               const float* dfin, void* dx, float* dla, void* db, void* dc,
@@ -983,6 +1335,18 @@ CS_EXPORT int cs_ssd_scan_bwd(const void* x, const float* log_a, const void* b,
     case 16: return launch_bwd<16>(x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, part, lpart, B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, stream);
     case 64: return launch_bwd<64>(x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, part, lpart, B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, stream);
     case 128: return launch_bwd<128>(x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, part, lpart, B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// blocks per SM of the backward's kernels (a), (b) and (c) for state
+// width N at chunk Q, into blocks[0..2]
+CS_EXPORT int cs_ssd_scan_bwd_occupancy(int N, int Q, int* blocks) {
+  if (Q < 1 || Q > NT) return (int)cudaErrorInvalidValue;
+  switch (N) {
+    case 16: return bwd_occupancy<16>(Q, blocks);
+    case 64: return bwd_occupancy<64>(Q, blocks);
+    case 128: return bwd_occupancy<128>(Q, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -73,6 +73,7 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
         _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _p,
     ),
+    "cs_ssd_scan_bwd_occupancy": (_i, _i, _p),
 }
 
 # head dims of the attention kernels (csrc/attention.cu's launch switch)

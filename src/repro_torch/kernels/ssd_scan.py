@@ -22,13 +22,21 @@ function's flops at 989 TFLOP/s; ``ssd_scan_work`` counts both.
 The backward, ``cs_ssd_scan_bwd`` (same source), has no TPU
 counterpart: the reference trains through its plain scan, which
 ``jax.grad`` differentiates.  Under grad the forward kernel also writes
-the state entering each chunk (``states``, (B, H, nc, P, N) f32), and
-the backward walks the chunks from the last to the first, carrying the
-state's gradient.  ``SsdScanFn`` is the ``autograd.Function`` over a
-(forward, backward) pair: the kernels on the card, the plain versions
-(``ssd_scan_fwd_plain``, ``ssd_scan_bwd_plain``) in the tests.
+the state entering each chunk (``states``, (B, H, nc, P, N) f32).  Only
+the state's gradient dS is carried from chunk to chunk, so the backward
+is three launches: (a) each chunk's (e o dY)^T C, chunk-parallel
+(``ssd_bwd_chunk_plain``); (b) the one sequential pass, which turns
+those into the dS leaving each chunk (``ssd_bwd_state_plain``); (c) the
+rest, chunk-parallel on the tensor cores (``ssd_bwd_local_plain``);
+then the fixed-order sums over a group's heads.  ``ssd_scan_bwd_staged``
+composes the three plain stages, ``bwd_launch_geometry`` mirrors the
+launches and their scratch.  ``SsdScanFn`` is the ``autograd.Function``
+over a (forward, backward) pair: the kernels on the card, the plain
+versions (``ssd_scan_fwd_plain``, ``ssd_scan_bwd_plain``) in the tests.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,6 +50,8 @@ SLICE = 32            # state rows p per thread block
 THREADS = 256
 STATE_WIDTHS = (16, 64, 128)   # the N the kernel is built for (jamba, mamba2)
 SMEM_LIMIT = 232_448  # shared bytes one block may use on an H100 (227 KB)
+BWD_SLAB = 64         # P columns per block of the backward's chunk-parallel kernels
+BWD_HEADS = 2         # heads per block of its chunk-local kernel, where a group's count is even
 
 
 def scan_chunk(L: int, chunk: int) -> int:
@@ -66,6 +76,52 @@ def launch_geometry(B: int, H: int, P: int, N: int, q: int):
     smem = (max(2 * rows * ld, 4 * SLICE * ld) + 2 * rows * (SLICE + 8)
             + 2 * 2 * SLICE * ld + 4 * rows + 4 * (THREADS // 32))
     return (-(-P // SLICE), H, B), THREADS, smem
+
+
+def bwd_heads(H: int, G: int) -> int:
+    """Heads per block of the backward's chunk-local kernel: a pair of
+    one group's heads where the group's head count is even, else one."""
+    return BWD_HEADS if (H // G) % 2 == 0 else 1
+
+
+def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: int):
+    """The backward's launches, {name: (grid, threads, shared bytes)},
+    and its f32 scratch in bytes, as ``csrc/ssd_scan.cu:launch_bwd`` lays
+    them out (rows = q rounded up to 16, row pitches padded by 16 bytes):
+
+    * ``chunk`` (a): C rows (rows x N bf16), a slab of dY rows (rows x
+      BWD_SLAB bf16), e and the scan partials (``ChunkSmem``);
+    * ``state`` (b): four f32 elements of a (b, h)'s P x N per thread;
+    * ``local`` (c): B or C rows, x or dY rows of BWD_HEADS heads, the
+      states' bf16 hi and lo halves of BWD_HEADS heads, cum, dcum and
+      the w terms of each head, scan and reduction partials
+      (``BwdSmem``);
+    * ``sum``: dB and dC summed over a group's head blocks and P slabs.
+
+    Scratch: ``states`` the dS leaving each chunk (B, H, nc, P, N),
+    ``cum`` cum_q (B, H, nc, rounded up to 4 elements), ``partials`` the
+    dB and dC partials (B, L, H / hb, nps, N) each, ``lpart`` dlog_a's
+    per P slab (B, L, H, nps) when there is more than one slab."""
+    q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
+    rows = -(-q // 16) * 16
+    nps, hb, warps = -(-P // BWD_SLAB), bwd_heads(H, G), THREADS // 32
+    ldn, ldp = N + 8, BWD_SLAB + 8
+    chunk_smem = 2 * rows * ldn + 2 * rows * ldp + 4 * rows + 4 * warps
+    local_smem = (2 * rows * ldn + 2 * BWD_HEADS * rows * ldp + 2 * BWD_HEADS * 2 * BWD_SLAB * ldn
+                  + 3 * 4 * BWD_HEADS * rows + 4 * 2 * BWD_HEADS * warps)
+    launches = {
+        "chunk": ((nc * nps, H, B), THREADS, chunk_smem),
+        "state": ((-(-P * N // (4 * THREADS)), H, B), THREADS, 0),
+        "local": ((nc * nps, H // hb, B), THREADS, local_smem),
+        "sum": ((-(-B * L * G * N // THREADS),), THREADS, 0),
+    }
+    scratch = {
+        "states": 4 * B * H * nc * P * N,
+        "cum": 4 * (-(-B * H * nc // 4) * 4),
+        "partials": 2 * 4 * B * L * (H // hb) * nps * N,
+        "lpart": 4 * B * L * H * nps if nps > 1 else 0,
+    }
+    return launches, scratch
 
 
 def ssd_scan_plain(x, log_a, b, c, init_state=None, chunk: int = 128, states: bool = False):
@@ -189,17 +245,10 @@ def ssd_scan_bwd_plain(x, log_a, b, c, states, dy, d_final=None, chunk: int = 12
     P) and ``d_final`` (B, H, P, N) or None (zeros) are the cotangents of
     y and of the final state.  Returns (dx in x's dtype, dlog_a f32, db
     and dc in b's and c's dtypes, d_init f32 or None)."""
-    B, L, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
+    L = x.shape[1]
     q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
-    pad = nc * q - L
-    X = _padded(x, pad).reshape(B, nc, q, H, P)
-    A = _padded(log_a, pad).reshape(B, nc, q, H)
-    Bm = _padded(b, pad).reshape(B, nc, q, G, N).repeat_interleave(H // G, dim=3)
-    Cm = _padded(c, pad).reshape(B, nc, q, G, N).repeat_interleave(H // G, dim=3)
-    dY = _padded(dy, pad).reshape(B, nc, q, H, P)
-    dS = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
-          if d_final is None else d_final.float())
+    X, A, Bm, Cm, dY = _chunked(x, log_a, b, c, dy, chunk)
+    dS = _final_cotangent(x, b, d_final)
     after = ~torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     dX, dA, dB, dC = (torch.empty(t.shape, dtype=torch.float32, device=x.device)
                       for t in (X, A, Bm, Cm))
@@ -228,12 +277,102 @@ def ssd_scan_bwd_plain(x, log_a, b, c, states, dy, d_final=None, chunk: int = 12
         dA[:, k] = dcum.flip(1).cumsum(1).flip(1)
         dS = (torch.exp(cq)[..., None, None] * dS
               + torch.einsum("bth,bthp,bthn->bhpn", e, gk, ck))
-    Lp = nc * q
-    dx = dX.reshape(B, Lp, H, P)[:, :L].to(x.dtype)
-    dla = dA.reshape(B, Lp, H)[:, :L]
-    db = dB.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(b.dtype)
-    dc = dC.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(c.dtype)
-    return dx, dla, db, dc, (dS if need_init else None)
+    return (*_unchunked(dX, dA, dB, dC, x, b, c), dS if need_init else None)
+
+
+def _chunked(x, log_a, b, c, dy, chunk: int):
+    """x, log_a, b, c and dy in f32 chunks: (B, nc, q, H, P) for x and
+    dy, (B, nc, q, H) for log_a, (B, nc, q, H, N) for b and c (each head
+    its group's), padded with ``ssd_scan_plain``'s identity steps."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
+    pad = nc * q - L
+    return (_padded(x, pad).reshape(B, nc, q, H, P), _padded(log_a, pad).reshape(B, nc, q, H),
+            *(_padded(t, pad).reshape(B, nc, q, G, N).repeat_interleave(H // G, dim=3)
+              for t in (b, c)),
+            _padded(dy, pad).reshape(B, nc, q, H, P))
+
+
+def _final_cotangent(x, b, d_final):
+    """The final state's cotangent in f32, zeros for None."""
+    B, _, H, P = x.shape
+    return (torch.zeros((B, H, P, b.shape[3]), dtype=torch.float32, device=x.device)
+            if d_final is None else d_final.float())
+
+
+def _unchunked(dX, dA, dB, dC, x, b, c):
+    """Chunked gradients (B, nc, q, ...) back to (B, L, ...) in the
+    operands' dtypes, dB and dC summed over each group's heads."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    Lp = dX.shape[1] * dX.shape[2]
+    return (dX.reshape(B, Lp, H, P)[:, :L].to(x.dtype), dA.reshape(B, Lp, H)[:, :L],
+            dB.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(b.dtype),
+            dC.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(c.dtype))
+
+
+def ssd_bwd_chunk_plain(x, log_a, b, c, dy, chunk: int = 128):
+    """Stage (a) of the backward, chunk-parallel: each chunk's (e o
+    dY)^T C, (B, H, nc, P, N) f32, with e_t = exp(cum_t), and cum_q, the
+    chunk's whole log-decay, (B, H, nc)."""
+    _, A, _, Cm, dY = _chunked(x, log_a, b, c, dy, chunk)
+    cum = torch.cumsum(A, dim=2)                                   # (B, nc, q, H)
+    E = torch.einsum("bkth,bkthp,bkthn->bhkpn", torch.exp(cum), dY, Cm)
+    return E, cum[:, :, -1].transpose(1, 2)
+
+
+def ssd_bwd_state_plain(E, cum_q, d_final):
+    """Stage (b), the one sequential pass: from the last chunk, the dS
+    leaving each chunk (B, H, nc, P, N) and dS = exp(cum_q) dS + (e o
+    dY)^T C; returns (dS leaving each chunk, the initial state's
+    gradient).  ``d_final`` f32 (B, H, P, N)."""
+    dS, out = d_final, torch.empty_like(E)
+    for k in reversed(range(E.shape[2])):
+        out[:, :, k] = dS
+        dS = torch.exp(cum_q[:, :, k])[..., None, None] * dS + E[:, :, k]
+    return out, dS
+
+
+def ssd_bwd_local_plain(x, log_a, b, c, states, dy, ds_out, chunk: int = 128):
+    """Stage (c), chunk-parallel: every chunk's dX, dlog_a, dB and dC
+    from its entering state (``states``) and the gradient of its leaving
+    state (``ds_out``), both (B, H, nc, P, N), by ``ssd_scan_bwd_plain``'s
+    formulas; returns (dx, dlog_a, db, dc) as it does."""
+    X, A, Bm, Cm, dY = _chunked(x, log_a, b, c, dy, chunk)
+    S, dS = states.float().transpose(1, 2), ds_out.transpose(1, 2)   # (B, nc, H, P, N)
+    q = X.shape[2]
+    cum = torch.cumsum(A, dim=2)                                    # (B, nc, q, H)
+    cq = cum[:, :, -1]                                              # (B, nc, H)
+    after = ~torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    seg = (cum[:, :, :, None] - cum[:, :, None]).masked_fill(after[:, :, None], -torch.inf)
+    D = torch.exp(seg)                                              # (B, nc, t, s, H)
+    M = D * torch.einsum("bkthn,bkshn->bktsh", Cm, Bm)
+    R = torch.einsum("bkthp,bkshp->bktsh", dY, X)
+    DR, K = D * R, M * R
+    w, e = torch.exp(cq[:, :, None] - cum), torch.exp(cum)
+    zb = torch.einsum("bkshp,bkhpn->bkshn", X, dS)
+    zc = torch.einsum("bkthp,bkhpn->bkthn", dY, S)
+    dX = (torch.einsum("bktsh,bkthp->bkshp", M, dY)
+          + w[..., None] * torch.einsum("bkshn,bkhpn->bkshp", Bm, dS))
+    dB = torch.einsum("bktsh,bkthn->bkshn", DR, Cm) + w[..., None] * zb
+    dC = torch.einsum("bktsh,bkshn->bkthn", DR, Bm) + e[..., None] * zc
+    wterm = w * (Bm * zb).sum(-1)
+    dcum = K.sum(3) - K.sum(2) + e * (Cm * zc).sum(-1) - wterm
+    dcum[:, :, -1] += torch.exp(cq) * (dS * S).sum((-1, -2)) + wterm.sum(2)
+    dA = dcum.flip(2).cumsum(2).flip(2)
+    return _unchunked(dX, dA, dB, dC, x, b, c)
+
+
+def ssd_scan_bwd_staged(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
+                        need_init: bool = True):
+    """``ssd_scan_bwd_plain``'s gradients through the kernel's three
+    stages in their plain versions: (a) each chunk's (e o dY)^T C, (b)
+    the sequential dS pass, (c) the chunk-local rest."""
+    E, cum_q = ssd_bwd_chunk_plain(x, log_a, b, c, dy, chunk)
+    ds_out, d_init = ssd_bwd_state_plain(E, cum_q, _final_cotangent(x, b, d_final))
+    return (*ssd_bwd_local_plain(x, log_a, b, c, states, dy, ds_out, chunk),
+            d_init if need_init else None)
 
 
 def ssd_scan_bwd_cuda(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
@@ -246,37 +385,57 @@ def ssd_scan_bwd_cuda(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128
     return ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk, need_init)
 
 
+def _aligned(t):
+    """t, or a copy of it on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
                         need_init: bool = True):
-    """The backward's launch alone, for operands the registry took
-    (``ops``).  dX, dB and dC come out in bf16, dlog_a and d_init in f32;
-    the sums over the heads of a group and over the P slices go through
-    f32 partials in a scratch buffer, reduced in a fixed order."""
+    """The backward's launches alone, for operands the registry took
+    (``ops``), counted as one ``ssd_scan_bwd`` launch.  dX, dB and dC
+    come out in bf16, dlog_a and d_init in f32; the dS per chunk and the
+    sums over a group's head blocks (and P slabs) go through f32 scratch
+    (``bwd_launch_geometry``), reduced in a fixed order."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    q, nps = scan_chunk(L, chunk), -(-P // SLICE)
+    q = scan_chunk(L, chunk)
+    _, scratch = bwd_launch_geometry(B, L, H, P, G, N, chunk)
     dev = x.device
     xs, bs, las = x.stride(), b.stride(), log_a.stride()
-    dy = dy.to(torch.bfloat16).contiguous()
-    states = states.float().contiguous()
-    d_final = None if d_final is None else d_final.float().contiguous()
+    # the kernels read dy, states and d_final by 16-byte copies
+    dy = _aligned(dy.to(torch.bfloat16).contiguous())
+    states = _aligned(states.float().contiguous())
+    d_final = None if d_final is None else _aligned(d_final.float().contiguous())
     dx = torch.empty((B, L, H, P), dtype=torch.bfloat16, device=dev)
     dla = torch.empty((B, L, H), dtype=torch.float32, device=dev)
     db, dc = (torch.empty((B, L, G, N), dtype=torch.bfloat16, device=dev) for _ in range(2))
     d_init = torch.empty((B, H, P, N), dtype=torch.float32, device=dev) if need_init else None
-    part = torch.empty((2, B, L, H, nps, N), dtype=torch.float32, device=dev)
-    lpart = torch.empty((B, L, H, nps), dtype=torch.float32, device=dev)
+    part = torch.empty(((scratch["states"] + scratch["cum"] + scratch["partials"]) // 4,),
+                       dtype=torch.float32, device=dev)
+    lpart = (torch.empty((scratch["lpart"] // 4,), dtype=torch.float32, device=dev)
+             if scratch["lpart"] else None)
     rc = cuda.library().cs_ssd_scan_bwd(
         x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), states.data_ptr(),
         dy.data_ptr(), 0 if d_final is None else d_final.data_ptr(),
         dx.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        0 if d_init is None else d_init.data_ptr(), part.data_ptr(), lpart.data_ptr(),
+        0 if d_init is None else d_init.data_ptr(), part.data_ptr(),
+        0 if lpart is None else lpart.data_ptr(),
         B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1],
         cuda.stream_handle(x),
     )
     cuda.check(rc, BWD_NAME)
     cuda.record_launch(BWD_NAME)
     return dx, dla, db, dc, d_init
+
+
+def bwd_occupancy(N: int, chunk: int = Q_MAX) -> dict:
+    """Blocks per SM of the backward's kernels, {"chunk", "state",
+    "local"}, at state width N and ``chunk``, from the CUDA runtime's
+    occupancy calculator (builds the library)."""
+    out = (ctypes.c_int * 3)()
+    cuda.check(cuda.library().cs_ssd_scan_bwd_occupancy(N, chunk, out), BWD_NAME)
+    return dict(zip(("chunk", "state", "local"), out))
 
 
 class SsdScanFn(torch.autograd.Function):

@@ -701,13 +701,18 @@ def _slice_rel(k, p, dims):
 
 
 # (B, L, H, P, G, N, chunk, init, final-state cotangent): mamba2-2.7b-smoke's
-# training widths, jamba-v0.1-52b's (H 128, P 64, N 16), a ragged L with
-# groups, N 128 at a long chunk with P past one slice
+# training widths, mamba2-2.7b's full widths (H 80, P 64, N 128, head
+# pairs), jamba-v0.1-52b's (H 128, P 64, N 16), a ragged L with groups,
+# N 128 at a long chunk with P 48, three heads a group (one head a block)
+# at P 24 (a half k16 chunk), and P 96 (two P slabs: dlog_a partials)
 SSD_BWD = {
     "mamba2-smoke": (2, 32, 16, 32, 1, 16, 16, False, False),
+    "mamba2-full-widths": (2, 512, 80, 64, 1, 128, 256, True, True),
     "jamba-widths": (2, 512, 128, 64, 1, 16, 256, True, True),
     "groups-ragged": (2, 100, 8, 32, 4, 64, 32, True, True),
     "n128-p48": (1, 300, 4, 48, 1, 128, 256, False, True),
+    "odd-heads-p24": (1, 200, 6, 24, 2, 64, 64, True, False),
+    "p96-slabs": (1, 160, 2, 96, 1, 16, 64, False, True),
 }
 
 

@@ -14,6 +14,15 @@ f32 products in other orders: read 1e-7 .. 4e-7 of the global max); bf16
 within 2^-7, one bf16 step (both round f32 values that differ by that
 order).
 
+The backward kernel's three stages in their plain versions (each
+chunk's (e o dY)^T C, the sequential dS pass, the chunk-local rest),
+composed, equal ``ssd_scan_bwd_plain`` within 1e-6 of each slice's max
+in f32 (the same f32 formulas, batched over chunks), and
+``bwd_launch_geometry`` (the kernels' launches and scratch) fits an
+H100: shared memory within 227 KB at every N, and the dB / dC partials
+at mamba2-2.7b's training shape within a quarter of the first version's
+671,088,640 bytes.
+
 ``SsdScanFn`` over the plain pair equals autograd through ``ops.ssd_scan``
 on CPU tensors (which differentiates the plain version) for every
 combination of inputs that require grad, a None init and a None
@@ -32,7 +41,8 @@ from repro_torch.analysis import roofline as rl
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import (
-    SsdScanFn, ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_fwd_plain, ssd_scan_plain,
+    SMEM_LIMIT, STATE_WIDTHS, SsdScanFn, bwd_launch_geometry, ssd_scan_bwd_plain,
+    ssd_scan_bwd_staged, ssd_scan_bwd_work, ssd_scan_fwd_plain, ssd_scan_plain,
 )
 from repro_torch.models.init import meta_lm_params, trainable
 from repro_torch.training.train_step import Batch, loss_fn, tree_grads
@@ -208,3 +218,56 @@ def test_meta_scan_keeps_autograd_and_the_step_counts_its_backward():
     assert d["kernels"]["ssd_scan_bwd"] == {"calls": n_mamba, "flops": n_mamba * flops,
                                             "bytes": n_mamba * n_bytes}
     assert d["kernels"]["ssd_scan"]["calls"] == 2 * n_mamba     # forward and recompute
+
+
+# (B, L, H, P, G, N, chunk, init, final-state cotangent): N 16 and 64,
+# G 1 and 4, ragged and whole chunks, with and without init and the
+# final state's cotangent
+STAGE_CASES = {
+    "N16 G1 ragged, init and cotangent": (2, 37, 4, 8, 1, 16, 16, True, True),
+    "N64 G4 ragged, neither": (1, 50, 8, 16, 4, 64, 16, False, False),
+    "N16 G4, cotangent only": (2, 32, 4, 8, 4, 16, 8, False, True),
+    "N64 G1 ragged, init only": (1, 45, 4, 16, 1, 64, 32, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE_CASES))
+def test_staged_backward_equals_the_reference_backward(case):
+    B, L, H, P, G, N, chunk, init, dfin = STAGE_CASES[case]
+    rng = np.random.default_rng(sorted(STAGE_CASES).index(case) + 40)
+
+    def normal(scale, *shape):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32))
+
+    x, b, c = normal(1, B, L, H, P), normal(0.5, B, L, G, N), normal(0.5, B, L, G, N)
+    la = -torch.from_numpy(rng.uniform(1e-3, 1.0, (B, L, H)).astype(np.float32))
+    init_state = normal(1, B, H, P, N) if init else None
+    dy = normal(1, B, L, H, P)
+    d_final = normal(1, B, H, P, N) if dfin else None
+    states = ssd_scan_fwd_plain(x, la, b, c, init_state, chunk)[2]
+    want = ssd_scan_bwd_plain(x, la, b, c, states, dy, d_final, chunk)
+    got = ssd_scan_bwd_staged(x, la, b, c, states, dy, d_final, chunk)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape, name
+        assert within(g, w, name, 1e-6) <= 1e-6, (case, name)
+
+
+def test_backward_launch_geometry_fits_an_h100():
+    """Shared memory of every launch within one block's 232,448 bytes at
+    chunk 256 for each N; at mamba2-2.7b's training shape (B 2, L 2048,
+    H 80, P 64, N 128) head pairs (640 chunk-local blocks), one P slab,
+    dS scratch the size of the chunk states, and dB / dC partials within
+    a quarter of the first version's (2, B, L, H, P / 32, N) f32."""
+    for N in STATE_WIDTHS:
+        launches, _ = bwd_launch_geometry(2, 2048, 80, 64, 1, N, 256)
+        assert all(threads == 256 and smem <= SMEM_LIMIT
+                   for _, threads, smem in launches.values()), N
+    launches, scratch = bwd_launch_geometry(2, 2048, 80, 64, 1, 128, 256)
+    assert launches["local"][0] == (8, 40, 2) and launches["chunk"][0] == (8, 80, 2)
+    assert scratch["states"] == 2 * 80 * 8 * 64 * 128 * 4 and scratch["lpart"] == 0
+    assert scratch["partials"] + scratch["lpart"] <= 671_088_640 // 4
+    # an odd head count per group takes one head a block; P past one slab
+    # takes slabs and dlog_a partials
+    launches, scratch = bwd_launch_geometry(1, 200, 6, 96, 2, 64, 64)
+    assert launches["local"][0] == (4 * 2, 6, 1)
+    assert scratch["lpart"] == 4 * 200 * 6 * 2
