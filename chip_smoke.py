@@ -52,7 +52,9 @@ Phases (any failure exits non-zero):
                24 P-frames (the serve path's, busy: every frame keeps its
                whole budget, mixed: seeded random budgets), with the
                stated tolerance; flash_refresh_paged also at olmoe-1b-7b's
-               heads (H 16 = Hkv 16, D 128) on its codecflow layout,
+               heads (H 16 = Hkv 16, D 128; moonshot-v1-16b-a3b's too) and
+               deepseek-7b's (H 32 = Hkv 32, D 128) on their codecflow
+               layouts (total_len 168, vis_len 160, query 8, 256 slots),
                flash_refresh at jamba-v0.1-52b's (H 32, Hkv 8, D 128) on
                its recurrent passes over max_hist slots (window 0's and
                the last window's append, query and decode, fullcomp's
@@ -166,7 +168,7 @@ Phases (any failure exits non-zero):
                kernel_mode("plain"), for codecflow and for each further
                path of internvl3-14b, and for both paths of mamba2-2.7b;
                the yes/no logits must agree.
-  7. families — the MoE and hybrid families, with the launcher's 112^2
+  7. families — the MoE, hybrid and dense families, with the launcher's 112^2
                ViT and random bf16 weights made on the card from the seed,
                each model's weights freed before the next: (a)
                olmoe-1b-7b at full width and depth (16 layers, d 2048, 64
@@ -174,18 +176,24 @@ Phases (any failure exits non-zero):
                x 24 frames; (b) jamba-v0.1-52b at full width with 16 of its
                32 layers (d 4096, 32/8 heads, 16 experts top-2, SSD
                d_state 16), codecflow and fullcomp through the recurrent
-               backend, 2 streams x 40 frames.  Each case is served
+               backend, 2 streams x 40 frames; (c) deepseek-7b (dense:
+               30 layers, d 4096, 32 = 32 heads of 128) and (d)
+               moonshot-v1-16b-a3b (48 layers, d 2048, 64 experts
+               top-6) at full width and depth, codecflow on the paged
+               bf16 slab, 2 streams x 24 frames; each case's seconds are
+               printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
                yes/no logits of all four runs must be bitwise equal.
-               Before each case one MoE layer is called at the largest
+               Before each MoE case one MoE layer is called at the largest
                serving shape and at a decode step's: it must report no
                sync and repeat bitwise; its dispatch buffer, measured
                peak and time beside its bytes bound are printed.
                Then each path's composite check, as in phase 6, through
-               the first layers of the same weights (olmoe 4, jamba 8:
-               one period of its pattern), the plain run taking the
+               the first layers of the same weights (olmoe, deepseek
+               and moonshot 4, jamba 8: one period of its pattern), the
+               plain run taking the
                kernel run's expert choices (a bf16 step can move a near
                tie; the tokens that would have chosen otherwise are
                counted and printed).
@@ -321,6 +329,13 @@ HYBRID_ARCH = "jamba-v0.1-52b"   # full width, HYBRID_LAYERS of its 32 layers
 HYBRID_LAYERS = 16               # 2 of 4 periods: ~48 GiB of bf16 weights
 HYBRID_FRAMES = 40
 HYBRID_PATHS = ("codecflow", "fullcomp")
+# deepseek-7b (arXiv:2401.02954): dense, 30 layers, d 4096, 32 = 32 heads
+# of 128 (GQA group 1), d_ff 11008, vocab 102400; 12.9 GiB of bf16 weights
+DENSE_ARCH = "deepseek-7b"
+# moonshot-v1-16b-a3b (hf:moonshotai/Moonlight-16B-A3B): 48 MoE layers,
+# d 2048, 16 = 16 heads of 128, 64 experts top-6 of d_ff 1408, vocab
+# 163840; 52.3 GiB of bf16 weights
+WIDE_MOE_ARCH = "moonshot-v1-16b-a3b"
 FAMILY_HW = 112
 WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
@@ -1268,12 +1283,14 @@ def check_ssd_scan_bwd(torch):
     return ok, row
 
 
-def family_kernel_cases():
+def family_kernel_cases(device="cuda"):
     """The attention kernels' cases at the families phase's serving shapes
-    (pipelines built without weights, for their layouts): the paged
-    kernel at olmoe-1b-7b's heads (H 16 = Hkv 16, D 128, GQA group 1) on
-    its codecflow layout, and the per-stream kernel at jamba-v0.1-52b's
-    (H 32, Hkv 8, D 128) over its attention caches' max_hist slots: the
+    (pipelines built without weights on ``device``, for their layouts):
+    the paged kernel at olmoe-1b-7b's heads (H 16 = Hkv 16, D 128, GQA
+    group 1; moonshot-v1-16b-a3b's too) and at deepseek-7b's (H 32 = Hkv
+    32, D 128) on their codecflow layouts, and the per-stream kernel at
+    jamba-v0.1-52b's (H 32, Hkv 8, D 128) over its attention caches'
+    max_hist slots: the
     codecflow passes of window 0 and of the last window of a 40-frame
     stream (append, query, the first decode step) and fullcomp's fresh
     append; and the per-stream kernel at whisper-large-v3's decoder
@@ -1286,9 +1303,11 @@ def family_kernel_cases():
     def layout_of(arch, mode):
         c = get_config(arch)
         return c, ServingPipeline(c, default_vit(c), {}, {}, path_ecfg(mode, {}),
-                                  device="cuda")
-    mcfg, mp = layout_of(MOE_ARCH, "codecflow")
-    paged = [(MOE_ARCH, mcfg, mp.layout, mp.cache_slots)]
+                                  device=device)
+    paged = []
+    for arch in (MOE_ARCH, DENSE_ARCH):
+        c, p = layout_of(arch, "codecflow")
+        paged.append((arch, c, p.layout, p.cache_slots))
     hcfg, hp = layout_of(HYBRID_ARCH, "codecflow")
     _, hf = layout_of(HYBRID_ARCH, "fullcomp")
     lay, slots = hp.layout, hp.cache_slots
@@ -2002,10 +2021,17 @@ def serve_engines(torch, cfg, params, vparams, videos, ssm_pipe, int8_ref):
 # ----------------------------------------------------------------------
 # phase 7: the MoE and hybrid families
 # ----------------------------------------------------------------------
-def moe_probe(torch, cfg, params, n_rows: int) -> bool:
+def moe_probe_rows(cfg, largest: int) -> tuple:
+    """The row counts phase 7 calls ``moe_probe`` at: the largest serving
+    call's (``largest``) and a decode step's (2 rows: cap 1); none where
+    ``cfg`` has no MoE layer."""
+    return () if cfg.moe is None else (largest, 2)
+
+
+def moe_probe(torch, cfg, params, rows) -> bool:
     """One MoE layer of ``cfg`` (its first, with the run's weights) on
-    random rows at the largest serving call's shape (``n_rows``) and at
-    a decode step's (2 rows: cap 1), after a warm-up call.  Prints for
+    random rows at each count of ``rows`` (``moe_probe_rows``), after a
+    warm-up call.  Prints for
     each the capacity, the dispatch buffer's and the expert activations'
     bytes, the measured peak of the call above what was allocated before
     it, its time beside its bound (every expert's weights read once, as
@@ -2021,7 +2047,7 @@ def moe_probe(torch, cfg, params, n_rows: int) -> bool:
     with SyncWatch(torch):
         pass     # a process's first watch reports the mode switch itself as a sync
     ok = True
-    for n in (n_rows, 2):
+    for n in rows:
         x = torch.randn((2, n // 2, cfg.d_model), generator=g, device="cuda").bfloat16()
         layers.moe_block(p, m, x)        # warm-up: first-call library set-up may sync
         torch.cuda.synchronize()
@@ -2064,27 +2090,48 @@ def state_bytes(cfg, slots: int) -> int:
     return n * cfg.repeats
 
 
+def family_models():
+    """Phase 7's models, in order: (key, arch, cfg as served, modes, frames
+    per stream, what of the model is served)."""
+    from repro_torch.configs import get_config
+    hybrid, full = get_config(HYBRID_ARCH), "full width and depth"
+    return (
+        ("(a)", MOE_ARCH, get_config(MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
+        ("(b)", HYBRID_ARCH, dataclasses.replace(hybrid, n_layers=HYBRID_LAYERS), HYBRID_PATHS,
+         HYBRID_FRAMES, f"full width, {HYBRID_LAYERS} of {hybrid.n_layers} layers"),
+        ("(c)", DENSE_ARCH, get_config(DENSE_ARCH), ("codecflow",), MOE_FRAMES, full),
+        ("(d)", WIDE_MOE_ARCH, get_config(WIDE_MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
+    )
+
+
+def model_widths(cfg) -> str:
+    """``cfg``'s depth and widths, as phase 7's weights line gives them."""
+    ffn = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}" if cfg.moe is not None
+           else f"dense FFN d_ff {cfg.d_ff}")
+    return (f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of "
+            f"{cfg.d_head}, {ffn}")
+
+
+def family_label(arch: str, mode: str, streaming: bool) -> str:
+    return f"{arch} {mode}" + (", paged bf16" if mode == "codecflow" and not streaming else "")
+
+
 def serve_families(torch):
     """Phase 7: (a) olmoe-1b-7b at full size, codecflow on the paged bf16
     slab; (b) jamba-v0.1-52b at full width with HYBRID_LAYERS layers,
-    codecflow and fullcomp through the recurrent backend; both with the
-    launcher's 112^2 ViT and random bf16 weights made on the card from
-    the seed, each case served lockstep, async, async, lockstep, the
-    yes/no logits of every run bitwise equal.  Each model's weights are
-    freed before the next.  Returns (ok, launches per run)."""
-    from repro_torch.configs import get_config
+    codecflow and fullcomp through the recurrent backend; (c) deepseek-7b
+    (dense) and (d) moonshot-v1-16b-a3b (48 MoE layers) at full size,
+    codecflow on the paged bf16 slab; all with the launcher's 112^2 ViT
+    and random bf16 weights made on the card from the seed, each case
+    served lockstep, async, async, lockstep, the yes/no logits of every
+    run bitwise equal.  Each model's weights are freed before the next.
+    Returns (ok, launches per run)."""
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.launch.serve import default_vit
     from repro_torch.models.init import init_lm_params, init_vit_params, map_tree, tree_leaves
     from repro_torch.serving import ServingPipeline
     ok, by_path = True, {}
-    models = (
-        (MOE_ARCH, get_config(MOE_ARCH), ("codecflow",), MOE_FRAMES, "full width and depth"),
-        (HYBRID_ARCH, dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS),
-         HYBRID_PATHS, HYBRID_FRAMES,
-         f"full width, {HYBRID_LAYERS} of {get_config(HYBRID_ARCH).n_layers} layers"),
-    )
-    for key, (arch, cfg, modes, frames, depth) in zip(("(a)", "(b)"), models):
+    for key, arch, cfg, modes, frames, depth in family_models():
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2093,30 +2140,34 @@ def serve_families(torch):
         vparams = init_vit_params(v, cfg.d_model, SEED + 1, "cuda")
         torch.cuda.synchronize()
         n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-        log(f"weights: {arch} ({depth}: {cfg.n_layers} layers, d {cfg.d_model}, "
-            f"{cfg.n_heads}/{cfg.n_kv} heads, {cfg.moe.n_experts} experts top-"
-            f"{cfg.moe.top_k}) {n_bytes / 2**30:.2f} GiB made on the card in "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"weights: {arch} ({depth}: {model_widths(cfg)}) {n_bytes / 2**30:.2f} GiB made "
+            f"on the card in {time.perf_counter() - t0:.1f} s")
         videos = anomaly_dataset(2, frames, FAMILY_HW, FAMILY_HW, seed=SEED)
         want_n = 2 * ((frames - 16) // 4 + 1)
         makers = {mode: (lambda mode=mode: ServingPipeline(
             cfg, v, params, vparams, path_ecfg(mode, {}), device="cuda")) for mode in modes}
         largest = 0          # rows of the largest call: a fresh append or paged prefill
+        streaming = {}
         for mode, make in makers.items():
             probe = make()
             lay = probe.layout
+            streaming[mode] = probe.is_streaming_family
             largest = max(largest, len(videos) * (
                 lay.vis_len if probe.is_streaming_family else lay.total_len))
             if probe.is_streaming_family:
                 log(f"  {arch} {mode}: attention caches of {probe.backend.cache_slots} slots "
                     f"(max_hist {probe.backend.max_hist}); state bytes per stream "
                     f"{state_bytes(cfg, probe.backend.cache_slots)}")
+            else:
+                log(f"  {arch} {mode}: layout total_len {lay.total_len}, vis_len "
+                    f"{lay.vis_len}, query {lay.query_len}, cache slots {probe.cache_slots}")
             del probe
-        ok = moe_probe(torch, cfg, params, largest) and ok
+        rows = moe_probe_rows(cfg, largest)
+        if rows:
+            ok = moe_probe(torch, cfg, params, rows) and ok
         for mode, make in makers.items():
-            label = f"{arch} {mode}" + (", paged bf16" if mode == "codecflow" and
-                                        cfg.family == "moe" else "")
-            here, runs = engine_case(torch, "families", f"{key} {mode}", label, make,
+            here, runs = engine_case(torch, "families", f"{key} {mode}",
+                                     family_label(arch, mode, streaming[mode]), make,
                                      videos, 2, want_n, ENGINE_ORDER, by_path)
             bitwise = all(r["logits"] == runs[0]["logits"] for r in runs)
             log(f"  {key} {mode}: yes/no logits of every run bitwise equal: {bitwise}")
@@ -2141,9 +2192,25 @@ def serve_families(torch):
                 log(f"FAIL: composite check [{arch}, {mode}]")
             ok = ok and here
         del params, vparams, cut
+        log(f"families {key} {arch}: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     return ok, by_path
+
+
+def served_cleanly(phases: str) -> bool:
+    """Every contract verdict since the last reset reads ``ok`` and no
+    window served since ``SERVED`` was cleared counted a kernel fallback
+    (and some window was served)."""
+    from repro_torch.kernels import ops
+    verdicts = ops.card_verdicts()
+    log(f"contracts: card_verdicts() over {phases} {verdicts}; windows served: "
+        f"{SERVED['windows']}, with kernel_fallbacks > 0: {SERVED['with fallbacks']}")
+    if (any(set(c) != {"ok"} for c in verdicts.values()) or SERVED["with fallbacks"]
+            or not SERVED["windows"]):
+        log("FAIL: a serving call the card refuses")
+        return False
+    return True
 
 
 # ----------------------------------------------------------------------
@@ -3360,7 +3427,7 @@ def main(argv=None) -> int:
                                and mesh_phase(torch, smi)),
               "mamba": lambda: train_mamba(torch)[0] and mamba_roofline(torch, smi),
               "deep-step": lambda: deep_step_study(torch),
-              "families": lambda: serve_families(torch)[0]}
+              "families": lambda: serve_families(torch)[0] and served_cleanly("phase 7")}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
         print(smi)
@@ -3582,12 +3649,7 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches_by_path"].update(
             {lab: n[row["name"]] for lab, n in family_by_path.items() if row["name"] in n})
-    verdicts = ops.card_verdicts()
-    log(f"contracts: card_verdicts() over phases 4-7 {verdicts}; windows served in phases 4, "
-        f"5 and 7: {SERVED['windows']}, with kernel_fallbacks > 0: {SERVED['with fallbacks']}")
-    if (any(set(c) != {"ok"} for c in verdicts.values()) or SERVED["with fallbacks"]
-            or not SERVED["windows"]):
-        log("FAIL: a serving call the card refuses")
+    if not served_cleanly("phases 4-7 (windows of phases 4, 5 and 7)"):
         return 1
 
     # -- 8. training: whisper-large-v3 at full size, the anomaly task ------

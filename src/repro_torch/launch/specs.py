@@ -170,6 +170,22 @@ def _grads(f, *xs):
     return torch.autograd.grad(out, leaves, allow_unused=True)
 
 
+def microbatch_count(want: int, batch: int, data_shards: int) -> int:
+    """The reference's microbatch count (the least of at least ``want``
+    that divides ``batch``), kept at most ``batch / data_shards`` where
+    the shards divide the batch: each microbatch then still holds whole
+    rows on every data shard.  DTensor splits a dim only evenly, so a
+    microbatch of fewer rows than data shards (32 of 8 rows over 16 at
+    qwen1.5-110b's train_4k) cannot be cut from the sharded batch, where
+    the reference's GSPMD pads; either way a device holds at least one
+    row's remat saves."""
+    cap = batch // data_shards if batch % data_shards == 0 else batch
+    micro = min(want, cap)
+    while cap % micro:
+        micro += 1
+    return micro
+
+
 def build_program(cfg: ModelCfg, shape: ShapeCfg, mesh, *, q_chunk: int = 512,
                   overrides: dict | None = None) -> DryRunProgram:
     """``overrides`` — the JAX package's hillclimb knobs:
@@ -239,9 +255,7 @@ def build_program(cfg: ModelCfg, shape: ShapeCfg, mesh, *, q_chunk: int = 512,
         tok_budget = float(ov.get("micro_budget", 5e9)) * dshard / (
             cfg.n_layers * cfg.d_model * 2)
         micro = max(1, int(-(-B * S // max(tok_budget, 1))))
-        micro = min(micro, B)
-        while B % micro:
-            micro += 1
+        micro = microbatch_count(micro, B, dshard)
         acc_dtype = BF16 if ov.get("acc_bf16") else F32
         step = make_train_step(cfg, ocfg, q_chunk=q_chunk, remat=True,
                                microbatch=micro, acc_dtype=acc_dtype)

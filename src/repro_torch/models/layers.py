@@ -132,16 +132,17 @@ def _qkv(p, cfg: ModelCfg, x: torch.Tensor, positions: torch.Tensor):
     """x (B, T, d) -> q (B, T, H, dh), k/v (B, T, K, dh), RoPE applied."""
     B, T, _ = x.shape
     dh = cfg.d_head
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = shctx.constrain(shctx.split_last(x @ p["wq"], cfg.n_heads, dh), "batch", None, "model",
+                        None)
+    k = shctx.constrain(shctx.split_last(x @ p["wk"], cfg.n_kv, dh), "batch", None, "model", None)
+    v = shctx.constrain(shctx.split_last(x @ p["wv"], cfg.n_kv, dh), "batch", None, "model", None)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    q = shctx.constrain(shctx.split_last(q, cfg.n_heads, dh), "batch", None, "model", None)
-    k = shctx.constrain(shctx.split_last(k, cfg.n_kv, dh), "batch", None, "model", None)
-    v = shctx.constrain(shctx.split_last(v, cfg.n_kv, dh), "batch", None, "model", None)
+        # added after the constraint: under a mesh a product can leave
+        # partial sums, and adding a split bias to them would ask DTensor
+        # to make the bias partial, which it cannot
+        q = q + shctx.split_last(p["bq"].to(q.dtype), cfg.n_heads, dh)
+        k = k + shctx.split_last(p["bk"].to(k.dtype), cfg.n_kv, dh)
+        v = v + shctx.split_last(p["bv"].to(v.dtype), cfg.n_kv, dh)
     q = apply_rope_ref(q, positions, cfg.rope_theta)
     k = apply_rope_ref(k, positions, cfg.rope_theta)
     return q, k, v
@@ -943,11 +944,21 @@ def mamba_decode(p, cfg: ModelCfg, x: torch.Tensor,
     A = -torch.exp(p["A_log"].to(F32))
     log_a = dt * A[None, :]
     xh = (xin * dt.repeat_interleave(P, dim=-1)).reshape(B, nh, P).to(x.dtype)
-    rep = nh // s.n_groups
-    bg = b.reshape(B, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
-    cg = c.reshape(B, s.n_groups, s.d_state).repeat_interleave(rep, dim=1)
-    y, new_state = ssd_decode_ref(cache.ssm, xh, log_a, bg.to(x.dtype), cg.to(x.dtype))
-    y = y.to(F32).reshape(B, di) + xin * p["D"].to(F32).repeat_interleave(P)[None]
+    bg = b.reshape(B, s.n_groups, s.d_state).to(x.dtype)
+    cg = c.reshape(B, s.n_groups, s.d_state).to(x.dtype)
+
+    def step(x1, la1, b1, c1, state):
+        """The step on one token in the scan's layout (under a mesh on
+        local shards, as the scan runs: the state's batch and head splits
+        stay put)."""
+        rep = x1.shape[2] // b1.shape[2]
+        y1, new = ssd_decode_ref(state, x1[:, 0], la1[:, 0],
+                                 b1[:, 0].repeat_interleave(rep, dim=1),
+                                 c1[:, 0].repeat_interleave(rep, dim=1))
+        return y1[:, None], new
+    y, new_state = scan_local(step, xh[:, None], log_a[:, None], bg[:, None], cg[:, None],
+                              cache.ssm)
+    y = y[:, 0].to(F32).reshape(B, di) + xin * p["D"].to(F32).repeat_interleave(P)[None]
     out = (_gated_norm(p, cfg, y, z).to(x.dtype) @ p["out_proj"])[:, None]
     cache.conv.copy_(window[:, 1:])
     cache.ssm.copy_(new_state)

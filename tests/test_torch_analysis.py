@@ -251,6 +251,93 @@ def test_dryrun_main_writes_its_report(fake_group, tmp_path, capsys):
     assert not skip.ok and skip.error.startswith("SKIP")
 
 
+def test_dryrun_microbatches_keep_rows_on_every_data_shard(fake_group, monkeypatch):
+    """A train program whose remat budget asks for more microbatches than rows per
+    data shard (the reference's count at qwen1.5-110b, mistral-large-123b
+    and internvl2-76b train_4k: 32 microbatches of 8 rows over 16 data
+    shards) takes at most batch / data_shards of them: DTensor cannot cut
+    fewer rows than shards from the sharded batch (the step raised 'unevenly
+    sharded' under the CPU's torch and the card's). Here deepseek-7b-smoke
+    at batch 16 on a fake 4x2 mesh, a budget that asks for 8 microbatches of
+    2 rows over 4 data shards: it takes 4."""
+    assert [specs.microbatch_count(w, 256, 16) for w in (1, 3, 4, 18, 32)] == [1, 4, 4, 16, 16]
+    assert specs.microbatch_count(3, 30, 16) == 3        # 16 shards do not divide 30 rows
+    fake_group(8)
+    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    cfg = get_config("deepseek-7b-smoke")
+    B, S = 16, 32
+    # the remat budget of B * S / 8 tokens over the 4 data shards
+    budget = B * S / 8 * cfg.n_layers * cfg.d_model * 2 / 4
+    made = []
+    orig = specs.make_train_step
+
+    def recorded(*a, **k):
+        made.append(k["microbatch"])
+        return orig(*a, **k)
+    monkeypatch.setattr(specs, "make_train_step", recorded)
+    prog = specs.build_program(cfg, ShapeCfg("mini_train", S, B, "train"), mesh, q_chunk=16,
+                               overrides={"micro_budget": budget})
+    assert made == [4]
+    with activation_mesh(mesh), whole_mesh_strategies():
+        got = dryrun._count(prog.fn, prog.args, prog.in_shardings, True)
+    assert got["flops"] > 0 and got["peak_bytes"] > 0
+
+
+class _PartialMeetsSplit(torch.overrides.TorchFunctionMode):
+    """Records each add or subtract whose operand with the most split
+    mesh dims (the first on a tie), which a linear op's result follows,
+    holds partial sums on a mesh dim where another operand is split: the
+    split operand would have to become partial, a redistribution
+    DTensor lacks (qwen1.5-110b's prefill_32k raised it on the card)."""
+
+    OPS = {torch.add, torch.sub, torch.Tensor.add, torch.Tensor.sub, torch.Tensor.__add__,
+           torch.Tensor.__radd__, torch.Tensor.__sub__, torch.Tensor.__rsub__}
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Partial
+        ds = [a for a in args if isinstance(a, DTensor)]
+        if func in self.OPS and len(ds) > 1:
+            lead = max(ds, key=lambda d: sum(p.is_shard() for p in d.placements))
+            for i, p in enumerate(lead.placements):
+                if isinstance(p, Partial) and any(d.placements[i].is_shard() for d in ds):
+                    self.found.append((func.__name__, [tuple(d.placements) for d in ds]))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen1.5-110b-smoke", "prefill_32k"),
+                                        ("qwen1.5-110b-smoke", "decode_32k")])
+def test_dryrun_adds_no_split_operand_to_partial_sums(fake_group, arch, shape):
+    """qwen's q/k/v biases are added after the products' partial sums are
+    resolved (the constraint to the heads' layout), not to them."""
+    mode = _PartialMeetsSplit()
+    with mode:
+        rep = dryrun.run_one(arch, shape, "single", "", parts=False)
+    assert rep.ok, rep.error
+    assert mode.found == []
+
+
+def test_dryrun_ssd_decode_runs_on_local_shards(fake_group, monkeypatch):
+    """The SSD decode step runs on local shards under a mesh, as the scan
+    does: its einsum over a state split on batch and heads would flatten
+    two split dims, which the card's DTensor refused (mamba2-2.7b and
+    jamba-v0.1-52b decode_32k)."""
+    from repro_torch.models import layers
+    seen = []
+    orig = layers.ssd_decode_ref
+
+    def recorded(*args):
+        seen.append(all(type(a) is torch.Tensor for a in args))
+        return orig(*args)
+    monkeypatch.setattr(layers, "ssd_decode_ref", recorded)
+    rep = dryrun.run_one("mamba2-2.7b-smoke", "decode_32k", "single", "", parts=False)
+    assert rep.ok, rep.error
+    assert seen and all(seen)
+
+
 def test_roofline_report_example(tmp_path):
     rows = [dict(arch="a", shape="train_4k", mesh="single", ok=True, error="",
                  peak_GiB_per_device=1.5, t_compute_s=1e-3, t_memory_s=2e-3,

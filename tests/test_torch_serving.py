@@ -216,3 +216,66 @@ def test_launch_serve_main_lockstep_on_cpu(capsys):
     report = json.loads(out[out.index("{"):])
     assert report["windows_total"] == 4 and report["scheduler"] == "lockstep"
     assert 0 < sum(report["stage_occupancy"].values()) <= 1.0 + 1e-6
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports nothing of torch)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("which", ["DENSE_ARCH", "WIDE_MOE_ARCH"])
+def test_families_phase_cases_on_cpu(which):
+    """chip_smoke's phase 7 cases (c) deepseek-7b and (d)
+    moonshot-v1-16b-a3b, built as the card builds them but on the CPU and
+    without weights: full depth, codecflow on the paged slab over the
+    launcher's 112^2 ViT (total_len 168, vis_len 160, query 8, 256 cache
+    slots), the dense model past the MoE probe (its weights line names its
+    dense FFN), moonshot's probe at the largest call (2 x 168 rows: cap
+    40) and a decode step's, the paged kernel's case at deepseek-7b's
+    heads (H 32 = Hkv 32, D 128; moonshot's are olmoe's, H 16 = Hkv 16),
+    and the registry taking every kernel call either config makes."""
+    from repro_torch.kernels import audit
+    cs = _chip_smoke()
+    arch = getattr(cs, which)
+    models = {m[1]: m for m in cs.family_models()}
+    key, _, cfg, modes, frames, _ = models[arch]
+    assert key == {"DENSE_ARCH": "(c)", "WIDE_MOE_ARCH": "(d)"}[which]
+    assert modes == ("codecflow",) and frames == cs.MOE_FRAMES == 24
+    assert cfg == get_config(arch) and cfg.n_layers == {"DENSE_ARCH": 30,
+                                                        "WIDE_MOE_ARCH": 48}[which]
+    pipe = ServingPipeline(cfg, tserve.default_vit(cfg), {}, {},
+                           cs.path_ecfg("codecflow", {}), device="cpu")
+    lay = pipe.layout
+    assert (lay.total_len, lay.vis_len, lay.query_len, pipe.cache_slots) == (168, 160, 8, 256)
+    assert not pipe.is_streaming_family and pipe.backend.paged
+    assert set(pipe.kernels) == {"mv_sad", "flash_packed", "flash_refresh_paged", "rope_shift"}
+    assert cs.family_label(arch, "codecflow", False) == f"{arch} codecflow, paged bf16"
+    largest = 2 * lay.total_len
+    if cfg.moe is None:
+        assert cs.moe_probe_rows(cfg, largest) == ()
+        assert "dense FFN d_ff 11008" in cs.model_widths(cfg)
+    else:
+        m = cfg.moe
+        assert cs.moe_probe_rows(cfg, largest) == (336, 2)
+        assert int(m.capacity_factor * 336 * m.top_k / m.n_experts) + 1 == 40
+        assert "64 experts top-6" in cs.model_widths(cfg)
+    paged = {label: (c, lay_, slots) for label, c, lay_, slots in
+             cs.family_kernel_cases(device="cpu")[0]}
+    if cfg.moe is None:
+        c, lay_, slots = paged[arch]
+        assert (c.n_heads, c.n_kv, c.d_head) == (32, 32, 128)
+        assert (lay_.total_len, lay_.vis_len, lay_.query_len, slots) == (168, 160, 8, 256)
+    else:
+        olmoe = paged[cs.MOE_ARCH][0]
+        assert (cfg.n_heads, cfg.n_kv, cfg.d_head) == (olmoe.n_heads, olmoe.n_kv,
+                                                       olmoe.d_head) == (16, 16, 128)
+    rows = audit.config_rows([arch])
+    assert {r.op for r in rows} == {"mv_sad", "flash_packed", "flash_refresh",
+                                    "flash_refresh_paged", "rope_shift"}
+    assert all(r.verdict == "kernel" for r in rows), rows

@@ -95,3 +95,35 @@ def assert_near_ties(found) -> None:
     is at most twice the token's gate drift.  The message reports them
     all, with their margins."""
     assert all(f[4] <= 2 * f[5] for f in found), found
+
+
+@contextlib.contextmanager
+def jax_forced(choices: list):
+    """While active, the JAX package's ``moe_block`` call i takes the
+    choices ``choices[i]`` (a JAX log's, or its arrays of choices) as
+    constants of its trace: the gates at those experts stand in for
+    ``jax.lax.top_k``'s values.  Calls pair with choices in trace order,
+    which is call order only where every MoE layer is traced once (a
+    stack of one period: the layer scan's body holds each position
+    once)."""
+    orig_block, orig_top_k = jlayers.moe_block, jax.lax.top_k
+    calls = iter(choices)
+
+    def forced(p, cfg, x):
+        idx = jnp.asarray(np.asarray(next(calls)[1]), jnp.int32)
+
+        def top_k(gates, k):
+            assert idx.shape == (gates.shape[0], k), (idx.shape, gates.shape, k)
+            return jnp.take_along_axis(gates, idx, axis=1), idx
+        jax.lax.top_k = top_k
+        try:
+            return orig_block(p, cfg, x)
+        finally:
+            jax.lax.top_k = orig_top_k
+
+    jlayers.moe_block = forced
+    try:
+        yield
+    finally:
+        jlayers.moe_block = orig_block
+        jax.lax.top_k = orig_top_k
