@@ -90,7 +90,20 @@ Phases (any failure exits non-zero):
                ViT at H 16 on its packings), each row's further cases
                under ``cases``; the refresh kernels and rope_shift also at
                internvl3-14b-smoke's LM (H 4, D 64) and flash_packed at
-               its ViT (D 32).  Then the dense mha (a library GEMM, no
+               its ViT (D 32).  Head dims without an exact build
+               (RAGGED_WIDTHS: 16, 40, 72, 80, 96, 112 at H 16 over Hkv 4
+               on internvl3-14b's layout) in every attention kernel;
+               f32 queries over the bf16 slab and caches at internvl3-
+               14b's fresh, refresh and decode shapes (the paged, per-
+               stream and int8 kernels; paged prefill bf16 and int8);
+               f32 q/k/v at flash_packed's busy packing and
+               flash_prefill's causal shape (within F32_ROW_TOL, their
+               split pre-pass's bytes printed beside the bound, not in
+               it); each attention case also prints device_ms (launches
+               over copies of its inputs, L2-cold, in one replayed CUDA
+               graph); mv_sad
+               at 448^2 with radius 16 and 32 and block 8
+               (MV_SEARCHES, tie_frames: bitwise).  Then the dense mha (a library GEMM, no
                row): at whisper-large-v3's cross-attention and
                internvl3-14b's encode_full against the f32-widened
                formula within HEAD_TOL, with no f32 copy of K, V or P and
@@ -180,8 +193,10 @@ Phases (any failure exits non-zero):
                30 layers, d 4096, 32 = 32 heads of 128) and (d)
                moonshot-v1-16b-a3b (48 layers, d 2048, 64 experts
                top-6) at full width and depth, codecflow on the paged
-               bf16 slab, 2 streams x 24 frames; each case's seconds are
-               printed.  Each case is served
+               bf16 slab, 2 streams x 24 frames; (e) deepseek-7b with
+               f32 weights (f32 queries over the bf16 slab) ingested at
+               search radius 16 (FAMILY_CODECS), the same path; each
+               case's seconds are printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
@@ -336,6 +351,9 @@ DENSE_ARCH = "deepseek-7b"
 # d 2048, 16 = 16 heads of 128, 64 experts top-6 of d_ff 1408, vocab
 # 163840; 52.3 GiB of bf16 weights
 WIDE_MOE_ARCH = "moonshot-v1-16b-a3b"
+# deepseek-7b with dtype="float32": 25.8 GiB of f32 weights, served at
+# search radius 16 (phase 7(e))
+DENSE_F32 = "deepseek-7b f32"
 FAMILY_HW = 112
 WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
@@ -363,6 +381,19 @@ STEP_LOSS_TOL, STEP_GNORM_TOL, STEP_GRAD_TOL = 1e-3, 1e-2, 2.0 ** -5
 # one bf16 step.
 ROW_TOL = 2.0 ** -6
 PREFILL_ROW_TOL = 2.0 ** -7
+# f32 q/k/v (flash_packed, flash_prefill): every operand enters the
+# products as two bf16 halves (about 16 bits) and the output is f32, so
+# the row-relative error is near f32's: held to 2^-10.  So are f32
+# queries in the prefill kernels (kept as two halves over bf16 K/V; the
+# output is not rounded).  An f32 query in the refresh kernels keeps
+# ROW_TOL: their oracle rounds q x scale to bf16 and P to V's type.
+F32_ROW_TOL = 2.0 ** -10
+# head dims the exact builds (24, 32, 64, 128) do not have, each run on the
+# smallest ragged build that holds it (csrc/attention.cuh), at H 16 over
+# Hkv 4 on internvl3-14b's layout; the f32 cases at its own widths
+RAGGED_WIDTHS = (16, 40, 72, 80, 96, 112)
+# mv_sad beyond the codec's radius 4: (frame edge, block, radius)
+MV_SEARCHES = ((448, 16, 16), (448, 16, 32), (448, 8, 16))
 # lm_logits vs the f32 product of its bf16 operands: max over rows of
 # max |k - p| / max |p|.  Both sum d_model products in f32, in other
 # orders (a few 1e-6 relative); the product rounded to bf16 misses by up
@@ -387,20 +418,28 @@ def bound_ms(n_bytes: float, n_ops: float, rate: float):
 ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
 
 
+# csrc/attention.cuh's operand types (OPS_BF16 = 0 is the exact label)
+BUILD_OPS = {"1": ", f32 q", "2": ", f32 q/k/v"}
+
+
 def kernel_label(mangled: str) -> str:
     """mma_kernel<D, problem struct> of an attention kernel's mangled name
-    ("+cold": the struct with int8 cold pages), name<n> of another kernel
-    templated on one integer; other names unchanged."""
-    d = re.search(r"ILi(\d+)E", mangled)
+    ("+cold": the struct with int8 cold pages; ", any d": a ragged bf16
+    build, ", f32 q" and ", f32 q/k/v": the f32 builds, ragged too),
+    name<n> of another kernel templated on one integer; other names
+    unchanged."""
+    b = re.search(r"BuildILi(\d+)ELb([01])ELi(\d)E", mangled)
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
-    if "mma_kernel" not in mangled or d is None or struct is None:
+    if "mma_kernel" not in mangled or b is None or struct is None:
         m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", mangled)
         if m:
             return f"{m.group(1)}<{m.group(2)}>"
-        m = re.search(r"\d([a-z_]+_kernel)E", mangled)
+        m = re.search(r"\d((?:[a-z_]|(?<=bf)16)+_kernel)E", mangled)
         return m.group(1) if m else mangled
     cold = "+cold" if "WithColdPages" in mangled else ""
-    return f"mma_kernel<{d.group(1)}, {struct}{cold}>"
+    width, ragged, ops_ = b.groups()
+    kind = BUILD_OPS.get(ops_, ", any d" if ragged == "1" else "")
+    return f"mma_kernel<{width}, {struct}{cold}{kind}>"
 
 
 def ptxas_kernels(text: str):
@@ -525,6 +564,49 @@ def check_mv_sad(torch, videos):
                     library_ms=None)
 
 
+def tie_frames(torch, hw: int, seed: int):
+    """Integer-valued frames (every SAD exact in any summation order),
+    constant over 8x8 blocks in half the 32x32 regions (many exact ties),
+    and the current frame the reference shifted by (11, -9) (motion past
+    radius 4)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prev = rng.integers(0, 256, (hw, hw)).astype(np.float32)
+    flat = np.repeat(np.repeat(rng.integers(0, 256, (-(-hw // 8),) * 2), 8, 0), 8, 1)[:hw, :hw]
+    mask = np.repeat(np.repeat(rng.random((-(-hw // 32),) * 2) < 0.5, 32, 0), 32, 1)[:hw, :hw]
+    prev = np.where(mask, flat, prev).astype(np.float32)
+    cur = np.roll(prev, (11, -9), axis=(0, 1))
+    return (torch.as_tensor(cur.copy(), device="cuda"),
+            torch.as_tensor(prev, device="cuda"))
+
+
+def check_mv_search(torch, hw: int, block: int, radius: int):
+    """mv_sad at a radius or block edge past the codec's (several
+    candidates a thread; block 8's band) on ``tie_frames``: MVs and SADs
+    bitwise the plain version's first minimum.  (ok, readings)."""
+    from repro_torch.kernels.mv_sad import launch_geometry, mv_sad_cuda, mv_sad_plain
+    cur, prev = tie_frames(torch, hw, seed=block + radius)
+    mv_k, sad_k = mv_sad_cuda(cur, prev, block, radius)
+    mv_p, sad_p = mv_sad_plain(cur, prev, block, radius)
+    bitwise = torch.equal(mv_k, mv_p) and torch.equal(sad_k, sad_p)
+    n_cand = (2 * radius + 1) ** 2
+    threads, _, smem = launch_geometry(block, radius)
+    ms = cuda_ms(torch, lambda: mv_sad_cuda(cur, prev, block, radius), 20)
+    dev_ms = device_ms(torch, lambda a, b: mv_sad_cuda(a, b, block, radius), (cur, prev),
+                       2 * hw * hw * 4)
+    plain = cuda_ms(torch, lambda: mv_sad_plain(cur, prev, block, radius), 2, warmup=1)
+    hb = hw // block
+    b_ms, b_by = bound_ms(2 * hw * hw * 4 + hb * hb * 12, 3 * hw * hw * n_cand, F32_FLOPS)
+    log(f"mv_sad ({hw}^2, block {block}, radius {radius}: {n_cand} candidates over {threads} "
+        f"threads, {smem} shared bytes): MVs and SADs bitwise the plain version's: {bitwise}, "
+        f"MVs past radius 4: {int((mv_p.abs() > 4).any(-1).sum())} of {hb * hb}; kernel "
+        f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return bitwise, dict(max_abs_err=float((sad_k - sad_p).abs().max()), ms=ms,
+                         device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, threads=threads, shared_bytes=smem)
+
+
 def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
     """The overlap's keys of every layer and stream rotated by the
     window's shift, at ``cfg``'s kv heads and head dim, in bf16 (at D 24
@@ -567,11 +649,12 @@ def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
 REFRESH_CASES = ("fresh prefill", "selective refresh", "decode")
 
 
-def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str):
+def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str, q_dtype=None):
     """Query rows, slab, page table, validity and map shaped as on the
     serving path: fresh prefill ([0, total_len)), the selective refresh
     set, or the first decode step (one query at total_len, keys up to
-    it, causal only as in the reference's decode)."""
+    it, causal only as in the reference's decode); the query in
+    ``q_dtype`` (bf16 by default; an f32 LM's is f32), the slab bf16."""
     import numpy as np
     from repro_torch.core import refresh_block_map
     from repro_torch.kernels.flash_refresh import build_block_map
@@ -597,7 +680,8 @@ def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str):
                                 (n_streams, cache_slots)).copy()
     kv_valid = torch.as_tensor(valid, device="cuda")
     Sq = bm.n_q
-    q = torch.randn((n_streams, Sq, cfg.n_heads, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randn((n_streams, Sq, cfg.n_heads, cfg.d_head), generator=g,
+                    device="cuda").to(q_dtype or torch.bfloat16)
     k = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
     v = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
     q_pos = torch.as_tensor(bm.q_pos[:Sq], dtype=torch.long, device="cuda")[None].expand(n_streams, Sq)
@@ -610,29 +694,33 @@ def refresh_mask(torch, q_pos, kv_valid):
     return (kpos[None, None, :] <= q_pos[:, :, None]) & kv_valid[:, None, :]
 
 
-def check_attention(torch, kernel, plain, library, q, n_kv, mask, key_bytes,
+def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_bytes,
                     extra_bytes, dead_rows_zero=True, tol=ROW_TOL):
-    """Hold one attention kernel against its plain version on the same
-    inputs: the row-relative error within ``tol`` and, where
-    ``dead_rows_zero`` (the refresh kernels), rows with no visible key
-    exactly 0.  ``mask`` (B or 1, Sq, slots) bool is the attention mask.
-    Times the kernel, the plain version and ``library(mask)``.  The
-    bound: q read and the output written once, ``key_bytes(needed)``
+    """Hold one attention kernel, ``kernel(*args)``, against its plain
+    version on the same inputs: the row-relative error within ``tol`` and,
+    where ``dead_rows_zero`` (the refresh kernels), rows with no visible
+    key exactly 0.  ``mask`` (B or 1, Sq, slots) bool is the attention
+    mask.  Times the kernel per call and on the device (``device_ms``,
+    over copies of ``args``), the plain version and ``library(mask)``.
+    The bound: q read and the output written once, ``key_bytes(needed)``
     bytes per (kv head, d_head) element summed over the key rows some
     query needs (``needed`` (B, slots) bool) for K and V, plus
     ``extra_bytes`` of masks and tables; 4 D H flops per live (query,
     key) pair.  Returns (ok, readings)."""
-    out_k, out_p = kernel(), plain()
+    out_k, out_p = kernel(*args), plain()
     err, rel = attn_errors(torch, out_k, out_p)
     B, Sq, H, D = q.shape
     r = dict(max_abs_err=err, rel=rel, tol=tol)
     if dead_rows_zero:
         r["dead_zero"] = bool((out_k[~mask.expand(B, -1, -1).any(-1)] == 0).all())
     live = float(mask.sum()) * (B // mask.shape[0])
-    n_bytes = (2 * q.numel() * 2 + key_bytes(mask.any(1).expand(B, -1)) * n_kv * D * 2
-               + extra_bytes)
+    n_bytes = (2 * q.numel() * q.element_size()
+               + key_bytes(mask.any(1).expand(B, -1)) * n_kv * D * 2 + extra_bytes)
     b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * live, BF16_TENSOR_FLOPS)
-    r.update(ms=cuda_ms(torch, kernel, 10), plain_ms=cuda_ms(torch, plain, 3),
+    in_bytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    r.update(ms=cuda_ms(torch, lambda: kernel(*args), 10),
+             device_ms=device_ms(torch, kernel, args, in_bytes),
+             plain_ms=cuda_ms(torch, plain, 3),
              library_ms=cuda_ms(torch, lambda: library(mask), 5),
              bound_ms=b_ms, bound_by=b_by)
     return rel <= tol and r.get("dead_zero", True), r
@@ -641,14 +729,15 @@ def check_attention(torch, kernel, plain, library, q, n_kv, mask, key_bytes,
 def attention_reading(r, library: str) -> str:
     dead = f", masked rows exact zero: {r['dead_zero']}" if "dead_zero" in r else ""
     return (f"max abs err {r['max_abs_err']:.3g}, max row-relative err {r['rel']:.3g} "
-            f"(limit {r['tol']:.3g}){dead}; kernel {r['ms']:.4f} ms, plain "
+            f"(limit {r['tol']:.3g}){dead}; kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} ms on "
+            f"the device), plain "
             f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def kernel_row(name, replaces, r):
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return dict(name=name, route="cuda", source="src/repro_torch/csrc/attention.cu",
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict(name=name, route="cuda", source="src/repro_torch/csrc/attention.cuh",
                 replaces=replaces, **{k: r[k] for k in keys})
 
 
@@ -668,38 +757,58 @@ def bf16_keys(needed):
     return 2 * float(needed.sum())
 
 
+def f32_keys(needed):
+    return 4 * float(needed.sum())
+
+
+def split_reading(k) -> tuple:
+    """The f32 q/k/v kernels' split pre-pass, which is how they are
+    built and not part of the function, so not in the bound: each of K
+    and V (``k``'s shape) read in f32 and written as two bf16 halves,
+    8 B an element.  Returns (ms at the memory rate, the log's words)."""
+    n_bytes = 2 * k.numel() * 8
+    ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return ms, f"; the split pre-pass's own traffic {ms:.4f} ms ({n_bytes / 1e6:.4g} MB), not in the bound"
+
+
+def dt_name(t) -> str:
+    return str(t.dtype)[6:]
+
+
 def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams, families=()):
     """All three serving shapes are held to ROW_TOL, at ``cfg``'s heads and
-    at each of ``families`` ((label, cfg, layout, cache slots) of another
-    model's paged path); the kernels line reports ``cfg``'s selective
-    refresh's times, the largest error, and every family case's readings
-    under ``families``."""
+    at each of ``families`` ((label, cfg, layout, cache slots[, q dtype[,
+    cases]]) of another model's paged path, or another head dim or query
+    type); the kernels line reports ``cfg``'s selective refresh's times,
+    the largest error, and every family case's readings under
+    ``families``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_refresh import flash_refresh_paged_cuda, flash_refresh_paged_plain
     from repro_torch.kernels.ref import paged_gather_ref
     ok, row, worst, readings = True, None, 0.0, {}
-    cases = [(None, cfg, layout, cache_slots, case) for case in REFRESH_CASES] + [
-        (label, fcfg, flay, fslots, case) for label, fcfg, flay, fslots in families
-        for case in REFRESH_CASES]
-    for label, cfg, layout, cache_slots, case in cases:
+    cases = [(None, cfg, layout, cache_slots, None, case) for case in REFRESH_CASES] + [
+        (label, fcfg, flay, fslots, rest[0] if rest else None, case)
+        for label, fcfg, flay, fslots, *rest in families
+        for case in (rest[1] if len(rest) > 1 else REFRESH_CASES)]
+    for label, cfg, layout, cache_slots, q_dt, case in cases:
         q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
-            torch, cfg, layout, cache_slots, n_streams, case)
+            torch, cfg, layout, cache_slots, n_streams, case, q_dt)
         g = q.shape[2] // k.shape[1]
 
-        def library(mask):
-            kg = paged_gather_ref(k, pt, 128).repeat_interleave(g, dim=2).transpose(1, 2)
-            vg = paged_gather_ref(v, pt, 128).repeat_interleave(g, dim=2).transpose(1, 2)
+        def library(mask):     # K/V in q's type (SDPA takes one type)
+            kg, vg = (paged_gather_ref(x, pt, 128).to(q.dtype).repeat_interleave(g, dim=2)
+                      .transpose(1, 2) for x in (k, v))
             return F.scaled_dot_product_attention(q.transpose(1, 2), kg, vg,
                                                   attn_mask=mask[:, None])
 
         ok_here, r = check_attention(
-            torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm),
+            torch, lambda *a: flash_refresh_paged_cuda(*a, bm), (q, k, v, kv_valid, pt),
             lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), library,
             q, k.shape[1], refresh_mask(torch, q_pos, kv_valid), bf16_keys,
             kv_valid.numel() + pt.numel() * 4)
         worst = max(worst, r["max_abs_err"])
         name = case if label is None else f"{label}, {case}"
-        log(f"flash_refresh_paged ({name}): q {tuple(q.shape)} bf16, slab "
+        log(f"flash_refresh_paged ({name}): q {tuple(q.shape)} {dt_name(q)}, slab "
             f"{tuple(k.shape)}, {bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
             + attention_reading(r, "gather+SDPA"))
         ok = ok and ok_here
@@ -738,8 +847,8 @@ def _stream_inputs(torch, cfg, slots, n_streams, offset, T):
 
 def check_flash_refresh(torch, cases, n_streams, families=()):
     """The per-stream kernel on the logical view of the same inputs as
-    the paged checks: (label, cfg, layout, cache slots, refresh case) per
-    row of ``cases``; then each of ``families`` ((label, cfg, cache slots,
+    the paged checks: (label, cfg, layout, cache slots, refresh case[, q
+    dtype]) per row of ``cases``; then each of ``families`` ((label, cfg, cache slots,
     offset, T): a contiguous pass of the recurrent backend's attention
     layers, ``_stream_inputs``).  The kernels line reports the selective
     refresh's times, the largest error, and every family case's readings
@@ -751,10 +860,10 @@ def check_flash_refresh(torch, cases, n_streams, families=()):
     for label, fcfg, slots, offset, T in families:
         q, k, v, q_pos, kv_valid, bm = _stream_inputs(torch, fcfg, slots, n_streams, offset, T)
         ok_here, r = check_attention(
-            torch, lambda: flash_refresh_cuda(q, k, v, kv_valid, bm),
+            torch, lambda *a: flash_refresh_cuda(*a, bm), (q, k, v, kv_valid),
             lambda: flash_refresh_plain(q, k, v, q_pos, kv_valid),
             lambda mask: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q.transpose(1, 2), k.transpose(1, 2).to(q.dtype), v.transpose(1, 2).to(q.dtype),
                 attn_mask=mask[:, None], enable_gqa=True),
             q, k.shape[2], refresh_mask(torch, q_pos, kv_valid), bf16_keys, kv_valid.numel())
         worst = max(worst, r["max_abs_err"])
@@ -764,20 +873,20 @@ def check_flash_refresh(torch, cases, n_streams, families=()):
         ok = ok and ok_here
         readings[label] = dict(q=list(q.shape), caches=list(k.shape), **r)
         del q, k, v
-    for label, cfg, layout, slots, case in cases:
+    for label, cfg, layout, slots, case, *q_dt in cases:
         q, ks, vs, q_pos, kv_valid, pt, bm = _refresh_inputs(
-            torch, cfg, layout, slots, n_streams, case)
+            torch, cfg, layout, slots, n_streams, case, *q_dt)
         k, v = paged_gather_ref(ks, pt, 128), paged_gather_ref(vs, pt, 128)
         del ks, vs
         ok_here, r = check_attention(
-            torch, lambda: flash_refresh_cuda(q, k, v, kv_valid, bm),
+            torch, lambda *a: flash_refresh_cuda(*a, bm), (q, k, v, kv_valid),
             lambda: flash_refresh_plain(q, k, v, q_pos, kv_valid),
             lambda mask: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q.transpose(1, 2), k.transpose(1, 2).to(q.dtype), v.transpose(1, 2).to(q.dtype),
                 attn_mask=mask[:, None], enable_gqa=True),
             q, k.shape[2], refresh_mask(torch, q_pos, kv_valid), bf16_keys, kv_valid.numel())
         worst = max(worst, r["max_abs_err"])
-        log(f"flash_refresh ({label}): q {tuple(q.shape)} bf16, caches {tuple(k.shape)}, "
+        log(f"flash_refresh ({label}): q {tuple(q.shape)} {dt_name(q)}, caches {tuple(k.shape)}, "
             f"{bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
             + attention_reading(r, "SDPA"))
         ok = ok and ok_here
@@ -814,28 +923,33 @@ def cold_pages(torch, k, v, pt, D):
 
 
 def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams, n_cold=None,
-                                   label=None):
+                                   label=None, q_dtype=None):
     """The two-precision kernel at the selective refresh: each stream's
     overlap pages [0, D) (15 of 21 at internvl3-14b; ``n_cold`` where
     given) quantised into an int8 cold slab with per-(page, kv head)
     scales, as demotion leaves them.  Held to the plain version
     (dequant-gather + the same attention); with every entry hot it must
-    equal the bf16 kernel bitwise."""
+    equal the bf16 kernel bitwise.  Both are also read against the same
+    function with P and the output unrounded (f32; q x scale and the
+    dequantised pages rounded to bf16, as the function defines them),
+    and the kernel held within ROW_TOL of it: where the kernel and the
+    plain version sit near ROW_TOL apart (narrow head dims), each is
+    about half of it from the unrounded answer."""
     import torch.nn.functional as F
     from repro_torch.core import demotable_pages
     from repro_torch.kernels.flash_refresh import (
         flash_refresh_paged_cuda, flash_refresh_paged_plain,
     )
-    from repro_torch.kernels.ref import paged_gather
+    from repro_torch.kernels.ref import flash_refresh_ref, paged_gather
     q, k, v, q_pos, kv_valid, pt, bm = _refresh_inputs(
-        torch, cfg, layout, cache_slots, n_streams, "selective refresh")
+        torch, cfg, layout, cache_slots, n_streams, "selective refresh", q_dtype)
     n_kv = k.shape[1]
     D = len(demotable_pages(layout)) if n_cold is None else n_cold
     cold, pt8, is_cold = cold_pages(torch, k, v, pt, D)
     k8, ks = cold[0], cold[2]
 
     def library(mask):
-        kg, vg = paged_gather(k, v, pt8, 128, cold)
+        kg, vg = (x.to(q.dtype) for x in paged_gather(k, v, pt8, 128, cold))
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
             attn_mask=mask[:, None], enable_gqa=True)
@@ -845,22 +959,36 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams, n
         return 2 * (float(needed.sum()) - cold_keys) + cold_keys
 
     ok, r = check_attention(
-        torch, lambda: flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold),
+        torch, lambda q, k, v, kvv, pt, *c: flash_refresh_paged_cuda(q, k, v, kvv, pt, bm,
+                                                                    cold=c),
+        (q, k, v, kv_valid, pt8, *cold),
         lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt8, cold=cold),
         library, q, n_kv, refresh_mask(torch, q_pos, kv_valid), key_bytes,
         kv_valid.numel() + pt8.numel() * 4 + 2 * ks.numel() * 4)
     out_bf16 = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
     all_hot = torch.equal(flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm, cold=cold),
                           out_bf16)
-    _, quant_rel = attn_errors(
-        torch, flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold), out_bf16)
-    log(f"flash_refresh_paged_int8 ({label or 'selective refresh'}): q {tuple(q.shape)} bf16, "
+    out_k = flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold)
+    _, quant_rel = attn_errors(torch, out_k, out_bf16)
+    kg, vg = paged_gather(k, v, pt8, 128, cold)
+    qs = (q.float() * q.shape[-1] ** -0.5).to(k.dtype).float()
+    unrounded = flash_refresh_ref(qs, kg.float(), vg.float(), q_pos, kv_valid, scale=1.0)
+    del kg, vg, qs
+    _, r["rel_unrounded"] = attn_errors(torch, out_k, unrounded)
+    _, r["plain_rel_unrounded"] = attn_errors(
+        torch, flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt8, cold=cold), unrounded)
+    del unrounded, out_k
+    near = r["rel_unrounded"] <= ROW_TOL
+    log(f"flash_refresh_paged_int8 ({label or 'selective refresh'}): q {tuple(q.shape)} "
+        f"{dt_name(q)}, "
         f"hot slab "
         f"{tuple(k.shape)}, cold slab {tuple(k8.shape)} int8, {D} of {pt.shape[1]} pages "
         f"per stream cold, all-hot bitwise equal to bf16 kernel: {all_hot}, row-relative "
-        f"change from quantisation {quant_rel:.3g}: " + attention_reading(r, "dequant-gather+SDPA"))
-    return ok and all_hot, kernel_row("flash_refresh_paged_int8",
-                                      "src/repro/kernels/flash_refresh.py:380", r)
+        f"change from quantisation {quant_rel:.3g}, against P and O unrounded: kernel "
+        f"{r['rel_unrounded']:.3g} (limit {ROW_TOL:.3g}), plain {r['plain_rel_unrounded']:.3g}: "
+        + attention_reading(r, "dequant-gather+SDPA"))
+    return ok and all_hot and near, kernel_row("flash_refresh_paged_int8",
+                                               "src/repro/kernels/flash_refresh.py:380", r)
 
 
 def packings(torch, pipe, streams):
@@ -890,11 +1018,13 @@ def packings(torch, pipe, streams):
                              ("mixed", mixed))]
 
 
-def check_flash_packed(torch, pipe, streams, heads=None, label=None):
+def check_flash_packed(torch, pipe, streams, heads=None, label=None, dtype=None, only=None):
     """The kernel through ops.flash_packed, as the ViT calls it, at the
-    three packings of ``packings``: each against the plain version
-    (ROW_TOL, padding exact zero) and masked SDPA, timed per call and on
-    the device, at the pipeline ViT's heads or ``heads`` (H, D).  The
+    three packings of ``packings`` (``only``: those named): each against
+    the plain version (ROW_TOL, F32_ROW_TOL for f32 q/k/v; padding exact
+    zero) and masked SDPA, timed per call and on the device, at the
+    pipeline ViT's heads or ``heads`` (H, D), q/k/v in ``dtype`` (bf16 by
+    default; f32: the split pre-pass's bytes printed beside the bound).  The
     kernels line reports the serve packing's times, the largest error,
     and every packing's readings under ``packings``."""
     import torch.nn.functional as F
@@ -904,10 +1034,14 @@ def check_flash_packed(torch, pipe, streams, heads=None, label=None):
     H, D = heads or (v.n_heads, v.d_model // v.n_heads)
     name = "flash_packed" if label is None else f"flash_packed [{label}]"
     g = torch.Generator(device="cuda").manual_seed(4)
+    dtype = dtype or torch.bfloat16
+    tol = F32_ROW_TOL if dtype == torch.float32 else ROW_TOL
     ok, row, worst, readings = True, None, 0.0, {}
     for label_p, plan in packings(torch, pipe, streams):
+        if only is not None and label_p not in only:
+            continue
         R, L = plan.seg_id.shape
-        q, k, vv = (torch.randn((R, L, H, D), generator=g, device="cuda").to(torch.bfloat16)
+        q, k, vv = (torch.randn((R, L, H, D), generator=g, device="cuda").to(dtype)
                     for _ in range(3))
         seg = torch.as_tensor(plan.seg_id, device="cuda")
         bm = plan.block_map
@@ -920,28 +1054,31 @@ def check_flash_packed(torch, pipe, streams, heads=None, label=None):
         err, rel = attn_errors(torch, out_k, out_p)
         pad_zero = bool((out_k[seg < 0] == 0).all())
         ms = cuda_ms(torch, kernel, 20)
-        dev_ms = device_ms(torch, kernel, (q, k, vv), 3 * q.numel() * 2)
+        dev_ms = device_ms(torch, kernel, (q, k, vv), 3 * q.numel() * q.element_size())
         plain = cuda_ms(torch, lambda: flash_packed_plain(q, k, vv, seg), 5)
         mask = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), vv.transpose(1, 2),
             attn_mask=mask[:, None]), 10)
         live = float((seg >= 0).sum())
-        n_bytes = live * H * D * 2 * 3 + q.numel() * 2 + seg.numel() * 4
+        esz = q.element_size()
+        n_bytes = live * H * D * esz * 3 + q.numel() * esz + seg.numel() * 4
         b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
+        split_ms, split_note = split_reading(k) if esz == 4 else (None, "")
         log(f"{name} ({label_p}): {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, "
-            f"D {D}, {bm.visited} visited tiles, fill {plan.fill:.3f}: max abs err {err:.3g}, "
-            f"max row-relative err {rel:.3g} (limit {ROW_TOL:.3g}), padding exact zero: "
+            f"D {D}, {dt_name(q)}, {bm.visited} visited tiles, fill {plan.fill:.3f}: max abs "
+            f"err {err:.3g}, max row-relative err {rel:.3g} (limit {tol:.3g}), padding exact zero: "
             f"{pad_zero}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
-            f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        ok = ok and rel <= ROW_TOL and pad_zero
+            f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}){split_note}")
+        ok = ok and rel <= tol and pad_zero
         worst = max(worst, err)
         readings[label_p] = dict(shape=[R, L], visited=bm.visited, max_abs_err=err, rel=rel,
                                  ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=b_ms, bound_by=b_by)
-        if label_p == "serve":
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 **({} if split_ms is None else {"split_ms": split_ms}))
+        if row is None:
             row = dict(name="flash_packed", route="cuda",
-                       source="src/repro_torch/csrc/attention.cu",
+                       source="src/repro_torch/csrc/attention.cuh",
                        replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err,
                        ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib)
@@ -1288,7 +1425,8 @@ def family_kernel_cases(device="cuda"):
     (pipelines built without weights on ``device``, for their layouts):
     the paged kernel at olmoe-1b-7b's heads (H 16 = Hkv 16, D 128, GQA
     group 1; moonshot-v1-16b-a3b's too) and at deepseek-7b's (H 32 = Hkv
-    32, D 128) on their codecflow layouts, and the per-stream kernel at
+    32, D 128; with bf16 and with f32 queries, as phase 7's (c) and (e)
+    launch it) on their codecflow layouts, and the per-stream kernel at
     jamba-v0.1-52b's (H 32, Hkv 8, D 128) over its attention caches'
     max_hist slots: the
     codecflow passes of window 0 and of the last window of a 40-frame
@@ -1296,6 +1434,7 @@ def family_kernel_cases(device="cuda"):
     append; and the per-stream kernel at whisper-large-v3's decoder
     self-attention (H 20 = Hkv 20, D 64) over phase 8's 128 slots: its
     32-token prefill and first decode step."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import default_vit
     from repro_torch.serving import ServingPipeline
@@ -1308,6 +1447,8 @@ def family_kernel_cases(device="cuda"):
     for arch in (MOE_ARCH, DENSE_ARCH):
         c, p = layout_of(arch, "codecflow")
         paged.append((arch, c, p.layout, p.cache_slots))
+    paged.append((f"{DENSE_ARCH}, f32 q", dataclasses.replace(c, dtype="float32"), p.layout,
+                  p.cache_slots, torch.float32))
     hcfg, hp = layout_of(HYBRID_ARCH, "codecflow")
     _, hf = layout_of(HYBRID_ARCH, "fullcomp")
     lay, slots = hp.layout, hp.cache_slots
@@ -1341,7 +1482,7 @@ def positional_mask(torch, Sq, Sk, q_offset, window, causal=True):
     return mask[None]
 
 
-def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None):
+def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None, dtype=None):
     """flash_prefill at internvl3-14b attention widths (H 40, Hkv 8,
     D 128, bf16, 2 streams): causal from position 0, a 512-row chunk at
     offset 2048 against 2560 keys, a 512-key sliding window, and the
@@ -1351,11 +1492,16 @@ def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None)
     and the same mask; where is_causal is the same function (q_offset 0,
     Sq == Sk, no window) its is_causal call is timed beside it.  The
     kernels line reports the causal case's times and the largest error.
-    ``only``: the labels of the cases to run; ``label`` names ``cfg``."""
+    ``only``: the labels of the cases to run; ``label`` names ``cfg``;
+    ``dtype``: q/k/v's (bf16 by default; f32: within F32_ROW_TOL, the
+    split pre-pass's bytes printed beside the bound)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda, flash_prefill_plain
     g = torch.Generator(device="cuda").manual_seed(6)
     H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    tol = F32_ROW_TOL if f32 else PREFILL_ROW_TOL
     cases = (("causal", 2048, 2048, None, 0), ("chunk at an offset", 512, 2560, None, 2048),
              ("sliding window", 2048, 2048, 512, 0),
              ("ragged", total_len, total_len, None, 0),
@@ -1365,43 +1511,45 @@ def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None)
     for case, Sq, Sk, window, off in cases:
         if only is not None and case not in only:
             continue
-        q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").bfloat16()
-        k, v = (torch.randn((n_streams, Sk, Hkv, D), generator=g, device="cuda").bfloat16()
+        q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((n_streams, Sk, Hkv, D), generator=g, device="cuda").to(dtype)
                 for _ in range(2))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ok_here, r = check_attention(
-            torch, lambda: flash_prefill_cuda(q, k, v, window=window, q_offset=off),
+            torch, lambda *a: flash_prefill_cuda(*a, window=window, q_offset=off), (q, k, v),
             lambda: flash_prefill_plain(q, k, v, window=window, q_offset=off),
             lambda mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
                                                         enable_gqa=True),
-            q, Hkv, positional_mask(torch, Sq, Sk, off, window), bf16_keys, 0,
-            dead_rows_zero=False, tol=PREFILL_ROW_TOL)
+            q, Hkv, positional_mask(torch, Sq, Sk, off, window),
+            f32_keys if f32 else bf16_keys, 0, dead_rows_zero=False, tol=tol)
         note = ""
+        if f32:
+            r["split_ms"], note = split_reading(k)
         if off == 0 and Sq == Sk and window is None:
             r["sdpa_causal_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 5)
-            note = f", SDPA is_causal {r['sdpa_causal_ms']:.4f} ms"
+            note += f", SDPA is_causal {r['sdpa_causal_ms']:.4f} ms"
         if off < 0:
             n_dead = -off
             mean_v = v.float().mean(1, keepdim=True).repeat_interleave(H // Hkv, dim=2)
             _, dead_rel = attn_errors(torch, flash_prefill_cuda(q, k, v, q_offset=off)[:, :n_dead],
                                       mean_v.expand(-1, n_dead, -1, -1))
-            note = (f", rows without keys vs the mean of V: row-relative err "
-                    f"{dead_rel:.3g} (limit {PREFILL_ROW_TOL:.3g})")
-            ok_here = ok_here and dead_rel <= PREFILL_ROW_TOL
+            note += (f", rows without keys vs the mean of V: row-relative err "
+                    f"{dead_rel:.3g} (limit {tol:.3g})")
+            ok_here = ok_here and dead_rel <= tol
         worst = max(worst, r["max_abs_err"])
-        log(f"{name} ({case}): q {tuple(q.shape)} bf16, k/v {tuple(k.shape)}, "
+        log(f"{name} ({case}): q {tuple(q.shape)} {dt_name(q)}, k/v {tuple(k.shape)}, "
             f"q_offset {off}, window {window}: " + attention_reading(r, "SDPA") + note)
         ok = ok and ok_here
-        if case == "causal":
+        if row is None:
             row = kernel_row("flash_prefill", "src/repro/kernels/flash_prefill.py:79", r)
-            row["sdpa_causal_ms"] = r["sdpa_causal_ms"]
+            row["sdpa_causal_ms"] = r.get("sdpa_causal_ms")
     row["max_abs_err"] = worst
     return ok, row
 
 
 def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold=None,
-                              label=None):
+                              label=None, q_dtype=None):
     """flash_prefill_paged at the fresh prefill of internvl3-14b
     (total_len queries from position 0 over cache_slots logical keys) on
     a shuffled slab, bf16 and with each stream's pages [0, D) (15 of 21)
@@ -1423,7 +1571,7 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold
     pt = torch.as_tensor(rng.permutation(P).reshape(n_streams, n_pages), dtype=torch.int32,
                          device="cuda")
     Sq = layout.total_len
-    q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").bfloat16()
+    q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").to(q_dtype or torch.bfloat16)
     k, v = (torch.randn((P * 128, Hkv, D), generator=g, device="cuda").bfloat16()
             for _ in range(2))
     mask = positional_mask(torch, Sq, cache_slots, 0, None)
@@ -1433,7 +1581,7 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold
     name = "flash_prefill_paged" if label is None else f"flash_prefill_paged [{label}]"
     for case, table, grp in (("bf16", pt, None), ("int8", pt8, cold)):
         def library(mask, table=table, grp=grp):
-            kg, vg = paged_gather(k, v, table, 128, grp)
+            kg, vg = (x.to(q.dtype) for x in paged_gather(k, v, table, 128, grp))
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
                 attn_mask=mask[:, None], enable_gqa=True)
@@ -1444,11 +1592,12 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold
 
         extra = pt.numel() * 4 + (0 if grp is None else 2 * cold[2].numel() * 4)
         ok, r = check_attention(
-            torch, lambda table=table, grp=grp: flash_prefill_paged_cuda(q, k, v, table,
-                                                                         cold=grp),
+            torch, lambda q, k, v, table, *c: flash_prefill_paged_cuda(q, k, v, table,
+                                                                       cold=c or None),
+            (q, k, v, table, *(grp or ())),
             lambda table=table, grp=grp: flash_prefill_paged_plain(q, k, v, table, cold=grp),
             library, q, Hkv, mask, key_bytes, extra, dead_rows_zero=False,
-            tol=PREFILL_ROW_TOL)
+            tol=F32_ROW_TOL if q.dtype == torch.float32 else PREFILL_ROW_TOL)
         note = ""
         if grp is not None:
             all_hot = torch.equal(flash_prefill_paged_cuda(q, k, v, pt, cold=grp),
@@ -1456,7 +1605,7 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold
             note = (f", {n_cold} of {n_pages} pages per stream cold, "
                     f"all-hot bitwise equal to bf16 kernel: {all_hot}")
             ok = ok and all_hot
-        log(f"{name} ({case}): q {tuple(q.shape)} bf16, slab {tuple(k.shape)}, "
+        log(f"{name} ({case}): q {tuple(q.shape)} {dt_name(q)}, slab {tuple(k.shape)}, "
             f"{n_pages} shuffled pages per stream{note}: "
             + attention_reading(r, "gather+SDPA" if grp is None else "dequant-gather+SDPA"))
         row_name = "flash_prefill_paged" if grp is None else "flash_prefill_paged_int8"
@@ -1522,13 +1671,13 @@ LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
                "flash_prefill_paged_int8": SSM_MAIN}
 
 
-def path_ecfg(mode: str, opts: dict):
+def path_ecfg(mode: str, opts: dict, codec=None):
     """The engine config of a path: ``opts`` are KVCfg fields and
-    ``packed_vit``."""
+    ``packed_vit``; ``codec`` overrides CodecCfg fields."""
     from repro_torch.serving import EngineCfg, KVCfg, PruneCfg
     kv = {k: v for k, v in opts.items() if k != "packed_vit"}
-    return EngineCfg(mode=mode, codec=codec_cfg(), kv=KVCfg(**kv),
-                     prune=PruneCfg(packed_vit=opts.get("packed_vit", True)))
+    return EngineCfg(mode=mode, codec=dataclasses.replace(codec_cfg(), **(codec or {})),
+                     kv=KVCfg(**kv), prune=PruneCfg(packed_vit=opts.get("packed_vit", True)))
 
 
 def vit_flop_ratio(torch, pipe, videos):
@@ -1668,19 +1817,20 @@ def choice_flips(torch, ref: list, own: list):
     return n, worst
 
 
-def composite(torch, cfg4, vit, params, vparams, videos, mode, kv):
+def composite(torch, cfg4, vit, params, vparams, videos, mode, kv, codec=None):
     """One fresh and one incremental window group at 4 layers through the
     kernels and through their plain versions.  With MoE layers the plain
     run takes the kernel run's expert choices (a bf16 step between the
     two can move a near tie, after which the runs diverge by more than
     the kernels' rounding), and prints how many tokens would have chosen
-    otherwise, with the largest gate margin among them.  Returns (max |d
-    yes/no logit|, its tolerance, answers agree where the margin exceeds
-    twice it, all checks passed)."""
+    otherwise, with the largest gate margin among them.  ``codec``: the
+    path's CodecCfg fields (path_ecfg).  Returns (max |d yes/no logit|,
+    its tolerance, answers agree where the margin exceeds twice it, all
+    checks passed)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving import ServingPipeline
-    ecfg = path_ecfg(mode, kv)
+    ecfg = path_ecfg(mode, kv, codec)
     moe = cfg4.moe is not None
     chosen, plain_own = [], []
     pipe = ServingPipeline(cfg4, vit, params, vparams, ecfg, device="cuda")
@@ -2092,7 +2242,8 @@ def state_bytes(cfg, slots: int) -> int:
 
 def family_models():
     """Phase 7's models, in order: (key, arch, cfg as served, modes, frames
-    per stream, what of the model is served)."""
+    per stream, what of the model is served); FAMILY_CODECS has the codec
+    fields a case sets."""
     from repro_torch.configs import get_config
     hybrid, full = get_config(HYBRID_ARCH), "full width and depth"
     return (
@@ -2101,7 +2252,14 @@ def family_models():
          HYBRID_FRAMES, f"full width, {HYBRID_LAYERS} of {hybrid.n_layers} layers"),
         ("(c)", DENSE_ARCH, get_config(DENSE_ARCH), ("codecflow",), MOE_FRAMES, full),
         ("(d)", WIDE_MOE_ARCH, get_config(WIDE_MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
+        ("(e)", DENSE_F32, dataclasses.replace(get_config(DENSE_ARCH), dtype="float32"),
+         ("codecflow",), MOE_FRAMES, f"{full}, f32 weights, search radius 16"),
     )
+
+
+# (e): an f32 LM (f32 queries over the bf16 slab) ingested at the search
+# range of a software H.264 encoder
+FAMILY_CODECS = {"(e)": dict(search_radius=16)}
 
 
 def model_widths(cfg) -> str:
@@ -2121,8 +2279,10 @@ def serve_families(torch):
     slab; (b) jamba-v0.1-52b at full width with HYBRID_LAYERS layers,
     codecflow and fullcomp through the recurrent backend; (c) deepseek-7b
     (dense) and (d) moonshot-v1-16b-a3b (48 MoE layers) at full size,
-    codecflow on the paged bf16 slab; all with the launcher's 112^2 ViT
-    and random bf16 weights made on the card from the seed, each case
+    codecflow on the paged bf16 slab; (e) deepseek-7b with f32 weights
+    (f32 queries over the bf16 slab) ingested at search radius 16, the
+    same path; all with the launcher's 112^2 ViT and random weights
+    made on the card from the seed (bf16 but for (e)'s LM), each case
     served lockstep, async, async, lockstep, the yes/no logits of every
     run bitwise equal.  Each model's weights are freed before the next.
     Returns (ok, launches per run)."""
@@ -2144,8 +2304,10 @@ def serve_families(torch):
             f"on the card in {time.perf_counter() - t0:.1f} s")
         videos = anomaly_dataset(2, frames, FAMILY_HW, FAMILY_HW, seed=SEED)
         want_n = 2 * ((frames - 16) // 4 + 1)
+        codec = FAMILY_CODECS.get(key)
         makers = {mode: (lambda mode=mode: ServingPipeline(
-            cfg, v, params, vparams, path_ecfg(mode, {}), device="cuda")) for mode in modes}
+            cfg, v, params, vparams, path_ecfg(mode, {}, codec), device="cuda"))
+            for mode in modes}
         largest = 0          # rows of the largest call: a fresh append or paged prefill
         streaming = {}
         for mode, make in makers.items():
@@ -2184,7 +2346,7 @@ def serve_families(torch):
         short = [(f[:20], lab) for f, lab in videos]    # one fresh + one incremental window
         for mode in modes:
             diff, tol, ans_ok, here = composite(torch, cut_cfg, v, cut, vparams, short, mode,
-                                                {})
+                                                {}, codec)
             log(f"composite [{arch}, {mode}] ({cut_cfg.n_layers} layers, full width): max "
                 f"|d yes/no logit| {diff:.4g} (tol {tol:.3g}); answers agree where the "
                 f"margin exceeds 2 x tol: {ans_ok}")
@@ -3416,7 +3578,7 @@ def main(argv=None) -> int:
     for src, text in cuda.build_log().items():
         for label, regs, spill in ptxas_kernels(text):
             log(f"  ptxas[{src}]: {label}: {regs} registers, {spill} bytes spilled")
-            if spill and (src == "attention.cu" or label.startswith("ssd_scan_bwd")):
+            if spill and (src.startswith("attention") or label.startswith("ssd_scan_bwd")):
                 spilled.append(label)
     if spilled:
         log(f"FAIL: attention or scan-backward kernels spill registers: {spilled}")
@@ -3465,22 +3627,39 @@ def main(argv=None) -> int:
         ("decode", cfg, pipe.layout, pipe.cache_slots, "decode"),
     ) + tuple((f"{B24}, {case}", bcfg, blay, bslots, case) for case in REFRESH_CASES) + (
         (f"{W24}, fresh prefill", wide, pipe.layout, pipe.cache_slots, "fresh prefill"),)
+    # head dims without an exact build, at H 16 over Hkv 4 on internvl3-14b's
+    # layout, and f32 queries (an f32 LM's) at its own widths
+    F32 = torch.float32
+    lay, slots = pipe.layout, pipe.cache_slots
+    widths = {f"D {d}": dataclasses.replace(cfg, name=f"d{d}", n_heads=16, n_kv=4, d_head=d)
+              for d in RAGGED_WIDTHS}
+    stream_cases += tuple((f"{lab}, selective refresh", w, lay, slots, "selective refresh")
+                          for lab, w in widths.items()) + tuple(
+        (f"f32 q, {case}", cfg, lay, slots, case, F32) for case in REFRESH_CASES)
     n = len(videos)
     paged_families, stream_families = family_kernel_cases()
     paged_families += [(B24, bcfg, blay, bslots), (W24, wide, pipe.layout, pipe.cache_slots),
-                       (f"{SMOKE_ARCH}, D 64", smoke, blay, bslots)]
+                       (f"{SMOKE_ARCH}, D 64", smoke, blay, bslots)] + [
+        (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in widths.items()] + [
+        ("f32 q", cfg, lay, slots, F32)]
 
     def prefill_paged():
         main = check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)
         extra = {B24: check_flash_prefill_paged(torch, bcfg, blay, bslots, n, n_cold=1,
                                                 label=B24),
                  W24: check_flash_prefill_paged(torch, wide, pipe.layout, pipe.cache_slots, n,
-                                                label=W24)}
+                                                label=W24),
+                 **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab)
+                    for lab, w in widths.items()},
+                 "f32 q": check_flash_prefill_paged(torch, cfg, lay, slots, n, label="f32 q",
+                                                    q_dtype=F32)}
         return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
                 for i, m in enumerate(main)]
 
     checks = {   # kernel name -> its check; flash_prefill_paged's covers the int8 row too
-        "mv_sad": lambda: [check_mv_sad(torch, videos)],
+        "mv_sad": lambda: [with_cases(check_mv_sad(torch, videos), {
+            f"{hw}^2, block {b}, radius {r}": check_mv_search(torch, hw, b, r)
+            for hw, b, r in MV_SEARCHES})],
         "rope_shift": lambda: [with_cases(check_rope_shift(torch, cfg, pipe.layout, n), {
             f"{B24}, bf16": check_rope_shift(torch, bcfg, blay, n, label=f"{B24}, bf16"),
             f"{B24}, f32": check_rope_shift(torch, bcfg, blay, n, torch.float32,
@@ -3495,14 +3674,23 @@ def main(argv=None) -> int:
             "D 24, H 16 on internvl3-14b's packings": check_flash_packed(
                 torch, pipe, streams, heads=(16, 24), label="D 24, H 16"),
             f"{SMOKE_ARCH} ViT, D 32": check_flash_packed(
-                torch, bench, bench_streams, heads=(4, 32), label=f"{SMOKE_ARCH} ViT, D 32")})],
+                torch, bench, bench_streams, heads=(4, 32), label=f"{SMOKE_ARCH} ViT, D 32"),
+            **{f"{lab}, H 16, busy": check_flash_packed(
+                torch, pipe, streams, heads=(16, w.d_head), label=f"{lab}, H 16", only=("busy",))
+               for lab, w in widths.items()},
+            "f32 q/k/v, busy": check_flash_packed(torch, pipe, streams, dtype=F32,
+                                                  label="f32 q/k/v", only=("busy",))})],
         "flash_refresh": lambda: [check_flash_refresh(torch, stream_cases, n, stream_families)],
         "flash_refresh_paged_int8": lambda: [with_cases(
             check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n), {
                 B24: check_flash_refresh_paged_int8(torch, bcfg, blay, bslots, n, n_cold=1,
                                                     label=B24),
                 W24: check_flash_refresh_paged_int8(torch, wide, pipe.layout, pipe.cache_slots,
-                                                    n, label=W24)})],
+                                                    n, label=W24),
+                **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab)
+                   for lab, w in widths.items()},
+                "f32 q": check_flash_refresh_paged_int8(torch, cfg, lay, slots, n,
+                                                        label="f32 q", q_dtype=F32)})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
         "ssd_scan_bwd": lambda: [check_ssd_scan_bwd(torch)],
         "flash_prefill": lambda: [with_cases(
@@ -3510,7 +3698,12 @@ def main(argv=None) -> int:
                 lab: check_flash_prefill(torch, c, total, n, only=("causal", "ragged"),
                                          label=lab)
                 for lab, c, total in ((B24, bcfg, blay.total_len),
-                                      (W24, wide, pipe.layout.total_len))})],
+                                      (W24, wide, pipe.layout.total_len))} | {
+                lab: check_flash_prefill(torch, w, lay.total_len, n, only=("causal",), label=lab)
+                for lab, w in widths.items()} | {
+                "f32 q/k/v": check_flash_prefill(torch, cfg, lay.total_len, n,
+                                                 only=("causal",), label="f32 q/k/v",
+                                                 dtype=F32)})],
         "flash_prefill_paged": prefill_paged,
     }
     if only - set(checks):

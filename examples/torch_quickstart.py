@@ -8,10 +8,9 @@ decision (paper Eqs. 1-4), and serves every sliding window through a
 tiny VLM with selective KVC refresh.  On the card (the default) the
 kernels serve it; ``--device cpu`` runs their plain versions.
 
-The JAX quickstart's tiny VLM has 4 heads of 16; the card's attention
-kernels are built for head dims 24, 32, 64 and 128, so here the same
-widths run as 2 heads of 32 (the LM keeps 2 query heads per kv head).
-Weights are random, from the port's initialisers (seeds 0 and 1).
+The tiny VLM is the JAX quickstart's: LM and ViT of 4 heads of 16 (the
+LM's over 2 kv heads).  Weights are random, from the port's
+initialisers (seeds 0 and 1).
 """
 import argparse
 
@@ -43,7 +42,7 @@ print(f"motion vectors: {tuple(meta.mv.shape)}, mean |v| on P-frames: "
       f"{float(meta.mv_magnitude[meta.frame_types == 1].mean()):.2f} px")
 
 # 3. Motion Analyzer + Token Pruner (Eqs. 1-4) -------------------------
-vit_cfg = ViTCfg(n_layers=2, d_model=64, n_heads=2, d_ff=128,
+vit_cfg = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128,
                  patch=14, image=112, group=2)
 dynamic, score = motion_mask(meta, codec, vit_cfg.patches_per_side)
 decision = select_tokens(dynamic, score, vit_cfg,
@@ -52,7 +51,7 @@ print(f"pruning: {pruning_stats(decision)}")
 
 # 4. serve a stream end-to-end with selective KVC refresh --------------
 lm_cfg = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64,
-                  n_heads=2, n_kv=1, d_ff=128, vocab=64,
+                  n_heads=4, n_kv=2, d_ff=128, vocab=64,
                   tied_embeddings=True)
 lm_params = init_lm_params(lm_cfg, seed=0, device=dev)
 vit_params = init_vit_params(vit_cfg, lm_cfg.d_model, seed=1, device=dev)

@@ -25,8 +25,10 @@ exceeded:
     each contract's ``recompile_budget``;
   * **configs** — every config of ``configs/registry.py``, at full size
     and ``-smoke``, at its serving geometry (the LM's heads and head dim,
-    the launcher's default ViT, mamba's state): which ops the card takes,
-    and the rule that refuses the rest.
+    the launcher's default ViT, mamba's state), and two served models
+    that are not registry configs (``variant_rows``: the JAX quickstart's
+    widths, deepseek-7b in f32 at search radius 16): which ops the card
+    takes, and the rule that refuses the rest.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from typing import Callable, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ..configs import CodecCfg, ViTCfg
+from ..configs import CodecCfg, ModelCfg, ViTCfg
 from ..configs.registry import all_configs, get_config
 from ..core.kvc import WindowLayout, refresh_block_map
 from ..core.pruning import (
@@ -251,19 +253,55 @@ def _paged_prefill_rows() -> List[AuditRow]:
 
 
 def _prefill_rows() -> List[AuditRow]:
-    """The reference's f32 prefill rows (refused here by 'bf16': the
-    kernel's products are bf16) and their bf16 twins, ragged lengths
-    included, which reach the kernel."""
+    """The reference's f32 prefill rows and their bf16 twins, ragged
+    lengths included, which reach the kernel (f32 q/k/v as bf16 halves),
+    and an f16 row, which 'kernel-dtype' refuses (no f16 build)."""
     rows = []
     H, Hkv, D = ATTN["H"], ATTN["Hkv"], ATTN["D"]
     for B, Sq, Sk, sw in ((2, 256, 256, None), (1, 512, 512, 4096), (1, 128, 384, None),
                           (1, 192, 256, None), (1, 256, 200, None)):
-        for dt, expect in ((F32, "refused:bf16"), (BF16, "kernel")):
+        for dt, expect in ((F32, "kernel"), (BF16, "kernel")) + (
+                ((torch.float16, "refused:kernel-dtype"),) if Sq == 192 else ()):
             q, k = _meta((B, Sq, H, D), dt), _meta((B, Sk, Hkv, D), dt)
             facts = contracts.flash_prefill_facts(q, k, k, causal=True, window=sw, q_offset=0)
             rows.append(_run_one(
                 "flash_prefill", f"B={B} Sq={Sq} Sk={Sk} sw={sw} {str(dt)[6:]}", expect, facts,
                 lambda q=q, k=k, sw=sw: ops.flash_prefill(q, k, k, window=sw), (B, Sq, H, D)))
+    return rows
+
+
+def _width_rows() -> List[AuditRow]:
+    """Head dims the kernels' ragged builds take (the JAX quickstart's 16,
+    SigLIP's 72, Qwen2-VL's ViT's 80), with bf16 and f32 queries over a
+    bf16 slab and f32 q/k/v in the packed ViT, and the widths still
+    refused: 136 (over 128) and 20 (not a multiple of 8)."""
+    rows = []
+    lay, sw = LAYOUTS[2]
+    slots = _slots(lay)
+    bm = refresh_block_map(lay, window=sw, kv_len=slots)
+    B, H, Hkv = 2, 8, 2
+    for D, dt, expect in ((16, BF16, "kernel"), (72, F32, "kernel"), (80, BF16, "kernel"),
+                          (136, BF16, "refused:kernel-head-dim"),
+                          (20, F32, "refused:kernel-head-dim")):
+        q, k = _meta((B, bm.n_q, H, D), dt), _meta((B * slots, Hkv, D))
+        q_pos, kvv = _meta((B, bm.n_q), I32), _meta((B, slots), torch.bool)
+        pt = _meta((B, slots // PAGE), I32)
+        rows.append(_run_one(
+            "flash_refresh_paged", f"D {D} q {str(dt)[6:]} over a bf16 slab", expect,
+            contracts.flash_refresh_paged_facts(q, k, k, q_pos, kvv, pt, page=PAGE, causal=True,
+                                                window=sw, block_map=bm),
+            lambda q=q, k=k, p=q_pos, m=kvv, t=pt: ops.flash_refresh_paged(
+                q, k, k, p, m, t, page=PAGE, causal=True, window=sw, block_map=bm),
+            (B, bm.n_q, H, D)))
+    plan = pack_plan(synthetic_decision(ViTCfg(), 12, 64, 0.5, seed=3), ViTCfg(), tile=128)
+    R, L = plan.seg_id.shape
+    for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"),
+                          (64, torch.float16, "refused:kernel-dtype")):
+        q, seg = _meta((R, L, 4, D), dt), _meta((R, L), I32)
+        rows.append(_run_one(
+            "flash_packed", f"ViT D {D} {str(dt)[6:]} q/k/v, rows={R} L={L}", expect,
+            contracts.flash_packed_facts(q, q, q, seg, plan.block_map),
+            lambda q=q, seg=seg: ops.flash_packed(q, q, q, seg, plan.block_map), (R, L, 4, D)))
     return rows
 
 
@@ -316,7 +354,8 @@ def _packed_rows() -> List[AuditRow]:
 
 def _slab_rows() -> List[AuditRow]:
     """rope_shift over the layouts' overlap slabs (any S reaches the
-    kernel), mv_sad, and ssd_scan: the reference's f32 row with N 32
+    kernel), mv_sad at radius 4, 16 and 32 and blocks 16, 8, 12 and 6 (and
+    a band past 227 KB, refused), and ssd_scan: the reference's f32 row with N 32
     (refused by 'bf16'), its bf16 twin (refused by 'state-width') and the
     serving row of mamba2-2.7b (N 128)."""
     rows = []
@@ -328,10 +367,14 @@ def _slab_rows() -> List[AuditRow]:
         rows.append(_run_one("rope_shift", f"w{lay.window}s{lay.stride} overlap={S}", "kernel",
                              contracts.rope_shift_facts(k, delta),
                              lambda k=k, d=delta: ops.rope_shift(k, d), (1, S, 4, 64)))
-    cur = _meta((256, 256), F32)
-    rows.append(_run_one("mv_sad", "256x256 b16 r4", "kernel",
-                         contracts.mv_sad_facts(cur, cur, block=16, radius=4),
-                         lambda: ops.mv_sad(cur, cur, 16, 4), (16, 16, 2)))
+    cur = _meta((240, 240), F32)
+    for block, radius, expect in ((16, 4, "kernel"), (16, 16, "kernel"), (16, 32, "kernel"),
+                                  (8, 16, "kernel"), (12, 32, "kernel"), (6, 1, "kernel"),
+                                  (240, 1, "refused:shared-memory")):
+        n = 240 // block
+        rows.append(_run_one("mv_sad", f"240x240 b{block} r{radius}", expect,
+                             contracts.mv_sad_facts(cur, cur, block=block, radius=radius),
+                             lambda b=block, r=radius: ops.mv_sad(cur, cur, b, r), (n, n, 2)))
     for label, dt, (H, P, G, N), expect in (
             ("B2 L100 H8 G2 N32 f32", F32, (8, 64, 2, 32), "refused:bf16"),
             ("B2 L100 H8 G2 N32 bf16", BF16, (8, 64, 2, 32), "refused:state-width"),
@@ -349,7 +392,7 @@ def _slab_rows() -> List[AuditRow]:
 def run_audit() -> Tuple[List[AuditRow], List[str]]:
     """(all rows, failure strings) of the dispatch coverage matrix."""
     rows = (_refresh_rows() + _paged_refresh_rows() + _quant_paged_rows() + _packed_rows()
-            + _prefill_rows() + _paged_prefill_rows() + _slab_rows())
+            + _prefill_rows() + _paged_prefill_rows() + _width_rows() + _slab_rows())
     return rows, [f"{r.op} [{r.geometry}]: {r.failure}" for r in rows if r.failure]
 
 
@@ -460,62 +503,85 @@ def config_rows(archs: Optional[Sequence[str]] = None, streams: int = 2) -> List
     """Each config's kernel calls at its serving geometry (codecflow, the
     launcher's codec: gop 4, window 16, stride 4, keep 0.5), decided by
     the registry on meta tensors."""
-    codec = CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
     archs = archs or [a + s for a in all_configs() for s in ("", "-smoke")]
     out: List[ConfigRow] = []
     for arch in archs:
         cfg = get_config(arch)
-        v = _serving_vit(cfg)
-        lay = WindowLayout(window=codec.window_frames, stride=codec.stride_frames,
-                           gop=codec.gop, g_tokens=v.n_groups,
-                           k_tokens=capacity_groups(v, codec.keep_ratio), query_len=16)
-        dt = BF16 if cfg.dtype == "bfloat16" else F32
+        out += _serving_calls(arch, cfg, _serving_vit(cfg), SERVING_CODEC, streams)
+    return out
 
-        def add(op, geometry, dec):
-            out.append(ConfigRow(arch, op, geometry, _decision_str(dec)))
 
-        cur = _meta((v.image, v.image), F32)
-        add("mv_sad", f"{v.image}^2 b{codec.block} r{codec.search_radius}",
-            contracts.decide("mv_sad", contracts.mv_sad_facts(
-                cur, cur, block=codec.block, radius=codec.search_radius)))
-        vd = v.d_model // v.n_heads
-        L = 128
-        q, seg = _meta((2, L, v.n_heads, vd), BF16), _meta((2, L), I32)
-        add("flash_packed", f"ViT H {v.n_heads} D {vd}", contracts.decide(
-            "flash_packed", contracts.flash_packed_facts(
-                q, q, q, seg, build_pack_map(np.zeros((2, L), np.int32)))))
-        mixers = {cfg.block_kind(p)[0] for p in range(cfg.period)}
-        if "attn" in mixers:
-            H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
-            slots = _slots(lay)
-            bm = refresh_block_map(lay, kv_len=slots)
-            q = _meta((streams, bm.n_q, H, D), dt)
-            q_pos = _meta((streams, bm.n_q), I32)
-            geo = f"H {H} / Hkv {Hkv}, D {D}, {str(dt)[6:]}"
-            add("flash_refresh", geo, contracts.decide("flash_refresh", contracts.flash_refresh_facts(
-                q, _meta((streams, slots, Hkv, D), dt), _meta((streams, slots, Hkv, D), dt),
-                q_pos, None, causal=True, window=None, block_map=bm)))
-            if "mamba" not in mixers:
-                k = _meta((streams * slots, Hkv, D), dt)
-                pt = _meta((streams, slots // PAGE), I32)
-                kvv = _meta((streams, slots), torch.bool)
-                add("flash_refresh_paged", geo, contracts.decide(
-                    "flash_refresh_paged", contracts.flash_refresh_paged_facts(
-                        q, k, k, q_pos, kvv, pt, page=PAGE, causal=True, window=None,
-                        block_map=bm)))
-                kr = _meta((streams, lay.overlap_tokens, Hkv, D), dt)
-                add("rope_shift", f"Hkv {Hkv}, D {D}, {str(dt)[6:]}", contracts.decide(
-                    "rope_shift", contracts.rope_shift_facts(
-                        kr, _meta((streams, lay.overlap_tokens), I32))))
-        if "mamba" in mixers:
-            s = cfg.ssm
-            Hs, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
-            x = _meta((streams, 40, Hs, P), dt)
-            bc = _meta((streams, 40, s.n_groups, N), dt)
-            add("ssd_scan", f"H {Hs}, P {P}, N {N}, chunk {s.chunk}, {str(dt)[6:]}",
-                contracts.decide("ssd_scan", contracts.ssd_scan_facts(
-                    x, _meta((streams, 40, Hs), F32), bc, bc, chunk=s.chunk,
-                    init_state=_meta((streams, Hs, P, N), F32))))
+SERVING_CODEC = CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
+
+
+def variant_rows(streams: int = 2) -> List[ConfigRow]:
+    """Two served models that are not registry configs: the JAX
+    quickstart's (LM 4 heads of 16 over 2 kv heads, ViT 4 heads of 16;
+    examples/quickstart.py) and deepseek-7b in f32 ingested at search
+    radius 16 (chip_smoke phase 7(e))."""
+    qs = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+                  d_ff=128, vocab=64, tied_embeddings=True)
+    qv = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
+    ds = dataclasses.replace(get_config("deepseek-7b"), dtype="float32")
+    return (_serving_calls("quickstart (JAX widths)", qs, qv,
+                           CodecCfg(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4),
+                           streams)
+            + _serving_calls("deepseek-7b f32, radius 16", ds, _serving_vit(ds),
+                             dataclasses.replace(SERVING_CODEC, search_radius=16), streams))
+
+
+def _serving_calls(arch: str, cfg, v: ViTCfg, codec: CodecCfg, streams: int) -> List[ConfigRow]:
+    lay = WindowLayout(window=codec.window_frames, stride=codec.stride_frames,
+                       gop=codec.gop, g_tokens=v.n_groups,
+                       k_tokens=capacity_groups(v, codec.keep_ratio), query_len=16)
+    dt = BF16 if cfg.dtype == "bfloat16" else F32
+    out: List[ConfigRow] = []
+
+    def add(op, geometry, dec):
+        out.append(ConfigRow(arch, op, geometry, _decision_str(dec)))
+
+    cur = _meta((v.image, v.image), F32)
+    add("mv_sad", f"{v.image}^2 b{codec.block} r{codec.search_radius}",
+        contracts.decide("mv_sad", contracts.mv_sad_facts(
+            cur, cur, block=codec.block, radius=codec.search_radius)))
+    vd = v.d_model // v.n_heads
+    L = 128
+    q, seg = _meta((2, L, v.n_heads, vd), BF16), _meta((2, L), I32)
+    add("flash_packed", f"ViT H {v.n_heads} D {vd}", contracts.decide(
+        "flash_packed", contracts.flash_packed_facts(
+            q, q, q, seg, build_pack_map(np.zeros((2, L), np.int32)))))
+    mixers = {cfg.block_kind(p)[0] for p in range(cfg.period)}
+    if "attn" in mixers:
+        H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
+        slots = _slots(lay)
+        bm = refresh_block_map(lay, kv_len=slots)
+        q = _meta((streams, bm.n_q, H, D), dt)
+        q_pos = _meta((streams, bm.n_q), I32)
+        geo = f"H {H} / Hkv {Hkv}, D {D}, q {str(dt)[6:]} over bf16 K/V"
+        add("flash_refresh", geo, contracts.decide("flash_refresh", contracts.flash_refresh_facts(
+            q, _meta((streams, slots, Hkv, D)), _meta((streams, slots, Hkv, D)),
+            q_pos, None, causal=True, window=None, block_map=bm)))
+        if "mamba" not in mixers:
+            k = _meta((streams * slots, Hkv, D))
+            pt = _meta((streams, slots // PAGE), I32)
+            kvv = _meta((streams, slots), torch.bool)
+            add("flash_refresh_paged", geo, contracts.decide(
+                "flash_refresh_paged", contracts.flash_refresh_paged_facts(
+                    q, k, k, q_pos, kvv, pt, page=PAGE, causal=True, window=None,
+                    block_map=bm)))
+            kr = _meta((streams, lay.overlap_tokens, Hkv, D))
+            add("rope_shift", f"Hkv {Hkv}, D {D}, bfloat16", contracts.decide(
+                "rope_shift", contracts.rope_shift_facts(
+                    kr, _meta((streams, lay.overlap_tokens), I32))))
+    if "mamba" in mixers:
+        s = cfg.ssm
+        Hs, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+        x = _meta((streams, 40, Hs, P), dt)
+        bc = _meta((streams, 40, s.n_groups, N), dt)
+        add("ssd_scan", f"H {Hs}, P {P}, N {N}, chunk {s.chunk}, {str(dt)[6:]}",
+            contracts.decide("ssd_scan", contracts.ssd_scan_facts(
+                x, _meta((streams, 40, Hs), F32), bc, bc, chunk=s.chunk,
+                init_state=_meta((streams, Hs, P, N), F32))))
     return out
 
 
@@ -645,25 +711,25 @@ def refusal_cases(device) -> dict:
     conv = rand(1, 16, 33, dtype=BF16)
     conv36 = rand(1, 16, 36, dtype=BF16)
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
+    # head dims the kernels have no build for: not a multiple of 8, over 128
+    q20, k20 = rand(1, 8, 4, 20, dtype=BF16), rand(1, 8, 2, 20, dtype=BF16, seed=1)
+    pq136 = rand(1, 128, 4, 136, dtype=BF16)
     return {
-        ("mv_sad", "block-4"): mv(36, 6, 1),
-        ("mv_sad", "candidates"): mv(32, 16, 16),
-        ("mv_sad", "shared-memory"): mv(64, 64, 15),
+        ("mv_sad", "shared-memory"): mv(240, 240, 1),
         ("rope_shift", "kernel-dtype"): rope(rand(1, 8, 2, 16, dtype=torch.float16)),
         ("rope_shift", "head-dim-8"): rope(rand(1, 8, 2, 12)),
         ("rope_shift", "aligned"): rope(misaligned((1, 8, 2, 16))),
-        ("flash_prefill", "bf16"): prefill(q8.float(), k8.float()),
-        ("flash_prefill", "kernel-head-dim"): prefill(q8[..., :16].contiguous(),
-                                                      k8[..., :16].contiguous()),
+        ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8.half()),
+        ("flash_prefill", "kernel-head-dim"): prefill(q20, k20),
         ("flash_prefill", "contiguous"): prefill(transposed(q8, 1, 2), k8),
         ("flash_prefill", "aligned"): prefill(misaligned((1, 8, 4, 32), BF16), k8),
         ("flash_prefill_paged", "page-tile"): prefill_paged(q8, slab, page=64),
         ("flash_prefill_paged", "cold-dtype"): prefill_paged(
             q8, slab[:128], cold=(slab[128:].float(), slab[128:].float(), ones, ones)),
         ("flash_prefill_paged", "scale-f32"): prefill_paged(q8, slab[:128], cold=i8 + f16),
-        ("flash_prefill_paged", "bf16"): prefill_paged(q8.float(), slab.float()),
+        ("flash_prefill_paged", "kernel-dtype"): prefill_paged(q8.float(), slab.float()),
         ("flash_prefill_paged", "kernel-head-dim"): prefill_paged(
-            q8[..., :16].contiguous(), slab[..., :16].contiguous()),
+            q8[..., :20].contiguous(), slab[..., :20].contiguous()),
         ("flash_prefill_paged", "contiguous"): prefill_paged(transposed(q8, 1, 2), slab),
         ("flash_prefill_paged", "aligned"): prefill_paged(misaligned((1, 8, 4, 32), BF16),
                                                           slab),
@@ -674,9 +740,10 @@ def refusal_cases(device) -> dict:
                                                                           causal=False)),
         ("flash_refresh", "map-window"): refresh(q4, k128, build_block_map(pos, 128, window=2)),
         ("flash_refresh", "map-tile"): refresh(q4, k128, build_block_map(pos, 128, tq=64)),
-        ("flash_refresh", "bf16"): refresh(q4.float(), k128.float(), build_block_map(pos, 128)),
+        ("flash_refresh", "kernel-dtype"): refresh(q4.float(), k128.float(),
+                                                   build_block_map(pos, 128)),
         ("flash_refresh", "kernel-head-dim"): refresh(
-            q4[..., :16].contiguous(), k128[..., :16].contiguous(), build_block_map(pos, 128)),
+            q4[..., :20].contiguous(), k128[..., :20].contiguous(), build_block_map(pos, 128)),
         ("flash_refresh", "aligned"): refresh(misaligned((1, 4, 4, 32), BF16), k128,
                                               build_block_map(pos, 128)),
         ("flash_refresh_paged", "map-present"): refresh_paged(q4, slab, [[1]], 128, None),
@@ -695,10 +762,10 @@ def refusal_cases(device) -> dict:
             q4, slab[:128], [[1]], 128, build_block_map(pos, 128), cold=i8 + f16),
         ("flash_refresh_paged", "map-tile"): refresh_paged(
             q4, slab, [[1]], 128, build_block_map(pos, 128, tq=64)),
-        ("flash_refresh_paged", "bf16"): refresh_paged(
+        ("flash_refresh_paged", "kernel-dtype"): refresh_paged(
             q4.float(), slab.float(), [[1]], 128, build_block_map(pos, 128)),
         ("flash_refresh_paged", "kernel-head-dim"): refresh_paged(
-            q4[..., :16].contiguous(), slab[..., :16].contiguous(), [[1]], 128,
+            q4[..., :20].contiguous(), slab[..., :20].contiguous(), [[1]], 128,
             build_block_map(pos, 128)),
         ("flash_refresh_paged", "aligned"): refresh_paged(
             misaligned((1, 4, 4, 32), BF16), slab, [[1]], 128, build_block_map(pos, 128)),
@@ -712,9 +779,8 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "map-tile"): packed(pq, seg, build_pack_map(seg_np, tq=64, tk=64)),
         ("flash_packed", "single-run"): packed(pq, torch.from_numpy(split).to(dev),
                                                build_pack_map(split)),
-        ("flash_packed", "bf16"): packed(pq.float(), seg, build_pack_map(seg_np)),
-        ("flash_packed", "kernel-head-dim"): packed(pq[..., :16].contiguous(), seg,
-                                                    build_pack_map(seg_np)),
+        ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np)),
+        ("flash_packed", "kernel-head-dim"): packed(pq136, seg, build_pack_map(seg_np)),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
         ("ssd_scan", "bf16"): ssd(x.float(), la, b, c, init),
@@ -809,7 +875,7 @@ def serving_cases(device, streams: int = 2) -> dict:
 def main(argv=None) -> int:
     rows, failures = run_audit()
     budgets, over = run_budgets()
-    cfg_rows = config_rows()
+    cfg_rows = config_rows() + variant_rows()
     refused = [f"{r.arch} {r.op} [{r.geometry}]: {r.verdict}" for r in cfg_rows
                if r.verdict != "kernel"]
     print("## Dispatch coverage\n")

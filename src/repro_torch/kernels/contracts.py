@@ -437,10 +437,18 @@ _POSITIONS = Rule("positions-match", "q_pos equals the block map's query positio
 _MAP_PRESENT = Rule("map-present", "a RefreshBlockMap was supplied",
                     lambda f: f["has_map"])
 # the port's kernels' own rules, shared by the attention ops
-_BF16 = Rule("bf16", "q/k/v must be bf16",
-             lambda f: f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "bfloat16")
-_HEAD_DIM = Rule("kernel-head-dim", "head dim must be 24, 32, 64 or 128 (the kernels' builds)",
-                 lambda f: f["q_shape"][3] in cuda.HEAD_DIMS)
+def _q_f32_or_bf16_over_bf16(f: Mapping[str, Any]) -> bool:
+    return f["q_dtype"] in ("bfloat16", "float32") and f["k_dtype"] == f["v_dtype"] == "bfloat16"
+
+
+_KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches and the "
+                "slab are bf16)", _q_f32_or_bf16_over_bf16)
+_ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, or f32 q/k/v",
+                lambda f: _q_f32_or_bf16_over_bf16(f)
+                or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
+_HEAD_DIM = Rule("kernel-head-dim", "head dim must be a multiple of 8, at most 128 (the "
+                 "kernels' builds: 24, 32, 64 and 128)",
+                 lambda f: 0 < f["q_shape"][3] <= cuda.MAX_HEAD_DIM and f["q_shape"][3] % 8 == 0)
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
 _ALIGNED = Rule("aligned", "operands read in place must be 16-byte aligned",
@@ -467,12 +475,8 @@ MV_SAD = KernelContract(
         Rule("radius", "search radius >= 1", lambda f: f["radius"] >= 1),
     ),
     eligibility=(
-        Rule("block-4", "the block edge must be a multiple of 4 (float4 rows)",
-             lambda f: f["block"] % 4 == 0),
-        Rule("candidates", "at most 1024 candidates: one thread per motion vector",
-             lambda f: f["threads"] <= 1024),
-        Rule("shared-memory", "the macroblock and its search band must fit 48 KB of "
-             "shared memory", lambda f: f["shared_bytes"] <= _mv_sad.SMEM_LIMIT),
+        Rule("shared-memory", "the macroblock and its search band must fit the 227 KB of "
+             "shared memory a block can have", lambda f: f["shared_bytes"] <= _mv_sad.SMEM_LIMIT),
     ),
     compile_key="none: one build of every kernel; (H, W, block, radius) are launch arguments",
 )
@@ -524,7 +528,7 @@ FLASH_PREFILL = KernelContract(
         Rule("dtype", "q/k/v are f32/bf16/f16 with k == v", _attn_dtype_ok),
         Rule("window", "sliding window is None or >= 1", _window_ok),
     ),
-    eligibility=(_BF16, _HEAD_DIM, _CONTIGUOUS, _ALIGNED),
+    eligibility=(_ANY_F32, _HEAD_DIM, _CONTIGUOUS, _ALIGNED),
     tile=(TILE, TILE),
     compile_key="none: each block derives its key tiles from the causal/window band",
 )
@@ -570,7 +574,7 @@ FLASH_REFRESH = KernelContract(
              lambda f: f["map_causal"] == f["causal"]),
         Rule("map-window", "map and call agree on the sliding window",
              lambda f: f["map_window"] == f["window"]),
-        _MAP_TILE, _BF16, _HEAD_DIM, _ALIGNED,
+        _MAP_TILE, _KV_BF16, _HEAD_DIM, _ALIGNED,
     ),
     tile=(TILE, TILE),
     visit_list=("the map's q_pos (n_q_tiles * tq,), tile_ids (n_q_tiles, t_max) and "
@@ -629,7 +633,7 @@ FLASH_REFRESH_PAGED = KernelContract(
              lambda f: f["map_causal"] == f["causal"]),
         Rule("map-window", "map and call agree on the sliding window",
              lambda f: f["map_window"] == f["window"]),
-    ) + _COLD_ELIGIBILITY + (_MAP_TILE, _BF16, _HEAD_DIM, _ALIGNED),
+    ) + _COLD_ELIGIBILITY + (_MAP_TILE, _KV_BF16, _HEAD_DIM, _ALIGNED),
     tile=(TILE, TILE),
     visit_list=("the map's q_pos, tile_ids and tile_count (logical tiles) as for "
                 "flash_refresh, plus page_table (B, n_pages) int32 per call (and the "
@@ -670,7 +674,7 @@ FLASH_PREFILL_PAGED = KernelContract(
     eligibility=(
         Rule("page-tile", "page size equals the key tile Tk=128",
              lambda f: f["page"] == TILE),
-    ) + _COLD_ELIGIBILITY + (_BF16, _HEAD_DIM, _CONTIGUOUS, _ALIGNED),
+    ) + _COLD_ELIGIBILITY + (_KV_BF16, _HEAD_DIM, _CONTIGUOUS, _ALIGNED),
     tile=(TILE, TILE),
     visit_list="page_table (B, n_pages) int32 per call; each block walks its band of pages",
     compile_key="none: no host map; (B, Sq, n_pages, window, q_offset) are launch arguments",
@@ -713,7 +717,7 @@ FLASH_PACKED = KernelContract(
              lambda f: f["tq"] == TILE and f["tk"] == TILE),
         Rule("single-run", "the kernel masks by key range: every segment must be one "
              "contiguous run of its row", lambda f: f["map_single_run"]),
-        _BF16, _HEAD_DIM, _ALIGNED,
+        _ANY_F32, _HEAD_DIM, _ALIGNED,
     ),
     tile=(TILE, TILE),
     visit_list=("the map's span (R, L), tile_ids (R, L/tq, t_max) and tile_count "
@@ -787,46 +791,53 @@ CONTRACTS: Dict[str, KernelContract] = {
               FLASH_REFRESH_PAGED, FLASH_PACKED, SSD_SCAN)
 }
 
+_DTYPE = "kernel-dtype"
+_WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (bf16, f32 "
+            "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
+_WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
+                "bf16 halves written per call over the whole cache")
+_WHY_HEAD_DIM = ("builds of width 24, 32, 64 and 128 take every head dim that is a multiple of "
+                 "8 up to 128 (16-byte rows); wider heads and other widths have none")
+
 # How the port's eligibility rules differ from the reference's:
 # (op, code, "+" added by the port | "-" the reference's, dropped, why).
 # ``ssd_scan_bwd`` has no contract of its own: its verdict is SSD_SCAN's
 # rules on the forward's operands, and its two lines say what the port
 # adds there.
 DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
-    ("mv_sad", "block-4", "+", "the kernel loads macroblock rows as float4"),
-    ("mv_sad", "candidates", "+", "one thread per candidate, at most 1024 a block"),
-    ("mv_sad", "shared-memory", "+", "macroblock and band are staged in 48 KB of shared memory"),
+    ("mv_sad", "shared-memory", "+", "the macroblock and its band are staged in shared memory, "
+     "227 KB a block at most: a band past it (a radius of about 100 at block 16) is refused"),
     ("rope_shift", "seq-tile", "-", "one thread per token: any S runs, no sequence tile"),
     ("rope_shift", "kernel-dtype", "+", "built for f32 and bf16 keys, not f16"),
     ("rope_shift", "head-dim-8", "+", "16-byte (8-byte at D 24) chunks of four rotation pairs"),
     ("rope_shift", "aligned", "+", "16-byte loads of k, read in place when contiguous"),
     ("flash_prefill", "q-tile", "-", "the kernel masks ragged query tiles"),
     ("flash_prefill", "k-tile", "-", "the kernel masks ragged key tiles"),
-    ("flash_prefill", "bf16", "+", "bf16 tensor-core products only"),
-    ("flash_prefill", "kernel-head-dim", "+", "built for head dims 24, 32, 64 and 128"),
+    ("flash_prefill", _DTYPE, "+", _WHY_F16),
+    ("flash_prefill", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_prefill", "contiguous", "+", "q/k/v are read in place with packed rows"),
     ("flash_prefill", "aligned", "+", "16-byte cp.async copies of q/k/v"),
     ("flash_prefill_paged", "q-tile", "-", "the kernel masks ragged query tiles"),
-    ("flash_prefill_paged", "bf16", "+", "bf16 tensor-core products only (the cold group int8)"),
-    ("flash_prefill_paged", "kernel-head-dim", "+", "built for head dims 24, 32, 64 and 128"),
+    ("flash_prefill_paged", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
+    ("flash_prefill_paged", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_prefill_paged", "contiguous", "+", "q/k/v and the cold group are read in place"),
     ("flash_prefill_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_refresh", "positions", "-", "a precondition here ('positions-match'): the kernel "
      "masks by the map's positions, and a card refusal is no fallback"),
     ("flash_refresh", "map-tile", "+", "the kernel's tiles are 128 x 128"),
-    ("flash_refresh", "bf16", "+", "bf16 tensor-core products only"),
-    ("flash_refresh", "kernel-head-dim", "+", "built for head dims 24, 32, 64 and 128"),
+    ("flash_refresh", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
+    ("flash_refresh", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_refresh", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("flash_refresh_paged", "positions", "-", "a precondition here ('positions-match')"),
     ("flash_refresh_paged", "map-tile", "+", "the kernel's tiles and pages are 128"),
-    ("flash_refresh_paged", "bf16", "+", "bf16 tensor-core products only (the cold group int8)"),
-    ("flash_refresh_paged", "kernel-head-dim", "+", "built for head dims 24, 32, 64 and 128"),
+    ("flash_refresh_paged", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
+    ("flash_refresh_paged", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_refresh_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_packed", "map-tile", "+", "the kernel's tiles are 128 x 128"),
     ("flash_packed", "single-run", "+", "the mask is one key range per slot, exact only "
      "when every segment is one run of its row (pack_plan's layouts)"),
-    ("flash_packed", "bf16", "+", "bf16 tensor-core products only"),
-    ("flash_packed", "kernel-head-dim", "+", "built for head dims 24, 32, 64 and 128"),
+    ("flash_packed", _DTYPE, "+", _WHY_F16),
+    ("flash_packed", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("ssd_scan", "bf16", "+", "x, b, c enter the tensor-core products as bf16"),
     ("ssd_scan", "log-a-f32", "+", "the decays are summed in f32 from an f32 log_a"),
@@ -888,7 +899,7 @@ def verdict(name: str, key: tuple, make_facts: Callable[[], dict],
 
 
 def clear_verdicts() -> None:
-    """Forget the memoized verdicts (tests; a change of ``cuda.HEAD_DIMS``)."""
+    """Forget the memoized verdicts (tests; a change of ``cuda.MAX_HEAD_DIM``)."""
     _VERDICTS.clear()
 
 

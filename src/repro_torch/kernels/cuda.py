@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "ssd_scan.cu")
+SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "attention_any.cu",
+           "attention_q32.cu", "attention_f32.cu", "ssd_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +66,12 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _i,
         _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
     ),
+    "cs_attn_packed_f32": (
+        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p, _p,
+    ),
+    "cs_attn_prefill_f32": (
+        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p, _p,
+    ),
     "cs_ssd_scan": (
         _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
         _ll, _ll, _ll, _ll, _ll, _ll, _p,
@@ -76,8 +83,21 @@ _SIGNATURES = {
     "cs_ssd_scan_bwd_occupancy": (_i, _i, _p),
 }
 
-# head dims of the attention kernels (csrc/attention.cu's launch switch)
+# the attention kernels' entry points over bf16 K/V (csrc/attention.cuh
+# CS_ATTN_EXPORTS): each has an exact bf16 build (attention.cu), a ragged
+# bf16 one (``_any``: attention_any.cu) and an f32-query one (``_q32``:
+# attention_q32.cu), all with one signature
+ATTN_ENTRIES = ("cs_attn_refresh_bf16", "cs_attn_refresh_paged_bf16",
+                "cs_attn_refresh_paged_int8", "cs_attn_packed_bf16", "cs_attn_prefill_bf16",
+                "cs_attn_prefill_paged_bf16", "cs_attn_prefill_paged_int8")
+for _name in ATTN_ENTRIES:
+    for _suffix in ("_any", "_q32"):
+        _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
+
+# head dims of the attention kernels' exact builds (attention.cu); every
+# other multiple of 8 up to MAX_HEAD_DIM runs on a ragged build
 HEAD_DIMS = (24, 32, 64, 128)
+MAX_HEAD_DIM = 128
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOG: Dict[str, str] = {}
@@ -170,6 +190,15 @@ def stream_handle(t: torch.Tensor) -> int:
     """The current stream of t's card as a raw handle (no Stream object
     is made: every launch of every layer calls this)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def attention_entry(name: str, q: torch.Tensor, d: int):
+    """The library function of attention entry point ``name`` (one of
+    ``ATTN_ENTRIES``) for q's type and head dim ``d``: the exact bf16
+    build, the ragged one, or the f32-query one."""
+    if q.dtype == torch.float32:
+        return getattr(library(), name + "_q32")
+    return getattr(library(), name if d in HEAD_DIMS else name + "_any")
 
 
 def check(rc: int, name: str) -> None:

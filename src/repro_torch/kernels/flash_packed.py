@@ -23,7 +23,11 @@ Bound on an H100: tensor-core operations on the visited block-diagonal
 tiles (at D = 64 each tile pair does 4*128*128*64 flops on 32 KB of
 K/V).  The design visits only tiles that share a live segment and runs
 both products on the tensor cores around an f32 online softmax, with S,
-P and O in registers.
+P and O in registers.  Operands: bf16 q/k/v, an f32 q over bf16 K/V, or
+f32 q/k/v (a ViT from an f32 checkpoint: ``cs_attn_packed_f32`` splits
+K and V into bf16 halves in a scratch buffer the wrapper allocates, and
+runs three products a tile), at any head dim that is a multiple of 8 up
+to 128; the output takes q's type.
 
 ``PackBlockMap``'s ``tile_ids`` / ``tile_count`` from ``build_pack_map``
 and ``dense_pack_map`` are host numpy, equal array for array to the JAX
@@ -217,11 +221,15 @@ def flash_packed_launch(q, k, v, block_map: PackBlockMap):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require_aligned(NAME, q, k, v)
     out = torch.empty_like(q)
-    rc = cuda.library().cs_attn_packed_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dm.span.data_ptr(), dm.tile_ids.data_ptr(), dm.tile_count.data_ptr(),
-        R, L, H, Hkv, D, bm.t_max, float(D ** -0.5), cuda.stream_handle(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dm.span.data_ptr(), dm.tile_ids.data_ptr(), dm.tile_count.data_ptr(),
+            R, L, H, Hkv, D, bm.t_max, float(D ** -0.5))
+    if k.dtype == torch.float32:     # K's and V's bf16 halves, written by the kernel
+        scratch = torch.empty(4 * k.numel(), dtype=torch.bfloat16, device=q.device)
+        rc = cuda.library().cs_attn_packed_f32(*args, scratch.data_ptr(),
+                                               cuda.stream_handle(q))
+    else:
+        rc = cuda.attention_entry("cs_attn_packed_bf16", q, D)(*args, cuda.stream_handle(q))
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
     return out

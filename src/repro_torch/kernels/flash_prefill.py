@@ -31,7 +31,11 @@ after ``ref.paged_gather`` where the KV is paged) keep f32 throughout, as
 the Pallas body does, and so do the kernels: the scale multiplies the
 f32 scores, and P V is accumulated from P split into two bf16 halves
 (about 16 bits of P).  Only the output's rounding to bf16 differs: one
-bf16 step of the row's largest value.
+bf16 step of the row's largest value.  Operands: bf16 q/k/v; an f32 q
+over bf16 K/V (split into two bf16 halves as P is; f32 output); and, for
+the dense kernel, f32 q/k/v (``cs_attn_prefill_f32``: K and V split into
+bf16 halves in a scratch buffer the wrapper allocates), at any head dim
+that is a multiple of 8 up to 128.
 """
 from __future__ import annotations
 
@@ -82,11 +86,15 @@ def flash_prefill_launch(q, k, v, *, causal: bool, window: int | None, q_offset:
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    rc = cuda.library().cs_attn_prefill_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, D,
-        int(q_offset), int(causal), -1 if window is None else int(window),
-        float(D ** -0.5), cuda.stream_handle(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, D,
+            int(q_offset), int(causal), -1 if window is None else int(window),
+            float(D ** -0.5))
+    if k.dtype == torch.float32:     # K's and V's bf16 halves, written by the kernel
+        scratch = torch.empty(4 * k.numel(), dtype=torch.bfloat16, device=q.device)
+        rc = cuda.library().cs_attn_prefill_f32(*args, scratch.data_ptr(),
+                                                cuda.stream_handle(q))
+    else:
+        rc = cuda.attention_entry("cs_attn_prefill_bf16", q, D)(*args, cuda.stream_handle(q))
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
     return out
@@ -120,10 +128,10 @@ def flash_prefill_paged_launch(q, k, v, page_table, *, page: int, window: int | 
              -1 if window is None else int(window), float(D ** -0.5),
              cuda.stream_handle(q))
     if cold is None:
-        rc = cuda.library().cs_attn_prefill_paged_bf16(*common, *shape)
+        rc = cuda.attention_entry("cs_attn_prefill_paged_bf16", q, D)(*common, *shape)
     else:
         k8, v8, k_scale, v_scale = cold
-        rc = cuda.library().cs_attn_prefill_paged_int8(
+        rc = cuda.attention_entry("cs_attn_prefill_paged_int8", q, D)(
             *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), P_phys // page, *shape)
     cuda.check(rc, name)

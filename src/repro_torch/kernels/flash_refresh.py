@@ -35,8 +35,11 @@ registers around an f32 online softmax with the masked multiply.  Query
 rows past Sq are neither read nor written, so the query is not padded.
 
 Operands the kernels take (``contracts.FLASH_REFRESH`` and
-``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16
-q/k/v with head dim 24, 32, 64 or 128; 128-row map tiles and pages; q, k,
+``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16 or
+f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, any
+head dim that is a multiple of 8 up to 128 (``cuda.attention_entry``
+picks the build: exact at 24, 32, 64 and 128, ragged otherwise, f32-query
+builds for f32 q); 128-row map tiles and pages; q, k,
 v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
 is copied once where it is not).
 
@@ -258,7 +261,7 @@ def flash_refresh_launch(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
     cuda.require_aligned(NAME_STREAM, q, k, v)
     kvv = _valid_bytes(kv_valid)
     out = torch.empty_like(q)
-    rc = cuda.library().cs_attn_refresh_bf16(
+    rc = cuda.attention_entry("cs_attn_refresh_bf16", q, D)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dm.q_pos.data_ptr(), kvv.data_ptr(), dm.tile_ids.data_ptr(),
         dm.tile_count.data_ptr(), B, Sq, H, Hkv, D, Sk // TILE,
@@ -312,11 +315,11 @@ def flash_refresh_paged_launch(q, k, v, kv_valid, page_table, block_map: Refresh
              -1 if window is None else int(window), float(D ** -0.5),
              cuda.stream_handle(q))
     if cold is None:
-        rc = cuda.library().cs_attn_refresh_paged_bf16(*common, *shape)
+        rc = cuda.attention_entry("cs_attn_refresh_paged_bf16", q, D)(*common, *shape)
     else:
         k8, v8, k_scale, v_scale = (t.contiguous() for t in cold)
         cuda.require_aligned(name, k8, v8)
-        rc = cuda.library().cs_attn_refresh_paged_int8(
+        rc = cuda.attention_entry("cs_attn_refresh_paged_int8", q, D)(
             *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), P_phys // page, *shape)
     cuda.check(rc, name)

@@ -620,16 +620,17 @@ def test_flash_prefill_paged_int8_all_hot_is_bitwise_bf16(dev):
 
 
 def test_prefill_operands_the_kernel_does_not_take_raise(dev):
-    q = torch.zeros(1, 128, 4, 48, device=dev, dtype=torch.bfloat16)
-    kv = torch.zeros(1, 128, 2, 48, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(KernelError, match="head dim"):
-        ops.flash_prefill(q, kv, kv)
-    q32 = torch.zeros(1, 128, 4, 32, device=dev)
-    kv32 = torch.zeros(1, 128, 2, 32, device=dev)
-    with pytest.raises(KernelError, match="bf16"):
-        ops.flash_prefill(q32, kv32, kv32)
+    for d in (20, 136):        # not a multiple of 8; over 128
+        q = torch.zeros(1, 128, 4, d, device=dev, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 128, 2, d, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(KernelError, match="head dim"):
+            ops.flash_prefill(q, kv, kv)
+    q16 = torch.zeros(1, 128, 4, 32, device=dev, dtype=torch.float16)
+    kv16 = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.float16)
+    with pytest.raises(KernelError, match="kernel-dtype"):
+        ops.flash_prefill(q16, kv16, kv16)
     qt = torch.zeros(1, 4, 128, 32, device=dev, dtype=torch.bfloat16).transpose(1, 2)
-    kvb = kv32.bfloat16()
+    kvb = kv16.bfloat16()
     with pytest.raises(KernelError, match="contiguous"):
         ops.flash_prefill(qt, kvb, kvb)
 
@@ -1177,3 +1178,210 @@ def test_dense_mha_takes_bf16_products_on_card(dev, shape):
                       torch.autograd.grad((o.float() * up.to(d)).sum(), ts)])
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 2.0 ** -5 * a.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# operands: every head dim up to 128, f32 queries, f32 q/k/v, mv_sad at
+# any radius and block edge
+# ----------------------------------------------------------------------
+# Limits: bf16 operands at the bf16 kernels'; f32 queries over bf16 K/V
+# at the refresh and packed kernels' (the oracle rounds q x scale to bf16
+# and P to V's type, so only the output's rounding is gone); but at head
+# dim 8 the refresh and packed kernels within 2^-5 of the plain version:
+# each of the two rounds P to bf16 (the kernel before normalising, the
+# plain version after), and at d 8 their gap read 0.0170 against 2^-6 =
+# 0.0156.  test_narrow_head_dim_gap_is_two_bf16_roundings holds each of
+# them within 2^-6 of the same function with P and O unrounded, so the
+# gap is the two roundings and not the ragged build.  Within 2^-10 of the
+# row's largest value: f32 q/k/v (every operand as two bf16 halves, about
+# 16 bits, and the output not rounded) and f32 queries in the prefill
+# kernels (q kept as two halves over bf16 K/V, read 1.5e-5 to 1.6e-5 at
+# internvl3-14b's widths in chip_smoke)
+F32_ROW_TOL = 2.0 ** -10
+NARROW_ROW_TOL = 2.0 ** -5
+ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
+            "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
+
+
+def _attention_case(op, d, q_dt, kv_dt, seed=31, exact=False):
+    """(kernel(), plain(), launch name, row limit) of ``op`` at head dim
+    ``d`` (H 8 over Hkv 2), q in ``q_dt`` and K/V in ``kv_dt``: the
+    refresh ops at a selective-refresh-like scatter over 384 keys, the
+    prefill ops causal over a ragged 300 (paged: 3 pages, the int8 ones
+    with one cold page per stream), packed over the 'multi' layout.
+    ``exact`` (refresh and packed ops): plain() is the same function
+    with P and the output unrounded, in f32 (q x scale rounded to K's
+    type and cold pages dequantised to it, as the function defines
+    them)."""
+    rng = np.random.default_rng(seed)
+    H, Hkv = 8, 2
+
+    def rnd(*shape, dt):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dt)
+
+    def qs(q, k):        # q x scale as the refresh and packed oracles round it
+        return (q.float() * d ** -0.5).to(k.dtype).float()
+
+    f32_kv = kv_dt == torch.float32
+    prefill = op.startswith("flash_prefill")
+    tol = F32_ROW_TOL if f32_kv or (prefill and q_dt == torch.float32) else (
+        PREFILL_ROW_TOL if prefill else NARROW_ROW_TOL if d < 16 else ROW_TOL)
+    if op == "flash_packed":
+        q, k, v, seg = _packed_inputs("multi", H, Hkv, d, seed=seed)
+        q, k, v = q.to(q_dt), k.to(kv_dt), v.to(kv_dt)
+        bm = build_pack_map(seg.numpy())
+        plain = ((lambda: ref.flash_packed_ref(qs(q, k), k.float(), v.float(), seg, scale=1.0))
+                 if exact else (lambda: flash_packed_plain(q, k, v, seg)))
+        return ((lambda: flash_packed_cuda(q.to(dev_()), k.to(dev_()), v.to(dev_()), bm)),
+                plain, op, tol)
+    if op == "flash_prefill":
+        q, k, v = rnd(2, 300, H, d, dt=q_dt), rnd(2, 300, Hkv, d, dt=kv_dt), rnd(
+            2, 300, Hkv, d, dt=kv_dt)
+        return ((lambda: flash_prefill_cuda(q.to(dev_()), k.to(dev_()), v.to(dev_()),
+                                            window=200, q_offset=20)),
+                (lambda: flash_prefill_plain(q, k, v, window=200, q_offset=20)), op, tol)
+    int8 = op.endswith("int8")
+    hk, hv, cold = _quant_slab(rng, 7, 2, Hkv, d)
+    pt = torch.from_numpy(rng.permutation(7)[:6].reshape(2, 3).astype(np.int32))
+    if int8:
+        pt[0, 0], pt[1, 2] = 7, 8
+    else:
+        cold = None
+    cold_d = None if cold is None else tuple(c.to(dev_()) for c in cold)
+    if op.startswith("flash_prefill_paged"):
+        q = rnd(2, 300, H, d, dt=q_dt)
+        return ((lambda: flash_prefill_paged_cuda(q.to(dev_()), hk.to(dev_()), hv.to(dev_()),
+                                                  pt.to(dev_()), q_offset=60, cold=cold_d)),
+                (lambda: flash_prefill_paged_plain(q, hk, hv, pt, q_offset=60, cold=cold)),
+                op, tol)
+    q_pos = np.concatenate([np.arange(0, 30), np.arange(200, 370)]).astype(np.int32)
+    qp = torch.from_numpy(np.broadcast_to(q_pos[None], (2, len(q_pos))).copy())
+    kvv = torch.from_numpy(rng.random((2, 384)) > 0.3)
+    q = rnd(2, len(q_pos), H, d, dt=q_dt)
+    bm = build_block_map(q_pos, 384)
+    if op == "flash_refresh":
+        k = hk[:768].reshape(2, 384, Hkv, d)
+        v = hv[:768].reshape(2, 384, Hkv, d)
+        plain = ((lambda: ref.flash_refresh_ref(qs(q, k), k.float(), v.float(), qp, kvv,
+                                                scale=1.0))
+                 if exact else (lambda: flash_refresh_plain(q, k, v, qp, kvv)))
+        return ((lambda: flash_refresh_cuda(q.to(dev_()), k.to(dev_()), v.to(dev_()),
+                                            kvv.to(dev_()), bm)), plain, op, tol)
+    if exact:
+        def plain():
+            kg, vg = ref.paged_gather(hk, hv, pt, 128, cold)
+            return ref.flash_refresh_ref(qs(q, hk), kg.float(), vg.float(), qp, kvv, scale=1.0)
+    else:
+        def plain():
+            return flash_refresh_paged_plain(q, hk, hv, qp, kvv, pt, cold=cold)
+    return ((lambda: flash_refresh_paged_cuda(q.to(dev_()), hk.to(dev_()), hv.to(dev_()),
+                                              kvv.to(dev_()), pt.to(dev_()), bm, cold=cold_d)),
+            plain, op, tol)
+
+
+def dev_():
+    return torch.device("cuda")
+
+
+def _held(kernel, plain, name, tol, q_dt):
+    before = ops.launch_counts().get(name, 0)
+    out_k = kernel()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    out_k = out_k.cpu()
+    out_p = plain()
+    assert out_k.dtype == out_p.dtype == q_dt
+    assert torch.isfinite(out_k).all()
+    assert _row_rel_err(out_k, out_p) <= tol
+    dead = (out_p == 0).all(-1)                 # rows no key reaches: refresh, packed
+    if not name.startswith("flash_prefill"):
+        assert bool((out_k[dead] == 0).all())
+
+
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [16, 40, 72, 80, 96, 112, 8, 120])
+def test_attention_kernels_at_every_head_dim(dev, op, d):
+    """Head dims no exact build has, each on the smallest ragged build
+    that holds it (24, 64 or 128)."""
+    _held(*_attention_case(op, d, torch.bfloat16, torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [128, 64, 32, 24, 80, 16])
+def test_attention_kernels_take_f32_queries_over_bf16_kv(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.bfloat16), torch.float32)
+
+
+@pytest.mark.parametrize("op", ["flash_packed", "flash_prefill"])
+@pytest.mark.parametrize("d", [128, 64, 32, 24, 72, 16])
+def test_packed_and_prefill_take_f32_qkv(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
+
+
+@pytest.mark.parametrize("op", ["flash_refresh", "flash_refresh_paged",
+                                "flash_refresh_paged_int8", "flash_packed"])
+@pytest.mark.parametrize("d", [8, 16, 40])
+def test_narrow_head_dim_gap_is_two_bf16_roundings(dev, op, d):
+    """Backs NARROW_ROW_TOL.  On the inputs of
+    test_attention_kernels_at_every_head_dim, the kernel and the plain
+    version, each against the same function with P and the output left
+    unrounded: each within 2^-6 of it, the kernel on its ragged build
+    (24 for d 8 and 16, 64 for d 40), so the 2^-5 gap at d 8 is two
+    roundings of P and not a fault of the narrow head dim."""
+    kernel, plain, name, tol = _attention_case(op, d, torch.bfloat16, torch.bfloat16)
+    _, exact, _, _ = _attention_case(op, d, torch.bfloat16, torch.bfloat16, exact=True)
+    out_k, out_p, out_x = kernel().cpu(), plain(), exact()
+    gap, err_k, err_p = (_row_rel_err(a, b) for a, b in
+                         ((out_k, out_p), (out_k, out_x), (out_p, out_x)))
+    print(f"{op} d {d}: kernel vs plain {gap:.4g} (limit {tol:.4g}), kernel vs unrounded "
+          f"{err_k:.4g}, plain vs unrounded {err_p:.4g} (limit {ROW_TOL:.4g})")
+    assert gap <= tol
+    assert err_k <= ROW_TOL and err_p <= ROW_TOL
+
+
+def test_f32_query_refresh_rounds_as_the_bf16_kernel(dev):
+    """Over bf16 K/V the refresh oracle rounds q x scale to bf16: an f32
+    query that holds bf16 values gives the bf16 kernel's products, so
+    its f32 output rounds to the bf16 kernel's output."""
+    rng = np.random.default_rng(32)
+    hk, hv, _ = _quant_slab(rng, 6, 1, 2, 80)
+    pt = torch.tensor([[4, 1, 0], [3, 5, 2]], dtype=torch.int32, device=dev)
+    kvv = torch.from_numpy(rng.random((2, 384)) > 0.3).to(dev)
+    q_pos = np.arange(50, 370, dtype=np.int32)
+    q = _bf16(rng, 2, len(q_pos), 8, 80).to(dev)
+    bm = build_block_map(q_pos, 384)
+    out16 = flash_refresh_paged_cuda(q, hk.to(dev), hv.to(dev), kvv, pt, bm)
+    out32 = flash_refresh_paged_cuda(q.float(), hk.to(dev), hv.to(dev), kvv, pt, bm)
+    assert out32.dtype == torch.float32
+    assert torch.equal(out32.bfloat16(), out16)
+
+
+def _tie_frames(h, w, seed):
+    """Integer-valued frames, constant over blocks of 8x8 in places (so
+    many candidates tie exactly: every SAD is exact in any order), and a
+    shifted copy (motion past radius 4)."""
+    rng = np.random.default_rng(seed)
+    prev = rng.integers(0, 256, (h, w)).astype(np.float32)
+    flat = np.repeat(np.repeat(rng.integers(0, 256, (-(-h // 8), -(-w // 8))), 8, 0),
+                     8, 1)[:h, :w]
+    mask = np.repeat(np.repeat(rng.random((-(-h // 32), -(-w // 32))) < 0.5, 32, 0),
+                     32, 1)[:h, :w]
+    prev = np.where(mask, flat, prev).astype(np.float32)
+    cur = np.roll(prev, (11, -9), axis=(0, 1))
+    return torch.from_numpy(cur.copy()), torch.from_numpy(prev)
+
+
+@pytest.mark.parametrize("hw,block,radius", [(448, 16, 16), (448, 16, 32), (448, 8, 16),
+                                             (240, 12, 32), (240, 6, 5), (112, 16, 50)])
+def test_mv_sad_any_radius_and_block_is_bitwise_the_plain_version(dev, hw, block, radius):
+    """Several candidates a thread (radius 16 and up), blocks of 8, 12
+    (float4 rows) and 6 (scalar rows), a band past 48 KB (radius 50):
+    MVs and SADs bitwise the plain version's first minimum."""
+    cur, prev = _tie_frames(hw, hw, seed=radius + block)
+    before = ops.launch_counts().get("mv_sad", 0)
+    mv_k, sad_k = mv_sad_cuda(cur.to(dev), prev.to(dev), block, radius)
+    assert ops.launch_counts()["mv_sad"] == before + 1
+    mv_p, sad_p = ref.mv_sad_ref(cur, prev, block, radius)
+    assert torch.equal(sad_k.cpu(), sad_p)
+    assert torch.equal(mv_k.cpu(), mv_p)
+    assert radius < 16 or (mv_p.abs() > 4).any()

@@ -112,14 +112,15 @@ def test_mv_sad_plain_keeps_first_minimum():
 @pytest.mark.parametrize("block", [8, 16])
 @pytest.mark.parametrize("radius", [2, 3, 4, 5, 6, 7])
 def test_mv_sad_launch_geometry(block, radius):
-    """One thread per candidate in whole warps, within 1024 threads and
-    the 48 KB of shared memory a block gets without opting in; the band's
-    row stride is padded to n_cand (mod 32), so the 32 consecutive
-    candidates of a warp read 32 distinct banks."""
+    """Up to radius 7: one thread per candidate in whole warps, within
+    1024 threads and the 48 KB of shared memory a block gets without
+    opting in (larger radii: test_torch_operands.py); the band's row
+    stride is padded to n_cand (mod 32), so the 32 consecutive candidates
+    of a warp read 32 distinct banks."""
     threads, ldr, smem = mv_sad_launch_geometry(block, radius)
     n_cand, band = 2 * radius + 1, block + 2 * radius
     assert n_cand ** 2 <= threads < n_cand ** 2 + 32 and threads % 32 == 0 and threads <= 1024
-    assert smem <= MV_SAD_SMEM_LIMIT
+    assert smem <= 48 * 1024 <= MV_SAD_SMEM_LIMIT
     assert band <= ldr < band + 32 and ldr % 32 == n_cand % 32
     banks = {(dy * ldr + dx) % 32 for dy in range(n_cand) for dx in range(n_cand)
              if dy * n_cand + dx < 32}

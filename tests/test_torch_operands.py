@@ -1,0 +1,224 @@
+"""The operands the attention kernels and mv_sad take, against the JAX
+package.
+
+* The contract verdict on meta tensors: ``ok`` for every attention op at
+  every head dim d = 8, 16, ..., 128 with bf16 operands, with f32
+  queries over bf16 K/V and, in flash_packed and flash_prefill, with f32
+  q/k/v; the named refusal for d 20 (not a multiple of 8), d 136 (over
+  128) and f16 operands; ``ok`` for mv_sad at radius 16 and 32 and at
+  blocks 8 and 12.
+* The JAX quickstart's model at its own widths (LM 4 heads of 16 over 2
+  kv heads, ViT 4 heads of 16) and a 2-layer f32 LM, each served by the
+  port's ``Engine`` on the CPU from the JAX package's weights, against
+  the JAX package's ``Engine`` on the same stream: no call the card
+  would refuse (``kernel_fallbacks`` 0, every verdict ``ok``); yes/no
+  logits within the serving tests' LOGIT_TOL (8e-3,
+  ``test_torch_serving.py``), answers equal where the JAX margin
+  exceeds twice it.
+* ``encode_stream`` at search radius 16: motion vectors equal to the
+  JAX package's and the f32 residual means within 4e-7 of the largest
+  (sums of 256 terms in another order: read 2.5e-7 at this size, 1e-6
+  elementwise at the smallest means).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.codec import encode_stream as j_encode_stream  # noqa: E402
+from repro.configs.base import CodecCfg as JCodecCfg  # noqa: E402
+from repro.configs.base import ModelCfg as JModelCfg  # noqa: E402
+from repro.configs.base import ViTCfg as JViTCfg  # noqa: E402
+from repro.data.video import VideoSpec, generate_video  # noqa: E402
+from repro.models import transformer as jtfm  # noqa: E402
+from repro.models import vit as jvitm  # noqa: E402
+from repro.models.init import ParamBuilder, split_tree  # noqa: E402
+from repro.serving import Engine as JEngine  # noqa: E402
+from repro.serving import EngineCfg as JEngineCfg  # noqa: E402
+from repro_torch.codec import encode_stream  # noqa: E402
+from repro_torch.configs import CodecCfg, ModelCfg, ViTCfg  # noqa: E402
+from repro_torch.kernels import contracts, ops  # noqa: E402
+from repro_torch.kernels.flash_packed import build_pack_map  # noqa: E402
+from repro_torch.kernels.flash_refresh import build_block_map  # noqa: E402
+from repro_torch.kernels.mv_sad import SMEM_LIMIT as MV_SAD_SMEM_LIMIT  # noqa: E402
+from repro_torch.kernels.mv_sad import launch_geometry as mv_sad_launch_geometry  # noqa: E402
+from repro_torch.models.init import from_numpy_tree  # noqa: E402
+from repro_torch.serving import Engine, EngineCfg  # noqa: E402
+
+LOGIT_TOL = 8e-3      # test_torch_serving.py's
+BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
+
+# the JAX quickstart's widths (examples/quickstart.py)
+LM = dict(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
+          vocab=64, tied_embeddings=True)
+VIT = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
+CODEC = dict(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4)
+# a 2-layer f32 LM (the reference's ModelCfg.dtype="float32")
+LM_F32 = dict(LM, name="f32", n_heads=2, n_kv=1, dtype="float32")
+
+
+# ----------------------------------------------------------------------
+# the contract verdicts on meta tensors
+# ----------------------------------------------------------------------
+def _m(shape, dtype=BF16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _verdicts(d: int, q_dt, kv_dt):
+    """{op: verdict} of each attention op at head dim d, q in q_dt and
+    K/V in kv_dt (the int8 ops' hot slab too), on meta tensors."""
+    H, Hkv, B = 4, 2, 2
+    pos = np.arange(40, 200)
+    bm = build_block_map(pos, 256)
+    q, qp = _m((B, len(pos), H, d), q_dt), _m((B, len(pos)), torch.int32)
+    caches, slab = _m((B, 256, Hkv, d), kv_dt), _m((B * 256, Hkv, d), kv_dt)
+    kvv, pt = _m((B, 256), torch.bool), _m((B, 2), torch.int32)
+    cold = (_m((128, Hkv, d), torch.int8), _m((128, Hkv, d), torch.int8),
+            _m((1, Hkv), F32), _m((1, Hkv), F32))
+    qf = _m((B, 300, H, d), q_dt)
+    seg = np.repeat(np.arange(4, dtype=np.int32), 64)[None].repeat(2, 0)
+    pq, pk = _m((2, 256, H, d), q_dt), _m((2, 256, Hkv, d), kv_dt)
+    calls = {
+        "flash_refresh": lambda: contracts.flash_refresh_verdict(
+            q, caches, caches, qp, kvv, causal=True, window=None, block_map=bm),
+        "flash_refresh_paged": lambda: contracts.flash_refresh_paged_verdict(
+            q, slab, slab, qp, kvv, pt, page=128, causal=True, window=None, block_map=bm),
+        "flash_refresh_paged_int8": lambda: contracts.flash_refresh_paged_verdict(
+            q, slab, slab, qp, kvv, pt, page=128, causal=True, window=None, block_map=bm,
+            cold=cold),
+        "flash_prefill": lambda: contracts.flash_prefill_verdict(
+            qf, caches, caches, causal=True, window=None, q_offset=0),
+        "flash_prefill_paged": lambda: contracts.flash_prefill_paged_verdict(
+            qf, slab, slab, pt, page=128, causal=True, window=None, q_offset=0),
+        "flash_prefill_paged_int8": lambda: contracts.flash_prefill_paged_verdict(
+            qf, slab, slab, pt, page=128, causal=True, window=None, q_offset=0, cold=cold),
+        "flash_packed": lambda: contracts.flash_packed_verdict(
+            pq, pk, pk, _m((2, 256), torch.int32), build_pack_map(seg)),
+    }
+    return {op: call().reason for op, call in calls.items()}
+
+
+ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
+            "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
+F32_KV_OPS = {"flash_prefill", "flash_packed"}     # f32 q/k/v: the oracles round nothing
+
+
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
+    assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
+    assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
+    f32 = _verdicts(d, F32, F32)
+    assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+
+
+@pytest.mark.parametrize("d, q_dt, kv_dt, code", [
+    (20, BF16, BF16, "kernel-head-dim"), (136, BF16, BF16, "kernel-head-dim"),
+    (136, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
+    (64, F16, BF16, "kernel-dtype")])
+def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
+    assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
+
+
+@pytest.mark.parametrize("block, radius", [(16, 16), (16, 32), (8, 16), (12, 32), (8, 4),
+                                           (12, 4)])
+def test_mv_sad_takes_any_radius_and_block(block, radius):
+    frame = _m((240, 240), F32)
+    assert contracts.mv_sad_verdict(frame, frame, block, radius).reason == "ok"
+
+
+@pytest.mark.parametrize("block, radius", [(16, 16), (16, 32), (8, 16), (12, 32), (16, 50),
+                                           (6, 5)])
+def test_mv_sad_launch_geometry_shares_candidates_evenly(block, radius):
+    """Past 1024 candidates each thread walks several, as few whole warps
+    as share them evenly (no more than one candidate apart), within the
+    227 KB an H100 block can have; the band's row stride keeps a warp's
+    32 consecutive candidates on 32 distinct banks."""
+    threads, ldr, smem = mv_sad_launch_geometry(block, radius)
+    n2 = (2 * radius + 1) ** 2
+    per = -(-n2 // threads)
+    assert threads % 32 == 0 and threads <= 1024 and n2 <= per * threads < n2 + per * 32
+    assert smem == 4 * (block * block + (block + 2 * radius) * ldr + 2 * (threads // 32))
+    assert smem <= MV_SAD_SMEM_LIMIT == 232448
+    assert ldr % 32 == (2 * radius + 1) % 32
+
+
+def test_mv_sad_refuses_only_a_band_past_the_shared_memory():
+    frame = _m((240, 240), F32)
+    assert contracts.mv_sad_verdict(frame, frame, 240, 1).reason == "shared-memory"
+    assert [r.code for r in contracts.MV_SAD.eligibility] == ["shared-memory"]
+
+
+# ----------------------------------------------------------------------
+# the quickstart's widths and an f32 LM, served on the CPU against JAX
+# ----------------------------------------------------------------------
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _stream():
+    frames, _ = generate_video(VideoSpec(n_frames=12, height=112, width=112, anomaly=True,
+                                         anomaly_start=5, anomaly_len=8, seed=0))
+    return frames
+
+
+@pytest.fixture(scope="module", params=["quickstart", "f32"])
+def served(request):
+    """(JAX results, port results, port card verdicts) of one model: the
+    JAX package's Engine on its own weights, then the port's Engine on
+    the same weights and stream (12 frames: one fresh and one incremental
+    window)."""
+    lm = LM if request.param == "quickstart" else LM_F32
+    frames = _stream()
+    jcfg, jvit = JModelCfg(**lm), JViTCfg(**VIT)
+    jparams, _ = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
+    jvparams, _ = split_tree(jvitm.init_vit(ParamBuilder(jax.random.PRNGKey(1)), jvit,
+                                            jcfg.d_model))
+    jres = JEngine(jcfg, jvit, jparams, jvparams,
+                   JEngineCfg(mode="codecflow", codec=JCodecCfg(**CODEC))).run_stream(frames)
+    ops.reset_card_verdicts()
+    eng = Engine(ModelCfg(**lm), ViTCfg(**VIT), from_numpy_tree(_np_tree(jparams)),
+                 from_numpy_tree(_np_tree(jvparams)),
+                 EngineCfg(mode="codecflow", codec=CodecCfg(**CODEC)), device="cpu")
+    tres = eng.run_stream(frames)
+    return jres, tres, ops.card_verdicts()
+
+
+def test_served_with_no_refusal(served):
+    _, tres, verdicts = served
+    assert [r.kernel_fallbacks for r in tres] == [0, 0]
+    assert set(verdicts) == {"mv_sad", "flash_packed", "flash_refresh_paged", "rope_shift"}
+    assert all(set(c) == {"ok"} for c in verdicts.values()), verdicts
+
+
+def test_served_logits_match_jax(served):
+    jres, tres, _ = served
+    assert len(jres) == len(tres) == 2
+    for a, b in zip(jres, tres):
+        lj, lt = np.asarray(a.logits_yes_no), np.asarray(b.logits_yes_no)
+        assert np.isfinite(lt).all()
+        assert np.abs(lj - lt).max() <= LOGIT_TOL, (lj, lt)
+        if abs(lj[0] - lj[1]) > 2 * LOGIT_TOL:
+            assert a.answer == b.answer
+        assert (a.tokens_vis, a.tokens_valid, a.tokens_refreshed) == (
+            b.tokens_vis, b.tokens_valid, b.tokens_refreshed)
+
+
+# ----------------------------------------------------------------------
+# the codec at search radius 16
+# ----------------------------------------------------------------------
+def test_encode_stream_at_radius_16_matches_jax():
+    frames, _ = generate_video(VideoSpec(n_frames=8, height=112, width=112, n_objects=3,
+                                         speed=6.0, anomaly=True, anomaly_start=2, seed=5))
+    codec = dict(gop=4, block=16, search_radius=16, window_frames=8, stride_frames=4,
+                 keep_ratio=0.5)
+    jbs, jmd = j_encode_stream(jnp.asarray(frames), JCodecCfg(**codec))
+    tbs, tmd = encode_stream(torch.from_numpy(np.array(frames)), CodecCfg(**codec))
+    np.testing.assert_array_equal(tmd.mv.numpy(), np.asarray(jmd.mv))
+    assert (np.abs(tmd.mv.numpy()) > 4).any(), "the clip should move past radius 4"
+    res, jres = tmd.residual.numpy(), np.asarray(jmd.residual)
+    assert np.abs(res - jres).max() <= 4e-7 * np.abs(jres).max()
+    np.testing.assert_array_equal(tbs.residual_q.numpy(), np.asarray(jbs.residual_q))
+

@@ -141,15 +141,15 @@ def test_windows_report_no_kernel_fallbacks(served):
 
 
 def test_a_serve_the_card_refuses_counts_its_fallbacks():
-    """Head dim 16 (the JAX quickstart's widths), which no attention
+    """Head dim 136 (over 128, a multiple of 8), which no attention
     kernel is built for: on the CPU every window counts the calls the
     card would refuse, by rule, and the plain versions serve it."""
     from repro_torch.configs import ModelCfg, ViTCfg
     from repro_torch.models.init import init_lm_params, init_vit_params
 
-    cfg = ModelCfg(name="d16", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+    cfg = ModelCfg(name="d136", family="vlm", n_layers=2, d_model=272, n_heads=2, n_kv=1,
                    d_ff=128, vocab=64, tied_embeddings=True)
-    vit = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
+    vit = ViTCfg(n_layers=2, d_model=272, n_heads=2, d_ff=128, patch=14, image=112, group=2)
     pipe = ServingPipeline(cfg, vit, init_lm_params(cfg, 0, "cpu"),
                            init_vit_params(vit, cfg.d_model, 1, "cpu"),
                            EngineCfg(mode="codecflow", codec=TCodecCfg(
@@ -167,7 +167,7 @@ def test_a_serve_the_card_refuses_counts_its_fallbacks():
     verdicts = ops.card_verdicts()
     for op in ("flash_packed", "flash_refresh_paged"):
         assert set(verdicts[op]) == {"kernel-head-dim"}, verdicts
-    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # D 16: 8 | 16
+    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # D 136: 8 | 136
     assert all(set(c) == {"backend:ok"} for c in ops.dispatch_counts().values())
     assert all(np.isfinite(r.stats.logits_yes_no).all() for r in results)
 
@@ -237,9 +237,9 @@ def test_families_phase_cases_on_cpu(which):
     launcher's 112^2 ViT (total_len 168, vis_len 160, query 8, 256 cache
     slots), the dense model past the MoE probe (its weights line names its
     dense FFN), moonshot's probe at the largest call (2 x 168 rows: cap
-    40) and a decode step's, the paged kernel's case at deepseek-7b's
-    heads (H 32 = Hkv 32, D 128; moonshot's are olmoe's, H 16 = Hkv 16),
-    and the registry taking every kernel call either config makes."""
+    40) and a decode step's, the paged kernel's cases at deepseek-7b's
+    heads (H 32 = Hkv 32, D 128; bf16 and f32 queries; moonshot's are
+    olmoe's, H 16 = Hkv 16), and the registry taking every kernel call either config makes."""
     from repro_torch.kernels import audit
     cs = _chip_smoke()
     arch = getattr(cs, which)
@@ -265,12 +265,14 @@ def test_families_phase_cases_on_cpu(which):
         assert cs.moe_probe_rows(cfg, largest) == (336, 2)
         assert int(m.capacity_factor * 336 * m.top_k / m.n_experts) + 1 == 40
         assert "64 experts top-6" in cs.model_widths(cfg)
-    paged = {label: (c, lay_, slots) for label, c, lay_, slots in
+    paged = {label: (c, lay_, slots, *q_dt) for label, c, lay_, slots, *q_dt in
              cs.family_kernel_cases(device="cpu")[0]}
     if cfg.moe is None:
-        c, lay_, slots = paged[arch]
-        assert (c.n_heads, c.n_kv, c.d_head) == (32, 32, 128)
-        assert (lay_.total_len, lay_.vis_len, lay_.query_len, slots) == (168, 160, 8, 256)
+        for label in (arch, f"{arch}, f32 q"):     # phase 7's (c) and (e)
+            c, lay_, slots, *q_dt = paged[label]
+            assert (c.n_heads, c.n_kv, c.d_head) == (32, 32, 128)
+            assert (lay_.total_len, lay_.vis_len, lay_.query_len, slots) == (168, 160, 8, 256)
+            assert q_dt == ([torch.float32] if label != arch else [])
     else:
         olmoe = paged[cs.MOE_ARCH][0]
         assert (cfg.n_heads, cfg.n_kv, cfg.d_head) == (olmoe.n_heads, olmoe.n_kv,
