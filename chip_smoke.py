@@ -8,6 +8,7 @@ and check them.
     python3 chip_smoke.py --only families [--src DIR]
     python3 chip_smoke.py --only mesh
     python3 chip_smoke.py --only mamba
+    python3 chip_smoke.py --only f32-ssm
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -15,9 +16,10 @@ With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
-``--only mamba``, ``--only mesh``, ``--only hosttime`` and ``--only
-deep-step``: phase 3's mha probe, phase 7 alone, phase 8(b) alone,
-phase 8(e) with its roofline, phases 8(b) and 8(e) then 9, phase 3(c)'s
+``--only mamba``, ``--only f32-ssm``, ``--only mesh``, ``--only
+hosttime`` and ``--only deep-step``: phase 3's mha probe, phase 7 alone,
+phase 8(b) alone, phase 8(e) with its roofline, phases 7(f) and 8(f)
+(mamba2-2.7b in f32) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
 host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
 over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
@@ -354,6 +356,9 @@ WIDE_MOE_ARCH = "moonshot-v1-16b-a3b"
 # deepseek-7b with dtype="float32": 25.8 GiB of f32 weights, served at
 # search radius 16 (phase 7(e))
 DENSE_F32 = "deepseek-7b f32"
+# mamba2-2.7b with dtype="float32": 10.3 GiB of f32 weights, served in
+# phase 7(f) and trained in phase 8(f) (x, b and c reach the scan in f32)
+SSM_F32 = f"{SSM_ARCH} f32"
 FAMILY_HW = 112
 WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
@@ -420,6 +425,8 @@ ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
 
 # csrc/attention.cuh's operand types (OPS_BF16 = 0 is the exact label)
 BUILD_OPS = {"1": ", f32 q", "2": ", f32 q/k/v"}
+# csrc/ssd_scan.cuh's operand modes
+SCAN_MODES = {"0": "bf16 in place", "1": "staged hi/lo"}
 
 
 def kernel_label(mangled: str) -> str:
@@ -431,6 +438,12 @@ def kernel_label(mangled: str) -> str:
     b = re.search(r"BuildILi(\d+)ELb([01])ELi(\d)E", mangled)
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
     if "mma_kernel" not in mangled or b is None or struct is None:
+        m = re.search(r"([a-z_]+_kernel)ILi(\d+)ELi(\d)E", mangled)
+        if m:     # the scan's kernels: <N, operand mode>
+            return f"{m.group(1)}<{m.group(2)}, {SCAN_MODES.get(m.group(3), m.group(3))}>"
+        m = re.search(r"([a-z_]+_kernel)ILb([01])E", mangled)
+        if m:
+            return f"{m.group(1)}<{'ragged N' if m.group(2) == '1' else 'exact N'}>"
         m = re.search(r"([a-z_]+_kernel)ILi(\d+)E", mangled)
         if m:
             return f"{m.group(1)}<{m.group(2)}>"
@@ -1224,40 +1237,88 @@ def check_lm_head(torch, cfg, params):
     return ok
 
 
+# ssd_scan's cases past the bf16 serving layout: (label, B, L, H, P, G, N,
+# chunk, init, x/b/c dtype, log_a dtype, layout) -- f32 at mamba2-2.7b's
+# serving shapes and jamba's widths, the JAX benchmarks' f32 row, the
+# audit's N 32 at G 2, ragged N (24, 8) and P (12, 40), chunk 512, a
+# strided x and a bf16 log_a
+SCAN_WIDE = (
+    ("f32 fresh window", 2, 160, 80, 64, 1, 128, 256, True, "float32", "float32", "packed"),
+    ("f32 incremental window", 2, 40, 80, 64, 1, 128, 256, True, "float32", "float32",
+     "packed"),
+    ("f32 query", 2, 8, 80, 64, 1, 128, 256, True, "float32", "float32", "packed"),
+    ("f32 long prefill", 1, 4096, 80, 64, 1, 128, 256, False, "float32", "float32", "packed"),
+    ("f32 ragged prefill", 1, 1000, 80, 64, 1, 128, 256, True, "float32", "float32", "packed"),
+    (f"f32 {HYBRID_ARCH} fresh window", 2, 160, 128, 64, 1, 16, 256, True, "float32",
+     "float32", "packed"),
+    ("f32 JAX benchmarks' row", 1, 1024, 8, 64, 1, 16, 128, False, "float32", "float32",
+     "packed"),
+    ("N 32, G 2 (audit row)", 2, 100, 8, 64, 2, 32, 128, True, "bfloat16", "float32", "packed"),
+    ("f32 N 32, G 2 (audit row)", 2, 100, 8, 64, 2, 32, 128, True, "float32", "float32",
+     "packed"),
+    ("N 24", 2, 160, 80, 64, 1, 24, 256, True, "bfloat16", "float32", "packed"),
+    ("N 8", 2, 160, 80, 64, 1, 8, 256, True, "bfloat16", "float32", "packed"),
+    ("P 12", 2, 160, 80, 12, 1, 128, 256, True, "bfloat16", "float32", "packed"),
+    ("P 40", 2, 160, 80, 40, 1, 128, 256, True, "bfloat16", "float32", "packed"),
+    ("chunk 512", 1, 1000, 80, 64, 1, 128, 512, True, "bfloat16", "float32", "packed"),
+    ("strided x", 2, 160, 80, 64, 1, 128, 256, True, "bfloat16", "float32", "strided"),
+    ("bf16 log_a", 2, 160, 80, 64, 1, 128, 256, True, "bfloat16", "bfloat16", "packed"),
+)
+SCAN_F32_TOL = 2.0 ** -10       # f32 y: the f32 attention kernels' row-relative limit
+
+
+def scan_operands(torch, g, B, L, H, P, G, N, with_init, dt="bfloat16", la_dt="float32",
+                  layout="packed"):
+    """Random scan operands on the card from generator ``g``."""
+    dt, la_dt = getattr(torch, dt), getattr(torch, la_dt)
+    x = torch.randn((B, L, H, P), generator=g, device="cuda").to(dt)
+    if layout == "strided":
+        x = x.transpose(2, 3).contiguous().transpose(2, 3)
+    la = (-(torch.rand((B, L, H), generator=g, device="cuda") * 0.999 + 1e-3)).to(la_dt)
+    b, c = ((torch.randn((B, L, G, N), generator=g, device="cuda") * 0.3).to(dt)
+            for _ in range(2))
+    init = torch.randn((B, H, P, N), generator=g, device="cuda") if with_init else None
+    return x, la, b, c, init
+
+
 def check_ssd_scan(torch):
     """ssd_scan at the serving shapes of mamba2-2.7b (B 2, H 80, P 64,
     N 128, G 1: a fresh window L 160, an incremental one L 40 and the
     query L 8, each from a non-zero state), a long prefill (L 4096, 16
     chunks of 256), a ragged one (L 1000), groups G 4 at a small width,
-    and jamba-v0.1-52b's three serving shapes (H 128, P 64, N 16).  y
-    (bf16) row-relative within one bf16 step: both round f32
-    values that differ by the summation order.  The f32 state within
-    1e-4 of each (b, head) state's largest value: sums of up to 256
+    and jamba-v0.1-52b's three serving shapes (H 128, P 64, N 16); then
+    SCAN_WIDE's operands, which the bf16 builds do not read in place (f32
+    x/b/c as bf16 hi + lo halves, ragged N and P, sub-chunks, a strided x,
+    a bf16 log_a: the staging pass, then the kernel).  y (bf16)
+    row-relative within one bf16 step: both round f32 values that differ
+    by the summation order; f32 y within SCAN_F32_TOL.  The f32 state
+    within 1e-4 of each (b, head) state's largest value: sums of up to 256
     terms and the cumulative log-decay in another order (a block scan
     against a sequential cumsum), the latter entering through exp; the
     kernel's f32 factors enter the tensor-core products as bf16 hi + lo
-    (about 16 bits, 2^-17 relative per product).  The
-    kernels line reports the fresh window's times (its longest launch on
-    the path) and the largest error."""
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain, ssd_scan_work
-    cases = (("fresh window", 2, 160, 80, 64, 1, 128, 256, True),
-             ("incremental window", 2, 40, 80, 64, 1, 128, 256, True),
-             ("query", 2, 8, 80, 64, 1, 128, 256, True),
-             ("long prefill", 1, 4096, 80, 64, 1, 128, 256, False),
-             ("ragged prefill", 1, 1000, 80, 64, 1, 128, 256, True),
-             ("groups", 2, 300, 16, 32, 4, 64, 64, True),
-             (f"{HYBRID_ARCH} fresh window", 2, 160, 128, 64, 1, 16, 256, True),
-             (f"{HYBRID_ARCH} incremental window", 2, 40, 128, 64, 1, 16, 256, True),
-             (f"{HYBRID_ARCH} query", 2, 8, 128, 64, 1, 16, 256, True))
+    (about 16 bits, 2^-17 relative per product).  The bound counts the
+    operands at their element sizes; the staging pass's bytes are
+    printed beside it.  The kernels line reports the fresh window's times
+    (its longest launch on the path) and the largest error."""
+    from repro_torch.kernels.ssd_scan import (
+        operand_mode, ssd_scan_cuda, ssd_scan_plain, ssd_scan_work, staged_bytes,
+    )
+    cases = [(label, B, L, H, P, G, N, chunk, init, "bfloat16", "float32", "packed")
+             for label, B, L, H, P, G, N, chunk, init in (
+                 ("fresh window", 2, 160, 80, 64, 1, 128, 256, True),
+                 ("incremental window", 2, 40, 80, 64, 1, 128, 256, True),
+                 ("query", 2, 8, 80, 64, 1, 128, 256, True),
+                 ("long prefill", 1, 4096, 80, 64, 1, 128, 256, False),
+                 ("ragged prefill", 1, 1000, 80, 64, 1, 128, 256, True),
+                 ("groups", 2, 300, 16, 32, 4, 64, 64, True),
+                 (f"{HYBRID_ARCH} fresh window", 2, 160, 128, 64, 1, 16, 256, True),
+                 (f"{HYBRID_ARCH} incremental window", 2, 40, 128, 64, 1, 16, 256, True),
+                 (f"{HYBRID_ARCH} query", 2, 8, 128, 64, 1, 16, 256, True))]
     g = torch.Generator(device="cuda").manual_seed(5)
-    ok, row, worst = True, None, 0.0
-    for label, B, L, H, P, G, N, chunk, with_init in cases:
-        x = torch.randn((B, L, H, P), generator=g, device="cuda").bfloat16()
-        la = -(torch.rand((B, L, H), generator=g, device="cuda") * 0.999 + 1e-3)
-        b, c = ((torch.randn((B, L, G, N), generator=g, device="cuda") * 0.3).bfloat16()
-                for _ in range(2))
-        init = (torch.randn((B, H, P, N), generator=g, device="cuda")
-                if with_init else None)
+    ok, row, worst, wide = True, None, 0.0, {}
+    for label, B, L, H, P, G, N, chunk, with_init, dt, la_dt, layout in cases + list(SCAN_WIDE):
+        x, la, b, c, init = scan_operands(torch, g, B, L, H, P, G, N, with_init, dt, la_dt,
+                                          layout)
         y_k, s_k = ssd_scan_cuda(x, la, b, c, init, chunk)
         y_p, s_p = ssd_scan_plain(x, la, b, c, init, chunk)
         y_err, y_rel = attn_errors(torch, y_k, y_p)
@@ -1266,7 +1327,10 @@ def check_ssd_scan(torch):
             torch.finfo(torch.float32).tiny)).max())
         err = max(y_err, float(s_d.max()))
         worst = max(worst, err)
-        flops, n_bytes = ssd_scan_work(L, H, P, G, N, chunk, B)
+        sizes = (x.element_size(), b.element_size(), la.element_size())
+        flops, n_bytes = ssd_scan_work(L, H, P, G, N, chunk, B, *sizes)
+        mode = operand_mode(x, b, c)
+        staged = staged_bytes(B, L, H, P, G, N, mode, sizes[0], sizes[1])
         in_bytes = sum(t.numel() * t.element_size() for t in (x, la, b, c, init)
                        if t is not None)
         ms = cuda_ms(torch, lambda: ssd_scan_cuda(x, la, b, c, init, chunk), 10)
@@ -1278,23 +1342,33 @@ def check_ssd_scan(torch):
         # figure of the first port is printed beside it
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
         f32_ms = flops / F32_FLOPS * 1e3
-        here = y_rel <= 2.0 ** -7 and s_rel <= 1e-4
-        log(f"ssd_scan ({label}): x {tuple(x.shape)} bf16, b/c {tuple(b.shape)} bf16, "
-            f"chunk {chunk}, init {'yes' if with_init else 'zeros'}: y max abs err "
-            f"{y_err:.3g}, row-relative {y_rel:.3g} (limit {2.0 ** -7:.3g}); state max abs "
+        y_tol = SCAN_F32_TOL if y_k.dtype == torch.float32 else 2.0 ** -7
+        here = y_rel <= y_tol and s_rel <= 1e-4 and y_k.dtype == x.dtype
+        log(f"ssd_scan ({label}): x {tuple(x.shape)} {dt_name(x)}{', strided' if layout == 'strided' else ''}, "
+            f"b/c {tuple(b.shape)} {dt_name(b)}, log_a {dt_name(la)}, chunk {chunk}, init "
+            f"{'yes' if with_init else 'zeros'}, operand mode {mode}: y {dt_name(y_k)} max abs "
+            f"err {y_err:.3g}, row-relative {y_rel:.3g} (limit {y_tol:.3g}); state max abs "
             f"err {float(s_d.max()):.3g}, relative {s_rel:.3g} (limit 1e-4); kernel "
             f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}): bytes "
             f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({n_bytes / 1e6:.4g} MB), bf16 "
             f"tensor {flops / BF16_TENSOR_FLOPS * 1e3:.4f} ms ({flops / 1e9:.4g} GFLOP); "
-            f"f32 CUDA cores {f32_ms:.4f} ms")
+            f"f32 CUDA cores {f32_ms:.4f} ms; staging pass {staged / 1e6:.4g} MB "
+            f"({staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate): "
+            f"{'ok' if here else 'FAIL'}")
         ok = ok and here
         if label == "fresh window":
-            row = dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+            row = dict(name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cuh",
                        replaces="src/repro/kernels/ssd_scan.py:74", max_abs_err=err, ms=ms,
                        device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None)
+        if label in {c[0] for c in SCAN_WIDE}:
+            wide[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, rel=y_rel)
+        del x, la, b, c, init, y_k, y_p, s_k, s_p
     row["max_abs_err"] = worst
+    row["wide_cases"] = wide
+    gc.collect()
+    torch.cuda.empty_cache()
     return ok, row
 
 
@@ -1304,6 +1378,9 @@ def check_ssd_scan(torch):
 # the same f32 products in other orders, and dlog_a is a difference of
 # two such sums)
 BWD_TOL, BWD_F32_TOL = 2.0 ** -7, 1e-3
+# f32 dx, db and dc (operands as bf16 hi + lo halves): the f32 attention
+# kernels' limit
+BWD_F32_OUT_TOL = 2.0 ** -10
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 4
 
 
@@ -1340,81 +1417,102 @@ def check_ssd_scan_bwd(torch):
     grad: mamba2-2.7b's training shape (B 2, L 2048, H 80, P 64, N 128,
     chunk 256) with init and a final-state cotangent, a ragged L 1000
     without either, groups G 4 at a small width, and jamba-v0.1-52b's
-    widths (H 128, P 64, N 16) at L 2048.  Each reading beside its limit
-    (BWD_TOL, BWD_F32_TOL), a bitwise repeat, the chunk states within the
-    forward's 1e-4; times per call (CUDA events), on the device (replayed
-    graph), the plain version's, and the bound from ssd_scan_bwd_work at
-    the bf16 tensor rate (its five q^2 products multiply bf16 operands),
-    with the f32 CUDA-core figure of the same flops beside it (the first
-    version's arithmetic); blocks per SM of its three kernels at each N
-    (the runtime's occupancy calculator).  The row keeps the training
-    shape's times."""
+    widths (H 128, P 64, N 16) at L 2048; then the training shape in f32,
+    N 32 at G 2, P 12 (f32) and chunk 512 over L 1000 (f32): the staged
+    operands.  Each reading beside its limit (BWD_TOL, or BWD_F32_OUT_TOL
+    for f32 dx, db and dc; BWD_F32_TOL), a bitwise repeat, the chunk
+    states within the forward's 1e-4; times per call (CUDA events), on
+    the device (replayed graph), the plain version's, and the bound from
+    ssd_scan_bwd_work at the bf16 tensor rate (its five q^2 products
+    multiply bf16 operands, or bf16 halves), with the f32 CUDA-core figure
+    of the same flops beside it (the first version's arithmetic) and the
+    staging pass's bytes; blocks per SM of its three kernels at each N
+    and operand mode (the runtime's occupancy calculator).  The row keeps
+    the training shape's times."""
     from repro_torch.kernels.ssd_scan import (
-        STATE_WIDTHS, bwd_occupancy, ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_work,
-        ssd_scan_fwd_plain, ssd_scan_launch,
+        FAST, SPLIT, STATE_WIDTHS, bwd_occupancy, operand_mode, ssd_scan_bwd_cuda,
+        ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_fwd_plain, ssd_scan_launch, staged_bytes,
     )
-    for n in STATE_WIDTHS:
-        log(f"ssd_scan_bwd kernels, N {n}, chunk 256: blocks per SM {bwd_occupancy(n, 256)}")
-    cases = (("mamba2-2.7b training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256, True, True),
-             ("ragged", 1, 1000, 80, 64, 1, 128, 256, False, False),
-             ("groups", 2, 300, 16, 32, 4, 64, 64, True, True),
-             (f"{HYBRID_ARCH} widths", 2, SSM_TRAIN_SEQ, 128, 64, 1, 16, 256, False, True))
+    for mode in (FAST, SPLIT):
+        for n in STATE_WIDTHS:
+            log(f"ssd_scan_bwd kernels, N {n}, chunk 256, operand mode {mode}: blocks per SM "
+                f"{bwd_occupancy(n, 256, mode)}")
+    cases = (("mamba2-2.7b training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256, True, True,
+              "bfloat16"),
+             ("ragged", 1, 1000, 80, 64, 1, 128, 256, False, False, "bfloat16"),
+             ("groups", 2, 300, 16, 32, 4, 64, 64, True, True, "bfloat16"),
+             (f"{HYBRID_ARCH} widths", 2, SSM_TRAIN_SEQ, 128, 64, 1, 16, 256, False, True,
+              "bfloat16"),
+             ("f32 mamba2-2.7b training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256, True, True,
+              "float32"),
+             ("N 32, G 2", 2, 1000, 8, 64, 2, 32, 128, True, True, "bfloat16"),
+             ("f32 P 12", 2, 1000, 80, 12, 1, 128, 256, True, True, "float32"),
+             ("f32 chunk 512", 1, 1000, 80, 64, 1, 128, 512, True, True, "float32"))
     g = torch.Generator(device="cuda").manual_seed(6)
-    ok, row, worst = True, None, 0.0
-    for label, B, L, H, P, G, N, chunk, with_init, with_dfin in cases:
-        x = torch.randn((B, L, H, P), generator=g, device="cuda").bfloat16()
-        la = -(torch.rand((B, L, H), generator=g, device="cuda") * 0.999 + 1e-3)
-        b, c = ((torch.randn((B, L, G, N), generator=g, device="cuda") * 0.3).bfloat16()
-                for _ in range(2))
-        init = torch.randn((B, H, P, N), generator=g, device="cuda") if with_init else None
-        dy = torch.randn((B, L, H, P), generator=g, device="cuda").bfloat16()
+    ok, row, worst, wide = True, None, 0.0, {}
+    for label, B, L, H, P, G, N, chunk, with_init, with_dfin, dt in cases:
+        x, la, b, c, init = scan_operands(torch, g, B, L, H, P, G, N, with_init, dt)
+        dy = torch.randn((B, L, H, P), generator=g, device="cuda").to(x.dtype)
         dfin = torch.randn((B, H, P, N), generator=g, device="cuda") if with_dfin else None
         _, _, states = ssd_scan_launch(x, la, b, c, init, chunk, states=True)
-        st_rel = slice_rel(torch, states, ssd_scan_fwd_plain(x, la, b, c, init, chunk)[2],
-                           (-1, -2))
+        states_p = ssd_scan_fwd_plain(x, la, b, c, init, chunk)[2]
+        st_rel = slice_rel(torch, states[..., :N], states_p, (-1, -2))
         got = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
         again = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
-        want = ssd_scan_bwd_plain(x, la, b, c, states, dy, dfin, chunk)
+        want = ssd_scan_bwd_plain(x, la, b, c, states_p, dy, dfin, chunk)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+        out_tol = BWD_F32_OUT_TOL if x.dtype == torch.float32 else BWD_TOL
         readings = {n: (slice_rel(torch, k, w, dims), tol) for n, k, w, dims, tol in zip(
             ("dx", "dlog_a", "db", "dc", "d_init"), got, want,
             ((1, 3), (1,), (1, 3), (1, 3), (-1, -2)),
-            (BWD_TOL, BWD_F32_TOL, BWD_TOL, BWD_TOL, BWD_F32_TOL))}
+            (out_tol, BWD_F32_TOL, out_tol, out_tol, BWD_F32_TOL))}
         err = max(float((k.float() - w.float()).abs().max()) for k, w in zip(got, want))
         worst = max(worst, err)
-        flops, n_bytes = ssd_scan_bwd_work(L, H, P, G, N, chunk, B)
+        sizes = (x.element_size(), b.element_size(), la.element_size())
+        flops, n_bytes = ssd_scan_bwd_work(L, H, P, G, N, chunk, B, *sizes)
+        mode = operand_mode(x, b, c, dy)
+        staged = staged_bytes(B, L, H, P, G, N, mode, sizes[0], sizes[1], backward=True)
         args = (x, la, b, c, states, dy, dfin)
         in_bytes = sum(t.numel() * t.element_size() for t in args if t is not None)
         ms = cuda_ms(torch, lambda: ssd_scan_bwd_cuda(*args, chunk), 5)
         dev_ms = device_ms(torch, lambda *a: ssd_scan_bwd_cuda(*a, chunk), args, in_bytes,
                            replays=2, min_copies=2)
-        plain = cuda_ms(torch, lambda: ssd_scan_bwd_plain(*args, chunk), 2, warmup=1)
+        plain = cuda_ms(torch, lambda: ssd_scan_bwd_plain(x, la, b, c, states_p, dy, dfin,
+                                                          chunk), 2, warmup=1)
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
-        if row is None:
+        if row is None or label == "f32 mamba2-2.7b training":
             stages = kernel_ms(torch, lambda: ssd_scan_bwd_cuda(*args, chunk))
             log(f"ssd_scan_bwd ({label}): device ms per call by kernel (torch.profiler): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-        here = (bitwise and st_rel <= 1e-4
+        dtypes_ok = [t.dtype for t in got[:4]] == [x.dtype, la.dtype, b.dtype, c.dtype]
+        here = (bitwise and st_rel <= 1e-4 and dtypes_ok
                 and all(v <= tol for v, tol in readings.values()))
-        log(f"ssd_scan_bwd ({label}): x {tuple(x.shape)} bf16, b/c {tuple(b.shape)} bf16, "
-            f"chunk {chunk}, init {'yes' if with_init else 'none'}, final-state cotangent "
-            f"{'yes' if with_dfin else 'none'}: " + ", ".join(
+        log(f"ssd_scan_bwd ({label}): x {tuple(x.shape)} {dt_name(x)}, b/c {tuple(b.shape)} "
+            f"{dt_name(b)}, chunk {chunk}, init {'yes' if with_init else 'none'}, final-state "
+            f"cotangent {'yes' if with_dfin else 'none'}, operand mode {mode}: " + ", ".join(
                 f"{n} {v:.3g} (limit {tol:.3g})" for n, (v, tol) in readings.items())
-            + f"; chunk states {st_rel:.3g} (limit 1e-4); bitwise repeat {bitwise}; kernel "
+            + f"; chunk states {st_rel:.3g} (limit 1e-4); bitwise repeat {bitwise}; output "
+            f"dtypes {[dt_name(t) for t in got[:4]]}; kernel "
             f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}): bf16 tensor {flops / BF16_TENSOR_FLOPS * 1e3:.4f} "
             f"ms ({flops / 1e9:.4g} GFLOP), bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
             f"({n_bytes / 1e6:.4g} MB); the same flops on the f32 CUDA cores "
-            f"{flops / F32_FLOPS * 1e3:.4f} ms: {'ok' if here else 'FAIL'}")
+            f"{flops / F32_FLOPS * 1e3:.4f} ms; staging pass {staged / 1e6:.4g} MB "
+            f"({staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate): "
+            f"{'ok' if here else 'FAIL'}")
         ok = ok and here
         if row is None:
-            row = dict(name="ssd_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+            row = dict(name="ssd_scan_bwd", route="cuda",
+                       source="src/repro_torch/csrc/ssd_scan.cuh",
                        replaces="none (the reference trains through its plain scan)",
                        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None)
-        del x, b, c, init, dy, dfin, states, got, again, want, args
+        else:
+            wide[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms)
+        del x, b, c, init, dy, dfin, states, states_p, got, again, want, args
     row["max_abs_err"] = worst
+    row["wide_cases"] = wide
     gc.collect()
     torch.cuda.empty_cache()
     return ok, row
@@ -2254,6 +2352,8 @@ def family_models():
         ("(d)", WIDE_MOE_ARCH, get_config(WIDE_MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
         ("(e)", DENSE_F32, dataclasses.replace(get_config(DENSE_ARCH), dtype="float32"),
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights, search radius 16"),
+        ("(f)", SSM_F32, dataclasses.replace(get_config(SSM_ARCH), dtype="float32"),
+         ("codecflow",), MOE_FRAMES, f"{full}, f32 weights"),
     )
 
 
@@ -2274,24 +2374,28 @@ def family_label(arch: str, mode: str, streaming: bool) -> str:
     return f"{arch} {mode}" + (", paged bf16" if mode == "codecflow" and not streaming else "")
 
 
-def serve_families(torch):
+def serve_families(torch, keys=None):
     """Phase 7: (a) olmoe-1b-7b at full size, codecflow on the paged bf16
     slab; (b) jamba-v0.1-52b at full width with HYBRID_LAYERS layers,
     codecflow and fullcomp through the recurrent backend; (c) deepseek-7b
     (dense) and (d) moonshot-v1-16b-a3b (48 MoE layers) at full size,
     codecflow on the paged bf16 slab; (e) deepseek-7b with f32 weights
     (f32 queries over the bf16 slab) ingested at search radius 16, the
-    same path; all with the launcher's 112^2 ViT and random weights
-    made on the card from the seed (bf16 but for (e)'s LM), each case
+    same path; (f) mamba2-2.7b with f32 weights (f32 x, b and c into the
+    scan's staged hi / lo build), codecflow through the recurrent
+    backend; all with the launcher's 112^2 ViT and random weights
+    made on the card from the seed (bf16 but for (e)'s and (f)'s LM), each case
     served lockstep, async, async, lockstep, the yes/no logits of every
     run bitwise equal.  Each model's weights are freed before the next.
-    Returns (ok, launches per run)."""
+    ``keys`` serves only those cases.  Returns (ok, launches per run)."""
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.launch.serve import default_vit
     from repro_torch.models.init import init_lm_params, init_vit_params, map_tree, tree_leaves
     from repro_torch.serving import ServingPipeline
     ok, by_path = True, {}
     for key, arch, cfg, modes, frames, depth in family_models():
+        if keys is not None and key not in keys:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2766,19 +2870,23 @@ def kernel_group(name: str) -> str:
     return "other elementwise"
 
 
-def train_mamba(torch):
+def train_mamba(torch, dtype=None):
     """8(e): mamba2-2.7b at full size (64 mamba layers, random bf16
     weights from the seed) trained SSM_TRAIN_STEPS steps through
     ``launch.train.train`` (remat, batch 2, seq 2048): loss and grad_norm
     finite at every step, every leaf moved, no plain call on a CUDA
     tensor, and per step 2 forward launches per layer (the forward and
     remat's recompute) and 1 backward launch; then one profiled step.
-    Returns (ok, launches)."""
+    8(f): the same with ``dtype="float32"`` (f32 weights, x, b and c into
+    the scan's staged hi / lo builds; full depth: about 60 GiB at its
+    peak).  Returns (ok, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as tlaunch
     from repro_torch.models.init import init_lm_params, tree_leaves
     cfg = get_config(SSM_ARCH)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2786,7 +2894,10 @@ def train_mamba(torch):
     ops.reset_dispatch_counts()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with wrapped(tlaunch, "make_train_step", timed_steps(torch, times, finite)):
+    # 8(f): launch.train's own config lookup, returning the f32 variant
+    as_cfg = (lambda get: lambda arch: cfg) if dtype is not None else (lambda get: get)
+    with wrapped(tlaunch, "get_config", as_cfg), \
+            wrapped(tlaunch, "make_train_step", timed_steps(torch, times, finite)):
         trained, losses = tlaunch.train(SSM_ARCH, SSM_TRAIN_STEPS, SSM_TRAIN_BATCH,
                                         SSM_TRAIN_SEQ, seed=SEED, device="cuda", log_every=1)
     t_all = time.perf_counter() - t0
@@ -2800,10 +2911,12 @@ def train_mamba(torch):
     n_mamba = sum(k == "mamba" for k in cfg.block_pattern) * cfg.repeats
     want = {"ssd_scan": 2 * n_mamba * SSM_TRAIN_STEPS, "ssd_scan_bwd": n_mamba * SSM_TRAIN_STEPS}
     t_step = sum(times[1:]) / len(times[1:])
-    READINGS["mamba_step_s"] = t_step
+    if dtype is None:
+        READINGS["mamba_step_s"] = t_step
     tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
     flops = 8.0 * n_params * tokens
-    log(f"train [{SSM_ARCH}, full size: {cfg.n_layers} layers, d {cfg.d_model}, "
+    w_bytes = 4 if cfg.dtype == "float32" else 2
+    log(f"train [{SSM_ARCH}, full size, {cfg.dtype}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B parameters, remat, batch {SSM_TRAIN_BATCH}, seq "
         f"{SSM_TRAIN_SEQ}]: losses {[round(x, 4) for x in losses]}; step s "
         f"{[round(x, 4) for x in times]} (step 1 includes the first calls' set-up; "
@@ -2811,7 +2924,7 @@ def train_mamba(torch):
         f"each: {tokens / t_step:.1f} tokens/s; model FLOPs per step {flops / 1e12:.2f} T "
         f"(8 x parameters x positions): {flops / t_step / BF16_TENSOR_FLOPS:.4f} of the bf16 "
         f"peak; peak memory {peak:.2f} GiB (parameters, gradients and f32 moments "
-        f"{n_params * (2 + 2 + 8) / 2**30:.2f} GiB); finite every step: {all(finite)}; "
+        f"{n_params * (2 * w_bytes + 8) / 2**30:.2f} GiB); finite every step: {all(finite)}; "
         f"every leaf moved: {moved}; launches {launches} (want {want}); plain on CUDA: {plain}")
     ok = (all(finite) and len(finite) == SSM_TRAIN_STEPS and moved
           and not any(plain.values())
@@ -2992,8 +3105,11 @@ def train_phase(torch):
     here, by_path = anomaly_on_card(torch)
     ok = ok and here
     here, ssm = train_mamba(torch)
+    ok = ok and here
+    here, ssm32 = train_mamba(torch, "float32")
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
-    return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path, TRAIN_PATH: ssm}
+    return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path, TRAIN_PATH: ssm,
+                         f"{SSM_F32} training": ssm32}
 
 
 # ----------------------------------------------------------------------
@@ -3536,7 +3652,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated kernel names: their checks alone (phases 1-3); "
                          "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
-                         "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'mesh' "
+                         "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'f32-ssm' "
+                         "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'mesh' "
                          "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
                          "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
                          "each alone after phases 1-2")
@@ -3578,10 +3695,10 @@ def main(argv=None) -> int:
     for src, text in cuda.build_log().items():
         for label, regs, spill in ptxas_kernels(text):
             log(f"  ptxas[{src}]: {label}: {regs} registers, {spill} bytes spilled")
-            if spill and (src.startswith("attention") or label.startswith("ssd_scan_bwd")):
+            if spill and (src.startswith("attention") or src.startswith("ssd_scan")):
                 spilled.append(label)
     if spilled:
-        log(f"FAIL: attention or scan-backward kernels spill registers: {spilled}")
+        log(f"FAIL: attention or scan kernels spill registers: {spilled}")
         return 1
     probes = {"mha": lambda: mha_probe(torch), "whisper": lambda: train_whisper(torch)[0],
               "hosttime": lambda: host_times(torch),
@@ -3589,7 +3706,10 @@ def main(argv=None) -> int:
                                and mesh_phase(torch, smi)),
               "mamba": lambda: train_mamba(torch)[0] and mamba_roofline(torch, smi),
               "deep-step": lambda: deep_step_study(torch),
-              "families": lambda: serve_families(torch)[0] and served_cleanly("phase 7")}
+              "families": lambda: serve_families(torch)[0] and served_cleanly("phase 7"),
+              "f32-ssm": lambda: (serve_families(torch, ("(f)",))[0]
+                                  and served_cleanly("phase 7(f)")
+                                  and train_mamba(torch, "float32")[0])}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
         print(smi)

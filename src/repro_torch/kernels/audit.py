@@ -356,8 +356,10 @@ def _slab_rows() -> List[AuditRow]:
     """rope_shift over the layouts' overlap slabs (any S reaches the
     kernel), mv_sad at radius 4, 16 and 32 and blocks 16, 8, 12 and 6 (and
     a band past 227 KB, refused), and ssd_scan: the reference's f32 row with N 32
-    (refused by 'bf16'), its bf16 twin (refused by 'state-width') and the
-    serving row of mamba2-2.7b (N 128)."""
+    and its bf16 twin, the JAX benchmarks' f32 row (1, 1024, 8, 64) at N 16,
+    the serving row of mamba2-2.7b (N 128) in bf16 and in f32, all on the
+    kernel, and the two refusals: N 136 ('state-width') and f16
+    ('kernel-dtype')."""
     rows = []
     for lay, _ in LAYOUTS:
         S = lay.overlap_tokens
@@ -375,18 +377,29 @@ def _slab_rows() -> List[AuditRow]:
         rows.append(_run_one("mv_sad", f"240x240 b{block} r{radius}", expect,
                              contracts.mv_sad_facts(cur, cur, block=block, radius=radius),
                              lambda b=block, r=radius: ops.mv_sad(cur, cur, b, r), (n, n, 2)))
-    for label, dt, (H, P, G, N), expect in (
-            ("B2 L100 H8 G2 N32 f32", F32, (8, 64, 2, 32), "refused:bf16"),
-            ("B2 L100 H8 G2 N32 bf16", BF16, (8, 64, 2, 32), "refused:state-width"),
-            ("B2 L160 H80 P64 N128 bf16 (mamba2-2.7b)", BF16, (80, 64, 1, 128), "kernel")):
-        L = 160 if H == 80 else 100
-        x, la = _meta((2, L, H, P), dt), _meta((2, L, H), F32)
-        bc = _meta((2, L, G, N), dt)
+    for label, dt, (Bn, L, H, P, G, N), expect in SSD_AUDIT_ROWS:
+        x, la = _meta((Bn, L, H, P), dt), _meta((Bn, L, H), F32)
+        bc = _meta((Bn, L, G, N), dt)
         rows.append(_run_one("ssd_scan", label, expect,
                              contracts.ssd_scan_facts(x, la, bc, bc, chunk=128),
                              lambda x=x, la=la, bc=bc: ops.ssd_scan(x, la, bc, bc),
-                             (2, L, H, P)))
+                             (Bn, L, H, P)))
     return rows
+
+
+# ssd_scan's rows of the audit's third table: (label, dtype of x / b / c,
+# (B, L, H, P, G, N), expected), chunk 128
+SSD_AUDIT_ROWS = (
+    ("B2 L100 H8 G2 N32 f32", F32, (2, 100, 8, 64, 2, 32), "kernel"),
+    ("B2 L100 H8 G2 N32 bf16", BF16, (2, 100, 8, 64, 2, 32), "kernel"),
+    ("B1 L1024 H8 P64 N16 f32 (the JAX benchmarks' row)", F32, (1, 1024, 8, 64, 1, 16),
+     "kernel"),
+    ("B2 L160 H80 P64 N128 bf16 (mamba2-2.7b)", BF16, (2, 160, 80, 64, 1, 128), "kernel"),
+    ("B2 L160 H80 P64 N128 f32 (mamba2-2.7b, dtype f32)", F32, (2, 160, 80, 64, 1, 128),
+     "kernel"),
+    ("B2 L100 H8 G2 N136 bf16", BF16, (2, 100, 8, 64, 2, 136), "refused:state-width"),
+    ("B2 L100 H8 G2 N32 f16", torch.float16, (2, 100, 8, 64, 2, 32), "refused:kernel-dtype"),
+)
 
 
 def run_audit() -> Tuple[List[AuditRow], List[str]]:
@@ -708,8 +721,6 @@ def refusal_cases(device) -> dict:
     ones = torch.ones(1, 2, device=dev)
     f16 = (torch.ones(1, 2, dtype=torch.float16, device=dev),) * 2
     x, la, b, c, init = ssd_ok()
-    conv = rand(1, 16, 33, dtype=BF16)
-    conv36 = rand(1, 16, 36, dtype=BF16)
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
     # head dims the kernels have no build for: not a multiple of 8, over 128
     q20, k20 = rand(1, 8, 4, 20, dtype=BF16), rand(1, 8, 2, 20, dtype=BF16, seed=1)
@@ -783,17 +794,8 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "kernel-head-dim"): packed(pq136, seg, build_pack_map(seg_np)),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
-        ("ssd_scan", "bf16"): ssd(x.float(), la, b, c, init),
-        ("ssd_scan", "log-a-f32"): ssd(x, la.to(BF16), b, c, init),
-        ("ssd_scan", "chunk-256"): ssd(*ssd_ok(L=300)[:4], chunk=512),
-        ("ssd_scan", "state-width"): ssd(*ssd_ok(N=32)),
-        ("ssd_scan", "head-width-8"): ssd(*ssd_ok(P=12)),
-        ("ssd_scan", "aligned"): ssd(x, la, conv[..., 1:17].reshape(1, 16, 1, 16),
-                                     conv[..., 17:33].reshape(1, 16, 1, 16), init),
-        ("ssd_scan", "row-strides"): ssd(x, la, conv36[..., :16].reshape(1, 16, 1, 16),
-                                         conv36[..., 16:32].reshape(1, 16, 1, 16), init),
-        ("ssd_scan", "packed"): ssd(transposed(x, 2, 3), la, b, c, init),
-        ("ssd_scan", "init-state"): ssd(x, la, b, c, transposed(init, 2, 3)),
+        ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),
+        ("ssd_scan", "state-width"): ssd(*ssd_ok(N=136)),
     }
 
 

@@ -380,14 +380,7 @@ def ssd_scan_facts(x, log_a, b, c, *, chunk: int, init_state=None) -> dict:
         "c_dtype": _dt(c),
         "chunk": int(chunk),
         "scan_chunk": _ssd_scan.scan_chunk(L, chunk) if L and chunk >= 1 else int(chunk),
-        "x_stride": tuple(x.stride()),
-        "log_a_stride": tuple(log_a.stride()),
-        "b_stride": tuple(b.stride()),
-        "c_stride": tuple(c.stride()),
-        "init_shape": _shape(init_state),
         "init_dtype": None if init_state is None else _dt(init_state),
-        "init_contiguous": init_state is None or init_state.is_contiguous(),
-        "aligned": read_in_place(x, b, c, init_state),
     }
 
 
@@ -730,8 +723,7 @@ FLASH_PACKED = KernelContract(
     recompile_budget=24,
 )
 
-_SSD_PACKED = ("x must have packed (H, P) per step, b and c packed (G, N) with shared "
-               "strides, log_a packed heads")
+_DTYPE = "kernel-dtype"
 
 SSD_SCAN = KernelContract(
     name="ssd_scan",
@@ -756,33 +748,16 @@ SSD_SCAN = KernelContract(
         Rule("chunk", "chunk size >= 1", lambda f: f["chunk"] >= 1),
     ),
     eligibility=(
-        Rule("bf16", "x, b and c must be bf16",
-             lambda f: f["x_dtype"] == f["b_dtype"] == f["c_dtype"] == "bfloat16"),
-        Rule("log-a-f32", "log_a must be f32", lambda f: f["log_a_dtype"] == "float32"),
-        Rule("chunk-256", "the scan's chunk min(chunk, L) must be at most 256 (one step "
-             "per thread)", lambda f: f["scan_chunk"] <= _ssd_scan.Q_MAX),
-        Rule("state-width", "state width N must be 16, 64 or 128 (the kernel's builds)",
-             lambda f: f["b_shape"][3] in _ssd_scan.STATE_WIDTHS),
-        Rule("head-width-8", "head width P must be a multiple of 8",
-             lambda f: f["x_shape"][3] % 8 == 0),
-        Rule("aligned", "x, b, c and init_state must be 16-byte aligned (read in place)",
-             lambda f: f["aligned"]),
-        Rule("row-strides", "x, b and c batch and time strides must be multiples of 8 "
-             "(16-byte aligned rows)",
-             lambda f: all(s[0] % 8 == 0 and s[1] % 8 == 0
-                           for s in (f["x_stride"], f["b_stride"]))),
-        Rule("packed", _SSD_PACKED,
-             lambda f: f["x_stride"][3] == 1 and f["x_stride"][2] == f["x_shape"][3]
-             and f["b_stride"][3] == 1 and f["b_stride"][2] == f["b_shape"][3]
-             and f["c_stride"] == f["b_stride"] and f["log_a_stride"][2] == 1),
-        Rule("init-state", "init_state must be f32 (B, H, P, N) and contiguous",
-             lambda f: f["init_shape"] is None
-             or (f["init_dtype"] == "float32" and f["init_contiguous"]
-                 and f["init_shape"] == f["x_shape"][:1] + (f["x_shape"][2], f["x_shape"][3],
-                                                            f["b_shape"][3]))),
+        Rule(_DTYPE, "x, log_a, b, c and init_state must be f32 or bf16 (no f16 build)",
+             lambda f: "float16" not in (f["x_dtype"], f["log_a_dtype"], f["b_dtype"],
+                                         f["c_dtype"], f["init_dtype"])),
+        Rule("state-width", "state width N must be at most 128 (the builds: N 16, 32, 64 "
+             "and 128, any other N on the next one up)",
+             lambda f: f["b_shape"][3] <= _ssd_scan.STATE_WIDTHS[-1]),
     ),
     tile=None,
-    compile_key="none: one build per state width N; (B, L, H, P, G, chunk) are launch arguments",
+    compile_key="none: one build per state width N and operand mode (bf16 in place, staged "
+                "hi / lo); (B, L, H, P, G, chunk) are launch arguments",
 )
 
 CONTRACTS: Dict[str, KernelContract] = {
@@ -791,7 +766,6 @@ CONTRACTS: Dict[str, KernelContract] = {
               FLASH_REFRESH_PAGED, FLASH_PACKED, SSD_SCAN)
 }
 
-_DTYPE = "kernel-dtype"
 _WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (bf16, f32 "
             "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
 _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
@@ -839,15 +813,11 @@ DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("flash_packed", _DTYPE, "+", _WHY_F16),
     ("flash_packed", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
-    ("ssd_scan", "bf16", "+", "x, b, c enter the tensor-core products as bf16"),
-    ("ssd_scan", "log-a-f32", "+", "the decays are summed in f32 from an f32 log_a"),
-    ("ssd_scan", "chunk-256", "+", "one scan step per thread of a 256-thread block"),
-    ("ssd_scan", "state-width", "+", "built for N 16, 64 and 128 (jamba, mamba2)"),
-    ("ssd_scan", "head-width-8", "+", "P is split into 8-column tensor-core tiles"),
-    ("ssd_scan", "aligned", "+", "16-byte loads of x, b, c and the state, read in place"),
-    ("ssd_scan", "row-strides", "+", "rows are read through batch and time strides"),
-    ("ssd_scan", "packed", "+", "heads, groups and features packed within a step"),
-    ("ssd_scan", "init-state", "+", "the f32 state is read and written whole, in place"),
+    ("ssd_scan", _DTYPE, "+", "no f16 build: neither package's ModelCfg.dtype makes f16 "
+     "operands (bf16 and f32 x, log_a, b and c run)"),
+    ("ssd_scan", "state-width", "+", "builds of N 16, 32, 64 and 128 take every N up to 128; "
+     "past it the backward's chunk-local kernel, at 255 registers at N 128 with one block "
+     "per SM, holds no wider accumulator"),
     ("ssd_scan_bwd", "requires-grad", "+", "ssd_scan takes operands that require grad on the "
      "card (SsdScanFn over the forward and backward kernels); the reference's kernel has no "
      "backward, and jax.grad differentiates its plain scan instead"),
@@ -993,10 +963,7 @@ def flash_packed_verdict(q, k, v, seg_id, block_map,
 
 
 def ssd_scan_verdict(x, log_a, b, c, init_state, chunk: int) -> DispatchDecision:
-    key = (x.shape, x.dtype, x.stride(), log_a.shape, log_a.dtype, log_a.stride(),
-           b.shape, b.dtype, b.stride(), c.shape, c.dtype, c.stride(), chunk,
-           None if init_state is None else (init_state.shape, init_state.dtype,
-                                            init_state.is_contiguous()),
-           read_in_place(x, b, c, init_state))
+    key = (x.shape, x.dtype, log_a.shape, log_a.dtype, b.shape, b.dtype, c.shape, c.dtype,
+           chunk, None if init_state is None else init_state.dtype)
     return verdict("ssd_scan", key, lambda: ssd_scan_facts(
         x, log_a, b, c, chunk=chunk, init_state=init_state))

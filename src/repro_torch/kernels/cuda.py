@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "attention_any.cu",
-           "attention_q32.cu", "attention_f32.cu", "ssd_scan.cu")
+           "attention_q32.cu", "attention_f32.cu", "ssd_scan.cu", "ssd_scan_staged.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,14 +74,19 @@ _SIGNATURES = {
     ),
     "cs_ssd_scan": (
         _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-        _ll, _ll, _ll, _ll, _ll, _ll, _p,
+        _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _ll, _ll, _i, _i, _p,
     ),
     "cs_ssd_scan_bwd": (
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
-        _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _p,
+        _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _ll, _ll, _i, _i, _p,
     ),
     "cs_ssd_scan_bwd_occupancy": (_i, _i, _p),
+    "cs_ssd_stage": (_p, _i, _ll, _i, _i, _i, _ll, _ll, _ll, _ll, _p, _i, _i, _ll, _p),
+    "cs_ssd_scan_bwd_occupancy_staged": (_i, _i, _p),
 }
+# the scan's staged builds (ssd_scan_staged.cu) share the bf16 ones' signatures
+for _name in ("cs_ssd_scan", "cs_ssd_scan_bwd"):
+    _SIGNATURES[_name + "_staged"] = _SIGNATURES[_name]
 
 # the attention kernels' entry points over bf16 K/V (csrc/attention.cuh
 # CS_ATTN_EXPORTS): each has an exact bf16 build (attention.cu), a ragged

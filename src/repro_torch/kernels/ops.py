@@ -424,7 +424,7 @@ def ssd_scan(x, log_a, b, c, init_state=None, chunk: int = 128):
     G, N = b.shape[2], b.shape[3]
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, log_a, b, c, init_state))
-    with _work(op, lambda: ssd_scan_work(L, H, P, G, N, chunk, B)):
+    with _work(op, lambda: ssd_scan_work(L, H, P, G, N, chunk, B, *_sizes(x, b, log_a))):
         if _on_meta(op, dec, x):
             if grad:
                 return SsdScanFn.apply(_ssd_scan_meta, ssd_scan_bwd, chunk, x, log_a, b, c,
@@ -438,6 +438,12 @@ def ssd_scan(x, log_a, b, c, init_state=None, chunk: int = 128):
                                        init_state)
             return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
         return ssd_scan_plain(x, log_a, b, c, init_state, chunk)
+
+
+def _sizes(x, b, log_a):
+    """The scan's element sizes in bytes: x (and y, dY, dX), b and c,
+    log_a."""
+    return x.element_size(), b.element_size(), log_a.element_size()
 
 
 def _ssd_scan_states(x, log_a, b, c, init, chunk: int):
@@ -467,9 +473,9 @@ def ssd_scan_bwd(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
     dec = contracts.ssd_scan_verdict(x, log_a, b, c, None, chunk)
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    with _work(op, lambda: ssd_scan_bwd_work(L, H, P, G, N, chunk, B)):
+    with _work(op, lambda: ssd_scan_bwd_work(L, H, P, G, N, chunk, B, *_sizes(x, b, log_a))):
         if _on_meta(op, dec, x):
-            return (torch.empty_like(x), torch.empty(log_a.shape, dtype=torch.float32,
+            return (torch.empty_like(x), torch.empty(log_a.shape, dtype=log_a.dtype,
                                                      device=x.device),
                     torch.empty(b.shape, dtype=b.dtype, device=x.device),
                     torch.empty(c.shape, dtype=c.dtype, device=x.device),

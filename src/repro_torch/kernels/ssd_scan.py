@@ -1,6 +1,6 @@
 """Mamba-2 SSD chunked scan: the plain version and the kernel.
 
-``cs_ssd_scan`` (``csrc/ssd_scan.cu``) replaces the TPU kernel
+``cs_ssd_scan`` (``csrc/ssd_scan.cuh``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py:ssd_scan_pallas`` (``_ssd_kernel``).  The
 Pallas grid walks the chunk axis in order and carries the (P, N) state
 in VMEM; on the card a thread block loops over the chunks itself and
@@ -8,10 +8,24 @@ owns ``SLICE`` rows p of one (batch row, head)'s state, which stays on
 chip throughout (grid: P slices x heads x batch rows).
 
 Both take the time axis in chunks of ``q = min(chunk, L)`` when L is not
-a multiple of ``chunk`` (else ``chunk``).  The plain version pads L to a
-multiple of q with identity steps (log_a = 0 keeps the state, x = b = 0
-adds nothing), as the JAX package's ``ops.ssd_scan`` does; the kernel
-masks the ragged last chunk instead, which is the same arithmetic.
+a multiple of ``chunk`` (else ``chunk``); a q past ``Q_MAX`` (one scan
+step per thread) runs as consecutive sub-chunks of at most ``Q_MAX``
+steps (``scan_chunk``), which equals the chunked scan in exact
+arithmetic.  The plain version pads L to a multiple of q with identity
+steps (log_a = 0 keeps the state, x = b = 0 adds nothing), as the JAX
+package's ``ops.ssd_scan`` does; the kernel masks the ragged last chunk
+instead, which is the same arithmetic.
+
+Operands (``operand_mode``): bf16 x, b and c in the layout the serving
+and training paths give them are read in place (``FAST``).  Every other
+operand the reference's scan takes (f16 apart, and N up to 128: f32 data,
+ragged P or N, strided or misaligned rows) is first copied by a staging
+kernel (``csrc/ssd_scan_staged.cu``) into a packed, zero-padded scratch
+on the next build width as bf16 hi and lo halves (``SPLIT``), which keep
+about 16 bits of f32 data through the tensor-core products (a bf16
+value's lo half is 0).  A bf16 or strided log_a is widened to packed f32
+the same way.  y, the state and the gradients come out in the caller's
+dtypes.
 
 Bound on an H100: bytes.  The kernel runs every product on the tensor
 cores (``mma.sync`` bf16 -> f32; the f32 operands M = (C B^T) o decay,
@@ -48,16 +62,50 @@ BWD_NAME = "ssd_scan_bwd"
 Q_MAX = 256           # the kernel's largest chunk (one scan step per thread)
 SLICE = 32            # state rows p per thread block
 THREADS = 256
-STATE_WIDTHS = (16, 64, 128)   # the N the kernel is built for (jamba, mamba2)
+# the state widths the kernel is built for (jamba; the JAX benchmarks'
+# audit row; mamba2); any other N up to the last runs on the next one up
+STATE_WIDTHS = (16, 32, 64, 128)
 SMEM_LIMIT = 232_448  # shared bytes one block may use on an H100 (227 KB)
 BWD_SLAB = 64         # P columns per block of the backward's chunk-parallel kernels
 BWD_HEADS = 2         # heads per block of its chunk-local kernel, where a group's count is even
+SPLIT_SLAB = 32       # P columns per chunk-local block on hi / lo operands (16 at N 128)
+FAST, SPLIT = 0, 1    # operand modes (csrc/ssd_scan.cuh)
+_OUT_F32, _OUT_BC_F32, _OUT_LA_BF16 = 1, 2, 4
 
 
 def scan_chunk(L: int, chunk: int) -> int:
-    """The chunk the scan runs with: ``chunk``, or ``min(chunk, L)``
-    when L is not a multiple of it."""
-    return min(chunk, L) if L % chunk else chunk
+    """The chunk the kernel runs: ``q = chunk``, or ``min(chunk, L)`` when
+    L is not a multiple of it; a q past ``Q_MAX`` as ceil(q / Q_MAX)
+    equal sub-chunks (rounded up), each at most ``Q_MAX`` steps."""
+    q = min(chunk, L) if L % chunk else chunk
+    return -(-q // -(-q // Q_MAX))
+
+
+# the build each state width 1..128 runs on (index N)
+_BUILD_OF = (0,) + tuple(next(w for w in STATE_WIDTHS if w >= n)
+                         for n in range(1, STATE_WIDTHS[-1] + 1))
+
+
+def build_width(N: int) -> int:
+    """The build a state width N runs on: the smallest of
+    ``STATE_WIDTHS`` that holds it (its columns past N zero)."""
+    return _BUILD_OF[N]
+
+
+def operand_mode(x, b, c, dy=None) -> int:
+    """``FAST`` where bf16 x, b and c (and dy) are read in place: N a
+    build, P a multiple of 8, heads, groups and features packed with c at
+    b's strides, rows on 16-byte boundaries; else ``SPLIT``."""
+    bf = torch.bfloat16
+    if x.dtype != bf or b.dtype != bf or c.dtype != bf or (dy is not None and dy.dtype != bf):
+        return SPLIT
+    P, N = x.shape[3], b.shape[3]
+    xs, bs = x.stride(), b.stride()
+    fast = (N in STATE_WIDTHS and P % 8 == 0 and xs[3] == 1 and xs[2] == P
+            and bs[3] == 1 and bs[2] == N and c.stride() == bs
+            and (xs[0] | xs[1] | bs[0] | bs[1]) % 8 == 0
+            and (x.data_ptr() | b.data_ptr() | c.data_ptr()) % 16 == 0)
+    return FAST if fast else SPLIT
 
 
 def chunk_count(L: int, chunk: int) -> int:
@@ -65,29 +113,49 @@ def chunk_count(L: int, chunk: int) -> int:
     return -(-L // scan_chunk(L, chunk))
 
 
-def launch_geometry(B: int, H: int, P: int, N: int, q: int):
-    """(grid, threads, shared bytes) of the kernel for chunk q, as
-    ``csrc/ssd_scan.cu`` lays them out (``SsdSmem``): rows = q rounded up
-    to 16; B rows (rows x N bf16, sharing their bytes with the f32 state
-    slice), the x slice (rows x SLICE bf16), the state's bf16 hi and lo
-    halves, cum and the scan partials; row strides padded by 16 bytes."""
+def launch_geometry(B: int, H: int, P: int, N: int, q: int, mode: int = FAST):
+    """(grid, threads, shared bytes) of the kernel for chunk q on build
+    width N, as ``csrc/ssd_scan.cuh`` lays them out (``SsdSmem``): rows =
+    q rounded up to 16; B rows (rows x N bf16, sharing their bytes with
+    the f32 state slice), the x slice (rows x SLICE bf16), the state's
+    bf16 hi and lo halves, cum and the scan partials; row strides padded
+    by 16 bytes.  ``SPLIT`` holds the B rows and the x slice twice (hi,
+    lo)."""
     rows = -(-q // 16) * 16
     ld = N + 8
-    smem = (max(2 * rows * ld, 4 * SLICE * ld) + 2 * rows * (SLICE + 8)
+    k = 2 if mode == SPLIT else 1
+    smem = (max(k * 2 * rows * ld, 4 * SLICE * ld) + k * 2 * rows * (SLICE + 8)
             + 2 * 2 * SLICE * ld + 4 * rows + 4 * (THREADS // 32))
     return (-(-P // SLICE), H, B), THREADS, smem
 
 
-def bwd_heads(H: int, G: int) -> int:
+def staged_bytes(B: int, L: int, H: int, P: int, G: int, N: int, mode: int,
+                 x_bytes: int = 2, bc_bytes: int = 2, backward: bool = False) -> int:
+    """Bytes the staging pass moves before the kernel (0 in ``FAST``):
+    x, b and c (and dY in the backward) read once in the caller's dtype
+    and written once as bf16 hi and lo halves on the padded widths."""
+    if mode == FAST:
+        return 0
+    Pp, Nb = -(-P // 8) * 8, build_width(N)
+    xs = (2 if backward else 1) * B * L * H * (P * x_bytes + 2 * 2 * Pp)
+    return xs + 2 * B * L * G * (N * bc_bytes + 2 * 2 * Nb)
+
+
+def bwd_heads(H: int, G: int, mode: int = FAST) -> int:
     """Heads per block of the backward's chunk-local kernel: a pair of
-    one group's heads where the group's head count is even, else one."""
-    return BWD_HEADS if (H // G) % 2 == 0 else 1
+    one group's heads where the group's head count is even, else one
+    (always one in ``SPLIT``)."""
+    return BWD_HEADS if mode == FAST and (H // G) % 2 == 0 else 1
 
 
-def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: int):
-    """The backward's launches, {name: (grid, threads, shared bytes)},
-    and its f32 scratch in bytes, as ``csrc/ssd_scan.cu:launch_bwd`` lays
-    them out (rows = q rounded up to 16, row pitches padded by 16 bytes):
+def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: int,
+                        mode: int = FAST, la_bf16: bool = False):
+    """The backward's launches on build width N, {name: (grid, threads,
+    shared bytes)}, and its f32 scratch in bytes, as
+    ``csrc/ssd_scan.cuh:launch_bwd`` lays them out (rows = q rounded up to
+    16, row pitches padded by 16 bytes; ``SPLIT`` holds every bf16 row
+    array twice, hi and lo, and its chunk-local kernel takes P slabs of
+    ``SPLIT_SLAB`` columns, 16 at N 128, and one head):
 
     * ``chunk`` (a): C rows (rows x N bf16), a slab of dY rows (rows x
       BWD_SLAB bf16), e and the scan partials (``ChunkSmem``);
@@ -101,16 +169,20 @@ def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: i
     Scratch: ``states`` the dS leaving each chunk (B, H, nc, P, N),
     ``cum`` cum_q (B, H, nc, rounded up to 4 elements), ``partials`` the
     dB and dC partials (B, L, H / hb, nps, N) each, ``lpart`` dlog_a's
-    per P slab (B, L, H, nps) when there is more than one slab."""
+    per P slab (B, L, H, nps) when there is more than one slab or dlog_a
+    is bf16 (``la_bf16``)."""
     q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
     rows = -(-q // 16) * 16
-    nps, hb, warps = -(-P // BWD_SLAB), bwd_heads(H, G), THREADS // 32
-    ldn, ldp = N + 8, BWD_SLAB + 8
-    chunk_smem = 2 * rows * ldn + 2 * rows * ldp + 4 * rows + 4 * warps
-    local_smem = (2 * rows * ldn + 2 * BWD_HEADS * rows * ldp + 2 * BWD_HEADS * 2 * BWD_SLAB * ldn
-                  + 3 * 4 * BWD_HEADS * rows + 4 * 2 * BWD_HEADS * warps)
+    k, slab = ((2, SPLIT_SLAB if N < 128 else 16) if mode == SPLIT else (1, BWD_SLAB))
+    hmax = BWD_HEADS if mode == FAST else 1
+    nps_a, nps = -(-P // BWD_SLAB), -(-P // slab)
+    hb, warps = bwd_heads(H, G, mode), THREADS // 32
+    ldn, ldp = N + 8, slab + 8
+    chunk_smem = k * 2 * rows * ldn + k * 2 * rows * (BWD_SLAB + 8) + 4 * rows + 4 * warps
+    local_smem = (k * 2 * rows * ldn + k * 2 * hmax * rows * ldp + 2 * hmax * 2 * slab * ldn
+                  + 3 * 4 * hmax * rows + 4 * 2 * hmax * warps)
     launches = {
-        "chunk": ((nc * nps, H, B), THREADS, chunk_smem),
+        "chunk": ((nc * nps_a, H, B), THREADS, chunk_smem),
         "state": ((-(-P * N // (4 * THREADS)), H, B), THREADS, 0),
         "local": ((nc * nps, H // hb, B), THREADS, local_smem),
         "sum": ((-(-B * L * G * N // THREADS),), THREADS, 0),
@@ -119,7 +191,7 @@ def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: i
         "states": 4 * B * H * nc * P * N,
         "cum": 4 * (-(-B * H * nc // 4) * 4),
         "partials": 2 * 4 * B * L * (H // hb) * nps * N,
-        "lpart": 4 * B * L * H * nps if nps > 1 else 0,
+        "lpart": 4 * B * L * H * nps if nps > 1 or la_bf16 else 0,
     }
     return launches, scratch
 
@@ -142,72 +214,133 @@ def ssd_scan_plain(x, log_a, b, c, init_state=None, chunk: int = 128, states: bo
 
 
 def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
-    """Launch the kernel.  x (B, L, H, P) bf16 and b, c (B, L, G, N) bf16
-    are read through their batch and time strides (heads, groups and
-    features must be packed, rows on 16-byte boundaries: no copy is
-    made); P a multiple of 8, N one of ``STATE_WIDTHS``; log_a (B, L, H)
-    f32 with packed heads; init_state (B, H, P, N) f32 must be contiguous
-    (a view such as one layer of stacked caches is, and is read in
-    place).  Operands the kernel does not take (``contracts.SSD_SCAN``)
-    raise ``KernelIneligibleError``, a ``cuda.KernelError``."""
+    """Launch the kernel.  x (B, L, H, P) and b, c (B, L, G, N) in bf16
+    with packed heads, groups and features and rows on 16-byte boundaries
+    (any batch and time strides), P a multiple of 8 and N one of
+    ``STATE_WIDTHS`` are read in place; any other x, b and c in f32 or
+    bf16, N up to 128, log_a (B, L, H) in f32 or bf16 and init_state (B,
+    H, P, N) in any layout pass through the staging kernel first.  Any
+    chunk.  Operands the kernel does not take (``contracts.SSD_SCAN``: f16,
+    N past 128) raise ``KernelIneligibleError``, a ``cuda.KernelError``."""
     contracts.require(contracts.ssd_scan_verdict(x, log_a, b, c, init_state, chunk), NAME)
     return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
 
 
+def _stage(t, width: int, split: bool):
+    """``cs_ssd_stage``: t (d0, d1, d2, d3) f32 or bf16, any strides, into
+    a packed (d0, d1, d2, width) copy, columns from d3 on zero: bf16 hi
+    and lo halves stacked as (2, d0, d1, d2, width) (``split``), or f32."""
+    d0, d1, d2, d3 = t.shape
+    shape = (d0, d1, d2, width)
+    dst = (torch.empty((2,) + shape, dtype=torch.bfloat16, device=t.device) if split else
+           torch.empty(shape, dtype=torch.float32, device=t.device))
+    rc = cuda.library().cs_ssd_stage(
+        t.data_ptr(), int(t.dtype == torch.float32), d0, d1, d2, d3, *t.stride(), dst.data_ptr(),
+        width, int(split), d0 * d1 * d2 * width, cuda.stream_handle(t))
+    cuda.check(rc, NAME)
+    return dst
+
+
+def _split(t, width: int):
+    """A data operand as ``SPLIT`` reads it: (its staged hi halves, the
+    lo halves' element offset from them)."""
+    s = _stage(t, width, True)
+    return s[0], s[0].numel()
+
+
+def _log_a_f32(log_a):
+    """log_a as the kernels read it: f32 with packed heads (a staged
+    copy otherwise; widening bf16 is exact)."""
+    if log_a.dtype == torch.float32 and log_a.stride(2) == 1:
+        return log_a
+    return _stage(log_a.unsqueeze(-1), 1, False)[..., 0]
+
+
+def _state_f32(t, width: int):
+    """init_state or the chunk states as the kernels read them: f32,
+    contiguous, on a 16-byte boundary, at the build ``width`` (a staged
+    copy otherwise); None stays None."""
+    if t is None or (t.dtype == torch.float32 and t.is_contiguous()
+                     and t.data_ptr() % 16 == 0 and t.shape[-1] == width):
+        return t
+    lead = t.shape[:-3]
+    return _stage(t.reshape((-1,) + t.shape[-3:]), width, False).view(
+        *lead, *t.shape[-3:-1], width)
+
+
 def ssd_scan_launch(x, log_a, b, c, init, chunk: int, states: bool = False):
-    """The launch alone, for operands the registry took (``ops``).  With
-    ``states`` the kernel also writes the state entering each chunk and
-    the call returns (y, final state, states)."""
+    """The launch alone, for operands the registry took (``ops``): the
+    staging pass where the operands need it (``operand_mode``), then the
+    kernel.  y comes out in x's dtype, the state (B, H, P, N) in f32.
+    With ``states`` the kernel also writes the state entering each chunk,
+    (B, H, nc, P, build width) f32, and the call returns (y, final state,
+    states)."""
     B, L, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
-    q = scan_chunk(L, chunk)
-    xs, bs, las = x.stride(), b.stride(), log_a.stride()
-    y = torch.empty((B, L, H, P), dtype=torch.bfloat16, device=x.device)
-    st = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    G, n = b.shape[2], b.shape[3]
+    cuda.require(init is None or tuple(init.shape) == (B, H, P, n), NAME,
+                 "init_state must be (B, H, P, N)")
+    N, q, lib = build_width(n), scan_chunk(L, chunk), cuda.library()
+    if operand_mode(x, b, c) == FAST:
+        launch, mode, xv, bv, cv, xp, xlo, blo = lib.cs_ssd_scan, FAST, x, b, c, P, 0, 0
+    else:
+        launch, mode, xp = lib.cs_ssd_scan_staged, SPLIT, -(-P // 8) * 8
+        (xv, xlo), (bv, blo), (cv, _) = _split(x, xp), _split(b, N), _split(c, N)
+    xs, bs = xv.stride(), bv.stride()
+    la = _log_a_f32(log_a)
+    las = la.stride()
+    init = _state_f32(init, N)
+    y = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
+    st = torch.empty((B, H, P, n), dtype=torch.float32, device=x.device)
     cst = (torch.empty((B, H, chunk_count(L, chunk), P, N), dtype=torch.float32,
                        device=x.device) if states else None)
-    rc = cuda.library().cs_ssd_scan(
-        x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(),
+    rc = launch(
+        xv.data_ptr(), la.data_ptr(), bv.data_ptr(), cv.data_ptr(),
         0 if init is None else init.data_ptr(), y.data_ptr(), st.data_ptr(),
         0 if cst is None else cst.data_ptr(),
-        B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1],
-        cuda.stream_handle(x),
+        B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1], xp, n, xlo, blo,
+        _OUT_F32 if x.dtype == torch.float32 else 0, mode, cuda.stream_handle(x),
     )
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
     return (y, st, cst) if states else (y, st)
 
 
-def ssd_scan_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1):
+def ssd_scan_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1,
+                  x_bytes: int = 2, bc_bytes: int = 2, la_bytes: int = 4):
     """(flops, bytes) the scan needs: for each (b, h) and chunk of q
     steps, 2 flops per (t, s <= t) pair and feature of c.b and of the
     decayed mix of x, and 4qPN for the state's read-out and update;
-    x, log_a, b, c and init read once, y and the state written once."""
+    x, log_a, b, c and init read once, y and the state written once, at
+    the element sizes given (x and y; b and c; log_a)."""
     q = scan_chunk(L, chunk)
     flops = 0.0
     for t0 in range(0, L, q):
         n = min(q, L - t0)
         flops += n * (n + 1) * (N + P) + 4.0 * n * P * N
     flops *= B * H
-    n_bytes = B * L * (H * P * 2 * 2 + H * 4 + 2 * G * N * 2) + 2 * B * H * P * N * 4
+    n_bytes = (B * L * (H * P * x_bytes * 2 + H * la_bytes + 2 * G * N * bc_bytes)
+               + 2 * B * H * P * N * 4)
     return flops, n_bytes
 
 
-def ssd_scan_bwd_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1):
+def ssd_scan_bwd_work(L: int, H: int, P: int, G: int, N: int, chunk: int, B: int = 1,
+                      x_bytes: int = 2, bc_bytes: int = 2, la_bytes: int = 4):
     """(flops, bytes) the backward needs: for each (b, h) and chunk of q
     steps, 2 flops per (t, s <= t) pair and feature of C B^T, dY X^T,
     M^T dY, (D o R)^T C and (D o R) B, and 16qPN for the four products
     with the state and its gradient (B dS^T, X dS, dY S_in, (e o dY)^T C);
     x, log_a, b, c, dY, the chunk states and the final state's gradient
     read once, dX, dlog_a, dB, dC and the initial state's gradient
-    written once."""
+    written once, at the element sizes given (x, dY and dX; b, c, dB and
+    dC; log_a and dlog_a)."""
     q = scan_chunk(L, chunk)
     flops = 0.0
     for t0 in range(0, L, q):
         n = min(q, L - t0)
         flops += n * (n + 1) * (3 * N + 2 * P) + 8.0 * n * P * N
     flops *= B * H
-    row = 3 * H * P * 2 + 2 * H * 4 + 4 * G * N * 2      # x, dY, dX; log_a, dlog_a; b, c, dB, dC
+    # x, dY, dX; log_a, dlog_a; b, c, dB, dC
+    row = 3 * H * P * x_bytes + 2 * H * la_bytes + 4 * G * N * bc_bytes
     n_bytes = B * L * row + (chunk_count(L, chunk) + 2) * B * H * P * N * 4
     return flops, n_bytes
 
@@ -243,8 +376,8 @@ def ssd_scan_bwd_plain(x, log_a, b, c, states, dy, d_final=None, chunk: int = 12
     and dlog_a the reverse cumulative sum of dcum within the chunk.  The
     padding is ``ssd_scan_plain``'s (identity steps).  ``dy`` (B, L, H,
     P) and ``d_final`` (B, H, P, N) or None (zeros) are the cotangents of
-    y and of the final state.  Returns (dx in x's dtype, dlog_a f32, db
-    and dc in b's and c's dtypes, d_init f32 or None)."""
+    y and of the final state.  Returns (dx in x's dtype, dlog_a in
+    log_a's, db and dc in b's and c's, d_init f32 or None)."""
     L = x.shape[1]
     q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
     X, A, Bm, Cm, dY = _chunked(x, log_a, b, c, dy, chunk)
@@ -277,7 +410,7 @@ def ssd_scan_bwd_plain(x, log_a, b, c, states, dy, d_final=None, chunk: int = 12
         dA[:, k] = dcum.flip(1).cumsum(1).flip(1)
         dS = (torch.exp(cq)[..., None, None] * dS
               + torch.einsum("bth,bthp,bthn->bhpn", e, gk, ck))
-    return (*_unchunked(dX, dA, dB, dC, x, b, c), dS if need_init else None)
+    return (*_unchunked(dX, dA, dB, dC, x, log_a, b, c), dS if need_init else None)
 
 
 def _chunked(x, log_a, b, c, dy, chunk: int):
@@ -301,13 +434,14 @@ def _final_cotangent(x, b, d_final):
             if d_final is None else d_final.float())
 
 
-def _unchunked(dX, dA, dB, dC, x, b, c):
+def _unchunked(dX, dA, dB, dC, x, log_a, b, c):
     """Chunked gradients (B, nc, q, ...) back to (B, L, ...) in the
     operands' dtypes, dB and dC summed over each group's heads."""
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     Lp = dX.shape[1] * dX.shape[2]
-    return (dX.reshape(B, Lp, H, P)[:, :L].to(x.dtype), dA.reshape(B, Lp, H)[:, :L],
+    return (dX.reshape(B, Lp, H, P)[:, :L].to(x.dtype),
+            dA.reshape(B, Lp, H)[:, :L].to(log_a.dtype),
             dB.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(b.dtype),
             dC.reshape(B, Lp, G, H // G, N).sum(3)[:, :L].to(c.dtype))
 
@@ -361,7 +495,7 @@ def ssd_bwd_local_plain(x, log_a, b, c, states, dy, ds_out, chunk: int = 128):
     dcum = K.sum(3) - K.sum(2) + e * (Cm * zc).sum(-1) - wterm
     dcum[:, :, -1] += torch.exp(cq) * (dS * S).sum((-1, -2)) + wterm.sum(2)
     dA = dcum.flip(2).cumsum(2).flip(2)
-    return _unchunked(dX, dA, dB, dC, x, b, c)
+    return _unchunked(dX, dA, dB, dC, x, log_a, b, c)
 
 
 def ssd_scan_bwd_staged(x, log_a, b, c, states, dy, d_final=None, chunk: int = 128,
@@ -393,48 +527,66 @@ def _aligned(t):
 def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
                         need_init: bool = True):
     """The backward's launches alone, for operands the registry took
-    (``ops``), counted as one ``ssd_scan_bwd`` launch.  dX, dB and dC
-    come out in bf16, dlog_a and d_init in f32; the dS per chunk and the
-    sums over a group's head blocks (and P slabs) go through f32 scratch
-    (``bwd_launch_geometry``), reduced in a fixed order."""
+    (``ops``), counted as one ``ssd_scan_bwd`` launch: the staging pass
+    where x, b, c or dy need it (``operand_mode``), then the kernels.
+    dX, dlog_a, dB and dC come out in x's, log_a's, b's and c's dtypes,
+    d_init in f32; the dS per chunk and the sums over a group's head
+    blocks (and P slabs) go through f32 scratch (``bwd_launch_geometry``),
+    reduced in a fixed order.  ``states`` at the build width, as the
+    forward kernel writes them."""
     B, L, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
-    q = scan_chunk(L, chunk)
-    _, scratch = bwd_launch_geometry(B, L, H, P, G, N, chunk)
-    dev = x.device
-    xs, bs, las = x.stride(), b.stride(), log_a.stride()
-    # the kernels read dy, states and d_final by 16-byte copies
-    dy = _aligned(dy.to(torch.bfloat16).contiguous())
-    states = _aligned(states.float().contiguous())
+    G, n = b.shape[2], b.shape[3]
+    N, q, mode = build_width(n), scan_chunk(L, chunk), operand_mode(x, b, c, dy)
+    la_bf16 = log_a.dtype == torch.bfloat16
+    _, scratch = bwd_launch_geometry(B, L, H, P, G, N, chunk, mode, la_bf16)
+    dev, lib = x.device, cuda.library()
+    if mode == FAST:
+        # the kernels read dy, states and d_final by 16-byte copies
+        launch, xv, bv, cv, dyv = lib.cs_ssd_scan_bwd, x, b, c, _aligned(dy.contiguous())
+        xp, xlo, blo = P, 0, 0
+    else:
+        launch, xp = lib.cs_ssd_scan_bwd_staged, -(-P // 8) * 8
+        (xv, xlo), (bv, blo), (cv, _), (dyv, _) = (
+            _split(x, xp), _split(b, N), _split(c, N), _split(dy, xp))
+    xs, bs = xv.stride(), bv.stride()
+    la = _log_a_f32(log_a)
+    las = la.stride()
+    states = _state_f32(states, N)
     d_final = None if d_final is None else _aligned(d_final.float().contiguous())
-    dx = torch.empty((B, L, H, P), dtype=torch.bfloat16, device=dev)
-    dla = torch.empty((B, L, H), dtype=torch.float32, device=dev)
-    db, dc = (torch.empty((B, L, G, N), dtype=torch.bfloat16, device=dev) for _ in range(2))
-    d_init = torch.empty((B, H, P, N), dtype=torch.float32, device=dev) if need_init else None
+    dx = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    dla = torch.empty((B, L, H), dtype=log_a.dtype, device=dev)
+    db = torch.empty((B, L, G, n), dtype=b.dtype, device=dev)
+    dc = torch.empty((B, L, G, n), dtype=c.dtype, device=dev)
+    d_init = torch.empty((B, H, P, n), dtype=torch.float32, device=dev) if need_init else None
     part = torch.empty(((scratch["states"] + scratch["cum"] + scratch["partials"]) // 4,),
                        dtype=torch.float32, device=dev)
     lpart = (torch.empty((scratch["lpart"] // 4,), dtype=torch.float32, device=dev)
              if scratch["lpart"] else None)
-    rc = cuda.library().cs_ssd_scan_bwd(
-        x.data_ptr(), log_a.data_ptr(), b.data_ptr(), c.data_ptr(), states.data_ptr(),
-        dy.data_ptr(), 0 if d_final is None else d_final.data_ptr(),
+    flags = ((_OUT_F32 if x.dtype == torch.float32 else 0)
+             | (_OUT_BC_F32 if b.dtype == torch.float32 else 0) | (_OUT_LA_BF16 if la_bf16 else 0))
+    rc = launch(
+        xv.data_ptr(), la.data_ptr(), bv.data_ptr(), cv.data_ptr(), states.data_ptr(),
+        dyv.data_ptr(), 0 if d_final is None else d_final.data_ptr(),
         dx.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(),
         0 if d_init is None else d_init.data_ptr(), part.data_ptr(),
         0 if lpart is None else lpart.data_ptr(),
-        B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1],
-        cuda.stream_handle(x),
+        B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1], xp, n, xlo, blo,
+        flags, mode, cuda.stream_handle(x),
     )
     cuda.check(rc, BWD_NAME)
     cuda.record_launch(BWD_NAME)
     return dx, dla, db, dc, d_init
 
 
-def bwd_occupancy(N: int, chunk: int = Q_MAX) -> dict:
+def bwd_occupancy(N: int, chunk: int = Q_MAX, mode: int = FAST) -> dict:
     """Blocks per SM of the backward's kernels, {"chunk", "state",
-    "local"}, at state width N and ``chunk``, from the CUDA runtime's
-    occupancy calculator (builds the library)."""
+    "local"}, at build width N, ``chunk`` and operand ``mode``, from the
+    CUDA runtime's occupancy calculator (builds the library)."""
     out = (ctypes.c_int * 3)()
-    cuda.check(cuda.library().cs_ssd_scan_bwd_occupancy(N, chunk, out), BWD_NAME)
+    lib = cuda.library()
+    rc = (lib.cs_ssd_scan_bwd_occupancy if mode == FAST else
+          lib.cs_ssd_scan_bwd_occupancy_staged)(N, chunk, out)
+    cuda.check(rc, BWD_NAME)
     return dict(zip(("chunk", "state", "local"), out))
 
 

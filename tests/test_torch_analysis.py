@@ -23,6 +23,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 from repro.analysis import hlo as jhlo
 from repro.analysis import roofline as jrl

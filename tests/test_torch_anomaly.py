@@ -46,6 +46,7 @@ from repro_torch.training import anomaly_task as ttask  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
 from repro_torch.training.train_step import tree_grads  # noqa: E402
 from torch_train_parity import OCFG, assert_step_within, f32, step_gaps  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 CODEC = dict(gop=4, block=16, search_radius=4, window_frames=16, stride_frames=4,
              keep_ratio=0.5, mv_threshold=0.25)

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from torch_mode_parity import (  # noqa: E402
     assert_parity, assert_plain_dispatch, serve,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCHS = ("deepseek-7b-smoke", "qwen1.5-110b-smoke", "mistral-large-123b-smoke",
          "internvl2-76b-smoke")

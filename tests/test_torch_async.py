@@ -49,6 +49,7 @@ from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro_torch.configs import CodecCfg, get_config  # noqa: E402
 from repro_torch.data.pipeline import anomaly_dataset  # noqa: E402
 from repro_torch.kernels import ops, transfer  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 from repro_torch.kernels.flash_packed import build_pack_map  # noqa: E402
 from repro_torch.kernels.flash_refresh import build_block_map  # noqa: E402
 from repro_torch.launch.serve import build_engine, build_pipeline, default_vit  # noqa: E402

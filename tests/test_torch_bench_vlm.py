@@ -49,6 +49,7 @@ from repro_torch.serving import (  # noqa: E402
     EngineCfg, Scheduler, SchedulerCfg, ServingPipeline, StreamRequest,
 )
 from torch_mode_parity import _drive, assert_parity, assert_plain_dispatch  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 # benchmarks/common.py's model, as test_torch_anomaly.py copies it
 CODEC = dict(gop=4, block=16, search_radius=4, window_frames=16, stride_frames=4,

@@ -27,6 +27,7 @@ from repro_torch.configs.base import CodecCfg as TCodecCfg  # noqa: E402
 from repro_torch.configs.base import ViTCfg as TViTCfg  # noqa: E402
 from repro_torch.core import kvc, motion, pruning  # noqa: E402
 from repro_torch.data.video import generate_video as t_generate_video  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 CODEC = dict(gop=4, block=16, search_radius=4, window_frames=8, stride_frames=4,
              keep_ratio=0.5)

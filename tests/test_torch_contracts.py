@@ -29,6 +29,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import audit, contracts, ops  # noqa: E402
 from repro_torch.kernels.flash_packed import build_pack_map  # noqa: E402
 from repro_torch.kernels.flash_refresh import build_block_map  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 PORT_PRECONDITIONS = {"flash_refresh": ["positions-match"],
                       "flash_refresh_paged": ["page-range", "positions-match"],
@@ -81,8 +82,7 @@ PORT_EXTRA_FACTS = {
     "flash_refresh_paged": {"aligned", "pages_in_range"},
     "flash_prefill_paged": {"contiguous", "aligned", "pages_in_range"},
     "flash_packed": {"map_single_run", "segments_match", "aligned"},
-    "ssd_scan": {"scan_chunk", "x_stride", "log_a_stride", "b_stride", "c_stride",
-                 "init_shape", "init_dtype", "init_contiguous", "aligned"},
+    "ssd_scan": {"scan_chunk", "init_dtype"},
 }
 
 
@@ -337,7 +337,8 @@ def test_refusals_name_their_rule_and_are_kernel_errors():
     err = contracts.SSD_SCAN.refusal("state-width", "ssd_scan")
     assert isinstance(err, KernelError) and isinstance(err, contracts.KernelContractError)
     assert str(err) == ("ssd_scan: eligibility 'state-width' failed (state width N must be "
-                        "16, 64 or 128 (the kernel's builds))")
+                        "at most 128 (the builds: N 16, 32, 64 and 128, any other N on the "
+                        "next one up))")
 
 
 def test_memoized_verdicts_equal_fresh_decisions():

@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -26,7 +26,10 @@ bf16 step (2^-7) of their (batch row, head or group) slice's largest
 value, dlog_a and d_init (f32) within 1e-3 of theirs (the plain version
 sums the same f32 products in other orders; dlog_a is a difference of
 two such sums), bitwise equal over two calls; the chunk states the
-forward kernel writes under grad within 1e-4, as its final state.
+forward kernel writes under grad within 1e-4, as its final state.  With
+f32 x, b or c (split into bf16 hi and lo halves, about 16 bits) y, dx,
+db and dc in f32 within 2^-10 of their row's or slice's largest value,
+the f32 attention kernels' limit; a bf16 dlog_a within 2^-7.
 """
 import numpy as np
 import pytest
@@ -761,8 +764,8 @@ def test_ssd_scan_under_grad_launches_both_kernels(dev):
         yp, sp = ops.ssd_scan(x, la, b, c, None, 16)
         (gp,) = torch.autograd.grad(yp.float().square().sum() + sp.sum(), (x,))
     assert _slice_rel(gx, gp, (1, 3)) <= 2.0 ** -6    # y rounds to bf16 on both sides
-    with pytest.raises(ops.KernelIneligibleError, match="eligibility 'bf16' failed"):
-        ops.ssd_scan(x.detach().float().requires_grad_(), la, b, c, None, 16)
+    with pytest.raises(ops.KernelIneligibleError, match="eligibility 'kernel-dtype' failed"):
+        ops.ssd_scan(x.detach().half().requires_grad_(), la, b, c, None, 16)
     assert ops.launch_counts() == after
 
 
@@ -824,31 +827,110 @@ def test_ssd_scan_reads_strided_b_c_in_place(dev):
 
 
 def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
+    """f16 operands and N past 128 raise naming their rule, before any
+    launch; the operands the first kernel refused (f32 x, a transposed
+    init, a transposed x, chunk 512, N 32, P 12, b and c off a 16-byte
+    boundary) now launch once each and agree with the plain version."""
     rng = np.random.default_rng(22)
     x, la, b, c, init = (t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 16))
     before = ops.launch_counts().get("ssd_scan", 0)
-    with pytest.raises(KernelError, match="bf16"):
-        ops.ssd_scan(x.float(), la, b, c, init, 16)
-    with pytest.raises(KernelError, match="contiguous"):
-        ops.ssd_scan(x, la, b, c, init.transpose(2, 3).contiguous().transpose(2, 3), 16)
-    with pytest.raises(KernelError, match="packed"):
-        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), la, b, c, init, 16)
-    long = [t.to(dev) for t in _ssd_operands(rng, 1, 1024, 4, 32, 1, 16, with_init=False)[:4]]
-    with pytest.raises(KernelError, match="chunk"):
-        ops.ssd_scan(*long, chunk=512)
-    wide = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 32)]
-    with pytest.raises(KernelError, match="state width"):
+    with pytest.raises(KernelError, match="kernel-dtype"):
+        ops.ssd_scan(x.half(), la, b, c, init, 16)
+    wide = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 136)]
+    with pytest.raises(KernelError, match="state-width"):
         ops.ssd_scan(*wide, chunk=16)
-    narrow = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 12, 1, 16)]
-    with pytest.raises(KernelError, match="multiple of 8"):
-        ops.ssd_scan(*narrow, chunk=16)
-    conv = torch.zeros(1, 16, 33, device=dev, dtype=torch.bfloat16)   # b, c 2 bytes in
-    bc = [conv[..., i:i + 16].reshape(1, 16, 1, 16) for i in (1, 17)]
-    with pytest.raises(KernelError, match="aligned"):
-        ops.ssd_scan(x, la, *bc, init, 16)
     assert ops.launch_counts().get("ssd_scan", 0) == before
-    ops.ssd_scan(x, la, b, c, init, 16)
+    long = [t.to(dev) for t in _ssd_operands(rng, 1, 1024, 4, 32, 1, 16, with_init=False)[:4]]
+    conv = torch.zeros(1, 16, 33, device=dev, dtype=torch.bfloat16)   # b, c 2 bytes in
+    conv[..., 1:] = torch.cat([b.reshape(1, 16, 16), c.reshape(1, 16, 16)], -1)
+    bc = [conv[..., i:i + 16].reshape(1, 16, 1, 16) for i in (1, 17)]
+    taken = [((x.float(), la, b, c, init), 16),
+             ((x, la, b, c, init.transpose(2, 3).contiguous().transpose(2, 3)), 16),
+             ((x.transpose(2, 3).contiguous().transpose(2, 3), la, b, c, init), 16),
+             ((*long, None), 512),
+             (tuple(t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 32)), 16),
+             (tuple(t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 12, 1, 16)), 16),
+             ((x, la, *bc, init), 16)]
+    for i, (args, chunk) in enumerate(taken):
+        y_k, st_k = ops.ssd_scan(*args, chunk=chunk)
+        y_p, st_p = ssd_scan_plain(*args, chunk=chunk)
+        assert ops.launch_counts()["ssd_scan"] == before + i + 1
+        assert y_k.dtype == args[0].dtype
+        assert _row_rel_err(y_k.cpu(), y_p.cpu()) <= 2.0 ** -7, i
+        assert _state_rel_err(st_k.cpu(), st_p.cpu()) <= 1e-4, i
+
+
+# every operand the reference's scan takes beyond the bf16 serving layout:
+# (B, L, H, P, G, N, chunk, x/b/c dtype, log_a dtype, layout); f32 y and
+# gradients within 2^-10 of their slice's largest value (the operands as
+# bf16 hi + lo halves), bf16 within 2^-7
+F32, BF16 = torch.float32, torch.bfloat16
+SSD_WIDE = {
+    "f32-mamba2-fresh": (2, 160, 80, 64, 1, 128, 256, F32, F32, "packed"),
+    "f32-bench-row": (1, 1024, 8, 64, 1, 16, 128, F32, F32, "packed"),
+    "f32-n24-p12": (2, 100, 4, 12, 2, 24, 64, F32, F32, "packed"),
+    "f32-chunk512": (1, 1000, 8, 64, 1, 64, 512, F32, F32, "packed"),
+    "bf16-n32-g2": (2, 100, 8, 64, 2, 32, 128, BF16, F32, "packed"),
+    "bf16-n24": (2, 100, 8, 64, 2, 24, 128, BF16, F32, "packed"),
+    "bf16-n8-p40": (1, 77, 4, 40, 1, 8, 32, BF16, F32, "packed"),
+    "bf16-p12": (2, 60, 4, 12, 1, 16, 64, BF16, F32, "packed"),
+    "bf16-strided-x": (2, 60, 4, 32, 1, 64, 32, BF16, F32, "strided"),
+    "bf16-log-a": (2, 100, 8, 64, 1, 64, 128, BF16, BF16, "packed"),
+    "f32-x-bf16-bc": (2, 100, 8, 64, 1, 64, 128, F32, F32, "bf16 b/c"),
+}
+
+
+def _wide_operands(case, dev):
+    B, L, H, P, G, N, _, dt, la_dt, layout = SSD_WIDE[case]
+    g = torch.Generator(device=dev).manual_seed(sorted(SSD_WIDE).index(case))
+    x = torch.randn((B, L, H, P), generator=g, device=dev).to(dt)
+    if layout == "strided":
+        x = x.transpose(2, 3).contiguous().transpose(2, 3)
+    la = (-(torch.rand((B, L, H), generator=g, device=dev) * 0.999 + 1e-3)).to(la_dt)
+    bdt = BF16 if layout == "bf16 b/c" else dt
+    b, c = ((torch.randn((B, L, G, N), generator=g, device=dev) * 0.3).to(bdt)
+            for _ in range(2))
+    init = torch.randn((B, H, P, N), generator=g, device=dev)
+    return x, la, b, c, init
+
+
+@pytest.mark.parametrize("case", sorted(SSD_WIDE))
+def test_ssd_scan_takes_every_reference_operand(dev, case):
+    chunk = SSD_WIDE[case][6]
+    x, la, b, c, init = _wide_operands(case, dev)
+    before = ops.launch_counts().get("ssd_scan", 0)
+    y_k, st_k, s_k = ssd_scan_launch(x, la, b, c, init, chunk, states=True)
     assert ops.launch_counts()["ssd_scan"] == before + 1
+    y_p, st_p, s_p = ssd_scan_fwd_plain(x, la, b, c, init, chunk)
+    assert y_k.dtype == x.dtype and st_k.shape == st_p.shape
+    tol = 2.0 ** -10 if x.dtype == F32 else 2.0 ** -7
+    assert _row_rel_err(y_k.cpu(), y_p.cpu()) <= tol
+    assert _state_rel_err(st_k.cpu(), st_p.cpu()) <= 1e-4
+    assert _slice_rel(s_k[..., :s_p.shape[-1]], s_p, (-1, -2)) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["f32-mamba2-fresh", "f32-n24-p12", "f32-chunk512",
+                                  "bf16-n24", "bf16-p12", "bf16-log-a", "f32-x-bf16-bc"])
+def test_ssd_scan_bwd_takes_every_reference_operand(dev, case):
+    chunk = SSD_WIDE[case][6]
+    x, la, b, c, init = _wide_operands(case, dev)
+    _, st, states = ssd_scan_launch(x, la, b, c, init, chunk, states=True)
+    states_p = ssd_scan_fwd_plain(x, la, b, c, init, chunk)[2]
+    g = torch.Generator(device=dev).manual_seed(99)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    dfin = torch.randn(st.shape, generator=g, device=dev)
+    got = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+    again = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+    want = ssd_scan_bwd_plain(x, la, b, c, states_p, dy, dfin, chunk)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert [t.dtype for t in got] == [t.dtype for t in want] == [
+        x.dtype, la.dtype, b.dtype, c.dtype, torch.float32]
+    tx = 2.0 ** -10 if x.dtype == F32 else 2.0 ** -7
+    tb = 2.0 ** -10 if b.dtype == F32 else 2.0 ** -7
+    ta = 1e-3 if la.dtype == F32 else 2.0 ** -7        # a bf16 dlog_a rounds on both sides
+    for k, p, dims, tol in zip(got, want, ((1, 3), (1,), (1, 3), (1, 3), (-1, -2)),
+                               (tx, ta, tb, tb, 1e-3)):
+        assert _slice_rel(k, p, dims) <= tol
 
 
 @pytest.mark.parametrize("tied", [False, True])

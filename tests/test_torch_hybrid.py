@@ -65,6 +65,7 @@ from repro_torch.serving import (  # noqa: E402
 )
 from torch_mode_parity import STATS, assert_no_refusals  # noqa: E402
 import torch_moe_routes as routes  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCH = "jamba-v0.1-52b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)

@@ -48,6 +48,7 @@ torch = pytest.importorskip("torch")
 from torch_hybrid_gap import jax_step_recorded, port_step_forced  # noqa: E402
 from torch_moe_routes import assert_near_ties, flips  # noqa: E402
 from torch_train_parity import STEP_LIMITS, assert_step_within, step_gaps  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 F32_LIMIT = 2e-5
 BF16_LIMITS = dict(STEP_LIMITS, grad=0.114, mu=0.114, nu=0.2, param_ulp=12.0)

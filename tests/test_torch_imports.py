@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -40,6 +41,42 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_each_kernel_module_imports_first():
+    """Every ``repro_torch.kernels`` module imports in an interpreter where
+    no other module of the port was imported before it (no import cycle
+    reads a half-built module)."""
+    names = sorted(p.stem for p in (PORT / "kernels").glob("*.py") if p.stem != "__init__")
+    code = ("import importlib, sys, torch\n"
+            f"for name in {names!r}:\n"
+            "    for m in [m for m in sys.modules if m.split('.')[0] == 'repro_torch']:\n"
+            "        del sys.modules[m]\n"
+            "    importlib.import_module('repro_torch.kernels.' + name)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# the port's test modules that need not run torch on one intra-op thread:
+# the card's tests run alone (``-m gpu``), beside no other xdist worker
+ONE_THREAD_EXEMPT = {"test_torch_gpu.py"}
+
+
+def test_every_port_test_module_runs_torch_on_one_thread():
+    """Each ``tests/test_torch_*.py`` imports ``torch_threads``'s module
+    fixture: without it every xdist worker starts a torch thread per core
+    and the workers stall each other (``tests/torch_threads.py``)."""
+    missing = []
+    for path in sorted((ROOT / "tests").glob("test_torch_*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        imported = any(isinstance(n, ast.ImportFrom) and n.module == "torch_threads"
+                       and any(a.name == "torch_one_thread" for a in n.names)
+                       for n in tree.body)
+        if not imported and path.name not in ONE_THREAD_EXEMPT:
+            missing.append(path.name)
+    assert missing == [], f"import torch_threads.torch_one_thread in {missing}"
 
 
 def test_port_lints_clean():

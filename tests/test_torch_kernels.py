@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_packed import (  # noqa: E402
 from repro_torch.kernels.flash_refresh import (  # noqa: E402
     build_block_map, dense_block_map, flash_refresh_paged_plain,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 BF16_TOL = 3e-2
 F32_TOL = 1e-5

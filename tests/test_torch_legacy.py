@@ -52,6 +52,7 @@ from repro_torch.models import vit as tvit  # noqa: E402
 from repro_torch.models.init import init_lm_params, init_vit_params, map_tree  # noqa: E402
 from repro_torch.serving import EngineCfg  # noqa: E402
 from repro_torch.serving.api import GreedyDecoder  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 CODEC = dict(gop=4, block=16, search_radius=4, window_frames=8, stride_frames=4,
              keep_ratio=0.5)

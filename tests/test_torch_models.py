@@ -34,6 +34,7 @@ from repro_torch.models import layers, transformer, vit  # noqa: E402
 from repro_torch.models.init import (  # noqa: E402
     from_numpy_tree, init_lm_params, init_vit_params, load_npz_params, to_tensor,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 LM = dict(name="tiny-vlm", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
           d_ff=128, vocab=64, tied_embeddings=True)

@@ -17,6 +17,7 @@ from repro_torch.serving import flops  # noqa: E402
 from torch_mode_parity import (  # noqa: E402
     assert_no_refusals, assert_parity, assert_plain_dispatch, serve,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 CONFIGS = {
     f"{mode}-{'paged' if paged else 'stream'}": (mode, paged)

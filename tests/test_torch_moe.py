@@ -60,6 +60,7 @@ from repro_torch.serving import (  # noqa: E402
 )
 import torch_mode_parity as parity  # noqa: E402
 import torch_moe_routes as routes  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCH = "olmoe-1b-7b-smoke"
 OUT_TOL = 2.0 ** -5

@@ -47,6 +47,7 @@ from repro_torch.kernels.mv_sad import SMEM_LIMIT as MV_SAD_SMEM_LIMIT  # noqa: 
 from repro_torch.kernels.mv_sad import launch_geometry as mv_sad_launch_geometry  # noqa: E402
 from repro_torch.models.init import from_numpy_tree  # noqa: E402
 from repro_torch.serving import Engine, EngineCfg  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 LOGIT_TOL = 8e-3      # test_torch_serving.py's
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16

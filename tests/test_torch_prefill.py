@@ -28,6 +28,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
     flash_prefill_paged_plain, flash_prefill_plain,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 
 def f32(a) -> np.ndarray:

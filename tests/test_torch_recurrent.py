@@ -54,6 +54,7 @@ from repro_torch.serving import (  # noqa: E402
     MODES, EngineCfg, Scheduler, SchedulerCfg, ServingPipeline, StreamRequest,
 )
 from torch_mode_parity import STATS, assert_no_refusals, videos  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCH = "mamba2-2.7b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)

@@ -39,6 +39,7 @@ from repro_torch.serving import (  # noqa: E402
     EngineCfg, Scheduler, SchedulerCfg, ServingPipeline, StreamAdmitted, StreamDone,
     StreamRequest, WindowDone,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCH = "internvl3-14b-smoke"
 CODEC = dict(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)

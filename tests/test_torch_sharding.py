@@ -28,6 +28,7 @@ import jax
 import pytest
 import torch
 from jax.sharding import AbstractMesh, PartitionSpec
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 from repro.configs import get_config as jax_config
 from repro.models import transformer as jtfm

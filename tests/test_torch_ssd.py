@@ -40,6 +40,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 )
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.init import from_numpy_tree  # noqa: E402
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCH = "mamba2-2.7b-smoke"
 

@@ -46,6 +46,7 @@ from repro_torch.kernels.ssd_scan import (
 )
 from repro_torch.models.init import meta_lm_params, trainable
 from repro_torch.training.train_step import Batch, loss_fn, tree_grads
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 F32_TOL, BF16_TOL = 1e-5, 2.0 ** -7
 NAMES = ("x", "log_a", "b", "c", "init")

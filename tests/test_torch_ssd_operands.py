@@ -1,0 +1,281 @@
+"""Every operand the reference's scan takes, through the port's scan.
+
+The JAX package's ``ssd_scan_pallas`` takes any head width P, state
+width N and chunk, x / log_a / b / c in f32, bf16 or f16 (b == c), and
+any L.  The port's kernel takes all of it but f16 and N past 128
+(``contracts.SSD_SCAN``): bf16 x, b and c in the serving layout are read
+in place, anything else passes a staging kernel first
+(``ssd_scan.operand_mode``), and a chunk past 256 runs as sub-chunks of
+at most 256 steps (``ssd_scan.scan_chunk``).  Here, on CPU tensors and
+the same numpy inputs:
+
+* ``ops.ssd_scan`` (its plain version) against the JAX package's
+  ``ops.ssd_scan`` in f32 and bf16 at chunk 512 over a ragged L, N 24
+  and 32, P 12, a strided x and a bf16 log_a, within
+  ``test_torch_ssd.py``'s limits (f32: 2e-5 of the output's scale; bf16:
+  y within 2^-7, the state within 2e-5), and each case's verdict and
+  operand mode; f16 and N 136 refused by name;
+* the sub-chunk identity: the plain version mirroring the kernel's
+  sub-chunks equals the JAX scan at the whole chunk (f32, 2e-5);
+* ``SsdScanFn`` over the plain pair on f32 operands with sub-chunks,
+  ragged P and N: f32 gradients within 1e-5 of ``jax.grad``'s per slice;
+* the dispatch audit's scan rows, the launches' shared memory for every
+  admitted (mode, build N, chunk), the bytes counted at the operands'
+  element sizes (an f32 call, and the meta count of an f32 mamba2 step);
+* one f32 mamba2-2.7b-smoke LM prefill through both packages within 1e-5.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as j_get_config
+from repro.kernels import ops as jops
+from repro.models import transformer as jtfm
+from repro_torch.analysis import roofline as rl
+from repro_torch.configs import get_config
+from repro_torch.kernels import audit, contracts, ops
+from repro_torch.kernels import ssd_scan as S
+from repro_torch.models import transformer as tfm
+from repro_torch.models.init import from_numpy_tree, meta_lm_params, trainable
+from repro_torch.training.train_step import Batch, loss_fn, tree_grads
+from torch_threads import torch_one_thread  # noqa: F401
+
+F32_TOL, BF16_TOL = 2e-5, 2.0 ** -7
+# (B, L, H, P, G, N, chunk, layout): layout "packed", "strided" (x a
+# view with its heads and features transposed in memory) or "bf16 log_a"
+CASES = {
+    "chunk 512, ragged L": (1, 600, 2, 8, 1, 16, 512, "packed"),
+    "N 24": (2, 40, 4, 8, 2, 24, 16, "packed"),
+    "N 32": (2, 40, 4, 8, 2, 32, 16, "packed"),
+    "P 12": (2, 40, 4, 12, 1, 16, 16, "packed"),
+    "strided x": (2, 40, 4, 16, 1, 16, 16, "strided"),
+    "bf16 log_a": (2, 40, 4, 8, 1, 16, 16, "bf16 log_a"),
+}
+DTYPES = ("float32", "bfloat16")
+
+
+def arrays(case: str, dtype: str, seed: int = 0):
+    """numpy inputs of one case; bf16 operands (and a bf16 log_a) rounded
+    once through torch, so both packages see the same values."""
+    B, L, H, P, G, N, _, layout = CASES[case]
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, L, H, P)).astype(np.float32)
+    la = (-np.abs(rng.normal(size=(B, L, H))) * 0.3).astype(np.float32)
+    b, c = ((rng.normal(size=(B, L, G, N)) * 0.5).astype(np.float32) for _ in range(2))
+    init = (rng.normal(size=(B, H, P, N)) * 0.1).astype(np.float32)
+
+    def rounded(a):
+        return torch.from_numpy(a).bfloat16().float().numpy()
+    if dtype == "bfloat16":
+        x, b, c = rounded(x), rounded(b), rounded(c)
+    if layout == "bf16 log_a":
+        la = rounded(la)
+    return x, la, b, c, init
+
+
+def torch_operands(case: str, dtype: str):
+    x, la, b, c, init = arrays(case, dtype)
+    td = getattr(torch, dtype)
+    layout = CASES[case][-1]
+    xt = torch.from_numpy(x).to(td)
+    if layout == "strided":
+        xt = xt.transpose(2, 3).contiguous().transpose(2, 3)
+    lat = torch.from_numpy(la).to(torch.bfloat16 if layout == "bf16 log_a" else torch.float32)
+    return xt, lat, torch.from_numpy(b).to(td), torch.from_numpy(c).to(td), torch.from_numpy(init)
+
+
+def jax_scan(case: str, dtype: str, chunk=None):
+    x, la, b, c, init = arrays(case, dtype)
+    jd = getattr(jnp, dtype)
+    ld = jnp.bfloat16 if CASES[case][-1] == "bf16 log_a" else jnp.float32
+    y, st = jops.ssd_scan(jnp.asarray(x, jd), jnp.asarray(la, ld), jnp.asarray(b, jd),
+                          jnp.asarray(c, jd), jnp.asarray(init), chunk=chunk or CASES[case][6])
+    return np.asarray(y.astype(jnp.float32)), np.asarray(st)
+
+
+@pytest.fixture(scope="module")
+def jax_refs():
+    return {(case, dt): jax_scan(case, dt) for case in CASES for dt in DTYPES}
+
+
+def close(a, b, rel):
+    a = a.float().numpy() if torch.is_tensor(a) else a
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    assert err <= rel * scale, (err / scale, rel)
+
+
+# the operand mode each case takes on the card: bf16 N 32 and P 8 are a
+# build read in place; N 24, P 12, a strided x and f32 are staged as hi
+# and lo halves
+MODES = {("N 32", "bfloat16"): S.FAST, ("chunk 512, ragged L", "bfloat16"): S.FAST,
+         ("bf16 log_a", "bfloat16"): S.FAST}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_every_reference_operand_matches_jax_and_takes_the_kernel(case, dtype, jax_refs):
+    ops_ = torch_operands(case, dtype)
+    y, st = ops.ssd_scan(*ops_, chunk=CASES[case][6])
+    y_j, s_j = jax_refs[case, dtype]
+    assert y.dtype == getattr(torch, dtype) and st.dtype == torch.float32
+    close(y, y_j, BF16_TOL if dtype == "bfloat16" else F32_TOL)
+    close(st, s_j, F32_TOL)
+    assert contracts.ssd_scan_verdict(*ops_, CASES[case][6]).use_kernel, case
+    x, _, b, c, _ = ops_
+    want = MODES.get((case, dtype), S.SPLIT)
+    assert S.operand_mode(x, b, c) == want, (case, dtype)
+
+
+def test_f16_and_n136_are_refused_by_name():
+    x, la, b, c, init = torch_operands("N 24", "float32")
+    assert contracts.ssd_scan_verdict(x.half(), la, b, c, init, 16).reason == "kernel-dtype"
+    assert contracts.ssd_scan_verdict(x, la, b.half(), c.half(), None, 16).reason == \
+        "kernel-dtype"
+    assert contracts.ssd_scan_verdict(x, la, b, c, init.half(), 16).reason == "kernel-dtype"
+    wide = torch.zeros(2, 40, 2, 136)
+    assert contracts.ssd_scan_verdict(x, la, wide, wide, None, 16).reason == "state-width"
+    assert [r.code for r in contracts.SSD_SCAN.eligibility] == ["kernel-dtype", "state-width"]
+
+
+def test_sub_chunks_equal_the_whole_chunk():
+    """L 600 at chunk 512: the kernel runs 256-step sub-chunks (and the
+    plain version mirrors it: 3 of them, the last ragged), which equal the
+    JAX scan's two 512-step chunks in exact arithmetic."""
+    assert S.scan_chunk(600, 512) == 256 and S.chunk_count(600, 512) == 3
+    assert S.scan_chunk(300, 512) == 150 and S.scan_chunk(1000, 1000) == 250
+    assert S.scan_chunk(4096, 256) == 256 and S.scan_chunk(160, 256) == 160
+    x, la, b, c, init = torch_operands("chunk 512, ragged L", "float32")
+    y, st, states = S.ssd_scan_plain(x, la, b, c, init, 512, states=True)
+    assert states.shape[2] == 3
+    y_j, s_j = jax_scan("chunk 512, ragged L", "float32")
+    close(y, y_j, F32_TOL)
+    close(st, s_j, F32_TOL)
+    assert contracts.ssd_scan_facts(x, la, b, c, chunk=512)["scan_chunk"] == 256
+
+
+def test_f32_gradients_through_the_plain_pair_match_jax_grad():
+    """SsdScanFn over (ssd_scan_fwd_plain, ssd_scan_bwd_plain) on f32
+    operands with P 12, N 24, G 2 and chunk 512 over L 300 (two 150-step
+    sub-chunks against the reference's one 300-step chunk): f32 gradients
+    within 1e-5 of jax.grad's, per slice (read: dx 6.2e-6, the others
+    3.6e-6 or less; the reference's exp(cum_t - cum_s) over a 300-step
+    chunk carries the f32 rounding of cum, |cum| x 2^-24 relative)."""
+    B, L, H, P, G, N, chunk = 2, 300, 4, 12, 2, 24, 512
+    rng = np.random.default_rng(7)
+    a = dict(x=rng.normal(0, 1, (B, L, H, P)), log_a=-np.abs(rng.normal(0, 0.3, (B, L, H))),
+             b=rng.normal(0, 0.5, (B, L, G, N)), c=rng.normal(0, 0.5, (B, L, G, N)),
+             init=rng.normal(0, 1, (B, H, P, N)))
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    gy = rng.normal(0, 1, (B, L, H, P)).astype(np.float32)
+    gs = rng.normal(0, 1, (B, H, P, N)).astype(np.float32)
+
+    def loss(ins):
+        y, st = jops.ssd_scan(ins["x"], ins["log_a"], ins["b"], ins["c"], ins["init"],
+                              chunk=chunk)
+        return jnp.sum(y * gy) + jnp.sum(st * gs)
+    want = jax.grad(loss)({k: jnp.asarray(v) for k, v in a.items()})
+    t = {k: torch.from_numpy(v).requires_grad_() for k, v in a.items()}
+    y, st = S.SsdScanFn.apply(S.ssd_scan_fwd_plain, S.ssd_scan_bwd_plain, chunk, t["x"],
+                              t["log_a"], t["b"], t["c"], t["init"])
+    ((y * torch.from_numpy(gy)).sum() + (st * torch.from_numpy(gs)).sum()).backward()
+    dims = {"x": (1, 3), "log_a": (1,), "b": (1, 3), "c": (1, 3), "init": (2, 3)}
+    for k, d in dims.items():
+        g, w = t[k].grad, torch.from_numpy(np.array(want[k]))
+        assert g.dtype == torch.float32, k
+        rel = ((g - w).abs().amax(d) / w.abs().amax(d).clamp_min(1e-30)).max()
+        assert float(rel) <= 1e-5, (k, float(rel))
+
+
+def test_audit_scan_rows_take_the_kernel():
+    rows = [r for r in audit._slab_rows() if r.op == "ssd_scan"]
+    assert [r.geometry for r in rows] == [row[0] for row in audit.SSD_AUDIT_ROWS]
+    assert [r.failure for r in rows] == [None] * len(rows)
+    got = {r.geometry: r.decision for r in rows}
+    assert got["B2 L100 H8 G2 N32 f32"] == got["B2 L100 H8 G2 N32 bf16"] == "kernel"
+    assert got["B1 L1024 H8 P64 N16 f32 (the JAX benchmarks' row)"] == "kernel"
+    assert got["B2 L160 H80 P64 N128 f32 (mamba2-2.7b, dtype f32)"] == "kernel"
+    assert got["B2 L100 H8 G2 N136 bf16"] == "refused:state-width"
+
+
+def test_every_admitted_launch_fits_an_h100():
+    """Shared memory of the forward and the backward's launches within
+    one block's 232,448 bytes for every operand mode, build N and chunk q
+    up to 256 (a longer chunk runs as sub-chunks of at most 256)."""
+    for mode in (S.FAST, S.SPLIT):
+        for N in S.STATE_WIDTHS:
+            fwd = max(S.launch_geometry(2, 80, 64, N, q, mode)[2] for q in range(1, 257))
+            assert fwd <= S.SMEM_LIMIT, (mode, N, fwd)
+            for q in (1, 16, 100, 256, 512, 1000):
+                launches, _ = S.bwd_launch_geometry(2, 2048, 80, 64, 1, N, q, mode)
+                assert all(smem <= S.SMEM_LIMIT for *_, smem in launches.values()), (mode, N, q)
+    # SPLIT at N 128: two hi / lo copies of B and x, one block per SM; its
+    # chunk-local kernel on 16-column P slabs (32 below N 128), one head
+    assert S.launch_geometry(2, 80, 64, 128, 256, S.SPLIT)[2] == 198_688
+    launches, scratch = S.bwd_launch_geometry(2, 2048, 80, 64, 1, 128, 256, S.SPLIT)
+    assert launches["local"][0] == (8 * 4, 80, 2) and launches["chunk"][0] == (8, 80, 2)
+    assert scratch["lpart"] == 4 * 2 * 2048 * 80 * 4
+    assert S.bwd_launch_geometry(2, 2048, 80, 64, 1, 64, 256, S.SPLIT)[0]["local"][0] == (
+        8 * 2, 80, 2)
+    assert S.bwd_launch_geometry(1, 64, 4, 64, 1, 16, 64, la_bf16=True)[1]["lpart"] > 0
+
+
+def test_bytes_are_counted_at_the_operands_element_sizes():
+    """An f32 call counts x, b, c and y at 4 bytes (the bf16 formula's
+    rows doubled); the meta count of an f32 mamba2-2.7b-smoke train step
+    reports those larger bytes for the scan and its backward."""
+    L, H, P, G, N, chunk, B = 160, 80, 64, 1, 128, 256, 2
+    f_bf, b_bf = S.ssd_scan_work(L, H, P, G, N, chunk, B)
+    f_32, b_32 = S.ssd_scan_work(L, H, P, G, N, chunk, B, 4, 4)
+    assert f_32 == f_bf and b_32 - b_bf == B * L * (H * P * 2 * 2 + 2 * G * N * 2)
+    _, bw_bf = S.ssd_scan_bwd_work(L, H, P, G, N, chunk, B)
+    _, bw_32 = S.ssd_scan_bwd_work(L, H, P, G, N, chunk, B, 4, 4)
+    assert bw_32 - bw_bf == B * L * (3 * H * P * 2 + 4 * G * N * 2)
+
+    def count(dtype):
+        cfg = dataclasses.replace(get_config("mamba2-2.7b-smoke"), dtype=dtype)
+        p = trainable(meta_lm_params(cfg))
+        tok = torch.empty((2, 32), dtype=torch.int32, device="meta")
+        batch = Batch(tokens=tok, targets=tok, loss_mask=torch.empty((2, 32), device="meta"))
+        d = rl.count_step(lambda: tree_grads(loss_fn(cfg, p, batch, q_chunk=16, remat=True)[0], p))
+        return cfg, d["kernels"]
+    cfg, k32 = count("float32")
+    _, k16 = count("bfloat16")
+    s = cfg.ssm
+    Hs, n_layers = s.n_heads(cfg.d_model), cfg.n_layers
+    _, want = S.ssd_scan_bwd_work(32, Hs, s.head_dim, s.n_groups, s.d_state, s.chunk, 2, 4, 4)
+    assert k32["ssd_scan_bwd"]["bytes"] == n_layers * want
+    assert k32["ssd_scan"]["bytes"] > k16["ssd_scan"]["bytes"]
+    assert k32["ssd_scan_bwd"]["bytes"] > k16["ssd_scan_bwd"]["bytes"]
+
+
+def test_f32_mamba2_lm_prefill_matches_jax():
+    """mamba2-2.7b-smoke with dtype f32: one 40-token prefill of two
+    streams from empty caches, logits, the last hidden state, conv tails
+    and SSD states within 1e-5 of the reference's largest magnitude."""
+    arch = "mamba2-2.7b-smoke"
+    jc = dataclasses.replace(j_get_config(arch), dtype="float32")
+    tc = dataclasses.replace(get_config(arch), dtype="float32")
+    params, _ = jtfm.init_params(jc, jax.random.PRNGKey(0))
+    tp = from_numpy_tree(jax.tree_util.tree_map(np.asarray, params))
+    S_, T, slots = 2, 40, 64
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(S_, T, jc.d_model)).astype(np.float32)
+    valid = rng.random((S_, T)) < 0.8
+    lj, cj, hj = jtfm.prefill(jc, params, jnp.zeros((S_, T), jnp.int32),
+                              jtfm.init_caches(jc, S_, slots, dtype=jnp.float32), valid=valid,
+                              inputs_embeds=x, cache_offset=0)
+    lt, ct, ht = tfm.prefill(tc, tp, torch.zeros((S_, T), dtype=torch.long),
+                             tfm.init_caches(tc, S_, slots, dtype=torch.float32),
+                             valid=torch.from_numpy(valid), inputs_embeds=torch.from_numpy(x),
+                             cache_offset=0)
+    pairs = [(lt, lj), (ht, hj)] + [(a, b) for bt, bj in zip(ct.blocks, cj.blocks)
+                                    for a, b in zip(bt, bj)]
+    for a, b in pairs:
+        b = np.asarray(b)
+        assert a.dtype == torch.float32
+        assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()

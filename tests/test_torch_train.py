@@ -71,6 +71,7 @@ from torch_train_parity import (  # noqa: E402
     assert_step_within, batch_arrays, f32, jax_batch, jax_step, port_batch, port_step,
     setup, step_gaps,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 LOGIT_TOL = 2e-2
 ARCHS = ("deepseek-7b-smoke", "olmoe-1b-7b-smoke", "internvl3-14b-smoke",

@@ -44,6 +44,7 @@ from torch_mode_parity import (  # noqa: E402
     ARCH, assert_no_refusals, assert_parity, assert_plain_dispatch, jax_pipeline,
     port_pipeline, serve,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 def bf16_pair(x: np.ndarray):
     """The same bf16 values for both frameworks."""

@@ -62,6 +62,7 @@ from torch_train_parity import (  # noqa: E402
     assert_step_within, batch_arrays, f32, jax_batch, jax_step, port_batch, port_step,
     setup, step_gaps,
 )
+from torch_threads import torch_one_thread  # noqa: E402,F401
 
 ARCH = "whisper-large-v3-smoke"
 DECODE_TOL = 2e-2
