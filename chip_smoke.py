@@ -9,6 +9,7 @@ and check them.
     python3 chip_smoke.py --only mesh
     python3 chip_smoke.py --only mamba
     python3 chip_smoke.py --only f32-ssm
+    python3 chip_smoke.py --only d256
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -16,10 +17,11 @@ With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
-``--only mamba``, ``--only f32-ssm``, ``--only mesh``, ``--only
-hosttime`` and ``--only deep-step``: phase 3's mha probe, phase 7 alone,
-phase 8(b) alone, phase 8(e) with its roofline, phases 7(f) and 8(f)
-(mamba2-2.7b in f32) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
+``--only mamba``, ``--only f32-ssm``, ``--only d256``, ``--only mesh``,
+``--only hosttime`` and ``--only deep-step``: phase 3's mha probe, phase
+7 alone, phase 8(b) alone, phase 8(e) with its roofline, phases 7(f) and
+8(f) (mamba2-2.7b in f32) alone, phase 7(g) (internvl3-14b with LM heads
+of 256) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
 host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
 over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
@@ -101,7 +103,16 @@ Phases (any failure exits non-zero):
                f32 q/k/v at flash_packed's busy packing and
                flash_prefill's causal shape (within F32_ROW_TOL, their
                split pre-pass's bytes printed beside the bound, not in
-               it); each attention case also prints device_ms (launches
+               it); head dim 256 (the WIDE build) in every attention
+               kernel at internvl3-14b's widths re-cut to 20 heads of 256
+               over 4 (WIDE_HEADS: the same operations and bytes as its
+               D-128 rows): the refresh kernels at fresh, refresh and
+               decode (int8 at refresh), prefill causal, at an offset,
+               windowed and ragged, paged prefill bf16 and int8,
+               flash_packed's busy packing at H 8; f32 queries (f32
+               q/k/v in flash_packed and flash_prefill), the ragged widths
+               WIDE_RAGGED (192, 136) on it, and rope_shift at D 256; each
+               attention case also prints device_ms (launches
                over copies of its inputs, L2-cold, in one replayed CUDA
                graph); mv_sad
                at 448^2 with radius 16 and 32 and block 8
@@ -197,8 +208,16 @@ Phases (any failure exits non-zero):
                top-6) at full width and depth, codecflow on the paged
                bf16 slab, 2 streams x 24 frames; (e) deepseek-7b with
                f32 weights (f32 queries over the bf16 slab) ingested at
-               search radius 16 (FAMILY_CODECS), the same path; each
-               case's seconds are printed.  Each case is served
+               search radius 16 (FAMILY_CODECS), the same path; (f)
+               mamba2-2.7b with f32 weights; (g) internvl3-14b at full
+               width and depth with 20 LM heads of 256 over 4 (the
+               attention kernels' D-256 build; its own ViT, 448^2
+               frames), codecflow on the paged bf16 slab and then once
+               on per-stream caches and once with int8 cold pages (which
+               must demote pages), each path's windows/s, stage seconds,
+               peak memory and launches printed beside phase 4's run of
+               the same path at heads of 128; each case's seconds are
+               printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
@@ -397,6 +416,14 @@ F32_ROW_TOL = 2.0 ** -10
 # smallest ragged build that holds it (csrc/attention.cuh), at H 16 over
 # Hkv 4 on internvl3-14b's layout; the f32 cases at its own widths
 RAGGED_WIDTHS = (16, 40, 72, 80, 96, 112)
+# internvl3-14b re-cut to LM heads of 256 (phase 3's D-256 cases, and
+# phase 7(g)): 20 heads over 4 kv heads keep d_model 5120 and the GQA
+# group of 5, so the parameters, the KV bytes per stream and the
+# attention FLOPs are those of its 40 heads of 128 over 8
+WIDE_HEADS = dict(n_heads=20, n_kv=4, d_head=256)
+WIDE_ARCH = f"{ARCH}, 20 heads of 256"
+# head dims on the WIDE build's ragged path (d 136 to 248), at H 20 over Hkv 4
+WIDE_RAGGED = (192, 136)
 # mv_sad beyond the codec's radius 4: (frame edge, block, radius)
 MV_SEARCHES = ((448, 16, 16), (448, 16, 32), (448, 8, 16))
 # lm_logits vs the f32 product of its bf16 operands: max over rows of
@@ -1792,6 +1819,12 @@ def vit_flop_ratio(torch, pipe, videos):
     return pad / pack, pad, pack
 
 
+def served_reading(n_win, wall, busy, peak, launches) -> str:
+    """One lockstep run's readings as phase 7(g) prints them beside its own."""
+    return (f"{n_win} windows, {n_win / wall:.4f} windows/s; stage busy s {busy}; peak "
+            f"memory {peak:.2f} GiB; launches {launches}")
+
+
 def serve_paths(torch, cfg, params, vparams, videos, main_run):
     """Phase 4, further paths: each served once with the counts set to 0
     just before and read just after.  A padded-ViT path must launch no
@@ -1837,6 +1870,7 @@ def serve_paths(torch, cfg, params, vparams, videos, main_run):
             f"windows/s incl. codec ingest); stage busy s {busy}; peak memory {peak:.2f} "
             f"GiB; kv bytes per stream {kv_bytes}; t_map {pipe.backend.t_map:.4f} s; "
             f"launches {launches}; plain on CUDA {plain_on_cuda}")
+        READINGS[f"phase 4 {label}"] = served_reading(n_win, wall, busy, peak, launches)
         for i, res in enumerate(per_stream):
             log(f"  stream {i}: answers {[r.stats.answer for r in res]}, yes/no logits "
                 f"{[tuple(round(x, 4) for x in r.stats.logits_yes_no) for r in res]}")
@@ -2341,7 +2375,8 @@ def state_bytes(cfg, slots: int) -> int:
 def family_models():
     """Phase 7's models, in order: (key, arch, cfg as served, modes, frames
     per stream, what of the model is served); FAMILY_CODECS has the codec
-    fields a case sets."""
+    fields a case sets, FAMILY_FRAMES the frame edge of a case that keeps
+    its model's own ViT, FAMILY_PATHS the further paths a case serves."""
     from repro_torch.configs import get_config
     hybrid, full = get_config(HYBRID_ARCH), "full width and depth"
     return (
@@ -2354,12 +2389,21 @@ def family_models():
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights, search radius 16"),
         ("(f)", SSM_F32, dataclasses.replace(get_config(SSM_ARCH), dtype="float32"),
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights"),
+        ("(g)", WIDE_ARCH, dataclasses.replace(get_config(ARCH), **WIDE_HEADS), ("codecflow",),
+         MOE_FRAMES, f"{full}, LM heads of 256, InternViT at {HW}^2"),
     )
 
 
 # (e): an f32 LM (f32 queries over the bf16 slab) ingested at the search
 # range of a software H.264 encoder
 FAMILY_CODECS = {"(e)": dict(search_radius=16)}
+# (g): internvl3-14b keeps its own ViT (InternViT, 16 heads of 64), which
+# takes 448^2 frames, where the other cases take the launcher's 112^2 one
+FAMILY_FRAMES = {"(g)": HW}
+# (g): after the four engine runs on the paged bf16 slab, one lockstep run
+# per further path: per-stream caches (flash_refresh) and int8 cold pages
+FAMILY_PATHS = {"(g)": (("per-stream KV", dict(paged_kv=False)),
+                        ("int8 cold pages", dict(stale_page_dtype="int8")))}
 
 
 def model_widths(cfg) -> str:
@@ -2386,8 +2430,14 @@ def serve_families(torch, keys=None):
     backend; all with the launcher's 112^2 ViT and random weights
     made on the card from the seed (bf16 but for (e)'s and (f)'s LM), each case
     served lockstep, async, async, lockstep, the yes/no logits of every
-    run bitwise equal.  Each model's weights are freed before the next.
-    ``keys`` serves only those cases.  Returns (ok, launches per run)."""
+    run bitwise equal; (g) internvl3-14b with 20 LM heads of 256 over 4
+    (WIDE_HEADS: the attention kernels' D-256 build) and its own ViT at
+    448^2, the same four runs on the paged bf16 slab, then one lockstep
+    run on per-stream caches and one with int8 cold pages (which must
+    demote pages), each path's readings printed beside phase 4's D-128
+    run of the same path.  Each model's weights are freed before the
+    next.  ``keys`` serves only those cases.  Returns (ok, launches per
+    run)."""
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.launch.serve import default_vit
     from repro_torch.models.init import init_lm_params, init_vit_params, map_tree, tree_leaves
@@ -2406,9 +2456,11 @@ def serve_families(torch, keys=None):
         n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         log(f"weights: {arch} ({depth}: {model_widths(cfg)}) {n_bytes / 2**30:.2f} GiB made "
             f"on the card in {time.perf_counter() - t0:.1f} s")
-        videos = anomaly_dataset(2, frames, FAMILY_HW, FAMILY_HW, seed=SEED)
+        hw = FAMILY_FRAMES.get(key, FAMILY_HW)
+        videos = anomaly_dataset(2, frames, hw, hw, seed=SEED)
         want_n = 2 * ((frames - 16) // 4 + 1)
         codec = FAMILY_CODECS.get(key)
+        paths = FAMILY_PATHS.get(key, ())
         makers = {mode: (lambda mode=mode: ServingPipeline(
             cfg, v, params, vparams, path_ecfg(mode, {}, codec), device="cuda"))
             for mode in modes}
@@ -2441,6 +2493,19 @@ def serve_families(torch, keys=None):
                 log(f"  stream {i}: answers {runs[0]['answers'][i]}, yes/no logits "
                     f"{[tuple(round(x, 4) for x in lg) for lg in res]}")
             ok = ok and here and bitwise
+            if paths:
+                log(f"  beside phase 4 (heads of 128) [{MAIN}]: "
+                    f"{READINGS.get(f'phase 4 {MAIN}', 'not run')}")
+        for label, kv in paths:
+            def make(kv=kv):
+                return ServingPipeline(cfg, v, params, vparams, path_ecfg("codecflow", kv, codec),
+                                       device="cuda")
+            here, _ = engine_case(torch, "families", f"{key} codecflow, {label}",
+                                  f"{arch} codecflow, {label}", make, videos, 2, want_n,
+                                  (False,), by_path)
+            log(f"  beside phase 4 (heads of 128) [codecflow, {label}]: "
+                f"{READINGS.get(f'phase 4 codecflow, {label}', 'not run')}")
+            ok = ok and here
         # kernels against their plain versions through the first layers
         # of the same weights (views), as phase 6 does at 4 layers
         cut_cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, max(4, cfg.period)))
@@ -2448,14 +2513,15 @@ def serve_families(torch, keys=None):
         cut = dict(params, blocks=tuple(map_tree(lambda t: t[:r], blk)
                                         for blk in params["blocks"]))
         short = [(f[:20], lab) for f, lab in videos]    # one fresh + one incremental window
-        for mode in modes:
+        for label, mode, kv in [(m, m, {}) for m in modes] + [
+                (f"codecflow, {lab}", "codecflow", kv) for lab, kv in paths]:
             diff, tol, ans_ok, here = composite(torch, cut_cfg, v, cut, vparams, short, mode,
-                                                {}, codec)
-            log(f"composite [{arch}, {mode}] ({cut_cfg.n_layers} layers, full width): max "
+                                                kv, codec)
+            log(f"composite [{arch}, {label}] ({cut_cfg.n_layers} layers, full width): max "
                 f"|d yes/no logit| {diff:.4g} (tol {tol:.3g}); answers agree where the "
                 f"margin exceeds 2 x tol: {ans_ok}")
             if not here:
-                log(f"FAIL: composite check [{arch}, {mode}]")
+                log(f"FAIL: composite check [{arch}, {label}]")
             ok = ok and here
         del params, vparams, cut
         log(f"families {key} {arch}: {time.perf_counter() - t0:.1f} s")
@@ -3653,7 +3719,8 @@ def main(argv=None) -> int:
                     help="comma-separated kernel names: their checks alone (phases 1-3); "
                          "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
                          "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'f32-ssm' "
-                         "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'mesh' "
+                         "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'd256' (phase 7(g): "
+                         "internvl3-14b with LM heads of 256), 'mesh' "
                          "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
                          "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
                          "each alone after phases 1-2")
@@ -3709,7 +3776,9 @@ def main(argv=None) -> int:
               "families": lambda: serve_families(torch)[0] and served_cleanly("phase 7"),
               "f32-ssm": lambda: (serve_families(torch, ("(f)",))[0]
                                   and served_cleanly("phase 7(f)")
-                                  and train_mamba(torch, "float32")[0])}
+                                  and train_mamba(torch, "float32")[0]),
+              "d256": lambda: (serve_families(torch, ("(g)",))[0]
+                               and served_cleanly("phase 7(g)"))}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
         print(smi)
@@ -3756,12 +3825,25 @@ def main(argv=None) -> int:
     stream_cases += tuple((f"{lab}, selective refresh", w, lay, slots, "selective refresh")
                           for lab, w in widths.items()) + tuple(
         (f"f32 q, {case}", cfg, lay, slots, case, F32) for case in REFRESH_CASES)
+    # the WIDE build: internvl3-14b at 20 heads of 256 (WIDE_HEADS), with
+    # bf16 and f32 queries, and ragged widths on it at the same heads
+    d256 = dataclasses.replace(cfg, name="d256", **WIDE_HEADS)
+    wide_ragged = {f"D {d}": dataclasses.replace(d256, name=f"d{d}", d_head=d)
+                   for d in WIDE_RAGGED}
+    D256, D256_F32 = "D 256", "D 256, f32 q"
+    stream_cases += tuple((f"{D256}, {case}", d256, lay, slots, case)
+                          for case in REFRESH_CASES) + (
+        (f"{D256_F32}, selective refresh", d256, lay, slots, "selective refresh", F32),) + tuple(
+        (f"{lab}, selective refresh", w, lay, slots, "selective refresh")
+        for lab, w in wide_ragged.items())
     n = len(videos)
     paged_families, stream_families = family_kernel_cases()
     paged_families += [(B24, bcfg, blay, bslots), (W24, wide, pipe.layout, pipe.cache_slots),
                        (f"{SMOKE_ARCH}, D 64", smoke, blay, bslots)] + [
         (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in widths.items()] + [
-        ("f32 q", cfg, lay, slots, F32)]
+        ("f32 q", cfg, lay, slots, F32), (D256, d256, lay, slots),
+        (D256_F32, d256, lay, slots, F32)] + [
+        (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in wide_ragged.items()]
 
     def prefill_paged():
         main = check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)
@@ -3772,7 +3854,12 @@ def main(argv=None) -> int:
                  **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab)
                     for lab, w in widths.items()},
                  "f32 q": check_flash_prefill_paged(torch, cfg, lay, slots, n, label="f32 q",
-                                                    q_dtype=F32)}
+                                                    q_dtype=F32),
+                 D256: check_flash_prefill_paged(torch, d256, lay, slots, n, label=D256),
+                 D256_F32: check_flash_prefill_paged(torch, d256, lay, slots, n,
+                                                     label=D256_F32, q_dtype=F32),
+                 **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab)
+                    for lab, w in wide_ragged.items()}}
         return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
                 for i, m in enumerate(main)]
 
@@ -3786,7 +3873,8 @@ def main(argv=None) -> int:
                                             label=f"{B24}, f32"),
             W24: check_rope_shift(torch, wide, pipe.layout, n, label=W24),
             f"{SMOKE_ARCH}, D 64": check_rope_shift(torch, smoke, blay, n,
-                                                    label=f"{SMOKE_ARCH}, D 64")})],
+                                                    label=f"{SMOKE_ARCH}, D 64"),
+            D256: check_rope_shift(torch, d256, pipe.layout, n, label=D256)})],
         "flash_refresh_paged": lambda: [check_flash_refresh_paged(
             torch, cfg, pipe.layout, pipe.cache_slots, n, paged_families)],
         "flash_packed": lambda: [with_cases(check_flash_packed(torch, pipe, streams), {
@@ -3799,7 +3887,11 @@ def main(argv=None) -> int:
                 torch, pipe, streams, heads=(16, w.d_head), label=f"{lab}, H 16", only=("busy",))
                for lab, w in widths.items()},
             "f32 q/k/v, busy": check_flash_packed(torch, pipe, streams, dtype=F32,
-                                                  label="f32 q/k/v", only=("busy",))})],
+                                                  label="f32 q/k/v", only=("busy",)),
+            **{f"{lab}, busy": check_flash_packed(torch, pipe, streams, heads=(8, d),
+                                                  label=lab, dtype=dt, only=("busy",))
+               for lab, d, dt in (("D 256, H 8", 256, None), ("D 256, H 8, f32 q/k/v", 256, F32),
+                                  *((f"D {d}, H 8", d, None) for d in WIDE_RAGGED))}})],
         "flash_refresh": lambda: [check_flash_refresh(torch, stream_cases, n, stream_families)],
         "flash_refresh_paged_int8": lambda: [with_cases(
             check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n), {
@@ -3810,7 +3902,12 @@ def main(argv=None) -> int:
                 **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab)
                    for lab, w in widths.items()},
                 "f32 q": check_flash_refresh_paged_int8(torch, cfg, lay, slots, n,
-                                                        label="f32 q", q_dtype=F32)})],
+                                                        label="f32 q", q_dtype=F32),
+                D256: check_flash_refresh_paged_int8(torch, d256, lay, slots, n, label=D256),
+                D256_F32: check_flash_refresh_paged_int8(torch, d256, lay, slots, n,
+                                                         label=D256_F32, q_dtype=F32),
+                **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab)
+                   for lab, w in wide_ragged.items()}})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
         "ssd_scan_bwd": lambda: [check_ssd_scan_bwd(torch)],
         "flash_prefill": lambda: [with_cases(
@@ -3823,7 +3920,15 @@ def main(argv=None) -> int:
                 for lab, w in widths.items()} | {
                 "f32 q/k/v": check_flash_prefill(torch, cfg, lay.total_len, n,
                                                  only=("causal",), label="f32 q/k/v",
-                                                 dtype=F32)})],
+                                                 dtype=F32),
+                D256: check_flash_prefill(torch, d256, lay.total_len, n, only=(
+                    "causal", "chunk at an offset", "sliding window", "ragged"), label=D256),
+                f"{D256}, f32 q/k/v": check_flash_prefill(torch, d256, lay.total_len, n,
+                                                          only=("causal",),
+                                                          label=f"{D256}, f32 q/k/v",
+                                                          dtype=F32)} | {
+                lab: check_flash_prefill(torch, w, lay.total_len, n, only=("causal",), label=lab)
+                for lab, w in wide_ragged.items()})],
         "flash_prefill_paged": prefill_paged,
     }
     if only - set(checks):
@@ -3866,10 +3971,11 @@ def main(argv=None) -> int:
         log(f"stream {i}: answers {[r.stats.answer for r in res]}, yes/no logits "
             f"{[tuple(round(x, 4) for x in r.stats.logits_yes_no) for r in res]}")
     occ = {k: round(v, 4) for k, v in sched.stage_busy.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"serve: {n_win} windows in {wall:.3f} s ({n_win / wall:.4f} windows/s incl. "
-        f"codec ingest); stage busy s {occ}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"codec ingest); stage busy s {occ}; peak memory {peak:.2f} GiB")
     log(f"launches during serve: {launches}; plain on CUDA: {plain_on_cuda}")
+    READINGS[f"phase 4 {MAIN}"] = served_reading(n_win, wall, occ, peak, launches)
     logits = np.array([r.stats.logits_yes_no for res in per_stream for r in res])
     ok = (n_win == 6 and bool(np.isfinite(logits).all())
           and all(launches.get(k, 0) > 0 for k in pipe.kernels)

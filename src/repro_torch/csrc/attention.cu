@@ -1,7 +1,8 @@
-// The attention kernels at the head dims they were first built for (24,
-// 32, 64 and 128) over bf16 q, k and v: exact builds, d == D, the code
-// before the ragged and f32 builds existed.  The body and the TPU kernels
-// each entry point replaces: attention.cuh.  Other head dims:
+// The attention kernels at the exact head dims 24, 32, 64, 128 and 256
+// over bf16 q, k and v: d == D.  The first four compile to the code
+// before the ragged and f32 builds existed; 256 is the WIDE build (4
+// warps own 64 query rows in 32-key steps, attention.cuh).  The body and
+// the TPU kernels each entry point replaces: attention.cuh.  Other head dims:
 // attention_any.cu; f32 queries: attention_q32.cu; f32 q/k/v:
 // attention_f32.cu (each source compiles in its own nvcc process).
 #include "attention.cuh"

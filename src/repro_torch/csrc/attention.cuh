@@ -45,16 +45,17 @@
 // and, under KEY_BITS, k_info_row / k_live (a live bit per key).  A Build
 // supplies the widths and the operands' types:
 //
-//   * head dims: a build of width D (24, 32, 64 or 128) lays out shared
-//     memory and runs the products for D columns.  An exact build
+//   * head dims: a build of width D (24, 32, 64, 128 or 256) lays out
+//     shared memory and runs the products for D columns.  An exact build
 //     (attention.cu) takes d == D, and compiles to the code these kernels
 //     had before other widths were taken; a ragged build takes any head
 //     dim d <= D that is a multiple of 8 (attention_any.cu, and every
 //     f32 build): it copies d / 8 chunks of a row, zeroes K's columns
 //     [d, DK) once per block (Q's are zeros too, so Q K^T is exact), and
 //     stores d output columns.  Each d runs on the smallest build that
-//     holds it (d 8 and 16 on 24; 40-56 on 64; 72-120 on 128), whose
-//     padded products cost up to D / d more (1.6x at d 80);
+//     holds it (d 8 and 16 on 24; 40-56 on 64; 72-120 on 128; 136-248 on
+//     256), whose padded products cost up to D / d more (1.6x at d 80,
+//     1.9x at d 136).  D 256 is WIDE (below: a block shape of its own);
 //   * operand types: OPS_BF16 (bf16 q, k, v and output), OPS_Q32 (f32 q
 //     over bf16 k, v, f32 output: what an f32 LM hands the refresh
 //     kernels: its caches and slab are bf16) and OPS_F32 (f32 q, k and v,
@@ -82,7 +83,7 @@
 // bound is the tensor cores; decode (one query row per stream) is bound
 // by the bytes of the keys it reads.
 //
-// The body: a thread block owns a whole 128-row query tile for one
+// The body (up to D 128): a thread block owns a whole 128-row query tile for one
 // (batch row, head), so every visited K/V tile is read once per query
 // tile; its eight warps own 16 query rows each.  K/V (and the tile's
 // kv_valid bytes) reach shared memory by 16-byte cp.async copies into a
@@ -106,7 +107,19 @@
 // (24 bytes, or any ragged d) arrives in 8-byte copies.  Steps are 64 keys:
 // at D 128 the 64 f32 accumulators of O, 32 registers of query fragments
 // and 32 f32 scores per thread (216 registers in all) leave no room for
-// 128-key steps.  Compile-time hooks whose refresh values keep the refresh
+// 128-key steps.
+//
+// The WIDE body (D 256) does not fit that shape: O alone takes 128 f32
+// registers a thread, and a 128-row Q tile (67.6 KB at rows of 264) with
+// three stages of 64-key K and V slots (33.8 KB each) passes 227 KB.  So a
+// WIDE block has four warps own 64 query rows, half a map tile (two
+// blocks share a tile's visit list, page table and kv_valid rows, and
+// each reads the tile's K/V), in 32-key steps (16 f32 scores a thread)
+// over two stages, and reads the query's fragments from shared memory at
+// every k16 step, as a split query does.  Shared memory: Q 33.8 KB (67.6
+// with its low half), a K or V slot 16.9 KB; bf16 101 KB (two blocks an
+// SM), + int8 staging 134 KB, OPS_F32's four arrays a slot 203 KB.
+// Compile-time hooks whose refresh values keep the refresh
 // kernels' code: no per-key bits (KEY_BITS false, prefill and packed: the
 // key range is the whole mask, and the kv_valid copies and ballots compile
 // away), key rows from Sk on zero-filled by the copy with nothing read for
@@ -150,12 +163,19 @@ enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2 };
 
 // A build: its width D (shared-memory rows, the products' columns),
 // whether it takes a ragged head dim dh <= D, and its operand types.
+// Its block shape (see the header): up to D 128, THREADS 256 (8 warps)
+// own a whole 128-row query tile in BK = 64-key steps; a WIDE build (D
+// 256) has 4 warps own QROWS = 64 rows, half a tile, in 32-key steps.
 template <int D_, bool RAGGED_, int OPS_>
 struct Build {
   static constexpr int D = D_;
   static constexpr bool RAGGED = RAGGED_;
   static constexpr int OPS = OPS_;
   static constexpr bool SPLIT_KV = OPS_ == OPS_F32;   // K, V as bf16 hi + lo
+  static constexpr bool WIDE = D_ > 128;
+  static constexpr int THREADS = WIDE ? 128 : 256;     // 16 query rows a warp
+  static constexpr int BK = WIDE ? 32 : 64;            // keys a step (one ring slot)
+  static constexpr int QROWS = THREADS / 2;            // query rows a block
   int dh;                                              // the operands' head dim
   // the operands' head dim, and whether columns [c8, c8 + 8) hold data
   __device__ __forceinline__ int d() const { return RAGGED ? dh : D; }
@@ -167,10 +187,7 @@ template <class B>
 using QT = std::conditional_t<B::OPS == OPS_BF16, bf16, float>;
 
 // ---- asynchronous tile loads ---------------------------------------------
-constexpr int MMA_THREADS = 256;   // 8 warps x 16 query rows
-constexpr int MMA_BK = 64;         // keys per step (one ring slot)
-
-// one ring slot: 64 keys of K and V (bf16, in the body's layout), their
+// one ring slot: a step's keys of K and V (bf16, in the body's layout), their
 // low halves (OPS_F32), and (int8 problems) the staging bytes of a cold
 // tile
 struct Slot {
@@ -201,16 +218,15 @@ struct PaddedRows {
   static constexpr int DK = (D + 15) / 16 * 16;
   static_assert(DK == D || DK == D + 8, "D is a multiple of 8");
   static constexpr int LDH = DK + 8;
-  static constexpr int ELEMS = MMA_BK * LDH;
   __device__ static int at(int r, int c8) { return r * LDH + c8; }
 };
 
-// K/V rows [row0, row0 + MMA_BK) of kv head kvh -> a slot, by cp.async
+// K/V rows [row0, row0 + BK) of kv head kvh -> a slot, by cp.async
 template <class B>
 __device__ void async_rows(const Slot& st, const KV& kv, long long row0, int Hkv, int kvh,
                            int tid, const B& bd) {
   constexpr int D = B::D;
-  for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+  for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
     const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
     if (!bd.col(c8)) continue;
     const long long off = ((row0 + r) * Hkv + kvh) * bd.d() + c8;
@@ -235,7 +251,7 @@ struct ColdPages {
   const float* v_scale;
   int n_hot;
 
-  // rows [c0, c0 + MMA_BK) of cold entry `entry` -> the slot's staging
+  // rows [c0, c0 + BK) of cold entry `entry` -> the slot's staging
   // bytes (rows of D bytes), in 16-byte copies (8-byte ones where a row is
   // not a multiple of 16 bytes: D 24, and any ragged d)
   template <class B>
@@ -244,7 +260,7 @@ struct ColdPages {
     constexpr int D = B::D;
     constexpr int CH = !B::RAGGED && D % 16 == 0 ? 16 : 8;
     const long long row0 = (long long)(entry - n_hot) * TILE + c0;
-    for (int i = tid; i < MMA_BK * D / CH; i += MMA_THREADS) {
+    for (int i = tid; i < B::BK * D / CH; i += B::THREADS) {
       const int r = i / (D / CH), c = (i % (D / CH)) * CH;
       if (!bd.col(c)) continue;
       const long long off = ((row0 + r) * Hkv + kvh) * bd.d() + c;
@@ -266,7 +282,7 @@ struct ColdPages {
     if (entry < n_hot) return false;
     const int cp = entry - n_hot;
     const float ks = k_scale[cp * Hkv + kvh], vs = v_scale[cp * Hkv + kvh];
-    for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+    for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       if (!bd.col(c8)) continue;
       const uint2 rk = *reinterpret_cast<const uint2*>(st.K8 + r * D + c8);
@@ -392,7 +408,7 @@ struct Prefill : PrefillMask {
                            int kvh, int tid, const B& bd) const {
     constexpr int D = B::D;
     const int key0 = j * TILE + c0;
-    for (int i = tid; i < MMA_BK * D / 8; i += MMA_THREADS) {
+    for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       if (!bd.col(c8)) continue;
       const bool in = key0 + r < Sk;
@@ -499,12 +515,14 @@ template <class B, class P>
 struct MmaSmem {
   static constexpr int D = B::D;
   static constexpr int LDQ = PaddedRows<D>::LDH;   // padded query rows (ldmatrix)
-  static constexpr int STAGES = B::SPLIT_KV && D == 128 ? 2 : 3;
-  static constexpr size_t slot_kv = sizeof(bf16) * PaddedRows<D>::ELEMS;
+  // two stages at D 256 (a bf16 block's 101 KB lets two blocks share an
+  // SM) and for OPS_F32 at D 128
+  static constexpr int STAGES = B::WIDE || (B::SPLIT_KV && D == 128) ? 2 : 3;
+  static constexpr size_t slot_kv = sizeof(bf16) * B::BK * PaddedRows<D>::LDH;
   static constexpr size_t slot_lo = B::SPLIT_KV ? slot_kv : 0;      // K and V low halves
-  static constexpr size_t slot_ki = P::KEY_BITS ? MMA_BK : 0;   // kv_valid bytes
-  static constexpr size_t slot_i8 = P::COLD ? MMA_BK * D : 0;
-  static constexpr size_t q_bytes = sizeof(bf16) * TILE * LDQ;
+  static constexpr size_t slot_ki = P::KEY_BITS ? B::BK : 0;    // kv_valid bytes
+  static constexpr size_t slot_i8 = P::COLD ? B::BK * D : 0;
+  static constexpr size_t q_bytes = sizeof(bf16) * B::QROWS * LDQ;
   static constexpr size_t q = 0;
   static constexpr size_t qlo = q + q_bytes;                      // Q's low half
   static constexpr size_t k = qlo + (Split<B, P>::q ? q_bytes : 0);
@@ -518,7 +536,7 @@ struct MmaSmem {
 };
 
 template <class B, class P>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
+__global__ void __launch_bounds__(B::THREADS, 1)
 mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, QT<B>* __restrict__ out, int Sq, int H,
            int Hkv, float scale, P prob, B bd, const bf16* __restrict__ k_lo,
@@ -526,14 +544,18 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   using L = MmaSmem<B, P>;
   using S = Split<B, P>;
   constexpr int D = B::D;
+  constexpr int THREADS = B::THREADS, BK = B::BK, QROWS = B::QROWS;
   constexpr int LDQ = L::LDQ, STAGES = L::STAGES;
-  constexpr int SPT = TILE / MMA_BK;     // steps per visited tile
-  constexpr int NT = MMA_BK / 8;         // n8 tiles of S per step
+  constexpr int SPT = TILE / BK;         // steps per visited tile
+  constexpr int NT = BK / 8;             // n8 tiles of S per step
   constexpr int DK = PaddedRows<D>::DK;  // Q K^T's depth: D, or D 24 zero-padded to 32
   constexpr int DT = D / 8;              // n8 tiles of O (odd at D 24)
   constexpr int KC = DK / 16;            // k16 chunks of Q K^T
-  constexpr int KI_COPIES = MMA_BK / 16;
+  constexpr int KI_COPIES = BK / 16;
   constexpr bool Q_F32 = B::OPS != OPS_BF16;
+  // the query's fragments stay in registers, unless they are split or the
+  // build is WIDE: then each k16 step loads them from shared memory
+  constexpr bool Q_REGS = !S::q && !B::WIDE;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
   bf16* Qlo = reinterpret_cast<bf16*>(smem + L::qlo);
@@ -552,8 +574,11 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   const float qscale = P::EXACT ? 1.f : scale;
   const float c2 = P::EXACT ? scale * LOG2E : LOG2E;
 
-  const int iq = prob.q_tile(blockIdx.x), h = blockIdx.y, b = blockIdx.z;
-  const int q0 = iq * TILE;
+  // the block's QROWS query rows from q0, in map tile iq (whose visit list
+  // it walks: a WIDE block owns half of it)
+  const int bq = prob.q_tile(blockIdx.x), h = blockIdx.y, b = blockIdx.z;
+  const int iq = bq / (TILE / QROWS);
+  const int q0 = bq * QROWS;
   const int kvh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -562,12 +587,12 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   const QT<B>* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * d;
   QT<B>* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * d;
 
-  // rows that no key can reach (padding) are exact zeros: a tile with no
+  // rows that no key can reach (padding) are exact zeros: a block with no
   // live row skips the loop; rows from Sq on are neither read nor written
-  const int n_rows = min(TILE, Sq - q0);
+  const int n_rows = min(QROWS, Sq - q0);
   const int live = tid < n_rows ? prob.q_live(prob.q_info(b, q0 + tid)) : 0;
   if (!__syncthreads_or(live)) {
-    for (int i = tid; i < n_rows * D / 8; i += MMA_THREADS) {
+    for (int i = tid; i < n_rows * D / 8; i += THREADS) {
       const int c8 = (i % (D / 8)) * 8;
       if (!bd.col(c8)) continue;
       uint4* o8 = reinterpret_cast<uint4*>(ob + (i / (D / 8)) * q_stride + c8);
@@ -577,17 +602,17 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     return;
   }
 
-  // the ring: step s = visited tile s / SPT, keys (s % SPT) * MMA_BK.., in
+  // the ring: step s = visited tile s / SPT, keys (s % SPT) * BK.., in
   // slot s % STAGES; one commit group per step (empty past the end)
   const auto tiles = prob.visits(b, iq);
   const int n_steps = tiles.n * SPT;
   auto fetch = [&](int s) {
     if (s < n_steps) {
-      const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * MMA_BK;
+      const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * BK;
       prob.fetch_kv(slot(s % STAGES), kv, b, j, c0, Hkv, kvh, tid, bd);
       if constexpr (P::KEY_BITS) {
         if (tid < KI_COPIES)
-          cp_async16(Ki + (s % STAGES) * MMA_BK + tid * 16, prob.k_info_row(b, j) + c0 + tid * 16);
+          cp_async16(Ki + (s % STAGES) * BK + tid * 16, prob.k_info_row(b, j) + c0 + tid * 16);
       }
     }
     cp_async_commit();
@@ -597,17 +622,17 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   // be a NaN, and 0 x NaN would reach a score).  V's columns from d on
   // reach only output columns that are not stored.
   if constexpr (B::RAGGED) {
-    for (int i = tid; i < STAGES * MMA_BK * (DK / 8); i += MMA_THREADS) {
+    for (int i = tid; i < STAGES * BK * (DK / 8); i += THREADS) {
       const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
       if (c8 < d) continue;
-      const Slot st = slot(r / MMA_BK);
-      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r % MMA_BK, c8)) = make_uint4(0, 0, 0, 0);
+      const Slot st = slot(r / BK);
+      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r % BK, c8)) = make_uint4(0, 0, 0, 0);
       if constexpr (S::kv)
-        *reinterpret_cast<uint4*>(st.Klo + PaddedRows<D>::at(r % MMA_BK, c8)) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(st.Klo + PaddedRows<D>::at(r % BK, c8)) = make_uint4(0, 0, 0, 0);
     }
   } else if constexpr (DK > D) {
-    for (int i = tid; i < STAGES * MMA_BK; i += MMA_THREADS)
-      *reinterpret_cast<uint4*>(slot(i / MMA_BK).K + PaddedRows<D>::at(i % MMA_BK, D)) =
+    for (int i = tid; i < STAGES * BK; i += THREADS)
+      *reinterpret_cast<uint4*>(slot(i / BK).K + PaddedRows<D>::at(i % BK, D)) =
           make_uint4(0, 0, 0, 0);
   }
   #pragma unroll
@@ -631,9 +656,9 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
 
   // Q, times qscale in f32 and rounded to bf16 (split: and the rest, to
   // its low half), while the first tiles are in flight (columns [d, DK)
-  // zeros); then each warp's fragments, unless they are split (loaded
-  // each step)
-  for (int i = tid; i < TILE * DK / 8; i += MMA_THREADS) {
+  // zeros); then each warp's fragments, unless they are split or WIDE
+  // (loaded each step)
+  for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
     const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
     const bool in = r < n_rows && c8 < D && bd.col(c8);
     float x[8];
@@ -664,8 +689,8 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint4*>(Qlo + r * LDQ + c8) = *reinterpret_cast<const uint4*>(lo);
   }
   __syncthreads();
-  uint32_t qf[S::q ? 1 : KC][4];
-  if constexpr (!S::q) {
+  uint32_t qf[Q_REGS ? KC : 1][4];
+  if constexpr (Q_REGS) {
     #pragma unroll
     for (int kc = 0; kc < KC; ++kc)
       ldsm_x4(qf[kc], Qs + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
@@ -680,22 +705,24 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<STAGES - 2>();
     __syncthreads();             // step s landed; step s - 1's slot is free
     fetch(s + STAGES - 1);
-    const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * MMA_BK;
+    const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * BK;
     const Slot st = slot(s % STAGES);
     if (prob.finish_kv(st, b, j, Hkv, kvh, tid, bd)) __syncthreads();
     if (!compute) continue;
 
-    // S = Q K^T (16 rows x MMA_BK keys per warp); split: hi K + lo K (+
-    // hi K_lo)
+    // S = Q K^T (16 rows x BK keys per warp); split: hi K + lo K (+ hi
+    // K_lo)
     float sc[NT * 4];
     #pragma unroll
     for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
     #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
-      if constexpr (S::q) {
-        uint32_t qh[4], ql[4];
+      if constexpr (!Q_REGS) {
+        uint32_t qh[4];
+        [[maybe_unused]] uint32_t ql[4];
         ldsm_x4(qh, Qs + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
-        ldsm_x4(ql, Qlo + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+        if constexpr (S::q)
+          ldsm_x4(ql, Qlo + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
         #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           const int kr = np * 16 + (lane & 7) + ((lane >> 4) << 3);
@@ -704,8 +731,10 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
           ldsm_x4(kb, st.K + PaddedRows<D>::at(kr, kcol));
           mma16816(sc + 8 * np, qh, kb[0], kb[1]);
           mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
-          mma16816(sc + 8 * np, ql, kb[0], kb[1]);
-          mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
+          if constexpr (S::q) {
+            mma16816(sc + 8 * np, ql, kb[0], kb[1]);
+            mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
+          }
           if constexpr (S::kv) {
             ldsm_x4(kb, st.Klo + PaddedRows<D>::at(kr, kcol));
             mma16816(sc + 8 * np, qh, kb[0], kb[1]);
@@ -736,9 +765,12 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     // m) : 0 gives exact zeros
     uint64_t live_keys = ~0ull;
     if constexpr (P::KEY_BITS) {
-      const uint8_t* kin = Ki + (s % STAGES) * MMA_BK;
-      live_keys = ((uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane + 32])) << 32 |
-                   __ballot_sync(0xffffffffu, prob.k_live(kin[lane]))) >> (2 * t4);
+      const uint8_t* kin = Ki + (s % STAGES) * BK;
+      if constexpr (BK == 64)
+        live_keys = ((uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane + 32])) << 32 |
+                     __ballot_sync(0xffffffffu, prob.k_live(kin[lane]))) >> (2 * t4);
+      else
+        live_keys = (uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane])) >> (2 * t4);
     }
     const int kp0 = j * TILE + c0 + 2 * t4;     // this thread's column 0
     const uint64_t vis0 = ok0 ? live_keys & span_bits(prob.key_range(qp0, kp0)) : 0;
@@ -792,16 +824,16 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
 
     // O += P V: the S accumulator of n8 tiles 2kk, 2kk + 1 is P's A
     // fragment for keys 16kk.., rounded to bf16
-    uint32_t pa[MMA_BK / 16][4];
+    uint32_t pa[BK / 16][4];
     #pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
       pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
       pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
       pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
     #pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       // split P: its second bf16 half for the same keys, lo = bf16(p - hi)
       // (a bf16 widens to f32 by a 16-bit shift)
       [[maybe_unused]] uint32_t pl[4];
@@ -880,14 +912,14 @@ int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, i
   cudaError_t err = cudaFuncSetAttribute(
       mma_kernel<B, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + TILE - 1) / TILE, H, Bn);
-  mma_kernel<B, P><<<grid, MMA_THREADS, smem, stream>>>(
+  dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H, Bn);
+  mma_kernel<B, P><<<grid, B::THREADS, smem, stream>>>(
       (const QT<B>*)q, (const bf16*)k, (const bf16*)v, (QT<B>*)out, Sq, H, Hkv, scale, prob,
       B{dh}, (const bf16*)k_lo, (const bf16*)v_lo);
   return (int)cudaGetLastError();
 }
 
-// the exact bf16 builds: head dims 24, 32, 64 and 128 (attention.cu)
+// the exact bf16 builds: head dims 24, 32, 64, 128 and 256 (attention.cu)
 struct Exact {
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
@@ -899,22 +931,23 @@ struct Exact {
     return launch_mma<Build<W, false, OPS_BF16>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, \
                                                  prob, stream, k_lo, v_lo);
       CS_EXACT_CASE(24) CS_EXACT_CASE(32) CS_EXACT_CASE(64) CS_EXACT_CASE(128)
+      CS_EXACT_CASE(256)
 #undef CS_EXACT_CASE
       default: return (int)cudaErrorInvalidValue;
     }
   }
 };
 
-// any head dim d = 8, 16, ..., 128 on the smallest ragged build of
+// any head dim d = 8, 16, ..., 256 on the smallest ragged build of
 // operand types OPS that holds it: 24, 32 (not for OPS_BF16, whose d 32
-// is exact), 64 or 128
+// is exact), 64, 128 or 256
 template <int OPS>
 struct Any {
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
                  int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
                  const void* k_lo = nullptr, const void* v_lo = nullptr) const {
-    if (dh <= 0 || dh % 8 != 0 || dh > 128) return (int)cudaErrorInvalidValue;
+    if (dh <= 0 || dh % 8 != 0 || dh > 256) return (int)cudaErrorInvalidValue;
 #define CS_ANY_BUILD(W)                                                                  \
   launch_mma<Build<W, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, prob, stream, \
                                   k_lo, v_lo)
@@ -923,7 +956,8 @@ struct Any {
       if (dh <= 32) return CS_ANY_BUILD(32);
     }
     if (dh <= 64) return CS_ANY_BUILD(64);
-    return CS_ANY_BUILD(128);
+    if (dh <= 128) return CS_ANY_BUILD(128);
+    return CS_ANY_BUILD(256);
 #undef CS_ANY_BUILD
   }
 };

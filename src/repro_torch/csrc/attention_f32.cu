@@ -1,6 +1,7 @@
 // flash_packed and flash_prefill over f32 q, k and v (a ViT from an f32
 // checkpoint; the dense prefill of an f32 model), any head dim d that is
-// a multiple of 8 up to 128, f32 output.  Their oracles round nothing, so
+// a multiple of 8 up to 256 (the WIDE D-256 build runs two stages of
+// four arrays, 203 KB), f32 output.  Their oracles round nothing, so
 // every operand enters the tensor-core products as two bf16 halves, hi =
 // bf16(x) and lo = bf16(x - hi), about 16 bits: split_bf16_kernel writes
 // K's and V's halves into the caller's scratch (four bf16 arrays of k's

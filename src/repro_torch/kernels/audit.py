@@ -25,10 +25,11 @@ exceeded:
     each contract's ``recompile_budget``;
   * **configs** — every config of ``configs/registry.py``, at full size
     and ``-smoke``, at its serving geometry (the LM's heads and head dim,
-    the launcher's default ViT, mamba's state), and two served models
+    the launcher's default ViT, mamba's state), and three served models
     that are not registry configs (``variant_rows``: the JAX quickstart's
-    widths, deepseek-7b in f32 at search radius 16): which ops the card
-    takes, and the rule that refuses the rest.
+    widths, deepseek-7b in f32 at search radius 16, internvl3-14b with 20
+    LM heads of 256): which ops the card takes, and the rule that refuses
+    the rest.
 """
 from __future__ import annotations
 
@@ -272,16 +273,18 @@ def _prefill_rows() -> List[AuditRow]:
 
 def _width_rows() -> List[AuditRow]:
     """Head dims the kernels' ragged builds take (the JAX quickstart's 16,
-    SigLIP's 72, Qwen2-VL's ViT's 80), with bf16 and f32 queries over a
-    bf16 slab and f32 q/k/v in the packed ViT, and the widths still
-    refused: 136 (over 128) and 20 (not a multiple of 8)."""
+    SigLIP's 72, Qwen2-VL's ViT's 80, 136 and 192 on the WIDE D-256
+    build), the exact 256 (Gemma 2's heads), with bf16 and f32 queries
+    over a bf16 slab and f32 q/k/v in the packed ViT, and the widths still
+    refused: 264 (over 256) and 20 (not a multiple of 8)."""
     rows = []
     lay, sw = LAYOUTS[2]
     slots = _slots(lay)
     bm = refresh_block_map(lay, window=sw, kv_len=slots)
     B, H, Hkv = 2, 8, 2
     for D, dt, expect in ((16, BF16, "kernel"), (72, F32, "kernel"), (80, BF16, "kernel"),
-                          (136, BF16, "refused:kernel-head-dim"),
+                          (136, BF16, "kernel"), (256, BF16, "kernel"), (192, F32, "kernel"),
+                          (264, BF16, "refused:kernel-head-dim"),
                           (20, F32, "refused:kernel-head-dim")):
         q, k = _meta((B, bm.n_q, H, D), dt), _meta((B * slots, Hkv, D))
         q_pos, kvv = _meta((B, bm.n_q), I32), _meta((B, slots), torch.bool)
@@ -295,7 +298,7 @@ def _width_rows() -> List[AuditRow]:
             (B, bm.n_q, H, D)))
     plan = pack_plan(synthetic_decision(ViTCfg(), 12, 64, 0.5, seed=3), ViTCfg(), tile=128)
     R, L = plan.seg_id.shape
-    for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"),
+    for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"), (256, F32, "kernel"),
                           (64, torch.float16, "refused:kernel-dtype")):
         q, seg = _meta((R, L, 4, D), dt), _meta((R, L), I32)
         rows.append(_run_one(
@@ -527,20 +530,31 @@ def config_rows(archs: Optional[Sequence[str]] = None, streams: int = 2) -> List
 SERVING_CODEC = CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.5)
 
 
+# internvl3-14b re-cut to 20 LM heads of 256 over 4 kv heads (chip_smoke
+# phase 7(g)): d_model, the GQA group of 5, the parameters and the KV
+# bytes per stream stay those of its 40 heads of 128 over 8
+WIDE_HEADS = dict(n_heads=20, n_kv=4, d_head=256)
+
+
 def variant_rows(streams: int = 2) -> List[ConfigRow]:
-    """Two served models that are not registry configs: the JAX
+    """Three served models that are not registry configs: the JAX
     quickstart's (LM 4 heads of 16 over 2 kv heads, ViT 4 heads of 16;
-    examples/quickstart.py) and deepseek-7b in f32 ingested at search
-    radius 16 (chip_smoke phase 7(e))."""
+    examples/quickstart.py), deepseek-7b in f32 ingested at search
+    radius 16 (chip_smoke phase 7(e)), and internvl3-14b with LM heads of
+    256 (``WIDE_HEADS``; its ViT keeps InternViT's 16 heads of 64:
+    chip_smoke phase 7(g))."""
     qs = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
                   d_ff=128, vocab=64, tied_embeddings=True)
     qv = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
     ds = dataclasses.replace(get_config("deepseek-7b"), dtype="float32")
+    wide = dataclasses.replace(get_config("internvl3-14b"), **WIDE_HEADS)
     return (_serving_calls("quickstart (JAX widths)", qs, qv,
                            CodecCfg(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4),
                            streams)
             + _serving_calls("deepseek-7b f32, radius 16", ds, _serving_vit(ds),
-                             dataclasses.replace(SERVING_CODEC, search_radius=16), streams))
+                             dataclasses.replace(SERVING_CODEC, search_radius=16), streams)
+            + _serving_calls("internvl3-14b, 20 heads of 256", wide, _serving_vit(wide),
+                             SERVING_CODEC, streams))
 
 
 def _serving_calls(arch: str, cfg, v: ViTCfg, codec: CodecCfg, streams: int) -> List[ConfigRow]:
@@ -722,9 +736,9 @@ def refusal_cases(device) -> dict:
     f16 = (torch.ones(1, 2, dtype=torch.float16, device=dev),) * 2
     x, la, b, c, init = ssd_ok()
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
-    # head dims the kernels have no build for: not a multiple of 8, over 128
+    # head dims the kernels have no build for: not a multiple of 8, over 256
     q20, k20 = rand(1, 8, 4, 20, dtype=BF16), rand(1, 8, 2, 20, dtype=BF16, seed=1)
-    pq136 = rand(1, 128, 4, 136, dtype=BF16)
+    pq264 = rand(1, 128, 4, 264, dtype=BF16)
     return {
         ("mv_sad", "shared-memory"): mv(240, 240, 1),
         ("rope_shift", "kernel-dtype"): rope(rand(1, 8, 2, 16, dtype=torch.float16)),
@@ -791,7 +805,7 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "single-run"): packed(pq, torch.from_numpy(split).to(dev),
                                                build_pack_map(split)),
         ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np)),
-        ("flash_packed", "kernel-head-dim"): packed(pq136, seg, build_pack_map(seg_np)),
+        ("flash_packed", "kernel-head-dim"): packed(pq264, seg, build_pack_map(seg_np)),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
         ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),

@@ -439,8 +439,8 @@ _KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches
 _ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, or f32 q/k/v",
                 lambda f: _q_f32_or_bf16_over_bf16(f)
                 or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
-_HEAD_DIM = Rule("kernel-head-dim", "head dim must be a multiple of 8, at most 128 (the "
-                 "kernels' builds: 24, 32, 64 and 128)",
+_HEAD_DIM = Rule("kernel-head-dim", "head dim must be a multiple of 8, at most 256 (the "
+                 "kernels' builds: 24, 32, 64, 128 and 256)",
                  lambda f: 0 < f["q_shape"][3] <= cuda.MAX_HEAD_DIM and f["q_shape"][3] % 8 == 0)
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
@@ -770,8 +770,9 @@ _WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (
             "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
 _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
                 "bf16 halves written per call over the whole cache")
-_WHY_HEAD_DIM = ("builds of width 24, 32, 64 and 128 take every head dim that is a multiple of "
-                 "8 up to 128 (16-byte rows); wider heads and other widths have none")
+_WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128 and 256 take every head dim that is a "
+                 "multiple of 8 up to 256 (16-byte rows); a head past 256, or not a multiple "
+                 "of 8, has none")
 
 # How the port's eligibility rules differ from the reference's:
 # (op, code, "+" added by the port | "-" the reference's, dropped, why).

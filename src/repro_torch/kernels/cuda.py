@@ -100,9 +100,10 @@ for _name in ATTN_ENTRIES:
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
 
 # head dims of the attention kernels' exact builds (attention.cu); every
-# other multiple of 8 up to MAX_HEAD_DIM runs on a ragged build
-HEAD_DIMS = (24, 32, 64, 128)
-MAX_HEAD_DIM = 128
+# other multiple of 8 up to MAX_HEAD_DIM runs on a ragged build (d 136 to
+# 248 on the D-256 one, whose blocks own 64 query rows: csrc/attention.cuh)
+HEAD_DIMS = (24, 32, 64, 128, 256)
+MAX_HEAD_DIM = 256
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOG: Dict[str, str] = {}

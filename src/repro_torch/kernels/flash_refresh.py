@@ -27,8 +27,11 @@ pair does 4*128*128*D flops on 64 KB of bf16 K/V at D = 128, 32 KB when
 the page is int8); decode reads every visited key for one query row and
 is bound by those bytes.  The design: one thread block of eight warps
 per (128-row query tile, head, stream) follows the tile's visit list, so
-each visited K/V tile is read once per query tile; 16-byte ``cp.async``
-copies fill a ring of three 64-key slots ahead of the products (an int8
+each visited K/V tile is read once per query tile (at head dim 256 two
+blocks of four warps, 64 rows each, share a tile's list, in two 32-key
+slots);
+16-byte ``cp.async`` copies fill a ring of three 64-key slots ahead of
+the products (an int8
 tile lands in a staging slot and is dequantised into the ring); both
 products are ``mma.sync`` m16n8k16 bf16 -> f32 with S, P and O in
 registers around an f32 online softmax with the masked multiply.  Query
@@ -37,8 +40,8 @@ rows past Sq are neither read nor written, so the query is not padded.
 Operands the kernels take (``contracts.FLASH_REFRESH`` and
 ``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16 or
 f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, any
-head dim that is a multiple of 8 up to 128 (``cuda.attention_entry``
-picks the build: exact at 24, 32, 64 and 128, ragged otherwise, f32-query
+head dim that is a multiple of 8 up to 256 (``cuda.attention_entry``
+picks the build: exact at 24, 32, 64, 128 and 256, ragged otherwise, f32-query
 builds for f32 q); 128-row map tiles and pages; q, k,
 v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
 is copied once where it is not).

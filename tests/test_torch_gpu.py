@@ -188,7 +188,9 @@ SCATTER_PATTERNS = {
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
                                             (32, 4, 1, 48),
                                             (128, 16, 16, None),    # olmoe-1b-7b's heads
-                                            (24, 4, 2, None)])      # the JAX benchmarks' VLM
+                                            (24, 4, 2, None),       # the JAX benchmarks' VLM
+                                            (256, 10, 2, None),     # the WIDE build
+                                            (192, 4, 1, 48)])
 def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
     rng = np.random.default_rng(11)
@@ -214,7 +216,8 @@ def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, windo
 @pytest.mark.parametrize("d,h,hkv,window", [(128, 8, 2, None), (64, 4, 4, None),
                                             (32, 4, 1, 48),
                                             (128, 32, 8, None),     # jamba-v0.1-52b's heads
-                                            (24, 4, 2, 48)])        # the JAX benchmarks' VLM
+                                            (24, 4, 2, 48),         # the JAX benchmarks' VLM
+                                            (256, 10, 2, 48)])      # the WIDE build
 def test_flash_refresh_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     """Per-stream caches (B, Sk, Hkv, D), no page table."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -248,7 +251,8 @@ def _quant_slab(rng, n_hot, n_cold, hkv, d):
 
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
-@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (32, 4, 1), (24, 4, 2)])
+@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (32, 4, 1), (24, 4, 2), (256, 10, 2),
+                                     (136, 4, 2)])
 def test_flash_refresh_paged_int8_kernel_matches_plain(dev, pattern, d, h, hkv):
     """A page table that mixes hot and cold entries (ids >= n_hot)."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -272,13 +276,29 @@ def test_flash_refresh_paged_int8_kernel_matches_plain(dev, pattern, d, h, hkv):
 def test_flash_refresh_paged_int8_all_hot_is_bitwise_bf16(dev):
     """Every entry hot: the int8 kernel loads the same bf16 tiles as the
     bf16 kernel, so the results are bitwise equal."""
+    _all_hot_refresh(dev, 128)
+
+
+def test_wide_build_int8_all_hot_is_bitwise_bf16(dev):
+    """The same on the WIDE build (D 256), refresh and paged prefill."""
+    _all_hot_refresh(dev, 256)
+    rng = np.random.default_rng(19)
+    hk, hv, cold = _quant_slab(rng, 4, 3, 2, 256)
+    hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
+    pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
+    q = _bf16(rng, 2, 200, 10, 256).to(dev)
+    assert torch.equal(flash_prefill_paged_cuda(q, hk, hv, pt, cold=cold),
+                       flash_prefill_paged_cuda(q, hk, hv, pt))
+
+
+def _all_hot_refresh(dev, d):
     rng = np.random.default_rng(14)
-    hk, hv, cold = _quant_slab(rng, 4, 3, 2, 128)
+    hk, hv, cold = _quant_slab(rng, 4, 3, 2, d)
     hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
     pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
     kvv = torch.from_numpy(rng.random((2, 256)) > 0.3).to(dev)
     q_pos = SCATTER_PATTERNS["fresh"]
-    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), 8, 128)).astype(np.float32)).bfloat16()
+    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), 8, d)).astype(np.float32)).bfloat16()
     bm = build_block_map(q_pos, 256)
     out8 = flash_refresh_paged_cuda(q.to(dev), hk, hv, kvv, pt, bm, cold=cold)
     out16 = flash_refresh_paged_cuda(q.to(dev), hk, hv, kvv, pt, bm)
@@ -304,10 +324,22 @@ def test_refresh_kernels_over_long_visit_lists(dev, case, kind):
     """GQA at internvl3-14b's ratio (10 : 2 heads) and head dim; the
     paged kinds read a shuffled slab, the int8 one with every other page
     of each stream cold."""
+    _long_visit_list(dev, case, kind, 128)
+
+
+@pytest.mark.parametrize("kind", ["stream", "paged", "paged-int8"])
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_wide_refresh_kernels_over_long_visit_lists(dev, case, kind):
+    """The same at head dim 256 (the WIDE build: 32-key steps, 32-40 of
+    them, wrapping its ring of two slots; two 64-row blocks a tile)."""
+    _long_visit_list(dev, case, kind, 256)
+
+
+def _long_visit_list(dev, case, kind, d):
     q_pos, kv_len, window = LONG_CASES[case]
     q_pos = q_pos.astype(np.int32)
     rng = np.random.default_rng(15)
-    B, h, hkv, d = 2, 10, 2, 128
+    B, h, hkv = 2, 10, 2
     n_pages = kv_len // 128
     q = torch.from_numpy(rng.normal(size=(B, len(q_pos), h, d)).astype(np.float32)).bfloat16()
     qp = torch.from_numpy(np.broadcast_to(q_pos[None], (B, len(q_pos))).copy())
@@ -406,6 +438,19 @@ def test_flash_packed_kernel_matches_plain(dev, layout, d):
     bm = build_pack_map(seg.numpy())
     assert bm.single_run
     out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev), bm).cpu()
+    out_p = flash_packed_plain(q, k, v, seg)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    assert bool((out_k[seg < 0] == 0).all())
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+@pytest.mark.parametrize("d", [256, 200])
+def test_flash_packed_wide_build_matches_plain(dev, layout, d):
+    """The WIDE build (D 256, and ragged d 200 on it): 64-row blocks,
+    half of them all padding in the ragged_pad and single layouts."""
+    q, k, v, seg = _packed_inputs(layout, 8, 8, d)
+    out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev),
+                              build_pack_map(seg.numpy())).cpu()
     out_p = flash_packed_plain(q, k, v, seg)
     assert _row_rel_err(out_k, out_p) <= ROW_TOL
     assert bool((out_k[seg < 0] == 0).all())
@@ -521,6 +566,14 @@ PREFILL = {
     # head dim 24 (the JAX benchmarks' VLM): causal, and ragged with a window
     "d24-causal": (384, 384, 4, 2, 24, True, None, 0),
     "d24-ragged": (200, 300, 4, 2, 24, True, 150, 50),
+    # the WIDE build (D 256; d 136 and 200 ragged on it): its 64-row blocks
+    # walk their tile's band, rows with no key in a prefix and a suffix
+    "d256-causal": (384, 384, 10, 2, 256, True, None, 0),
+    "d256-dead-prefix": (256, 256, 4, 2, 256, True, None, -70),
+    "d256-dead-suffix-mixed": (256, 300, 4, 2, 256, False, 64, 200),
+    "d256-window-edge-mid-step": (300, 330, 4, 2, 256, True, 160, 40),
+    "d136-ragged": (200, 300, 8, 2, 136, True, 150, 50),
+    "d200-bidirectional": (130, 250, 4, 4, 200, False, None, 0),
 }
 
 
@@ -564,6 +617,9 @@ PREFILL_PAGED = {
     "int8-cold-diagonal": (384, 3, 10, 2, 128, None, 0, ((0, 2), (1, 2), (0, 1))),
     "d24": (384, 3, 4, 2, 24, None, 0, ()),
     "d24-int8": (384, 3, 4, 2, 24, None, 0, INT8_COLD),
+    "d256": (384, 3, 10, 2, 256, None, 0, ()),
+    "d256-int8": (300, 3, 10, 2, 256, None, 60, INT8_COLD),
+    "d192-int8-cold-diagonal": (384, 3, 4, 2, 192, None, 0, ((0, 2), (1, 2), (0, 1))),
 }
 
 
@@ -623,7 +679,7 @@ def test_flash_prefill_paged_int8_all_hot_is_bitwise_bf16(dev):
 
 
 def test_prefill_operands_the_kernel_does_not_take_raise(dev):
-    for d in (20, 136):        # not a multiple of 8; over 128
+    for d in (20, 264):        # not a multiple of 8; over 256
         q = torch.zeros(1, 128, 4, d, device=dev, dtype=torch.bfloat16)
         kv = torch.zeros(1, 128, 2, d, device=dev, dtype=torch.bfloat16)
         with pytest.raises(KernelError, match="head dim"):
@@ -1263,7 +1319,7 @@ def test_dense_mha_takes_bf16_products_on_card(dev, shape):
 
 
 # ----------------------------------------------------------------------
-# operands: every head dim up to 128, f32 queries, f32 q/k/v, mv_sad at
+# operands: every head dim up to 256, f32 queries, f32 q/k/v, mv_sad at
 # any radius and block edge
 # ----------------------------------------------------------------------
 # Limits: bf16 operands at the bf16 kernels'; f32 queries over bf16 K/V
@@ -1400,6 +1456,26 @@ def test_packed_and_prefill_take_f32_qkv(dev, op, d):
     _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
 
 
+# the WIDE build (csrc/attention.cuh): head dim 256 exact, d 136-248 ragged
+# on it, in every operand type the narrower builds take, at their limits
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [256, 136, 192, 248])
+def test_attention_kernels_at_wide_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.bfloat16, torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [256, 192])
+def test_attention_kernels_take_f32_queries_at_wide_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.bfloat16), torch.float32)
+
+
+@pytest.mark.parametrize("op", ["flash_packed", "flash_prefill"])
+@pytest.mark.parametrize("d", [256, 136])
+def test_packed_and_prefill_take_f32_qkv_at_wide_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
+
+
 @pytest.mark.parametrize("op", ["flash_refresh", "flash_refresh_paged",
                                 "flash_refresh_paged_int8", "flash_packed"])
 @pytest.mark.parametrize("d", [8, 16, 40])
@@ -1425,12 +1501,22 @@ def test_f32_query_refresh_rounds_as_the_bf16_kernel(dev):
     """Over bf16 K/V the refresh oracle rounds q x scale to bf16: an f32
     query that holds bf16 values gives the bf16 kernel's products, so
     its f32 output rounds to the bf16 kernel's output."""
+    _f32_query_rounds_as_bf16(dev, 80)
+
+
+def test_f32_query_refresh_rounds_as_the_bf16_kernel_at_d256(dev):
+    """The same on the WIDE build: its exact bf16 D-256 build and the
+    f32-query one run the same products."""
+    _f32_query_rounds_as_bf16(dev, 256)
+
+
+def _f32_query_rounds_as_bf16(dev, d):
     rng = np.random.default_rng(32)
-    hk, hv, _ = _quant_slab(rng, 6, 1, 2, 80)
+    hk, hv, _ = _quant_slab(rng, 6, 1, 2, d)
     pt = torch.tensor([[4, 1, 0], [3, 5, 2]], dtype=torch.int32, device=dev)
     kvv = torch.from_numpy(rng.random((2, 384)) > 0.3).to(dev)
     q_pos = np.arange(50, 370, dtype=np.int32)
-    q = _bf16(rng, 2, len(q_pos), 8, 80).to(dev)
+    q = _bf16(rng, 2, len(q_pos), 8, d).to(dev)
     bm = build_block_map(q_pos, 384)
     out16 = flash_refresh_paged_cuda(q, hk.to(dev), hv.to(dev), kvv, pt, bm)
     out32 = flash_refresh_paged_cuda(q.float(), hk.to(dev), hv.to(dev), kvv, pt, bm)

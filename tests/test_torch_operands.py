@@ -2,19 +2,24 @@
 package.
 
 * The contract verdict on meta tensors: ``ok`` for every attention op at
-  every head dim d = 8, 16, ..., 128 with bf16 operands, with f32
+  every head dim d = 8, 16, ..., 256 with bf16 operands, with f32
   queries over bf16 K/V and, in flash_packed and flash_prefill, with f32
-  q/k/v; the named refusal for d 20 (not a multiple of 8), d 136 (over
-  128) and f16 operands; ``ok`` for mv_sad at radius 16 and 32 and at
+  q/k/v; the named refusal for d 20 (not a multiple of 8), d 264 (over
+  256) and f16 operands; ``ok`` for mv_sad at radius 16 and 32 and at
   blocks 8 and 12.
 * The JAX quickstart's model at its own widths (LM 4 heads of 16 over 2
-  kv heads, ViT 4 heads of 16) and a 2-layer f32 LM, each served by the
-  port's ``Engine`` on the CPU from the JAX package's weights, against
-  the JAX package's ``Engine`` on the same stream: no call the card
-  would refuse (``kernel_fallbacks`` 0, every verdict ``ok``); yes/no
-  logits within the serving tests' LOGIT_TOL (8e-3,
-  ``test_torch_serving.py``), answers equal where the JAX margin
-  exceeds twice it.
+  kv heads, ViT 4 heads of 16), a 2-layer f32 LM, and a 2-layer LM with
+  heads of 256 (2 over 1 kv head, what the kernels' WIDE build serves)
+  in bf16 and in f32, each served by the port's ``Engine`` on the CPU
+  from the JAX package's weights, against the JAX package's ``Engine``
+  on the same stream: no call the card would refuse
+  (``kernel_fallbacks`` 0, every verdict ``ok``); yes/no logits within
+  the serving tests' LOGIT_TOL (8e-3, ``test_torch_serving.py``),
+  answers equal where the JAX margin exceeds twice it.
+* The seven attention kernels' plain versions at head dim 256 against
+  the JAX package's oracles (``repro.kernels.ref``) on the same inputs:
+  f32 within 1e-5 and bf16 within 3e-2 (``test_torch_kernels.py``'s
+  limits: sums in another order; one bf16 step of O(1) values).
 * ``encode_stream`` at search radius 16: motion vectors equal to the
   JAX package's and the f32 residual means within 4e-7 of the largest
   (sums of 256 terms in another order: read 2.5e-7 at this size, 1e-6
@@ -35,14 +40,20 @@ from repro.configs.base import ViTCfg as JViTCfg  # noqa: E402
 from repro.data.video import VideoSpec, generate_video  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.models import vit as jvitm  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.models.init import ParamBuilder, split_tree  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import EngineCfg as JEngineCfg  # noqa: E402
 from repro_torch.codec import encode_stream  # noqa: E402
 from repro_torch.configs import CodecCfg, ModelCfg, ViTCfg  # noqa: E402
 from repro_torch.kernels import contracts, ops  # noqa: E402
-from repro_torch.kernels.flash_packed import build_pack_map  # noqa: E402
-from repro_torch.kernels.flash_refresh import build_block_map  # noqa: E402
+from repro_torch.kernels.flash_packed import build_pack_map, flash_packed_plain  # noqa: E402
+from repro_torch.kernels.flash_prefill import (  # noqa: E402
+    flash_prefill_paged_plain, flash_prefill_plain,
+)
+from repro_torch.kernels.flash_refresh import (  # noqa: E402
+    build_block_map, flash_refresh_paged_plain, flash_refresh_plain,
+)
 from repro_torch.kernels.mv_sad import SMEM_LIMIT as MV_SAD_SMEM_LIMIT  # noqa: E402
 from repro_torch.kernels.mv_sad import launch_geometry as mv_sad_launch_geometry  # noqa: E402
 from repro_torch.models.init import from_numpy_tree  # noqa: E402
@@ -59,6 +70,11 @@ VIT = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, gro
 CODEC = dict(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4)
 # a 2-layer f32 LM (the reference's ModelCfg.dtype="float32")
 LM_F32 = dict(LM, name="f32", n_heads=2, n_kv=1, dtype="float32")
+# 2-layer LMs with heads of 256 (ModelCfg.d_head apart from d_model /
+# n_heads), in bf16 and in f32
+LM_D256 = dict(LM, name="d256", n_heads=2, n_kv=1, d_head=256)
+SERVED_LMS = {"quickstart": LM, "f32": LM_F32, "d256": LM_D256,
+              "d256-f32": dict(LM_D256, name="d256-f32", dtype="float32")}
 
 
 # ----------------------------------------------------------------------
@@ -107,7 +123,7 @@ ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
 F32_KV_OPS = {"flash_prefill", "flash_packed"}     # f32 q/k/v: the oracles round nothing
 
 
-@pytest.mark.parametrize("d", range(8, 129, 8))
+@pytest.mark.parametrize("d", range(8, 257, 8))
 def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
     assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
     assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
@@ -116,8 +132,8 @@ def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
 
 
 @pytest.mark.parametrize("d, q_dt, kv_dt, code", [
-    (20, BF16, BF16, "kernel-head-dim"), (136, BF16, BF16, "kernel-head-dim"),
-    (136, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
+    (20, BF16, BF16, "kernel-head-dim"), (264, BF16, BF16, "kernel-head-dim"),
+    (264, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
     (64, F16, BF16, "kernel-dtype")])
 def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
     assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
@@ -165,13 +181,13 @@ def _stream():
     return frames
 
 
-@pytest.fixture(scope="module", params=["quickstart", "f32"])
+@pytest.fixture(scope="module", params=sorted(SERVED_LMS))
 def served(request):
     """(JAX results, port results, port card verdicts) of one model: the
     JAX package's Engine on its own weights, then the port's Engine on
     the same weights and stream (12 frames: one fresh and one incremental
     window)."""
-    lm = LM if request.param == "quickstart" else LM_F32
+    lm = SERVED_LMS[request.param]
     frames = _stream()
     jcfg, jvit = JModelCfg(**lm), JViTCfg(**VIT)
     jparams, _ = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
@@ -223,3 +239,83 @@ def test_encode_stream_at_radius_16_matches_jax():
     assert np.abs(res - jres).max() <= 4e-7 * np.abs(jres).max()
     np.testing.assert_array_equal(tbs.residual_q.numpy(), np.asarray(jbs.residual_q))
 
+
+
+# ----------------------------------------------------------------------
+# the attention kernels' plain versions at head dim 256 against JAX
+# ----------------------------------------------------------------------
+def _wide_inputs(dtype: str, seed: int = 29):
+    """numpy inputs at head dim 256 (H 4 over Hkv 2), rounded to bf16
+    once where ``dtype`` is bf16, for both frameworks: queries at a
+    scatter of 150 positions over 3 pages of 128 keys per stream, a
+    shuffled slab of 7 pages (2 int8 cold pages with per-(page, head)
+    scales), and two packed rows of three and one segment."""
+    rng = np.random.default_rng(seed)
+    H, Hkv, D = 4, 2, 256
+
+    def both(a):
+        a = a.astype(np.float32)
+        if dtype == "bfloat16":
+            tt = torch.from_numpy(a).to(torch.bfloat16)
+            return jnp.asarray(tt.float().numpy()).astype(jnp.bfloat16), tt
+        return jnp.asarray(a), torch.from_numpy(a)
+
+    q_pos = np.concatenate([np.arange(0, 30), np.arange(260, 380)]).astype(np.int32)
+    qp = np.broadcast_to(q_pos[None], (2, len(q_pos))).copy()
+    return dict(
+        q=both(rng.normal(size=(2, len(q_pos), H, D))),
+        qf=both(rng.normal(size=(2, 200, H, D))),
+        caches=[both(rng.normal(size=(2, 384, Hkv, D))) for _ in range(2)],
+        slab=[both(rng.normal(size=(7 * 128, Hkv, D))) for _ in range(2)],
+        cold=(rng.integers(-127, 128, size=(256, Hkv, D)).astype(np.int8),
+              rng.integers(-127, 128, size=(256, Hkv, D)).astype(np.int8),
+              rng.uniform(0.01, 0.03, size=(2, Hkv)).astype(np.float32),
+              rng.uniform(0.01, 0.03, size=(2, Hkv)).astype(np.float32)),
+        pt=rng.permutation(7)[:6].reshape(2, 3).astype(np.int32),
+        pt8=np.asarray([[7, 1, 4], [2, 8, 0]], np.int32),
+        qp=qp, kvv=rng.random((2, 384)) > 0.3,
+        seg=np.asarray([[0] * 60 + [1] * 100 + [2] * 40 + [-1] * 56, [3] * 256], np.int32),
+        pq=both(rng.normal(size=(2, 256, H, D))),
+        pkv=[both(rng.normal(size=(2, 256, Hkv, D))) for _ in range(2)])
+
+
+WIDE_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
+            "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", WIDE_OPS)
+def test_plain_versions_at_head_dim_256_match_jax(op, dtype):
+    x = _wide_inputs(dtype)
+    (qj, qt), (qfj, qft) = x["q"], x["qf"]
+    (kj, kt), (vj, vt) = x["caches"]
+    (skj, skt), (svj, svt) = x["slab"]
+    qp, kvv = x["qp"], x["kvv"]
+    cold_t = tuple(torch.from_numpy(a) for a in x["cold"])
+    cold_j = tuple(jnp.asarray(a) for a in x["cold"])
+    pt = x["pt8"] if op.endswith("int8") else x["pt"]
+    cold = (cold_j, cold_t) if op.endswith("int8") else (None, None)
+    t = torch.from_numpy
+    if op == "flash_refresh":
+        o_j = jref.flash_refresh_ref(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv))
+        o_t = flash_refresh_plain(qt, kt, vt, t(qp), t(kvv), q_chunk=64)
+    elif op.startswith("flash_refresh_paged"):
+        o_j = jref.flash_refresh_paged_ref(qj, skj, svj, jnp.asarray(qp), jnp.asarray(kvv),
+                                           jnp.asarray(pt), cold=cold[0])
+        o_t = flash_refresh_paged_plain(qt, skt, svt, t(qp), t(kvv), t(pt), q_chunk=64,
+                                        cold=cold[1])
+    elif op == "flash_prefill":
+        o_j = jref.flash_prefill_ref(qfj, kj, vj, window=150, q_offset=60)
+        o_t = flash_prefill_plain(qft, kt, vt, window=150, q_offset=60)
+    elif op.startswith("flash_prefill_paged"):
+        o_j = jref.flash_prefill_paged_ref(qfj, skj, svj, jnp.asarray(pt), q_offset=100,
+                                           cold=cold[0])
+        o_t = flash_prefill_paged_plain(qft, skt, svt, t(pt), q_offset=100, cold=cold[1])
+    else:
+        (pqj, pqt), ((pkj, pkt), (pvj, pvt)) = x["pq"], x["pkv"]
+        o_j = jref.flash_packed_ref(pqj, pkj, pvj, jnp.asarray(x["seg"]))
+        o_t = flash_packed_plain(pqt, pkt, pvt, t(x["seg"]))
+    assert tuple(o_t.shape) == tuple(o_j.shape) and o_t.shape[-1] == 256
+    assert o_t.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j, np.float32), atol=tol)

@@ -142,15 +142,15 @@ def test_windows_report_no_kernel_fallbacks(served):
 
 
 def test_a_serve_the_card_refuses_counts_its_fallbacks():
-    """Head dim 136 (over 128, a multiple of 8), which no attention
+    """Head dim 264 (over 256, a multiple of 8), which no attention
     kernel is built for: on the CPU every window counts the calls the
     card would refuse, by rule, and the plain versions serve it."""
     from repro_torch.configs import ModelCfg, ViTCfg
     from repro_torch.models.init import init_lm_params, init_vit_params
 
-    cfg = ModelCfg(name="d136", family="vlm", n_layers=2, d_model=272, n_heads=2, n_kv=1,
+    cfg = ModelCfg(name="d264", family="vlm", n_layers=2, d_model=528, n_heads=2, n_kv=1,
                    d_ff=128, vocab=64, tied_embeddings=True)
-    vit = ViTCfg(n_layers=2, d_model=272, n_heads=2, d_ff=128, patch=14, image=112, group=2)
+    vit = ViTCfg(n_layers=2, d_model=528, n_heads=2, d_ff=128, patch=14, image=112, group=2)
     pipe = ServingPipeline(cfg, vit, init_lm_params(cfg, 0, "cpu"),
                            init_vit_params(vit, cfg.d_model, 1, "cpu"),
                            EngineCfg(mode="codecflow", codec=TCodecCfg(
@@ -168,7 +168,7 @@ def test_a_serve_the_card_refuses_counts_its_fallbacks():
     verdicts = ops.card_verdicts()
     for op in ("flash_packed", "flash_refresh_paged"):
         assert set(verdicts[op]) == {"kernel-head-dim"}, verdicts
-    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # D 136: 8 | 136
+    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # D 264: 8 | 264
     assert all(set(c) == {"backend:ok"} for c in ops.dispatch_counts().values())
     assert all(np.isfinite(r.stats.logits_yes_no).all() for r in results)
 
