@@ -10,6 +10,7 @@ and check them.
     python3 chip_smoke.py --only mamba
     python3 chip_smoke.py --only f32-ssm
     python3 chip_smoke.py --only d256
+    python3 chip_smoke.py --only n256-ssm
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -17,11 +18,12 @@ With no arguments it runs every phase below.  ``--only`` runs phases 1-3
 for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
-``--only mamba``, ``--only f32-ssm``, ``--only d256``, ``--only mesh``,
-``--only hosttime`` and ``--only deep-step``: phase 3's mha probe, phase
-7 alone, phase 8(b) alone, phase 8(e) with its roofline, phases 7(f) and
-8(f) (mamba2-2.7b in f32) alone, phase 7(g) (internvl3-14b with LM heads
-of 256) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
+``--only mamba``, ``--only f32-ssm``, ``--only d256``, ``--only n256-ssm``,
+``--only mesh``, ``--only hosttime`` and ``--only deep-step``: phase 3's
+mha probe, phase 7 alone, phase 8(b) alone, phase 8(e) with its
+roofline, phases 7(f) and 8(f) (mamba2-2.7b in f32) alone, phase 7(g)
+(internvl3-14b with LM heads of 256) alone, phases 7(h) and 8(g)
+(mamba2-2.7b at d_state 256) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
 host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
 over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
@@ -34,7 +36,8 @@ Phases (any failure exits non-zero):
   2. build   — compile the hand-written kernels from src/repro_torch/csrc
                (one nvcc per source, in parallel) and print what ptxas
                reports per kernel (registers, spills); an attention
-               kernel or one of the scan's backward that spills fails.
+               kernel or a scan kernel (forward or backward) that
+               spills fails.
   3. kernels — each kernel against its plain PyTorch version on the card
                at the serving path's shapes for internvl3-14b at 448^2
                (flash_refresh_paged at fresh prefill, selective refresh
@@ -72,9 +75,16 @@ Phases (any failure exits non-zero):
                d_init within 1e-3 of their slice's largest value, bitwise
                repeat, its bound at the bf16 tensor rate (the f32
                CUDA-core figure beside), and its three kernels' blocks
-               per SM at each N; kernel, plain and library
-               (scaled_dot_product_attention, after a gather where the KV
-               is paged; none for ssd_scan) times from CUDA events around
+               per SM at each N; the scan's N-256 build (two column
+               slabs of 128 over blocks) at mamba2-2.7b's widths re-cut
+               to d_state 256: the forward at the fresh, incremental,
+               query, long and ragged shapes (bf16 in place), the fresh
+               window in f32, N 192 and 136 on the build (ragged L), the
+               backward at the training shape in bf16 and f32 and at N
+               192, each line with its kernels' registers; kernel,
+               plain and library (scaled_dot_product_attention, after a
+               gather where the KV is paged; none for ssd_scan) times
+               from CUDA events around
                calls made one by one (``ms``: the wrapper's host time
                counts where it is longer than the launch); for ssd_scan,
                mv_sad, flash_packed and rope_shift also ``device_ms``, the
@@ -216,8 +226,11 @@ Phases (any failure exits non-zero):
                on per-stream caches and once with int8 cold pages (which
                must demote pages), each path's windows/s, stage seconds,
                peak memory and launches printed beside phase 4's run of
-               the same path at heads of 128; each case's seconds are
-               printed.  Each case is served
+               the same path at heads of 128; (h) mamba2-2.7b at full
+               width and depth with its SSD state widened to 256
+               (WIDE_STATE: the scan's N-256 build), codecflow, 2 x 40
+               frames, beside phase 4's d_state-128 run; each case's
+               seconds are printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
@@ -287,7 +300,10 @@ Phases (any failure exits non-zero):
                memory, the time of steps 2-4, tokens/s and the model-FLOPs
                share (8 x parameters x positions over the bf16 peak); one
                more step under torch.profiler, with the backward kernel's
-               share of the device time.
+               share of the device time; (g) the same model at d_state
+               256 (the N-256 build) for 2 steps (the second timed) and
+               one profiled step, its step time, peak and scan forward
+               and backward device ms printed beside 8(e)'s.
   9. mesh    — (a) one train step of whisper-large-v3-smoke and
                olmoe-1b-7b-smoke under a 1x1 DeviceMesh over a
                world-size-1 NCCL group (parameters placed by the sharding
@@ -378,6 +394,11 @@ DENSE_F32 = "deepseek-7b f32"
 # mamba2-2.7b with dtype="float32": 10.3 GiB of f32 weights, served in
 # phase 7(f) and trained in phase 8(f) (x, b and c reach the scan in f32)
 SSM_F32 = f"{SSM_ARCH} f32"
+# mamba2-2.7b with its SSD state widened to 256 (SSMCfg.d_state; the Mamba-2
+# paper's state-size ablations run N 16 to 256): the scan's N-256 build,
+# served in phase 7(h) and trained in phase 8(g)
+WIDE_STATE = 256
+SSM_N256 = f"{SSM_ARCH}, d_state {WIDE_STATE}"
 FAMILY_HW = 112
 WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
@@ -465,9 +486,10 @@ def kernel_label(mangled: str) -> str:
     b = re.search(r"BuildILi(\d+)ELb([01])ELi(\d)E", mangled)
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
     if "mma_kernel" not in mangled or b is None or struct is None:
-        m = re.search(r"([a-z_]+_kernel)ILi(\d+)ELi(\d)E", mangled)
-        if m:     # the scan's kernels: <N, operand mode>
-            return f"{m.group(1)}<{m.group(2)}, {SCAN_MODES.get(m.group(3), m.group(3))}>"
+        m = re.search(r"([a-z_]+_kernel)ILi(\d+)ELi(\d)E(?:Li(\d)E)?", mangled)
+        if m:     # the scan's kernels: <build N (slabs x slab width), operand mode>
+            n = int(m.group(2)) * int(m.group(4) or 1)
+            return f"{m.group(1)}<{n}, {SCAN_MODES.get(m.group(3), m.group(3))}>"
         m = re.search(r"([a-z_]+_kernel)ILb([01])E", mangled)
         if m:
             return f"{m.group(1)}<{'ragged N' if m.group(2) == '1' else 'exact N'}>"
@@ -1292,6 +1314,47 @@ SCAN_WIDE = (
     ("bf16 log_a", 2, 160, 80, 64, 1, 128, 256, True, "bfloat16", "bfloat16", "packed"),
 )
 SCAN_F32_TOL = 2.0 ** -10       # f32 y: the f32 attention kernels' row-relative limit
+# ssd_scan on its N-256 build (two column slabs of 128 over blocks):
+# mamba2-2.7b's serving and prefill shapes at d_state 256 (WIDE_STATE) in
+# bf16 read in place, the fresh window in f32 (staged), and N 192 and 136
+# on the build (staged, columns past N zero) over a ragged L
+SCAN_N256 = tuple(
+    (label, B, L, 80, 64, 1, n, 256, init, dt, "float32", "packed")
+    for label, B, L, n, init, dt in (
+        ("N 256 fresh window", 2, 160, 256, True, "bfloat16"),
+        ("N 256 incremental window", 2, 40, 256, True, "bfloat16"),
+        ("N 256 query", 2, 8, 256, True, "bfloat16"),
+        ("N 256 long prefill", 1, 4096, 256, False, "bfloat16"),
+        ("N 256 ragged prefill", 1, 1000, 256, True, "bfloat16"),
+        ("f32 N 256 fresh window", 2, 160, 256, True, "float32"),
+        ("N 192 ragged prefill", 1, 1000, 192, True, "bfloat16"),
+        ("N 136 ragged prefill", 1, 1000, 136, True, "bfloat16")))
+
+
+def scan_f64(torch, x, la, b, c, init):
+    """y of the SSD recurrence in f64, step by step (S_t = a_t S_{t-1} +
+    x_t b_t^T, y_t = S_t c_t, head h on group h / (H / G)): the exact
+    function the bf16 readings near their limit are held to."""
+    B, L, H, P = x.shape
+    rep = H // b.shape[2]
+    xd, ad = x.double(), la.double().exp()
+    bd, cd = (t.double().repeat_interleave(rep, dim=2) for t in (b, c))
+    S = (torch.zeros((B, H, P, b.shape[3]), dtype=torch.float64, device=x.device)
+         if init is None else init.double())
+    y = torch.empty((B, L, H, P), dtype=torch.float64, device=x.device)
+    for t in range(L):
+        S = ad[:, t, :, None, None] * S + xd[:, t, :, :, None] * bd[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhpn,bhn->bhp", S, cd[:, t])
+    return y
+
+
+def scan_registers(name: str, mode: int, n: int) -> str:
+    """Registers of the scan kernel ``name`` at build width n and operand
+    mode, from phase 2's ptxas readings ("not read" when this process
+    did not build)."""
+    from repro_torch.kernels.ssd_scan import build_width
+    label = f"{name}<{build_width(n)}, {SCAN_MODES[str(mode)]}>"
+    return str(READINGS.get("registers", {}).get(label, "not read"))
 
 
 def scan_operands(torch, g, B, L, H, P, G, N, with_init, dt="bfloat16", la_dt="float32",
@@ -1325,8 +1388,12 @@ def check_ssd_scan(torch):
     kernel's f32 factors enter the tensor-core products as bf16 hi + lo
     (about 16 bits, 2^-17 relative per product).  The bound counts the
     operands at their element sizes; the staging pass's bytes are
-    printed beside it.  The kernels line reports the fresh window's times
-    (its longest launch on the path) and the largest error."""
+    printed beside it.  Then SCAN_N256, the N-256 build, each line with
+    its kernel's registers; its bf16 cases and the long prefill at N 128
+    also print the kernel's and the plain version's y against a
+    sequential f64 scan (each rounds y to bf16 once: about 2^-8 of a row
+    apart from it at most).  The kernels line reports the fresh window's
+    times (its longest launch on the path) and the largest error."""
     from repro_torch.kernels.ssd_scan import (
         operand_mode, ssd_scan_cuda, ssd_scan_plain, ssd_scan_work, staged_bytes,
     )
@@ -1342,8 +1409,9 @@ def check_ssd_scan(torch):
                  (f"{HYBRID_ARCH} incremental window", 2, 40, 128, 64, 1, 16, 256, True),
                  (f"{HYBRID_ARCH} query", 2, 8, 128, 64, 1, 16, 256, True))]
     g = torch.Generator(device="cuda").manual_seed(5)
-    ok, row, worst, wide = True, None, 0.0, {}
-    for label, B, L, H, P, G, N, chunk, with_init, dt, la_dt, layout in cases + list(SCAN_WIDE):
+    ok, row, worst, wide, n256 = True, None, 0.0, {}, {}
+    for label, B, L, H, P, G, N, chunk, with_init, dt, la_dt, layout in (
+            cases + list(SCAN_WIDE) + list(SCAN_N256)):
         x, la, b, c, init = scan_operands(torch, g, B, L, H, P, G, N, with_init, dt, la_dt,
                                           layout)
         y_k, s_k = ssd_scan_cuda(x, la, b, c, init, chunk)
@@ -1371,6 +1439,15 @@ def check_ssd_scan(torch):
         f32_ms = flops / F32_FLOPS * 1e3
         y_tol = SCAN_F32_TOL if y_k.dtype == torch.float32 else 2.0 ** -7
         here = y_rel <= y_tol and s_rel <= 1e-4 and y_k.dtype == x.dtype
+        regs = (f"; registers {scan_registers('ssd_scan_kernel', mode, N)}"
+                if N > 128 else "")
+        exact = None
+        if y_k.dtype == torch.bfloat16 and (N > 128 or label == "long prefill"):
+            y64 = scan_f64(torch, x, la, b, c, init)
+            exact = (attn_errors(torch, y_k, y64)[1], attn_errors(torch, y_p, y64)[1])
+            regs += (f"; y against a sequential f64 scan: kernel {exact[0]:.3g}, plain "
+                     f"{exact[1]:.3g}")
+            del y64
         log(f"ssd_scan ({label}): x {tuple(x.shape)} {dt_name(x)}{', strided' if layout == 'strided' else ''}, "
             f"b/c {tuple(b.shape)} {dt_name(b)}, log_a {dt_name(la)}, chunk {chunk}, init "
             f"{'yes' if with_init else 'zeros'}, operand mode {mode}: y {dt_name(y_k)} max abs "
@@ -1381,7 +1458,7 @@ def check_ssd_scan(torch):
             f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({n_bytes / 1e6:.4g} MB), bf16 "
             f"tensor {flops / BF16_TENSOR_FLOPS * 1e3:.4f} ms ({flops / 1e9:.4g} GFLOP); "
             f"f32 CUDA cores {f32_ms:.4f} ms; staging pass {staged / 1e6:.4g} MB "
-            f"({staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate): "
+            f"({staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate){regs}: "
             f"{'ok' if here else 'FAIL'}")
         ok = ok and here
         if label == "fresh window":
@@ -1391,9 +1468,14 @@ def check_ssd_scan(torch):
                        library_ms=None)
         if label in {c[0] for c in SCAN_WIDE}:
             wide[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, rel=y_rel)
+        if N > 128:
+            n256[label] = dict(mode=mode, ms=ms, device_ms=dev_ms, bound_ms=b_ms,
+                               plain_ms=plain, rel=y_rel, state_rel=s_rel, f64_rel=exact,
+                               registers=scan_registers("ssd_scan_kernel", mode, N))
         del x, la, b, c, init, y_k, y_p, s_k, s_p
     row["max_abs_err"] = worst
     row["wide_cases"] = wide
+    row["n256_cases"] = n256
     gc.collect()
     torch.cuda.empty_cache()
     return ok, row
@@ -1446,7 +1528,8 @@ def check_ssd_scan_bwd(torch):
     without either, groups G 4 at a small width, and jamba-v0.1-52b's
     widths (H 128, P 64, N 16) at L 2048; then the training shape in f32,
     N 32 at G 2, P 12 (f32) and chunk 512 over L 1000 (f32): the staged
-    operands.  Each reading beside its limit (BWD_TOL, or BWD_F32_OUT_TOL
+    operands; then the N-256 build at the training shape, bf16 and f32,
+    and N 192 on it, each line with (a)'s and (c)'s registers.  Each reading beside its limit (BWD_TOL, or BWD_F32_OUT_TOL
     for f32 dx, db and dc; BWD_F32_TOL), a bitwise repeat, the chunk
     states within the forward's 1e-4; times per call (CUDA events), on
     the device (replayed graph), the plain version's, and the bound from
@@ -1474,7 +1557,15 @@ def check_ssd_scan_bwd(torch):
               "float32"),
              ("N 32, G 2", 2, 1000, 8, 64, 2, 32, 128, True, True, "bfloat16"),
              ("f32 P 12", 2, 1000, 80, 12, 1, 128, 256, True, True, "float32"),
-             ("f32 chunk 512", 1, 1000, 80, 64, 1, 128, 512, True, True, "float32"))
+             ("f32 chunk 512", 1, 1000, 80, 64, 1, 128, 512, True, True, "float32"),
+             # the N-256 build: mamba2-2.7b's training shape at d_state 256
+             # in bf16 (read in place) and f32, and N 192 on the build
+             ("N 256 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 256, 256, True, True,
+              "bfloat16"),
+             ("f32 N 256 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 256, 256, True, True,
+              "float32"),
+             ("N 192 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 192, 256, True, True,
+              "bfloat16"))
     g = torch.Generator(device="cuda").manual_seed(6)
     ok, row, worst, wide = True, None, 0.0, {}
     for label, B, L, H, P, G, N, chunk, with_init, with_dfin, dt in cases:
@@ -1508,13 +1599,16 @@ def check_ssd_scan_bwd(torch):
         plain = cuda_ms(torch, lambda: ssd_scan_bwd_plain(x, la, b, c, states_p, dy, dfin,
                                                           chunk), 2, warmup=1)
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
-        if row is None or label == "f32 mamba2-2.7b training":
+        if row is None or label in ("f32 mamba2-2.7b training", "N 256 training",
+                                    "f32 N 256 training"):
             stages = kernel_ms(torch, lambda: ssd_scan_bwd_cuda(*args, chunk))
             log(f"ssd_scan_bwd ({label}): device ms per call by kernel (torch.profiler): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
         dtypes_ok = [t.dtype for t in got[:4]] == [x.dtype, la.dtype, b.dtype, c.dtype]
         here = (bitwise and st_rel <= 1e-4 and dtypes_ok
                 and all(v <= tol for v, tol in readings.values()))
+        regs = (f"; registers (a) {scan_registers('ssd_scan_bwd_chunk_kernel', mode, N)}, "
+                f"(c) {scan_registers('ssd_scan_bwd_kernel', mode, N)}" if N > 128 else "")
         log(f"ssd_scan_bwd ({label}): x {tuple(x.shape)} {dt_name(x)}, b/c {tuple(b.shape)} "
             f"{dt_name(b)}, chunk {chunk}, init {'yes' if with_init else 'none'}, final-state "
             f"cotangent {'yes' if with_dfin else 'none'}, operand mode {mode}: " + ", ".join(
@@ -1526,7 +1620,7 @@ def check_ssd_scan_bwd(torch):
             f"ms ({flops / 1e9:.4g} GFLOP), bytes {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
             f"({n_bytes / 1e6:.4g} MB); the same flops on the f32 CUDA cores "
             f"{flops / F32_FLOPS * 1e3:.4f} ms; staging pass {staged / 1e6:.4g} MB "
-            f"({staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate): "
+            f"({staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate){regs}: "
             f"{'ok' if here else 'FAIL'}")
         ok = ok and here
         if row is None:
@@ -1536,7 +1630,7 @@ def check_ssd_scan_bwd(torch):
                        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
                        bound_by=b_by, library_ms=None)
         else:
-            wide[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms)
+            wide[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, plain_ms=plain)
         del x, b, c, init, dy, dfin, states, states_p, got, again, want, args
     row["max_abs_err"] = worst
     row["wide_cases"] = wide
@@ -2039,6 +2133,7 @@ def serve_ssm(torch):
         log(f"serve [{label}]: {n_win} windows in {wall:.3f} s ({n_win / wall:.4f} "
             f"windows/s incl. codec ingest); stage busy s {busy}; peak memory {peak:.2f} "
             f"GiB; launches {launches}; plain on CUDA {plain_on_cuda}")
+        READINGS[f"phase 4 {label}"] = served_reading(n_win, wall, busy, peak, launches)
         for i, res in enumerate(per_stream):
             log(f"  stream {i}: answers {[r.stats.answer for r in res]}, yes/no logits "
                 f"{[tuple(round(x, 4) for x in r.stats.logits_yes_no) for r in res]}")
@@ -2391,7 +2486,14 @@ def family_models():
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights"),
         ("(g)", WIDE_ARCH, dataclasses.replace(get_config(ARCH), **WIDE_HEADS), ("codecflow",),
          MOE_FRAMES, f"{full}, LM heads of 256, InternViT at {HW}^2"),
+        ("(h)", SSM_N256, wide_state(get_config(SSM_ARCH)), ("codecflow",), SSM_FRAMES,
+         f"{full}, SSD state {WIDE_STATE}"),
     )
+
+
+def wide_state(cfg):
+    """``cfg`` with its SSD state widened to WIDE_STATE (phases 7(h), 8(g))."""
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=WIDE_STATE))
 
 
 # (e): an f32 LM (f32 queries over the bf16 slab) ingested at the search
@@ -2400,6 +2502,10 @@ FAMILY_CODECS = {"(e)": dict(search_radius=16)}
 # (g): internvl3-14b keeps its own ViT (InternViT, 16 heads of 64), which
 # takes 448^2 frames, where the other cases take the launcher's 112^2 one
 FAMILY_FRAMES = {"(g)": HW}
+# phase 4's run that a case's readings are printed beside: (g) at heads of
+# 128, (h) at d_state 128
+FAMILY_BESIDE = {"(g)": (f"phase 4 {MAIN}", "heads of 128"),
+                 "(h)": (f"phase 4 {SSM_MAIN}", "d_state 128")}
 # (g): after the four engine runs on the paged bf16 slab, one lockstep run
 # per further path: per-stream caches (flash_refresh) and int8 cold pages
 FAMILY_PATHS = {"(g)": (("per-stream KV", dict(paged_kv=False)),
@@ -2435,7 +2541,10 @@ def serve_families(torch, keys=None):
     448^2, the same four runs on the paged bf16 slab, then one lockstep
     run on per-stream caches and one with int8 cold pages (which must
     demote pages), each path's readings printed beside phase 4's D-128
-    run of the same path.  Each model's weights are freed before the
+    run of the same path; (h) mamba2-2.7b with its SSD state widened to
+    256 (WIDE_STATE: the scan's N-256 build), codecflow through the
+    recurrent backend, 2 x SSM_FRAMES frames, the same four runs, beside
+    phase 4's d_state-128 run.  Each model's weights are freed before the
     next.  ``keys`` serves only those cases.  Returns (ok, launches per
     run)."""
     from repro_torch.data.pipeline import anomaly_dataset
@@ -2493,9 +2602,9 @@ def serve_families(torch, keys=None):
                 log(f"  stream {i}: answers {runs[0]['answers'][i]}, yes/no logits "
                     f"{[tuple(round(x, 4) for x in lg) for lg in res]}")
             ok = ok and here and bitwise
-            if paths:
-                log(f"  beside phase 4 (heads of 128) [{MAIN}]: "
-                    f"{READINGS.get(f'phase 4 {MAIN}', 'not run')}")
+            if key in FAMILY_BESIDE:
+                reading, what = FAMILY_BESIDE[key]
+                log(f"  beside {reading} ({what}): {READINGS.get(reading, 'not run')}")
         for label, kv in paths:
             def make(kv=kv):
                 return ServingPipeline(cfg, v, params, vparams, path_ecfg("codecflow", kv, codec),
@@ -2936,16 +3045,18 @@ def kernel_group(name: str) -> str:
     return "other elementwise"
 
 
-def train_mamba(torch, dtype=None):
+def train_mamba(torch, dtype=None, d_state=None, steps: int = SSM_TRAIN_STEPS):
     """8(e): mamba2-2.7b at full size (64 mamba layers, random bf16
-    weights from the seed) trained SSM_TRAIN_STEPS steps through
+    weights from the seed) trained ``steps`` steps through
     ``launch.train.train`` (remat, batch 2, seq 2048): loss and grad_norm
     finite at every step, every leaf moved, no plain call on a CUDA
     tensor, and per step 2 forward launches per layer (the forward and
     remat's recompute) and 1 backward launch; then one profiled step.
     8(f): the same with ``dtype="float32"`` (f32 weights, x, b and c into
     the scan's staged hi / lo builds; full depth: about 60 GiB at its
-    peak).  Returns (ok, launches)."""
+    peak).  8(g): with ``d_state`` (the SSD state widened: the N-256
+    build), its profiled scan times printed beside 8(e)'s.  Returns (ok,
+    launches)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as tlaunch
@@ -2953,6 +3064,9 @@ def train_mamba(torch, dtype=None):
     cfg = get_config(SSM_ARCH)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if d_state is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=d_state))
+    variant = dtype is not None or d_state is not None
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2960,11 +3074,11 @@ def train_mamba(torch, dtype=None):
     ops.reset_dispatch_counts()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    # 8(f): launch.train's own config lookup, returning the f32 variant
-    as_cfg = (lambda get: lambda arch: cfg) if dtype is not None else (lambda get: get)
+    # 8(f), 8(g): launch.train's own config lookup, returning the variant
+    as_cfg = (lambda get: lambda arch: cfg) if variant else (lambda get: get)
     with wrapped(tlaunch, "get_config", as_cfg), \
             wrapped(tlaunch, "make_train_step", timed_steps(torch, times, finite)):
-        trained, losses = tlaunch.train(SSM_ARCH, SSM_TRAIN_STEPS, SSM_TRAIN_BATCH,
+        trained, losses = tlaunch.train(SSM_ARCH, steps, SSM_TRAIN_BATCH,
                                         SSM_TRAIN_SEQ, seed=SEED, device="cuda", log_every=1)
     t_all = time.perf_counter() - t0
     launches, plain = ops.launch_counts(), ops.plain_calls_on_cuda()
@@ -2975,24 +3089,24 @@ def train_mamba(torch, dtype=None):
     moved = all(not torch.equal(a, b) for a, b in zip(fresh, leaves))
     del fresh
     n_mamba = sum(k == "mamba" for k in cfg.block_pattern) * cfg.repeats
-    want = {"ssd_scan": 2 * n_mamba * SSM_TRAIN_STEPS, "ssd_scan_bwd": n_mamba * SSM_TRAIN_STEPS}
+    want = {"ssd_scan": 2 * n_mamba * steps, "ssd_scan_bwd": n_mamba * steps}
     t_step = sum(times[1:]) / len(times[1:])
-    if dtype is None:
+    if not variant:
         READINGS["mamba_step_s"] = t_step
     tokens = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
     flops = 8.0 * n_params * tokens
     w_bytes = 4 if cfg.dtype == "float32" else 2
     log(f"train [{SSM_ARCH}, full size, {cfg.dtype}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B parameters, remat, batch {SSM_TRAIN_BATCH}, seq "
-        f"{SSM_TRAIN_SEQ}]: losses {[round(x, 4) for x in losses]}; step s "
-        f"{[round(x, 4) for x in times]} (step 1 includes the first calls' set-up; "
-        f"{t_all:.1f} s with the weights' set-up); steps 2-{SSM_TRAIN_STEPS} {t_step:.4f} s "
+        f"d_state {cfg.ssm.d_state}, {n_params / 1e9:.3f} B parameters, remat, batch "
+        f"{SSM_TRAIN_BATCH}, seq {SSM_TRAIN_SEQ}]: losses {[round(x, 4) for x in losses]}; "
+        f"step s {[round(x, 4) for x in times]} (step 1 includes the first calls' set-up; "
+        f"{t_all:.1f} s with the weights' set-up); steps 2-{steps} {t_step:.4f} s "
         f"each: {tokens / t_step:.1f} tokens/s; model FLOPs per step {flops / 1e12:.2f} T "
         f"(8 x parameters x positions): {flops / t_step / BF16_TENSOR_FLOPS:.4f} of the bf16 "
         f"peak; peak memory {peak:.2f} GiB (parameters, gradients and f32 moments "
         f"{n_params * (2 * w_bytes + 8) / 2**30:.2f} GiB); finite every step: {all(finite)}; "
         f"every leaf moved: {moved}; launches {launches} (want {want}); plain on CUDA: {plain}")
-    ok = (all(finite) and len(finite) == SSM_TRAIN_STEPS and moved
+    ok = (all(finite) and len(finite) == steps and moved
           and not any(plain.values())
           and all(launches.get(k, 0) == n for k, n in want.items()))
     groups = profile_step(torch, cfg, trained, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
@@ -3002,6 +3116,13 @@ def train_mamba(torch, dtype=None):
         log(f"  the backward kernel (with its reduction): {bwd:.1f} ms of {busy:.1f} ms of "
             f"kernels in the profiled step ({bwd / busy:.4f}); the forward kernel "
             f"{groups.get('ssd_scan forward', 0.0):.1f} ms")
+    if not variant:
+        READINGS["mamba_scan_ms"] = (groups.get("ssd_scan forward", 0.0),
+                                     groups.get("ssd_scan backward", 0.0), t_step, peak)
+    elif d_state is not None:
+        fwd, bwd, t8e, p8e = READINGS.get("mamba_scan_ms", (None,) * 4)
+        log(f"  beside 8(e) (d_state {get_config(SSM_ARCH).ssm.d_state}): scan forward "
+            f"{fwd} ms, backward {bwd} ms, step {t8e} s, peak {p8e} GiB")
     del trained, leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -3173,9 +3294,11 @@ def train_phase(torch):
     here, ssm = train_mamba(torch)
     ok = ok and here
     here, ssm32 = train_mamba(torch, "float32")
+    ok = ok and here
+    here, ssm256 = train_mamba(torch, d_state=WIDE_STATE, steps=2)
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path, TRAIN_PATH: ssm,
-                         f"{SSM_F32} training": ssm32}
+                         f"{SSM_F32} training": ssm32, f"{SSM_N256} training": ssm256}
 
 
 # ----------------------------------------------------------------------
@@ -3720,7 +3843,8 @@ def main(argv=None) -> int:
                          "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
                          "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'f32-ssm' "
                          "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'd256' (phase 7(g): "
-                         "internvl3-14b with LM heads of 256), 'mesh' "
+                         "internvl3-14b with LM heads of 256), 'n256-ssm' (phases 7(h) and "
+                         "8(g): mamba2-2.7b at d_state 256), 'mesh' "
                          "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
                          "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
                          "each alone after phases 1-2")
@@ -3762,6 +3886,7 @@ def main(argv=None) -> int:
     for src, text in cuda.build_log().items():
         for label, regs, spill in ptxas_kernels(text):
             log(f"  ptxas[{src}]: {label}: {regs} registers, {spill} bytes spilled")
+            READINGS.setdefault("registers", {})[label] = regs
             if spill and (src.startswith("attention") or src.startswith("ssd_scan")):
                 spilled.append(label)
     if spilled:
@@ -3778,7 +3903,10 @@ def main(argv=None) -> int:
                                   and served_cleanly("phase 7(f)")
                                   and train_mamba(torch, "float32")[0]),
               "d256": lambda: (serve_families(torch, ("(g)",))[0]
-                               and served_cleanly("phase 7(g)"))}
+                               and served_cleanly("phase 7(g)")),
+              "n256-ssm": lambda: (serve_families(torch, ("(h)",))[0]
+                                   and served_cleanly("phase 7(h)")
+                                   and train_mamba(torch, d_state=WIDE_STATE, steps=2)[0])}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
         print(smi)

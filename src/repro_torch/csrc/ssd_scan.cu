@@ -2,7 +2,8 @@
 // points; the kernels are in ssd_scan.cuh, the staged builds (any other
 // operand of the reference's scan) in ssd_scan_staged.cu.  Exact state
 // widths N 16, 32, 64 and 128 (jamba; the JAX benchmarks' audit row;
-// mamba2).
+// mamba2), and 256 (the wide build: two column slabs of 128 over blocks;
+// Mamba-2's state expansion).
 #include "ssd_scan.cuh"
 
 namespace {
@@ -13,6 +14,7 @@ namespace {
     case 32: return CALL(32);                        \
     case 64: return CALL(64);                        \
     case 128: return CALL(128);                      \
+    case 256: return CALL(256);                      \
     default: return (int)cudaErrorInvalidValue;      \
   }
 
@@ -26,22 +28,26 @@ bool bad_geometry(int Q, int G, int H, int P) {
 // log_a: (B, L, H) f32 at sab/sal (H packed); b, c: (B, L, G, N) bf16 at
 // sbb/sbl (G, N packed); init: (B, H, P, N) f32 contiguous or null (zeros);
 // y: (B, L, H, P) bf16 contiguous; st: (B, H, P, N) f32; cst: null, or
-// (B, H, nc, P, N) f32 for the state entering each of the nc chunks.
-// Q: chunk <= 256; N in {16, 32, 64, 128}; P a multiple of 8; x, b, c,
+// (B, H, nc, P, N) f32 for the state entering each of the nc chunks;
+// ypart: at N 256, f32 scratch for y's partials (B, L, H, 2, P), else
+// unused (may be null).
+// Q: chunk <= 256; N in {16, 32, 64, 128, 256}; P a multiple of 8; x, b, c,
 // init and st on 16-byte boundaries, with strides sxb, sxl, sbb, sbl
 // multiples of 8.  xp, nst, xlo, blo and flags are the staged builds'
 // (ssd_scan_staged.cu): here xp = P, nst = N, mode 0 (FAST).
 CS_EXPORT int cs_ssd_scan(const void* x, const float* log_a, const void* b,
                           const void* c, const float* init, void* y, float* st, float* cst,
+                          float* ypart,
                           int B, int L, int H, int P, int G, int N, int Q,
                           long long sxb, long long sxl, long long sab,
                           long long sal, long long sbb, long long sbl, int xp, int nst,
                           long long xlo, long long blo, int flags, int mode,
                           cudaStream_t stream) {
-  if (bad_geometry(Q, G, H, P) || P % 8 != 0 || mode != FAST || nst != N)
+  if (bad_geometry(Q, G, H, P) || P % 8 != 0 || mode != FAST || nst != N ||
+      (N > 128 && ypart == nullptr))
     return (int)cudaErrorInvalidValue;
   const ScanArgs a{B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, P, N, 0, 0, flags};
-#define CALL(n) launch<n, FAST>(x, log_a, b, c, init, y, st, cst, a, stream)
+#define CALL(n) launch<n, FAST>(x, log_a, b, c, init, y, st, cst, ypart, a, stream)
   SSD_DISPATCH_N(N, CALL)
 #undef CALL
 }
@@ -53,8 +59,9 @@ CS_EXPORT int cs_ssd_scan(const void* x, const float* log_a, const void* b,
 // dc (B, L, G, N) bf16 and, unless null, dinit (B, H, P, N) f32.  part:
 // f32 scratch of B H nc P N + B H nc (rounded up to 4) + 2 B L (H / hb)
 // nps N elements, hb the heads per block (2 where H / G is even, else 1),
-// nps = ceil(P / 64); lpart: B L H nps f32 scratch when nps > 1 or dla is
-// bf16, else unused (may be null).
+// nps = ceil(P / 64), and at N 256 B L H 2 P more (dX's partials); lpart:
+// B L H nps NS f32 scratch (NS 2 at N 256, else 1) when nps NS > 1 or dla
+// is bf16, else unused (may be null).
 CS_EXPORT int cs_ssd_scan_bwd(const void* x, const float* log_a, const void* b,
                               const void* c, const float* states, const void* dy,
                               const float* dfin, void* dx, void* dla, void* db, void* dc,

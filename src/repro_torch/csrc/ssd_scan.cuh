@@ -48,6 +48,15 @@
 //   other side it can overflow, and 0 * inf would be NaN.
 // * Shared memory holds the chunk's B rows, x slice, the state's halves
 //   and cum (at q 256, N 128: 106 KB, two blocks per SM).
+// * N 256 (the wide build, NS = 2 column slabs of 128): a block owns its
+//   P rows of one 128-column slab of the state, so it runs the N-128 body
+//   (its registers, its shared layout, two blocks per SM) at twice the
+//   grid.  A slab's state is updated from its own columns of B alone; y
+//   sums over N, so each block writes its slab's share of y as f32
+//   partials, (B, L, H, NS, P), and ssd_scan_fwd_sum_kernel adds them in
+//   slab order.  One block of the full width would hold 32 + 32 f32 of state
+//   and update a thread and 190 KB of shared memory at q 256 in FAST (one
+//   block per SM), and 346 KB in SPLIT, past the 227 KB a block may use.
 //
 // Operand modes (the MODE parameter of every kernel here).  FAST reads
 // bf16 x, b and c in place (heads, groups and features packed, rows on
@@ -137,8 +146,10 @@ __device__ __forceinline__ void load_frag(uint32_t (&f)[4], const bf16* base, lo
 // The forward.  Past FAST's arguments: xp, x's head pitch (Pp when
 // staged); nst, the state's true width (the final state's row pitch);
 // xlo and blo, the element offsets of x's and b's / c's lo halves
-// (SPLIT); yf32, y is f32 (else bf16: y's type below).
-template <int N, int MODE>
+// (SPLIT); yf32, y is f32 (else bf16: y's type below).  NS > 1: the
+// wide build, N the slab's width (see above); y is then the f32
+// partials.
+template <int N, int MODE, int NS = 1>
 __global__ void __launch_bounds__(NT, MODE == SPLIT ? 1 : 2)
 ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                 const bf16* __restrict__ bm, const bf16* __restrict__ cm,
@@ -149,6 +160,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                 int yf32) {
   using Sm = SsdSmem<N, MODE>;
   constexpr int LDB = Sm::LDB, LDX = Sm::LDX, LDF = Sm::LDF;
+  constexpr int NF = N * NS;   // the build width: the state's and b's / c's row pitch
   constexpr int KC = N / 16;   // k16 chunks of C B^T and C S^T
   constexpr int YT = PT / 8;   // n8 tiles of a y row tile
   // the update's (16 p x 8 n) tiles: with at least NW n8 columns a warp
@@ -167,7 +179,8 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   float* cum = reinterpret_cast<float*>(smem + sm.cum);
   float* part = reinterpret_cast<float*>(smem + sm.part);
 
-  const int p0 = blockIdx.x * PT, h = blockIdx.y, bb = blockIdx.z;
+  const int ns = blockIdx.x % NS, n0 = ns * N;   // this block's column slab
+  const int p0 = blockIdx.x / NS * PT, h = blockIdx.y, bb = blockIdx.z;
   const int prow = min(PT, P - p0);   // live state rows of this block
   const int grp = h / (H / G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -175,11 +188,11 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   const int xpitch = MODE == FAST ? P : xp;
   const bf16* xb = x + bb * sxb + (long long)h * xpitch + p0;
   const float* ab = la + bb * sab + h;
-  const bf16* bg = bm + bb * sbb + (long long)grp * N;
-  const bf16* cg = cm + bb * sbb + (long long)grp * N;
-  const long long ystep = (long long)H * P;
+  const bf16* bg = bm + bb * sbb + (long long)grp * NF + n0;
+  const bf16* cg = cm + bb * sbb + (long long)grp * NF + n0;
+  const long long ystep = (long long)H * NS * P;
   bf16* yb = y + (long long)bb * L * ystep + (long long)h * P + p0;
-  const long long soff = (((long long)bb * H + h) * P + p0) * N;
+  const long long soff = (((long long)bb * H + h) * P + p0) * NF + n0;
   const int un0 = WIDE ? warp * UN : warp >> 1;   // this warp's first n8 tile
   const int up0 = WIDE ? 0 : warp & 1;            // and first p tile
   const bool upd = WIDE || warp < 2 * (N / 8);
@@ -190,7 +203,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     const int r = i / (N / 4), c4 = (i % (N / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (init != nullptr && r < prow)
-      v = __ldg(reinterpret_cast<const float4*>(init + soff + (long long)r * N + c4));
+      v = __ldg(reinterpret_cast<const float4*>(init + soff + (long long)r * NF + c4));
     *reinterpret_cast<float4*>(Sf + r * LDF + c4) = v;
   }
   __syncthreads();
@@ -224,17 +237,17 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     // under grad, the state entering this chunk for the backward: the
     // accumulators' live rows as they stand, (B, H, nc, P, N) f32
     if (cst != nullptr && upd) {
-      float* dst = cst + ((((long long)bb * H + h) * nc + t0 / Q) * P + p0) * N;
+      float* dst = cst + ((((long long)bb * H + h) * nc + t0 / Q) * P + p0) * NF + n0;
       #pragma unroll
       for (int up = 0; up < UP; ++up) {
         #pragma unroll
         for (int un = 0; un < UN; ++un) {
           const int r = (up0 + up) * 16 + g, c = (un0 + un) * 8 + 2 * t4;
           if (r < prow)
-            *reinterpret_cast<float2*>(dst + (long long)r * N + c) =
+            *reinterpret_cast<float2*>(dst + (long long)r * NF + c) =
                 make_float2(sacc[up][un][0], sacc[up][un][1]);
           if (r + 8 < prow)
-            *reinterpret_cast<float2*>(dst + (long long)(r + 8) * N + c) =
+            *reinterpret_cast<float2*>(dst + (long long)(r + 8) * NF + c) =
                 make_float2(sacc[up][un][2], sacc[up][un][3]);
         }
       }
@@ -398,7 +411,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
           }
         }
       }
-      if constexpr (MODE == FAST) {
+      if constexpr (MODE == FAST && NS == 1) {
         #pragma unroll
         for (int n = 0; n < YT; ++n) {
           const int c = n * 8 + 2 * t4;
@@ -411,17 +424,18 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                   pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
           }
         }
-      } else {   // per element, in y's dtype, masked at a ragged P
+      } else {   // per element, in y's dtype (f32 partials past one slab), masked at a ragged P
+        const bool f32 = NS > 1 || yf32;
         #pragma unroll
         for (int n = 0; n < YT; ++n) {
           const int c = n * 8 + 2 * t4;
-          const long long yo = (long long)bb * L * ystep + (long long)h * P + p0;
+          const long long yo = (long long)bb * L * ystep + ((long long)h * NS + ns) * P + p0;
           const long long ra = yo + (long long)(t0 + ta) * ystep + c;
           const long long rb = yo + (long long)(t0 + tb) * ystep + c;
-          if (ta < q && c < prow) put_out(y, ra, acc[4 * n], yf32);
-          if (ta < q && c + 1 < prow) put_out(y, ra + 1, acc[4 * n + 1], yf32);
-          if (tb < q && c < prow) put_out(y, rb, acc[4 * n + 2], yf32);
-          if (tb < q && c + 1 < prow) put_out(y, rb + 1, acc[4 * n + 3], yf32);
+          if (ta < q && c < prow) put_out(y, ra, acc[4 * n], f32);
+          if (ta < q && c + 1 < prow) put_out(y, ra + 1, acc[4 * n + 1], f32);
+          if (tb < q && c < prow) put_out(y, rb, acc[4 * n + 2], f32);
+          if (tb < q && c + 1 < prow) put_out(y, rb + 1, acc[4 * n + 3], f32);
         }
       }
     }
@@ -531,13 +545,14 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   if constexpr (MODE == FAST) {
     for (int i = tid; i < prow * N / 4; i += NT) {
       const int r = i / (N / 4), c4 = (i % (N / 4)) * 4;
-      *reinterpret_cast<float4*>(st + soff + (long long)r * N + c4) =
+      *reinterpret_cast<float4*>(st + soff + (long long)r * NF + c4) =
           *reinterpret_cast<const float4*>(Sf + r * LDF + c4);
     }
-  } else {   // the true width nst, per element
-    const long long so = (((long long)bb * H + h) * P + p0) * nst;
-    for (int i = tid; i < prow * nst; i += NT) {
-      const int r = i / nst, c = i % nst;
+  } else {   // the true width nst, per element (the slab's columns below it)
+    const long long so = (((long long)bb * H + h) * P + p0) * nst + n0;
+    const int ncol = NS == 1 ? nst : min(N, nst - n0);
+    for (int i = tid; i < prow * ncol; i += NT) {
+      const int r = i / ncol, c = i % ncol;
       st[so + (long long)r * nst + c] = Sf[r * LDF + c];
     }
   }
@@ -572,20 +587,71 @@ int opt_in(F* kernel, std::atomic<unsigned long long>& opted, size_t bytes) {
   return 0;
 }
 
+// out[i, j] = sum over k, in order, of part[i, k, j] (f32 partials of J
+// columns; the first Jo of them out), as bf16 (out_bf) or f32 (out_f)
+__device__ __forceinline__ void sum_rows(const float* __restrict__ part, bf16* __restrict__ out_bf,
+                                         float* __restrict__ out_f, long long I, int K, int J,
+                                         int Jo) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= I * Jo) return;
+  const long long row = i / Jo;
+  const int j = (int)(i % Jo);
+  const float* src = part + row * K * J + j;
+  float sum = 0.f;
+  for (int k = 0; k < K; ++k) sum += src[(long long)k * J];
+  if (out_bf != nullptr) out_bf[i] = __float2bfloat16_rn(sum);
+  else out_f[i] = sum;
+}
+
+// the backward's sums (dB, dC, dX and dlog_a partials)
+__global__ void sum_mid_kernel(const float* __restrict__ part, bf16* __restrict__ out_bf,
+                               float* __restrict__ out_f, long long I, int K, int J, int Jo) {
+  sum_rows(part, out_bf, out_f, I, K, J, Jo);
+}
+
+// the forward's: y's partials per column slab of the N-256 build (a name
+// of its own, so a profile counts it with the forward)
+__global__ void ssd_scan_fwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out_bf,
+                                        float* __restrict__ out_f, long long I, int K, int J,
+                                        int Jo) {
+  sum_rows(part, out_bf, out_f, I, K, J, Jo);
+}
+
+// the sum into `out`, bf16 or (f32) f32, by the backward's kernel or
+// (fwd) the forward's
+int sum_mid(const float* part, void* out, bool f32, long long I, int K, int J, int Jo,
+            cudaStream_t stream, bool fwd = false) {
+  const long long n = I * Jo;
+  auto* kernel = fwd ? ssd_scan_fwd_sum_kernel : sum_mid_kernel;
+  kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
+      part, f32 ? nullptr : (bf16*)out, f32 ? (float*)out : nullptr, I, K, J, Jo);
+  return (int)cudaGetLastError();
+}
+
+// column slabs of the build of width N: one up to 128, N / 128 past it
+__host__ __device__ constexpr int slabs_of(int N) { return N > 128 ? N / 128 : 1; }
+
+// ypart: the wide build's y partials, (B, L, H, NS, P) f32 (else unused)
 template <int N, int MODE>
 int launch(const void* x, const float* log_a, const void* b, const void* c, const float* init,
-           void* y, float* st, float* cst, const ScanArgs& a, cudaStream_t stream) {
+           void* y, float* st, float* cst, float* ypart, const ScanArgs& a,
+           cudaStream_t stream) {
+  constexpr int NS = slabs_of(N), NC = N / NS;
   // the kernel opts in to the largest chunk's shared bytes
   static std::atomic<unsigned long long> opted{0};
-  const int rc = opt_in(ssd_scan_kernel<N, MODE>, opted, SsdSmem<N, MODE>(NT).bytes);
+  const int rc = opt_in(ssd_scan_kernel<NC, MODE, NS>, opted, SsdSmem<NC, MODE>(NT).bytes);
   if (rc != 0) return rc;
-  const size_t smem = SsdSmem<N, MODE>((a.Q + 15) & ~15).bytes;
-  dim3 grid((a.P + PT - 1) / PT, a.H, a.B);
-  ssd_scan_kernel<N, MODE><<<grid, NT, smem, stream>>>(
-      (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, init, (bf16*)y, st, cst,
-      a.L, a.H, a.P, a.G, a.Q, a.sxb, a.sxl, a.sab, a.sal, a.sbb, a.sbl, a.xp, a.nst, a.xlo,
-      a.blo, a.flags & OUT_F32);
-  return (int)cudaGetLastError();
+  const size_t smem = SsdSmem<NC, MODE>((a.Q + 15) & ~15).bytes;
+  dim3 grid((a.P + PT - 1) / PT * NS, a.H, a.B);
+  ssd_scan_kernel<NC, MODE, NS><<<grid, NT, smem, stream>>>(
+      (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, init,
+      (bf16*)(NS > 1 ? (void*)ypart : y), st, cst, a.L, a.H, a.P, a.G, a.Q, a.sxb, a.sxl,
+      a.sab, a.sal, a.sbb, a.sbl, a.xp, a.nst, a.xlo, a.blo, a.flags & OUT_F32);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || NS == 1) return err;
+  // y: the slabs' partials in slab order, in y's dtype
+  return sum_mid(ypart, y, a.flags & OUT_F32, (long long)a.B * a.L * a.H, NS, a.P, a.P, stream,
+                 true);
 }
 
 // ---------------------------------------------------------------------
@@ -675,6 +741,17 @@ int launch(const void* x, const float* log_a, const void* b, const void* c, cons
 // takes one head a block and P slabs of 32 columns (16 at N 128): 196 KB
 // of shared memory at q 256, N 128, and the register-held fragments of a
 // narrower slab (at N 128 and 32 columns ptxas spilled 60 bytes).
+//
+// N 256 (the wide build) runs (a) and (c) on NS = 2 column slabs of 128
+// over blocks, each the N-128 body, so no accumulator grows: (c) at N
+// 256 would hold a 16 x 256 f32 dB or dC tile (128 registers a thread)
+// beside C's or B's fragments (64), past 255.  Every term is linear in
+// the sums over N: a slab's columns of dB, dC and dS are whole in its
+// block, and the terms that sum over N (C B^T in M, B dS^T in dX, C S^T
+// and the dot products in dcum, <dS, S_in>) are the slabs' partials:
+// dX goes out as f32 partials (B, L, H, NS, P) and dlog_a as per-slab
+// partials, and sum_mid_kernel adds them in a fixed order.  (b) takes
+// the full width as it is.
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int PB = 64;          // P columns of a slab, one block's share of P
 constexpr int HB_MAX = 2;       // heads per block of (c)
@@ -802,8 +879,9 @@ struct ChunkSmem {
 
 // (a): E = (e o dY)^T C over one chunk for one P slab of one head, P x N
 // f32 into dsc (B, H, nc, P, N), and cum_q into cq (B, H, nc).  A warp
-// owns one 16-row p tile and half of the n16 column blocks.
-template <int N, int MODE>
+// owns one 16-row p tile and half of the n16 column blocks.  NS > 1:
+// one column slab of N of the NS N-wide state a block.
+template <int N, int MODE, int NS = 1>
 __global__ void __launch_bounds__(NT, 2)
 ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__ cm,
                           const bf16* __restrict__ dy, float* __restrict__ dsc,
@@ -813,8 +891,10 @@ ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__
   using Sm = ChunkSmem<N, MODE>;
   constexpr int LDN = Sm::LDN, LDP = Sm::LDP;
   constexpr int NB16 = N / 16, NPW = (NB16 + 1) / 2;
+  constexpr int NF = N * NS;   // the build width
   extern __shared__ __align__(128) unsigned char smem[];
-  const int k = blockIdx.x / nps, slab = blockIdx.x % nps, p0 = slab * PB;
+  const int k = blockIdx.x / (nps * NS), slab = blockIdx.x / NS % nps, p0 = slab * PB;
+  const int ns = blockIdx.x % NS;   // the column slab
   const int pc = min(PB, P - p0);
   const int h = blockIdx.y, bb = blockIdx.z, grp = h / (H / G);
   const int nc = (L + Q - 1) / Q, t0 = k * Q, q = min(Q, L - t0), rows = (q + 15) & ~15;
@@ -825,7 +905,7 @@ ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__
   float* part = reinterpret_cast<float*>(smem + sm.part);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * N;
+  const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * NF + ns * N;
   const int xpitch = MODE == FAST ? P : xp;
   const long long ystep = (long long)H * xpitch;
   const bf16* yb = dy + ((long long)bb * L + t0) * ystep + (long long)h * xpitch + p0;
@@ -858,7 +938,7 @@ ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__
   const float cum = chunk_scan(la + bb * sab + (long long)t0 * sal + h, sal, q, part, tid, lane,
                                warp);
   if (tid < rows) ev[tid] = tid < q ? expf(cum) : 0.f;
-  if (tid == q - 1 && slab == 0) cq[((long long)bb * H + h) * nc + k] = cum;
+  if (tid == q - 1 && slab == 0 && ns == 0) cq[((long long)bb * H + h) * nc + k] = cum;
   cp_async_wait<0>();
   __syncthreads();
 
@@ -896,7 +976,7 @@ ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__
       }
     }
   }
-  float* dst = dsc + ((((long long)bb * H + h) * nc + k) * P + p0 + pt * 16 + g) * N;
+  float* dst = dsc + ((((long long)bb * H + h) * nc + k) * P + p0 + pt * 16 + g) * NF + ns * N;
   #pragma unroll
   for (int j = 0; j < 2 * NPW; ++j) {
     if (nb0 + j / 2 >= NB16) break;
@@ -904,7 +984,7 @@ ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__
     if (pt * 16 + g < pc)
       *reinterpret_cast<float2*>(dst + c) = make_float2(acc[j][0], acc[j][1]);
     if (pt * 16 + g + 8 < pc)
-      *reinterpret_cast<float2*>(dst + 8 * N + c) = make_float2(acc[j][2], acc[j][3]);
+      *reinterpret_cast<float2*>(dst + 8 * NF + c) = make_float2(acc[j][2], acc[j][3]);
   }
 }
 
@@ -979,10 +1059,11 @@ struct BwdSmem {
   }
 };
 
-// stage a (B, H, nc, P, N) f32 state slab of hb heads as bf16 hi / lo
-// halves (rows from pc on zero); with `other`, also each head's
-// <state, other> over the slab, warp partials into red[hh * NW + warp]
-template <int N, int SB>
+// stage a (B, H, nc, P, NF) f32 state slab of hb heads, N of its
+// columns, as bf16 hi / lo halves (rows from pc on zero); with `other`,
+// also each head's <state, other> over the slab, warp partials into
+// red[hh * NW + warp]
+template <int N, int SB, int NF = N>
 __device__ __forceinline__ void stage_states(bf16* st, const float* src, const float* other,
                                              float* red, int hb, int pc, int tid, int lane,
                                              int warp, long long head_stride) {
@@ -997,8 +1078,8 @@ __device__ __forceinline__ void stage_states(bf16* st, const float* src, const f
       const int r = i / (N / 4), c4 = (i % (N / 4)) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
       if (r < pc) {
-        v = __ldg(reinterpret_cast<const float4*>(s + (long long)r * N + c4));
-        if (other != nullptr) w = __ldg(reinterpret_cast<const float4*>(o + (long long)r * N + c4));
+        v = __ldg(reinterpret_cast<const float4*>(s + (long long)r * NF + c4));
+        if (other != nullptr) w = __ldg(reinterpret_cast<const float4*>(o + (long long)r * NF + c4));
       }
       ip += v.x * w.x + v.y * w.y + v.z * w.z + v.w * w.w;
       uint32_t h0, l0, h1, l1;
@@ -1014,10 +1095,12 @@ __device__ __forceinline__ void stage_states(bf16* st, const float* src, const f
   }
 }
 
-// (c): see the note above.  Block (chunk k x P slab, head block, b).
-// Past FAST's arguments: xp, x's and dY's head pitch; xlo and blo, the
-// lo halves' element offsets (SPLIT); dxf32, dX is f32 (else bf16).
-template <int N, int MODE>
+// (c): see the note above.  Block (chunk k x P slab x column slab, head
+// block, b).  Past FAST's arguments: xp, x's and dY's head pitch; xlo
+// and blo, the lo halves' element offsets (SPLIT); dxf32, dX is f32
+// (else bf16).  NS > 1: dxv is dX's f32 partials, dl holds nps x NS
+// partials a row.
+template <int N, int MODE, int NS = 1>
 __global__ void __launch_bounds__(NT, 1)
 ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                     const bf16* __restrict__ bm, const bf16* __restrict__ cm,
@@ -1032,8 +1115,10 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   constexpr bool SP = MODE == SPLIT;
   constexpr int KC = N / 16;    // k16 chunks over N
   constexpr int PK = PB / 16;   // k16 chunks over a P slab
+  constexpr int NF = N * NS;    // the build width
   extern __shared__ __align__(128) unsigned char smem[];
-  const int k = blockIdx.x / nps, slab = blockIdx.x % nps, p0 = slab * PB;
+  const int k = blockIdx.x / (nps * NS), slab = blockIdx.x / NS % nps, p0 = slab * PB;
+  const int ns = blockIdx.x % NS, n0 = ns * N;   // the column slab
   const int pc = min(PB, P - p0);   // live columns of the slab
   const int h0 = blockIdx.y * hb, bb = blockIdx.z, grp = h0 / (H / G);
   const int nc = (L + Q - 1) / Q, t0 = k * Q, q = min(Q, L - t0), rows = (q + 15) & ~15;
@@ -1056,20 +1141,22 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   const uint32_t oNt = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDN + (lane >> 4) * 8);
   const uint32_t oPn = 2 * (((lane & 7) + ((lane >> 4) << 3)) * LDP + ((lane >> 3) & 1) * 8);
   const uint32_t oPt = 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LDP + (lane >> 4) * 8);
-  const bf16* bg = bm + bb * sbb + (long long)t0 * sbl + (long long)grp * N;
-  const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * N;
+  const bf16* bg = bm + bb * sbb + (long long)t0 * sbl + (long long)grp * NF + n0;
+  const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * NF + n0;
   const int xpitch = MODE == FAST ? P : xp;
   const long long ystep = (long long)H * xpitch;        // dY's row pitch
-  const long long ostep = (long long)H * P;             // dX's
+  const long long ostep = (long long)H * NS * P;        // dX's (its partials' past one slab)
   const bf16* xb = x + bb * sxb + (long long)t0 * sxl + (long long)h0 * xpitch + p0;
   const bf16* yb = dy + ((long long)bb * L + t0) * ystep + (long long)h0 * xpitch + p0;
-  const long long dxo = ((long long)bb * L + t0) * ostep + (long long)h0 * P + p0;
+  const long long dxo = ((long long)bb * L + t0) * ostep + ((long long)h0 * NS + ns) * P + p0;
   bf16* dxb = reinterpret_cast<bf16*>(dxv) + dxo;
+  float* dxf = reinterpret_cast<float*>(dxv) + dxo;   // NS > 1: the f32 partials
   // SPLIT: the lo rows' byte offsets in shared memory
   const uint32_t bc_lo = 2 * rows * LDN, xy_lo = 2 * HB_MAX * rows * LDP;
-  const long long soff = ((((long long)bb * H + h0) * nc + k) * P + p0) * N;
-  const long long shead = (long long)nc * P * N;   // one head further in the states
-  // a block's partial rows: (step, head block, P slab) of N f32
+  const long long soff = ((((long long)bb * H + h0) * nc + k) * P + p0) * NF + n0;
+  const long long shead = (long long)nc * P * NF;   // one head further in the states
+  // a block's partial rows: (step, head block, P slab) of N f32 (NF
+  // wide, this slab's columns from n0 on); dlog_a's, nps x NS a row
   const long long prow = (long long)(H / hb) * nps;
   const long long poff = (long long)blockIdx.y * nps + slab;
 
@@ -1101,8 +1188,8 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     }
   }
   cp_async_commit();
-  stage_states<N, PB>(ST, cst + soff, dsc + soff, red + HB_MAX * NW, hb, pc, tid, lane, warp,
-                      shead);
+  stage_states<N, PB, NF>(ST, cst + soff, dsc + soff, red + HB_MAX * NW, hb, pc, tid, lane,
+                          warp, shead);
   for (int hh = 0; hh < hb; ++hh) {
     const float v = chunk_scan(la + bb * sab + (long long)t0 * sal + h0 + hh, sal, q, red + hh * NW,
                                tid, lane, warp);
@@ -1253,8 +1340,8 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
         dcum[hh * rows + tb] = rb;
       }
     }
-    float* pa = dcp + ((long long)bb * L * prow + (long long)(t0 + ta) * prow + poff) * N;
-    float* pb = pa + 8 * prow * N;
+    float* pa = dcp + ((long long)bb * L * prow + (long long)(t0 + ta) * prow + poff) * NF + n0;
+    float* pb = pa + 8 * prow * NF;
     #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int c = j * 8 + 2 * t4;
@@ -1291,7 +1378,7 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     }
   }
   cp_async_commit();
-  stage_states<N, PB>(ST, dsc + soff, nullptr, nullptr, hb, pc, tid, lane, warp, shead);
+  stage_states<N, PB, NF>(ST, dsc + soff, nullptr, nullptr, hb, pc, tid, lane, warp, shead);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -1466,7 +1553,7 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
           }
         }
       }
-      if constexpr (MODE == FAST) {
+      if constexpr (MODE == FAST && NS == 1) {
         bf16* xo = dxb + hh * P;
         #pragma unroll
         for (int j = 0; j < 2 * PK; ++j) {
@@ -1476,6 +1563,30 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
             *reinterpret_cast<uint32_t*>(xo + (long long)sa * ostep + c) = pack_bf16(ax[j][0], ax[j][1]);
           if (sb < q)
             *reinterpret_cast<uint32_t*>(xo + (long long)sb * ostep + c) = pack_bf16(ax[j][2], ax[j][3]);
+        }
+      } else if constexpr (MODE == FAST) {   // f32 pairs of this column slab's partials
+        float* xo = dxf + hh * NS * P;
+        #pragma unroll
+        for (int j = 0; j < 2 * PK; ++j) {
+          const int c = j * 8 + 2 * t4;
+          if (c >= pc) break;
+          if (sa < q)
+            *reinterpret_cast<float2*>(xo + (long long)sa * ostep + c) = make_float2(ax[j][0], ax[j][1]);
+          if (sb < q)
+            *reinterpret_cast<float2*>(xo + (long long)sb * ostep + c) = make_float2(ax[j][2], ax[j][3]);
+        }
+      } else if constexpr (NS > 1) {   // f32 partials of this column slab, masked at a ragged P
+        float* xo = dxf + hh * NS * P;
+        #pragma unroll
+        for (int j = 0; j < 2 * PK; ++j) {
+          const int c = j * 8 + 2 * t4;
+          if (c >= pc) break;
+          float* ra = xo + (long long)sa * ostep + c;
+          float* rb = xo + (long long)sb * ostep + c;
+          if (sa < q) ra[0] = ax[j][0];
+          if (sa < q && c + 1 < pc) ra[1] = ax[j][1];
+          if (sb < q) rb[0] = ax[j][2];
+          if (sb < q && c + 1 < pc) rb[1] = ax[j][3];
         }
       } else {   // per element, in x's dtype, masked at a ragged P
         #pragma unroll
@@ -1501,8 +1612,8 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
         wt[hh * rows + sb] = wb;
       }
     }
-    float* pa = dbp + ((long long)bb * L * prow + (long long)(t0 + sa) * prow + poff) * N;
-    float* pb = pa + 8 * prow * N;
+    float* pa = dbp + ((long long)bb * L * prow + (long long)(t0 + sa) * prow + poff) * NF + n0;
+    float* pb = pa + 8 * prow * NF;
     #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const int c = j * 8 + 2 * t4;
@@ -1532,92 +1643,79 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     __syncthreads();
     float post = 0.f;
     for (int w = NW - 1; w > warp; --w) post += red[w];
-    if (tid < q) dl[(((long long)bb * L + t0 + tid) * H + h0 + hh) * nps + slab] = r + post;
+    if (tid < q)
+      dl[(((long long)bb * L + t0 + tid) * H + h0 + hh) * (nps * NS) + slab * NS + ns] = r + post;
     __syncthreads();   // red is free again
   }
 }
 
-// out[i, j] = sum over k, in order, of part[i, k, j] (f32 partials of J
-// columns; the first Jo of them out), as bf16 (out_bf) or f32 (out_f)
-__global__ void sum_mid_kernel(const float* __restrict__ part, bf16* __restrict__ out_bf,
-                               float* __restrict__ out_f, long long I, int K, int J, int Jo) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= I * Jo) return;
-  const long long row = i / Jo;
-  const int j = (int)(i % Jo);
-  const float* src = part + row * K * J + j;
-  float sum = 0.f;
-  for (int k = 0; k < K; ++k) sum += src[(long long)k * J];
-  if (out_bf != nullptr) out_bf[i] = __float2bfloat16_rn(sum);
-  else out_f[i] = sum;
-}
-
-// the sum into `out`, bf16 or (f32) f32
-int sum_mid(const float* part, void* out, bool f32, long long I, int K, int J, int Jo,
-            cudaStream_t stream) {
-  const long long n = I * Jo;
-  sum_mid_kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
-      part, f32 ? nullptr : (bf16*)out, f32 ? (float*)out : nullptr, I, K, J, Jo);
-  return (int)cudaGetLastError();
-}
-
-// (a) and (c) opt in to their largest chunk's shared bytes
+// (a) and (c) opt in to their largest chunk's shared bytes (build width
+// N: NS column slabs of NC)
 template <int N, int MODE>
 int bwd_opt_in() {
+  constexpr int NS = slabs_of(N), NC = N / NS;
   static std::atomic<unsigned long long> opted_a{0}, opted_c{0};
-  const int rc = opt_in(ssd_scan_bwd_chunk_kernel<N, MODE>, opted_a, ChunkSmem<N, MODE>(NT).bytes);
-  return rc != 0 ? rc : opt_in(ssd_scan_bwd_kernel<N, MODE>, opted_c, BwdSmem<N, MODE>(NT).bytes);
+  const int rc = opt_in(ssd_scan_bwd_chunk_kernel<NC, MODE, NS>, opted_a,
+                        ChunkSmem<NC, MODE>(NT).bytes);
+  return rc != 0 ? rc : opt_in(ssd_scan_bwd_kernel<NC, MODE, NS>, opted_c,
+                               BwdSmem<NC, MODE>(NT).bytes);
 }
 
 // blocks per SM of (a), (b) and (c) at chunk Q, from the runtime's
 // occupancy calculator
 template <int N, int MODE>
 int bwd_occupancy(int Q, int* blocks) {
+  constexpr int NS = slabs_of(N), NC = N / NS;
   int rc = bwd_opt_in<N, MODE>();
   if (rc != 0) return rc;
   const int rows = (Q + 15) & ~15;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ssd_scan_bwd_chunk_kernel<N, MODE>, NT, ChunkSmem<N, MODE>(rows).bytes);
+      blocks, ssd_scan_bwd_chunk_kernel<NC, MODE, NS>, NT, ChunkSmem<NC, MODE>(rows).bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1,
                                                         ssd_scan_bwd_state_kernel<MODE != FAST>,
                                                         NT, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 2, ssd_scan_bwd_kernel<N, MODE>,
-                                                        NT, BwdSmem<N, MODE>(rows).bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks + 2, ssd_scan_bwd_kernel<NC, MODE, NS>, NT, BwdSmem<NC, MODE>(rows).bytes);
   return (int)err;
 }
 
 // The backward's launches.  x, b, c and dy as the forward reads them
 // (staged in SPLIT, dy at x's head pitch); states and the dS
 // slots at the build width N; dfin and dinit at the true width a.nst.
+// The build of width N past 128 runs (a) and (c) on NS column slabs of
+// NC = 128 (see the note above).
 template <int N, int MODE>
 int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
                const float* states, const void* dy, const float* dfin, void* dx, void* dla,
                void* db, void* dc, float* dinit, float* part, float* lpart, const ScanArgs& a,
                cudaStream_t stream) {
+  constexpr int NS = slabs_of(N), NC = N / NS;
   int rc = bwd_opt_in<N, MODE>();
   if (rc != 0) return rc;
   const int B = a.B, L = a.L, H = a.H, P = a.P, G = a.G, Q = a.Q;
-  constexpr int SB = slab_of(MODE, N);
+  constexpr int SB = slab_of(MODE, NC);
   const int nc = (L + Q - 1) / Q, rows = (Q + 15) & ~15;
   const int nps_a = (P + PB - 1) / PB, nps = (P + SB - 1) / SB;
   const int hb = bwd_heads(H, G, MODE);
   // scratch (kernels/ssd_scan.py:bwd_launch_geometry): the dS slots
-  // (B, H, nc, P, N), cum_q (B, H, nc; padded to 4), and the dB and dC
-  // partials (B, L, H / hb, nps, N) each
+  // (B, H, nc, P, N), cum_q (B, H, nc; padded to 4), the dB and dC
+  // partials (B, L, H / hb, nps, N) each, and past one column slab dX's
+  // partials (B, L, H, NS, P)
   const long long PN = (long long)P * N;
   float* dsc = part;
   float* cq = dsc + (long long)B * H * nc * PN;
   float* dbp = cq + ((long long)B * H * nc + 3) / 4 * 4;
   const long long n_part = (long long)B * L * (H / hb) * nps * N;
   float* dcp = dbp + n_part;
-  // dlog_a straight out when it is f32 and one slab holds P, else its
-  // partials per slab into lpart, summed below
-  const bool la_direct = nps == 1 && !(a.flags & OUT_LA_BF16);
+  float* dxp = dcp + n_part;
+  // dlog_a straight out when it is f32 and one block's slab holds P and
+  // N, else its partials per slab into lpart, summed below
+  const bool la_direct = nps * NS == 1 && !(a.flags & OUT_LA_BF16);
   float* dl = la_direct ? (float*)dla : lpart;
-  ssd_scan_bwd_chunk_kernel<N, MODE><<<dim3(nc * nps_a, H, B), NT, ChunkSmem<N, MODE>(rows).bytes,
-                                      stream>>>(
+  ssd_scan_bwd_chunk_kernel<NC, MODE, NS><<<dim3(nc * nps_a * NS, H, B), NT,
+                                            ChunkSmem<NC, MODE>(rows).bytes, stream>>>(
       log_a, (const bf16*)c, (const bf16*)dy, dsc, cq, L, H, P, G, Q, nps_a, a.sab, a.sal, a.sbb,
       a.sbl, a.xp, a.xlo, a.blo);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
@@ -1629,21 +1727,24 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
     ssd_scan_bwd_state_kernel<true><<<sgrid, NT, 0, stream>>>(dsc, cq, dfin, dinit, H, nc,
                                                                (int)PN, N, a.nst);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
-  ssd_scan_bwd_kernel<N, MODE><<<dim3(nc * nps, H / hb, B), NT, BwdSmem<N, MODE>(rows).bytes,
-                                 stream>>>(
-      (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, states, (const bf16*)dy, dsc, dx,
-      dbp, dcp, dl, L, H, P, G, Q, nps, hb, a.sxb, a.sxl, a.sab, a.sal, a.sbb, a.sbl, a.xp, a.xlo,
-      a.blo, a.flags & OUT_F32);
+  ssd_scan_bwd_kernel<NC, MODE, NS><<<dim3(nc * nps * NS, H / hb, B), NT,
+                                      BwdSmem<NC, MODE>(rows).bytes, stream>>>(
+      (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, states, (const bf16*)dy, dsc,
+      NS > 1 ? (void*)dxp : dx, dbp, dcp, dl, L, H, P, G, Q, nps, hb, a.sxb, a.sxl, a.sab, a.sal,
+      a.sbb, a.sbl, a.xp, a.xlo, a.blo, a.flags & OUT_F32);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
   // dB and dC: the head blocks of each group and the P slabs, in that
-  // order, at the true width
+  // order, at the true width; dX: the column slabs, in order
   const long long n_rows = (long long)B * L * G;
   const int per = (H / G / hb) * nps;
   const bool bc32 = a.flags & OUT_BC_F32;
   if ((rc = sum_mid(dbp, db, bc32, n_rows, per, N, a.nst, stream)) != 0) return rc;
   if ((rc = sum_mid(dcp, dc, bc32, n_rows, per, N, a.nst, stream)) != 0) return rc;
-  return la_direct ? 0 : sum_mid(lpart, dla, !(a.flags & OUT_LA_BF16), (long long)B * L * H, nps,
-                                 1, 1, stream);
+  if (NS > 1 && (rc = sum_mid(dxp, dx, a.flags & OUT_F32, (long long)B * L * H, NS, P, P,
+                              stream)) != 0)
+    return rc;
+  return la_direct ? 0 : sum_mid(lpart, dla, !(a.flags & OUT_LA_BF16), (long long)B * L * H,
+                                 nps * NS, 1, 1, stream);
 }
 
 }  // namespace

@@ -3,7 +3,7 @@
 // apart.  ssd_stage_kernel copies it, through its four strides, into a
 // packed scratch that the kernels read as they read bf16 in place: x and
 // dY (B, L, H, Pp), Pp = P rounded up to 8; b and c (B, L, G, N) on the
-// build N, the next of 16, 32, 64 and 128 up from the true width;
+// build N, the next of 16, 32, 64, 128 and 256 up from the true width;
 // columns past the true width zero.  Data is written as bf16 hi and lo
 // halves, which keep about 16 bits of f32 data through the tensor-core
 // products (a bf16 value's lo half is 0).  The same kernel
@@ -53,6 +53,7 @@ __global__ void ssd_stage_kernel(const void* __restrict__ src, int src_f32, int 
     case 32: return CALL(32);                        \
     case 64: return CALL(64);                        \
     case 128: return CALL(128);                      \
+    case 256: return CALL(256);                      \
     default: return (int)cudaErrorInvalidValue;      \
   }
 
@@ -81,17 +82,20 @@ CS_EXPORT int cs_ssd_stage(const void* src, int src_f32, long long d0, int d1, i
 // N) bf16 at the strides given (packed), with their lo halves xlo and blo
 // elements on (mode 1, SPLIT); N the build, nst <= N the true width
 // (st is (B, H, P, nst)); init (B, H, P, N) f32 contiguous or null; y
-// (B, L, H, P) contiguous, f32 with OUT_F32 in flags, else bf16.
+// (B, L, H, P) contiguous, f32 with OUT_F32 in flags, else bf16; ypart as
+// cs_ssd_scan's.
 CS_EXPORT int cs_ssd_scan_staged(const void* x, const float* log_a, const void* b,
                                  const void* c, const float* init, void* y, float* st, float* cst,
+                                 float* ypart,
                                  int B, int L, int H, int P, int G, int N, int Q,
                                  long long sxb, long long sxl, long long sab,
                                  long long sal, long long sbb, long long sbl, int xp, int nst,
                                  long long xlo, long long blo, int flags, int mode,
                                  cudaStream_t stream) {
-  if (bad_geometry(Q, G, H, P, N, nst, xp) || mode != SPLIT) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(Q, G, H, P, N, nst, xp) || mode != SPLIT || (N > 128 && ypart == nullptr))
+    return (int)cudaErrorInvalidValue;
   const ScanArgs a{B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, xp, nst, xlo, blo, flags};
-#define CALL(n) launch<n, SPLIT>(x, log_a, b, c, init, y, st, cst, a, stream)
+#define CALL(n) launch<n, SPLIT>(x, log_a, b, c, init, y, st, cst, ypart, a, stream)
   SSD_DISPATCH_N(N, CALL)
 #undef CALL
 }
@@ -101,7 +105,7 @@ CS_EXPORT int cs_ssd_scan_staged(const void* x, const float* log_a, const void* 
 // (B, L, G, nst), f32 with OUT_BC_F32; dla f32, or bf16 with
 // OUT_LA_BF16; dfin and dinit (B, H, P, nst) f32.  part and lpart as
 // kernels/ssd_scan.py:bwd_launch_geometry lays them out for SPLIT (one
-// head a block, P slabs of 32, 16 at N 128).
+// head a block, P slabs of 32, 16 at N 128 and 256).
 CS_EXPORT int cs_ssd_scan_bwd_staged(const void* x, const float* log_a, const void* b,
                                      const void* c, const float* states, const void* dy,
                                      const float* dfin, void* dx, void* dla, void* db, void* dc,

@@ -360,9 +360,9 @@ def _slab_rows() -> List[AuditRow]:
     kernel), mv_sad at radius 4, 16 and 32 and blocks 16, 8, 12 and 6 (and
     a band past 227 KB, refused), and ssd_scan: the reference's f32 row with N 32
     and its bf16 twin, the JAX benchmarks' f32 row (1, 1024, 8, 64) at N 16,
-    the serving row of mamba2-2.7b (N 128) in bf16 and in f32, all on the
-    kernel, and the two refusals: N 136 ('state-width') and f16
-    ('kernel-dtype')."""
+    the serving row of mamba2-2.7b (N 128) in bf16 and in f32, N 136 on
+    the N-256 build, all on the kernel, and the two refusals: N 264
+    ('state-width') and f16 ('kernel-dtype')."""
     rows = []
     for lay, _ in LAYOUTS:
         S = lay.overlap_tokens
@@ -400,7 +400,8 @@ SSD_AUDIT_ROWS = (
     ("B2 L160 H80 P64 N128 bf16 (mamba2-2.7b)", BF16, (2, 160, 80, 64, 1, 128), "kernel"),
     ("B2 L160 H80 P64 N128 f32 (mamba2-2.7b, dtype f32)", F32, (2, 160, 80, 64, 1, 128),
      "kernel"),
-    ("B2 L100 H8 G2 N136 bf16", BF16, (2, 100, 8, 64, 2, 136), "refused:state-width"),
+    ("B2 L100 H8 G2 N136 bf16", BF16, (2, 100, 8, 64, 2, 136), "kernel"),
+    ("B2 L100 H8 G2 N264 bf16", BF16, (2, 100, 8, 64, 2, 264), "refused:state-width"),
     ("B2 L100 H8 G2 N32 f16", torch.float16, (2, 100, 8, 64, 2, 32), "refused:kernel-dtype"),
 )
 
@@ -534,26 +535,33 @@ SERVING_CODEC = CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.
 # phase 7(g)): d_model, the GQA group of 5, the parameters and the KV
 # bytes per stream stay those of its 40 heads of 128 over 8
 WIDE_HEADS = dict(n_heads=20, n_kv=4, d_head=256)
+# mamba2-2.7b's SSD state widened to 256 (chip_smoke phases 7(h), 8(g))
+WIDE_STATE = 256
 
 
 def variant_rows(streams: int = 2) -> List[ConfigRow]:
-    """Three served models that are not registry configs: the JAX
+    """Four served models that are not registry configs: the JAX
     quickstart's (LM 4 heads of 16 over 2 kv heads, ViT 4 heads of 16;
     examples/quickstart.py), deepseek-7b in f32 ingested at search
-    radius 16 (chip_smoke phase 7(e)), and internvl3-14b with LM heads of
+    radius 16 (chip_smoke phase 7(e)), internvl3-14b with LM heads of
     256 (``WIDE_HEADS``; its ViT keeps InternViT's 16 heads of 64:
-    chip_smoke phase 7(g))."""
+    chip_smoke phase 7(g)), and mamba2-2.7b with an SSD state of 256
+    (``WIDE_STATE``: chip_smoke phase 7(h))."""
     qs = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
                   d_ff=128, vocab=64, tied_embeddings=True)
     qv = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
     ds = dataclasses.replace(get_config("deepseek-7b"), dtype="float32")
     wide = dataclasses.replace(get_config("internvl3-14b"), **WIDE_HEADS)
+    m2 = get_config("mamba2-2.7b")
+    m256 = dataclasses.replace(m2, ssm=dataclasses.replace(m2.ssm, d_state=WIDE_STATE))
     return (_serving_calls("quickstart (JAX widths)", qs, qv,
                            CodecCfg(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4),
                            streams)
             + _serving_calls("deepseek-7b f32, radius 16", ds, _serving_vit(ds),
                              dataclasses.replace(SERVING_CODEC, search_radius=16), streams)
             + _serving_calls("internvl3-14b, 20 heads of 256", wide, _serving_vit(wide),
+                             SERVING_CODEC, streams)
+            + _serving_calls(f"mamba2-2.7b, d_state {WIDE_STATE}", m256, _serving_vit(m256),
                              SERVING_CODEC, streams))
 
 
@@ -809,7 +817,7 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
         ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),
-        ("ssd_scan", "state-width"): ssd(*ssd_ok(N=136)),
+        ("ssd_scan", "state-width"): ssd(*ssd_ok(N=264)),
     }
 
 

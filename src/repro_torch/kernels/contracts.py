@@ -751,8 +751,8 @@ SSD_SCAN = KernelContract(
         Rule(_DTYPE, "x, log_a, b, c and init_state must be f32 or bf16 (no f16 build)",
              lambda f: "float16" not in (f["x_dtype"], f["log_a_dtype"], f["b_dtype"],
                                          f["c_dtype"], f["init_dtype"])),
-        Rule("state-width", "state width N must be at most 128 (the builds: N 16, 32, 64 "
-             "and 128, any other N on the next one up)",
+        Rule("state-width", "state width N must be at most 256 (the builds: N 16, 32, 64, "
+             "128 and 256, any other N on the next one up)",
              lambda f: f["b_shape"][3] <= _ssd_scan.STATE_WIDTHS[-1]),
     ),
     tile=None,
@@ -816,9 +816,10 @@ DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("ssd_scan", _DTYPE, "+", "no f16 build: neither package's ModelCfg.dtype makes f16 "
      "operands (bf16 and f32 x, log_a, b and c run)"),
-    ("ssd_scan", "state-width", "+", "builds of N 16, 32, 64 and 128 take every N up to 128; "
-     "past it the backward's chunk-local kernel, at 255 registers at N 128 with one block "
-     "per SM, holds no wider accumulator"),
+    ("ssd_scan", "state-width", "+", "builds of N 16, 32, 64, 128 and 256 take every N up to "
+     "256, the N-256 build as two column slabs of 128 over blocks with the sums over N "
+     "added in a fixed order; past 256 nothing is built (the slab count is a template "
+     "argument): the Mamba-2 paper's state-size ablations stop at 256"),
     ("ssd_scan_bwd", "requires-grad", "+", "ssd_scan takes operands that require grad on the "
      "card (SsdScanFn over the forward and backward kernels); the reference's kernel has no "
      "backward, and jax.grad differentiates its plain scan instead"),

@@ -73,7 +73,7 @@ _SIGNATURES = {
         _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p, _p,
     ),
     "cs_ssd_scan": (
-        _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
+        _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
         _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _ll, _ll, _i, _i, _p,
     ),
     "cs_ssd_scan_bwd": (

@@ -18,7 +18,7 @@ instead, which is the same arithmetic.
 
 Operands (``operand_mode``): bf16 x, b and c in the layout the serving
 and training paths give them are read in place (``FAST``).  Every other
-operand the reference's scan takes (f16 apart, and N up to 128: f32 data,
+operand the reference's scan takes (f16 apart, and N up to 256: f32 data,
 ragged P or N, strided or misaligned rows) is first copied by a staging
 kernel (``csrc/ssd_scan_staged.cu``) into a packed, zero-padded scratch
 on the next build width as bf16 hi and lo halves (``SPLIT``), which keep
@@ -26,6 +26,11 @@ about 16 bits of f32 data through the tensor-core products (a bf16
 value's lo half is 0).  A bf16 or strided log_a is widened to packed f32
 the same way.  y, the state and the gradients come out in the caller's
 dtypes.
+
+State widths past ``N_SLAB`` (the N-256 build) run as ``column_slabs(N)``
+column slabs of ``N_SLAB`` over blocks, each the N-128 body: the forward
+and the backward's chunk-parallel kernels write the terms that sum over
+N (y, dX, dlog_a) as f32 partials per slab, added in a fixed order.
 
 Bound on an H100: bytes.  The kernel runs every product on the tensor
 cores (``mma.sync`` bf16 -> f32; the f32 operands M = (C B^T) o decay,
@@ -63,12 +68,14 @@ Q_MAX = 256           # the kernel's largest chunk (one scan step per thread)
 SLICE = 32            # state rows p per thread block
 THREADS = 256
 # the state widths the kernel is built for (jamba; the JAX benchmarks'
-# audit row; mamba2); any other N up to the last runs on the next one up
-STATE_WIDTHS = (16, 32, 64, 128)
+# audit row; mamba2; Mamba-2's state expansion); any other N up to the
+# last runs on the next one up
+STATE_WIDTHS = (16, 32, 64, 128, 256)
+N_SLAB = 128          # the widest state slab one block holds; wider builds run N / N_SLAB
 SMEM_LIMIT = 232_448  # shared bytes one block may use on an H100 (227 KB)
 BWD_SLAB = 64         # P columns per block of the backward's chunk-parallel kernels
 BWD_HEADS = 2         # heads per block of its chunk-local kernel, where a group's count is even
-SPLIT_SLAB = 32       # P columns per chunk-local block on hi / lo operands (16 at N 128)
+SPLIT_SLAB = 32       # P columns per chunk-local block on hi / lo operands (16 at slab N 128)
 FAST, SPLIT = 0, 1    # operand modes (csrc/ssd_scan.cuh)
 _OUT_F32, _OUT_BC_F32, _OUT_LA_BF16 = 1, 2, 4
 
@@ -81,7 +88,7 @@ def scan_chunk(L: int, chunk: int) -> int:
     return -(-q // -(-q // Q_MAX))
 
 
-# the build each state width 1..128 runs on (index N)
+# the build each state width 1..256 runs on (index N)
 _BUILD_OF = (0,) + tuple(next(w for w in STATE_WIDTHS if w >= n)
                          for n in range(1, STATE_WIDTHS[-1] + 1))
 
@@ -90,6 +97,12 @@ def build_width(N: int) -> int:
     """The build a state width N runs on: the smallest of
     ``STATE_WIDTHS`` that holds it (its columns past N zero)."""
     return _BUILD_OF[N]
+
+
+def column_slabs(N: int) -> int:
+    """The column slabs of ``N_SLAB`` a build of width N runs over blocks
+    (1 up to ``N_SLAB``)."""
+    return N // N_SLAB if N > N_SLAB else 1
 
 
 def operand_mode(x, b, c, dy=None) -> int:
@@ -116,17 +129,19 @@ def chunk_count(L: int, chunk: int) -> int:
 def launch_geometry(B: int, H: int, P: int, N: int, q: int, mode: int = FAST):
     """(grid, threads, shared bytes) of the kernel for chunk q on build
     width N, as ``csrc/ssd_scan.cuh`` lays them out (``SsdSmem``): rows =
-    q rounded up to 16; B rows (rows x N bf16, sharing their bytes with
+    q rounded up to 16; B rows (rows x n bf16, sharing their bytes with
     the f32 state slice), the x slice (rows x SLICE bf16), the state's
     bf16 hi and lo halves, cum and the scan partials; row strides padded
-    by 16 bytes.  ``SPLIT`` holds the B rows and the x slice twice (hi,
-    lo)."""
+    by 16 bytes; n the slab width (N, or ``N_SLAB`` past it, the grid's P
+    slices then times ``column_slabs(N)``).  ``SPLIT`` holds the B rows
+    and the x slice twice (hi, lo)."""
     rows = -(-q // 16) * 16
-    ld = N + 8
+    ns = column_slabs(N)
+    ld = N // ns + 8
     k = 2 if mode == SPLIT else 1
     smem = (max(k * 2 * rows * ld, 4 * SLICE * ld) + k * 2 * rows * (SLICE + 8)
             + 2 * 2 * SLICE * ld + 4 * rows + 4 * (THREADS // 32))
-    return (-(-P // SLICE), H, B), THREADS, smem
+    return (-(-P // SLICE) * ns, H, B), THREADS, smem
 
 
 def staged_bytes(B: int, L: int, H: int, P: int, G: int, N: int, mode: int,
@@ -166,32 +181,39 @@ def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: i
       (``BwdSmem``);
     * ``sum``: dB and dC summed over a group's head blocks and P slabs.
 
+    Past ``N_SLAB`` (a) and (c) run on ``column_slabs(N)`` column slabs
+    of ``N_SLAB`` over blocks, at that width's shared bytes.
+
     Scratch: ``states`` the dS leaving each chunk (B, H, nc, P, N),
     ``cum`` cum_q (B, H, nc, rounded up to 4 elements), ``partials`` the
-    dB and dC partials (B, L, H / hb, nps, N) each, ``lpart`` dlog_a's
-    per P slab (B, L, H, nps) when there is more than one slab or dlog_a
-    is bf16 (``la_bf16``)."""
+    dB and dC partials (B, L, H / hb, nps, N) each, ``dx`` dX's partials
+    per column slab (B, L, H, ns, P) past one slab, ``lpart`` dlog_a's
+    per P and column slab (B, L, H, nps x ns) when there is more than one
+    slab or dlog_a is bf16 (``la_bf16``)."""
     q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
     rows = -(-q // 16) * 16
-    k, slab = ((2, SPLIT_SLAB if N < 128 else 16) if mode == SPLIT else (1, BWD_SLAB))
+    ns = column_slabs(N)
+    n = N // ns                       # the width one block holds
+    k, slab = ((2, SPLIT_SLAB if n < 128 else 16) if mode == SPLIT else (1, BWD_SLAB))
     hmax = BWD_HEADS if mode == FAST else 1
     nps_a, nps = -(-P // BWD_SLAB), -(-P // slab)
     hb, warps = bwd_heads(H, G, mode), THREADS // 32
-    ldn, ldp = N + 8, slab + 8
+    ldn, ldp = n + 8, slab + 8
     chunk_smem = k * 2 * rows * ldn + k * 2 * rows * (BWD_SLAB + 8) + 4 * rows + 4 * warps
     local_smem = (k * 2 * rows * ldn + k * 2 * hmax * rows * ldp + 2 * hmax * 2 * slab * ldn
                   + 3 * 4 * hmax * rows + 4 * 2 * hmax * warps)
     launches = {
-        "chunk": ((nc * nps_a, H, B), THREADS, chunk_smem),
+        "chunk": ((nc * nps_a * ns, H, B), THREADS, chunk_smem),
         "state": ((-(-P * N // (4 * THREADS)), H, B), THREADS, 0),
-        "local": ((nc * nps, H // hb, B), THREADS, local_smem),
+        "local": ((nc * nps * ns, H // hb, B), THREADS, local_smem),
         "sum": ((-(-B * L * G * N // THREADS),), THREADS, 0),
     }
     scratch = {
         "states": 4 * B * H * nc * P * N,
         "cum": 4 * (-(-B * H * nc // 4) * 4),
         "partials": 2 * 4 * B * L * (H // hb) * nps * N,
-        "lpart": 4 * B * L * H * nps if nps > 1 or la_bf16 else 0,
+        "dx": 4 * B * L * H * ns * P if ns > 1 else 0,
+        "lpart": 4 * B * L * H * nps * ns if nps * ns > 1 or la_bf16 else 0,
     }
     return launches, scratch
 
@@ -218,10 +240,10 @@ def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
     with packed heads, groups and features and rows on 16-byte boundaries
     (any batch and time strides), P a multiple of 8 and N one of
     ``STATE_WIDTHS`` are read in place; any other x, b and c in f32 or
-    bf16, N up to 128, log_a (B, L, H) in f32 or bf16 and init_state (B,
+    bf16, N up to 256, log_a (B, L, H) in f32 or bf16 and init_state (B,
     H, P, N) in any layout pass through the staging kernel first.  Any
     chunk.  Operands the kernel does not take (``contracts.SSD_SCAN``: f16,
-    N past 128) raise ``KernelIneligibleError``, a ``cuda.KernelError``."""
+    N past 256) raise ``KernelIneligibleError``, a ``cuda.KernelError``."""
     contracts.require(contracts.ssd_scan_verdict(x, log_a, b, c, init_state, chunk), NAME)
     return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
 
@@ -274,7 +296,8 @@ def ssd_scan_launch(x, log_a, b, c, init, chunk: int, states: bool = False):
     kernel.  y comes out in x's dtype, the state (B, H, P, N) in f32.
     With ``states`` the kernel also writes the state entering each chunk,
     (B, H, nc, P, build width) f32, and the call returns (y, final state,
-    states)."""
+    states).  Past ``N_SLAB`` the kernel writes y's f32 partials per
+    column slab into scratch, and their sum in slab order is y."""
     B, L, H, P = x.shape
     G, n = b.shape[2], b.shape[3]
     cuda.require(init is None or tuple(init.shape) == (B, H, P, n), NAME,
@@ -293,10 +316,13 @@ def ssd_scan_launch(x, log_a, b, c, init, chunk: int, states: bool = False):
     st = torch.empty((B, H, P, n), dtype=torch.float32, device=x.device)
     cst = (torch.empty((B, H, chunk_count(L, chunk), P, N), dtype=torch.float32,
                        device=x.device) if states else None)
+    ns = column_slabs(N)
+    yp = (torch.empty((B, L, H, ns, P), dtype=torch.float32, device=x.device) if ns > 1
+          else None)
     rc = launch(
         xv.data_ptr(), la.data_ptr(), bv.data_ptr(), cv.data_ptr(),
         0 if init is None else init.data_ptr(), y.data_ptr(), st.data_ptr(),
-        0 if cst is None else cst.data_ptr(),
+        0 if cst is None else cst.data_ptr(), 0 if yp is None else yp.data_ptr(),
         B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1], xp, n, xlo, blo,
         _OUT_F32 if x.dtype == torch.float32 else 0, mode, cuda.stream_handle(x),
     )
@@ -532,8 +558,9 @@ def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
     dX, dlog_a, dB and dC come out in x's, log_a's, b's and c's dtypes,
     d_init in f32; the dS per chunk and the sums over a group's head
     blocks (and P slabs) go through f32 scratch (``bwd_launch_geometry``),
-    reduced in a fixed order.  ``states`` at the build width, as the
-    forward kernel writes them."""
+    reduced in a fixed order (past ``N_SLAB`` dX's per column slab
+    too).  ``states`` at the build width, as the forward kernel writes
+    them."""
     B, L, H, P = x.shape
     G, n = b.shape[2], b.shape[3]
     N, q, mode = build_width(n), scan_chunk(L, chunk), operand_mode(x, b, c, dy)
@@ -558,8 +585,8 @@ def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
     db = torch.empty((B, L, G, n), dtype=b.dtype, device=dev)
     dc = torch.empty((B, L, G, n), dtype=c.dtype, device=dev)
     d_init = torch.empty((B, H, P, n), dtype=torch.float32, device=dev) if need_init else None
-    part = torch.empty(((scratch["states"] + scratch["cum"] + scratch["partials"]) // 4,),
-                       dtype=torch.float32, device=dev)
+    part = torch.empty(((scratch["states"] + scratch["cum"] + scratch["partials"]
+                        + scratch["dx"]) // 4,), dtype=torch.float32, device=dev)
     lpart = (torch.empty((scratch["lpart"] // 4,), dtype=torch.float32, device=dev)
              if scratch["lpart"] else None)
     flags = ((_OUT_F32 if x.dtype == torch.float32 else 0)

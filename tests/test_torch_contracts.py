@@ -337,8 +337,8 @@ def test_refusals_name_their_rule_and_are_kernel_errors():
     err = contracts.SSD_SCAN.refusal("state-width", "ssd_scan")
     assert isinstance(err, KernelError) and isinstance(err, contracts.KernelContractError)
     assert str(err) == ("ssd_scan: eligibility 'state-width' failed (state width N must be "
-                        "at most 128 (the builds: N 16, 32, 64 and 128, any other N on the "
-                        "next one up))")
+                        "at most 256 (the builds: N 16, 32, 64, 128 and 256, any other N on "
+                        "the next one up))")
 
 
 def test_memoized_verdicts_equal_fresh_decisions():

@@ -737,6 +737,12 @@ SSD = {
     "len-17": (2, 17, 8, 64, 1, 128, 256, True),
     "len-17-chunk-16": (2, 17, 8, 32, 1, 16, 16, False),
     "groups-4-h8-init": (2, 70, 8, 64, 4, 128, 32, True),
+    # the N-256 build (two column slabs of 128 over blocks): mamba2-2.7b's
+    # fresh window at d_state 256, a ragged L, a ragged P slice, groups
+    "n256-fresh-160": (2, 160, 80, 64, 1, 256, 256, True),
+    "n256-ragged-1000": (1, 1000, 16, 64, 1, 256, 256, True),
+    "n256-p48-ragged-slice": (1, 200, 4, 48, 1, 256, 256, False),
+    "n256-groups-2-len-17": (2, 17, 8, 32, 2, 256, 16, True),
 }
 
 
@@ -773,6 +779,11 @@ SSD_BWD = {
     "n128-p48": (1, 300, 4, 48, 1, 128, 256, False, True),
     "odd-heads-p24": (1, 200, 6, 24, 2, 64, 64, True, False),
     "p96-slabs": (1, 160, 2, 96, 1, 16, 64, False, True),
+    # the N-256 build: mamba2-2.7b's widths at d_state 256, groups over a
+    # ragged L, two P slabs (dlog_a partials per P and column slab)
+    "n256-full-widths": (2, 512, 80, 64, 1, 256, 256, True, True),
+    "n256-groups-ragged": (2, 100, 8, 32, 4, 256, 32, True, True),
+    "n256-p96-slabs": (1, 160, 2, 96, 1, 256, 64, False, True),
 }
 
 
@@ -883,7 +894,7 @@ def test_ssd_scan_reads_strided_b_c_in_place(dev):
 
 
 def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
-    """f16 operands and N past 128 raise naming their rule, before any
+    """f16 operands and N past 256 raise naming their rule, before any
     launch; the operands the first kernel refused (f32 x, a transposed
     init, a transposed x, chunk 512, N 32, P 12, b and c off a 16-byte
     boundary) now launch once each and agree with the plain version."""
@@ -892,7 +903,7 @@ def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
     before = ops.launch_counts().get("ssd_scan", 0)
     with pytest.raises(KernelError, match="kernel-dtype"):
         ops.ssd_scan(x.half(), la, b, c, init, 16)
-    wide = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 136)]
+    wide = [t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 264)]
     with pytest.raises(KernelError, match="state-width"):
         ops.ssd_scan(*wide, chunk=16)
     assert ops.launch_counts().get("ssd_scan", 0) == before
@@ -933,6 +944,12 @@ SSD_WIDE = {
     "bf16-strided-x": (2, 60, 4, 32, 1, 64, 32, BF16, F32, "strided"),
     "bf16-log-a": (2, 100, 8, 64, 1, 64, 128, BF16, BF16, "packed"),
     "f32-x-bf16-bc": (2, 100, 8, 64, 1, 64, 128, F32, F32, "bf16 b/c"),
+    # the N-256 build staged: f32 at N 256, N 192 and 136 on it (columns
+    # past N zero), a ragged L and P
+    "f32-n256": (2, 160, 16, 64, 1, 256, 256, F32, F32, "packed"),
+    "bf16-n192-ragged": (1, 1000, 8, 64, 1, 192, 256, BF16, F32, "packed"),
+    "bf16-n136-g2": (2, 100, 8, 64, 2, 136, 128, BF16, F32, "packed"),
+    "f32-n192-p12": (2, 100, 4, 12, 2, 192, 64, F32, F32, "packed"),
 }
 
 
@@ -966,7 +983,9 @@ def test_ssd_scan_takes_every_reference_operand(dev, case):
 
 
 @pytest.mark.parametrize("case", ["f32-mamba2-fresh", "f32-n24-p12", "f32-chunk512",
-                                  "bf16-n24", "bf16-p12", "bf16-log-a", "f32-x-bf16-bc"])
+                                  "bf16-n24", "bf16-p12", "bf16-log-a", "f32-x-bf16-bc",
+                                  "f32-n256", "bf16-n192-ragged", "bf16-n136-g2",
+                                  "f32-n192-p12"])
 def test_ssd_scan_bwd_takes_every_reference_operand(dev, case):
     chunk = SSD_WIDE[case][6]
     x, la, b, c, init = _wide_operands(case, dev)
@@ -987,6 +1006,33 @@ def test_ssd_scan_bwd_takes_every_reference_operand(dev, case):
     for k, p, dims, tol in zip(got, want, ((1, 3), (1,), (1, 3), (1, 3), (-1, -2)),
                                (tx, ta, tb, tb, 1e-3)):
         assert _slice_rel(k, p, dims) <= tol
+
+
+def test_scan_builds_do_not_spill(dev, tmp_path):
+    """ptxas on the scan's two sources (the build's flags, one nvcc each,
+    in parallel): no kernel spills, and the N-256 build's kernels (the
+    forward, (a) and (c), on two column slabs of 128) are there in both
+    operand modes."""
+    import re
+    import subprocess
+    from repro_torch.kernels import cuda
+    procs = [subprocess.Popen([cuda.nvcc(), *cuda.NVCC_FLAGS, "-c", str(cuda.CSRC / src), "-o",
+                               str(tmp_path / f"{src}.o")], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src in ("ssd_scan.cu", "ssd_scan_staged.cu")]
+    kernels, name = {}, None
+    for p in procs:
+        out, _ = p.communicate()
+        assert p.returncode == 0, out
+        for line in out.splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                name, kernels[m.group(1)] = m.group(1), 0
+            elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) \
+                    and name is not None:
+                kernels[name] = int(m.group(1)) + int(m.group(2))
+    assert {k: v for k, v in kernels.items() if v} == {}
+    wide = [k for k in kernels if re.search(r"ILi128ELi[01]ELi2EE", k)]
+    assert len(wide) == 6, wide
 
 
 @pytest.mark.parametrize("tied", [False, True])

@@ -12,7 +12,8 @@ row, head), b/c per (batch row, group), log_a per (batch row, head), the
 initial state per (batch row, head)): f32 within 1e-5 (both sum the same
 f32 products in other orders: read 1e-7 .. 4e-7 of the global max); bf16
 within 2^-7, one bf16 step (both round f32 values that differ by that
-order).
+order).  The cases run N 16 and, for the N-256 build's width, N 256
+(f32, and bf16 at G 2).
 
 The backward kernel's three stages in their plain versions (each
 chunk's (e o dY)^T C, the sequential dS pass, the chunk-local rest),
@@ -60,6 +61,8 @@ CASES = {
     "G1, ragged, no cotangent of the state": (2, 37, 4, 8, 1, 16, 16, False, False, "float32"),
     "G2, bf16": (2, 40, 4, 16, 2, 16, 16, True, True, "bfloat16"),
     "G1, bf16, ragged": (1, 21, 4, 8, 1, 16, 8, False, True, "bfloat16"),
+    "N 256, ragged": (1, 30, 2, 8, 1, 256, 16, True, True, "float32"),
+    "N 256, G2, bf16": (2, 24, 4, 8, 2, 256, 8, False, True, "bfloat16"),
 }
 
 
@@ -221,7 +224,7 @@ def test_meta_scan_keeps_autograd_and_the_step_counts_its_backward():
     assert d["kernels"]["ssd_scan"]["calls"] == 2 * n_mamba     # forward and recompute
 
 
-# (B, L, H, P, G, N, chunk, init, final-state cotangent): N 16 and 64,
+# (B, L, H, P, G, N, chunk, init, final-state cotangent): N 16, 64 and 256,
 # G 1 and 4, ragged and whole chunks, with and without init and the
 # final state's cotangent
 STAGE_CASES = {
@@ -229,6 +232,7 @@ STAGE_CASES = {
     "N64 G4 ragged, neither": (1, 50, 8, 16, 4, 64, 16, False, False),
     "N16 G4, cotangent only": (2, 32, 4, 8, 4, 16, 8, False, True),
     "N64 G1 ragged, init only": (1, 45, 4, 16, 1, 64, 32, True, False),
+    "N256 G2 ragged": (1, 30, 4, 8, 2, 256, 16, True, True),
 }
 
 
@@ -272,3 +276,10 @@ def test_backward_launch_geometry_fits_an_h100():
     launches, scratch = bwd_launch_geometry(1, 200, 6, 96, 2, 64, 64)
     assert launches["local"][0] == (4 * 2, 6, 1)
     assert scratch["lpart"] == 4 * 200 * 6 * 2
+    # N 256: (a) and (c) on two column slabs of 128, dX's f32 partials
+    # per slab and dlog_a's per P and column slab
+    launches, scratch = bwd_launch_geometry(2, 2048, 80, 64, 1, 256, 256)
+    assert launches["local"][0] == (8 * 2, 40, 2) and launches["chunk"][0] == (8 * 2, 80, 2)
+    assert scratch["states"] == 2 * 80 * 8 * 64 * 256 * 4
+    assert scratch["dx"] == 4 * 2 * 2048 * 80 * 2 * 64
+    assert scratch["lpart"] == 4 * 2 * 2048 * 80 * 2

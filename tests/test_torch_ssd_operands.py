@@ -2,23 +2,28 @@
 
 The JAX package's ``ssd_scan_pallas`` takes any head width P, state
 width N and chunk, x / log_a / b / c in f32, bf16 or f16 (b == c), and
-any L.  The port's kernel takes all of it but f16 and N past 128
+any L.  The port's kernel takes all of it but f16 and N past 256
 (``contracts.SSD_SCAN``): bf16 x, b and c in the serving layout are read
 in place, anything else passes a staging kernel first
-(``ssd_scan.operand_mode``), and a chunk past 256 runs as sub-chunks of
-at most 256 steps (``ssd_scan.scan_chunk``).  Here, on CPU tensors and
-the same numpy inputs:
+(``ssd_scan.operand_mode``), a chunk past 256 runs as sub-chunks of
+at most 256 steps (``ssd_scan.scan_chunk``), and N past 128 runs on the
+N-256 build as two column slabs of 128 (``ssd_scan.column_slabs``).
+Here, on CPU tensors and the same numpy inputs:
 
 * ``ops.ssd_scan`` (its plain version) against the JAX package's
-  ``ops.ssd_scan`` in f32 and bf16 at chunk 512 over a ragged L, N 24
-  and 32, P 12, a strided x and a bf16 log_a, within
+  ``ops.ssd_scan`` in f32 and bf16 at chunk 512 over a ragged L, N 24,
+  32, 192 and 256, P 12, a strided x and a bf16 log_a, within
   ``test_torch_ssd.py``'s limits (f32: 2e-5 of the output's scale; bf16:
   y within 2^-7, the state within 2e-5), and each case's verdict and
-  operand mode; f16 and N 136 refused by name;
+  operand mode; f16 and N 264 refused by name;
 * the sub-chunk identity: the plain version mirroring the kernel's
-  sub-chunks equals the JAX scan at the whole chunk (f32, 2e-5);
+  sub-chunks equals the JAX scan at the whole chunk (f32, 2e-5); the
+  column-slab identity the N-256 build rests on: y and every gradient
+  but b's, c's and the states' (which split by column) are the sums of
+  the slabs' scans, within f32 summation order;
 * ``SsdScanFn`` over the plain pair on f32 operands with sub-chunks,
-  ragged P and N: f32 gradients within 1e-5 of ``jax.grad``'s per slice;
+  ragged P and N, and at N 256: f32 gradients within 1e-5 of
+  ``jax.grad``'s per slice;
 * the dispatch audit's scan rows, the launches' shared memory for every
   admitted (mode, build N, chunk), the bytes counted at the operands'
   element sizes (an f32 call, and the meta count of an f32 mamba2 step);
@@ -51,6 +56,8 @@ CASES = {
     "chunk 512, ragged L": (1, 600, 2, 8, 1, 16, 512, "packed"),
     "N 24": (2, 40, 4, 8, 2, 24, 16, "packed"),
     "N 32": (2, 40, 4, 8, 2, 32, 16, "packed"),
+    "N 192": (2, 40, 4, 8, 2, 192, 16, "packed"),
+    "N 256": (2, 40, 4, 8, 1, 256, 16, "packed"),
     "P 12": (2, 40, 4, 12, 1, 16, 16, "packed"),
     "strided x": (2, 40, 4, 16, 1, 16, 16, "strided"),
     "bf16 log_a": (2, 40, 4, 8, 1, 16, 16, "bf16 log_a"),
@@ -109,11 +116,11 @@ def close(a, b, rel):
     assert err <= rel * scale, (err / scale, rel)
 
 
-# the operand mode each case takes on the card: bf16 N 32 and P 8 are a
-# build read in place; N 24, P 12, a strided x and f32 are staged as hi
-# and lo halves
+# the operand mode each case takes on the card: bf16 N 32 and 256 and P 8
+# are a build read in place; N 24 and 192, P 12, a strided x and f32 are
+# staged as hi and lo halves
 MODES = {("N 32", "bfloat16"): S.FAST, ("chunk 512, ragged L", "bfloat16"): S.FAST,
-         ("bf16 log_a", "bfloat16"): S.FAST}
+         ("bf16 log_a", "bfloat16"): S.FAST, ("N 256", "bfloat16"): S.FAST}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -132,13 +139,18 @@ def test_every_reference_operand_matches_jax_and_takes_the_kernel(case, dtype, j
 
 
 def test_f16_and_n136_are_refused_by_name():
+    """f16 operands, and N 264, the first width past the N-256 build (N
+    136 itself runs on that build now: the "N 192" case and the audit's
+    N 136 row)."""
     x, la, b, c, init = torch_operands("N 24", "float32")
     assert contracts.ssd_scan_verdict(x.half(), la, b, c, init, 16).reason == "kernel-dtype"
     assert contracts.ssd_scan_verdict(x, la, b.half(), c.half(), None, 16).reason == \
         "kernel-dtype"
     assert contracts.ssd_scan_verdict(x, la, b, c, init.half(), 16).reason == "kernel-dtype"
-    wide = torch.zeros(2, 40, 2, 136)
+    wide = torch.zeros(2, 40, 2, 264)
     assert contracts.ssd_scan_verdict(x, la, wide, wide, None, 16).reason == "state-width"
+    assert contracts.ssd_scan_verdict(x, la, wide[..., :256], wide[..., :256], None,
+                                      16).use_kernel
     assert [r.code for r in contracts.SSD_SCAN.eligibility] == ["kernel-dtype", "state-width"]
 
 
@@ -165,8 +177,17 @@ def test_f32_gradients_through_the_plain_pair_match_jax_grad():
     within 1e-5 of jax.grad's, per slice (read: dx 6.2e-6, the others
     3.6e-6 or less; the reference's exp(cum_t - cum_s) over a 300-step
     chunk carries the f32 rounding of cum, |cum| x 2^-24 relative)."""
-    B, L, H, P, G, N, chunk = 2, 300, 4, 12, 2, 24, 512
-    rng = np.random.default_rng(7)
+    _gradients_match_jax_grad(2, 300, 4, 12, 2, 24, 512, seed=7)
+
+
+def test_f32_gradients_at_n256_through_the_plain_pair_match_jax_grad():
+    """The same at N 256 (the N-256 build's width; G 1, P 8, chunk 16
+    over a ragged L 40): f32 gradients within 1e-5 of jax.grad's."""
+    _gradients_match_jax_grad(2, 40, 4, 8, 1, 256, 16, seed=8)
+
+
+def _gradients_match_jax_grad(B, L, H, P, G, N, chunk, seed):
+    rng = np.random.default_rng(seed)
     a = dict(x=rng.normal(0, 1, (B, L, H, P)), log_a=-np.abs(rng.normal(0, 0.3, (B, L, H))),
              b=rng.normal(0, 0.5, (B, L, G, N)), c=rng.normal(0, 0.5, (B, L, G, N)),
              init=rng.normal(0, 1, (B, H, P, N)))
@@ -191,6 +212,44 @@ def test_f32_gradients_through_the_plain_pair_match_jax_grad():
         assert float(rel) <= 1e-5, (k, float(rel))
 
 
+def test_column_slabs_sum_to_the_whole_scan():
+    """The identity the N-256 build rests on (``column_slabs``): a scan at
+    N 256 equals its two 128-column slabs scanned apart.  y, dx and
+    dlog_a are the slabs' sums (the kernels' f32 partials, added in slab
+    order); the final state, the chunk states, db, dc and d_init are the
+    slabs' columns side by side.  f32, within 1e-5 of each output's scale
+    (the same products summed in another order)."""
+    B, L, H, P, G, N, chunk = 2, 40, 4, 8, 2, 256, 16
+    assert S.column_slabs(N) == 2 and S.column_slabs(128) == S.column_slabs(16) == 1
+    rng = np.random.default_rng(12)
+
+    def normal(scale, *shape):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32))
+    x, b, c = normal(1, B, L, H, P), normal(0.5, B, L, G, N), normal(0.5, B, L, G, N)
+    la = -torch.from_numpy(rng.uniform(1e-3, 1.0, (B, L, H)).astype(np.float32))
+    init, dy, dfin = normal(1, B, H, P, N), normal(1, B, L, H, P), normal(1, B, H, P, N)
+    y, st, states = S.ssd_scan_fwd_plain(x, la, b, c, init, chunk)
+    grads = S.ssd_scan_bwd_plain(x, la, b, c, states, dy, dfin, chunk)
+    slabs = []
+    for n0 in range(0, N, S.N_SLAB):
+        cols = slice(n0, n0 + S.N_SLAB)
+        fwd = S.ssd_scan_fwd_plain(x, la, b[..., cols], c[..., cols], init[..., cols], chunk)
+        bwd = S.ssd_scan_bwd_plain(x, la, b[..., cols], c[..., cols], fwd[2], dy,
+                                   dfin[..., cols], chunk)
+        slabs.append((fwd, bwd))
+
+    def summed(i, j):
+        return sum(s[i][j] for s in slabs)
+
+    def side_by_side(i, j):
+        return torch.cat([s[i][j] for s in slabs], dim=-1)
+    pairs = [(y, summed(0, 0)), (st, side_by_side(0, 1)), (states, side_by_side(0, 2)),
+             (grads[0], summed(1, 0)), (grads[1], summed(1, 1)), (grads[2], side_by_side(1, 2)),
+             (grads[3], side_by_side(1, 3)), (grads[4], side_by_side(1, 4))]
+    for whole, parts in pairs:
+        close(parts, whole.numpy(), 1e-5)
+
+
 def test_audit_scan_rows_take_the_kernel():
     rows = [r for r in audit._slab_rows() if r.op == "ssd_scan"]
     assert [r.geometry for r in rows] == [row[0] for row in audit.SSD_AUDIT_ROWS]
@@ -199,7 +258,8 @@ def test_audit_scan_rows_take_the_kernel():
     assert got["B2 L100 H8 G2 N32 f32"] == got["B2 L100 H8 G2 N32 bf16"] == "kernel"
     assert got["B1 L1024 H8 P64 N16 f32 (the JAX benchmarks' row)"] == "kernel"
     assert got["B2 L160 H80 P64 N128 f32 (mamba2-2.7b, dtype f32)"] == "kernel"
-    assert got["B2 L100 H8 G2 N136 bf16"] == "refused:state-width"
+    assert got["B2 L100 H8 G2 N136 bf16"] == "kernel"
+    assert got["B2 L100 H8 G2 N264 bf16"] == "refused:state-width"
 
 
 def test_every_admitted_launch_fits_an_h100():
@@ -222,6 +282,17 @@ def test_every_admitted_launch_fits_an_h100():
     assert S.bwd_launch_geometry(2, 2048, 80, 64, 1, 64, 256, S.SPLIT)[0]["local"][0] == (
         8 * 2, 80, 2)
     assert S.bwd_launch_geometry(1, 64, 4, 64, 1, 16, 64, la_bf16=True)[1]["lpart"] > 0
+    # N 256: the N-128 layout at twice the grid (two column slabs), in
+    # both modes, forward and backward
+    for mode in (S.FAST, S.SPLIT):
+        g256, _, s256 = S.launch_geometry(2, 80, 64, 256, 256, mode)
+        g128, _, s128 = S.launch_geometry(2, 80, 64, 128, 256, mode)
+        assert g256 == (2 * g128[0],) + g128[1:] and s256 == s128
+        w256, _ = S.bwd_launch_geometry(2, 2048, 80, 64, 1, 256, 256, mode)
+        w128, _ = S.bwd_launch_geometry(2, 2048, 80, 64, 1, 128, 256, mode)
+        for k in ("chunk", "local"):
+            assert w256[k][0] == (2 * w128[k][0][0],) + w128[k][0][1:]
+            assert w256[k][2] == w128[k][2]
 
 
 def test_bytes_are_counted_at_the_operands_element_sizes():
