@@ -11,6 +11,8 @@ and check them.
     python3 chip_smoke.py --only f32-ssm
     python3 chip_smoke.py --only d256
     python3 chip_smoke.py --only n256-ssm
+    python3 chip_smoke.py --only odd-heads
+    python3 chip_smoke.py --only n512-ssm
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -19,11 +21,14 @@ for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
 ``--only mamba``, ``--only f32-ssm``, ``--only d256``, ``--only n256-ssm``,
+``--only odd-heads``, ``--only n512-ssm``,
 ``--only mesh``, ``--only hosttime`` and ``--only deep-step``: phase 3's
 mha probe, phase 7 alone, phase 8(b) alone, phase 8(e) with its
 roofline, phases 7(f) and 8(f) (mamba2-2.7b in f32) alone, phase 7(g)
 (internvl3-14b with LM heads of 256) alone, phases 7(h) and 8(g)
-(mamba2-2.7b at d_state 256) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
+(mamba2-2.7b at d_state 256) alone, phase 7(i) (internvl3-14b with heads
+of 90 and 75 at search radius 128) alone, phases 7(j) and 8(h)
+(mamba2-2.7b at d_state 512) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
 host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
 over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
@@ -75,13 +80,15 @@ Phases (any failure exits non-zero):
                d_init within 1e-3 of their slice's largest value, bitwise
                repeat, its bound at the bf16 tensor rate (the f32
                CUDA-core figure beside), and its three kernels' blocks
-               per SM at each N; the scan's N-256 build (two column
-               slabs of 128 over blocks) at mamba2-2.7b's widths re-cut
-               to d_state 256: the forward at the fresh, incremental,
-               query, long and ragged shapes (bf16 in place), the fresh
-               window in f32, N 192 and 136 on the build (ragged L), the
-               backward at the training shape in bf16 and f32 and at N
-               192, each line with its kernels' registers; kernel,
+               per SM at each N; the scan's slabbed build (N / 128
+               column slabs of 128 over blocks, the slab count a grid
+               dimension) at mamba2-2.7b's widths re-cut to d_state 256
+               and 512: the forward at the fresh, incremental, query,
+               long and ragged shapes (bf16 in place), the fresh window
+               in f32, N 384 in place, N 192, 136 and 320 on the next
+               multiple of 128 (ragged L), the backward at the training
+               shape at N 256 (bf16 and f32), 192, 512, 384 and 320,
+               each line with its kernels' registers; kernel,
                plain and library (scaled_dot_product_attention, after a
                gather where the KV is paged; none for ssd_scan) times
                from CUDA events around
@@ -106,7 +113,10 @@ Phases (any failure exits non-zero):
                internvl3-14b-smoke's LM (H 4, D 64) and flash_packed at
                its ViT (D 32).  Head dims without an exact build
                (RAGGED_WIDTHS: 16, 40, 72, 80, 96, 112 at H 16 over Hkv 4
-               on internvl3-14b's layout) in every attention kernel;
+               on internvl3-14b's layout) in every attention kernel, and
+               the head dims off the 8-column grid (ODD_WIDTHS: 2, 20,
+               33, 90, 100; rows 8-, 4- or 2-byte aligned), also with f32
+               queries (f32 q/k/v in flash_packed and flash_prefill);
                f32 queries over the bf16 slab and caches at internvl3-
                14b's fresh, refresh and decode shapes (the paged, per-
                stream and int8 kernels; paged prefill bf16 and int8);
@@ -121,11 +131,15 @@ Phases (any failure exits non-zero):
                windowed and ragged, paged prefill bf16 and int8,
                flash_packed's busy packing at H 8; f32 queries (f32
                q/k/v in flash_packed and flash_prefill), the ragged widths
-               WIDE_RAGGED (192, 136) on it, and rope_shift at D 256; each
+               WIDE_RAGGED (192, 136, 130, 250) on it (130 and 250 also
+               with f32 queries, and f32 q/k/v), and rope_shift at D 256
+               and at D 20, 90 (an odd half of 45) and 130; each
                attention case also prints device_ms (launches
                over copies of its inputs, L2-cold, in one replayed CUDA
                graph); mv_sad
-               at 448^2 with radius 16 and 32 and block 8
+               at 448^2 with radius 16 and 32 and block 8, and past one
+               band's 227 KB (the tiled kernel: radius 128, block 64 at
+               radius 96, and block 240 at radius 1 on a 240^2 frame)
                (MV_SEARCHES, tie_frames: bitwise).  Then the dense mha (a library GEMM, no
                row): at whisper-large-v3's cross-attention and
                internvl3-14b's encode_full against the f32-widened
@@ -228,9 +242,16 @@ Phases (any failure exits non-zero):
                peak memory and launches printed beside phase 4's run of
                the same path at heads of 128; (h) mamba2-2.7b at full
                width and depth with its SSD state widened to 256
-               (WIDE_STATE: the scan's N-256 build), codecflow, 2 x 40
-               frames, beside phase 4's d_state-128 run; each case's
-               seconds are printed.  Each case is served
+               (WIDE_STATE: two column slabs of the scan's slabbed
+               build), codecflow, 2 x 40 frames, beside phase 4's
+               d_state-128 run; (i) internvl3-14b at full width and depth
+               with 40 LM heads of 90 over 8 and its ViT re-cut to 16
+               heads of 75 (ODD_ARCH: head dims off the 8-column grid,
+               rope_shift at an odd half), ingested at search radius 128
+               (mv_sad's tiled kernel), served as (g) (paged, per-stream,
+               int8 cold pages); (j) mamba2-2.7b at d_state 512
+               (WIDER_STATE: four column slabs), served as (h); each
+               case's seconds are printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
@@ -301,9 +322,10 @@ Phases (any failure exits non-zero):
                share (8 x parameters x positions over the bf16 peak); one
                more step under torch.profiler, with the backward kernel's
                share of the device time; (g) the same model at d_state
-               256 (the N-256 build) for 2 steps (the second timed) and
+               256 (two column slabs) for 2 steps (the second timed) and
                one profiled step, its step time, peak and scan forward
-               and backward device ms printed beside 8(e)'s.
+               and backward device ms printed beside 8(e)'s; (h) the same
+               at d_state 512.
   9. mesh    — (a) one train step of whisper-large-v3-smoke and
                olmoe-1b-7b-smoke under a 1x1 DeviceMesh over a
                world-size-1 NCCL group (parameters placed by the sharding
@@ -395,10 +417,20 @@ DENSE_F32 = "deepseek-7b f32"
 # phase 7(f) and trained in phase 8(f) (x, b and c reach the scan in f32)
 SSM_F32 = f"{SSM_ARCH} f32"
 # mamba2-2.7b with its SSD state widened to 256 (SSMCfg.d_state; the Mamba-2
-# paper's state-size ablations run N 16 to 256): the scan's N-256 build,
+# paper's state-size ablations run N 16 to 256): two column slabs,
 # served in phase 7(h) and trained in phase 8(g)
 WIDE_STATE = 256
 SSM_N256 = f"{SSM_ARCH}, d_state {WIDE_STATE}"
+# ... and to 512 (four column slabs of 128 on the scan's slabbed build, the
+# slab count a grid dimension): phases 7(j) and 8(h)
+WIDER_STATE = 512
+SSM_N512 = f"{SSM_ARCH}, d_state {WIDER_STATE}"
+# internvl3-14b with LM heads of 90 (40 over 8 kv heads: bf16 rows 4-byte
+# aligned, int8 cold rows 2-byte aligned, rope_shift at an odd half of 45,
+# refresh on the D-128 build), its ViT re-cut to d_model 1200 in 16 heads of
+# 75 (odd: flash_packed's rows 2-byte aligned), ingested at search radius
+# 128 (a 272^2 band at block 16: mv_sad's tiled kernel): phase 7(i)
+ODD_ARCH = f"{ARCH}, heads of 90 and 75, radius 128"
 FAMILY_HW = 112
 WHISPER_ARCH = "whisper-large-v3"  # full size: 32 + 32 layers, d 1280, 20 heads (D 64)
 WHISPER_BATCH, WHISPER_SEQ, WHISPER_STEPS = 2, 448, 4
@@ -437,16 +469,26 @@ F32_ROW_TOL = 2.0 ** -10
 # smallest ragged build that holds it (csrc/attention.cuh), at H 16 over
 # Hkv 4 on internvl3-14b's layout; the f32 cases at its own widths
 RAGGED_WIDTHS = (16, 40, 72, 80, 96, 112)
+# head dims off the 8-column grid (2, 4 or 6 mod 8, and odd: rows 8-, 4- or
+# 2-byte aligned, copied in narrower chunks and their last chunk masked),
+# at the same heads; also with f32 queries (f32 q/k/v in flash_packed and
+# flash_prefill)
+ODD_WIDTHS = (2, 20, 33, 90, 100)
 # internvl3-14b re-cut to LM heads of 256 (phase 3's D-256 cases, and
 # phase 7(g)): 20 heads over 4 kv heads keep d_model 5120 and the GQA
 # group of 5, so the parameters, the KV bytes per stream and the
 # attention FLOPs are those of its 40 heads of 128 over 8
 WIDE_HEADS = dict(n_heads=20, n_kv=4, d_head=256)
 WIDE_ARCH = f"{ARCH}, 20 heads of 256"
-# head dims on the WIDE build's ragged path (d 136 to 248), at H 20 over Hkv 4
-WIDE_RAGGED = (192, 136)
-# mv_sad beyond the codec's radius 4: (frame edge, block, radius)
-MV_SEARCHES = ((448, 16, 16), (448, 16, 32), (448, 8, 16))
+# head dims on the WIDE build's ragged path (d 129 to 255), at H 20 over
+# Hkv 4; the last two off the 8-column grid (ODD_WIDTHS' f32 cases too)
+WIDE_RAGGED = (192, 136, 130, 250)
+ODD_WIDE = (130, 250)
+# mv_sad beyond the codec's radius 4: (frame edge, block, radius); the last
+# three past one band's 227 KB of shared memory (the tiled kernel: a 272^2
+# band, a 256^2 one, and block 240's 230 KB macroblock in row strips)
+MV_SEARCHES = ((448, 16, 16), (448, 16, 32), (448, 8, 16), (448, 16, 128), (448, 64, 96),
+               (240, 240, 1))
 # lm_logits vs the f32 product of its bf16 operands: max over rows of
 # max |k - p| / max |p|.  Both sum d_model products in f32, in other
 # orders (a few 1e-6 relative); the product rounded to bf16 misses by up
@@ -487,8 +529,8 @@ def kernel_label(mangled: str) -> str:
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
     if "mma_kernel" not in mangled or b is None or struct is None:
         m = re.search(r"([a-z_]+_kernel)ILi(\d+)ELi(\d)E(?:Li(\d)E)?", mangled)
-        if m:     # the scan's kernels: <build N (slabs x slab width), operand mode>
-            n = int(m.group(2)) * int(m.group(4) or 1)
+        if m:     # the scan's kernels: <build N (slab count 0: any, a grid dimension), mode>
+            n = m.group(2) if m.group(4) != "0" else f"{m.group(2)} x slabs"
             return f"{m.group(1)}<{n}, {SCAN_MODES.get(m.group(3), m.group(3))}>"
         m = re.search(r"([a-z_]+_kernel)ILb([01])E", mangled)
         if m:
@@ -571,7 +613,15 @@ def device_ms(torch, fn, args, in_bytes: float, replays: int = 5,
 
 
 def attn_errors(torch, out_k, out_p):
-    """(max |k - p|, max over (.., head) rows of max |k - p| / max |p|)."""
+    """(max |k - p|, max over (.., head) rows of max |k - p| / max |p|).
+    A row is the scale the limits (bf16 steps of the row's largest value)
+    rest on: the largest of its values is of the order of the summed
+    terms.  Under 4 values a head (head dim 1 or 2) it is not, since two
+    weighted averages of random V often both cancel far below it (the
+    plain version then reads 0.14 to 7.5 from the unrounded function at
+    head dim 2 and 1), so there the row is the query row over its heads."""
+    if out_p.dim() >= 3 and out_p.shape[-1] < 4:
+        out_k, out_p = out_k.flatten(-2), out_p.flatten(-2)
     d = (out_k.float() - out_p.float()).abs()
     scale = out_p.float().abs().amax(-1, keepdim=True)
     rel = d / scale.clamp_min(torch.finfo(torch.float32).tiny)
@@ -652,21 +702,24 @@ def check_mv_search(torch, hw: int, block: int, radius: int):
     mv_p, sad_p = mv_sad_plain(cur, prev, block, radius)
     bitwise = torch.equal(mv_k, mv_p) and torch.equal(sad_k, sad_p)
     n_cand = (2 * radius + 1) ** 2
-    threads, _, smem = launch_geometry(block, radius)
+    threads, _, smem, tile = launch_geometry(block, radius)
     ms = cuda_ms(torch, lambda: mv_sad_cuda(cur, prev, block, radius), 20)
     dev_ms = device_ms(torch, lambda a, b: mv_sad_cuda(a, b, block, radius), (cur, prev),
                        2 * hw * hw * 4)
     plain = cuda_ms(torch, lambda: mv_sad_plain(cur, prev, block, radius), 2, warmup=1)
     hb = hw // block
     b_ms, b_by = bound_ms(2 * hw * hw * 4 + hb * hb * 12, 3 * hw * hw * n_cand, F32_FLOPS)
+    tiling = ("" if tile is None else f", tiled: {tile[0]} x {tile[1]} candidates a tile, "
+              f"macroblock strips of {tile[2]} rows")
     log(f"mv_sad ({hw}^2, block {block}, radius {radius}: {n_cand} candidates over {threads} "
-        f"threads, {smem} shared bytes): MVs and SADs bitwise the plain version's: {bitwise}, "
+        f"threads, {smem} shared bytes{tiling}): MVs and SADs bitwise the plain version's: "
+        f"{bitwise}, "
         f"MVs past radius 4: {int((mv_p.abs() > 4).any(-1).sum())} of {hb * hb}; kernel "
         f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
     return bitwise, dict(max_abs_err=float((sad_k - sad_p).abs().max()), ms=ms,
                          device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, threads=threads, shared_bytes=smem)
+                         library_ms=None, threads=threads, shared_bytes=smem, tile=tile)
 
 
 def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
@@ -1314,11 +1367,13 @@ SCAN_WIDE = (
     ("bf16 log_a", 2, 160, 80, 64, 1, 128, 256, True, "bfloat16", "bfloat16", "packed"),
 )
 SCAN_F32_TOL = 2.0 ** -10       # f32 y: the f32 attention kernels' row-relative limit
-# ssd_scan on its N-256 build (two column slabs of 128 over blocks):
-# mamba2-2.7b's serving and prefill shapes at d_state 256 (WIDE_STATE) in
-# bf16 read in place, the fresh window in f32 (staged), and N 192 and 136
-# on the build (staged, columns past N zero) over a ragged L
-SCAN_N256 = tuple(
+# ssd_scan on its slabbed build (N / 128 column slabs of 128 over blocks,
+# the slab count a grid dimension): mamba2-2.7b's serving and prefill
+# shapes at d_state 256 (WIDE_STATE) and 512 (WIDER_STATE) in bf16 read in
+# place, the fresh window in f32 (staged), N 384 in place, and N 192, 136
+# and 320 on the next multiple of 128 (staged, columns past N zero) over a
+# ragged L
+SCAN_SLABBED = tuple(
     (label, B, L, 80, 64, 1, n, 256, init, dt, "float32", "packed")
     for label, B, L, n, init, dt in (
         ("N 256 fresh window", 2, 160, 256, True, "bfloat16"),
@@ -1328,7 +1383,14 @@ SCAN_N256 = tuple(
         ("N 256 ragged prefill", 1, 1000, 256, True, "bfloat16"),
         ("f32 N 256 fresh window", 2, 160, 256, True, "float32"),
         ("N 192 ragged prefill", 1, 1000, 192, True, "bfloat16"),
-        ("N 136 ragged prefill", 1, 1000, 136, True, "bfloat16")))
+        ("N 136 ragged prefill", 1, 1000, 136, True, "bfloat16"),
+        ("N 512 fresh window", 2, 160, 512, True, "bfloat16"),
+        ("N 512 incremental window", 2, 40, 512, True, "bfloat16"),
+        ("N 512 query", 2, 8, 512, True, "bfloat16"),
+        ("N 512 long prefill", 1, 4096, 512, False, "bfloat16"),
+        ("f32 N 512 fresh window", 2, 160, 512, True, "float32"),
+        ("N 384 fresh window", 2, 160, 384, True, "bfloat16"),
+        ("N 320 ragged prefill", 1, 1000, 320, True, "bfloat16")))
 
 
 def scan_f64(torch, x, la, b, c, init):
@@ -1352,8 +1414,9 @@ def scan_registers(name: str, mode: int, n: int) -> str:
     """Registers of the scan kernel ``name`` at build width n and operand
     mode, from phase 2's ptxas readings ("not read" when this process
     did not build)."""
-    from repro_torch.kernels.ssd_scan import build_width
-    label = f"{name}<{build_width(n)}, {SCAN_MODES[str(mode)]}>"
+    from repro_torch.kernels.ssd_scan import N_SLAB, build_width
+    n = build_width(n)
+    label = f"{name}<{n if n <= N_SLAB else f'{N_SLAB} x slabs'}, {SCAN_MODES[str(mode)]}>"
     return str(READINGS.get("registers", {}).get(label, "not read"))
 
 
@@ -1388,8 +1451,8 @@ def check_ssd_scan(torch):
     kernel's f32 factors enter the tensor-core products as bf16 hi + lo
     (about 16 bits, 2^-17 relative per product).  The bound counts the
     operands at their element sizes; the staging pass's bytes are
-    printed beside it.  Then SCAN_N256, the N-256 build, each line with
-    its kernel's registers; its bf16 cases and the long prefill at N 128
+    printed beside it.  Then SCAN_SLABBED, the slabbed build, each line
+    with its kernel's registers; its bf16 cases and the long prefill at N 128
     also print the kernel's and the plain version's y against a
     sequential f64 scan (each rounds y to bf16 once: about 2^-8 of a row
     apart from it at most).  The kernels line reports the fresh window's
@@ -1409,9 +1472,9 @@ def check_ssd_scan(torch):
                  (f"{HYBRID_ARCH} incremental window", 2, 40, 128, 64, 1, 16, 256, True),
                  (f"{HYBRID_ARCH} query", 2, 8, 128, 64, 1, 16, 256, True))]
     g = torch.Generator(device="cuda").manual_seed(5)
-    ok, row, worst, wide, n256 = True, None, 0.0, {}, {}
+    ok, row, worst, wide, slabbed = True, None, 0.0, {}, {}
     for label, B, L, H, P, G, N, chunk, with_init, dt, la_dt, layout in (
-            cases + list(SCAN_WIDE) + list(SCAN_N256)):
+            cases + list(SCAN_WIDE) + list(SCAN_SLABBED)):
         x, la, b, c, init = scan_operands(torch, g, B, L, H, P, G, N, with_init, dt, la_dt,
                                           layout)
         y_k, s_k = ssd_scan_cuda(x, la, b, c, init, chunk)
@@ -1469,13 +1532,13 @@ def check_ssd_scan(torch):
         if label in {c[0] for c in SCAN_WIDE}:
             wide[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, rel=y_rel)
         if N > 128:
-            n256[label] = dict(mode=mode, ms=ms, device_ms=dev_ms, bound_ms=b_ms,
+            slabbed[label] = dict(mode=mode, ms=ms, device_ms=dev_ms, bound_ms=b_ms,
                                plain_ms=plain, rel=y_rel, state_rel=s_rel, f64_rel=exact,
                                registers=scan_registers("ssd_scan_kernel", mode, N))
         del x, la, b, c, init, y_k, y_p, s_k, s_p
     row["max_abs_err"] = worst
     row["wide_cases"] = wide
-    row["n256_cases"] = n256
+    row["slabbed_cases"] = slabbed
     gc.collect()
     torch.cuda.empty_cache()
     return ok, row
@@ -1528,8 +1591,9 @@ def check_ssd_scan_bwd(torch):
     without either, groups G 4 at a small width, and jamba-v0.1-52b's
     widths (H 128, P 64, N 16) at L 2048; then the training shape in f32,
     N 32 at G 2, P 12 (f32) and chunk 512 over L 1000 (f32): the staged
-    operands; then the N-256 build at the training shape, bf16 and f32,
-    and N 192 on it, each line with (a)'s and (c)'s registers.  Each reading beside its limit (BWD_TOL, or BWD_F32_OUT_TOL
+    operands; then the slabbed build at the training shape, N 256 in bf16
+    and f32, N 192 on it, and N 512, 384 and 320 (staged on 384), each
+    line with (a)'s and (c)'s registers.  Each reading beside its limit (BWD_TOL, or BWD_F32_OUT_TOL
     for f32 dx, db and dc; BWD_F32_TOL), a bitwise repeat, the chunk
     states within the forward's 1e-4; times per call (CUDA events), on
     the device (replayed graph), the plain version's, and the bound from
@@ -1544,7 +1608,7 @@ def check_ssd_scan_bwd(torch):
         ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_fwd_plain, ssd_scan_launch, staged_bytes,
     )
     for mode in (FAST, SPLIT):
-        for n in STATE_WIDTHS:
+        for n in STATE_WIDTHS + (512,):     # 512: the slabbed build (any N past 128)
             log(f"ssd_scan_bwd kernels, N {n}, chunk 256, operand mode {mode}: blocks per SM "
                 f"{bwd_occupancy(n, 256, mode)}")
     cases = (("mamba2-2.7b training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256, True, True,
@@ -1558,13 +1622,21 @@ def check_ssd_scan_bwd(torch):
              ("N 32, G 2", 2, 1000, 8, 64, 2, 32, 128, True, True, "bfloat16"),
              ("f32 P 12", 2, 1000, 80, 12, 1, 128, 256, True, True, "float32"),
              ("f32 chunk 512", 1, 1000, 80, 64, 1, 128, 512, True, True, "float32"),
-             # the N-256 build: mamba2-2.7b's training shape at d_state 256
+             # two column slabs: mamba2-2.7b's training shape at d_state 256
              # in bf16 (read in place) and f32, and N 192 on the build
              ("N 256 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 256, 256, True, True,
               "bfloat16"),
              ("f32 N 256 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 256, 256, True, True,
               "float32"),
              ("N 192 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 192, 256, True, True,
+              "bfloat16"),
+             # past two slabs: d_state 512 in place, N 384 in place, N 320
+             # staged on 384
+             ("N 512 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 512, 256, True, True,
+              "bfloat16"),
+             ("N 384 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 384, 256, True, True,
+              "bfloat16"),
+             ("N 320 training", 2, SSM_TRAIN_SEQ, 80, 64, 1, 320, 256, True, True,
               "bfloat16"))
     g = torch.Generator(device="cuda").manual_seed(6)
     ok, row, worst, wide = True, None, 0.0, {}
@@ -1600,7 +1672,7 @@ def check_ssd_scan_bwd(torch):
                                                           chunk), 2, warmup=1)
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
         if row is None or label in ("f32 mamba2-2.7b training", "N 256 training",
-                                    "f32 N 256 training"):
+                                    "f32 N 256 training", "N 512 training"):
             stages = kernel_ms(torch, lambda: ssd_scan_bwd_cuda(*args, chunk))
             log(f"ssd_scan_bwd ({label}): device ms per call by kernel (torch.profiler): "
                 + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
@@ -2473,6 +2545,7 @@ def family_models():
     fields a case sets, FAMILY_FRAMES the frame edge of a case that keeps
     its model's own ViT, FAMILY_PATHS the further paths a case serves."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.audit import odd_heads, with_state
     hybrid, full = get_config(HYBRID_ARCH), "full width and depth"
     return (
         ("(a)", MOE_ARCH, get_config(MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
@@ -2486,30 +2559,34 @@ def family_models():
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights"),
         ("(g)", WIDE_ARCH, dataclasses.replace(get_config(ARCH), **WIDE_HEADS), ("codecflow",),
          MOE_FRAMES, f"{full}, LM heads of 256, InternViT at {HW}^2"),
-        ("(h)", SSM_N256, wide_state(get_config(SSM_ARCH)), ("codecflow",), SSM_FRAMES,
-         f"{full}, SSD state {WIDE_STATE}"),
+        ("(h)", SSM_N256, with_state(get_config(SSM_ARCH), WIDE_STATE), ("codecflow",),
+         SSM_FRAMES, f"{full}, SSD state {WIDE_STATE}"),
+        ("(i)", ODD_ARCH, odd_heads(get_config(ARCH)), ("codecflow",), MOE_FRAMES,
+         f"{full}, LM heads of 90, InternViT re-cut to 16 heads of 75 at {HW}^2"),
+        ("(j)", SSM_N512, with_state(get_config(SSM_ARCH), WIDER_STATE), ("codecflow",),
+         SSM_FRAMES, f"{full}, SSD state {WIDER_STATE}"),
     )
 
 
-def wide_state(cfg):
-    """``cfg`` with its SSD state widened to WIDE_STATE (phases 7(h), 8(g))."""
-    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=WIDE_STATE))
-
-
 # (e): an f32 LM (f32 queries over the bf16 slab) ingested at the search
-# range of a software H.264 encoder
-FAMILY_CODECS = {"(e)": dict(search_radius=16)}
-# (g): internvl3-14b keeps its own ViT (InternViT, 16 heads of 64), which
-# takes 448^2 frames, where the other cases take the launcher's 112^2 one
-FAMILY_FRAMES = {"(g)": HW}
-# phase 4's run that a case's readings are printed beside: (g) at heads of
-# 128, (h) at d_state 128
+# range of a software H.264 encoder; (i) at radius 128 (mv_sad's tiled
+# kernel: a 272^2 band at block 16)
+FAMILY_CODECS = {"(e)": dict(search_radius=16), "(i)": dict(search_radius=128)}
+# (g), (i): internvl3-14b keeps its own ViT (InternViT, 16 heads of 64, or
+# its re-cut), which takes 448^2 frames, where the other cases take the
+# launcher's 112^2 one
+FAMILY_FRAMES = {"(g)": HW, "(i)": HW}
+# phase 4's run that a case's readings are printed beside: (g) and (i) at
+# heads of 128 (and radius 4), (h) and (j) at d_state 128
 FAMILY_BESIDE = {"(g)": (f"phase 4 {MAIN}", "heads of 128"),
-                 "(h)": (f"phase 4 {SSM_MAIN}", "d_state 128")}
-# (g): after the four engine runs on the paged bf16 slab, one lockstep run
-# per further path: per-stream caches (flash_refresh) and int8 cold pages
-FAMILY_PATHS = {"(g)": (("per-stream KV", dict(paged_kv=False)),
-                        ("int8 cold pages", dict(stale_page_dtype="int8")))}
+                 "(h)": (f"phase 4 {SSM_MAIN}", "d_state 128"),
+                 "(i)": (f"phase 4 {MAIN}", "heads of 128 and 64, radius 4"),
+                 "(j)": (f"phase 4 {SSM_MAIN}", "d_state 128")}
+# (g), (i): after the four engine runs on the paged bf16 slab, one lockstep
+# run per further path: per-stream caches (flash_refresh) and int8 cold pages
+FAMILY_PATHS = {key: (("per-stream KV", dict(paged_kv=False)),
+                      ("int8 cold pages", dict(stale_page_dtype="int8")))
+                for key in ("(g)", "(i)")}
 
 
 def model_widths(cfg) -> str:
@@ -2542,10 +2619,14 @@ def serve_families(torch, keys=None):
     run on per-stream caches and one with int8 cold pages (which must
     demote pages), each path's readings printed beside phase 4's D-128
     run of the same path; (h) mamba2-2.7b with its SSD state widened to
-    256 (WIDE_STATE: the scan's N-256 build), codecflow through the
-    recurrent backend, 2 x SSM_FRAMES frames, the same four runs, beside
-    phase 4's d_state-128 run.  Each model's weights are freed before the
-    next.  ``keys`` serves only those cases.  Returns (ok, launches per
+    256 (WIDE_STATE: two column slabs of the scan's slabbed build),
+    codecflow through the recurrent backend, 2 x SSM_FRAMES frames, the
+    same four runs, beside phase 4's d_state-128 run; (i) internvl3-14b
+    with LM heads of 90 and its ViT re-cut to 16 heads of 75 (ODD_ARCH:
+    head dims off the 8-column grid) ingested at search radius 128
+    (mv_sad's tiled kernel), served as (g); (j) mamba2-2.7b at d_state 512
+    (WIDER_STATE: four column slabs), served as (h).  Each model's weights
+    are freed before the next.  ``keys`` serves only those cases.  Returns (ok, launches per
     run)."""
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.launch.serve import default_vit
@@ -3054,9 +3135,9 @@ def train_mamba(torch, dtype=None, d_state=None, steps: int = SSM_TRAIN_STEPS):
     remat's recompute) and 1 backward launch; then one profiled step.
     8(f): the same with ``dtype="float32"`` (f32 weights, x, b and c into
     the scan's staged hi / lo builds; full depth: about 60 GiB at its
-    peak).  8(g): with ``d_state`` (the SSD state widened: the N-256
-    build), its profiled scan times printed beside 8(e)'s.  Returns (ok,
-    launches)."""
+    peak).  8(g) and 8(h): with ``d_state`` (the SSD state widened to
+    256 and 512: two and four column slabs of the slabbed build), its
+    profiled scan times printed beside 8(e)'s.  Returns (ok, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as tlaunch
@@ -3296,9 +3377,12 @@ def train_phase(torch):
     here, ssm32 = train_mamba(torch, "float32")
     ok = ok and here
     here, ssm256 = train_mamba(torch, d_state=WIDE_STATE, steps=2)
+    ok = ok and here
+    here, ssm512 = train_mamba(torch, d_state=WIDER_STATE, steps=2)
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return ok and here, {f"{WHISPER_ARCH} decode": dec, **by_path, TRAIN_PATH: ssm,
-                         f"{SSM_F32} training": ssm32, f"{SSM_N256} training": ssm256}
+                         f"{SSM_F32} training": ssm32, f"{SSM_N256} training": ssm256,
+                         f"{SSM_N512} training": ssm512}
 
 
 # ----------------------------------------------------------------------
@@ -3844,7 +3928,9 @@ def main(argv=None) -> int:
                          "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'f32-ssm' "
                          "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'd256' (phase 7(g): "
                          "internvl3-14b with LM heads of 256), 'n256-ssm' (phases 7(h) and "
-                         "8(g): mamba2-2.7b at d_state 256), 'mesh' "
+                         "8(g): mamba2-2.7b at d_state 256), 'odd-heads' (phase 7(i): "
+                         "internvl3-14b with heads of 90 and 75 at search radius 128), "
+                         "'n512-ssm' (phases 7(j) and 8(h): d_state 512), 'mesh' "
                          "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
                          "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
                          "each alone after phases 1-2")
@@ -3906,7 +3992,12 @@ def main(argv=None) -> int:
                                and served_cleanly("phase 7(g)")),
               "n256-ssm": lambda: (serve_families(torch, ("(h)",))[0]
                                    and served_cleanly("phase 7(h)")
-                                   and train_mamba(torch, d_state=WIDE_STATE, steps=2)[0])}
+                                   and train_mamba(torch, d_state=WIDE_STATE, steps=2)[0]),
+              "odd-heads": lambda: (serve_families(torch, ("(i)",))[0]
+                                    and served_cleanly("phase 7(i)")),
+              "n512-ssm": lambda: (serve_families(torch, ("(j)",))[0]
+                                   and served_cleanly("phase 7(j)")
+                                   and train_mamba(torch, d_state=WIDER_STATE, steps=2)[0])}
     if only and only <= set(probes):
         ok = all([probes[name]() for name in sorted(only)])
         print(smi)
@@ -3949,7 +4040,7 @@ def main(argv=None) -> int:
     F32 = torch.float32
     lay, slots = pipe.layout, pipe.cache_slots
     widths = {f"D {d}": dataclasses.replace(cfg, name=f"d{d}", n_heads=16, n_kv=4, d_head=d)
-              for d in RAGGED_WIDTHS}
+              for d in RAGGED_WIDTHS + ODD_WIDTHS}
     stream_cases += tuple((f"{lab}, selective refresh", w, lay, slots, "selective refresh")
                           for lab, w in widths.items()) + tuple(
         (f"f32 q, {case}", cfg, lay, slots, case, F32) for case in REFRESH_CASES)
@@ -3958,12 +4049,18 @@ def main(argv=None) -> int:
     d256 = dataclasses.replace(cfg, name="d256", **WIDE_HEADS)
     wide_ragged = {f"D {d}": dataclasses.replace(d256, name=f"d{d}", d_head=d)
                    for d in WIDE_RAGGED}
+    # f32 queries (f32 q/k/v in flash_packed and flash_prefill) at the head
+    # dims off the 8-column grid, on their bf16 cases' heads
+    odd_f32 = {f"D {d}, f32 q": {**widths, **wide_ragged}[f"D {d}"]
+               for d in ODD_WIDTHS + ODD_WIDE}
     D256, D256_F32 = "D 256", "D 256, f32 q"
     stream_cases += tuple((f"{D256}, {case}", d256, lay, slots, case)
                           for case in REFRESH_CASES) + (
         (f"{D256_F32}, selective refresh", d256, lay, slots, "selective refresh", F32),) + tuple(
         (f"{lab}, selective refresh", w, lay, slots, "selective refresh")
-        for lab, w in wide_ragged.items())
+        for lab, w in wide_ragged.items()) + tuple(
+        (f"{lab}, selective refresh", w, lay, slots, "selective refresh", F32)
+        for lab, w in odd_f32.items())
     n = len(videos)
     paged_families, stream_families = family_kernel_cases()
     paged_families += [(B24, bcfg, blay, bslots), (W24, wide, pipe.layout, pipe.cache_slots),
@@ -3971,7 +4068,8 @@ def main(argv=None) -> int:
         (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in widths.items()] + [
         ("f32 q", cfg, lay, slots, F32), (D256, d256, lay, slots),
         (D256_F32, d256, lay, slots, F32)] + [
-        (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in wide_ragged.items()]
+        (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in wide_ragged.items()] + [
+        (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in odd_f32.items()]
 
     def prefill_paged():
         main = check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)
@@ -3987,7 +4085,10 @@ def main(argv=None) -> int:
                  D256_F32: check_flash_prefill_paged(torch, d256, lay, slots, n,
                                                      label=D256_F32, q_dtype=F32),
                  **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab)
-                    for lab, w in wide_ragged.items()}}
+                    for lab, w in wide_ragged.items()},
+                 **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab,
+                                                   q_dtype=F32)
+                    for lab, w in odd_f32.items()}}
         return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
                 for i, m in enumerate(main)]
 
@@ -4002,7 +4103,10 @@ def main(argv=None) -> int:
             W24: check_rope_shift(torch, wide, pipe.layout, n, label=W24),
             f"{SMOKE_ARCH}, D 64": check_rope_shift(torch, smoke, blay, n,
                                                     label=f"{SMOKE_ARCH}, D 64"),
-            D256: check_rope_shift(torch, d256, pipe.layout, n, label=D256)})],
+            D256: check_rope_shift(torch, d256, pipe.layout, n, label=D256),
+            **{f"D {d}": check_rope_shift(torch, {**widths, **wide_ragged}[f"D {d}"],
+                                          pipe.layout, n, label=f"D {d}")
+               for d in (20, 90, 130)}})],
         "flash_refresh_paged": lambda: [check_flash_refresh_paged(
             torch, cfg, pipe.layout, pipe.cache_slots, n, paged_families)],
         "flash_packed": lambda: [with_cases(check_flash_packed(torch, pipe, streams), {
@@ -4019,7 +4123,9 @@ def main(argv=None) -> int:
             **{f"{lab}, busy": check_flash_packed(torch, pipe, streams, heads=(8, d),
                                                   label=lab, dtype=dt, only=("busy",))
                for lab, d, dt in (("D 256, H 8", 256, None), ("D 256, H 8, f32 q/k/v", 256, F32),
-                                  *((f"D {d}, H 8", d, None) for d in WIDE_RAGGED))}})],
+                                  *((f"D {d}, H 8", d, None) for d in WIDE_RAGGED),
+                                  *((f"D {d}, H {16 if d <= 128 else 8}, f32 q/k/v", d, F32)
+                                    for d in ODD_WIDTHS + ODD_WIDE))}})],
         "flash_refresh": lambda: [check_flash_refresh(torch, stream_cases, n, stream_families)],
         "flash_refresh_paged_int8": lambda: [with_cases(
             check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n), {
@@ -4035,7 +4141,10 @@ def main(argv=None) -> int:
                 D256_F32: check_flash_refresh_paged_int8(torch, d256, lay, slots, n,
                                                          label=D256_F32, q_dtype=F32),
                 **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab)
-                   for lab, w in wide_ragged.items()}})],
+                   for lab, w in wide_ragged.items()},
+                **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab,
+                                                       q_dtype=F32)
+                   for lab, w in odd_f32.items()}})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
         "ssd_scan_bwd": lambda: [check_ssd_scan_bwd(torch)],
         "flash_prefill": lambda: [with_cases(
@@ -4056,7 +4165,11 @@ def main(argv=None) -> int:
                                                           label=f"{D256}, f32 q/k/v",
                                                           dtype=F32)} | {
                 lab: check_flash_prefill(torch, w, lay.total_len, n, only=("causal",), label=lab)
-                for lab, w in wide_ragged.items()})],
+                for lab, w in wide_ragged.items()} | {
+                f"D {w.d_head}, f32 q/k/v": check_flash_prefill(
+                    torch, w, lay.total_len, n, only=("causal",), label=f"D {w.d_head}, f32 q/k/v",
+                    dtype=F32)
+                for w in odd_f32.values()})],
         "flash_prefill_paged": prefill_paged,
     }
     if only - set(checks):

@@ -1,6 +1,7 @@
 // The attention kernels at the exact head dims 24, 32, 64, 128 and 256
 // over bf16 q, k and v: d == D.  The first four compile to the code
-// before the ragged and f32 builds existed; 256 is the WIDE build (4
+// before the ragged and f32 builds existed (and before the ragged builds
+// took head dims off the 8-column grid); 256 is the WIDE build (4
 // warps own 64 query rows in 32-key steps, attention.cuh).  The body and
 // the TPU kernels each entry point replaces: attention.cuh.  Other head dims:
 // attention_any.cu; f32 queries: attention_q32.cu; f32 q/k/v:

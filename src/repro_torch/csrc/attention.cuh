@@ -49,13 +49,20 @@
 //     shared memory and runs the products for D columns.  An exact build
 //     (attention.cu) takes d == D, and compiles to the code these kernels
 //     had before other widths were taken; a ragged build takes any head
-//     dim d <= D that is a multiple of 8 (attention_any.cu, and every
-//     f32 build): it copies d / 8 chunks of a row, zeroes K's columns
-//     [d, DK) once per block (Q's are zeros too, so Q K^T is exact), and
-//     stores d output columns.  Each d runs on the smallest build that
-//     holds it (d 8 and 16 on 24; 40-56 on 64; 72-120 on 128; 136-248 on
-//     256), whose padded products cost up to D / d more (1.6x at d 80,
-//     1.9x at d 136).  D 256 is WIDE (below: a block shape of its own);
+//     dim d <= D (attention_any.cu, and every f32 build): it copies a
+//     row's live 8-column chunks, zeroes K's columns [d, DK) once per
+//     block (Q's are zeros too, so Q K^T is exact), and stores d output
+//     columns.  A row of d bf16 is 16-byte aligned only where d is a
+//     multiple of 8; else it goes in pieces of 8-byte (d a multiple of 4)
+//     or 4-byte (d even) cp.async copies, or at an odd d (2-byte rows)
+//     in plain loads and shared stores, a row's pieces on consecutive
+//     lanes (Build::cw, chosen once per launch; narrow_rows); an int8
+//     cold row of d bytes in 4-byte copies or 2- or 1-byte loads; q and
+//     the output element by element.  Each d runs on the smallest build
+//     that holds it (d 1-24 on 24; 33-64 on 64, and 25-31 in bf16; 65-128
+//     on 128; 129-255 on 256), whose padded products cost up to D / d
+//     more (1.6x at d 80, 1.9x at d 136).  D 256 is WIDE (below: a block
+//     shape of its own);
 //   * operand types: OPS_BF16 (bf16 q, k, v and output), OPS_Q32 (f32 q
 //     over bf16 k, v, f32 output: what an f32 LM hands the refresh
 //     kernels: its caches and slab are bf16) and OPS_F32 (f32 q, k and v,
@@ -162,7 +169,10 @@ constexpr int TILE = 128;     // map tile = KV page = query tile
 enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2 };
 
 // A build: its width D (shared-memory rows, the products' columns),
-// whether it takes a ragged head dim dh <= D, and its operand types.
+// whether it takes a ragged head dim dh <= D, and its operand types.  A
+// ragged dh copies its rows in chunks of cw elements: 8 (16 bytes of
+// bf16) where dh is a multiple of 8, else the widest that rows of dh
+// elements stay aligned to (4, 2; 1 at an odd dh).
 // Its block shape (see the header): up to D 128, THREADS 256 (8 warps)
 // own a whole 128-row query tile in BK = 64-key steps; a WIDE build (D
 // 256) has 4 warps own QROWS = 64 rows, half a tile, in 32-key steps.
@@ -177,10 +187,18 @@ struct Build {
   static constexpr int BK = WIDE ? 32 : 64;            // keys a step (one ring slot)
   static constexpr int QROWS = THREADS / 2;            // query rows a block
   int dh;                                              // the operands' head dim
+  int cw;                                              // its copy chunk (elements)
   // the operands' head dim, and whether columns [c8, c8 + 8) hold data
   __device__ __forceinline__ int d() const { return RAGGED ? dh : D; }
   __device__ __forceinline__ bool col(int c8) const { return !RAGGED || c8 < dh; }
+  // whether rows go in whole 16-byte chunks (every exact build)
+  __device__ __forceinline__ bool whole() const { return !RAGGED || cw == 8; }
+  // the live columns of the chunk at c8 (< 8 only in the last one)
+  __device__ __forceinline__ int live(int c8) const { return RAGGED ? min(8, dh - c8) : 8; }
 };
+
+// a head dim's copy chunk (Build::cw)
+inline int copy_chunk(int dh) { return dh % 8 == 0 ? 8 : dh % 4 == 0 ? 4 : dh % 2 == 0 ? 2 : 1; }
 
 // q's and the output's element type
 template <class B>
@@ -221,11 +239,57 @@ struct PaddedRows {
   __device__ static int at(int r, int c8) { return r * LDH + c8; }
 };
 
-// K/V rows [row0, row0 + BK) of kv head kvh -> a slot, by cp.async
+// one piece of cw bf16 columns (cw < 8: a row not on 16-byte
+// boundaries) into shared memory: an 8-byte (cw 4) or 4-byte (cw 2)
+// cp.async reading the piece if `in` and zero-filling it otherwise, or at
+// an odd head dim (cw 1, rows 2-byte aligned) a plain load and shared
+// store, which the barrier before the slot is read orders as it orders
+// the copies
+__device__ __forceinline__ void narrow_piece(bf16* dst, const bf16* src, int cw, bool in) {
+  if (cw == 4) cp_async_ca<8>(dst, src, in ? 8 : 0);
+  else if (cw == 2) cp_async_ca<4>(dst, src, in ? 4 : 0);
+  else *dst = in ? *src : __float2bfloat16_rn(0.f);
+}
+
+// lanes given to one row of np pieces: np rounded up to a power of two,
+// at most 32; returns its log2 (thread i: row i >> lg, lane i & (2^lg - 1))
+__device__ __forceinline__ int row_lanes_log2(int np) {
+  return np >= 32 ? 5 : 32 - __clz(np - 1);
+}
+
+// K/V rows [row0, row0 + BK) of kv head kvh -> a slot, by cp.async: a
+// 16-byte chunk a thread, or where rows are not on 16-byte boundaries
+// (a ragged build's cw < 8; decided once per call) pieces of cw columns,
+// a row's consecutive pieces on consecutive lanes (rows [n_in, BK)
+// zero-filled, nothing read for them: key rows past Sk)
+template <class B>
+__device__ void narrow_rows(const Slot& st, const KV& kv, long long row0, int Hkv, int kvh,
+                            int tid, const B& bd, int n_in = B::BK) {
+  constexpr int D = B::D;
+  const int lg = row_lanes_log2(bd.dh / bd.cw);
+  for (int i = tid; i < (B::BK << lg); i += B::THREADS) {
+    const int r = i >> lg;
+    const bool in = r < n_in;
+    const long long off = ((row0 + (in ? r : 0)) * Hkv + kvh) * bd.dh;
+    for (int c = (i & ((1 << lg) - 1)) * bd.cw; c < bd.dh; c += bd.cw << lg) {
+      narrow_piece(st.K + PaddedRows<D>::at(r, c), kv.k + off + c, bd.cw, in);
+      narrow_piece(st.V + PaddedRows<D>::at(r, c), kv.v + off + c, bd.cw, in);
+      if constexpr (B::SPLIT_KV) {
+        narrow_piece(st.Klo + PaddedRows<D>::at(r, c), kv.k_lo + off + c, bd.cw, in);
+        narrow_piece(st.Vlo + PaddedRows<D>::at(r, c), kv.v_lo + off + c, bd.cw, in);
+      }
+    }
+  }
+}
+
 template <class B>
 __device__ void async_rows(const Slot& st, const KV& kv, long long row0, int Hkv, int kvh,
                            int tid, const B& bd) {
   constexpr int D = B::D;
+  if (!bd.whole()) {
+    narrow_rows(st, kv, row0, Hkv, kvh, tid, bd);
+    return;
+  }
   for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
     const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
     if (!bd.col(c8)) continue;
@@ -253,13 +317,41 @@ struct ColdPages {
 
   // rows [c0, c0 + BK) of cold entry `entry` -> the slot's staging
   // bytes (rows of D bytes), in 16-byte copies (8-byte ones where a row is
-  // not a multiple of 16 bytes: D 24, and any ragged d)
+  // not a multiple of 16 bytes: D 24, and any ragged d); a d that is not a
+  // multiple of 8 in pieces of 4 bytes (cp.async) where d is a multiple
+  // of 4, else of 2 or 1 bytes by plain loads
   template <class B>
   __device__ void fetch(const Slot& st, int entry, int c0, int Hkv, int kvh, int tid,
                         const B& bd) const {
     constexpr int D = B::D;
     constexpr int CH = !B::RAGGED && D % 16 == 0 ? 16 : 8;
     const long long row0 = (long long)(entry - n_hot) * TILE + c0;
+    if (!bd.whole()) {     // pieces of w bytes laid out as narrow_rows lays them
+      const int w = bd.dh % 4 == 0 ? 4 : bd.dh % 2 == 0 ? 2 : 1;
+      const int lg = row_lanes_log2(bd.dh / w);
+      for (int i = tid; i < (B::BK << lg); i += B::THREADS) {
+        const int r = i >> lg;
+        const long long off = ((row0 + r) * Hkv + kvh) * bd.dh;
+        for (int c = (i & ((1 << lg) - 1)) * w; c < bd.dh; c += w << lg) {
+          int8_t* dk = st.K8 + r * D + c;
+          int8_t* dv = st.V8 + r * D + c;
+          if (w == 4) {
+            cp_async_ca<4>(dk, k8 + off + c);
+            cp_async_ca<4>(dv, v8 + off + c);
+          } else if (w == 2) {   // plain 2-byte loads (cp.async copies 4 bytes at least)
+            const uint16_t a = *reinterpret_cast<const uint16_t*>(k8 + off + c);
+            const uint16_t b = *reinterpret_cast<const uint16_t*>(v8 + off + c);
+            *reinterpret_cast<uint16_t*>(dk) = a;
+            *reinterpret_cast<uint16_t*>(dv) = b;
+          } else {
+            const int8_t a = k8[off + c], b = v8[off + c];
+            *dk = a;
+            *dv = b;
+          }
+        }
+      }
+      return;
+    }
     for (int i = tid; i < B::BK * D / CH; i += B::THREADS) {
       const int r = i / (D / CH), c = (i % (D / CH)) * CH;
       if (!bd.col(c)) continue;
@@ -274,7 +366,8 @@ struct ColdPages {
     }
   }
   // after the slot's copies landed (block-uniform): dequantise a cold
-  // tile into the slot's bf16 rows; true if the caller must synchronise
+  // tile into the slot's bf16 rows (a last chunk's columns from d on as
+  // zeros, as K's must be); true if the caller must synchronise
   template <class B>
   __device__ bool finish(const Slot& st, int entry, int Hkv, int kvh, int tid,
                          const B& bd) const {
@@ -290,10 +383,11 @@ struct ColdPages {
       const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
       const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
       __align__(16) bf16 ok[8], ov[8];
+      const int n = bd.whole() ? 8 : bd.live(c8);
       #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        ok[t] = __float2bfloat16_rn((float)ek[t] * ks);
-        ov[t] = __float2bfloat16_rn((float)ev[t] * vs);
+        ok[t] = __float2bfloat16_rn(t < n ? (float)ek[t] * ks : 0.f);
+        ov[t] = __float2bfloat16_rn(t < n ? (float)ev[t] * vs : 0.f);
       }
       *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ok);
       *reinterpret_cast<uint4*>(st.V + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ov);
@@ -408,6 +502,10 @@ struct Prefill : PrefillMask {
                            int kvh, int tid, const B& bd) const {
     constexpr int D = B::D;
     const int key0 = j * TILE + c0;
+    if (!bd.whole()) {
+      narrow_rows(st, kv, (long long)b * Sk + key0, Hkv, kvh, tid, bd, Sk - key0);
+      return;
+    }
     for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       if (!bd.col(c8)) continue;
@@ -595,7 +693,12 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     for (int i = tid; i < n_rows * D / 8; i += THREADS) {
       const int c8 = (i % (D / 8)) * 8;
       if (!bd.col(c8)) continue;
-      uint4* o8 = reinterpret_cast<uint4*>(ob + (i / (D / 8)) * q_stride + c8);
+      QT<B>* orow = ob + (i / (D / 8)) * q_stride + c8;
+      if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
+        for (int t = 0; t < bd.live(c8); ++t) orow[t] = cs_from_float<QT<B>>(0.f);
+        continue;
+      }
+      uint4* o8 = reinterpret_cast<uint4*>(orow);
       o8[0] = make_uint4(0, 0, 0, 0);
       if constexpr (Q_F32) o8[1] = make_uint4(0, 0, 0, 0);
     }
@@ -620,15 +723,24 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   // K's columns [d, DK), which Q K^T's last k16 steps read against Q's
   // zeros, are zeros too: the copies never write them (garbage there could
   // be a NaN, and 0 x NaN would reach a score).  V's columns from d on
-  // reach only output columns that are not stored.
+  // reach only output columns that are not stored.  A chunk that holds
+  // column d keeps its live columns for the copies (other bytes: no race).
   if constexpr (B::RAGGED) {
     for (int i = tid; i < STAGES * BK * (DK / 8); i += THREADS) {
       const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
-      if (c8 < d) continue;
+      if (c8 + 8 <= d) continue;
       const Slot st = slot(r / BK);
-      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r % BK, c8)) = make_uint4(0, 0, 0, 0);
-      if constexpr (S::kv)
-        *reinterpret_cast<uint4*>(st.Klo + PaddedRows<D>::at(r % BK, c8)) = make_uint4(0, 0, 0, 0);
+      bf16* kz = st.K + PaddedRows<D>::at(r % BK, c8);
+      [[maybe_unused]] bf16* kl = st.Klo + PaddedRows<D>::at(r % BK, c8);
+      if (c8 < d) {
+        for (int t = d - c8; t < 8; ++t) {
+          kz[t] = __float2bfloat16_rn(0.f);
+          if constexpr (S::kv) kl[t] = __float2bfloat16_rn(0.f);
+        }
+        continue;
+      }
+      *reinterpret_cast<uint4*>(kz) = make_uint4(0, 0, 0, 0);
+      if constexpr (S::kv) *reinterpret_cast<uint4*>(kl) = make_uint4(0, 0, 0, 0);
     }
   } else if constexpr (DK > D) {
     for (int i = tid; i < STAGES * BK; i += THREADS)
@@ -662,7 +774,11 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
     const bool in = r < n_rows && c8 < D && bd.col(c8);
     float x[8];
-    if constexpr (Q_F32) {
+    if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
+      #pragma unroll
+      for (int t = 0; t < 8; ++t)
+        x[t] = in && c8 + t < d ? cs_to_float(qb[r * q_stride + c8 + t]) : 0.f;
+    } else if constexpr (Q_F32) {
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
       if (in) {
         a = *reinterpret_cast<const float4*>(qb + r * q_stride + c8);
@@ -886,6 +1002,19 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   for (int dn = 0; dn < DT; ++dn) {
     const int c = dn * 8 + 2 * t4;
     if (!bd.col(dn * 8)) continue;
+    if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element, to column d
+      if (c >= d) continue;
+      const bool pair = c + 1 < d;
+      if (r0 < n_rows) {
+        ob[r0 * q_stride + c] = cs_from_float<QT<B>>(o[4 * dn] * inv0);
+        if (pair) ob[r0 * q_stride + c + 1] = cs_from_float<QT<B>>(o[4 * dn + 1] * inv0);
+      }
+      if (r1 < n_rows) {
+        ob[r1 * q_stride + c] = cs_from_float<QT<B>>(o[4 * dn + 2] * inv1);
+        if (pair) ob[r1 * q_stride + c + 1] = cs_from_float<QT<B>>(o[4 * dn + 3] * inv1);
+      }
+      continue;
+    }
     if constexpr (Q_F32) {
       if (r0 < n_rows)
         *reinterpret_cast<float2*>(ob + r0 * q_stride + c) =
@@ -915,7 +1044,7 @@ int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, i
   dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H, Bn);
   mma_kernel<B, P><<<grid, B::THREADS, smem, stream>>>(
       (const QT<B>*)q, (const bf16*)k, (const bf16*)v, (QT<B>*)out, Sq, H, Hkv, scale, prob,
-      B{dh}, (const bf16*)k_lo, (const bf16*)v_lo);
+      B{dh, copy_chunk(dh)}, (const bf16*)k_lo, (const bf16*)v_lo);
   return (int)cudaGetLastError();
 }
 
@@ -938,16 +1067,16 @@ struct Exact {
   }
 };
 
-// any head dim d = 8, 16, ..., 256 on the smallest ragged build of
+// any head dim d = 1, 2, ..., 256 on the smallest ragged build of
 // operand types OPS that holds it: 24, 32 (not for OPS_BF16, whose d 32
-// is exact), 64, 128 or 256
+// is exact: d 25-31 run on 64), 64, 128 or 256
 template <int OPS>
 struct Any {
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
                  int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
                  const void* k_lo = nullptr, const void* v_lo = nullptr) const {
-    if (dh <= 0 || dh % 8 != 0 || dh > 256) return (int)cudaErrorInvalidValue;
+    if (dh <= 0 || dh > 256) return (int)cudaErrorInvalidValue;
 #define CS_ANY_BUILD(W)                                                                  \
   launch_mma<Build<W, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, prob, stream, \
                                   k_lo, v_lo)

@@ -1,13 +1,15 @@
 // flash_packed and flash_prefill over f32 q, k and v (a ViT from an f32
-// checkpoint; the dense prefill of an f32 model), any head dim d that is
-// a multiple of 8 up to 256 (the WIDE D-256 build runs two stages of
-// four arrays, 203 KB), f32 output.  Their oracles round nothing, so
+// checkpoint; the dense prefill of an f32 model), any head dim d up to
+// 256 (the WIDE D-256 build runs two stages of four arrays, 203 KB), f32
+// output.  Their oracles round nothing, so
 // every operand enters the tensor-core products as two bf16 halves, hi =
 // bf16(x) and lo = bf16(x - hi), about 16 bits: split_bf16_kernel writes
 // K's and V's halves into the caller's scratch (four bf16 arrays of k's
 // size: the bytes of the f32 K and V read once and written once), then
 // the body (attention.cuh, OPS_F32) fills its ring from them by cp.async
-// as for bf16 and sums three products a tile where bf16 takes one.  The
+// as for bf16 and sums three products a tile where bf16 takes one.  Each
+// of the four arrays starts on a 16-byte boundary (its size rounded up to
+// 8 elements), so a row of any d sits at the alignment its d gives it.  The
 // query is split as it is staged.  A pre-pass, not a split on staging,
 // because a K/V tile is staged once per query tile that visits it, and
 // cp.async cannot convert.
@@ -15,10 +17,18 @@
 
 namespace {
 
-// x (n f32, n a multiple of 4, 16-byte aligned) -> hi = bf16(x), lo =
-// bf16(x - hi)
+// x (n f32, 16-byte aligned) -> hi = bf16(x), lo = bf16(x - hi), four
+// at a time and the last n % 4 one by one
 __global__ void split_bf16_kernel(const float4* __restrict__ x, uint2* __restrict__ hi,
-                                  uint2* __restrict__ lo, long long n4) {
+                                  uint2* __restrict__ lo, long long n) {
+  const long long n4 = n / 4;
+  if (blockIdx.x == 0 && threadIdx.x < n % 4) {
+    const long long j = n4 * 4 + threadIdx.x;
+    const float a = reinterpret_cast<const float*>(x)[j];
+    const bf16 h = __float2bfloat16_rn(a);
+    reinterpret_cast<bf16*>(hi)[j] = h;
+    reinterpret_cast<bf16*>(lo)[j] = __float2bfloat16_rn(a - __bfloat162float(h));
+  }
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
     const float4 a = x[i];
@@ -34,48 +44,53 @@ __global__ void split_bf16_kernel(const float4* __restrict__ x, uint2* __restric
   }
 }
 
-// k, v (n f32 each) -> scratch: k_hi, k_lo, v_hi, v_lo (n bf16 each)
+// the elements of one of the scratch's four arrays: n rounded up to 8
+long long padded(long long n) { return (n + 7) / 8 * 8; }
+
+// k, v (n f32 each) -> scratch: k_hi, k_lo, v_hi, v_lo (n bf16 each, at
+// strides of padded(n))
 int split_kv(const void* k, const void* v, bf16* scratch, long long n, cudaStream_t stream) {
-  const long long n4 = n / 4, want = (n4 + 255) / 256;
-  const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);   // grid-stride past 8 a SM
-  if (blocks == 0) return 0;
+  const long long want = (n / 4 + 255) / 256;
+  const int blocks = (int)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);   // grid-stride past 8 a SM
+  if (n == 0) return 0;
   const void* src[2] = {k, v};
+  const long long np = padded(n);
   for (int i = 0; i < 2; ++i) {
-    bf16* hi = scratch + 2 * i * n;
+    bf16* hi = scratch + 2 * i * np;
     split_bf16_kernel<<<blocks, 256, 0, stream>>>(
-        (const float4*)src[i], (uint2*)hi, (uint2*)(hi + n), n4);
+        (const float4*)src[i], (uint2*)hi, (uint2*)(hi + np), n);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// As cs_attn_packed_bf16 over f32 q, k, v (out f32); scratch: 4 x R x L x
-// Hkv x D bf16, 16-byte aligned.
+// As cs_attn_packed_bf16 over f32 q, k, v (out f32); scratch: 4 arrays of
+// R x L x Hkv x D bf16 each rounded up to 8 elements, 16-byte aligned.
 CS_EXPORT int cs_attn_packed_f32(const void* q, const void* k, const void* v, void* out,
                                  const int* span, const int* tile_ids, const int* tile_count,
                                  int R, int L, int H, int Hkv, int D, int t_max, float scale,
                                  void* scratch, cudaStream_t stream) {
-  const long long n = (long long)R * L * Hkv * D;
+  const long long n = (long long)R * L * Hkv * D, np = padded(n);
   bf16* s = (bf16*)scratch;
   const int err = split_kv(k, v, s, n, stream);
   if (err != 0) return err;
   Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};
-  return Any<OPS_F32>()(D, q, s, s + 2 * n, out, R, L, H, Hkv, scale, prob, stream, s + n,
-                        s + 3 * n);
+  return Any<OPS_F32>()(D, q, s, s + 2 * np, out, R, L, H, Hkv, scale, prob, stream, s + np,
+                        s + 3 * np);
 }
 
-// As cs_attn_prefill_bf16 over f32 q, k, v (out f32); scratch: 4 x B x
-// Sk x Hkv x D bf16, 16-byte aligned.
+// As cs_attn_prefill_bf16 over f32 q, k, v (out f32); scratch: 4 arrays
+// of B x Sk x Hkv x D bf16 each rounded up to 8 elements, 16-byte aligned.
 CS_EXPORT int cs_attn_prefill_f32(const void* q, const void* k, const void* v, void* out,
                                   int B, int Sq, int Sk, int H, int Hkv, int D, int q_offset,
                                   int causal, int window, float scale, void* scratch,
                                   cudaStream_t stream) {
-  const long long n = (long long)B * Sk * Hkv * D;
+  const long long n = (long long)B * Sk * Hkv * D, np = padded(n);
   bf16* s = (bf16*)scratch;
   const int err = split_kv(k, v, s, n, stream);
   if (err != 0) return err;
   Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};
-  return Any<OPS_F32>()(D, q, s, s + 2 * n, out, B, Sq, H, Hkv, scale, prob, stream, s + n,
-                        s + 3 * n);
+  return Any<OPS_F32>()(D, q, s, s + 2 * np, out, B, Sq, H, Hkv, scale, prob, stream, s + np,
+                        s + 3 * np);
 }

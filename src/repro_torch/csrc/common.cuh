@@ -35,6 +35,13 @@ __device__ __forceinline__ void cp_async16_fill(void* dst, const void* src, int 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
+// a BYTES (4 or 8) copy reading src_bytes (0 or BYTES) of src and
+// zero-filling the rest (rows that are only 8- or 4-byte aligned)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, int src_bytes = BYTES) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "n"(BYTES), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

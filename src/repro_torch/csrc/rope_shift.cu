@@ -4,60 +4,69 @@
 // Bound on an H100: bytes, one read and one write of the key block; the
 // angle of a (token, rotation pair) is the same for every kv head.
 //
-// A thread owns one token and one chunk of CH rotation pairs (8 for bf16,
-// 4 for f32: 16 bytes of each half of a head; 4 bf16, 8 bytes, where half
-// is not a multiple of 8, as at D 24).  It builds the chunk's CH angles
-// delta * theta^(-p/half) once, in f32 exactly as the plain version does,
-// then walks the token's n_kv heads: per head one load of k[p, p + CH),
-// one of k[p + half, p + half + CH), and two stores of the rotated pairs
-// in the key's dtype.  The block is (chunks per
+// A thread owns one token and one chunk of CH rotation pairs: W bytes of
+// each half of a head, the widest of 16, 8, 4 (and 2 in bf16) that half
+// the head dim holds a whole number of, so every chunk is aligned (8 bf16
+// or 4 f32 pairs at 16 bytes; 4 bf16, 8 bytes, at D 24; one pair, 2 bytes
+// in bf16 or 4 in f32, at an odd half, as at D 90).  It builds the
+// chunk's CH angles delta * theta^(-p/half) once, in f32 exactly as the
+// plain version does, then walks the token's n_kv heads: per head one
+// load of k[p, p + CH), one of k[p + half, p + half + CH), and two stores
+// of the rotated pairs in the key's dtype.  The block is (chunks per
 // token, tokens): the token comes from the grid and the chunk from
-// threadIdx.x, so no index is divided, and neighbouring threads touch
-// neighbouring 16-byte words.  The angles reach hundreds of radians on
-// the serving path (delta = -shift_tokens), so the accurate sincosf/powf
-// are used: the fast intrinsics lose all accuracy at that size.  Built
+// threadIdx.x (stepping by blockDim.x past 256 chunks: an odd half of
+// more than 256 pairs), so no index is divided, and neighbouring threads
+// touch neighbouring words.  The angles reach hundreds of radians on the
+// serving path (delta = -shift_tokens), so the accurate sincosf/powf are
+// used: the fast intrinsics lose all accuracy at that size.  Built
 // without --use_fast_math for the same reason.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
 
-// W: the chunk's bytes of each half, 16 (uint4) or 8 (uint2)
+// the chunk's word of W bytes
+template <int W> struct Word;
+template <> struct Word<16> { using T = uint4; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<2> { using T = uint16_t; };
+
+// W: the chunk's bytes of each half (see above)
 template <typename T, int W>
 __global__ void __launch_bounds__(256)
 rope_shift_kernel(const T* __restrict__ k, const int* __restrict__ delta,
                   T* __restrict__ out, long long n_tok, int n_kv, int d_h, float theta) {
-  using Vec = typename std::conditional<W == 16, uint4, uint2>::type;
+  using Vec = typename Word<W>::T;
   constexpr int CH = W / sizeof(T);    // pairs per chunk
   const long long tok = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   if (tok >= n_tok) return;
   const int half = d_h / 2;
-  const int p0 = threadIdx.x * CH;
   const float dt = (float)delta[tok];
-  float c[CH], s[CH];
-  #pragma unroll
-  for (int e = 0; e < CH; ++e) {
-    const float freq = 1.0f / powf(theta, (float)(p0 + e) / (float)half);
-    sincosf(dt * freq, &s[e], &c[e]);
-  }
-  const T* kr = k + tok * n_kv * d_h + p0;
-  T* o = out + tok * n_kv * d_h + p0;
-  #pragma unroll 4
-  for (int h = 0; h < n_kv; ++h) {
-    const Vec r1 = *reinterpret_cast<const Vec*>(kr + h * d_h);
-    const Vec r2 = *reinterpret_cast<const Vec*>(kr + h * d_h + half);
-    const T* e1 = reinterpret_cast<const T*>(&r1);
-    const T* e2 = reinterpret_cast<const T*>(&r2);
-    __align__(W) T w1[CH], w2[CH];
+  for (int p0 = threadIdx.x * CH; p0 < half; p0 += blockDim.x * CH) {
+    float c[CH], s[CH];
     #pragma unroll
     for (int e = 0; e < CH; ++e) {
-      const float k1 = cs_to_float(e1[e]), k2 = cs_to_float(e2[e]);
-      w1[e] = cs_from_float<T>(k1 * c[e] - k2 * s[e]);
-      w2[e] = cs_from_float<T>(k2 * c[e] + k1 * s[e]);
+      const float freq = 1.0f / powf(theta, (float)(p0 + e) / (float)half);
+      sincosf(dt * freq, &s[e], &c[e]);
     }
-    *reinterpret_cast<Vec*>(o + h * d_h) = *reinterpret_cast<const Vec*>(w1);
-    *reinterpret_cast<Vec*>(o + h * d_h + half) = *reinterpret_cast<const Vec*>(w2);
+    const T* kr = k + tok * n_kv * d_h + p0;
+    T* o = out + tok * n_kv * d_h + p0;
+    #pragma unroll 4
+    for (int h = 0; h < n_kv; ++h) {
+      const Vec r1 = *reinterpret_cast<const Vec*>(kr + h * d_h);
+      const Vec r2 = *reinterpret_cast<const Vec*>(kr + h * d_h + half);
+      const T* e1 = reinterpret_cast<const T*>(&r1);
+      const T* e2 = reinterpret_cast<const T*>(&r2);
+      __align__(W) T w1[CH], w2[CH];
+      #pragma unroll
+      for (int e = 0; e < CH; ++e) {
+        const float k1 = cs_to_float(e1[e]), k2 = cs_to_float(e2[e]);
+        w1[e] = cs_from_float<T>(k1 * c[e] - k2 * s[e]);
+        w2[e] = cs_from_float<T>(k2 * c[e] + k1 * s[e]);
+      }
+      *reinterpret_cast<Vec*>(o + h * d_h) = *reinterpret_cast<const Vec*>(w1);
+      *reinterpret_cast<Vec*>(o + h * d_h + half) = *reinterpret_cast<const Vec*>(w2);
+    }
   }
 }
 
@@ -65,8 +74,8 @@ template <typename T, int W>
 int launch(const void* k, const int* delta, void* out, long long n_tok, int n_kv, int d_h,
            float theta, cudaStream_t stream) {
   constexpr int CH = W / sizeof(T);
-  if (d_h % (2 * CH) != 0 || d_h / (2 * CH) > 256) return (int)cudaErrorInvalidValue;
-  const int chunks = d_h / (2 * CH);
+  if (d_h % (2 * CH) != 0) return (int)cudaErrorInvalidValue;
+  const int chunks = d_h / (2 * CH) < 256 ? d_h / (2 * CH) : 256;
   const dim3 block(chunks, 256 / chunks);
   const long long blocks = (n_tok + block.y - 1) / block.y;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -77,16 +86,24 @@ int launch(const void* k, const int* delta, void* out, long long n_tok, int n_kv
 
 }  // namespace
 
-// k, out: (n_tok, n_kv, d_h) contiguous, 16-byte aligned, d_h a multiple
-// of 8; delta: (n_tok,) i32.  dtype: 0 = float32, 1 = bfloat16 (16-byte
-// chunks where d_h % 16 == 0, else 8-byte ones).
+// k, out: (n_tok, n_kv, d_h) contiguous, 16-byte aligned, d_h even;
+// delta: (n_tok,) i32.  dtype: 0 = float32, 1 = bfloat16 (chunks as
+// above: 16 bytes where half is a multiple of 8 bf16 or 4 f32 pairs).
 CS_EXPORT int cs_rope_shift(const void* k, const int* delta, void* out,
                             long long n_tok, int n_kv, int d_h, float theta,
                             int dtype, cudaStream_t stream) {
   if (n_tok * n_kv == 0) return 0;
-  if (dtype == 0) return launch<float, 16>(k, delta, out, n_tok, n_kv, d_h, theta, stream);
-  if (dtype == 1 && d_h % 16 == 0)
-    return launch<__nv_bfloat16, 16>(k, delta, out, n_tok, n_kv, d_h, theta, stream);
-  if (dtype == 1) return launch<__nv_bfloat16, 8>(k, delta, out, n_tok, n_kv, d_h, theta, stream);
+  if (d_h < 2 || d_h % 2 != 0) return (int)cudaErrorInvalidValue;
+  const int half = d_h / 2;
+#define CS_ROPE(T, W) launch<T, W>(k, delta, out, n_tok, n_kv, d_h, theta, stream)
+  if (dtype == 0)
+    return half % 4 == 0 ? CS_ROPE(float, 16) : half % 2 == 0 ? CS_ROPE(float, 8)
+                                                               : CS_ROPE(float, 4);
+  if (dtype == 1)
+    return half % 8 == 0   ? CS_ROPE(__nv_bfloat16, 16)
+           : half % 4 == 0 ? CS_ROPE(__nv_bfloat16, 8)
+           : half % 2 == 0 ? CS_ROPE(__nv_bfloat16, 4)
+                           : CS_ROPE(__nv_bfloat16, 2);
+#undef CS_ROPE
   return (int)cudaErrorInvalidValue;
 }

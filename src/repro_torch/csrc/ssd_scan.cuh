@@ -48,15 +48,17 @@
 //   other side it can overflow, and 0 * inf would be NaN.
 // * Shared memory holds the chunk's B rows, x slice, the state's halves
 //   and cum (at q 256, N 128: 106 KB, two blocks per SM).
-// * N 256 (the wide build, NS = 2 column slabs of 128): a block owns its
-//   P rows of one 128-column slab of the state, so it runs the N-128 body
-//   (its registers, its shared layout, two blocks per SM) at twice the
-//   grid.  A slab's state is updated from its own columns of B alone; y
-//   sums over N, so each block writes its slab's share of y as f32
-//   partials, (B, L, H, NS, P), and ssd_scan_fwd_sum_kernel adds them in
-//   slab order.  One block of the full width would hold 32 + 32 f32 of state
-//   and update a thread and 190 KB of shared memory at q 256 in FAST (one
-//   block per SM), and 346 KB in SPLIT, past the 227 KB a block may use.
+// * N past 128 (the slabbed build: every multiple of 128, as N / 128
+//   column slabs of 128 over blocks, the slab count a grid dimension): a
+//   block owns its P rows of one 128-column slab of the state, so it runs
+//   the N-128 body (its registers, its shared layout, two blocks per SM)
+//   at N / 128 times the grid.  A slab's state is updated from its own
+//   columns of B alone; y sums over N, so each block writes its slab's
+//   share of y as f32 partials, (B, L, H, NS, P), and
+//   ssd_scan_fwd_sum_kernel adds them in slab order.  One block of the
+//   full width at N 256 would hold 32 + 32 f32 of state and update a
+//   thread and 190 KB of shared memory at q 256 in FAST (one block per
+//   SM), and 346 KB in SPLIT, past the 227 KB a block may use.
 //
 // Operand modes (the MODE parameter of every kernel here).  FAST reads
 // bf16 x, b and c in place (heads, groups and features packed, rows on
@@ -146,9 +148,9 @@ __device__ __forceinline__ void load_frag(uint32_t (&f)[4], const bf16* base, lo
 // The forward.  Past FAST's arguments: xp, x's head pitch (Pp when
 // staged); nst, the state's true width (the final state's row pitch);
 // xlo and blo, the element offsets of x's and b's / c's lo halves
-// (SPLIT); yf32, y is f32 (else bf16: y's type below).  NS > 1: the
-// wide build, N the slab's width (see above); y is then the f32
-// partials.
+// (SPLIT); yf32, y is f32 (else bf16: y's type below).  NS 0: the
+// slabbed build (see above), N the slab's width and nsl the slab count
+// (else NS 1 and nsl unused); y is then the f32 partials.
 template <int N, int MODE, int NS = 1>
 __global__ void __launch_bounds__(NT, MODE == SPLIT ? 1 : 2)
 ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
@@ -157,10 +159,11 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                 float* __restrict__ st, float* __restrict__ cst, int L, int H, int P, int G, int Q,
                 long long sxb, long long sxl, long long sab, long long sal,
                 long long sbb, long long sbl, int xp, int nst, long long xlo, long long blo,
-                int yf32) {
+                int yf32, int nsl) {
   using Sm = SsdSmem<N, MODE>;
   constexpr int LDB = Sm::LDB, LDX = Sm::LDX, LDF = Sm::LDF;
-  constexpr int NF = N * NS;   // the build width: the state's and b's / c's row pitch
+  const int ns_n = NS ? NS : nsl;   // column slabs
+  const int NF = N * ns_n;   // the build width: the state's and b's / c's row pitch
   constexpr int KC = N / 16;   // k16 chunks of C B^T and C S^T
   constexpr int YT = PT / 8;   // n8 tiles of a y row tile
   // the update's (16 p x 8 n) tiles: with at least NW n8 columns a warp
@@ -179,8 +182,8 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   float* cum = reinterpret_cast<float*>(smem + sm.cum);
   float* part = reinterpret_cast<float*>(smem + sm.part);
 
-  const int ns = blockIdx.x % NS, n0 = ns * N;   // this block's column slab
-  const int p0 = blockIdx.x / NS * PT, h = blockIdx.y, bb = blockIdx.z;
+  const int ns = blockIdx.x % ns_n, n0 = ns * N;   // this block's column slab
+  const int p0 = blockIdx.x / ns_n * PT, h = blockIdx.y, bb = blockIdx.z;
   const int prow = min(PT, P - p0);   // live state rows of this block
   const int grp = h / (H / G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -190,7 +193,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   const float* ab = la + bb * sab + h;
   const bf16* bg = bm + bb * sbb + (long long)grp * NF + n0;
   const bf16* cg = cm + bb * sbb + (long long)grp * NF + n0;
-  const long long ystep = (long long)H * NS * P;
+  const long long ystep = (long long)H * ns_n * P;
   bf16* yb = y + (long long)bb * L * ystep + (long long)h * P + p0;
   const long long soff = (((long long)bb * H + h) * P + p0) * NF + n0;
   const int un0 = WIDE ? warp * UN : warp >> 1;   // this warp's first n8 tile
@@ -425,11 +428,11 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
           }
         }
       } else {   // per element, in y's dtype (f32 partials past one slab), masked at a ragged P
-        const bool f32 = NS > 1 || yf32;
+        const bool f32 = NS != 1 || yf32;
         #pragma unroll
         for (int n = 0; n < YT; ++n) {
           const int c = n * 8 + 2 * t4;
-          const long long yo = (long long)bb * L * ystep + ((long long)h * NS + ns) * P + p0;
+          const long long yo = (long long)bb * L * ystep + ((long long)h * ns_n + ns) * P + p0;
           const long long ra = yo + (long long)(t0 + ta) * ystep + c;
           const long long rb = yo + (long long)(t0 + tb) * ystep + c;
           if (ta < q && c < prow) put_out(y, ra, acc[4 * n], f32);
@@ -609,7 +612,7 @@ __global__ void sum_mid_kernel(const float* __restrict__ part, bf16* __restrict_
   sum_rows(part, out_bf, out_f, I, K, J, Jo);
 }
 
-// the forward's: y's partials per column slab of the N-256 build (a name
+// the forward's: y's partials per column slab of the slabbed build (a name
 // of its own, so a profile counts it with the forward)
 __global__ void ssd_scan_fwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out_bf,
                                         float* __restrict__ out_f, long long I, int K, int J,
@@ -628,30 +631,53 @@ int sum_mid(const float* part, void* out, bool f32, long long I, int K, int J, i
   return (int)cudaGetLastError();
 }
 
-// column slabs of the build of width N: one up to 128, N / 128 past it
-__host__ __device__ constexpr int slabs_of(int N) { return N > 128 ? N / 128 : 1; }
+// The builds: one block's state widths (16, 32, 64, 128), and the
+// slabbed build, every multiple of 128 past it as N / 128 column slabs of
+// 128 over blocks (the slab count a grid dimension, not a template
+// argument).  The state widths the entry points take, and their slabs.
+constexpr int N_SLAB = 128;
+__host__ __device__ constexpr bool is_build(int N) {
+  return N == 16 || N == 32 || N == 64 || N == 128 || (N > N_SLAB && N % N_SLAB == 0);
+}
+__host__ __device__ constexpr int slabs_of(int N) { return N > N_SLAB ? N / N_SLAB : 1; }
 
-// ypart: the wide build's y partials, (B, L, H, NS, P) f32 (else unused)
-template <int N, int MODE>
+// ypart: the slabbed build's y partials, (B, L, H, ns, P) f32 (else
+// unused).  N: one block's width (NS 1), or N_SLAB with NS 0 and ns slabs
+template <int N, int MODE, int NS>
 int launch(const void* x, const float* log_a, const void* b, const void* c, const float* init,
-           void* y, float* st, float* cst, float* ypart, const ScanArgs& a,
+           void* y, float* st, float* cst, float* ypart, const ScanArgs& a, int ns,
            cudaStream_t stream) {
-  constexpr int NS = slabs_of(N), NC = N / NS;
   // the kernel opts in to the largest chunk's shared bytes
   static std::atomic<unsigned long long> opted{0};
-  const int rc = opt_in(ssd_scan_kernel<NC, MODE, NS>, opted, SsdSmem<NC, MODE>(NT).bytes);
+  const int rc = opt_in(ssd_scan_kernel<N, MODE, NS>, opted, SsdSmem<N, MODE>(NT).bytes);
   if (rc != 0) return rc;
-  const size_t smem = SsdSmem<NC, MODE>((a.Q + 15) & ~15).bytes;
-  dim3 grid((a.P + PT - 1) / PT * NS, a.H, a.B);
-  ssd_scan_kernel<NC, MODE, NS><<<grid, NT, smem, stream>>>(
+  const size_t smem = SsdSmem<N, MODE>((a.Q + 15) & ~15).bytes;
+  dim3 grid((a.P + PT - 1) / PT * ns, a.H, a.B);
+  ssd_scan_kernel<N, MODE, NS><<<grid, NT, smem, stream>>>(
       (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, init,
-      (bf16*)(NS > 1 ? (void*)ypart : y), st, cst, a.L, a.H, a.P, a.G, a.Q, a.sxb, a.sxl,
-      a.sab, a.sal, a.sbb, a.sbl, a.xp, a.nst, a.xlo, a.blo, a.flags & OUT_F32);
+      (bf16*)(NS != 1 ? (void*)ypart : y), st, cst, a.L, a.H, a.P, a.G, a.Q, a.sxb, a.sxl,
+      a.sab, a.sal, a.sbb, a.sbl, a.xp, a.nst, a.xlo, a.blo, a.flags & OUT_F32, ns);
   const int err = (int)cudaGetLastError();
   if (err != 0 || NS == 1) return err;
   // y: the slabs' partials in slab order, in y's dtype
-  return sum_mid(ypart, y, a.flags & OUT_F32, (long long)a.B * a.L * a.H, NS, a.P, a.P, stream,
+  return sum_mid(ypart, y, a.flags & OUT_F32, (long long)a.B * a.L * a.H, ns, a.P, a.P, stream,
                  true);
+}
+
+// the forward at build width N (is_build(N))
+template <int MODE>
+int launch_n(int N, const void* x, const float* log_a, const void* b, const void* c,
+             const float* init, void* y, float* st, float* cst, float* ypart, const ScanArgs& a,
+             cudaStream_t stream) {
+  switch (N) {
+#define CS_SSD_N(n) \
+  case n: return launch<n, MODE, 1>(x, log_a, b, c, init, y, st, cst, ypart, a, 1, stream);
+    CS_SSD_N(16) CS_SSD_N(32) CS_SSD_N(64) CS_SSD_N(128)
+#undef CS_SSD_N
+    default:
+      return launch<N_SLAB, MODE, 0>(x, log_a, b, c, init, y, st, cst, ypart, a, slabs_of(N),
+                                     stream);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -742,7 +768,7 @@ int launch(const void* x, const float* log_a, const void* b, const void* c, cons
 // of shared memory at q 256, N 128, and the register-held fragments of a
 // narrower slab (at N 128 and 32 columns ptxas spilled 60 bytes).
 //
-// N 256 (the wide build) runs (a) and (c) on NS = 2 column slabs of 128
+// N past 128 (the slabbed build) runs (a) and (c) on N / 128 column slabs of 128
 // over blocks, each the N-128 body, so no accumulator grows: (c) at N
 // 256 would hold a 16 x 256 f32 dB or dC tile (128 registers a thread)
 // beside C's or B's fragments (64), past 255.  Every term is linear in
@@ -879,22 +905,23 @@ struct ChunkSmem {
 
 // (a): E = (e o dY)^T C over one chunk for one P slab of one head, P x N
 // f32 into dsc (B, H, nc, P, N), and cum_q into cq (B, H, nc).  A warp
-// owns one 16-row p tile and half of the n16 column blocks.  NS > 1:
-// one column slab of N of the NS N-wide state a block.
+// owns one 16-row p tile and half of the n16 column blocks.  NS 0: one
+// column slab of N of the nsl N-wide slabs of the state a block.
 template <int N, int MODE, int NS = 1>
 __global__ void __launch_bounds__(NT, 2)
 ssd_scan_bwd_chunk_kernel(const float* __restrict__ la, const bf16* __restrict__ cm,
                           const bf16* __restrict__ dy, float* __restrict__ dsc,
                           float* __restrict__ cq, int L, int H, int P, int G, int Q, int nps,
                           long long sab, long long sal, long long sbb, long long sbl, int xp,
-                          long long xlo, long long blo) {
+                          long long xlo, long long blo, int nsl) {
   using Sm = ChunkSmem<N, MODE>;
   constexpr int LDN = Sm::LDN, LDP = Sm::LDP;
   constexpr int NB16 = N / 16, NPW = (NB16 + 1) / 2;
-  constexpr int NF = N * NS;   // the build width
+  const int ns_n = NS ? NS : nsl;   // column slabs
+  const int NF = N * ns_n;   // the build width
   extern __shared__ __align__(128) unsigned char smem[];
-  const int k = blockIdx.x / (nps * NS), slab = blockIdx.x / NS % nps, p0 = slab * PB;
-  const int ns = blockIdx.x % NS;   // the column slab
+  const int k = blockIdx.x / (nps * ns_n), slab = blockIdx.x / ns_n % nps, p0 = slab * PB;
+  const int ns = blockIdx.x % ns_n;   // the column slab
   const int pc = min(PB, P - p0);
   const int h = blockIdx.y, bb = blockIdx.z, grp = h / (H / G);
   const int nc = (L + Q - 1) / Q, t0 = k * Q, q = min(Q, L - t0), rows = (q + 15) & ~15;
@@ -1063,10 +1090,10 @@ struct BwdSmem {
 // columns, as bf16 hi / lo halves (rows from pc on zero); with `other`,
 // also each head's <state, other> over the slab, warp partials into
 // red[hh * NW + warp]
-template <int N, int SB, int NF = N>
+template <int N, int SB>
 __device__ __forceinline__ void stage_states(bf16* st, const float* src, const float* other,
                                              float* red, int hb, int pc, int tid, int lane,
-                                             int warp, long long head_stride) {
+                                             int warp, long long head_stride, int NF) {
   constexpr int LDN = N + 8;
   for (int hh = 0; hh < hb; ++hh) {
     bf16* hi = st + hh * 2 * SB * LDN;
@@ -1098,8 +1125,8 @@ __device__ __forceinline__ void stage_states(bf16* st, const float* src, const f
 // (c): see the note above.  Block (chunk k x P slab x column slab, head
 // block, b).  Past FAST's arguments: xp, x's and dY's head pitch; xlo
 // and blo, the lo halves' element offsets (SPLIT); dxf32, dX is f32
-// (else bf16).  NS > 1: dxv is dX's f32 partials, dl holds nps x NS
-// partials a row.
+// (else bf16).  NS 0 (nsl column slabs): dxv is dX's f32 partials, dl
+// holds nps x nsl partials a row.
 template <int N, int MODE, int NS = 1>
 __global__ void __launch_bounds__(NT, 1)
 ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
@@ -1109,16 +1136,17 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                     float* __restrict__ dbp, float* __restrict__ dcp, float* __restrict__ dl,
                     int L, int H, int P, int G, int Q, int nps, int hb, long long sxb,
                     long long sxl, long long sab, long long sal, long long sbb, long long sbl,
-                    int xp, long long xlo, long long blo, int dxf32) {
+                    int xp, long long xlo, long long blo, int dxf32, int nsl) {
   using Sm = BwdSmem<N, MODE>;
   constexpr int LDN = Sm::LDN, LDP = Sm::LDP, PB = Sm::SB, HB_MAX = Sm::HB;
   constexpr bool SP = MODE == SPLIT;
   constexpr int KC = N / 16;    // k16 chunks over N
   constexpr int PK = PB / 16;   // k16 chunks over a P slab
-  constexpr int NF = N * NS;    // the build width
+  const int ns_n = NS ? NS : nsl;   // column slabs
+  const int NF = N * ns_n;    // the build width
   extern __shared__ __align__(128) unsigned char smem[];
-  const int k = blockIdx.x / (nps * NS), slab = blockIdx.x / NS % nps, p0 = slab * PB;
-  const int ns = blockIdx.x % NS, n0 = ns * N;   // the column slab
+  const int k = blockIdx.x / (nps * ns_n), slab = blockIdx.x / ns_n % nps, p0 = slab * PB;
+  const int ns = blockIdx.x % ns_n, n0 = ns * N;   // the column slab
   const int pc = min(PB, P - p0);   // live columns of the slab
   const int h0 = blockIdx.y * hb, bb = blockIdx.z, grp = h0 / (H / G);
   const int nc = (L + Q - 1) / Q, t0 = k * Q, q = min(Q, L - t0), rows = (q + 15) & ~15;
@@ -1145,18 +1173,18 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
   const bf16* cg = cm + bb * sbb + (long long)t0 * sbl + (long long)grp * NF + n0;
   const int xpitch = MODE == FAST ? P : xp;
   const long long ystep = (long long)H * xpitch;        // dY's row pitch
-  const long long ostep = (long long)H * NS * P;        // dX's (its partials' past one slab)
+  const long long ostep = (long long)H * ns_n * P;        // dX's (its partials' past one slab)
   const bf16* xb = x + bb * sxb + (long long)t0 * sxl + (long long)h0 * xpitch + p0;
   const bf16* yb = dy + ((long long)bb * L + t0) * ystep + (long long)h0 * xpitch + p0;
-  const long long dxo = ((long long)bb * L + t0) * ostep + ((long long)h0 * NS + ns) * P + p0;
+  const long long dxo = ((long long)bb * L + t0) * ostep + ((long long)h0 * ns_n + ns) * P + p0;
   bf16* dxb = reinterpret_cast<bf16*>(dxv) + dxo;
-  float* dxf = reinterpret_cast<float*>(dxv) + dxo;   // NS > 1: the f32 partials
+  float* dxf = reinterpret_cast<float*>(dxv) + dxo;   // NS 0: the f32 partials
   // SPLIT: the lo rows' byte offsets in shared memory
   const uint32_t bc_lo = 2 * rows * LDN, xy_lo = 2 * HB_MAX * rows * LDP;
   const long long soff = ((((long long)bb * H + h0) * nc + k) * P + p0) * NF + n0;
   const long long shead = (long long)nc * P * NF;   // one head further in the states
   // a block's partial rows: (step, head block, P slab) of N f32 (NF
-  // wide, this slab's columns from n0 on); dlog_a's, nps x NS a row
+  // wide, this slab's columns from n0 on); dlog_a's, nps x ns_n a row
   const long long prow = (long long)(H / hb) * nps;
   const long long poff = (long long)blockIdx.y * nps + slab;
 
@@ -1188,8 +1216,8 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     }
   }
   cp_async_commit();
-  stage_states<N, PB, NF>(ST, cst + soff, dsc + soff, red + HB_MAX * NW, hb, pc, tid, lane,
-                          warp, shead);
+  stage_states<N, PB>(ST, cst + soff, dsc + soff, red + HB_MAX * NW, hb, pc, tid, lane,
+                      warp, shead, NF);
   for (int hh = 0; hh < hb; ++hh) {
     const float v = chunk_scan(la + bb * sab + (long long)t0 * sal + h0 + hh, sal, q, red + hh * NW,
                                tid, lane, warp);
@@ -1378,7 +1406,7 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     }
   }
   cp_async_commit();
-  stage_states<N, PB, NF>(ST, dsc + soff, nullptr, nullptr, hb, pc, tid, lane, warp, shead);
+  stage_states<N, PB>(ST, dsc + soff, nullptr, nullptr, hb, pc, tid, lane, warp, shead, NF);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -1565,7 +1593,7 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
             *reinterpret_cast<uint32_t*>(xo + (long long)sb * ostep + c) = pack_bf16(ax[j][2], ax[j][3]);
         }
       } else if constexpr (MODE == FAST) {   // f32 pairs of this column slab's partials
-        float* xo = dxf + hh * NS * P;
+        float* xo = dxf + hh * ns_n * P;
         #pragma unroll
         for (int j = 0; j < 2 * PK; ++j) {
           const int c = j * 8 + 2 * t4;
@@ -1575,8 +1603,8 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
           if (sb < q)
             *reinterpret_cast<float2*>(xo + (long long)sb * ostep + c) = make_float2(ax[j][2], ax[j][3]);
         }
-      } else if constexpr (NS > 1) {   // f32 partials of this column slab, masked at a ragged P
-        float* xo = dxf + hh * NS * P;
+      } else if constexpr (NS != 1) {   // f32 partials of this column slab, masked at a ragged P
+        float* xo = dxf + hh * ns_n * P;
         #pragma unroll
         for (int j = 0; j < 2 * PK; ++j) {
           const int c = j * 8 + 2 * t4;
@@ -1644,57 +1672,54 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     float post = 0.f;
     for (int w = NW - 1; w > warp; --w) post += red[w];
     if (tid < q)
-      dl[(((long long)bb * L + t0 + tid) * H + h0 + hh) * (nps * NS) + slab * NS + ns] = r + post;
+      dl[(((long long)bb * L + t0 + tid) * H + h0 + hh) * (nps * ns_n) + slab * ns_n + ns] = r + post;
     __syncthreads();   // red is free again
   }
 }
 
-// (a) and (c) opt in to their largest chunk's shared bytes (build width
-// N: NS column slabs of NC)
-template <int N, int MODE>
+// (a) and (c) opt in to their largest chunk's shared bytes (one block's
+// width N, or N_SLAB with NS 0: the slabbed build)
+template <int N, int MODE, int NS>
 int bwd_opt_in() {
-  constexpr int NS = slabs_of(N), NC = N / NS;
   static std::atomic<unsigned long long> opted_a{0}, opted_c{0};
-  const int rc = opt_in(ssd_scan_bwd_chunk_kernel<NC, MODE, NS>, opted_a,
-                        ChunkSmem<NC, MODE>(NT).bytes);
-  return rc != 0 ? rc : opt_in(ssd_scan_bwd_kernel<NC, MODE, NS>, opted_c,
-                               BwdSmem<NC, MODE>(NT).bytes);
+  const int rc = opt_in(ssd_scan_bwd_chunk_kernel<N, MODE, NS>, opted_a,
+                        ChunkSmem<N, MODE>(NT).bytes);
+  return rc != 0 ? rc : opt_in(ssd_scan_bwd_kernel<N, MODE, NS>, opted_c,
+                               BwdSmem<N, MODE>(NT).bytes);
 }
 
 // blocks per SM of (a), (b) and (c) at chunk Q, from the runtime's
 // occupancy calculator
-template <int N, int MODE>
+template <int N, int MODE, int NS>
 int bwd_occupancy(int Q, int* blocks) {
-  constexpr int NS = slabs_of(N), NC = N / NS;
-  int rc = bwd_opt_in<N, MODE>();
+  int rc = bwd_opt_in<N, MODE, NS>();
   if (rc != 0) return rc;
   const int rows = (Q + 15) & ~15;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ssd_scan_bwd_chunk_kernel<NC, MODE, NS>, NT, ChunkSmem<NC, MODE>(rows).bytes);
+      blocks, ssd_scan_bwd_chunk_kernel<N, MODE, NS>, NT, ChunkSmem<N, MODE>(rows).bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks + 1,
                                                         ssd_scan_bwd_state_kernel<MODE != FAST>,
                                                         NT, 0);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks + 2, ssd_scan_bwd_kernel<NC, MODE, NS>, NT, BwdSmem<NC, MODE>(rows).bytes);
+        blocks + 2, ssd_scan_bwd_kernel<N, MODE, NS>, NT, BwdSmem<N, MODE>(rows).bytes);
   return (int)err;
 }
 
 // The backward's launches.  x, b, c and dy as the forward reads them
 // (staged in SPLIT, dy at x's head pitch); states and the dS
-// slots at the build width N; dfin and dinit at the true width a.nst.
-// The build of width N past 128 runs (a) and (c) on NS column slabs of
-// NC = 128 (see the note above).
-template <int N, int MODE>
+// slots at the build width NC x ns; dfin and dinit at the true width
+// a.nst.  NS 1: one block's width NC; NS 0: the slabbed build, (a) and
+// (c) on ns column slabs of NC = N_SLAB (see the note above).
+template <int NC, int MODE, int NS>
 int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
                const float* states, const void* dy, const float* dfin, void* dx, void* dla,
                void* db, void* dc, float* dinit, float* part, float* lpart, const ScanArgs& a,
-               cudaStream_t stream) {
-  constexpr int NS = slabs_of(N), NC = N / NS;
-  int rc = bwd_opt_in<N, MODE>();
+               int ns, cudaStream_t stream) {
+  int rc = bwd_opt_in<NC, MODE, NS>();
   if (rc != 0) return rc;
-  const int B = a.B, L = a.L, H = a.H, P = a.P, G = a.G, Q = a.Q;
+  const int B = a.B, L = a.L, H = a.H, P = a.P, G = a.G, Q = a.Q, N = NC * ns;
   constexpr int SB = slab_of(MODE, NC);
   const int nc = (L + Q - 1) / Q, rows = (Q + 15) & ~15;
   const int nps_a = (P + PB - 1) / PB, nps = (P + SB - 1) / SB;
@@ -1702,7 +1727,7 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
   // scratch (kernels/ssd_scan.py:bwd_launch_geometry): the dS slots
   // (B, H, nc, P, N), cum_q (B, H, nc; padded to 4), the dB and dC
   // partials (B, L, H / hb, nps, N) each, and past one column slab dX's
-  // partials (B, L, H, NS, P)
+  // partials (B, L, H, ns, P)
   const long long PN = (long long)P * N;
   float* dsc = part;
   float* cq = dsc + (long long)B * H * nc * PN;
@@ -1712,12 +1737,12 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
   float* dxp = dcp + n_part;
   // dlog_a straight out when it is f32 and one block's slab holds P and
   // N, else its partials per slab into lpart, summed below
-  const bool la_direct = nps * NS == 1 && !(a.flags & OUT_LA_BF16);
+  const bool la_direct = nps * ns == 1 && !(a.flags & OUT_LA_BF16);
   float* dl = la_direct ? (float*)dla : lpart;
-  ssd_scan_bwd_chunk_kernel<NC, MODE, NS><<<dim3(nc * nps_a * NS, H, B), NT,
+  ssd_scan_bwd_chunk_kernel<NC, MODE, NS><<<dim3(nc * nps_a * ns, H, B), NT,
                                             ChunkSmem<NC, MODE>(rows).bytes, stream>>>(
       log_a, (const bf16*)c, (const bf16*)dy, dsc, cq, L, H, P, G, Q, nps_a, a.sab, a.sal, a.sbb,
-      a.sbl, a.xp, a.xlo, a.blo);
+      a.sbl, a.xp, a.xlo, a.blo, ns);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
   const dim3 sgrid((unsigned)((PN / 4 + NT - 1) / NT), H, B);
   if (a.nst == N)
@@ -1727,11 +1752,11 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
     ssd_scan_bwd_state_kernel<true><<<sgrid, NT, 0, stream>>>(dsc, cq, dfin, dinit, H, nc,
                                                                (int)PN, N, a.nst);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
-  ssd_scan_bwd_kernel<NC, MODE, NS><<<dim3(nc * nps * NS, H / hb, B), NT,
+  ssd_scan_bwd_kernel<NC, MODE, NS><<<dim3(nc * nps * ns, H / hb, B), NT,
                                       BwdSmem<NC, MODE>(rows).bytes, stream>>>(
       (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, states, (const bf16*)dy, dsc,
-      NS > 1 ? (void*)dxp : dx, dbp, dcp, dl, L, H, P, G, Q, nps, hb, a.sxb, a.sxl, a.sab, a.sal,
-      a.sbb, a.sbl, a.xp, a.xlo, a.blo, a.flags & OUT_F32);
+      NS != 1 ? (void*)dxp : dx, dbp, dcp, dl, L, H, P, G, Q, nps, hb, a.sxb, a.sxl, a.sab,
+      a.sal, a.sbb, a.sbl, a.xp, a.xlo, a.blo, a.flags & OUT_F32, ns);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
   // dB and dC: the head blocks of each group and the P slabs, in that
   // order, at the true width; dX: the column slabs, in order
@@ -1740,11 +1765,41 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
   const bool bc32 = a.flags & OUT_BC_F32;
   if ((rc = sum_mid(dbp, db, bc32, n_rows, per, N, a.nst, stream)) != 0) return rc;
   if ((rc = sum_mid(dcp, dc, bc32, n_rows, per, N, a.nst, stream)) != 0) return rc;
-  if (NS > 1 && (rc = sum_mid(dxp, dx, a.flags & OUT_F32, (long long)B * L * H, NS, P, P,
-                              stream)) != 0)
+  if (NS != 1 && (rc = sum_mid(dxp, dx, a.flags & OUT_F32, (long long)B * L * H, ns, P, P,
+                               stream)) != 0)
     return rc;
   return la_direct ? 0 : sum_mid(lpart, dla, !(a.flags & OUT_LA_BF16), (long long)B * L * H,
-                                 nps * NS, 1, 1, stream);
+                                 nps * ns, 1, 1, stream);
+}
+
+// the backward at build width N (is_build(N)), and its occupancy
+template <int MODE>
+int launch_bwd_n(int N, const void* x, const float* log_a, const void* b, const void* c,
+                 const float* states, const void* dy, const float* dfin, void* dx, void* dla,
+                 void* db, void* dc, float* dinit, float* part, float* lpart, const ScanArgs& a,
+                 cudaStream_t stream) {
+  switch (N) {
+#define CS_SSD_N(n)                                                                          \
+  case n:                                                                                    \
+    return launch_bwd<n, MODE, 1>(x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, \
+                                  part, lpart, a, 1, stream);
+    CS_SSD_N(16) CS_SSD_N(32) CS_SSD_N(64) CS_SSD_N(128)
+#undef CS_SSD_N
+    default:
+      return launch_bwd<N_SLAB, MODE, 0>(x, log_a, b, c, states, dy, dfin, dx, dla, db, dc,
+                                         dinit, part, lpart, a, slabs_of(N), stream);
+  }
+}
+
+template <int MODE>
+int bwd_occupancy_n(int N, int Q, int* blocks) {
+  switch (N) {
+    case 16: return bwd_occupancy<16, MODE, 1>(Q, blocks);
+    case 32: return bwd_occupancy<32, MODE, 1>(Q, blocks);
+    case 64: return bwd_occupancy<64, MODE, 1>(Q, blocks);
+    case 128: return bwd_occupancy<128, MODE, 1>(Q, blocks);
+    default: return bwd_occupancy<N_SLAB, MODE, 0>(Q, blocks);
+  }
 }
 
 }  // namespace

@@ -3,7 +3,8 @@
 // apart.  ssd_stage_kernel copies it, through its four strides, into a
 // packed scratch that the kernels read as they read bf16 in place: x and
 // dY (B, L, H, Pp), Pp = P rounded up to 8; b and c (B, L, G, N) on the
-// build N, the next of 16, 32, 64, 128 and 256 up from the true width;
+// build N, the next of 16, 32, 64 and 128 up from the true width, or
+// past 128 the next multiple of 128 (the slabbed build);
 // columns past the true width zero.  Data is written as bf16 hi and lo
 // halves, which keep about 16 bits of f32 data through the tensor-core
 // products (a bf16 value's lo half is 0).  The same kernel
@@ -47,19 +48,9 @@ __global__ void ssd_stage_kernel(const void* __restrict__ src, int src_f32, int 
   }
 }
 
-#define SSD_DISPATCH_N(N, CALL)                      \
-  switch (N) {                                       \
-    case 16: return CALL(16);                        \
-    case 32: return CALL(32);                        \
-    case 64: return CALL(64);                        \
-    case 128: return CALL(128);                      \
-    case 256: return CALL(256);                      \
-    default: return (int)cudaErrorInvalidValue;      \
-  }
-
 bool bad_geometry(int Q, int G, int H, int P, int N, int nst, int xp) {
   return Q < 1 || Q > NT || G < 1 || H % G != 0 || P < 1 || nst < 1 || nst > N || xp < P ||
-         xp % 8 != 0;
+         xp % 8 != 0 || !is_build(N);
 }
 
 }  // namespace
@@ -92,12 +83,10 @@ CS_EXPORT int cs_ssd_scan_staged(const void* x, const float* log_a, const void* 
                                  long long sal, long long sbb, long long sbl, int xp, int nst,
                                  long long xlo, long long blo, int flags, int mode,
                                  cudaStream_t stream) {
-  if (bad_geometry(Q, G, H, P, N, nst, xp) || mode != SPLIT || (N > 128 && ypart == nullptr))
+  if (bad_geometry(Q, G, H, P, N, nst, xp) || mode != SPLIT || (N > N_SLAB && ypart == nullptr))
     return (int)cudaErrorInvalidValue;
   const ScanArgs a{B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, xp, nst, xlo, blo, flags};
-#define CALL(n) launch<n, SPLIT>(x, log_a, b, c, init, y, st, cst, ypart, a, stream)
-  SSD_DISPATCH_N(N, CALL)
-#undef CALL
+  return launch_n<SPLIT>(N, x, log_a, b, c, init, y, st, cst, ypart, a, stream);
 }
 
 // As cs_ssd_scan_bwd on staged operands (dy staged as x is, at its
@@ -105,7 +94,7 @@ CS_EXPORT int cs_ssd_scan_staged(const void* x, const float* log_a, const void* 
 // (B, L, G, nst), f32 with OUT_BC_F32; dla f32, or bf16 with
 // OUT_LA_BF16; dfin and dinit (B, H, P, nst) f32.  part and lpart as
 // kernels/ssd_scan.py:bwd_launch_geometry lays them out for SPLIT (one
-// head a block, P slabs of 32, 16 at N 128 and 256).
+// head a block, P slabs of 32, 16 at N 128 and past it).
 CS_EXPORT int cs_ssd_scan_bwd_staged(const void* x, const float* log_a, const void* b,
                                      const void* c, const float* states, const void* dy,
                                      const float* dfin, void* dx, void* dla, void* db, void* dc,
@@ -116,16 +105,12 @@ CS_EXPORT int cs_ssd_scan_bwd_staged(const void* x, const float* log_a, const vo
                                      int flags, int mode, cudaStream_t stream) {
   if (bad_geometry(Q, G, H, P, N, nst, xp) || mode != SPLIT) return (int)cudaErrorInvalidValue;
   const ScanArgs a{B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, xp, nst, xlo, blo, flags};
-#define CALL(n) launch_bwd<n, SPLIT>(x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, \
-                                     part, lpart, a, stream)
-  SSD_DISPATCH_N(N, CALL)
-#undef CALL
+  return launch_bwd_n<SPLIT>(N, x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, part,
+                             lpart, a, stream);
 }
 
 // blocks per SM of the staged backward's kernels (a), (b) and (c)
 CS_EXPORT int cs_ssd_scan_bwd_occupancy_staged(int N, int Q, int* blocks) {
-  if (Q < 1 || Q > NT) return (int)cudaErrorInvalidValue;
-#define CALL(n) bwd_occupancy<n, SPLIT>(Q, blocks)
-  SSD_DISPATCH_N(N, CALL)
-#undef CALL
+  if (Q < 1 || Q > NT || !is_build(N)) return (int)cudaErrorInvalidValue;
+  return bwd_occupancy_n<SPLIT>(N, Q, blocks);
 }

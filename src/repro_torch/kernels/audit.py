@@ -274,9 +274,10 @@ def _prefill_rows() -> List[AuditRow]:
 def _width_rows() -> List[AuditRow]:
     """Head dims the kernels' ragged builds take (the JAX quickstart's 16,
     SigLIP's 72, Qwen2-VL's ViT's 80, 136 and 192 on the WIDE D-256
-    build), the exact 256 (Gemma 2's heads), with bf16 and f32 queries
-    over a bf16 slab and f32 q/k/v in the packed ViT, and the widths still
-    refused: 264 (over 256) and 20 (not a multiple of 8)."""
+    build; 20, 90 and a ViT's 75, which are not multiples of 8), the exact
+    256 (Gemma 2's heads), with bf16 and f32 queries over a bf16 slab and
+    f32 q/k/v in the packed ViT, and the width still refused: 264 (over
+    256)."""
     rows = []
     lay, sw = LAYOUTS[2]
     slots = _slots(lay)
@@ -284,8 +285,8 @@ def _width_rows() -> List[AuditRow]:
     B, H, Hkv = 2, 8, 2
     for D, dt, expect in ((16, BF16, "kernel"), (72, F32, "kernel"), (80, BF16, "kernel"),
                           (136, BF16, "kernel"), (256, BF16, "kernel"), (192, F32, "kernel"),
-                          (264, BF16, "refused:kernel-head-dim"),
-                          (20, F32, "refused:kernel-head-dim")):
+                          (90, BF16, "kernel"), (264, BF16, "refused:kernel-head-dim"),
+                          (20, F32, "kernel")):
         q, k = _meta((B, bm.n_q, H, D), dt), _meta((B * slots, Hkv, D))
         q_pos, kvv = _meta((B, bm.n_q), I32), _meta((B, slots), torch.bool)
         pt = _meta((B, slots // PAGE), I32)
@@ -299,7 +300,7 @@ def _width_rows() -> List[AuditRow]:
     plan = pack_plan(synthetic_decision(ViTCfg(), 12, 64, 0.5, seed=3), ViTCfg(), tile=128)
     R, L = plan.seg_id.shape
     for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"), (256, F32, "kernel"),
-                          (64, torch.float16, "refused:kernel-dtype")):
+                          (75, BF16, "kernel"), (64, torch.float16, "refused:kernel-dtype")):
         q, seg = _meta((R, L, 4, D), dt), _meta((R, L), I32)
         rows.append(_run_one(
             "flash_packed", f"ViT D {D} {str(dt)[6:]} q/k/v, rows={R} L={L}", expect,
@@ -357,12 +358,14 @@ def _packed_rows() -> List[AuditRow]:
 
 def _slab_rows() -> List[AuditRow]:
     """rope_shift over the layouts' overlap slabs (any S reaches the
-    kernel), mv_sad at radius 4, 16 and 32 and blocks 16, 8, 12 and 6 (and
-    a band past 227 KB, refused), and ssd_scan: the reference's f32 row with N 32
-    and its bf16 twin, the JAX benchmarks' f32 row (1, 1024, 8, 64) at N 16,
-    the serving row of mamba2-2.7b (N 128) in bf16 and in f32, N 136 on
-    the N-256 build, all on the kernel, and the two refusals: N 264
-    ('state-width') and f16 ('kernel-dtype')."""
+    kernel) and at head dim 90 (an odd half), mv_sad at radius 4, 16 and
+    32 and blocks 16, 8, 12 and 6, and past one band's 227 KB of shared
+    memory (the tiled kernel) at radius 128, block 64 at radius 96 and
+    block 240 at radius 1, and ssd_scan: the reference's f32 row with N
+    32 and its bf16 twin, the JAX benchmarks' f32 row (1, 1024, 8, 64) at
+    N 16, the serving row of mamba2-2.7b (N 128) in bf16 and in f32, N
+    136 and 264 staged on the slabbed build, N 512 in place on it, all on
+    the kernel, and the one refusal: f16 ('kernel-dtype')."""
     rows = []
     for lay, _ in LAYOUTS:
         S = lay.overlap_tokens
@@ -372,10 +375,14 @@ def _slab_rows() -> List[AuditRow]:
         rows.append(_run_one("rope_shift", f"w{lay.window}s{lay.stride} overlap={S}", "kernel",
                              contracts.rope_shift_facts(k, delta),
                              lambda k=k, d=delta: ops.rope_shift(k, d), (1, S, 4, 64)))
+    k, delta = _meta((1, 40, 8, 90)), _meta((1, 40), I32)
+    rows.append(_run_one("rope_shift", "D 90 (half 45)", "kernel",
+                         contracts.rope_shift_facts(k, delta),
+                         lambda: ops.rope_shift(k, delta), (1, 40, 8, 90)))
     cur = _meta((240, 240), F32)
     for block, radius, expect in ((16, 4, "kernel"), (16, 16, "kernel"), (16, 32, "kernel"),
                                   (8, 16, "kernel"), (12, 32, "kernel"), (6, 1, "kernel"),
-                                  (240, 1, "refused:shared-memory")):
+                                  (16, 128, "kernel"), (48, 96, "kernel"), (240, 1, "kernel")):
         n = 240 // block
         rows.append(_run_one("mv_sad", f"240x240 b{block} r{radius}", expect,
                              contracts.mv_sad_facts(cur, cur, block=block, radius=radius),
@@ -401,7 +408,9 @@ SSD_AUDIT_ROWS = (
     ("B2 L160 H80 P64 N128 f32 (mamba2-2.7b, dtype f32)", F32, (2, 160, 80, 64, 1, 128),
      "kernel"),
     ("B2 L100 H8 G2 N136 bf16", BF16, (2, 100, 8, 64, 2, 136), "kernel"),
-    ("B2 L100 H8 G2 N264 bf16", BF16, (2, 100, 8, 64, 2, 264), "refused:state-width"),
+    ("B2 L100 H8 G2 N264 bf16", BF16, (2, 100, 8, 64, 2, 264), "kernel"),
+    ("B2 L160 H80 P64 N512 bf16 (mamba2-2.7b at d_state 512)", BF16, (2, 160, 80, 64, 1, 512),
+     "kernel"),
     ("B2 L100 H8 G2 N32 f16", torch.float16, (2, 100, 8, 64, 2, 32), "refused:kernel-dtype"),
 )
 
@@ -537,6 +546,28 @@ SERVING_CODEC = CodecCfg(gop=4, window_frames=16, stride_frames=4, keep_ratio=0.
 WIDE_HEADS = dict(n_heads=20, n_kv=4, d_head=256)
 # mamba2-2.7b's SSD state widened to 256 (chip_smoke phases 7(h), 8(g))
 WIDE_STATE = 256
+# internvl3-14b's LM heads re-cut to 90 wide (bf16 rows 4-byte aligned,
+# int8 cold rows 2-byte aligned, rope_shift at an odd half of 45), its
+# ViT's to 75 (odd) at the same head count, its codec to search radius
+# 128 (a 272^2 band at block 16, past one block's shared memory):
+# chip_smoke phase 7(i)
+ODD_HEAD, ODD_VIT_HEAD, WIDE_RADIUS = 90, 75, 128
+# mamba2-2.7b's SSD state widened to 512: four column slabs of 128
+# (chip_smoke phases 7(j), 8(h))
+WIDER_STATE = 512
+
+
+def odd_heads(cfg: ModelCfg) -> ModelCfg:
+    """``cfg`` with LM heads of ``ODD_HEAD`` and ViT heads of
+    ``ODD_VIT_HEAD`` (its d_model re-cut to keep its head count), as
+    phase 7(i) serves internvl3-14b and the CPU tests its smoke."""
+    return dataclasses.replace(cfg, d_head=ODD_HEAD, vit=dataclasses.replace(
+        cfg.vit, d_model=cfg.vit.n_heads * ODD_VIT_HEAD))
+
+
+def with_state(cfg: ModelCfg, d_state: int) -> ModelCfg:
+    """``cfg`` with its SSD state widened to ``d_state``."""
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=d_state))
 
 
 def variant_rows(streams: int = 2) -> List[ConfigRow]:
@@ -545,15 +576,17 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
     examples/quickstart.py), deepseek-7b in f32 ingested at search
     radius 16 (chip_smoke phase 7(e)), internvl3-14b with LM heads of
     256 (``WIDE_HEADS``; its ViT keeps InternViT's 16 heads of 64:
-    chip_smoke phase 7(g)), and mamba2-2.7b with an SSD state of 256
-    (``WIDE_STATE``: chip_smoke phase 7(h))."""
+    chip_smoke phase 7(g)), internvl3-14b with LM heads of 90, ViT heads
+    of 75 and search radius 128 (``odd_heads``: phase 7(i)), and
+    mamba2-2.7b with an SSD state of 256 and of 512 (``WIDE_STATE``,
+    ``WIDER_STATE``: phases 7(h), 7(j))."""
     qs = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
                   d_ff=128, vocab=64, tied_embeddings=True)
     qv = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
     ds = dataclasses.replace(get_config("deepseek-7b"), dtype="float32")
     wide = dataclasses.replace(get_config("internvl3-14b"), **WIDE_HEADS)
     m2 = get_config("mamba2-2.7b")
-    m256 = dataclasses.replace(m2, ssm=dataclasses.replace(m2.ssm, d_state=WIDE_STATE))
+    odd = odd_heads(get_config("internvl3-14b"))
     return (_serving_calls("quickstart (JAX widths)", qs, qv,
                            CodecCfg(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4),
                            streams)
@@ -561,8 +594,12 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
                              dataclasses.replace(SERVING_CODEC, search_radius=16), streams)
             + _serving_calls("internvl3-14b, 20 heads of 256", wide, _serving_vit(wide),
                              SERVING_CODEC, streams)
-            + _serving_calls(f"mamba2-2.7b, d_state {WIDE_STATE}", m256, _serving_vit(m256),
-                             SERVING_CODEC, streams))
+            + _serving_calls("internvl3-14b, heads of 90 and 75, radius 128", odd, odd.vit,
+                             dataclasses.replace(SERVING_CODEC, search_radius=WIDE_RADIUS),
+                             streams)
+            + sum((_serving_calls(f"mamba2-2.7b, d_state {n}", with_state(m2, n),
+                                  _serving_vit(m2), SERVING_CODEC, streams)
+                   for n in (WIDE_STATE, WIDER_STATE)), []))
 
 
 def _serving_calls(arch: str, cfg, v: ViTCfg, codec: CodecCfg, streams: int) -> List[ConfigRow]:
@@ -648,7 +685,6 @@ def refusal_cases(device) -> dict:
     from .flash_packed import PackBlockMap, flash_packed_plain
     from .flash_prefill import flash_prefill_paged_plain, flash_prefill_plain
     from .flash_refresh import flash_refresh_paged_plain, flash_refresh_plain
-    from .mv_sad import mv_sad_plain
     from .rope_shift import rope_shift_plain
     from .ssd_scan import ssd_scan_plain
     dev = torch.device(device)
@@ -665,14 +701,6 @@ def refusal_cases(device) -> dict:
 
     def ints(rows):
         return torch.tensor(rows, dtype=I32, device=dev)
-
-    def frames(n):
-        return rand(n, n) * 60 + 100, rand(n, n, seed=1) * 60 + 100
-
-    def mv(n, block, radius):
-        f = frames(n)
-        return "mv_sad", (lambda: ops.mv_sad(*f, block, radius)), (
-            lambda: mv_sad_plain(*f, block, radius))
 
     def rope(k):
         d = torch.arange(k.shape[1], device=dev)[None]
@@ -744,16 +772,15 @@ def refusal_cases(device) -> dict:
     f16 = (torch.ones(1, 2, dtype=torch.float16, device=dev),) * 2
     x, la, b, c, init = ssd_ok()
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
-    # head dims the kernels have no build for: not a multiple of 8, over 256
-    q20, k20 = rand(1, 8, 4, 20, dtype=BF16), rand(1, 8, 2, 20, dtype=BF16, seed=1)
+    # a head dim the kernels have no build for: over 256
+    q264, k264 = rand(1, 8, 4, 264, dtype=BF16), rand(1, 8, 2, 264, dtype=BF16, seed=1)
     pq264 = rand(1, 128, 4, 264, dtype=BF16)
+    k128w, slabw = rand(1, 128, 2, 264, dtype=BF16, seed=1), rand(256, 2, 264, dtype=BF16, seed=1)
     return {
-        ("mv_sad", "shared-memory"): mv(240, 240, 1),
         ("rope_shift", "kernel-dtype"): rope(rand(1, 8, 2, 16, dtype=torch.float16)),
-        ("rope_shift", "head-dim-8"): rope(rand(1, 8, 2, 12)),
         ("rope_shift", "aligned"): rope(misaligned((1, 8, 2, 16))),
         ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8.half()),
-        ("flash_prefill", "kernel-head-dim"): prefill(q20, k20),
+        ("flash_prefill", "kernel-head-dim"): prefill(q264, k264),
         ("flash_prefill", "contiguous"): prefill(transposed(q8, 1, 2), k8),
         ("flash_prefill", "aligned"): prefill(misaligned((1, 8, 4, 32), BF16), k8),
         ("flash_prefill_paged", "page-tile"): prefill_paged(q8, slab, page=64),
@@ -761,8 +788,7 @@ def refusal_cases(device) -> dict:
             q8, slab[:128], cold=(slab[128:].float(), slab[128:].float(), ones, ones)),
         ("flash_prefill_paged", "scale-f32"): prefill_paged(q8, slab[:128], cold=i8 + f16),
         ("flash_prefill_paged", "kernel-dtype"): prefill_paged(q8.float(), slab.float()),
-        ("flash_prefill_paged", "kernel-head-dim"): prefill_paged(
-            q8[..., :20].contiguous(), slab[..., :20].contiguous()),
+        ("flash_prefill_paged", "kernel-head-dim"): prefill_paged(q264, slabw),
         ("flash_prefill_paged", "contiguous"): prefill_paged(transposed(q8, 1, 2), slab),
         ("flash_prefill_paged", "aligned"): prefill_paged(misaligned((1, 8, 4, 32), BF16),
                                                           slab),
@@ -775,8 +801,8 @@ def refusal_cases(device) -> dict:
         ("flash_refresh", "map-tile"): refresh(q4, k128, build_block_map(pos, 128, tq=64)),
         ("flash_refresh", "kernel-dtype"): refresh(q4.float(), k128.float(),
                                                    build_block_map(pos, 128)),
-        ("flash_refresh", "kernel-head-dim"): refresh(
-            q4[..., :20].contiguous(), k128[..., :20].contiguous(), build_block_map(pos, 128)),
+        ("flash_refresh", "kernel-head-dim"): refresh(q264[:, :4], k128w,
+                                                      build_block_map(pos, 128)),
         ("flash_refresh", "aligned"): refresh(misaligned((1, 4, 4, 32), BF16), k128,
                                               build_block_map(pos, 128)),
         ("flash_refresh_paged", "map-present"): refresh_paged(q4, slab, [[1]], 128, None),
@@ -798,8 +824,7 @@ def refusal_cases(device) -> dict:
         ("flash_refresh_paged", "kernel-dtype"): refresh_paged(
             q4.float(), slab.float(), [[1]], 128, build_block_map(pos, 128)),
         ("flash_refresh_paged", "kernel-head-dim"): refresh_paged(
-            q4[..., :20].contiguous(), slab[..., :20].contiguous(), [[1]], 128,
-            build_block_map(pos, 128)),
+            q264[:, :4], slabw, [[1]], 128, build_block_map(pos, 128)),
         ("flash_refresh_paged", "aligned"): refresh_paged(
             misaligned((1, 4, 4, 32), BF16), slab, [[1]], 128, build_block_map(pos, 128)),
         ("flash_packed", "map-present"): packed(pq, seg, None),
@@ -817,7 +842,6 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
         ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),
-        ("ssd_scan", "state-width"): ssd(*ssd_ok(N=264)),
     }
 
 

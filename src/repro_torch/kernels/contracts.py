@@ -184,7 +184,7 @@ def _map_facts(block_map) -> dict:
 
 
 def mv_sad_facts(cur, prev, *, block: int, radius: int) -> dict:
-    threads, _, smem = _mv_sad.launch_geometry(int(block), int(radius))
+    geo = _mv_sad.launch_geometry(int(block), int(radius))
     return {
         "cur_shape": tuple(cur.shape),
         "prev_shape": tuple(prev.shape),
@@ -192,8 +192,8 @@ def mv_sad_facts(cur, prev, *, block: int, radius: int) -> dict:
         "prev_dtype": _dt(prev),
         "block": int(block),
         "radius": int(radius),
-        "threads": threads,
-        "shared_bytes": smem,
+        "threads": geo.threads,
+        "shared_bytes": geo.smem,
     }
 
 
@@ -439,9 +439,9 @@ _KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches
 _ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, or f32 q/k/v",
                 lambda f: _q_f32_or_bf16_over_bf16(f)
                 or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
-_HEAD_DIM = Rule("kernel-head-dim", "head dim must be a multiple of 8, at most 256 (the "
-                 "kernels' builds: 24, 32, 64, 128 and 256)",
-                 lambda f: 0 < f["q_shape"][3] <= cuda.MAX_HEAD_DIM and f["q_shape"][3] % 8 == 0)
+_HEAD_DIM = Rule("kernel-head-dim", "head dim must be at most 256 (the kernels' builds: 24, "
+                 "32, 64, 128 and 256)",
+                 lambda f: 0 < f["q_shape"][3] <= cuda.MAX_HEAD_DIM)
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
 _ALIGNED = Rule("aligned", "operands read in place must be 16-byte aligned",
@@ -467,10 +467,7 @@ MV_SAD = KernelContract(
              lambda f: _kind(f["cur_dtype"]) in "fiu" and _kind(f["prev_dtype"]) in "fiu"),
         Rule("radius", "search radius >= 1", lambda f: f["radius"] >= 1),
     ),
-    eligibility=(
-        Rule("shared-memory", "the macroblock and its search band must fit the 227 KB of "
-             "shared memory a block can have", lambda f: f["shared_bytes"] <= _mv_sad.SMEM_LIMIT),
-    ),
+    eligibility=(),  # any block and radius: a band past shared memory is walked in tiles
     compile_key="none: one build of every kernel; (H, W, block, radius) are launch arguments",
 )
 
@@ -493,8 +490,6 @@ ROPE_SHIFT = KernelContract(
     eligibility=(
         Rule("kernel-dtype", "k must be f32 or bf16 (no f16 build)",
              lambda f: f["k_dtype"] in ("float32", "bfloat16")),
-        Rule("head-dim-8", "head dim must be a multiple of 8 (four rotation pairs a half)",
-             lambda f: f["k_shape"][3] % 8 == 0),
         _ALIGNED,
     ),
     tile=None,
@@ -751,13 +746,11 @@ SSD_SCAN = KernelContract(
         Rule(_DTYPE, "x, log_a, b, c and init_state must be f32 or bf16 (no f16 build)",
              lambda f: "float16" not in (f["x_dtype"], f["log_a_dtype"], f["b_dtype"],
                                          f["c_dtype"], f["init_dtype"])),
-        Rule("state-width", "state width N must be at most 256 (the builds: N 16, 32, 64, "
-             "128 and 256, any other N on the next one up)",
-             lambda f: f["b_shape"][3] <= _ssd_scan.STATE_WIDTHS[-1]),
     ),
     tile=None,
-    compile_key="none: one build per state width N and operand mode (bf16 in place, staged "
-                "hi / lo); (B, L, H, P, G, chunk) are launch arguments",
+    compile_key="none: one build per state width N 16, 32, 64 and 128 and one for every "
+                "multiple of 128 past it (the slab count a grid dimension), per operand mode "
+                "(bf16 in place, staged hi / lo); (B, L, H, P, G, N, chunk) are launch arguments",
 )
 
 CONTRACTS: Dict[str, KernelContract] = {
@@ -770,9 +763,11 @@ _WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (
             "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
 _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
                 "bf16 halves written per call over the whole cache")
-_WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128 and 256 take every head dim that is a "
-                 "multiple of 8 up to 256 (16-byte rows); a head past 256, or not a multiple "
-                 "of 8, has none")
+_WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128 and 256 take every head dim from 1 to 256 "
+                 "(rows copied 16, 8 or 4 bytes at a time, or element by element, as their "
+                 "alignment allows); a head past 256 has none: the D-256 build's O already "
+                 "takes 128 registers a thread, so a wider one needs O's columns split over "
+                 "blocks")
 
 # How the port's eligibility rules differ from the reference's:
 # (op, code, "+" added by the port | "-" the reference's, dropped, why).
@@ -780,11 +775,8 @@ _WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128 and 256 take every head dim th
 # rules on the forward's operands, and its two lines say what the port
 # adds there.
 DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
-    ("mv_sad", "shared-memory", "+", "the macroblock and its band are staged in shared memory, "
-     "227 KB a block at most: a band past it (a radius of about 100 at block 16) is refused"),
     ("rope_shift", "seq-tile", "-", "one thread per token: any S runs, no sequence tile"),
     ("rope_shift", "kernel-dtype", "+", "built for f32 and bf16 keys, not f16"),
-    ("rope_shift", "head-dim-8", "+", "16-byte (8-byte at D 24) chunks of four rotation pairs"),
     ("rope_shift", "aligned", "+", "16-byte loads of k, read in place when contiguous"),
     ("flash_prefill", "q-tile", "-", "the kernel masks ragged query tiles"),
     ("flash_prefill", "k-tile", "-", "the kernel masks ragged key tiles"),
@@ -816,10 +808,6 @@ DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("ssd_scan", _DTYPE, "+", "no f16 build: neither package's ModelCfg.dtype makes f16 "
      "operands (bf16 and f32 x, log_a, b and c run)"),
-    ("ssd_scan", "state-width", "+", "builds of N 16, 32, 64, 128 and 256 take every N up to "
-     "256, the N-256 build as two column slabs of 128 over blocks with the sums over N "
-     "added in a fixed order; past 256 nothing is built (the slab count is a template "
-     "argument): the Mamba-2 paper's state-size ablations stop at 256"),
     ("ssd_scan_bwd", "requires-grad", "+", "ssd_scan takes operands that require grad on the "
      "card (SsdScanFn over the forward and backward kernels); the reference's kernel has no "
      "backward, and jax.grad differentiates its plain scan instead"),

@@ -100,8 +100,10 @@ for _name in ATTN_ENTRIES:
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
 
 # head dims of the attention kernels' exact builds (attention.cu); every
-# other multiple of 8 up to MAX_HEAD_DIM runs on a ragged build (d 136 to
-# 248 on the D-256 one, whose blocks own 64 query rows: csrc/attention.cuh)
+# other head dim from 1 to MAX_HEAD_DIM runs on the smallest ragged build
+# that holds it (d 129 to 255 on the D-256 one, whose blocks own 64 query
+# rows), its rows copied 16, 8 or 4 bytes at a time, or element by
+# element at an odd d, as their alignment allows (csrc/attention.cuh)
 HEAD_DIMS = (24, 32, 64, 128, 256)
 MAX_HEAD_DIM = 256
 
@@ -205,6 +207,13 @@ def attention_entry(name: str, q: torch.Tensor, d: int):
     if q.dtype == torch.float32:
         return getattr(library(), name + "_q32")
     return getattr(library(), name if d in HEAD_DIMS else name + "_any")
+
+
+def split_elems(k: torch.Tensor) -> int:
+    """Elements of each of the four bf16 arrays an f32 q/k/v kernel
+    splits K and V into (``csrc/attention_f32.cu``): k's, rounded up to 8
+    so that each array starts on a 16-byte boundary."""
+    return -(-k.numel() // 8) * 8
 
 
 def check(rc: int, name: str) -> None:

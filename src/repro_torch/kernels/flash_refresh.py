@@ -40,7 +40,7 @@ rows past Sq are neither read nor written, so the query is not padded.
 Operands the kernels take (``contracts.FLASH_REFRESH`` and
 ``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16 or
 f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, any
-head dim that is a multiple of 8 up to 256 (``cuda.attention_entry``
+head dim up to 256 (``cuda.attention_entry``
 picks the build: exact at 24, 32, 64, 128 and 256, ragged otherwise, f32-query
 builds for f32 q); 128-row map tiles and pages; q, k,
 v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``

@@ -34,11 +34,13 @@ def mv_sad_ref(cur: torch.Tensor, prev: torch.Tensor, block: int, radius: int):
     cur = cur.to(F32)
     pad = F.pad(prev.to(F32)[None, None], (radius,) * 4, mode="replicate")[0, 0]
     n_cand = 2 * radius + 1
-    sads = torch.stack([
-        (cur - pad[dy:dy + H, dx:dx + W]).abs()
-        .reshape(hb, block, wb, block).sum(dim=(1, 3))
-        for dy in range(n_cand) for dx in range(n_cand)
-    ])                                                   # (C, hb, wb)
+    # one row of candidates at a time: pad[dy + h, dx + w] for every dx
+    # is a view (H, n_cand, W) of the padded rows
+    sads = torch.cat([
+        (cur[:, None, :] - pad[dy:dy + H].unfold(1, W, 1)).abs()
+        .reshape(hb, block, n_cand, wb, block).sum(dim=(1, 4)).transpose(0, 1)
+        for dy in range(n_cand)
+    ])                                                   # (C, hb, wb), dy-major
     best = torch.argmin(sads, dim=0)                     # first minimum
     sad = torch.gather(sads, 0, best[None])[0]
     mv = torch.stack([best // n_cand - radius, best % n_cand - radius], dim=-1)

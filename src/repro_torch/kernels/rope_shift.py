@@ -2,16 +2,16 @@
 
 Replaces the TPU kernel ``repro/kernels/rope_shift.py:rope_shift_pallas``;
 the CUDA source is ``csrc/rope_shift.cu``.  One thread per (token, chunk
-of 16 bytes of rotation pairs: 8 in bf16, 4 in f32; 8 bytes, 4 pairs,
-in bf16 where half the head dim is not a multiple of 8, as at D 24): it
-builds the chunk's angles ``delta * theta^(-i/half)`` once in f32 with the accurate
-``powf``/``sincosf`` (``|delta * freq|`` reaches hundreds of radians on
-the serving path, where fast intrinsics are useless) and applies them to
-every kv head of the token with one load and one store per half,
-rounding to the key dtype.  It takes f32 or bf16 keys whose head dim is a
-multiple of 8 (four rotation pairs per half) on a 16-byte boundary
-(``contracts.ROPE_SHIFT``), and raises otherwise; the configs' ``d_head``
-are 64 and 128, the JAX benchmarks' VLM's 24.  Unlike the TPU kernel
+of rotation pairs: 16 bytes of each half, 8 pairs in bf16 and 4 in f32,
+where half the head dim holds a whole number of them; else 8, 4 or, in
+bf16, 2 bytes, down to one pair at an odd half, as at D 90): it builds
+the chunk's angles ``delta * theta^(-i/half)`` once in f32 with the
+accurate ``powf``/``sincosf`` (``|delta * freq|`` reaches hundreds of
+radians on the serving path, where fast intrinsics are useless) and
+applies them to every kv head of the token with one load and one store
+per half, rounding to the key dtype.  It takes f32 or bf16 keys of any
+even head dim (the reference's ``even-head``) on a 16-byte boundary
+(``contracts.ROPE_SHIFT``), and raises otherwise.  Unlike the TPU kernel
 there is no sequence-tile eligibility rule: any ``S`` runs.
 
 Bound on an H100: bytes (one read and one write of the key block).

@@ -18,19 +18,21 @@ instead, which is the same arithmetic.
 
 Operands (``operand_mode``): bf16 x, b and c in the layout the serving
 and training paths give them are read in place (``FAST``).  Every other
-operand the reference's scan takes (f16 apart, and N up to 256: f32 data,
-ragged P or N, strided or misaligned rows) is first copied by a staging
-kernel (``csrc/ssd_scan_staged.cu``) into a packed, zero-padded scratch
-on the next build width as bf16 hi and lo halves (``SPLIT``), which keep
+operand the reference's scan takes (f16 apart: f32 data, ragged P or N,
+strided or misaligned rows) is first copied by a staging kernel
+(``csrc/ssd_scan_staged.cu``) into a packed, zero-padded scratch on the
+next build width as bf16 hi and lo halves (``SPLIT``), which keep
 about 16 bits of f32 data through the tensor-core products (a bf16
 value's lo half is 0).  A bf16 or strided log_a is widened to packed f32
 the same way.  y, the state and the gradients come out in the caller's
 dtypes.
 
-State widths past ``N_SLAB`` (the N-256 build) run as ``column_slabs(N)``
-column slabs of ``N_SLAB`` over blocks, each the N-128 body: the forward
-and the backward's chunk-parallel kernels write the terms that sum over
-N (y, dX, dlog_a) as f32 partials per slab, added in a fixed order.
+State widths past ``N_SLAB`` run on the slabbed build, every multiple of
+``N_SLAB`` as ``column_slabs(N)`` column slabs of ``N_SLAB`` over blocks
+(the slab count a grid dimension), each the N-128 body: the forward and
+the backward's chunk-parallel kernels write the terms that sum over N
+(y, dX, dlog_a) as f32 partials per slab, added in a fixed order.  Any
+other N past ``N_SLAB`` runs staged on the next multiple of it.
 
 Bound on an H100: bytes.  The kernel runs every product on the tensor
 cores (``mma.sync`` bf16 -> f32; the f32 operands M = (C B^T) o decay,
@@ -67,10 +69,11 @@ BWD_NAME = "ssd_scan_bwd"
 Q_MAX = 256           # the kernel's largest chunk (one scan step per thread)
 SLICE = 32            # state rows p per thread block
 THREADS = 256
-# the state widths the kernel is built for (jamba; the JAX benchmarks'
-# audit row; mamba2; Mamba-2's state expansion); any other N up to the
-# last runs on the next one up
-STATE_WIDTHS = (16, 32, 64, 128, 256)
+# the state widths one block's builds hold (jamba; the JAX benchmarks'
+# audit row; mamba2); any other N up to the last runs on the next one up,
+# and past it every multiple of N_SLAB runs on the slabbed build (Mamba-2's
+# state expansion: 256, 512), any other N on the next multiple
+STATE_WIDTHS = (16, 32, 64, 128)
 N_SLAB = 128          # the widest state slab one block holds; wider builds run N / N_SLAB
 SMEM_LIMIT = 232_448  # shared bytes one block may use on an H100 (227 KB)
 BWD_SLAB = 64         # P columns per block of the backward's chunk-parallel kernels
@@ -88,15 +91,16 @@ def scan_chunk(L: int, chunk: int) -> int:
     return -(-q // -(-q // Q_MAX))
 
 
-# the build each state width 1..256 runs on (index N)
+# the build each state width 1..N_SLAB runs on (index N)
 _BUILD_OF = (0,) + tuple(next(w for w in STATE_WIDTHS if w >= n)
-                         for n in range(1, STATE_WIDTHS[-1] + 1))
+                         for n in range(1, N_SLAB + 1))
 
 
 def build_width(N: int) -> int:
-    """The build a state width N runs on: the smallest of
-    ``STATE_WIDTHS`` that holds it (its columns past N zero)."""
-    return _BUILD_OF[N]
+    """The build a state width N runs on (its columns past N zero): the
+    smallest of ``STATE_WIDTHS`` that holds it, or past ``N_SLAB`` the
+    next multiple of ``N_SLAB``."""
+    return _BUILD_OF[N] if N <= N_SLAB else -(-N // N_SLAB) * N_SLAB
 
 
 def column_slabs(N: int) -> int:
@@ -114,7 +118,7 @@ def operand_mode(x, b, c, dy=None) -> int:
         return SPLIT
     P, N = x.shape[3], b.shape[3]
     xs, bs = x.stride(), b.stride()
-    fast = (N in STATE_WIDTHS and P % 8 == 0 and xs[3] == 1 and xs[2] == P
+    fast = (build_width(N) == N and P % 8 == 0 and xs[3] == 1 and xs[2] == P
             and bs[3] == 1 and bs[2] == N and c.stride() == bs
             and (xs[0] | xs[1] | bs[0] | bs[1]) % 8 == 0
             and (x.data_ptr() | b.data_ptr() | c.data_ptr()) % 16 == 0)
@@ -239,11 +243,12 @@ def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
     """Launch the kernel.  x (B, L, H, P) and b, c (B, L, G, N) in bf16
     with packed heads, groups and features and rows on 16-byte boundaries
     (any batch and time strides), P a multiple of 8 and N one of
-    ``STATE_WIDTHS`` are read in place; any other x, b and c in f32 or
-    bf16, N up to 256, log_a (B, L, H) in f32 or bf16 and init_state (B,
-    H, P, N) in any layout pass through the staging kernel first.  Any
-    chunk.  Operands the kernel does not take (``contracts.SSD_SCAN``: f16,
-    N past 256) raise ``KernelIneligibleError``, a ``cuda.KernelError``."""
+    ``STATE_WIDTHS`` or a multiple of ``N_SLAB`` are read in place; any
+    other x, b and c in f32 or bf16, log_a (B, L, H) in f32 or bf16 and
+    init_state (B, H, P, N) in any layout pass through the staging kernel
+    first.  Any chunk, any N.  Operands the kernel does not take
+    (``contracts.SSD_SCAN``: f16) raise ``KernelIneligibleError``, a
+    ``cuda.KernelError``."""
     contracts.require(contracts.ssd_scan_verdict(x, log_a, b, c, init_state, chunk), NAME)
     return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
 

@@ -334,11 +334,10 @@ def test_shadowed_rules_decide_on_facts_and_raise_positions_match_in_ops():
 
 def test_refusals_name_their_rule_and_are_kernel_errors():
     from repro_torch.kernels.cuda import KernelError
-    err = contracts.SSD_SCAN.refusal("state-width", "ssd_scan")
+    err = contracts.SSD_SCAN.refusal("kernel-dtype", "ssd_scan")
     assert isinstance(err, KernelError) and isinstance(err, contracts.KernelContractError)
-    assert str(err) == ("ssd_scan: eligibility 'state-width' failed (state width N must be "
-                        "at most 256 (the builds: N 16, 32, 64, 128 and 256, any other N on "
-                        "the next one up))")
+    assert str(err) == ("ssd_scan: eligibility 'kernel-dtype' failed (x, log_a, b, c and "
+                        "init_state must be f32 or bf16 (no f16 build))")
 
 
 def test_memoized_verdicts_equal_fresh_decisions():

@@ -118,7 +118,8 @@ def test_mv_sad_launch_geometry(block, radius):
     opting in (larger radii: test_torch_operands.py); the band's row
     stride is padded to n_cand (mod 32), so the 32 consecutive candidates
     of a warp read 32 distinct banks."""
-    threads, ldr, smem = mv_sad_launch_geometry(block, radius)
+    threads, ldr, smem, tile = mv_sad_launch_geometry(block, radius)
+    assert tile is None                  # one band: the untiled kernel
     n_cand, band = 2 * radius + 1, block + 2 * radius
     assert n_cand ** 2 <= threads < n_cand ** 2 + 32 and threads % 32 == 0 and threads <= 1024
     assert smem <= 48 * 1024 <= MV_SAD_SMEM_LIMIT

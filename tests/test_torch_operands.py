@@ -1,12 +1,14 @@
-"""The operands the attention kernels and mv_sad take, against the JAX
-package.
+"""The operands the attention kernels, rope_shift and mv_sad take,
+against the JAX package.
 
 * The contract verdict on meta tensors: ``ok`` for every attention op at
-  every head dim d = 8, 16, ..., 256 with bf16 operands, with f32
+  every head dim d = 1, 2, ..., 256 with bf16 operands, with f32
   queries over bf16 K/V and, in flash_packed and flash_prefill, with f32
-  q/k/v; the named refusal for d 20 (not a multiple of 8), d 264 (over
-  256) and f16 operands; ``ok`` for mv_sad at radius 16 and 32 and at
-  blocks 8 and 12.
+  q/k/v; the named refusal for d 264 (over 256) and f16 operands;
+  ``ok`` for rope_shift at every even d up to 256; ``ok`` for mv_sad at
+  radius 16 and 32, at blocks 8 and 12, and past one band's shared
+  memory (radius 128, block 64 at radius 96, block 240 at radius 1: the
+  tiled kernel, whose tiling ``launch_geometry`` gives).
 * The JAX quickstart's model at its own widths (LM 4 heads of 16 over 2
   kv heads, ViT 4 heads of 16), a 2-layer f32 LM, and a 2-layer LM with
   heads of 256 (2 over 1 kv head, what the kernels' WIDE build serves)
@@ -16,15 +18,23 @@ package.
   (``kernel_fallbacks`` 0, every verdict ``ok``); yes/no logits within
   the serving tests' LOGIT_TOL (8e-3, ``test_torch_serving.py``),
   answers equal where the JAX margin exceeds twice it.
-* The seven attention kernels' plain versions at head dim 256 against
-  the JAX package's oracles (``repro.kernels.ref``) on the same inputs:
-  f32 within 1e-5 and bf16 within 3e-2 (``test_torch_kernels.py``'s
-  limits: sums in another order; one bf16 step of O(1) values).
+* The seven attention kernels' plain versions at head dim 256, and
+  refresh, paged refresh with int8 cold pages, packed and prefill at
+  head dims 20, 33 and 90, against the JAX package's oracles
+  (``repro.kernels.ref``) on the same inputs: f32 within 1e-5 and bf16
+  within 3e-2 (``test_torch_kernels.py``'s limits: sums in another
+  order; one bf16 step of O(1) values); rope_shift at d 90 (half 45)
+  and mv_sad at block 240, radius 1 on a 240^2 frame (its macroblock
+  alone is 230 KB) against the same.
+* internvl3-14b-smoke re-cut to LM heads of 90 and ViT heads of 75
+  (``audit.odd_heads``) served as the models above.
 * ``encode_stream`` at search radius 16: motion vectors equal to the
   JAX package's and the f32 residual means within 4e-7 of the largest
   (sums of 256 terms in another order: read 2.5e-7 at this size, 1e-6
   elementwise at the smallest means).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -37,6 +47,7 @@ from repro.codec import encode_stream as j_encode_stream  # noqa: E402
 from repro.configs.base import CodecCfg as JCodecCfg  # noqa: E402
 from repro.configs.base import ModelCfg as JModelCfg  # noqa: E402
 from repro.configs.base import ViTCfg as JViTCfg  # noqa: E402
+from repro.configs.registry import get_config as j_get_config  # noqa: E402
 from repro.data.video import VideoSpec, generate_video  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
 from repro.models import vit as jvitm  # noqa: E402
@@ -45,8 +56,8 @@ from repro.models.init import ParamBuilder, split_tree  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import EngineCfg as JEngineCfg  # noqa: E402
 from repro_torch.codec import encode_stream  # noqa: E402
-from repro_torch.configs import CodecCfg, ModelCfg, ViTCfg  # noqa: E402
-from repro_torch.kernels import contracts, ops  # noqa: E402
+from repro_torch.configs import CodecCfg, ModelCfg, ViTCfg, get_config  # noqa: E402
+from repro_torch.kernels import audit, contracts, ops  # noqa: E402
 from repro_torch.kernels.flash_packed import build_pack_map, flash_packed_plain  # noqa: E402
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
     flash_prefill_paged_plain, flash_prefill_plain,
@@ -56,6 +67,8 @@ from repro_torch.kernels.flash_refresh import (  # noqa: E402
 )
 from repro_torch.kernels.mv_sad import SMEM_LIMIT as MV_SAD_SMEM_LIMIT  # noqa: E402
 from repro_torch.kernels.mv_sad import launch_geometry as mv_sad_launch_geometry  # noqa: E402
+from repro_torch.kernels.mv_sad import mv_sad_plain  # noqa: E402
+from repro_torch.kernels.rope_shift import rope_shift_plain  # noqa: E402
 from repro_torch.models.init import from_numpy_tree  # noqa: E402
 from repro_torch.serving import Engine, EngineCfg  # noqa: E402
 from torch_threads import torch_one_thread  # noqa: E402,F401
@@ -123,7 +136,7 @@ ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
 F32_KV_OPS = {"flash_prefill", "flash_packed"}     # f32 q/k/v: the oracles round nothing
 
 
-@pytest.mark.parametrize("d", range(8, 257, 8))
+@pytest.mark.parametrize("d", range(1, 257))
 def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
     assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
     assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
@@ -132,17 +145,27 @@ def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
 
 
 @pytest.mark.parametrize("d, q_dt, kv_dt, code", [
-    (20, BF16, BF16, "kernel-head-dim"), (264, BF16, BF16, "kernel-head-dim"),
+    (20, BF16, BF16, "ok"), (264, BF16, BF16, "kernel-head-dim"),
     (264, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
     (64, F16, BF16, "kernel-dtype")])
 def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
+    """Past 256 and f16 are refused by name; d 20, once refused for not
+    being a multiple of 8, is taken."""
     assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
 
 
+@pytest.mark.parametrize("d", range(2, 257, 2))
+def test_rope_shift_takes_every_even_head_dim(d):
+    k, delta = _m((2, 40, 4, d)), _m((2, 40), torch.int32)
+    assert contracts.rope_shift_verdict(k, delta).reason == "ok"
+    assert contracts.rope_shift_verdict(_m((2, 40, 4, d), F32), delta).reason == "ok"
+
+
 @pytest.mark.parametrize("block, radius", [(16, 16), (16, 32), (8, 16), (12, 32), (8, 4),
-                                           (12, 4)])
+                                           (12, 4), (16, 128), (64, 96), (240, 1)])
 def test_mv_sad_takes_any_radius_and_block(block, radius):
-    frame = _m((240, 240), F32)
+    n = block * (448 // block)
+    frame = _m((n, n), F32)
     assert contracts.mv_sad_verdict(frame, frame, block, radius).reason == "ok"
 
 
@@ -153,7 +176,8 @@ def test_mv_sad_launch_geometry_shares_candidates_evenly(block, radius):
     as share them evenly (no more than one candidate apart), within the
     227 KB an H100 block can have; the band's row stride keeps a warp's
     32 consecutive candidates on 32 distinct banks."""
-    threads, ldr, smem = mv_sad_launch_geometry(block, radius)
+    threads, ldr, smem, tile = mv_sad_launch_geometry(block, radius)
+    assert tile is None
     n2 = (2 * radius + 1) ** 2
     per = -(-n2 // threads)
     assert threads % 32 == 0 and threads <= 1024 and n2 <= per * threads < n2 + per * 32
@@ -163,9 +187,35 @@ def test_mv_sad_launch_geometry_shares_candidates_evenly(block, radius):
 
 
 def test_mv_sad_refuses_only_a_band_past_the_shared_memory():
+    """No band is refused any more: block 240 at radius 1, whose
+    macroblock alone (230 KB) passes one block's shared memory, is taken
+    (the tiled kernel), and mv_sad has no eligibility rule left, as the
+    reference has none."""
     frame = _m((240, 240), F32)
-    assert contracts.mv_sad_verdict(frame, frame, 240, 1).reason == "shared-memory"
-    assert [r.code for r in contracts.MV_SAD.eligibility] == ["shared-memory"]
+    assert contracts.mv_sad_verdict(frame, frame, 240, 1).reason == "ok"
+    assert [r.code for r in contracts.MV_SAD.eligibility] == []
+    assert mv_sad_launch_geometry(240, 1).tile == (3, 3, 115)
+
+
+@pytest.mark.parametrize("block, radius, tile", [
+    (16, 128, (15, 257, 16)), (64, 96, (21, 193, 64)), (240, 1, (3, 3, 115)),
+    (16, 2100, (1, 4096, 14))])
+def test_mv_sad_tiles_a_band_past_the_shared_memory(block, radius, tile):
+    """Past 227 KB the tiled kernel: tiles of ty dy rows by tx dx columns
+    (at most 1024 threads x 4 candidates), the macroblock whole where it
+    fits beside ty rows of the band slice, else in strips of rs rows; the
+    slice's rows padded so that a warp's 32 consecutive candidates of a
+    tile row hit 32 distinct banks."""
+    threads, ldr, smem, got = mv_sad_launch_geometry(block, radius)
+    ty, tx, rs = got
+    n_cand = 2 * radius + 1
+    assert got == tile and threads == 1024 and ty * tx <= 4 * threads
+    assert tx <= n_cand and ty <= n_cand and 1 <= rs <= block
+    assert smem == 4 * (rs * block + (ty - 1 + rs) * ldr + 2 * (threads // 32))
+    assert smem <= MV_SAD_SMEM_LIMIT < 4 * (block * block + (block + 2 * radius) ** 2)
+    assert tx - 1 + block <= ldr < tx - 1 + block + 32 and ldr % 32 == tx % 32
+    if rs < block:      # strips only where the whole macroblock does not fit beside ty rows
+        assert 4 * (block * block + (ty - 1 + block) * ldr) > MV_SAD_SMEM_LIMIT
 
 
 # ----------------------------------------------------------------------
@@ -181,22 +231,40 @@ def _stream():
     return frames
 
 
-@pytest.fixture(scope="module", params=sorted(SERVED_LMS))
+ODD = "internvl3-14b-smoke, heads of 90 and 75"
+
+
+def _served_cfgs(name: str):
+    """(JAX LM, JAX ViT, port LM, port ViT) of a served model: an LM of
+    SERVED_LMS with the quickstart's ViT, or ODD (``audit.odd_heads`` of
+    internvl3-14b-smoke in both packages)."""
+    if name == ODD:
+        j = j_get_config("internvl3-14b-smoke")
+        j = dataclasses.replace(j, d_head=audit.ODD_HEAD, vit=dataclasses.replace(
+            j.vit, d_model=j.vit.n_heads * audit.ODD_VIT_HEAD))
+        c = audit.odd_heads(get_config("internvl3-14b-smoke"))
+        assert (c.d_head, c.vit.d_model // c.vit.n_heads) == (90, 75) and c.vit == ViTCfg(
+            **dataclasses.asdict(j.vit))
+        return j, j.vit, c, c.vit
+    lm = SERVED_LMS[name]
+    return JModelCfg(**lm), JViTCfg(**VIT), ModelCfg(**lm), ViTCfg(**VIT)
+
+
+@pytest.fixture(scope="module", params=sorted(SERVED_LMS) + [ODD])
 def served(request):
     """(JAX results, port results, port card verdicts) of one model: the
     JAX package's Engine on its own weights, then the port's Engine on
     the same weights and stream (12 frames: one fresh and one incremental
     window)."""
-    lm = SERVED_LMS[request.param]
     frames = _stream()
-    jcfg, jvit = JModelCfg(**lm), JViTCfg(**VIT)
+    jcfg, jvit, cfg, vit = _served_cfgs(request.param)
     jparams, _ = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
     jvparams, _ = split_tree(jvitm.init_vit(ParamBuilder(jax.random.PRNGKey(1)), jvit,
                                             jcfg.d_model))
     jres = JEngine(jcfg, jvit, jparams, jvparams,
                    JEngineCfg(mode="codecflow", codec=JCodecCfg(**CODEC))).run_stream(frames)
     ops.reset_card_verdicts()
-    eng = Engine(ModelCfg(**lm), ViTCfg(**VIT), from_numpy_tree(_np_tree(jparams)),
+    eng = Engine(cfg, vit, from_numpy_tree(_np_tree(jparams)),
                  from_numpy_tree(_np_tree(jvparams)),
                  EngineCfg(mode="codecflow", codec=CodecCfg(**CODEC)), device="cpu")
     tres = eng.run_stream(frames)
@@ -244,14 +312,14 @@ def test_encode_stream_at_radius_16_matches_jax():
 # ----------------------------------------------------------------------
 # the attention kernels' plain versions at head dim 256 against JAX
 # ----------------------------------------------------------------------
-def _wide_inputs(dtype: str, seed: int = 29):
-    """numpy inputs at head dim 256 (H 4 over Hkv 2), rounded to bf16
+def _wide_inputs(dtype: str, seed: int = 29, D: int = 256):
+    """numpy inputs at head dim D (H 4 over Hkv 2), rounded to bf16
     once where ``dtype`` is bf16, for both frameworks: queries at a
     scatter of 150 positions over 3 pages of 128 keys per stream, a
     shuffled slab of 7 pages (2 int8 cold pages with per-(page, head)
     scales), and two packed rows of three and one segment."""
     rng = np.random.default_rng(seed)
-    H, Hkv, D = 4, 2, 256
+    H, Hkv = 4, 2
 
     def both(a):
         a = a.astype(np.float32)
@@ -286,7 +354,22 @@ WIDE_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("op", WIDE_OPS)
 def test_plain_versions_at_head_dim_256_match_jax(op, dtype):
-    x = _wide_inputs(dtype)
+    _plain_matches_jax(op, dtype, 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["flash_refresh", "flash_refresh_paged_int8", "flash_packed",
+                                "flash_prefill"])
+@pytest.mark.parametrize("d", [20, 33, 90])
+def test_plain_versions_at_head_dims_off_the_8_grid_match_jax(d, op, dtype):
+    """Head dims that are not multiples of 8 (odd, 2 and 4 mod 8), which
+    the kernels now take: the plain versions the card is held to agree
+    with the JAX package's oracles as at 256."""
+    _plain_matches_jax(op, dtype, d)
+
+
+def _plain_matches_jax(op: str, dtype: str, D: int):
+    x = _wide_inputs(dtype, D=D)
     (qj, qt), (qfj, qft) = x["q"], x["qf"]
     (kj, kt), (vj, vt) = x["caches"]
     (skj, skt), (svj, svt) = x["slab"]
@@ -315,7 +398,67 @@ def test_plain_versions_at_head_dim_256_match_jax(op, dtype):
         (pqj, pqt), ((pkj, pkt), (pvj, pvt)) = x["pq"], x["pkv"]
         o_j = jref.flash_packed_ref(pqj, pkj, pvj, jnp.asarray(x["seg"]))
         o_t = flash_packed_plain(pqt, pkt, pvt, t(x["seg"]))
-    assert tuple(o_t.shape) == tuple(o_j.shape) and o_t.shape[-1] == 256
+    assert tuple(o_t.shape) == tuple(o_j.shape) and o_t.shape[-1] == D
     assert o_t.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
     tol = 1e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j, np.float32), atol=tol)
+
+
+def test_rope_shift_plain_at_an_odd_half_matches_jax():
+    """d 90: 45 rotation pairs a half (the kernel's one-pair chunks), f32
+    and bf16, against the JAX package's oracle (test_torch_kernels.py's
+    limits: 1e-4 in f32 at angles of hundreds of radians, one bf16 step)."""
+    rng = np.random.default_rng(31)
+    k = rng.normal(size=(2, 64, 8, 90)).astype(np.float32)
+    delta = rng.integers(-700, 700, size=(2, 64)).astype(np.int32)
+    for dt, tol in ((F32, 1e-4), (BF16, 2.0 ** -6)):
+        kt = torch.from_numpy(k).to(dt)
+        kj = jnp.asarray(kt.float().numpy()).astype(jnp.float32 if dt == F32 else jnp.bfloat16)
+        out_t = rope_shift_plain(kt, torch.from_numpy(delta))
+        out_j = jref.rope_shift_ref(kj, jnp.asarray(delta))
+        assert out_t.dtype == dt and out_t.shape == k.shape
+        np.testing.assert_allclose(out_t.float().numpy(), np.asarray(out_j, np.float32),
+                                   atol=tol)
+
+
+def test_mv_sad_plain_at_block_240_matches_jax():
+    """Block 240 at radius 1 on a 240^2 frame (one macroblock of 230 KB,
+    nine candidates): the motion vector equal and the SAD within 1e-5 of
+    the JAX package's oracle (sums of 57,600 terms in another order)."""
+    rng = np.random.default_rng(33)
+    cur = (rng.random((240, 240)) * 255).astype(np.float32)
+    prev = np.roll(cur, (1, -1), axis=(0, 1)) + rng.normal(0, 2, (240, 240)).astype(np.float32)
+    mv_t, sad_t = mv_sad_plain(torch.from_numpy(cur), torch.from_numpy(prev), 240, 1)
+    mv_j, sad_j = jref.mv_sad_ref(jnp.asarray(cur), jnp.asarray(prev), 240, 1)
+    np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
+    assert mv_t.numpy().tolist() == [[[1, -1]]]      # prev is cur moved by (1, -1)
+    np.testing.assert_allclose(sad_t.numpy(), np.asarray(sad_j), rtol=1e-5)
+
+
+def test_chip_smoke_phase_7i_case_is_internvl3_14b_with_odd_heads():
+    """chip_smoke's phase 7(i) serves internvl3-14b at full size with 40 LM
+    heads of 90 over 8 (refresh on the D-128 build, rope_shift at an odd
+    half of 45), InternViT re-cut to d_model 1200 in 16 heads of 75 at
+    448^2, and search radius 128 (mv_sad's tiled kernel), 2 x 24 frames
+    of codecflow; the dispatch audit's third table takes its every call."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    key, arch, cfg, modes, frames, _ = {m[0]: m for m in cs.family_models()}["(i)"]
+    full = get_config("internvl3-14b")
+    assert (arch, modes, frames) == (cs.ODD_ARCH, ("codecflow",), 24)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head) == (
+        full.n_layers, full.d_model, 40, 8, 90)
+    assert (cfg.vit.d_model, cfg.vit.n_heads, cfg.vit.image) == (1200, 16, 448)
+    assert cs.FAMILY_CODECS[key] == {"search_radius": 128} and cs.FAMILY_FRAMES[key] == 448
+    assert mv_sad_launch_geometry(16, 128).tile is not None
+    rows = {r.op: r for r in audit.variant_rows() if r.arch.startswith(
+        "internvl3-14b, heads of 90")}
+    assert set(rows) == {"mv_sad", "flash_packed", "flash_refresh", "flash_refresh_paged",
+                         "rope_shift"}
+    assert all(r.verdict == "kernel" for r in rows.values()), rows
+    assert (rows["mv_sad"].geometry, rows["flash_packed"].geometry) == (
+        "448^2 b16 r128", "ViT H 16 D 75")

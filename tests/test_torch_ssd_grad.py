@@ -12,8 +12,8 @@ row, head), b/c per (batch row, group), log_a per (batch row, head), the
 initial state per (batch row, head)): f32 within 1e-5 (both sum the same
 f32 products in other orders: read 1e-7 .. 4e-7 of the global max); bf16
 within 2^-7, one bf16 step (both round f32 values that differ by that
-order).  The cases run N 16 and, for the N-256 build's width, N 256
-(f32, and bf16 at G 2).
+order).  The cases run N 16 and, at two column slabs, N 256 (f32, and
+bf16 at G 2).
 
 The backward kernel's three stages in their plain versions (each
 chunk's (e o dY)^T C, the sequential dS pass, the chunk-local rest),

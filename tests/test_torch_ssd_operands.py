@@ -2,27 +2,28 @@
 
 The JAX package's ``ssd_scan_pallas`` takes any head width P, state
 width N and chunk, x / log_a / b / c in f32, bf16 or f16 (b == c), and
-any L.  The port's kernel takes all of it but f16 and N past 256
+any L.  The port's kernel takes all of it but f16
 (``contracts.SSD_SCAN``): bf16 x, b and c in the serving layout are read
 in place, anything else passes a staging kernel first
 (``ssd_scan.operand_mode``), a chunk past 256 runs as sub-chunks of
 at most 256 steps (``ssd_scan.scan_chunk``), and N past 128 runs on the
-N-256 build as two column slabs of 128 (``ssd_scan.column_slabs``).
+slabbed build as N / 128 column slabs of 128 (``ssd_scan.column_slabs``;
+other N on the next multiple of 128).
 Here, on CPU tensors and the same numpy inputs:
 
 * ``ops.ssd_scan`` (its plain version) against the JAX package's
   ``ops.ssd_scan`` in f32 and bf16 at chunk 512 over a ragged L, N 24,
-  32, 192 and 256, P 12, a strided x and a bf16 log_a, within
+  32, 192, 256, 320 and 384, P 12, a strided x and a bf16 log_a, within
   ``test_torch_ssd.py``'s limits (f32: 2e-5 of the output's scale; bf16:
   y within 2^-7, the state within 2e-5), and each case's verdict and
-  operand mode; f16 and N 264 refused by name;
+  operand mode; f16 refused by name, N 264 taken;
 * the sub-chunk identity: the plain version mirroring the kernel's
   sub-chunks equals the JAX scan at the whole chunk (f32, 2e-5); the
-  column-slab identity the N-256 build rests on: y and every gradient
-  but b's, c's and the states' (which split by column) are the sums of
-  the slabs' scans, within f32 summation order;
+  column-slab identity the slabbed build rests on (N 256 and 384): y and
+  every gradient but b's, c's and the states' (which split by column)
+  are the sums of the slabs' scans, within f32 summation order;
 * ``SsdScanFn`` over the plain pair on f32 operands with sub-chunks,
-  ragged P and N, and at N 256: f32 gradients within 1e-5 of
+  ragged P and N, and at N 256 and 384: f32 gradients within 1e-5 of
   ``jax.grad``'s per slice;
 * the dispatch audit's scan rows, the launches' shared memory for every
   admitted (mode, build N, chunk), the bytes counted at the operands'
@@ -58,6 +59,8 @@ CASES = {
     "N 32": (2, 40, 4, 8, 2, 32, 16, "packed"),
     "N 192": (2, 40, 4, 8, 2, 192, 16, "packed"),
     "N 256": (2, 40, 4, 8, 1, 256, 16, "packed"),
+    "N 320": (2, 24, 2, 8, 1, 320, 16, "packed"),
+    "N 384": (2, 24, 2, 8, 1, 384, 16, "packed"),
     "P 12": (2, 40, 4, 12, 1, 16, 16, "packed"),
     "strided x": (2, 40, 4, 16, 1, 16, 16, "strided"),
     "bf16 log_a": (2, 40, 4, 8, 1, 16, 16, "bf16 log_a"),
@@ -116,11 +119,12 @@ def close(a, b, rel):
     assert err <= rel * scale, (err / scale, rel)
 
 
-# the operand mode each case takes on the card: bf16 N 32 and 256 and P 8
-# are a build read in place; N 24 and 192, P 12, a strided x and f32 are
-# staged as hi and lo halves
+# the operand mode each case takes on the card: bf16 N 32, 256 and 384 and
+# P 8 are a build read in place; N 24, 192 and 320, P 12, a strided x and
+# f32 are staged as hi and lo halves
 MODES = {("N 32", "bfloat16"): S.FAST, ("chunk 512, ragged L", "bfloat16"): S.FAST,
-         ("bf16 log_a", "bfloat16"): S.FAST, ("N 256", "bfloat16"): S.FAST}
+         ("bf16 log_a", "bfloat16"): S.FAST, ("N 256", "bfloat16"): S.FAST,
+         ("N 384", "bfloat16"): S.FAST}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -139,19 +143,21 @@ def test_every_reference_operand_matches_jax_and_takes_the_kernel(case, dtype, j
 
 
 def test_f16_and_n136_are_refused_by_name():
-    """f16 operands, and N 264, the first width past the N-256 build (N
-    136 itself runs on that build now: the "N 192" case and the audit's
-    N 136 row)."""
+    """f16 operands are refused by name; N 264, once the first width past
+    the builds, runs staged on the slabbed build at 384, as N 136 runs on
+    256, and f16 is the scan's one eligibility rule left."""
     x, la, b, c, init = torch_operands("N 24", "float32")
     assert contracts.ssd_scan_verdict(x.half(), la, b, c, init, 16).reason == "kernel-dtype"
     assert contracts.ssd_scan_verdict(x, la, b.half(), c.half(), None, 16).reason == \
         "kernel-dtype"
     assert contracts.ssd_scan_verdict(x, la, b, c, init.half(), 16).reason == "kernel-dtype"
     wide = torch.zeros(2, 40, 2, 264)
-    assert contracts.ssd_scan_verdict(x, la, wide, wide, None, 16).reason == "state-width"
+    assert contracts.ssd_scan_verdict(x, la, wide, wide, None, 16).use_kernel
     assert contracts.ssd_scan_verdict(x, la, wide[..., :256], wide[..., :256], None,
                                       16).use_kernel
-    assert [r.code for r in contracts.SSD_SCAN.eligibility] == ["kernel-dtype", "state-width"]
+    assert [S.build_width(n) for n in (136, 256, 264, 320, 384, 512)] == [
+        256, 256, 384, 384, 384, 512]
+    assert [r.code for r in contracts.SSD_SCAN.eligibility] == ["kernel-dtype"]
 
 
 def test_sub_chunks_equal_the_whole_chunk():
@@ -181,9 +187,14 @@ def test_f32_gradients_through_the_plain_pair_match_jax_grad():
 
 
 def test_f32_gradients_at_n256_through_the_plain_pair_match_jax_grad():
-    """The same at N 256 (the N-256 build's width; G 1, P 8, chunk 16
-    over a ragged L 40): f32 gradients within 1e-5 of jax.grad's."""
+    """The same at N 256 (two column slabs; G 1, P 8, chunk 16 over a
+    ragged L 40): f32 gradients within 1e-5 of jax.grad's."""
     _gradients_match_jax_grad(2, 40, 4, 8, 1, 256, 16, seed=8)
+
+
+def test_f32_gradients_at_n384_through_the_plain_pair_match_jax_grad():
+    """The same at N 384 (three column slabs; L 24, H 2)."""
+    _gradients_match_jax_grad(2, 24, 2, 8, 1, 384, 16, seed=9)
 
 
 def _gradients_match_jax_grad(B, L, H, P, G, N, chunk, seed):
@@ -213,15 +224,24 @@ def _gradients_match_jax_grad(B, L, H, P, G, N, chunk, seed):
 
 
 def test_column_slabs_sum_to_the_whole_scan():
-    """The identity the N-256 build rests on (``column_slabs``): a scan at
-    N 256 equals its two 128-column slabs scanned apart.  y, dx and
+    """The identity the slabbed build rests on (``column_slabs``): a scan
+    at N 256 equals its two 128-column slabs scanned apart.  y, dx and
     dlog_a are the slabs' sums (the kernels' f32 partials, added in slab
     order); the final state, the chunk states, db, dc and d_init are the
     slabs' columns side by side.  f32, within 1e-5 of each output's scale
     (the same products summed in another order)."""
-    B, L, H, P, G, N, chunk = 2, 40, 4, 8, 2, 256, 16
-    assert S.column_slabs(N) == 2 and S.column_slabs(128) == S.column_slabs(16) == 1
-    rng = np.random.default_rng(12)
+    assert S.column_slabs(128) == S.column_slabs(16) == 1
+    _slabs_sum_to_the_whole(2, 40, 4, 8, 2, 256, 16, seed=12)
+
+
+def test_column_slabs_sum_to_the_whole_scan_at_n384():
+    """The same over three slabs (N 384)."""
+    _slabs_sum_to_the_whole(2, 24, 2, 8, 1, 384, 16, seed=13)
+
+
+def _slabs_sum_to_the_whole(B, L, H, P, G, N, chunk, seed):
+    assert S.column_slabs(N) == N // S.N_SLAB
+    rng = np.random.default_rng(seed)
 
     def normal(scale, *shape):
         return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32))
@@ -259,15 +279,17 @@ def test_audit_scan_rows_take_the_kernel():
     assert got["B1 L1024 H8 P64 N16 f32 (the JAX benchmarks' row)"] == "kernel"
     assert got["B2 L160 H80 P64 N128 f32 (mamba2-2.7b, dtype f32)"] == "kernel"
     assert got["B2 L100 H8 G2 N136 bf16"] == "kernel"
-    assert got["B2 L100 H8 G2 N264 bf16"] == "refused:state-width"
+    assert got["B2 L100 H8 G2 N264 bf16"] == "kernel"
+    assert got["B2 L160 H80 P64 N512 bf16 (mamba2-2.7b at d_state 512)"] == "kernel"
 
 
 def test_every_admitted_launch_fits_an_h100():
     """Shared memory of the forward and the backward's launches within
-    one block's 232,448 bytes for every operand mode, build N and chunk q
-    up to 256 (a longer chunk runs as sub-chunks of at most 256)."""
+    one block's 232,448 bytes for every operand mode, build N (one
+    block's, and the slabbed build at N 256, 384 and 512) and chunk q up
+    to 256 (a longer chunk runs as sub-chunks of at most 256)."""
     for mode in (S.FAST, S.SPLIT):
-        for N in S.STATE_WIDTHS:
+        for N in S.STATE_WIDTHS + (256, 384, 512):
             fwd = max(S.launch_geometry(2, 80, 64, N, q, mode)[2] for q in range(1, 257))
             assert fwd <= S.SMEM_LIMIT, (mode, N, fwd)
             for q in (1, 16, 100, 256, 512, 1000):
@@ -282,17 +304,21 @@ def test_every_admitted_launch_fits_an_h100():
     assert S.bwd_launch_geometry(2, 2048, 80, 64, 1, 64, 256, S.SPLIT)[0]["local"][0] == (
         8 * 2, 80, 2)
     assert S.bwd_launch_geometry(1, 64, 4, 64, 1, 16, 64, la_bf16=True)[1]["lpart"] > 0
-    # N 256: the N-128 layout at twice the grid (two column slabs), in
-    # both modes, forward and backward
+    # N 256, 320 (staged on 384), 384 and 512: the N-128 layout at N / 128
+    # times the grid (column slabs), in both modes, forward and backward
     for mode in (S.FAST, S.SPLIT):
-        g256, _, s256 = S.launch_geometry(2, 80, 64, 256, 256, mode)
         g128, _, s128 = S.launch_geometry(2, 80, 64, 128, 256, mode)
-        assert g256 == (2 * g128[0],) + g128[1:] and s256 == s128
-        w256, _ = S.bwd_launch_geometry(2, 2048, 80, 64, 1, 256, 256, mode)
         w128, _ = S.bwd_launch_geometry(2, 2048, 80, 64, 1, 128, 256, mode)
-        for k in ("chunk", "local"):
-            assert w256[k][0] == (2 * w128[k][0][0],) + w128[k][0][1:]
-            assert w256[k][2] == w128[k][2]
+        for n in (256, 320, 384, 512):
+            N = S.build_width(n)
+            ns = N // 128
+            g, _, sm = S.launch_geometry(2, 80, 64, N, 256, mode)
+            assert g == (ns * g128[0],) + g128[1:] and sm == s128
+            w, scratch = S.bwd_launch_geometry(2, 2048, 80, 64, 1, N, 256, mode)
+            for k in ("chunk", "local"):
+                assert w[k][0] == (ns * w128[k][0][0],) + w128[k][0][1:]
+                assert w[k][2] == w128[k][2]
+            assert scratch["dx"] == 4 * 2 * 2048 * 80 * ns * 64
 
 
 def test_bytes_are_counted_at_the_operands_element_sizes():
@@ -350,3 +376,26 @@ def test_f32_mamba2_lm_prefill_matches_jax():
         b = np.asarray(b)
         assert a.dtype == torch.float32
         assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_chip_smoke_phase_7j_case_is_the_full_model_at_d_state_512():
+    """chip_smoke's phase 7(j) serves mamba2-2.7b at full size re-cut to
+    d_state 512 (four column slabs, read in place), 2 x 40 frames of
+    codecflow; the dispatch audit's third table takes its every call, the
+    scan at (H 80, P 64, N 512) on the kernel."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    key, arch, cfg, modes, frames, _ = {m[0]: m for m in cs.family_models()}["(j)"]
+    full = get_config("mamba2-2.7b")
+    assert (arch, modes, frames) == ("mamba2-2.7b, d_state 512", ("codecflow",), 40)
+    assert cfg == audit.with_state(full, 512) and cfg.ssm.d_state == cs.WIDER_STATE
+    assert cfg.n_layers == full.n_layers == 64 and S.column_slabs(cfg.ssm.d_state) == 4
+    rows = [r for r in audit.variant_rows() if r.arch == arch]
+    assert {r.op for r in rows} == {"mv_sad", "flash_packed", "ssd_scan"}
+    assert all(r.verdict == "kernel" for r in rows), rows
+    assert [r.geometry for r in rows if r.op == "ssd_scan"] == [
+        "H 80, P 64, N 512, chunk 256, bfloat16"]

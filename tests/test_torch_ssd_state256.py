@@ -189,7 +189,7 @@ def test_chip_smoke_phase_7h_case_is_the_full_model_at_d_state_256():
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    key, arch, cfg, modes, frames, _ = cs.family_models()[-1]
+    key, arch, cfg, modes, frames, _ = {m[0]: m for m in cs.family_models()}["(h)"]
     full = get_config("mamba2-2.7b")
     assert (key, arch, modes, frames) == ("(h)", "mamba2-2.7b, d_state 256", ("codecflow",), 40)
     assert cfg == wide(full) and cfg.ssm.d_state == cs.WIDE_STATE == D_STATE
