@@ -13,6 +13,7 @@ and check them.
     python3 chip_smoke.py --only n256-ssm
     python3 chip_smoke.py --only odd-heads
     python3 chip_smoke.py --only n512-ssm
+    python3 chip_smoke.py --only d512
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -21,14 +22,15 @@ for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
 ``--only mamba``, ``--only f32-ssm``, ``--only d256``, ``--only n256-ssm``,
-``--only odd-heads``, ``--only n512-ssm``,
+``--only odd-heads``, ``--only n512-ssm``, ``--only d512``,
 ``--only mesh``, ``--only hosttime`` and ``--only deep-step``: phase 3's
 mha probe, phase 7 alone, phase 8(b) alone, phase 8(e) with its
 roofline, phases 7(f) and 8(f) (mamba2-2.7b in f32) alone, phase 7(g)
 (internvl3-14b with LM heads of 256) alone, phases 7(h) and 8(g)
 (mamba2-2.7b at d_state 256) alone, phase 7(i) (internvl3-14b with heads
 of 90 and 75 at search radius 128) alone, phases 7(j) and 8(h)
-(mamba2-2.7b at d_state 512) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
+(mamba2-2.7b at d_state 512) alone, phase 7(k) (internvl3-14b with LM and
+ViT heads of 512) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
 host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
 over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
@@ -133,7 +135,20 @@ Phases (any failure exits non-zero):
                q/k/v in flash_packed and flash_prefill), the ragged widths
                WIDE_RAGGED (192, 136, 130, 250) on it (130 and 250 also
                with f32 queries, and f32 q/k/v), and rope_shift at D 256
-               and at D 20, 90 (an odd half of 45) and 130; each
+               and at D 20, 90 (an odd half of 45) and 130; head dims
+               257 to 512 (the SLAB build: two 256-column slabs of V and
+               O over blocks) at internvl3-14b's widths re-cut to 10
+               heads of 512 over 2 (HEADS_512), d 264, 320, 384, 500,
+               511 and 512 (SLAB_WIDTHS) in every attention kernel and
+               operand mode it takes: bf16 (the refresh kernels at the
+               selective refresh, and at 512 also the fresh prefill and
+               decode; prefill causal, and at 512 at an offset, windowed
+               and ragged; paged prefill bf16 and int8; flash_packed's
+               busy packing at H 2), f32 queries over bf16 K/V in the
+               refresh and paged kernels and f32 q/k/v in flash_packed
+               and flash_prefill, one line each with its device ms,
+               error against its limit and registers (slab_table), and
+               rope_shift at D 320 and 512; each
                attention case also prints device_ms (launches
                over copies of its inputs, L2-cold, in one replayed CUDA
                graph); mv_sad
@@ -234,24 +249,30 @@ Phases (any failure exits non-zero):
                f32 weights (f32 queries over the bf16 slab) ingested at
                search radius 16 (FAMILY_CODECS), the same path; (f)
                mamba2-2.7b with f32 weights; (g) internvl3-14b at full
-               width and depth with 20 LM heads of 256 over 4 (the
+               width with 20 LM heads of 256 over 4 (the
                attention kernels' D-256 build; its own ViT, 448^2
                frames), codecflow on the paged bf16 slab and then once
                on per-stream caches and once with int8 cold pages (which
                must demote pages), each path's windows/s, stage seconds,
                peak memory and launches printed beside phase 4's run of
-               the same path at heads of 128; (h) mamba2-2.7b at full
+               the same path at heads of 128 (at full depth); (h)
+               mamba2-2.7b at full
                width and depth with its SSD state widened to 256
                (WIDE_STATE: two column slabs of the scan's slabbed
                build), codecflow, 2 x 40 frames, beside phase 4's
-               d_state-128 run; (i) internvl3-14b at full width and depth
+               d_state-128 run; (i) internvl3-14b at full width
                with 40 LM heads of 90 over 8 and its ViT re-cut to 16
                heads of 75 (ODD_ARCH: head dims off the 8-column grid,
                rope_shift at an odd half), ingested at search radius 128
                (mv_sad's tiled kernel), served as (g) (paged, per-stream,
                int8 cold pages); (j) mamba2-2.7b at d_state 512
-               (WIDER_STATE: four column slabs), served as (h); each
-               case's seconds are printed.  Each case is served
+               (WIDER_STATE: four column slabs), served as (h); (k)
+               internvl3-14b at full width and depth with 10 LM heads of
+               512 over 2 and its ViT re-cut to 2 heads of 512 (HEADS_512:
+               the attention kernels' SLAB build in flash_packed,
+               flash_refresh_paged and flash_refresh, rope_shift at D
+               512), served as (g); (g) and (i) serve CUT_LAYERS (12) of
+               the 48 layers; each case's seconds are printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
@@ -484,6 +505,21 @@ WIDE_ARCH = f"{ARCH}, 20 heads of 256"
 # Hkv 4; the last two off the 8-column grid (ODD_WIDTHS' f32 cases too)
 WIDE_RAGGED = (192, 136, 130, 250)
 ODD_WIDE = (130, 250)
+# internvl3-14b re-cut to LM heads of 512 (phase 3's D-512 cases, and
+# phase 7(k), whose ViT is re-cut to 2 heads of 512): 10 heads over 2 kv
+# heads keep d_model 5120 and the GQA group of 5, so the parameters, the
+# KV bytes per stream and the attention FLOPs are those of its 40 heads of
+# 128 over 8 (kernels.audit.HEADS_512)
+HEADS_512 = dict(n_heads=10, n_kv=2, d_head=512)
+D512_ARCH = f"{ARCH}, LM and ViT heads of 512"
+# head dims on the SLAB build (two 256-column slabs of V and O over
+# blocks): 264 to 511 ragged (500: rows 8-byte aligned; 511: odd, 2-byte),
+# 512 exact, at H 10 over Hkv 2 (flash_packed: the 7(k) ViT's H 2)
+SLAB_WIDTHS = (264, 320, 384, 500, 511, 512)
+# depth of the re-cut internvl3-14b cases 7(g) and 7(i) (of 48 layers):
+# their kernels and bitwise checks run at every layer count, and 7(k)
+# serves the full depth at full attention width
+CUT_LAYERS = 12
 # mv_sad beyond the codec's radius 4: (frame edge, block, radius); the last
 # three past one band's 227 KB of shared memory (the tiled kernel: a 272^2
 # band, a 256^2 one, and block 240's 230 KB macroblock in row strips)
@@ -853,7 +889,42 @@ def attention_reading(r, library: str) -> str:
 def kernel_row(name, replaces, r):
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict(name=name, route="cuda", source="src/repro_torch/csrc/attention.cuh",
-                replaces=replaces, **{k: r[k] for k in keys})
+                replaces=replaces, **{k: r[k] for k in keys},
+                **{k: r[k] for k in ("rel", "tol") if k in r})
+
+
+# csrc/attention.cuh's problem struct per kernel line
+ATTN_STRUCT = {"flash_refresh_paged": "RefreshPaged", "flash_refresh_paged_int8":
+               "RefreshPaged+cold", "flash_refresh": "Refresh", "flash_packed": "Packed",
+               "flash_prefill": "Prefill", "flash_prefill_paged": "PrefillPaged",
+               "flash_prefill_paged_int8": "PrefillPaged+cold"}
+
+
+def slab_table(rows) -> None:
+    """One line per phase-3 case on the SLAB build (a label "D d" with d
+    in SLAB_WIDTHS, under a kernel line's families or cases): device ms,
+    the row-relative error against its limit, and the build's registers
+    from phase 2."""
+    regs = READINGS.get("registers", {})
+    for row in rows:
+        struct = ATTN_STRUCT.get(row["name"])
+        if struct is None:
+            continue
+        for lab, r in {**row.get("families", {}), **row.get("cases", {})}.items():
+            m = re.match(r"D (\d+)\b", lab)
+            if m is None or int(m.group(1)) not in SLAB_WIDTHS:
+                continue
+            d = int(m.group(1))
+            r = r.get("packings", {}).get("busy", r)
+            mode = (", f32 q/k/v" if "f32 q/k/v" in lab else ", f32 q" if "f32 q" in lab
+                    else "" if d == 512 else ", any d")
+            label = f"mma_kernel<512, {struct}{mode}>"
+            rel = f"{r['rel']:.3g} (limit {r['tol']:.3g})" if "tol" in r else (
+                f"{r['rel']:.3g}" if "rel" in r else "n/a")
+            log(f"  D-512 build: {row['name']} [{lab}]: device {r['device_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+                f"library {r['library_ms']:.4f} ms; row-relative err {rel}; {label}: "
+                f"{regs.get(label, 'not built')} registers")
 
 
 def with_cases(main, extra: dict):
@@ -1188,7 +1259,7 @@ def check_flash_packed(torch, pipe, streams, heads=None, label=None, dtype=None,
         ok = ok and rel <= tol and pad_zero
         worst = max(worst, err)
         readings[label_p] = dict(shape=[R, L], visited=bm.visited, max_abs_err=err, rel=rel,
-                                 ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                                 tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                                  bound_ms=b_ms, bound_by=b_by,
                                  **({} if split_ms is None else {"split_ms": split_ms}))
         if row is None:
@@ -2545,7 +2616,7 @@ def family_models():
     fields a case sets, FAMILY_FRAMES the frame edge of a case that keeps
     its model's own ViT, FAMILY_PATHS the further paths a case serves."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.audit import odd_heads, with_state
+    from repro_torch.kernels.audit import heads_512, odd_heads, with_state
     hybrid, full = get_config(HYBRID_ARCH), "full width and depth"
     return (
         ("(a)", MOE_ARCH, get_config(MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
@@ -2557,14 +2628,19 @@ def family_models():
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights, search radius 16"),
         ("(f)", SSM_F32, dataclasses.replace(get_config(SSM_ARCH), dtype="float32"),
          ("codecflow",), MOE_FRAMES, f"{full}, f32 weights"),
-        ("(g)", WIDE_ARCH, dataclasses.replace(get_config(ARCH), **WIDE_HEADS), ("codecflow",),
-         MOE_FRAMES, f"{full}, LM heads of 256, InternViT at {HW}^2"),
+        ("(g)", WIDE_ARCH, dataclasses.replace(get_config(ARCH), n_layers=CUT_LAYERS,
+                                               **WIDE_HEADS), ("codecflow",),
+         MOE_FRAMES, f"full width, {CUT_LAYERS} of 48 layers, LM heads of 256, InternViT at "
+         f"{HW}^2"),
         ("(h)", SSM_N256, with_state(get_config(SSM_ARCH), WIDE_STATE), ("codecflow",),
          SSM_FRAMES, f"{full}, SSD state {WIDE_STATE}"),
-        ("(i)", ODD_ARCH, odd_heads(get_config(ARCH)), ("codecflow",), MOE_FRAMES,
-         f"{full}, LM heads of 90, InternViT re-cut to 16 heads of 75 at {HW}^2"),
+        ("(i)", ODD_ARCH, dataclasses.replace(odd_heads(get_config(ARCH)), n_layers=CUT_LAYERS),
+         ("codecflow",), MOE_FRAMES, f"full width, {CUT_LAYERS} of 48 layers, LM heads of 90, "
+         f"InternViT re-cut to 16 heads of 75 at {HW}^2"),
         ("(j)", SSM_N512, with_state(get_config(SSM_ARCH), WIDER_STATE), ("codecflow",),
          SSM_FRAMES, f"{full}, SSD state {WIDER_STATE}"),
+        ("(k)", D512_ARCH, heads_512(get_config(ARCH)), ("codecflow",), MOE_FRAMES,
+         f"{full}, LM heads of 512, InternViT re-cut to 2 heads of 512 at {HW}^2"),
     )
 
 
@@ -2572,21 +2648,23 @@ def family_models():
 # range of a software H.264 encoder; (i) at radius 128 (mv_sad's tiled
 # kernel: a 272^2 band at block 16)
 FAMILY_CODECS = {"(e)": dict(search_radius=16), "(i)": dict(search_radius=128)}
-# (g), (i): internvl3-14b keeps its own ViT (InternViT, 16 heads of 64, or
-# its re-cut), which takes 448^2 frames, where the other cases take the
-# launcher's 112^2 one
-FAMILY_FRAMES = {"(g)": HW, "(i)": HW}
-# phase 4's run that a case's readings are printed beside: (g) and (i) at
-# heads of 128 (and radius 4), (h) and (j) at d_state 128
+# (g), (i), (k): internvl3-14b keeps its own ViT (InternViT, 16 heads of
+# 64, or its re-cuts), which takes 448^2 frames, where the other cases take
+# the launcher's 112^2 one
+FAMILY_FRAMES = {"(g)": HW, "(i)": HW, "(k)": HW}
+# phase 4's run that a case's readings are printed beside: (g), (i) and
+# (k) at heads of 128 (and radius 4), (h) and (j) at d_state 128
 FAMILY_BESIDE = {"(g)": (f"phase 4 {MAIN}", "heads of 128"),
+                 "(k)": (f"phase 4 {MAIN}", "heads of 128 and 64"),
                  "(h)": (f"phase 4 {SSM_MAIN}", "d_state 128"),
                  "(i)": (f"phase 4 {MAIN}", "heads of 128 and 64, radius 4"),
                  "(j)": (f"phase 4 {SSM_MAIN}", "d_state 128")}
-# (g), (i): after the four engine runs on the paged bf16 slab, one lockstep
-# run per further path: per-stream caches (flash_refresh) and int8 cold pages
+# (g), (i), (k): after the four engine runs on the paged bf16 slab, one
+# lockstep run per further path: per-stream caches (flash_refresh) and int8
+# cold pages
 FAMILY_PATHS = {key: (("per-stream KV", dict(paged_kv=False)),
                       ("int8 cold pages", dict(stale_page_dtype="int8")))
-                for key in ("(g)", "(i)")}
+                for key in ("(g)", "(i)", "(k)")}
 
 
 def model_widths(cfg) -> str:
@@ -2625,9 +2703,11 @@ def serve_families(torch, keys=None):
     with LM heads of 90 and its ViT re-cut to 16 heads of 75 (ODD_ARCH:
     head dims off the 8-column grid) ingested at search radius 128
     (mv_sad's tiled kernel), served as (g); (j) mamba2-2.7b at d_state 512
-    (WIDER_STATE: four column slabs), served as (h).  Each model's weights
-    are freed before the next.  ``keys`` serves only those cases.  Returns (ok, launches per
-    run)."""
+    (WIDER_STATE: four column slabs), served as (h); (k) internvl3-14b
+    with LM and ViT heads of 512 (HEADS_512: the attention kernels' SLAB
+    build), served as (g).  (g) and (i) serve CUT_LAYERS of the 48 layers.
+    Each model's weights are freed before the next.  ``keys`` serves only
+    those cases.  Returns (ok, launches per run)."""
     from repro_torch.data.pipeline import anomaly_dataset
     from repro_torch.launch.serve import default_vit
     from repro_torch.models.init import init_lm_params, init_vit_params, map_tree, tree_leaves
@@ -3930,7 +4010,8 @@ def main(argv=None) -> int:
                          "internvl3-14b with LM heads of 256), 'n256-ssm' (phases 7(h) and "
                          "8(g): mamba2-2.7b at d_state 256), 'odd-heads' (phase 7(i): "
                          "internvl3-14b with heads of 90 and 75 at search radius 128), "
-                         "'n512-ssm' (phases 7(j) and 8(h): d_state 512), 'mesh' "
+                         "'n512-ssm' (phases 7(j) and 8(h): d_state 512), 'd512' (phase 7(k): "
+                         "internvl3-14b with LM and ViT heads of 512), 'mesh' "
                          "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
                          "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
                          "each alone after phases 1-2")
@@ -3995,6 +4076,8 @@ def main(argv=None) -> int:
                                    and train_mamba(torch, d_state=WIDE_STATE, steps=2)[0]),
               "odd-heads": lambda: (serve_families(torch, ("(i)",))[0]
                                     and served_cleanly("phase 7(i)")),
+              "d512": lambda: (serve_families(torch, ("(k)",))[0]
+                               and served_cleanly("phase 7(k)")),
               "n512-ssm": lambda: (serve_families(torch, ("(j)",))[0]
                                    and served_cleanly("phase 7(j)")
                                    and train_mamba(torch, d_state=WIDER_STATE, steps=2)[0])}
@@ -4061,6 +4144,16 @@ def main(argv=None) -> int:
         for lab, w in wide_ragged.items()) + tuple(
         (f"{lab}, selective refresh", w, lay, slots, "selective refresh", F32)
         for lab, w in odd_f32.items())
+    # the SLAB build: internvl3-14b at 10 heads of 512 over 2 (HEADS_512)
+    # and the ragged widths on it at the same heads, bf16 and f32 queries
+    slab_w = {f"D {d}": dataclasses.replace(cfg, name=f"d{d}", **{**HEADS_512, "d_head": d})
+              for d in SLAB_WIDTHS}
+    slab_f32 = {f"{lab}, f32 q": w for lab, w in slab_w.items()}
+    stream_cases += tuple((f"{lab}, selective refresh", w, lay, slots, "selective refresh")
+                          for lab, w in slab_w.items()) + (
+        ("D 512, decode", slab_w["D 512"], lay, slots, "decode"),) + tuple(
+        (f"{lab}, selective refresh", w, lay, slots, "selective refresh", F32)
+        for lab, w in slab_f32.items())
     n = len(videos)
     paged_families, stream_families = family_kernel_cases()
     paged_families += [(B24, bcfg, blay, bslots), (W24, wide, pipe.layout, pipe.cache_slots),
@@ -4069,7 +4162,10 @@ def main(argv=None) -> int:
         ("f32 q", cfg, lay, slots, F32), (D256, d256, lay, slots),
         (D256_F32, d256, lay, slots, F32)] + [
         (lab, w, lay, slots, None, ("selective refresh",)) for lab, w in wide_ragged.items()] + [
-        (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in odd_f32.items()]
+        (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in odd_f32.items()] + [
+        (lab, w, lay, slots, None, REFRESH_CASES if lab == "D 512" else ("selective refresh",))
+        for lab, w in slab_w.items()] + [
+        (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in slab_f32.items()]
 
     def prefill_paged():
         main = check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)
@@ -4088,7 +4184,12 @@ def main(argv=None) -> int:
                     for lab, w in wide_ragged.items()},
                  **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab,
                                                    q_dtype=F32)
-                    for lab, w in odd_f32.items()}}
+                    for lab, w in odd_f32.items()},
+                 **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab)
+                    for lab, w in slab_w.items()},
+                 **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab,
+                                                   q_dtype=F32)
+                    for lab, w in slab_f32.items()}}
         return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
                 for i, m in enumerate(main)]
 
@@ -4106,7 +4207,10 @@ def main(argv=None) -> int:
             D256: check_rope_shift(torch, d256, pipe.layout, n, label=D256),
             **{f"D {d}": check_rope_shift(torch, {**widths, **wide_ragged}[f"D {d}"],
                                           pipe.layout, n, label=f"D {d}")
-               for d in (20, 90, 130)}})],
+               for d in (20, 90, 130)},
+            **{f"D {d}": check_rope_shift(torch, slab_w[f"D {d}"], pipe.layout, n,
+                                          label=f"D {d}")
+               for d in (320, 512)}})],
         "flash_refresh_paged": lambda: [check_flash_refresh_paged(
             torch, cfg, pipe.layout, pipe.cache_slots, n, paged_families)],
         "flash_packed": lambda: [with_cases(check_flash_packed(torch, pipe, streams), {
@@ -4125,7 +4229,9 @@ def main(argv=None) -> int:
                for lab, d, dt in (("D 256, H 8", 256, None), ("D 256, H 8, f32 q/k/v", 256, F32),
                                   *((f"D {d}, H 8", d, None) for d in WIDE_RAGGED),
                                   *((f"D {d}, H {16 if d <= 128 else 8}, f32 q/k/v", d, F32)
-                                    for d in ODD_WIDTHS + ODD_WIDE))}})],
+                                    for d in ODD_WIDTHS + ODD_WIDE),
+                                  *((f"D {d}, H 2", d, None) for d in SLAB_WIDTHS),
+                                  *((f"D {d}, H 2, f32 q/k/v", d, F32) for d in SLAB_WIDTHS))}})],
         "flash_refresh": lambda: [check_flash_refresh(torch, stream_cases, n, stream_families)],
         "flash_refresh_paged_int8": lambda: [with_cases(
             check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n), {
@@ -4144,7 +4250,12 @@ def main(argv=None) -> int:
                    for lab, w in wide_ragged.items()},
                 **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab,
                                                        q_dtype=F32)
-                   for lab, w in odd_f32.items()}})],
+                   for lab, w in odd_f32.items()},
+                **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab)
+                   for lab, w in slab_w.items()},
+                **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab,
+                                                       q_dtype=F32)
+                   for lab, w in slab_f32.items()}})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
         "ssd_scan_bwd": lambda: [check_ssd_scan_bwd(torch)],
         "flash_prefill": lambda: [with_cases(
@@ -4169,18 +4280,29 @@ def main(argv=None) -> int:
                 f"D {w.d_head}, f32 q/k/v": check_flash_prefill(
                     torch, w, lay.total_len, n, only=("causal",), label=f"D {w.d_head}, f32 q/k/v",
                     dtype=F32)
-                for w in odd_f32.values()})],
+                for w in odd_f32.values()} | {
+                lab: check_flash_prefill(torch, w, lay.total_len, n, label=lab, only=(
+                    "causal", "chunk at an offset", "sliding window", "ragged")
+                    if lab == "D 512" else ("causal",))
+                for lab, w in slab_w.items()} | {
+                f"{lab}, f32 q/k/v": check_flash_prefill(
+                    torch, w, lay.total_len, n, only=("causal",), label=f"{lab}, f32 q/k/v",
+                    dtype=F32)
+                for lab, w in slab_w.items()})],
         "flash_prefill_paged": prefill_paged,
     }
     if only - set(checks):
         log(f"FAIL: --only names no check: {sorted(only - set(checks))}")
         return 1
+    t0 = time.perf_counter()
     results = [r for name, run in checks.items() if not only or name in only for r in run()]
+    log(f"kernels (phase 3): {time.perf_counter() - t0:.1f} s")
     phase_launches = ops.launch_counts()
     del streams, unpruned, bench, bench_streams
     gc.collect()
     torch.cuda.empty_cache()
     rows = [r for _, r in results]
+    slab_table(rows)
     if not all(ok for ok, _ in results):
         log("FAIL: a kernel disagrees with its plain version")
         return 1
@@ -4188,6 +4310,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": rows}))
         print(smi)
         return 0
+    t0 = time.perf_counter()
     if not check_lm_head(torch, cfg, pipe.params):
         log("FAIL: lm_logits does not keep the head product's f32 result")
         return 1
@@ -4197,6 +4320,7 @@ def main(argv=None) -> int:
     if not contracts_phase(torch):
         log("FAIL: contracts phase")
         return 1
+    log(f"LM head, mha, contracts: {time.perf_counter() - t0:.1f} s")
 
     # -- 4. serve -------------------------------------------------------
     ops.reset_launch_counts()
@@ -4266,6 +4390,7 @@ def main(argv=None) -> int:
         row["launches_by_path"] = {lab: n[name] for lab, n in by_path.items() if name in n}
 
     # -- 6. composite: kernels vs plain versions at 4 layers -------------
+    t0 = time.perf_counter()
     short = [(f[:20], lab) for f, lab in videos]   # one fresh + one incremental window
     cfg4 = dataclasses.replace(cfg, n_layers=4)
     params = init_lm_params(cfg4, SEED, "cuda")
@@ -4298,6 +4423,7 @@ def main(argv=None) -> int:
             log(f"FAIL: composite check [{SSM_ARCH}, {mode}]")
             return 1
     del params, vparams
+    log(f"composite: {time.perf_counter() - t0:.1f} s")
 
     # -- 7. families: MoE and hybrid at full width ------------------------
     t0 = time.perf_counter()
@@ -4313,7 +4439,9 @@ def main(argv=None) -> int:
         return 1
 
     # -- 8. training: whisper-large-v3 at full size, the anomaly task ------
+    t0 = time.perf_counter()
     ok, train_by_path = train_phase(torch)
+    log(f"train: {time.perf_counter() - t0:.1f} s")
     if not ok:
         log("FAIL: train phase")
         return 1
@@ -4324,15 +4452,20 @@ def main(argv=None) -> int:
             row["launches"] = train_by_path[row["launches_path"]].get(row["name"], 0)
 
     # -- 9. mesh: the host mesh, the roofline of a step, the dry run -------
+    t0 = time.perf_counter()
     if not mesh_phase(torch, smi):
         log("FAIL: mesh phase")
         return 1
 
+    log(f"mesh: {time.perf_counter() - t0:.1f} s")
+
     # -- 10. the examples on the card -------------------------------------
+    t0 = time.perf_counter()
     if not examples_phase(Path(args.src).resolve()):
         log("FAIL: examples phase")
         return 1
 
+    log(f"examples: {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -45,11 +45,12 @@
 // and, under KEY_BITS, k_info_row / k_live (a live bit per key).  A Build
 // supplies the widths and the operands' types:
 //
-//   * head dims: a build of width D (24, 32, 64, 128 or 256) lays out
+//   * head dims: a build of width D (24, 32, 64, 128, 256 or 512) lays out
 //     shared memory and runs the products for D columns.  An exact build
-//     (attention.cu) takes d == D, and compiles to the code these kernels
-//     had before other widths were taken; a ragged build takes any head
-//     dim d <= D (attention_any.cu, and every f32 build): it copies a
+//     (attention.cu; attention_512.cu at 512) takes d == D, and the ones
+//     up to 256 compile to the code these kernels had before other widths
+//     were taken; a ragged build takes any head dim d <= D
+//     (attention_any.cu, attention_512.cu, and every f32 build): it copies a
 //     row's live 8-column chunks, zeroes K's columns [d, DK) once per
 //     block (Q's are zeros too, so Q K^T is exact), and stores d output
 //     columns.  A row of d bf16 is 16-byte aligned only where d is a
@@ -60,9 +61,9 @@
 //     cold row of d bytes in 4-byte copies or 2- or 1-byte loads; q and
 //     the output element by element.  Each d runs on the smallest build
 //     that holds it (d 1-24 on 24; 33-64 on 64, and 25-31 in bf16; 65-128
-//     on 128; 129-255 on 256), whose padded products cost up to D / d
-//     more (1.6x at d 80, 1.9x at d 136).  D 256 is WIDE (below: a block
-//     shape of its own);
+//     on 128; 129-255 on 256; 257-511 on 512), whose padded products cost
+//     up to D / d more (1.6x at d 80, 1.9x at d 136).  D 256 is WIDE and D
+//     512 SLAB (below: block shapes of their own);
 //   * operand types: OPS_BF16 (bf16 q, k, v and output), OPS_Q32 (f32 q
 //     over bf16 k, v, f32 output: what an f32 LM hands the refresh
 //     kernels: its caches and slab are bf16) and OPS_F32 (f32 q, k and v,
@@ -126,6 +127,27 @@
 // every k16 step, as a split query does.  Shared memory: Q 33.8 KB (67.6
 // with its low half), a K or V slot 16.9 KB; bf16 101 KB (two blocks an
 // SM), + int8 staging 134 KB, OPS_F32's four arrays a slot 203 KB.
+//
+// The SLAB body (D 512) splits O's columns over blocks: O's 512 columns
+// would take 256 f32 registers a thread.  Each block runs the WIDE body on
+// one slab of DV = 256 (or 128) columns of V and O (the slab a grid
+// dimension: blockIdx.y = head x SLABS + slab), while Q K^T sums over
+// every column of Q and K, so each slab's softmax is the whole head's,
+// recomputed per slab: the blocks of a query block compute the same S bit
+// for bit, read the same K tiles, and each its own slab of V.  On two
+// slabs Q K^T's work is done twice (the products cost 1.5x their ideal
+// count; 2.5x on four).  Shared memory
+// at rows of 520 bf16 (1040 B): Q 66.6 KB, a 32-key K slot 33.3 KB, its V
+// slot 16.9 KB: bf16 167 KB in two stages, + int8 staging (K's 512 bytes
+// a row and the slab's 256) 216 KB.  The ragged bf16 build halves the key
+// step to 16, whose narrow copies otherwise pass 255 registers beside O's
+// 128 in the prefill kernels (117 KB, + int8 141 KB).  An f32 query takes
+// 16-key steps too, on four slabs of 128 columns (O's 64 registers: its
+// split query and P passed 255 beside 128 in the int8 prefill; Q's low
+// half, where the oracle keeps it, 66.6 KB more: 175 KB, + int8 196 KB),
+// whose slabs past a ragged d exit at once.  OPS_F32's four arrays a slot
+// halve the query rows to 32 (two warps: Q's halves 66.6 KB, two 16-key
+// stages 100 KB).
 // Compile-time hooks whose refresh values keep the refresh
 // kernels' code: no per-key bits (KEY_BITS false, prefill and packed: the
 // key range is the whole mask, and the kv_valid copies and ballots compile
@@ -175,7 +197,10 @@ enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2 };
 // elements stay aligned to (4, 2; 1 at an odd dh).
 // Its block shape (see the header): up to D 128, THREADS 256 (8 warps)
 // own a whole 128-row query tile in BK = 64-key steps; a WIDE build (D
-// 256) has 4 warps own QROWS = 64 rows, half a tile, in 32-key steps.
+// 256) has 4 warps own QROWS = 64 rows, half a tile, in 32-key steps; a
+// SLAB build (D 512) runs that shape on one of SLABS column slabs of DV
+// columns of V and O (16-key steps for an f32 query and a ragged d, slabs
+// of 128 for an f32 query, and 2 warps over 32 rows for f32 q/k/v).
 template <int D_, bool RAGGED_, int OPS_>
 struct Build {
   static constexpr int D = D_;
@@ -183,8 +208,15 @@ struct Build {
   static constexpr int OPS = OPS_;
   static constexpr bool SPLIT_KV = OPS_ == OPS_F32;   // K, V as bf16 hi + lo
   static constexpr bool WIDE = D_ > 128;
-  static constexpr int THREADS = WIDE ? 128 : 256;     // 16 query rows a warp
-  static constexpr int BK = WIDE ? 32 : 64;            // keys a step (one ring slot)
+  // V's and O's column slabs: 256 columns (128 for an f32 query, whose
+  // split query and P pass 255 registers beside O's 128 in the int8
+  // prefill)
+  static constexpr int SLABS = D_ > 256 ? D_ / (OPS_ == OPS_Q32 ? 128 : 256) : 1;
+  static constexpr bool SLAB = SLABS > 1;
+  static constexpr int DV = D_ / SLABS;                // V's and O's columns a block
+  static constexpr int THREADS = !WIDE ? 256 : SLAB && SPLIT_KV ? 64 : 128;  // 16 rows a warp
+  // keys a step (one ring slot)
+  static constexpr int BK = !WIDE ? 64 : SLAB && (OPS_ != OPS_BF16 || RAGGED_) ? 16 : 32;
   static constexpr int QROWS = THREADS / 2;            // query rows a block
   int dh;                                              // the operands' head dim
   int cw;                                              // its copy chunk (elements)
@@ -217,12 +249,15 @@ struct Slot {
   bf16* Vlo;
 };
 
-// the K/V operands in device memory (k_lo, v_lo: OPS_F32's low halves)
+// the K/V operands in device memory (k_lo, v_lo: OPS_F32's low halves);
+// a SLAB build's block reads V's columns [v0, v0 + dv) of its slab
+// (neither is read by the other builds)
 struct KV {
   const bf16* k;
   const bf16* v;
   const bf16* k_lo;
   const bf16* v_lo;
+  int v0, dv;
 };
 
 // Where row r, columns [c8, c8 + 8) of a ring slot's K or V live (in
@@ -265,20 +300,57 @@ __device__ __forceinline__ int row_lanes_log2(int np) {
 template <class B>
 __device__ void narrow_rows(const Slot& st, const KV& kv, long long row0, int Hkv, int kvh,
                             int tid, const B& bd, int n_in = B::BK) {
-  constexpr int D = B::D;
+  constexpr int D = B::D, DV = B::DV;
   const int lg = row_lanes_log2(bd.dh / bd.cw);
   for (int i = tid; i < (B::BK << lg); i += B::THREADS) {
     const int r = i >> lg;
     const bool in = r < n_in;
     const long long off = ((row0 + (in ? r : 0)) * Hkv + kvh) * bd.dh;
-    for (int c = (i & ((1 << lg) - 1)) * bd.cw; c < bd.dh; c += bd.cw << lg) {
+    const int c1 = (i & ((1 << lg) - 1)) * bd.cw;    // this thread's first piece
+    for (int c = c1; c < bd.dh; c += bd.cw << lg) {
       narrow_piece(st.K + PaddedRows<D>::at(r, c), kv.k + off + c, bd.cw, in);
-      narrow_piece(st.V + PaddedRows<D>::at(r, c), kv.v + off + c, bd.cw, in);
+      if constexpr (!B::SLAB)
+        narrow_piece(st.V + PaddedRows<D>::at(r, c), kv.v + off + c, bd.cw, in);
       if constexpr (B::SPLIT_KV) {
         narrow_piece(st.Klo + PaddedRows<D>::at(r, c), kv.k_lo + off + c, bd.cw, in);
-        narrow_piece(st.Vlo + PaddedRows<D>::at(r, c), kv.v_lo + off + c, bd.cw, in);
+        if constexpr (!B::SLAB)
+          narrow_piece(st.Vlo + PaddedRows<D>::at(r, c), kv.v_lo + off + c, bd.cw, in);
       }
     }
+    if constexpr (B::SLAB) {   // V: the slab's columns only
+      for (int c = c1; c < kv.dv; c += bd.cw << lg) {
+        narrow_piece(st.V + PaddedRows<DV>::at(r, c), kv.v + off + kv.v0 + c, bd.cw, in);
+        if constexpr (B::SPLIT_KV)
+          narrow_piece(st.Vlo + PaddedRows<DV>::at(r, c), kv.v_lo + off + kv.v0 + c, bd.cw, in);
+      }
+    }
+  }
+}
+
+// a SLAB build's rows in whole 16-byte chunks: K's d columns, then the
+// slab's dv columns of V (rows [n_in, BK) zero-filled, nothing read for
+// them: key rows past Sk)
+template <class B>
+__device__ void slab_rows(const Slot& st, const KV& kv, long long row0, int Hkv, int kvh,
+                          int tid, const B& bd, int n_in) {
+  constexpr int D = B::D, DV = B::DV;
+  for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
+    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+    if (!bd.col(c8)) continue;
+    const bool in = r < n_in;
+    const long long off = ((row0 + (in ? r : 0)) * Hkv + kvh) * bd.d() + c8;
+    cp_async16_fill(st.K + PaddedRows<D>::at(r, c8), kv.k + off, in ? 16 : 0);
+    if constexpr (B::SPLIT_KV)
+      cp_async16_fill(st.Klo + PaddedRows<D>::at(r, c8), kv.k_lo + off, in ? 16 : 0);
+  }
+  for (int i = tid; i < B::BK * DV / 8; i += B::THREADS) {
+    const int r = i / (DV / 8), c8 = (i % (DV / 8)) * 8;
+    if (B::RAGGED && c8 >= kv.dv) continue;
+    const bool in = r < n_in;
+    const long long off = ((row0 + (in ? r : 0)) * Hkv + kvh) * bd.d() + kv.v0 + c8;
+    cp_async16_fill(st.V + PaddedRows<DV>::at(r, c8), kv.v + off, in ? 16 : 0);
+    if constexpr (B::SPLIT_KV)
+      cp_async16_fill(st.Vlo + PaddedRows<DV>::at(r, c8), kv.v_lo + off, in ? 16 : 0);
   }
 }
 
@@ -288,6 +360,10 @@ __device__ void async_rows(const Slot& st, const KV& kv, long long row0, int Hkv
   constexpr int D = B::D;
   if (!bd.whole()) {
     narrow_rows(st, kv, row0, Hkv, kvh, tid, bd);
+    return;
+  }
+  if constexpr (B::SLAB) {
+    slab_rows(st, kv, row0, Hkv, kvh, tid, bd, B::BK);
     return;
   }
   for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
@@ -300,6 +376,58 @@ __device__ void async_rows(const Slot& st, const KV& kv, long long row0, int Hkv
       cp_async16(st.Klo + PaddedRows<D>::at(r, c8), kv.k_lo + off);
       cp_async16(st.Vlo + PaddedRows<D>::at(r, c8), kv.v_lo + off);
     }
+  }
+}
+
+// a SLAB build's int8 cold rows [row0, row0 + BK) of one operand: columns
+// [col0, col0 + n) of rows of d bytes -> staging rows of W bytes, in 16-
+// or 8-byte copies (rows on 16- or 8-byte boundaries) or in fetch's
+// narrow pieces
+template <class B, int W>
+__device__ void cold_slab_rows(int8_t* dst, const int8_t* src, long long row0, int Hkv,
+                               int kvh, int col0, int n, int tid, const B& bd) {
+  if (bd.whole()) {
+    constexpr int CH = B::RAGGED ? 8 : 16;
+    for (int i = tid; i < B::BK * W / CH; i += B::THREADS) {
+      const int r = i / (W / CH), c = (i % (W / CH)) * CH;
+      if (B::RAGGED && c >= n) continue;
+      const long long off = ((row0 + r) * Hkv + kvh) * bd.d() + col0 + c;
+      if constexpr (CH == 16) cp_async16(dst + r * W + c, src + off);
+      else cp_async8(dst + r * W + c, src + off);
+    }
+    return;
+  }
+  const int w = bd.dh % 4 == 0 ? 4 : bd.dh % 2 == 0 ? 2 : 1;
+  const int lg = row_lanes_log2(bd.dh / w);
+  for (int i = tid; i < (B::BK << lg); i += B::THREADS) {
+    const int r = i >> lg;
+    const long long off = ((row0 + r) * Hkv + kvh) * bd.dh + col0;
+    for (int c = (i & ((1 << lg) - 1)) * w; c < n; c += w << lg) {
+      if (w == 4) cp_async_ca<4>(dst + r * W + c, src + off + c);
+      else if (w == 2)   // plain 2-byte loads (cp.async copies 4 bytes at least)
+        *reinterpret_cast<uint16_t*>(dst + r * W + c) =
+            *reinterpret_cast<const uint16_t*>(src + off + c);
+      else dst[r * W + c] = src[off + c];
+    }
+  }
+}
+
+// a SLAB build's staged int8 rows of W bytes, n of them live, times s in
+// f32 and rounded to bf16 -> a slot's rows (a last chunk's columns from n
+// on as zeros)
+template <class B, int W>
+__device__ void dequant_slab_rows(bf16* dst, const int8_t* src, float s, int n, int tid,
+                                  const B& bd) {
+  for (int i = tid; i < B::BK * W / 8; i += B::THREADS) {
+    const int r = i / (W / 8), c8 = (i % (W / 8)) * 8;
+    if (B::RAGGED && c8 >= n) continue;
+    const uint2 raw = *reinterpret_cast<const uint2*>(src + r * W + c8);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+    __align__(16) bf16 o[8];
+    const int m = bd.whole() ? 8 : min(8, n - c8);
+    #pragma unroll
+    for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16_rn(t < m ? (float)e[t] * s : 0.f);
+    *reinterpret_cast<uint4*>(dst + PaddedRows<W>::at(r, c8)) = *reinterpret_cast<const uint4*>(o);
   }
 }
 
@@ -320,12 +448,19 @@ struct ColdPages {
   // not a multiple of 16 bytes: D 24, and any ragged d); a d that is not a
   // multiple of 8 in pieces of 4 bytes (cp.async) where d is a multiple
   // of 4, else of 2 or 1 bytes by plain loads
+  // (SLAB: K's d bytes a row, and the slab's dv bytes of V into rows of
+  // DV bytes)
   template <class B>
-  __device__ void fetch(const Slot& st, int entry, int c0, int Hkv, int kvh, int tid,
-                        const B& bd) const {
+  __device__ void fetch(const Slot& st, const KV& kv, int entry, int c0, int Hkv, int kvh,
+                        int tid, const B& bd) const {
     constexpr int D = B::D;
     constexpr int CH = !B::RAGGED && D % 16 == 0 ? 16 : 8;
     const long long row0 = (long long)(entry - n_hot) * TILE + c0;
+    if constexpr (B::SLAB) {
+      cold_slab_rows<B, D>(st.K8, k8, row0, Hkv, kvh, 0, bd.d(), tid, bd);
+      cold_slab_rows<B, B::DV>(st.V8, v8, row0, Hkv, kvh, kv.v0, kv.dv, tid, bd);
+      return;
+    }
     if (!bd.whole()) {     // pieces of w bytes laid out as narrow_rows lays them
       const int w = bd.dh % 4 == 0 ? 4 : bd.dh % 2 == 0 ? 2 : 1;
       const int lg = row_lanes_log2(bd.dh / w);
@@ -369,12 +504,17 @@ struct ColdPages {
   // tile into the slot's bf16 rows (a last chunk's columns from d on as
   // zeros, as K's must be); true if the caller must synchronise
   template <class B>
-  __device__ bool finish(const Slot& st, int entry, int Hkv, int kvh, int tid,
+  __device__ bool finish(const Slot& st, const KV& kv, int entry, int Hkv, int kvh, int tid,
                          const B& bd) const {
     constexpr int D = B::D;
     if (entry < n_hot) return false;
     const int cp = entry - n_hot;
     const float ks = k_scale[cp * Hkv + kvh], vs = v_scale[cp * Hkv + kvh];
+    if constexpr (B::SLAB) {
+      dequant_slab_rows<B, D>(st.K, st.K8, ks, bd.d(), tid, bd);
+      dequant_slab_rows<B, B::DV>(st.V, st.V8, vs, kv.dv, tid, bd);
+      return true;
+    }
     for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       if (!bd.col(c8)) continue;
@@ -434,7 +574,9 @@ struct RefreshMask {
   __device__ bool k_live(uint8_t valid) const { return valid != 0; }
   // after a slot's copies landed: a bf16 tile needs no further work
   template <class B>
-  __device__ bool finish_kv(const Slot&, int, int, int, int, int, const B&) const { return false; }
+  __device__ bool finish_kv(const Slot&, const KV&, int, int, int, int, int, const B&) const {
+    return false;
+  }
 };
 
 // per-stream caches: tile j of stream b is rows b * Sk + j * TILE
@@ -491,7 +633,9 @@ struct PrefillMask {
     return lo > hi ? make_int2(-kp0, Sk - 1 - kp0) : make_int2(lo - kp0, hi - kp0);
   }
   template <class B>
-  __device__ bool finish_kv(const Slot&, int, int, int, int, int, const B&) const { return false; }
+  __device__ bool finish_kv(const Slot&, const KV&, int, int, int, int, int, const B&) const {
+    return false;
+  }
 };
 
 // per-stream K/V (B, Sk, Hkv, D), any Sk: key rows from Sk on (a ragged
@@ -504,6 +648,10 @@ struct Prefill : PrefillMask {
     const int key0 = j * TILE + c0;
     if (!bd.whole()) {
       narrow_rows(st, kv, (long long)b * Sk + key0, Hkv, kvh, tid, bd, Sk - key0);
+      return;
+    }
+    if constexpr (B::SLAB) {
+      slab_rows(st, kv, (long long)b * Sk + key0, Hkv, kvh, tid, bd, Sk - key0);
       return;
     }
     for (int i = tid; i < B::BK * D / 8; i += B::THREADS) {
@@ -548,12 +696,12 @@ struct WithColdPages : Paged {
     if (entry < cold.n_hot)
       async_rows(st, kv, (long long)entry * TILE + c0, Hkv, kvh, tid, bd);
     else
-      cold.fetch(st, entry, c0, Hkv, kvh, tid, bd);
+      cold.fetch(st, kv, entry, c0, Hkv, kvh, tid, bd);
   }
   template <class B>
-  __device__ bool finish_kv(const Slot& st, int b, int j, int Hkv, int kvh, int tid,
-                            const B& bd) const {
-    return cold.finish(st, this->page(b, j), Hkv, kvh, tid, bd);
+  __device__ bool finish_kv(const Slot& st, const KV& kv, int b, int j, int Hkv, int kvh,
+                            int tid, const B& bd) const {
+    return cold.finish(st, kv, this->page(b, j), Hkv, kvh, tid, bd);
   }
 };
 using RefreshPagedQuant = WithColdPages<RefreshPaged>;
@@ -587,7 +735,9 @@ struct Packed {
     async_rows(st, kv, (long long)b * L + j * TILE + c0, Hkv, kvh, tid, bd);
   }
   template <class B>
-  __device__ bool finish_kv(const Slot&, int, int, int, int, int, const B&) const { return false; }
+  __device__ bool finish_kv(const Slot&, const KV&, int, int, int, int, int, const B&) const {
+    return false;
+  }
 };
 
 // ---- the body: S, P and O in registers -----------------------------------
@@ -611,26 +761,30 @@ struct Split {
 
 template <class B, class P>
 struct MmaSmem {
-  static constexpr int D = B::D;
+  static constexpr int D = B::D, DV = B::DV;
   static constexpr int LDQ = PaddedRows<D>::LDH;   // padded query rows (ldmatrix)
-  // two stages at D 256 (a bf16 block's 101 KB lets two blocks share an
-  // SM) and for OPS_F32 at D 128
+  // two stages at D 256 and 512 (a bf16 block's 101 KB at D 256 lets two
+  // blocks share an SM) and for OPS_F32 at D 128
   static constexpr int STAGES = B::WIDE || (B::SPLIT_KV && D == 128) ? 2 : 3;
-  static constexpr size_t slot_kv = sizeof(bf16) * B::BK * PaddedRows<D>::LDH;
+  static constexpr size_t slot_kv = sizeof(bf16) * B::BK * PaddedRows<D>::LDH;  // a K slot
+  static constexpr size_t slot_v = sizeof(bf16) * B::BK * PaddedRows<DV>::LDH;  // a V slot
   static constexpr size_t slot_lo = B::SPLIT_KV ? slot_kv : 0;      // K and V low halves
+  static constexpr size_t slot_vlo = B::SPLIT_KV ? slot_v : 0;
   static constexpr size_t slot_ki = P::KEY_BITS ? B::BK : 0;    // kv_valid bytes
   static constexpr size_t slot_i8 = P::COLD ? B::BK * D : 0;
+  static constexpr size_t slot_v8 = P::COLD ? B::BK * DV : 0;
   static constexpr size_t q_bytes = sizeof(bf16) * B::QROWS * LDQ;
   static constexpr size_t q = 0;
   static constexpr size_t qlo = q + q_bytes;                      // Q's low half
   static constexpr size_t k = qlo + (Split<B, P>::q ? q_bytes : 0);
   static constexpr size_t v = k + STAGES * slot_kv;
-  static constexpr size_t klo = v + STAGES * slot_kv;
+  static constexpr size_t klo = v + STAGES * slot_v;
   static constexpr size_t vlo = klo + STAGES * slot_lo;
-  static constexpr size_t ki = vlo + STAGES * slot_lo;
+  static constexpr size_t ki = vlo + STAGES * slot_vlo;
   static constexpr size_t k8 = ki + ((STAGES * slot_ki + 15) / 16) * 16;
   static constexpr size_t v8 = k8 + STAGES * slot_i8;
-  static constexpr size_t bytes = v8 + STAGES * slot_i8;
+  static constexpr size_t bytes = v8 + STAGES * slot_v8;
+  static_assert(bytes <= 232448, "an H100 block has 227 KB of shared memory");
 };
 
 template <class B, class P>
@@ -641,13 +795,13 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v_lo) {
   using L = MmaSmem<B, P>;
   using S = Split<B, P>;
-  constexpr int D = B::D;
+  constexpr int D = B::D, DV = B::DV;
   constexpr int THREADS = B::THREADS, BK = B::BK, QROWS = B::QROWS;
   constexpr int LDQ = L::LDQ, STAGES = L::STAGES;
   constexpr int SPT = TILE / BK;         // steps per visited tile
   constexpr int NT = BK / 8;             // n8 tiles of S per step
   constexpr int DK = PaddedRows<D>::DK;  // Q K^T's depth: D, or D 24 zero-padded to 32
-  constexpr int DT = D / 8;              // n8 tiles of O (odd at D 24)
+  constexpr int DT = DV / 8;             // n8 tiles of O (odd at D 24)
   constexpr int KC = DK / 16;            // k16 chunks of Q K^T
   constexpr int KI_COPIES = BK / 16;
   constexpr bool Q_F32 = B::OPS != OPS_BF16;
@@ -658,14 +812,13 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
   bf16* Qlo = reinterpret_cast<bf16*>(smem + L::qlo);
   uint8_t* Ki = reinterpret_cast<uint8_t*>(smem + L::ki);
-  const KV kv{k, v, k_lo, v_lo};
   auto slot = [&](int i) {
     return Slot{reinterpret_cast<bf16*>(smem + L::k + i * L::slot_kv),
-                reinterpret_cast<bf16*>(smem + L::v + i * L::slot_kv),
+                reinterpret_cast<bf16*>(smem + L::v + i * L::slot_v),
                 reinterpret_cast<int8_t*>(smem + L::k8 + i * L::slot_i8),
-                reinterpret_cast<int8_t*>(smem + L::v8 + i * L::slot_i8),
+                reinterpret_cast<int8_t*>(smem + L::v8 + i * L::slot_v8),
                 reinterpret_cast<bf16*>(smem + L::klo + i * L::slot_lo),
-                reinterpret_cast<bf16*>(smem + L::vlo + i * L::slot_lo)};
+                reinterpret_cast<bf16*>(smem + L::vlo + i * L::slot_vlo)};
   };
   // the query's factor before QK^T, and the scores' factor in exp(x - m) =
   // 2^(x c - m c): the refresh oracle scales the query, EXACT the scores
@@ -673,29 +826,37 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   const float c2 = P::EXACT ? scale * LOG2E : LOG2E;
 
   // the block's QROWS query rows from q0, in map tile iq (whose visit list
-  // it walks: a WIDE block owns half of it)
-  const int bq = prob.q_tile(blockIdx.x), h = blockIdx.y, b = blockIdx.z;
+  // it walks: a WIDE block owns half of it), and (SLAB) its slab of V and
+  // O: columns [v0, v0 + dv)
+  const int bq = prob.q_tile(blockIdx.x), h = blockIdx.y / B::SLABS, b = blockIdx.z;
   const int iq = bq / (TILE / QROWS);
   const int q0 = bq * QROWS;
   const int kvh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int d = bd.d();
+  const int v0 = (blockIdx.y % B::SLABS) * DV;
+  if (B::SLAB && v0 >= d) return;       // a slab past a ragged d (f32 query: 128 columns)
+  const int dv = B::SLAB ? min(DV, d - v0) : d;
+  const KV kv{k, v, k_lo, v_lo, v0, dv};
   const long long q_stride = (long long)H * d;   // between query rows
   const QT<B>* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * d;
-  QT<B>* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * d;
+  QT<B>* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * d + v0;
+  // whether O's columns [c8, c8 + 8) of the block hold data, and how many
+  auto o_col = [&](int c8) { return B::SLAB ? !B::RAGGED || c8 < dv : bd.col(c8); };
+  auto o_live = [&](int c8) { return B::SLAB ? (B::RAGGED ? min(8, dv - c8) : 8) : bd.live(c8); };
 
   // rows that no key can reach (padding) are exact zeros: a block with no
   // live row skips the loop; rows from Sq on are neither read nor written
   const int n_rows = min(QROWS, Sq - q0);
   const int live = tid < n_rows ? prob.q_live(prob.q_info(b, q0 + tid)) : 0;
   if (!__syncthreads_or(live)) {
-    for (int i = tid; i < n_rows * D / 8; i += THREADS) {
-      const int c8 = (i % (D / 8)) * 8;
-      if (!bd.col(c8)) continue;
-      QT<B>* orow = ob + (i / (D / 8)) * q_stride + c8;
+    for (int i = tid; i < n_rows * DV / 8; i += THREADS) {
+      const int c8 = (i % (DV / 8)) * 8;
+      if (!o_col(c8)) continue;
+      QT<B>* orow = ob + (i / (DV / 8)) * q_stride + c8;
       if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
-        for (int t = 0; t < bd.live(c8); ++t) orow[t] = cs_from_float<QT<B>>(0.f);
+        for (int t = 0; t < o_live(c8); ++t) orow[t] = cs_from_float<QT<B>>(0.f);
         continue;
       }
       uint4* o8 = reinterpret_cast<uint4*>(orow);
@@ -823,7 +984,7 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     fetch(s + STAGES - 1);
     const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * BK;
     const Slot st = slot(s % STAGES);
-    if (prob.finish_kv(st, b, j, Hkv, kvh, tid, bd)) __syncthreads();
+    if (prob.finish_kv(st, kv, b, j, Hkv, kvh, tid, bd)) __syncthreads();
     if (!compute) continue;
 
     // S = Q K^T (16 rows x BK keys per warp); split: hi K + lo K (+ hi
@@ -885,8 +1046,11 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
       if constexpr (BK == 64)
         live_keys = ((uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane + 32])) << 32 |
                      __ballot_sync(0xffffffffu, prob.k_live(kin[lane]))) >> (2 * t4);
-      else
+      else if constexpr (BK == 32)
         live_keys = (uint64_t)__ballot_sync(0xffffffffu, prob.k_live(kin[lane])) >> (2 * t4);
+      else     // 16-key steps: lanes 16-31 hold no key
+        live_keys = (uint64_t)__ballot_sync(0xffffffffu, lane < BK && prob.k_live(kin[lane]))
+                    >> (2 * t4);
     }
     const int kp0 = j * TILE + c0 + 2 * t4;     // this thread's column 0
     const uint64_t vis0 = ok0 ? live_keys & span_bits(prob.key_range(qp0, kp0)) : 0;
@@ -964,7 +1128,7 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
         const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         const int vcol = dp * 16 + (lane >> 4) * 8;
         uint32_t vb[4];
-        ldsm_x4_t(vb, st.V + PaddedRows<D>::at(vr, vcol));
+        ldsm_x4_t(vb, st.V + PaddedRows<DV>::at(vr, vcol));
         mma16816(o + 8 * dp, pa[kk], vb[0], vb[1]);
         mma16816(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
         if constexpr (S::p) {
@@ -972,7 +1136,7 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
           mma16816(o + 8 * dp + 4, pl, vb[2], vb[3]);
         }
         if constexpr (S::kv) {
-          ldsm_x4_t(vb, st.Vlo + PaddedRows<D>::at(vr, vcol));
+          ldsm_x4_t(vb, st.Vlo + PaddedRows<DV>::at(vr, vcol));
           mma16816(o + 8 * dp, pa[kk], vb[0], vb[1]);
           mma16816(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
         }
@@ -980,11 +1144,11 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
       if constexpr (DT % 2 == 1) {   // D 24: the last n8 tile of O alone
         const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         uint32_t vb[2];
-        ldsm_x2_t(vb, st.V + PaddedRows<D>::at(vr, (DT - 1) * 8));
+        ldsm_x2_t(vb, st.V + PaddedRows<DV>::at(vr, (DT - 1) * 8));
         mma16816(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
         if constexpr (S::p) mma16816(o + 4 * (DT - 1), pl, vb[0], vb[1]);
         if constexpr (S::kv) {
-          ldsm_x2_t(vb, st.Vlo + PaddedRows<D>::at(vr, (DT - 1) * 8));
+          ldsm_x2_t(vb, st.Vlo + PaddedRows<DV>::at(vr, (DT - 1) * 8));
           mma16816(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
         }
       }
@@ -1001,10 +1165,10 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   #pragma unroll
   for (int dn = 0; dn < DT; ++dn) {
     const int c = dn * 8 + 2 * t4;
-    if (!bd.col(dn * 8)) continue;
+    if (!o_col(dn * 8)) continue;
     if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element, to column d
-      if (c >= d) continue;
-      const bool pair = c + 1 < d;
+      if (c >= dv) continue;
+      const bool pair = c + 1 < dv;
       if (r0 < n_rows) {
         ob[r0 * q_stride + c] = cs_from_float<QT<B>>(o[4 * dn] * inv0);
         if (pair) ob[r0 * q_stride + c + 1] = cs_from_float<QT<B>>(o[4 * dn + 1] * inv0);
@@ -1041,7 +1205,7 @@ int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, i
   cudaError_t err = cudaFuncSetAttribute(
       mma_kernel<B, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H, Bn);
+  dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H * B::SLABS, Bn);
   mma_kernel<B, P><<<grid, B::THREADS, smem, stream>>>(
       (const QT<B>*)q, (const bf16*)k, (const bf16*)v, (QT<B>*)out, Sq, H, Hkv, scale, prob,
       B{dh, copy_chunk(dh)}, (const bf16*)k_lo, (const bf16*)v_lo);
@@ -1091,10 +1255,31 @@ struct Any {
   }
 };
 
+// head dims d = 257, ..., 512 on the SLAB build of width 512 (two column
+// slabs of V and O over blocks): the exact build at d 512 for bf16
+// operands, the ragged one otherwise (attention_512.cu,
+// attention_q32_512.cu, and attention_f32.cu's f32 q/k/v)
+template <int OPS>
+struct Any512 {
+  template <class P>
+  int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
+                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
+                 const void* k_lo = nullptr, const void* v_lo = nullptr) const {
+    if (dh <= 256 || dh > 512) return (int)cudaErrorInvalidValue;
+    if constexpr (OPS == OPS_BF16) {
+      if (dh == 512)
+        return launch_mma<Build<512, false, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale,
+                                                  prob, stream, k_lo, v_lo);
+    }
+    return launch_mma<Build<512, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, prob,
+                                             stream, k_lo, v_lo);
+  }
+};
+
 }  // namespace
 
 // The seven entry points, named cs_attn_<op>SUFFIX, each launching
-// through LAUNCH (Exact, or Any<OPS>).  q, out: (B, Sq, H, D) in the
+// through LAUNCH (Exact, Any<OPS> or Any512<OPS>).  q, out: (B, Sq, H, D) in the
 // build's q type (bf16, or f32 for OPS_Q32), any Sq; k, v bf16.
 //
 // refresh: k, v (B, n_tiles * 128, Hkv, D) per-stream caches; q_pos:

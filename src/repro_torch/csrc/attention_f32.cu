@@ -1,7 +1,8 @@
 // flash_packed and flash_prefill over f32 q, k and v (a ViT from an f32
 // checkpoint; the dense prefill of an f32 model), any head dim d up to
-// 256 (the WIDE D-256 build runs two stages of four arrays, 203 KB), f32
-// output.  Their oracles round nothing, so
+// 512 (the WIDE D-256 build runs two stages of four arrays, 203 KB; past
+// 256 the SLAB build of width 512, two warps over 32 query rows in 16-key
+// steps, 167 KB), f32 output.  Their oracles round nothing, so
 // every operand enters the tensor-core products as two bf16 halves, hi =
 // bf16(x) and lo = bf16(x - hi), about 16 bits: split_bf16_kernel writes
 // K's and V's halves into the caller's scratch (four bf16 arrays of k's
@@ -76,6 +77,9 @@ CS_EXPORT int cs_attn_packed_f32(const void* q, const void* k, const void* v, vo
   const int err = split_kv(k, v, s, n, stream);
   if (err != 0) return err;
   Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};
+  if (D > 256)
+    return Any512<OPS_F32>()(D, q, s, s + 2 * np, out, R, L, H, Hkv, scale, prob, stream,
+                             s + np, s + 3 * np);
   return Any<OPS_F32>()(D, q, s, s + 2 * np, out, R, L, H, Hkv, scale, prob, stream, s + np,
                         s + 3 * np);
 }
@@ -91,6 +95,9 @@ CS_EXPORT int cs_attn_prefill_f32(const void* q, const void* k, const void* v, v
   const int err = split_kv(k, v, s, n, stream);
   if (err != 0) return err;
   Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};
+  if (D > 256)
+    return Any512<OPS_F32>()(D, q, s, s + 2 * np, out, B, Sq, H, Hkv, scale, prob, stream,
+                             s + np, s + 3 * np);
   return Any<OPS_F32>()(D, q, s, s + 2 * np, out, B, Sq, H, Hkv, scale, prob, stream, s + np,
                         s + 3 * np);
 }

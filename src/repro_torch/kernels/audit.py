@@ -25,11 +25,12 @@ exceeded:
     each contract's ``recompile_budget``;
   * **configs** — every config of ``configs/registry.py``, at full size
     and ``-smoke``, at its serving geometry (the LM's heads and head dim,
-    the launcher's default ViT, mamba's state), and three served models
-    that are not registry configs (``variant_rows``: the JAX quickstart's
+    the launcher's default ViT, mamba's state), and served models that
+    are not registry configs (``variant_rows``: the JAX quickstart's
     widths, deepseek-7b in f32 at search radius 16, internvl3-14b with 20
-    LM heads of 256): which ops the card takes, and the rule that refuses
-    the rest.
+    LM heads of 256, with heads of 90 and 75, with LM and ViT heads of
+    512, mamba2-2.7b at d_state 256 and 512): which ops the card takes,
+    and the rule that refuses the rest.
 """
 from __future__ import annotations
 
@@ -274,10 +275,10 @@ def _prefill_rows() -> List[AuditRow]:
 def _width_rows() -> List[AuditRow]:
     """Head dims the kernels' ragged builds take (the JAX quickstart's 16,
     SigLIP's 72, Qwen2-VL's ViT's 80, 136 and 192 on the WIDE D-256
-    build; 20, 90 and a ViT's 75, which are not multiples of 8), the exact
-    256 (Gemma 2's heads), with bf16 and f32 queries over a bf16 slab and
-    f32 q/k/v in the packed ViT, and the width still refused: 264 (over
-    256)."""
+    build; 20, 90 and a ViT's 75, which are not multiples of 8; 320, 500
+    and 300 on the SLAB D-512 one), the exact 256 (Gemma 2's heads) and
+    512, with bf16 and f32 queries over a bf16 slab and f32 q/k/v in the
+    packed ViT, and the width still refused: 520 (over 512)."""
     rows = []
     lay, sw = LAYOUTS[2]
     slots = _slots(lay)
@@ -285,7 +286,8 @@ def _width_rows() -> List[AuditRow]:
     B, H, Hkv = 2, 8, 2
     for D, dt, expect in ((16, BF16, "kernel"), (72, F32, "kernel"), (80, BF16, "kernel"),
                           (136, BF16, "kernel"), (256, BF16, "kernel"), (192, F32, "kernel"),
-                          (90, BF16, "kernel"), (264, BF16, "refused:kernel-head-dim"),
+                          (90, BF16, "kernel"), (320, BF16, "kernel"), (512, BF16, "kernel"),
+                          (500, F32, "kernel"), (520, BF16, "refused:kernel-head-dim"),
                           (20, F32, "kernel")):
         q, k = _meta((B, bm.n_q, H, D), dt), _meta((B * slots, Hkv, D))
         q_pos, kvv = _meta((B, bm.n_q), I32), _meta((B, slots), torch.bool)
@@ -300,7 +302,8 @@ def _width_rows() -> List[AuditRow]:
     plan = pack_plan(synthetic_decision(ViTCfg(), 12, 64, 0.5, seed=3), ViTCfg(), tile=128)
     R, L = plan.seg_id.shape
     for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"), (256, F32, "kernel"),
-                          (75, BF16, "kernel"), (64, torch.float16, "refused:kernel-dtype")):
+                          (75, BF16, "kernel"), (512, BF16, "kernel"), (300, F32, "kernel"),
+                          (64, torch.float16, "refused:kernel-dtype")):
         q, seg = _meta((R, L, 4, D), dt), _meta((R, L), I32)
         rows.append(_run_one(
             "flash_packed", f"ViT D {D} {str(dt)[6:]} q/k/v, rows={R} L={L}", expect,
@@ -555,6 +558,13 @@ ODD_HEAD, ODD_VIT_HEAD, WIDE_RADIUS = 90, 75, 128
 # mamba2-2.7b's SSD state widened to 512: four column slabs of 128
 # (chip_smoke phases 7(j), 8(h))
 WIDER_STATE = 512
+# internvl3-14b re-cut to 10 LM heads of 512 over 2 kv heads and its ViT
+# (InternViT, d_model 1024) to 2 heads of 512 (chip_smoke phase 7(k):
+# the attention kernels' D-512 build): d_model, the GQA group of 5, the
+# parameters, the KV bytes per stream and the attention FLOPs stay those
+# of its 40 heads of 128 over 8 and its ViT's 16 heads of 64
+HEADS_512 = dict(n_heads=10, n_kv=2, d_head=512)
+VIT_HEADS_512 = 2
 
 
 def odd_heads(cfg: ModelCfg) -> ModelCfg:
@@ -565,21 +575,30 @@ def odd_heads(cfg: ModelCfg) -> ModelCfg:
         cfg.vit, d_model=cfg.vit.n_heads * ODD_VIT_HEAD))
 
 
+def heads_512(cfg: ModelCfg) -> ModelCfg:
+    """``cfg`` with LM heads of 512 (``HEADS_512``) and its ViT re-cut to
+    ``VIT_HEADS_512`` heads at its own d_model, as phase 7(k) serves
+    internvl3-14b."""
+    return dataclasses.replace(cfg, **HEADS_512, vit=dataclasses.replace(
+        cfg.vit, n_heads=VIT_HEADS_512))
+
+
 def with_state(cfg: ModelCfg, d_state: int) -> ModelCfg:
     """``cfg`` with its SSD state widened to ``d_state``."""
     return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=d_state))
 
 
 def variant_rows(streams: int = 2) -> List[ConfigRow]:
-    """Four served models that are not registry configs: the JAX
+    """Served models that are not registry configs: the JAX
     quickstart's (LM 4 heads of 16 over 2 kv heads, ViT 4 heads of 16;
     examples/quickstart.py), deepseek-7b in f32 ingested at search
     radius 16 (chip_smoke phase 7(e)), internvl3-14b with LM heads of
     256 (``WIDE_HEADS``; its ViT keeps InternViT's 16 heads of 64:
     chip_smoke phase 7(g)), internvl3-14b with LM heads of 90, ViT heads
-    of 75 and search radius 128 (``odd_heads``: phase 7(i)), and
-    mamba2-2.7b with an SSD state of 256 and of 512 (``WIDE_STATE``,
-    ``WIDER_STATE``: phases 7(h), 7(j))."""
+    of 75 and search radius 128 (``odd_heads``: phase 7(i)),
+    internvl3-14b with LM and ViT heads of 512 (``heads_512``: phase
+    7(k)), and mamba2-2.7b with an SSD state of 256 and of 512
+    (``WIDE_STATE``, ``WIDER_STATE``: phases 7(h), 7(j))."""
     qs = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
                   d_ff=128, vocab=64, tied_embeddings=True)
     qv = ViTCfg(n_layers=2, d_model=64, n_heads=4, d_ff=128, patch=14, image=112, group=2)
@@ -587,6 +606,7 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
     wide = dataclasses.replace(get_config("internvl3-14b"), **WIDE_HEADS)
     m2 = get_config("mamba2-2.7b")
     odd = odd_heads(get_config("internvl3-14b"))
+    h512 = heads_512(get_config("internvl3-14b"))
     return (_serving_calls("quickstart (JAX widths)", qs, qv,
                            CodecCfg(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4),
                            streams)
@@ -597,6 +617,8 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
             + _serving_calls("internvl3-14b, heads of 90 and 75, radius 128", odd, odd.vit,
                              dataclasses.replace(SERVING_CODEC, search_radius=WIDE_RADIUS),
                              streams)
+            + _serving_calls("internvl3-14b, LM and ViT heads of 512", h512, h512.vit,
+                             SERVING_CODEC, streams)
             + sum((_serving_calls(f"mamba2-2.7b, d_state {n}", with_state(m2, n),
                                   _serving_vit(m2), SERVING_CODEC, streams)
                    for n in (WIDE_STATE, WIDER_STATE)), []))
@@ -772,15 +794,15 @@ def refusal_cases(device) -> dict:
     f16 = (torch.ones(1, 2, dtype=torch.float16, device=dev),) * 2
     x, la, b, c, init = ssd_ok()
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
-    # a head dim the kernels have no build for: over 256
-    q264, k264 = rand(1, 8, 4, 264, dtype=BF16), rand(1, 8, 2, 264, dtype=BF16, seed=1)
-    pq264 = rand(1, 128, 4, 264, dtype=BF16)
-    k128w, slabw = rand(1, 128, 2, 264, dtype=BF16, seed=1), rand(256, 2, 264, dtype=BF16, seed=1)
+    # a head dim the kernels have no build for: over 512
+    q520, k520 = rand(1, 8, 4, 520, dtype=BF16), rand(1, 8, 2, 520, dtype=BF16, seed=1)
+    pq520 = rand(1, 128, 4, 520, dtype=BF16)
+    k128w, slabw = rand(1, 128, 2, 520, dtype=BF16, seed=1), rand(256, 2, 520, dtype=BF16, seed=1)
     return {
         ("rope_shift", "kernel-dtype"): rope(rand(1, 8, 2, 16, dtype=torch.float16)),
         ("rope_shift", "aligned"): rope(misaligned((1, 8, 2, 16))),
         ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8.half()),
-        ("flash_prefill", "kernel-head-dim"): prefill(q264, k264),
+        ("flash_prefill", "kernel-head-dim"): prefill(q520, k520),
         ("flash_prefill", "contiguous"): prefill(transposed(q8, 1, 2), k8),
         ("flash_prefill", "aligned"): prefill(misaligned((1, 8, 4, 32), BF16), k8),
         ("flash_prefill_paged", "page-tile"): prefill_paged(q8, slab, page=64),
@@ -788,7 +810,7 @@ def refusal_cases(device) -> dict:
             q8, slab[:128], cold=(slab[128:].float(), slab[128:].float(), ones, ones)),
         ("flash_prefill_paged", "scale-f32"): prefill_paged(q8, slab[:128], cold=i8 + f16),
         ("flash_prefill_paged", "kernel-dtype"): prefill_paged(q8.float(), slab.float()),
-        ("flash_prefill_paged", "kernel-head-dim"): prefill_paged(q264, slabw),
+        ("flash_prefill_paged", "kernel-head-dim"): prefill_paged(q520, slabw),
         ("flash_prefill_paged", "contiguous"): prefill_paged(transposed(q8, 1, 2), slab),
         ("flash_prefill_paged", "aligned"): prefill_paged(misaligned((1, 8, 4, 32), BF16),
                                                           slab),
@@ -801,7 +823,7 @@ def refusal_cases(device) -> dict:
         ("flash_refresh", "map-tile"): refresh(q4, k128, build_block_map(pos, 128, tq=64)),
         ("flash_refresh", "kernel-dtype"): refresh(q4.float(), k128.float(),
                                                    build_block_map(pos, 128)),
-        ("flash_refresh", "kernel-head-dim"): refresh(q264[:, :4], k128w,
+        ("flash_refresh", "kernel-head-dim"): refresh(q520[:, :4], k128w,
                                                       build_block_map(pos, 128)),
         ("flash_refresh", "aligned"): refresh(misaligned((1, 4, 4, 32), BF16), k128,
                                               build_block_map(pos, 128)),
@@ -824,7 +846,7 @@ def refusal_cases(device) -> dict:
         ("flash_refresh_paged", "kernel-dtype"): refresh_paged(
             q4.float(), slab.float(), [[1]], 128, build_block_map(pos, 128)),
         ("flash_refresh_paged", "kernel-head-dim"): refresh_paged(
-            q264[:, :4], slabw, [[1]], 128, build_block_map(pos, 128)),
+            q520[:, :4], slabw, [[1]], 128, build_block_map(pos, 128)),
         ("flash_refresh_paged", "aligned"): refresh_paged(
             misaligned((1, 4, 4, 32), BF16), slab, [[1]], 128, build_block_map(pos, 128)),
         ("flash_packed", "map-present"): packed(pq, seg, None),
@@ -838,7 +860,7 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "single-run"): packed(pq, torch.from_numpy(split).to(dev),
                                                build_pack_map(split)),
         ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np)),
-        ("flash_packed", "kernel-head-dim"): packed(pq264, seg, build_pack_map(seg_np)),
+        ("flash_packed", "kernel-head-dim"): packed(pq520, seg, build_pack_map(seg_np)),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
         ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),

@@ -439,8 +439,8 @@ _KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches
 _ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, or f32 q/k/v",
                 lambda f: _q_f32_or_bf16_over_bf16(f)
                 or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
-_HEAD_DIM = Rule("kernel-head-dim", "head dim must be at most 256 (the kernels' builds: 24, "
-                 "32, 64, 128 and 256)",
+_HEAD_DIM = Rule("kernel-head-dim", "head dim must be at most 512 (the kernels' builds: 24, "
+                 "32, 64, 128, 256 and 512)",
                  lambda f: 0 < f["q_shape"][3] <= cuda.MAX_HEAD_DIM)
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
@@ -763,11 +763,13 @@ _WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (
             "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
 _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
                 "bf16 halves written per call over the whole cache")
-_WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128 and 256 take every head dim from 1 to 256 "
-                 "(rows copied 16, 8 or 4 bytes at a time, or element by element, as their "
-                 "alignment allows); a head past 256 has none: the D-256 build's O already "
-                 "takes 128 registers a thread, so a wider one needs O's columns split over "
-                 "blocks")
+_WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128, 256 and 512 take every head dim from 1 to "
+                 "512 (rows copied 16, 8 or 4 bytes at a time, or element by element, as their "
+                 "alignment allows; past 256 each block holds a 256-column slab of V and O, "
+                 "Q K^T recomputed per slab); a head past 512 has none: Q's 64 rows (66.6 KB), "
+                 "a K slot (33.3 KB at 32 keys) and two stages already take 167 KB of the 227 "
+                 "KB at 512 (216 KB with int8 staging), and f32 q/k/v there run 32 query rows "
+                 "in 16-key steps, so a wider head needs Q K^T split over the depth as well")
 
 # How the port's eligibility rules differ from the reference's:
 # (op, code, "+" added by the port | "-" the reference's, dropped, why).

@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "attention_any.cu",
-           "attention_q32.cu", "attention_f32.cu", "ssd_scan.cu", "ssd_scan_staged.cu")
+           "attention_q32.cu", "attention_f32.cu", "attention_512.cu", "attention_q32_512.cu",
+           "ssd_scan.cu", "ssd_scan_staged.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,7 +41,7 @@ NVCC_FLAGS = (
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "cs_mv_sad_f32": (_p, _p, _i, _i, _i, _i, _p, _p, _p),
-    "cs_rope_shift": (_p, _p, _p, _ll, _i, _i, _f, _i, _p),
+    "cs_rope_shift": (_p, _p, _p, _ll, _i, _i, _p, _i, _p),
     "cs_attn_refresh_bf16": (
         _p, _p, _p, _p, _p, _p, _p, _p,
         _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
@@ -91,21 +92,25 @@ for _name in ("cs_ssd_scan", "cs_ssd_scan_bwd"):
 # the attention kernels' entry points over bf16 K/V (csrc/attention.cuh
 # CS_ATTN_EXPORTS): each has an exact bf16 build (attention.cu), a ragged
 # bf16 one (``_any``: attention_any.cu) and an f32-query one (``_q32``:
-# attention_q32.cu), all with one signature
+# attention_q32.cu), and past head dim 256 a bf16 one (``_512``:
+# attention_512.cu) and an f32-query one (``_q32_512``:
+# attention_q32_512.cu), all with one signature
 ATTN_ENTRIES = ("cs_attn_refresh_bf16", "cs_attn_refresh_paged_bf16",
                 "cs_attn_refresh_paged_int8", "cs_attn_packed_bf16", "cs_attn_prefill_bf16",
                 "cs_attn_prefill_paged_bf16", "cs_attn_prefill_paged_int8")
 for _name in ATTN_ENTRIES:
-    for _suffix in ("_any", "_q32"):
+    for _suffix in ("_any", "_q32", "_512", "_q32_512"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
 
-# head dims of the attention kernels' exact builds (attention.cu); every
-# other head dim from 1 to MAX_HEAD_DIM runs on the smallest ragged build
-# that holds it (d 129 to 255 on the D-256 one, whose blocks own 64 query
-# rows), its rows copied 16, 8 or 4 bytes at a time, or element by
-# element at an odd d, as their alignment allows (csrc/attention.cuh)
-HEAD_DIMS = (24, 32, 64, 128, 256)
-MAX_HEAD_DIM = 256
+# head dims of the attention kernels' exact builds (attention.cu, and
+# attention_512.cu at 512); every other head dim from 1 to MAX_HEAD_DIM
+# runs on the smallest ragged build that holds it (d 129 to 255 on the
+# D-256 one, whose blocks own 64 query rows; d 257 to 511 on the D-512
+# one, whose blocks own a 256-column slab of V and O each), its rows
+# copied 16, 8 or 4 bytes at a time, or element by element at an odd d,
+# as their alignment allows (csrc/attention.cuh)
+HEAD_DIMS = (24, 32, 64, 128, 256, 512)
+MAX_HEAD_DIM = 512
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOG: Dict[str, str] = {}
@@ -203,9 +208,13 @@ def stream_handle(t: torch.Tensor) -> int:
 def attention_entry(name: str, q: torch.Tensor, d: int):
     """The library function of attention entry point ``name`` (one of
     ``ATTN_ENTRIES``) for q's type and head dim ``d``: the exact bf16
-    build, the ragged one, or the f32-query one."""
+    build, the ragged one, or the f32-query one (past 256: the D-512
+    bf16 or f32-query one)."""
+    wide = "_512" if d > 256 else ""
     if q.dtype == torch.float32:
-        return getattr(library(), name + "_q32")
+        return getattr(library(), name + "_q32" + wide)
+    if wide:
+        return getattr(library(), name + wide)
     return getattr(library(), name if d in HEAD_DIMS else name + "_any")
 
 

@@ -26,8 +26,9 @@ both products on the tensor cores around an f32 online softmax, with S,
 P and O in registers.  Operands: bf16 q/k/v, an f32 q over bf16 K/V, or
 f32 q/k/v (a ViT from an f32 checkpoint: ``cs_attn_packed_f32`` splits
 K and V into bf16 halves in a scratch buffer the wrapper allocates, and
-runs three products a tile), at any head dim up to 256; the output
-takes q's type.
+runs three products a tile), at any head dim up to 512 (past 256 two
+blocks a query tile, each with a 256-column slab of V and O); the
+output takes q's type.
 
 ``PackBlockMap``'s ``tile_ids`` / ``tile_count`` from ``build_pack_map``
 and ``dense_pack_map`` are host numpy, equal array for array to the JAX

@@ -35,7 +35,8 @@ bf16 step of the row's largest value.  Operands: bf16 q/k/v; an f32 q
 over bf16 K/V (split into two bf16 halves as P is; f32 output); and, for
 the dense kernel, f32 q/k/v (``cs_attn_prefill_f32``: K and V split into
 bf16 halves in a scratch buffer the wrapper allocates), at any head dim
-up to 256.
+up to 512 (past 256 on the D-512 build: a 256-column slab of V and O a
+block).
 """
 from __future__ import annotations
 

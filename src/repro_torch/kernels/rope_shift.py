@@ -5,9 +5,11 @@ the CUDA source is ``csrc/rope_shift.cu``.  One thread per (token, chunk
 of rotation pairs: 16 bytes of each half, 8 pairs in bf16 and 4 in f32,
 where half the head dim holds a whole number of them; else 8, 4 or, in
 bf16, 2 bytes, down to one pair at an odd half, as at D 90): it builds
-the chunk's angles ``delta * theta^(-i/half)`` once in f32 with the
-accurate ``powf``/``sincosf`` (``|delta * freq|`` reaches hundreds of
-radians on the serving path, where fast intrinsics are useless) and
+the chunk's angles ``delta * theta^(-i/half)`` once in f32, from the
+plain version's own inverse frequencies (``ref.rope_freqs``, made once
+per head dim, theta and card), with the accurate ``sincosf``
+(``|delta * freq|`` reaches hundreds of radians on the serving path,
+where fast intrinsics are useless) and
 applies them to every kv head of the token with one load and one store
 per half, rounding to the key dtype.  It takes f32 or bf16 keys of any
 even head dim (the reference's ``even-head``) on a 16-byte boundary
@@ -23,10 +25,13 @@ from __future__ import annotations
 import torch
 
 from . import contracts, cuda
+from .ref import rope_freqs
 from .ref import rope_shift_ref as rope_shift_plain
 
 NAME = "rope_shift"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the plain version's inverse frequencies per (half, theta, card)
+_FREQS: dict = {}
 
 __all__ = ["NAME", "rope_shift_cuda", "rope_shift_launch", "rope_shift_plain"]
 
@@ -46,9 +51,12 @@ def rope_shift_launch(k: torch.Tensor, delta: torch.Tensor, theta: float) -> tor
     cuda.require_aligned(NAME, k)
     delta = delta.to(torch.int32).contiguous()
     out = torch.empty_like(k)
+    key = (d_h // 2, float(theta), k.device)
+    if key not in _FREQS:
+        _FREQS[key] = rope_freqs(d_h // 2, float(theta), k.device)
     rc = cuda.library().cs_rope_shift(
         k.data_ptr(), delta.data_ptr(), out.data_ptr(), B * S, n_kv, d_h,
-        float(theta), _DTYPES[k.dtype], cuda.stream_handle(k),
+        _FREQS[key].data_ptr(), _DTYPES[k.dtype], cuda.stream_handle(k),
     )
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)

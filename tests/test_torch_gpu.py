@@ -149,7 +149,7 @@ def test_rope_shift_kernel_matches_plain(dev, dtype):
         assert d.max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("d_h", [24, 64, 128, 20, 90, 130, 2])
+@pytest.mark.parametrize("d_h", [24, 64, 128, 20, 90, 130, 2, 320, 512])
 @pytest.mark.parametrize("n_kv", [1, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_shift_kernel_at_head_widths(dev, d_h, n_kv, dtype):
@@ -204,7 +204,9 @@ SCATTER_PATTERNS = {
                                             (128, 16, 16, None),    # olmoe-1b-7b's heads
                                             (24, 4, 2, None),       # the JAX benchmarks' VLM
                                             (256, 10, 2, None),     # the WIDE build
-                                            (192, 4, 1, 48)])
+                                            (192, 4, 1, 48),
+                                            (512, 10, 2, None),     # the SLAB build
+                                            (320, 4, 1, 48)])
 def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
     rng = np.random.default_rng(11)
@@ -231,7 +233,9 @@ def test_flash_refresh_paged_kernel_matches_plain(dev, pattern, d, h, hkv, windo
                                             (32, 4, 1, 48),
                                             (128, 32, 8, None),     # jamba-v0.1-52b's heads
                                             (24, 4, 2, 48),         # the JAX benchmarks' VLM
-                                            (256, 10, 2, 48)])      # the WIDE build
+                                            (256, 10, 2, 48),       # the WIDE build
+                                            (512, 10, 2, 48),       # the SLAB build
+                                            (320, 4, 1, None)])
 def test_flash_refresh_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     """Per-stream caches (B, Sk, Hkv, D), no page table."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -266,7 +270,7 @@ def _quant_slab(rng, n_hot, n_cold, hkv, d):
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
 @pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (32, 4, 1), (24, 4, 2), (256, 10, 2),
-                                     (136, 4, 2)])
+                                     (136, 4, 2), (512, 10, 2), (320, 4, 2)])
 def test_flash_refresh_paged_int8_kernel_matches_plain(dev, pattern, d, h, hkv):
     """A page table that mixes hot and cold entries (ids >= n_hot)."""
     q_pos = SCATTER_PATTERNS[pattern].astype(np.int32)
@@ -301,6 +305,19 @@ def test_wide_build_int8_all_hot_is_bitwise_bf16(dev):
     hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
     pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
     q = _bf16(rng, 2, 200, 10, 256).to(dev)
+    assert torch.equal(flash_prefill_paged_cuda(q, hk, hv, pt, cold=cold),
+                       flash_prefill_paged_cuda(q, hk, hv, pt))
+
+
+def test_slab_build_int8_all_hot_is_bitwise_bf16(dev):
+    """The same on the SLAB build (D 512: two column slabs of V over
+    blocks), refresh and paged prefill."""
+    _all_hot_refresh(dev, 512)
+    rng = np.random.default_rng(19)
+    hk, hv, cold = _quant_slab(rng, 4, 3, 2, 512)
+    hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
+    pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
+    q = _bf16(rng, 2, 200, 10, 512).to(dev)
     assert torch.equal(flash_prefill_paged_cuda(q, hk, hv, pt, cold=cold),
                        flash_prefill_paged_cuda(q, hk, hv, pt))
 
@@ -347,6 +364,15 @@ def test_wide_refresh_kernels_over_long_visit_lists(dev, case, kind):
     """The same at head dim 256 (the WIDE build: 32-key steps, 32-40 of
     them, wrapping its ring of two slots; two 64-row blocks a tile)."""
     _long_visit_list(dev, case, kind, 256)
+
+
+@pytest.mark.parametrize("kind", ["stream", "paged", "paged-int8"])
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_slab_refresh_kernels_over_long_visit_lists(dev, case, kind):
+    """The same at head dim 512 (the SLAB build: each 64-row block of a
+    tile is two blocks, one a 256-column slab of V and O, both walking
+    the tile's visit list in 32-key steps)."""
+    _long_visit_list(dev, case, kind, 512)
 
 
 def _long_visit_list(dev, case, kind, d):
@@ -463,6 +489,19 @@ def test_flash_packed_wide_build_matches_plain(dev, layout, d):
     """The WIDE build (D 256, and ragged d 200 on it): 64-row blocks,
     half of them all padding in the ragged_pad and single layouts."""
     q, k, v, seg = _packed_inputs(layout, 8, 8, d)
+    out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev),
+                              build_pack_map(seg.numpy())).cpu()
+    out_p = flash_packed_plain(q, k, v, seg)
+    assert _row_rel_err(out_k, out_p) <= ROW_TOL
+    assert bool((out_k[seg < 0] == 0).all())
+
+
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+@pytest.mark.parametrize("d", [512, 320])
+def test_flash_packed_slab_build_matches_plain(dev, layout, d):
+    """The SLAB build (D 512, and ragged d 320 on it): two blocks of 64
+    rows a slab of V and O, both with the whole head's scores."""
+    q, k, v, seg = _packed_inputs(layout, 4, 4, d)
     out_k = flash_packed_cuda(q.to(dev), k.to(dev), v.to(dev),
                               build_pack_map(seg.numpy())).cpu()
     out_p = flash_packed_plain(q, k, v, seg)
@@ -588,6 +627,12 @@ PREFILL = {
     "d256-window-edge-mid-step": (300, 330, 4, 2, 256, True, 160, 40),
     "d136-ragged": (200, 300, 8, 2, 136, True, 150, 50),
     "d200-bidirectional": (130, 250, 4, 4, 200, False, None, 0),
+    # the SLAB build (D 512; d 320 and 511 ragged on it): two blocks a
+    # 64-row query block, one a slab of V and O
+    "d512-causal": (384, 384, 10, 2, 512, True, None, 0),
+    "d512-dead-prefix": (256, 256, 4, 2, 512, True, None, -70),
+    "d320-dead-suffix-mixed": (256, 300, 4, 2, 320, False, 64, 200),
+    "d511-window-edge-mid-step": (300, 330, 4, 2, 511, True, 160, 40),
 }
 
 
@@ -634,6 +679,9 @@ PREFILL_PAGED = {
     "d256": (384, 3, 10, 2, 256, None, 0, ()),
     "d256-int8": (300, 3, 10, 2, 256, None, 60, INT8_COLD),
     "d192-int8-cold-diagonal": (384, 3, 4, 2, 192, None, 0, ((0, 2), (1, 2), (0, 1))),
+    "d512": (384, 3, 10, 2, 512, None, 0, ()),
+    "d512-int8": (300, 3, 10, 2, 512, None, 60, INT8_COLD),
+    "d320-int8-cold-diagonal": (384, 3, 4, 2, 320, None, 0, ((0, 2), (1, 2), (0, 1))),
 }
 
 
@@ -693,8 +741,8 @@ def test_flash_prefill_paged_int8_all_hot_is_bitwise_bf16(dev):
 
 
 def test_prefill_operands_the_kernel_does_not_take_raise(dev):
-    q = torch.zeros(1, 128, 4, 264, device=dev, dtype=torch.bfloat16)     # over 256
-    kv = torch.zeros(1, 128, 2, 264, device=dev, dtype=torch.bfloat16)
+    q = torch.zeros(1, 128, 4, 520, device=dev, dtype=torch.bfloat16)     # over 512
+    kv = torch.zeros(1, 128, 2, 520, device=dev, dtype=torch.bfloat16)
     with pytest.raises(KernelError, match="head dim"):
         ops.flash_prefill(q, kv, kv)
     # d 20, once refused for not being a multiple of 8, is taken
@@ -1553,6 +1601,26 @@ def test_attention_kernels_take_f32_queries_at_wide_head_dims(dev, op, d):
 @pytest.mark.parametrize("op", ["flash_packed", "flash_prefill"])
 @pytest.mark.parametrize("d", [256, 136, 130, 251])
 def test_packed_and_prefill_take_f32_qkv_at_wide_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
+
+
+# the SLAB build: head dim 512 exact, d 257-511 ragged on it (off the
+# 8-column grid too: 258, 500, 511), in every operand type
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [512, 320, 264, 384, 500, 511, 257, 258])
+def test_attention_kernels_at_slab_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.bfloat16, torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [512, 320, 511])
+def test_attention_kernels_take_f32_queries_at_slab_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.bfloat16), torch.float32)
+
+
+@pytest.mark.parametrize("op", ["flash_packed", "flash_prefill"])
+@pytest.mark.parametrize("d", [512, 320, 500, 511])
+def test_packed_and_prefill_take_f32_qkv_at_slab_head_dims(dev, op, d):
     _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
 
 

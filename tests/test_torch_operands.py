@@ -2,29 +2,30 @@
 against the JAX package.
 
 * The contract verdict on meta tensors: ``ok`` for every attention op at
-  every head dim d = 1, 2, ..., 256 with bf16 operands, with f32
+  every head dim d = 1, 2, ..., 512 with bf16 operands, with f32
   queries over bf16 K/V and, in flash_packed and flash_prefill, with f32
-  q/k/v; the named refusal for d 264 (over 256) and f16 operands;
-  ``ok`` for rope_shift at every even d up to 256; ``ok`` for mv_sad at
+  q/k/v; the named refusal for d 520 (over 512) and f16 operands;
+  ``ok`` for rope_shift at every even d up to 512; ``ok`` for mv_sad at
   radius 16 and 32, at blocks 8 and 12, and past one band's shared
   memory (radius 128, block 64 at radius 96, block 240 at radius 1: the
   tiled kernel, whose tiling ``launch_geometry`` gives).
 * The JAX quickstart's model at its own widths (LM 4 heads of 16 over 2
-  kv heads, ViT 4 heads of 16), a 2-layer f32 LM, and a 2-layer LM with
-  heads of 256 (2 over 1 kv head, what the kernels' WIDE build serves)
-  in bf16 and in f32, each served by the port's ``Engine`` on the CPU
+  kv heads, ViT 4 heads of 16), a 2-layer f32 LM, and 2-layer LMs with
+  heads of 256 (2 over 1 kv head, what the kernels' WIDE build serves),
+  of 512 and of 320 (the SLAB build's exact and ragged widths) in bf16
+  and in f32, each served by the port's ``Engine`` on the CPU
   from the JAX package's weights, against the JAX package's ``Engine``
   on the same stream: no call the card would refuse
   (``kernel_fallbacks`` 0, every verdict ``ok``); yes/no logits within
   the serving tests' LOGIT_TOL (8e-3, ``test_torch_serving.py``),
   answers equal where the JAX margin exceeds twice it.
-* The seven attention kernels' plain versions at head dim 256, and
-  refresh, paged refresh with int8 cold pages, packed and prefill at
-  head dims 20, 33 and 90, against the JAX package's oracles
+* The seven attention kernels' plain versions at head dims 256, 512, 320
+  and 300, and refresh, paged refresh with int8 cold pages, packed and
+  prefill at head dims 20, 33 and 90, against the JAX package's oracles
   (``repro.kernels.ref``) on the same inputs: f32 within 1e-5 and bf16
   within 3e-2 (``test_torch_kernels.py``'s limits: sums in another
   order; one bf16 step of O(1) values); rope_shift at d 90 (half 45)
-  and mv_sad at block 240, radius 1 on a 240^2 frame (its macroblock
+  and 320 (half 160) and mv_sad at block 240, radius 1 on a 240^2 frame (its macroblock
   alone is 230 KB) against the same.
 * internvl3-14b-smoke re-cut to LM heads of 90 and ViT heads of 75
   (``audit.odd_heads``) served as the models above.
@@ -86,8 +87,14 @@ LM_F32 = dict(LM, name="f32", n_heads=2, n_kv=1, dtype="float32")
 # 2-layer LMs with heads of 256 (ModelCfg.d_head apart from d_model /
 # n_heads), in bf16 and in f32
 LM_D256 = dict(LM, name="d256", n_heads=2, n_kv=1, d_head=256)
+# ... and with heads of 512 and 320 (the D-512 build: two column slabs of
+# V and O, exact at 512 and ragged at 320)
+LM_D512 = dict(LM, name="d512", n_heads=2, n_kv=1, d_head=512)
+LM_D320 = dict(LM, name="d320", n_heads=2, n_kv=1, d_head=320)
 SERVED_LMS = {"quickstart": LM, "f32": LM_F32, "d256": LM_D256,
-              "d256-f32": dict(LM_D256, name="d256-f32", dtype="float32")}
+              "d256-f32": dict(LM_D256, name="d256-f32", dtype="float32"),
+              "d512": LM_D512, "d512-f32": dict(LM_D512, name="d512-f32", dtype="float32"),
+              "d320": LM_D320, "d320-f32": dict(LM_D320, name="d320-f32", dtype="float32")}
 
 
 # ----------------------------------------------------------------------
@@ -144,17 +151,27 @@ def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
     assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
 
 
+@pytest.mark.parametrize("d", range(257, 513))
+def test_every_attention_op_takes_every_head_dim_past_256(d):
+    """d 257 to 512: the D-512 build (exact at 512, ragged below) in every
+    operand mode the narrower builds take."""
+    assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
+    assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
+    f32 = _verdicts(d, F32, F32)
+    assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+
+
 @pytest.mark.parametrize("d, q_dt, kv_dt, code", [
-    (20, BF16, BF16, "ok"), (264, BF16, BF16, "kernel-head-dim"),
-    (264, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
+    (20, BF16, BF16, "ok"), (520, BF16, BF16, "kernel-head-dim"),
+    (520, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
     (64, F16, BF16, "kernel-dtype")])
 def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
-    """Past 256 and f16 are refused by name; d 20, once refused for not
+    """Past 512 and f16 are refused by name; d 20, once refused for not
     being a multiple of 8, is taken."""
     assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
 
 
-@pytest.mark.parametrize("d", range(2, 257, 2))
+@pytest.mark.parametrize("d", range(2, 513, 2))
 def test_rope_shift_takes_every_even_head_dim(d):
     k, delta = _m((2, 40, 4, d)), _m((2, 40), torch.int32)
     assert contracts.rope_shift_verdict(k, delta).reason == "ok"
@@ -278,6 +295,24 @@ def test_served_with_no_refusal(served):
     assert all(set(c) == {"ok"} for c in verdicts.values()), verdicts
 
 
+@pytest.mark.parametrize("name", ["d512", "d320-f32"])
+def test_jax_weights_carry_across_at_head_dims_past_256(name):
+    """``models.init.from_numpy_tree`` needs nothing new past 256: the JAX
+    package's LM tree at heads of 512 (or 320, f32) arrives leaf for leaf
+    in the port's layout (the paths, shapes and dtypes of the port's own
+    ``init_lm_params`` at the same config), values unchanged."""
+    from repro_torch.models.init import init_lm_params, leaf_paths, tree_leaves
+    jcfg, _, cfg, _ = _served_cfgs(name)
+    jparams, _ = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
+    got = from_numpy_tree(_np_tree(jparams))
+    own = init_lm_params(cfg, 0, "cpu")
+    assert [k for k, _ in leaf_paths(got)] == [k for k, _ in leaf_paths(own)]
+    for a, b in zip(tree_leaves(got), tree_leaves(own)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(jparams)):
+        np.testing.assert_array_equal(a.float().numpy(), np.asarray(b, np.float32))
+
+
 def test_served_logits_match_jax(served):
     jres, tres, _ = served
     assert len(jres) == len(tres) == 2
@@ -358,6 +393,16 @@ def test_plain_versions_at_head_dim_256_match_jax(op, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", WIDE_OPS)
+@pytest.mark.parametrize("d", [512, 320, 300])
+def test_plain_versions_at_head_dims_past_256_match_jax(d, op, dtype):
+    """The widths of the D-512 build (exact 512; 320 and 300, ragged on
+    it, 300 off the 16-byte grid): the plain versions the card is held to
+    agree with the JAX package's oracles as at 256."""
+    _plain_matches_jax(op, dtype, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("op", ["flash_refresh", "flash_refresh_paged_int8", "flash_packed",
                                 "flash_prefill"])
 @pytest.mark.parametrize("d", [20, 33, 90])
@@ -435,23 +480,30 @@ def test_mv_sad_plain_at_block_240_matches_jax():
     np.testing.assert_allclose(sad_t.numpy(), np.asarray(sad_j), rtol=1e-5)
 
 
-def test_chip_smoke_phase_7i_case_is_internvl3_14b_with_odd_heads():
-    """chip_smoke's phase 7(i) serves internvl3-14b at full size with 40 LM
-    heads of 90 over 8 (refresh on the D-128 build, rope_shift at an odd
-    half of 45), InternViT re-cut to d_model 1200 in 16 heads of 75 at
-    448^2, and search radius 128 (mv_sad's tiled kernel), 2 x 24 frames
-    of codecflow; the dispatch audit's third table takes its every call."""
+def _chip_smoke():
     import importlib.util
     from pathlib import Path
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_smoke_phase_7i_case_is_internvl3_14b_with_odd_heads():
+    """chip_smoke's phase 7(i) serves internvl3-14b at full width, 12 of
+    its 48 layers (CUT_LAYERS: phase 7(k) carries the full depth at full
+    attention width), with 40 LM heads of 90 over 8 (refresh on the D-128
+    build, rope_shift at an odd half of 45), InternViT re-cut to d_model
+    1200 in 16 heads of 75 at 448^2, and search radius 128 (mv_sad's
+    tiled kernel), 2 x 24 frames of codecflow; the dispatch audit's third
+    table takes its every call."""
+    cs = _chip_smoke()
     key, arch, cfg, modes, frames, _ = {m[0]: m for m in cs.family_models()}["(i)"]
     full = get_config("internvl3-14b")
     assert (arch, modes, frames) == (cs.ODD_ARCH, ("codecflow",), 24)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head) == (
-        full.n_layers, full.d_model, 40, 8, 90)
+        cs.CUT_LAYERS, full.d_model, 40, 8, 90) and cs.CUT_LAYERS == 12 < full.n_layers
     assert (cfg.vit.d_model, cfg.vit.n_heads, cfg.vit.image) == (1200, 16, 448)
     assert cs.FAMILY_CODECS[key] == {"search_radius": 128} and cs.FAMILY_FRAMES[key] == 448
     assert mv_sad_launch_geometry(16, 128).tile is not None
@@ -462,3 +514,35 @@ def test_chip_smoke_phase_7i_case_is_internvl3_14b_with_odd_heads():
     assert all(r.verdict == "kernel" for r in rows.values()), rows
     assert (rows["mv_sad"].geometry, rows["flash_packed"].geometry) == (
         "448^2 b16 r128", "ViT H 16 D 75")
+
+
+def test_chip_smoke_phase_7k_case_is_internvl3_14b_with_heads_of_512():
+    """chip_smoke's phase 7(k) serves internvl3-14b at full size (48
+    layers, d_model 5120) with 10 LM heads of 512 over 2 and InternViT
+    (d_model 1024) re-cut to 2 heads of 512 at 448^2: the parameters, the
+    KV bytes per stream and the attention FLOPs of its 40 heads of 128
+    over 8 and 16 ViT heads of 64; every serving kernel takes its calls
+    (the dispatch audit's third table: flash_packed, flash_refresh_paged,
+    flash_refresh at D 512, rope_shift at D 512), with the further paths
+    per-stream caches and int8 cold pages."""
+    cs = _chip_smoke()
+    key, arch, cfg, modes, frames, _ = {m[0]: m for m in cs.family_models()}["(k)"]
+    full = get_config("internvl3-14b")
+    assert (arch, modes, frames) == (cs.D512_ARCH, ("codecflow",), 24)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head) == (
+        full.n_layers, full.d_model, 10, 2, 512)
+    assert cfg.n_heads * cfg.d_head == full.n_heads * full.d_head
+    assert cfg.n_kv * cfg.d_head == full.n_kv * full.d_head
+    assert cfg.n_heads // cfg.n_kv == full.n_heads // full.n_kv == 5
+    assert (cfg.vit.d_model, cfg.vit.n_heads, cfg.vit.image) == (full.vit.d_model, 2, 448)
+    assert cfg.vit.d_model // cfg.vit.n_heads == 512
+    assert cs.HEADS_512 == audit.HEADS_512 and cs.FAMILY_FRAMES[key] == 448
+    assert key not in cs.FAMILY_CODECS
+    assert [lab for lab, _ in cs.FAMILY_PATHS[key]] == ["per-stream KV", "int8 cold pages"]
+    rows = {r.op: r for r in audit.variant_rows() if r.arch.startswith(
+        "internvl3-14b, LM and ViT heads of 512")}
+    assert set(rows) == {"mv_sad", "flash_packed", "flash_refresh", "flash_refresh_paged",
+                         "rope_shift"}
+    assert all(r.verdict == "kernel" for r in rows.values()), rows
+    assert rows["flash_packed"].geometry == "ViT H 2 D 512"
+    assert rows["rope_shift"].geometry == "Hkv 2, D 512, bfloat16"

@@ -141,16 +141,16 @@ def test_windows_report_no_kernel_fallbacks(served):
     assert served[3].kernel_fallbacks == 0
 
 
-def test_a_serve_the_card_refuses_counts_its_fallbacks():
-    """Head dim 264 (over 256, a multiple of 8), which no attention
-    kernel is built for: on the CPU every window counts the calls the
-    card would refuse, by rule, and the plain versions serve it."""
+def _serve_heads(d: int):
+    """A 2-layer LM and ViT with 2 heads of ``d`` served on the CPU, one
+    stream of 12 frames (one fresh and one incremental window): (results,
+    scheduler, card verdicts)."""
     from repro_torch.configs import ModelCfg, ViTCfg
     from repro_torch.models.init import init_lm_params, init_vit_params
 
-    cfg = ModelCfg(name="d264", family="vlm", n_layers=2, d_model=528, n_heads=2, n_kv=1,
+    cfg = ModelCfg(name=f"d{d}", family="vlm", n_layers=2, d_model=2 * d, n_heads=2, n_kv=1,
                    d_ff=128, vocab=64, tied_embeddings=True)
-    vit = ViTCfg(n_layers=2, d_model=528, n_heads=2, d_ff=128, patch=14, image=112, group=2)
+    vit = ViTCfg(n_layers=2, d_model=2 * d, n_heads=2, d_ff=128, patch=14, image=112, group=2)
     pipe = ServingPipeline(cfg, vit, init_lm_params(cfg, 0, "cpu"),
                            init_vit_params(vit, cfg.d_model, 1, "cpu"),
                            EngineCfg(mode="codecflow", codec=TCodecCfg(
@@ -162,15 +162,32 @@ def test_a_serve_the_card_refuses_counts_its_fallbacks():
     frames, label = anomaly_dataset(1, 12, 112, 112)[0]
     sched.submit(StreamRequest(0, np.asarray(frames), tag=label))
     results = sched.run()[0]
+    assert all(set(c) == {"backend:ok"} for c in ops.dispatch_counts().values())
+    assert all(np.isfinite(r.stats.logits_yes_no).all() for r in results)
+    return results, sched, ops.card_verdicts()
+
+
+def test_a_serve_the_card_refuses_counts_its_fallbacks():
+    """Head dim 520 (over 512, a multiple of 8), which no attention
+    kernel is built for: on the CPU every window counts the calls the
+    card would refuse, by rule, and the plain versions serve it."""
+    results, sched, verdicts = _serve_heads(520)
     fb = [r.stats.kernel_fallbacks for r in results]
     assert len(fb) == 2 and all(n > 0 for n in fb)
     assert sched.kernel_fallbacks == sum(fb)
-    verdicts = ops.card_verdicts()
     for op in ("flash_packed", "flash_refresh_paged"):
         assert set(verdicts[op]) == {"kernel-head-dim"}, verdicts
-    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # D 264: 8 | 264
-    assert all(set(c) == {"backend:ok"} for c in ops.dispatch_counts().values())
-    assert all(np.isfinite(r.stats.logits_yes_no).all() for r in results)
+    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # any even d
+
+
+def test_a_serve_at_head_dim_264_has_no_fallbacks():
+    """Head dim 264, refused until the D-512 build took every head dim
+    from 257 to 512: every call is one the card takes."""
+    results, sched, verdicts = _serve_heads(264)
+    assert [r.stats.kernel_fallbacks for r in results] == [0, 0]
+    assert sched.kernel_fallbacks == 0
+    assert set(verdicts) == {"mv_sad", "flash_packed", "flash_refresh_paged", "rope_shift"}
+    assert all(set(c) == {"ok"} for c in verdicts.values()), verdicts
 
 
 def test_entry_points_default_to_cuda():
