@@ -14,6 +14,7 @@ and check them.
     python3 chip_smoke.py --only odd-heads
     python3 chip_smoke.py --only n512-ssm
     python3 chip_smoke.py --only d512
+    python3 chip_smoke.py --only d1024
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -22,7 +23,7 @@ for the named kernels' checks alone (names as in the kernels line) and
 prints their rows and the card's line, with no serve phase and no
 contract line (``--only mha``, ``--only families``, ``--only whisper``,
 ``--only mamba``, ``--only f32-ssm``, ``--only d256``, ``--only n256-ssm``,
-``--only odd-heads``, ``--only n512-ssm``, ``--only d512``,
+``--only odd-heads``, ``--only n512-ssm``, ``--only d512``, ``--only d1024``,
 ``--only mesh``, ``--only hosttime`` and ``--only deep-step``: phase 3's
 mha probe, phase 7 alone, phase 8(b) alone, phase 8(e) with its
 roofline, phases 7(f) and 8(f) (mamba2-2.7b in f32) alone, phase 7(g)
@@ -30,7 +31,8 @@ roofline, phases 7(f) and 8(f) (mamba2-2.7b in f32) alone, phase 7(g)
 (mamba2-2.7b at d_state 256) alone, phase 7(i) (internvl3-14b with heads
 of 90 and 75 at search radius 128) alone, phases 7(j) and 8(h)
 (mamba2-2.7b at d_state 512) alone, phase 7(k) (internvl3-14b with LM and
-ViT heads of 512) alone, phases 8(b) and 8(e) then 9, phase 3(c)'s
+ViT heads of 512) alone, phase 7(l) (heads of 1024) alone, phases 8(b)
+and 8(e) then 9, phase 3(c)'s
 host time per call alone, and phase 8(a)'s jamba-v0.1-52b-smoke step
 over several seeds, in bf16 and f32); ``--src`` drives the ``repro_torch`` of another checkout's
 ``src`` directory (built there), so an earlier commit unpacked with
@@ -148,7 +150,16 @@ Phases (any failure exits non-zero):
                refresh and paged kernels and f32 q/k/v in flash_packed
                and flash_prefill, one line each with its device ms,
                error against its limit and registers (slab_table), and
-               rope_shift at D 320 and 512; each
+               rope_shift at D 320 and 512; head dims past 512 (the DEEP
+               build: Q K^T over depth chunks of 256 columns,
+               ceil(d / 256) column slabs of V and O), d 520, 640, 1000,
+               1023 and 1024 (DEEP_WIDTHS) at internvl3-14b's widths
+               re-cut to 5 heads over 1 (HEADS_1024) and d 2048 and 4096
+               (DEEP_WIDE) at 2 heads over 1 on the bench VLM's layout,
+               in the same kernels and modes as the SLAB widths (at 1024
+               also the fresh prefill and decode, and the prefill at an
+               offset, windowed and ragged; flash_packed at H 1), in the
+               same table, and rope_shift at D 1024 and 2048; each
                attention case also prints device_ms (launches
                over copies of its inputs, L2-cold, in one replayed CUDA
                graph); mv_sad
@@ -271,8 +282,11 @@ Phases (any failure exits non-zero):
                512 over 2 and its ViT re-cut to 2 heads of 512 (HEADS_512:
                the attention kernels' SLAB build in flash_packed,
                flash_refresh_paged and flash_refresh, rope_shift at D
-               512), served as (g); (g) and (i) serve CUT_LAYERS (12) of
-               the 48 layers; each case's seconds are printed.  Each case is served
+               512), served as (g); (l) internvl3-14b at full width and
+               depth with 5 LM heads of 1024 over 1 and its ViT re-cut to
+               1 head of 1024 (HEADS_1024: the DEEP build, rope_shift at
+               D 1024), served as (g); (g), (i) and (k) serve CUT_LAYERS
+               (12) of the 48 layers; each case's seconds are printed.  Each case is served
                lockstep, async, async, lockstep as in phase 5, with the
                same checks and printout (and the state bytes per stream
                of the hybrid's attention caches and SSD states); the
@@ -516,9 +530,26 @@ D512_ARCH = f"{ARCH}, LM and ViT heads of 512"
 # blocks): 264 to 511 ragged (500: rows 8-byte aligned; 511: odd, 2-byte),
 # 512 exact, at H 10 over Hkv 2 (flash_packed: the 7(k) ViT's H 2)
 SLAB_WIDTHS = (264, 320, 384, 500, 511, 512)
-# depth of the re-cut internvl3-14b cases 7(g) and 7(i) (of 48 layers):
-# their kernels and bitwise checks run at every layer count, and 7(k)
-# serves the full depth at full attention width
+# internvl3-14b re-cut to LM heads of 1024 (phase 3's DEEP cases at 7(l)'s
+# layout, and phase 7(l), whose ViT is re-cut to 1 head of 1024): 5 heads
+# over 1 kv head keep d_model 5120 and the GQA group of 5
+# (kernels.audit.HEADS_1024)
+HEADS_1024 = dict(n_heads=5, n_kv=1, d_head=1024)
+D1024_ARCH = f"{ARCH}, LM and ViT heads of 1024"
+# head dims on the DEEP build (Q K^T over depth chunks of 256 columns,
+# ceil(d / 256) column slabs of V and O): just past the SLAB build (520,
+# 640), 8-byte rows (1000), odd 2-byte rows (1023) and 1024 at H 5 over Hkv
+# 1 on internvl3-14b's layout (flash_packed: the 7(l) ViT's H 1); 2048 and
+# 4096 at H 2 over Hkv 1 on the bench VLM's smaller layout (flash_packed:
+# H 1)
+DEEP_WIDTHS = (520, 640, 1000, 1023, 1024)
+DEEP_WIDE = (2048, 4096)
+# the builds phase 3's width table reads: SLAB_WIDTHS on the D-512 one,
+# the rest past it on the DEEP one
+WIDTH_TABLE = SLAB_WIDTHS + DEEP_WIDTHS + DEEP_WIDE
+# depth of the re-cut internvl3-14b cases 7(g), 7(i) and 7(k) (of 48
+# layers): their kernels and bitwise checks run at every layer count, and
+# 7(l) serves the full depth at full attention width
 CUT_LAYERS = 12
 # mv_sad beyond the codec's radius 4: (frame edge, block, radius); the last
 # three past one band's 227 KB of shared memory (the tiled kernel: a 272^2
@@ -557,11 +588,12 @@ SCAN_MODES = {"0": "bf16 in place", "1": "staged hi/lo"}
 
 def kernel_label(mangled: str) -> str:
     """mma_kernel<D, problem struct> of an attention kernel's mangled name
-    ("+cold": the struct with int8 cold pages; ", any d": a ragged bf16
-    build, ", f32 q" and ", f32 q/k/v": the f32 builds, ragged too),
+    (D "deep": the DEEP build; "+cold": the struct with int8 cold pages;
+    ", any d": a ragged bf16 build, ", f32 q" and ", f32 q/k/v": the f32
+    builds, ragged too),
     name<n> of another kernel templated on one integer; other names
     unchanged."""
-    b = re.search(r"BuildILi(\d+)ELb([01])ELi(\d)E", mangled)
+    b = re.search(r"BuildILi(\d+)ELb([01])ELi(\d)ELi(\d+)E", mangled)
     struct = next((s for s in ATTN_STRUCTS if s in mangled), None)
     if "mma_kernel" not in mangled or b is None or struct is None:
         m = re.search(r"([a-z_]+_kernel)ILi(\d+)ELi(\d)E(?:Li(\d)E)?", mangled)
@@ -577,9 +609,9 @@ def kernel_label(mangled: str) -> str:
         m = re.search(r"\d((?:[a-z_]|(?<=bf)16)+_kernel)E", mangled)
         return m.group(1) if m else mangled
     cold = "+cold" if "WithColdPages" in mangled else ""
-    width, ragged, ops_ = b.groups()
+    width, ragged, ops_, deep = b.groups()
     kind = BUILD_OPS.get(ops_, ", any d" if ragged == "1" else "")
-    return f"mma_kernel<{width}, {struct}{cold}{kind}>"
+    return f"mma_kernel<{width if deep == '0' else 'deep'}, {struct}{cold}{kind}>"
 
 
 def ptxas_kernels(text: str):
@@ -596,10 +628,35 @@ def ptxas_kernels(text: str):
     return found
 
 
+# a call slower than SLOW_MS is timed over fewer calls: cuda_ms keeps to
+# about TIME_BUDGET_MS of calls, device_ms to 2 copies replayed once (the
+# head dims past 512 with narrow rows or f32 operands take 20-400 ms a
+# call, and phase 3 would pass its share of the time limit)
+SLOW_MS, TIME_BUDGET_MS = 10.0, 100.0
+
+
+def one_call_ms(torch, fn) -> float:
+    """One call of ``fn`` on the card, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean time of ``fn`` on the card from CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
+    """Mean time of ``fn`` on the card from CUDA events, after warm-up
+    (the first warm-up call timed: past SLOW_MS, the second is skipped and
+    ``iters`` cut to TIME_BUDGET_MS of calls, at least one)."""
+    first = one_call_ms(torch, fn) if warmup else 0.0
+    if first > SLOW_MS:
+        iters = max(1, min(iters, int(TIME_BUDGET_MS / first)))
+    else:
+        for _ in range(warmup - 1):
+            fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -623,7 +680,10 @@ def device_ms(torch, fn, args, in_bytes: float, replays: int = 5,
     and replayed, timed with CUDA events.  No host time between launches
     enters, where ``cuda_ms``, which times the calls one by one on the
     same inputs, also counts the wrapper's host time when that is
-    longer."""
+    longer.  A launch slower than SLOW_MS takes at least 2 copies,
+    replayed once."""
+    if one_call_ms(torch, lambda: fn(*args)) > SLOW_MS:
+        min_copies, replays = 2, 1
     n = max(min_copies, int(-(-2 * L2_BYTES // max(in_bytes, 1))))
     copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
                        for _ in range(n - 1)]
@@ -901,10 +961,10 @@ ATTN_STRUCT = {"flash_refresh_paged": "RefreshPaged", "flash_refresh_paged_int8"
 
 
 def slab_table(rows) -> None:
-    """One line per phase-3 case on the SLAB build (a label "D d" with d
-    in SLAB_WIDTHS, under a kernel line's families or cases): device ms,
-    the row-relative error against its limit, and the build's registers
-    from phase 2."""
+    """One line per phase-3 case on the SLAB or DEEP build (a label "D d"
+    with d in WIDTH_TABLE, under a kernel line's families or cases): device
+    ms, the row-relative error against its limit, and the build's
+    registers from phase 2."""
     regs = READINGS.get("registers", {})
     for row in rows:
         struct = ATTN_STRUCT.get(row["name"])
@@ -912,19 +972,20 @@ def slab_table(rows) -> None:
             continue
         for lab, r in {**row.get("families", {}), **row.get("cases", {})}.items():
             m = re.match(r"D (\d+)\b", lab)
-            if m is None or int(m.group(1)) not in SLAB_WIDTHS:
+            if m is None or int(m.group(1)) not in WIDTH_TABLE:
                 continue
             d = int(m.group(1))
             r = r.get("packings", {}).get("busy", r)
             mode = (", f32 q/k/v" if "f32 q/k/v" in lab else ", f32 q" if "f32 q" in lab
                     else "" if d == 512 else ", any d")
-            label = f"mma_kernel<512, {struct}{mode}>"
+            build = "512" if d <= 512 else "deep"
+            label = f"mma_kernel<{build}, {struct}{mode}>"
             rel = f"{r['rel']:.3g} (limit {r['tol']:.3g})" if "tol" in r else (
                 f"{r['rel']:.3g}" if "rel" in r else "n/a")
-            log(f"  D-512 build: {row['name']} [{lab}]: device {r['device_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms']:.4f} ms; row-relative err {rel}; {label}: "
-                f"{regs.get(label, 'not built')} registers")
+            log(f"  {'D-512' if d <= 512 else 'DEEP'} build: {row['name']} [{lab}]: device "
+                f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; row-relative err "
+                f"{rel}; {label}: {regs.get(label, 'not built')} registers")
 
 
 def with_cases(main, extra: dict):
@@ -2616,7 +2677,7 @@ def family_models():
     fields a case sets, FAMILY_FRAMES the frame edge of a case that keeps
     its model's own ViT, FAMILY_PATHS the further paths a case serves."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.audit import heads_512, odd_heads, with_state
+    from repro_torch.kernels.audit import heads_512, heads_1024, odd_heads, with_state
     hybrid, full = get_config(HYBRID_ARCH), "full width and depth"
     return (
         ("(a)", MOE_ARCH, get_config(MOE_ARCH), ("codecflow",), MOE_FRAMES, full),
@@ -2639,8 +2700,11 @@ def family_models():
          f"InternViT re-cut to 16 heads of 75 at {HW}^2"),
         ("(j)", SSM_N512, with_state(get_config(SSM_ARCH), WIDER_STATE), ("codecflow",),
          SSM_FRAMES, f"{full}, SSD state {WIDER_STATE}"),
-        ("(k)", D512_ARCH, heads_512(get_config(ARCH)), ("codecflow",), MOE_FRAMES,
-         f"{full}, LM heads of 512, InternViT re-cut to 2 heads of 512 at {HW}^2"),
+        ("(k)", D512_ARCH, dataclasses.replace(heads_512(get_config(ARCH)), n_layers=CUT_LAYERS),
+         ("codecflow",), MOE_FRAMES, f"full width, {CUT_LAYERS} of 48 layers, LM heads of 512, "
+         f"InternViT re-cut to 2 heads of 512 at {HW}^2"),
+        ("(l)", D1024_ARCH, heads_1024(get_config(ARCH)), ("codecflow",), MOE_FRAMES,
+         f"{full}, LM heads of 1024, InternViT re-cut to 1 head of 1024 at {HW}^2"),
     )
 
 
@@ -2648,23 +2712,24 @@ def family_models():
 # range of a software H.264 encoder; (i) at radius 128 (mv_sad's tiled
 # kernel: a 272^2 band at block 16)
 FAMILY_CODECS = {"(e)": dict(search_radius=16), "(i)": dict(search_radius=128)}
-# (g), (i), (k): internvl3-14b keeps its own ViT (InternViT, 16 heads of
-# 64, or its re-cuts), which takes 448^2 frames, where the other cases take
-# the launcher's 112^2 one
-FAMILY_FRAMES = {"(g)": HW, "(i)": HW, "(k)": HW}
-# phase 4's run that a case's readings are printed beside: (g), (i) and
-# (k) at heads of 128 (and radius 4), (h) and (j) at d_state 128
+# (g), (i), (k), (l): internvl3-14b keeps its own ViT (InternViT, 16
+# heads of 64, or its re-cuts), which takes 448^2 frames, where the other
+# cases take the launcher's 112^2 one
+FAMILY_FRAMES = {"(g)": HW, "(i)": HW, "(k)": HW, "(l)": HW}
+# phase 4's run that a case's readings are printed beside: (g), (i), (k)
+# and (l) at heads of 128 (and radius 4), (h) and (j) at d_state 128
 FAMILY_BESIDE = {"(g)": (f"phase 4 {MAIN}", "heads of 128"),
                  "(k)": (f"phase 4 {MAIN}", "heads of 128 and 64"),
+                 "(l)": (f"phase 4 {MAIN}", "heads of 128 and 64"),
                  "(h)": (f"phase 4 {SSM_MAIN}", "d_state 128"),
                  "(i)": (f"phase 4 {MAIN}", "heads of 128 and 64, radius 4"),
                  "(j)": (f"phase 4 {SSM_MAIN}", "d_state 128")}
-# (g), (i), (k): after the four engine runs on the paged bf16 slab, one
-# lockstep run per further path: per-stream caches (flash_refresh) and int8
-# cold pages
+# (g), (i), (k), (l): after the four engine runs on the paged bf16 slab,
+# one lockstep run per further path: per-stream caches (flash_refresh) and
+# int8 cold pages
 FAMILY_PATHS = {key: (("per-stream KV", dict(paged_kv=False)),
                       ("int8 cold pages", dict(stale_page_dtype="int8")))
-                for key in ("(g)", "(i)", "(k)")}
+                for key in ("(g)", "(i)", "(k)", "(l)")}
 
 
 def model_widths(cfg) -> str:
@@ -2705,7 +2770,9 @@ def serve_families(torch, keys=None):
     (mv_sad's tiled kernel), served as (g); (j) mamba2-2.7b at d_state 512
     (WIDER_STATE: four column slabs), served as (h); (k) internvl3-14b
     with LM and ViT heads of 512 (HEADS_512: the attention kernels' SLAB
-    build), served as (g).  (g) and (i) serve CUT_LAYERS of the 48 layers.
+    build), served as (g); (l) internvl3-14b with LM and ViT heads of 1024
+    (HEADS_1024: the DEEP build), served as (g).  (g), (i) and (k) serve
+    CUT_LAYERS of the 48 layers.
     Each model's weights are freed before the next.  ``keys`` serves only
     those cases.  Returns (ok, launches per run)."""
     from repro_torch.data.pipeline import anomaly_dataset
@@ -4011,7 +4078,8 @@ def main(argv=None) -> int:
                          "8(g): mamba2-2.7b at d_state 256), 'odd-heads' (phase 7(i): "
                          "internvl3-14b with heads of 90 and 75 at search radius 128), "
                          "'n512-ssm' (phases 7(j) and 8(h): d_state 512), 'd512' (phase 7(k): "
-                         "internvl3-14b with LM and ViT heads of 512), 'mesh' "
+                         "internvl3-14b with LM and ViT heads of 512), 'd1024' (phase 7(l): "
+                         "heads of 1024), 'mesh' "
                          "(phases 8(b) and 8(e), then phase 9), 'hosttime' (phase 3(c)'s host "
                          "times) and 'deep-step' (phase 8(a)'s jamba step over several seeds), "
                          "each alone after phases 1-2")
@@ -4078,6 +4146,8 @@ def main(argv=None) -> int:
                                     and served_cleanly("phase 7(i)")),
               "d512": lambda: (serve_families(torch, ("(k)",))[0]
                                and served_cleanly("phase 7(k)")),
+              "d1024": lambda: (serve_families(torch, ("(l)",))[0]
+                                and served_cleanly("phase 7(l)")),
               "n512-ssm": lambda: (serve_families(torch, ("(j)",))[0]
                                    and served_cleanly("phase 7(j)")
                                    and train_mamba(torch, d_state=WIDER_STATE, steps=2)[0])}
@@ -4154,6 +4224,21 @@ def main(argv=None) -> int:
         ("D 512, decode", slab_w["D 512"], lay, slots, "decode"),) + tuple(
         (f"{lab}, selective refresh", w, lay, slots, "selective refresh", F32)
         for lab, w in slab_f32.items())
+    # the DEEP build: internvl3-14b at 5 heads of 1024 over 1 (HEADS_1024)
+    # and the widths past 512 at the same heads; 2048 and 4096 at 2 heads
+    # over 1 on the bench VLM's layout: label -> (cfg, layout, slots)
+    deep = {f"D {d}": (dataclasses.replace(cfg, name=f"d{d}", **{**HEADS_1024, "d_head": d}),
+                       lay, slots) for d in DEEP_WIDTHS} | {
+        f"D {d}": (dataclasses.replace(cfg, name=f"d{d}", n_heads=2, n_kv=1, d_head=d), blay,
+                   bslots) for d in DEEP_WIDE}
+    deep_f32 = {f"{lab}, f32 q": c for lab, c in deep.items()}
+    # the int8 cases' cold pages a stream: the bench layout's 2 pages hold 1
+    deep_cold = {lab: {"n_cold": 1} if c[1] is blay else {}
+                 for lab, c in (deep | deep_f32).items()}
+    stream_cases += tuple((f"{lab}, selective refresh", *c, "selective refresh")
+                          for lab, c in deep.items()) + tuple(
+        (f"D 1024, {case}", *deep["D 1024"], case) for case in ("fresh prefill", "decode")) + tuple(
+        (f"{lab}, selective refresh", *c, "selective refresh", F32) for lab, c in deep_f32.items())
     n = len(videos)
     paged_families, stream_families = family_kernel_cases()
     paged_families += [(B24, bcfg, blay, bslots), (W24, wide, pipe.layout, pipe.cache_slots),
@@ -4165,7 +4250,10 @@ def main(argv=None) -> int:
         (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in odd_f32.items()] + [
         (lab, w, lay, slots, None, REFRESH_CASES if lab == "D 512" else ("selective refresh",))
         for lab, w in slab_w.items()] + [
-        (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in slab_f32.items()]
+        (lab, w, lay, slots, F32, ("selective refresh",)) for lab, w in slab_f32.items()] + [
+        (lab, *c, None, REFRESH_CASES if lab == "D 1024" else ("selective refresh",))
+        for lab, c in deep.items()] + [
+        (lab, *c, F32, ("selective refresh",)) for lab, c in deep_f32.items()]
 
     def prefill_paged():
         main = check_flash_prefill_paged(torch, cfg, pipe.layout, pipe.cache_slots, n)
@@ -4189,7 +4277,12 @@ def main(argv=None) -> int:
                     for lab, w in slab_w.items()},
                  **{lab: check_flash_prefill_paged(torch, w, lay, slots, n, label=lab,
                                                    q_dtype=F32)
-                    for lab, w in slab_f32.items()}}
+                    for lab, w in slab_f32.items()},
+                 **{lab: check_flash_prefill_paged(torch, *c, n, label=lab, **deep_cold[lab])
+                    for lab, c in deep.items()},
+                 **{lab: check_flash_prefill_paged(torch, *c, n, label=lab, q_dtype=F32,
+                                                   **deep_cold[lab])
+                    for lab, c in deep_f32.items()}}
         return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
                 for i, m in enumerate(main)]
 
@@ -4210,7 +4303,10 @@ def main(argv=None) -> int:
                for d in (20, 90, 130)},
             **{f"D {d}": check_rope_shift(torch, slab_w[f"D {d}"], pipe.layout, n,
                                           label=f"D {d}")
-               for d in (320, 512)}})],
+               for d in (320, 512)},
+            **{f"D {d}": check_rope_shift(torch, deep[f"D {d}"][0], deep[f"D {d}"][1], n,
+                                          label=f"D {d}")
+               for d in (1024, 2048)}})],
         "flash_refresh_paged": lambda: [check_flash_refresh_paged(
             torch, cfg, pipe.layout, pipe.cache_slots, n, paged_families)],
         "flash_packed": lambda: [with_cases(check_flash_packed(torch, pipe, streams), {
@@ -4231,7 +4327,12 @@ def main(argv=None) -> int:
                                   *((f"D {d}, H {16 if d <= 128 else 8}, f32 q/k/v", d, F32)
                                     for d in ODD_WIDTHS + ODD_WIDE),
                                   *((f"D {d}, H 2", d, None) for d in SLAB_WIDTHS),
-                                  *((f"D {d}, H 2, f32 q/k/v", d, F32) for d in SLAB_WIDTHS))}})],
+                                  *((f"D {d}, H 2, f32 q/k/v", d, F32) for d in SLAB_WIDTHS))},
+            **{f"{lab}, busy": check_flash_packed(torch, pipe, streams, heads=(1, d),
+                                                  label=lab, dtype=dt, only=("busy",))
+               for lab, d, dt in (*((f"D {d}, H 1", d, None) for d in DEEP_WIDTHS + DEEP_WIDE),
+                                  *((f"D {d}, H 1, f32 q/k/v", d, F32)
+                                    for d in DEEP_WIDTHS + DEEP_WIDE))}})],
         "flash_refresh": lambda: [check_flash_refresh(torch, stream_cases, n, stream_families)],
         "flash_refresh_paged_int8": lambda: [with_cases(
             check_flash_refresh_paged_int8(torch, cfg, pipe.layout, pipe.cache_slots, n), {
@@ -4255,7 +4356,13 @@ def main(argv=None) -> int:
                    for lab, w in slab_w.items()},
                 **{lab: check_flash_refresh_paged_int8(torch, w, lay, slots, n, label=lab,
                                                        q_dtype=F32)
-                   for lab, w in slab_f32.items()}})],
+                   for lab, w in slab_f32.items()},
+                **{lab: check_flash_refresh_paged_int8(torch, *c, n, label=lab,
+                                                       **deep_cold[lab])
+                   for lab, c in deep.items()},
+                **{lab: check_flash_refresh_paged_int8(torch, *c, n, label=lab, q_dtype=F32,
+                                                       **deep_cold[lab])
+                   for lab, c in deep_f32.items()}})],
         "ssd_scan": lambda: [check_ssd_scan(torch)],
         "ssd_scan_bwd": lambda: [check_ssd_scan_bwd(torch)],
         "flash_prefill": lambda: [with_cases(
@@ -4288,7 +4395,15 @@ def main(argv=None) -> int:
                 f"{lab}, f32 q/k/v": check_flash_prefill(
                     torch, w, lay.total_len, n, only=("causal",), label=f"{lab}, f32 q/k/v",
                     dtype=F32)
-                for lab, w in slab_w.items()})],
+                for lab, w in slab_w.items()} | {
+                lab: check_flash_prefill(torch, w, l_.total_len, n, label=lab, only=(
+                    "causal", "chunk at an offset", "sliding window", "ragged")
+                    if lab == "D 1024" else ("causal",))
+                for lab, (w, l_, _) in deep.items()} | {
+                f"{lab}, f32 q/k/v": check_flash_prefill(
+                    torch, w, l_.total_len, n, only=("causal",), label=f"{lab}, f32 q/k/v",
+                    dtype=F32)
+                for lab, (w, l_, _) in deep.items()})],
         "flash_prefill_paged": prefill_paged,
     }
     if only - set(checks):

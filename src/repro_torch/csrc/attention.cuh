@@ -46,7 +46,8 @@
 // supplies the widths and the operands' types:
 //
 //   * head dims: a build of width D (24, 32, 64, 128, 256 or 512) lays out
-//     shared memory and runs the products for D columns.  An exact build
+//     shared memory and runs the products for D columns; past 512 the
+//     DEEP build (below) runs them over depth chunks of 256.  An exact build
 //     (attention.cu; attention_512.cu at 512) takes d == D, and the ones
 //     up to 256 compile to the code these kernels had before other widths
 //     were taken; a ragged build takes any head dim d <= D
@@ -63,7 +64,8 @@
 //     that holds it (d 1-24 on 24; 33-64 on 64, and 25-31 in bf16; 65-128
 //     on 128; 129-255 on 256; 257-511 on 512), whose padded products cost
 //     up to D / d more (1.6x at d 80, 1.9x at d 136).  D 256 is WIDE and D
-//     512 SLAB (below: block shapes of their own);
+//     512 SLAB (below: block shapes of their own); every d past 512 runs
+//     on the DEEP build;
 //   * operand types: OPS_BF16 (bf16 q, k, v and output), OPS_Q32 (f32 q
 //     over bf16 k, v, f32 output: what an f32 LM hands the refresh
 //     kernels: its caches and slab are bf16) and OPS_F32 (f32 q, k and v,
@@ -148,6 +150,36 @@
 // whose slabs past a ragged d exit at once.  OPS_F32's four arrays a slot
 // halve the query rows to 32 (two warps: Q's halves 66.6 KB, two 16-key
 // stages 100 KB).
+//
+// The DEEP body (every d past 512) sums Q K^T over depth chunks of D = 256
+// columns, so that no shared memory and no register depends on d: the
+// chunk count nc = ceil(d / 256) and the slab count ceil(d / DV) are
+// runtime values, and one build takes every width.  It runs the SLAB
+// body's block shape (4 warps over 64 query rows, 2 and 32 for f32 q/k/v)
+// in 16-key steps, on one slab of DV columns of V and O (blockIdx.y = head
+// x slabs + slab: H x ceil(d / DV) < 65536, which at H 40 and slabs of 256
+// holds d up to 419,424).  Each key step is nc units in the two-stage
+// ring: unit c brings chunk c of Q's rows and of the step's keys, the
+// first also the step's V slab (and kv_valid bytes), into buffers indexed
+// by step parity; the products add chunk c's Q_c K_c^T to S (8 f32
+// scores a thread) and, after the last chunk, the online softmax and the
+// slab's P V run as in the SLAB body.  Q is streamed, not resident: a
+// pre-pass (q_deep_kernel) writes its rows as the body's Q staging would
+// round them (q x scale to bf16 under the refresh oracle, the unscaled
+// query and its low half where it is split) into the caller's scratch,
+// zero-padded to a multiple of 16 columns, so every unit copies its Q
+// chunk by 16-byte cp.async and a last chunk of dk columns runs
+// ceil(dk / 16) k16 steps against Q's zeros (K's ring is zeroed once, so
+// that no stale NaN meets them).  The cost: Q is read from L2 once a key
+// step (64 rows x d where K brings 16 x d), and every slab recomputes the
+// whole head's Q K^T (the products (slabs + 1) / 2 times their count at
+// slabs of 256: 2.5x at d 1024, 8.5x at 4096).  Slabs are 256 columns in
+// the bf16 refresh and packed kernels, 128 in the prefill ones (P split in
+// halves) and for f32 operands, whose products pass 255 registers beside
+// O's 128 otherwise.  Shared memory: a unit's Q chunk 33.8 KB and K chunk
+// 8.4 KB, a V slab 8.4 KB (4.4 at 128 columns): bf16 101 KB (two blocks an
+// SM), + int8 staging 118 KB; bf16 prefill 93 KB, + int8 105 KB; an f32
+// query's split Q 161 KB, + int8 173 KB; f32 q/k/v 119 KB.
 // Compile-time hooks whose refresh values keep the refresh
 // kernels' code: no per-key bits (KEY_BITS false, prefill and packed: the
 // key range is the whole mask, and the kv_valid copies and ballots compile
@@ -200,24 +232,29 @@ enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2 };
 // 256) has 4 warps own QROWS = 64 rows, half a tile, in 32-key steps; a
 // SLAB build (D 512) runs that shape on one of SLABS column slabs of DV
 // columns of V and O (16-key steps for an f32 query and a ragged d, slabs
-// of 128 for an f32 query, and 2 warps over 32 rows for f32 q/k/v).
-template <int D_, bool RAGGED_, int OPS_>
+// of 128 for an f32 query, and 2 warps over 32 rows for f32 q/k/v).  A
+// DEEP build (any dh past 512; DEEP_DV_ > 0) runs the SLAB shape in 16-key
+// steps on slab_count(dh) = ceil(dh / DV) slabs of DV = DEEP_DV_ columns,
+// a runtime count, summing Q K^T over depth chunks of D = 256 columns.
+template <int D_, bool RAGGED_, int OPS_, int DEEP_DV_ = 0>
 struct Build {
   static constexpr int D = D_;
   static constexpr bool RAGGED = RAGGED_;
   static constexpr int OPS = OPS_;
+  static constexpr bool DEEP = DEEP_DV_ > 0;
   static constexpr bool SPLIT_KV = OPS_ == OPS_F32;   // K, V as bf16 hi + lo
   static constexpr bool WIDE = D_ > 128;
   // V's and O's column slabs: 256 columns (128 for an f32 query, whose
   // split query and P pass 255 registers beside O's 128 in the int8
-  // prefill)
-  static constexpr int SLABS = D_ > 256 ? D_ / (OPS_ == OPS_Q32 ? 128 : 256) : 1;
-  static constexpr bool SLAB = SLABS > 1;
-  static constexpr int DV = D_ / SLABS;                // V's and O's columns a block
+  // prefill); DEEP: slab_count(dh) of them
+  static constexpr int SLABS = DEEP ? 0 : D_ > 256 ? D_ / (OPS_ == OPS_Q32 ? 128 : 256) : 1;
+  static constexpr bool SLAB = DEEP || SLABS > 1;
+  static constexpr int DV = DEEP ? DEEP_DV_ : D_ / SLABS;   // V's and O's columns a block
   static constexpr int THREADS = !WIDE ? 256 : SLAB && SPLIT_KV ? 64 : 128;  // 16 rows a warp
   // keys a step (one ring slot)
   static constexpr int BK = !WIDE ? 64 : SLAB && (OPS_ != OPS_BF16 || RAGGED_) ? 16 : 32;
   static constexpr int QROWS = THREADS / 2;            // query rows a block
+  static_assert(!DEEP || (D_ == 256 && RAGGED_), "a DEEP build: chunks of 256, any d");
   int dh;                                              // the operands' head dim
   int cw;                                              // its copy chunk (elements)
   // the operands' head dim, and whether columns [c8, c8 + 8) hold data
@@ -228,6 +265,14 @@ struct Build {
   // the live columns of the chunk at c8 (< 8 only in the last one)
   __device__ __forceinline__ int live(int c8) const { return RAGGED ? min(8, dh - c8) : 8; }
 };
+
+// build B's column slabs of V and O at head dim dh (the grid's blockIdx.y:
+// head x slabs + slab): SLABS, or for a DEEP build ceil(dh / DV)
+template <class B>
+__host__ __device__ __forceinline__ int slab_count(int dh) {
+  if constexpr (B::DEEP) return (dh + B::DV - 1) / B::DV;
+  else return B::SLABS;
+}
 
 // a head dim's copy chunk (Build::cw)
 inline int copy_chunk(int dh) { return dh % 8 == 0 ? 8 : dh % 4 == 0 ? 4 : dh % 2 == 0 ? 2 : 1; }
@@ -259,6 +304,18 @@ struct KV {
   const bf16* v_lo;
   int v0, dv;
 };
+
+// a DEEP build's unit (the KV its loads and finish_kv are handed): K's
+// depth chunk [k0, k0 + dk), the step's V slab with its first chunk (k0
+// == 0) and, for a cold page, V dequantised with its last (last).  A type
+// of its own, so that the other builds' KV keeps its layout.
+struct DeepKV : KV {
+  int k0, dk;
+  bool last;
+};
+__device__ __forceinline__ const DeepKV& deep_kv(const KV& kv) {
+  return static_cast<const DeepKV&>(kv);
+}
 
 // Where row r, columns [c8, c8 + 8) of a ring slot's K or V live (in
 // elements).  A row holds DK columns, D rounded up to Q K^T's k16 step (D
@@ -354,10 +411,60 @@ __device__ void slab_rows(const Slot& st, const KV& kv, long long row0, int Hkv,
   }
 }
 
+// rows [row0, row0 + BK) of one operand (rows of dh elements), columns
+// [col0, col0 + n), into a slot's rows of W columns: 16-byte copies, or
+// where rows are not on 16-byte boundaries narrow_piece's pieces of cw
+// columns, a row's pieces on consecutive lanes (rows [n_in, BK)
+// zero-filled, nothing read for them: key rows past Sk).  cw divides both
+// dh and col0, so a piece is live or past n as a whole.
+template <class B, int W>
+__device__ void copy_cols(bf16* dst, const bf16* src, long long row0, int Hkv, int kvh,
+                          int col0, int n, int tid, const B& bd, int n_in) {
+  if (bd.whole()) {
+    for (int i = tid; i < B::BK * W / 8; i += B::THREADS) {
+      const int r = i / (W / 8), c8 = (i % (W / 8)) * 8;
+      if (c8 >= n) continue;
+      const bool in = r < n_in;
+      const long long off = ((row0 + (in ? r : 0)) * Hkv + kvh) * bd.dh + col0 + c8;
+      cp_async16_fill(dst + PaddedRows<W>::at(r, c8), src + off, in ? 16 : 0);
+    }
+    return;
+  }
+  const int lg = row_lanes_log2(n / bd.cw);
+  for (int i = tid; i < (B::BK << lg); i += B::THREADS) {
+    const int r = i >> lg;
+    const bool in = r < n_in;
+    const long long off = ((row0 + (in ? r : 0)) * Hkv + kvh) * bd.dh + col0;
+    for (int c = (i & ((1 << lg) - 1)) * bd.cw; c < n; c += bd.cw << lg)
+      narrow_piece(dst + PaddedRows<W>::at(r, c), src + off + c, bd.cw, in);
+  }
+}
+
+// a DEEP build's unit: K's depth chunk [k0, k0 + dk) of rows [row0, row0
+// + BK), and with the step's first chunk the slab's dv columns of V (and
+// their low halves under OPS_F32)
+template <class B>
+__device__ void deep_rows(const Slot& st, const KV& kv_, long long row0, int Hkv, int kvh,
+                          int tid, const B& bd, int n_in = B::BK) {
+  const DeepKV& kv = deep_kv(kv_);
+  copy_cols<B, B::D>(st.K, kv.k, row0, Hkv, kvh, kv.k0, kv.dk, tid, bd, n_in);
+  if constexpr (B::SPLIT_KV)
+    copy_cols<B, B::D>(st.Klo, kv.k_lo, row0, Hkv, kvh, kv.k0, kv.dk, tid, bd, n_in);
+  if (kv.k0 == 0) {
+    copy_cols<B, B::DV>(st.V, kv.v, row0, Hkv, kvh, kv.v0, kv.dv, tid, bd, n_in);
+    if constexpr (B::SPLIT_KV)
+      copy_cols<B, B::DV>(st.Vlo, kv.v_lo, row0, Hkv, kvh, kv.v0, kv.dv, tid, bd, n_in);
+  }
+}
+
 template <class B>
 __device__ void async_rows(const Slot& st, const KV& kv, long long row0, int Hkv, int kvh,
                            int tid, const B& bd) {
   constexpr int D = B::D;
+  if constexpr (B::DEEP) {
+    deep_rows(st, kv, row0, Hkv, kvh, tid, bd);
+    return;
+  }
   if (!bd.whole()) {
     narrow_rows(st, kv, row0, Hkv, kvh, tid, bd);
     return;
@@ -456,6 +563,12 @@ struct ColdPages {
     constexpr int D = B::D;
     constexpr int CH = !B::RAGGED && D % 16 == 0 ? 16 : 8;
     const long long row0 = (long long)(entry - n_hot) * TILE + c0;
+    if constexpr (B::DEEP) {   // K's depth chunk; V's slab with the first
+      const DeepKV& u = deep_kv(kv);
+      cold_slab_rows<B, D>(st.K8, k8, row0, Hkv, kvh, u.k0, u.dk, tid, bd);
+      if (u.k0 == 0) cold_slab_rows<B, B::DV>(st.V8, v8, row0, Hkv, kvh, u.v0, u.dv, tid, bd);
+      return;
+    }
     if constexpr (B::SLAB) {
       cold_slab_rows<B, D>(st.K8, k8, row0, Hkv, kvh, 0, bd.d(), tid, bd);
       cold_slab_rows<B, B::DV>(st.V8, v8, row0, Hkv, kvh, kv.v0, kv.dv, tid, bd);
@@ -510,6 +623,12 @@ struct ColdPages {
     if (entry < n_hot) return false;
     const int cp = entry - n_hot;
     const float ks = k_scale[cp * Hkv + kvh], vs = v_scale[cp * Hkv + kvh];
+    if constexpr (B::DEEP) {   // K's depth chunk; V's slab with the last
+      const DeepKV& u = deep_kv(kv);
+      dequant_slab_rows<B, D>(st.K, st.K8, ks, u.dk, tid, bd);
+      if (u.last) dequant_slab_rows<B, B::DV>(st.V, st.V8, vs, u.dv, tid, bd);
+      return true;
+    }
     if constexpr (B::SLAB) {
       dequant_slab_rows<B, D>(st.K, st.K8, ks, bd.d(), tid, bd);
       dequant_slab_rows<B, B::DV>(st.V, st.V8, vs, kv.dv, tid, bd);
@@ -646,6 +765,10 @@ struct Prefill : PrefillMask {
                            int kvh, int tid, const B& bd) const {
     constexpr int D = B::D;
     const int key0 = j * TILE + c0;
+    if constexpr (B::DEEP) {
+      deep_rows(st, kv, (long long)b * Sk + key0, Hkv, kvh, tid, bd, Sk - key0);
+      return;
+    }
     if (!bd.whole()) {
       narrow_rows(st, kv, (long long)b * Sk + key0, Hkv, kvh, tid, bd, Sk - key0);
       return;
@@ -773,10 +896,12 @@ struct MmaSmem {
   static constexpr size_t slot_ki = P::KEY_BITS ? B::BK : 0;    // kv_valid bytes
   static constexpr size_t slot_i8 = P::COLD ? B::BK * D : 0;
   static constexpr size_t slot_v8 = P::COLD ? B::BK * DV : 0;
+  // Q's rows (DEEP: a depth chunk of them a ring slot)
+  static constexpr int QBUF = B::DEEP ? STAGES : 1;
   static constexpr size_t q_bytes = sizeof(bf16) * B::QROWS * LDQ;
   static constexpr size_t q = 0;
-  static constexpr size_t qlo = q + q_bytes;                      // Q's low half
-  static constexpr size_t k = qlo + (Split<B, P>::q ? q_bytes : 0);
+  static constexpr size_t qlo = q + QBUF * q_bytes;               // Q's low half
+  static constexpr size_t k = qlo + (Split<B, P>::q ? QBUF * q_bytes : 0);
   static constexpr size_t v = k + STAGES * slot_kv;
   static constexpr size_t klo = v + STAGES * slot_v;
   static constexpr size_t vlo = klo + STAGES * slot_lo;
@@ -828,14 +953,14 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   // the block's QROWS query rows from q0, in map tile iq (whose visit list
   // it walks: a WIDE block owns half of it), and (SLAB) its slab of V and
   // O: columns [v0, v0 + dv)
-  const int bq = prob.q_tile(blockIdx.x), h = blockIdx.y / B::SLABS, b = blockIdx.z;
+  const int bq = prob.q_tile(blockIdx.x), h = blockIdx.y / slab_count<B>(bd.dh), b = blockIdx.z;
   const int iq = bq / (TILE / QROWS);
   const int q0 = bq * QROWS;
   const int kvh = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int d = bd.d();
-  const int v0 = (blockIdx.y % B::SLABS) * DV;
+  const int v0 = (blockIdx.y % slab_count<B>(bd.dh)) * DV;
   if (B::SLAB && v0 >= d) return;       // a slab past a ragged d (f32 query: 128 columns)
   const int dv = B::SLAB ? min(DV, d - v0) : d;
   const KV kv{k, v, k_lo, v_lo, v0, dv};
@@ -867,11 +992,47 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // the ring: step s = visited tile s / SPT, keys (s % SPT) * BK.., in
-  // slot s % STAGES; one commit group per step (empty past the end)
+  // slot s % STAGES; one commit group per step (empty past the end).
+  // DEEP: fetch(u) brings unit u = step s x nc + chunk c (nc = ceil(d / D))
+  // into ring slot u % STAGES, Q's and K's depth chunk c of D columns, and
+  // with c = 0 the step's V slab and kv_valid bytes into slot s % STAGES
+  // (STAGES is 2); Q from the pre-pass's rows of dq columns (q_deep_kernel:
+  // scaled, split and zero-padded bf16)
   const auto tiles = prob.visits(b, iq);
   const int n_steps = tiles.n * SPT;
   auto fetch = [&](int s) {
-    if (s < n_steps) {
+    if constexpr (B::DEEP) {
+      const int nc = (d + D - 1) / D, u = s;
+      if (u < n_steps * nc) {
+        s = u / nc;
+        const int c = u - s * nc;
+        const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * BK;
+        const int k0 = c * D, dk = min(D, d - k0), dkq = (dk + 15) / 16 * 16;
+        const int dq = (d + 15) / 16 * 16;
+        const long long q_rows = (long long)H * dq;        // between query rows
+        const bf16* qd = reinterpret_cast<const bf16*>(q) + ((long long)b * Sq + q0) * q_rows +
+                         (long long)h * dq + k0;
+        [[maybe_unused]] const bf16* qd_lo = qd + (long long)gridDim.z * Sq * q_rows;
+        bf16* Qd = Qs + (u % STAGES) * QROWS * LDQ;
+        [[maybe_unused]] bf16* Qd_lo = Qlo + (u % STAGES) * QROWS * LDQ;
+        for (int i = tid; i < QROWS * D / 8; i += THREADS) {
+          const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+          if (c8 >= dkq) continue;
+          const bool in = r < n_rows;
+          const long long off = (in ? r : 0) * q_rows + c8;
+          cp_async16_fill(Qd + r * LDQ + c8, qd + off, in ? 16 : 0);
+          if constexpr (S::q) cp_async16_fill(Qd_lo + r * LDQ + c8, qd_lo + off, in ? 16 : 0);
+        }
+        const Slot ring = slot(u % STAGES), vs = slot(s % STAGES);
+        const DeepKV kvu{{k, v, k_lo, v_lo, v0, dv}, k0, dk, c == nc - 1};
+        prob.fetch_kv(Slot{ring.K, vs.V, ring.K8, vs.V8, ring.Klo, vs.Vlo}, kvu, b, j, c0, Hkv,
+                      kvh, tid, bd);
+        if constexpr (P::KEY_BITS) {
+          if (c == 0 && tid < KI_COPIES)
+            cp_async16(Ki + (s % STAGES) * BK + tid * 16, prob.k_info_row(b, j) + c0 + tid * 16);
+        }
+      }
+    } else if (s < n_steps) {
       const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * BK;
       prob.fetch_kv(slot(s % STAGES), kv, b, j, c0, Hkv, kvh, tid, bd);
       if constexpr (P::KEY_BITS) {
@@ -881,36 +1042,50 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     }
     cp_async_commit();
   };
-  // K's columns [d, DK), which Q K^T's last k16 steps read against Q's
-  // zeros, are zeros too: the copies never write them (garbage there could
-  // be a NaN, and 0 x NaN would reach a score).  V's columns from d on
-  // reach only output columns that are not stored.  A chunk that holds
-  // column d keeps its live columns for the copies (other bytes: no race).
-  if constexpr (B::RAGGED) {
+  if constexpr (B::DEEP) {
+    // K's ring (and its low halves) zeroed once: the products of a last
+    // chunk's k16 step read columns [dk, 16) of it against Q's zeros
     for (int i = tid; i < STAGES * BK * (DK / 8); i += THREADS) {
       const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
-      if (c8 + 8 <= d) continue;
       const Slot st = slot(r / BK);
-      bf16* kz = st.K + PaddedRows<D>::at(r % BK, c8);
-      [[maybe_unused]] bf16* kl = st.Klo + PaddedRows<D>::at(r % BK, c8);
-      if (c8 < d) {
-        for (int t = d - c8; t < 8; ++t) {
-          kz[t] = __float2bfloat16_rn(0.f);
-          if constexpr (S::kv) kl[t] = __float2bfloat16_rn(0.f);
-        }
-        continue;
-      }
-      *reinterpret_cast<uint4*>(kz) = make_uint4(0, 0, 0, 0);
-      if constexpr (S::kv) *reinterpret_cast<uint4*>(kl) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r % BK, c8)) = make_uint4(0, 0, 0, 0);
+      if constexpr (S::kv)
+        *reinterpret_cast<uint4*>(st.Klo + PaddedRows<D>::at(r % BK, c8)) = make_uint4(0, 0, 0, 0);
     }
-  } else if constexpr (DK > D) {
-    for (int i = tid; i < STAGES * BK; i += THREADS)
-      *reinterpret_cast<uint4*>(slot(i / BK).K + PaddedRows<D>::at(i % BK, D)) =
-          make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    #pragma unroll
+    for (int u = 0; u < STAGES - 1; ++u) fetch(u);
+  } else {
+    // K's columns [d, DK), which Q K^T's last k16 steps read against Q's
+    // zeros, are zeros too: the copies never write them (garbage there could
+    // be a NaN, and 0 x NaN would reach a score).  V's columns from d on
+    // reach only output columns that are not stored.  A chunk that holds
+    // column d keeps its live columns for the copies (other bytes: no race).
+    if constexpr (B::RAGGED) {
+      for (int i = tid; i < STAGES * BK * (DK / 8); i += THREADS) {
+        const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
+        if (c8 + 8 <= d) continue;
+        const Slot st = slot(r / BK);
+        bf16* kz = st.K + PaddedRows<D>::at(r % BK, c8);
+        [[maybe_unused]] bf16* kl = st.Klo + PaddedRows<D>::at(r % BK, c8);
+        if (c8 < d) {
+          for (int t = d - c8; t < 8; ++t) {
+            kz[t] = __float2bfloat16_rn(0.f);
+            if constexpr (S::kv) kl[t] = __float2bfloat16_rn(0.f);
+          }
+          continue;
+        }
+        *reinterpret_cast<uint4*>(kz) = make_uint4(0, 0, 0, 0);
+        if constexpr (S::kv) *reinterpret_cast<uint4*>(kl) = make_uint4(0, 0, 0, 0);
+      }
+    } else if constexpr (DK > D) {
+      for (int i = tid; i < STAGES * BK; i += THREADS)
+        *reinterpret_cast<uint4*>(slot(i / BK).K + PaddedRows<D>::at(i % BK, D)) =
+            make_uint4(0, 0, 0, 0);
+    }
+    #pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) fetch(s);
   }
-  #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
-
   // this thread's two rows (g and g + 8 of the warp's 16); a warp whose
   // rows are all padding skips the products
   const int r0 = warp * 16 + g, r1 = r0 + 8;
@@ -927,45 +1102,47 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     any_dead = __any_sync(0xffffffffu, dead0 || dead1);
   }
 
-  // Q, times qscale in f32 and rounded to bf16 (split: and the rest, to
-  // its low half), while the first tiles are in flight (columns [d, DK)
-  // zeros); then each warp's fragments, unless they are split or WIDE
-  // (loaded each step)
-  for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
-    const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
-    const bool in = r < n_rows && c8 < D && bd.col(c8);
-    float x[8];
-    if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
-      #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        x[t] = in && c8 + t < d ? cs_to_float(qb[r * q_stride + c8 + t]) : 0.f;
-    } else if constexpr (Q_F32) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
-      if (in) {
-        a = *reinterpret_cast<const float4*>(qb + r * q_stride + c8);
-        c = *reinterpret_cast<const float4*>(qb + r * q_stride + c8 + 4);
+  if constexpr (!B::DEEP) {
+    // Q, times qscale in f32 and rounded to bf16 (split: and the rest, to
+    // its low half), while the first tiles are in flight (columns [d, DK)
+    // zeros); then each warp's fragments, unless they are split or WIDE
+    // (loaded each step)
+    for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
+      const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
+      const bool in = r < n_rows && c8 < D && bd.col(c8);
+      float x[8];
+      if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
+        #pragma unroll
+        for (int t = 0; t < 8; ++t)
+          x[t] = in && c8 + t < d ? cs_to_float(qb[r * q_stride + c8 + t]) : 0.f;
+      } else if constexpr (Q_F32) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+        if (in) {
+          a = *reinterpret_cast<const float4*>(qb + r * q_stride + c8);
+          c = *reinterpret_cast<const float4*>(qb + r * q_stride + c8 + 4);
+        }
+        x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+        x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
+      } else {
+        uint4 raw = make_uint4(0, 0, 0, 0);
+        if (in) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
+        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+        #pragma unroll
+        for (int t = 0; t < 8; ++t) x[t] = __bfloat162float(e[t]);
       }
-      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-      x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
-    } else {
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (in) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      __align__(16) bf16 hi[8], lo[8];
       #pragma unroll
-      for (int t = 0; t < 8; ++t) x[t] = __bfloat162float(e[t]);
+      for (int t = 0; t < 8; ++t) {
+        const float xs = x[t] * qscale;
+        hi[t] = __float2bfloat16_rn(xs);
+        if constexpr (S::q) lo[t] = __float2bfloat16_rn(xs - __bfloat162float(hi[t]));
+      }
+      *reinterpret_cast<uint4*>(Qs + r * LDQ + c8) = *reinterpret_cast<const uint4*>(hi);
+      if constexpr (S::q)
+        *reinterpret_cast<uint4*>(Qlo + r * LDQ + c8) = *reinterpret_cast<const uint4*>(lo);
     }
-    __align__(16) bf16 hi[8], lo[8];
-    #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float xs = x[t] * qscale;
-      hi[t] = __float2bfloat16_rn(xs);
-      if constexpr (S::q) lo[t] = __float2bfloat16_rn(xs - __bfloat162float(hi[t]));
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + c8) = *reinterpret_cast<const uint4*>(hi);
-    if constexpr (S::q)
-      *reinterpret_cast<uint4*>(Qlo + r * LDQ + c8) = *reinterpret_cast<const uint4*>(lo);
+    __syncthreads();
   }
-  __syncthreads();
   uint32_t qf[Q_REGS ? KC : 1][4];
   if constexpr (Q_REGS) {
     #pragma unroll
@@ -979,53 +1156,112 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // l: this thread's columns
 
   for (int s = 0; s < n_steps; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();             // step s landed; step s - 1's slot is free
-    fetch(s + STAGES - 1);
-    const int j = prob.tile(tiles, s / SPT), c0 = (s % SPT) * BK;
-    const Slot st = slot(s % STAGES);
-    if (prob.finish_kv(st, kv, b, j, Hkv, kvh, tid, bd)) __syncthreads();
-    if (!compute) continue;
-
-    // S = Q K^T (16 rows x BK keys per warp); split: hi K + lo K (+ hi
-    // K_lo)
     float sc[NT * 4];
-    #pragma unroll
-    for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
-    #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      if constexpr (!Q_REGS) {
-        uint32_t qh[4];
-        [[maybe_unused]] uint32_t ql[4];
-        ldsm_x4(qh, Qs + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
-        if constexpr (S::q)
-          ldsm_x4(ql, Qlo + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+    int j, c0;
+    Slot st;
+    if constexpr (B::DEEP) {
+      // S = sum over the depth chunks c of Q_c K_c^T: unit s x nc + c
+      // brings chunk c of Q's rows and of the step's keys (and with c = 0
+      // the step's V slab); a last chunk of dk columns runs ceil(dk / 16)
+      // k16 steps (Q's columns past d are the pre-pass's zeros)
+      j = prob.tile(tiles, s / SPT);
+      c0 = (s % SPT) * BK;
+      #pragma unroll
+      for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
+      const int nc = (d + D - 1) / D;
+      for (int c = 0; c < nc; ++c) {
+        const int u = s * nc + c;
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();           // unit u landed; unit u - 1's slot is free
+        fetch(u + STAGES - 1);
+        const int k0 = c * D, dk = min(D, d - k0);
+        const Slot ring = slot(u % STAGES), vs = slot(s % STAGES);
+        st = Slot{ring.K, vs.V, ring.K8, vs.V8, ring.Klo, vs.Vlo};
+        const DeepKV kvu{{k, v, k_lo, v_lo, v0, dv}, k0, dk, c == nc - 1};
+        if (prob.finish_kv(st, kvu, b, j, Hkv, kvh, tid, bd)) __syncthreads();
+        if (!compute) continue;
+        const bf16* Qc = Qs + (u % STAGES) * QROWS * LDQ;
+        [[maybe_unused]] const bf16* Qc_lo = Qlo + (u % STAGES) * QROWS * LDQ;
+        const int kcs = (dk + 15) / 16;
         #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          const int kr = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int kcol = kc * 16 + ((lane >> 3) & 1) * 8;
-          uint32_t kb[4];
-          ldsm_x4(kb, st.K + PaddedRows<D>::at(kr, kcol));
-          mma16816(sc + 8 * np, qh, kb[0], kb[1]);
-          mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
-          if constexpr (S::q) {
-            mma16816(sc + 8 * np, ql, kb[0], kb[1]);
-            mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
-          }
-          if constexpr (S::kv) {
-            ldsm_x4(kb, st.Klo + PaddedRows<D>::at(kr, kcol));
-            mma16816(sc + 8 * np, qh, kb[0], kb[1]);
-            mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+        for (int kc = 0; kc < KC; ++kc) {
+          if (kc < kcs) {
+            uint32_t qh[4];
+            [[maybe_unused]] uint32_t ql[4];
+            ldsm_x4(qh, Qc + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+            if constexpr (S::q)
+              ldsm_x4(ql, Qc_lo + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+            #pragma unroll
+            for (int np = 0; np < NT / 2; ++np) {
+              const int kr = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+              const int kcol = kc * 16 + ((lane >> 3) & 1) * 8;
+              uint32_t kb[4];
+              ldsm_x4(kb, st.K + PaddedRows<D>::at(kr, kcol));
+              mma16816(sc + 8 * np, qh, kb[0], kb[1]);
+              mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+              if constexpr (S::q) {
+                mma16816(sc + 8 * np, ql, kb[0], kb[1]);
+                mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
+              }
+              if constexpr (S::kv) {
+                ldsm_x4(kb, st.Klo + PaddedRows<D>::at(kr, kcol));
+                mma16816(sc + 8 * np, qh, kb[0], kb[1]);
+                mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+              }
+            }
           }
         }
-      } else {
-        #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t kb[4];
-          ldsm_x4(kb, st.K + PaddedRows<D>::at(np * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                               kc * 16 + ((lane >> 3) & 1) * 8));
-          mma16816(sc + 8 * np, qf[kc], kb[0], kb[1]);
-          mma16816(sc + 8 * np + 4, qf[kc], kb[2], kb[3]);
+      }
+      if (!compute) continue;
+    } else {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();             // step s landed; step s - 1's slot is free
+      fetch(s + STAGES - 1);
+      j = prob.tile(tiles, s / SPT);
+      c0 = (s % SPT) * BK;
+      st = slot(s % STAGES);
+      if (prob.finish_kv(st, kv, b, j, Hkv, kvh, tid, bd)) __syncthreads();
+      if (!compute) continue;
+
+      // S = Q K^T (16 rows x BK keys per warp); split: hi K + lo K (+ hi
+      // K_lo)
+      #pragma unroll
+      for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
+      #pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        if constexpr (!Q_REGS) {
+          uint32_t qh[4];
+          [[maybe_unused]] uint32_t ql[4];
+          ldsm_x4(qh, Qs + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+          if constexpr (S::q)
+            ldsm_x4(ql, Qlo + (warp * 16 + (lane & 15)) * LDQ + kc * 16 + (lane >> 4) * 8);
+          #pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            const int kr = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+            const int kcol = kc * 16 + ((lane >> 3) & 1) * 8;
+            uint32_t kb[4];
+            ldsm_x4(kb, st.K + PaddedRows<D>::at(kr, kcol));
+            mma16816(sc + 8 * np, qh, kb[0], kb[1]);
+            mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+            if constexpr (S::q) {
+              mma16816(sc + 8 * np, ql, kb[0], kb[1]);
+              mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
+            }
+            if constexpr (S::kv) {
+              ldsm_x4(kb, st.Klo + PaddedRows<D>::at(kr, kcol));
+              mma16816(sc + 8 * np, qh, kb[0], kb[1]);
+              mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+            }
+          }
+        } else {
+          #pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t kb[4];
+            ldsm_x4(kb, st.K + PaddedRows<D>::at(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                 kc * 16 + ((lane >> 3) & 1) * 8));
+            mma16816(sc + 8 * np, qf[kc], kb[0], kb[1]);
+            mma16816(sc + 8 * np + 4, qf[kc], kb[2], kb[3]);
+          }
         }
       }
     }
@@ -1197,18 +1433,64 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// the DEEP build's pre-pass: rows of d q elements (bf16 or f32) -> rows of
+// dq bf16 (d rounded up to Q K^T's k16 step), hi = bf16(x * qscale) and,
+// where lo is given, lo = bf16(x * qscale - hi), as the body's Q staging
+// rounds them; columns [d, dq) zeros.  A thread per 8 output columns.
+template <class T>
+__global__ void q_deep_kernel(const T* __restrict__ q, bf16* __restrict__ hi,
+                              bf16* __restrict__ lo, long long rows, int d, int dq,
+                              float qscale) {
+  const long long n = rows * (dq / 8);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / (dq / 8);
+    const int c8 = (int)(i % (dq / 8)) * 8;
+    __align__(16) bf16 h[8], l[8];
+    #pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float xs = c8 + t < d ? cs_to_float(q[r * d + c8 + t]) * qscale : 0.f;
+      h[t] = __float2bfloat16_rn(xs);
+      l[t] = __float2bfloat16_rn(xs - __bfloat162float(h[t]));
+    }
+    *reinterpret_cast<uint4*>(hi + r * dq + c8) = *reinterpret_cast<const uint4*>(h);
+    if (lo != nullptr)
+      *reinterpret_cast<uint4*>(lo + r * dq + c8) = *reinterpret_cast<const uint4*>(l);
+  }
+}
+
+// Launch build B over problem P: Sq / QROWS query blocks, H x slabs
+// blocks a head (blockIdx.y < 65536: H x slabs at most 65535, which at
+// 256-column slabs holds H 40 to d 419,424), Bn batch rows.  A DEEP build
+// first runs q_deep_kernel into q_scratch (bf16, Bn x Sq x H rows of dq
+// columns, a second such array of low halves where Q is split), and its
+// body reads Q there.
 template <class B, class P>
 int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, int Bn, int Sq,
                int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
-               const void* k_lo, const void* v_lo) {
+               const void* k_lo, const void* v_lo, void* q_scratch = nullptr) {
   const size_t smem = MmaSmem<B, P>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       mma_kernel<B, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H * B::SLABS, Bn);
+  const B bd{dh, copy_chunk(dh)};
+  const int slabs = slab_count<B>(dh);
+  if ((long long)H * slabs > 65535) return (int)cudaErrorInvalidConfiguration;
+  if constexpr (B::DEEP) {
+    const int dq = (dh + 15) / 16 * 16;
+    const long long rows = (long long)Bn * Sq * H, n = rows * (dq / 8);
+    bf16* hi = (bf16*)q_scratch;
+    bf16* lo = Split<B, P>::q ? hi + rows * dq : nullptr;
+    const long long want = (n + 255) / 256;
+    const int blocks = (int)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);
+    q_deep_kernel<<<blocks, 256, 0, stream>>>((const QT<B>*)q, hi, lo, rows, dh, dq,
+                                             P::EXACT ? 1.f : scale);
+    q = hi;
+  }
+  dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H * slabs, Bn);
   mma_kernel<B, P><<<grid, B::THREADS, smem, stream>>>(
       (const QT<B>*)q, (const bf16*)k, (const bf16*)v, (QT<B>*)out, Sq, H, Hkv, scale, prob,
-      B{dh, copy_chunk(dh)}, (const bf16*)k_lo, (const bf16*)v_lo);
+      bd, (const bf16*)k_lo, (const bf16*)v_lo);
   return (int)cudaGetLastError();
 }
 
@@ -1276,11 +1558,36 @@ struct Any512 {
   }
 };
 
+// head dims d past 512 on the DEEP build of operand types OPS (Q K^T over
+// depth chunks of 256 columns, ceil(d / DV) column slabs of V and O over
+// blocks): attention_deep.cu, attention_q32_deep.cu, and attention_f32.cu's
+// f32 q/k/v.  Slabs of 256 columns for bf16 operands in the refresh and
+// packed kernels; of 128 for an f32 query, f32 q/k/v and the prefill
+// kernels (EXACT: P split in two halves), whose split products pass 255
+// registers beside O's 128 with the depth chunks' loop.  q_scratch: Q's
+// pre-pass rows (launch_mma).
+template <int OPS>
+struct Deep {
+  void* q_scratch;
+  template <class P>
+  int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
+                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
+                 const void* k_lo = nullptr, const void* v_lo = nullptr) const {
+    if (dh <= 512) return (int)cudaErrorInvalidValue;
+    constexpr int DV = OPS == OPS_BF16 && !P::EXACT ? 256 : 128;
+    return launch_mma<Build<256, true, OPS, DV>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale,
+                                                 prob, stream, k_lo, v_lo, q_scratch);
+  }
+};
+
 }  // namespace
 
 // The seven entry points, named cs_attn_<op>SUFFIX, each launching
-// through LAUNCH (Exact, Any<OPS> or Any512<OPS>).  q, out: (B, Sq, H, D) in the
-// build's q type (bf16, or f32 for OPS_Q32), any Sq; k, v bf16.
+// through LAUNCH (Exact, Any<OPS> or Any512<OPS>; CS_ATTN_DEEP_EXPORTS:
+// Deep<OPS>, whose entry points take one more argument before the stream,
+// q_scratch: bf16, B x Sq x H rows of D rounded up to 16, twice for an f32
+// q).  q, out: (B, Sq, H, D) in the build's q type (bf16, or f32 for
+// OPS_Q32), any Sq; k, v bf16.
 //
 // refresh: k, v (B, n_tiles * 128, Hkv, D) per-stream caches; q_pos:
 // (n_q_tiles * 128,) i32 (the map's, padded with -1); kv_valid: (B,
@@ -1301,63 +1608,67 @@ struct Any512 {
 // prefill_paged: k, v (P_phys, Hkv, D) slab; pt: (B, n_pages) i32, the
 // logical keys [0, n_pages * 128).  Causal.  prefill_paged_int8: as
 // refresh_paged_int8's cold group.
-#define CS_ATTN_EXPORTS(SUFFIX, LAUNCH)                                                   \
+#define CS_ATTN_EXPORTS(SUFFIX, LAUNCH) CS_ATTN_EXPORTS_(SUFFIX, LAUNCH, , )
+#define CS_ATTN_SCRATCH , void* q_scratch
+#define CS_ATTN_DEEP_EXPORTS(SUFFIX, OPS) \
+  CS_ATTN_EXPORTS_(SUFFIX, Deep<OPS>, CS_ATTN_SCRATCH, q_scratch)
+#define CS_ATTN_EXPORTS_(SUFFIX, LAUNCH, SCRATCH, ARG)                                    \
   CS_EXPORT int cs_attn_refresh_bf16##SUFFIX(                                             \
-      const void* q, const void* k, const void* v, void* out, const int* q_pos,          \
-      const uint8_t* kv_valid, const int* tile_ids, const int* tile_count, int B,        \
-      int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal, int window,     \
-      float scale, cudaStream_t stream) {                                                \
+      const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
+      const uint8_t* kv_valid, const int* tile_ids, const int* tile_count, int B,         \
+      int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal, int window,      \
+      float scale SCRATCH, cudaStream_t stream) {                                         \
     Refresh prob{{q_pos, kv_valid, tile_ids, tile_count, n_tiles, t_max, causal, window}}; \
-    return LAUNCH()(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);               \
-  }                                                                                      \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+  }                                                                                       \
   CS_EXPORT int cs_attn_refresh_paged_bf16##SUFFIX(                                       \
-      const void* q, const void* k, const void* v, void* out, const int* q_pos,          \
-      const uint8_t* kv_valid, const int* pt, const int* tile_ids,                       \
-      const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,          \
-      int t_max, int causal, int window, float scale, cudaStream_t stream) {             \
-    RefreshPaged prob{                                                                   \
+      const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
+      const uint8_t* kv_valid, const int* pt, const int* tile_ids,                        \
+      const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,           \
+      int t_max, int causal, int window, float scale SCRATCH, cudaStream_t stream) {      \
+    RefreshPaged prob{                                                                    \
         {q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt};     \
-    return LAUNCH()(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);               \
-  }                                                                                      \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+  }                                                                                       \
   CS_EXPORT int cs_attn_refresh_paged_int8##SUFFIX(                                       \
-      const void* q, const void* k, const void* v, void* out, const int* q_pos,          \
-      const uint8_t* kv_valid, const int* pt, const int* tile_ids,                       \
-      const int* tile_count, const int8_t* k8, const int8_t* v8,                         \
-      const float* k_scale, const float* v_scale, int n_hot, int B, int Sq, int H,       \
-      int Hkv, int D, int n_pages, int t_max, int causal, int window, float scale,       \
-      cudaStream_t stream) {                                                             \
-    RefreshPagedQuant prob{                                                              \
+      const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
+      const uint8_t* kv_valid, const int* pt, const int* tile_ids,                        \
+      const int* tile_count, const int8_t* k8, const int8_t* v8,                          \
+      const float* k_scale, const float* v_scale, int n_hot, int B, int Sq, int H,        \
+      int Hkv, int D, int n_pages, int t_max, int causal, int window, float scale SCRATCH, \
+      cudaStream_t stream) {                                                              \
+    RefreshPagedQuant prob{                                                               \
         {{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt},    \
-        {k8, v8, k_scale, v_scale, n_hot}};                                              \
-    return LAUNCH()(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);               \
-  }                                                                                      \
+        {k8, v8, k_scale, v_scale, n_hot}};                                               \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+  }                                                                                       \
   CS_EXPORT int cs_attn_packed_bf16##SUFFIX(                                              \
-      const void* q, const void* k, const void* v, void* out, const int* span,           \
-      const int* tile_ids, const int* tile_count, int R, int L, int H, int Hkv, int D,   \
-      int t_max, float scale, cudaStream_t stream) {                                     \
-    Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};                         \
-    return LAUNCH()(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);                \
-  }                                                                                      \
+      const void* q, const void* k, const void* v, void* out, const int* span,            \
+      const int* tile_ids, const int* tile_count, int R, int L, int H, int Hkv, int D,    \
+      int t_max, float scale SCRATCH, cudaStream_t stream) {                              \
+    Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};                          \
+    return LAUNCH{ARG}(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);               \
+  }                                                                                       \
   CS_EXPORT int cs_attn_prefill_bf16##SUFFIX(                                             \
-      const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,     \
-      int H, int Hkv, int D, int q_offset, int causal, int window, float scale,          \
-      cudaStream_t stream) {                                                             \
-    Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};            \
-    return LAUNCH()(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);               \
-  }                                                                                      \
+      const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,      \
+      int H, int Hkv, int D, int q_offset, int causal, int window, float scale SCRATCH,   \
+      cudaStream_t stream) {                                                              \
+    Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};             \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+  }                                                                                       \
   CS_EXPORT int cs_attn_prefill_paged_bf16##SUFFIX(                                       \
-      const void* q, const void* k, const void* v, void* out, const int* pt, int B,      \
-      int Sq, int H, int Hkv, int D, int n_pages, int q_offset, int window, float scale, \
-      cudaStream_t stream) {                                                             \
-    PrefillPaged prob{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt};           \
-    return LAUNCH()(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);               \
-  }                                                                                      \
+      const void* q, const void* k, const void* v, void* out, const int* pt, int B,       \
+      int Sq, int H, int Hkv, int D, int n_pages, int q_offset, int window, float scale SCRATCH, \
+      cudaStream_t stream) {                                                              \
+    PrefillPaged prob{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt};            \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+  }                                                                                       \
   CS_EXPORT int cs_attn_prefill_paged_int8##SUFFIX(                                       \
-      const void* q, const void* k, const void* v, void* out, const int* pt,             \
-      const int8_t* k8, const int8_t* v8, const float* k_scale, const float* v_scale,    \
-      int n_hot, int B, int Sq, int H, int Hkv, int D, int n_pages, int q_offset,        \
-      int window, float scale, cudaStream_t stream) {                                    \
-    PrefillPagedQuant prob{{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt},     \
-                           {k8, v8, k_scale, v_scale, n_hot}};                           \
-    return LAUNCH()(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);               \
+      const void* q, const void* k, const void* v, void* out, const int* pt,              \
+      const int8_t* k8, const int8_t* v8, const float* k_scale, const float* v_scale,     \
+      int n_hot, int B, int Sq, int H, int Hkv, int D, int n_pages, int q_offset,         \
+      int window, float scale SCRATCH, cudaStream_t stream) {                             \
+    PrefillPagedQuant prob{{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt},      \
+                           {k8, v8, k_scale, v_scale, n_hot}};                            \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
   }

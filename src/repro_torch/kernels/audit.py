@@ -276,9 +276,9 @@ def _width_rows() -> List[AuditRow]:
     """Head dims the kernels' ragged builds take (the JAX quickstart's 16,
     SigLIP's 72, Qwen2-VL's ViT's 80, 136 and 192 on the WIDE D-256
     build; 20, 90 and a ViT's 75, which are not multiples of 8; 320, 500
-    and 300 on the SLAB D-512 one), the exact 256 (Gemma 2's heads) and
-    512, with bf16 and f32 queries over a bf16 slab and f32 q/k/v in the
-    packed ViT, and the width still refused: 520 (over 512)."""
+    and 300 on the SLAB D-512 one; 520, 1000, 1023 and 1024 on the DEEP
+    one), the exact 256 (Gemma 2's heads) and 512, with bf16 and f32
+    queries over a bf16 slab and f32 q/k/v in the packed ViT."""
     rows = []
     lay, sw = LAYOUTS[2]
     slots = _slots(lay)
@@ -287,8 +287,8 @@ def _width_rows() -> List[AuditRow]:
     for D, dt, expect in ((16, BF16, "kernel"), (72, F32, "kernel"), (80, BF16, "kernel"),
                           (136, BF16, "kernel"), (256, BF16, "kernel"), (192, F32, "kernel"),
                           (90, BF16, "kernel"), (320, BF16, "kernel"), (512, BF16, "kernel"),
-                          (500, F32, "kernel"), (520, BF16, "refused:kernel-head-dim"),
-                          (20, F32, "kernel")):
+                          (500, F32, "kernel"), (520, BF16, "kernel"), (1023, F32, "kernel"),
+                          (1024, BF16, "kernel"), (20, F32, "kernel")):
         q, k = _meta((B, bm.n_q, H, D), dt), _meta((B * slots, Hkv, D))
         q_pos, kvv = _meta((B, bm.n_q), I32), _meta((B, slots), torch.bool)
         pt = _meta((B, slots // PAGE), I32)
@@ -303,6 +303,7 @@ def _width_rows() -> List[AuditRow]:
     R, L = plan.seg_id.shape
     for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"), (256, F32, "kernel"),
                           (75, BF16, "kernel"), (512, BF16, "kernel"), (300, F32, "kernel"),
+                          (1024, BF16, "kernel"), (1000, F32, "kernel"),
                           (64, torch.float16, "refused:kernel-dtype")):
         q, seg = _meta((R, L, 4, D), dt), _meta((R, L), I32)
         rows.append(_run_one(
@@ -565,6 +566,12 @@ WIDER_STATE = 512
 # of its 40 heads of 128 over 8 and its ViT's 16 heads of 64
 HEADS_512 = dict(n_heads=10, n_kv=2, d_head=512)
 VIT_HEADS_512 = 2
+# ... and to 5 LM heads of 1024 over 1 kv head and its ViT to 1 head of
+# 1024 (chip_smoke phase 7(l): the DEEP build, Q K^T over four depth
+# chunks, four column slabs of V and O): the same parameters, KV bytes
+# per stream, attention FLOPs and GQA group of 5
+HEADS_1024 = dict(n_heads=5, n_kv=1, d_head=1024)
+VIT_HEADS_1024 = 1
 
 
 def odd_heads(cfg: ModelCfg) -> ModelCfg:
@@ -583,6 +590,14 @@ def heads_512(cfg: ModelCfg) -> ModelCfg:
         cfg.vit, n_heads=VIT_HEADS_512))
 
 
+def heads_1024(cfg: ModelCfg) -> ModelCfg:
+    """``cfg`` with LM heads of 1024 (``HEADS_1024``) and its ViT re-cut
+    to ``VIT_HEADS_1024`` head at its own d_model, as phase 7(l) serves
+    internvl3-14b."""
+    return dataclasses.replace(cfg, **HEADS_1024, vit=dataclasses.replace(
+        cfg.vit, n_heads=VIT_HEADS_1024))
+
+
 def with_state(cfg: ModelCfg, d_state: int) -> ModelCfg:
     """``cfg`` with its SSD state widened to ``d_state``."""
     return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=d_state))
@@ -597,7 +612,7 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
     chip_smoke phase 7(g)), internvl3-14b with LM heads of 90, ViT heads
     of 75 and search radius 128 (``odd_heads``: phase 7(i)),
     internvl3-14b with LM and ViT heads of 512 (``heads_512``: phase
-    7(k)), and mamba2-2.7b with an SSD state of 256 and of 512
+    7(k)) and of 1024 (``heads_1024``: phase 7(l)), and mamba2-2.7b with an SSD state of 256 and of 512
     (``WIDE_STATE``, ``WIDER_STATE``: phases 7(h), 7(j))."""
     qs = ModelCfg(name="demo", family="vlm", n_layers=2, d_model=64, n_heads=4, n_kv=2,
                   d_ff=128, vocab=64, tied_embeddings=True)
@@ -607,6 +622,7 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
     m2 = get_config("mamba2-2.7b")
     odd = odd_heads(get_config("internvl3-14b"))
     h512 = heads_512(get_config("internvl3-14b"))
+    h1024 = heads_1024(get_config("internvl3-14b"))
     return (_serving_calls("quickstart (JAX widths)", qs, qv,
                            CodecCfg(gop=4, window_frames=8, stride_frames=4, keep_ratio=0.4),
                            streams)
@@ -618,6 +634,8 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
                              dataclasses.replace(SERVING_CODEC, search_radius=WIDE_RADIUS),
                              streams)
             + _serving_calls("internvl3-14b, LM and ViT heads of 512", h512, h512.vit,
+                             SERVING_CODEC, streams)
+            + _serving_calls("internvl3-14b, LM and ViT heads of 1024", h1024, h1024.vit,
                              SERVING_CODEC, streams)
             + sum((_serving_calls(f"mamba2-2.7b, d_state {n}", with_state(m2, n),
                                   _serving_vit(m2), SERVING_CODEC, streams)
@@ -794,15 +812,10 @@ def refusal_cases(device) -> dict:
     f16 = (torch.ones(1, 2, dtype=torch.float16, device=dev),) * 2
     x, la, b, c, init = ssd_ok()
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
-    # a head dim the kernels have no build for: over 512
-    q520, k520 = rand(1, 8, 4, 520, dtype=BF16), rand(1, 8, 2, 520, dtype=BF16, seed=1)
-    pq520 = rand(1, 128, 4, 520, dtype=BF16)
-    k128w, slabw = rand(1, 128, 2, 520, dtype=BF16, seed=1), rand(256, 2, 520, dtype=BF16, seed=1)
     return {
         ("rope_shift", "kernel-dtype"): rope(rand(1, 8, 2, 16, dtype=torch.float16)),
         ("rope_shift", "aligned"): rope(misaligned((1, 8, 2, 16))),
         ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8.half()),
-        ("flash_prefill", "kernel-head-dim"): prefill(q520, k520),
         ("flash_prefill", "contiguous"): prefill(transposed(q8, 1, 2), k8),
         ("flash_prefill", "aligned"): prefill(misaligned((1, 8, 4, 32), BF16), k8),
         ("flash_prefill_paged", "page-tile"): prefill_paged(q8, slab, page=64),
@@ -810,7 +823,6 @@ def refusal_cases(device) -> dict:
             q8, slab[:128], cold=(slab[128:].float(), slab[128:].float(), ones, ones)),
         ("flash_prefill_paged", "scale-f32"): prefill_paged(q8, slab[:128], cold=i8 + f16),
         ("flash_prefill_paged", "kernel-dtype"): prefill_paged(q8.float(), slab.float()),
-        ("flash_prefill_paged", "kernel-head-dim"): prefill_paged(q520, slabw),
         ("flash_prefill_paged", "contiguous"): prefill_paged(transposed(q8, 1, 2), slab),
         ("flash_prefill_paged", "aligned"): prefill_paged(misaligned((1, 8, 4, 32), BF16),
                                                           slab),
@@ -823,8 +835,6 @@ def refusal_cases(device) -> dict:
         ("flash_refresh", "map-tile"): refresh(q4, k128, build_block_map(pos, 128, tq=64)),
         ("flash_refresh", "kernel-dtype"): refresh(q4.float(), k128.float(),
                                                    build_block_map(pos, 128)),
-        ("flash_refresh", "kernel-head-dim"): refresh(q520[:, :4], k128w,
-                                                      build_block_map(pos, 128)),
         ("flash_refresh", "aligned"): refresh(misaligned((1, 4, 4, 32), BF16), k128,
                                               build_block_map(pos, 128)),
         ("flash_refresh_paged", "map-present"): refresh_paged(q4, slab, [[1]], 128, None),
@@ -845,8 +855,6 @@ def refusal_cases(device) -> dict:
             q4, slab, [[1]], 128, build_block_map(pos, 128, tq=64)),
         ("flash_refresh_paged", "kernel-dtype"): refresh_paged(
             q4.float(), slab.float(), [[1]], 128, build_block_map(pos, 128)),
-        ("flash_refresh_paged", "kernel-head-dim"): refresh_paged(
-            q520[:, :4], slabw, [[1]], 128, build_block_map(pos, 128)),
         ("flash_refresh_paged", "aligned"): refresh_paged(
             misaligned((1, 4, 4, 32), BF16), slab, [[1]], 128, build_block_map(pos, 128)),
         ("flash_packed", "map-present"): packed(pq, seg, None),
@@ -860,7 +868,6 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "single-run"): packed(pq, torch.from_numpy(split).to(dev),
                                                build_pack_map(split)),
         ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np)),
-        ("flash_packed", "kernel-head-dim"): packed(pq520, seg, build_pack_map(seg_np)),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
         ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),

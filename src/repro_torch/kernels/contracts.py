@@ -11,7 +11,8 @@ tiers of rules over a flat "facts" dict.
     ``page-range``).  A violation raises :class:`KernelContractError`
     on every device.
   * **Eligibility rules** are the kernels' own limits (bf16 operands,
-    head dims, map tiles, state widths, strides, alignment).  The first
+    map tiles, strides, alignment; every head dim runs, past 512 on the
+    attention kernels' DEEP build, Q K^T summed over depth chunks).  The first
     rule that fails names the call's verdict.  Where the JAX package
     falls back to its oracle, the port does not: on a CUDA tensor a
     refused call raises :class:`KernelIneligibleError` (a
@@ -41,7 +42,6 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from . import cuda
 from . import mv_sad as _mv_sad
 from . import ssd_scan as _ssd_scan
 from .cuda import KernelContractError, KernelError
@@ -439,9 +439,6 @@ _KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches
 _ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, or f32 q/k/v",
                 lambda f: _q_f32_or_bf16_over_bf16(f)
                 or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
-_HEAD_DIM = Rule("kernel-head-dim", "head dim must be at most 512 (the kernels' builds: 24, "
-                 "32, 64, 128, 256 and 512)",
-                 lambda f: 0 < f["q_shape"][3] <= cuda.MAX_HEAD_DIM)
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
 _ALIGNED = Rule("aligned", "operands read in place must be 16-byte aligned",
@@ -516,7 +513,7 @@ FLASH_PREFILL = KernelContract(
         Rule("dtype", "q/k/v are f32/bf16/f16 with k == v", _attn_dtype_ok),
         Rule("window", "sliding window is None or >= 1", _window_ok),
     ),
-    eligibility=(_ANY_F32, _HEAD_DIM, _CONTIGUOUS, _ALIGNED),
+    eligibility=(_ANY_F32, _CONTIGUOUS, _ALIGNED),
     tile=(TILE, TILE),
     compile_key="none: each block derives its key tiles from the causal/window band",
 )
@@ -562,7 +559,7 @@ FLASH_REFRESH = KernelContract(
              lambda f: f["map_causal"] == f["causal"]),
         Rule("map-window", "map and call agree on the sliding window",
              lambda f: f["map_window"] == f["window"]),
-        _MAP_TILE, _KV_BF16, _HEAD_DIM, _ALIGNED,
+        _MAP_TILE, _KV_BF16, _ALIGNED,
     ),
     tile=(TILE, TILE),
     visit_list=("the map's q_pos (n_q_tiles * tq,), tile_ids (n_q_tiles, t_max) and "
@@ -621,7 +618,7 @@ FLASH_REFRESH_PAGED = KernelContract(
              lambda f: f["map_causal"] == f["causal"]),
         Rule("map-window", "map and call agree on the sliding window",
              lambda f: f["map_window"] == f["window"]),
-    ) + _COLD_ELIGIBILITY + (_MAP_TILE, _KV_BF16, _HEAD_DIM, _ALIGNED),
+    ) + _COLD_ELIGIBILITY + (_MAP_TILE, _KV_BF16, _ALIGNED),
     tile=(TILE, TILE),
     visit_list=("the map's q_pos, tile_ids and tile_count (logical tiles) as for "
                 "flash_refresh, plus page_table (B, n_pages) int32 per call (and the "
@@ -662,7 +659,7 @@ FLASH_PREFILL_PAGED = KernelContract(
     eligibility=(
         Rule("page-tile", "page size equals the key tile Tk=128",
              lambda f: f["page"] == TILE),
-    ) + _COLD_ELIGIBILITY + (_KV_BF16, _HEAD_DIM, _CONTIGUOUS, _ALIGNED),
+    ) + _COLD_ELIGIBILITY + (_KV_BF16, _CONTIGUOUS, _ALIGNED),
     tile=(TILE, TILE),
     visit_list="page_table (B, n_pages) int32 per call; each block walks its band of pages",
     compile_key="none: no host map; (B, Sq, n_pages, window, q_offset) are launch arguments",
@@ -705,7 +702,7 @@ FLASH_PACKED = KernelContract(
              lambda f: f["tq"] == TILE and f["tk"] == TILE),
         Rule("single-run", "the kernel masks by key range: every segment must be one "
              "contiguous run of its row", lambda f: f["map_single_run"]),
-        _ANY_F32, _HEAD_DIM, _ALIGNED,
+        _ANY_F32, _ALIGNED,
     ),
     tile=(TILE, TILE),
     visit_list=("the map's span (R, L), tile_ids (R, L/tq, t_max) and tile_count "
@@ -763,13 +760,7 @@ _WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (
             "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
 _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
                 "bf16 halves written per call over the whole cache")
-_WHY_HEAD_DIM = ("builds of width 24, 32, 64, 128, 256 and 512 take every head dim from 1 to "
-                 "512 (rows copied 16, 8 or 4 bytes at a time, or element by element, as their "
-                 "alignment allows; past 256 each block holds a 256-column slab of V and O, "
-                 "Q K^T recomputed per slab); a head past 512 has none: Q's 64 rows (66.6 KB), "
-                 "a K slot (33.3 KB at 32 keys) and two stages already take 167 KB of the 227 "
-                 "KB at 512 (216 KB with int8 staging), and f32 q/k/v there run 32 query rows "
-                 "in 16-key steps, so a wider head needs Q K^T split over the depth as well")
+
 
 # How the port's eligibility rules differ from the reference's:
 # (op, code, "+" added by the port | "-" the reference's, dropped, why).
@@ -783,30 +774,25 @@ DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("flash_prefill", "q-tile", "-", "the kernel masks ragged query tiles"),
     ("flash_prefill", "k-tile", "-", "the kernel masks ragged key tiles"),
     ("flash_prefill", _DTYPE, "+", _WHY_F16),
-    ("flash_prefill", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_prefill", "contiguous", "+", "q/k/v are read in place with packed rows"),
     ("flash_prefill", "aligned", "+", "16-byte cp.async copies of q/k/v"),
     ("flash_prefill_paged", "q-tile", "-", "the kernel masks ragged query tiles"),
     ("flash_prefill_paged", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
-    ("flash_prefill_paged", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_prefill_paged", "contiguous", "+", "q/k/v and the cold group are read in place"),
     ("flash_prefill_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_refresh", "positions", "-", "a precondition here ('positions-match'): the kernel "
      "masks by the map's positions, and a card refusal is no fallback"),
     ("flash_refresh", "map-tile", "+", "the kernel's tiles are 128 x 128"),
     ("flash_refresh", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
-    ("flash_refresh", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_refresh", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("flash_refresh_paged", "positions", "-", "a precondition here ('positions-match')"),
     ("flash_refresh_paged", "map-tile", "+", "the kernel's tiles and pages are 128"),
     ("flash_refresh_paged", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
-    ("flash_refresh_paged", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_refresh_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_packed", "map-tile", "+", "the kernel's tiles are 128 x 128"),
     ("flash_packed", "single-run", "+", "the mask is one key range per slot, exact only "
      "when every segment is one run of its row (pack_plan's layouts)"),
     ("flash_packed", _DTYPE, "+", _WHY_F16),
-    ("flash_packed", "kernel-head-dim", "+", _WHY_HEAD_DIM),
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("ssd_scan", _DTYPE, "+", "no f16 build: neither package's ModelCfg.dtype makes f16 "
      "operands (bf16 and f32 x, log_a, b and c run)"),
@@ -861,7 +847,7 @@ def verdict(name: str, key: tuple, make_facts: Callable[[], dict],
 
 
 def clear_verdicts() -> None:
-    """Forget the memoized verdicts (tests; a change of ``cuda.MAX_HEAD_DIM``)."""
+    """Forget the memoized verdicts (tests)."""
     _VERDICTS.clear()
 
 

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "attention_any.cu",
            "attention_q32.cu", "attention_f32.cu", "attention_512.cu", "attention_q32_512.cu",
-           "ssd_scan.cu", "ssd_scan_staged.cu")
+           "attention_deep.cu", "attention_q32_deep.cu", "ssd_scan.cu", "ssd_scan_staged.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -94,23 +94,29 @@ for _name in ("cs_ssd_scan", "cs_ssd_scan_bwd"):
 # bf16 one (``_any``: attention_any.cu) and an f32-query one (``_q32``:
 # attention_q32.cu), and past head dim 256 a bf16 one (``_512``:
 # attention_512.cu) and an f32-query one (``_q32_512``:
-# attention_q32_512.cu), all with one signature
+# attention_q32_512.cu), all with one signature; past 512 the DEEP builds
+# (``_deep``: attention_deep.cu, ``_q32_deep``: attention_q32_deep.cu)
+# take one more pointer before the stream, the query's scratch
 ATTN_ENTRIES = ("cs_attn_refresh_bf16", "cs_attn_refresh_paged_bf16",
                 "cs_attn_refresh_paged_int8", "cs_attn_packed_bf16", "cs_attn_prefill_bf16",
                 "cs_attn_prefill_paged_bf16", "cs_attn_prefill_paged_int8")
 for _name in ATTN_ENTRIES:
     for _suffix in ("_any", "_q32", "_512", "_q32_512"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
+    for _suffix in ("_deep", "_q32_deep"):
+        _SIGNATURES[_name + _suffix] = _SIGNATURES[_name][:-1] + (_p, _p)
 
 # head dims of the attention kernels' exact builds (attention.cu, and
-# attention_512.cu at 512); every other head dim from 1 to MAX_HEAD_DIM
-# runs on the smallest ragged build that holds it (d 129 to 255 on the
-# D-256 one, whose blocks own 64 query rows; d 257 to 511 on the D-512
-# one, whose blocks own a 256-column slab of V and O each), its rows
-# copied 16, 8 or 4 bytes at a time, or element by element at an odd d,
-# as their alignment allows (csrc/attention.cuh)
+# attention_512.cu at 512); every other head dim up to SLAB_HEAD_DIM runs
+# on the smallest ragged build that holds it (d 129 to 255 on the D-256
+# one, whose blocks own 64 query rows; d 257 to 511 on the D-512 one,
+# whose blocks own a 256-column slab of V and O each), and every head dim
+# past it on the DEEP build (Q K^T summed over depth chunks of 256
+# columns, the chunk count and the slabs of V and O runtime counts), its
+# rows copied 16, 8 or 4 bytes at a time, or element by element at an odd
+# d, as their alignment allows (csrc/attention.cuh)
 HEAD_DIMS = (24, 32, 64, 128, 256, 512)
-MAX_HEAD_DIM = 512
+SLAB_HEAD_DIM = 512
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_LOG: Dict[str, str] = {}
@@ -209,7 +215,16 @@ def attention_entry(name: str, q: torch.Tensor, d: int):
     """The library function of attention entry point ``name`` (one of
     ``ATTN_ENTRIES``) for q's type and head dim ``d``: the exact bf16
     build, the ragged one, or the f32-query one (past 256: the D-512
-    bf16 or f32-query one)."""
+    bf16 or f32-query one).  Past 512 the DEEP bf16 or f32-query one,
+    called with the same arguments: it allocates the query's scratch
+    (``deep_q_elems``) and hands it over before the stream."""
+    if d > SLAB_HEAD_DIM:
+        fn = getattr(library(), name + ("_q32_deep" if q.dtype == torch.float32 else "_deep"))
+
+        def launch(*args):
+            scratch = torch.empty(deep_q_elems(q), dtype=torch.bfloat16, device=q.device)
+            return fn(*args[:-1], scratch.data_ptr(), args[-1])
+        return launch
     wide = "_512" if d > 256 else ""
     if q.dtype == torch.float32:
         return getattr(library(), name + "_q32" + wide)
@@ -223,6 +238,22 @@ def split_elems(k: torch.Tensor) -> int:
     splits K and V into (``csrc/attention_f32.cu``): k's, rounded up to 8
     so that each array starts on a 16-byte boundary."""
     return -(-k.numel() // 8) * 8
+
+
+def deep_q_elems(q: torch.Tensor) -> int:
+    """bf16 elements of the query's scratch of the DEEP build (head dims
+    past ``SLAB_HEAD_DIM``; ``csrc/attention.cuh`` launch_mma): q's rows
+    at its head dim rounded up to 16, twice for an f32 q (its two bf16
+    halves)."""
+    d = q.shape[-1]
+    return q.numel() // d * (-(-d // 16) * 16) * (2 if q.dtype == torch.float32 else 1)
+
+
+def f32_scratch_elems(q: torch.Tensor, k: torch.Tensor) -> int:
+    """bf16 elements of an f32 q/k/v kernel's scratch: K's and V's halves
+    (four arrays of ``split_elems``), and past ``SLAB_HEAD_DIM`` the
+    query's two halves after them."""
+    return 4 * split_elems(k) + (deep_q_elems(q) if q.shape[-1] > SLAB_HEAD_DIM else 0)
 
 
 def check(rc: int, name: str) -> None:

@@ -26,9 +26,10 @@ both products on the tensor cores around an f32 online softmax, with S,
 P and O in registers.  Operands: bf16 q/k/v, an f32 q over bf16 K/V, or
 f32 q/k/v (a ViT from an f32 checkpoint: ``cs_attn_packed_f32`` splits
 K and V into bf16 halves in a scratch buffer the wrapper allocates, and
-runs three products a tile), at any head dim up to 512 (past 256 two
-blocks a query tile, each with a 256-column slab of V and O); the
-output takes q's type.
+runs three products a tile), at any head dim (past 256 two blocks a
+query tile, each with a 256-column slab of V and O; past 512 as many
+slabs as d needs, Q K^T summed over depth chunks of 256); the output
+takes q's type.
 
 ``PackBlockMap``'s ``tile_ids`` / ``tile_count`` from ``build_pack_map``
 and ``dense_pack_map`` are host numpy, equal array for array to the JAX
@@ -226,7 +227,8 @@ def flash_packed_launch(q, k, v, block_map: PackBlockMap):
             dm.span.data_ptr(), dm.tile_ids.data_ptr(), dm.tile_count.data_ptr(),
             R, L, H, Hkv, D, bm.t_max, float(D ** -0.5))
     if k.dtype == torch.float32:     # K's and V's bf16 halves, written by the kernel
-        scratch = torch.empty(4 * cuda.split_elems(k), dtype=torch.bfloat16, device=q.device)
+        scratch = torch.empty(cuda.f32_scratch_elems(q, k), dtype=torch.bfloat16,
+                              device=q.device)
         rc = cuda.library().cs_attn_packed_f32(*args, scratch.data_ptr(),
                                                cuda.stream_handle(q))
     else:

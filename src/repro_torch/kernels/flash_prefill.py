@@ -35,8 +35,9 @@ bf16 step of the row's largest value.  Operands: bf16 q/k/v; an f32 q
 over bf16 K/V (split into two bf16 halves as P is; f32 output); and, for
 the dense kernel, f32 q/k/v (``cs_attn_prefill_f32``: K and V split into
 bf16 halves in a scratch buffer the wrapper allocates), at any head dim
-up to 512 (past 256 on the D-512 build: a 256-column slab of V and O a
-block).
+(past 256 on the D-512 build: a 256-column slab of V and O a block; past
+512 on the DEEP build: 128-column slabs, Q K^T summed over depth chunks
+of 256).
 """
 from __future__ import annotations
 
@@ -91,7 +92,8 @@ def flash_prefill_launch(q, k, v, *, causal: bool, window: int | None, q_offset:
             int(q_offset), int(causal), -1 if window is None else int(window),
             float(D ** -0.5))
     if k.dtype == torch.float32:     # K's and V's bf16 halves, written by the kernel
-        scratch = torch.empty(4 * cuda.split_elems(k), dtype=torch.bfloat16, device=q.device)
+        scratch = torch.empty(cuda.f32_scratch_elems(q, k), dtype=torch.bfloat16,
+                              device=q.device)
         rc = cuda.library().cs_attn_prefill_f32(*args, scratch.data_ptr(),
                                                 cuda.stream_handle(q))
     else:

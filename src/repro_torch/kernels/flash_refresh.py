@@ -30,7 +30,8 @@ per (128-row query tile, head, stream) follows the tile's visit list, so
 each visited K/V tile is read once per query tile (at head dim 256 two
 blocks of four warps, 64 rows each, share a tile's list, in two 32-key
 slots; past 256 each of those is two blocks, one a 256-column slab of V
-and O, both reading the tile's K);
+and O, both reading the tile's K; past 512 as many slabs as d needs, each
+summing Q K^T over depth chunks of 256 columns);
 16-byte ``cp.async`` copies fill a ring of three 64-key slots ahead of
 the products (an int8
 tile lands in a staging slot and is dequantised into the ring); both
@@ -41,9 +42,9 @@ rows past Sq are neither read nor written, so the query is not padded.
 Operands the kernels take (``contracts.FLASH_REFRESH`` and
 ``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16 or
 f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, any
-head dim up to 512 (``cuda.attention_entry``
-picks the build: exact at 24, 32, 64, 128, 256 and 512, ragged
-otherwise, f32-query builds for f32 q); 128-row map tiles and pages; q, k,
+head dim (``cuda.attention_entry`` picks the build: exact at 24, 32, 64,
+128, 256 and 512, ragged otherwise, the DEEP one past 512, f32-query
+builds for f32 q); 128-row map tiles and pages; q, k,
 v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
 is copied once where it is not).
 

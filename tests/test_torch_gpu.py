@@ -741,16 +741,13 @@ def test_flash_prefill_paged_int8_all_hot_is_bitwise_bf16(dev):
 
 
 def test_prefill_operands_the_kernel_does_not_take_raise(dev):
-    q = torch.zeros(1, 128, 4, 520, device=dev, dtype=torch.bfloat16)     # over 512
-    kv = torch.zeros(1, 128, 2, 520, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(KernelError, match="head dim"):
-        ops.flash_prefill(q, kv, kv)
-    # d 20, once refused for not being a multiple of 8, is taken
+    # d 20 and 520, once refused (not a multiple of 8; over 512), are taken
     g = torch.Generator(device=dev).manual_seed(3)
-    q20, k20, v20 = (torch.randn(1, 128, h, 20, device=dev, generator=g).bfloat16()
-                     for h in (4, 2, 2))
-    assert _row_rel_err(ops.flash_prefill(q20, k20, v20).cpu(), flash_prefill_plain(
-        q20.cpu(), k20.cpu(), v20.cpu())) <= PREFILL_ROW_TOL
+    for d in (20, 520):
+        q, k, v = (torch.randn(1, 128, h, d, device=dev, generator=g).bfloat16()
+                   for h in (4, 2, 2))
+        assert _row_rel_err(ops.flash_prefill(q, k, v).cpu(), flash_prefill_plain(
+            q.cpu(), k.cpu(), v.cpu())) <= PREFILL_ROW_TOL
     q16 = torch.zeros(1, 128, 4, 32, device=dev, dtype=torch.float16)
     kv16 = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.float16)
     with pytest.raises(KernelError, match="kernel-dtype"):
@@ -1621,6 +1618,28 @@ def test_attention_kernels_take_f32_queries_at_slab_head_dims(dev, op, d):
 @pytest.mark.parametrize("op", ["flash_packed", "flash_prefill"])
 @pytest.mark.parametrize("d", [512, 320, 500, 511])
 def test_packed_and_prefill_take_f32_qkv_at_slab_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
+
+
+# the DEEP build: every head dim past 512 (Q K^T over depth chunks of 256,
+# ceil(d / DV) column slabs of V and O): multiples of 256 and of 8, 8-byte
+# rows (1000, 1020), 4-byte (1022) and odd (1023) ones, in every operand
+# type, at three to eight depth chunks
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [520, 640, 1024, 1000, 1020, 1022, 1023, 1280, 1288, 2048, 513])
+def test_attention_kernels_at_deep_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.bfloat16, torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [520, 1024, 1023, 1280])
+def test_attention_kernels_take_f32_queries_at_deep_head_dims(dev, op, d):
+    _held(*_attention_case(op, d, torch.float32, torch.bfloat16), torch.float32)
+
+
+@pytest.mark.parametrize("op", ["flash_packed", "flash_prefill"])
+@pytest.mark.parametrize("d", [520, 1024, 1023, 1280])
+def test_packed_and_prefill_take_f32_qkv_at_deep_head_dims(dev, op, d):
     _held(*_attention_case(op, d, torch.float32, torch.float32), torch.float32)
 
 

@@ -2,9 +2,10 @@
 against the JAX package.
 
 * The contract verdict on meta tensors: ``ok`` for every attention op at
-  every head dim d = 1, 2, ..., 512 with bf16 operands, with f32
-  queries over bf16 K/V and, in flash_packed and flash_prefill, with f32
-  q/k/v; the named refusal for d 520 (over 512) and f16 operands;
+  every head dim d = 1, 2, ..., 512 and past it (513 to 4096: the DEEP
+  build) with bf16 operands, with f32 queries over bf16 K/V and, in
+  flash_packed and flash_prefill, with f32 q/k/v; the named refusal for
+  f16 operands;
   ``ok`` for rope_shift at every even d up to 512; ``ok`` for mv_sad at
   radius 16 and 32, at blocks 8 and 12, and past one band's shared
   memory (radius 128, block 64 at radius 96, block 240 at radius 1: the
@@ -12,15 +13,16 @@ against the JAX package.
 * The JAX quickstart's model at its own widths (LM 4 heads of 16 over 2
   kv heads, ViT 4 heads of 16), a 2-layer f32 LM, and 2-layer LMs with
   heads of 256 (2 over 1 kv head, what the kernels' WIDE build serves),
-  of 512 and of 320 (the SLAB build's exact and ragged widths) in bf16
-  and in f32, each served by the port's ``Engine`` on the CPU
+  of 512 and of 320 (the SLAB build's exact and ragged widths) and of
+  1024 (the DEEP build; its ViT at 1 head of 1024) in bf16 and in f32,
+  each served by the port's ``Engine`` on the CPU
   from the JAX package's weights, against the JAX package's ``Engine``
   on the same stream: no call the card would refuse
   (``kernel_fallbacks`` 0, every verdict ``ok``); yes/no logits within
   the serving tests' LOGIT_TOL (8e-3, ``test_torch_serving.py``),
   answers equal where the JAX margin exceeds twice it.
-* The seven attention kernels' plain versions at head dims 256, 512, 320
-  and 300, and refresh, paged refresh with int8 cold pages, packed and
+* The seven attention kernels' plain versions at head dims 256, 512, 320,
+  300, 520, 1000, 1023 and 1024, and refresh, paged refresh with int8 cold pages, packed and
   prefill at head dims 20, 33 and 90, against the JAX package's oracles
   (``repro.kernels.ref``) on the same inputs: f32 within 1e-5 and bf16
   within 3e-2 (``test_torch_kernels.py``'s limits: sums in another
@@ -91,10 +93,17 @@ LM_D256 = dict(LM, name="d256", n_heads=2, n_kv=1, d_head=256)
 # V and O, exact at 512 and ragged at 320)
 LM_D512 = dict(LM, name="d512", n_heads=2, n_kv=1, d_head=512)
 LM_D320 = dict(LM, name="d320", n_heads=2, n_kv=1, d_head=320)
+# ... and with heads of 1024 (the DEEP build: Q K^T over four depth
+# chunks, four column slabs of V and O), its ViT at 1 head of 1024
+LM_D1024 = dict(LM, name="d1024", n_heads=2, n_kv=1, d_head=1024)
 SERVED_LMS = {"quickstart": LM, "f32": LM_F32, "d256": LM_D256,
               "d256-f32": dict(LM_D256, name="d256-f32", dtype="float32"),
               "d512": LM_D512, "d512-f32": dict(LM_D512, name="d512-f32", dtype="float32"),
-              "d320": LM_D320, "d320-f32": dict(LM_D320, name="d320-f32", dtype="float32")}
+              "d320": LM_D320, "d320-f32": dict(LM_D320, name="d320-f32", dtype="float32"),
+              "d1024": LM_D1024,
+              "d1024-f32": dict(LM_D1024, name="d1024-f32", dtype="float32")}
+# the ViT a served LM takes where it is not the quickstart's
+SERVED_VITS = {name: dict(VIT, d_model=1024, n_heads=1) for name in ("d1024", "d1024-f32")}
 
 
 # ----------------------------------------------------------------------
@@ -161,13 +170,24 @@ def test_every_attention_op_takes_every_head_dim_past_256(d):
     assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
 
 
+@pytest.mark.parametrize("d", [513, 520, 640, 1000, 1022, 1023, 1024, 1040, 2048, 4096])
+def test_every_attention_op_takes_every_head_dim_past_512(d):
+    """Past 512: the DEEP build (Q K^T summed over depth chunks) in every
+    operand mode the D-512 build takes."""
+    assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
+    assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
+    f32 = _verdicts(d, F32, F32)
+    assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+
+
 @pytest.mark.parametrize("d, q_dt, kv_dt, code", [
-    (20, BF16, BF16, "ok"), (520, BF16, BF16, "kernel-head-dim"),
-    (520, F32, BF16, "kernel-head-dim"), (64, F16, F16, "kernel-dtype"),
-    (64, F16, BF16, "kernel-dtype")])
+    (20, BF16, BF16, "ok"), (520, BF16, BF16, "ok"), (520, F32, BF16, "ok"),
+    (1024, BF16, BF16, "ok"), (1024, F32, BF16, "ok"), (4096, BF16, BF16, "ok"),
+    (4096, F32, BF16, "ok"), (64, F16, F16, "kernel-dtype"), (64, F16, BF16, "kernel-dtype")])
 def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
-    """Past 512 and f16 are refused by name; d 20, once refused for not
-    being a multiple of 8, is taken."""
+    """f16 is refused by name; d 20, once refused for not being a
+    multiple of 8, and d 520, 1024 and 4096, once refused for passing
+    512, are taken."""
     assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
 
 
@@ -263,8 +283,8 @@ def _served_cfgs(name: str):
         assert (c.d_head, c.vit.d_model // c.vit.n_heads) == (90, 75) and c.vit == ViTCfg(
             **dataclasses.asdict(j.vit))
         return j, j.vit, c, c.vit
-    lm = SERVED_LMS[name]
-    return JModelCfg(**lm), JViTCfg(**VIT), ModelCfg(**lm), ViTCfg(**VIT)
+    lm, vit = SERVED_LMS[name], SERVED_VITS.get(name, VIT)
+    return JModelCfg(**lm), JViTCfg(**vit), ModelCfg(**lm), ViTCfg(**vit)
 
 
 @pytest.fixture(scope="module", params=sorted(SERVED_LMS) + [ODD])
@@ -295,10 +315,10 @@ def test_served_with_no_refusal(served):
     assert all(set(c) == {"ok"} for c in verdicts.values()), verdicts
 
 
-@pytest.mark.parametrize("name", ["d512", "d320-f32"])
+@pytest.mark.parametrize("name", ["d512", "d320-f32", "d1024"])
 def test_jax_weights_carry_across_at_head_dims_past_256(name):
     """``models.init.from_numpy_tree`` needs nothing new past 256: the JAX
-    package's LM tree at heads of 512 (or 320, f32) arrives leaf for leaf
+    package's LM tree at heads of 512 (or 320, f32; or 1024) arrives leaf for leaf
     in the port's layout (the paths, shapes and dtypes of the port's own
     ``init_lm_params`` at the same config), values unchanged."""
     from repro_torch.models.init import init_lm_params, leaf_paths, tree_leaves
@@ -399,6 +419,16 @@ def test_plain_versions_at_head_dims_past_256_match_jax(d, op, dtype):
     """The widths of the D-512 build (exact 512; 320 and 300, ragged on
     it, 300 off the 16-byte grid): the plain versions the card is held to
     agree with the JAX package's oracles as at 256."""
+    _plain_matches_jax(op, dtype, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", WIDE_OPS)
+@pytest.mark.parametrize("d", [520, 1000, 1023, 1024])
+def test_plain_versions_at_head_dims_past_512_match_jax(d, op, dtype):
+    """The DEEP build's widths (just past 512; 8-byte rows; odd, 2-byte
+    rows; 7(l)'s 1024): the plain versions the card is held to agree with
+    the JAX package's oracles as at 256."""
     _plain_matches_jax(op, dtype, d)
 
 
@@ -517,8 +547,9 @@ def test_chip_smoke_phase_7i_case_is_internvl3_14b_with_odd_heads():
 
 
 def test_chip_smoke_phase_7k_case_is_internvl3_14b_with_heads_of_512():
-    """chip_smoke's phase 7(k) serves internvl3-14b at full size (48
-    layers, d_model 5120) with 10 LM heads of 512 over 2 and InternViT
+    """chip_smoke's phase 7(k) serves internvl3-14b at full width and 12
+    of its 48 layers (CUT_LAYERS: phase 7(l) carries the full depth at
+    heads of 1024) with 10 LM heads of 512 over 2 and InternViT
     (d_model 1024) re-cut to 2 heads of 512 at 448^2: the parameters, the
     KV bytes per stream and the attention FLOPs of its 40 heads of 128
     over 8 and 16 ViT heads of 64; every serving kernel takes its calls
@@ -530,7 +561,7 @@ def test_chip_smoke_phase_7k_case_is_internvl3_14b_with_heads_of_512():
     full = get_config("internvl3-14b")
     assert (arch, modes, frames) == (cs.D512_ARCH, ("codecflow",), 24)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head) == (
-        full.n_layers, full.d_model, 10, 2, 512)
+        cs.CUT_LAYERS, full.d_model, 10, 2, 512)
     assert cfg.n_heads * cfg.d_head == full.n_heads * full.d_head
     assert cfg.n_kv * cfg.d_head == full.n_kv * full.d_head
     assert cfg.n_heads // cfg.n_kv == full.n_heads // full.n_kv == 5
@@ -546,3 +577,39 @@ def test_chip_smoke_phase_7k_case_is_internvl3_14b_with_heads_of_512():
     assert all(r.verdict == "kernel" for r in rows.values()), rows
     assert rows["flash_packed"].geometry == "ViT H 2 D 512"
     assert rows["rope_shift"].geometry == "Hkv 2, D 512, bfloat16"
+
+
+def test_chip_smoke_phase_7l_case_is_internvl3_14b_with_heads_of_1024():
+    """chip_smoke's phase 7(l) serves internvl3-14b at full size (48
+    layers, d_model 5120) with 5 LM heads of 1024 over 1 and InternViT
+    (d_model 1024) re-cut to 1 head of 1024 at 448^2: the parameters, the
+    KV bytes per stream (528,482,304 in phase 4's layout) and the
+    attention FLOPs of its 40 heads of 128 over 8 and 16 ViT heads of 64,
+    and its GQA group of 5; every serving kernel takes its calls (the
+    dispatch audit's third table: flash_packed, flash_refresh_paged,
+    flash_refresh and rope_shift at D 1024, the DEEP build), with the
+    further paths per-stream caches and int8 cold pages."""
+    cs = _chip_smoke()
+    key, arch, cfg, modes, frames, _ = {m[0]: m for m in cs.family_models()}["(l)"]
+    full = get_config("internvl3-14b")
+    assert (arch, modes, frames) == (cs.D1024_ARCH, ("codecflow",), 24)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head) == (
+        full.n_layers, full.d_model, 5, 1, 1024)
+    assert cfg.n_heads * cfg.d_head == full.n_heads * full.d_head
+    assert cfg.n_kv * cfg.d_head == full.n_kv * full.d_head
+    assert cfg.n_heads // cfg.n_kv == full.n_heads // full.n_kv == 5
+    assert (cfg.vit.d_model, cfg.vit.n_heads, cfg.vit.image) == (full.vit.d_model, 1, 448)
+    assert cfg.vit.d_model // cfg.vit.n_heads == 1024
+    assert cs.HEADS_1024 == audit.HEADS_1024 and cs.FAMILY_FRAMES[key] == 448
+    assert key not in cs.FAMILY_CODECS and "(l)" in cs.FAMILY_BESIDE
+    assert [lab for lab, _ in cs.FAMILY_PATHS[key]] == ["per-stream KV", "int8 cold pages"]
+    # KV bytes per stream: K and V, 48 layers, phase 4's 2688 slots a stream (21
+    # pages of 128), kv width 1024 (as 8 x 128), 2 bytes of bf16
+    assert 2 * cfg.n_layers * 2688 * cfg.n_kv * cfg.d_head * 2 == 528_482_304
+    rows = {r.op: r for r in audit.variant_rows() if r.arch.startswith(
+        "internvl3-14b, LM and ViT heads of 1024")}
+    assert set(rows) == {"mv_sad", "flash_packed", "flash_refresh", "flash_refresh_paged",
+                         "rope_shift"}
+    assert all(r.verdict == "kernel" for r in rows.values()), rows
+    assert rows["flash_packed"].geometry == "ViT H 1 D 1024"
+    assert rows["rope_shift"].geometry == "Hkv 1, D 1024, bfloat16"

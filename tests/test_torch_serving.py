@@ -167,23 +167,37 @@ def _serve_heads(d: int):
     return results, sched, ops.card_verdicts()
 
 
-def test_a_serve_the_card_refuses_counts_its_fallbacks():
-    """Head dim 520 (over 512, a multiple of 8), which no attention
-    kernel is built for: on the CPU every window counts the calls the
-    card would refuse, by rule, and the plain versions serve it."""
-    results, sched, verdicts = _serve_heads(520)
+def test_a_serve_the_card_refuses_counts_its_fallbacks(monkeypatch):
+    """ViT packing tiles of 64 (``VisualEncoder.PACK_TILE``), whose maps
+    the card refuses by the ``map-tile`` rule (its tiles are 128 x 128):
+    on the CPU every window counts the calls the card would refuse, by
+    rule, and the plain versions serve it; the other ops stay ``ok``."""
+    from repro_torch.serving.api import VisualEncoder
+    monkeypatch.setattr(VisualEncoder, "PACK_TILE", 64)
+    results, sched, verdicts = _serve_heads(32)
     fb = [r.stats.kernel_fallbacks for r in results]
     assert len(fb) == 2 and all(n > 0 for n in fb)
     assert sched.kernel_fallbacks == sum(fb)
-    for op in ("flash_packed", "flash_refresh_paged"):
-        assert set(verdicts[op]) == {"kernel-head-dim"}, verdicts
-    assert verdicts["rope_shift"] == {"ok": verdicts["rope_shift"]["ok"]}   # any even d
+    assert set(verdicts["flash_packed"]) == {"map-tile"}, verdicts
+    for op in ("flash_refresh_paged", "rope_shift", "mv_sad"):
+        assert set(verdicts[op]) == {"ok"}, verdicts
 
 
 def test_a_serve_at_head_dim_264_has_no_fallbacks():
     """Head dim 264, refused until the D-512 build took every head dim
     from 257 to 512: every call is one the card takes."""
     results, sched, verdicts = _serve_heads(264)
+    assert [r.stats.kernel_fallbacks for r in results] == [0, 0]
+    assert sched.kernel_fallbacks == 0
+    assert set(verdicts) == {"mv_sad", "flash_packed", "flash_refresh_paged", "rope_shift"}
+    assert all(set(c) == {"ok"} for c in verdicts.values()), verdicts
+
+
+def test_a_serve_at_head_dim_1040_has_no_fallbacks():
+    """Head dim 1040, refused until the DEEP build took every head dim
+    past 512 (five depth chunks of Q K^T, five column slabs of V and O):
+    every call is one the card takes."""
+    results, sched, verdicts = _serve_heads(1040)
     assert [r.stats.kernel_fallbacks for r in results] == [0, 0]
     assert sched.kernel_fallbacks == 0
     assert set(verdicts) == {"mv_sad", "flash_packed", "flash_refresh_paged", "rope_shift"}
