@@ -15,6 +15,7 @@ and check them.
     python3 chip_smoke.py --only n512-ssm
     python3 chip_smoke.py --only d512
     python3 chip_smoke.py --only d1024
+    python3 chip_smoke.py --only f16
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -166,7 +167,29 @@ Phases (any failure exits non-zero):
                at 448^2 with radius 16 and 32 and block 8, and past one
                band's 227 KB (the tiled kernel: radius 128, block 64 at
                radius 96, and block 240 at radius 1 on a 240^2 frame)
-               (MV_SEARCHES, tie_frames: bitwise).  Then the dense mha (a library GEMM, no
+               (MV_SEARCHES, tie_frames: bitwise).  Then the f16 phase
+               (``--only f16``, check_f16): every kernel with a float
+               operand in f16 (F16_ROWS: rope_shift at internvl3-14b's
+               overlap keys (96 x 1920, 8, 128); the refresh kernels at
+               its D-128 fresh, refresh and decode shapes, int8 with 15
+               of 21 pages cold; flash_packed at the serve and busy
+               packings, H 16, D 64; flash_prefill causal, 2 x 2048;
+               paged prefill bf16 and int8; each attention kernel also at
+               d 90, 512 and 1024; ssd_scan at mamba2-2.7b's fresh, step,
+               query and long shapes and at N 256; its backward at the
+               training shape), operands drawn in f16, each against its
+               plain version on the same inputs within its limit
+               (F16_ROW_TOL, 2^-9, for attention; the staged f32 limits
+               plus one f16 step for the scan; one f16 step plus 1e-3 for
+               rope_shift), while the kernel fed the operands rounded
+               through bf16 must fail it; the int8 kernels' all-hot table
+               bitwise the f16 kernel, its device ms beside the bf16
+               build's on ``.bfloat16()`` copies, its bound and its f16
+               library call (SDPA, gather + SDPA); each attention case
+               once with an f16 query over bf16 K/V, which must raise
+               'kernel-dtype' with no launch; then each
+               kernel's first case once through ``ops`` (the f16 path: its
+               rows' launches).  Then the dense mha (a library GEMM, no
                row): at whisper-large-v3's cross-attention and
                internvl3-14b's encode_full against the f32-widened
                formula within HEAD_TOL, with no f32 copy of K, V or P and
@@ -400,7 +423,9 @@ the count from the run of the path named in ``launches_path``: the
 first path that launches it, and for flash_prefill and
 flash_prefill_paged, which no serving path calls, this slice's main
 path (mamba2-2.7b, codecflow), where they count 0; for ssd_scan_bwd,
-which only training launches, phase 8(e)'s run.  ``launches_by_path``
+which only training launches, phase 8(e)'s run; for the f16 rows
+(``<kernel>_f16``: no model makes f16 operands, so a library caller's
+``ops`` calls are their path), the f16 phase's run of the ops.  ``launches_by_path``
 has the count of every path's own run, and of the kernel phase (the
 checks and their timing loops; counts set to 0 just before it).
 """
@@ -500,6 +525,14 @@ PREFILL_ROW_TOL = 2.0 ** -7
 # output is not rounded).  An f32 query in the refresh kernels keeps
 # ROW_TOL: their oracle rounds q x scale to bf16 and P to V's type.
 F32_ROW_TOL = 2.0 ** -10
+# f16 q/k/v (every attention kernel): the kernels round as their bf16
+# builds do, but to f16 (2^-11 relative), and the readings sit near two f16
+# steps of the row's largest value (0.0009-0.0011 on an H100): held to
+# 2^-9, which a path through bf16 fails by far (the plain version fed
+# operands rounded through bf16 reads 0.005-0.010 against its f16 answer,
+# an output rounded through bf16 0.0039), and each f16 case also holds a
+# control: the kernel fed its operands rounded through bf16 must fail it
+F16_ROW_TOL = 2.0 ** -9
 # head dims the exact builds (24, 32, 64, 128) do not have, each run on the
 # smallest ragged build that holds it (csrc/attention.cuh), at H 16 over
 # Hkv 4 on internvl3-14b's layout; the f32 cases at its own widths
@@ -581,7 +614,7 @@ ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
 
 
 # csrc/attention.cuh's operand types (OPS_BF16 = 0 is the exact label)
-BUILD_OPS = {"1": ", f32 q", "2": ", f32 q/k/v"}
+BUILD_OPS = {"1": ", f32 q", "2": ", f32 q/k/v", "3": ", f16"}
 # csrc/ssd_scan.cuh's operand modes
 SCAN_MODES = {"0": "bf16 in place", "1": "staged hi/lo"}
 
@@ -589,8 +622,8 @@ SCAN_MODES = {"0": "bf16 in place", "1": "staged hi/lo"}
 def kernel_label(mangled: str) -> str:
     """mma_kernel<D, problem struct> of an attention kernel's mangled name
     (D "deep": the DEEP build; "+cold": the struct with int8 cold pages;
-    ", any d": a ragged bf16 build, ", f32 q" and ", f32 q/k/v": the f32
-    builds, ragged too),
+    ", any d": a ragged bf16 build, ", f16" and ", f16, any d": the f16
+    builds, ", f32 q" and ", f32 q/k/v": the f32 builds, ragged too),
     name<n> of another kernel templated on one integer; other names
     unchanged."""
     b = re.search(r"BuildILi(\d+)ELb([01])ELi(\d)ELi(\d+)E", mangled)
@@ -610,7 +643,7 @@ def kernel_label(mangled: str) -> str:
         return m.group(1) if m else mangled
     cold = "+cold" if "WithColdPages" in mangled else ""
     width, ragged, ops_, deep = b.groups()
-    kind = BUILD_OPS.get(ops_, ", any d" if ragged == "1" else "")
+    kind = BUILD_OPS.get(ops_, "") + (", any d" if ragged == "1" and ops_ in "03" else "")
     return f"mma_kernel<{width if deep == '0' else 'deep'}, {struct}{cold}{kind}>"
 
 
@@ -821,7 +854,10 @@ def check_mv_search(torch, hw: int, block: int, radius: int):
 def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
     """The overlap's keys of every layer and stream rotated by the
     window's shift, at ``cfg``'s kv heads and head dim, in bf16 (at D 24
-    the kernel's 8-byte path) or ``dtype``."""
+    the kernel's 8-byte path) or ``dtype``.  In f16 also the bf16 build's
+    device ms on ``k.bfloat16()``, and the control: the kernel fed k
+    rounded through bf16 must fail the limit."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.rope_shift import rope_shift_cuda, rope_shift_plain
     dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -831,13 +867,15 @@ def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
     delta = torch.full((n, ov), -sh, dtype=torch.int32, device="cuda")
     out_k = rope_shift_cuda(k, delta, cfg.rope_theta)
     out_p = rope_shift_plain(k, delta, cfg.rope_theta)
-    # elementwise: one bf16 step of the value (2^-7 relative; none in f32)
-    # plus 1e-3 for the f32 angle (|delta * freq| ~ 640 rad: one f32 ulp
-    # of the angle moves the result by ~1e-4 |k|)
-    d = (out_k.float() - out_p.float()).abs()
-    err = float(d.max())
-    step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-    excess = float((d - step * out_p.float().abs()).max())
+    # elementwise: one step of the value in k's dtype (bf16 2^-7, f16 2^-10
+    # relative; none in f32) plus 1e-3 for the f32 angle (|delta * freq| ~
+    # 640 rad: one f32 ulp of the angle moves the result by ~1e-4 |k|)
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: F16_ROPE_STEP}.get(dtype, 0.0)
+
+    def excess_of(out):
+        return float(((out.float() - out_p.float()).abs() - step * out_p.float().abs()).max())
+    err = float((out_k.float() - out_p.float()).abs().max())
+    excess = excess_of(out_k)
     ms = cuda_ms(torch, lambda: rope_shift_cuda(k, delta, cfg.rope_theta), 20)
     # internvl3-14b's k alone is 377 MB, past the L2 many times over
     dev_ms = device_ms(torch, lambda a, b: rope_shift_cuda(a, b, cfg.rope_theta), (k, delta),
@@ -846,15 +884,28 @@ def check_rope_shift(torch, cfg, layout, n_streams, dtype=None, label=None):
     n_bytes = 2 * k.numel() * k.element_size() + delta.numel() * 4
     b_ms, b_by = bound_ms(n_bytes, 3 * k.numel(), F32_FLOPS)
     name = "rope_shift" if label is None else f"rope_shift ({label})"
+    ok, f16 = excess <= 1e-3, {}
+    if dtype == torch.float16:
+        kb = k.bfloat16()
+        f16 = dict(bf16_device_ms=device_ms(
+            torch, lambda a, b: rope_shift_cuda(a, b, cfg.rope_theta), (kb, delta),
+            kb.numel() * kb.element_size(), min_copies=2),
+            control_excess=excess_of(rope_shift_cuda(kb.half(), delta, cfg.rope_theta)))
+        ok = ok and f16["control_excess"] > 1e-3 and out_k.dtype == torch.float16
+        F16_CALLS.setdefault("rope_shift", (lambda k, d: ops.rope_shift(k, d, cfg.rope_theta),
+                                            (k, delta)))
+        del kb
     log(f"{name}: k {tuple(k.shape)} {str(dtype)[6:]}, delta {-sh}: max abs err {err:.3g}; "
-        f"max (|k-p| - {'2^-7 |p|' if step else '0'}) {excess:.3g} (limit 1e-3); kernel "
+        f"max (|k-p| - {f'2^{math.log2(step):.0f} |p|' if step else '0'}) {excess:.3g} (limit "
+        f"1e-3); kernel "
         f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
-    return excess <= 1e-3, dict(name="rope_shift", route="cuda",
-                            source="src/repro_torch/csrc/rope_shift.cu",
-                            replaces="src/repro/kernels/rope_shift.py:40",
-                            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        f"{b_ms:.4f} ms ({b_by})" + (
+            f"; f16: bf16 build {f16['bf16_device_ms']:.4f} ms on the device, k through bf16 "
+            f"{f16['control_excess']:.3g} (must exceed the limit)" if f16 else ""))
+    return ok, dict(name="rope_shift", route="cuda", source="src/repro_torch/csrc/rope_shift.cu",
+                    replaces="src/repro/kernels/rope_shift.py:40",
+                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None, **f16)
 
 
 REFRESH_CASES = ("fresh prefill", "selective refresh", "decode")
@@ -865,7 +916,9 @@ def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str, q_dty
     serving path: fresh prefill ([0, total_len)), the selective refresh
     set, or the first decode step (one query at total_len, keys up to
     it, causal only as in the reference's decode); the query in
-    ``q_dtype`` (bf16 by default; an f32 LM's is f32), the slab bf16."""
+    ``q_dtype`` (bf16 by default; an f32 LM's is f32), the slab bf16 (f16
+    under an f16 query: the f16 build takes q, k and v in f16), every
+    operand drawn in f32 and rounded once to its type."""
     import numpy as np
     from repro_torch.core import refresh_block_map
     from repro_torch.kernels.flash_refresh import build_block_map
@@ -891,10 +944,11 @@ def _refresh_inputs(torch, cfg, layout, cache_slots, n_streams, case: str, q_dty
                                 (n_streams, cache_slots)).copy()
     kv_valid = torch.as_tensor(valid, device="cuda")
     Sq = bm.n_q
+    kv_dtype = torch.float16 if q_dtype == torch.float16 else torch.bfloat16
     q = torch.randn((n_streams, Sq, cfg.n_heads, cfg.d_head), generator=g,
                     device="cuda").to(q_dtype or torch.bfloat16)
-    k = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(kv_dtype)
+    v = torch.randn((P * 128, cfg.n_kv, cfg.d_head), generator=g, device="cuda").to(kv_dtype)
     q_pos = torch.as_tensor(bm.q_pos[:Sq], dtype=torch.long, device="cuda")[None].expand(n_streams, Sq)
     return q, k, v, q_pos, kv_valid, pt, bm
 
@@ -906,9 +960,10 @@ def refresh_mask(torch, q_pos, kv_valid):
 
 
 def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_bytes,
-                    extra_bytes, dead_rows_zero=True, tol=ROW_TOL):
+                    extra_bytes, dead_rows_zero=True, tol=ROW_TOL, op=None):
     """Hold one attention kernel, ``kernel(*args)``, against its plain
-    version on the same inputs: the row-relative error within ``tol`` and,
+    version on the same inputs: the row-relative error within ``tol``
+    (F16_ROW_TOL for f16 q/k/v, with ``f16_readings``) and,
     where ``dead_rows_zero`` (the refresh kernels), rows with no visible
     key exactly 0.  ``mask`` (B or 1, Sq, slots) bool is the attention
     mask.  Times the kernel per call and on the device (``device_ms``,
@@ -917,10 +972,15 @@ def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_byte
     bytes per (kv head, d_head) element summed over the key rows some
     query needs (``needed`` (B, slots) bool) for K and V, plus
     ``extra_bytes`` of masks and tables; 4 D H flops per live (query,
-    key) pair.  Returns (ok, readings)."""
+    key) pair.  ``op``: (kernel name, its ``ops`` entry point over
+    ``args``), which the f16 phase's path calls once (F16_CALLS: an f16
+    kernel's first case).  Returns (ok, readings)."""
     out_k, out_p = kernel(*args), plain()
     err, rel = attn_errors(torch, out_k, out_p)
     B, Sq, H, D = q.shape
+    f16 = q.dtype == torch.float16
+    if f16:
+        tol = F16_ROW_TOL
     r = dict(max_abs_err=err, rel=rel, tol=tol)
     if dead_rows_zero:
         r["dead_zero"] = bool((out_k[~mask.expand(B, -1, -1).any(-1)] == 0).all())
@@ -934,7 +994,44 @@ def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_byte
              plain_ms=cuda_ms(torch, plain, 3),
              library_ms=cuda_ms(torch, lambda: library(mask), 5),
              bound_ms=b_ms, bound_by=b_by)
-    return rel <= tol and r.get("dead_zero", True), r
+    ok = rel <= tol and r.get("dead_zero", True)
+    if f16:
+        ok = f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes) and ok
+        if op is not None:
+            F16_CALLS.setdefault(op[0], (op[1], args))
+    return ok, r
+
+
+# the f16 phase's path: kernel name -> (its ops entry point, the operands of
+# its first f16 case), filled by the checks as they run, called once by
+# check_f16
+F16_CALLS = {}
+
+
+def f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes) -> bool:
+    """An f16 attention case's further readings into ``r`` (which holds its
+    ``tol``): the bf16 build's device ms on ``.bfloat16()`` copies of the
+    f16 operands in ``args``; the control, the kernel fed those operands
+    rounded through bf16 (what a path reading f16 as bf16 computes), whose
+    row-relative error against ``out_p`` must exceed ``tol``; and an f16
+    query over the other operands in bf16, which must raise 'kernel-dtype'
+    with no launch.  True if all three held and ``out_k`` is f16."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cuda import KernelError
+    half = [torch.is_tensor(a) and a.dtype == torch.float16 for a in args]
+    bf = [a.bfloat16() if h else a for a, h in zip(args, half)]
+    r["bf16_device_ms"] = device_ms(torch, kernel, bf, in_bytes)
+    _, r["control_rel"] = attn_errors(
+        torch, kernel(*[a.half() if h else a for a, h in zip(bf, half)]), out_p)
+    before = sum(ops.launch_counts().values())
+    try:
+        kernel(args[0], *bf[1:])
+        r["mixed"] = "no refusal"
+    except KernelError as e:
+        r["mixed"] = "kernel-dtype" if "kernel-dtype" in str(e) else str(e)
+    launched = sum(ops.launch_counts().values()) - before
+    return (out_k.dtype == torch.float16 and r["control_rel"] > r["tol"]
+            and r["mixed"] == "kernel-dtype" and launched == 0)
 
 
 def attention_reading(r, library: str) -> str:
@@ -943,14 +1040,26 @@ def attention_reading(r, library: str) -> str:
             f"(limit {r['tol']:.3g}){dead}; kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} ms on "
             f"the device), plain "
             f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){f16_note(r)}")
+
+
+def f16_note(r) -> str:
+    """f16_readings' readings in words ('' for a case in another dtype)."""
+    if "control_rel" not in r:
+        return ""
+    return (f"; f16: bf16 build {r['bf16_device_ms']:.4f} ms on the device, operands through "
+            f"bf16 {r['control_rel']:.3g} (must exceed the limit), f16 q over bf16 K/V: "
+            f"{r['mixed']}")
 
 
 def kernel_row(name, replaces, r):
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict(name=name, route="cuda", source="src/repro_torch/csrc/attention.cuh",
                 replaces=replaces, **{k: r[k] for k in keys},
-                **{k: r[k] for k in ("rel", "tol") if k in r})
+                **{k: r[k] for k in ("rel", "tol", *F16_KEYS) if k in r})
+
+
+F16_KEYS = ("bf16_device_ms", "control_rel", "mixed")   # f16_readings' keys
 
 
 # csrc/attention.cuh's problem struct per kernel line
@@ -1022,18 +1131,21 @@ def dt_name(t) -> str:
     return str(t.dtype)[6:]
 
 
-def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams, families=()):
+def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams, families=(),
+                              dtype=None):
     """All three serving shapes are held to ROW_TOL, at ``cfg``'s heads and
     at each of ``families`` ((label, cfg, layout, cache slots[, q dtype[,
     cases]]) of another model's paged path, or another head dim or query
-    type); the kernels line reports ``cfg``'s selective refresh's times,
+    type); ``dtype``: the q dtype of ``cfg``'s cases (bf16 by default); the
+    kernels line reports ``cfg``'s selective refresh's times,
     the largest error, and every family case's readings under
     ``families``."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_refresh import flash_refresh_paged_cuda, flash_refresh_paged_plain
     from repro_torch.kernels.ref import paged_gather_ref
     ok, row, worst, readings = True, None, 0.0, {}
-    cases = [(None, cfg, layout, cache_slots, None, case) for case in REFRESH_CASES] + [
+    cases = [(None, cfg, layout, cache_slots, dtype, case) for case in REFRESH_CASES] + [
         (label, fcfg, flay, fslots, rest[0] if rest else None, case)
         for label, fcfg, flay, fslots, *rest in families
         for case in (rest[1] if len(rest) > 1 else REFRESH_CASES)]
@@ -1052,7 +1164,9 @@ def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams, famili
             torch, lambda *a: flash_refresh_paged_cuda(*a, bm), (q, k, v, kv_valid, pt),
             lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), library,
             q, k.shape[1], refresh_mask(torch, q_pos, kv_valid), bf16_keys,
-            kv_valid.numel() + pt.numel() * 4)
+            kv_valid.numel() + pt.numel() * 4,
+            op=("flash_refresh_paged", lambda q, k, v, m, t, q_pos=q_pos, bm=bm:
+                ops.flash_refresh_paged(q, k, v, q_pos, m, t, block_map=bm)))
         worst = max(worst, r["max_abs_err"])
         name = case if label is None else f"{label}, {case}"
         log(f"flash_refresh_paged ({name}): q {tuple(q.shape)} {dt_name(q)}, slab "
@@ -1101,6 +1215,7 @@ def check_flash_refresh(torch, cases, n_streams, families=()):
     refresh's times, the largest error, and every family case's readings
     under ``families``."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_refresh import flash_refresh_cuda, flash_refresh_plain
     from repro_torch.kernels.ref import paged_gather_ref
     ok, row, worst, readings = True, None, 0.0, {}
@@ -1131,7 +1246,9 @@ def check_flash_refresh(torch, cases, n_streams, families=()):
             lambda mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2).to(q.dtype), v.transpose(1, 2).to(q.dtype),
                 attn_mask=mask[:, None], enable_gqa=True),
-            q, k.shape[2], refresh_mask(torch, q_pos, kv_valid), bf16_keys, kv_valid.numel())
+            q, k.shape[2], refresh_mask(torch, q_pos, kv_valid), bf16_keys, kv_valid.numel(),
+            op=("flash_refresh", lambda q, k, v, m, q_pos=q_pos, bm=bm:
+                ops.flash_refresh(q, k, v, q_pos, m, block_map=bm)))
         worst = max(worst, r["max_abs_err"])
         log(f"flash_refresh ({label}): q {tuple(q.shape)} {dt_name(q)}, caches {tuple(k.shape)}, "
             f"{bm.visited} visited tiles of {bm.n_q_tiles}x{bm.n_kv_tiles}: "
@@ -1181,9 +1298,12 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams, n
     dequantised pages rounded to bf16, as the function defines them),
     and the kernel held within ROW_TOL of it: where the kernel and the
     plain version sit near ROW_TOL apart (narrow head dims), each is
-    about half of it from the unrounded answer."""
+    about half of it from the unrounded answer.  An f16 ``q_dtype`` makes
+    the hot slab f16 too, and the all-hot table is held to the f16
+    kernel."""
     import torch.nn.functional as F
     from repro_torch.core import demotable_pages
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_refresh import (
         flash_refresh_paged_cuda, flash_refresh_paged_plain,
     )
@@ -1211,12 +1331,14 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams, n
         (q, k, v, kv_valid, pt8, *cold),
         lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt8, cold=cold),
         library, q, n_kv, refresh_mask(torch, q_pos, kv_valid), key_bytes,
-        kv_valid.numel() + pt8.numel() * 4 + 2 * ks.numel() * 4)
-    out_bf16 = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
+        kv_valid.numel() + pt8.numel() * 4 + 2 * ks.numel() * 4,
+        op=("flash_refresh_paged_int8", lambda q, k, v, m, t, *c: ops.flash_refresh_paged(
+            q, k, v, q_pos, m, t, block_map=bm, cold=c)))
+    out_hot = flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm)
     all_hot = torch.equal(flash_refresh_paged_cuda(q, k, v, kv_valid, pt, bm, cold=cold),
-                          out_bf16)
+                          out_hot)
     out_k = flash_refresh_paged_cuda(q, k, v, kv_valid, pt8, bm, cold=cold)
-    _, quant_rel = attn_errors(torch, out_k, out_bf16)
+    _, quant_rel = attn_errors(torch, out_k, out_hot)
     kg, vg = paged_gather(k, v, pt8, 128, cold)
     qs = (q.float() * q.shape[-1] ** -0.5).to(k.dtype).float()
     unrounded = flash_refresh_ref(qs, kg.float(), vg.float(), q_pos, kv_valid, scale=1.0)
@@ -1230,7 +1352,7 @@ def check_flash_refresh_paged_int8(torch, cfg, layout, cache_slots, n_streams, n
         f"{dt_name(q)}, "
         f"hot slab "
         f"{tuple(k.shape)}, cold slab {tuple(k8.shape)} int8, {D} of {pt.shape[1]} pages "
-        f"per stream cold, all-hot bitwise equal to bf16 kernel: {all_hot}, row-relative "
+        f"per stream cold, all-hot bitwise equal to {'f16' if k.dtype == torch.float16 else 'bf16'} kernel: {all_hot}, row-relative "
         f"change from quantisation {quant_rel:.3g}, against P and O unrounded: kernel "
         f"{r['rel_unrounded']:.3g} (limit {ROW_TOL:.3g}), plain {r['plain_rel_unrounded']:.3g}: "
         + attention_reading(r, "dequant-gather+SDPA"))
@@ -1282,7 +1404,7 @@ def check_flash_packed(torch, pipe, streams, heads=None, label=None, dtype=None,
     name = "flash_packed" if label is None else f"flash_packed [{label}]"
     g = torch.Generator(device="cuda").manual_seed(4)
     dtype = dtype or torch.bfloat16
-    tol = F32_ROW_TOL if dtype == torch.float32 else ROW_TOL
+    tol = {torch.float32: F32_ROW_TOL, torch.float16: F16_ROW_TOL}.get(dtype, ROW_TOL)
     ok, row, worst, readings = True, None, 0.0, {}
     for label_p, plan in packings(torch, pipe, streams):
         if only is not None and label_p not in only:
@@ -1312,23 +1434,30 @@ def check_flash_packed(torch, pipe, streams, heads=None, label=None, dtype=None,
         n_bytes = live * H * D * esz * 3 + q.numel() * esz + seg.numel() * 4
         b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * float(mask.sum()), BF16_TENSOR_FLOPS)
         split_ms, split_note = split_reading(k) if esz == 4 else (None, "")
+        r = dict(tol=tol)
+        if dtype == torch.float16:
+            ok = f16_readings(torch, kernel, (q, k, vv), out_k, out_p, r,
+                              3 * q.numel() * esz) and ok
+            F16_CALLS.setdefault("flash_packed", (kernel, (q, k, vv)))
         log(f"{name} ({label_p}): {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, "
             f"D {D}, {dt_name(q)}, {bm.visited} visited tiles, fill {plan.fill:.3f}: max abs "
             f"err {err:.3g}, max row-relative err {rel:.3g} (limit {tol:.3g}), padding exact zero: "
             f"{pad_zero}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
-            f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}){split_note}")
+            f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}){split_note}"
+            f"{f16_note(r)}")
         ok = ok and rel <= tol and pad_zero
         worst = max(worst, err)
         readings[label_p] = dict(shape=[R, L], visited=bm.visited, max_abs_err=err, rel=rel,
                                  tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                                  bound_ms=b_ms, bound_by=b_by,
-                                 **({} if split_ms is None else {"split_ms": split_ms}))
+                                 **({} if split_ms is None else {"split_ms": split_ms}),
+                                 **{k_: r[k_] for k_ in F16_KEYS if k_ in r})
         if row is None:
             row = dict(name="flash_packed", route="cuda",
                        source="src/repro_torch/csrc/attention.cuh",
                        replaces="src/repro/kernels/flash_packed.py:211", max_abs_err=err,
                        ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib)
+                       library_ms=lib, **{k_: r[k_] for k_ in F16_KEYS if k_ in r})
         del q, k, vv, out_k, out_p, mask
     row["max_abs_err"] = worst
     row["packings"] = readings
@@ -1917,8 +2046,9 @@ def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None,
     kernels line reports the causal case's times and the largest error.
     ``only``: the labels of the cases to run; ``label`` names ``cfg``;
     ``dtype``: q/k/v's (bf16 by default; f32: within F32_ROW_TOL, the
-    split pre-pass's bytes printed beside the bound)."""
+    split pre-pass's bytes printed beside the bound; f16: F16_ROW_TOL)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda, flash_prefill_plain
     g = torch.Generator(device="cuda").manual_seed(6)
     H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
@@ -1944,7 +2074,9 @@ def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None,
             lambda mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
                                                         enable_gqa=True),
             q, Hkv, positional_mask(torch, Sq, Sk, off, window),
-            f32_keys if f32 else bf16_keys, 0, dead_rows_zero=False, tol=tol)
+            f32_keys if f32 else bf16_keys, 0, dead_rows_zero=False, tol=tol,
+            op=("flash_prefill", lambda q, k, v, window=window, off=off: ops.flash_prefill(
+                q, k, v, window=window, q_offset=off)))
         note = ""
         if f32:
             r["split_ms"], note = split_reading(k)
@@ -1978,10 +2110,13 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold
     a shuffled slab, bf16 and with each stream's pages [0, D) (15 of 21)
     int8 cold (``n_cold`` where given); the int8 kernel with every entry
     hot must equal the bf16 kernel bitwise.  Library: gather (+ dequant)
-    + SDPA.  Returns ((ok, bf16 row), (ok, int8 row))."""
+    + SDPA.  An f16 ``q_dtype`` makes the slab f16 too (the int8 kernel's
+    all-hot table then held to the f16 kernel).  Returns ((ok, bf16
+    row), (ok, int8 row))."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.core import demotable_pages
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_prefill import (
         flash_prefill_paged_cuda, flash_prefill_paged_plain,
     )
@@ -1995,45 +2130,307 @@ def check_flash_prefill_paged(torch, cfg, layout, cache_slots, n_streams, n_cold
                          device="cuda")
     Sq = layout.total_len
     q = torch.randn((n_streams, Sq, H, D), generator=g, device="cuda").to(q_dtype or torch.bfloat16)
-    k, v = (torch.randn((P * 128, Hkv, D), generator=g, device="cuda").bfloat16()
-            for _ in range(2))
+    f16 = q.dtype == torch.float16
+    hot = "f16" if f16 else "bf16"
+    k, v = (torch.randn((P * 128, Hkv, D), generator=g, device="cuda").to(
+        torch.float16 if f16 else torch.bfloat16) for _ in range(2))
     mask = positional_mask(torch, Sq, cache_slots, 0, None)
     n_cold = len(demotable_pages(layout)) if n_cold is None else n_cold
     cold, pt8, is_cold = cold_pages(torch, k, v, pt, n_cold)
     rows = []
     name = "flash_prefill_paged" if label is None else f"flash_prefill_paged [{label}]"
-    for case, table, grp in (("bf16", pt, None), ("int8", pt8, cold)):
+    for case, table, grp in ((hot, pt, None), ("int8", pt8, cold)):
         def library(mask, table=table, grp=grp):
             kg, vg = (x.to(q.dtype) for x in paged_gather(k, v, table, 128, grp))
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
                 attn_mask=mask[:, None], enable_gqa=True)
 
-        def key_bytes(needed, grp=grp):     # int8 rows at 1 B, bf16 rows at 2 B
+        def key_bytes(needed, grp=grp):     # int8 rows at 1 B, bf16 (f16) rows at 2 B
             cold_keys = float((needed & is_cold).sum()) if grp is not None else 0.0
             return 2 * (float(needed.sum()) - cold_keys) + cold_keys
 
         extra = pt.numel() * 4 + (0 if grp is None else 2 * cold[2].numel() * 4)
+        row_name = "flash_prefill_paged" if grp is None else "flash_prefill_paged_int8"
         ok, r = check_attention(
             torch, lambda q, k, v, table, *c: flash_prefill_paged_cuda(q, k, v, table,
                                                                        cold=c or None),
             (q, k, v, table, *(grp or ())),
             lambda table=table, grp=grp: flash_prefill_paged_plain(q, k, v, table, cold=grp),
             library, q, Hkv, mask, key_bytes, extra, dead_rows_zero=False,
-            tol=F32_ROW_TOL if q.dtype == torch.float32 else PREFILL_ROW_TOL)
+            tol=F32_ROW_TOL if q.dtype == torch.float32 else PREFILL_ROW_TOL,
+            op=(row_name, lambda q, k, v, t, *c: ops.flash_prefill_paged(q, k, v, t,
+                                                                         cold=c or None)))
         note = ""
         if grp is not None:
             all_hot = torch.equal(flash_prefill_paged_cuda(q, k, v, pt, cold=grp),
                                   flash_prefill_paged_cuda(q, k, v, pt))
             note = (f", {n_cold} of {n_pages} pages per stream cold, "
-                    f"all-hot bitwise equal to bf16 kernel: {all_hot}")
+                    f"all-hot bitwise equal to {hot} kernel: {all_hot}")
             ok = ok and all_hot
         log(f"{name} ({case}): q {tuple(q.shape)} {dt_name(q)}, slab {tuple(k.shape)}, "
             f"{n_pages} shuffled pages per stream{note}: "
             + attention_reading(r, "gather+SDPA" if grp is None else "dequant-gather+SDPA"))
-        row_name = "flash_prefill_paged" if grp is None else "flash_prefill_paged_int8"
         rows.append((ok, kernel_row(row_name, "src/repro/kernels/flash_prefill.py:258", r)))
     return rows
+
+
+# ----------------------------------------------------------------------
+# phase 3, f16 (``--only f16``; its cases run in the full run's phase 3)
+# ----------------------------------------------------------------------
+# f16 operands are drawn in f32 and rounded once to f16 (all 11 bits
+# live), the bf16 build timed on ``.bfloat16()`` copies of them.  Limits:
+# the attention kernels F16_ROW_TOL; rope_shift one f16 step of the value
+# (2^-10 relative, as bf16's is 2^-7) plus the f32 angle's 1e-3; the
+# scan's f16 x, b and c are staged as bf16 hi + lo halves, which hold f16
+# exactly, so y and the gradients are held to the staged f32 mode's limits
+# plus one f16 step of their row's or slice's largest value (2^-10).  Each
+# case holds a control: the kernel fed its f16 operands rounded through
+# bf16 (what a path reading f16 as bf16, or a staging pass dropping the lo
+# half, computes) must fail the limit
+F16_ROPE_STEP = 2.0 ** -10
+F16_STEP = 2.0 ** -10
+# the attention kernels' further widths in f16: a ragged d off the 8-column
+# grid, the SLAB build's 512 and the DEEP build's 1024, at the heads of
+# their bf16 cases (H 16 / Hkv 4, HEADS_512, HEADS_1024; flash_packed's
+# F16_PACKED_HEADS)
+F16_WIDE = ("D 90", "D 512", "D 1024")
+F16_PACKED_HEADS = {"D 90": (16, 90), "D 512": (2, 512), "D 1024": (1, 1024)}
+# the scan in f16 (x, b and c; log_a and init f32) at mamba2-2.7b's serving
+# shapes and one at d_state 256: (B, L, H, P, G, N, chunk, init)
+SCAN_F16 = {"fresh window": (2, 160, 80, 64, 1, 128, 256, True),
+            "incremental window": (2, 40, 80, 64, 1, 128, 256, True),
+            "query": (2, 8, 80, 64, 1, 128, 256, True),
+            "long prefill": (1, 4096, 80, 64, 1, 128, 256, False),
+            "N 256 fresh window": (2, 160, 80, 64, 1, 256, 256, True)}
+# ... and its backward at mamba2-2.7b's training shape, with init and a
+# final-state cotangent
+SCAN_BWD_F16 = {"mamba2-2.7b training": (2, SSM_TRAIN_SEQ, 80, 64, 1, 128, 256)}
+# every kernel with a float operand (PERF.md's rows 2-10), its f16 row:
+# name -> (the TPU kernel it replaces, the f16 build's source, its cases:
+# at internvl3-14b's D 128 (the ViT's D 64), then F16_WIDE)
+F16_ROWS = {
+    "rope_shift": ("src/repro/kernels/rope_shift.py:40", "src/repro_torch/csrc/rope_shift.cu",
+                   ("overlap keys",)),
+    "flash_refresh_paged": ("src/repro/kernels/flash_refresh.py:458",
+                            "src/repro_torch/csrc/attention_f16.cu",
+                            REFRESH_CASES + F16_WIDE),
+    "flash_refresh_paged_int8": ("src/repro/kernels/flash_refresh.py:380",
+                                 "src/repro_torch/csrc/attention_f16.cu",
+                                 ("selective refresh",) + F16_WIDE),
+    "flash_refresh": ("src/repro/kernels/flash_refresh.py:236",
+                      "src/repro_torch/csrc/attention_f16.cu",
+                      ("selective refresh", "decode") + F16_WIDE),
+    "flash_packed": ("src/repro/kernels/flash_packed.py:211",
+                     "src/repro_torch/csrc/attention_f16.cu", ("serve", "busy") + F16_WIDE),
+    "flash_prefill": ("src/repro/kernels/flash_prefill.py:79",
+                      "src/repro_torch/csrc/attention_f16.cu", ("causal",) + F16_WIDE),
+    "flash_prefill_paged": ("src/repro/kernels/flash_prefill.py:258",
+                            "src/repro_torch/csrc/attention_f16.cu",
+                            ("fresh prefill",) + F16_WIDE),
+    "flash_prefill_paged_int8": ("src/repro/kernels/flash_prefill.py:258",
+                                 "src/repro_torch/csrc/attention_f16.cu",
+                                 ("fresh prefill",) + F16_WIDE),
+    "ssd_scan": ("src/repro/kernels/ssd_scan.py:74", "src/repro_torch/csrc/ssd_scan_staged.cu",
+                 tuple(SCAN_F16)),
+    "ssd_scan_bwd": ("none (the reference trains through its plain scan)",
+                     "src/repro_torch/csrc/ssd_scan_staged.cu", tuple(SCAN_BWD_F16)),
+}
+# the f16 builds past 256 and 512 (a case "D 512" or "D 1024" runs there)
+F16_SOURCES = {"D 512": "src/repro_torch/csrc/attention_f16_512.cu",
+               "D 1024": "src/repro_torch/csrc/attention_f16_deep.cu"}
+F16_PATH = "f16 ops"      # the f16 phase's run of the ops, one call a kernel
+F16_NAME = "{}_f16"       # a kernel's f16 row in the kernels line
+
+
+def through_bf16(*ts):
+    """Each f16 tensor of ``ts`` rounded through bf16 (the controls'
+    operands)."""
+    return [t.bfloat16().half() for t in ts]
+
+
+def f16_scan(torch):
+    """ssd_scan with f16 x, b and c (staged: each f16 value is exactly its
+    bf16 hi + lo) at SCAN_F16's shapes: y within SCAN_F32_TOL + F16_STEP
+    of its row's largest value, the state within 1e-4; then the backward
+    at SCAN_BWD_F16's shape (dx, db, dc within BWD_F32_OUT_TOL + F16_STEP,
+    dlog_a and d_init 1e-3, bitwise repeat).  Each case with the bf16
+    build's device ms on ``.bfloat16()`` copies (read in place) and its
+    control, which must fail: x, b, c (and dY) rounded through bf16.
+    Returns {name: (ok, row)}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import (
+        ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_bwd_work, ssd_scan_cuda,
+        ssd_scan_fwd_plain, ssd_scan_launch, ssd_scan_plain, ssd_scan_work,
+    )
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows, ok_all, row, worst = {}, True, None, 0.0
+    for label, (B, L, H, P, G, N, chunk, with_init) in SCAN_F16.items():
+        x, la, b, c, init = scan_operands(torch, g, B, L, H, P, G, N, with_init, dt="float16")
+        xb, bb, cb = x.bfloat16(), b.bfloat16(), c.bfloat16()
+        y_k, s_k = ssd_scan_cuda(x, la, b, c, init, chunk)
+        y_p, s_p = ssd_scan_plain(x, la, b, c, init, chunk)
+        y_err, y_rel = attn_errors(torch, y_k, y_p)
+        xc, bc, cc = through_bf16(x, b, c)
+        _, ctl = attn_errors(torch, ssd_scan_cuda(xc, la, bc, cc, init, chunk)[0], y_p)
+        s_rel = slice_rel(torch, s_k, s_p, (-1, -2))
+        tol = SCAN_F32_TOL + F16_STEP
+        here = y_rel <= tol and s_rel <= 1e-4 and y_k.dtype == torch.float16 and ctl > tol
+        flops, n_bytes = ssd_scan_work(L, H, P, G, N, chunk, B, 2, 2, 4)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
+        in_bytes = sum(t.numel() * t.element_size() for t in (x, la, b, c, init)
+                       if t is not None)
+        fn = lambda *a: ssd_scan_cuda(*a, chunk)  # noqa: E731
+        r = dict(max_abs_err=max(y_err, float((s_k - s_p).abs().max())), rel=y_rel, tol=tol,
+                 state_rel=s_rel, control_rel=ctl,
+                 ms=cuda_ms(torch, lambda: fn(x, la, b, c, init), 10),
+                 device_ms=device_ms(torch, fn, (x, la, b, c, init), in_bytes),
+                 bf16_device_ms=device_ms(torch, fn, (xb, la, bb, cb, init), in_bytes),
+                 plain_ms=cuda_ms(torch, lambda: ssd_scan_plain(x, la, b, c, init, chunk), 3),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"ssd_scan f16 ({label}): x {tuple(x.shape)}, b/c {tuple(b.shape)} f16, chunk "
+            f"{chunk}: y row-relative {y_rel:.3g} (limit {tol:.3g}), state {s_rel:.3g} (limit "
+            f"1e-4), x/b/c through bf16 {ctl:.3g} (must exceed the limit); kernel "
+            f"{r['ms']:.4f} ms per call ({r['device_ms']:.4f} ms on the device), "
+            f"bf16 build {r['bf16_device_ms']:.4f} ms on the device, plain {r['plain_ms']:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}): {'ok' if here else 'FAIL'}")
+        ok_all = ok_all and here
+        worst = max(worst, r["max_abs_err"])
+        if row is None:
+            row = dict(name="ssd_scan", route="cuda", **r)
+            F16_CALLS["ssd_scan"] = (lambda *a, chunk=chunk: scan_step(torch, ops, *a, chunk),
+                                     (x, la, b, c, init))
+        else:
+            row.setdefault("cases", {})[label] = r
+        del xb, bb, cb, xc, bc, cc, y_k, y_p
+    row["max_abs_err"] = worst
+    rows["ssd_scan"] = (ok_all, row)
+    for label, (B, L, H, P, G, N, chunk) in SCAN_BWD_F16.items():
+        x, la, b, c, init = scan_operands(torch, g, B, L, H, P, G, N, True, dt="float16")
+        dy = torch.randn((B, L, H, P), generator=g, device="cuda").half()
+        dfin = torch.randn((B, H, P, N), generator=g, device="cuda")
+        _, _, states = ssd_scan_launch(x, la, b, c, init, chunk, states=True)
+        states_p = ssd_scan_fwd_plain(x, la, b, c, init, chunk)[2]
+        got = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+        again = ssd_scan_bwd_cuda(x, la, b, c, states, dy, dfin, chunk)
+        want = ssd_scan_bwd_plain(x, la, b, c, states_p, dy, dfin, chunk)
+        xc, bc, cc, dyc = through_bf16(x, b, c, dy)
+        control = ssd_scan_bwd_cuda(xc, la, bc, cc, states, dyc, dfin, chunk)
+        bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+        out_tol = BWD_F32_OUT_TOL + F16_STEP
+        dims = ((1, 3), (1,), (1, 3), (1, 3), (-1, -2))
+        tols = (out_tol, BWD_F32_TOL, out_tol, out_tol, BWD_F32_TOL)
+        names = ("dx", "dlog_a", "db", "dc", "d_init")
+        readings = {nm: (slice_rel(torch, k_, w_, d_), t_)
+                    for nm, k_, w_, d_, t_ in zip(names, got, want, dims, tols)}
+        ctl = {nm: slice_rel(torch, k_, w_, d_) for nm, k_, w_, d_ in zip(names, control, want, dims)}
+        ctl_fails = any(ctl[nm] > t_ for nm, t_ in zip(names, tols))
+        dtypes = [t.dtype for t in got[:4]] == [x.dtype, la.dtype, b.dtype, c.dtype]
+        here = bitwise and dtypes and ctl_fails and all(v <= t_ for v, t_ in readings.values())
+        flops, n_bytes = ssd_scan_bwd_work(L, H, P, G, N, chunk, B, 2, 2, 4)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
+        args = (x, la, b, c, states, dy, dfin)
+        in_bytes = sum(t.numel() * t.element_size() for t in args)
+        fn = lambda *a: ssd_scan_bwd_cuda(*a, chunk)  # noqa: E731
+        r = dict(max_abs_err=max(float((k_.float() - w_.float()).abs().max())
+                                 for k_, w_ in zip(got, want)),
+                 ms=cuda_ms(torch, lambda: fn(*args), 5),
+                 device_ms=device_ms(torch, fn, args, in_bytes, replays=2, min_copies=2),
+                 bf16_device_ms=device_ms(torch, fn, (x.bfloat16(), la, b.bfloat16(),
+                                                      c.bfloat16(), states, dy.bfloat16(), dfin),
+                                          in_bytes, replays=2, min_copies=2),
+                 plain_ms=cuda_ms(torch, lambda: ssd_scan_bwd_plain(
+                     x, la, b, c, states_p, dy, dfin, chunk), 2, warmup=1),
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                 readings={k_: v for k_, (v, _) in readings.items()}, control=ctl)
+        log(f"ssd_scan_bwd f16 ({label}): x {tuple(x.shape)} f16, " + ", ".join(
+            f"{nm} {v:.3g} (limit {t_:.3g})" for nm, (v, t_) in readings.items())
+            + f"; x/b/c/dY through bf16 " + ", ".join(f"{nm} {v:.3g}" for nm, v in ctl.items())
+            + f" (must exceed a limit: {ctl_fails}); bitwise repeat {bitwise}; output dtypes "
+            f"{[dt_name(t) for t in got[:4]]}; kernel {r['ms']:.4f} ms per call "
+            f"({r['device_ms']:.4f} ms on the device), bf16 build {r['bf16_device_ms']:.4f} ms "
+            f"on the device, plain {r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}): "
+            f"{'ok' if here else 'FAIL'}")
+        rows["ssd_scan_bwd"] = (here, dict(name="ssd_scan_bwd", route="cuda", **r))
+        del x, b, c, dy, states, states_p, got, again, want, control, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def scan_step(torch, ops, x, la, b, c, init, chunk):
+    """The scan's forward and backward under grad through ``ops``."""
+    x = x.detach().requires_grad_()
+    y, st = ops.ssd_scan(x, la, b, c, init, chunk)
+    return torch.autograd.grad(y.float().sum() + st.sum(), (x,))[0]
+
+
+def check_f16(torch, cfg, pipe, streams, cfgs, n):
+    """The f16 phase: every kernel with a float operand (F16_ROWS) in f16
+    against its plain version, through its kernel check with an f16 dtype
+    (each attention case with f16_readings) and f16_scan; then the f16
+    path: each kernel's first case once through its ``ops`` entry point
+    (F16_CALLS), the launch counts read just before and just after
+    (READINGS[F16_PATH], each row's ``launches``).  ``cfgs``: width label
+    (F16_WIDE) -> (cfg, layout, cache slots).  Returns [(ok, row)]."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    F16_CALLS.clear()
+    f16, lay, slots = torch.float16, pipe.layout, pipe.cache_slots
+    wide = {w: cfgs[w] for w in F16_WIDE}
+
+    def at_128(name):     # a row's cases at internvl3-14b's widths
+        return tuple(c for c in F16_ROWS[name][2] if c not in F16_WIDE)
+
+    paged = [check_flash_prefill_paged(torch, cfg, lay, slots, n, q_dtype=f16)] + [
+        check_flash_prefill_paged(torch, *c, n, label=w, q_dtype=f16) for w, c in wide.items()]
+    results = {
+        "rope_shift": check_rope_shift(torch, cfg, lay, n, f16, label="f16"),
+        "flash_refresh_paged": check_flash_refresh_paged(
+            torch, cfg, lay, slots, n, [(w, *c, f16, ("selective refresh",))
+                                        for w, c in wide.items()], dtype=f16),
+        "flash_refresh_paged_int8": with_cases(
+            check_flash_refresh_paged_int8(torch, cfg, lay, slots, n, q_dtype=f16),
+            {w: check_flash_refresh_paged_int8(torch, *c, n, label=w, q_dtype=f16)
+             for w, c in wide.items()}),
+        "flash_refresh": check_flash_refresh(
+            torch, [(case, cfg, lay, slots, case, f16) for case in at_128("flash_refresh")]
+            + [(w, *c, "selective refresh", f16) for w, c in wide.items()], n),
+        "flash_packed": with_cases(
+            check_flash_packed(torch, pipe, streams, dtype=f16, only=at_128("flash_packed")),
+            {w: check_flash_packed(torch, pipe, streams, heads=F16_PACKED_HEADS[w], label=w,
+                                   dtype=f16, only=("busy",)) for w in F16_WIDE}),
+        "flash_prefill": with_cases(
+            check_flash_prefill(torch, cfg, lay.total_len, n, only=at_128("flash_prefill"),
+                                dtype=f16),
+            {w: check_flash_prefill(torch, c, l_.total_len, n, only=("causal",), label=w,
+                                    dtype=f16) for w, (c, l_, _) in wide.items()}),
+        **{name: with_cases(paged[0][i], {w: p[i] for w, p in zip(wide, paged[1:])})
+           for i, name in enumerate(("flash_prefill_paged", "flash_prefill_paged_int8"))},
+        **f16_scan(torch)}
+    del paged
+    for name, (_, row) in results.items():
+        replaces, source, _ = F16_ROWS[name]
+        row.update(name=F16_NAME.format(name), source=source, replaces=replaces)
+        for lab, r in {**row.get("cases", {}), **row.get("families", {})}.items():
+            r["source"] = next((s for w, s in F16_SOURCES.items() if lab.startswith(w)), source)
+    before = ops.launch_counts()
+    for fn, args in F16_CALLS.values():
+        fn(*args)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    counts = {F16_NAME.format(k): after.get(k, 0) - before.get(k, 0) for k in F16_ROWS}
+    READINGS[F16_PATH] = counts
+    for _, row in results.values():
+        row["launches_path"], row["launches"] = F16_PATH, counts[row["name"]]
+    missing = [k for k, v in counts.items() if v == 0]
+    log(f"f16 path (each kernel's first case through ops): launches {counts}"
+        + (f"; FAIL: not launched {missing}" if missing else ""))
+    log(f"f16 phase: {time.perf_counter() - t0:.1f} s")
+    F16_CALLS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [(ok and not missing, row) for ok, row in results.values()]
 
 
 # ----------------------------------------------------------------------
@@ -2091,7 +2488,8 @@ LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
                "ssd_scan_bwd": TRAIN_PATH,
                "flash_prefill": SSM_MAIN,
                "flash_prefill_paged": SSM_MAIN,
-               "flash_prefill_paged_int8": SSM_MAIN}
+               "flash_prefill_paged_int8": SSM_MAIN,
+               **{F16_NAME.format(k): F16_PATH for k in F16_ROWS}}
 
 
 def path_ecfg(mode: str, opts: dict, codec=None):
@@ -4070,7 +4468,8 @@ def h100_rates():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     ap.add_argument("--only", default="",
-                    help="comma-separated kernel names: their checks alone (phases 1-3); "
+                    help="comma-separated kernel names: their checks alone (phases 1-3; 'f16': "
+                         "every kernel in f16); "
                          "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
                          "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'f32-ssm' "
                          "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'd256' (phase 7(g): "
@@ -4405,6 +4804,9 @@ def main(argv=None) -> int:
                     dtype=F32)
                 for lab, (w, l_, _) in deep.items()})],
         "flash_prefill_paged": prefill_paged,
+        "f16": lambda: check_f16(torch, cfg, pipe, streams, {
+            "D 128": (cfg, lay, slots), "D 90": (widths["D 90"], lay, slots),
+            "D 512": (slab_w["D 512"], lay, slots), "D 1024": deep["D 1024"]}, n),
     }
     if only - set(checks):
         log(f"FAIL: --only names no check: {sorted(only - set(checks))}")
@@ -4496,8 +4898,8 @@ def main(argv=None) -> int:
     del params, vparams, ssm_pipe
     gc.collect()
     torch.cuda.empty_cache()
-    by_path = {KERNEL_PHASE: phase_launches, MAIN: launches, **by_path, **ssm_by_path,
-               **engine_by_path}
+    by_path = {KERNEL_PHASE: phase_launches, F16_PATH: READINGS.get(F16_PATH, {}),
+               MAIN: launches, **by_path, **ssm_by_path, **engine_by_path}
     for row in rows:
         name = row["name"]
         row["launches_path"] = LAUNCH_PATH.get(name, MAIN)

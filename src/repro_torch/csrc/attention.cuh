@@ -68,10 +68,18 @@
 //     on the DEEP build;
 //   * operand types: OPS_BF16 (bf16 q, k, v and output), OPS_Q32 (f32 q
 //     over bf16 k, v, f32 output: what an f32 LM hands the refresh
-//     kernels: its caches and slab are bf16) and OPS_F32 (f32 q, k and v,
+//     kernels: its caches and slab are bf16), OPS_F32 (f32 q, k and v,
 //     f32 output: the packed ViT of an f32 checkpoint and the dense
-//     prefill).  An f32 q is read with plain loads and rounded on its way
-//     to shared memory (cp.async cannot convert).  Under the refresh
+//     prefill) and OPS_F16 (f16 q, k and v, f16 output: what a library
+//     caller hands the kernels in f16).  OPS_F16 is OPS_BF16 with f16 for
+//     bf16: the same copies (element-size code), the products on
+//     mma.sync ...f32.f16.f16.f32, every rounding (q x scale, P, a
+//     dequantised cold page, P's split halves, the output) to f16, which
+//     its oracles' roundings to K's and V's type are; its builds take
+//     every head dim, ragged all (attention_f16.cu,
+//     attention_f16_512.cu, attention_f16_deep.cu).  An f32 q is read
+//     with plain loads and rounded on its way to shared memory (cp.async
+//     cannot convert).  Under the refresh
 //     oracle's numerics (below) over bf16 K/V the oracle itself rounds
 //     q x scale to bf16 and P to bf16, so OPS_Q32's products are the bf16
 //     kernel's.  Where the oracle keeps f32 (EXACT, or f32 K/V) an f32
@@ -220,7 +228,7 @@ namespace {
 constexpr int TILE = 128;     // map tile = KV page = query tile
 
 // operand types of a build (see the header)
-enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2 };
+enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2, OPS_F16 = 3 };
 
 // A build: its width D (shared-memory rows, the products' columns),
 // whether it takes a ragged head dim dh <= D, and its operand types.  A
@@ -242,6 +250,8 @@ struct Build {
   static constexpr bool RAGGED = RAGGED_;
   static constexpr int OPS = OPS_;
   static constexpr bool DEEP = DEEP_DV_ > 0;
+  static constexpr bool F16 = OPS_ == OPS_F16;        // f16 products (else bf16)
+  static constexpr bool HALF = OPS_ == OPS_BF16 || F16;   // 16-bit q, k and v
   static constexpr bool SPLIT_KV = OPS_ == OPS_F32;   // K, V as bf16 hi + lo
   static constexpr bool WIDE = D_ > 128;
   // V's and O's column slabs: 256 columns (128 for an f32 query, whose
@@ -252,7 +262,7 @@ struct Build {
   static constexpr int DV = DEEP ? DEEP_DV_ : D_ / SLABS;   // V's and O's columns a block
   static constexpr int THREADS = !WIDE ? 256 : SLAB && SPLIT_KV ? 64 : 128;  // 16 rows a warp
   // keys a step (one ring slot)
-  static constexpr int BK = !WIDE ? 64 : SLAB && (OPS_ != OPS_BF16 || RAGGED_) ? 16 : 32;
+  static constexpr int BK = !WIDE ? 64 : SLAB && (!HALF || RAGGED_) ? 16 : 32;
   static constexpr int QROWS = THREADS / 2;            // query rows a block
   static_assert(!DEEP || (D_ == 256 && RAGGED_), "a DEEP build: chunks of 256, any d");
   int dh;                                              // the operands' head dim
@@ -279,7 +289,13 @@ inline int copy_chunk(int dh) { return dh % 8 == 0 ? 8 : dh % 4 == 0 ? 4 : dh % 
 
 // q's and the output's element type
 template <class B>
-using QT = std::conditional_t<B::OPS == OPS_BF16, bf16, float>;
+using QT = std::conditional_t<B::OPS == OPS_BF16, bf16,
+                              std::conditional_t<B::F16, __half, float>>;
+// the products' element type: what the ring, Q's staging and P hold (f16
+// under OPS_F16, else bf16; shared memory and the copies are typed bf16,
+// as 16-bit words)
+template <class B>
+using ET = std::conditional_t<B::F16, __half, bf16>;
 
 // ---- asynchronous tile loads ---------------------------------------------
 // one ring slot: a step's keys of K and V (bf16, in the body's layout), their
@@ -520,8 +536,8 @@ __device__ void cold_slab_rows(int8_t* dst, const int8_t* src, long long row0, i
 }
 
 // a SLAB build's staged int8 rows of W bytes, n of them live, times s in
-// f32 and rounded to bf16 -> a slot's rows (a last chunk's columns from n
-// on as zeros)
+// f32 and rounded to the build's element type -> a slot's rows (a last
+// chunk's columns from n on as zeros)
 template <class B, int W>
 __device__ void dequant_slab_rows(bf16* dst, const int8_t* src, float s, int n, int tid,
                                   const B& bd) {
@@ -530,19 +546,19 @@ __device__ void dequant_slab_rows(bf16* dst, const int8_t* src, float s, int n, 
     if (B::RAGGED && c8 >= n) continue;
     const uint2 raw = *reinterpret_cast<const uint2*>(src + r * W + c8);
     const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-    __align__(16) bf16 o[8];
+    __align__(16) ET<B> o[8];
     const int m = bd.whole() ? 8 : min(8, n - c8);
     #pragma unroll
-    for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16_rn(t < m ? (float)e[t] * s : 0.f);
+    for (int t = 0; t < 8; ++t) o[t] = cs_from_float<ET<B>>(t < m ? (float)e[t] * s : 0.f);
     *reinterpret_cast<uint4*>(dst + PaddedRows<W>::at(r, c8)) = *reinterpret_cast<const uint4*>(o);
   }
 }
 
-// an int8 cold group beside a bf16 slab: page ids >= n_hot address cold
-// page id - n_hot, dequantised int8 x scale[page, kv head] in f32 and
-// rounded to bf16 (the plain version's gathered value).  A cold tile's
-// bytes are copied into the slot's staging area (fetch) and widened into
-// its bf16 rows once they landed (finish).
+// an int8 cold group beside a bf16 (or f16) slab: page ids >= n_hot
+// address cold page id - n_hot, dequantised int8 x scale[page, kv head] in
+// f32 and rounded to the slab's type (the plain version's gathered value).
+// A cold tile's bytes are copied into the slot's staging area (fetch) and
+// widened into its 16-bit rows once they landed (finish).
 struct ColdPages {
   const int8_t* k8;        // (n_cold * TILE, Hkv, d)
   const int8_t* v8;
@@ -641,12 +657,12 @@ struct ColdPages {
       const uint2 rv = *reinterpret_cast<const uint2*>(st.V8 + r * D + c8);
       const int8_t* ek = reinterpret_cast<const int8_t*>(&rk);
       const int8_t* ev = reinterpret_cast<const int8_t*>(&rv);
-      __align__(16) bf16 ok[8], ov[8];
+      __align__(16) ET<B> ok[8], ov[8];
       const int n = bd.whole() ? 8 : bd.live(c8);
       #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        ok[t] = __float2bfloat16_rn(t < n ? (float)ek[t] * ks : 0.f);
-        ov[t] = __float2bfloat16_rn(t < n ? (float)ev[t] * vs : 0.f);
+        ok[t] = cs_from_float<ET<B>>(t < n ? (float)ek[t] * ks : 0.f);
+        ov[t] = cs_from_float<ET<B>>(t < n ? (float)ev[t] * vs : 0.f);
       }
       *reinterpret_cast<uint4*>(st.K + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ok);
       *reinterpret_cast<uint4*>(st.V + PaddedRows<D>::at(r, c8)) = *reinterpret_cast<const uint4*>(ov);
@@ -929,7 +945,9 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   constexpr int DT = DV / 8;             // n8 tiles of O (odd at D 24)
   constexpr int KC = DK / 16;            // k16 chunks of Q K^T
   constexpr int KI_COPIES = BK / 16;
-  constexpr bool Q_F32 = B::OPS != OPS_BF16;
+  constexpr bool Q_F32 = std::is_same_v<QT<B>, float>;
+  constexpr bool F16 = B::F16;
+  using E = ET<B>;
   // the query's fragments stay in registers, unless they are split or the
   // build is WIDE: then each k16 step loads them from shared memory
   constexpr bool Q_REGS = !S::q && !B::WIDE;
@@ -1103,10 +1121,10 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   }
 
   if constexpr (!B::DEEP) {
-    // Q, times qscale in f32 and rounded to bf16 (split: and the rest, to
-    // its low half), while the first tiles are in flight (columns [d, DK)
-    // zeros); then each warp's fragments, unless they are split or WIDE
-    // (loaded each step)
+    // Q, times qscale in f32 and rounded to bf16 or f16 (split: and the
+    // rest, to its low half), while the first tiles are in flight
+    // (columns [d, DK) zeros); then each warp's fragments, unless they are
+    // split or WIDE (loaded each step)
     for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
       const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
       const bool in = r < n_rows && c8 < D && bd.col(c8);
@@ -1126,16 +1144,16 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
       } else {
         uint4 raw = make_uint4(0, 0, 0, 0);
         if (in) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+        const QT<B>* e = reinterpret_cast<const QT<B>*>(&raw);
         #pragma unroll
-        for (int t = 0; t < 8; ++t) x[t] = __bfloat162float(e[t]);
+        for (int t = 0; t < 8; ++t) x[t] = cs_to_float(e[t]);
       }
-      __align__(16) bf16 hi[8], lo[8];
+      __align__(16) E hi[8], lo[8];
       #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const float xs = x[t] * qscale;
-        hi[t] = __float2bfloat16_rn(xs);
-        if constexpr (S::q) lo[t] = __float2bfloat16_rn(xs - __bfloat162float(hi[t]));
+        hi[t] = cs_from_float<E>(xs);
+        if constexpr (S::q) lo[t] = cs_from_float<E>(xs - cs_to_float(hi[t]));
       }
       *reinterpret_cast<uint4*>(Qs + r * LDQ + c8) = *reinterpret_cast<const uint4*>(hi);
       if constexpr (S::q)
@@ -1197,16 +1215,16 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
               const int kcol = kc * 16 + ((lane >> 3) & 1) * 8;
               uint32_t kb[4];
               ldsm_x4(kb, st.K + PaddedRows<D>::at(kr, kcol));
-              mma16816(sc + 8 * np, qh, kb[0], kb[1]);
-              mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+              mma16816<F16>(sc + 8 * np, qh, kb[0], kb[1]);
+              mma16816<F16>(sc + 8 * np + 4, qh, kb[2], kb[3]);
               if constexpr (S::q) {
-                mma16816(sc + 8 * np, ql, kb[0], kb[1]);
-                mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
+                mma16816<F16>(sc + 8 * np, ql, kb[0], kb[1]);
+                mma16816<F16>(sc + 8 * np + 4, ql, kb[2], kb[3]);
               }
               if constexpr (S::kv) {
                 ldsm_x4(kb, st.Klo + PaddedRows<D>::at(kr, kcol));
-                mma16816(sc + 8 * np, qh, kb[0], kb[1]);
-                mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+                mma16816<F16>(sc + 8 * np, qh, kb[0], kb[1]);
+                mma16816<F16>(sc + 8 * np + 4, qh, kb[2], kb[3]);
               }
             }
           }
@@ -1241,16 +1259,16 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
             const int kcol = kc * 16 + ((lane >> 3) & 1) * 8;
             uint32_t kb[4];
             ldsm_x4(kb, st.K + PaddedRows<D>::at(kr, kcol));
-            mma16816(sc + 8 * np, qh, kb[0], kb[1]);
-            mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+            mma16816<F16>(sc + 8 * np, qh, kb[0], kb[1]);
+            mma16816<F16>(sc + 8 * np + 4, qh, kb[2], kb[3]);
             if constexpr (S::q) {
-              mma16816(sc + 8 * np, ql, kb[0], kb[1]);
-              mma16816(sc + 8 * np + 4, ql, kb[2], kb[3]);
+              mma16816<F16>(sc + 8 * np, ql, kb[0], kb[1]);
+              mma16816<F16>(sc + 8 * np + 4, ql, kb[2], kb[3]);
             }
             if constexpr (S::kv) {
               ldsm_x4(kb, st.Klo + PaddedRows<D>::at(kr, kcol));
-              mma16816(sc + 8 * np, qh, kb[0], kb[1]);
-              mma16816(sc + 8 * np + 4, qh, kb[2], kb[3]);
+              mma16816<F16>(sc + 8 * np, qh, kb[0], kb[1]);
+              mma16816<F16>(sc + 8 * np + 4, qh, kb[2], kb[3]);
             }
           }
         } else {
@@ -1259,8 +1277,8 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
             uint32_t kb[4];
             ldsm_x4(kb, st.K + PaddedRows<D>::at(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                                  kc * 16 + ((lane >> 3) & 1) * 8));
-            mma16816(sc + 8 * np, qf[kc], kb[0], kb[1]);
-            mma16816(sc + 8 * np + 4, qf[kc], kb[2], kb[3]);
+            mma16816<F16>(sc + 8 * np, qf[kc], kb[0], kb[1]);
+            mma16816<F16>(sc + 8 * np + 4, qf[kc], kb[2], kb[3]);
           }
         }
       }
@@ -1339,25 +1357,27 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     l1 = l1 * corr1 + sum1;
 
     // O += P V: the S accumulator of n8 tiles 2kk, 2kk + 1 is P's A
-    // fragment for keys 16kk.., rounded to bf16
+    // fragment for keys 16kk.., rounded to bf16 (f16)
     uint32_t pa[BK / 16][4];
     #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      pa[kk][0] = pack2<E>(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack2<E>(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack2<E>(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack2<E>(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
     #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      // split P: its second bf16 half for the same keys, lo = bf16(p - hi)
-      // (a bf16 widens to f32 by a 16-bit shift)
+      // split P: its second half for the same keys, lo = bf16(p - hi) (hi
+      // widened by integer ops: unpack_p2; f16: lo = f16(p - hi), which
+      // p <= 1 leaves within f16's subnormal step 2^-24 of p - hi)
       [[maybe_unused]] uint32_t pl[4];
       if constexpr (S::p) {
         #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          pl[i] = pack_bf16(sc[8 * kk + 2 * i] - __uint_as_float(pa[kk][i] << 16),
-                            sc[8 * kk + 2 * i + 1] - __uint_as_float(pa[kk][i] & 0xffff0000u));
+        for (int i = 0; i < 4; ++i) {
+          const float2 h = unpack_p2<E>(pa[kk][i]);
+          pl[i] = pack2<E>(sc[8 * kk + 2 * i] - h.x, sc[8 * kk + 2 * i + 1] - h.y);
+        }
       }
       #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
@@ -1365,27 +1385,27 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
         const int vcol = dp * 16 + (lane >> 4) * 8;
         uint32_t vb[4];
         ldsm_x4_t(vb, st.V + PaddedRows<DV>::at(vr, vcol));
-        mma16816(o + 8 * dp, pa[kk], vb[0], vb[1]);
-        mma16816(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
+        mma16816<F16>(o + 8 * dp, pa[kk], vb[0], vb[1]);
+        mma16816<F16>(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
         if constexpr (S::p) {
-          mma16816(o + 8 * dp, pl, vb[0], vb[1]);
-          mma16816(o + 8 * dp + 4, pl, vb[2], vb[3]);
+          mma16816<F16>(o + 8 * dp, pl, vb[0], vb[1]);
+          mma16816<F16>(o + 8 * dp + 4, pl, vb[2], vb[3]);
         }
         if constexpr (S::kv) {
           ldsm_x4_t(vb, st.Vlo + PaddedRows<DV>::at(vr, vcol));
-          mma16816(o + 8 * dp, pa[kk], vb[0], vb[1]);
-          mma16816(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
+          mma16816<F16>(o + 8 * dp, pa[kk], vb[0], vb[1]);
+          mma16816<F16>(o + 8 * dp + 4, pa[kk], vb[2], vb[3]);
         }
       }
       if constexpr (DT % 2 == 1) {   // D 24: the last n8 tile of O alone
         const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         uint32_t vb[2];
         ldsm_x2_t(vb, st.V + PaddedRows<DV>::at(vr, (DT - 1) * 8));
-        mma16816(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
-        if constexpr (S::p) mma16816(o + 4 * (DT - 1), pl, vb[0], vb[1]);
+        mma16816<F16>(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
+        if constexpr (S::p) mma16816<F16>(o + 4 * (DT - 1), pl, vb[0], vb[1]);
         if constexpr (S::kv) {
           ldsm_x2_t(vb, st.Vlo + PaddedRows<DV>::at(vr, (DT - 1) * 8));
-          mma16816(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
+          mma16816<F16>(o + 4 * (DT - 1), pa[kk], vb[0], vb[1]);
         }
       }
     }
@@ -1425,33 +1445,34 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     } else {
       if (r0 < n_rows)
         *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-            pack_bf16(o[4 * dn] * inv0, o[4 * dn + 1] * inv0);
+            pack2<QT<B>>(o[4 * dn] * inv0, o[4 * dn + 1] * inv0);
       if (r1 < n_rows)
         *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-            pack_bf16(o[4 * dn + 2] * inv1, o[4 * dn + 3] * inv1);
+            pack2<QT<B>>(o[4 * dn + 2] * inv1, o[4 * dn + 3] * inv1);
     }
   }
 }
 
-// the DEEP build's pre-pass: rows of d q elements (bf16 or f32) -> rows of
-// dq bf16 (d rounded up to Q K^T's k16 step), hi = bf16(x * qscale) and,
-// where lo is given, lo = bf16(x * qscale - hi), as the body's Q staging
-// rounds them; columns [d, dq) zeros.  A thread per 8 output columns.
-template <class T>
-__global__ void q_deep_kernel(const T* __restrict__ q, bf16* __restrict__ hi,
-                              bf16* __restrict__ lo, long long rows, int d, int dq,
+// the DEEP build's pre-pass: rows of d q elements (bf16, f16 or f32) ->
+// rows of dq E (bf16, or f16 for an f16 build; d rounded up to Q K^T's k16
+// step), hi = E(x * qscale) and, where lo is given, lo = E(x * qscale -
+// hi), as the body's Q staging rounds them; columns [d, dq) zeros.  A
+// thread per 8 output columns.
+template <class T, class E>
+__global__ void q_deep_kernel(const T* __restrict__ q, E* __restrict__ hi,
+                              E* __restrict__ lo, long long rows, int d, int dq,
                               float qscale) {
   const long long n = rows * (dq / 8);
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const long long r = i / (dq / 8);
     const int c8 = (int)(i % (dq / 8)) * 8;
-    __align__(16) bf16 h[8], l[8];
+    __align__(16) E h[8], l[8];
     #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const float xs = c8 + t < d ? cs_to_float(q[r * d + c8 + t]) * qscale : 0.f;
-      h[t] = __float2bfloat16_rn(xs);
-      l[t] = __float2bfloat16_rn(xs - __bfloat162float(h[t]));
+      h[t] = cs_from_float<E>(xs);
+      l[t] = cs_from_float<E>(xs - cs_to_float(h[t]));
     }
     *reinterpret_cast<uint4*>(hi + r * dq + c8) = *reinterpret_cast<const uint4*>(h);
     if (lo != nullptr)
@@ -1479,8 +1500,8 @@ int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, i
   if constexpr (B::DEEP) {
     const int dq = (dh + 15) / 16 * 16;
     const long long rows = (long long)Bn * Sq * H, n = rows * (dq / 8);
-    bf16* hi = (bf16*)q_scratch;
-    bf16* lo = Split<B, P>::q ? hi + rows * dq : nullptr;
+    ET<B>* hi = (ET<B>*)q_scratch;
+    ET<B>* lo = Split<B, P>::q ? hi + rows * dq : nullptr;
     const long long want = (n + 255) / 256;
     const int blocks = (int)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);
     q_deep_kernel<<<blocks, 256, 0, stream>>>((const QT<B>*)q, hi, lo, rows, dh, dq,
@@ -1515,7 +1536,8 @@ struct Exact {
 
 // any head dim d = 1, 2, ..., 256 on the smallest ragged build of
 // operand types OPS that holds it: 24, 32 (not for OPS_BF16, whose d 32
-// is exact: d 25-31 run on 64), 64, 128 or 256
+// is exact: d 25-31 run on 64), 64, 128 or 256 (attention_any.cu,
+// attention_q32.cu, attention_f16.cu and attention_f32.cu's f32 q/k/v)
 template <int OPS>
 struct Any {
   template <class P>
@@ -1539,8 +1561,10 @@ struct Any {
 
 // head dims d = 257, ..., 512 on the SLAB build of width 512 (two column
 // slabs of V and O over blocks): the exact build at d 512 for bf16
-// operands, the ragged one otherwise (attention_512.cu,
-// attention_q32_512.cu, and attention_f32.cu's f32 q/k/v)
+// operands (32-key steps; the ragged one takes 16), the ragged one
+// otherwise (attention_512.cu,
+// attention_q32_512.cu, attention_f16_512.cu, and attention_f32.cu's f32
+// q/k/v)
 template <int OPS>
 struct Any512 {
   template <class P>
@@ -1560,9 +1584,10 @@ struct Any512 {
 
 // head dims d past 512 on the DEEP build of operand types OPS (Q K^T over
 // depth chunks of 256 columns, ceil(d / DV) column slabs of V and O over
-// blocks): attention_deep.cu, attention_q32_deep.cu, and attention_f32.cu's
-// f32 q/k/v.  Slabs of 256 columns for bf16 operands in the refresh and
-// packed kernels; of 128 for an f32 query, f32 q/k/v and the prefill
+// blocks): attention_deep.cu, attention_q32_deep.cu, attention_f16_deep.cu,
+// and attention_f32.cu's f32 q/k/v.  Slabs of 256 columns for bf16 (and f16)
+// operands in the refresh and packed kernels; of 128 for an f32 query, f32
+// q/k/v and the prefill
 // kernels (EXACT: P split in two halves), whose split products pass 255
 // registers beside O's 128 with the depth chunks' loop.  q_scratch: Q's
 // pre-pass rows (launch_mma).
@@ -1574,7 +1599,7 @@ struct Deep {
                  int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
                  const void* k_lo = nullptr, const void* v_lo = nullptr) const {
     if (dh <= 512) return (int)cudaErrorInvalidValue;
-    constexpr int DV = OPS == OPS_BF16 && !P::EXACT ? 256 : 128;
+    constexpr int DV = (OPS == OPS_BF16 || OPS == OPS_F16) && !P::EXACT ? 256 : 128;
     return launch_mma<Build<256, true, OPS, DV>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale,
                                                  prob, stream, k_lo, v_lo, q_scratch);
   }
@@ -1582,12 +1607,13 @@ struct Deep {
 
 }  // namespace
 
-// The seven entry points, named cs_attn_<op>SUFFIX, each launching
-// through LAUNCH (Exact, Any<OPS> or Any512<OPS>; CS_ATTN_DEEP_EXPORTS:
-// Deep<OPS>, whose entry points take one more argument before the stream,
-// q_scratch: bf16, B x Sq x H rows of D rounded up to 16, twice for an f32
-// q).  q, out: (B, Sq, H, D) in the build's q type (bf16, or f32 for
-// OPS_Q32), any Sq; k, v bf16.
+// The seven entry points, named cs_attn_<op>SUFFIX (the f16 builds':
+// <op>_f16SUFFIX), each launching through LAUNCH (Exact, Any<OPS> or
+// Any512<OPS>; the DEEP exports: Deep<OPS>, whose entry points take one
+// more argument before the stream, q_scratch: 16-bit, B x Sq x H rows of
+// D rounded up to 16, twice for an f32 q).  q, out: (B, Sq, H, D) in the
+// build's q type (bf16, f16, or f32 for OPS_Q32), any Sq; k, v bf16 (f16
+// for OPS_F16).
 //
 // refresh: k, v (B, n_tiles * 128, Hkv, D) per-stream caches; q_pos:
 // (n_q_tiles * 128,) i32 (the map's, padded with -1); kv_valid: (B,
@@ -1608,12 +1634,19 @@ struct Deep {
 // prefill_paged: k, v (P_phys, Hkv, D) slab; pt: (B, n_pages) i32, the
 // logical keys [0, n_pages * 128).  Causal.  prefill_paged_int8: as
 // refresh_paged_int8's cold group.
-#define CS_ATTN_EXPORTS(SUFFIX, LAUNCH) CS_ATTN_EXPORTS_(SUFFIX, LAUNCH, , )
+#define CS_ATTN_EXPORTS(SUFFIX, LAUNCH) \
+  CS_ATTN_EXPORTS_(bf16##SUFFIX, int8##SUFFIX, LAUNCH, , )
 #define CS_ATTN_SCRATCH , void* q_scratch
 #define CS_ATTN_DEEP_EXPORTS(SUFFIX, OPS) \
-  CS_ATTN_EXPORTS_(SUFFIX, Deep<OPS>, CS_ATTN_SCRATCH, q_scratch)
-#define CS_ATTN_EXPORTS_(SUFFIX, LAUNCH, SCRATCH, ARG)                                    \
-  CS_EXPORT int cs_attn_refresh_bf16##SUFFIX(                                             \
+  CS_ATTN_EXPORTS_(bf16##SUFFIX, int8##SUFFIX, Deep<OPS>, CS_ATTN_SCRATCH, q_scratch)
+// the f16 builds' entry points: cs_attn_<op>_f16SUFFIX, the int8 ones
+// cs_attn_<op>_int8_f16SUFFIX (q, k, v and out f16; the hot slab f16)
+#define CS_ATTN_F16_EXPORTS(SUFFIX, LAUNCH) \
+  CS_ATTN_EXPORTS_(f16##SUFFIX, int8_f16##SUFFIX, LAUNCH, , )
+#define CS_ATTN_F16_DEEP_EXPORTS(SUFFIX) \
+  CS_ATTN_EXPORTS_(f16##SUFFIX, int8_f16##SUFFIX, Deep<OPS_F16>, CS_ATTN_SCRATCH, q_scratch)
+#define CS_ATTN_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG)                                 \
+  CS_EXPORT int cs_attn_refresh_##HOT(                                                    \
       const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
       const uint8_t* kv_valid, const int* tile_ids, const int* tile_count, int B,         \
       int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal, int window,      \
@@ -1621,7 +1654,7 @@ struct Deep {
     Refresh prob{{q_pos, kv_valid, tile_ids, tile_count, n_tiles, t_max, causal, window}}; \
     return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
   }                                                                                       \
-  CS_EXPORT int cs_attn_refresh_paged_bf16##SUFFIX(                                       \
+  CS_EXPORT int cs_attn_refresh_paged_##HOT(                                              \
       const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
       const uint8_t* kv_valid, const int* pt, const int* tile_ids,                        \
       const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,           \
@@ -1630,7 +1663,7 @@ struct Deep {
         {q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt};     \
     return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
   }                                                                                       \
-  CS_EXPORT int cs_attn_refresh_paged_int8##SUFFIX(                                       \
+  CS_EXPORT int cs_attn_refresh_paged_##COLD(                                             \
       const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
       const uint8_t* kv_valid, const int* pt, const int* tile_ids,                        \
       const int* tile_count, const int8_t* k8, const int8_t* v8,                          \
@@ -1642,28 +1675,28 @@ struct Deep {
         {k8, v8, k_scale, v_scale, n_hot}};                                               \
     return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
   }                                                                                       \
-  CS_EXPORT int cs_attn_packed_bf16##SUFFIX(                                              \
+  CS_EXPORT int cs_attn_packed_##HOT(                                                     \
       const void* q, const void* k, const void* v, void* out, const int* span,            \
       const int* tile_ids, const int* tile_count, int R, int L, int H, int Hkv, int D,    \
       int t_max, float scale SCRATCH, cudaStream_t stream) {                              \
     Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};                          \
     return LAUNCH{ARG}(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);               \
   }                                                                                       \
-  CS_EXPORT int cs_attn_prefill_bf16##SUFFIX(                                             \
+  CS_EXPORT int cs_attn_prefill_##HOT(                                                    \
       const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,      \
       int H, int Hkv, int D, int q_offset, int causal, int window, float scale SCRATCH,   \
       cudaStream_t stream) {                                                              \
     Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};             \
     return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
   }                                                                                       \
-  CS_EXPORT int cs_attn_prefill_paged_bf16##SUFFIX(                                       \
+  CS_EXPORT int cs_attn_prefill_paged_##HOT(                                              \
       const void* q, const void* k, const void* v, void* out, const int* pt, int B,       \
       int Sq, int H, int Hkv, int D, int n_pages, int q_offset, int window, float scale SCRATCH, \
       cudaStream_t stream) {                                                              \
     PrefillPaged prob{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt};            \
     return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
   }                                                                                       \
-  CS_EXPORT int cs_attn_prefill_paged_int8##SUFFIX(                                       \
+  CS_EXPORT int cs_attn_prefill_paged_##COLD(                                             \
       const void* q, const void* k, const void* v, void* out, const int* pt,              \
       const int8_t* k8, const int8_t* v8, const float* k_scale, const float* v_scale,     \
       int n_hot, int B, int Sq, int H, int Hkv, int D, int n_pages, int q_offset,         \

@@ -5,10 +5,10 @@
 // angle of a (token, rotation pair) is the same for every kv head.
 //
 // A thread owns one token and one chunk of CH rotation pairs: W bytes of
-// each half of a head, the widest of 16, 8, 4 (and 2 in bf16) that half
-// the head dim holds a whole number of, so every chunk is aligned (8 bf16
-// or 4 f32 pairs at 16 bytes; 4 bf16, 8 bytes, at D 24; one pair, 2 bytes
-// in bf16 or 4 in f32, at an odd half, as at D 90).  It builds the
+// each half of a head, the widest of 16, 8, 4 (and 2 in bf16 and f16) that
+// half the head dim holds a whole number of, so every chunk is aligned (8
+// bf16 or f16 or 4 f32 pairs at 16 bytes; 4 bf16, 8 bytes, at D 24; one
+// pair, 2 bytes in bf16 or f16 or 4 in f32, at an odd half, as at D 90).  It builds the
 // chunk's CH angles delta * freq[p] once in f32, from the plain version's
 // own inverse frequencies theta^(-p/half), which the wrapper hands over (a
 // powf here differed from them by an ulp at some head dims, as at D 320:
@@ -90,8 +90,9 @@ int launch(const void* k, const int* delta, void* out, long long n_tok, int n_kv
 
 // k, out: (n_tok, n_kv, d_h) contiguous, 16-byte aligned, d_h even;
 // delta: (n_tok,) i32; inv_freq: (d_h / 2,) f32, theta^(-p / (d_h / 2)).
-// dtype: 0 = float32, 1 = bfloat16 (chunks as above: 16 bytes where half
-// is a multiple of 8 bf16 or 4 f32 pairs).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (chunks as above: 16 bytes
+// where half is a multiple of 8 bf16 or f16 or 4 f32 pairs).  The rotation
+// runs in f32 and is rounded once to the key's dtype.
 CS_EXPORT int cs_rope_shift(const void* k, const int* delta, void* out,
                             long long n_tok, int n_kv, int d_h, const float* inv_freq,
                             int dtype, cudaStream_t stream) {
@@ -107,6 +108,11 @@ CS_EXPORT int cs_rope_shift(const void* k, const int* delta, void* out,
            : half % 4 == 0 ? CS_ROPE(__nv_bfloat16, 8)
            : half % 2 == 0 ? CS_ROPE(__nv_bfloat16, 4)
                            : CS_ROPE(__nv_bfloat16, 2);
+  if (dtype == 2)
+    return half % 8 == 0   ? CS_ROPE(__half, 16)
+           : half % 4 == 0 ? CS_ROPE(__half, 8)
+           : half % 2 == 0 ? CS_ROPE(__half, 4)
+                           : CS_ROPE(__half, 2);
 #undef CS_ROPE
   return (int)cudaErrorInvalidValue;
 }

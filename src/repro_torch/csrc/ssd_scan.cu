@@ -60,7 +60,7 @@ CS_EXPORT int cs_ssd_scan_bwd(const void* x, const float* log_a, const void* b,
                               int xp, int nst, long long xlo, long long blo, int flags, int mode,
                               cudaStream_t stream) {
   if (bad_geometry(Q, G, H, P) || !is_build(N) || P % 8 != 0 || mode != FAST || nst != N ||
-      (flags & (OUT_F32 | OUT_BC_F32)))
+      (flags & (OUT_F32 | OUT_BC_F32 | OUT_F16 | OUT_BC_F16)))
     return (int)cudaErrorInvalidValue;
   const ScanArgs a{B, L, H, P, G, Q, sxb, sxl, sab, sal, sbb, sbl, P, N, 0, 0, flags};
   return launch_bwd_n<FAST>(N, x, log_a, b, c, states, dy, dfin, dx, dla, db, dc, dinit, part,

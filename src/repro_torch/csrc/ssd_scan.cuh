@@ -127,9 +127,13 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-// one value of y or dX into the caller's f32 or bf16 array
-__device__ __forceinline__ void put_out(void* out, long long i, float v, bool f32) {
-  if (f32) reinterpret_cast<float*>(out)[i] = v;
+// an output's element type (y, dX, dB and dC, dlog_a: ScanArgs.flags)
+enum : int { OT_BF16 = 0, OT_F32 = 1, OT_F16 = 2 };
+
+// one value into the caller's array of type ot
+__device__ __forceinline__ void put_out(void* out, long long i, float v, int ot) {
+  if (ot == OT_F32) reinterpret_cast<float*>(out)[i] = v;
+  else if (ot == OT_F16) reinterpret_cast<__half*>(out)[i] = __float2half_rn(v);
   else reinterpret_cast<bf16*>(out)[i] = __float2bfloat16_rn(v);
 }
 
@@ -148,7 +152,7 @@ __device__ __forceinline__ void load_frag(uint32_t (&f)[4], const bf16* base, lo
 // The forward.  Past FAST's arguments: xp, x's head pitch (Pp when
 // staged); nst, the state's true width (the final state's row pitch);
 // xlo and blo, the element offsets of x's and b's / c's lo halves
-// (SPLIT); yf32, y is f32 (else bf16: y's type below).  NS 0: the
+// (SPLIT); yt, y's type (OT_*; bf16 in FAST: y's type below).  NS 0: the
 // slabbed build (see above), N the slab's width and nsl the slab count
 // (else NS 1 and nsl unused); y is then the f32 partials.
 template <int N, int MODE, int NS = 1>
@@ -159,7 +163,7 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                 float* __restrict__ st, float* __restrict__ cst, int L, int H, int P, int G, int Q,
                 long long sxb, long long sxl, long long sab, long long sal,
                 long long sbb, long long sbl, int xp, int nst, long long xlo, long long blo,
-                int yf32, int nsl) {
+                int yt, int nsl) {
   using Sm = SsdSmem<N, MODE>;
   constexpr int LDB = Sm::LDB, LDX = Sm::LDX, LDF = Sm::LDF;
   const int ns_n = NS ? NS : nsl;   // column slabs
@@ -428,17 +432,17 @@ ssd_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
           }
         }
       } else {   // per element, in y's dtype (f32 partials past one slab), masked at a ragged P
-        const bool f32 = NS != 1 || yf32;
+        const int ot = NS != 1 ? OT_F32 : yt;
         #pragma unroll
         for (int n = 0; n < YT; ++n) {
           const int c = n * 8 + 2 * t4;
           const long long yo = (long long)bb * L * ystep + ((long long)h * ns_n + ns) * P + p0;
           const long long ra = yo + (long long)(t0 + ta) * ystep + c;
           const long long rb = yo + (long long)(t0 + tb) * ystep + c;
-          if (ta < q && c < prow) put_out(y, ra, acc[4 * n], f32);
-          if (ta < q && c + 1 < prow) put_out(y, ra + 1, acc[4 * n + 1], f32);
-          if (tb < q && c < prow) put_out(y, rb, acc[4 * n + 2], f32);
-          if (tb < q && c + 1 < prow) put_out(y, rb + 1, acc[4 * n + 3], f32);
+          if (ta < q && c < prow) put_out(y, ra, acc[4 * n], ot);
+          if (ta < q && c + 1 < prow) put_out(y, ra + 1, acc[4 * n + 1], ot);
+          if (tb < q && c < prow) put_out(y, rb, acc[4 * n + 2], ot);
+          if (tb < q && c + 1 < prow) put_out(y, rb + 1, acc[4 * n + 3], ot);
         }
       }
     }
@@ -573,6 +577,13 @@ struct ScanArgs {
 constexpr int OUT_F32 = 1;       // y, or dX, is f32 (else bf16)
 constexpr int OUT_BC_F32 = 2;    // dB and dC are f32 (else bf16)
 constexpr int OUT_LA_BF16 = 4;   // dlog_a is bf16 (else f32)
+constexpr int OUT_F16 = 8;       // y, or dX, is f16 (staged builds)
+constexpr int OUT_BC_F16 = 16;   // dB and dC are f16
+constexpr int OUT_LA_F16 = 32;   // dlog_a is f16
+// the outputs' types (OT_*) from the flags: y or dX, dB and dC, dlog_a
+inline int y_type(int f) { return f & OUT_F32 ? OT_F32 : f & OUT_F16 ? OT_F16 : OT_BF16; }
+inline int bc_type(int f) { return f & OUT_BC_F32 ? OT_F32 : f & OUT_BC_F16 ? OT_F16 : OT_BF16; }
+inline int la_type(int f) { return f & OUT_LA_BF16 ? OT_BF16 : f & OUT_LA_F16 ? OT_F16 : OT_F32; }
 
 // a kernel's opt-in to `bytes` of dynamic shared memory, once per device
 // (the attribute belongs to the function, not to the launch)
@@ -591,10 +602,9 @@ int opt_in(F* kernel, std::atomic<unsigned long long>& opted, size_t bytes) {
 }
 
 // out[i, j] = sum over k, in order, of part[i, k, j] (f32 partials of J
-// columns; the first Jo of them out), as bf16 (out_bf) or f32 (out_f)
-__device__ __forceinline__ void sum_rows(const float* __restrict__ part, bf16* __restrict__ out_bf,
-                                         float* __restrict__ out_f, long long I, int K, int J,
-                                         int Jo) {
+// columns; the first Jo of them out), in out's type ot
+__device__ __forceinline__ void sum_rows(const float* __restrict__ part, void* __restrict__ out,
+                                         int ot, long long I, int K, int J, int Jo) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= I * Jo) return;
   const long long row = i / Jo;
@@ -602,32 +612,29 @@ __device__ __forceinline__ void sum_rows(const float* __restrict__ part, bf16* _
   const float* src = part + row * K * J + j;
   float sum = 0.f;
   for (int k = 0; k < K; ++k) sum += src[(long long)k * J];
-  if (out_bf != nullptr) out_bf[i] = __float2bfloat16_rn(sum);
-  else out_f[i] = sum;
+  put_out(out, i, sum, ot);
 }
 
 // the backward's sums (dB, dC, dX and dlog_a partials)
-__global__ void sum_mid_kernel(const float* __restrict__ part, bf16* __restrict__ out_bf,
-                               float* __restrict__ out_f, long long I, int K, int J, int Jo) {
-  sum_rows(part, out_bf, out_f, I, K, J, Jo);
+__global__ void sum_mid_kernel(const float* __restrict__ part, void* __restrict__ out, int ot,
+                               long long I, int K, int J, int Jo) {
+  sum_rows(part, out, ot, I, K, J, Jo);
 }
 
 // the forward's: y's partials per column slab of the slabbed build (a name
 // of its own, so a profile counts it with the forward)
-__global__ void ssd_scan_fwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out_bf,
-                                        float* __restrict__ out_f, long long I, int K, int J,
-                                        int Jo) {
-  sum_rows(part, out_bf, out_f, I, K, J, Jo);
+__global__ void ssd_scan_fwd_sum_kernel(const float* __restrict__ part, void* __restrict__ out,
+                                        int ot, long long I, int K, int J, int Jo) {
+  sum_rows(part, out, ot, I, K, J, Jo);
 }
 
-// the sum into `out`, bf16 or (f32) f32, by the backward's kernel or
-// (fwd) the forward's
-int sum_mid(const float* part, void* out, bool f32, long long I, int K, int J, int Jo,
+// the sum into `out` of type ot (OT_*), by the backward's kernel or (fwd)
+// the forward's
+int sum_mid(const float* part, void* out, int ot, long long I, int K, int J, int Jo,
             cudaStream_t stream, bool fwd = false) {
   const long long n = I * Jo;
   auto* kernel = fwd ? ssd_scan_fwd_sum_kernel : sum_mid_kernel;
-  kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
-      part, f32 ? nullptr : (bf16*)out, f32 ? (float*)out : nullptr, I, K, J, Jo);
+  kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(part, out, ot, I, K, J, Jo);
   return (int)cudaGetLastError();
 }
 
@@ -656,11 +663,11 @@ int launch(const void* x, const float* log_a, const void* b, const void* c, cons
   ssd_scan_kernel<N, MODE, NS><<<grid, NT, smem, stream>>>(
       (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, init,
       (bf16*)(NS != 1 ? (void*)ypart : y), st, cst, a.L, a.H, a.P, a.G, a.Q, a.sxb, a.sxl,
-      a.sab, a.sal, a.sbb, a.sbl, a.xp, a.nst, a.xlo, a.blo, a.flags & OUT_F32, ns);
+      a.sab, a.sal, a.sbb, a.sbl, a.xp, a.nst, a.xlo, a.blo, y_type(a.flags), ns);
   const int err = (int)cudaGetLastError();
   if (err != 0 || NS == 1) return err;
   // y: the slabs' partials in slab order, in y's dtype
-  return sum_mid(ypart, y, a.flags & OUT_F32, (long long)a.B * a.L * a.H, ns, a.P, a.P, stream,
+  return sum_mid(ypart, y, y_type(a.flags), (long long)a.B * a.L * a.H, ns, a.P, a.P, stream,
                  true);
 }
 
@@ -1124,7 +1131,7 @@ __device__ __forceinline__ void stage_states(bf16* st, const float* src, const f
 
 // (c): see the note above.  Block (chunk k x P slab x column slab, head
 // block, b).  Past FAST's arguments: xp, x's and dY's head pitch; xlo
-// and blo, the lo halves' element offsets (SPLIT); dxf32, dX is f32
+// and blo, the lo halves' element offsets (SPLIT); dxt, dX's type (OT_*)
 // (else bf16).  NS 0 (nsl column slabs): dxv is dX's f32 partials, dl
 // holds nps x nsl partials a row.
 template <int N, int MODE, int NS = 1>
@@ -1136,7 +1143,7 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                     float* __restrict__ dbp, float* __restrict__ dcp, float* __restrict__ dl,
                     int L, int H, int P, int G, int Q, int nps, int hb, long long sxb,
                     long long sxl, long long sab, long long sal, long long sbb, long long sbl,
-                    int xp, long long xlo, long long blo, int dxf32, int nsl) {
+                    int xp, long long xlo, long long blo, int dxt, int nsl) {
   using Sm = BwdSmem<N, MODE>;
   constexpr int LDN = Sm::LDN, LDP = Sm::LDP, PB = Sm::SB, HB_MAX = Sm::HB;
   constexpr bool SP = MODE == SPLIT;
@@ -1623,10 +1630,10 @@ ssd_scan_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
           if (c >= pc) break;
           const long long oa = dxo + (long long)hh * P + (long long)sa * ostep + c;
           const long long ob = dxo + (long long)hh * P + (long long)sb * ostep + c;
-          if (sa < q) put_out(dxv, oa, ax[j][0], dxf32);
-          if (sa < q && c + 1 < pc) put_out(dxv, oa + 1, ax[j][1], dxf32);
-          if (sb < q) put_out(dxv, ob, ax[j][2], dxf32);
-          if (sb < q && c + 1 < pc) put_out(dxv, ob + 1, ax[j][3], dxf32);
+          if (sa < q) put_out(dxv, oa, ax[j][0], dxt);
+          if (sa < q && c + 1 < pc) put_out(dxv, oa + 1, ax[j][1], dxt);
+          if (sb < q) put_out(dxv, ob, ax[j][2], dxt);
+          if (sb < q && c + 1 < pc) put_out(dxv, ob + 1, ax[j][3], dxt);
         }
       }
       ka = quad_sum(ka);
@@ -1737,7 +1744,7 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
   float* dxp = dcp + n_part;
   // dlog_a straight out when it is f32 and one block's slab holds P and
   // N, else its partials per slab into lpart, summed below
-  const bool la_direct = nps * ns == 1 && !(a.flags & OUT_LA_BF16);
+  const bool la_direct = nps * ns == 1 && la_type(a.flags) == OT_F32;
   float* dl = la_direct ? (float*)dla : lpart;
   ssd_scan_bwd_chunk_kernel<NC, MODE, NS><<<dim3(nc * nps_a * ns, H, B), NT,
                                             ChunkSmem<NC, MODE>(rows).bytes, stream>>>(
@@ -1756,19 +1763,19 @@ int launch_bwd(const void* x, const float* log_a, const void* b, const void* c,
                                       BwdSmem<NC, MODE>(rows).bytes, stream>>>(
       (const bf16*)x, log_a, (const bf16*)b, (const bf16*)c, states, (const bf16*)dy, dsc,
       NS != 1 ? (void*)dxp : dx, dbp, dcp, dl, L, H, P, G, Q, nps, hb, a.sxb, a.sxl, a.sab,
-      a.sal, a.sbb, a.sbl, a.xp, a.xlo, a.blo, a.flags & OUT_F32, ns);
+      a.sal, a.sbb, a.sbl, a.xp, a.xlo, a.blo, y_type(a.flags), ns);
   if ((rc = (int)cudaGetLastError()) != 0) return rc;
   // dB and dC: the head blocks of each group and the P slabs, in that
   // order, at the true width; dX: the column slabs, in order
   const long long n_rows = (long long)B * L * G;
   const int per = (H / G / hb) * nps;
-  const bool bc32 = a.flags & OUT_BC_F32;
-  if ((rc = sum_mid(dbp, db, bc32, n_rows, per, N, a.nst, stream)) != 0) return rc;
-  if ((rc = sum_mid(dcp, dc, bc32, n_rows, per, N, a.nst, stream)) != 0) return rc;
-  if (NS != 1 && (rc = sum_mid(dxp, dx, a.flags & OUT_F32, (long long)B * L * H, ns, P, P,
+  const int bct = bc_type(a.flags);
+  if ((rc = sum_mid(dbp, db, bct, n_rows, per, N, a.nst, stream)) != 0) return rc;
+  if ((rc = sum_mid(dcp, dc, bct, n_rows, per, N, a.nst, stream)) != 0) return rc;
+  if (NS != 1 && (rc = sum_mid(dxp, dx, y_type(a.flags), (long long)B * L * H, ns, P, P,
                                stream)) != 0)
     return rc;
-  return la_direct ? 0 : sum_mid(lpart, dla, !(a.flags & OUT_LA_BF16), (long long)B * L * H,
+  return la_direct ? 0 : sum_mid(lpart, dla, la_type(a.flags), (long long)B * L * H,
                                  nps * ns, 1, 1, stream);
 }
 

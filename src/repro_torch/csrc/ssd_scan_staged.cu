@@ -1,15 +1,20 @@
 // The scan's staged builds (ssd_scan.cuh, mode SPLIT): every operand the
-// reference's scan takes that the bf16 builds do not read in place, f16
-// apart.  ssd_stage_kernel copies it, through its four strides, into a
-// packed scratch that the kernels read as they read bf16 in place: x and
-// dY (B, L, H, Pp), Pp = P rounded up to 8; b and c (B, L, G, N) on the
-// build N, the next of 16, 32, 64 and 128 up from the true width, or
-// past 128 the next multiple of 128 (the slabbed build);
-// columns past the true width zero.  Data is written as bf16 hi and lo
+// reference's scan takes that the bf16 builds do not read in place.
+// ssd_stage_kernel copies it, through its four strides, into a packed
+// scratch that the kernels read as they read bf16 in place: x and dY (B,
+// L, H, Pp), Pp = P rounded up to 8; b and c (B, L, G, N) on the build N,
+// the next of 16, 32, 64 and 128 up from the true width, or past 128 the
+// next multiple of 128 (the slabbed build); columns past the true width
+// zero.  Data is written as bf16 hi and lo
 // halves, which keep about 16 bits of f32 data through the tensor-core
-// products (a bf16 value's lo half is 0).  The same kernel
-// widens a bf16 or strided log_a to packed f32 and copies an init_state
-// the kernel does not read in place to (B, H, P, N) f32.  The pass reads
+// products (a bf16 value's lo half is 0).  An f16 value is exactly its
+// bf16 hi + lo: 11 significant bits, and an exponent range inside bf16's
+// (its subnormals too), so f16 operands reach the products exactly, and
+// the staged kernels compute on them what they compute on the same values
+// in f32 (no f16 scan body: a chunk's decay factors exp(cum) fall far
+// below f16's smallest normal, 6.1e-5).  The same kernel widens a bf16,
+// f16 or strided log_a to packed f32 and copies an init_state the kernel
+// does not read in place to (B, H, P, N) f32.  The pass reads
 // each staged operand once and writes it once (twice the bf16 bytes in
 // SPLIT); y, dX, dB, dC, dlog_a and the states are written straight into
 // the caller's dtype and layout by the kernels.
@@ -17,10 +22,10 @@
 
 namespace {
 
-// src (d0, d1, d2, d3) f32 or bf16 at strides s0..s3 -> dst (d0, d1, d2,
-// W) packed, columns from d3 on zero: split, bf16 hi with its lo half at
-// dst + lo_off; else f32
-__global__ void ssd_stage_kernel(const void* __restrict__ src, int src_f32, int d1, int d2,
+// src (d0, d1, d2, d3) of type src_type (0 bf16, 1 f32, 2 f16) at strides
+// s0..s3 -> dst (d0, d1, d2, W) packed, columns from d3 on zero: split,
+// bf16 hi with its lo half at dst + lo_off; else f32
+__global__ void ssd_stage_kernel(const void* __restrict__ src, int src_type, int d1, int d2,
                                  int d3, long long s0, long long s1, long long s2, long long s3,
                                  void* __restrict__ dst, int W, int split, long long lo_off,
                                  long long n) {
@@ -35,8 +40,9 @@ __global__ void ssd_stage_kernel(const void* __restrict__ src, int src_f32, int 
     float v = 0.f;
     if (col < d3) {
       const long long off = i0 * s0 + i1 * s1 + i2 * s2 + col * s3;
-      v = src_f32 ? reinterpret_cast<const float*>(src)[off]
-                  : __bfloat162float(reinterpret_cast<const bf16*>(src)[off]);
+      v = src_type == 1   ? reinterpret_cast<const float*>(src)[off]
+          : src_type == 2 ? __half2float(reinterpret_cast<const __half*>(src)[off])
+                          : __bfloat162float(reinterpret_cast<const bf16*>(src)[off]);
     }
     if (split) {
       const bf16 h = __float2bfloat16_rn(v);
@@ -56,7 +62,7 @@ bool bad_geometry(int Q, int G, int H, int P, int N, int nst, int xp) {
 }  // namespace
 
 // Stage one operand (see ssd_stage_kernel); n = d0 d1 d2 W elements out.
-CS_EXPORT int cs_ssd_stage(const void* src, int src_f32, long long d0, int d1, int d2, int d3,
+CS_EXPORT int cs_ssd_stage(const void* src, int src_type, long long d0, int d1, int d2, int d3,
                            long long s0, long long s1, long long s2, long long s3, void* dst,
                            int W, int split, long long lo_off, cudaStream_t stream) {
   if (d1 < 1 || d2 < 1 || d3 < 1 || W < d3) return (int)cudaErrorInvalidValue;
@@ -64,7 +70,7 @@ CS_EXPORT int cs_ssd_stage(const void* src, int src_f32, long long d0, int d1, i
   if (n == 0) return 0;
   const long long want = (n + 255) / 256;
   const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);   // grid-stride past 8 a SM
-  ssd_stage_kernel<<<blocks, 256, 0, stream>>>(src, src_f32, d1, d2, d3, s0, s1, s2, s3, dst, W,
+  ssd_stage_kernel<<<blocks, 256, 0, stream>>>(src, src_type, d1, d2, d3, s0, s1, s2, s3, dst, W,
                                                split, lo_off, n);
   return (int)cudaGetLastError();
 }
@@ -73,7 +79,8 @@ CS_EXPORT int cs_ssd_stage(const void* src, int src_f32, long long d0, int d1, i
 // N) bf16 at the strides given (packed), with their lo halves xlo and blo
 // elements on (mode 1, SPLIT); N the build, nst <= N the true width
 // (st is (B, H, P, nst)); init (B, H, P, N) f32 contiguous or null; y
-// (B, L, H, P) contiguous, f32 with OUT_F32 in flags, else bf16; ypart as
+// (B, L, H, P) contiguous, f32 with OUT_F32 in flags, f16 with OUT_F16,
+// else bf16; ypart as
 // cs_ssd_scan's.
 CS_EXPORT int cs_ssd_scan_staged(const void* x, const float* log_a, const void* b,
                                  const void* c, const float* init, void* y, float* st, float* cst,
@@ -90,9 +97,10 @@ CS_EXPORT int cs_ssd_scan_staged(const void* x, const float* log_a, const void* 
 }
 
 // As cs_ssd_scan_bwd on staged operands (dy staged as x is, at its
-// strides); dx in x's layout (B, L, H, P), f32 with OUT_F32; db and dc
-// (B, L, G, nst), f32 with OUT_BC_F32; dla f32, or bf16 with
-// OUT_LA_BF16; dfin and dinit (B, H, P, nst) f32.  part and lpart as
+// strides); dx in x's layout (B, L, H, P), f32 with OUT_F32, f16 with
+// OUT_F16; db and dc (B, L, G, nst), f32 with OUT_BC_F32, f16 with
+// OUT_BC_F16; dla f32, or bf16 with OUT_LA_BF16, f16 with OUT_LA_F16;
+// dfin and dinit (B, H, P, nst) f32.  part and lpart as
 // kernels/ssd_scan.py:bwd_launch_geometry lays them out for SPLIT (one
 // head a block, P slabs of 32, 16 at N 128 and past it).
 CS_EXPORT int cs_ssd_scan_bwd_staged(const void* x, const float* log_a, const void* b,

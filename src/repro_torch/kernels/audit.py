@@ -53,7 +53,7 @@ from .flash_packed import build_pack_map
 from .flash_refresh import build_block_map
 from .ssd_scan import chunk_count
 
-BF16, F32, I32 = torch.bfloat16, torch.float32, torch.int32
+BF16, F32, F16, I32 = torch.bfloat16, torch.float32, torch.float16, torch.int32
 KV_TILE = 128          # AttentionPrefill's cache rounding
 PAGE = 128
 MAX_NEW_TOKENS = 16
@@ -257,17 +257,20 @@ def _paged_prefill_rows() -> List[AuditRow]:
 def _prefill_rows() -> List[AuditRow]:
     """The reference's f32 prefill rows and their bf16 twins, ragged
     lengths included, which reach the kernel (f32 q/k/v as bf16 halves),
-    and an f16 row, which 'kernel-dtype' refuses (no f16 build)."""
+    an f16 row, which reaches the f16 build, and an f16 query over bf16
+    K/V, which 'kernel-dtype' refuses (no build mixes them)."""
     rows = []
     H, Hkv, D = ATTN["H"], ATTN["Hkv"], ATTN["D"]
     for B, Sq, Sk, sw in ((2, 256, 256, None), (1, 512, 512, 4096), (1, 128, 384, None),
                           (1, 192, 256, None), (1, 256, 200, None)):
-        for dt, expect in ((F32, "kernel"), (BF16, "kernel")) + (
-                ((torch.float16, "refused:kernel-dtype"),) if Sq == 192 else ()):
-            q, k = _meta((B, Sq, H, D), dt), _meta((B, Sk, Hkv, D), dt)
+        for dt, kv_dt, expect in ((F32, F32, "kernel"), (BF16, BF16, "kernel")) + (
+                ((F16, F16, "kernel"), (F16, BF16, "refused:kernel-dtype"))
+                if Sq == 192 else ()):
+            q, k = _meta((B, Sq, H, D), dt), _meta((B, Sk, Hkv, D), kv_dt)
             facts = contracts.flash_prefill_facts(q, k, k, causal=True, window=sw, q_offset=0)
+            kind = str(dt)[6:] if dt == kv_dt else f"{str(dt)[6:]} q over {str(kv_dt)[6:]} k/v"
             rows.append(_run_one(
-                "flash_prefill", f"B={B} Sq={Sq} Sk={Sk} sw={sw} {str(dt)[6:]}", expect, facts,
+                "flash_prefill", f"B={B} Sq={Sq} Sk={Sk} sw={sw} {kind}", expect, facts,
                 lambda q=q, k=k, sw=sw: ops.flash_prefill(q, k, k, window=sw), (B, Sq, H, D)))
     return rows
 
@@ -278,7 +281,8 @@ def _width_rows() -> List[AuditRow]:
     build; 20, 90 and a ViT's 75, which are not multiples of 8; 320, 500
     and 300 on the SLAB D-512 one; 520, 1000, 1023 and 1024 on the DEEP
     one), the exact 256 (Gemma 2's heads) and 512, with bf16 and f32
-    queries over a bf16 slab and f32 q/k/v in the packed ViT."""
+    queries over a bf16 slab, f32 and f16 q/k/v in the packed ViT, and an
+    f16 query over bf16 K/V there, which 'kernel-dtype' refuses."""
     rows = []
     lay, sw = LAYOUTS[2]
     slots = _slots(lay)
@@ -301,15 +305,20 @@ def _width_rows() -> List[AuditRow]:
             (B, bm.n_q, H, D)))
     plan = pack_plan(synthetic_decision(ViTCfg(), 12, 64, 0.5, seed=3), ViTCfg(), tile=128)
     R, L = plan.seg_id.shape
-    for D, dt, expect in ((16, F32, "kernel"), (72, F32, "kernel"), (256, F32, "kernel"),
-                          (75, BF16, "kernel"), (512, BF16, "kernel"), (300, F32, "kernel"),
-                          (1024, BF16, "kernel"), (1000, F32, "kernel"),
-                          (64, torch.float16, "refused:kernel-dtype")):
-        q, seg = _meta((R, L, 4, D), dt), _meta((R, L), I32)
+    for D, dt, kv_dt, expect in (
+            (16, F32, F32, "kernel"), (72, F32, F32, "kernel"), (256, F32, F32, "kernel"),
+            (75, BF16, BF16, "kernel"), (512, BF16, BF16, "kernel"), (300, F32, F32, "kernel"),
+            (1024, BF16, BF16, "kernel"), (1000, F32, F32, "kernel"), (64, F16, F16, "kernel"),
+            (90, F16, F16, "kernel"), (1024, F16, F16, "kernel"),
+            (64, F16, BF16, "refused:kernel-dtype")):
+        q, k, seg = _meta((R, L, 4, D), dt), _meta((R, L, 4, D), kv_dt), _meta((R, L), I32)
+        kind = (f"{str(dt)[6:]} q/k/v" if dt == kv_dt
+                else f"{str(dt)[6:]} q over {str(kv_dt)[6:]} k/v")
         rows.append(_run_one(
-            "flash_packed", f"ViT D {D} {str(dt)[6:]} q/k/v, rows={R} L={L}", expect,
-            contracts.flash_packed_facts(q, q, q, seg, plan.block_map),
-            lambda q=q, seg=seg: ops.flash_packed(q, q, q, seg, plan.block_map), (R, L, 4, D)))
+            "flash_packed", f"ViT D {D} {kind}, rows={R} L={L}", expect,
+            contracts.flash_packed_facts(q, k, k, seg, plan.block_map),
+            lambda q=q, k=k, seg=seg: ops.flash_packed(q, k, k, seg, plan.block_map),
+            (R, L, 4, D)))
     return rows
 
 
@@ -368,8 +377,9 @@ def _slab_rows() -> List[AuditRow]:
     block 240 at radius 1, and ssd_scan: the reference's f32 row with N
     32 and its bf16 twin, the JAX benchmarks' f32 row (1, 1024, 8, 64) at
     N 16, the serving row of mamba2-2.7b (N 128) in bf16 and in f32, N
-    136 and 264 staged on the slabbed build, N 512 in place on it, all on
-    the kernel, and the one refusal: f16 ('kernel-dtype')."""
+    136 and 264 staged on the slabbed build, N 512 in place on it, and f16
+    x / b / c (staged as bf16 halves, which hold f16 exactly), all on the
+    kernel."""
     rows = []
     for lay, _ in LAYOUTS:
         S = lay.overlap_tokens
@@ -415,7 +425,8 @@ SSD_AUDIT_ROWS = (
     ("B2 L100 H8 G2 N264 bf16", BF16, (2, 100, 8, 64, 2, 264), "kernel"),
     ("B2 L160 H80 P64 N512 bf16 (mamba2-2.7b at d_state 512)", BF16, (2, 160, 80, 64, 1, 512),
      "kernel"),
-    ("B2 L100 H8 G2 N32 f16", torch.float16, (2, 100, 8, 64, 2, 32), "refused:kernel-dtype"),
+    ("B2 L100 H8 G2 N32 f16", F16, (2, 100, 8, 64, 2, 32), "kernel"),
+    ("B2 L160 H80 P64 N128 f16 (mamba2-2.7b's widths)", F16, (2, 160, 80, 64, 1, 128), "kernel"),
 )
 
 
@@ -718,15 +729,14 @@ def refusal_cases(device) -> dict:
     """One call per eligibility rule of every contract (but ``SHADOWED``)
     that fails that rule first, on ``device``: {(contract, code): (op,
     call, plain)}, ``op`` the name ``ops`` counts it by, ``plain()`` the
-    plain version on the same operands.  The ``ssd_scan`` calls run under
-    grad with x requiring grad, as training calls it.  Values come from seeded
-    generators; views the rules look at (misaligned, strided,
+    plain version on the same operands (``ssd_scan`` has no eligibility
+    rule: it takes every operand the reference's scan takes).  Values come
+    from seeded generators; views the rules look at (misaligned, strided,
     transposed) are made on ``device`` itself."""
     from .flash_packed import PackBlockMap, flash_packed_plain
     from .flash_prefill import flash_prefill_paged_plain, flash_prefill_plain
     from .flash_refresh import flash_refresh_paged_plain, flash_refresh_plain
     from .rope_shift import rope_shift_plain
-    from .ssd_scan import ssd_scan_plain
     dev = torch.device(device)
 
     def rand(*shape, dtype=F32, seed=0):
@@ -773,28 +783,16 @@ def refusal_cases(device) -> dict:
                                                     **kw)), (
             lambda: flash_refresh_paged_plain(q, slab, slab, qp, kvv, pt, **kw))
 
-    def packed(q, seg, bm):
-        return "flash_packed", (lambda: ops.flash_packed(q, q, q, seg, bm)), (
-            lambda: flash_packed_plain(q, q, q, seg))
+    def packed(q, seg, bm, kv=None):
+        kv = q if kv is None else kv
+        return "flash_packed", (lambda: ops.flash_packed(q, kv, kv, seg, bm)), (
+            lambda: flash_packed_plain(q, kv, kv, seg))
 
     def pack_map(seg, tq=contracts.TILE, tk=contracts.TILE, tile_ids=None, tile_count=None):
         good = build_pack_map(seg)
         return PackBlockMap(tq, tk, good.tile_ids if tile_ids is None else tile_ids,
                             good.tile_count if tile_count is None else tile_count,
                             good.seg_id, good.span, good.single_run)
-
-    def ssd(x, la, b, c, init=None, chunk=16):
-        """Under grad, x requiring grad: the backward's verdict is the
-        forward's, so each rule refuses the call that would run both."""
-        def call():
-            with torch.enable_grad():
-                return ops.ssd_scan(x.detach().requires_grad_(), la, b, c, init, chunk)
-        return "ssd_scan", call, (lambda: ssd_scan_plain(x, la, b, c, init, chunk))
-
-    def ssd_ok(L=16, H=4, P=32, N=16):
-        return (rand(1, L, H, P, dtype=BF16), -rand(1, L, H).abs(),
-                rand(1, L, 1, N, dtype=BF16), rand(1, L, 1, N, dtype=BF16, seed=2),
-                rand(1, H, P, N, seed=3))
 
     def transposed(t, a, b):
         """``t``'s values in a layout with dims a and b swapped in memory."""
@@ -810,12 +808,10 @@ def refusal_cases(device) -> dict:
     i8 = (torch.zeros(128, 2, 32, dtype=torch.int8, device=dev),) * 2
     ones = torch.ones(1, 2, device=dev)
     f16 = (torch.ones(1, 2, dtype=torch.float16, device=dev),) * 2
-    x, la, b, c, init = ssd_ok()
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
     return {
-        ("rope_shift", "kernel-dtype"): rope(rand(1, 8, 2, 16, dtype=torch.float16)),
         ("rope_shift", "aligned"): rope(misaligned((1, 8, 2, 16))),
-        ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8.half()),
+        ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8),
         ("flash_prefill", "contiguous"): prefill(transposed(q8, 1, 2), k8),
         ("flash_prefill", "aligned"): prefill(misaligned((1, 8, 4, 32), BF16), k8),
         ("flash_prefill_paged", "page-tile"): prefill_paged(q8, slab, page=64),
@@ -867,10 +863,9 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "map-tile"): packed(pq, seg, build_pack_map(seg_np, tq=64, tk=64)),
         ("flash_packed", "single-run"): packed(pq, torch.from_numpy(split).to(dev),
                                                build_pack_map(split)),
-        ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np)),
+        ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np), pq),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
-        ("ssd_scan", "kernel-dtype"): ssd(x.half(), la, b.half(), c.half(), init),
     }
 
 

@@ -434,10 +434,16 @@ def _q_f32_or_bf16_over_bf16(f: Mapping[str, Any]) -> bool:
     return f["q_dtype"] in ("bfloat16", "float32") and f["k_dtype"] == f["v_dtype"] == "bfloat16"
 
 
+def _all_f16(f: Mapping[str, Any]) -> bool:
+    return f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float16"
+
+
 _KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches and the "
-                "slab are bf16)", _q_f32_or_bf16_over_bf16)
-_ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, or f32 q/k/v",
-                lambda f: _q_f32_or_bf16_over_bf16(f)
+                "slab are bf16), or q/k/v all f16",
+                lambda f: _q_f32_or_bf16_over_bf16(f) or _all_f16(f))
+_ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, f32 q/k/v, or "
+                "f16 q/k/v",
+                lambda f: _q_f32_or_bf16_over_bf16(f) or _all_f16(f)
                 or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
@@ -484,11 +490,7 @@ ROPE_SHIFT = KernelContract(
         Rule("even-head", "head dim is even (rotate-half RoPE)",
              lambda f: f["k_shape"][3] % 2 == 0),
     ),
-    eligibility=(
-        Rule("kernel-dtype", "k must be f32 or bf16 (no f16 build)",
-             lambda f: f["k_dtype"] in ("float32", "bfloat16")),
-        _ALIGNED,
-    ),
+    eligibility=(_ALIGNED,),
     tile=None,
     compile_key="none: (B * S, n_kv, d_h, dtype) are launch arguments",
 )
@@ -739,15 +741,12 @@ SSD_SCAN = KernelContract(
              and f["b_dtype"] in ADMISSIBLE_FLOAT and f["b_dtype"] == f["c_dtype"]),
         Rule("chunk", "chunk size >= 1", lambda f: f["chunk"] >= 1),
     ),
-    eligibility=(
-        Rule(_DTYPE, "x, log_a, b, c and init_state must be f32 or bf16 (no f16 build)",
-             lambda f: "float16" not in (f["x_dtype"], f["log_a_dtype"], f["b_dtype"],
-                                         f["c_dtype"], f["init_dtype"])),
-    ),
+    eligibility=(),  # every operand the reference takes: f16 and mixes staged as hi / lo
     tile=None,
     compile_key="none: one build per state width N 16, 32, 64 and 128 and one for every "
                 "multiple of 128 past it (the slab count a grid dimension), per operand mode "
-                "(bf16 in place, staged hi / lo); (B, L, H, P, G, N, chunk) are launch arguments",
+                "(bf16 in place, staged hi / lo: f32, f16 and any mix, an f16 value exactly "
+                "its two bf16 halves); (B, L, H, P, G, N, chunk) are launch arguments",
 )
 
 CONTRACTS: Dict[str, KernelContract] = {
@@ -756,8 +755,9 @@ CONTRACTS: Dict[str, KernelContract] = {
               FLASH_REFRESH_PAGED, FLASH_PACKED, SSD_SCAN)
 }
 
-_WHY_F16 = ("no f16 build: neither package's ModelCfg.dtype makes f16 operands (bf16, f32 "
-            "queries over bf16 K/V and, in flash_prefill and flash_packed, f32 q/k/v run)")
+_WHY_MIXED = ("one operand type a build: q/k/v all bf16 or all f16, an f32 q over bf16 K/V "
+              "and, in flash_prefill and flash_packed, f32 q/k/v; a call that mixes f16 with "
+              "another dtype, or a bf16 q over f32 K/V, has no build")
 _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
                 "bf16 halves written per call over the whole cache")
 
@@ -769,33 +769,30 @@ _WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would
 # adds there.
 DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("rope_shift", "seq-tile", "-", "one thread per token: any S runs, no sequence tile"),
-    ("rope_shift", "kernel-dtype", "+", "built for f32 and bf16 keys, not f16"),
     ("rope_shift", "aligned", "+", "16-byte loads of k, read in place when contiguous"),
     ("flash_prefill", "q-tile", "-", "the kernel masks ragged query tiles"),
     ("flash_prefill", "k-tile", "-", "the kernel masks ragged key tiles"),
-    ("flash_prefill", _DTYPE, "+", _WHY_F16),
+    ("flash_prefill", _DTYPE, "+", _WHY_MIXED),
     ("flash_prefill", "contiguous", "+", "q/k/v are read in place with packed rows"),
     ("flash_prefill", "aligned", "+", "16-byte cp.async copies of q/k/v"),
     ("flash_prefill_paged", "q-tile", "-", "the kernel masks ragged query tiles"),
-    ("flash_prefill_paged", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
+    ("flash_prefill_paged", _DTYPE, "+", _WHY_MIXED + "; " + _WHY_KV_BF16),
     ("flash_prefill_paged", "contiguous", "+", "q/k/v and the cold group are read in place"),
     ("flash_prefill_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_refresh", "positions", "-", "a precondition here ('positions-match'): the kernel "
      "masks by the map's positions, and a card refusal is no fallback"),
     ("flash_refresh", "map-tile", "+", "the kernel's tiles are 128 x 128"),
-    ("flash_refresh", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
+    ("flash_refresh", _DTYPE, "+", _WHY_MIXED + "; " + _WHY_KV_BF16),
     ("flash_refresh", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("flash_refresh_paged", "positions", "-", "a precondition here ('positions-match')"),
     ("flash_refresh_paged", "map-tile", "+", "the kernel's tiles and pages are 128"),
-    ("flash_refresh_paged", _DTYPE, "+", _WHY_F16 + "; " + _WHY_KV_BF16),
+    ("flash_refresh_paged", _DTYPE, "+", _WHY_MIXED + "; " + _WHY_KV_BF16),
     ("flash_refresh_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_packed", "map-tile", "+", "the kernel's tiles are 128 x 128"),
     ("flash_packed", "single-run", "+", "the mask is one key range per slot, exact only "
      "when every segment is one run of its row (pack_plan's layouts)"),
-    ("flash_packed", _DTYPE, "+", _WHY_F16),
+    ("flash_packed", _DTYPE, "+", _WHY_MIXED),
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
-    ("ssd_scan", _DTYPE, "+", "no f16 build: neither package's ModelCfg.dtype makes f16 "
-     "operands (bf16 and f32 x, log_a, b and c run)"),
     ("ssd_scan_bwd", "requires-grad", "+", "ssd_scan takes operands that require grad on the "
      "card (SsdScanFn over the forward and backward kernels); the reference's kernel has no "
      "backward, and jax.grad differentiates its plain scan instead"),

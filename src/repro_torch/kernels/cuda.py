@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "attention_any.cu",
            "attention_q32.cu", "attention_f32.cu", "attention_512.cu", "attention_q32_512.cu",
-           "attention_deep.cu", "attention_q32_deep.cu", "ssd_scan.cu", "ssd_scan_staged.cu")
+           "attention_deep.cu", "attention_q32_deep.cu", "attention_f16.cu",
+           "attention_f16_512.cu", "attention_f16_deep.cu", "ssd_scan.cu", "ssd_scan_staged.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -96,15 +97,30 @@ for _name in ("cs_ssd_scan", "cs_ssd_scan_bwd"):
 # attention_512.cu) and an f32-query one (``_q32_512``:
 # attention_q32_512.cu), all with one signature; past 512 the DEEP builds
 # (``_deep``: attention_deep.cu, ``_q32_deep``: attention_q32_deep.cu)
-# take one more pointer before the stream, the query's scratch
+# take one more pointer before the stream, the query's scratch.  The f16
+# builds (f16 q/k/v: attention_f16.cu, attention_f16_512.cu,
+# attention_f16_deep.cu) have entry points of their own, named by
+# ``f16_entry`` (``_f16`` for ``_bf16``, ``_int8_f16`` for ``_int8``), with
+# the same signatures and suffixes (none, ``_512``, ``_deep``)
 ATTN_ENTRIES = ("cs_attn_refresh_bf16", "cs_attn_refresh_paged_bf16",
                 "cs_attn_refresh_paged_int8", "cs_attn_packed_bf16", "cs_attn_prefill_bf16",
                 "cs_attn_prefill_paged_bf16", "cs_attn_prefill_paged_int8")
+
+
+def f16_entry(name: str) -> str:
+    """The f16 builds' name of attention entry point ``name`` (one of
+    ``ATTN_ENTRIES``)."""
+    return name[:-5] + "_f16" if name.endswith("_bf16") else name + "_f16"
+
+
 for _name in ATTN_ENTRIES:
     for _suffix in ("_any", "_q32", "_512", "_q32_512"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
     for _suffix in ("_deep", "_q32_deep"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name][:-1] + (_p, _p)
+    for _suffix in ("", "_512"):
+        _SIGNATURES[f16_entry(_name) + _suffix] = _SIGNATURES[_name]
+    _SIGNATURES[f16_entry(_name) + "_deep"] = _SIGNATURES[_name][:-1] + (_p, _p)
 
 # head dims of the attention kernels' exact builds (attention.cu, and
 # attention_512.cu at 512); every other head dim up to SLAB_HEAD_DIM runs
@@ -214,10 +230,13 @@ def stream_handle(t: torch.Tensor) -> int:
 def attention_entry(name: str, q: torch.Tensor, d: int):
     """The library function of attention entry point ``name`` (one of
     ``ATTN_ENTRIES``) for q's type and head dim ``d``: the exact bf16
-    build, the ragged one, or the f32-query one (past 256: the D-512
-    bf16 or f32-query one).  Past 512 the DEEP bf16 or f32-query one,
-    called with the same arguments: it allocates the query's scratch
-    (``deep_q_elems``) and hands it over before the stream."""
+    build, the ragged one, the f32-query one, or for an f16 q the f16 one
+    (past 256: the D-512 bf16, f32-query or f16 one).  Past 512 the DEEP
+    bf16, f32-query or f16 one, called with the same arguments: it
+    allocates the query's scratch (``deep_q_elems``) and hands it over
+    before the stream."""
+    if q.dtype == torch.float16:
+        name = f16_entry(name)
     if d > SLAB_HEAD_DIM:
         fn = getattr(library(), name + ("_q32_deep" if q.dtype == torch.float32 else "_deep"))
 
@@ -228,7 +247,7 @@ def attention_entry(name: str, q: torch.Tensor, d: int):
     wide = "_512" if d > 256 else ""
     if q.dtype == torch.float32:
         return getattr(library(), name + "_q32" + wide)
-    if wide:
+    if wide or q.dtype == torch.float16:
         return getattr(library(), name + wide)
     return getattr(library(), name if d in HEAD_DIMS else name + "_any")
 
@@ -241,10 +260,10 @@ def split_elems(k: torch.Tensor) -> int:
 
 
 def deep_q_elems(q: torch.Tensor) -> int:
-    """bf16 elements of the query's scratch of the DEEP build (head dims
+    """16-bit elements of the query's scratch of the DEEP build (head dims
     past ``SLAB_HEAD_DIM``; ``csrc/attention.cuh`` launch_mma): q's rows
-    at its head dim rounded up to 16, twice for an f32 q (its two bf16
-    halves)."""
+    at its head dim rounded up to 16 (bf16, or f16 for an f16 q), twice
+    for an f32 q (its two bf16 halves)."""
     d = q.shape[-1]
     return q.numel() // d * (-(-d // 16) * 16) * (2 if q.dtype == torch.float32 else 1)
 

@@ -23,10 +23,11 @@ Bound on an H100: tensor-core operations on the visited block-diagonal
 tiles (at D = 64 each tile pair does 4*128*128*64 flops on 32 KB of
 K/V).  The design visits only tiles that share a live segment and runs
 both products on the tensor cores around an f32 online softmax, with S,
-P and O in registers.  Operands: bf16 q/k/v, an f32 q over bf16 K/V, or
-f32 q/k/v (a ViT from an f32 checkpoint: ``cs_attn_packed_f32`` splits
-K and V into bf16 halves in a scratch buffer the wrapper allocates, and
-runs three products a tile), at any head dim (past 256 two blocks a
+P and O in registers.  Operands: bf16 or f16 q/k/v (the f16 builds round
+q x scale and P to f16), an f32 q over bf16 K/V, or f32 q/k/v (a ViT
+from an f32 checkpoint: ``cs_attn_packed_f32`` splits K and V into bf16
+halves in a scratch buffer the wrapper allocates, and runs three
+products a tile), at any head dim (past 256 two blocks a
 query tile, each with a 256-column slab of V and O; past 512 as many
 slabs as d needs, Q K^T summed over depth chunks of 256); the output
 takes q's type.

@@ -31,7 +31,8 @@ after ``ref.paged_gather`` where the KV is paged) keep f32 throughout, as
 the Pallas body does, and so do the kernels: the scale multiplies the
 f32 scores, and P V is accumulated from P split into two bf16 halves
 (about 16 bits of P).  Only the output's rounding to bf16 differs: one
-bf16 step of the row's largest value.  Operands: bf16 q/k/v; an f32 q
+bf16 step of the row's largest value.  Operands: bf16 q/k/v; f16 q/k/v
+(the f16 builds: P as two f16 halves, the output rounded to f16); an f32 q
 over bf16 K/V (split into two bf16 halves as P is; f32 output); and, for
 the dense kernel, f32 q/k/v (``cs_attn_prefill_f32``: K and V split into
 bf16 halves in a scratch buffer the wrapper allocates), at any head dim
@@ -112,7 +113,7 @@ def flash_prefill_paged_cuda(q, k, v, page_table, *, page: int = 128,
     contiguous.  Operands the kernel does not take raise."""
     contracts.require(contracts.flash_prefill_paged_verdict(
         q, k, v, page_table, page=page, causal=True, window=window, q_offset=q_offset,
-        cold=cold), NAME_PAGED if cold is None else NAME_INT8)
+        cold=cold), NAME_PAGED, NAME_PAGED if cold is None else NAME_INT8)
     return flash_prefill_paged_launch(q, k, v, page_table, page=page, window=window,
                                       q_offset=q_offset, cold=cold)
 

@@ -41,12 +41,14 @@ rows past Sq are neither read nor written, so the query is not padded.
 
 Operands the kernels take (``contracts.FLASH_REFRESH`` and
 ``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16 or
-f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, any
-head dim (``cuda.attention_entry`` picks the build: exact at 24, 32, 64,
-128, 256 and 512, ragged otherwise, the DEEP one past 512, f32-query
-builds for f32 q); 128-row map tiles and pages; q, k,
-v, the int8 slabs and ``kv_valid`` on 16-byte boundaries (``kv_valid``
-is copied once where it is not).
+f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, or
+f16 q, K and V (the f16 builds: the same body on f16 products, q x scale
+and P rounded to f16 as the oracle rounds them to K's and V's type; an
+int8 cold page dequantised to f16), any head dim (``cuda.attention_entry``
+picks the build: exact at 24, 32, 64, 128, 256 and 512, ragged otherwise,
+the DEEP one past 512, f32-query builds for f32 q, f16 ones for f16);
+128-row map tiles and pages; q, k, v, the int8 slabs and ``kv_valid`` on
+16-byte boundaries (``kv_valid`` is copied once where it is not).
 
 ``RefreshBlockMap``, ``build_block_map`` and ``dense_block_map`` are
 host numpy, equal array for array to the JAX package's.  The plain
@@ -294,7 +296,7 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
     """
     contracts.require(contracts.flash_refresh_paged_verdict(
         q, k, v, None, kv_valid, page_table, page=page, causal=causal, window=window,
-        block_map=block_map, cold=cold), NAME if cold is None else NAME_INT8)
+        block_map=block_map, cold=cold), NAME, NAME if cold is None else NAME_INT8)
     return flash_refresh_paged_launch(q, k, v, kv_valid, page_table, block_map, page=page,
                                       causal=causal, window=window, cold=cold)
 

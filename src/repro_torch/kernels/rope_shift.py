@@ -2,17 +2,17 @@
 
 Replaces the TPU kernel ``repro/kernels/rope_shift.py:rope_shift_pallas``;
 the CUDA source is ``csrc/rope_shift.cu``.  One thread per (token, chunk
-of rotation pairs: 16 bytes of each half, 8 pairs in bf16 and 4 in f32,
-where half the head dim holds a whole number of them; else 8, 4 or, in
-bf16, 2 bytes, down to one pair at an odd half, as at D 90): it builds
+of rotation pairs: 16 bytes of each half, 8 pairs in bf16 or f16 and 4 in
+f32, where half the head dim holds a whole number of them; else 8, 4 or,
+in bf16 and f16, 2 bytes, down to one pair at an odd half, as at D 90): it builds
 the chunk's angles ``delta * theta^(-i/half)`` once in f32, from the
 plain version's own inverse frequencies (``ref.rope_freqs``, made once
 per head dim, theta and card), with the accurate ``sincosf``
 (``|delta * freq|`` reaches hundreds of radians on the serving path,
 where fast intrinsics are useless) and
 applies them to every kv head of the token with one load and one store
-per half, rounding to the key dtype.  It takes f32 or bf16 keys of any
-even head dim (the reference's ``even-head``) on a 16-byte boundary
+per half, rounding to the key dtype.  It takes f32, bf16 or f16 keys of
+any even head dim (the reference's ``even-head``) on a 16-byte boundary
 (``contracts.ROPE_SHIFT``), and raises otherwise.  Unlike the TPU kernel
 there is no sequence-tile eligibility rule: any ``S`` runs.
 
@@ -29,7 +29,7 @@ from .ref import rope_freqs
 from .ref import rope_shift_ref as rope_shift_plain
 
 NAME = "rope_shift"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the plain version's inverse frequencies per (half, theta, card)
 _FREQS: dict = {}
 
@@ -38,7 +38,7 @@ __all__ = ["NAME", "rope_shift_cuda", "rope_shift_launch", "rope_shift_plain"]
 
 def rope_shift_cuda(k: torch.Tensor, delta: torch.Tensor,
                     theta: float = 10_000.0) -> torch.Tensor:
-    """Launch the kernel: k (B, S, n_kv, d_h) f32/bf16, delta (B, S) int.
+    """Launch the kernel: k (B, S, n_kv, d_h) f32/bf16/f16, delta (B, S) int.
     Operands the kernel does not take raise."""
     contracts.require(contracts.rope_shift_verdict(k, delta), NAME)
     return rope_shift_launch(k, delta, theta)

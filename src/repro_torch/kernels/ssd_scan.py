@@ -18,14 +18,15 @@ instead, which is the same arithmetic.
 
 Operands (``operand_mode``): bf16 x, b and c in the layout the serving
 and training paths give them are read in place (``FAST``).  Every other
-operand the reference's scan takes (f16 apart: f32 data, ragged P or N,
+operand the reference's scan takes (f32 or f16 data, ragged P or N,
 strided or misaligned rows) is first copied by a staging kernel
 (``csrc/ssd_scan_staged.cu``) into a packed, zero-padded scratch on the
 next build width as bf16 hi and lo halves (``SPLIT``), which keep
 about 16 bits of f32 data through the tensor-core products (a bf16
-value's lo half is 0).  A bf16 or strided log_a is widened to packed f32
-the same way.  y, the state and the gradients come out in the caller's
-dtypes.
+value's lo half is 0; an f16 value is exactly its two halves).  A bf16,
+f16 or strided log_a is widened to packed f32 the same way.  y, the
+state and the gradients come out in the caller's dtypes (f16 ones
+written by the kernels in f16).
 
 State widths past ``N_SLAB`` run on the slabbed build, every multiple of
 ``N_SLAB`` as ``column_slabs(N)`` column slabs of ``N_SLAB`` over blocks
@@ -81,6 +82,9 @@ BWD_HEADS = 2         # heads per block of its chunk-local kernel, where a group
 SPLIT_SLAB = 32       # P columns per chunk-local block on hi / lo operands (16 at slab N 128)
 FAST, SPLIT = 0, 1    # operand modes (csrc/ssd_scan.cuh)
 _OUT_F32, _OUT_BC_F32, _OUT_LA_BF16 = 1, 2, 4
+_OUT_F16, _OUT_BC_F16, _OUT_LA_F16 = 8, 16, 32
+# cs_ssd_stage's source types
+_SRC_TYPE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 
 def scan_chunk(L: int, chunk: int) -> int:
@@ -193,7 +197,7 @@ def bwd_launch_geometry(B: int, L: int, H: int, P: int, G: int, N: int, chunk: i
     dB and dC partials (B, L, H / hb, nps, N) each, ``dx`` dX's partials
     per column slab (B, L, H, ns, P) past one slab, ``lpart`` dlog_a's
     per P and column slab (B, L, H, nps x ns) when there is more than one
-    slab or dlog_a is bf16 (``la_bf16``)."""
+    slab or dlog_a is 16-bit, bf16 or f16 (``la_bf16``)."""
     q, nc = scan_chunk(L, chunk), chunk_count(L, chunk)
     rows = -(-q // 16) * 16
     ns = column_slabs(N)
@@ -244,17 +248,17 @@ def ssd_scan_cuda(x, log_a, b, c, init_state=None, chunk: int = 128):
     with packed heads, groups and features and rows on 16-byte boundaries
     (any batch and time strides), P a multiple of 8 and N one of
     ``STATE_WIDTHS`` or a multiple of ``N_SLAB`` are read in place; any
-    other x, b and c in f32 or bf16, log_a (B, L, H) in f32 or bf16 and
-    init_state (B, H, P, N) in any layout pass through the staging kernel
-    first.  Any chunk, any N.  Operands the kernel does not take
-    (``contracts.SSD_SCAN``: f16) raise ``KernelIneligibleError``, a
-    ``cuda.KernelError``."""
+    other x, b and c in f32, bf16 or f16, log_a (B, L, H) in f32, bf16 or
+    f16 and init_state (B, H, P, N) in any layout and dtype pass through
+    the staging kernel first.  Any chunk, any N.  Operands the kernel does
+    not take (``contracts.SSD_SCAN``; none of the reference's) raise
+    ``KernelIneligibleError``, a ``cuda.KernelError``."""
     contracts.require(contracts.ssd_scan_verdict(x, log_a, b, c, init_state, chunk), NAME)
     return ssd_scan_launch(x, log_a, b, c, init_state, chunk)
 
 
 def _stage(t, width: int, split: bool):
-    """``cs_ssd_stage``: t (d0, d1, d2, d3) f32 or bf16, any strides, into
+    """``cs_ssd_stage``: t (d0, d1, d2, d3) f32, bf16 or f16, any strides, into
     a packed (d0, d1, d2, width) copy, columns from d3 on zero: bf16 hi
     and lo halves stacked as (2, d0, d1, d2, width) (``split``), or f32."""
     d0, d1, d2, d3 = t.shape
@@ -262,7 +266,7 @@ def _stage(t, width: int, split: bool):
     dst = (torch.empty((2,) + shape, dtype=torch.bfloat16, device=t.device) if split else
            torch.empty(shape, dtype=torch.float32, device=t.device))
     rc = cuda.library().cs_ssd_stage(
-        t.data_ptr(), int(t.dtype == torch.float32), d0, d1, d2, d3, *t.stride(), dst.data_ptr(),
+        t.data_ptr(), _SRC_TYPE[t.dtype], d0, d1, d2, d3, *t.stride(), dst.data_ptr(),
         width, int(split), d0 * d1 * d2 * width, cuda.stream_handle(t))
     cuda.check(rc, NAME)
     return dst
@@ -293,6 +297,12 @@ def _state_f32(t, width: int):
     lead = t.shape[:-3]
     return _stage(t.reshape((-1,) + t.shape[-3:]), width, False).view(
         *lead, *t.shape[-3:-1], width)
+
+
+def _out_flags(dtype, f32: int, f16: int) -> int:
+    """An output's flag bits: ``f32`` or ``f16`` for that dtype, 0 (bf16)
+    otherwise."""
+    return f32 if dtype == torch.float32 else f16 if dtype == torch.float16 else 0
 
 
 def ssd_scan_launch(x, log_a, b, c, init, chunk: int, states: bool = False):
@@ -329,7 +339,7 @@ def ssd_scan_launch(x, log_a, b, c, init, chunk: int, states: bool = False):
         0 if init is None else init.data_ptr(), y.data_ptr(), st.data_ptr(),
         0 if cst is None else cst.data_ptr(), 0 if yp is None else yp.data_ptr(),
         B, L, H, P, G, N, q, xs[0], xs[1], las[0], las[1], bs[0], bs[1], xp, n, xlo, blo,
-        _OUT_F32 if x.dtype == torch.float32 else 0, mode, cuda.stream_handle(x),
+        _out_flags(x.dtype, _OUT_F32, _OUT_F16), mode, cuda.stream_handle(x),
     )
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
@@ -569,7 +579,7 @@ def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
     B, L, H, P = x.shape
     G, n = b.shape[2], b.shape[3]
     N, q, mode = build_width(n), scan_chunk(L, chunk), operand_mode(x, b, c, dy)
-    la_bf16 = log_a.dtype == torch.bfloat16
+    la_bf16 = log_a.dtype != torch.float32       # dlog_a in 16 bits: bf16 or f16
     _, scratch = bwd_launch_geometry(B, L, H, P, G, N, chunk, mode, la_bf16)
     dev, lib = x.device, cuda.library()
     if mode == FAST:
@@ -594,8 +604,8 @@ def ssd_scan_bwd_launch(x, log_a, b, c, states, dy, d_final, chunk: int,
                         + scratch["dx"]) // 4,), dtype=torch.float32, device=dev)
     lpart = (torch.empty((scratch["lpart"] // 4,), dtype=torch.float32, device=dev)
              if scratch["lpart"] else None)
-    flags = ((_OUT_F32 if x.dtype == torch.float32 else 0)
-             | (_OUT_BC_F32 if b.dtype == torch.float32 else 0) | (_OUT_LA_BF16 if la_bf16 else 0))
+    flags = (_out_flags(x.dtype, _OUT_F32, _OUT_F16) | _out_flags(b.dtype, _OUT_BC_F32, _OUT_BC_F16)
+             | {torch.bfloat16: _OUT_LA_BF16, torch.float16: _OUT_LA_F16}.get(log_a.dtype, 0))
     rc = launch(
         xv.data_ptr(), la.data_ptr(), bv.data_ptr(), cv.data_ptr(), states.data_ptr(),
         dyv.data_ptr(), 0 if d_final is None else d_final.data_ptr(),

@@ -334,10 +334,10 @@ def test_shadowed_rules_decide_on_facts_and_raise_positions_match_in_ops():
 
 def test_refusals_name_their_rule_and_are_kernel_errors():
     from repro_torch.kernels.cuda import KernelError
-    err = contracts.SSD_SCAN.refusal("kernel-dtype", "ssd_scan")
+    err = contracts.FLASH_PREFILL.refusal("kernel-dtype", "flash_prefill")
     assert isinstance(err, KernelError) and isinstance(err, contracts.KernelContractError)
-    assert str(err) == ("ssd_scan: eligibility 'kernel-dtype' failed (x, log_a, b, c and "
-                        "init_state must be f32 or bf16 (no f16 build))")
+    assert str(err) == ("flash_prefill: eligibility 'kernel-dtype' failed (q/k/v must be "
+                        "bf16, f32 q over bf16 k/v, f32 q/k/v, or f16 q/k/v)")
 
 
 def test_memoized_verdicts_equal_fresh_decisions():

@@ -29,7 +29,13 @@ two such sums), bitwise equal over two calls; the chunk states the
 forward kernel writes under grad within 1e-4, as its final state.  With
 f32 x, b or c (split into bf16 hi and lo halves, about 16 bits) y, dx,
 db and dc in f32 within 2^-10 of their row's or slice's largest value,
-the f32 attention kernels' limit; a bf16 dlog_a within 2^-7.
+the f32 attention kernels' limit; a bf16 dlog_a within 2^-7.  f16
+operands: the attention kernels at their bf16 limits (f16 rounds at
+2^-11, so the readings sit far inside them), rope_shift one f16 step
+(2^-10 relative) plus 1e-3; the scan's f16 x,
+b and c (staged as bf16 halves, which hold f16 exactly) within the f32
+limit plus one f16 step of the row's largest value (2^-10 + 2^-10 =
+2^-9), an f16 dlog_a within 1e-3 + 2^-10.
 """
 import numpy as np
 import pytest
@@ -133,7 +139,12 @@ def test_mv_sad_exact_ties_keep_the_first_minimum(dev):
     assert bool((mv_p[1:-1, 1:-1] < 0).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# rope_shift's elementwise step: one step of the value in the key's dtype
+# (bf16 2^-7, f16 2^-10 relative; none in f32)
+ROPE_STEP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_rope_shift_kernel_matches_plain(dev, dtype):
     g = torch.Generator(device=dev).manual_seed(0)
     k = torch.randn(4, 300, 8, 128, device=dev, generator=g).to(dtype)
@@ -141,17 +152,13 @@ def test_rope_shift_kernel_matches_plain(dev, dtype):
     out_k = rope_shift_cuda(k, delta)
     out_p = ref.rope_shift_ref(k, delta)
     assert out_k.dtype == dtype
-    d = (out_k.float() - out_p.float()).abs()
-    if dtype == torch.bfloat16:
-        d = d - 2.0 ** -7 * out_p.float().abs()
-        assert d.max().item() <= 1e-3
-    else:
-        assert d.max().item() <= 1e-4
+    d = (out_k.float() - out_p.float()).abs() - ROPE_STEP[dtype] * out_p.float().abs()
+    assert d.max().item() <= (1e-4 if dtype == torch.float32 else 1e-3)
 
 
 @pytest.mark.parametrize("d_h", [24, 64, 128, 20, 90, 130, 2, 320, 512])
 @pytest.mark.parametrize("n_kv", [1, 8])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_rope_shift_kernel_at_head_widths(dev, d_h, n_kv, dtype):
     """Token counts that fill no whole block, per-token deltas including
     0 and +-2000 (angles past 2000 rad), every head of a token rotated by
@@ -162,32 +169,25 @@ def test_rope_shift_kernel_at_head_widths(dev, d_h, n_kv, dtype):
     delta[0, :3] = torch.tensor([0, 2000, -2000], device=dev)
     out_k = rope_shift_cuda(k, delta)
     out_p = ref.rope_shift_ref(k, delta)
-    d = (out_k.float() - out_p.float()).abs()
-    if dtype == torch.bfloat16:
-        d = d - 2.0 ** -7 * out_p.float().abs()
-        assert d.max().item() <= 1e-3
-    else:
-        assert d.max().item() <= 1e-4
+    d = (out_k.float() - out_p.float()).abs() - ROPE_STEP[dtype] * out_p.float().abs()
+    assert d.max().item() <= (1e-4 if dtype == torch.float32 else 1e-3)
     assert torch.equal(out_k[0, 0], k[0, 0])       # delta 0: no rotation
 
 
 def test_rope_shift_operands_the_kernel_does_not_take_raise(dev):
-    """f16 keys and a key block off a 16-byte boundary raise naming their
-    rule; head dims 20 (bf16) and 12 (f32), once refused for not being
-    multiples of 8, launch and agree with the plain version."""
+    """A key block off a 16-byte boundary raises naming its rule; f16
+    keys (once refused: no f16 build) and head dims 20 (bf16) and 12
+    (f32), once refused for not being multiples of 8, launch and agree
+    with the plain version."""
     delta = torch.arange(4, dtype=torch.int32, device=dev)[None] * 300
-    with pytest.raises(KernelError, match="kernel-dtype"):
-        rope_shift_cuda(torch.zeros(1, 4, 2, 20, device=dev, dtype=torch.float16), delta)
     with pytest.raises(KernelError, match="aligned"):
         rope_shift_cuda(torch.zeros(4 * 2 * 64 + 2, device=dev)[2:].view(1, 4, 2, 64), delta)
     g = torch.Generator(device=dev).manual_seed(5)
-    for d_h, dt in ((20, torch.bfloat16), (12, torch.float32)):
+    for d_h, dt in ((20, torch.bfloat16), (12, torch.float32), (20, torch.float16)):
         k = torch.randn(1, 4, 2, d_h, device=dev, generator=g).to(dt)
         out_p = ref.rope_shift_ref(k, delta).float()
-        d = (rope_shift_cuda(k, delta).float() - out_p).abs()
-        if dt == torch.bfloat16:
-            d = d - 2.0 ** -7 * out_p.abs()
-        assert d.max().item() <= (1e-3 if dt == torch.bfloat16 else 1e-4)
+        d = (rope_shift_cuda(k, delta).float() - out_p).abs() - ROPE_STEP[dt] * out_p.abs()
+        assert d.max().item() <= (1e-4 if dt == torch.float32 else 1e-3)
 
 
 SCATTER_PATTERNS = {
@@ -256,11 +256,12 @@ def test_flash_refresh_kernel_matches_plain(dev, pattern, d, h, hkv, window):
     assert bool((out_k[dead] == 0).all())
 
 
-def _quant_slab(rng, n_hot, n_cold, hkv, d):
-    """Hot bf16 pages and int8 cold pages with per-(page, head) scales
-    that dequantise to about unit values, as demotion leaves them."""
+def _quant_slab(rng, n_hot, n_cold, hkv, d, dtype=torch.bfloat16):
+    """Hot bf16 (or ``dtype``) pages and int8 cold pages with per-(page,
+    head) scales that dequantise to about unit values, as demotion leaves
+    them."""
     hk, hv = (torch.from_numpy(rng.normal(size=(n_hot * 128, hkv, d)).astype(np.float32))
-              .bfloat16() for _ in range(2))
+              .to(dtype) for _ in range(2))
     k8, v8 = (torch.from_numpy(rng.integers(-127, 128, size=(n_cold * 128, hkv, d))
                                .astype(np.int8)) for _ in range(2))
     ks, vs = (torch.from_numpy(rng.uniform(0.01, 0.03, size=(n_cold, hkv)).astype(np.float32))
@@ -322,14 +323,14 @@ def test_slab_build_int8_all_hot_is_bitwise_bf16(dev):
                        flash_prefill_paged_cuda(q, hk, hv, pt))
 
 
-def _all_hot_refresh(dev, d):
+def _all_hot_refresh(dev, d, dtype=torch.bfloat16):
     rng = np.random.default_rng(14)
     hk, hv, cold = _quant_slab(rng, 4, 3, 2, d)
-    hk, hv, cold = hk.to(dev), hv.to(dev), tuple(c.to(dev) for c in cold)
+    hk, hv, cold = hk.to(dev, dtype), hv.to(dev, dtype), tuple(c.to(dev) for c in cold)
     pt = torch.tensor([[2, 0], [1, 3]], dtype=torch.int32, device=dev)
     kvv = torch.from_numpy(rng.random((2, 256)) > 0.3).to(dev)
     q_pos = SCATTER_PATTERNS["fresh"]
-    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), 8, d)).astype(np.float32)).bfloat16()
+    q = torch.from_numpy(rng.normal(size=(2, len(q_pos), 8, d)).astype(np.float32)).to(dtype)
     bm = build_block_map(q_pos, 256)
     out8 = flash_refresh_paged_cuda(q.to(dev), hk, hv, kvv, pt, bm, cold=cold)
     out16 = flash_refresh_paged_cuda(q.to(dev), hk, hv, kvv, pt, bm)
@@ -748,12 +749,17 @@ def test_prefill_operands_the_kernel_does_not_take_raise(dev):
                    for h in (4, 2, 2))
         assert _row_rel_err(ops.flash_prefill(q, k, v).cpu(), flash_prefill_plain(
             q.cpu(), k.cpu(), v.cpu())) <= PREFILL_ROW_TOL
-    q16 = torch.zeros(1, 128, 4, 32, device=dev, dtype=torch.float16)
-    kv16 = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.float16)
+    # f16 q/k/v, once refused (no f16 build), run on the f16 build; an f16
+    # query over bf16 K/V has no build and raises naming its rule
+    q16, k16, v16 = (torch.randn(1, 128, h, 32, device=dev, generator=g).half()
+                     for h in (4, 2, 2))
+    out16 = ops.flash_prefill(q16, k16, v16)
+    assert out16.dtype == torch.float16 and _row_rel_err(
+        out16.cpu(), flash_prefill_plain(q16.cpu(), k16.cpu(), v16.cpu())) <= F16_ROW_TOL
+    kvb = k16.bfloat16()
     with pytest.raises(KernelError, match="kernel-dtype"):
-        ops.flash_prefill(q16, kv16, kv16)
+        ops.flash_prefill(q16, kvb, kvb)
     qt = torch.zeros(1, 4, 128, 32, device=dev, dtype=torch.bfloat16).transpose(1, 2)
-    kvb = kv16.bfloat16()
     with pytest.raises(KernelError, match="contiguous"):
         ops.flash_prefill(qt, kvb, kvb)
 
@@ -884,8 +890,8 @@ def test_ssd_scan_bwd_kernel_matches_plain_and_repeats(dev, case):
 
 def test_ssd_scan_under_grad_launches_both_kernels(dev):
     """An operand that requires grad goes through the forward kernel and
-    the backward kernel (no plain call on the card); a call the contract
-    refuses raises naming the rule, before any launch."""
+    the backward kernel (no plain call on the card); so does an f16 one
+    (once refused: no f16 build), staged, its gradient f16."""
     rng = np.random.default_rng(22)
     x, la, b, c, _ = (t.to(dev) for t in _ssd_operands(rng, 1, 40, 4, 32, 1, 16))
     x.requires_grad_(True)
@@ -901,9 +907,17 @@ def test_ssd_scan_under_grad_launches_both_kernels(dev):
         yp, sp = ops.ssd_scan(x, la, b, c, None, 16)
         (gp,) = torch.autograd.grad(yp.float().square().sum() + sp.sum(), (x,))
     assert _slice_rel(gx, gp, (1, 3)) <= 2.0 ** -6    # y rounds to bf16 on both sides
-    with pytest.raises(ops.KernelIneligibleError, match="eligibility 'kernel-dtype' failed"):
-        ops.ssd_scan(x.detach().half().requires_grad_(), la, b, c, None, 16)
     assert ops.launch_counts() == after
+    xh = x.detach().half().requires_grad_()
+    yh, sh = ops.ssd_scan(xh, la, b, c, None, 16)
+    (gh,) = torch.autograd.grad(yh.float().square().sum() + sh.sum(), (xh,))
+    assert yh.dtype == gh.dtype == torch.float16
+    assert ops.launch_counts()["ssd_scan"] == after["ssd_scan"] + 1
+    assert ops.launch_counts()["ssd_scan_bwd"] == after["ssd_scan_bwd"] + 1
+    with ops.kernel_mode("plain"):
+        yp, sp = ops.ssd_scan(xh, la, b, c, None, 16)
+        (gp,) = torch.autograd.grad(yp.float().square().sum() + sp.sum(), (xh,))
+    assert _slice_rel(gh, gp, (1, 3)) <= 2.0 ** -8    # y and dx round to f16
 
 
 def test_mamba_smoke_train_step_on_card_matches_cpu(dev):
@@ -964,18 +978,15 @@ def test_ssd_scan_reads_strided_b_c_in_place(dev):
 
 
 def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
-    """f16 operands raise naming their rule, before any launch; the
-    operands the first kernel refused (f32 x, a transposed init, a
+    """The operands the first kernel refused (f32 x, a transposed init, a
     transposed x, chunk 512, N 32, P 12, b and c off a 16-byte boundary,
-    and N 264, past the builds until the slab count became a grid
-    dimension: staged on 384) now launch once each and agree with the
-    plain version."""
+    N 264, past the builds until the slab count became a grid dimension:
+    staged on 384, and f16 x, b, c, log_a and init, refused until the
+    staging pass read f16) now launch once each and agree with the plain
+    version."""
     rng = np.random.default_rng(22)
     x, la, b, c, init = (t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 16))
     before = ops.launch_counts().get("ssd_scan", 0)
-    with pytest.raises(KernelError, match="kernel-dtype"):
-        ops.ssd_scan(x.half(), la, b, c, init, 16)
-    assert ops.launch_counts().get("ssd_scan", 0) == before
     wide = tuple(t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 264))
     long = [t.to(dev) for t in _ssd_operands(rng, 1, 1024, 4, 32, 1, 16, with_init=False)[:4]]
     conv = torch.zeros(1, 16, 33, device=dev, dtype=torch.bfloat16)   # b, c 2 bytes in
@@ -987,7 +998,9 @@ def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
              ((*long, None), 512),
              (tuple(t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 32, 1, 32)), 16),
              (tuple(t.to(dev) for t in _ssd_operands(rng, 1, 16, 4, 12, 1, 16)), 16),
-             ((x, la, *bc, init), 16), (wide, 16)]
+             ((x, la, *bc, init), 16), (wide, 16),
+             ((x.half(), la, b, c, init), 16),
+             ((x.half(), la.half(), b.half(), c.half(), init.half()), 16)]
     for i, (args, chunk) in enumerate(taken):
         y_k, st_k = ops.ssd_scan(*args, chunk=chunk)
         y_p, st_p = ssd_scan_plain(*args, chunk=chunk)
@@ -1001,7 +1014,7 @@ def test_ssd_scan_operands_the_kernel_does_not_take_raise(dev):
 # (B, L, H, P, G, N, chunk, x/b/c dtype, log_a dtype, layout); f32 y and
 # gradients within 2^-10 of their slice's largest value (the operands as
 # bf16 hi + lo halves), bf16 within 2^-7
-F32, BF16 = torch.float32, torch.bfloat16
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 SSD_WIDE = {
     "f32-mamba2-fresh": (2, 160, 80, 64, 1, 128, 256, F32, F32, "packed"),
     "f32-bench-row": (1, 1024, 8, 64, 1, 16, 128, F32, F32, "packed"),
@@ -1024,7 +1037,19 @@ SSD_WIDE = {
     "f32-n384": (2, 160, 16, 64, 1, 384, 256, F32, F32, "packed"),
     "bf16-n320-ragged": (1, 1000, 8, 64, 1, 320, 256, BF16, F32, "packed"),
     "f32-n264-p12": (2, 100, 4, 12, 2, 264, 64, F32, F32, "packed"),
+    # f16 (staged: an f16 value is exactly its bf16 hi + lo): mamba2-2.7b's
+    # fresh window, f16 log_a and init at N 32 over groups, f16 x over bf16
+    # b/c and bf16 x over f16 b/c, two column slabs, a ragged P and N
+    "f16-mamba2-fresh": (2, 160, 80, 64, 1, 128, 256, F16, F32, "packed"),
+    "f16-log-a-n32-g2": (2, 100, 8, 64, 2, 32, 128, F16, F16, "packed"),
+    "f16-x-bf16-bc": (2, 100, 8, 64, 1, 64, 128, F16, F32, "bf16 b/c"),
+    "bf16-x-f16-bc": (2, 100, 8, 64, 1, 64, 128, BF16, BF16, "f16 b/c"),
+    "f16-n256": (2, 160, 16, 64, 1, 256, 256, F16, F32, "packed"),
+    "f16-n24-p12": (2, 100, 4, 12, 2, 24, 64, F16, BF16, "packed"),
 }
+# y, dx, db and dc per dtype: bf16 one step; f32 2^-10; f16 the f32 limit
+# plus one f16 step
+OUT_TOL = {BF16: 2.0 ** -7, F32: 2.0 ** -10, F16: 2.0 ** -9}
 
 
 def _wide_operands(case, dev):
@@ -1034,11 +1059,11 @@ def _wide_operands(case, dev):
     if layout == "strided":
         x = x.transpose(2, 3).contiguous().transpose(2, 3)
     la = (-(torch.rand((B, L, H), generator=g, device=dev) * 0.999 + 1e-3)).to(la_dt)
-    bdt = BF16 if layout == "bf16 b/c" else dt
+    bdt = BF16 if layout == "bf16 b/c" else F16 if layout == "f16 b/c" else dt
     b, c = ((torch.randn((B, L, G, N), generator=g, device=dev) * 0.3).to(bdt)
             for _ in range(2))
     init = torch.randn((B, H, P, N), generator=g, device=dev)
-    return x, la, b, c, init
+    return x, la, b, c, init.half() if la_dt == F16 else init     # f16 init beside f16 log_a
 
 
 @pytest.mark.parametrize("case", sorted(SSD_WIDE))
@@ -1050,8 +1075,7 @@ def test_ssd_scan_takes_every_reference_operand(dev, case):
     assert ops.launch_counts()["ssd_scan"] == before + 1
     y_p, st_p, s_p = ssd_scan_fwd_plain(x, la, b, c, init, chunk)
     assert y_k.dtype == x.dtype and st_k.shape == st_p.shape
-    tol = 2.0 ** -10 if x.dtype == F32 else 2.0 ** -7
-    assert _row_rel_err(y_k.cpu(), y_p.cpu()) <= tol
+    assert _row_rel_err(y_k.cpu(), y_p.cpu()) <= OUT_TOL[x.dtype]
     assert _state_rel_err(st_k.cpu(), st_p.cpu()) <= 1e-4
     assert _slice_rel(s_k[..., :s_p.shape[-1]], s_p, (-1, -2)) <= 1e-4
 
@@ -1060,7 +1084,8 @@ def test_ssd_scan_takes_every_reference_operand(dev, case):
                                   "bf16-n24", "bf16-p12", "bf16-log-a", "f32-x-bf16-bc",
                                   "f32-n256", "bf16-n192-ragged", "bf16-n136-g2",
                                   "f32-n192-p12", "f32-n384", "bf16-n320-ragged",
-                                  "f32-n264-p12"])
+                                  "f32-n264-p12", "f16-mamba2-fresh", "f16-log-a-n32-g2",
+                                  "f16-x-bf16-bc", "bf16-x-f16-bc", "f16-n256", "f16-n24-p12"])
 def test_ssd_scan_bwd_takes_every_reference_operand(dev, case):
     chunk = SSD_WIDE[case][6]
     x, la, b, c, init = _wide_operands(case, dev)
@@ -1075,9 +1100,9 @@ def test_ssd_scan_bwd_takes_every_reference_operand(dev, case):
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     assert [t.dtype for t in got] == [t.dtype for t in want] == [
         x.dtype, la.dtype, b.dtype, c.dtype, torch.float32]
-    tx = 2.0 ** -10 if x.dtype == F32 else 2.0 ** -7
-    tb = 2.0 ** -10 if b.dtype == F32 else 2.0 ** -7
-    ta = 1e-3 if la.dtype == F32 else 2.0 ** -7        # a bf16 dlog_a rounds on both sides
+    tx, tb = OUT_TOL[x.dtype], OUT_TOL[b.dtype]
+    # a bf16 dlog_a rounds on both sides; an f16 one adds an f16 step
+    ta = {F32: 1e-3, BF16: 2.0 ** -7, F16: 1e-3 + 2.0 ** -10}[la.dtype]
     for k, p, dims, tol in zip(got, want, ((1, 3), (1,), (1, 3), (1, 3), (-1, -2)),
                                (tx, ta, tb, tb, 1e-3)):
         assert _slice_rel(k, p, dims) <= tol
@@ -1458,6 +1483,9 @@ def test_dense_mha_takes_bf16_products_on_card(dev, shape):
 # internvl3-14b's widths in chip_smoke)
 F32_ROW_TOL = 2.0 ** -10
 NARROW_ROW_TOL = 2.0 ** -5
+# f16 q/k/v: the kernels round as in bf16 but to f16 (2^-11), so a path
+# that rounds through bf16 anywhere (operands, P, the output: 2^-8) fails
+F16_ROW_TOL = 2.0 ** -9
 ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
             "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
 
@@ -1484,6 +1512,7 @@ def _attention_case(op, d, q_dt, kv_dt, seed=31, exact=False):
     f32_kv = kv_dt == torch.float32
     prefill = op.startswith("flash_prefill")
     tol = F32_ROW_TOL if f32_kv or (prefill and q_dt == torch.float32) else (
+        F16_ROW_TOL if q_dt == kv_dt == torch.float16 else
         PREFILL_ROW_TOL if prefill else NARROW_ROW_TOL if d < 16 else ROW_TOL)
     if op == "flash_packed":
         q, k, v, seg = _packed_inputs("multi", H, Hkv, d, seed=seed)
@@ -1500,7 +1529,9 @@ def _attention_case(op, d, q_dt, kv_dt, seed=31, exact=False):
                                             window=200, q_offset=20)),
                 (lambda: flash_prefill_plain(q, k, v, window=200, q_offset=20)), op, tol)
     int8 = op.endswith("int8")
-    hk, hv, cold = _quant_slab(rng, 7, 2, Hkv, d)
+    # the f16 builds' slab and caches drawn in f16 (every bit of it live)
+    hk, hv, cold = _quant_slab(rng, 7, 2, Hkv, d,
+                               torch.float16 if kv_dt == torch.float16 else torch.bfloat16)
     pt = torch.from_numpy(rng.permutation(7)[:6].reshape(2, 3).astype(np.int32))
     if int8:
         pt[0, 0], pt[1, 2] = 7, 8
@@ -1739,3 +1770,33 @@ def test_mv_sad_any_radius_and_block_is_bitwise_the_plain_version(dev, hw, block
     assert torch.equal(sad_k.cpu(), sad_p)
     assert torch.equal(mv_k.cpu(), mv_p)
     assert radius < 16 or (mv_p.abs() > 4).any()
+
+
+# f16 q/k/v (csrc/attention_f16.cu, attention_f16_512.cu,
+# attention_f16_deep.cu): every entry point on each f16 build (ragged up
+# to 256, the ragged SLAB build, the DEEP one), drawn in f16, within
+# F16_ROW_TOL
+@pytest.mark.parametrize("op", ATTN_OPS)
+@pytest.mark.parametrize("d", [64, 128, 24, 32, 90, 33, 256, 200, 512, 300, 520, 1024])
+def test_attention_kernels_take_f16_qkv(dev, op, d):
+    _held(*_attention_case(op, d, torch.float16, torch.float16), torch.float16)
+
+
+@pytest.mark.parametrize("op", ATTN_OPS)
+def test_attention_kernels_refuse_f16_mixed_with_another_dtype(dev, op):
+    """f16 with bf16 or f32 in one call has no build: it raises naming
+    'kernel-dtype', with no launch."""
+    for q_dt, kv_dt in ((torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16),
+                        (torch.float32, torch.float16)):
+        kernel, _, name, _ = _attention_case(op, 64, q_dt, kv_dt)
+        before = ops.launch_counts().get(name, 0)
+        with pytest.raises(KernelError, match="kernel-dtype"):
+            kernel()
+        assert ops.launch_counts().get(name, 0) == before
+
+
+@pytest.mark.parametrize("d", [128, 90, 512, 1024])
+def test_f16_int8_all_hot_is_bitwise_f16(dev, d):
+    """An all-hot page table over an f16 slab: the int8 kernel's result
+    is bitwise the f16 kernel's."""
+    _all_hot_refresh(dev, d, torch.float16)

@@ -42,6 +42,11 @@ from torch_threads import torch_one_thread  # noqa: E402,F401
 
 BF16_TOL = 3e-2
 F32_TOL = 1e-5
+# f16 rounds at 2^-11: outputs of about unit size agree within a few of its
+# steps (P rounded to f16 after softmaxes that differ in order)
+F16_TOL = 4e-3
+TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL, "float16": F16_TOL}
+DTYPES = ["float32", "bfloat16", "float16"]
 
 
 def t(x):
@@ -49,13 +54,14 @@ def t(x):
 
 
 def as_dtype(x: np.ndarray, dtype: str):
-    """The same values for both frameworks: bf16 inputs are rounded once
-    (through torch) and handed over as exactly representable f32."""
+    """The same values for both frameworks: bf16 and f16 inputs are
+    rounded once (through torch) and handed over as exactly representable
+    f32."""
     if dtype == "float32":
         return jnp.asarray(x), t(x)
-    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
     xf = xt.float().numpy()
-    return jnp.asarray(xf).astype(jnp.bfloat16), xt
+    return jnp.asarray(xf).astype(getattr(jnp, dtype)), xt
 
 
 def f32(a) -> np.ndarray:
@@ -132,7 +138,7 @@ def test_mv_sad_launch_geometry(block, radius):
 # ----------------------------------------------------------------------
 # rope_shift
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_rope_shift_plain_matches_pallas(dtype):
     rng = np.random.default_rng(1)
     k = rng.normal(size=(2, 128, 2, 64)).astype(np.float32)
@@ -142,7 +148,7 @@ def test_rope_shift_plain_matches_pallas(dtype):
     out_o = jref.rope_shift_ref(kj, jnp.asarray(delta))
     out_t = ref.rope_shift_ref(kt, t(delta))
     assert out_t.dtype == kt.dtype
-    tol = BF16_TOL if dtype == "bfloat16" else 1e-4
+    tol = {**TOL, "float32": 1e-4}[dtype]
     np.testing.assert_allclose(f32(out_t), f32(out_j), atol=tol)
     np.testing.assert_allclose(f32(out_t), f32(out_o), atol=tol)
 
@@ -181,7 +187,7 @@ def _paged_case(n_streams=2, pages_per=2, h=4, hkv=2, d=32, seed=11, dtype="floa
 
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_refresh_paged_plain_matches_pallas(pattern, dtype):
     q_pos = SCATTER_PATTERNS[pattern]
     kj, kt, vj, vt, pt, kvv = _paged_case(dtype=dtype)
@@ -195,7 +201,7 @@ def test_flash_refresh_paged_plain_matches_pallas(pattern, dtype):
     o_o = jref.flash_refresh_paged_ref(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv),
                                        jnp.asarray(pt))
     o_t = flash_refresh_paged_plain(qt, kt, vt, t(qp), t(kvv), t(pt), q_chunk=64)
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    tol = TOL[dtype]
     np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
     np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
 
@@ -215,7 +221,7 @@ def test_flash_refresh_paged_fully_masked_rows_are_zero():
 # flash_refresh (per-stream caches)
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_refresh_plain_matches_pallas(pattern, dtype):
     """Per-stream caches (B, Sk, Hkv, D): the op's plain version (through
     a map, as the serving path calls it) against the Pallas kernel in
@@ -233,7 +239,7 @@ def test_flash_refresh_plain_matches_pallas(pattern, dtype):
     o_o = jref.flash_refresh_ref(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kvv))
     o_t = ops.flash_refresh(qt, kt, vt, t(qp), t(kvv), block_map=build_block_map(q_pos, 256),
                             q_chunk=64)
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    tol = TOL[dtype]
     np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
     np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
     assert o_t.dtype == qt.dtype
@@ -262,7 +268,7 @@ def _quant_case(seed=21, hkv=2, d=32):
     return hk, hv, (k8, v8, ks, vs), pt, kvv
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_gather_quant_equals_jax(dtype):
     hk, _, (k8, _, ks, _), pt, _ = _quant_case()
     hj, ht = as_dtype(hk, dtype)
@@ -274,7 +280,7 @@ def test_paged_gather_quant_equals_jax(dtype):
 
 
 @pytest.mark.parametrize("pattern", sorted(SCATTER_PATTERNS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_refresh_paged_int8_plain_matches_pallas(pattern, dtype):
     q_pos = SCATTER_PATTERNS[pattern]
     hk, hv, (k8, v8, ks, vs), pt, kvv = _quant_case()
@@ -294,7 +300,7 @@ def test_flash_refresh_paged_int8_plain_matches_pallas(pattern, dtype):
                                   block_map=build_block_map(q_pos, 384), q_chunk=64,
                                   cold=cold_t)
     assert ops.dispatch_counts() == {"flash_refresh_paged_int8": {"backend:ok": 1}}
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    tol = TOL[dtype]
     np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
     np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
 
@@ -347,7 +353,7 @@ PACK_LAYOUTS = {
 
 
 @pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_packed_plain_matches_pallas(layout, dtype):
     seg = _seg_layout(PACK_LAYOUTS[layout], 256)
     R = seg.shape[0]
@@ -360,7 +366,7 @@ def test_flash_packed_plain_matches_pallas(layout, dtype):
                               jnp.asarray(bm.tile_count), interpret=True)
     o_o = jref.flash_packed_ref(qj, kj, vj, jnp.asarray(seg))
     o_t = flash_packed_plain(qt, kt, vt, t(seg), q_chunk=128)
-    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    tol = TOL[dtype]
     np.testing.assert_allclose(f32(o_t), f32(o_j), atol=tol)
     np.testing.assert_allclose(f32(o_t), f32(o_o), atol=tol)
     assert (f32(o_t)[seg < 0] == 0).all()

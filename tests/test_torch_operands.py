@@ -183,12 +183,24 @@ def test_every_attention_op_takes_every_head_dim_past_512(d):
 @pytest.mark.parametrize("d, q_dt, kv_dt, code", [
     (20, BF16, BF16, "ok"), (520, BF16, BF16, "ok"), (520, F32, BF16, "ok"),
     (1024, BF16, BF16, "ok"), (1024, F32, BF16, "ok"), (4096, BF16, BF16, "ok"),
-    (4096, F32, BF16, "ok"), (64, F16, F16, "kernel-dtype"), (64, F16, BF16, "kernel-dtype")])
+    (4096, F32, BF16, "ok"), (64, F16, F16, "ok"), (64, F16, BF16, "kernel-dtype"),
+    (64, BF16, F16, "kernel-dtype"), (64, F32, F16, "kernel-dtype")])
 def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
-    """f16 is refused by name; d 20, once refused for not being a
+    """f16 mixed with another dtype in one call is refused by name; f16
+    q/k/v, once refused (no f16 build), d 20, once refused for not being a
     multiple of 8, and d 520, 1024 and 4096, once refused for passing
     512, are taken."""
     assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
+
+
+@pytest.mark.parametrize("d", [20, 64, 90, 128, 256, 512, 520, 1024, 4096])
+def test_every_attention_op_takes_f16_qkv(d):
+    """f16 q, k and v (the f16 builds: ragged up to 256, the SLAB build to
+    512, the DEEP one past it) at every width class; an f16 query over
+    bf16 K/V, or a bf16 one over f16 K/V, stays refused."""
+    assert _verdicts(d, F16, F16) == {op: "ok" for op in ATTN_OPS}
+    assert _verdicts(d, F16, BF16) == {op: "kernel-dtype" for op in ATTN_OPS}
+    assert _verdicts(d, BF16, F16) == {op: "kernel-dtype" for op in ATTN_OPS}
 
 
 @pytest.mark.parametrize("d", range(2, 513, 2))
@@ -196,6 +208,7 @@ def test_rope_shift_takes_every_even_head_dim(d):
     k, delta = _m((2, 40, 4, d)), _m((2, 40), torch.int32)
     assert contracts.rope_shift_verdict(k, delta).reason == "ok"
     assert contracts.rope_shift_verdict(_m((2, 40, 4, d), F32), delta).reason == "ok"
+    assert contracts.rope_shift_verdict(_m((2, 40, 4, d), F16), delta).reason == "ok"
 
 
 @pytest.mark.parametrize("block, radius", [(16, 16), (16, 32), (8, 16), (12, 32), (8, 4),
@@ -368,8 +381,8 @@ def test_encode_stream_at_radius_16_matches_jax():
 # the attention kernels' plain versions at head dim 256 against JAX
 # ----------------------------------------------------------------------
 def _wide_inputs(dtype: str, seed: int = 29, D: int = 256):
-    """numpy inputs at head dim D (H 4 over Hkv 2), rounded to bf16
-    once where ``dtype`` is bf16, for both frameworks: queries at a
+    """numpy inputs at head dim D (H 4 over Hkv 2), rounded to bf16 or
+    f16 once where ``dtype`` is, for both frameworks: queries at a
     scatter of 150 positions over 3 pages of 128 keys per stream, a
     shuffled slab of 7 pages (2 int8 cold pages with per-(page, head)
     scales), and two packed rows of three and one segment."""
@@ -378,9 +391,9 @@ def _wide_inputs(dtype: str, seed: int = 29, D: int = 256):
 
     def both(a):
         a = a.astype(np.float32)
-        if dtype == "bfloat16":
-            tt = torch.from_numpy(a).to(torch.bfloat16)
-            return jnp.asarray(tt.float().numpy()).astype(jnp.bfloat16), tt
+        if dtype in ("bfloat16", "float16"):
+            tt = torch.from_numpy(a).to(getattr(torch, dtype))
+            return jnp.asarray(tt.float().numpy()).astype(getattr(jnp, dtype)), tt
         return jnp.asarray(a), torch.from_numpy(a)
 
     q_pos = np.concatenate([np.arange(0, 30), np.arange(260, 380)]).astype(np.int32)
@@ -406,13 +419,13 @@ WIDE_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
             "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("op", WIDE_OPS)
 def test_plain_versions_at_head_dim_256_match_jax(op, dtype):
     _plain_matches_jax(op, dtype, 256)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("op", WIDE_OPS)
 @pytest.mark.parametrize("d", [512, 320, 300])
 def test_plain_versions_at_head_dims_past_256_match_jax(d, op, dtype):
@@ -422,7 +435,7 @@ def test_plain_versions_at_head_dims_past_256_match_jax(d, op, dtype):
     _plain_matches_jax(op, dtype, d)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("op", WIDE_OPS)
 @pytest.mark.parametrize("d", [520, 1000, 1023, 1024])
 def test_plain_versions_at_head_dims_past_512_match_jax(d, op, dtype):
@@ -432,7 +445,7 @@ def test_plain_versions_at_head_dims_past_512_match_jax(d, op, dtype):
     _plain_matches_jax(op, dtype, d)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("op", ["flash_refresh", "flash_refresh_paged_int8", "flash_packed",
                                 "flash_prefill"])
 @pytest.mark.parametrize("d", [20, 33, 90])
@@ -474,21 +487,22 @@ def _plain_matches_jax(op: str, dtype: str, D: int):
         o_j = jref.flash_packed_ref(pqj, pkj, pvj, jnp.asarray(x["seg"]))
         o_t = flash_packed_plain(pqt, pkt, pvt, t(x["seg"]))
     assert tuple(o_t.shape) == tuple(o_j.shape) and o_t.shape[-1] == D
-    assert o_t.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
-    tol = 1e-5 if dtype == "float32" else 3e-2
+    assert o_t.dtype == getattr(torch, dtype)
+    tol = {"float32": 1e-5, "bfloat16": 3e-2, "float16": 4e-3}[dtype]
     np.testing.assert_allclose(o_t.float().numpy(), np.asarray(o_j, np.float32), atol=tol)
 
 
 def test_rope_shift_plain_at_an_odd_half_matches_jax():
-    """d 90: 45 rotation pairs a half (the kernel's one-pair chunks), f32
-    and bf16, against the JAX package's oracle (test_torch_kernels.py's
-    limits: 1e-4 in f32 at angles of hundreds of radians, one bf16 step)."""
+    """d 90: 45 rotation pairs a half (the kernel's one-pair chunks), f32,
+    bf16 and f16, against the JAX package's oracle (test_torch_kernels.py's
+    limits: 1e-4 in f32 at angles of hundreds of radians, one bf16 step;
+    one f16 step, 2^-10 at values below 2)."""
     rng = np.random.default_rng(31)
     k = rng.normal(size=(2, 64, 8, 90)).astype(np.float32)
     delta = rng.integers(-700, 700, size=(2, 64)).astype(np.int32)
-    for dt, tol in ((F32, 1e-4), (BF16, 2.0 ** -6)):
+    for dt, tol in ((F32, 1e-4), (BF16, 2.0 ** -6), (F16, 2.0 ** -9)):
         kt = torch.from_numpy(k).to(dt)
-        kj = jnp.asarray(kt.float().numpy()).astype(jnp.float32 if dt == F32 else jnp.bfloat16)
+        kj = jnp.asarray(kt.float().numpy()).astype(str(dt)[6:])
         out_t = rope_shift_plain(kt, torch.from_numpy(delta))
         out_j = jref.rope_shift_ref(kj, jnp.asarray(delta))
         assert out_t.dtype == dt and out_t.shape == k.shape
@@ -613,3 +627,78 @@ def test_chip_smoke_phase_7l_case_is_internvl3_14b_with_heads_of_1024():
     assert all(r.verdict == "kernel" for r in rows.values()), rows
     assert rows["flash_packed"].geometry == "ViT H 1 D 1024"
     assert rows["rope_shift"].geometry == "Hkv 1, D 1024, bfloat16"
+
+
+def test_chip_smoke_f16_phase_names_every_kernel_with_a_float_operand():
+    """chip_smoke's f16 phase (``--only f16``, also run in the full run's
+    phase 3) has an f16 row for every kernel of PERF.md's rows 2-10 (every
+    kernel but mv_sad, whose frames take any real dtype), each naming the
+    TPU kernel it replaces and an f16 source in the checkout, with its own
+    launch path (the phase's run of the ops); the attention kernels at d 90,
+    512 and 1024 beside their serving shapes (on the ragged, SLAB and DEEP
+    f16 builds), the scan at mamba2-2.7b's four serving shapes and at N
+    256, its backward at the training shape; the registry takes f16 q/k/v
+    at each of those widths."""
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    cs = _chip_smoke()
+    assert set(cs.F16_ROWS) == {
+        "rope_shift", "flash_refresh_paged", "flash_refresh_paged_int8", "flash_refresh",
+        "flash_packed", "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8",
+        "ssd_scan", "ssd_scan_bwd"}
+    for name, (replaces, source, cases) in cs.F16_ROWS.items():
+        assert (root / source).is_file(), source
+        assert replaces.startswith("none") or (root / replaces.split(":")[0]).is_file()
+        assert cs.LAUNCH_PATH[cs.F16_NAME.format(name)] == cs.F16_PATH
+        if name.startswith("flash_"):
+            assert source.endswith("attention_f16.cu") and cases[-3:] == cs.F16_WIDE
+    assert cs.F16_WIDE == ("D 90", "D 512", "D 1024")
+    assert set(cs.F16_PACKED_HEADS) == set(cs.F16_WIDE)
+    assert {label: (root / src).is_file() for label, src in cs.F16_SOURCES.items()} == {
+        "D 512": True, "D 1024": True}
+    assert [c[5] for c in cs.SCAN_F16.values()] == [128, 128, 128, 128, 256]
+    assert [c[1] for c in cs.SCAN_F16.values()] == [160, 40, 8, 4096, 160]
+    assert cs.SCAN_BWD_F16 == {"mamba2-2.7b training": (2, 2048, 80, 64, 1, 128, 256)}
+    for d in (128, 90, 512, 1024):
+        assert _verdicts(d, F16, F16) == {op: "ok" for op in ATTN_OPS}
+
+
+@pytest.mark.parametrize("op", ["flash_prefill", "flash_refresh", "flash_packed"])
+@pytest.mark.parametrize("d", [64, 90, 128])
+def test_chip_smoke_f16_limit_tells_f16_from_bf16_numerics(op, d):
+    """chip_smoke's f16 attention limit (F16_ROW_TOL) on the plain
+    versions, with operands drawn in f16: the f16 answer sits inside it
+    from the same function in f32, while the answer over operands
+    rounded through bf16 (the control each f16 case runs on the kernel),
+    and the f16 answer rounded through bf16, fall outside it."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(d)
+    H, Hkv, S = 4, 1, 512
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g).half()
+
+    q, k, v = draw(1, S, H, d), draw(1, S, Hkv, d), draw(1, S, Hkv, d)
+    if op == "flash_prefill":
+        fn = flash_prefill_plain
+    elif op == "flash_refresh":
+        q_pos, valid = torch.arange(S)[None], torch.ones((1, S), dtype=torch.bool)
+
+        def fn(q, k, v):
+            return flash_refresh_plain(q, k, v, q_pos, valid)
+    else:
+        seg = torch.as_tensor(np.repeat(np.arange(4), S // 4)[None], dtype=torch.int32)
+        k, v = draw(1, S, H, d), draw(1, S, H, d)
+
+        def fn(q, k, v):
+            return flash_packed_plain(q, k, v, seg)
+
+    def rel(a, b):
+        err = (a.float() - b.float()).abs() / b.float().abs().amax(-1, keepdim=True)
+        return float(err.max())
+
+    out = fn(q, k, v)
+    assert out.dtype == F16
+    assert rel(out, fn(q.float(), k.float(), v.float())) <= cs.F16_ROW_TOL
+    assert rel(fn(*(t.bfloat16().half() for t in (q, k, v))), out) > 2 * cs.F16_ROW_TOL
+    assert rel(out.bfloat16().half(), out) > cs.F16_ROW_TOL

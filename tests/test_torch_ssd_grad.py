@@ -12,8 +12,8 @@ row, head), b/c per (batch row, group), log_a per (batch row, head), the
 initial state per (batch row, head)): f32 within 1e-5 (both sum the same
 f32 products in other orders: read 1e-7 .. 4e-7 of the global max); bf16
 within 2^-7, one bf16 step (both round f32 values that differ by that
-order).  The cases run N 16 and, at two column slabs, N 256 (f32, and
-bf16 at G 2).
+order); f16 within 2^-9, two f16 steps.  The cases run N 16 and, at two
+column slabs, N 256 (f32, and bf16 at G 2), and f16 at N 16 and 256.
 
 The backward kernel's three stages in their plain versions (each
 chunk's (e o dY)^T C, the sequential dS pass, the chunk-local rest),
@@ -49,7 +49,8 @@ from repro_torch.models.init import meta_lm_params, trainable
 from repro_torch.training.train_step import Batch, loss_fn, tree_grads
 from torch_threads import torch_one_thread  # noqa: E402,F401
 
-F32_TOL, BF16_TOL = 1e-5, 2.0 ** -7
+F32_TOL, BF16_TOL, F16_TOL = 1e-5, 2.0 ** -7, 2.0 ** -9
+TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL, "float16": F16_TOL}
 NAMES = ("x", "log_a", "b", "c", "init")
 # the dims of each gradient reduced within one slice
 SLICE_DIMS = {"x": (1, 3), "log_a": (1,), "b": (1, 3), "c": (1, 3), "init": (2, 3)}
@@ -63,6 +64,8 @@ CASES = {
     "G1, bf16, ragged": (1, 21, 4, 8, 1, 16, 8, False, True, "bfloat16"),
     "N 256, ragged": (1, 30, 2, 8, 1, 256, 16, True, True, "float32"),
     "N 256, G2, bf16": (2, 24, 4, 8, 2, 256, 8, False, True, "bfloat16"),
+    "G2, f16": (2, 40, 4, 16, 2, 16, 16, True, True, "float16"),
+    "N 256, f16, ragged": (1, 30, 2, 8, 1, 256, 16, False, True, "float16"),
 }
 
 
@@ -126,7 +129,7 @@ def within(got: torch.Tensor, want, name: str, tol: float) -> float:
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_backward_matches_autograd_and_jax_grad(case, jax_refs):
     *_, chunk, _, _, dt = CASES[case]
-    tol = F32_TOL if dt == "float32" else BF16_TOL
+    tol = TOL[dt]
     a = case_arrays(case)
     t = torch_inputs(case, requires_grad=True)
     names = [n for n in NAMES if t[n] is not None]

@@ -2,9 +2,10 @@
 
 The JAX package's ``ssd_scan_pallas`` takes any head width P, state
 width N and chunk, x / log_a / b / c in f32, bf16 or f16 (b == c), and
-any L.  The port's kernel takes all of it but f16
-(``contracts.SSD_SCAN``): bf16 x, b and c in the serving layout are read
-in place, anything else passes a staging kernel first
+any L.  The port's kernel takes all of it (``contracts.SSD_SCAN`` has
+no eligibility rule left): bf16 x, b and c in the serving layout are
+read in place, anything else (f16 too: an f16 value is exactly its bf16
+hi + lo halves) passes a staging kernel first
 (``ssd_scan.operand_mode``), a chunk past 256 runs as sub-chunks of
 at most 256 steps (``ssd_scan.scan_chunk``), and N past 128 runs on the
 slabbed build as N / 128 column slabs of 128 (``ssd_scan.column_slabs``;
@@ -12,11 +13,13 @@ other N on the next multiple of 128).
 Here, on CPU tensors and the same numpy inputs:
 
 * ``ops.ssd_scan`` (its plain version) against the JAX package's
-  ``ops.ssd_scan`` in f32 and bf16 at chunk 512 over a ragged L, N 24,
-  32, 192, 256, 320 and 384, P 12, a strided x and a bf16 log_a, within
+  ``ops.ssd_scan`` in f32, bf16, f16 and the f16 / bf16 mixes (x in one,
+  b and c in the other) at chunk 512 over a ragged L, N 24, 32, 192,
+  256, 320 and 384, P 12, a strided x and a bf16 log_a, within
   ``test_torch_ssd.py``'s limits (f32: 2e-5 of the output's scale; bf16:
-  y within 2^-7, the state within 2e-5), and each case's verdict and
-  operand mode; f16 refused by name, N 264 taken;
+  y within 2^-7, the state within 2e-5; f16: y within one f16 step
+  above f32's, 2^-9), and each case's verdict and operand mode; f16
+  taken, N 264 taken;
 * the sub-chunk identity: the plain version mirroring the kernel's
   sub-chunks equals the JAX scan at the whole chunk (f32, 2e-5); the
   column-slab identity the slabbed build rests on (N 256 and 384): y and
@@ -50,7 +53,7 @@ from repro_torch.models.init import from_numpy_tree, meta_lm_params, trainable
 from repro_torch.training.train_step import Batch, loss_fn, tree_grads
 from torch_threads import torch_one_thread  # noqa: F401
 
-F32_TOL, BF16_TOL = 2e-5, 2.0 ** -7
+F32_TOL, BF16_TOL, F16_TOL = 2e-5, 2.0 ** -7, 2.0 ** -9
 # (B, L, H, P, G, N, chunk, layout): layout "packed", "strided" (x a
 # view with its heads and features transposed in memory) or "bf16 log_a"
 CASES = {
@@ -65,12 +68,21 @@ CASES = {
     "strided x": (2, 40, 4, 16, 1, 16, 16, "strided"),
     "bf16 log_a": (2, 40, 4, 8, 1, 16, 16, "bf16 log_a"),
 }
-DTYPES = ("float32", "bfloat16")
+# x's dtype, or "x+bc": x in one dtype, b and c in the other (the
+# reference's rule: b == c)
+DTYPES = ("float32", "bfloat16", "float16", "float16+bfloat16", "bfloat16+float16")
+Y_TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL, "float16": F16_TOL}
+
+
+def split_dtype(dtype: str):
+    """(x's dtype, b's and c's) of a ``DTYPES`` entry."""
+    x_dt, _, bc_dt = dtype.partition("+")
+    return x_dt, bc_dt or x_dt
 
 
 def arrays(case: str, dtype: str, seed: int = 0):
-    """numpy inputs of one case; bf16 operands (and a bf16 log_a) rounded
-    once through torch, so both packages see the same values."""
+    """numpy inputs of one case; bf16 and f16 operands (and a bf16 log_a)
+    rounded once through torch, so both packages see the same values."""
     B, L, H, P, G, N, _, layout = CASES[case]
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, L, H, P)).astype(np.float32)
@@ -78,10 +90,10 @@ def arrays(case: str, dtype: str, seed: int = 0):
     b, c = ((rng.normal(size=(B, L, G, N)) * 0.5).astype(np.float32) for _ in range(2))
     init = (rng.normal(size=(B, H, P, N)) * 0.1).astype(np.float32)
 
-    def rounded(a):
-        return torch.from_numpy(a).bfloat16().float().numpy()
-    if dtype == "bfloat16":
-        x, b, c = rounded(x), rounded(b), rounded(c)
+    def rounded(a, dt="bfloat16"):
+        return a if dt == "float32" else torch.from_numpy(a).to(getattr(torch, dt)).float().numpy()
+    x_dt, bc_dt = split_dtype(dtype)
+    x, b, c = rounded(x, x_dt), rounded(b, bc_dt), rounded(c, bc_dt)
     if layout == "bf16 log_a":
         la = rounded(la)
     return x, la, b, c, init
@@ -89,21 +101,21 @@ def arrays(case: str, dtype: str, seed: int = 0):
 
 def torch_operands(case: str, dtype: str):
     x, la, b, c, init = arrays(case, dtype)
-    td = getattr(torch, dtype)
+    xd, bd = (getattr(torch, dt) for dt in split_dtype(dtype))
     layout = CASES[case][-1]
-    xt = torch.from_numpy(x).to(td)
+    xt = torch.from_numpy(x).to(xd)
     if layout == "strided":
         xt = xt.transpose(2, 3).contiguous().transpose(2, 3)
     lat = torch.from_numpy(la).to(torch.bfloat16 if layout == "bf16 log_a" else torch.float32)
-    return xt, lat, torch.from_numpy(b).to(td), torch.from_numpy(c).to(td), torch.from_numpy(init)
+    return xt, lat, torch.from_numpy(b).to(bd), torch.from_numpy(c).to(bd), torch.from_numpy(init)
 
 
 def jax_scan(case: str, dtype: str, chunk=None):
     x, la, b, c, init = arrays(case, dtype)
-    jd = getattr(jnp, dtype)
+    xd, bd = (getattr(jnp, dt) for dt in split_dtype(dtype))
     ld = jnp.bfloat16 if CASES[case][-1] == "bf16 log_a" else jnp.float32
-    y, st = jops.ssd_scan(jnp.asarray(x, jd), jnp.asarray(la, ld), jnp.asarray(b, jd),
-                          jnp.asarray(c, jd), jnp.asarray(init), chunk=chunk or CASES[case][6])
+    y, st = jops.ssd_scan(jnp.asarray(x, xd), jnp.asarray(la, ld), jnp.asarray(b, bd),
+                          jnp.asarray(c, bd), jnp.asarray(init), chunk=chunk or CASES[case][6])
     return np.asarray(y.astype(jnp.float32)), np.asarray(st)
 
 
@@ -133,8 +145,9 @@ def test_every_reference_operand_matches_jax_and_takes_the_kernel(case, dtype, j
     ops_ = torch_operands(case, dtype)
     y, st = ops.ssd_scan(*ops_, chunk=CASES[case][6])
     y_j, s_j = jax_refs[case, dtype]
-    assert y.dtype == getattr(torch, dtype) and st.dtype == torch.float32
-    close(y, y_j, BF16_TOL if dtype == "bfloat16" else F32_TOL)
+    x_dt = split_dtype(dtype)[0]
+    assert y.dtype == getattr(torch, x_dt) and st.dtype == torch.float32
+    close(y, y_j, Y_TOL[x_dt])
     close(st, s_j, F32_TOL)
     assert contracts.ssd_scan_verdict(*ops_, CASES[case][6]).use_kernel, case
     x, _, b, c, _ = ops_
@@ -143,21 +156,23 @@ def test_every_reference_operand_matches_jax_and_takes_the_kernel(case, dtype, j
 
 
 def test_f16_and_n136_are_refused_by_name():
-    """f16 operands are refused by name; N 264, once the first width past
-    the builds, runs staged on the slabbed build at 384, as N 136 runs on
-    256, and f16 is the scan's one eligibility rule left."""
+    """f16 operands, once refused by name (no f16 build), are taken
+    (staged), alone and beside f32 and bf16 ones; N 264, once the first
+    width past the builds, runs staged on the slabbed build at 384, as N
+    136 runs on 256; the scan has no eligibility rule left."""
     x, la, b, c, init = torch_operands("N 24", "float32")
-    assert contracts.ssd_scan_verdict(x.half(), la, b, c, init, 16).reason == "kernel-dtype"
-    assert contracts.ssd_scan_verdict(x, la, b.half(), c.half(), None, 16).reason == \
-        "kernel-dtype"
-    assert contracts.ssd_scan_verdict(x, la, b, c, init.half(), 16).reason == "kernel-dtype"
+    for args in ((x.half(), la, b, c, init), (x, la, b.half(), c.half(), None),
+                 (x, la, b, c, init.half()), (x.half(), la.half(), b.half(), c.half(), None),
+                 (x.bfloat16(), la, b.half(), c.half(), init)):
+        assert contracts.ssd_scan_verdict(*args, 16).reason == "ok"
+        assert S.operand_mode(*args[:1], *args[2:4]) == S.SPLIT
     wide = torch.zeros(2, 40, 2, 264)
     assert contracts.ssd_scan_verdict(x, la, wide, wide, None, 16).use_kernel
     assert contracts.ssd_scan_verdict(x, la, wide[..., :256], wide[..., :256], None,
                                       16).use_kernel
     assert [S.build_width(n) for n in (136, 256, 264, 320, 384, 512)] == [
         256, 256, 384, 384, 384, 512]
-    assert [r.code for r in contracts.SSD_SCAN.eligibility] == ["kernel-dtype"]
+    assert [r.code for r in contracts.SSD_SCAN.eligibility] == []
 
 
 def test_sub_chunks_equal_the_whole_chunk():
