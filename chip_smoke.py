@@ -16,6 +16,7 @@ and check them.
     python3 chip_smoke.py --only d512
     python3 chip_smoke.py --only d1024
     python3 chip_smoke.py --only f16
+    python3 chip_smoke.py --only mixed
     python3 chip_smoke.py --only deep-step
     python3 chip_smoke.py --only hosttime [--src DIR]
 
@@ -185,11 +186,25 @@ Phases (any failure exits non-zero):
                through bf16 must fail it; the int8 kernels' all-hot table
                bitwise the f16 kernel, its device ms beside the bf16
                build's on ``.bfloat16()`` copies, its bound and its f16
-               library call (SDPA, gather + SDPA); each attention case
-               once with an f16 query over bf16 K/V, which must raise
+               library call (SDPA, gather + SDPA); each cache kernel's
+               case once with its K/V in f32, which must raise
                'kernel-dtype' with no launch; then each
                kernel's first case once through ``ops`` (the f16 path: its
-               rows' launches).  Then the dense mha (a library GEMM, no
+               rows' launches).  Then the mixed phase (``--only mixed``,
+               after the f16 cases it takes; check_mixed): each attention
+               kernel's first f16 case at D 128 (the ViT's D 64) and at d
+               90, 512 and 1024 with a query of another type than its K/V
+               (MIXED_PAIRS: f16 over bf16, bf16 or f32 over f16; in
+               flash_packed and flash_prefill also bf16 or f16 over f32),
+               operands drawn in f32 and rounded once, against its plain
+               version within mixed_tol, its output in q's type, one
+               launch; at D 128 (64) its device ms beside the build that
+               does the same products (mixed_base), within MIXED_RATIO
+               (1.15x) of it at D 128, a profiler trace of five calls that lists no
+               kernel but the entry's own and no host copy or cast op,
+               its bound; then each pair once
+               through ``ops`` (the mixed path: its rows' launches, no
+               plain call on CUDA).  Then the dense mha (a library GEMM, no
                row): at whisper-large-v3's cross-attention and
                internvl3-14b's encode_full against the f32-widened
                formula within HEAD_TOL, with no f32 copy of K, V or P and
@@ -425,7 +440,8 @@ flash_prefill_paged, which no serving path calls, this slice's main
 path (mamba2-2.7b, codecflow), where they count 0; for ssd_scan_bwd,
 which only training launches, phase 8(e)'s run; for the f16 rows
 (``<kernel>_f16``: no model makes f16 operands, so a library caller's
-``ops`` calls are their path), the f16 phase's run of the ops.  ``launches_by_path``
+``ops`` calls are their path), the f16 phase's run of the ops; for the
+mixed rows (``<kernel>_mixed``), the mixed phase's.  ``launches_by_path``
 has the count of every path's own run, and of the kernel phase (the
 checks and their timing loops; counts set to 0 just before it).
 """
@@ -614,7 +630,7 @@ ATTN_STRUCTS = ("RefreshPaged", "Refresh", "PrefillPaged", "Prefill", "Packed")
 
 
 # csrc/attention.cuh's operand types (OPS_BF16 = 0 is the exact label)
-BUILD_OPS = {"1": ", f32 q", "2": ", f32 q/k/v", "3": ", f16"}
+BUILD_OPS = {"1": ", f32 q", "2": ", f32 q/k/v", "3": ", f16", "4": ", f16 k/v, split q"}
 # csrc/ssd_scan.cuh's operand modes
 SCAN_MODES = {"0": "bf16 in place", "1": "staged hi/lo"}
 
@@ -974,7 +990,9 @@ def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_byte
     ``extra_bytes`` of masks and tables; 4 D H flops per live (query,
     key) pair.  ``op``: (kernel name, its ``ops`` entry point over
     ``args``), which the f16 phase's path calls once (F16_CALLS: an f16
-    kernel's first case).  Returns (ok, readings)."""
+    kernel's first case) and the mixed phase runs with q and K/V of two
+    types (MIXED_CASES: an f16 kernel's first case at each head dim).
+    Returns (ok, readings)."""
     out_k, out_p = kernel(*args), plain()
     err, rel = attn_errors(torch, out_k, out_p)
     B, Sq, H, D = q.shape
@@ -985,9 +1003,14 @@ def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_byte
     if dead_rows_zero:
         r["dead_zero"] = bool((out_k[~mask.expand(B, -1, -1).any(-1)] == 0).all())
     live = float(mask.sum()) * (B // mask.shape[0])
-    n_bytes = (2 * q.numel() * q.element_size()
-               + key_bytes(mask.any(1).expand(B, -1)) * n_kv * D * 2 + extra_bytes)
-    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * H * live, BF16_TENSOR_FLOPS)
+    kv_bytes = key_bytes(mask.any(1).expand(B, -1)) * n_kv * D * 2
+
+    def work(q_size, kv_size):     # (flops, bytes) with q and K/V elements of these sizes
+        return (4.0 * D * H * live, 2 * q.numel() * q_size
+                + kv_bytes * kv_size / k_size + extra_bytes)
+    k_size = args[1].element_size()
+    flops, n_bytes = work(q.element_size(), k_size)
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
     in_bytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
     r.update(ms=cuda_ms(torch, lambda: kernel(*args), 10),
              device_ms=device_ms(torch, kernel, args, in_bytes),
@@ -996,9 +1019,11 @@ def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_byte
              bound_ms=b_ms, bound_by=b_by)
     ok = rel <= tol and r.get("dead_zero", True)
     if f16:
-        ok = f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes) and ok
+        ok = f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes,
+                          refuse_f32_kv=op is None or op[0] != "flash_prefill") and ok
         if op is not None:
             F16_CALLS.setdefault(op[0], (op[1], args))
+            MIXED_CASES.setdefault((op[0], D), (kernel, op[1], args, work))
     return ok, r
 
 
@@ -1006,16 +1031,23 @@ def check_attention(torch, kernel, args, plain, library, q, n_kv, mask, key_byte
 # its first f16 case), filled by the checks as they run, called once by
 # check_f16
 F16_CALLS = {}
+# the mixed phase's cases: (kernel name, head dim) -> (its wrapper over the
+# args, its ops entry point, the args of its first f16 case at that head
+# dim, work(q element size, K/V element size) -> (flops, bytes)), filled
+# by the f16 phase's checks, run by check_mixed
+MIXED_CASES = {}
 
 
-def f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes) -> bool:
+def f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes, refuse_f32_kv=True) -> bool:
     """An f16 attention case's further readings into ``r`` (which holds its
     ``tol``): the bf16 build's device ms on ``.bfloat16()`` copies of the
     f16 operands in ``args``; the control, the kernel fed those operands
     rounded through bf16 (what a path reading f16 as bf16 computes), whose
-    row-relative error against ``out_p`` must exceed ``tol``; and an f16
-    query over the other operands in bf16, which must raise 'kernel-dtype'
-    with no launch.  True if all three held and ``out_k`` is f16."""
+    row-relative error against ``out_p`` must exceed ``tol``; and, where
+    ``refuse_f32_kv`` (the cache kernels), the f16 query over K/V in f32,
+    which must raise 'kernel-dtype' with no launch (flash_packed and
+    flash_prefill take it: the mixed phase).  True if all held and
+    ``out_k`` is f16."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.cuda import KernelError
     half = [torch.is_tensor(a) and a.dtype == torch.float16 for a in args]
@@ -1023,15 +1055,17 @@ def f16_readings(torch, kernel, args, out_k, out_p, r, in_bytes) -> bool:
     r["bf16_device_ms"] = device_ms(torch, kernel, bf, in_bytes)
     _, r["control_rel"] = attn_errors(
         torch, kernel(*[a.half() if h else a for a, h in zip(bf, half)]), out_p)
-    before = sum(ops.launch_counts().values())
-    try:
-        kernel(args[0], *bf[1:])
-        r["mixed"] = "no refusal"
-    except KernelError as e:
-        r["mixed"] = "kernel-dtype" if "kernel-dtype" in str(e) else str(e)
-    launched = sum(ops.launch_counts().values()) - before
+    launched = 0
+    if refuse_f32_kv:
+        before = sum(ops.launch_counts().values())
+        try:
+            kernel(args[0], args[1].float(), args[2].float(), *args[3:])
+            r["f32_kv"] = "no refusal"
+        except KernelError as e:
+            r["f32_kv"] = "kernel-dtype" if "kernel-dtype" in str(e) else str(e)
+        launched = sum(ops.launch_counts().values()) - before
     return (out_k.dtype == torch.float16 and r["control_rel"] > r["tol"]
-            and r["mixed"] == "kernel-dtype" and launched == 0)
+            and r.get("f32_kv", "kernel-dtype") == "kernel-dtype" and launched == 0)
 
 
 def attention_reading(r, library: str) -> str:
@@ -1047,9 +1081,9 @@ def f16_note(r) -> str:
     """f16_readings' readings in words ('' for a case in another dtype)."""
     if "control_rel" not in r:
         return ""
+    f32_kv = f", f32 K/V: {r['f32_kv']}" if "f32_kv" in r else ""
     return (f"; f16: bf16 build {r['bf16_device_ms']:.4f} ms on the device, operands through "
-            f"bf16 {r['control_rel']:.3g} (must exceed the limit), f16 q over bf16 K/V: "
-            f"{r['mixed']}")
+            f"bf16 {r['control_rel']:.3g} (must exceed the limit){f32_kv}")
 
 
 def kernel_row(name, replaces, r):
@@ -1059,7 +1093,7 @@ def kernel_row(name, replaces, r):
                 **{k: r[k] for k in ("rel", "tol", *F16_KEYS) if k in r})
 
 
-F16_KEYS = ("bf16_device_ms", "control_rel", "mixed")   # f16_readings' keys
+F16_KEYS = ("bf16_device_ms", "control_rel", "f32_kv")   # f16_readings' keys
 
 
 # csrc/attention.cuh's problem struct per kernel line
@@ -1161,7 +1195,7 @@ def check_flash_refresh_paged(torch, cfg, layout, cache_slots, n_streams, famili
                                                   attn_mask=mask[:, None])
 
         ok_here, r = check_attention(
-            torch, lambda *a: flash_refresh_paged_cuda(*a, bm), (q, k, v, kv_valid, pt),
+            torch, lambda *a, bm=bm: flash_refresh_paged_cuda(*a, bm), (q, k, v, kv_valid, pt),
             lambda: flash_refresh_paged_plain(q, k, v, q_pos, kv_valid, pt), library,
             q, k.shape[1], refresh_mask(torch, q_pos, kv_valid), bf16_keys,
             kv_valid.numel() + pt.numel() * 4,
@@ -1222,7 +1256,7 @@ def check_flash_refresh(torch, cases, n_streams, families=()):
     for label, fcfg, slots, offset, T in families:
         q, k, v, q_pos, kv_valid, bm = _stream_inputs(torch, fcfg, slots, n_streams, offset, T)
         ok_here, r = check_attention(
-            torch, lambda *a: flash_refresh_cuda(*a, bm), (q, k, v, kv_valid),
+            torch, lambda *a, bm=bm: flash_refresh_cuda(*a, bm), (q, k, v, kv_valid),
             lambda: flash_refresh_plain(q, k, v, q_pos, kv_valid),
             lambda mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2).to(q.dtype), v.transpose(1, 2).to(q.dtype),
@@ -1241,7 +1275,7 @@ def check_flash_refresh(torch, cases, n_streams, families=()):
         k, v = paged_gather_ref(ks, pt, 128), paged_gather_ref(vs, pt, 128)
         del ks, vs
         ok_here, r = check_attention(
-            torch, lambda *a: flash_refresh_cuda(*a, bm), (q, k, v, kv_valid),
+            torch, lambda *a, bm=bm: flash_refresh_cuda(*a, bm), (q, k, v, kv_valid),
             lambda: flash_refresh_plain(q, k, v, q_pos, kv_valid),
             lambda mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2).to(q.dtype), v.transpose(1, 2).to(q.dtype),
@@ -1437,8 +1471,13 @@ def check_flash_packed(torch, pipe, streams, heads=None, label=None, dtype=None,
         r = dict(tol=tol)
         if dtype == torch.float16:
             ok = f16_readings(torch, kernel, (q, k, vv), out_k, out_p, r,
-                              3 * q.numel() * esz) and ok
+                              3 * q.numel() * esz, refuse_f32_kv=False) and ok
             F16_CALLS.setdefault("flash_packed", (kernel, (q, k, vv)))
+
+            def work(q_size, kv_size, live=live, H=H, D=D, q=q, seg=seg, mask=mask):
+                return (4.0 * D * H * float(mask.sum()), live * H * D * (q_size + 2 * kv_size)
+                        + q.numel() * q_size + seg.numel() * 4)
+            MIXED_CASES.setdefault(("flash_packed", D), (kernel, kernel, (q, k, vv), work))
         log(f"{name} ({label_p}): {plan.n_frames} P-frames packed into ({R}, {L}), H {H}, "
             f"D {D}, {dt_name(q)}, {bm.visited} visited tiles, fill {plan.fill:.3f}: max abs "
             f"err {err:.3g}, max row-relative err {rel:.3g} (limit {tol:.3g}), padding exact zero: "
@@ -2069,7 +2108,8 @@ def check_flash_prefill(torch, cfg, total_len, n_streams, only=None, label=None,
                 for _ in range(2))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ok_here, r = check_attention(
-            torch, lambda *a: flash_prefill_cuda(*a, window=window, q_offset=off), (q, k, v),
+            torch, lambda *a, w=window, o=off: flash_prefill_cuda(*a, window=w, q_offset=o),
+            (q, k, v),
             lambda: flash_prefill_plain(q, k, v, window=window, q_offset=off),
             lambda mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
                                                         enable_gqa=True),
@@ -2434,6 +2474,196 @@ def check_f16(torch, cfg, pipe, streams, cfgs, n):
 
 
 # ----------------------------------------------------------------------
+# phase 3, mixed (``--only mixed``; its cases run in the full run's phase 3
+# after the f16 phase, whose cases it takes)
+# ----------------------------------------------------------------------
+# the (q, K/V) dtype pairs the attention kernels take besides q in K/V's
+# type: every q over bf16 and f16 K/V, and (flash_packed, flash_prefill,
+# whose oracles round nothing) over f32 K/V.  Operands are drawn in f32 and
+# rounded once to their own dtypes, at the f16 phase's first case of each
+# kernel at each head dim (MIXED_CASES).  Each case is held within
+# mixed_tol and its output must be in q's dtype; at internvl3-14b's widths
+# (D 128, the ViT's D 64) its device ms is printed beside the build that
+# does the same products (mixed_base), within MIXED_RATIO of it at D 128
+# (the ViT's serve packing is a launch of about 9 us), and a profiler trace of
+# its calls must list no kernel but the entry's own (MIXED_TRACE_OK) and no
+# host copy, cast or elementwise op (COPY_OPS) around them
+MIXED_PAIRS = (("float16", "bfloat16"), ("bfloat16", "float16"), ("float32", "float16"))
+F32_KV_PAIRS = (("bfloat16", "float32"), ("float16", "float32"))
+F32_KV_KERNELS = ("flash_packed", "flash_prefill")
+MIXED_RATIO = 1.15
+MIXED_TRACE_OK = ("mma_kernel", "split_bf16_kernel", "q_deep")
+MIXED_PATH = "mixed ops"  # the mixed phase's run of the ops, each pair once a kernel
+MIXED_NAME = "{}_mixed"   # a kernel's mixed row in the kernels line
+
+
+def mixed_pairs(name: str):
+    return MIXED_PAIRS + (F32_KV_PAIRS if name in F32_KV_KERNELS else ())
+
+
+def mixed_tol(name: str, q_dt: str, kv_dt: str) -> float:
+    """Each dtype's own limit (ROW_TOL or PREFILL_ROW_TOL for bf16,
+    F16_ROW_TOL, F32_ROW_TOL: the products' roundings and the output's in
+    that dtype): the coarser of K/V's and q's in the refresh and packed
+    kernels, whose products are K/V's type's and whose output is q's; q's
+    alone in the prefill kernels, which keep the query and P to about 16
+    bits whatever K/V's type, so that only the output's rounding differs."""
+    prefill = name.startswith("flash_prefill")
+
+    def own(dt):
+        return {"float32": F32_ROW_TOL, "float16": F16_ROW_TOL}.get(
+            dt, PREFILL_ROW_TOL if prefill else ROW_TOL)
+    return own(q_dt) if prefill else max(own(q_dt), own(kv_dt))
+
+
+def mixed_base(name: str, q_dt: str, kv_dt: str):
+    """(q dtype, K/V dtype, words) of the existing build that does a mixed
+    case's products at its shape: in the refresh and packed kernels K/V's
+    type's build with q in that type; in the prefill kernels, whose
+    query enters the products as two halves, the f32-query build over
+    bf16 K/V (over f32 K/V: the f32 q/k/v build)."""
+    if not name.startswith("flash_prefill"):
+        return kv_dt, kv_dt, f"q/k/v {kv_dt}"
+    if kv_dt == "float32":
+        return "float32", "float32", "f32 q/k/v"
+    return "float32", "bfloat16", "f32 q over bf16 K/V"
+
+
+# host ops that copy, cast or compute elementwise: none may run around a
+# mixed case's launch (the kernel reads q and writes the output in q's type)
+COPY_OPS = ("aten::_to_copy", "aten::copy_", "aten::clone", "aten::fill_", "aten::zero_",
+            "aten::mul", "aten::add", "aten::sub", "aten::div", "aten::where", "aten::cat")
+
+
+def trace_kernels(torch, fn, calls: int = 5, tries: int = 3):
+    """(the device kernels, the host ops among COPY_OPS) of ``calls`` calls
+    of ``fn`` under torch.profiler, after a warm one, as ``kernel_ms``
+    profiles.  A trace that lists no device kernel (the profiler lost the
+    device activity, which a run of many profiled phases has shown) is
+    taken again, up to ``tries`` times; the host ops are recorded on the
+    host whatever the device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = sorted({e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                          for e in events if e.device_type == torch.autograd.DeviceType.CUDA})
+        copies = sorted({e.key for e in events if e.key in COPY_OPS})
+        if kernels:
+            break
+    return kernels, copies
+
+
+def check_mixed(torch):
+    """The mixed phase: each attention kernel of the f16 phase's
+    (MIXED_CASES, first case at each head dim) with each pair of
+    ``mixed_pairs``, against its plain version (``kernel_mode("plain")``)
+    on the same inputs; at the first head dim also its device ms beside
+    ``mixed_base``'s, a profiler trace of its calls, its bound; then the
+    mixed path: each pair once through the kernel's ``ops`` entry point at
+    that head dim, the launch counts read just before and just after
+    (READINGS[MIXED_PATH]) with no plain call on CUDA.  Returns [(ok,
+    row)]."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    dt = {n: getattr(torch, n) for n in ("bfloat16", "float16", "float32")}
+    short = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}
+    rows, path = {}, []
+
+    def operands(args, q_dt, kv_dt):    # q, k, v drawn anew in f32, rounded once
+        q, k, v = (torch.randn(a.shape, generator=g, device="cuda") for a in args[:3])
+        return (q.to(dt[q_dt]), k.to(dt[kv_dt]), v.to(dt[kv_dt])) + tuple(args[3:])
+
+    for (name, D), (kernel, op, args, work) in MIXED_CASES.items():
+        first = name not in rows
+        row = rows.setdefault(name, dict(
+            name=MIXED_NAME.format(name), route="cuda",
+            source="src/repro_torch/csrc/attention.cuh", replaces=F16_ROWS[name][0],
+            max_abs_err=0.0, library_ms=None, ok=True, cases={}))
+        for q_dt, kv_dt in mixed_pairs(name):
+            a = operands(args, q_dt, kv_dt)
+            before = ops.launch_counts().get(name, 0)
+            out_k = kernel(*a)
+            torch.cuda.synchronize()
+            launched = ops.launch_counts().get(name, 0) - before
+            with ops.kernel_mode("plain"):
+                out_p = op(*a)
+            err, rel = attn_errors(torch, out_k, out_p)
+            tol = mixed_tol(name, q_dt, kv_dt)
+            here = rel <= tol and out_k.dtype == dt[q_dt] and launched == 1
+            label = f"D {D}, {short[q_dt]} q over {short[kv_dt]} K/V"
+            r = dict(max_abs_err=err, rel=rel, tol=tol, out=short[str(out_k.dtype)[6:]])
+            note = ""
+            if first:
+                in_bytes = sum(x.numel() * x.element_size() for x in a if torch.is_tensor(x))
+                bq, bkv, bwords = mixed_base(name, q_dt, kv_dt)
+                base = (a[0].to(dt[bq]), a[1].to(dt[bkv]), a[2].to(dt[bkv])) + tuple(a[3:])
+                r["device_ms"] = device_ms(torch, kernel, a, in_bytes)
+                r["base_device_ms"] = device_ms(torch, kernel, base, in_bytes)
+                r["ratio"] = r["device_ms"] / r["base_device_ms"]
+                kernels, copies = trace_kernels(torch, lambda: kernel(*a))
+                r["trace"] = kernels or "device activity not recorded"
+                r["host_copies"] = copies
+                clean = not copies and all(any(t in k for t in MIXED_TRACE_OK) for k in kernels)
+                # the ratio's limit holds at D 128 (the ViT's D-64 packing is printed)
+                here = here and (D != 128 or r["ratio"] <= MIXED_RATIO) and clean
+                flops, n_bytes = work(a[0].element_size(), a[1].element_size())
+                r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops, BF16_TENSOR_FLOPS)
+                r["ms"] = cuda_ms(torch, lambda: kernel(*a), 10)
+                with ops.kernel_mode("plain"):
+                    r["plain_ms"] = cuda_ms(torch, lambda: op(*a), 3)
+                note = (f"; device {r['device_ms']:.4f} ms, {bwords} {r['base_device_ms']:.4f} ms "
+                        f"({r['ratio']:.3f}x{f', limit {MIXED_RATIO}' if D == 128 else ''}); "
+                        f"kernel {r['ms']:.4f} ms per "
+                        f"call, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                        f"({r['bound_by']}); trace: {r['trace']}, host copy or cast ops "
+                        f"{copies}")
+                if "ms" not in row:
+                    row.update({k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                  "bound_by")})
+                path.append((name, op, a))
+            log(f"{name} mixed ({label}): max abs err {err:.3g}, row-relative {rel:.3g} (limit "
+                f"{tol:.3g}), output {r['out']}, launches {launched}{note}: "
+                f"{'ok' if here else 'FAIL'}")
+            row["cases"][label] = r
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ok"] = row["ok"] and here
+            del out_k, out_p
+            if not first:
+                del a
+    before, plain_before = ops.launch_counts(), ops.plain_calls_on_cuda()
+    for _, op, a in path:
+        op(*a)
+    torch.cuda.synchronize()
+    after, plain_after = ops.launch_counts(), ops.plain_calls_on_cuda()
+    counts = {MIXED_NAME.format(k): after.get(k, 0)
+              - before.get(k, 0) for k in rows}
+    want = {MIXED_NAME.format(k): len(mixed_pairs(k)) for k in rows}
+    READINGS[MIXED_PATH] = counts
+    plain_moved = plain_after != plain_before
+    log(f"mixed path (each pair once through ops at the first head dim): launches {counts}"
+        + (f"; FAIL: want {want}" if counts != want else "")
+        + ("; FAIL: plain calls on CUDA" if plain_moved else ""))
+    log(f"mixed phase: {time.perf_counter() - t0:.1f} s")
+    MIXED_CASES.clear()
+    del path
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = []
+    for row in rows.values():
+        ok = row.pop("ok") and counts == want and not plain_moved
+        row["launches_path"], row["launches"] = MIXED_PATH, counts[row["name"]]
+        out.append((ok, row))
+    return out
+
+
+# ----------------------------------------------------------------------
 # phases 4 and 5
 # ----------------------------------------------------------------------
 def serve(torch, pipe, videos, on_event=None):
@@ -2489,7 +2719,8 @@ LAUNCH_PATH = {"flash_refresh": "codecflow, per-stream KV",
                "flash_prefill": SSM_MAIN,
                "flash_prefill_paged": SSM_MAIN,
                "flash_prefill_paged_int8": SSM_MAIN,
-               **{F16_NAME.format(k): F16_PATH for k in F16_ROWS}}
+               **{F16_NAME.format(k): F16_PATH for k in F16_ROWS},
+               **{MIXED_NAME.format(k): MIXED_PATH for k in F16_ROWS if k in ATTN_STRUCT}}
 
 
 def path_ecfg(mode: str, opts: dict, codec=None):
@@ -4469,7 +4700,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port on one NVIDIA GPU.")
     ap.add_argument("--only", default="",
                     help="comma-separated kernel names: their checks alone (phases 1-3; 'f16': "
-                         "every kernel in f16); "
+                         "every kernel in f16; 'mixed': the attention kernels with q and K/V "
+                         "of two types, after the f16 phase); "
                          "or 'mha' (phase 3's mha probe), 'families' (phase 7), 'whisper' "
                          "(phase 8(b)), 'mamba' (phase 8(e) and its roofline), 'f32-ssm' "
                          "(phases 7(f) and 8(f): mamba2-2.7b in f32), 'd256' (phase 7(g): "
@@ -4685,6 +4917,11 @@ def main(argv=None) -> int:
         return [with_cases(m, {lab: rows[i] for lab, rows in extra.items()})
                 for i, m in enumerate(main)]
 
+    def f16_phase():
+        return check_f16(torch, cfg, pipe, streams, {
+            "D 128": (cfg, lay, slots), "D 90": (widths["D 90"], lay, slots),
+            "D 512": (slab_w["D 512"], lay, slots), "D 1024": deep["D 1024"]}, n)
+
     checks = {   # kernel name -> its check; flash_prefill_paged's covers the int8 row too
         "mv_sad": lambda: [with_cases(check_mv_sad(torch, videos), {
             f"{hw}^2, block {b}, radius {r}": check_mv_search(torch, hw, b, r)
@@ -4804,9 +5041,9 @@ def main(argv=None) -> int:
                     dtype=F32)
                 for lab, (w, l_, _) in deep.items()})],
         "flash_prefill_paged": prefill_paged,
-        "f16": lambda: check_f16(torch, cfg, pipe, streams, {
-            "D 128": (cfg, lay, slots), "D 90": (widths["D 90"], lay, slots),
-            "D 512": (slab_w["D 512"], lay, slots), "D 1024": deep["D 1024"]}, n),
+        "f16": f16_phase,
+        # the f16 phase's cases with q and K/V of two types (alone: after them)
+        "mixed": lambda: ([] if MIXED_CASES else f16_phase()) + check_mixed(torch),
     }
     if only - set(checks):
         log(f"FAIL: --only names no check: {sorted(only - set(checks))}")
@@ -4899,7 +5136,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path = {KERNEL_PHASE: phase_launches, F16_PATH: READINGS.get(F16_PATH, {}),
-               MAIN: launches, **by_path, **ssm_by_path, **engine_by_path}
+               MIXED_PATH: READINGS.get(MIXED_PATH, {}), MAIN: launches, **by_path, **ssm_by_path, **engine_by_path}
     for row in rows:
         name = row["name"]
         row["launches_path"] = LAUNCH_PATH.get(name, MAIN)

@@ -66,24 +66,43 @@
 //     up to D / d more (1.6x at d 80, 1.9x at d 136).  D 256 is WIDE and D
 //     512 SLAB (below: block shapes of their own); every d past 512 runs
 //     on the DEEP build;
-//   * operand types: OPS_BF16 (bf16 q, k, v and output), OPS_Q32 (f32 q
-//     over bf16 k, v, f32 output: what an f32 LM hands the refresh
-//     kernels: its caches and slab are bf16), OPS_F32 (f32 q, k and v,
-//     f32 output: the packed ViT of an f32 checkpoint and the dense
-//     prefill) and OPS_F16 (f16 q, k and v, f16 output: what a library
-//     caller hands the kernels in f16).  OPS_F16 is OPS_BF16 with f16 for
-//     bf16: the same copies (element-size code), the products on
+//   * operand types: K's and V's type picks the build, and q's type
+//     (Build::qt: bf16, f16 or f32, the output's too) is a launch argument
+//     that changes only Q's staging (read in q's type, converted to f32)
+//     and the output's store, which run once per block; the products
+//     stay those of K/V's type.  OPS_BF16: bf16 K/V and a bf16 q (the
+//     exact builds keep the code they had before q's type was an
+//     argument).  OPS_Q32: bf16 K/V and an f32 or f16 q (what an f32 LM
+//     hands the refresh kernels: its caches and slab are bf16).  OPS_F16:
+//     f16 K/V and an f16 q, and in the refresh and packed kernels a bf16
+//     or f32 one too.  OPS_Q16: f16 K/V and a bf16 or f32 q in the
+//     prefill kernels (attention_q16.cu).  OPS_F32: f32 K/V (the packed
+//     ViT of an f32 checkpoint and the dense prefill) and any q.  Each
+//     build takes the q types q_types gives it; a build of one q type
+//     folds the run-time tests away (QType).  OPS_F16 is OPS_BF16 with
+//     f16 for bf16: the same copies (element-size code), the products on
 //     mma.sync ...f32.f16.f16.f32, every rounding (q x scale, P, a
-//     dequantised cold page, P's split halves, the output) to f16, which
-//     its oracles' roundings to K's and V's type are; its builds take
-//     every head dim, ragged all (attention_f16.cu,
-//     attention_f16_512.cu, attention_f16_deep.cu).  An f32 q is read
-//     with plain loads and rounded on its way to shared memory (cp.async
-//     cannot convert).  Under the refresh
-//     oracle's numerics (below) over bf16 K/V the oracle itself rounds
-//     q x scale to bf16 and P to bf16, so OPS_Q32's products are the bf16
-//     kernel's.  Where the oracle keeps f32 (EXACT, or f32 K/V) an f32
-//     operand x enters a product as two bf16 halves, hi = bf16(x) and lo =
+//     dequantised cold page, P's split halves) to f16, which its oracles'
+//     roundings to K's and V's type are; its builds take every head dim,
+//     ragged all (attention_f16.cu, attention_f16_512.cu,
+//     attention_f16_deep.cu).  An f32 q is read with plain loads and
+//     rounded on its way to shared memory (cp.async cannot convert).
+//     Under the refresh oracle's numerics (below) the oracle itself
+//     rounds q x scale to K's type and P to V's, so a query of another
+//     type changes nothing in the products: OPS_Q32's are the bf16
+//     kernel's, and a bf16 or f32 q over f16 K/V runs the f16 kernel (q
+//     x scale past 65504 becomes inf there, as in the oracle).  Where the
+//     oracle keeps f32 (EXACT, or f32 K/V) a query wider than the
+//     products enters them as two halves of the products' type, hi = E(x)
+//     and lo = E(x - hi): an f32 or f16 q over bf16 K/V as two bf16 halves
+//     (an f16 value is exactly its two), a bf16 or f32 one over f16 K/V
+//     as two f16 halves (OPS_Q16).  f16 holds neither bf16's range nor
+//     f32's, so OPS_Q16 first scales each query row by the power of two
+//     2^-e that puts its largest |q| in [2^14, 2^15) (row_factor), which
+//     leaves about 22 bits of every element the row's scores can feel,
+//     and multiplies 2^e back into the row's exponent factor: S stays the
+//     f32 scores over 2^e exactly, masks and maxima in the same units.
+//     Where the oracle keeps f32 the two halves are hi = bf16(x) and lo =
 //     bf16(x - hi), about 16 bits: Q (both halves in shared memory, their
 //     fragments loaded each step, which frees the registers of the query
 //     fragments), P (as EXACT already splits it) and, under OPS_F32, K
@@ -137,6 +156,8 @@
 // every k16 step, as a split query does.  Shared memory: Q 33.8 KB (67.6
 // with its low half), a K or V slot 16.9 KB; bf16 101 KB (two blocks an
 // SM), + int8 staging 134 KB, OPS_F32's four arrays a slot 203 KB.
+// OPS_Q16 takes 16-key steps here (its split query, f16 P halves and row
+// factors spilled past 255 registers in the dense prefill at 32).
 //
 // The SLAB body (D 512) splits O's columns over blocks: O's 512 columns
 // would take 256 f32 registers a thread.  Each block runs the WIDE body on
@@ -174,7 +195,9 @@
 // slab's P V run as in the SLAB body.  Q is streamed, not resident: a
 // pre-pass (q_deep_kernel) writes its rows as the body's Q staging would
 // round them (q x scale to bf16 under the refresh oracle, the unscaled
-// query and its low half where it is split) into the caller's scratch,
+// query and its low half where it is split; OPS_Q16: q_deep_rows_kernel,
+// each row over its factor, and the factors after the halves) into the
+// caller's scratch,
 // zero-padded to a multiple of 16 columns, so every unit copies its Q
 // chunk by 16-byte cp.async and a last chunk of dk columns runs
 // ceil(dk / 16) k16 steps against Q's zeros (K's ring is zeroed once, so
@@ -227,8 +250,11 @@ namespace {
 
 constexpr int TILE = 128;     // map tile = KV page = query tile
 
-// operand types of a build (see the header)
-enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2, OPS_F16 = 3 };
+// operand types of a build (see the header): K's and V's type, and
+// whether the prefill kernels take the query as two halves
+enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2, OPS_F16 = 3, OPS_Q16 = 4 };
+// q's (and the output's) element type, a launch argument (Build::qt)
+enum : int { Q_BF16 = 0, Q_F16 = 1, Q_F32 = 2 };
 
 // A build: its width D (shared-memory rows, the products' columns),
 // whether it takes a ragged head dim dh <= D, and its operand types.  A
@@ -239,8 +265,9 @@ enum : int { OPS_BF16 = 0, OPS_Q32 = 1, OPS_F32 = 2, OPS_F16 = 3 };
 // own a whole 128-row query tile in BK = 64-key steps; a WIDE build (D
 // 256) has 4 warps own QROWS = 64 rows, half a tile, in 32-key steps; a
 // SLAB build (D 512) runs that shape on one of SLABS column slabs of DV
-// columns of V and O (16-key steps for an f32 query and a ragged d, slabs
-// of 128 for an f32 query, and 2 warps over 32 rows for f32 q/k/v).  A
+// columns of V and O (16-key steps for the OPS_Q32 and OPS_Q16 builds and a
+// ragged d, slabs of 128 for those builds, and 2 warps over 32 rows for
+// f32 K/V; OPS_Q16's WIDE build takes 16-key steps too).  A
 // DEEP build (any dh past 512; DEEP_DV_ > 0) runs the SLAB shape in 16-key
 // steps on slab_count(dh) = ceil(dh / DV) slabs of DV = DEEP_DV_ columns,
 // a runtime count, summing Q K^T over depth chunks of D = 256 columns.
@@ -250,23 +277,25 @@ struct Build {
   static constexpr bool RAGGED = RAGGED_;
   static constexpr int OPS = OPS_;
   static constexpr bool DEEP = DEEP_DV_ > 0;
-  static constexpr bool F16 = OPS_ == OPS_F16;        // f16 products (else bf16)
-  static constexpr bool HALF = OPS_ == OPS_BF16 || F16;   // 16-bit q, k and v
+  static constexpr bool F16 = OPS_ == OPS_F16 || OPS_ == OPS_Q16;   // f16 products (else bf16)
+  static constexpr bool HALF = OPS_ == OPS_BF16 || OPS_ == OPS_F16;  // 16-bit K/V, Q one half
   static constexpr bool SPLIT_KV = OPS_ == OPS_F32;   // K, V as bf16 hi + lo
   static constexpr bool WIDE = D_ > 128;
-  // V's and O's column slabs: 256 columns (128 for an f32 query, whose
+  // V's and O's column slabs: 256 columns (128 for OPS_Q32 and OPS_Q16, whose
   // split query and P pass 255 registers beside O's 128 in the int8
   // prefill); DEEP: slab_count(dh) of them
-  static constexpr int SLABS = DEEP ? 0 : D_ > 256 ? D_ / (OPS_ == OPS_Q32 ? 128 : 256) : 1;
+  static constexpr int SLABS =
+      DEEP ? 0 : D_ > 256 ? D_ / (OPS_ == OPS_Q32 || OPS_ == OPS_Q16 ? 128 : 256) : 1;
   static constexpr bool SLAB = DEEP || SLABS > 1;
   static constexpr int DV = DEEP ? DEEP_DV_ : D_ / SLABS;   // V's and O's columns a block
   static constexpr int THREADS = !WIDE ? 256 : SLAB && SPLIT_KV ? 64 : 128;  // 16 rows a warp
   // keys a step (one ring slot)
-  static constexpr int BK = !WIDE ? 64 : SLAB && (!HALF || RAGGED_) ? 16 : 32;
+  static constexpr int BK = !WIDE ? 64 : (SLAB && (!HALF || RAGGED_)) || OPS_ == OPS_Q16 ? 16 : 32;
   static constexpr int QROWS = THREADS / 2;            // query rows a block
   static_assert(!DEEP || (D_ == 256 && RAGGED_), "a DEEP build: chunks of 256, any d");
   int dh;                                              // the operands' head dim
   int cw;                                              // its copy chunk (elements)
+  int qt;                                              // q's and the output's type (Q_*)
   // the operands' head dim, and whether columns [c8, c8 + 8) hold data
   __device__ __forceinline__ int d() const { return RAGGED ? dh : D; }
   __device__ __forceinline__ bool col(int c8) const { return !RAGGED || c8 < dh; }
@@ -287,10 +316,6 @@ __host__ __device__ __forceinline__ int slab_count(int dh) {
 // a head dim's copy chunk (Build::cw)
 inline int copy_chunk(int dh) { return dh % 8 == 0 ? 8 : dh % 4 == 0 ? 4 : dh % 2 == 0 ? 2 : 1; }
 
-// q's and the output's element type
-template <class B>
-using QT = std::conditional_t<B::OPS == OPS_BF16, bf16,
-                              std::conditional_t<B::F16, __half, float>>;
 // the products' element type: what the ring, Q's staging and P hold (f16
 // under OPS_F16, else bf16; shared memory and the copies are typed bf16,
 // as 16-bit words)
@@ -890,13 +915,97 @@ __device__ __forceinline__ uint64_t span_bits(int2 r) {
   return lo > hi ? 0 : ((2ull << hi) - 1) & (~0ull << lo);
 }
 
-// which operands enter the products as two bf16 halves (see the header)
+// which operands enter the products as two halves (see the header)
 template <class B, class P>
 struct Split {
   static constexpr bool kv = B::SPLIT_KV;                          // K's and V's halves
-  static constexpr bool q = kv || (B::OPS == OPS_Q32 && P::EXACT);  // Q's
+  static constexpr bool q = kv || (!B::HALF && P::EXACT);          // Q's
   static constexpr bool p = kv || P::EXACT;                         // P's
+  // Q's rows scaled by a power of two each (f16 halves of a bf16 or f32
+  // query: OPS_Q16), undone on S's exponent factor
+  static constexpr bool rows = B::OPS == OPS_Q16 && P::EXACT;
 };
+
+// the q types build B takes over problem P (a mask of 1 << Q_*): its
+// products are K's type's, q's type changes only Q's staging and the
+// output's store (see the header)
+template <class B, class P>
+__host__ __device__ constexpr int q_types() {
+  if constexpr (B::OPS == OPS_BF16) return 1 << Q_BF16;
+  else if constexpr (B::OPS == OPS_Q32) return 1 << Q_F32 | 1 << Q_F16;
+  else if constexpr (B::OPS == OPS_Q16) return 1 << Q_F32 | 1 << Q_BF16;
+  else if constexpr (B::OPS == OPS_F16) return P::EXACT ? 1 << Q_F16 : 7;
+  else return 7;   // OPS_F32
+}
+
+// q's type at run time among the mask TYPES: each test folds to a
+// constant where TYPES leaves one answer (a build of one q type compiles
+// its loads and stores as before).  Offsets are in elements of q's type.
+template <int TYPES>
+struct QType {
+  int qt;
+  __device__ __forceinline__ bool f32() const {
+    return (TYPES >> Q_F32 & 1) && (TYPES == 1 << Q_F32 || qt == Q_F32);
+  }
+  // of the 16-bit types, f16 (else bf16)
+  __device__ __forceinline__ bool f16() const {
+    return (TYPES >> Q_F16 & 1) && (!(TYPES >> Q_BF16 & 1) || qt == Q_F16);
+  }
+  __device__ __forceinline__ int size() const { return f32() ? 4 : 2; }
+  __device__ __forceinline__ float load(const void* p, long long i) const {
+    if (f32()) return static_cast<const float*>(p)[i];
+    if (f16()) return __half2float(static_cast<const __half*>(p)[i]);
+    return __bfloat162float(static_cast<const bf16*>(p)[i]);
+  }
+  // 8 elements from i, on a 16-byte boundary
+  __device__ __forceinline__ void load8(float (&x)[8], const void* p, long long i) const {
+    if (f32()) {
+      const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+      const float4 a = f[0], c = f[1];
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+      x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
+      return;
+    }
+    const uint4 raw = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p) + i);
+    #pragma unroll
+    for (int t = 0; t < 8; ++t)
+      x[t] = f16() ? __half2float(reinterpret_cast<const __half*>(&raw)[t])
+                   : __bfloat162float(reinterpret_cast<const bf16*>(&raw)[t]);
+  }
+  __device__ __forceinline__ void store(void* p, long long i, float v) const {
+    if (f32()) static_cast<float*>(p)[i] = v;
+    else if (f16()) static_cast<__half*>(p)[i] = __float2half_rn(v);
+    else static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+  }
+  // elements i and i + 1, on an 8- (f32) or 4-byte boundary
+  __device__ __forceinline__ void store2(void* p, long long i, float a, float b) const {
+    if (f32()) *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
+    else *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p) + i) =
+        f16() ? pack2<__half>(a, b) : pack2<bf16>(a, b);
+  }
+  // 8 zeros from i, on a 16-byte boundary
+  __device__ __forceinline__ void zero8(void* p, long long i) const {
+    uint4* o = reinterpret_cast<uint4*>(static_cast<unsigned char*>(p) + i * size());
+    o[0] = make_uint4(0, 0, 0, 0);
+    if (f32()) o[1] = make_uint4(0, 0, 0, 0);
+  }
+};
+
+// OPS_Q16's row factor: the power of two 2^e that brings a row's largest
+// |q| into [2^14, 2^15), where its f16 halves hold about 22 bits of every
+// element (e within +-100; 1 for a row of zeros, or one holding an inf or
+// a NaN, which the products carry to S as the oracle's f32 does)
+__device__ __forceinline__ float row_factor(float mx) {
+  if (!(mx > 0.f) || !isfinite(mx)) return 1.f;
+  return ldexpf(1.f, min(max(ilogbf(mx) - 14, -100), 100));
+}
+
+// the largest |x| of a warp's values, in every lane
+__device__ __forceinline__ float warp_max(float x) {
+  #pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
 
 template <class B, class P>
 struct MmaSmem {
@@ -924,14 +1033,16 @@ struct MmaSmem {
   static constexpr size_t ki = vlo + STAGES * slot_vlo;
   static constexpr size_t k8 = ki + ((STAGES * slot_ki + 15) / 16) * 16;
   static constexpr size_t v8 = k8 + STAGES * slot_i8;
-  static constexpr size_t bytes = v8 + STAGES * slot_v8;
+  // Q16's row factors (its DEEP build reads them from the pre-pass's scratch)
+  static constexpr size_t rf = v8 + STAGES * slot_v8;
+  static constexpr size_t bytes = rf + (Split<B, P>::rows && !B::DEEP ? 4 * B::QROWS : 0);
   static_assert(bytes <= 232448, "an H100 block has 227 KB of shared memory");
 };
 
 template <class B, class P>
 __global__ void __launch_bounds__(B::THREADS, 1)
-mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, QT<B>* __restrict__ out, int Sq, int H,
+mma_kernel(const void* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, void* __restrict__ out, int Sq, int H,
            int Hkv, float scale, P prob, B bd, const bf16* __restrict__ k_lo,
            const bf16* __restrict__ v_lo) {
   using L = MmaSmem<B, P>;
@@ -945,7 +1056,7 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   constexpr int DT = DV / 8;             // n8 tiles of O (odd at D 24)
   constexpr int KC = DK / 16;            // k16 chunks of Q K^T
   constexpr int KI_COPIES = BK / 16;
-  constexpr bool Q_F32 = std::is_same_v<QT<B>, float>;
+  const QType<q_types<B, P>()> QT{bd.qt};
   constexpr bool F16 = B::F16;
   using E = ET<B>;
   // the query's fragments stay in registers, unless they are split or the
@@ -983,8 +1094,9 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
   const int dv = B::SLAB ? min(DV, d - v0) : d;
   const KV kv{k, v, k_lo, v_lo, v0, dv};
   const long long q_stride = (long long)H * d;   // between query rows
-  const QT<B>* qb = q + ((long long)b * Sq + q0) * q_stride + (long long)h * d;
-  QT<B>* ob = out + ((long long)b * Sq + q0) * q_stride + (long long)h * d + v0;
+  // the block's first query row and output element (QT's element offsets)
+  const long long qb = ((long long)b * Sq + q0) * q_stride + (long long)h * d;
+  const long long ob = qb + v0;
   // whether O's columns [c8, c8 + 8) of the block hold data, and how many
   auto o_col = [&](int c8) { return B::SLAB ? !B::RAGGED || c8 < dv : bd.col(c8); };
   auto o_live = [&](int c8) { return B::SLAB ? (B::RAGGED ? min(8, dv - c8) : 8) : bd.live(c8); };
@@ -997,14 +1109,12 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     for (int i = tid; i < n_rows * DV / 8; i += THREADS) {
       const int c8 = (i % (DV / 8)) * 8;
       if (!o_col(c8)) continue;
-      QT<B>* orow = ob + (i / (DV / 8)) * q_stride + c8;
+      const long long orow = ob + (i / (DV / 8)) * q_stride + c8;
       if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
-        for (int t = 0; t < o_live(c8); ++t) orow[t] = cs_from_float<QT<B>>(0.f);
+        for (int t = 0; t < o_live(c8); ++t) QT.store(out, orow + t, 0.f);
         continue;
       }
-      uint4* o8 = reinterpret_cast<uint4*>(orow);
-      o8[0] = make_uint4(0, 0, 0, 0);
-      if constexpr (Q_F32) o8[1] = make_uint4(0, 0, 0, 0);
+      QT.zero8(out, orow);
     }
     return;
   }
@@ -1028,7 +1138,7 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
         const int k0 = c * D, dk = min(D, d - k0), dkq = (dk + 15) / 16 * 16;
         const int dq = (d + 15) / 16 * 16;
         const long long q_rows = (long long)H * dq;        // between query rows
-        const bf16* qd = reinterpret_cast<const bf16*>(q) + ((long long)b * Sq + q0) * q_rows +
+        const bf16* qd = static_cast<const bf16*>(q) + ((long long)b * Sq + q0) * q_rows +
                          (long long)h * dq + k0;
         [[maybe_unused]] const bf16* qd_lo = qd + (long long)gridDim.z * Sq * q_rows;
         bf16* Qd = Qs + (u % STAGES) * QROWS * LDQ;
@@ -1120,38 +1230,69 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     any_dead = __any_sync(0xffffffffu, dead0 || dead1);
   }
 
+  // S's factors of this thread's rows (Q16: each row's 2^e, row_factor)
+  [[maybe_unused]] float rf0 = 1.f, rf1 = 1.f;
   if constexpr (!B::DEEP) {
-    // Q, times qscale in f32 and rounded to bf16 or f16 (split: and the
-    // rest, to its low half), while the first tiles are in flight
-    // (columns [d, DK) zeros); then each warp's fragments, unless they are
-    // split or WIDE (loaded each step)
-    for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
+    // chunk i of Q's rows (row i / (DK / 8), 8 columns) in f32, zeros past d
+    auto q_chunk = [&](int i, float (&x)[8]) {
       const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
       const bool in = r < n_rows && c8 < D && bd.col(c8);
-      float x[8];
       if (!bd.whole()) {   // rows not on 16-byte boundaries: element by element
         #pragma unroll
         for (int t = 0; t < 8; ++t)
-          x[t] = in && c8 + t < d ? cs_to_float(qb[r * q_stride + c8 + t]) : 0.f;
-      } else if constexpr (Q_F32) {
+          x[t] = in && c8 + t < d ? QT.load(q, qb + r * q_stride + c8 + t) : 0.f;
+      } else if (QT.f32()) {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
         if (in) {
-          a = *reinterpret_cast<const float4*>(qb + r * q_stride + c8);
-          c = *reinterpret_cast<const float4*>(qb + r * q_stride + c8 + 4);
+          const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(q) + qb +
+                                                             r * q_stride + c8);
+          a = f[0];
+          c = f[1];
         }
         x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
         x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
       } else {
         uint4 raw = make_uint4(0, 0, 0, 0);
-        if (in) raw = *reinterpret_cast<const uint4*>(qb + r * q_stride + c8);
-        const QT<B>* e = reinterpret_cast<const QT<B>*>(&raw);
+        if (in) raw = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(q) + qb +
+                                                      r * q_stride + c8);
         #pragma unroll
-        for (int t = 0; t < 8; ++t) x[t] = cs_to_float(e[t]);
+        for (int t = 0; t < 8; ++t)
+          x[t] = QT.f16() ? __half2float(reinterpret_cast<const __half*>(&raw)[t])
+                          : __bfloat162float(reinterpret_cast<const bf16*>(&raw)[t]);
       }
+    };
+    [[maybe_unused]] float* Rf = reinterpret_cast<float*>(smem + L::rf);
+    if constexpr (S::rows) {
+      // each row's largest |q| (a non-negative f32's bits order as an
+      // unsigned int's), read as the staging below reads Q; then its factor
+      unsigned* Rm = reinterpret_cast<unsigned*>(Rf);
+      for (int r = tid; r < QROWS; r += THREADS) Rm[r] = 0u;
+      __syncthreads();
+      for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
+        float x[8], mx = 0.f;
+        q_chunk(i, x);
+        #pragma unroll
+        for (int t = 0; t < 8; ++t) mx = fmaxf(mx, fabsf(x[t]));
+        if (mx > 0.f) atomicMax(Rm + i / (DK / 8), __float_as_uint(mx));
+      }
+      __syncthreads();
+      for (int r = tid; r < QROWS; r += THREADS) Rf[r] = row_factor(__uint_as_float(Rm[r]));
+      __syncthreads();
+    }
+    // Q in q's type, times qscale in f32 (Q16: over its row's factor) and
+    // rounded to bf16 or f16 (split: and the rest, to its low half), while
+    // the first tiles are in flight (columns [d, DK) zeros); then each
+    // warp's fragments, unless they are split or WIDE (loaded each step)
+    for (int i = tid; i < QROWS * DK / 8; i += THREADS) {
+      const int r = i / (DK / 8), c8 = (i % (DK / 8)) * 8;
+      float x[8];
+      q_chunk(i, x);
+      float qs = qscale;
+      if constexpr (S::rows) qs = 1.f / Rf[r];     // a power of two: exact
       __align__(16) E hi[8], lo[8];
       #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        const float xs = x[t] * qscale;
+        const float xs = x[t] * qs;
         hi[t] = cs_from_float<E>(xs);
         if constexpr (S::q) lo[t] = cs_from_float<E>(xs - cs_to_float(hi[t]));
       }
@@ -1160,6 +1301,16 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<uint4*>(Qlo + r * LDQ + c8) = *reinterpret_cast<const uint4*>(lo);
     }
     __syncthreads();
+    if constexpr (S::rows) {
+      rf0 = Rf[r0];
+      rf1 = Rf[r1];
+    }
+  } else if constexpr (S::rows) {   // the pre-pass's factors, after Q's two halves
+    const int dq = (d + 15) / 16 * 16;
+    const long long rows = (long long)gridDim.z * Sq * H;
+    const float* qf = reinterpret_cast<const float*>(static_cast<const bf16*>(q) + 2 * rows * dq);
+    if (r0 < n_rows) rf0 = qf[((long long)b * Sq + q0 + r0) * H + h];
+    if (r1 < n_rows) rf1 = qf[((long long)b * Sq + q0 + r1) * H + h];
   }
   uint32_t qf[Q_REGS ? KC : 1][4];
   if constexpr (Q_REGS) {
@@ -1328,11 +1479,13 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     // exp(x - m) = 2^(x c2 - m c2); a row with nothing visible yet keeps
     // m = -inf and subtracts 0 (its p are exp(-inf) = 0); an unchanged
     // max gives corr = 2^0 = 1 exactly (both products rounded)
+    // (Q16: S's rows are 2^-e of the scores, so their factors carry 2^e)
+    const float c20 = S::rows ? c2 * rf0 : c2, c21 = S::rows ? c2 * rf1 : c2;
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float ms0 = mn0 == -INFINITY ? 0.f : __fmul_rn(mn0, c2);
-    const float ms1 = mn1 == -INFINITY ? 0.f : __fmul_rn(mn1, c2);
-    const float corr0 = ex2(__fmul_rn(m0, c2) - ms0);
-    const float corr1 = ex2(__fmul_rn(m1, c2) - ms1);
+    const float ms0 = mn0 == -INFINITY ? 0.f : __fmul_rn(mn0, c20);
+    const float ms1 = mn1 == -INFINITY ? 0.f : __fmul_rn(mn1, c21);
+    const float corr0 = ex2(__fmul_rn(m0, c20) - ms0);
+    const float corr1 = ex2(__fmul_rn(m1, c21) - ms1);
     #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
       o[4 * dn] *= corr0;
@@ -1346,10 +1499,10 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
     #pragma unroll
     for (int n = 0; n < NT; ++n) {
       float* x = sc + 4 * n;
-      x[0] = ex2(fmaf(x[0], c2, -ms0));
-      x[1] = ex2(fmaf(x[1], c2, -ms0));
-      x[2] = ex2(fmaf(x[2], c2, -ms1));
-      x[3] = ex2(fmaf(x[3], c2, -ms1));
+      x[0] = ex2(fmaf(x[0], c20, -ms0));
+      x[1] = ex2(fmaf(x[1], c20, -ms0));
+      x[2] = ex2(fmaf(x[2], c21, -ms1));
+      x[3] = ex2(fmaf(x[3], c21, -ms1));
       sum0 += x[0] + x[1];
       sum1 += x[2] + x[3];
     }
@@ -1426,30 +1579,18 @@ mma_kernel(const QT<B>* __restrict__ q, const bf16* __restrict__ k,
       if (c >= dv) continue;
       const bool pair = c + 1 < dv;
       if (r0 < n_rows) {
-        ob[r0 * q_stride + c] = cs_from_float<QT<B>>(o[4 * dn] * inv0);
-        if (pair) ob[r0 * q_stride + c + 1] = cs_from_float<QT<B>>(o[4 * dn + 1] * inv0);
+        QT.store(out, ob + r0 * q_stride + c, o[4 * dn] * inv0);
+        if (pair) QT.store(out, ob + r0 * q_stride + c + 1, o[4 * dn + 1] * inv0);
       }
       if (r1 < n_rows) {
-        ob[r1 * q_stride + c] = cs_from_float<QT<B>>(o[4 * dn + 2] * inv1);
-        if (pair) ob[r1 * q_stride + c + 1] = cs_from_float<QT<B>>(o[4 * dn + 3] * inv1);
+        QT.store(out, ob + r1 * q_stride + c, o[4 * dn + 2] * inv1);
+        if (pair) QT.store(out, ob + r1 * q_stride + c + 1, o[4 * dn + 3] * inv1);
       }
       continue;
     }
-    if constexpr (Q_F32) {
-      if (r0 < n_rows)
-        *reinterpret_cast<float2*>(ob + r0 * q_stride + c) =
-            make_float2(o[4 * dn] * inv0, o[4 * dn + 1] * inv0);
-      if (r1 < n_rows)
-        *reinterpret_cast<float2*>(ob + r1 * q_stride + c) =
-            make_float2(o[4 * dn + 2] * inv1, o[4 * dn + 3] * inv1);
-    } else {
-      if (r0 < n_rows)
-        *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-            pack2<QT<B>>(o[4 * dn] * inv0, o[4 * dn + 1] * inv0);
-      if (r1 < n_rows)
-        *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-            pack2<QT<B>>(o[4 * dn + 2] * inv1, o[4 * dn + 3] * inv1);
-    }
+    if (r0 < n_rows) QT.store2(out, ob + r0 * q_stride + c, o[4 * dn] * inv0, o[4 * dn + 1] * inv0);
+    if (r1 < n_rows)
+      QT.store2(out, ob + r1 * q_stride + c, o[4 * dn + 2] * inv1, o[4 * dn + 3] * inv1);
   }
 }
 
@@ -1480,21 +1621,67 @@ __global__ void q_deep_kernel(const T* __restrict__ q, E* __restrict__ hi,
   }
 }
 
-// Launch build B over problem P: Sq / QROWS query blocks, H x slabs
-// blocks a head (blockIdx.y < 65536: H x slabs at most 65535, which at
-// 256-column slabs holds H 40 to d 419,424), Bn batch rows.  A DEEP build
-// first runs q_deep_kernel into q_scratch (bf16, Bn x Sq x H rows of dq
-// columns, a second such array of low halves where Q is split), and its
-// body reads Q there.
+// OPS_Q16's pre-pass (prefill, DEEP): each row of d q elements (bf16 or
+// f32) over its row_factor f -> rows of dq f16, hi = f16(x / f) and lo =
+// f16(x / f - hi), as the body's staging rounds them (columns [d, dq)
+// zeros), and f into rf[row].  A warp a row.
+template <class T>
+__global__ void q_deep_rows_kernel(const T* __restrict__ q, __half* __restrict__ hi,
+                                   __half* __restrict__ lo, float* __restrict__ rf,
+                                   long long rows, int d, int dq) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * blockDim.x / 32;
+  for (long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32; r < rows;
+       r += warps) {
+    float mx = 0.f;
+    for (int c = lane; c < d; c += 32) mx = fmaxf(mx, fabsf(cs_to_float(q[r * d + c])));
+    const float f = row_factor(warp_max(mx)), inv = 1.f / f;
+    for (int c8 = lane * 8; c8 < dq; c8 += 256) {
+      __align__(16) __half h[8], l[8];
+      #pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float xs = c8 + t < d ? cs_to_float(q[r * d + c8 + t]) * inv : 0.f;
+        h[t] = __float2half_rn(xs);
+        l[t] = __float2half_rn(xs - __half2float(h[t]));
+      }
+      *reinterpret_cast<uint4*>(hi + r * dq + c8) = *reinterpret_cast<const uint4*>(h);
+      *reinterpret_cast<uint4*>(lo + r * dq + c8) = *reinterpret_cast<const uint4*>(l);
+    }
+    if (lane == 0) rf[r] = f;
+  }
+}
+
+// f(T*) with T the element type of q type qt, for the types of the mask
+// TYPES (others: nothing is called)
+template <int TYPES, class F>
+void with_q_type(int qt, F&& f) {
+  if constexpr (TYPES >> Q_F32 & 1)
+    if (qt == Q_F32) return f(static_cast<float*>(nullptr));
+  if constexpr (TYPES >> Q_F16 & 1)
+    if (qt == Q_F16) return f(static_cast<__half*>(nullptr));
+  if constexpr (TYPES >> Q_BF16 & 1)
+    if (qt == Q_BF16) return f(static_cast<bf16*>(nullptr));
+}
+
+// Launch build B over problem P with q (and the output) of type qt:
+// Sq / QROWS query blocks, H x slabs blocks a head (blockIdx.y < 65536: H
+// x slabs at most 65535, which at 256-column slabs holds H 40 to d
+// 419,424), Bn batch rows.  A q type the build does not take (q_types)
+// is refused.  A DEEP build first runs q_deep_kernel (Q16's prefill:
+// q_deep_rows_kernel) into q_scratch (16-bit, Bn x Sq x H rows of dq
+// columns, a second such array of low halves where Q is split, then
+// Q16's row factors, f32), and its body reads Q there.
 template <class B, class P>
 int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, int Bn, int Sq,
-               int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
+               int H, int Hkv, float scale, int qt, const P& prob, cudaStream_t stream,
                const void* k_lo, const void* v_lo, void* q_scratch = nullptr) {
+  constexpr int TYPES = q_types<B, P>();
+  if (qt < 0 || qt > Q_F32 || !(TYPES >> qt & 1)) return (int)cudaErrorInvalidValue;
   const size_t smem = MmaSmem<B, P>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       mma_kernel<B, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const B bd{dh, copy_chunk(dh)};
+  const B bd{dh, copy_chunk(dh), qt};
   const int slabs = slab_count<B>(dh);
   if ((long long)H * slabs > 65535) return (int)cudaErrorInvalidConfiguration;
   if constexpr (B::DEEP) {
@@ -1502,16 +1689,29 @@ int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, i
     const long long rows = (long long)Bn * Sq * H, n = rows * (dq / 8);
     ET<B>* hi = (ET<B>*)q_scratch;
     ET<B>* lo = Split<B, P>::q ? hi + rows * dq : nullptr;
-    const long long want = (n + 255) / 256;
-    const int blocks = (int)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);
-    q_deep_kernel<<<blocks, 256, 0, stream>>>((const QT<B>*)q, hi, lo, rows, dh, dq,
-                                             P::EXACT ? 1.f : scale);
+    if constexpr (Split<B, P>::rows) {
+      const long long want = (rows * 32 + 255) / 256;
+      const int blocks = (int)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);
+      with_q_type<TYPES>(qt, [&](auto* t) {
+        using T = std::remove_pointer_t<decltype(t)>;
+        q_deep_rows_kernel<<<blocks, 256, 0, stream>>>((const T*)q, hi, lo,
+                                                      (float*)(hi + 2 * rows * dq), rows, dh, dq);
+      });
+    } else {
+      const long long want = (n + 255) / 256;
+      const int blocks = (int)(want < 1 ? 1 : want < 132 * 8 ? want : 132 * 8);
+      with_q_type<TYPES>(qt, [&](auto* t) {
+        using T = std::remove_pointer_t<decltype(t)>;
+        q_deep_kernel<<<blocks, 256, 0, stream>>>((const T*)q, hi, lo, rows, dh, dq,
+                                                 P::EXACT ? 1.f : scale);
+      });
+    }
     q = hi;
   }
   dim3 grid((Sq + B::QROWS - 1) / B::QROWS, H * slabs, Bn);
   mma_kernel<B, P><<<grid, B::THREADS, smem, stream>>>(
-      (const QT<B>*)q, (const bf16*)k, (const bf16*)v, (QT<B>*)out, Sq, H, Hkv, scale, prob,
-      bd, (const bf16*)k_lo, (const bf16*)v_lo);
+      q, (const bf16*)k, (const bf16*)v, out, Sq, H, Hkv, scale, prob, bd, (const bf16*)k_lo,
+      (const bf16*)v_lo);
   return (int)cudaGetLastError();
 }
 
@@ -1519,13 +1719,14 @@ int launch_mma(int dh, const void* q, const void* k, const void* v, void* out, i
 struct Exact {
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
-                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
-                 const void* k_lo = nullptr, const void* v_lo = nullptr) const {
+                 int Sq, int H, int Hkv, float scale, int qt, const P& prob,
+                 cudaStream_t stream, const void* k_lo = nullptr,
+                 const void* v_lo = nullptr) const {
     switch (dh) {
 #define CS_EXACT_CASE(W)                                                                 \
   case W:                                                                                \
     return launch_mma<Build<W, false, OPS_BF16>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, \
-                                                 prob, stream, k_lo, v_lo);
+                                                 qt, prob, stream, k_lo, v_lo);
       CS_EXACT_CASE(24) CS_EXACT_CASE(32) CS_EXACT_CASE(64) CS_EXACT_CASE(128)
       CS_EXACT_CASE(256)
 #undef CS_EXACT_CASE
@@ -1537,17 +1738,19 @@ struct Exact {
 // any head dim d = 1, 2, ..., 256 on the smallest ragged build of
 // operand types OPS that holds it: 24, 32 (not for OPS_BF16, whose d 32
 // is exact: d 25-31 run on 64), 64, 128 or 256 (attention_any.cu,
-// attention_q32.cu, attention_f16.cu and attention_f32.cu's f32 q/k/v)
+// attention_q32.cu, attention_f16.cu, attention_q16.cu and
+// attention_f32.cu's f32 K/V)
 template <int OPS>
 struct Any {
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
-                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
-                 const void* k_lo = nullptr, const void* v_lo = nullptr) const {
+                 int Sq, int H, int Hkv, float scale, int qt, const P& prob,
+                 cudaStream_t stream, const void* k_lo = nullptr,
+                 const void* v_lo = nullptr) const {
     if (dh <= 0 || dh > 256) return (int)cudaErrorInvalidValue;
 #define CS_ANY_BUILD(W)                                                                  \
-  launch_mma<Build<W, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, prob, stream, \
-                                  k_lo, v_lo)
+  launch_mma<Build<W, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, qt, prob,     \
+                                  stream, k_lo, v_lo)
     if (dh <= 24) return CS_ANY_BUILD(24);
     if constexpr (OPS != OPS_BF16) {
       if (dh <= 32) return CS_ANY_BUILD(32);
@@ -1563,31 +1766,32 @@ struct Any {
 // slabs of V and O over blocks): the exact build at d 512 for bf16
 // operands (32-key steps; the ragged one takes 16), the ragged one
 // otherwise (attention_512.cu,
-// attention_q32_512.cu, attention_f16_512.cu, and attention_f32.cu's f32
-// q/k/v)
+// attention_q32_512.cu, attention_f16_512.cu, attention_q16.cu, and
+// attention_f32.cu's f32 K/V)
 template <int OPS>
 struct Any512 {
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
-                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
-                 const void* k_lo = nullptr, const void* v_lo = nullptr) const {
+                 int Sq, int H, int Hkv, float scale, int qt, const P& prob,
+                 cudaStream_t stream, const void* k_lo = nullptr,
+                 const void* v_lo = nullptr) const {
     if (dh <= 256 || dh > 512) return (int)cudaErrorInvalidValue;
     if constexpr (OPS == OPS_BF16) {
       if (dh == 512)
         return launch_mma<Build<512, false, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale,
-                                                  prob, stream, k_lo, v_lo);
+                                                  qt, prob, stream, k_lo, v_lo);
     }
-    return launch_mma<Build<512, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, prob,
-                                             stream, k_lo, v_lo);
+    return launch_mma<Build<512, true, OPS>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale, qt,
+                                             prob, stream, k_lo, v_lo);
   }
 };
 
 // head dims d past 512 on the DEEP build of operand types OPS (Q K^T over
 // depth chunks of 256 columns, ceil(d / DV) column slabs of V and O over
 // blocks): attention_deep.cu, attention_q32_deep.cu, attention_f16_deep.cu,
-// and attention_f32.cu's f32 q/k/v.  Slabs of 256 columns for bf16 (and f16)
-// operands in the refresh and packed kernels; of 128 for an f32 query, f32
-// q/k/v and the prefill
+// attention_q16.cu, and attention_f32.cu's f32 K/V.  Slabs of 256 columns
+// for bf16 (and f16) K/V in the refresh and packed kernels; of 128 for the
+// OPS_Q32 and OPS_Q16 builds, f32 K/V and the prefill
 // kernels (EXACT: P split in two halves), whose split products pass 255
 // registers beside O's 128 with the depth chunks' loop.  q_scratch: Q's
 // pre-pass rows (launch_mma).
@@ -1596,12 +1800,13 @@ struct Deep {
   void* q_scratch;
   template <class P>
   int operator()(int dh, const void* q, const void* k, const void* v, void* out, int Bn,
-                 int Sq, int H, int Hkv, float scale, const P& prob, cudaStream_t stream,
-                 const void* k_lo = nullptr, const void* v_lo = nullptr) const {
+                 int Sq, int H, int Hkv, float scale, int qt, const P& prob,
+                 cudaStream_t stream, const void* k_lo = nullptr,
+                 const void* v_lo = nullptr) const {
     if (dh <= 512) return (int)cudaErrorInvalidValue;
     constexpr int DV = (OPS == OPS_BF16 || OPS == OPS_F16) && !P::EXACT ? 256 : 128;
     return launch_mma<Build<256, true, OPS, DV>>(dh, q, k, v, out, Bn, Sq, H, Hkv, scale,
-                                                 prob, stream, k_lo, v_lo, q_scratch);
+                                                 qt, prob, stream, k_lo, v_lo, q_scratch);
   }
 };
 
@@ -1611,9 +1816,12 @@ struct Deep {
 // <op>_f16SUFFIX), each launching through LAUNCH (Exact, Any<OPS> or
 // Any512<OPS>; the DEEP exports: Deep<OPS>, whose entry points take one
 // more argument before the stream, q_scratch: 16-bit, B x Sq x H rows of
-// D rounded up to 16, twice for an f32 q).  q, out: (B, Sq, H, D) in the
-// build's q type (bf16, f16, or f32 for OPS_Q32), any Sq; k, v bf16 (f16
-// for OPS_F16).
+// D rounded up to 16, twice where the query is split, then Q16's B x Sq x
+// H row factors in f32).  q, out: (B, Sq, H, D) of type qt (Q_BF16,
+// Q_F16 or Q_F32; each build takes the types q_types gives it), any Sq;
+// k, v bf16 (f16 for OPS_F16 and OPS_Q16).  The Q16 builds export the
+// three prefill entry points alone (<op>_f16_q16SUFFIX): the refresh and
+// packed kernels take a bf16 or f32 query over f16 K/V on the f16 builds.
 //
 // refresh: k, v (B, n_tiles * 128, Hkv, D) per-stream caches; q_pos:
 // (n_q_tiles * 128,) i32 (the map's, padded with -1); kv_valid: (B,
@@ -1634,74 +1842,89 @@ struct Deep {
 // prefill_paged: k, v (P_phys, Hkv, D) slab; pt: (B, n_pages) i32, the
 // logical keys [0, n_pages * 128).  Causal.  prefill_paged_int8: as
 // refresh_paged_int8's cold group.
+// (SCRATCH names a function-like macro, expanded only where it is
+// called: its comma must not split the arguments the macros pass on)
+#define CS_ATTN_NO_SCRATCH()
+#define CS_ATTN_SCRATCH() , void* q_scratch
 #define CS_ATTN_EXPORTS(SUFFIX, LAUNCH) \
-  CS_ATTN_EXPORTS_(bf16##SUFFIX, int8##SUFFIX, LAUNCH, , )
-#define CS_ATTN_SCRATCH , void* q_scratch
+  CS_ATTN_EXPORTS_(bf16##SUFFIX, int8##SUFFIX, LAUNCH, CS_ATTN_NO_SCRATCH, )
 #define CS_ATTN_DEEP_EXPORTS(SUFFIX, OPS) \
   CS_ATTN_EXPORTS_(bf16##SUFFIX, int8##SUFFIX, Deep<OPS>, CS_ATTN_SCRATCH, q_scratch)
 // the f16 builds' entry points: cs_attn_<op>_f16SUFFIX, the int8 ones
-// cs_attn_<op>_int8_f16SUFFIX (q, k, v and out f16; the hot slab f16)
+// cs_attn_<op>_int8_f16SUFFIX (k, v f16; the hot slab f16)
 #define CS_ATTN_F16_EXPORTS(SUFFIX, LAUNCH) \
-  CS_ATTN_EXPORTS_(f16##SUFFIX, int8_f16##SUFFIX, LAUNCH, , )
+  CS_ATTN_EXPORTS_(f16##SUFFIX, int8_f16##SUFFIX, LAUNCH, CS_ATTN_NO_SCRATCH, )
 #define CS_ATTN_F16_DEEP_EXPORTS(SUFFIX) \
   CS_ATTN_EXPORTS_(f16##SUFFIX, int8_f16##SUFFIX, Deep<OPS_F16>, CS_ATTN_SCRATCH, q_scratch)
-#define CS_ATTN_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG)                                 \
+// the Q16 builds' prefill entry points: cs_attn_<op>_f16_q16SUFFIX, the
+// int8 one cs_attn_prefill_paged_int8_f16_q16SUFFIX
+#define CS_ATTN_Q16_EXPORTS(SUFFIX, LAUNCH) \
+  CS_ATTN_PREFILL_EXPORTS_(f16_q16##SUFFIX, int8_f16_q16##SUFFIX, LAUNCH, CS_ATTN_NO_SCRATCH, )
+#define CS_ATTN_Q16_DEEP_EXPORTS(SUFFIX)                                              \
+  CS_ATTN_PREFILL_EXPORTS_(f16_q16##SUFFIX, int8_f16_q16##SUFFIX, Deep<OPS_Q16>, \
+                           CS_ATTN_SCRATCH, q_scratch)
+#define CS_ATTN_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG) \
+  CS_ATTN_REFRESH_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG) \
+  CS_ATTN_PREFILL_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG)
+#define CS_ATTN_REFRESH_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG)                         \
   CS_EXPORT int cs_attn_refresh_##HOT(                                                    \
       const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
       const uint8_t* kv_valid, const int* tile_ids, const int* tile_count, int B,         \
       int Sq, int H, int Hkv, int D, int n_tiles, int t_max, int causal, int window,      \
-      float scale SCRATCH, cudaStream_t stream) {                                         \
+      float scale, int qt SCRATCH(), cudaStream_t stream) {                                 \
     Refresh prob{{q_pos, kv_valid, tile_ids, tile_count, n_tiles, t_max, causal, window}}; \
-    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, qt, prob, stream);          \
   }                                                                                       \
   CS_EXPORT int cs_attn_refresh_paged_##HOT(                                              \
       const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
       const uint8_t* kv_valid, const int* pt, const int* tile_ids,                        \
       const int* tile_count, int B, int Sq, int H, int Hkv, int D, int n_pages,           \
-      int t_max, int causal, int window, float scale SCRATCH, cudaStream_t stream) {      \
+      int t_max, int causal, int window, float scale, int qt SCRATCH(),                     \
+      cudaStream_t stream) {                                                              \
     RefreshPaged prob{                                                                    \
         {q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt};     \
-    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, qt, prob, stream);          \
   }                                                                                       \
   CS_EXPORT int cs_attn_refresh_paged_##COLD(                                             \
       const void* q, const void* k, const void* v, void* out, const int* q_pos,           \
       const uint8_t* kv_valid, const int* pt, const int* tile_ids,                        \
       const int* tile_count, const int8_t* k8, const int8_t* v8,                          \
       const float* k_scale, const float* v_scale, int n_hot, int B, int Sq, int H,        \
-      int Hkv, int D, int n_pages, int t_max, int causal, int window, float scale SCRATCH, \
-      cudaStream_t stream) {                                                              \
+      int Hkv, int D, int n_pages, int t_max, int causal, int window, float scale,        \
+      int qt SCRATCH(), cudaStream_t stream) {                                              \
     RefreshPagedQuant prob{                                                               \
         {{q_pos, kv_valid, tile_ids, tile_count, n_pages, t_max, causal, window}, pt},    \
         {k8, v8, k_scale, v_scale, n_hot}};                                               \
-    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, qt, prob, stream);          \
   }                                                                                       \
   CS_EXPORT int cs_attn_packed_##HOT(                                                     \
       const void* q, const void* k, const void* v, void* out, const int* span,            \
       const int* tile_ids, const int* tile_count, int R, int L, int H, int Hkv, int D,    \
-      int t_max, float scale SCRATCH, cudaStream_t stream) {                              \
+      int t_max, float scale, int qt SCRATCH(), cudaStream_t stream) {                      \
     Packed prob{span, tile_ids, tile_count, L, L / TILE, t_max};                          \
-    return LAUNCH{ARG}(D, q, k, v, out, R, L, H, Hkv, scale, prob, stream);               \
-  }                                                                                       \
+    return LAUNCH{ARG}(D, q, k, v, out, R, L, H, Hkv, scale, qt, prob, stream);           \
+  }
+#define CS_ATTN_PREFILL_EXPORTS_(HOT, COLD, LAUNCH, SCRATCH, ARG)                         \
   CS_EXPORT int cs_attn_prefill_##HOT(                                                    \
       const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,      \
-      int H, int Hkv, int D, int q_offset, int causal, int window, float scale SCRATCH,   \
-      cudaStream_t stream) {                                                              \
+      int H, int Hkv, int D, int q_offset, int causal, int window, float scale,           \
+      int qt SCRATCH(), cudaStream_t stream) {                                              \
     Prefill prob{{Sq, Sk, q_offset, causal, window, (Sk + TILE - 1) / TILE}};             \
-    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, qt, prob, stream);          \
   }                                                                                       \
   CS_EXPORT int cs_attn_prefill_paged_##HOT(                                              \
       const void* q, const void* k, const void* v, void* out, const int* pt, int B,       \
-      int Sq, int H, int Hkv, int D, int n_pages, int q_offset, int window, float scale SCRATCH, \
-      cudaStream_t stream) {                                                              \
+      int Sq, int H, int Hkv, int D, int n_pages, int q_offset, int window, float scale,  \
+      int qt SCRATCH(), cudaStream_t stream) {                                              \
     PrefillPaged prob{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt};            \
-    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, qt, prob, stream);          \
   }                                                                                       \
   CS_EXPORT int cs_attn_prefill_paged_##COLD(                                             \
       const void* q, const void* k, const void* v, void* out, const int* pt,              \
       const int8_t* k8, const int8_t* v8, const float* k_scale, const float* v_scale,     \
       int n_hot, int B, int Sq, int H, int Hkv, int D, int n_pages, int q_offset,         \
-      int window, float scale SCRATCH, cudaStream_t stream) {                             \
+      int window, float scale, int qt SCRATCH(), cudaStream_t stream) {                     \
     PrefillPagedQuant prob{{{Sq, n_pages * TILE, q_offset, 1, window, n_pages}, pt},      \
                            {k8, v8, k_scale, v_scale, n_hot}};                            \
-    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, prob, stream);              \
+    return LAUNCH{ARG}(D, q, k, v, out, B, Sq, H, Hkv, scale, qt, prob, stream);          \
   }

@@ -1,5 +1,6 @@
-// The attention kernels over f16 q, k and v (f16 output) at every head dim
-// d from 1 to 256, each on the smallest ragged build that holds it (24,
+// The attention kernels over f16 K/V and an f16 query (the refresh and
+// packed kernels: also a bf16 or f32 one; the output in q's type) at every
+// head dim d from 1 to 256, each on the smallest ragged build that holds it (24,
 // 32, 64, 128, or the WIDE 256: attention.cuh), rows copied 16, 8 or 4
 // bytes at a time, or element by element at an odd d.  The body is the
 // bf16 one with f16 for bf16 (OPS_F16): the products on mma.sync

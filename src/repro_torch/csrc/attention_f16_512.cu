@@ -1,4 +1,5 @@
-// The attention kernels over f16 q, k and v (f16 output) at head dims 257
+// The attention kernels over f16 K/V and an f16 query (the refresh and
+// packed kernels: any query type; the output in q's type) at head dims 257
 // to 512 on the ragged SLAB build of width 512 (two 256-column slabs of V
 // and O over blocks, 16-key steps: attention.cuh, "The SLAB body").  No
 // exact f16 build at d 512: the ragged one takes it too.

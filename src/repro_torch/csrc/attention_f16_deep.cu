@@ -1,4 +1,5 @@
-// The attention kernels over f16 q, k and v (f16 output) at every head dim
+// The attention kernels over f16 K/V and an f16 query (the refresh and
+// packed kernels: any query type; the output in q's type) at every head dim
 // past 512, on the DEEP build (attention.cuh, "The DEEP body": Q K^T over
 // depth chunks of 256 columns, 256-column slabs of V and O in the refresh
 // and packed kernels, 128 in the prefill ones).  The pre-pass rounds q x

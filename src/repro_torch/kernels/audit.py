@@ -257,14 +257,16 @@ def _paged_prefill_rows() -> List[AuditRow]:
 def _prefill_rows() -> List[AuditRow]:
     """The reference's f32 prefill rows and their bf16 twins, ragged
     lengths included, which reach the kernel (f32 q/k/v as bf16 halves),
-    an f16 row, which reaches the f16 build, and an f16 query over bf16
-    K/V, which 'kernel-dtype' refuses (no build mixes them)."""
+    an f16 row, which reaches the f16 build, and a query of every other
+    type over bf16, f16 and f32 K/V (MIXED_PAIRS), which reach the builds
+    of K/V's type."""
     rows = []
     H, Hkv, D = ATTN["H"], ATTN["Hkv"], ATTN["D"]
     for B, Sq, Sk, sw in ((2, 256, 256, None), (1, 512, 512, 4096), (1, 128, 384, None),
                           (1, 192, 256, None), (1, 256, 200, None)):
         for dt, kv_dt, expect in ((F32, F32, "kernel"), (BF16, BF16, "kernel")) + (
-                ((F16, F16, "kernel"), (F16, BF16, "refused:kernel-dtype"))
+                ((F16, F16, "kernel"),) + tuple((q_dt, k_dt, "kernel")
+                                              for q_dt, k_dt in MIXED_PAIRS)
                 if Sq == 192 else ()):
             q, k = _meta((B, Sq, H, D), dt), _meta((B, Sk, Hkv, D), kv_dt)
             facts = contracts.flash_prefill_facts(q, k, k, causal=True, window=sw, q_offset=0)
@@ -281,8 +283,9 @@ def _width_rows() -> List[AuditRow]:
     build; 20, 90 and a ViT's 75, which are not multiples of 8; 320, 500
     and 300 on the SLAB D-512 one; 520, 1000, 1023 and 1024 on the DEEP
     one), the exact 256 (Gemma 2's heads) and 512, with bf16 and f32
-    queries over a bf16 slab, f32 and f16 q/k/v in the packed ViT, and an
-    f16 query over bf16 K/V there, which 'kernel-dtype' refuses."""
+    queries over a bf16 slab, f32 and f16 q/k/v in the packed ViT, and a
+    query of every other type over bf16, f16 and f32 K/V there
+    (MIXED_PAIRS), which reach the builds of K/V's type."""
     rows = []
     lay, sw = LAYOUTS[2]
     slots = _slots(lay)
@@ -310,7 +313,7 @@ def _width_rows() -> List[AuditRow]:
             (75, BF16, BF16, "kernel"), (512, BF16, BF16, "kernel"), (300, F32, F32, "kernel"),
             (1024, BF16, BF16, "kernel"), (1000, F32, F32, "kernel"), (64, F16, F16, "kernel"),
             (90, F16, F16, "kernel"), (1024, F16, F16, "kernel"),
-            (64, F16, BF16, "refused:kernel-dtype")):
+            *((64, q_dt, k_dt, "kernel") for q_dt, k_dt in MIXED_PAIRS)):
         q, k, seg = _meta((R, L, 4, D), dt), _meta((R, L, 4, D), kv_dt), _meta((R, L), I32)
         kind = (f"{str(dt)[6:]} q/k/v" if dt == kv_dt
                 else f"{str(dt)[6:]} q over {str(kv_dt)[6:]} k/v")
@@ -653,6 +656,67 @@ def variant_rows(streams: int = 2) -> List[ConfigRow]:
                    for n in (WIDE_STATE, WIDER_STATE)), []))
 
 
+# the (q, K/V) dtype pairs the attention kernels take besides q in K/V's
+# type: every q over bf16 and f16 K/V, and (flash_packed, flash_prefill)
+# over f32 K/V
+MIXED_PAIRS = ((F16, BF16), (BF16, F16), (F32, F16), (BF16, F32), (F16, F32))
+CACHE_PAIRS = MIXED_PAIRS[:3]        # the cache kernels' (their K/V are not f32)
+
+
+def mixed_rows(streams: int = 2) -> List[ConfigRow]:
+    """Each attention op at internvl3-14b's serving geometry (LM H 40 /
+    Hkv 8, D 128; the ViT's H 16, D 64) with a query of another type than
+    its K/V: every pair of MIXED_PAIRS the op takes (CACHE_PAIRS in the
+    cache kernels)."""
+    cfg = get_config("internvl3-14b")
+    v = _serving_vit(cfg)
+    codec = SERVING_CODEC
+    lay = WindowLayout(window=codec.window_frames, stride=codec.stride_frames, gop=codec.gop,
+                       g_tokens=v.n_groups, k_tokens=capacity_groups(v, codec.keep_ratio),
+                       query_len=16)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
+    slots = _slots(lay)
+    bm = refresh_block_map(lay, kv_len=slots)
+    q_pos, kvv = _meta((streams, bm.n_q), I32), _meta((streams, slots), torch.bool)
+    pt = _meta((streams, slots // PAGE), I32)
+    i8 = _meta((PAGE, Hkv, D), torch.int8)
+    scales = _meta((1, Hkv), F32)
+    vd, L = v.d_model // v.n_heads, 128
+    seg = _meta((2, L), I32)
+    out: List[ConfigRow] = []
+    for q_dt, k_dt in MIXED_PAIRS:
+        name = f"q {str(q_dt)[6:]} over {str(k_dt)[6:]} K/V"
+        arch = "internvl3-14b, q and K/V of two types"
+        q = _meta((streams, bm.n_q, H, D), q_dt)
+        k, slab = _meta((streams, slots, Hkv, D), k_dt), _meta((streams * slots, Hkv, D), k_dt)
+        qv, kv = _meta((2, L, v.n_heads, vd), q_dt), _meta((2, L, v.n_heads, vd), k_dt)
+        calls = {"flash_packed": contracts.flash_packed_facts(
+            qv, kv, kv, seg, build_pack_map(np.zeros((2, L), np.int32))),
+                 "flash_prefill": contracts.flash_prefill_facts(
+            q, k, k, causal=True, window=None, q_offset=0)}
+        if (q_dt, k_dt) in CACHE_PAIRS:
+            calls.update({
+                "flash_refresh": contracts.flash_refresh_facts(
+                    q, k, k, q_pos, None, causal=True, window=None, block_map=bm),
+                "flash_refresh_paged": contracts.flash_refresh_paged_facts(
+                    q, slab, slab, q_pos, kvv, pt, page=PAGE, causal=True, window=None,
+                    block_map=bm),
+                "flash_refresh_paged_int8": contracts.flash_refresh_paged_facts(
+                    q, slab, slab, q_pos, kvv, pt, page=PAGE, causal=True, window=None,
+                    block_map=bm, cold=(i8, i8, scales, scales)),
+                "flash_prefill_paged": contracts.flash_prefill_paged_facts(
+                    q, slab, slab, pt, page=PAGE, causal=True, window=None, q_offset=0),
+                "flash_prefill_paged_int8": contracts.flash_prefill_paged_facts(
+                    q, slab, slab, pt, page=PAGE, causal=True, window=None, q_offset=0,
+                    cold=(i8, i8, scales, scales))})
+        for op, facts in calls.items():
+            contract = op.replace("_int8", "")
+            geo = (f"ViT H {v.n_heads}, D {vd}, {name}" if op == "flash_packed"
+                   else f"H {H} / Hkv {Hkv}, D {D}, {name}")
+            out.append(ConfigRow(arch, op, geo, _decision_str(contracts.decide(contract, facts))))
+    return out
+
+
 def _serving_calls(arch: str, cfg, v: ViTCfg, codec: CodecCfg, streams: int) -> List[ConfigRow]:
     lay = WindowLayout(window=codec.window_frames, stride=codec.stride_frames,
                        gop=codec.gop, g_tokens=v.n_groups,
@@ -811,7 +875,6 @@ def refusal_cases(device) -> dict:
     q8, k8 = rand(1, 8, 4, 32, dtype=BF16), rand(1, 8, 2, 32, dtype=BF16, seed=1)
     return {
         ("rope_shift", "aligned"): rope(misaligned((1, 8, 2, 16))),
-        ("flash_prefill", "kernel-dtype"): prefill(q8.half(), k8),
         ("flash_prefill", "contiguous"): prefill(transposed(q8, 1, 2), k8),
         ("flash_prefill", "aligned"): prefill(misaligned((1, 8, 4, 32), BF16), k8),
         ("flash_prefill_paged", "page-tile"): prefill_paged(q8, slab, page=64),
@@ -863,7 +926,6 @@ def refusal_cases(device) -> dict:
         ("flash_packed", "map-tile"): packed(pq, seg, build_pack_map(seg_np, tq=64, tk=64)),
         ("flash_packed", "single-run"): packed(pq, torch.from_numpy(split).to(dev),
                                                build_pack_map(split)),
-        ("flash_packed", "kernel-dtype"): packed(pq.half(), seg, build_pack_map(seg_np), pq),
         ("flash_packed", "aligned"): packed(misaligned((1, 128, 4, 32), BF16), seg,
                                             build_pack_map(seg_np)),
     }
@@ -947,7 +1009,7 @@ def serving_cases(device, streams: int = 2) -> dict:
 def main(argv=None) -> int:
     rows, failures = run_audit()
     budgets, over = run_budgets()
-    cfg_rows = config_rows() + variant_rows()
+    cfg_rows = config_rows() + variant_rows() + mixed_rows()
     refused = [f"{r.arch} {r.op} [{r.geometry}]: {r.verdict}" for r in cfg_rows
                if r.verdict != "kernel"]
     print("## Dispatch coverage\n")

@@ -429,22 +429,12 @@ _POSITIONS = Rule("positions-match", "q_pos equals the block map's query positio
                   lambda f: f["positions_match"](), deferred=True)
 _MAP_PRESENT = Rule("map-present", "a RefreshBlockMap was supplied",
                     lambda f: f["has_map"])
-# the port's kernels' own rules, shared by the attention ops
-def _q_f32_or_bf16_over_bf16(f: Mapping[str, Any]) -> bool:
-    return f["q_dtype"] in ("bfloat16", "float32") and f["k_dtype"] == f["v_dtype"] == "bfloat16"
-
-
-def _all_f16(f: Mapping[str, Any]) -> bool:
-    return f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float16"
-
-
-_KV_BF16 = Rule("kernel-dtype", "q must be bf16 or f32 over bf16 k/v (the caches and the "
-                "slab are bf16), or q/k/v all f16",
-                lambda f: _q_f32_or_bf16_over_bf16(f) or _all_f16(f))
-_ANY_F32 = Rule("kernel-dtype", "q/k/v must be bf16, f32 q over bf16 k/v, f32 q/k/v, or "
-                "f16 q/k/v",
-                lambda f: _q_f32_or_bf16_over_bf16(f) or _all_f16(f)
-                or f["q_dtype"] == f["k_dtype"] == f["v_dtype"] == "float32")
+# the port's kernels' own rules, shared by the attention ops.  Every q
+# type runs over every K/V type the kernel has a build for: the cache
+# kernels' K/V are the bf16 or f16 caches and slab
+_KV_BF16 = Rule("kernel-dtype", "k/v must be the bf16 or f16 caches or slab, under any q; "
+                "f32 k/v are not taken",
+                lambda f: f["k_dtype"] in ("bfloat16", "float16"))
 _MAP_TILE = Rule("map-tile", "the map's tiles must be 128 x 128",
                  lambda f: f["map_tq"] == TILE and f["map_tk"] == TILE)
 _ALIGNED = Rule("aligned", "operands read in place must be 16-byte aligned",
@@ -515,7 +505,7 @@ FLASH_PREFILL = KernelContract(
         Rule("dtype", "q/k/v are f32/bf16/f16 with k == v", _attn_dtype_ok),
         Rule("window", "sliding window is None or >= 1", _window_ok),
     ),
-    eligibility=(_ANY_F32, _CONTIGUOUS, _ALIGNED),
+    eligibility=(_CONTIGUOUS, _ALIGNED),   # every q over bf16, f16 or f32 k/v
     tile=(TILE, TILE),
     compile_key="none: each block derives its key tiles from the causal/window band",
 )
@@ -704,7 +694,7 @@ FLASH_PACKED = KernelContract(
              lambda f: f["tq"] == TILE and f["tk"] == TILE),
         Rule("single-run", "the kernel masks by key range: every segment must be one "
              "contiguous run of its row", lambda f: f["map_single_run"]),
-        _ANY_F32, _ALIGNED,
+        _ALIGNED,    # every q over bf16, f16 or f32 k/v
     ),
     tile=(TILE, TILE),
     visit_list=("the map's span (R, L), tile_ids (R, L/tq, t_max) and tile_count "
@@ -755,11 +745,8 @@ CONTRACTS: Dict[str, KernelContract] = {
               FLASH_REFRESH_PAGED, FLASH_PACKED, SSD_SCAN)
 }
 
-_WHY_MIXED = ("one operand type a build: q/k/v all bf16 or all f16, an f32 q over bf16 K/V "
-              "and, in flash_prefill and flash_packed, f32 q/k/v; a call that mixes f16 with "
-              "another dtype, or a bf16 q over f32 K/V, has no build")
-_WHY_KV_BF16 = ("K/V are the bf16 caches or slab of both packages; f32 K/V would need their "
-                "bf16 halves written per call over the whole cache")
+_WHY_KV_BF16 = ("K/V are the bf16 or f16 caches or slab of both packages (any q over them); "
+                "f32 K/V would need their bf16 halves written per call over the whole cache")
 
 
 # How the port's eligibility rules differ from the reference's:
@@ -772,26 +759,24 @@ DIFFERENCES: Tuple[Tuple[str, str, str, str], ...] = (
     ("rope_shift", "aligned", "+", "16-byte loads of k, read in place when contiguous"),
     ("flash_prefill", "q-tile", "-", "the kernel masks ragged query tiles"),
     ("flash_prefill", "k-tile", "-", "the kernel masks ragged key tiles"),
-    ("flash_prefill", _DTYPE, "+", _WHY_MIXED),
     ("flash_prefill", "contiguous", "+", "q/k/v are read in place with packed rows"),
     ("flash_prefill", "aligned", "+", "16-byte cp.async copies of q/k/v"),
     ("flash_prefill_paged", "q-tile", "-", "the kernel masks ragged query tiles"),
-    ("flash_prefill_paged", _DTYPE, "+", _WHY_MIXED + "; " + _WHY_KV_BF16),
+    ("flash_prefill_paged", _DTYPE, "+", _WHY_KV_BF16),
     ("flash_prefill_paged", "contiguous", "+", "q/k/v and the cold group are read in place"),
     ("flash_prefill_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_refresh", "positions", "-", "a precondition here ('positions-match'): the kernel "
      "masks by the map's positions, and a card refusal is no fallback"),
     ("flash_refresh", "map-tile", "+", "the kernel's tiles are 128 x 128"),
-    ("flash_refresh", _DTYPE, "+", _WHY_MIXED + "; " + _WHY_KV_BF16),
+    ("flash_refresh", _DTYPE, "+", _WHY_KV_BF16),
     ("flash_refresh", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("flash_refresh_paged", "positions", "-", "a precondition here ('positions-match')"),
     ("flash_refresh_paged", "map-tile", "+", "the kernel's tiles and pages are 128"),
-    ("flash_refresh_paged", _DTYPE, "+", _WHY_MIXED + "; " + _WHY_KV_BF16),
+    ("flash_refresh_paged", _DTYPE, "+", _WHY_KV_BF16),
     ("flash_refresh_paged", "aligned", "+", "16-byte cp.async copies of q/k/v and the int8 slabs"),
     ("flash_packed", "map-tile", "+", "the kernel's tiles are 128 x 128"),
     ("flash_packed", "single-run", "+", "the mask is one key range per slot, exact only "
      "when every segment is one run of its row (pack_plan's layouts)"),
-    ("flash_packed", _DTYPE, "+", _WHY_MIXED),
     ("flash_packed", "aligned", "+", "16-byte cp.async copies, contiguous operands in place"),
     ("ssd_scan_bwd", "requires-grad", "+", "ssd_scan takes operands that require grad on the "
      "card (SsdScanFn over the forward and backward kernels); the reference's kernel has no "

@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("mv_sad.cu", "rope_shift.cu", "attention.cu", "attention_any.cu",
            "attention_q32.cu", "attention_f32.cu", "attention_512.cu", "attention_q32_512.cu",
            "attention_deep.cu", "attention_q32_deep.cu", "attention_f16.cu",
-           "attention_f16_512.cu", "attention_f16_deep.cu", "ssd_scan.cu", "ssd_scan_staged.cu")
+           "attention_f16_512.cu", "attention_f16_deep.cu", "attention_q16.cu", "ssd_scan.cu",
+           "ssd_scan_staged.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,36 +44,38 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "cs_mv_sad_f32": (_p, _p, _i, _i, _i, _i, _p, _p, _p),
     "cs_rope_shift": (_p, _p, _p, _ll, _i, _i, _p, _i, _p),
+    # the attention entry points: ..., scale, q's type (Q_TYPES), stream
     "cs_attn_refresh_bf16": (
         _p, _p, _p, _p, _p, _p, _p, _p,
-        _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
     "cs_attn_refresh_paged_bf16": (
         _p, _p, _p, _p, _p, _p, _p, _p, _p,
-        _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
     "cs_attn_refresh_paged_int8": (
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
-        _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
     "cs_attn_packed_bf16": (
-        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p,
+        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
     "cs_attn_prefill_bf16": (
-        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
     "cs_attn_prefill_paged_bf16": (
-        _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
     "cs_attn_prefill_paged_int8": (
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _i,
-        _i, _i, _i, _i, _i, _i, _i, _i, _f, _p,
+        _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p,
     ),
+    # ..., scale, q's type, scratch, stream
     "cs_attn_packed_f32": (
-        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p, _p,
+        _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _p, _p,
     ),
     "cs_attn_prefill_f32": (
-        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p, _p,
+        _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _i, _p, _p,
     ),
     "cs_ssd_scan": (
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
@@ -92,19 +95,27 @@ for _name in ("cs_ssd_scan", "cs_ssd_scan_bwd"):
 
 # the attention kernels' entry points over bf16 K/V (csrc/attention.cuh
 # CS_ATTN_EXPORTS): each has an exact bf16 build (attention.cu), a ragged
-# bf16 one (``_any``: attention_any.cu) and an f32-query one (``_q32``:
-# attention_q32.cu), and past head dim 256 a bf16 one (``_512``:
-# attention_512.cu) and an f32-query one (``_q32_512``:
-# attention_q32_512.cu), all with one signature; past 512 the DEEP builds
-# (``_deep``: attention_deep.cu, ``_q32_deep``: attention_q32_deep.cu)
-# take one more pointer before the stream, the query's scratch.  The f16
-# builds (f16 q/k/v: attention_f16.cu, attention_f16_512.cu,
-# attention_f16_deep.cu) have entry points of their own, named by
-# ``f16_entry`` (``_f16`` for ``_bf16``, ``_int8_f16`` for ``_int8``), with
-# the same signatures and suffixes (none, ``_512``, ``_deep``)
+# bf16 one (``_any``: attention_any.cu) and one for an f32 or f16 query
+# (``_q32``: attention_q32.cu), and past head dim 256 a bf16 one
+# (``_512``: attention_512.cu) and an f32- or f16-query one
+# (``_q32_512``: attention_q32_512.cu), all with one signature; past 512
+# the DEEP builds (``_deep``: attention_deep.cu, ``_q32_deep``:
+# attention_q32_deep.cu) take one more pointer before the stream, the
+# query's scratch.  The f16 builds (f16 K/V: attention_f16.cu,
+# attention_f16_512.cu, attention_f16_deep.cu) have entry points of their
+# own, named by ``f16_entry`` (``_f16`` for ``_bf16``, ``_int8_f16`` for
+# ``_int8``), with the same signatures and suffixes (none, ``_512``,
+# ``_deep``); the prefill kernels' builds for a bf16 or f32 query over f16
+# K/V (attention_q16.cu) add ``_q16`` before the suffix.  Every entry
+# point takes q's type (``Q_TYPES``) after the scale; the output is in it.
 ATTN_ENTRIES = ("cs_attn_refresh_bf16", "cs_attn_refresh_paged_bf16",
                 "cs_attn_refresh_paged_int8", "cs_attn_packed_bf16", "cs_attn_prefill_bf16",
                 "cs_attn_prefill_paged_bf16", "cs_attn_prefill_paged_int8")
+# the prefill kernels' entry points: their oracle keeps the query exact,
+# so a query wider than the products runs on a build that splits it
+PREFILL_ENTRIES = ATTN_ENTRIES[4:]
+# q's type code (csrc/attention.cuh Q_BF16, Q_F16, Q_F32)
+Q_TYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def f16_entry(name: str) -> str:
@@ -118,9 +129,10 @@ for _name in ATTN_ENTRIES:
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name]
     for _suffix in ("_deep", "_q32_deep"):
         _SIGNATURES[_name + _suffix] = _SIGNATURES[_name][:-1] + (_p, _p)
-    for _suffix in ("", "_512"):
-        _SIGNATURES[f16_entry(_name) + _suffix] = _SIGNATURES[_name]
-    _SIGNATURES[f16_entry(_name) + "_deep"] = _SIGNATURES[_name][:-1] + (_p, _p)
+    for _q16 in ("", "_q16") if _name in PREFILL_ENTRIES else ("",):
+        for _suffix in ("", "_512"):
+            _SIGNATURES[f16_entry(_name) + _q16 + _suffix] = _SIGNATURES[_name]
+        _SIGNATURES[f16_entry(_name) + _q16 + "_deep"] = _SIGNATURES[_name][:-1] + (_p, _p)
 
 # head dims of the attention kernels' exact builds (attention.cu, and
 # attention_512.cu at 512); every other head dim up to SLAB_HEAD_DIM runs
@@ -227,29 +239,42 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def attention_entry(name: str, q: torch.Tensor, d: int):
-    """The library function of attention entry point ``name`` (one of
-    ``ATTN_ENTRIES``) for q's type and head dim ``d``: the exact bf16
-    build, the ragged one, the f32-query one, or for an f16 q the f16 one
-    (past 256: the D-512 bf16, f32-query or f16 one).  Past 512 the DEEP
-    bf16, f32-query or f16 one, called with the same arguments: it
-    allocates the query's scratch (``deep_q_elems``) and hands it over
-    before the stream."""
-    if q.dtype == torch.float16:
-        name = f16_entry(name)
+def attention_entry(name: str, q: torch.Tensor, k: torch.Tensor, d: int):
+    """A launcher of attention entry point ``name`` (one of
+    ``ATTN_ENTRIES``, over bf16 or f16 K/V) for K's type, q's and head dim
+    ``d``, called with the entry point's arguments but q's type: over bf16
+    K/V the exact bf16 build, the ragged one, or for an f32 or f16 q the
+    ``_q32`` one; over f16 K/V the f16 one, or in the prefill kernels for
+    a bf16 or f32 q the ``_q16`` one (past 256: their D-512 builds).  Past
+    512 the DEEP one, which it hands the query's scratch
+    (``deep_q_elems``) before the stream.  It passes q's type after the
+    scale: the kernel reads q and writes the output in it."""
+    wide_q = q.dtype != k.dtype
+    if k.dtype == torch.float16:
+        name = f16_entry(name) + ("_q16" if wide_q and name in PREFILL_ENTRIES else "")
+    elif wide_q:
+        name += "_q32"
+    suffix = "_deep" if d > SLAB_HEAD_DIM else "_512" if d > 256 else ""
+    if not (suffix or wide_q or k.dtype == torch.float16 or d in HEAD_DIMS):
+        suffix = "_any"
+    fn = getattr(library(), name + suffix)
+    qt = Q_TYPES[q.dtype]
     if d > SLAB_HEAD_DIM:
-        fn = getattr(library(), name + ("_q32_deep" if q.dtype == torch.float32 else "_deep"))
-
         def launch(*args):
-            scratch = torch.empty(deep_q_elems(q), dtype=torch.bfloat16, device=q.device)
-            return fn(*args[:-1], scratch.data_ptr(), args[-1])
-        return launch
-    wide = "_512" if d > 256 else ""
-    if q.dtype == torch.float32:
-        return getattr(library(), name + "_q32" + wide)
-    if wide or q.dtype == torch.float16:
-        return getattr(library(), name + wide)
-    return getattr(library(), name if d in HEAD_DIMS else name + "_any")
+            scratch = torch.empty(deep_q_elems(q, k), dtype=torch.bfloat16, device=q.device)
+            return fn(*args[:-1], qt, scratch.data_ptr(), args[-1])
+    else:
+        def launch(*args):
+            return fn(*args[:-1], qt, args[-1])
+    return launch
+
+
+def f32_kv_launch(fn, q: torch.Tensor, k: torch.Tensor, *args) -> int:
+    """Call f32-K/V entry point ``fn`` (``cs_attn_packed_f32``,
+    ``cs_attn_prefill_f32``) with its arguments up to the scale, q's type,
+    and the scratch it splits K and V into (``f32_scratch_elems``)."""
+    scratch = torch.empty(f32_scratch_elems(q, k), dtype=torch.bfloat16, device=q.device)
+    return fn(*args, Q_TYPES[q.dtype], scratch.data_ptr(), stream_handle(q))
 
 
 def split_elems(k: torch.Tensor) -> int:
@@ -259,20 +284,24 @@ def split_elems(k: torch.Tensor) -> int:
     return -(-k.numel() // 8) * 8
 
 
-def deep_q_elems(q: torch.Tensor) -> int:
+def deep_q_elems(q: torch.Tensor, k: torch.Tensor) -> int:
     """16-bit elements of the query's scratch of the DEEP build (head dims
     past ``SLAB_HEAD_DIM``; ``csrc/attention.cuh`` launch_mma): q's rows
-    at its head dim rounded up to 16 (bf16, or f16 for an f16 q), twice
-    for an f32 q (its two bf16 halves)."""
+    at its head dim rounded up to 16 (bf16, or f16 over f16 K/V), twice
+    where the query may be split (a q of another type than K's, or f32),
+    and over f16 K/V then a row factor (f32) per row."""
     d = q.shape[-1]
-    return q.numel() // d * (-(-d // 16) * 16) * (2 if q.dtype == torch.float32 else 1)
+    rows = q.numel() // d
+    if q.dtype == k.dtype != torch.float32:
+        return rows * (-(-d // 16) * 16)
+    return 2 * rows * (-(-d // 16) * 16) + (2 * rows if k.dtype == torch.float16 else 0)
 
 
 def f32_scratch_elems(q: torch.Tensor, k: torch.Tensor) -> int:
     """bf16 elements of an f32 q/k/v kernel's scratch: K's and V's halves
     (four arrays of ``split_elems``), and past ``SLAB_HEAD_DIM`` the
     query's two halves after them."""
-    return 4 * split_elems(k) + (deep_q_elems(q) if q.shape[-1] > SLAB_HEAD_DIM else 0)
+    return 4 * split_elems(k) + (deep_q_elems(q, k) if q.shape[-1] > SLAB_HEAD_DIM else 0)
 
 
 def check(rc: int, name: str) -> None:

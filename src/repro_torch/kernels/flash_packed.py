@@ -23,11 +23,13 @@ Bound on an H100: tensor-core operations on the visited block-diagonal
 tiles (at D = 64 each tile pair does 4*128*128*64 flops on 32 KB of
 K/V).  The design visits only tiles that share a live segment and runs
 both products on the tensor cores around an f32 online softmax, with S,
-P and O in registers.  Operands: bf16 or f16 q/k/v (the f16 builds round
-q x scale and P to f16), an f32 q over bf16 K/V, or f32 q/k/v (a ViT
-from an f32 checkpoint: ``cs_attn_packed_f32`` splits K and V into bf16
-halves in a scratch buffer the wrapper allocates, and runs three
-products a tile), at any head dim (past 256 two blocks a
+P and O in registers.  Operands: bf16, f16 or f32 K/V under a query of
+any float type, read in its own type (the products are K/V's type's: q x
+scale is rounded to K's type as the oracle rounds it, P to V's; the f16
+builds round both to f16); f32 K/V come from a ViT of an f32 checkpoint:
+``cs_attn_packed_f32`` splits K and V into bf16 halves in a scratch
+buffer the wrapper allocates, and runs three products a tile), at any
+head dim (past 256 two blocks a
 query tile, each with a 256-column slab of V and O; past 512 as many
 slabs as d needs, Q K^T summed over depth chunks of 256); the output
 takes q's type.
@@ -206,7 +208,8 @@ def flash_packed_plain(q, k, v, seg_id, *, q_chunk: int = 1024):
 
 
 def flash_packed_cuda(q, k, v, block_map: PackBlockMap):
-    """Launch the kernel: q (R, L, H, D), k, v (R, L, Hkv, D) bf16 over
+    """Launch the kernel: q (R, L, H, D) of any float type, k, v (R, L,
+    Hkv, D) bf16, f16 or f32 (the output in q's type) over
     the layout ``block_map`` was built from (the kernel masks by its
     runs).  Operands the kernel does not take raise, a layout whose
     segments are not single runs as eligibility ``single-run``."""
@@ -228,12 +231,9 @@ def flash_packed_launch(q, k, v, block_map: PackBlockMap):
             dm.span.data_ptr(), dm.tile_ids.data_ptr(), dm.tile_count.data_ptr(),
             R, L, H, Hkv, D, bm.t_max, float(D ** -0.5))
     if k.dtype == torch.float32:     # K's and V's bf16 halves, written by the kernel
-        scratch = torch.empty(cuda.f32_scratch_elems(q, k), dtype=torch.bfloat16,
-                              device=q.device)
-        rc = cuda.library().cs_attn_packed_f32(*args, scratch.data_ptr(),
-                                               cuda.stream_handle(q))
+        rc = cuda.f32_kv_launch(cuda.library().cs_attn_packed_f32, q, k, *args)
     else:
-        rc = cuda.attention_entry("cs_attn_packed_bf16", q, D)(*args, cuda.stream_handle(q))
+        rc = cuda.attention_entry("cs_attn_packed_bf16", q, k, D)(*args, cuda.stream_handle(q))
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
     return out

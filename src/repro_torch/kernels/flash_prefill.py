@@ -31,11 +31,14 @@ after ``ref.paged_gather`` where the KV is paged) keep f32 throughout, as
 the Pallas body does, and so do the kernels: the scale multiplies the
 f32 scores, and P V is accumulated from P split into two bf16 halves
 (about 16 bits of P).  Only the output's rounding to bf16 differs: one
-bf16 step of the row's largest value.  Operands: bf16 q/k/v; f16 q/k/v
-(the f16 builds: P as two f16 halves, the output rounded to f16); an f32 q
-over bf16 K/V (split into two bf16 halves as P is; f32 output); and, for
-the dense kernel, f32 q/k/v (``cs_attn_prefill_f32``: K and V split into
-bf16 halves in a scratch buffer the wrapper allocates), at any head dim
+bf16 step of the row's largest value.  Operands: bf16 or f16 K/V under a
+query of any float type (read in its own type; the output is in it): q in
+K's type as is, an f32 or f16 q over bf16 K/V as two bf16 halves (the
+``_q32`` builds), a bf16 or f32 q over f16 K/V as two f16 halves of each
+row scaled by a power of two (the ``_q16`` builds); f16 K/V take P as two
+f16 halves; and, for the dense kernel, f32 K/V under any q
+(``cs_attn_prefill_f32``: K and V split into bf16 halves in a scratch
+buffer the wrapper allocates), at any head dim
 (past 256 on the D-512 build: a 256-column slab of V and O a block; past
 512 on the DEEP build: 128-column slabs, Q K^T summed over depth chunks
 of 256).
@@ -76,8 +79,9 @@ def flash_prefill_paged_plain(q, k, v, page_table, *, page: int = 128,
 
 def flash_prefill_cuda(q, k, v, *, causal: bool = True, window: int | None = None,
                        q_offset: int = 0):
-    """Launch the dense kernel: q (B, Sq, H, D) bf16; k, v (B, Sk, Hkv, D)
-    bf16, contiguous; any Sq and Sk.  Operands the kernel does not take
+    """Launch the dense kernel: q (B, Sq, H, D) of any float type; k, v
+    (B, Sk, Hkv, D) bf16, f16 or f32, contiguous; any Sq and Sk; the
+    output in q's type.  Operands the kernel does not take
     (``contracts.FLASH_PREFILL``) raise."""
     contracts.require(contracts.flash_prefill_verdict(
         q, k, v, causal=causal, window=window, q_offset=q_offset), NAME)
@@ -93,12 +97,9 @@ def flash_prefill_launch(q, k, v, *, causal: bool, window: int | None, q_offset:
             int(q_offset), int(causal), -1 if window is None else int(window),
             float(D ** -0.5))
     if k.dtype == torch.float32:     # K's and V's bf16 halves, written by the kernel
-        scratch = torch.empty(cuda.f32_scratch_elems(q, k), dtype=torch.bfloat16,
-                              device=q.device)
-        rc = cuda.library().cs_attn_prefill_f32(*args, scratch.data_ptr(),
-                                                cuda.stream_handle(q))
+        rc = cuda.f32_kv_launch(cuda.library().cs_attn_prefill_f32, q, k, *args)
     else:
-        rc = cuda.attention_entry("cs_attn_prefill_bf16", q, D)(*args, cuda.stream_handle(q))
+        rc = cuda.attention_entry("cs_attn_prefill_bf16", q, k, D)(*args, cuda.stream_handle(q))
     cuda.check(rc, NAME)
     cuda.record_launch(NAME)
     return out
@@ -107,8 +108,8 @@ def flash_prefill_launch(q, k, v, *, causal: bool, window: int | None, q_offset:
 def flash_prefill_paged_cuda(q, k, v, page_table, *, page: int = 128,
                              window: int | None = None, q_offset: int = 0, cold=None):
     """Launch the paged kernel (causal), the int8 one when ``cold = (k8,
-    v8, k_scale, v_scale)`` is given.  q (B, Sq, H, D) bf16, any Sq; k, v
-    (P_phys, Hkv, D) bf16 (hot) slab; page_table (B, n_pages) int; k8, v8
+    v8, k_scale, v_scale)`` is given.  q (B, Sq, H, D) of any float type,
+    any Sq; k, v (P_phys, Hkv, D) bf16 or f16 (hot) slab; page_table (B, n_pages) int; k8, v8
     (n_cold * page, Hkv, D) int8; k_scale, v_scale (n_cold, Hkv) f32; all
     contiguous.  Operands the kernel does not take raise."""
     contracts.require(contracts.flash_prefill_paged_verdict(
@@ -132,10 +133,10 @@ def flash_prefill_paged_launch(q, k, v, page_table, *, page: int, window: int | 
              -1 if window is None else int(window), float(D ** -0.5),
              cuda.stream_handle(q))
     if cold is None:
-        rc = cuda.attention_entry("cs_attn_prefill_paged_bf16", q, D)(*common, *shape)
+        rc = cuda.attention_entry("cs_attn_prefill_paged_bf16", q, k, D)(*common, *shape)
     else:
         k8, v8, k_scale, v_scale = cold
-        rc = cuda.attention_entry("cs_attn_prefill_paged_int8", q, D)(
+        rc = cuda.attention_entry("cs_attn_prefill_paged_int8", q, k, D)(
             *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), P_phys // page, *shape)
     cuda.check(rc, name)

@@ -41,12 +41,14 @@ rows past Sq are neither read nor written, so the query is not padded.
 
 Operands the kernels take (``contracts.FLASH_REFRESH`` and
 ``FLASH_REFRESH_PAGED``; the wrappers raise on anything else): bf16 or
-f32 queries (an f32 LM's; the output takes q's type) over bf16 K/V, or
-f16 q, K and V (the f16 builds: the same body on f16 products, q x scale
-and P rounded to f16 as the oracle rounds them to K's and V's type; an
-int8 cold page dequantised to f16), any head dim (``cuda.attention_entry``
-picks the build: exact at 24, 32, 64, 128, 256 and 512, ragged otherwise,
-the DEEP one past 512, f32-query builds for f32 q, f16 ones for f16);
+f16 K/V under a query of any float type (an f32 LM's queries over its
+bf16 caches; the kernel reads q in its type and writes the output in it),
+the products K/V's type's (q x scale and P rounded to K's and V's type as
+the oracle rounds them; an int8 cold page dequantised to the hot slab's
+type), any head dim (``cuda.attention_entry`` picks the build by K's type:
+exact at 24, 32, 64, 128, 256 and 512, ragged otherwise, the DEEP one
+past 512, the ``_q32`` builds for an f32 or f16 q over bf16 K/V, the f16
+ones over f16 K/V);
 128-row map tiles and pages; q, k, v, the int8 slabs and ``kv_valid`` on
 16-byte boundaries (``kv_valid`` is copied once where it is not).
 
@@ -246,8 +248,9 @@ def _valid_bytes(kv_valid: torch.Tensor) -> torch.Tensor:
 
 def flash_refresh_cuda(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
                        causal: bool = True, window: int | None = None):
-    """Launch the per-stream kernel: q (B, Sq, H, D) bf16; k, v (B, Sk,
-    Hkv, D) bf16 caches, Sk a multiple of 128; kv_valid (B, Sk) bool.
+    """Launch the per-stream kernel: q (B, Sq, H, D) of any float type
+    (the output in it); k, v (B, Sk, Hkv, D) bf16 or f16 caches, Sk a
+    multiple of 128; kv_valid (B, Sk) bool.
     The query rows are masked by the MAP's positions (``ops.flash_refresh``
     checks that they equal the caller's).  Operands the kernel does not
     take raise."""
@@ -268,7 +271,7 @@ def flash_refresh_launch(q, k, v, kv_valid, block_map: RefreshBlockMap, *,
     cuda.require_aligned(NAME_STREAM, q, k, v)
     kvv = _valid_bytes(kv_valid)
     out = torch.empty_like(q)
-    rc = cuda.attention_entry("cs_attn_refresh_bf16", q, D)(
+    rc = cuda.attention_entry("cs_attn_refresh_bf16", q, k, D)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dm.q_pos.data_ptr(), kvv.data_ptr(), dm.tile_ids.data_ptr(),
         dm.tile_count.data_ptr(), B, Sq, H, Hkv, D, Sk // TILE,
@@ -289,7 +292,8 @@ def flash_refresh_paged_cuda(q, k, v, kv_valid, page_table,
     positions (``ops.flash_refresh_paged`` checks that they equal the
     caller's, and that the page ids lie in the slabs).
 
-    q (B, Sq, H, D) bf16; k, v (P_phys, Hkv, D) bf16 (hot) slab; kv_valid
+    q (B, Sq, H, D) of any float type (the output in it); k, v (P_phys,
+    Hkv, D) bf16 or f16 (hot) slab; kv_valid
     (B, n_pages * page) bool; page_table (B, n_pages) int; k8, v8
     (n_cold * page, Hkv, D) int8; k_scale, v_scale (n_cold, Hkv) f32.
     Operands the kernel does not take raise.
@@ -322,11 +326,11 @@ def flash_refresh_paged_launch(q, k, v, kv_valid, page_table, block_map: Refresh
              -1 if window is None else int(window), float(D ** -0.5),
              cuda.stream_handle(q))
     if cold is None:
-        rc = cuda.attention_entry("cs_attn_refresh_paged_bf16", q, D)(*common, *shape)
+        rc = cuda.attention_entry("cs_attn_refresh_paged_bf16", q, k, D)(*common, *shape)
     else:
         k8, v8, k_scale, v_scale = (t.contiguous() for t in cold)
         cuda.require_aligned(name, k8, v8)
-        rc = cuda.attention_entry("cs_attn_refresh_paged_int8", q, D)(
+        rc = cuda.attention_entry("cs_attn_refresh_paged_int8", q, k, D)(
             *common, k8.data_ptr(), v8.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), P_phys // page, *shape)
     cuda.check(rc, name)

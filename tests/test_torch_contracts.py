@@ -334,10 +334,10 @@ def test_shadowed_rules_decide_on_facts_and_raise_positions_match_in_ops():
 
 def test_refusals_name_their_rule_and_are_kernel_errors():
     from repro_torch.kernels.cuda import KernelError
-    err = contracts.FLASH_PREFILL.refusal("kernel-dtype", "flash_prefill")
+    err = contracts.FLASH_REFRESH.refusal("kernel-dtype", "flash_refresh")
     assert isinstance(err, KernelError) and isinstance(err, contracts.KernelContractError)
-    assert str(err) == ("flash_prefill: eligibility 'kernel-dtype' failed (q/k/v must be "
-                        "bf16, f32 q over bf16 k/v, f32 q/k/v, or f16 q/k/v)")
+    assert str(err) == ("flash_refresh: eligibility 'kernel-dtype' failed (k/v must be the "
+                        "bf16 or f16 caches or slab, under any q; f32 k/v are not taken)")
 
 
 def test_memoized_verdicts_equal_fresh_decisions():

@@ -750,15 +750,17 @@ def test_prefill_operands_the_kernel_does_not_take_raise(dev):
         assert _row_rel_err(ops.flash_prefill(q, k, v).cpu(), flash_prefill_plain(
             q.cpu(), k.cpu(), v.cpu())) <= PREFILL_ROW_TOL
     # f16 q/k/v, once refused (no f16 build), run on the f16 build; an f16
-    # query over bf16 K/V has no build and raises naming its rule
+    # query over bf16 K/V, once refused (no build mixed them), runs on the
+    # f32-query build (its two bf16 halves hold it exactly)
     q16, k16, v16 = (torch.randn(1, 128, h, 32, device=dev, generator=g).half()
                      for h in (4, 2, 2))
     out16 = ops.flash_prefill(q16, k16, v16)
     assert out16.dtype == torch.float16 and _row_rel_err(
         out16.cpu(), flash_prefill_plain(q16.cpu(), k16.cpu(), v16.cpu())) <= F16_ROW_TOL
     kvb = k16.bfloat16()
-    with pytest.raises(KernelError, match="kernel-dtype"):
-        ops.flash_prefill(q16, kvb, kvb)
+    mixed = ops.flash_prefill(q16, kvb, kvb)
+    assert mixed.dtype == torch.float16 and _row_rel_err(
+        mixed.cpu(), flash_prefill_plain(q16.cpu(), kvb.cpu(), kvb.cpu())) <= F16_ROW_TOL
     qt = torch.zeros(1, 4, 128, 32, device=dev, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(KernelError, match="contiguous"):
         ops.flash_prefill(qt, kvb, kvb)
@@ -1490,6 +1492,21 @@ ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
             "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
 
 
+def _row_tol(op, d, q_dt, kv_dt):
+    """The row-relative limit of ``op`` with q in ``q_dt`` over K/V in
+    ``kv_dt``: each dtype's own limit (the products' roundings and the
+    output's, in that dtype), the coarser of K/V's and q's in the refresh
+    and packed ops, whose products are K/V's type's and whose output is
+    q's; q's alone in the prefill ops, which keep the query and P to about
+    16 bits whatever K/V's type, so only the output's rounding differs."""
+    prefill = op.startswith("flash_prefill")
+
+    def own(dt):
+        return {torch.float32: F32_ROW_TOL, torch.float16: F16_ROW_TOL}.get(
+            dt, PREFILL_ROW_TOL if prefill else NARROW_ROW_TOL if d < 16 else ROW_TOL)
+    return own(q_dt) if prefill else max(own(q_dt), own(kv_dt))
+
+
 def _attention_case(op, d, q_dt, kv_dt, seed=31, exact=False):
     """(kernel(), plain(), launch name, row limit) of ``op`` at head dim
     ``d`` (H 8 over Hkv 2), q in ``q_dt`` and K/V in ``kv_dt``: the
@@ -1509,11 +1526,7 @@ def _attention_case(op, d, q_dt, kv_dt, seed=31, exact=False):
     def qs(q, k):        # q x scale as the refresh and packed oracles round it
         return (q.float() * d ** -0.5).to(k.dtype).float()
 
-    f32_kv = kv_dt == torch.float32
-    prefill = op.startswith("flash_prefill")
-    tol = F32_ROW_TOL if f32_kv or (prefill and q_dt == torch.float32) else (
-        F16_ROW_TOL if q_dt == kv_dt == torch.float16 else
-        PREFILL_ROW_TOL if prefill else NARROW_ROW_TOL if d < 16 else ROW_TOL)
+    tol = _row_tol(op, d, q_dt, kv_dt)
     if op == "flash_packed":
         q, k, v, seg = _packed_inputs("multi", H, Hkv, d, seed=seed)
         q, k, v = q.to(q_dt), k.to(kv_dt), v.to(kv_dt)
@@ -1529,9 +1542,8 @@ def _attention_case(op, d, q_dt, kv_dt, seed=31, exact=False):
                                             window=200, q_offset=20)),
                 (lambda: flash_prefill_plain(q, k, v, window=200, q_offset=20)), op, tol)
     int8 = op.endswith("int8")
-    # the f16 builds' slab and caches drawn in f16 (every bit of it live)
-    hk, hv, cold = _quant_slab(rng, 7, 2, Hkv, d,
-                               torch.float16 if kv_dt == torch.float16 else torch.bfloat16)
+    # the slab and caches drawn in f32 and rounded once to K/V's type
+    hk, hv, cold = _quant_slab(rng, 7, 2, Hkv, d, kv_dt)
     pt = torch.from_numpy(rng.permutation(7)[:6].reshape(2, 3).astype(np.int32))
     if int8:
         pt[0, 0], pt[1, 2] = 7, 8
@@ -1782,17 +1794,71 @@ def test_attention_kernels_take_f16_qkv(dev, op, d):
     _held(*_attention_case(op, d, torch.float16, torch.float16), torch.float16)
 
 
+# a query of another type than its K/V: f16 over bf16, bf16 or f32 over f16
+# (every op), bf16 or f16 over f32 (flash_packed, flash_prefill)
+MIXED_PAIRS = ((torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16),
+               (torch.float32, torch.float16))
+F32_KV_PAIRS = ((torch.bfloat16, torch.float32), (torch.float16, torch.float32))
+CACHE_OPS = tuple(op for op in ATTN_OPS if op not in ("flash_packed", "flash_prefill"))
+
+
 @pytest.mark.parametrize("op", ATTN_OPS)
-def test_attention_kernels_refuse_f16_mixed_with_another_dtype(dev, op):
-    """f16 with bf16 or f32 in one call has no build: it raises naming
-    'kernel-dtype', with no launch."""
-    for q_dt, kv_dt in ((torch.float16, torch.bfloat16), (torch.bfloat16, torch.float16),
-                        (torch.float32, torch.float16)):
-        kernel, _, name, _ = _attention_case(op, 64, q_dt, kv_dt)
+@pytest.mark.parametrize("d", [64, 90, 512, 1024])
+def test_attention_kernels_take_a_query_of_another_type(dev, op, d):
+    """Each op takes each query type over the K/V types it has a build
+    for, reading q and writing the output in q's type (the products are
+    K/V's type's), on every width class: held to its plain version within
+    ``_row_tol``, one launch each."""
+    pairs = MIXED_PAIRS + (F32_KV_PAIRS if op not in CACHE_OPS else ())
+    for q_dt, kv_dt in pairs:
+        _held(*_attention_case(op, d, q_dt, kv_dt), q_dt)
+
+
+@pytest.mark.parametrize("op", CACHE_OPS)
+def test_cache_kernels_refuse_f32_kv(dev, op):
+    """f32 K/V in the cache kernels (their caches and slab are bf16 or
+    f16) raises naming 'kernel-dtype' under any query, with no launch."""
+    for q_dt in (torch.bfloat16, torch.float16, torch.float32):
+        kernel, _, name, _ = _attention_case(op, 64, q_dt, torch.float32)
         before = ops.launch_counts().get(name, 0)
         with pytest.raises(KernelError, match="kernel-dtype"):
             kernel()
         assert ops.launch_counts().get(name, 0) == before
+
+
+@pytest.mark.parametrize("op", ["flash_prefill", "flash_prefill_paged"])
+@pytest.mark.parametrize("d", [128, 90, 512, 1024])
+def test_prefill_kernels_take_a_bf16_query_past_f16_range_over_f16_kv(dev, op, d):
+    """A bf16 query whose column 0 lies past 65504 in every row, over f16
+    K/V whose column 0 is 1e4 times smaller (the scores stay O(1), so the
+    softmax is not a near-tie amplifier of f32 summation order): the
+    kernel's f16 halves of each query row, scaled by a power of two, keep
+    the oracle's f32 query, where plain f16 halves would be inf (held as
+    on the CPU, test_torch_mixed_operands.py)."""
+    rng = np.random.default_rng(7)
+    H, Hkv = 8, 2
+    qn = rng.normal(size=(2, 300, H, d))
+    qn[..., 0] = rng.choice([-1.0, 1.0], size=qn.shape[:-1]) * rng.uniform(7e4, 1.3e5,
+                                                                           qn.shape[:-1])
+    q = torch.from_numpy(qn.astype(np.float32)).bfloat16()
+    assert (q.float()[..., 0].abs() > 65504).all()
+
+    def kv(shape):
+        x = rng.normal(size=shape)
+        x[..., 0] *= 1e-4
+        return torch.from_numpy(x.astype(np.float32)).half()
+    if op == "flash_prefill":
+        k, v = kv((2, 300, Hkv, d)), kv((2, 300, Hkv, d))
+        out_k = ops.flash_prefill(q.to(dev), k.to(dev), v.to(dev), q_offset=20).cpu()
+        out_p = flash_prefill_plain(q, k, v, q_offset=20)
+    else:
+        hk, hv = kv((7 * 128, Hkv, d)), kv((7 * 128, Hkv, d))
+        pt = torch.from_numpy(rng.permutation(7)[:6].reshape(2, 3).astype(np.int32))
+        out_k = ops.flash_prefill_paged(q.to(dev), hk.to(dev), hv.to(dev), pt.to(dev),
+                                        q_offset=60).cpu()
+        out_p = flash_prefill_paged_plain(q, hk, hv, pt, q_offset=60)
+    assert out_k.dtype == torch.bfloat16 and torch.isfinite(out_k).all()
+    assert _row_rel_err(out_k, out_p) <= PREFILL_ROW_TOL
 
 
 @pytest.mark.parametrize("d", [128, 90, 512, 1024])

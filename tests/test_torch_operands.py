@@ -149,58 +149,71 @@ def _verdicts(d: int, q_dt, kv_dt):
 
 ATTN_OPS = ("flash_refresh", "flash_refresh_paged", "flash_refresh_paged_int8",
             "flash_prefill", "flash_prefill_paged", "flash_prefill_paged_int8", "flash_packed")
-F32_KV_OPS = {"flash_prefill", "flash_packed"}     # f32 q/k/v: the oracles round nothing
+F32_KV_OPS = {"flash_prefill", "flash_packed"}     # f32 K/V: the oracles round nothing
+Q_DTYPES = (BF16, F16, F32)
+
+
+def _f32_kv_verdicts():
+    """f32 K/V under any q: taken by flash_prefill and flash_packed, the
+    cache kernels' 'kernel-dtype' otherwise (their K/V are bf16 or f16)."""
+    return {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+
+
+def _assert_every_dtype_pair(d):
+    """Every q type over bf16 and f16 K/V is taken by every attention op;
+    over f32 K/V by flash_prefill and flash_packed."""
+    for kv_dt in (BF16, F16):
+        for q_dt in Q_DTYPES:
+            assert _verdicts(d, q_dt, kv_dt) == {op: "ok" for op in ATTN_OPS}, (q_dt, kv_dt)
+    for q_dt in Q_DTYPES:
+        assert _verdicts(d, q_dt, F32) == _f32_kv_verdicts(), q_dt
 
 
 @pytest.mark.parametrize("d", range(1, 257))
 def test_every_attention_op_takes_every_head_dim_and_f32_operands(d):
-    assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
-    assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
-    f32 = _verdicts(d, F32, F32)
-    assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+    _assert_every_dtype_pair(d)
 
 
 @pytest.mark.parametrize("d", range(257, 513))
 def test_every_attention_op_takes_every_head_dim_past_256(d):
     """d 257 to 512: the D-512 build (exact at 512, ragged below) in every
     operand mode the narrower builds take."""
-    assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
-    assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
-    f32 = _verdicts(d, F32, F32)
-    assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+    _assert_every_dtype_pair(d)
 
 
 @pytest.mark.parametrize("d", [513, 520, 640, 1000, 1022, 1023, 1024, 1040, 2048, 4096])
 def test_every_attention_op_takes_every_head_dim_past_512(d):
     """Past 512: the DEEP build (Q K^T summed over depth chunks) in every
     operand mode the D-512 build takes."""
-    assert _verdicts(d, BF16, BF16) == {op: "ok" for op in ATTN_OPS}
-    assert _verdicts(d, F32, BF16) == {op: "ok" for op in ATTN_OPS}
-    f32 = _verdicts(d, F32, F32)
-    assert f32 == {op: "ok" if op in F32_KV_OPS else "kernel-dtype" for op in ATTN_OPS}
+    _assert_every_dtype_pair(d)
 
 
 @pytest.mark.parametrize("d, q_dt, kv_dt, code", [
     (20, BF16, BF16, "ok"), (520, BF16, BF16, "ok"), (520, F32, BF16, "ok"),
     (1024, BF16, BF16, "ok"), (1024, F32, BF16, "ok"), (4096, BF16, BF16, "ok"),
-    (4096, F32, BF16, "ok"), (64, F16, F16, "ok"), (64, F16, BF16, "kernel-dtype"),
-    (64, BF16, F16, "kernel-dtype"), (64, F32, F16, "kernel-dtype")])
+    (4096, F32, BF16, "ok"), (64, F16, F16, "ok"), (64, F16, BF16, "ok"),
+    (64, BF16, F16, "ok"), (64, F32, F16, "ok"), (64, BF16, F32, "kernel-dtype"),
+    (64, F16, F32, "kernel-dtype"), (1024, F32, F32, "kernel-dtype")])
 def test_refused_operands_name_their_rule(d, q_dt, kv_dt, code):
-    """f16 mixed with another dtype in one call is refused by name; f16
-    q/k/v, once refused (no f16 build), d 20, once refused for not being a
+    """f32 K/V in the cache kernels is refused by name, under any q
+    (flash_prefill and flash_packed take it); f16 q/k/v, once refused (no
+    f16 build), a query of another type than its bf16 or f16 K/V, once
+    refused (no build mixed them), d 20, once refused for not being a
     multiple of 8, and d 520, 1024 and 4096, once refused for passing
     512, are taken."""
-    assert _verdicts(d, q_dt, kv_dt) == {op: code for op in ATTN_OPS}
+    want = ({op: code for op in ATTN_OPS} if code == "ok" else _f32_kv_verdicts())
+    assert _verdicts(d, q_dt, kv_dt) == want
 
 
 @pytest.mark.parametrize("d", [20, 64, 90, 128, 256, 512, 520, 1024, 4096])
 def test_every_attention_op_takes_f16_qkv(d):
     """f16 q, k and v (the f16 builds: ragged up to 256, the SLAB build to
-    512, the DEEP one past it) at every width class; an f16 query over
-    bf16 K/V, or a bf16 one over f16 K/V, stays refused."""
+    512, the DEEP one past it) at every width class, and an f16 query over
+    bf16 K/V or a bf16 or f32 one over f16 K/V."""
     assert _verdicts(d, F16, F16) == {op: "ok" for op in ATTN_OPS}
-    assert _verdicts(d, F16, BF16) == {op: "kernel-dtype" for op in ATTN_OPS}
-    assert _verdicts(d, BF16, F16) == {op: "kernel-dtype" for op in ATTN_OPS}
+    assert _verdicts(d, F16, BF16) == {op: "ok" for op in ATTN_OPS}
+    assert _verdicts(d, BF16, F16) == {op: "ok" for op in ATTN_OPS}
+    assert _verdicts(d, F32, F16) == {op: "ok" for op in ATTN_OPS}
 
 
 @pytest.mark.parametrize("d", range(2, 513, 2))
